@@ -1,0 +1,438 @@
+"""Llama model family in PyTorch: the parts the ragged paged engine runs.
+
+Counterpart of ``kubeflow_tpu/models/llama.py``. Parameters live in
+``nn.Module``s (``Llama`` holding one ``LlamaLayer`` per layer) instead of
+a pytree stacked on a leading layer axis: PyTorch runs eagerly, so the
+layer scan becomes a Python loop over ``Llama.layers``. Weights keep the
+JAX package's ``(in, out)`` layout — every projection is ``x @ w`` — so
+the weight bridge (``models/bridge.py``) only unstacks and never
+transposes.
+
+The numerics mirror the JAX functions at the places a straightforward
+port would drift: RMSNorm casts to the model dtype BEFORE the weight
+multiply (Gemma's ``1 + w`` stays in f32), the MLP's gate and up
+projections run in f32, RoPE is split-half in f32, the lm head multiplies
+in the model dtype and casts to f32 after, and ``_kv_quantize`` divides
+(never multiplies by a reciprocal) and rounds half to even, so int8
+values and bf16 scales come out byte-equal to JAX's.
+
+``forward``, prefill, ``decode_step`` and ``generate`` are not here yet:
+the ragged serving path runs prefill inside its fused dispatch and does
+not need them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+# Additive mask value of the filters (the JAX package's ops.attention
+# NEG_INF): large and finite, so a filtered row still has a finite max.
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """Llama-3.1 "llama3" rope scaling (frequency-dependent NTK stretch).
+    Field semantics follow the HF config.json rope_scaling block."""
+
+    factor: float = 8.0
+    low_freq_factor: float = 1.0
+    high_freq_factor: float = 4.0
+    original_max_position_embeddings: int = 8192
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    """Llama-family transformer config; the same fields and values as the
+    JAX package's, with a torch dtype.
+
+    Family flags: Mistral ``sliding_window``; Gemma ``act="gelu"``,
+    ``norm_add_unit``, ``embed_scale``, ``head_dim_override``,
+    ``tie_embeddings``; Qwen2 ``attn_bias``."""
+
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    ffn_hidden: int = 11008
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[RopeScaling] = None
+    max_seq_len: int = 4096
+    norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    sliding_window: int = 0  # 0 = full causal attention
+    act: str = "silu"  # "silu" (llama/mistral) | "gelu" (gemma, tanh approx)
+    norm_add_unit: bool = False  # RMSNorm weight is (1 + w) (gemma)
+    embed_scale: bool = False  # scale embeddings by sqrt(dim) (gemma)
+    head_dim_override: int = 0  # 0 = dim // n_heads
+    tie_embeddings: bool = False  # lm_head shares the embedding matrix
+    attn_bias: bool = False  # q/k/v projections carry biases (qwen2)
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_dim_override or self.dim // self.n_heads
+
+    def param_count(self) -> int:
+        embed = self.vocab_size * self.dim
+        attn = self.dim * self.head_dim * (2 * self.n_heads + 2 * self.n_kv_heads)
+        mlp = 3 * self.dim * self.ffn_hidden
+        norms = 2 * self.dim
+        n_embed = 1 if self.tie_embeddings else 2
+        return n_embed * embed + self.n_layers * (attn + mlp + norms) + self.dim
+
+
+LLAMA_CONFIGS: dict[str, LlamaConfig] = {
+    "llama-2-7b": LlamaConfig(),
+    "llama-2-13b": LlamaConfig(dim=5120, n_layers=40, n_heads=40, n_kv_heads=40,
+                               ffn_hidden=13824),
+    "llama-2-70b": LlamaConfig(dim=8192, n_layers=80, n_heads=64, n_kv_heads=8,
+                               ffn_hidden=28672),
+    "llama-3-8b": LlamaConfig(vocab_size=128256, dim=4096, n_layers=32,
+                              n_heads=32, n_kv_heads=8, ffn_hidden=14336,
+                              rope_theta=500000.0, max_seq_len=8192),
+    "llama-3.1-8b": LlamaConfig(vocab_size=128256, dim=4096, n_layers=32,
+                                n_heads=32, n_kv_heads=8, ffn_hidden=14336,
+                                rope_theta=500000.0, max_seq_len=131072,
+                                rope_scaling=RopeScaling()),
+    "mistral-7b": LlamaConfig(vocab_size=32000, dim=4096, n_layers=32,
+                              n_heads=32, n_kv_heads=8, ffn_hidden=14336,
+                              max_seq_len=32768, sliding_window=4096),
+    "gemma-2b": LlamaConfig(vocab_size=256000, dim=2048, n_layers=18,
+                            n_heads=8, n_kv_heads=1, ffn_hidden=16384,
+                            max_seq_len=8192, act="gelu", norm_add_unit=True,
+                            embed_scale=True, head_dim_override=256,
+                            tie_embeddings=True),
+    "gemma-7b": LlamaConfig(vocab_size=256000, dim=3072, n_layers=28,
+                            n_heads=16, n_kv_heads=16, ffn_hidden=24576,
+                            max_seq_len=8192, act="gelu", norm_add_unit=True,
+                            embed_scale=True, head_dim_override=256,
+                            tie_embeddings=True),
+    "qwen2.5-7b": LlamaConfig(vocab_size=152064, dim=3584, n_layers=28,
+                              n_heads=28, n_kv_heads=4, ffn_hidden=18944,
+                              rope_theta=1000000.0, max_seq_len=32768,
+                              norm_eps=1e-6, attn_bias=True),
+    # Tiny configs for tests.
+    "tiny": LlamaConfig(vocab_size=256, dim=128, n_layers=2, n_heads=4,
+                        n_kv_heads=4, ffn_hidden=256, max_seq_len=256),
+    "tiny-gqa": LlamaConfig(vocab_size=256, dim=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, ffn_hidden=256, max_seq_len=256),
+}
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+
+
+def _weight(shape: tuple, cfg: LlamaConfig, device) -> nn.Parameter:
+    # Inference weights: no autograd graph is ever recorded through them.
+    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
+                        requires_grad=False)
+
+
+class LlamaLayer(nn.Module):
+    """One transformer layer's weights, ``(in, out)`` layout."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        hd = cfg.head_dim
+        self.attn_norm = _weight((cfg.dim,), cfg, device)
+        self.wq = _weight((cfg.dim, cfg.n_heads * hd), cfg, device)
+        self.wk = _weight((cfg.dim, cfg.n_kv_heads * hd), cfg, device)
+        self.wv = _weight((cfg.dim, cfg.n_kv_heads * hd), cfg, device)
+        self.wo = _weight((cfg.n_heads * hd, cfg.dim), cfg, device)
+        self.mlp_norm = _weight((cfg.dim,), cfg, device)
+        self.w_gate = _weight((cfg.dim, cfg.ffn_hidden), cfg, device)
+        self.w_up = _weight((cfg.dim, cfg.ffn_hidden), cfg, device)
+        self.w_down = _weight((cfg.ffn_hidden, cfg.dim), cfg, device)
+        for name, width in (("bq", cfg.n_heads * hd), ("bk", cfg.n_kv_heads * hd),
+                            ("bv", cfg.n_kv_heads * hd)):
+            self.register_parameter(
+                name, _weight((width,), cfg, device) if cfg.attn_bias else None
+            )
+
+
+class Llama(nn.Module):
+    """A whole model's weights: embedding, layers, final norm and (untied
+    configs only) the lm head. Tied configs carry NO ``lm_head``: the
+    head projects through ``embed``, as in the JAX tree."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = _weight((cfg.vocab_size, cfg.dim), cfg, device)
+        self.final_norm = _weight((cfg.dim,), cfg, device)
+        self.register_parameter(
+            "lm_head",
+            None if cfg.tie_embeddings
+            else _weight((cfg.vocab_size, cfg.dim), cfg, device),
+        )
+        self.layers = nn.ModuleList(
+            LlamaLayer(cfg, device) for _ in range(cfg.n_layers)
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> Llama:
+    """Random init, 1/sqrt(fan_in) scaling, on ``device`` (resolved by
+    ``device.resolve_device``: the card unless ``"cpu"`` is asked for).
+    Values come from ``generator`` (seed 0 on the device when None) and
+    are drawn directly in the model dtype, so an 8B init never holds an
+    f32 temporary. They do not match JAX's ``PRNGKey`` draws; parity tests
+    bring JAX weights over through ``models/bridge.py`` instead."""
+    from kubeflow_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    model = Llama(cfg, dev)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("attn_norm", "mlp_norm", "final_norm"):
+                p.fill_(1.0)
+            elif leaf in ("bq", "bk", "bv"):
+                p.zero_()
+            else:
+                p.normal_(generator=generator)
+                p.mul_(torch.tensor(1.0 / math.sqrt(p.shape[-2]),
+                                    dtype=cfg.dtype, device=dev))
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Building blocks (f32 internals, model-dtype boundaries)
+
+
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a dense weight. Quantized weights (the JAX package's
+    models/quant.py and models/fp8.py wrappers) are not ported yet."""
+    if not isinstance(w, torch.Tensor):
+        raise TypeError(
+            f"only dense weights are supported, got {type(w).__name__}"
+        )
+    return x @ w
+
+
+def _qkv(h: torch.Tensor, layer: LlamaLayer):
+    """q/k/v projections with optional qwen2-style biases."""
+    q, k, v = _mm(h, layer.wq), _mm(h, layer.wk), _mm(h, layer.wv)
+    if layer.bq is not None:
+        q, k, v = q + layer.bq, k + layer.bk, v + layer.bv
+    return q, k, v
+
+
+def _lm_head_logits(x: torch.Tensor, params: Llama) -> torch.Tensor:
+    """x @ lm_head.T in the model dtype, THEN cast to f32 logits. Tied
+    models project through the embedding matrix."""
+    w = params.lm_head if params.lm_head is not None else params.embed
+    return (x @ w.T).float()
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             add_unit: bool = False) -> torch.Tensor:
+    xf = x.float()
+    rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    if add_unit:
+        # Gemma: multiply by (1 + w) in f32, THEN cast (matches HF).
+        return ((xf * rms) * (weight.float() + 1.0)).to(x.dtype)
+    return (xf * rms).to(x.dtype) * weight
+
+
+def _norm(x: torch.Tensor, weight: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    return rms_norm(x, weight, cfg.norm_eps, add_unit=cfg.norm_add_unit)
+
+
+def _embed(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params.embed[tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.dim), dtype=x.dtype, device=x.device)
+    return x
+
+
+def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
+    """``num / den`` as a true f32 division. ``float / tensor`` in torch
+    is ``reciprocal(den) * num``, which can differ from JAX's division in
+    the last bit."""
+    return torch.full_like(den, num) / den
+
+
+def rope_frequencies(cfg: LlamaConfig, positions: torch.Tensor):
+    """cos/sin tables for the given positions: (S, head_dim/2) each, f32."""
+    half = cfg.head_dim // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32,
+                             device=positions.device) / half
+    freqs = torch.pow(
+        torch.tensor(cfg.rope_theta, dtype=torch.float32,
+                     device=positions.device),
+        exponent,
+    )
+    scaling = getattr(cfg, "rope_scaling", None)
+    if scaling is not None:
+        freqs = _llama3_scale_freqs(scaling, freqs)
+    angles = positions.float()[:, None] * freqs[None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _llama3_scale_freqs(rs: RopeScaling, freqs: torch.Tensor) -> torch.Tensor:
+    """Llama-3.1 frequency-dependent scaling: high frequencies kept, low
+    frequencies stretched by ``factor``, a smooth ramp between the two
+    wavelength cutoffs (the HF "llama3" rope_type)."""
+    low_wavelen = rs.original_max_position_embeddings / rs.low_freq_factor
+    high_wavelen = rs.original_max_position_embeddings / rs.high_freq_factor
+    wavelen = _rdiv(2.0 * math.pi, freqs)
+    smooth = (_rdiv(float(rs.original_max_position_embeddings), wavelen)
+              - rs.low_freq_factor) / (rs.high_freq_factor - rs.low_freq_factor)
+    smooth = torch.clamp(smooth, 0.0, 1.0)
+    return torch.where(
+        wavelen > low_wavelen,
+        freqs / rs.factor,
+        torch.where(
+            wavelen < high_wavelen,
+            freqs,
+            (1.0 - smooth) * freqs / rs.factor + smooth * freqs,
+        ),
+    )
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               per_batch: bool = False) -> torch.Tensor:
+    """x: (B, H, S, D). Rotate pairs (split-half convention) in f32.
+
+    cos/sin (S, half) are shared across the batch; with ``per_batch`` they
+    are (B, half) with S == 1 (one position per row); 3-D (B, S, half)
+    are per-row per-position."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.dim() == 3:
+        c, s = cos[:, None, :, :], sin[:, None, :, :]
+    elif per_batch:
+        c, s = cos[:, None, None, :], sin[:, None, None, :]
+    else:
+        c, s = cos[None, None, :, :], sin[None, None, :, :]
+    x1f, x2f = x1.float(), x2.float()
+    out1 = x1f * c - x2f * s
+    out2 = x2f * c + x1f * s
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, -1).transpose(1, 2)  # (B, H, S, D)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _mlp(layer: LlamaLayer, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    pre = _mm(x, layer.w_gate).float()
+    if cfg.act == "gelu":
+        gate = F.gelu(pre, approximate="tanh")  # pytorch-tanh gelu
+    else:
+        gate = F.silu(pre)
+    up = _mm(x, layer.w_up).float()
+    return _mm((gate * up).to(x.dtype), layer.w_down)
+
+
+# ---------------------------------------------------------------------------
+# KV storage
+
+
+def _kv_cache_leaves(shape: tuple, dtype, kv_bits: int, device=None) -> dict:
+    """The structure-keyed storage format: ``shape`` is the (..., S, D)
+    value-leaf shape; kv_bits=8 stores int8 values plus bf16 scale leaves
+    one rank lower. The leaves' names decide how writes quantize and how
+    attention dequantizes."""
+    if kv_bits == 8:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                   device=device),
+        }
+    if kv_bits:
+        raise ValueError(f"kv_bits must be 0 or 8, got {kv_bits}")
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _kv_quantize(x: torch.Tensor):
+    """(..., S, D) → (int8 values, (..., S) bf16 scales): symmetric
+    per-(position, head) amax quantization over the head dim. A true
+    division and round-half-to-even, as in JAX, so the bytes agree."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp_min(amax / 127.0, 1e-8)
+    q = torch.round(xf / scale[..., None]).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+
+
+def _filter_top_k_top_p(logits: torch.Tensor, top_k: int,
+                        top_p: float) -> torch.Tensor:
+    """The top-k / nucleus filter: top-k keeps the k best per row; top-p
+    cuts tokens whose EXCLUSIVE prefix mass already covers top_p — the
+    best token always survives."""
+    if top_k:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]  # (B, 1)
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1) - probs
+        cutoff_idx = torch.sum(cum < top_p, dim=-1, keepdim=True) - 1
+        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+        logits = torch.where(logits < cutoff, NEG_INF, logits)
+    return logits
+
+
+def _categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Gumbel-max draw per row — the scheme of ``jax.random.categorical``
+    with a torch Generator's bits (the draws differ from JAX's)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def sample_logits(logits: torch.Tensor, generator: torch.Generator,
+                  temperature: float = 1.0, top_k: int = 0,
+                  top_p: float = 1.0) -> torch.Tensor:
+    """temperature → top-k → top-p → categorical; temperature == 0 is
+    greedy (argmax, first index on ties) and draws nothing."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    return _categorical(
+        _filter_top_k_top_p(logits / temperature, top_k, top_p), generator
+    )
+
+
+def sample_logits_per_row(logits: torch.Tensor, generator: torch.Generator,
+                          temps: torch.Tensor, top_k: int = 0,
+                          top_p: float = 1.0) -> torch.Tensor:
+    """sample_logits with a PER-ROW temperature: greedy rows (temp <= 0)
+    take the argmax, the rest a categorical draw; top_k/top_p are
+    engine-wide."""
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = _filter_top_k_top_p(
+        logits / torch.clamp_min(temps, 1e-6)[:, None], top_k, top_p
+    )
+    sampled = _categorical(scaled, generator)
+    return torch.where(temps <= 0.0, greedy, sampled)
