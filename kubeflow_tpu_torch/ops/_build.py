@@ -1,15 +1,13 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+"""Build the port's CUDA kernel with ``nvcc`` and load it with ctypes.
 
-Each source under ``csrc/`` has a plain C interface and compiles on its
-own into a shared library under ``kubeflow_tpu_torch/_build/`` (which
-``.gitignore`` lists), named by a hash of its source and flags, so an
-edited source never loads a stale library. Nothing is built at import
-time: the first ``load(name)`` builds, later ones reuse the file.
-``build()`` starts one ``nvcc`` per source, all at once, and waits for
-all of them.
+``csrc/ragged_attention.cu`` has a plain C interface and compiles into a
+shared library under ``kubeflow_tpu_torch/_build/`` (which ``.gitignore``
+lists), named by a hash of its source and flags, so an edited source never
+loads a stale library. Nothing is built at import time: the first
+``load()`` builds, later ones reuse the file.
 
 Builds of one checkout serialize on ``_build/build.lock`` (an advisory
-``flock``, released when its process ends).
+``flock``, released when its file is closed or its process ends).
 """
 
 from __future__ import annotations
@@ -20,25 +18,20 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-CSRC_DIR = PACKAGE_DIR / "csrc"
+SOURCE = PACKAGE_DIR / "csrc" / "ragged_attention.cu"
 BUILD_DIR = PACKAGE_DIR / "_build"
-
-# name → source file under csrc/
-SOURCES = {"ragged_attention": "ragged_attention.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: Optional[ctypes.CDLL] = None
 
 
 def nvcc_path() -> str:
@@ -50,75 +43,54 @@ def nvcc_path() -> str:
             return str(Path(root) / "bin" / "nvcc")
     raise RuntimeError(
         "nvcc not found (looked on PATH, $CUDA_HOME/bin and "
-        "/usr/local/cuda/bin); the port's CUDA kernels need the CUDA toolkit"
+        "/usr/local/cuda/bin); the port's CUDA kernel needs the CUDA toolkit"
     )
 
 
-def library_path(name: str) -> Path:
-    src = CSRC_DIR / SOURCES[name]
+def library_path() -> Path:
     digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+        SOURCE.read_bytes() + "\0".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{SOURCE.stem}-{digest}.so"
 
 
-def log_path(name: str) -> Path:
-    """The compiler's output of the last build of ``name`` (``-Xptxas -v``
-    register, shared-memory and spill lines)."""
-    return library_path(name).with_suffix(".log")
+def log_path() -> Path:
+    """The compiler's output of the last build (``-Xptxas -v`` register,
+    shared-memory and spill lines)."""
+    return library_path().with_suffix(".log")
 
 
-def build(names: Optional[Iterable[str]] = None) -> dict[str, float]:
-    """Compile every named source (default: all) whose library is missing,
-    one ``nvcc`` process per source, all started together. Returns
-    {name: seconds} for the sources built; raises with the compiler's
-    output if any build fails."""
-    names = list(SOURCES if names is None else names)
+def build() -> Optional[float]:
+    """Compile the source if its library is missing. Returns the seconds
+    ``nvcc`` took, or None when the library was already built; raises with
+    the compiler's output if the build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = library_path()
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            todo = [n for n in names if not library_path(n).exists()]
-            if not todo:
-                return {}
-            nvcc = nvcc_path()
-            procs = {}
-            t0 = time.monotonic()
-            for name in todo:
-                out = library_path(name)
-                tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                       str(CSRC_DIR / SOURCES[name])]
-                procs[name] = (subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True,
-                ), tmp, out)
-            seconds: dict[str, float] = {}
-            failed = []
-            for name, (proc, tmp, out) in procs.items():
-                log, _ = proc.communicate()
-                seconds[name] = time.monotonic() - t0
-                out.with_suffix(".log").write_text(log)
-                if proc.returncode != 0:
-                    tmp.unlink(missing_ok=True)
-                    failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
-                else:
-                    os.replace(tmp, out)
-            if failed:
-                raise RuntimeError("kernel build failed: " + "\n".join(failed))
-            return seconds
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
+        if out.exists():
+            return None
+        tmp = out.with_name(out.name + f".tmp{os.getpid()}")
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        log_path().write_text(proc.stdout)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"kernel build failed (nvcc exit {proc.returncode}):\n"
+                + proc.stdout
+            )
+        os.replace(tmp, out)
+        return time.monotonic() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library for ``name``, building it first if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            path = library_path(name)
-            if not path.exists():
-                build([name])
-            lib = ctypes.CDLL(str(path))
-            _loaded[name] = lib
-        return lib
+def load() -> ctypes.CDLL:
+    """The built library, building it first if needed."""
+    global _loaded
+    if _loaded is None:
+        build()
+        _loaded = ctypes.CDLL(str(library_path()))
+    return _loaded

@@ -65,7 +65,7 @@ def _validate(q, k_pool, tables, kv_mask, block_size, k_scale_pool,
 def _library() -> ctypes.CDLL:
     from kubeflow_tpu_torch.ops import _build
 
-    lib = _build.load("ragged_attention")
+    lib = _build.load()
     fn = getattr(lib, _C_FUNC)
     if fn.restype is not ctypes.c_int or not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
@@ -144,9 +144,11 @@ def ragged_paged_attention(
         v_scale_pool = v_scale_pool.contiguous()
     if any(x.data_ptr() % 16 for x in (q, k_pool, v_pool)):
         raise ValueError("q and the pools must be 16-byte aligned")
-    lib = _library()
     # Unowned rows read 0, as in the plain version.
     out = torch.zeros_like(q)
+    if t == 0 or s == 0:
+        return out  # no row or no sequence: nothing launched, nothing counted
+    lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, _C_FUNC)(
