@@ -3,40 +3,60 @@
 
     python3 chip_smoke.py
 
-The main path is ragged paged serving of ``llama-3-8b`` at full width and
-depth (random weights from a seed): ``PagedBatcher(ragged=True)`` behind
-``InferenceServer``, whose every engine step runs the hand-written CUDA
-kernel ``kubeflow_tpu_torch/csrc/ragged_attention.cu`` in each layer.
+The port serves ``llama-3-8b`` at full width and depth (random weights
+from a seed) behind ``InferenceServer`` on two main paths, each run with
+every kernel's launch count set to 0 just before it and read just after:
+
+- the ragged engine, ``PagedBatcher(ragged=True)``, whose every step runs
+  ``kubeflow_tpu_torch/csrc/ragged_attention.cu`` in each layer;
+- the alternating engine, ``PagedBatcher(ragged=False)`` (what the server
+  runs when ``KUBEFLOW_TPU_SERVING_RAGGED`` is unset), whose admissions
+  prefill through ``csrc/flash_attention.cu`` and whose decode steps run
+  ``csrc/paged_attention.cu``, each once per layer.
+
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card — needs ``torch.cuda.is_available()`` and drives one card (the
    first visible one); prints the card's ``nvidia-smi`` name and power
    limit; turns TF32 off;
-2. build — compiles the kernel with ``nvcc`` and prints ptxas's register /
-   shared-memory / spill lines;
-3. kernel vs plain — the kernel's wrapper against its plain PyTorch
-   version (kept in f32) on the same inputs, on the span layouts of the
-   CPU suite and one main-path shape, bf16 and int8 pools: on owned rows
-   max abs error <= 2e-2; element by element
+2. build — compiles every ``csrc/*.cu`` with ``nvcc``, one process per
+   source, all at once, and prints ptxas's register / shared-memory /
+   spill lines for each;
+3. kernel vs plain — each kernel's wrapper against its plain PyTorch
+   version (kept in f32) on the same inputs, held to three gates: max abs
+   error <= 2e-2; element by element
    ``|out - ref| <= 2^-7 · (|ref| + ref_abs)``, where ``ref_abs`` is the
    plain version over ``|v|`` (the size of the weighted sum before any
    cancellation); for each row and q head ``‖out - ref‖ <= 2^-6 · ‖ref‖``
-   over the head dim; unowned rows exactly 0;
-4. timing — CUDA events at the main-path shape (L2 flushed between
-   launches): the kernel, the plain version, and one library call
-   (``scaled_dot_product_attention`` over a per-slot batched view, a
-   yardstick the port never calls), beside the least time the card could
-   take (bytes over 3.35 TB/s, FLOPs over 989 TFLOP/s);
-5. engine — 16 prompts of 8..500 tokens, 64 new tokens each, once with a
-   bf16 pool and once with ``kv_bits=8``; each kernel's launch count is
-   zeroed just before the run and must equal ``ragged_steps × n_layers``
-   after it; 4 prompts are then served again with the kernel and with the
-   plain attention and compared (tokens equal, or a fork after the first
-   token with chosen-token logprobs before it within 2e-2); last, the 16
-   prompts are served once more under ``torch.profiler``, and that one
-   run's trace gives the card's busy time, idle share and time by kernel;
+   over the head dim. Ragged attention: the span layouts of the CPU suite
+   and one main-path shape, bf16 and int8 pools, on owned rows; unowned
+   rows exactly 0. Flash forward: the CPU suite's cases, the main-path
+   prefill (Hq 32, Hkv 8, Sq = Sk = 512, D 128, causal, left padding), a
+   shape past the TPU's 4 MB whole-K/V line (Sq = Sk = 16384), window
+   cases and a 528-row continuation; lse within 1e-3 where a row sees a
+   key, and <= -1e29 with O = 0 where it sees none. Paged decode: the CPU
+   suite's layouts and the main-path decode (8 slots, lengths 8..576),
+   an idle slot and a stale length;
+4. timing — CUDA events at the main-path shapes (L2 flushed between
+   launches): each kernel, its plain version, and one library call (a
+   yardstick the port never calls: ``scaled_dot_product_attention`` over
+   a per-slot batched view, with ``enable_gqa`` for the flash and decode
+   kernels), beside the least time the card could take (bytes over 3.35
+   TB/s, FLOPs of the visible pairs over 989 TFLOP/s);
+5. engines — 16 prompts of 8..500 tokens, 64 new tokens each: the ragged
+   engine with a bf16 and an int8 pool, where launches must equal
+   ``ragged_steps × n_layers``; the alternating engine with a bf16 pool,
+   where flash launches must equal ``_paged_admit`` calls × n_layers and
+   decode launches ``_paged_step`` calls × n_layers (calls counted here,
+   by wrapping the two functions). 4 prompts are then served again with
+   the kernels and with plain attention (``attn_kernel=False``, and for
+   the alternating engine's prefill ``impl="xla"``) and compared (tokens
+   equal, or a fork after the first token with chosen-token logprobs
+   before it within 2e-2); last, 8 prompts are served once more under
+   ``torch.profiler``, and that one run's trace gives the card's busy
+   time, idle share and time by kernel;
 6. HTTP — 4 concurrent ``/v1/completions`` (2 streamed) against the
-   server over the bf16 engine; streamed tokens must equal the blocking
+   server over each bf16 engine; streamed tokens must equal the blocking
    response for the same prompt; then ``/stats`` and a clean stop.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and last
@@ -46,6 +66,8 @@ It prints a ``{"kernels": [...]}`` line, the card line, and last
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import functools
 import json
 import math
 import os
@@ -59,11 +81,21 @@ import torch
 from torch.nn import functional as F
 
 from kubeflow_tpu_torch.models import llama as L
+from kubeflow_tpu_torch.models import paged as paged_mod
 from kubeflow_tpu_torch.models.llama import _kv_quantize
 from kubeflow_tpu_torch.models.paged import PagedBatcher
 from kubeflow_tpu_torch.models.server import InferenceServer
 from kubeflow_tpu_torch.models.serving import GenerationConfig
 from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops.attention import (
+    NEG_INF,
+    flash_attention_fwd,
+    flash_attention_reference,
+)
+from kubeflow_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_decode_reference,
+)
 from kubeflow_tpu_torch.ops.ragged_attention import (
     ragged_attention_reference,
     ragged_paged_attention,
@@ -177,7 +209,13 @@ def _errors(out, case, owned) -> dict:
     ref = ragged_attention_reference(**plain)[owned]
     ref_abs = ragged_attention_reference(
         **{**plain, "v_pool": case["v_pool"].abs()})[owned]
-    diff = (out.float()[owned] - ref).abs()
+    return _diff_errors(out.float()[owned], ref, ref_abs)
+
+
+def _diff_errors(out, ref, ref_abs) -> dict:
+    """The GATES errors of ``out`` against ``ref`` (both f32, the head dim
+    last), ``ref_abs`` being the plain version over ``|v|``."""
+    diff = (out - ref).abs()
     rel = diff / (ref.abs() + ref_abs).clamp_min(1e-30)
     row_rel = (torch.linalg.vector_norm(diff, dim=-1)
                / torch.linalg.vector_norm(ref, dim=-1).clamp_min(1e-30))
@@ -185,9 +223,17 @@ def _errors(out, case, owned) -> dict:
             "row_rel": float(row_rel.max())}
 
 
+def _gate(name: str, errs: dict, worst: dict) -> None:
+    """Hold each of ``errs`` to its GATES limit; keep the worst."""
+    for gate, limit in GATES.items():
+        check(math.isfinite(errs[gate]) and errs[gate] <= limit,
+              f"{name}: kernel vs plain {gate} error {errs[gate]} > {limit}")
+        worst[gate] = max(worst.get(gate, 0.0), errs[gate])
+
+
 def kernel_vs_plain():
-    """Phase 3: every case, bf16 and int8; returns {variant: {gate: the
-    worst error}}."""
+    """Phase 3, ragged attention: every case, bf16 and int8; returns
+    {variant: {gate: the worst error}}."""
     cases = [(_case(spans, seed=i, all_true=all_true, **SMALL), q_tile,
               f"small#{i}")
              for i, (spans, q_tile, all_true) in enumerate(SMALL_LAYOUTS)]
@@ -210,12 +256,163 @@ def kernel_vs_plain():
             log(f"  {name:9s} {variant}: " + " ".join(
                 f"max_{k}_err={v:.3e}" for k, v in errs.items())
                 + f" unowned_rows_zero={unowned_zero}")
-            for gate, limit in GATES.items():
-                check(math.isfinite(errs[gate]) and errs[gate] <= limit,
-                      f"{name} {variant}: kernel vs plain {gate} error "
-                      f"{errs[gate]} > {limit}")
-                worst[variant][gate] = max(worst[variant][gate], errs[gate])
+            _gate(f"{name} {variant}", errs, worst[variant])
             check(unowned_zero, f"{name} {variant}: unowned rows not 0")
+    return worst
+
+
+# Flash forward cases. The CPU suite's (tests/test_torch_flash_attention.py):
+# (b, h, hkv, sq, sk, causal, q_offset, window, left pads per batch row).
+FLASH_SMALL = [
+    (1, 2, 2, 384, 384, True, 0, 0, None),
+    (1, 8, 2, 256, 256, True, 0, 0, None),
+    (2, 4, 2, 384, 384, True, 0, 0, (100, 300)),
+    (1, 2, 2, 256, 384, True, 128, 150, None),
+    (1, 2, 1, 256, 384, False, 0, 0, None),
+]
+# The main-path prefill: one 512-token bucket, llama-3-8b heads, a prompt
+# of 312 tokens left-padded by 200.
+FLASH_MAIN = (1, 32, 8, 512, 512, True, 0, 0, (200,))
+FLASH_CASES = [(c, 128, f"small#{i}") for i, c in enumerate(FLASH_SMALL)] + [
+    (FLASH_MAIN, 128, "main-prefill"),
+    # A continuation re-admitted at 528 rows (a multiple of 16, not 128).
+    ((1, 32, 8, 528, 528, True, 0, 0, (17,)), 128, "continuation-528"),
+    # Past the TPU's whole-K/V line (2·Sk·D·2 B > 4 MB): its streamed kernel.
+    ((1, 32, 8, 16384, 16384, True, 0, 0, None), 128, "long-16384"),
+    ((1, 32, 8, 1024, 1024, True, 0, 256, (64,)), 128, "window-256"),
+    ((2, 8, 2, 300, 700, True, 400, 333, (0, 250)), 128, "window-q-offset"),
+    ((1, 8, 2, 200, 200, True, 0, 0, (30,)), 64, "d64"),
+    ((1, 8, 2, 200, 200, True, 0, 0, (30,)), 256, "d256"),
+]
+LSE_TOL = 1e-3
+
+
+def _flash_case(shape, d, seed):
+    b, h, hkv, sq, sk, causal, q_offset, window, pads = shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(size, generator=g, device=DEVICE).to(torch.bfloat16)
+
+    kv_mask = None
+    if pads is not None:
+        kv_mask = (torch.arange(sk, device=DEVICE)[None, :]
+                   >= torch.tensor(pads, device=DEVICE)[:, None])
+    return dict(q=randn(b, h, sq, d), k=randn(b, hkv, sk, d),
+                v=randn(b, hkv, sk, d), causal=causal, q_offset=q_offset,
+                window=window, kv_mask=kv_mask)
+
+
+def _flash_errors(out, lse, case) -> dict:
+    """GATES errors of O against the plain version kept in f32, plus
+    ``lse``: the worst |lse − ref| over rows that see a key, and whether
+    every row that sees none has O = 0 and lse <= -1e29."""
+    plain = {**case, **{n: case[n].float() for n in ("q", "k", "v")}}
+    ref, ref_lse = flash_attention_reference(**plain)
+    ref_abs, _ = flash_attention_reference(**{**plain, "v": plain["v"].abs()})
+    errs = _diff_errors(out.float(), ref, ref_abs)
+    has = ref_lse > NEG_INF / 2
+    errs["lse"] = float((lse - ref_lse).abs()[has].max()) if has.any() else 0.0
+    errs["keyless_rows_ok"] = bool((lse[~has] <= -1e29).all()
+                                   and (out[~has] == 0).all())
+    return errs
+
+
+def flash_vs_plain():
+    """Phase 3, flash forward; returns {gate: the worst error}."""
+    worst: dict = {}
+    for i, (shape, d, name) in enumerate(FLASH_CASES):
+        case = _flash_case(shape, d, seed=200 + i)
+        out, lse = flash_attention_fwd(**case)
+        torch.cuda.synchronize()
+        errs = _flash_errors(out, lse, case)
+        torch.cuda.synchronize()
+        log(f"  flash {name:17s}: " + " ".join(
+            f"max_{k}_err={v:.3e}" for k, v in errs.items()
+            if k != "keyless_rows_ok")
+            + f" keyless_rows_ok={errs['keyless_rows_ok']}")
+        _gate(f"flash {name}", errs, worst)
+        check(errs["lse"] <= LSE_TOL,
+              f"flash {name}: lse error {errs['lse']} > {LSE_TOL}")
+        worst["lse"] = max(worst.get("lse", 0.0), errs["lse"])
+        check(errs["keyless_rows_ok"],
+              f"flash {name}: a row with no visible key is not 0 / NEG_INF")
+        del case, out, lse
+    return worst
+
+
+# Paged decode cases. The CPU suite's layouts
+# (tests/test_torch_paged_attention.py), then the main-path decode:
+# llama-3-8b heads, 8 slots, block 16, the engine's 37-block tables,
+# lengths 8..576 with a quarter of each history left padding.
+DEC_SMALL = dict(hq=8, hkv=4, d=128, bs=16, maxb=6, nb=32)
+DEC_MAIN = dict(hq=32, hkv=8, d=128, bs=16, maxb=37, nb=8 * 37 + 1)
+DEC_MAIN_LENS = [int(x) for x in np.linspace(8, 576, 8)]
+DEC_CASES = [
+    ([17, 40, 96], DEC_SMALL, {}, "partial-tails"),
+    ([1, 33, 96], DEC_SMALL, {"all_true": True}, "all-true"),
+    ([60, 60, 60], DEC_SMALL, {"holes": True}, "holes"),
+    ([30, 50, 90], {**DEC_SMALL, "hkv": 2}, {}, "gqa-4"),
+    # An idle slot (table row 0, position 0, all-False mask) and a stale
+    # length past MAXB·BS beside live ones.
+    ([1, 10_000, 45], DEC_SMALL, {"idle": (0,)}, "idle-stale"),
+    (DEC_MAIN_LENS, DEC_MAIN, {"pad_frac": 0.25}, "main-decode"),
+    ([17, 40, 96], {**DEC_SMALL, "d": 64}, {}, "d64"),
+    ([17, 40, 96], {**DEC_SMALL, "d": 256}, {}, "d256"),
+]
+
+
+def _decode_case(seq_lens, *, hq, hkv, d, bs, maxb, nb, seed, all_true=False,
+                 holes=False, idle=(), pad_frac=0.0):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    b = len(seq_lens)
+
+    def randn(*size):
+        return torch.randn(size, generator=g, device=DEVICE).to(torch.bfloat16)
+
+    tables = torch.randperm(nb - 1, generator=g, device=DEVICE)[: b * maxb]
+    tables = (tables + 1).reshape(b, maxb).to(torch.int32)
+    seq = torch.tensor(seq_lens, dtype=torch.int32, device=DEVICE)
+    k_pos = torch.arange(maxb * bs, device=DEVICE)[None, :]
+    if all_true:
+        kv_mask = torch.ones((b, maxb * bs), dtype=torch.bool, device=DEVICE)
+    else:
+        pads = (seq.float() * pad_frac).long()[:, None]
+        kv_mask = (k_pos < seq[:, None]) & (k_pos >= pads)
+    if holes:
+        kv_mask[0, 5:9] = False
+        kv_mask[1, 16:32] = False  # a wholly masked block
+    for i in idle:
+        tables[i] = 0
+        seq[i] = 1
+        kv_mask[i] = False
+    return dict(q=randn(b, hq, d), k_pool=randn(nb, hkv, bs, d),
+                v_pool=randn(nb, hkv, bs, d), tables=tables, kv_mask=kv_mask,
+                seq_lens=seq, block_size=bs)
+
+
+def decode_vs_plain():
+    """Phase 3, paged decode; returns {gate: the worst error}."""
+    worst: dict = {}
+    for i, (lens, shape, opts, name) in enumerate(DEC_CASES):
+        case = _decode_case(lens, seed=300 + i, **shape, **opts)
+        out = paged_decode_attention(**case)
+        torch.cuda.synchronize()
+        plain = {**case, "q": case["q"].float(),
+                 "k_pool": case["k_pool"].float(),
+                 "v_pool": case["v_pool"].float()}
+        ref = paged_decode_reference(**plain)
+        ref_abs = paged_decode_reference(
+            **{**plain, "v_pool": plain["v_pool"].abs()})
+        errs = _diff_errors(out.float(), ref, ref_abs)
+        finite = bool(torch.isfinite(out).all())
+        idle_zero = all(bool((out[j] == 0).all()) for j in opts.get("idle", ()))
+        log(f"  decode {name:13s}: " + " ".join(
+            f"max_{k}_err={v:.3e}" for k, v in errs.items())
+            + f" finite={finite} idle_rows_zero={idle_zero}")
+        _gate(f"decode {name}", errs, worst)
+        check(finite and idle_zero, f"decode {name}: non-finite output or "
+                                    "an idle row not 0")
     return worst
 
 
@@ -370,8 +567,170 @@ def timing():
     return rows
 
 
+def _bound_of(nbytes: int, flops: int) -> tuple[float, str, dict]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_flops), (
+        "bytes" if t_bytes >= t_flops else "operations"), {
+        "bytes": nbytes, "flops": flops}
+
+
+def _flash_visible(case, b: int) -> torch.Tensor:
+    """(Sq, Sk) bool: the keys each query row of batch row ``b`` sees."""
+    sq, sk = case["q"].shape[2], case["k"].shape[2]
+    q_pos = torch.arange(sq, device=DEVICE)[:, None] + case["q_offset"]
+    k_pos = torch.arange(sk, device=DEVICE)[None, :]
+    vis = torch.ones((sq, sk), dtype=torch.bool, device=DEVICE)
+    if case["causal"]:
+        vis = vis & (k_pos <= q_pos)
+    if case["window"]:
+        vis = vis & (k_pos > q_pos - case["window"])
+    if case["kv_mask"] is not None:
+        vis = vis & case["kv_mask"][b][None, :]
+    return vis
+
+
+def _flash_bound(case):
+    """Least time: q, k, v and the mask read once, O and lse written once,
+    over HBM bandwidth; 4·D FLOPs for each visible (row, key) pair of each
+    q head (this run's causal bound, window and mask) over the bf16 peak."""
+    q, k = case["q"], case["k"]
+    b, h, sq, d = q.shape
+    pairs = sum(int(_flash_visible(case, i).sum()) for i in range(b)) * h
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * sq
+    if case["kv_mask"] is not None:
+        nbytes += case["kv_mask"].numel()
+    return _bound_of(nbytes, 4 * pairs * d)
+
+
+def _flash_library_call(case):
+    """One SDPA call with ``enable_gqa`` and the visibility as a boolean
+    mask; checked once against the plain version on rows that see a
+    key (SDPA gives NaN on rows that see none)."""
+    q, k, v = case["q"], case["k"], case["v"]
+    b = q.shape[0]
+    allowed = torch.stack([_flash_visible(case, i) for i in range(b)])[:, None]
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=allowed,
+                                              enable_gqa=True)
+
+    out = call()
+    ref, ref_lse = flash_attention_reference(
+        **{**case, **{n: case[n].float() for n in ("q", "k", "v")}})
+    has = ref_lse > NEG_INF / 2
+    err = float((out.float() - ref).abs()[has].max())
+    check(err <= TOL, f"flash library yardstick differs from the plain "
+                      f"version by {err}")
+    return call
+
+
+def timing_flash():
+    """Phase 4, flash forward: the main-path prefill, and the long shape
+    (kernel and library only: the plain version there is a yardstick of
+    nothing and takes seconds)."""
+    rows = {}
+    by_name = {name: (shape, d) for shape, d, name in FLASH_CASES}
+    for name, iters in (("main-prefill", 20), ("long-16384", 5)):
+        case = _flash_case(*by_name[name], seed=400)
+        saved = flash_attention_fwd.launches
+        kernel_ms = _time_ms(lambda: flash_attention_fwd(**case), iters=iters)
+        flash_attention_fwd.launches = saved  # timing is no main path
+        plain_ms = (_time_ms(lambda: flash_attention_reference(**case))
+                    if name == "main-prefill" else None)
+        library_ms = _time_ms(_flash_library_call(case), iters=iters)
+        bound_ms, bound_by, work = _flash_bound(case)
+        rows[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, **work)
+        log(f"  flash {name}: kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms if plain_ms is None else round(plain_ms, 4)} ms, "
+            f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; {work['bytes']} B, {work['flops']} FLOP)")
+        del case
+    return rows
+
+
+def _decode_visible(case) -> torch.Tensor:
+    """(B, MAXB·BS) bool: the keys each slot's query sees."""
+    k_pos = torch.arange(case["kv_mask"].shape[1], device=DEVICE)
+    return case["kv_mask"] & (k_pos[None, :] < case["seq_lens"].long()[:, None])
+
+
+def _decode_bound(case):
+    """Least time: each slot's live K/V blocks (at most MAXB), q and the
+    metadata read once, the output written once, over HBM bandwidth; 4·D
+    FLOPs per visible (slot, key) pair of each q head over the bf16 peak."""
+    q, tables = case["q"], case["tables"]
+    b, hq, d = q.shape
+    _, hkv, bs, _ = case["k_pool"].shape
+    maxb = tables.shape[1]
+    live = sum(min(-(-n // bs), maxb) for n in case["seq_lens"].tolist())
+    meta = sum(case[n].numel() * case[n].element_size()
+               for n in ("tables", "kv_mask", "seq_lens"))
+    nbytes = live * hkv * bs * d * 2 * 2 + 2 * q.numel() * 2 + meta
+    pairs = int(_decode_visible(case).sum()) * hq
+    return _bound_of(nbytes, 4 * pairs * d)
+
+
+def _decode_library_call(case):
+    """One SDPA call over the per-slot gathered view (gather untimed) with
+    ``enable_gqa`` and the validity as a boolean mask; checked once
+    against the plain version."""
+    q, tables = case["q"], case["tables"].long()
+    b, hq, d = q.shape
+    _, hkv, bs, _ = case["k_pool"].shape
+    length = tables.shape[1] * bs
+
+    def dense(pool):
+        return pool[tables].permute(0, 2, 1, 3, 4).reshape(b, hkv, length, d)
+
+    k, v = dense(case["k_pool"]), dense(case["v_pool"])
+    qd = q[:, :, None, :]
+    allowed = _decode_visible(case)[:, None, None, :]
+
+    def call():
+        return F.scaled_dot_product_attention(qd, k, v, attn_mask=allowed,
+                                              enable_gqa=True)
+
+    out = call()[:, :, 0]
+    ref = paged_decode_reference(**{**case, "q": q.float()})
+    err = float((out.float() - ref.float()).abs().max())
+    check(err <= TOL, f"decode library yardstick differs from the plain "
+                      f"version by {err}")
+    return call
+
+
+def timing_decode():
+    """Phase 4, paged decode at the main-path decode shape."""
+    case = _decode_case(DEC_MAIN_LENS, seed=500, pad_frac=0.25, **DEC_MAIN)
+    saved = paged_decode_attention.launches
+    kernel_ms = _time_ms(lambda: paged_decode_attention(**case))
+    paged_decode_attention.launches = saved  # timing is no main path
+    plain_ms = _time_ms(lambda: paged_decode_reference(**case))
+    library_ms = _time_ms(_decode_library_call(case))
+    bound_ms, bound_by, work = _decode_bound(case)
+    log(f"  decode main: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f" library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {work['bytes']} B, {work['flops']} FLOP)")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, **work)
+
+
 # ---------------------------------------------------------------------------
-# Engine
+# Engines
+
+
+def _zero_counts() -> None:
+    for wrapper in (ragged_paged_attention, flash_attention_fwd,
+                    paged_decode_attention):
+        wrapper.launches = 0
+
+
+def _counts() -> dict:
+    return {"ragged": ragged_paged_attention.launches,
+            "flash": flash_attention_fwd.launches,
+            "decode": paged_decode_attention.launches}
 
 
 def _prompts(cfg, n: int, lo: int, hi: int, seed: int) -> list[list[int]]:
@@ -381,13 +740,48 @@ def _prompts(cfg, n: int, lo: int, hi: int, seed: int) -> list[list[int]]:
             for m in lengths]
 
 
-def _engine(params, cfg, kv_bits: int, attn_kernel=None):
+def _engine(params, cfg, kv_bits: int, attn_kernel=None, ragged=True):
     return PagedBatcher(
         params, cfg, gen=GenerationConfig(max_new_tokens=64, eos_id=-1),
         slots=8, num_blocks=8 * 37 + 24, block_size=16, prompt_bucket=512,
-        ragged=True, token_budget=512, kv_bits=kv_bits,
-        attn_kernel=attn_kernel, device=DEVICE,
+        ragged=ragged, token_budget=512 if ragged else None,
+        kv_bits=kv_bits, attn_kernel=attn_kernel, device=DEVICE,
     )
+
+
+@contextlib.contextmanager
+def _counting_calls(*names):
+    """Count the calls of ``paged_mod.<name>`` for each name while inside;
+    yields {name: calls}. The engine looks both functions up in its
+    module at each call, so the wrappers see every one."""
+    calls = dict.fromkeys(names, 0)
+    real = {n: getattr(paged_mod, n) for n in names}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(paged_mod, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(paged_mod, name, real[name])
+
+
+@contextlib.contextmanager
+def _plain_prefill():
+    """The alternating engine's admissions with ``impl="xla"``: the plain
+    flash attention on the card."""
+    real = paged_mod._paged_admit
+    paged_mod._paged_admit = functools.partial(real, attn_impl="xla")
+    try:
+        yield
+    finally:
+        paged_mod._paged_admit = real
 
 
 def _serve(engine, prompts):
@@ -395,6 +789,14 @@ def _serve(engine, prompts):
     out = engine.run()
     lps = engine.run_logprobs()
     return [out[r] for r in rids], [lps[r] for r in rids]
+
+
+def _check_outputs(cfg, toks, lps) -> None:
+    for tk, lp in zip(toks, lps):
+        check(len(tk) == 64 and len(lp) == 64, "a request stopped early")
+        check(all(0 <= x < cfg.vocab_size for x in tk), "token off vocab")
+        check(all(math.isfinite(x) and x <= 1e-4 for x in lp),
+              "non-finite or positive logprob")
 
 
 def _compare(kern, plain) -> dict:
@@ -419,46 +821,97 @@ def _compare(kern, plain) -> dict:
 
 
 def engine_phase(params, cfg):
-    """Phase 5: returns ({variant: launches}, the bf16 engine)."""
+    """Phase 5, the ragged engine: returns ({variant: launches}, the bf16
+    engine)."""
     prompts = _prompts(cfg, 16, 8, 500, SEED)
     launches, engines = {}, {}
     for variant, bits in (("bf16", 0), ("int8", 8)):
         engine = _engine(params, cfg, bits)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ragged_paged_attention.launches = 0
+        _zero_counts()
         t0 = time.monotonic()
         toks, lps = _serve(engine, prompts)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        launches[variant] = ragged_paged_attention.launches
+        counts = _counts()
+        launches[variant] = counts["ragged"]
         steps = engine.ragged_steps
         check(steps > 0, "the engine ran no step")
         check(launches[variant] == steps * cfg.n_layers,
               f"{variant}: {launches[variant]} kernel launches for {steps} "
               f"ragged steps × {cfg.n_layers} layers")
-        for tk, lp in zip(toks, lps):
-            check(len(tk) == 64 and len(lp) == 64, "a request stopped early")
-            check(all(0 <= x < cfg.vocab_size for x in tk), "token off vocab")
-            check(all(math.isfinite(x) and x <= 1e-4 for x in lp),
-                  "non-finite or positive logprob")
+        check(counts["flash"] == counts["decode"] == 0,
+              f"{variant}: the ragged engine launched {counts}")
+        _check_outputs(cfg, toks, lps)
         n_tok = sum(len(tk) for tk in toks)
         peak = torch.cuda.max_memory_allocated()
-        log(f"  {variant}: {steps} steps, {engine.ragged_tokens} rows, "
-            f"{n_tok} tokens out, {wall:.3f} s wall, {launches[variant]} "
+        log(f"  ragged {variant}: {steps} steps, {engine.ragged_tokens} rows,"
+            f" {n_tok} tokens out, {wall:.3f} s wall, {launches[variant]} "
             f"kernel launches, peak {peak / 2**30:.2f} GiB")
         # Kernel vs plain attention on the same 4 prompts and schedule.
         sub = prompts[::4]
         kern = _serve(_engine(params, cfg, bits), sub)
         plain = _serve(_engine(params, cfg, bits, attn_kernel=False), sub)
         report = _compare(kern, plain)
-        log(f"  {variant}: kernel vs plain engine on 4 prompts "
+        log(f"  ragged {variant}: kernel vs plain engine on 4 prompts "
             f"(fork -1 = tokens equal): {json.dumps(report)}")
-        trace = _trace(_engine(params, cfg, bits), prompts)
-        log(f"  {variant}: traced rerun of the 16 prompts: "
+        traced = _engine(params, cfg, bits)
+        trace = _trace(traced, prompts[::2], {"attention": "ragged_kernel"})
+        trace["steps"] = traced.ragged_steps
+        log(f"  ragged {variant}: traced rerun of 8 prompts: "
             f"{json.dumps(trace)}")
         engines[variant] = engine
     return launches, engines["bf16"]
+
+
+def alternating_phase(params, cfg):
+    """Phase 5, the alternating engine with a bf16 pool: returns
+    ({"flash": launches, "decode": launches}, the engine)."""
+    prompts = _prompts(cfg, 16, 8, 500, SEED)
+    engine = _engine(params, cfg, 0, ragged=False)
+    check(engine.attn_kernel, "the alternating engine's decode kernel is off")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _counting_calls("_paged_admit", "_paged_step") as calls:
+        _zero_counts()
+        t0 = time.monotonic()
+        toks, lps = _serve(engine, prompts)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = _counts()
+    admits, steps = calls["_paged_admit"], calls["_paged_step"]
+    check(admits > 0 and steps > 0, "the engine ran no admission or step")
+    check(counts["flash"] == admits * cfg.n_layers,
+          f"{counts['flash']} flash launches for {admits} admissions × "
+          f"{cfg.n_layers} layers")
+    check(counts["decode"] == steps * cfg.n_layers,
+          f"{counts['decode']} decode launches for {steps} steps × "
+          f"{cfg.n_layers} layers")
+    check(counts["ragged"] == 0,
+          f"the alternating engine launched {counts['ragged']} ragged kernels")
+    _check_outputs(cfg, toks, lps)
+    n_tok = sum(len(tk) for tk in toks)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  alternating bf16: {admits} admissions, {steps} decode steps, "
+        f"{n_tok} tokens out, {wall:.3f} s wall, {counts['flash']} flash and "
+        f"{counts['decode']} decode launches, peak {peak / 2**30:.2f} GiB")
+    sub = prompts[::4]
+    kern = _serve(_engine(params, cfg, 0, ragged=False), sub)
+    with _plain_prefill():
+        plain = _serve(_engine(params, cfg, 0, ragged=False,
+                               attn_kernel=False), sub)
+    report = _compare(kern, plain)
+    log(f"  alternating bf16: kernels vs plain engine on 4 prompts "
+        f"(fork -1 = tokens equal): {json.dumps(report)}")
+    with _counting_calls("_paged_admit", "_paged_step") as calls:
+        trace = _trace(_engine(params, cfg, 0, ragged=False), prompts[::2],
+                       {"flash": "flash_fwd_kernel",
+                        "decode": "paged_decode_kernel"})
+    trace["admissions"] = calls["_paged_admit"]
+    trace["steps"] = calls["_paged_step"]
+    log(f"  alternating bf16: traced rerun of 8 prompts: {json.dumps(trace)}")
+    return {"flash": counts["flash"], "decode": counts["decode"]}, engine
 
 
 def _busy_seconds(intervals) -> float:
@@ -476,12 +929,13 @@ def _busy_seconds(intervals) -> float:
     return total / 1e6
 
 
-def _trace(engine, prompts) -> dict:
+def _trace(engine, prompts, kernels: dict) -> dict:
     """Serve the prompts under ``torch.profiler`` (card activity only) and
     read that one run: its wall seconds, the card's busy seconds (the
-    union of kernel intervals), the idle share 1 − busy/wall, and the
-    ragged attention kernel's and the six largest kernels' device seconds.
-    The profiler's own cost on the host stretches this run's wall, so its
+    union of kernel intervals), the idle share 1 − busy/wall, each of
+    ``kernels``' ({label: name substring}) device seconds and share of
+    busy time, and the six largest kernels' device seconds. The
+    profiler's own cost on the host stretches this run's wall, so its
     idle share is an upper bound for an untraced run."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -498,14 +952,16 @@ def _trace(engine, prompts) -> dict:
                                 + ev.time_range.elapsed_us() / 1e6)
             intervals.append((ev.time_range.start, ev.time_range.end))
     busy = _busy_seconds(intervals)
-    attention = sum(v for k, v in by_name.items() if "ragged_kernel" in k)
-    check(busy > 0 and attention > 0,
-          "the trace holds no ragged attention kernel on the card")
+    check(busy > 0, "the trace holds no kernel on the card")
+    out = {"wall_s": wall, "busy_s": busy, "idle_share": 1.0 - busy / wall}
+    for label, needle in kernels.items():
+        seconds = sum(v for k, v in by_name.items() if needle in k)
+        check(seconds > 0, f"the trace holds no {needle} on the card")
+        out[f"{label}_s"] = seconds
+        out[f"{label}_share_of_busy"] = seconds / busy
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"steps": engine.ragged_steps, "wall_s": wall, "busy_s": busy,
-            "idle_share": 1.0 - busy / wall, "attention_s": attention,
-            "attention_share_of_busy": attention / busy,
-            "top_kernels_s": [[k[:60], v] for k, v in top]}
+    out["top_kernels_s"] = [[k[:60], v] for k, v in top]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -530,10 +986,12 @@ def _post(port: int, body: dict, timeout: float = 300.0):
     return [e["token"] for e in out]
 
 
-def http_phase(engine):
-    """Phase 6: 2 prompts × (blocking, streamed), all 4 at once. Two-token
-    prompts keep every dispatch at the 8-row floor, so a streamed copy and
-    a blocking copy run at one width and must agree token for token."""
+def http_phase(engine, label: str):
+    """Phase 6: 2 prompts × (blocking, streamed), all 4 at once. On the
+    ragged engine two-token prompts keep every dispatch at the 8-row
+    floor; on the alternating one every admission is one (1, 512) prefill
+    and every step runs all 8 slots: either way a streamed copy and a
+    blocking copy run at one width and must agree token for token."""
     srv = InferenceServer(engine, port=0, model_name="llama-3-8b",
                           drain_s=30.0).start()
     try:
@@ -550,9 +1008,9 @@ def http_phase(engine):
                 f"http://127.0.0.1:{srv.port}/stats", timeout=30) as resp:
             stats = json.loads(resp.read())
         check(stats["served"] == 4, f"/stats served {stats['served']} != 4")
-        log(f"  4 completions ok; /stats: served={stats['served']} "
+        log(f"  {label}: 4 completions ok; /stats: served={stats['served']} "
             f"tokens_generated={stats['tokens_generated']} "
-            f"ttft_s={stats['ttft_s']} ragged={stats['ragged']}")
+            f"ttft_s={stats['ttft_s']} ragged={stats.get('ragged')}")
     finally:
         srv.stop()
 
@@ -589,24 +1047,29 @@ def main() -> int:
     log("[2/6] build")
     t0 = time.monotonic()
     seconds = _build.build()
-    for line in _build.log_path().read_text().splitlines():
-        if "ptxas" in line or "spill" in line:
-            log(f"  {line.strip()}")
-    log("  library already built" if seconds is None
-        else f"  nvcc took {seconds:.2f} s")
+    for name, took in seconds.items():
+        for line in _build.log_path(name).read_text().splitlines():
+            if "ptxas" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+        log(f"  {name}: library already built" if took is None
+            else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
 
     log("[3/6] kernel vs plain")
     t0 = time.monotonic()
     errors = kernel_vs_plain()
+    flash_errors = flash_vs_plain()
+    decode_errors = decode_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
-    log("[4/6] timing at the main-path shape")
+    log("[4/6] timing at the main-path shapes")
     t0 = time.monotonic()
     times = timing()
+    flash_times = timing_flash()
+    decode_times = timing_decode()
     phases["timing"] = time.monotonic() - t0
 
-    log("[5/6] engine: llama-3-8b, full width and depth, random weights")
+    log("[5/6] engines: llama-3-8b, full width and depth, random weights")
     t0 = time.monotonic()
     cfg = L.LLAMA_CONFIGS["llama-3-8b"]
     params = L.init_params(
@@ -615,31 +1078,44 @@ def main() -> int:
     log(f"  init {cfg.param_count() / 1e9:.2f}B params in "
         f"{time.monotonic() - t0:.2f} s")
     launches, engine = engine_phase(params, cfg)
+    alt_launches, alt_engine = alternating_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
     log("[6/6] HTTP")
     t0 = time.monotonic()
-    http_phase(engine)
+    http_phase(engine, "ragged")
+    http_phase(alt_engine, "alternating")
     phases["http"] = time.monotonic() - t0
 
-    kernels = [
-        {
-            "name": "ragged_paged_attention",
-            "variant": variant,
-            "route": "cuda",
-            "source": "kubeflow_tpu_torch/csrc/ragged_attention.cu",
-            "replaces": "kubeflow_tpu/ops/ragged_attention.py:330",
-            "launches": launches[variant],
-            "max_abs_err": errors[variant]["abs"],
-            "max_rel_err": errors[variant]["rel"],
-            "max_row_rel_err": errors[variant]["row_rel"],
-            "ms": times[variant]["ms"],
-            "plain_ms": times[variant]["plain_ms"],
-            "bound_ms": times[variant]["bound_ms"],
-            "bound_by": times[variant]["bound_by"],
-            "library_ms": times[variant]["library_ms"],
+    def entry(name, source, replaces, launched, errs, timed, **extra):
+        return {
+            "name": name, **extra, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launched,
+            "max_abs_err": errs["abs"], "max_rel_err": errs["rel"],
+            "max_row_rel_err": errs["row_rel"],
+            **{k: timed[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
         }
+
+    long_run = flash_times["long-16384"]
+    kernels = [
+        entry("ragged_paged_attention",
+              "kubeflow_tpu_torch/csrc/ragged_attention.cu",
+              "kubeflow_tpu/ops/ragged_attention.py:330", launches[variant],
+              errors[variant], times[variant], variant=variant)
         for variant in ("bf16", "int8")
+    ] + [
+        entry("flash_attention", "kubeflow_tpu_torch/csrc/flash_attention.cu",
+              "kubeflow_tpu/ops/attention.py:301", alt_launches["flash"],
+              flash_errors, flash_times["main-prefill"],
+              also_replaces="kubeflow_tpu/ops/attention.py:547",
+              max_lse_err=flash_errors["lse"],
+              long_16384={k: long_run[k] for k in (
+                  "ms", "library_ms", "bound_ms", "bound_by")}),
+        entry("paged_decode_attention",
+              "kubeflow_tpu_torch/csrc/paged_attention.cu",
+              "kubeflow_tpu/ops/paged_attention.py:233",
+              alt_launches["decode"], decode_errors, decode_times),
     ]
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")

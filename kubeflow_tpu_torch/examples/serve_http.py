@@ -1,24 +1,24 @@
-"""Serve a Llama-family model over HTTP with the port's ragged paged engine.
+"""Serve a Llama-family model over HTTP with the port's paged engine.
 
     python -m kubeflow_tpu_torch.examples.serve_http --config llama-3-8b &
     curl -s localhost:8000/v1/completions \
       -d '{"prompt": [1, 2, 3, 4], "max_tokens": 8}'
     curl -s localhost:8000/stats
 
-The PyTorch counterpart of ``examples/serve_http.py --paged`` with
-``KUBEFLOW_TPU_SERVING_RAGGED=1``: ``PagedBatcher(ragged=True)`` behind
-``InferenceServer``. Weights are a random init from ``--seed`` on the
-card (``--device cpu`` serves on the CPU); the model serves token ids.
-The env knobs of the JAX entry point apply: KUBEFLOW_TPU_SERVING_PORT,
-KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET and KUBEFLOW_TPU_KV_BITS. The port
-serves the ragged engine only, so KUBEFLOW_TPU_SERVING_RAGGED=0 is
-refused.
+The PyTorch counterpart of ``examples/serve_http.py --paged``:
+``PagedBatcher`` behind ``InferenceServer``, with the engine chosen as the
+JAX entry point chooses it. KUBEFLOW_TPU_SERVING_RAGGED=1 serves the
+ragged engine (``ragged=True``); unset or 0 serves the alternating
+engine (``ragged=False``: a flash prefill per admission, paged decode
+steps). Weights are a random init from ``--seed`` on the card
+(``--device cpu`` serves on the CPU); the model serves token ids. The
+other env knobs of the JAX entry point apply: KUBEFLOW_TPU_SERVING_PORT,
+KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET and KUBEFLOW_TPU_KV_BITS.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import signal
 import threading
 
@@ -53,7 +53,6 @@ def main(argv=None) -> None:
     from kubeflow_tpu_torch.models import llama as L
     from kubeflow_tpu_torch.models.paged import PagedBatcher
     from kubeflow_tpu_torch.models.server import (
-        KUBEFLOW_TPU_SERVING_RAGGED,
         InferenceServer,
         kv_pool_from_env,
         ragged_from_env,
@@ -68,11 +67,6 @@ def main(argv=None) -> None:
         kv_kw = kv_pool_from_env()
     except ValueError as err:
         raise SystemExit(str(err))
-    if not ragged and os.environ.get(KUBEFLOW_TPU_SERVING_RAGGED, "").strip():
-        raise SystemExit(
-            f"{KUBEFLOW_TPU_SERVING_RAGGED}=0: the PyTorch port serves the "
-            "ragged paged engine only"
-        )
     device = resolve_device(args.device)
     cfg = L.LLAMA_CONFIGS[args.config]
     params = L.init_params(
@@ -83,7 +77,7 @@ def main(argv=None) -> None:
     engine = PagedBatcher(
         params, cfg, gen=gen, slots=args.slots, num_blocks=args.num_blocks,
         block_size=args.block_size, prompt_bucket=args.prompt_bucket,
-        ragged=True, token_budget=token_budget, device=device, **kv_kw,
+        ragged=ragged, token_budget=token_budget, device=device, **kv_kw,
     )
     srv = InferenceServer(engine, host=args.host, port=args.port,
                           model_name=args.config,
@@ -91,7 +85,8 @@ def main(argv=None) -> None:
                           default_deadline_s=args.deadline_s,
                           drain_s=args.drain_s).start()
     print(f"serving {args.config} on http://{srv.host}:{srv.port} "
-          f"(ragged paged, {args.slots} slots, {device})", flush=True)
+          f"({'ragged' if ragged else 'alternating'} paged, {args.slots} "
+          f"slots, {device})", flush=True)
 
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())

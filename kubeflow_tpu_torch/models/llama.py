@@ -16,9 +16,13 @@ in the model dtype and casts to f32 after, and ``_kv_quantize`` divides
 (never multiplies by a reciprocal) and rounds half to even, so int8
 values and bf16 scales come out byte-equal to JAX's.
 
-``forward``, prefill, ``decode_step`` and ``generate`` are not here yet:
-the ragged serving path runs prefill inside its fused dispatch and does
-not need them.
+The full-sequence path (``forward``, ``forward_hidden``, ``prefill``,
+``_prefill_impl``) attends through ``ops/attention.py``'s
+``flash_attention`` — the CUDA flash kernel on the card, the plain version
+on the CPU — and ``_gqa_decode_attention`` is the gathered decode
+attention of the alternating paged engine. Inference only: no remat
+policy, no gradient. ``decode_step``, ``generate``, ``prefill_chunked``
+and ``_decode_chunk_impl`` come with the dense-cache engine.
 """
 
 from __future__ import annotations
@@ -31,9 +35,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-# Additive mask value of the filters (the JAX package's ops.attention
-# NEG_INF): large and finite, so a filtered row still has a finite max.
-NEG_INF = -1e30
+from kubeflow_tpu_torch.ops.attention import NEG_INF, flash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,6 +348,49 @@ def _mlp(layer: LlamaLayer, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return _mm((gate * up).to(x.dtype), layer.w_down)
 
 
+def _layer_fwd(layer: LlamaLayer, cfg: LlamaConfig, x: torch.Tensor,
+               cos: torch.Tensor, sin: torch.Tensor,
+               attn_impl: str) -> torch.Tensor:
+    """One transformer layer, full sequence. K/V go in unrepeated:
+    ``flash_attention`` reads the GQA group's kv head itself."""
+    h = _norm(x, layer.attn_norm, cfg)
+    hq, hk, hv = _qkv(h, layer)
+    q = apply_rope(_split_heads(hq, cfg.n_heads), cos, sin)
+    k = apply_rope(_split_heads(hk, cfg.n_kv_heads), cos, sin)
+    v = _split_heads(hv, cfg.n_kv_heads)
+    attn = flash_attention(q, k, v, causal=True, impl=attn_impl,
+                           window=cfg.sliding_window)
+    x = x + _mm(_merge_heads(attn), layer.wo)
+    h = _norm(x, layer.mlp_norm, cfg)
+    return x + _mlp(layer, h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Entry points (inference only)
+
+
+@torch.no_grad()
+def forward_hidden(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
+                   attn_impl: str = "auto") -> torch.Tensor:
+    """Tokens (B, S) → final-normed hidden states (B, S, dim), without the
+    lm head. The JAX function's ``remat`` policies exist for training and
+    are not ported."""
+    x = _embed(params, cfg, tokens)
+    cos, sin = rope_frequencies(
+        cfg, torch.arange(tokens.shape[1], device=tokens.device))
+    for layer in params.layers:
+        x = _layer_fwd(layer, cfg, x, cos, sin, attn_impl)
+    return _norm(x, params.final_norm, cfg)
+
+
+@torch.no_grad()
+def forward(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
+            attn_impl: str = "auto") -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) → logits (B, S, V) f32."""
+    return _lm_head_logits(forward_hidden(params, cfg, tokens, attn_impl),
+                           params)
+
+
 # ---------------------------------------------------------------------------
 # KV storage
 
@@ -379,6 +424,126 @@ def _kv_quantize(x: torch.Tensor):
     scale = torch.clamp_min(amax / 127.0, 1e-8)
     q = torch.round(xf / scale[..., None]).to(torch.int8)
     return q, scale.to(torch.bfloat16)
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                  kv_bits: int = 0, device=None) -> dict:
+    """Stacked KV cache: (L, B, Hkv, max_len, head_dim) per value leaf;
+    ``kv_bits=8`` stores int8 values plus (L, B, Hkv, max_len) bf16 scale
+    leaves. The leaves' names carry the format: writes quantize, decode
+    attention dequantizes, prefill attention runs on the fresh K/V."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return _kv_cache_leaves(shape, cfg.dtype, kv_bits, device)
+
+
+def _cache_store(cache_l: dict, k: torch.Tensor, v: torch.Tensor,
+                 position: int) -> dict:
+    """Write (B, Hkv, S, D) K/V into one layer's cache slice at a shared
+    ``position``, IN PLACE (JAX returns an updated copy), and return the
+    slice dict. Quantizes on write when the cache carries scale leaves."""
+    s = k.shape[2]
+    if "k_scale" in cache_l:
+        kq, ks = _kv_quantize(k)
+        vq, vs = _kv_quantize(v)
+        cache_l["k"][:, :, position:position + s] = kq
+        cache_l["v"][:, :, position:position + s] = vq
+        cache_l["k_scale"][:, :, position:position + s] = ks
+        cache_l["v_scale"][:, :, position:position + s] = vs
+    else:
+        cache_l["k"][:, :, position:position + s] = k
+        cache_l["v"][:, :, position:position + s] = v
+    return cache_l
+
+
+@torch.no_grad()
+def _prefill_impl(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
+                  kv_cache: dict, kv_mask: Optional[torch.Tensor] = None,
+                  attn_impl: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Prefill: write the prompt's K/V into ``kv_cache`` (in place) and
+    return (last-position logits (B, V), the cache) in one pass.
+
+    ``kv_mask`` (B, S) bool marks real prompt tokens of LEFT-padded
+    batches; RoPE positions stay absolute cache indices (shift-equivariant,
+    so the pad offset cancels in q·k). A pad row sees no key and gives 0.
+    ``attn_impl`` goes to ``flash_attention`` (JAX always uses "auto")."""
+    x = _embed(params, cfg, tokens)
+    s = tokens.shape[1]
+    cos, sin = rope_frequencies(cfg, torch.arange(s, device=tokens.device))
+    for li, layer in enumerate(params.layers):
+        cache_l = {name: leaf[li] for name, leaf in kv_cache.items()}
+        h = _norm(x, layer.attn_norm, cfg)
+        hq, hk, hv = _qkv(h, layer)
+        q = apply_rope(_split_heads(hq, cfg.n_heads), cos, sin)
+        k = apply_rope(_split_heads(hk, cfg.n_kv_heads), cos, sin)
+        v = _split_heads(hv, cfg.n_kv_heads)
+        _cache_store(cache_l, k, v, 0)
+        # Attention runs on the FRESH full-precision K/V; an int8 cache
+        # quantizes storage only.
+        attn = flash_attention(q, k, v, causal=True, impl=attn_impl,
+                               window=cfg.sliding_window, kv_mask=kv_mask)
+        x = x + _mm(_merge_heads(attn), layer.wo)
+        h = _norm(x, layer.mlp_norm, cfg)
+        x = x + _mlp(layer, h, cfg)
+    x_last = _norm(x[:, -1], params.final_norm, cfg)
+    return _lm_head_logits(x_last, params), kv_cache
+
+
+def prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
+            kv_cache: dict) -> tuple[torch.Tensor, dict]:
+    """Prompt pass: (last-position logits, primed cache) in ONE pass."""
+    return _prefill_impl(params, cfg, tokens, kv_cache)
+
+
+def _gqa_decode_attention(
+    q: torch.Tensor,            # (B, H, Sq, D)
+    k: torch.Tensor,            # (B, Hkv, L, D) — int8 when k_scale given
+    v: torch.Tensor,            # (B, Hkv, L, D)
+    position,                   # int | (Sq,) | (B,) or (B, Sq) with per_batch
+    window: int = 0,
+    kv_mask: Optional[torch.Tensor] = None,   # (B, L) valid-key mask
+    per_batch: bool = False,
+    k_scale: Optional[torch.Tensor] = None,   # (B, Hkv, L) int8-cache scales
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Grouped-query decode attention against the UNREPEATED cache: q is
+    folded to (B, Hkv, G, Sq, D). int8 caches fold the K scales into the
+    f32 scores and the V scales into the probabilities. Plain softmax at
+    NEG_INF, as in JAX: a row with no valid key averages V uniformly
+    (callers never read such a row)."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, sq, d)
+    scale = 1.0 / math.sqrt(d)
+    if k_scale is not None:
+        k = k.to(q.dtype)
+    scores = torch.einsum("bgrqd,bgkd->bgrqk", qg.float(), k.float()) * scale
+    if k_scale is not None:
+        scores = scores * k_scale.float()[:, :, None, None, :]
+    pos = torch.as_tensor(position, device=q.device)
+    if per_batch:
+        pos_q = (pos[:, None, None, :, None] if pos.dim() == 2
+                 else pos[:, None, None, None, None])
+    else:
+        if pos.dim() == 0:
+            pos = pos.expand(sq)
+        pos_q = pos[None, None, None, :, None]
+    k_pos = torch.arange(k.shape[2], device=q.device)[None, None, None, None, :]
+    mask = k_pos <= pos_q
+    if window:
+        mask = mask & (k_pos > pos_q - window)
+    if kv_mask is not None:
+        mask = mask & kv_mask.to(torch.bool)[:, None, None, None, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.float()[:, :, None, None, :]
+        v = v.to(q.dtype)
+        out = torch.einsum("bgrqk,bgkd->bgrqd", probs.to(q.dtype).float(),
+                           v.float()).to(q.dtype)
+        return out.reshape(b, h, sq, d)
+    out = torch.einsum("bgrqk,bgkd->bgrqd", probs.to(v.dtype).float(),
+                       v.float()).to(v.dtype)
+    return out.reshape(b, h, sq, d)
 
 
 # ---------------------------------------------------------------------------

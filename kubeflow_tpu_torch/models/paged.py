@@ -1,30 +1,42 @@
-"""Paged KV cache serving: the ragged block-pool engine.
+"""Paged KV cache serving: the block-pool engine, ragged and alternating.
 
-Counterpart of the ragged half of ``kubeflow_tpu/models/paged.py``. The
-cache is carved into fixed-size BLOCKS shared by all slots through
-per-slot block TABLES: a request holds exactly the blocks its tokens
-occupy, blocks return to the pool at retirement, and when the pool runs
-dry the YOUNGEST active request is preempted and re-queued as a
-continuation prompt.
+Counterpart of ``kubeflow_tpu/models/paged.py``. The cache is carved into
+fixed-size BLOCKS shared by all slots through per-slot block TABLES: a
+request holds exactly the blocks its tokens occupy, blocks return to the
+pool at retirement, and when the pool runs dry the YOUNGEST active request
+is preempted and re-queued as a continuation prompt.
 
-Every engine step is ONE fused dispatch over a flattened mixed batch
-(``_step_ragged``): each decoding slot contributes its next token, each
-admitting slot its next prompt chunk under the token budget, padded to a
-power-of-two width. ``_paged_ragged_step`` runs the layers, scatters each
-token's K/V into its (block, offset), attends through
-``ops/ragged_attention.py`` — the CUDA kernel on the card, the plain
-version on the CPU — and samples each slot's span at its last row, so a
-completing admission's first token comes out of the same dispatch.
+Two schedules, as in JAX:
+
+- ``ragged=True``: every engine step is ONE fused dispatch over a
+  flattened mixed batch (``_step_ragged``): each decoding slot contributes
+  its next token, each admitting slot its next prompt chunk under the
+  token budget, padded to a power-of-two width. ``_paged_ragged_step``
+  scatters each token's K/V into its (block, offset), attends through
+  ``ops/ragged_attention.py`` and samples each slot's span at its last
+  row, so a completing admission's first token comes out of the same
+  dispatch.
+- ``ragged=False`` (the constructor's default, and what the server runs
+  when ``KUBEFLOW_TPU_SERVING_RAGGED`` is unset or 0): admission and
+  decode alternate. Each admission is a ``(1, Lb)`` prefill dispatch
+  (``_paged_admit``) through ``ops/attention.py``'s flash forward, which
+  writes the prompt's K/V into its blocks; each decode step
+  (``_paged_step``) runs every slot's next token, attending through
+  ``ops/paged_attention.py``'s paged decode for a bf16 pool with
+  ``attn_kernel``, else through the gathered view and
+  ``_gqa_decode_attention`` (int8 pools, and the CPU).
+
+Each kernel's wrapper launches the CUDA kernel on the card and runs its
+plain version on the CPU.
 
 The pool keeps the JAX package's stacked layout, ``(L, NB, Hkv, BS, D)``
 per leaf (plus ``(L, NB, Hkv, BS)`` bf16 scale leaves for ``kv_bits=8``),
 because it is the wire format later engines export. PyTorch has no buffer
-donation, so the step updates the pool IN PLACE instead of returning a
+donation, so the steps update the pool IN PLACE instead of returning a
 new one. Block tables, positions and the allocator are host numpy and
 plain Python between steps; block 0 is the null block, never allocated.
 
-Not ported yet: the alternating (``ragged=False``) engine and its decode
-kernel, the prompt and prefix caches, the host-RAM swap tier, KV
+Not ported yet: the prompt and prefix caches, the host-RAM swap tier, KV
 export/import, tensor-parallel plans, adapters and sliding-window
 configs. Each raises ``NotImplementedError``.
 """
@@ -46,6 +58,7 @@ from kubeflow_tpu_torch.models.llama import (
     Llama,
     LlamaConfig,
     _embed,
+    _gqa_decode_attention,
     _kv_cache_leaves,
     _kv_quantize,
     _lm_head_logits,
@@ -53,13 +66,17 @@ from kubeflow_tpu_torch.models.llama import (
     _mlp,
     _mm,
     _norm,
+    _prefill_impl,
     _qkv,
     _split_heads,
     apply_rope,
+    init_kv_cache,
     rope_frequencies,
+    sample_logits,
     sample_logits_per_row,
 )
 from kubeflow_tpu_torch.models.serving import GenerationConfig, left_pad
+from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
 from kubeflow_tpu_torch.ops.ragged_attention import (
     ragged_attention_reference,
     ragged_paged_attention,
@@ -154,18 +171,109 @@ def _chunk_coords(cfg: LlamaConfig, tables: torch.Tensor,
     return cos, sin, blks, offs
 
 
+def _gathered_view(pool_l: torch.Tensor, tables: torch.Tensor,
+                   n_kv_heads: int, block_size: int,
+                   head_dim: int) -> torch.Tensor:
+    """(NB, Hkv, BS[, D])[tables] → the logical per-slot view
+    (B, Hkv, MAXB·BS[, D]); value leaves and (one rank lower) int8 scale
+    leaves alike."""
+    b, maxb = tables.shape
+    g = pool_l[tables.long()]
+    perm = (0, 2, 1, 3) + ((4,) if g.dim() == 5 else ())
+    shape = (b, n_kv_heads, maxb * block_size)
+    if g.dim() == 5:
+        shape += (head_dim,)
+    return g.permute(perm).reshape(shape)
+
+
+@torch.no_grad()
+def _paged_admit(params: Llama, cfg: LlamaConfig,
+                 tokens: torch.Tensor,            # (1, Lb) left-padded prompt
+                 pool: dict,                      # updated in place
+                 prompt_mask: Optional[torch.Tensor],  # (1, Lb) or None
+                 blocks: torch.Tensor,            # (Lb // BS,) the slot's blocks
+                 block_size: int,
+                 attn_impl: str = "auto") -> torch.Tensor:
+    """Prefill one prompt into its allocated blocks; returns its first
+    logits (V,). The prefill fills a temporary (1, Lb) cache in the pool's
+    storage format (int8 + scales when the pool has them); its K/V then go
+    straight into the stacked pool IN PLACE, one indexed write per leaf
+    over all layers, where JAX copies block by block into a new pool.
+    ``attn_impl`` goes to the prefill's ``flash_attention``."""
+    lb = tokens.shape[1]
+    temp = init_kv_cache(cfg, 1, lb, kv_bits=8 if "k_scale" in pool else 0,
+                         device=tokens.device)
+    logits, temp = _prefill_impl(params, cfg, tokens, temp,
+                                 kv_mask=prompt_mask, attn_impl=attn_impl)
+    nblk = lb // block_size
+    blocks = blocks.long()
+    for name, buf in pool.items():
+        t = temp[name][:, 0]  # (L, Hkv, Lb[, D])
+        t = t.reshape(t.shape[0], t.shape[1], nblk, block_size,
+                      *t.shape[3:]).transpose(1, 2)  # (L, nblk, Hkv, BS[, D])
+        buf[:, blocks] = t
+    return logits[0]
+
+
+@torch.no_grad()
+def _paged_step(
+    params: Llama,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,      # (B, 1)
+    pool: dict,                # updated in place
+    tables: torch.Tensor,      # (B, MAXB)
+    positions: torch.Tensor,   # (B,)
+    kv_mask: torch.Tensor,     # (B, MAXB * BS)
+    generator: torch.Generator,
+    block_size: int,
+    temps: torch.Tensor,       # (B,) per-slot sampling temperature
+    top_k: int,
+    top_p: float,
+    bias: Optional[torch.Tensor] = None,  # (B, V) per-slot logit bias
+    attn_kernel: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step across every slot, reading and writing through the
+    tables; returns (next token, its logprob) per slot. Idle slots carry
+    table row 0 (the null block), position 0 and an all-False kv_mask:
+    their writes land in the null block and their rows are discarded."""
+    positions = positions.long()
+    cos, sin, blks, offs = _chunk_coords(cfg, tables.long(),
+                                         positions[:, None], block_size)
+    x = _paged_chunk_scan(
+        params, cfg, tokens, pool, tables, kv_mask, cos, sin, blks, offs,
+        positions, block_size, attn_kernel=attn_kernel,
+    )
+    logits = _lm_head_logits(_norm(x[:, 0], params.final_norm, cfg), params)
+    if bias is not None:
+        logits = logits + bias
+    nxt = sample_logits_per_row(logits, generator, temps, top_k, top_p)
+    lp = torch.gather(torch.log_softmax(logits, dim=-1), 1, nxt[:, None])[:, 0]
+    return nxt, lp
+
+
 def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
-                      pool: dict, cos, sin, blks, offs, block_size: int,
-                      ragged: tuple, attn_kernel: bool = False) -> torch.Tensor:
-    """The layer loop of the ragged dispatch: per layer, scatter the
-    batch's K/V into the pool (in place) BEFORE attention reads it, then
-    attend through the per-SEQUENCE metadata ``ragged = (seq_starts,
-    seq_lens, kv_lens, tables, kv_mask)``. ``attn_kernel`` picks the CUDA
-    kernel's wrapper, else the plain version. Returns the hidden states
-    (T, 1, dim)."""
-    seq_starts, seq_lens, kv_lens, seq_tables, seq_mask = ragged
-    attend = ragged_paged_attention if attn_kernel else ragged_attention_reference
+                      pool: dict, tables, kv_mask, cos, sin, blks, offs,
+                      attn_positions, block_size: int,
+                      attn_kernel: bool = False,
+                      ragged: Optional[tuple] = None) -> torch.Tensor:
+    """The layer loop of a paged step: per layer, scatter the batch's K/V
+    into the pool (in place) BEFORE attention reads it, then attend.
+
+    ``ragged = (seq_starts, seq_lens, kv_lens, tables, kv_mask)``: the
+    per-SEQUENCE metadata of a flattened mixed batch, attended by the
+    ragged kernel's wrapper with ``attn_kernel``, else its plain version
+    (``tables``/``kv_mask``/``attn_positions`` are then unused). Without
+    it, one token per slot: ``attn_kernel`` reads the pool through
+    ``tables`` with the paged decode kernel's wrapper (bf16 pools only:
+    the constructor keeps it off for int8 pools, and the wrapper raises on
+    one); otherwise the gathered view goes through
+    ``_gqa_decode_attention``. Returns the hidden states (B, 1, dim)."""
     x = _embed(params, cfg, tokens)
+
+    def gathered(leaf):
+        return _gathered_view(leaf, tables, cfg.n_kv_heads, block_size,
+                              cfg.head_dim)
+
     for li, layer in enumerate(params.layers):
         pool_l = {name: leaf[li] for name, leaf in pool.items()}
         h = _norm(x, layer.attn_norm, cfg)
@@ -175,12 +283,31 @@ def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
                        per_batch=True)
         v = _split_heads(hv, cfg.n_kv_heads)
         _scatter_chunk(pool_l, k, v, blks, offs)
-        attn = attend(
-            q[:, :, 0, :], pool_l["k"], pool_l["v"], seq_tables, seq_mask,
-            seq_starts, seq_lens, kv_lens, block_size,
-            k_scale_pool=pool_l.get("k_scale"),
-            v_scale_pool=pool_l.get("v_scale"),
-        )[:, :, None, :]
+        if ragged is not None:
+            seq_starts, seq_lens, kv_lens, seq_tables, seq_mask = ragged
+            attend = (ragged_paged_attention if attn_kernel
+                      else ragged_attention_reference)
+            attn = attend(
+                q[:, :, 0, :], pool_l["k"], pool_l["v"], seq_tables, seq_mask,
+                seq_starts, seq_lens, kv_lens, block_size,
+                k_scale_pool=pool_l.get("k_scale"),
+                v_scale_pool=pool_l.get("v_scale"),
+            )[:, :, None, :]
+        elif attn_kernel:
+            attn = paged_decode_attention(
+                q[:, :, 0, :], pool_l["k"], pool_l["v"], tables, kv_mask,
+                attn_positions + 1, block_size,
+            )[:, :, None, :]
+        else:
+            attn = _gqa_decode_attention(
+                q, gathered(pool_l["k"]), gathered(pool_l["v"]),
+                attn_positions, window=cfg.sliding_window, kv_mask=kv_mask,
+                per_batch=True,
+                k_scale=(gathered(pool_l["k_scale"])
+                         if "k_scale" in pool_l else None),
+                v_scale=(gathered(pool_l["v_scale"])
+                         if "v_scale" in pool_l else None),
+            )
         x = x + _mm(_merge_heads(attn), layer.wo)
         h = _norm(x, layer.mlp_norm, cfg)
         x = x + _mlp(layer, h, cfg)
@@ -225,9 +352,9 @@ def _paged_ragged_step(
     tok_valid = torch.arange(tokens.shape[0], device=tokens.device) < n_tokens
     blks = torch.where(tok_valid[:, None], blks, 0)
     x = _paged_chunk_scan(
-        params, cfg, tokens, pool, cos, sin, blks, offs, block_size,
+        params, cfg, tokens, pool, None, None, cos, sin, blks, offs, None,
+        block_size, attn_kernel=attn_kernel,
         ragged=(seq_starts, seq_lens, kv_lens, tables, kv_mask),
-        attn_kernel=attn_kernel,
     )
     # Logits only at each slot's last row: the lm head runs S wide.
     xs = x[last_rows.long(), 0]  # (S, dim)
@@ -241,26 +368,30 @@ def _paged_ragged_step(
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (it comes with {where}); "
-        "the port serves the ragged engine only"
+        f"{what} is not ported to PyTorch yet (it comes with {where})"
     )
 
 
 class PagedBatcher(_BatcherBase):
-    """Continuous batching over a shared block pool, ragged scheduling.
+    """Continuous batching over a shared block pool.
 
-    >>> pb = PagedBatcher(params, cfg, slots=4, num_blocks=32, block_size=16,
-    ...                   ragged=True)
+    >>> pb = PagedBatcher(params, cfg, slots=4, num_blocks=32, block_size=16)
     >>> ids = [pb.submit(p) for p in prompts]
     >>> results = pb.run()          # {rid: tokens}, EOS-truncated
 
-    ``device`` is the card unless ``"cpu"`` is passed; ``params`` must live
-    there. ``attn_kernel=None`` runs the CUDA kernel on the card and the
-    plain attention on the CPU; ``attn_kernel=True`` on the CPU raises,
-    and ``attn_kernel=False`` on the card runs the plain version (for
-    comparing the two). Sampled rows draw from ``generator`` (a seeded
-    ``torch.Generator`` on the device; seed 0 when None), so they cannot
-    match JAX's draws bit for bit.
+    ``ragged=False`` (default) alternates prefill admissions with decode
+    steps; ``ragged=True`` fuses both into one dispatch per step. ``device``
+    is the card unless ``"cpu"`` is passed; ``params`` must live there.
+    ``attn_kernel`` picks the decode attention: None runs the CUDA kernel
+    on the card (the ragged kernel, or for ``ragged=False`` the paged
+    decode kernel, which reads bf16 pools only, so it defaults off for
+    ``kv_bits=8``) and the plain attention on the CPU; True on the CPU
+    raises, as does True with ``kv_bits`` and no ``ragged``; False on the
+    card runs the plain attention (for comparing the two). Admission
+    prefills always go through ``flash_attention(impl="auto")``. Sampled
+    rows draw from ``generator`` (a seeded ``torch.Generator`` on the
+    device; seed 0 when None), so they cannot match JAX's draws bit for
+    bit.
     """
 
     def __init__(
@@ -285,9 +416,6 @@ class PagedBatcher(_BatcherBase):
         device=None,
     ):
         self.gen = gen or GenerationConfig()
-        if not ragged:
-            raise _not_ported("ragged=False (the alternating admit/decode "
-                              "engine)", "the paged decode kernel")
         if plan is not None:
             raise _not_ported("plan= (tensor-parallel serving)",
                               "tensor-parallel replicas")
@@ -301,13 +429,23 @@ class PagedBatcher(_BatcherBase):
             raise _not_ported("sliding-window attention",
                               "the rest of the paged engine")
         self.device = resolve_device(device)
+        if attn_kernel and kv_bits and not ragged:
+            raise ValueError(
+                "attn_kernel=True does not compose with kv_bits on the "
+                "per-token decode kernel (it reads bf16 pools; an int8 "
+                "pool would silently run the gathered path) — the RAGGED "
+                "kernel dequantizes int8 pools: add ragged=True or drop "
+                "one of the two"
+            )
         if attn_kernel and self.device.type != "cuda":
             raise ValueError(
                 "attn_kernel=True needs the CUDA card; on device='cpu' the "
                 "engine runs the plain attention (leave attn_kernel unset)"
             )
-        self.attn_kernel = (self.device.type == "cuda"
-                            if attn_kernel is None else bool(attn_kernel))
+        self.attn_kernel = (
+            self.device.type == "cuda" and (not kv_bits or ragged)
+            if attn_kernel is None else bool(attn_kernel)
+        )
         if params.device != self.device:
             raise ValueError(
                 f"params live on {params.device}, the engine on "
@@ -318,15 +456,16 @@ class PagedBatcher(_BatcherBase):
                 f"prompt_bucket {prompt_bucket} must be a multiple of "
                 f"block_size {block_size}"
             )
-        if token_budget is None:
-            token_budget = 512
-        if token_budget < slots:
-            raise ValueError(
-                f"token_budget {token_budget} < slots {slots}: every "
-                "decoding slot needs one row per step"
-            )
-        self.ragged = True
-        self.token_budget = int(token_budget)
+        if ragged:
+            if token_budget is None:
+                token_budget = 512
+            if token_budget < slots:
+                raise ValueError(
+                    f"token_budget {token_budget} < slots {slots}: every "
+                    "decoding slot needs one row per step"
+                )
+        self.ragged = bool(ragged)
+        self.token_budget = int(token_budget) if ragged else 0
         self._ragged_admit: dict[int, dict] = {}
         # Batch-fill observability (/stats "ragged"): fraction of the last
         # step's budget carrying real tokens, plus lifetime counters.
@@ -452,8 +591,79 @@ class PagedBatcher(_BatcherBase):
 
     # -- scheduling --------------------------------------------------------
 
+    def _up(self, a: np.ndarray) -> torch.Tensor:
+        """Host numpy → the engine's device."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
     def _admit_free_slots(self) -> None:
-        self._admit_free_slots_ragged()
+        if self.ragged:
+            self._admit_free_slots_ragged()
+            return
+        for slot in range(self.slots):
+            if self._by_slot[slot] is not None:
+                continue
+            if not self._queue:
+                return
+            # Admission never preempts; decode-path eviction may push a
+            # continuation to the queue front, so the head is re-read.
+            head = self._queue[0]
+            effective = head.prompt + head.tokens
+            # Block-aligned bucket: prompt_bucket, or larger for a
+            # preempted continuation that outgrew it.
+            bucket = max(
+                self.prompt_bucket,
+                -(-len(effective) // self.block_size) * self.block_size,
+            )
+            need = bucket // self.block_size
+            blocks = self._reserve_take(need)
+            if blocks is None:
+                if not any(r is not None for r in self._by_slot):
+                    raise RuntimeError(
+                        f"block pool too small: {need} blocks needed for "
+                        f"a {len(effective)}-token prompt, pool has "
+                        f"{self.num_blocks - 1} usable; raise num_blocks"
+                    )
+                return  # pool busy; retry after in-flight slots retire
+            req = self._pop_queue()
+            padded, mask = left_pad([effective], self.gen.pad_id, bucket)
+            prompt_mask = None if mask.all() else self._up(mask)
+            logits = _paged_admit(
+                self.params, self.cfg, self._up(padded), self.pool,
+                prompt_mask, self._up(np.asarray(blocks, np.int32)),
+                self.block_size,
+            )
+            self.tables[slot] = 0  # stale entries never alias freed blocks
+            self.tables[slot, :len(blocks)] = blocks
+            self.positions[slot] = bucket
+            # The mask carries PADDING only: True past the prompt, where
+            # the positional bound hides not-yet-written positions.
+            row = np.ones((self.max_blocks * self.block_size,), bool)
+            row[:bucket] = mask[0]
+            self.kv_mask[slot] = self._up(row)
+            self._finish_admit(slot, _Request(
+                req.rid, req.prompt, list(req.tokens), blocks=blocks,
+                max_new=req.max_new, temperature=req.temperature,
+                stop=req.stop, logit_bias=req.logit_bias,
+                logprobs=req.logprobs, deadline=req.deadline,
+            ), logits)
+
+    def _finish_admit(self, slot: int, req: _Request,
+                      logits: torch.Tensor) -> None:
+        """Admission tail: sample the first token off the admission
+        logits, install the request, and feed the token through
+        retirement."""
+        temp = (self.gen.temperature if req.temperature is None
+                else req.temperature)
+        bias_row = self._install_bias(slot, req)
+        if bias_row is not None:
+            logits = logits + bias_row
+        first = int(sample_logits(logits[None], self.generator, temp,
+                                  self.gen.top_k, self.gen.top_p)[0])
+        first_lp = float(torch.log_softmax(logits.float(), dim=-1)[first])
+        req.budget = self._initial_budget(req) - len(req.tokens)
+        self.temps[slot] = temp
+        self._by_slot[slot] = req
+        self._note_token(slot, first, first_lp)
 
     def _admit_free_slots_ragged(self) -> None:
         """Admission ALLOCATES only — blocks, table row, validity mask,
@@ -541,7 +751,31 @@ class PagedBatcher(_BatcherBase):
                 req.blocks.append(blk)
 
     def _step(self) -> None:
-        self._step_ragged()
+        if self.ragged:
+            self._step_ragged()
+            return
+        active = self._ensure_step_blocks()
+        if not active:
+            return
+        self.last_step = {
+            "decode_rows": len(active),
+            "prefill_rows": 0,
+            "fill": len(active) / self.slots,
+        }
+        nxt, lps = _paged_step(
+            self.params, self.cfg, self._up(self.tokens), self.pool,
+            self._up(self.tables), self._up(self.positions), self.kv_mask,
+            self.generator, self.block_size, self._up(self.temps),
+            self.gen.top_k, self.gen.top_p, bias=self._bias,
+            attn_kernel=self.attn_kernel,
+        )
+        for slot in active:
+            self.positions[slot] += 1
+        host_next = nxt.cpu().numpy()
+        host_lps = lps.cpu().numpy()
+        for slot in active:
+            self._note_token(slot, int(host_next[slot]),
+                             float(host_lps[slot]))
 
     def _expire_ragged_admissions(self) -> None:
         """Cancelled or deadline-expired MID-PREFILL admissions retire
@@ -657,10 +891,7 @@ class PagedBatcher(_BatcherBase):
         if rows == 0:
             return
         width = self._dispatch_width(rows)
-
-        def up(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
+        up = self._up
         nxt, lps = _paged_ragged_step(
             self.params, self.cfg, up(tokens[:width]), self.pool,
             up(self.tables), self.kv_mask, up(tok_pos[:width]),

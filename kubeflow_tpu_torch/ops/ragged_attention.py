@@ -65,15 +65,13 @@ def _validate(q, k_pool, tables, kv_mask, block_size, k_scale_pool,
 def _library() -> ctypes.CDLL:
     from kubeflow_tpu_torch.ops import _build
 
-    lib = _build.load()
+    lib = _build.load("ragged_attention")
     fn = getattr(lib, _C_FUNC)
     if fn.restype is not ctypes.c_int or not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
-        lib.kftt_error_string.argtypes = [ctypes.c_int]
-        lib.kftt_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -1,9 +1,11 @@
 """chip_smoke.py's kernel-vs-plain gates, exercised on the CPU.
 
-The card runs the CUDA kernel against the plain version; here the plain
+The card runs each CUDA kernel against its plain version; here the plain
 version stands in for the kernel: rounded once to bf16 it must pass every
-gate, and with one block of a 640-key history dropped, or its output 3%
-off, it must fail. Shapes are llama-3-8b's heads at 16 rows.
+gate, and with one 16-key block of a 640-key history dropped, or its
+output 3% off, it must fail. Shapes are llama-3-8b's heads: 16 rows of
+the ragged kernel (bf16 and int8 pools) and of the flash kernel (rows at
+positions 624..639), and 2 slots of the paged decode kernel.
 """
 
 from __future__ import annotations
@@ -14,11 +16,16 @@ from pathlib import Path
 import pytest
 import torch
 
+from kubeflow_tpu_torch.ops.attention import flash_attention_reference
+from kubeflow_tpu_torch.ops.paged_attention import paged_decode_reference
 from kubeflow_tpu_torch.ops.ragged_attention import ragged_attention_reference
 
 ROOT = Path(__file__).resolve().parent.parent
 SHAPE = dict(hq=32, hkv=8, d=128, bs=16, maxb=40, nb=81, t=16)
 SPANS = [(1, 640), (8, 640)]  # a decode row and a chunk, 640 keys each
+FLASH_SHAPE = (1, 32, 8, 16, 640, True, 624, 0, None)
+DECODE_SHAPE = dict(hq=32, hkv=8, d=128, bs=16, maxb=40, nb=81)
+VARIANTS = ["bf16", "int8", "flash", "decode"]
 
 
 @pytest.fixture(autouse=True)
@@ -38,36 +45,64 @@ def smoke():
 
 
 def _case(smoke, variant):
+    if variant == "flash":
+        return smoke._flash_case(FLASH_SHAPE, 128, seed=0)
+    if variant == "decode":
+        return smoke._decode_case([640, 640], seed=0, **DECODE_SHAPE)
     case = smoke._case(SPANS, seed=0, **SHAPE)
     return case if variant == "bf16" else smoke._quantized(case)
+
+
+def _errors(smoke, variant, drop_block=False, scale=1.0):
+    """The gates' errors of the plain version standing in for the kernel:
+    run on the case (with one 16-key block of every history masked when
+    ``drop_block``), its output times ``scale`` and rounded to bf16, held
+    against the case as chip_smoke holds the kernel."""
+    case = _case(smoke, variant)
+    run = dict(case)
+    if drop_block:
+        mask = (torch.ones((1, 640), dtype=torch.bool) if variant == "flash"
+                else case["kv_mask"].clone())
+        mask[:, 320:336] = False
+        run["kv_mask"] = mask
+    if variant == "flash":
+        out, lse = flash_attention_reference(**run)
+        return smoke._flash_errors((out.float() * scale).to(torch.bfloat16),
+                                   lse, case)
+    if variant == "decode":
+        out = (paged_decode_reference(**run).float() * scale).to(
+            torch.bfloat16)
+        plain = {**case,
+                 **{n: case[n].float() for n in ("q", "k_pool", "v_pool")}}
+        ref = paged_decode_reference(**plain)
+        ref_abs = paged_decode_reference(
+            **{**plain, "v_pool": plain["v_pool"].abs()})
+        return smoke._diff_errors(out.float(), ref, ref_abs)
+    # bf16 q: the plain version rounds its output once.
+    out = (ragged_attention_reference(**run).float() * scale).to(
+        torch.bfloat16)
+    return smoke._errors(out, case, smoke._owned(case))
 
 
 def _failed(smoke, errs) -> list[str]:
     return [g for g, limit in smoke.GATES.items() if not errs[g] <= limit]
 
 
-@pytest.mark.parametrize("variant", ["bf16", "int8"])
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_plain_version_rounded_to_bf16_passes_every_gate(smoke, variant):
-    case = _case(smoke, variant)
-    out = ragged_attention_reference(**case)  # bf16 q: one output rounding
-    errs = smoke._errors(out, case, smoke._owned(case))
+    errs = _errors(smoke, variant)
     assert not _failed(smoke, errs), errs
+    if variant == "flash":
+        assert errs["lse"] <= smoke.LSE_TOL and errs["keyless_rows_ok"]
 
 
-@pytest.mark.parametrize("variant", ["bf16", "int8"])
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_a_dropped_kv_block_fails_the_relative_gates(smoke, variant):
-    case = _case(smoke, variant)
-    mask = case["kv_mask"].clone()
-    mask[:, 320:336] = False  # one 16-key block in the middle of each slot
-    out = ragged_attention_reference(**{**case, "kv_mask": mask})
-    errs = smoke._errors(out, case, smoke._owned(case))
+    errs = _errors(smoke, variant, drop_block=True)
     assert {"rel", "row_rel"} <= set(_failed(smoke, errs)), errs
 
 
-@pytest.mark.parametrize("variant", ["bf16", "int8"])
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_an_output_three_percent_off_fails_the_row_gate(smoke, variant):
-    case = _case(smoke, variant)
-    out = (ragged_attention_reference(**case).float() * 1.03).to(
-        torch.bfloat16)
-    errs = smoke._errors(out, case, smoke._owned(case))
+    errs = _errors(smoke, variant, scale=1.03)
     assert "row_rel" in _failed(smoke, errs), errs

@@ -52,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
         "sys.path.insert(0, sys.argv[1])\n"
         "import kubeflow_tpu_torch.models.paged, "
         "kubeflow_tpu_torch.models.server, kubeflow_tpu_torch.models.bridge, "
-        "kubeflow_tpu_torch.examples.serve_http, kubeflow_tpu_torch.ops._build\n"
+        "kubeflow_tpu_torch.examples.serve_http, kubeflow_tpu_torch.ops._build, "
+        "kubeflow_tpu_torch.ops.attention, kubeflow_tpu_torch.ops.paged_attention\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'kubeflow_tpu')]\n"
@@ -79,6 +80,8 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
         lambda: TL.init_params(cfg),
         lambda: PagedBatcher(params, cfg, slots=2, num_blocks=16,
                              block_size=8, prompt_bucket=16, ragged=True),
+        lambda: PagedBatcher(params, cfg, slots=2, num_blocks=16,
+                             block_size=8, prompt_bucket=16),
         lambda: serve_http.main(["--config", "tiny", "--port", "0"]),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -256,3 +256,98 @@ class TestSampling:
         draws = {int(TL.sample_logits(logits[1:2], gen, 1.0)[0])
                  for _ in range(50)}
         assert len(draws) > 1  # it does sample
+
+
+class TestFullSequence:
+    """``forward`` and ``_prefill_impl`` (logits and the primed cache) at
+    1e-5 on f32 ``tiny`` and ``tiny-gqa``; JAX runs its XLA attention on
+    the CPU and the port its plain flash version. int8 caches: values
+    within 1 count, scales within 1e-5 relative (a last-bit difference in
+    K can move a value across a rounding boundary)."""
+
+    @staticmethod
+    def _tokens(b, s, seed):
+        return np.random.default_rng(seed).integers(3, 256, size=(b, s)) \
+            .astype(np.int32)
+
+    @pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
+    def test_forward(self, name):
+        jcfg, tcfg, jp, tp = _model(name, "f32")
+        toks = self._tokens(2, 12, seed=10)
+        ref = L.forward(jp, jcfg, jnp.asarray(toks))
+        out = TL.forward(tp, tcfg, torch.from_numpy(toks))
+        assert out.dtype == torch.float32
+        _close(ref, out, "f32")
+        hidden = TL.forward_hidden(tp, tcfg, torch.from_numpy(toks))
+        _close(L.forward_hidden(jp, jcfg, jnp.asarray(toks)), hidden, "f32")
+
+    @pytest.mark.parametrize("kv_bits", [0, 8])
+    @pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
+    def test_prefill_left_padded(self, name, kv_bits):
+        jcfg, tcfg, jp, tp = _model(name, "f32")
+        toks = self._tokens(3, 16, seed=11)
+        # Left padding: row 1 has 5 pads, row 2 has 11.
+        mask = np.arange(16)[None, :] >= np.array([[0], [5], [11]])
+        toks = np.where(mask, toks, 0).astype(np.int32)
+        jl, jc = L._prefill_impl(jp, jcfg, jnp.asarray(toks),
+                                 L.init_kv_cache(jcfg, 3, 16, kv_bits),
+                                 kv_mask=jnp.asarray(mask))
+        cache = TL.init_kv_cache(tcfg, 3, 16, kv_bits, device="cpu")
+        tl, tc = TL._prefill_impl(tp, tcfg, torch.from_numpy(toks), cache,
+                                  kv_mask=torch.from_numpy(mask))
+        assert tc is cache  # written in place
+        _close(jl, tl, "f32")
+        assert set(tc) == set(jc)
+        for leaf, ref in jc.items():
+            got = tc[leaf]
+            assert tuple(got.shape) == ref.shape
+            if leaf in ("k", "v") and kv_bits:
+                diff = np.abs(got.numpy().astype(np.int32)
+                              - np.asarray(ref).astype(np.int32))
+                assert diff.max() <= 1
+            elif kv_bits:
+                np.testing.assert_allclose(
+                    got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                    rtol=1e-5, atol=0)
+            else:
+                _close(ref, got, "f32")
+
+    def test_prefill_entry_point(self):
+        jcfg, tcfg, jp, tp = _model("tiny-gqa", "f32")
+        toks = self._tokens(1, 8, seed=12)
+        jl, _ = L.prefill(jp, jcfg, jnp.asarray(toks),
+                          L.init_kv_cache(jcfg, 1, 8))
+        tl, _ = TL.prefill(tp, tcfg, torch.from_numpy(toks),
+                           TL.init_kv_cache(tcfg, 1, 8, device="cpu"))
+        _close(jl, tl, "f32")
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_gqa_decode_attention(int8):
+    rng = np.random.default_rng(13)
+    b, h, hkv, length, d = 3, 4, 2, 24, 32
+    q = rng.normal(size=(b, h, 1, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, length, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, length, d)).astype(np.float32)
+    pos = np.array([3, 17, 23], np.int32)
+    mask = rng.random((b, length)) > 0.2
+    jk, jv = jnp.asarray(k), jnp.asarray(v)
+    kw = {}
+    if int8:
+        jk, ks = L._kv_quantize(jk)
+        jv, vs = L._kv_quantize(jv)
+        kw = dict(k_scale=ks, v_scale=vs)
+    ref = L._gqa_decode_attention(jnp.asarray(q), jk, jv, jnp.asarray(pos),
+                                  kv_mask=jnp.asarray(mask), per_batch=True,
+                                  **kw)
+
+    def t(x):
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        return torch.from_numpy(a.copy())
+
+    out = TL._gqa_decode_attention(
+        t(q), t(jk), t(jv), t(pos), kv_mask=t(mask), per_batch=True,
+        **{k_: t(v_) for k_, v_ in kw.items()})
+    _close(ref, out, "f32")

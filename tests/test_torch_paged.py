@@ -1,4 +1,4 @@
-"""PyTorch port of the ragged paged engine vs JAX ``PagedBatcher(ragged=True)``.
+"""PyTorch port of the paged engines vs JAX ``PagedBatcher``.
 
 Both engines get the same weights (JAX ``init_params`` through the
 bridge) and the same numpy prompts, and are driven in lockstep, one
@@ -12,6 +12,14 @@ port its plain ragged attention: the same rule, other sums. On bf16
 ``tiny`` greedy tokens are compared on pinned prompts; where a bf16
 near-tie forks them, the port's tokens are held to greedy consistency
 against JAX ``forward`` instead, and the test says so.
+
+The alternating engine (``ragged=False``) is driven the same way against
+JAX ``PagedBatcher(ragged=False, attn_kernel=False)`` in the regimes of
+tests/test_paged.py: mixed lengths, a pool smaller than the slots' worst
+case, preemption and resume at a continuation bucket above
+``prompt_bucket``, early EOS, cancel, and ``kv_bits=8``. On the CPU its
+prefill runs the plain flash attention and its decode the gathered
+``_gqa_decode_attention``, as JAX's does there.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from kubeflow_tpu_torch.models import llama as TL
 from kubeflow_tpu_torch.models import paged as TP
 from kubeflow_tpu_torch.models.bridge import params_from_jax
 from kubeflow_tpu_torch.models.serving import GenerationConfig as TGen
+from kubeflow_tpu_torch.ops import attention as TA
+from kubeflow_tpu_torch.ops import paged_attention as TPA
 from kubeflow_tpu_torch.ops import ragged_attention as TRA
 
 
@@ -66,14 +76,14 @@ def _prompts(n, seed, lo=4, hi=16, vocab=256):
             for _ in range(n)]
 
 
-def _pair(models, max_new, **kw):
+def _pair(models, max_new, ragged=True, eos_id=-1, **kw):
     jcfg, tcfg, jparams, tparams = models
     jpb = JP.PagedBatcher(jparams, jcfg, gen=JGen(max_new_tokens=max_new,
-                                                  eos_id=-1),
-                          attn_kernel=False, ragged=True, **kw)
+                                                  eos_id=eos_id),
+                          attn_kernel=False, ragged=ragged, **kw)
     tpb = TP.PagedBatcher(tparams, tcfg, gen=TGen(max_new_tokens=max_new,
-                                                  eos_id=-1),
-                          ragged=True, device="cpu", **kw)
+                                                  eos_id=eos_id),
+                          ragged=ragged, device="cpu", **kw)
     return jpb, tpb
 
 
@@ -220,7 +230,7 @@ def test_constructor_refusals(f32_gqa):
               device="cpu")
     with pytest.raises(ValueError, match="attn_kernel"):
         TP.PagedBatcher(tparams, tcfg, ragged=True, attn_kernel=True, **kw)
-    for bad in ({"ragged": False}, {"ragged": True, "prefix_cache": True},
+    for bad in ({"ragged": True, "prefix_cache": True},
                 {"ragged": True, "prompt_cache": True},
                 {"ragged": True, "swap_bytes": 1024},
                 {"ragged": True, "plan": object()}):
@@ -234,3 +244,106 @@ def test_constructor_refusals(f32_gqa):
     with pytest.raises(ValueError, match="prompt_bucket"):
         TP.PagedBatcher(tparams, tcfg, ragged=True,
                         **dict(kw, prompt_bucket=12))
+
+
+class TestAlternatingF32Parity:
+    """``ragged=False``: prefill admissions alternate with decode steps."""
+
+    def test_mixed_lengths(self, f32_gqa):
+        jpb, tpb = _pair(f32_gqa, 6, ragged=False, slots=3, num_blocks=24,
+                         block_size=8, prompt_bucket=16)
+        out, _ = _lockstep(jpb, tpb, _prompts(5, seed=1))
+        assert all(len(t) == 6 for t in out.values())
+        assert tpb.free_blocks == jpb.free_blocks == 23
+
+    def test_pool_smaller_than_slots_worst_case(self, f32_gqa):
+        jpb, tpb = _pair(f32_gqa, 8, ragged=False, slots=3, num_blocks=6,
+                         block_size=8, prompt_bucket=16)
+        out, _ = _lockstep(jpb, tpb, _prompts(4, seed=11))
+        assert all(len(t) == 8 for t in out.values())
+
+    def test_preemption_resumes_at_a_larger_bucket(self, f32_gqa,
+                                                   monkeypatch):
+        """A 4-block pool cannot hold two requests' 3-block spans: the
+        youngest is preempted at its third block and re-admits as a
+        continuation whose bucket (16) passes prompt_bucket (8)."""
+        buckets = []
+        real_admit = TP._paged_admit
+
+        def counting(params, cfg, tokens, *a, **kw):
+            buckets.append(tokens.shape[1])
+            return real_admit(params, cfg, tokens, *a, **kw)
+
+        monkeypatch.setattr(TP, "_paged_admit", counting)
+        jpb, tpb = _pair(f32_gqa, 12, ragged=False, slots=2, num_blocks=5,
+                         block_size=8, prompt_bucket=8)
+        out, _ = _lockstep(jpb, tpb, _prompts(2, seed=7, lo=5, hi=7))
+        assert all(len(t) == 12 for t in out.values())
+        assert len(buckets) > 2 and max(buckets) > 8, buckets
+        assert tpb.free_blocks == jpb.free_blocks == 4
+
+    def test_early_eos_frees_blocks(self, f32_gqa):
+        _, tpb = _pair(f32_gqa, 16, ragged=False, slots=1, num_blocks=8,
+                       block_size=8, prompt_bucket=16)
+        rid = tpb.submit([5, 9, 17])
+        first = tpb.run()[rid][0]
+        jpb, tpb = _pair(f32_gqa, 16, ragged=False, eos_id=first, slots=1,
+                         num_blocks=8, block_size=8, prompt_bucket=16)
+        out, _ = _lockstep(jpb, tpb, [[5, 9, 17]])
+        assert list(out.values()) == [[]]
+        assert tpb.free_blocks == jpb.free_blocks == 7
+
+    def test_cancel_frees_blocks(self, f32_gqa):
+        jpb, tpb = _pair(f32_gqa, 8, ragged=False, slots=2, num_blocks=16,
+                         block_size=8, prompt_bucket=16)
+
+        def cancel_first(step, jpb, tpb):
+            if step == 2:
+                for eng in (jpb, tpb):
+                    assert eng._by_slot[0] is not None
+                    assert eng.cancel(0)
+
+        _lockstep(jpb, tpb, _prompts(3, seed=3), between=cancel_first)
+        assert tpb.run_aborted() == jpb.run_aborted() == {0: "cancelled"}
+        assert tpb.free_blocks == jpb.free_blocks == 15
+
+    def test_int8_pool(self, f32_gqa):
+        jpb, tpb = _pair(f32_gqa, 6, ragged=False, slots=3, num_blocks=24,
+                         block_size=8, prompt_bucket=16, kv_bits=8)
+        _lockstep(jpb, tpb, _prompts(5, seed=4))
+        assert tpb.attn_kernel is False
+        assert tpb.pool["k"].dtype == torch.int8
+
+
+def test_alternating_cpu_engine_never_calls_a_kernel(f32_gqa, monkeypatch):
+    def no_kernel(*a, **kw):
+        raise AssertionError("the CPU engine must not reach a kernel")
+
+    for mod in (TA, TPA, TRA):
+        monkeypatch.setattr(mod, "_library", no_kernel)
+    before = (TA.flash_attention_fwd.launches,
+              TPA.paged_decode_attention.launches)
+    _, tpb = _pair(f32_gqa, 3, ragged=False, slots=2, num_blocks=16,
+                   block_size=8, prompt_bucket=16)
+    assert tpb.attn_kernel is False
+    rids = [tpb.submit(p) for p in ([5, 9, 17], [4, 4])]
+    out = tpb.run()
+    assert [len(out[r]) for r in rids] == [3, 3]
+    assert (TA.flash_attention_fwd.launches,
+            TPA.paged_decode_attention.launches) == before
+
+
+def test_alternating_engine_constructs(f32_gqa):
+    """``ragged=False`` is the constructor's default, as in JAX."""
+    _, tcfg, _, tparams = f32_gqa
+    kw = dict(slots=2, num_blocks=16, block_size=8, prompt_bucket=16,
+              device="cpu")
+    pb = TP.PagedBatcher(tparams, tcfg, **kw)
+    assert pb.ragged is False and pb.token_budget == 0
+    assert pb.attn_kernel is False
+    with pytest.raises(ValueError, match="kv_bits"):
+        TP.PagedBatcher(tparams, tcfg, attn_kernel=True, kv_bits=8, **kw)
+    with pytest.raises(ValueError, match="attn_kernel"):
+        TP.PagedBatcher(tparams, tcfg, attn_kernel=True, **kw)
+    with pytest.raises(NotImplementedError):
+        TP.PagedBatcher(tparams, tcfg, prompt_cache=True, **kw)

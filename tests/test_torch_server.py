@@ -45,12 +45,13 @@ def tiny():
     return tcfg, params_from_jax(tree, tcfg, device="cpu")
 
 
-def _engine(tiny, **kw):
+def _engine(tiny, ragged=True, **kw):
     cfg, params = tiny
     return PagedBatcher(params, cfg, gen=GenerationConfig(max_new_tokens=6,
                                                           eos_id=-1),
                         slots=2, num_blocks=16, block_size=8,
-                        prompt_bucket=16, ragged=True, token_budget=16,
+                        prompt_bucket=16, ragged=ragged,
+                        token_budget=16 if ragged else None,
                         device="cpu", **kw)
 
 
@@ -184,3 +185,58 @@ def test_env_knobs_parse(monkeypatch):
     assert TS.serving_port_from_env() == JS.serving_port_from_env() == 8123
     assert TS.ragged_from_env() == JS.ragged_from_env() == (True, 64)
     assert TS.kv_pool_from_env() == {"kv_bits": 8}
+
+
+def test_alternating_engine_serves_completions(tiny):
+    """``PagedBatcher(ragged=False)`` behind the server: blocking and
+    streamed completions equal ``run()`` on the same prompts."""
+    ref_engine = _engine(tiny, ragged=False)
+    rids = [ref_engine.submit(p) for p in PROMPTS]
+    ref = ref_engine.run()
+    srv = TS.InferenceServer(_engine(tiny, ragged=False), port=0).start()
+    try:
+        for p, rid in zip(PROMPTS, rids):
+            code, body = _post(srv.port, {"prompt": p})
+            assert code == 200
+            assert json.loads(body)["choices"][0]["tokens"] == ref[rid]
+            code, body = _post(srv.port, {"prompt": p, "stream": True})
+            events = [ln[6:] for ln in body.splitlines()
+                      if ln.startswith("data: ")]
+            assert events[-1] == "[DONE]"
+            assert [json.loads(e)["token"] for e in events[:-1]] == ref[rid]
+        stats = _get(srv.port, "/stats")
+        assert stats["served"] == 2 * len(PROMPTS)
+        assert "ragged" not in stats
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("value,ragged", [(None, False), ("0", False),
+                                          ("1", True)])
+def test_serve_http_follows_the_ragged_env(monkeypatch, value, ragged):
+    """Unset or 0 serves the alternating engine, 1 the ragged one, as the
+    JAX entry point decides (``ragged_from_env``)."""
+    from kubeflow_tpu_torch.examples import serve_http
+
+    class Built(Exception):
+        pass
+
+    class NoServer:
+        def __init__(self, engine, **kw):
+            self.engine = engine
+
+        def start(self):
+            raise Built(self.engine)
+
+    if value is None:
+        monkeypatch.delenv("KUBEFLOW_TPU_SERVING_RAGGED", raising=False)
+    else:
+        monkeypatch.setenv("KUBEFLOW_TPU_SERVING_RAGGED", value)
+    assert JS.ragged_from_env()[0] == ragged
+    monkeypatch.setattr(TS, "InferenceServer", NoServer)
+    with pytest.raises(Built) as info:
+        serve_http.main(["--config", "tiny", "--device", "cpu", "--port",
+                         "0", "--num-blocks", "16", "--slots", "2"])
+    engine = info.value.args[0]
+    assert engine.ragged is ragged
+    assert engine.device.type == "cpu" and engine.attn_kernel is False
