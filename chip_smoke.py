@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 The port serves ``llama-3-8b`` at full width and depth (random weights
-from a seed) behind ``InferenceServer`` on two main paths, each run with
+from a seed) behind ``InferenceServer`` on three main paths, each run with
 every kernel's launch count set to 0 just before it and read just after:
 
 - the ragged engine, ``PagedBatcher(ragged=True)``, whose every step runs
@@ -12,7 +12,12 @@ every kernel's launch count set to 0 just before it and read just after:
 - the alternating engine, ``PagedBatcher(ragged=False)`` (what the server
   runs when ``KUBEFLOW_TPU_SERVING_RAGGED`` is unset), whose admissions
   prefill through ``csrc/flash_attention.cu`` and whose decode steps run
-  ``csrc/paged_attention.cu``, each once per layer.
+  ``csrc/paged_attention.cu``, each once per layer;
+- the continuous engine, ``ContinuousBatcher`` over a dense bf16 cache of
+  1024 positions per slot (what ``serve_http`` runs without ``--paged``),
+  whose admissions prefill through ``csrc/flash_attention.cu`` and whose
+  decode steps run the dense decode kernel of ``csrc/paged_attention.cu``,
+  each once per layer.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -36,23 +41,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    cases and a 528-row continuation; lse within 1e-3 where a row sees a
    key, and <= -1e29 with O = 0 where it sees none. Paged decode: the CPU
    suite's layouts and the main-path decode (8 slots, lengths 8..576),
-   an idle slot and a stale length;
+   an idle slot and a stale length. Dense decode: the CPU suite's layouts
+   and the main-path decode (8 slots, C 1024, lengths 8..576), a mask with
+   a hole, an idle slot (all-False row, exactly 0) and a slot at
+   seq_len == C;
 4. timing — CUDA events at the main-path shapes (L2 flushed between
    launches): each kernel, its plain version, and one library call (a
    yardstick the port never calls: ``scaled_dot_product_attention`` over
    a per-slot batched view, with ``enable_gqa`` for the flash and decode
-   kernels), beside the least time the card could take (bytes over 3.35
-   TB/s, FLOPs of the visible pairs over 989 TFLOP/s);
+   kernels, over ``cache[:, :, :max_len]`` for the dense decode kernel),
+   beside the least time the card could take (bytes over 3.35 TB/s, FLOPs
+   of the visible pairs over 989 TFLOP/s);
 5. engines — 16 prompts of 8..500 tokens, 64 new tokens each: the ragged
    engine with a bf16 and an int8 pool, where launches must equal
    ``ragged_steps × n_layers``; the alternating engine with a bf16 pool,
    where flash launches must equal ``_paged_admit`` calls × n_layers and
    decode launches ``_paged_step`` calls × n_layers (calls counted here,
-   by wrapping the two functions). 4 prompts are then served again with
-   the kernels and with plain attention (``attn_kernel=False``, and for
-   the alternating engine's prefill ``impl="xla"``) and compared (tokens
-   equal, or a fork after the first token with chosen-token logprobs
-   before it within 2e-2); last, 8 prompts are served once more under
+   by wrapping the two functions); the continuous engine (8 slots, cache
+   1024, bucket 512), where flash launches must equal ``_admit_slot``
+   calls × n_layers and dense decode launches ``_cb_step`` calls ×
+   n_layers. 4 prompts are then served again with the kernels and with
+   plain attention (``attn_kernel=False``, and for the alternating and
+   continuous engines' prefill ``impl="xla"``) and compared (tokens equal,
+   or a fork after the first token with chosen-token logprobs before it
+   within 2e-2); the continuous engine serves them once more with chunked
+   admission (``admit_chunk=128``), compared to one-shot admission by the
+   same rule; last, 8 prompts are served once more under
    ``torch.profiler``, and that one run's trace gives the card's busy
    time, idle share and time by kernel;
 6. HTTP — 4 concurrent ``/v1/completions`` (2 streamed) against the
@@ -80,8 +94,10 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from kubeflow_tpu_torch.models import continuous as cont_mod
 from kubeflow_tpu_torch.models import llama as L
 from kubeflow_tpu_torch.models import paged as paged_mod
+from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
 from kubeflow_tpu_torch.models.llama import _kv_quantize
 from kubeflow_tpu_torch.models.paged import PagedBatcher
 from kubeflow_tpu_torch.models.server import InferenceServer
@@ -93,6 +109,8 @@ from kubeflow_tpu_torch.ops.attention import (
     flash_attention_reference,
 )
 from kubeflow_tpu_torch.ops.paged_attention import (
+    dense_decode_attention,
+    dense_decode_reference,
     paged_decode_attention,
     paged_decode_reference,
 )
@@ -391,29 +409,93 @@ def _decode_case(seq_lens, *, hq, hkv, d, bs, maxb, nb, seed, all_true=False,
                 seq_lens=seq, block_size=bs)
 
 
-def decode_vs_plain():
-    """Phase 3, paged decode; returns {gate: the worst error}."""
+def _decode_vs_plain(label, cases, make_case, kernel, reference, kv_names):
+    """Phase 3 for a decode kernel: each case through ``kernel`` and
+    through ``reference`` on the same values in f32 (``kv_names`` the two
+    K/V inputs); idle rows must be exactly 0. Returns {gate: the worst
+    error}."""
+    k_name, v_name = kv_names
     worst: dict = {}
-    for i, (lens, shape, opts, name) in enumerate(DEC_CASES):
-        case = _decode_case(lens, seed=300 + i, **shape, **opts)
-        out = paged_decode_attention(**case)
+    for i, (lens, shape, opts, name, seed) in enumerate(cases):
+        case = make_case(lens, seed=seed, **shape, **opts)
+        out = kernel(**case)
         torch.cuda.synchronize()
-        plain = {**case, "q": case["q"].float(),
-                 "k_pool": case["k_pool"].float(),
-                 "v_pool": case["v_pool"].float()}
-        ref = paged_decode_reference(**plain)
-        ref_abs = paged_decode_reference(
-            **{**plain, "v_pool": plain["v_pool"].abs()})
+        plain = {**case, **{n: case[n].float() for n in ("q", k_name, v_name)}}
+        ref = reference(**plain)
+        ref_abs = reference(**{**plain, v_name: plain[v_name].abs()})
         errs = _diff_errors(out.float(), ref, ref_abs)
         finite = bool(torch.isfinite(out).all())
         idle_zero = all(bool((out[j] == 0).all()) for j in opts.get("idle", ()))
-        log(f"  decode {name:13s}: " + " ".join(
+        log(f"  {label} {name:14s}: " + " ".join(
             f"max_{k}_err={v:.3e}" for k, v in errs.items())
             + f" finite={finite} idle_rows_zero={idle_zero}")
-        _gate(f"decode {name}", errs, worst)
-        check(finite and idle_zero, f"decode {name}: non-finite output or "
-                                    "an idle row not 0")
+        _gate(f"{label} {name}", errs, worst)
+        check(finite and idle_zero, f"{label} {name}: non-finite output or "
+                                    "an idle row not exactly 0")
     return worst
+
+
+def decode_vs_plain():
+    """Phase 3, paged decode; returns {gate: the worst error}."""
+    return _decode_vs_plain(
+        "decode", [c + (300 + i,) for i, c in enumerate(DEC_CASES)],
+        _decode_case, paged_decode_attention, paged_decode_reference,
+        ("k_pool", "v_pool"))
+
+
+# Dense decode cases. The CPU suite's layouts
+# (tests/test_torch_dense_decode.py), then the main-path decode: llama-3-8b
+# heads, 8 slots, the engine's cache of 1024 positions, lengths 8..576 with
+# a quarter of each history left padding and the mask True past it, as the
+# engine keeps it (the positional bound hides the rest).
+DENSE_SMALL = dict(hq=8, hkv=4, d=128, c=256)
+DENSE_MAIN = dict(hq=32, hkv=8, d=128, c=1024)
+DENSE_CASES = [
+    ([1, 100, 256], DENSE_SMALL, {"hole": (1, 10, 20)}, "hole"),
+    ([17, 65, 130], DENSE_SMALL, {}, "partial-blocks"),
+    ([40, 90, 200], DENSE_SMALL, {"pad_frac": 0.5}, "left-padding"),
+    ([30, 50, 90], {**DENSE_SMALL, "hkv": 2}, {}, "gqa-4"),
+    ([1, 256, 77], DENSE_SMALL, {"idle": (0,)}, "idle-and-full"),
+    (DEC_MAIN_LENS, DENSE_MAIN, {"pad_frac": 0.25}, "main-decode"),
+    (DEC_MAIN_LENS, DENSE_MAIN, {"pad_frac": 0.25, "hole": (5, 300, 364)},
+     "main-hole"),
+    ([1] + DEC_MAIN_LENS[1:], DENSE_MAIN, {"pad_frac": 0.25, "idle": (0,)},
+     "main-idle"),
+    ([1024] + DEC_MAIN_LENS[1:], DENSE_MAIN, {"pad_frac": 0.25},
+     "main-full"),
+    ([17, 65, 130], {**DENSE_SMALL, "d": 64}, {}, "d64"),
+    ([17, 65, 130], {**DENSE_SMALL, "d": 256}, {}, "d256"),
+]
+
+
+def _dense_case(seq_lens, *, hq, hkv, d, c, seed, hole=None, idle=(),
+                pad_frac=0.0):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    b = len(seq_lens)
+
+    def randn(*size):
+        return torch.randn(size, generator=g, device=DEVICE).to(torch.bfloat16)
+
+    seq = torch.tensor(seq_lens, dtype=torch.int32, device=DEVICE)
+    pads = (seq.float() * pad_frac).long()[:, None]
+    kv_mask = torch.arange(c, device=DEVICE)[None, :] >= pads
+    if hole is not None:
+        row, lo, hi = hole
+        kv_mask[row, lo:hi] = False
+    for i in idle:
+        seq[i] = 1
+        kv_mask[i] = False
+    return dict(q=randn(b, hq, d), k_cache=randn(b, hkv, c, d),
+                v_cache=randn(b, hkv, c, d), kv_mask=kv_mask, seq_lens=seq,
+                block_size=256)
+
+
+def dense_vs_plain():
+    """Phase 3, dense decode; returns {gate: the worst error}."""
+    return _decode_vs_plain(
+        "dense", [c + (600 + i,) for i, c in enumerate(DENSE_CASES)],
+        _dense_case, dense_decode_attention, dense_decode_reference,
+        ("k_cache", "v_cache"))
 
 
 # ---------------------------------------------------------------------------
@@ -652,25 +734,28 @@ def timing_flash():
 
 
 def _decode_visible(case) -> torch.Tensor:
-    """(B, MAXB·BS) bool: the keys each slot's query sees."""
+    """(B, MAXB·BS) or (B, C) bool: the keys each slot's query sees."""
     k_pos = torch.arange(case["kv_mask"].shape[1], device=DEVICE)
     return case["kv_mask"] & (k_pos[None, :] < case["seq_lens"].long()[:, None])
 
 
 def _decode_bound(case):
-    """Least time: each slot's live K/V blocks (at most MAXB), q and the
-    metadata read once, the output written once, over HBM bandwidth; 4·D
-    FLOPs per visible (slot, key) pair of each q head over the bf16 peak."""
+    """Least time: the K and V rows of each slot's visible keys (kv_mask ∧
+    k_pos < seq_len), the table entries and mask bytes of its live prefix,
+    q and seq_lens read once, the output written once, over HBM bandwidth;
+    4·D FLOPs per visible (slot, key) pair of each q head over the bf16
+    peak."""
     q, tables = case["q"], case["tables"]
     b, hq, d = q.shape
     _, hkv, bs, _ = case["k_pool"].shape
     maxb = tables.shape[1]
-    live = sum(min(-(-n // bs), maxb) for n in case["seq_lens"].tolist())
-    meta = sum(case[n].numel() * case[n].element_size()
-               for n in ("tables", "kv_mask", "seq_lens"))
-    nbytes = live * hkv * bs * d * 2 * 2 + 2 * q.numel() * 2 + meta
-    pairs = int(_decode_visible(case).sum()) * hq
-    return _bound_of(nbytes, 4 * pairs * d)
+    prefix = [min(n, maxb * bs) for n in case["seq_lens"].tolist()]
+    blocks = sum(-(-n // bs) for n in prefix)
+    keys = int(_decode_visible(case).sum())
+    nbytes = (keys * hkv * d * 2 * 2 + blocks * tables.element_size()
+              + sum(prefix) + 2 * q.numel() * 2
+              + case["seq_lens"].numel() * 4)
+    return _bound_of(nbytes, 4 * keys * hq * d)
 
 
 def _decode_library_call(case):
@@ -701,20 +786,77 @@ def _decode_library_call(case):
     return call
 
 
-def timing_decode():
-    """Phase 4, paged decode at the main-path decode shape."""
-    case = _decode_case(DEC_MAIN_LENS, seed=500, pad_frac=0.25, **DEC_MAIN)
-    saved = paged_decode_attention.launches
-    kernel_ms = _time_ms(lambda: paged_decode_attention(**case))
-    paged_decode_attention.launches = saved  # timing is no main path
-    plain_ms = _time_ms(lambda: paged_decode_reference(**case))
-    library_ms = _time_ms(_decode_library_call(case))
-    bound_ms, bound_by, work = _decode_bound(case)
-    log(f"  decode main: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms,"
-        f" library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+def _timing_decode(label, case, kernel, reference, library_call, bound):
+    """Phase 4 for a decode kernel at one case: the kernel, its plain
+    version, the library call and the bound."""
+    saved = kernel.launches
+    kernel_ms = _time_ms(lambda: kernel(**case))
+    kernel.launches = saved  # timing is no main path
+    plain_ms = _time_ms(lambda: reference(**case))
+    library_ms = _time_ms(library_call(case))
+    bound_ms, bound_by, work = bound(case)
+    log(f"  {label} main: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}; {work['bytes']} B, {work['flops']} FLOP)")
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, **work)
+
+
+def timing_decode():
+    """Phase 4, paged decode at the main-path decode shape."""
+    return _timing_decode(
+        "decode", _decode_case(DEC_MAIN_LENS, seed=500, pad_frac=0.25,
+                               **DEC_MAIN),
+        paged_decode_attention, paged_decode_reference,
+        _decode_library_call, _decode_bound)
+
+
+def _dense_bound(case):
+    """Least time: the K and V rows of each slot's visible keys (kv_mask ∧
+    k_pos < seq_len), the mask bytes of its live prefix (its first
+    min(seq_len, C) columns), q and seq_lens read once, the output written
+    once, over HBM bandwidth; 4·D FLOPs per visible (slot, key) pair of
+    each q head over the bf16 peak."""
+    q = case["q"]
+    b, hq, d = q.shape
+    _, hkv, c, _ = case["k_cache"].shape
+    prefix = sum(min(n, c) for n in case["seq_lens"].tolist())
+    keys = int(_decode_visible(case).sum())
+    nbytes = (keys * hkv * d * 2 * 2 + prefix + 2 * q.numel() * 2
+              + case["seq_lens"].numel() * 4)
+    return _bound_of(nbytes, 4 * keys * hq * d)
+
+
+def _dense_library_call(case):
+    """One SDPA call with ``enable_gqa`` over ``cache[:, :, :max_len]``
+    (the longest live prefix) with the validity as a boolean mask; checked
+    once against the plain version."""
+    q = case["q"]
+    max_len = min(int(case["seq_lens"].max()), case["k_cache"].shape[2])
+    k = case["k_cache"][:, :, :max_len]
+    v = case["v_cache"][:, :, :max_len]
+    qd = q[:, :, None, :]
+    allowed = _decode_visible(case)[:, None, None, :max_len]
+
+    def call():
+        return F.scaled_dot_product_attention(qd, k, v, attn_mask=allowed,
+                                              enable_gqa=True)
+
+    out = call()[:, :, 0]
+    ref = dense_decode_reference(**{**case, "q": q.float()})
+    err = float((out.float() - ref.float()).abs().max())
+    check(err <= TOL, f"dense library yardstick differs from the plain "
+                      f"version by {err}")
+    return call
+
+
+def timing_dense():
+    """Phase 4, dense decode at the main-path decode shape."""
+    return _timing_decode(
+        "dense", _dense_case(DEC_MAIN_LENS, seed=700, pad_frac=0.25,
+                             **DENSE_MAIN),
+        dense_decode_attention, dense_decode_reference,
+        _dense_library_call, _dense_bound)
 
 
 # ---------------------------------------------------------------------------
@@ -723,14 +865,15 @@ def timing_decode():
 
 def _zero_counts() -> None:
     for wrapper in (ragged_paged_attention, flash_attention_fwd,
-                    paged_decode_attention):
+                    paged_decode_attention, dense_decode_attention):
         wrapper.launches = 0
 
 
 def _counts() -> dict:
     return {"ragged": ragged_paged_attention.launches,
             "flash": flash_attention_fwd.launches,
-            "decode": paged_decode_attention.launches}
+            "decode": paged_decode_attention.launches,
+            "dense": dense_decode_attention.launches}
 
 
 def _prompts(cfg, n: int, lo: int, hi: int, seed: int) -> list[list[int]]:
@@ -749,13 +892,21 @@ def _engine(params, cfg, kv_bits: int, attn_kernel=None, ragged=True):
     )
 
 
+def _cont_engine(params, cfg, attn_kernel=None, admit_chunk=None):
+    return ContinuousBatcher(
+        params, cfg, gen=GenerationConfig(max_new_tokens=64, eos_id=-1),
+        slots=8, cache_len=1024, prompt_bucket=512, attn_kernel=attn_kernel,
+        admit_chunk=admit_chunk, device=DEVICE,
+    )
+
+
 @contextlib.contextmanager
-def _counting_calls(*names):
-    """Count the calls of ``paged_mod.<name>`` for each name while inside;
-    yields {name: calls}. The engine looks both functions up in its
+def _counting_calls(module, *names):
+    """Count the calls of ``module.<name>`` for each name while inside;
+    yields {name: calls}. The engines look these functions up in their
     module at each call, so the wrappers see every one."""
     calls = dict.fromkeys(names, 0)
-    real = {n: getattr(paged_mod, n) for n in names}
+    real = {n: getattr(module, n) for n in names}
 
     def counted(name):
         def call(*args, **kwargs):
@@ -764,24 +915,24 @@ def _counting_calls(*names):
         return call
 
     for name in names:
-        setattr(paged_mod, name, counted(name))
+        setattr(module, name, counted(name))
     try:
         yield calls
     finally:
         for name in names:
-            setattr(paged_mod, name, real[name])
+            setattr(module, name, real[name])
 
 
 @contextlib.contextmanager
-def _plain_prefill():
-    """The alternating engine's admissions with ``impl="xla"``: the plain
-    flash attention on the card."""
-    real = paged_mod._paged_admit
-    paged_mod._paged_admit = functools.partial(real, attn_impl="xla")
+def _plain_prefill(module, name):
+    """An engine's admissions (``module.<name>``) with ``impl="xla"``: the
+    plain flash attention on the card."""
+    real = getattr(module, name)
+    setattr(module, name, functools.partial(real, attn_impl="xla"))
     try:
         yield
     finally:
-        paged_mod._paged_admit = real
+        setattr(module, name, real)
 
 
 def _serve(engine, prompts):
@@ -841,7 +992,7 @@ def engine_phase(params, cfg):
         check(launches[variant] == steps * cfg.n_layers,
               f"{variant}: {launches[variant]} kernel launches for {steps} "
               f"ragged steps × {cfg.n_layers} layers")
-        check(counts["flash"] == counts["decode"] == 0,
+        check(counts["flash"] == counts["decode"] == counts["dense"] == 0,
               f"{variant}: the ragged engine launched {counts}")
         _check_outputs(cfg, toks, lps)
         n_tok = sum(len(tk) for tk in toks)
@@ -873,7 +1024,7 @@ def alternating_phase(params, cfg):
     check(engine.attn_kernel, "the alternating engine's decode kernel is off")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with _counting_calls("_paged_admit", "_paged_step") as calls:
+    with _counting_calls(paged_mod, "_paged_admit", "_paged_step") as calls:
         _zero_counts()
         t0 = time.monotonic()
         toks, lps = _serve(engine, prompts)
@@ -888,8 +1039,8 @@ def alternating_phase(params, cfg):
     check(counts["decode"] == steps * cfg.n_layers,
           f"{counts['decode']} decode launches for {steps} steps × "
           f"{cfg.n_layers} layers")
-    check(counts["ragged"] == 0,
-          f"the alternating engine launched {counts['ragged']} ragged kernels")
+    check(counts["ragged"] == counts["dense"] == 0,
+          f"the alternating engine launched {counts}")
     _check_outputs(cfg, toks, lps)
     n_tok = sum(len(tk) for tk in toks)
     peak = torch.cuda.max_memory_allocated()
@@ -898,13 +1049,13 @@ def alternating_phase(params, cfg):
         f"{counts['decode']} decode launches, peak {peak / 2**30:.2f} GiB")
     sub = prompts[::4]
     kern = _serve(_engine(params, cfg, 0, ragged=False), sub)
-    with _plain_prefill():
+    with _plain_prefill(paged_mod, "_paged_admit"):
         plain = _serve(_engine(params, cfg, 0, ragged=False,
                                attn_kernel=False), sub)
     report = _compare(kern, plain)
     log(f"  alternating bf16: kernels vs plain engine on 4 prompts "
         f"(fork -1 = tokens equal): {json.dumps(report)}")
-    with _counting_calls("_paged_admit", "_paged_step") as calls:
+    with _counting_calls(paged_mod, "_paged_admit", "_paged_step") as calls:
         trace = _trace(_engine(params, cfg, 0, ragged=False), prompts[::2],
                        {"flash": "flash_fwd_kernel",
                         "decode": "paged_decode_kernel"})
@@ -912,6 +1063,62 @@ def alternating_phase(params, cfg):
     trace["steps"] = calls["_paged_step"]
     log(f"  alternating bf16: traced rerun of 8 prompts: {json.dumps(trace)}")
     return {"flash": counts["flash"], "decode": counts["decode"]}, engine
+
+
+def continuous_phase(params, cfg):
+    """Phase 5, the continuous engine with a bf16 cache of 1024 positions
+    per slot: returns ({"flash": launches, "dense": launches}, the
+    engine)."""
+    prompts = _prompts(cfg, 16, 8, 500, SEED)
+    engine = _cont_engine(params, cfg)
+    check(engine._attn_kernel == 512,
+          f"the continuous engine's dense kernel is off "
+          f"(block size {engine._attn_kernel})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _counting_calls(cont_mod, "_admit_slot", "_cb_step") as calls:
+        _zero_counts()
+        t0 = time.monotonic()
+        toks, lps = _serve(engine, prompts)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = _counts()
+    admits, steps = calls["_admit_slot"], calls["_cb_step"]
+    check(admits > 0 and steps > 0, "the engine ran no admission or step")
+    check(counts["flash"] == admits * cfg.n_layers,
+          f"{counts['flash']} flash launches for {admits} admissions × "
+          f"{cfg.n_layers} layers")
+    check(counts["dense"] == steps * cfg.n_layers,
+          f"{counts['dense']} dense decode launches for {steps} steps × "
+          f"{cfg.n_layers} layers")
+    check(counts["ragged"] == counts["decode"] == 0,
+          f"the continuous engine launched {counts}")
+    _check_outputs(cfg, toks, lps)
+    n_tok = sum(len(tk) for tk in toks)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  continuous bf16: {admits} admissions, {steps} decode steps, "
+        f"{n_tok} tokens out, {wall:.3f} s wall, {counts['flash']} flash and "
+        f"{counts['dense']} dense decode launches, peak "
+        f"{peak / 2**30:.2f} GiB")
+    sub = prompts[::4]
+    kern = _serve(_cont_engine(params, cfg), sub)
+    with _plain_prefill(cont_mod, "_admit_slot"):
+        plain = _serve(_cont_engine(params, cfg, attn_kernel=False), sub)
+    report = _compare(kern, plain)
+    log(f"  continuous bf16: kernels vs plain engine on 4 prompts "
+        f"(fork -1 = tokens equal): {json.dumps(report)}")
+    chunked = _serve(_cont_engine(params, cfg, admit_chunk=128), sub)
+    report = _compare(kern, chunked)
+    log(f"  continuous bf16: one-shot vs admit_chunk=128 on 4 prompts "
+        f"(fork -1 = tokens equal): {json.dumps(report)}")
+    with _counting_calls(cont_mod, "_admit_slot", "_cb_step") as calls:
+        trace = _trace(_cont_engine(params, cfg), prompts[::2],
+                       {"flash": "flash_fwd_kernel",
+                        "decode": "dense_decode_kernel"})
+    trace["admissions"] = calls["_admit_slot"]
+    trace["steps"] = calls["_cb_step"]
+    log(f"  continuous bf16: traced rerun of 8 prompts: {json.dumps(trace)}")
+    return {"flash": counts["flash"], "dense": counts["dense"]}, engine
 
 
 def _busy_seconds(intervals) -> float:
@@ -989,9 +1196,10 @@ def _post(port: int, body: dict, timeout: float = 300.0):
 def http_phase(engine, label: str):
     """Phase 6: 2 prompts × (blocking, streamed), all 4 at once. On the
     ragged engine two-token prompts keep every dispatch at the 8-row
-    floor; on the alternating one every admission is one (1, 512) prefill
-    and every step runs all 8 slots: either way a streamed copy and a
-    blocking copy run at one width and must agree token for token."""
+    floor; on the alternating and continuous ones every admission is one
+    (1, 512) prefill and every step runs all 8 slots: either way a
+    streamed copy and a blocking copy run at one width and must agree
+    token for token."""
     srv = InferenceServer(engine, port=0, model_name="llama-3-8b",
                           drain_s=30.0).start()
     try:
@@ -1060,6 +1268,7 @@ def main() -> int:
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
     decode_errors = decode_vs_plain()
+    dense_errors = dense_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
     log("[4/6] timing at the main-path shapes")
@@ -1067,6 +1276,7 @@ def main() -> int:
     times = timing()
     flash_times = timing_flash()
     decode_times = timing_decode()
+    dense_times = timing_dense()
     phases["timing"] = time.monotonic() - t0
 
     log("[5/6] engines: llama-3-8b, full width and depth, random weights")
@@ -1079,12 +1289,14 @@ def main() -> int:
         f"{time.monotonic() - t0:.2f} s")
     launches, engine = engine_phase(params, cfg)
     alt_launches, alt_engine = alternating_phase(params, cfg)
+    cont_launches, cont_engine = continuous_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
     log("[6/6] HTTP")
     t0 = time.monotonic()
     http_phase(engine, "ragged")
     http_phase(alt_engine, "alternating")
+    http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
     def entry(name, source, replaces, launched, errs, timed, **extra):
@@ -1109,6 +1321,7 @@ def main() -> int:
               "kubeflow_tpu/ops/attention.py:301", alt_launches["flash"],
               flash_errors, flash_times["main-prefill"],
               also_replaces="kubeflow_tpu/ops/attention.py:547",
+              launches_continuous=cont_launches["flash"],
               max_lse_err=flash_errors["lse"],
               long_16384={k: long_run[k] for k in (
                   "ms", "library_ms", "bound_ms", "bound_by")}),
@@ -1116,6 +1329,10 @@ def main() -> int:
               "kubeflow_tpu_torch/csrc/paged_attention.cu",
               "kubeflow_tpu/ops/paged_attention.py:233",
               alt_launches["decode"], decode_errors, decode_times),
+        entry("dense_decode_attention",
+              "kubeflow_tpu_torch/csrc/paged_attention.cu",
+              "kubeflow_tpu/ops/paged_attention.py:298",
+              cont_launches["dense"], dense_errors, dense_times),
     ]
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")

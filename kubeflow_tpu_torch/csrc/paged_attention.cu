@@ -1,24 +1,33 @@
-// Paged GQA decode attention for Hopper (sm_90a), plain C interface.
+// GQA decode attention for Hopper (sm_90a), plain C interface: one body,
+// two ways to find a slot's keys.
 //
-// Replaces the Pallas TPU kernel kubeflow_tpu/ops/paged_attention.py
-// (_kernel + _attend, called from paged_decode_attention). It computes the
-// same function: one new query token per slot, q (B, Hq, D), attends slot
-// b's KV blocks, read through tables (B, MAXB) from the block pools
-// (NB, Hkv, BS, D) bf16, at kv positions k < seq_lens[b] where kv_mask
-// (B, MAXB*BS) allows, with f32 scores and an f32 online softmax. q head i
-// reads kv head i / G (G = Hq / Hkv). A row whose keys are all masked
-// comes out 0.
+// Replaces two Pallas TPU kernels of kubeflow_tpu/ops/paged_attention.py,
+// which share their block loop (_attend) and differ only in where key
+// block i of slot b lives:
+// - paged_decode_kernel (kftt_paged_decode_attention) replaces _kernel,
+//   called from paged_decode_attention: the keys are read through tables
+//   (B, MAXB) from the block pools (NB, Hkv, BS, D) bf16, and kv_mask is
+//   (B, MAXB*BS);
+// - dense_decode_kernel (kftt_dense_decode_attention) replaces
+//   _dense_kernel, called from dense_decode_attention: the keys of kv head h
+//   are the contiguous rows ((b*Hkv + h)*C + k)*D of the per-slot caches
+//   (B, Hkv, C, D) bf16, and kv_mask is (B, C).
+// Both compute the same function: one new query token per slot, q (B, Hq,
+// D), attends slot b's keys at positions k < seq_lens[b] where kv_mask
+// allows, with f32 scores and an f32 online softmax. q head i reads kv
+// head i / G (G = Hq / Hkv). A row whose keys are all masked comes out 0.
 //
 // What bounds it on this card: bytes. Each live K/V element is read once
 // and used for G multiply-adds (G = 4 at llama-3-8b), ~4 FLOPs per byte,
 // far below the ~295 FLOPs/byte where compute would bind; the floor is the
-// live blocks over HBM bandwidth (3.35 TB/s).
+// live keys over HBM bandwidth (3.35 TB/s).
 // What the design does about it:
 // - one CTA per (slot, kv head) takes the kv head's G query rows, so each
-//   K/V block is read from HBM once for the whole group;
-// - it walks only the slot's min(ceil(seq_len / BS), MAXB) live blocks
-//   (never past MAXB, even for an idle slot's stale length), through a copy
-//   of the table row in shared memory;
+//   key is read from HBM once for the whole group;
+// - it walks only the slot's live keys: min(ceil(seq_len / BS), MAXB)
+//   blocks through a copy of the table row in shared memory (paged), or
+//   the first min(seq_len, C) rows of the slot's cache (dense); never past
+//   the end, even for an idle slot's stale length;
 // - keys are staged in tiles of 64 with 16-byte cp.async loads into two
 //   shared-memory stages: the next tile is in flight while the current one
 //   is computed, and a tile costs two barriers;
@@ -63,7 +72,7 @@ enum : int {
 // elements (16 bytes), as in ragged_attention.cu.
 //   q:     [kRows][D + 8] bf16, rows past G zero
 //   kv:    [stage][K|V][kKeys][D + 8] bf16, two stages
-//   table: [MAXB] int, the slot's table row
+//   table: [MAXB] int, the slot's table row (paged only; MAXB = 0 dense)
 // After the key loop the kv bytes hold the warps' partial results for the
 // merge: [warp][D/8][4][32] f32 accumulators, then [warp][4][32] f32
 // (m_a, m_b, l_a, l_b).
@@ -78,14 +87,17 @@ struct Smem {
   }
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+// The shared body. kDense picks where key k of slot b, kv head h lives:
+// row ((b*Hkv + h)*span + k) of the dense caches (span = C), or row
+// (table[k / bs]*Hkv + h)*bs + k % bs of the pools (span = MAXB*bs).
+template <int D, bool kDense>
+__device__ __forceinline__ void decode_body(
     const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ k_pool,
-    const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ tables,
+    const __nv_bfloat16* __restrict__ k_src,
+    const __nv_bfloat16* __restrict__ v_src, const int* __restrict__ tables,
     const uint8_t* __restrict__ kv_mask, const int* __restrict__ seq_lens,
     __nv_bfloat16* __restrict__ out, int hq, int hkv, int bs, int maxb,
-    float scale) {
+    int span, float scale) {
   constexpr int RS = D + 8;
   constexpr int ND = D / 8;  // n-tiles of the output
   constexpr int kRowChunks = D / 8;
@@ -97,9 +109,13 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int group = hq / hkv;
   const int tid = threadIdx.x;
   const int seq_len = seq_lens[b];
-  const int span = maxb * bs;
-  const int nblk = seq_len > 0 ? min((seq_len + bs - 1) / bs, maxb) : 0;
-  const int nkeys = nblk * bs;
+  int nblk = 0, nkeys;
+  if constexpr (kDense) {
+    nkeys = seq_len > 0 ? min(seq_len, span) : 0;
+  } else {
+    nblk = seq_len > 0 ? min((seq_len + bs - 1) / bs, maxb) : 0;
+    nkeys = nblk * bs;
+  }
   const int ntiles = (nkeys + kKeys - 1) / kKeys;
   // Scores in log2 units, so the softmax's exponentials are exp2.
   const float scale_log2 = scale * 1.4426950408889634f;
@@ -111,8 +127,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.kv);
   int* table_s = reinterpret_cast<int*>(smem_raw + lay.table);
 
-  for (int i = tid; i < nblk; i += kThreads)
-    table_s[i] = tables[(size_t)b * maxb + i];
+  if constexpr (!kDense) {
+    for (int i = tid; i < nblk; i += kThreads)
+      table_s[i] = tables[(size_t)b * maxb + i];
+  }
   // Query rows g < G: q head h*G + g; rows past G are zero. They join the
   // first tile's group.
   for (int e = tid; e < kRows * (D / 8); e += kThreads) {
@@ -125,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   __syncthreads();  // table_s is read by every thread's loads
 
   // Issue the cp.async loads of key tile t into stage st as one group.
-  // Keys past the live blocks are zero-filled.
+  // Keys past the live ones are zero-filled.
   auto issue = [&](int t, int st) {
 #pragma unroll
     for (int i = 0; i < kIssueIters; ++i) {
@@ -137,10 +155,13 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
         const int c = (ee % kRowChunks) * 8;
         const int kpos = t * kKeys + j;
         const bool live = kpos < nkeys;
-        const __nv_bfloat16* src = is_v ? v_pool : k_pool;
+        const __nv_bfloat16* src = is_v ? v_src : k_src;
         if (live) {
-          const size_t row =
-              ((size_t)table_s[kpos / bs] * hkv + h) * bs + kpos % bs;
+          size_t row;
+          if constexpr (kDense)
+            row = ((size_t)b * hkv + h) * span + kpos;
+          else
+            row = ((size_t)table_s[kpos / bs] * hkv + h) * bs + kpos % bs;
           src += row * D + c;
         }
         cp_async16(kv_s + ((st * 2 + is_v) * kKeys + j) * RS + c, src, live);
@@ -327,6 +348,29 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 }
 
 template <int D>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k_pool,
+    const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ tables,
+    const uint8_t* __restrict__ kv_mask, const int* __restrict__ seq_lens,
+    __nv_bfloat16* __restrict__ out, int hq, int hkv, int bs, int maxb,
+    float scale) {
+  decode_body<D, false>(q, k_pool, v_pool, tables, kv_mask, seq_lens, out,
+                        hq, hkv, bs, maxb, maxb * bs, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) dense_decode_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k_cache,
+    const __nv_bfloat16* __restrict__ v_cache,
+    const uint8_t* __restrict__ kv_mask, const int* __restrict__ seq_lens,
+    __nv_bfloat16* __restrict__ out, int hq, int hkv, int c, float scale) {
+  decode_body<D, true>(q, k_cache, v_cache, nullptr, kv_mask, seq_lens, out,
+                       hq, hkv, 0, 0, c, scale);
+}
+
+template <int D>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* tables, const void* kv_mask, const void* seq_lens,
            void* out, int b, int hq, int hkv, int bs, int maxb,
@@ -344,6 +388,25 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const int*>(tables), static_cast<const uint8_t*>(kv_mask),
       static_cast<const int*>(seq_lens), static_cast<__nv_bfloat16*>(out), hq,
       hkv, bs, maxb, 1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dense(const void* q, const void* k_cache, const void* v_cache,
+                 const void* kv_mask, const void* seq_lens, void* out, int b,
+                 int hq, int hkv, int c, cudaStream_t stream) {
+  const size_t smem = Smem(D, 0).total;
+  auto fn = dense_decode_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(b, hkv);
+  fn<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_cache),
+      static_cast<const __nv_bfloat16*>(v_cache),
+      static_cast<const uint8_t*>(kv_mask), static_cast<const int*>(seq_lens),
+      static_cast<__nv_bfloat16*>(out), hq, hkv, c, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -372,6 +435,30 @@ int kftt_paged_decode_attention(const void* q, const void* k_pool,
     case 256:
       return launch<256>(q, k_pool, v_pool, tables, kv_mask, seq_lens, out, b,
                          hq, hkv, bs, maxb, st);
+    default:
+      return kErrHeadDim;
+  }
+}
+
+// The dense variant: q (B, Hq, D), caches (B, Hkv, C, D), kv_mask (B, C)
+// bytes, seq_lens (B,) int32. Same return codes.
+int kftt_dense_decode_attention(const void* q, const void* k_cache,
+                                const void* v_cache, const void* kv_mask,
+                                const void* seq_lens, void* out, int b, int hq,
+                                int hkv, int d, int c, void* stream) {
+  if (hkv <= 0 || hq % hkv || hq / hkv > kRows) return kErrGroup;
+  if (b == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return launch_dense<64>(q, k_cache, v_cache, kv_mask, seq_lens, out, b,
+                              hq, hkv, c, st);
+    case 128:
+      return launch_dense<128>(q, k_cache, v_cache, kv_mask, seq_lens, out, b,
+                               hq, hkv, c, st);
+    case 256:
+      return launch_dense<256>(q, k_cache, v_cache, kv_mask, seq_lens, out, b,
+                               hq, hkv, c, st);
     default:
       return kErrHeadDim;
   }

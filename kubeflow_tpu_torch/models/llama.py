@@ -1,4 +1,4 @@
-"""Llama model family in PyTorch: the parts the ragged paged engine runs.
+"""Llama model family in PyTorch: the parts the serving engines run.
 
 Counterpart of ``kubeflow_tpu/models/llama.py``. Parameters live in
 ``nn.Module``s (``Llama`` holding one ``LlamaLayer`` per layer) instead of
@@ -19,10 +19,16 @@ values and bf16 scales come out byte-equal to JAX's.
 The full-sequence path (``forward``, ``forward_hidden``, ``prefill``,
 ``_prefill_impl``) attends through ``ops/attention.py``'s
 ``flash_attention`` — the CUDA flash kernel on the card, the plain version
-on the CPU — and ``_gqa_decode_attention`` is the gathered decode
-attention of the alternating paged engine. Inference only: no remat
-policy, no gradient. ``decode_step``, ``generate``, ``prefill_chunked``
-and ``_decode_chunk_impl`` come with the dense-cache engine.
+on the CPU. The cached-chunk decode family (``_chunk_decode_scan`` under
+``_decode_chunk_impl``, ``_decode_chunk_batch_impl``, ``_decode_impl``,
+``decode_step``, ``prefill_chunked``) attends through
+``_gqa_decode_attention`` in plain PyTorch, as JAX does in plain XLA; the
+generation functions (``generate``, ``generate_tokens``, ``sample``,
+``greedy_generate``) are Python loops over the steps where JAX runs one
+jitted scan, and draw from a ``torch.Generator`` where JAX takes a key.
+Caches are updated IN PLACE (JAX donates them and returns new ones), and
+the functions return the cache they were given. Inference only: no remat
+policy, no gradient.
 """
 
 from __future__ import annotations
@@ -455,6 +461,62 @@ def _cache_store(cache_l: dict, k: torch.Tensor, v: torch.Tensor,
     return cache_l
 
 
+def _row_targets(positions: torch.Tensor, k_len: int, c: int) -> tuple:
+    """Where ``_cache_store_rows`` writes a (B, K) chunk at per-row
+    ``positions`` in a cache of C columns: (rows, cols, at_end, j_last,
+    has_last). It depends on no layer, so a layer loop computes it once."""
+    positions = positions.long()
+    posmat = positions[:, None] + torch.arange(k_len, device=positions.device)
+    # The chunk column that belongs at C - 1, where the chunk reaches it.
+    j_last = (c - 1 - positions).clamp(0, k_len - 1)
+    has_last = (positions <= c - 1) & (positions + k_len - 1 >= c - 1)
+    rows = torch.arange(positions.shape[0], device=positions.device)
+    return (rows, posmat.clamp_max(c - 1), (posmat >= c - 1)[..., None],
+            j_last, has_last[:, None])
+
+
+def _cache_store_rows(cache_l: dict, k: torch.Tensor, v: torch.Tensor,
+                      positions: torch.Tensor, targets: Optional[tuple] = None
+                      ) -> dict:
+    """Per-ROW offsets variant of _cache_store: row b of the (B, Hkv, K, D)
+    chunk goes to positions[b] .. positions[b] + K - 1, IN PLACE.
+    ``targets`` is ``_row_targets(positions, K, C)``, computed here when
+    not given.
+
+    Unlike JAX, the write is CLIPPED at the cache's end: a row whose chunk
+    would run past C writes its first C - positions[b] columns and drops
+    the rest. JAX's ``dynamic_update_slice`` instead shifts the whole chunk
+    back to start at C - K, so a decode row near the end of the cache
+    writes its one real token over an earlier one (the ragged
+    ContinuousBatcher's tokens fork there). The dropped tail is only pad
+    columns past the write pointer. One indexed write per leaf, with no
+    host sync: the dropped columns are aimed at column C - 1 with the value
+    that column ends up holding, so duplicate targets carry equal values."""
+    c = cache_l["k"].shape[2]
+    if targets is None:
+        targets = _row_targets(positions, k.shape[2], c)
+    rows, cols, at_end, j_last, has_last = targets
+
+    def put(leaf, new):  # new (B, Hkv, K[, D])
+        new = new.transpose(1, 2)  # (B, K, Hkv[, D])
+        tail = (...,) if new.dim() == 3 else (..., None)
+        last = torch.where(has_last[tail], new[rows, j_last],
+                           leaf[:, :, c - 1])  # (B, Hkv[, D])
+        leaf[rows[:, None], :, cols] = torch.where(
+            at_end[tail], last[:, None], new)
+
+    if "k_scale" in cache_l:
+        kq, ks = _kv_quantize(k)
+        vq, vs = _kv_quantize(v)
+        for name, new in (("k", kq), ("v", vq), ("k_scale", ks),
+                          ("v_scale", vs)):
+            put(cache_l[name], new)
+    else:
+        put(cache_l["k"], k)
+        put(cache_l["v"], v)
+    return cache_l
+
+
 @torch.no_grad()
 def _prefill_impl(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
                   kv_cache: dict, kv_mask: Optional[torch.Tensor] = None,
@@ -546,6 +608,132 @@ def _gqa_decode_attention(
     return out.reshape(b, h, sq, d)
 
 
+def _plain_attend(cfg: LlamaConfig, attn_positions,
+                  kv_mask: Optional[torch.Tensor], per_batch: bool):
+    """The ``attend(q, cache_l)`` of ``_chunk_decode_scan`` that runs
+    ``_gqa_decode_attention`` (int8 caches with their scales folded in)."""
+
+    def attend(q, cache_l):
+        return _gqa_decode_attention(
+            q, cache_l["k"], cache_l["v"], attn_positions,
+            window=cfg.sliding_window, kv_mask=kv_mask, per_batch=per_batch,
+            k_scale=cache_l.get("k_scale"), v_scale=cache_l.get("v_scale"),
+        )
+
+    return attend
+
+
+@torch.no_grad()
+def _chunk_decode_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
+                       kv_cache: dict, cos: torch.Tensor, sin: torch.Tensor,
+                       store, attend) -> tuple[torch.Tensor, dict]:
+    """THE cached-chunk decode body (a loop over layers), parameterized by
+    what its callers differ in: the cache ``store(cache_l, k, v)`` strategy
+    (in place) and ``attend(q, cache_l)``, the attention over the layer's
+    cache (``_plain_attend``, or the dense kernel in ``_cb_step``). The
+    cache's leaves decide the storage format (int8 + scales, or the model
+    dtype). Returns (logits (B, K, V), the cache)."""
+    x = _embed(params, cfg, tokens)
+    for li, layer in enumerate(params.layers):
+        cache_l = {name: leaf[li] for name, leaf in kv_cache.items()}
+        h = _norm(x, layer.attn_norm, cfg)
+        hq, hk, hv = _qkv(h, layer)
+        q = apply_rope(_split_heads(hq, cfg.n_heads), cos, sin)
+        k = apply_rope(_split_heads(hk, cfg.n_kv_heads), cos, sin)
+        v = _split_heads(hv, cfg.n_kv_heads)
+        store(cache_l, k, v)
+        attn = attend(q, cache_l)
+        x = x + _mm(_merge_heads(attn), layer.wo)
+        h = _norm(x, layer.mlp_norm, cfg)
+        x = x + _mlp(layer, h, cfg)
+    x = _norm(x, params.final_norm, cfg)
+    return _lm_head_logits(x, params), kv_cache
+
+
+def _decode_chunk_impl(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
+                       kv_cache: dict, position,
+                       kv_mask: Optional[torch.Tensor] = None):
+    """Cached decode of a CHUNK: (B, K) tokens written at cache slots
+    ``position .. position+K-1`` → (logits (B, K, V), the cache). K == 1 is
+    ordinary decode. Query i attends cache slots <= position + i;
+    ``kv_mask`` (B, cache_len) marks valid slots (False on left pads)."""
+    position = int(position)
+    positions = position + torch.arange(tokens.shape[1], device=tokens.device)
+    cos, sin = rope_frequencies(cfg, positions)
+
+    def store(cache_l, k, v):
+        # One whole-batch slice write at the shared offset.
+        _cache_store(cache_l, k, v, position)
+
+    return _chunk_decode_scan(
+        params, cfg, tokens, kv_cache, cos, sin, store,
+        _plain_attend(cfg, positions, kv_mask, per_batch=False))
+
+
+def _decode_chunk_batch_impl(params: Llama, cfg: LlamaConfig,
+                             tokens: torch.Tensor, kv_cache: dict,
+                             positions: torch.Tensor,
+                             kv_mask: Optional[torch.Tensor] = None):
+    """Cached decode of a chunk at PER-ROW offsets: row b's (1, K) tokens
+    written at ``positions[b] .. positions[b]+K-1`` (clipped at the cache's
+    end, see ``_cache_store_rows``) → (logits (B, K, V), the cache). Query
+    i of row b attends cache slots <= positions[b] + i."""
+    positions = positions.long()
+    posmat = positions[:, None] + torch.arange(tokens.shape[1],
+                                               device=tokens.device)
+    cos, sin = rope_frequencies(cfg, posmat.reshape(-1))
+    cos = cos.reshape(*posmat.shape, -1)  # (B, K, half)
+    sin = sin.reshape(*posmat.shape, -1)
+
+    targets = _row_targets(positions, tokens.shape[1],
+                           next(iter(kv_cache.values())).shape[3])
+
+    def store(cache_l, k, v):
+        _cache_store_rows(cache_l, k, v, positions, targets)
+
+    return _chunk_decode_scan(
+        params, cfg, tokens, kv_cache, cos, sin, store,
+        _plain_attend(cfg, posmat, kv_mask, per_batch=True))
+
+
+def _decode_impl(params: Llama, cfg: LlamaConfig, token: torch.Tensor,
+                 kv_cache: dict, position,
+                 kv_mask: Optional[torch.Tensor] = None):
+    """Single-token decode: (B, 1) token → (logits (B, V), the cache)."""
+    logits, cache = _decode_chunk_impl(params, cfg, token, kv_cache, position,
+                                       kv_mask=kv_mask)
+    return logits[:, 0], cache
+
+
+def decode_step(params: Llama, cfg: LlamaConfig, token: torch.Tensor,
+                kv_cache: dict, position) -> tuple[torch.Tensor, dict]:
+    """One autoregressive step: (B, 1) token at ``position`` → (logits
+    (B, V), the cache written in place)."""
+    return _decode_impl(params, cfg, token, kv_cache, position)
+
+
+def prefill_chunked(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
+                    kv_cache: dict, chunk: int = 512):
+    """Long-prompt prefill in fixed chunks: (last-position logits, cache),
+    with activations bounded at O(chunk) rows. Each chunk attends the cache
+    written so far plus itself, chunk-causally."""
+    b, s = tokens.shape
+    if s % chunk:
+        raise ValueError(f"prompt length {s} not divisible by chunk {chunk}")
+    last = None
+    for start in range(0, s, chunk):
+        logits, kv_cache = _decode_chunk_impl(
+            params, cfg, tokens[:, start:start + chunk], kv_cache, start)
+        last = logits[:, -1]
+    return last, kv_cache
+
+
+def prime_kv_cache(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
+                   kv_cache: dict) -> dict:
+    """Write the prompt's K/V into the cache (prefill side-product)."""
+    return _prefill_impl(params, cfg, tokens, kv_cache)[1]
+
+
 # ---------------------------------------------------------------------------
 # Sampling
 
@@ -601,3 +789,79 @@ def sample_logits_per_row(logits: torch.Tensor, generator: torch.Generator,
     )
     sampled = _categorical(scaled, generator)
     return torch.where(temps <= 0.0, greedy, sampled)
+
+
+# ---------------------------------------------------------------------------
+# Generation loops: a Python loop over the steps (one jitted scan in JAX)
+
+
+def greedy_generate(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor,
+                    max_new_tokens: int,
+                    kv_cache: Optional[dict] = None) -> torch.Tensor:
+    """Greedy decoding: prefill once, then stepwise decode; returns
+    (B, max_new_tokens). A given ``kv_cache`` is written in place."""
+    b, s_prompt = prompt.shape
+    if kv_cache is None:
+        kv_cache = init_kv_cache(cfg, b, s_prompt + max_new_tokens,
+                                 device=prompt.device)
+    last_logits, kv_cache = prefill(params, cfg, prompt, kv_cache)
+    next_token = torch.argmax(last_logits, dim=-1)[:, None]
+    tokens = [next_token]
+    for i in range(max_new_tokens - 1):
+        logits, kv_cache = decode_step(params, cfg, next_token, kv_cache,
+                                       s_prompt + i)
+        next_token = torch.argmax(logits, dim=-1)[:, None]
+        tokens.append(next_token)
+    return torch.cat(tokens, dim=1)
+
+
+def _generate_impl(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor,
+                   kv_cache: dict, steps: int,
+                   generator: Optional[torch.Generator] = None,
+                   temperature: float = 0.0, top_k: int = 0,
+                   top_p: float = 1.0) -> torch.Tensor:
+    """ONE prefill + decode loop for greedy AND sampled generation;
+    returns (B, steps). temperature == 0 is greedy and draws nothing."""
+    s_prompt = prompt.shape[1]
+    if generator is None:
+        generator = torch.Generator(device=prompt.device).manual_seed(0)
+    logits, kv_cache = _prefill_impl(params, cfg, prompt, kv_cache)
+    tok = sample_logits(logits, generator, temperature, top_k, top_p)[:, None]
+    toks = [tok]
+    # The last emitted token is not decoded (JAX decodes it and drops the
+    # result), so the cache needs s_prompt + steps - 1 positions.
+    for i in range(steps - 1):
+        logits, kv_cache = _decode_impl(params, cfg, tok, kv_cache,
+                                        s_prompt + i)
+        tok = sample_logits(logits, generator, temperature, top_k,
+                            top_p)[:, None]
+        toks.append(tok)
+    return torch.cat(toks, dim=1)[:, :steps]
+
+
+def generate_tokens(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor,
+                    kv_cache: dict, steps: int) -> torch.Tensor:
+    """Prefill + ``steps`` greedy decode steps into the given cache."""
+    return _generate_impl(params, cfg, prompt, kv_cache, steps)
+
+
+def sample(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor,
+           generator: Optional[torch.Generator], steps: int, cache_len: int,
+           temperature: float = 1.0, top_k: int = 0,
+           top_p: float = 1.0) -> torch.Tensor:
+    """Sampled generation (the sampling counterpart of ``generate``);
+    draws from ``generator`` where JAX takes a key."""
+    kv_cache = init_kv_cache(cfg, prompt.shape[0], cache_len,
+                             device=prompt.device)
+    return _generate_impl(params, cfg, prompt, kv_cache, steps,
+                          generator=generator, temperature=temperature,
+                          top_k=top_k, top_p=top_p)
+
+
+def generate(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor,
+             steps: int, cache_len: int, kv_bits: int = 0) -> torch.Tensor:
+    """Greedy generation into a fresh cache of ``cache_len`` positions;
+    ``kv_bits=8`` decodes against an int8 cache."""
+    cache = init_kv_cache(cfg, prompt.shape[0], cache_len, kv_bits=kv_bits,
+                          device=prompt.device)
+    return _generate_impl(params, cfg, prompt, cache, steps)

@@ -53,6 +53,7 @@ from kubeflow_tpu_torch.models.continuous import (
     _AdmissionCursor,
     _BatcherBase,
     _Request,
+    _sample_rows,
 )
 from kubeflow_tpu_torch.models.llama import (
     Llama,
@@ -73,7 +74,6 @@ from kubeflow_tpu_torch.models.llama import (
     init_kv_cache,
     rope_frequencies,
     sample_logits,
-    sample_logits_per_row,
 )
 from kubeflow_tpu_torch.models.serving import GenerationConfig, left_pad
 from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
@@ -244,11 +244,7 @@ def _paged_step(
         positions, block_size, attn_kernel=attn_kernel,
     )
     logits = _lm_head_logits(_norm(x[:, 0], params.final_norm, cfg), params)
-    if bias is not None:
-        logits = logits + bias
-    nxt = sample_logits_per_row(logits, generator, temps, top_k, top_p)
-    lp = torch.gather(torch.log_softmax(logits, dim=-1), 1, nxt[:, None])[:, 0]
-    return nxt, lp
+    return _sample_rows(logits, generator, temps, top_k, top_p, bias)
 
 
 def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -359,11 +355,7 @@ def _paged_ragged_step(
     # Logits only at each slot's last row: the lm head runs S wide.
     xs = x[last_rows.long(), 0]  # (S, dim)
     logits = _lm_head_logits(_norm(xs, params.final_norm, cfg), params)
-    if bias is not None:
-        logits = logits + bias
-    nxt = sample_logits_per_row(logits, generator, temps, top_k, top_p)
-    lp = torch.gather(torch.log_softmax(logits, dim=-1), 1, nxt[:, None])[:, 0]
-    return nxt, lp
+    return _sample_rows(logits, generator, temps, top_k, top_p, bias)
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
@@ -590,10 +582,6 @@ class PagedBatcher(_BatcherBase):
         self._by_slot[slot] = None
 
     # -- scheduling --------------------------------------------------------
-
-    def _up(self, a: np.ndarray) -> torch.Tensor:
-        """Host numpy → the engine's device."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _admit_free_slots(self) -> None:
         if self.ragged:

@@ -487,13 +487,20 @@ class InferenceServer:
         with self._lock:
             active = sum(r is not None for r in eng._by_slot)
             depth = len(eng._queue)
-            admitting = len(getattr(eng, "_ragged_admit", {}))
+            # Mid-admission work is in neither queue nor slot: one
+            # chunked admission, or any number of ragged prompt cursors.
+            admitting = int(getattr(eng, "_admitting", None) is not None) \
+                + len(getattr(eng, "_ragged_admit", {}))
             pool = None
             if getattr(eng, "num_blocks", None):
                 pool = {"num_blocks": eng.num_blocks,
                         "source": getattr(eng, "pool_source", "config")}
             rag = None
-            if getattr(eng, "ragged", False):
+            # Engines that count their fused dispatches (the ragged
+            # PagedBatcher) report them; the ragged ContinuousBatcher
+            # keeps no such counters (JAX's server reads them anyway and
+            # fails its /stats there).
+            if getattr(eng, "ragged", False) and hasattr(eng, "ragged_steps"):
                 steps = eng.ragged_steps
                 rag = {
                     "batch_fill": round(eng.ragged_fill, 4),

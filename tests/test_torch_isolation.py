@@ -51,6 +51,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "sys.path.insert(0, sys.argv[1])\n"
         "import kubeflow_tpu_torch.models.paged, "
+        "kubeflow_tpu_torch.models.continuous, "
+        "kubeflow_tpu_torch.models.serving, "
         "kubeflow_tpu_torch.models.server, kubeflow_tpu_torch.models.bridge, "
         "kubeflow_tpu_torch.examples.serve_http, kubeflow_tpu_torch.ops._build, "
         "kubeflow_tpu_torch.ops.attention, kubeflow_tpu_torch.ops.paged_attention\n"
@@ -69,6 +71,7 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.examples import serve_http
     from kubeflow_tpu_torch.models import llama as TL
+    from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
     from kubeflow_tpu_torch.models.paged import PagedBatcher
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -82,7 +85,11 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
                              block_size=8, prompt_bucket=16, ragged=True),
         lambda: PagedBatcher(params, cfg, slots=2, num_blocks=16,
                              block_size=8, prompt_bucket=16),
+        lambda: ContinuousBatcher(params, cfg, slots=2, cache_len=256,
+                                  prompt_bucket=16),
         lambda: serve_http.main(["--config", "tiny", "--port", "0"]),
+        lambda: serve_http.main(["--config", "tiny", "--port", "0",
+                                 "--paged"]),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

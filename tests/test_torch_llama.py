@@ -351,3 +351,139 @@ def test_gqa_decode_attention(int8):
         t(q), t(jk), t(jv), t(pos), kv_mask=t(mask), per_batch=True,
         **{k_: t(v_) for k_, v_ in kw.items()})
     _close(ref, out, "f32")
+
+
+class TestDecodeFamily:
+    """The cached-chunk decode family and the generation loops at 1e-5
+    (tokens exact) on f32 ``tiny`` and ``tiny-gqa``: JAX's jitted programs
+    against the port's in-place loops, on one primed cache each."""
+
+    @staticmethod
+    def _primed(name, kv_bits=0, b=2, s=8, cache_len=32, seed=20):
+        jcfg, tcfg, jp, tp = _model(name, "f32")
+        toks = np.random.default_rng(seed).integers(3, 256, size=(b, s)) \
+            .astype(np.int32)
+        _, jc = L._prefill_impl(jp, jcfg, jnp.asarray(toks),
+                                L.init_kv_cache(jcfg, b, cache_len, kv_bits))
+        _, tc = TL._prefill_impl(tp, tcfg, torch.from_numpy(toks),
+                                 TL.init_kv_cache(tcfg, b, cache_len, kv_bits,
+                                                  device="cpu"))
+        return jcfg, tcfg, jp, tp, jc, tc
+
+    @staticmethod
+    def _cache_close(jc, tc):
+        for leaf, ref in jc.items():
+            got = tc[leaf]
+            if got.dtype == torch.int8:
+                diff = np.abs(got.numpy().astype(np.int32)
+                              - np.asarray(ref).astype(np.int32))
+                assert diff.max() <= 1, leaf
+            elif got.dtype == torch.bfloat16:
+                np.testing.assert_allclose(
+                    got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                    rtol=1e-5, atol=0)
+            else:
+                _close(ref, got, "f32")
+
+    @pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
+    def test_decode_step(self, name):
+        jcfg, tcfg, jp, tp, jc, tc = self._primed(name)
+        tok = np.array([[7], [200]], np.int32)
+        jl, jc = L.decode_step(jp, jcfg, jnp.asarray(tok), jc,
+                               jnp.asarray(8, jnp.int32))
+        tl, out = TL.decode_step(tp, tcfg, torch.from_numpy(tok), tc, 8)
+        assert out is tc  # written in place
+        _close(jl, tl, "f32")
+        self._cache_close(jc, tc)
+
+    @pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
+    def test_decode_chunk_with_left_padding(self, name):
+        jcfg, tcfg, jp, tp, jc, tc = self._primed(name)
+        chunk = np.random.default_rng(21).integers(3, 256, size=(2, 5)) \
+            .astype(np.int32)
+        mask = np.ones((2, 32), bool)
+        mask[1, :3] = False
+        jl, jc = L._decode_chunk_impl(jp, jcfg, jnp.asarray(chunk), jc,
+                                      jnp.asarray(8, jnp.int32),
+                                      kv_mask=jnp.asarray(mask))
+        tl, _ = TL._decode_chunk_impl(tp, tcfg, torch.from_numpy(chunk), tc,
+                                      8, kv_mask=torch.from_numpy(mask))
+        _close(jl, tl, "f32")
+        self._cache_close(jc, tc)
+
+    @pytest.mark.parametrize("kv_bits", [0, 8])
+    @pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
+    def test_decode_chunk_batch_per_row_offsets(self, name, kv_bits):
+        jcfg, tcfg, jp, tp, jc, tc = self._primed(name, kv_bits, b=3)
+        chunk = np.random.default_rng(22).integers(3, 256, size=(3, 4)) \
+            .astype(np.int32)
+        positions = np.array([8, 11, 20], np.int32)
+        jl, jc = L._decode_chunk_batch_impl(jp, jcfg, jnp.asarray(chunk), jc,
+                                            jnp.asarray(positions))
+        tl, _ = TL._decode_chunk_batch_impl(tp, tcfg, torch.from_numpy(chunk),
+                                            tc, torch.from_numpy(positions))
+        if kv_bits:
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                                       atol=1e-4)
+        else:
+            _close(jl, tl, "f32")
+        self._cache_close(jc, tc)
+
+    @pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
+    def test_prefill_chunked(self, name):
+        jcfg, tcfg, jp, tp = _model(name, "f32")
+        toks = np.random.default_rng(23).integers(3, 256, size=(2, 12)) \
+            .astype(np.int32)
+        jl, jc = L.prefill_chunked(jp, jcfg, jnp.asarray(toks),
+                                   L.init_kv_cache(jcfg, 2, 16), chunk=4)
+        tl, tc = TL.prefill_chunked(tp, tcfg, torch.from_numpy(toks),
+                                    TL.init_kv_cache(tcfg, 2, 16,
+                                                     device="cpu"), chunk=4)
+        _close(jl, tl, "f32")
+        self._cache_close(jc, tc)
+        with pytest.raises(ValueError, match="not divisible by chunk 5"):
+            TL.prefill_chunked(tp, tcfg, torch.from_numpy(toks),
+                               TL.init_kv_cache(tcfg, 2, 16, device="cpu"),
+                               chunk=5)
+        primed = TL.prime_kv_cache(tp, tcfg, torch.from_numpy(toks),
+                                   TL.init_kv_cache(tcfg, 2, 16,
+                                                    device="cpu"))
+        self._cache_close(L.prime_kv_cache(jp, jcfg, jnp.asarray(toks),
+                                           L.init_kv_cache(jcfg, 2, 16)),
+                          primed)
+
+    @pytest.mark.parametrize("kv_bits", [0, 8])
+    @pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
+    def test_generate_greedy_and_sample_at_temperature_zero(self, name,
+                                                            kv_bits):
+        jcfg, tcfg, jp, tp = _model(name, "f32")
+        prompt = np.random.default_rng(24).integers(3, 256, size=(2, 6)) \
+            .astype(np.int32)
+        jt, tt = jnp.asarray(prompt), torch.from_numpy(prompt)
+        ref = np.asarray(L.generate(jp, jcfg, jt, steps=7, cache_len=16,
+                                    kv_bits=kv_bits))
+        np.testing.assert_array_equal(
+            TL.generate(tp, tcfg, tt, steps=7, cache_len=16,
+                        kv_bits=kv_bits).numpy(), ref)
+        if kv_bits:
+            return
+        np.testing.assert_array_equal(
+            TL.sample(tp, tcfg, tt, torch.Generator(), steps=7, cache_len=16,
+                      temperature=0.0).numpy(),
+            np.asarray(L.sample(jp, jcfg, jt, jax.random.PRNGKey(0), steps=7,
+                                cache_len=16, temperature=0.0)))
+        np.testing.assert_array_equal(
+            TL.generate_tokens(tp, tcfg, tt,
+                               TL.init_kv_cache(tcfg, 2, 16, device="cpu"),
+                               steps=7).numpy(), ref)
+        np.testing.assert_array_equal(
+            TL.greedy_generate(tp, tcfg, tt, 7).numpy(),
+            np.asarray(L.greedy_generate(jp, jcfg, jt, 7)))
+
+    def test_sample_draws_stay_in_the_vocab(self):
+        _, tcfg, _, tp = _model("tiny", "f32")
+        prompt = torch.from_numpy(np.full((2, 4), 9, np.int32))
+        out = TL.sample(tp, tcfg, prompt, torch.Generator().manual_seed(3),
+                        steps=5, cache_len=12, temperature=1.0, top_k=8)
+        assert tuple(out.shape) == (2, 5)
+        assert bool(((out >= 0) & (out < tcfg.vocab_size)).all())

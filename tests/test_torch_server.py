@@ -26,6 +26,7 @@ from kubeflow_tpu.models import server as JS
 from kubeflow_tpu_torch.models import llama as TL
 from kubeflow_tpu_torch.models import server as TS
 from kubeflow_tpu_torch.models.bridge import params_from_jax
+from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
 from kubeflow_tpu_torch.models.paged import PagedBatcher
 from kubeflow_tpu_torch.models.serving import GenerationConfig
 
@@ -236,7 +237,91 @@ def test_serve_http_follows_the_ragged_env(monkeypatch, value, ragged):
     monkeypatch.setattr(TS, "InferenceServer", NoServer)
     with pytest.raises(Built) as info:
         serve_http.main(["--config", "tiny", "--device", "cpu", "--port",
-                         "0", "--num-blocks", "16", "--slots", "2"])
+                         "0", "--paged", "--num-blocks", "16", "--slots",
+                         "2"])
     engine = info.value.args[0]
+    assert isinstance(engine, PagedBatcher)
     assert engine.ragged is ragged
     assert engine.device.type == "cpu" and engine.attn_kernel is False
+
+
+def test_serve_http_without_paged_serves_the_continuous_engine(monkeypatch):
+    """No ``--paged``: ``ContinuousBatcher`` with the JAX entry point's
+    default cache_len 1024, whatever KUBEFLOW_TPU_SERVING_RAGGED says;
+    ``--paged --admit-chunk`` exits with the JAX message."""
+    from kubeflow_tpu_torch.examples import serve_http
+
+    class Built(Exception):
+        pass
+
+    class NoServer:
+        def __init__(self, engine, **kw):
+            raise Built(engine)
+
+    monkeypatch.setenv("KUBEFLOW_TPU_SERVING_RAGGED", "1")
+    monkeypatch.setattr(TS, "InferenceServer", NoServer)
+    base = ["--config", "tiny", "--device", "cpu", "--port", "0",
+            "--slots", "2"]
+    with pytest.raises(Built) as info:
+        serve_http.main(base)
+    engine = info.value.args[0]
+    assert isinstance(engine, ContinuousBatcher)
+    assert engine.cache_len == 1024 and engine.ragged is False
+    assert engine._attn_kernel == 0 and engine._admit_chunk is None
+    with pytest.raises(Built) as info:
+        serve_http.main(base + ["--admit-chunk", "16"])
+    assert info.value.args[0]._admit_chunk == 16
+    with pytest.raises(SystemExit) as info:
+        serve_http.main(base + ["--paged", "--admit-chunk", "4"])
+    assert str(info.value) == ("--admit-chunk is a continuous-engine "
+                               "feature; drop it or drop --paged")
+
+
+def _continuous(tiny, **kw):
+    cfg, params = tiny
+    return ContinuousBatcher(params, cfg, gen=GenerationConfig(
+        max_new_tokens=6, eos_id=-1), slots=2, cache_len=32,
+        prompt_bucket=16, device="cpu", **kw)
+
+
+def test_continuous_engine_serves_completions(tiny):
+    """``ContinuousBatcher`` behind the server: blocking and streamed
+    completions equal ``run()`` on the same prompts."""
+    ref_engine = _continuous(tiny)
+    rids = [ref_engine.submit(p) for p in PROMPTS]
+    ref = ref_engine.run()
+    srv = TS.InferenceServer(_continuous(tiny), port=0).start()
+    try:
+        for p, rid in zip(PROMPTS, rids):
+            code, body = _post(srv.port, {"prompt": p})
+            assert code == 200
+            assert json.loads(body)["choices"][0]["tokens"] == ref[rid]
+            code, body = _post(srv.port, {"prompt": p, "stream": True})
+            events = [ln[6:] for ln in body.splitlines()
+                      if ln.startswith("data: ")]
+            assert events[-1] == "[DONE]"
+            assert [json.loads(e)["token"] for e in events[:-1]] == ref[rid]
+        stats = _get(srv.port, "/stats")
+        assert stats["served"] == 2 * len(PROMPTS)
+        assert "ragged" not in stats and "kv_pool" not in stats
+    finally:
+        srv.stop()
+
+
+def test_stats_over_a_ragged_continuous_engine(tiny):
+    """The ragged ``ContinuousBatcher`` keeps no ragged counters: /stats
+    answers 200 without a ``ragged`` block, and counts a staged admission
+    under ``admitting``."""
+    srv = TS.InferenceServer(_continuous(tiny, admit_chunk=8, ragged=True),
+                             port=0)
+    srv._http_thread.start()  # no engine thread: the admission stays staged
+    try:
+        with srv._lock:
+            srv.engine.submit([5, 9, 17, 33])
+            srv.engine._admit_free_slots()
+        assert srv.engine._admitting is not None
+        stats = _get(srv.port, "/stats")
+        assert stats["admitting"] == 1 and stats["queued"] == 0
+        assert "ragged" not in stats
+    finally:
+        srv.stop()
