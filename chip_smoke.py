@@ -17,7 +17,11 @@ every kernel's launch count set to 0 just before it and read just after:
   1024 positions per slot (what ``serve_http`` runs without ``--paged``),
   whose admissions prefill through ``csrc/flash_attention.cu`` and whose
   decode steps run the dense decode kernel of ``csrc/paged_attention.cu``,
-  each once per layer.
+  each once per layer;
+- training, ``models/train.py``'s ``make_train_step`` (remat "full", loss
+  chunk 512, AdamW) at B 1, S 2048, whose every step runs the flash
+  forward kernel twice per layer (forward and the remat recompute) and
+  the dQ and dK/dV kernels of ``csrc/flash_attention_bwd.cu`` once each.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -44,14 +48,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    an idle slot and a stale length. Dense decode: the CPU suite's layouts
    and the main-path decode (8 slots, C 1024, lengths 8..576), a mask with
    a hole, an idle slot (all-False row, exactly 0) and a slot at
-   seq_len == C;
+   seq_len == C. Flash backward (dQ, dK/dV) on the forward kernel's O and
+   lse, against its plain f32 version: the CPU suite's cases, the training
+   shape (Hq 32, Hkv 8, S 2048, D 128, causal), a window with a q_offset,
+   a left-padded mask, rows that see no key and head dim 64; each of dq,
+   dk and dv held to ``BWD_GATES`` (max error over max |ref| and a
+   per-(row, head) norm gate, both 2^-6, derived where they are defined),
+   with dq exactly 0 on rows that see no key and dk, dv exactly 0 on keys
+   no row sees;
 4. timing — CUDA events at the main-path shapes (L2 flushed between
    launches): each kernel, its plain version, and one library call (a
    yardstick the port never calls: ``scaled_dot_product_attention`` over
    a per-slot batched view, with ``enable_gqa`` for the flash and decode
    kernels, over ``cache[:, :, :max_len]`` for the dense decode kernel),
    beside the least time the card could take (bytes over 3.35 TB/s, FLOPs
-   of the visible pairs over 989 TFLOP/s);
+   of the visible pairs over 989 TFLOP/s); the backward kernels at the
+   training shape, each alone, and together with delta and padding beside
+   one SDPA backward (flash backend, ``enable_gqa``; dq, dk and dv in one
+   call);
 5. engines — 16 prompts of 8..500 tokens, 64 new tokens each: the ragged
    engine with a bf16 and an int8 pool, where launches must equal
    ``ragged_steps × n_layers``; the alternating engine with a bf16 pool,
@@ -71,7 +85,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    time, idle share and time by kernel;
 6. HTTP — 4 concurrent ``/v1/completions`` (2 streamed) against the
    server over each bf16 engine; streamed tokens must equal the blocking
-   response for the same prompt; then ``/stats`` and a clean stop.
+   response for the same prompt; then ``/stats`` and a clean stop;
+7. train — the serving model and engines are freed, then llama-3-8b at
+   full width and depth trains from random bf16 weights on batches of a
+   numpy corpus through the port's ``TokenLoader``: step 1's loss and
+   grads with the kernels against plain attention (``impl="xla"``): loss
+   and global grad norm within 2e-2 relative, layer 0's and the last
+   layer's wq grads at cosine >= 0.99; then 3 optimizer steps, each with
+   exactly 2 × n_layers flash forward, n_layers dQ and n_layers dK/dV
+   launches, after which the loss on step 1's batch must be finite and
+   below step 1's. Peak memory and tokens/s are printed as a smoke run's,
+   not a benchmark's. Last, a ``tiny`` bf16 trainer state on the card
+   goes through save → ``restore_latest`` and must come back byte-equal.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -82,11 +107,13 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -94,6 +121,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from kubeflow_tpu_torch.data.loader import TokenLoader, write_token_file
 from kubeflow_tpu_torch.models import continuous as cont_mod
 from kubeflow_tpu_torch.models import llama as L
 from kubeflow_tpu_torch.models import paged as paged_mod
@@ -101,12 +129,18 @@ from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
 from kubeflow_tpu_torch.models.llama import _kv_quantize
 from kubeflow_tpu_torch.models.paged import PagedBatcher
 from kubeflow_tpu_torch.models.server import InferenceServer
+from kubeflow_tpu_torch.models import train as train_mod
 from kubeflow_tpu_torch.models.serving import GenerationConfig
 from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops import attention as attn_mod
 from kubeflow_tpu_torch.ops.attention import (
     NEG_INF,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_reference,
+    flash_bwd_dkv,
+    flash_bwd_dq,
 )
 from kubeflow_tpu_torch.ops.paged_attention import (
     dense_decode_attention,
@@ -117,6 +151,10 @@ from kubeflow_tpu_torch.ops.paged_attention import (
 from kubeflow_tpu_torch.ops.ragged_attention import (
     ragged_attention_reference,
     ragged_paged_attention,
+)
+from kubeflow_tpu_torch.runtime.checkpoint import (
+    CheckpointManager,
+    flatten_state,
 )
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -356,6 +394,109 @@ def flash_vs_plain():
         check(errs["keyless_rows_ok"],
               f"flash {name}: a row with no visible key is not 0 / NEG_INF")
         del case, out, lse
+    return worst
+
+
+# Flash backward cases: the forward's (b, h, hkv, sq, sk, causal,
+# q_offset, window, left pads) and head dim. The CPU suite's
+# (tests/test_torch_flash_backward.py), the training shape (llama-3-8b
+# heads, S 2048, causal), a window with a q_offset, a left-padded mask
+# whose first 150 rows see no key, and head dim 64.
+BWD_TRAIN = (1, 32, 8, 2048, 2048, True, 0, 0, None)
+BWD_CASES = [
+    ((1, 4, 2, 256, 384, True, 128, 120, None), 128, "gqa-window-q-offset"),
+    ((2, 4, 2, 384, 384, True, 0, 0, (100, 300)), 128, "kv-mask-left-pad"),
+    ((1, 4, 1, 256, 384, False, 0, 0, None), 128, "non-causal-gqa"),
+    (BWD_TRAIN, 128, "train-2048"),
+    ((2, 8, 2, 300, 700, True, 400, 333, (0, 250)), 128, "window-q-offset"),
+    ((1, 8, 2, 200, 200, True, 0, 0, (150,)), 128, "keyless-rows"),
+    ((1, 8, 2, 200, 200, True, 0, 0, (30,)), 64, "d64"),
+]
+# Backward gates, each of dq, dk and dv against the plain version on the
+# same inputs kept in f32. The kernels round two operands to bf16 once
+# each, P (for dV) and dS (for dQ and dK), each by at most 2^-9 relative,
+# and round their output to bf16 (2^-9). Independent roundings add in
+# quadrature over a row's terms, so a row's relative error stays near
+# 2^-8; both limits are four times that:
+# - "max_scaled": max |out − ref| / max |ref| over the whole tensor;
+# - "row_rel": max over (row, head) of ‖out − ref‖ / ‖ref‖ over the head
+#   dim, the denominator floored at 2^-8 of the tensor's largest row norm:
+#   a row whose sum cancels (the first causal row: dP = delta, so dS and
+#   dq are 0 up to f32 accumulation order) is measured against that.
+BWD_GATES = {"max_scaled": 2.0 ** -6, "row_rel": 2.0 ** -6}
+BWD_ROW_FLOOR = 2.0 ** -8
+
+
+def _bwd_case(shape, d, seed):
+    """A flash case, its O and lse from the forward kernel, and a random
+    bf16 dO: the backward's inputs exactly as training hands them over."""
+    case = _flash_case(shape, d, seed)
+    out, lse = flash_attention_fwd(**case)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    dout = torch.randn(out.shape, generator=g, device=DEVICE).to(torch.bfloat16)
+    return {**case, "out": out, "lse": lse, "dout": dout}
+
+
+def _bwd_zero_sets(case):
+    """((B, H, Sq) rows that see no key, (B, Hkv, Sk) keys no row sees)."""
+    b, h = case["q"].shape[:2]
+    hkv = case["k"].shape[1]
+    vis = torch.stack([_flash_visible(case, i) for i in range(b)])
+    keyless = (~vis.any(-1))[:, None].expand(b, h, -1)
+    unseen = (~vis.any(1))[:, None].expand(b, hkv, -1)
+    return keyless, unseen
+
+
+def _bwd_errors(grads, case) -> dict:
+    """{dq|dk|dv: {max_scaled, row_rel, abs}} of the kernels' grads against
+    the plain version on the same values in f32, and ``zeros_ok``: every
+    row that sees no key has dq exactly 0 and every key no row sees has dk
+    and dv exactly 0."""
+    plain = {**case, **{n: case[n].float()
+                        for n in ("q", "k", "v", "out", "dout")}}
+    refs = flash_attention_bwd_reference(**plain)
+    errs: dict = {}
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        diff = (got.float() - ref).abs()
+        rows = torch.linalg.vector_norm(ref, dim=-1)
+        floor = BWD_ROW_FLOOR * float(rows.max())
+        errs[name] = {
+            "max_scaled": float(diff.max() / ref.abs().max().clamp_min(1e-30)),
+            "row_rel": float((torch.linalg.vector_norm(diff, dim=-1)
+                              / rows.clamp_min(max(floor, 1e-30))).max()),
+            "abs": float(diff.max()),
+        }
+    keyless, unseen = _bwd_zero_sets(case)
+    dq, dk, dv = grads
+    errs["zeros_ok"] = bool((dq[keyless] == 0).all() and (dk[unseen] == 0).all()
+                            and (dv[unseen] == 0).all())
+    return errs
+
+
+def flash_bwd_vs_plain():
+    """Phase 3, flash backward (kernels 6 and 7): returns {dq|dk|dv: {gate:
+    the worst error, "abs": the worst absolute error}}."""
+    worst = {n: dict.fromkeys(list(BWD_GATES) + ["abs"], 0.0)
+             for n in ("dq", "dk", "dv")}
+    for i, (shape, d, name) in enumerate(BWD_CASES):
+        case = _bwd_case(shape, d, seed=800 + i)
+        grads = flash_attention_bwd(**case)
+        torch.cuda.synchronize()
+        errs = _bwd_errors(grads, case)
+        torch.cuda.synchronize()
+        log(f"  flash bwd {name:19s}: " + " ".join(
+            f"{t}_{k}={v:.3e}" for t in ("dq", "dk", "dv")
+            for k, v in errs[t].items()) + f" zeros_ok={errs['zeros_ok']}")
+        for t in ("dq", "dk", "dv"):
+            for gate, limit in BWD_GATES.items():
+                err = errs[t][gate]
+                check(math.isfinite(err) and err <= limit,
+                      f"flash bwd {name} {t}: {gate} error {err} > {limit}")
+            for k in worst[t]:
+                worst[t][k] = max(worst[t][k], errs[t][k])
+        check(errs["zeros_ok"], f"flash bwd {name}: a row that sees no key or "
+                                "a key no row sees has a nonzero gradient")
+        del case, grads
     return worst
 
 
@@ -733,6 +874,99 @@ def timing_flash():
     return rows
 
 
+def _bwd_bounds(case) -> dict:
+    """Least time of each backward kernel at this case, with the bytes
+    and FLOPs of the visible (row, key) pairs of each q head: dQ does 6·D
+    FLOPs a pair (S, dP, dS·K) and moves q, dO, k, v, lse, delta and dq;
+    dK/dV does 8·D (S, dP, Pᵀ·dO, dSᵀ·Q) and moves q, dO, k, v, lse,
+    delta, dk and dv, each once."""
+    q, k = case["q"], case["k"]
+    b, h, sq, d = q.shape
+    pairs = sum(int(_flash_visible(case, i).sum()) for i in range(b)) * h
+    q_bytes, kv_bytes, row_bytes = 2 * q.numel(), 2 * k.numel(), 4 * b * h * sq
+    mask = case["kv_mask"].numel() if case["kv_mask"] is not None else 0
+    return {
+        "dq": _bound_of(3 * q_bytes + 2 * kv_bytes + 2 * row_bytes + mask,
+                        6 * pairs * d),
+        "dkv": _bound_of(2 * q_bytes + 4 * kv_bytes + 2 * row_bytes + mask,
+                         8 * pairs * d),
+    }
+
+
+def _sdpa_backward_call(case):
+    """One SDPA backward over the same work: causal, ``enable_gqa``, dq,
+    dk and dv in one call, on the flash backend; where that backend
+    refuses GQA, over K/V repeated to the q heads (the repeat is set-up,
+    untimed, and its grads are summed back over each group for the check).
+    Checked once against the plain version. Returns (call, backend)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v, dout = (case[n].detach() for n in ("q", "k", "v", "dout"))
+    group = q.shape[1] // k.shape[1]
+    backend = "flash, enable_gqa"
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        try:
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                 enable_gqa=True)
+        except RuntimeError as err:
+            log(f"  SDPA flash backend refused GQA ({str(err)[:80]}); "
+                "timing it over repeated K/V")
+            backend = "flash, K/V repeated"
+            kg, vg = (x.repeat_interleave(group, dim=1).detach()
+                      .requires_grad_() for x in (k, v))
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def call():
+        return torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True)
+
+    grads = list(call())
+    if grads[1].shape[1] != k.shape[1]:
+        grads[1:] = [g.float().unflatten(1, (k.shape[1], group)).sum(2)
+                     for g in grads[1:]]
+    errs = _bwd_errors(grads, case)
+    for t in ("dq", "dk", "dv"):
+        check(errs[t]["max_scaled"] <= BWD_GATES["max_scaled"],
+              f"SDPA backward yardstick differs from the plain version: "
+              f"{t} {errs[t]}")
+    return call, backend
+
+
+def timing_flash_bwd():
+    """Phase 4, flash backward at the training shape: each kernel alone on
+    prepared inputs, the whole wrapper (delta, padding and both kernels),
+    the plain version and one SDPA backward, beside each kernel's bound."""
+    case = _bwd_case(BWD_TRAIN, 128, seed=900)
+    *inputs, ints = attn_mod._bwd_inputs(
+        **{n: case[n] for n in ("q", "k", "v", "out", "lse", "dout",
+                                "causal", "q_offset", "window", "kv_mask")})
+    dq, dk, dv = (torch.empty_like(case[n]) for n in ("q", "k", "v"))
+    saved = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    dq_ms = _time_ms(lambda: flash_bwd_dq(*inputs, dq, ints))
+    dkv_ms = _time_ms(lambda: flash_bwd_dkv(*inputs, dk, dv, ints))
+    total_ms = _time_ms(lambda: flash_attention_bwd(**case))
+    flash_bwd_dq.launches, flash_bwd_dkv.launches = saved  # no main path
+    plain_ms = _time_ms(lambda: flash_attention_bwd_reference(**case),
+                        iters=5)
+    call, backend = _sdpa_backward_call(case)
+    library_ms = _time_ms(call)
+    bounds = _bwd_bounds(case)
+    rows = {}
+    for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+        bound_ms, bound_by, work = bounds[name]
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          bwd_total_ms=total_ms, library_backend=backend,
+                          **work)
+        log(f"  flash bwd {name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; {work['bytes']} B, {work['flops']} FLOP)")
+    log(f"  flash bwd: kernels 6 + 7 with delta and padding {total_ms:.4f} ms,"
+        f" plain {plain_ms:.4f} ms, SDPA backward ({backend}) "
+        f"{library_ms:.4f} ms")
+    del case, inputs
+    return rows
+
+
 def _decode_visible(case) -> torch.Tensor:
     """(B, MAXB·BS) or (B, C) bool: the keys each slot's query sees."""
     k_pos = torch.arange(case["kv_mask"].shape[1], device=DEVICE)
@@ -865,7 +1099,8 @@ def timing_dense():
 
 def _zero_counts() -> None:
     for wrapper in (ragged_paged_attention, flash_attention_fwd,
-                    paged_decode_attention, dense_decode_attention):
+                    paged_decode_attention, dense_decode_attention,
+                    flash_bwd_dq, flash_bwd_dkv):
         wrapper.launches = 0
 
 
@@ -873,7 +1108,9 @@ def _counts() -> dict:
     return {"ragged": ragged_paged_attention.launches,
             "flash": flash_attention_fwd.launches,
             "decode": paged_decode_attention.launches,
-            "dense": dense_decode_attention.launches}
+            "dense": dense_decode_attention.launches,
+            "bwd_dq": flash_bwd_dq.launches,
+            "bwd_dkv": flash_bwd_dkv.launches}
 
 
 def _prompts(cfg, n: int, lo: int, hi: int, seed: int) -> list[list[int]]:
@@ -1224,6 +1461,162 @@ def http_phase(engine, label: str):
 
 
 # ---------------------------------------------------------------------------
+# Train
+
+
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 3
+LOSS_CHUNK = 512
+# Step 1's loss and grads with the kernels against the same with plain
+# attention (impl="xla"): bf16 weights and activations, the two paths
+# rounding attention's output and grads at other places.
+TRAIN_TOL = {"loss_rel": 2e-2, "grad_norm_rel": 2e-2, "wq_cos": 0.99}
+
+
+def _train_corpus(tmp: str, vocab: int) -> str:
+    """A uint32 corpus written with numpy from the seed: 1 Mi tokens over
+    the first 1000 ids, so a few steps can lower the loss."""
+    rng = np.random.default_rng(SEED)
+    return str(write_token_file(os.path.join(tmp, "corpus.bin"),
+                                rng.integers(0, min(vocab, 1000), 1 << 20)))
+
+
+def _loss_and_grads(params, cfg, tokens, impl: str):
+    """Step 1's chunked loss and grads through ``impl`` attention: (loss,
+    global grad norm, layer 0's and the last layer's wq grads in f32)."""
+    params.zero_grad(set_to_none=True)
+    loss = train_mod.chunked_causal_lm_loss(
+        params, cfg, tokens, attn_impl=impl, chunk=LOSS_CHUNK, remat="full")
+    loss.backward()
+    norm = train_mod.global_norm([p.grad for p in params.parameters()])
+    wq = [params.layers[i].wq.grad.float().clone() for i in (0, -1)]
+    out = (float(loss.detach()), float(norm), wq)
+    params.zero_grad(set_to_none=True)
+    return out
+
+
+def train_phase(cfg):
+    """Phase 7: ``cfg`` at full width, random bf16 weights from the seed,
+    B 1, S 2048, remat "full", loss chunk 512, AdamW, tokens from the
+    port's TokenLoader. Step 1's loss and grads with the kernels against
+    plain attention; then TRAIN_STEPS optimizer steps, each launching the
+    flash forward 2 × n_layers times (forward and the remat recompute) and
+    each backward kernel n_layers times; the loss on step 1's batch after
+    them must be below step 1's. Returns {kernel: launches in those
+    steps}."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        with TokenLoader(_train_corpus(tmp, cfg.vocab_size), 1, TRAIN_SEQ,
+                         seed=SEED + 1) as loader:
+            batches = [torch.from_numpy(loader.next()).to(DEVICE)
+                       for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    log(f"  init {cfg.param_count() / 1e9:.2f}B params and "
+        f"{TRAIN_STEPS} batches of (1, {TRAIN_SEQ}) in "
+        f"{time.monotonic() - t0:.2f} s")
+
+    params.requires_grad_(True)
+    plain = _loss_and_grads(params, cfg, batches[0], "xla")
+    _zero_counts()
+    kern = _loss_and_grads(params, cfg, batches[0], "auto")
+    torch.cuda.synchronize()
+    counts = _counts()
+    n = cfg.n_layers
+    check((counts["flash"], counts["bwd_dq"], counts["bwd_dkv"])
+          == (2 * n, n, n), f"step 1 with the kernels launched {counts}")
+    loss_rel = abs(kern[0] - plain[0]) / abs(plain[0])
+    norm_rel = abs(kern[1] - plain[1]) / plain[1]
+    cos = [float(F.cosine_similarity(a.flatten(), b.flatten(), dim=0))
+           for a, b in zip(kern[2], plain[2])]
+    log(f"  step 1, kernels vs plain attention: loss {kern[0]:.6f} vs "
+        f"{plain[0]:.6f} (rel {loss_rel:.3e}), grad norm {kern[1]:.6f} vs "
+        f"{plain[1]:.6f} (rel {norm_rel:.3e}), wq grad cosine layer 0 "
+        f"{cos[0]:.6f}, layer {n - 1} {cos[1]:.6f}")
+    check(all(math.isfinite(x) for x in (kern[0], kern[1], plain[0], plain[1])),
+          "non-finite step-1 loss or grad norm")
+    check(loss_rel <= TRAIN_TOL["loss_rel"], f"step-1 loss rel {loss_rel}")
+    check(norm_rel <= TRAIN_TOL["grad_norm_rel"], f"grad norm rel {norm_rel}")
+    check(min(cos) >= TRAIN_TOL["wq_cos"], f"wq grad cosine {cos}")
+    del plain, kern
+
+    init_state, step_fn = train_mod.make_train_step(
+        cfg, remat="full", loss_chunk=LOSS_CHUNK)
+    state = init_state(params)
+    losses, walls = [], []
+    launched = dict.fromkeys(("flash", "bwd_dq", "bwd_dkv"), 0)
+    _zero_counts()
+    for i, tokens in enumerate(batches):
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, loss = step_fn(state, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        losses.append(float(loss))
+        after = _counts()
+        step = {k: after[k] - before[k] for k in launched}
+        check(step == {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n},
+              f"train step {i + 1} launched {step}")
+        check(after["ragged"] == after["decode"] == after["dense"] == 0,
+              f"the train step launched a serving kernel: {after}")
+    launched = {k: _counts()[k] for k in launched}
+    with torch.no_grad():
+        after_loss = float(train_mod.chunked_causal_lm_loss(
+            state["params"], cfg, batches[0], chunk=LOSS_CHUNK))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  train steps: losses {losses}, then {after_loss:.6f} on step 1's "
+        f"batch; launches {launched} in {TRAIN_STEPS} steps")
+    check(all(math.isfinite(x) for x in losses + [after_loss]),
+          "a non-finite training loss")
+    check(after_loss < losses[0],
+          f"the loss did not fall: {after_loss} after vs {losses[0]}")
+    step_s = min(walls)
+    log(f"  train smoke run, not a benchmark: peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated), step walls "
+        f"{[round(w, 4) for w in walls]} s, {TRAIN_SEQ / step_s:.1f} tokens/s "
+        f"at the fastest step")
+    del state, params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    checkpoint_round_trip()
+    return launched
+
+
+def checkpoint_round_trip() -> None:
+    """A ``tiny`` bf16 trainer state on the card, every leaf filled with
+    random values, saved and restored into another fresh state: every
+    tensor must come back byte-equal."""
+    _, fresh_state, _ = train_mod.make_tiny_trainer(steps=1, device=DEVICE)
+    state = fresh_state(0)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    with torch.no_grad():
+        for _, leaf in flatten_state(state):
+            if leaf.is_floating_point():
+                leaf.copy_(torch.randn(leaf.shape, generator=g,
+                                       device=DEVICE).to(leaf.device))
+    state["step"] += 5
+    with tempfile.TemporaryDirectory() as tmp:
+        check(CheckpointManager(tmp).save(5, state), "checkpoint save failed")
+        other = fresh_state(1)
+        _, step = CheckpointManager(tmp).restore_latest(other)
+    check(step == 5, f"restore_latest returned step {step}")
+    saved, restored = flatten_state(state), flatten_state(other)
+    same = all(
+        pa == pb and a.dtype == b.dtype and a.device == b.device
+        and torch.equal(a.reshape(-1).view(torch.uint8),
+                        b.reshape(-1).view(torch.uint8))
+        for (pa, a), (pb, b) in zip(saved, restored))
+    check(same and len(saved) == len(restored),
+          "a restored leaf differs from the saved one")
+    log(f"  checkpoint round trip of a tiny bf16 trainer state: "
+        f"{len(saved)} leaves byte-equal")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1238,7 +1631,7 @@ def main() -> int:
     t_start = time.monotonic()
     phases = {}
 
-    log("[1/6] card")
+    log("[1/7] card")
     smi = subprocess.run(
         ["nvidia-smi", "-i", card_id, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1252,7 +1645,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     phases["card"] = time.monotonic() - t_start
 
-    log("[2/6] build")
+    log("[2/7] build")
     t0 = time.monotonic()
     seconds = _build.build()
     for name, took in seconds.items():
@@ -1263,23 +1656,25 @@ def main() -> int:
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
 
-    log("[3/6] kernel vs plain")
+    log("[3/7] kernel vs plain")
     t0 = time.monotonic()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
     decode_errors = decode_vs_plain()
     dense_errors = dense_vs_plain()
+    bwd_errors = flash_bwd_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
-    log("[4/6] timing at the main-path shapes")
+    log("[4/7] timing at the main-path shapes")
     t0 = time.monotonic()
     times = timing()
     flash_times = timing_flash()
     decode_times = timing_decode()
     dense_times = timing_dense()
+    bwd_times = timing_flash_bwd()
     phases["timing"] = time.monotonic() - t0
 
-    log("[5/6] engines: llama-3-8b, full width and depth, random weights")
+    log("[5/7] engines: llama-3-8b, full width and depth, random weights")
     t0 = time.monotonic()
     cfg = L.LLAMA_CONFIGS["llama-3-8b"]
     params = L.init_params(
@@ -1292,12 +1687,23 @@ def main() -> int:
     cont_launches, cont_engine = continuous_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
-    log("[6/6] HTTP")
+    log("[6/7] HTTP")
     t0 = time.monotonic()
     http_phase(engine, "ragged")
     http_phase(alt_engine, "alternating")
     http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
+
+    log("[7/7] train: llama-3-8b, full width and depth, random weights")
+    t0 = time.monotonic()
+    # The serving model, engines and pools go first: training needs ~66 GB.
+    del params, engine, alt_engine, cont_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+        "after the serving phases")
+    train_launches = train_phase(cfg)
+    phases["train"] = time.monotonic() - t0
 
     def entry(name, source, replaces, launched, errs, timed, **extra):
         return {
@@ -1322,6 +1728,7 @@ def main() -> int:
               flash_errors, flash_times["main-prefill"],
               also_replaces="kubeflow_tpu/ops/attention.py:547",
               launches_continuous=cont_launches["flash"],
+              launches_train=train_launches["flash"],
               max_lse_err=flash_errors["lse"],
               long_16384={k: long_run[k] for k in (
                   "ms", "library_ms", "bound_ms", "bound_by")}),
@@ -1333,6 +1740,22 @@ def main() -> int:
               "kubeflow_tpu_torch/csrc/paged_attention.cu",
               "kubeflow_tpu/ops/paged_attention.py:298",
               cont_launches["dense"], dense_errors, dense_times),
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "kubeflow_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": replaces, "launches": train_launches[count],
+         "max_abs_err": max(bwd_errors[t]["abs"] for t in grads),
+         **{f"max_{gate}_err": max(bwd_errors[t][gate] for t in grads)
+            for gate in BWD_GATES},
+         **{k: bwd_times[key][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "bwd_total_ms", "library_backend")},
+         "plain_and_library_cover": "dq, dk and dv in one call"}
+        for name, replaces, count, key, grads in (
+            ("flash_attention_bwd_dq", "kubeflow_tpu/ops/attention.py:772",
+             "bwd_dq", "dq", ("dq",)),
+            ("flash_attention_bwd_dkv", "kubeflow_tpu/ops/attention.py:841",
+             "bwd_dkv", "dkv", ("dk", "dv")))
     ]
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")

@@ -1,0 +1,158 @@
+"""Token batch loader: random (batch, seq) windows of a uint32 corpus.
+
+The port's own copy of the numpy sampler of ``kubeflow_tpu/data/loader.py``
+(its Python path): the same file format (flat little-endian uint32), the
+same xorshift64* stream and the same O(log n) resume skip, so a stream is
+a pure function of (corpus, batch, seq, seed, start_batch) and equals the
+JAX package's bit for bit. The JAX package's native C++ prefetcher
+(``native/dataloader.cpp``) is not ported: batches are assembled on the
+calling thread. ``sharded_loader`` takes the process id and count from
+``torch.distributed`` when it is initialized, else 0 and 1.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Iterator, Optional
+
+import numpy as np
+
+_MASK = (1 << 64) - 1
+
+
+def write_token_file(path: str | Path, tokens: np.ndarray) -> Path:
+    """Persist a token corpus in the loader's format (flat uint32 LE)."""
+    path = Path(path)
+    np.asarray(tokens, dtype=np.uint32).tofile(path)
+    return path
+
+
+def _xorshift_matrix() -> np.ndarray:
+    """The xorshift64 state transition (x^=x>>12; x^=x<<25; x^=x>>27) as
+    a 64×64 GF(2) matrix acting on bit-column vectors (bit i = 2**i)."""
+    m = np.eye(64, dtype=np.uint8)
+
+    def shift_xor(mat, k):
+        # x ^= x >> k (k > 0): bit j of the result has bit j+k mixed in;
+        # x ^= x << k (k < 0): bit j has bit j-k mixed in.
+        out = mat.copy()
+        if k > 0:
+            out[: 64 - k] ^= mat[k:]
+        else:
+            out[-k:] ^= mat[: 64 + k]
+        return out
+
+    for k in (12, -25, 27):
+        m = shift_xor(m, k)
+    return m
+
+
+def _xorshift_skip(state: int, n: int) -> int:
+    """Advance the xorshift64 state by ``n`` transitions in O(log n):
+    square-and-multiply over the GF(2) transition matrix. Bit-identical to
+    n sequential transitions."""
+    if n <= 0:
+        return state
+    vec = np.array([(state >> i) & 1 for i in range(64)], dtype=np.uint8)
+    m = _xorshift_matrix()
+    while n:
+        if n & 1:
+            vec = (m @ vec) & 1
+        m = (m @ m) & 1
+        n >>= 1
+    return int(sum(int(b) << i for i, b in enumerate(vec)))
+
+
+class TokenLoader:
+    """Iterator of (batch, seq) int32 arrays sampled from a token file:
+    each row a window starting at ``xorshift64*() % (n_tokens - seq + 1)``.
+    ``start_batch`` skips the batches a checkpointed run already consumed
+    (the output multiply does not feed the state, so only the xorshift
+    transition is advanced, by start_batch·batch steps)."""
+
+    def __init__(self, path: str | Path, batch: int, seq: int, seed: int = 1,
+                 start_batch: int = 0):
+        self.path = Path(path)
+        if not self.path.exists():
+            raise FileNotFoundError(self.path)
+        if start_batch < 0:
+            raise ValueError(f"start_batch must be >= 0, got {start_batch}")
+        self.batch = batch
+        self.seq = seq
+        n_tokens = self.path.stat().st_size // 4
+        if n_tokens < seq:
+            raise ValueError(f"corpus has {n_tokens} tokens < seq={seq}")
+        self.n_tokens = n_tokens
+        self._tokens: Optional[np.memmap] = np.memmap(
+            self.path, dtype=np.uint32, mode="r")
+        rng = seed if seed else 0x9E3779B97F4A7C15
+        self._rng = _xorshift_skip(rng, start_batch * batch)
+
+    def _next_rand(self) -> int:
+        x = self._rng
+        x ^= (x >> 12)
+        x = (x ^ (x << 25)) & _MASK
+        x ^= (x >> 27)
+        self._rng = x
+        return (x * 0x2545F4914F6CDD1D) & _MASK
+
+    def next(self) -> np.ndarray:
+        if self._tokens is None:
+            raise ValueError("loader is closed")
+        max_start = self.n_tokens - self.seq
+        out = np.empty((self.batch, self.seq), np.int32)
+        for b in range(self.batch):
+            start = self._next_rand() % (max_start + 1)
+            out[b] = self._tokens[start:start + self.seq].astype(np.int32)
+        return out
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        while True:
+            yield self.next()
+
+    def batches(self, n: int) -> Iterator[np.ndarray]:
+        for _ in range(n):
+            yield self.next()
+
+    def close(self) -> None:
+        self._tokens = None  # drops the memmap
+
+    def __enter__(self) -> "TokenLoader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _process_identity() -> tuple[int, int]:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def sharded_loader(path: str | Path, global_batch: int, seq: int,
+                   seed: int = 1, process_id: Optional[int] = None,
+                   num_processes: Optional[int] = None,
+                   start_batch: int = 0) -> TokenLoader:
+    """Per-process loader for multi-process training: each process loads
+    ONLY its global_batch/num_processes rows, from a process-disjoint
+    stream (the seed is splitmix-style mixed with the process id).
+
+    ``start_batch`` is a GLOBAL batch index (``runtime.checkpoint.
+    resume_start_batch`` after ``restore_latest``): every process's stream
+    advances by the same count, so a resumed run replays nothing and
+    skips nothing."""
+    env_pid, env_num = _process_identity()
+    pid = env_pid if process_id is None else process_id
+    num = env_num if num_processes is None else num_processes
+    if global_batch % num != 0:
+        raise ValueError(
+            f"global_batch {global_batch} not divisible by {num} processes"
+        )
+    mixed = (seed * 0x9E3779B97F4A7C15 + pid * 0xBF58476D1CE4E5B9) & _MASK
+    # Keep the mixed seed nonzero (xorshift fixed point) and in int range.
+    mixed = (mixed % ((1 << 63) - 1)) or 1
+    return TokenLoader(path, global_batch // num, seq, seed=mixed,
+                       start_batch=start_batch)

@@ -1,4 +1,5 @@
-"""Llama model family in PyTorch: the parts the serving engines run.
+"""Llama model family in PyTorch: the parts the serving engines and the
+trainer run.
 
 Counterpart of ``kubeflow_tpu/models/llama.py``. Parameters live in
 ``nn.Module``s (``Llama`` holding one ``LlamaLayer`` per layer) instead of
@@ -27,19 +28,33 @@ generation functions (``generate``, ``generate_tokens``, ``sample``,
 ``greedy_generate``) are Python loops over the steps where JAX runs one
 jitted scan, and draw from a ``torch.Generator`` where JAX takes a key.
 Caches are updated IN PLACE (JAX donates them and returns new ones), and
-the functions return the cache they were given. Inference only: no remat
-policy, no gradient.
+the functions return the cache they were given.
+
+Training: ``forward_hidden`` and ``forward`` record an autograd graph when
+grad mode is on and the weights require grad. Weights are created frozen
+(``requires_grad=False``), as serving wants them; ``params.requires_grad_()``
+makes them trainable (``models/train.py``'s ``init_state`` does). Attention
+then differentiates through ``FlashAttention`` (the backward kernels on the
+card). ``forward_hidden``'s ``remat`` picks one of ``_REMAT_POLICIES``, the
+JAX names: ``"full"`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant) and recomputes it in the
+backward; ``"dots"`` saves the outputs of the projections (``aten.mm``:
+the products with no batch dims) and recomputes the rest, attention
+included; ``"none"`` saves what autograd saves. The serving functions run
+under ``torch.no_grad``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils import checkpoint as _ckpt
 
 from kubeflow_tpu_torch.ops.attention import NEG_INF, flash_attention
 
@@ -139,7 +154,8 @@ LLAMA_CONFIGS: dict[str, LlamaConfig] = {
 
 
 def _weight(shape: tuple, cfg: LlamaConfig, device) -> nn.Parameter:
-    # Inference weights: no autograd graph is ever recorded through them.
+    # Frozen by default, so serving records no autograd graph through them;
+    # training turns grads on with ``Llama.requires_grad_()``.
     return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
                         requires_grad=False)
 
@@ -372,24 +388,53 @@ def _layer_fwd(layer: LlamaLayer, cfg: LlamaConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Entry points (inference only)
+# Entry points
 
 
-@torch.no_grad()
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the projections' outputs (``aten.mm``, the
+    products with no batch dims, JAX's ``dots_with_no_batch_dims_saveable``)
+    and recompute everything else."""
+    if op is torch.ops.aten.mm.default:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# Remat policies for the layer loop, keyed by the JAX names: each wraps
+# one layer's forward.
+_REMAT_POLICIES = {
+    "full": lambda body: functools.partial(
+        _ckpt.checkpoint, body, use_reentrant=False),
+    "dots": lambda body: functools.partial(
+        _ckpt.checkpoint, body, use_reentrant=False,
+        context_fn=functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)),
+    "none": lambda body: body,
+}
+
+
 def forward_hidden(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
-                   attn_impl: str = "auto") -> torch.Tensor:
+                   attn_impl: str = "auto", remat: str = "full"
+                   ) -> torch.Tensor:
     """Tokens (B, S) → final-normed hidden states (B, S, dim), without the
-    lm head. The JAX function's ``remat`` policies exist for training and
-    are not ported."""
+    lm head: the seam of the chunked cross entropy (``models/train.py``).
+    ``remat`` picks the ``_REMAT_POLICIES`` entry; with no graph recorded
+    (grad mode off) no layer is checkpointed, so it costs nothing at
+    inference."""
+    if remat not in _REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat policy {remat!r} (want {sorted(_REMAT_POLICIES)})"
+        )
     x = _embed(params, cfg, tokens)
     cos, sin = rope_frequencies(
         cfg, torch.arange(tokens.shape[1], device=tokens.device))
+    wrap = _REMAT_POLICIES[remat if torch.is_grad_enabled() else "none"]
     for layer in params.layers:
-        x = _layer_fwd(layer, cfg, x, cos, sin, attn_impl)
+        x = wrap(functools.partial(_layer_fwd, layer, cfg))(
+            x, cos, sin, attn_impl)
     return _norm(x, params.final_norm, cfg)
 
 
-@torch.no_grad()
 def forward(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
             attn_impl: str = "auto") -> torch.Tensor:
     """Full-sequence forward: tokens (B, S) → logits (B, S, V) f32."""

@@ -1,0 +1,376 @@
+"""Training step: causal-LM loss and AdamW on one device.
+
+Counterpart of ``kubeflow_tpu/models/train.py`` for one card (or the
+CPU): the same losses (dense, and chunked so full (B, S, vocab) logits
+never exist), the same remat policies (``models/llama.py``
+``_REMAT_POLICIES``), AdamW with optax's semantics and schedule, and
+gradient accumulation over strided microbatches. Attention differentiates
+through the flash kernels' ``FlashAttention`` (``ops/attention.py``).
+
+What differs from JAX:
+- The train state is ``{"params": Llama, "opt_state": torch.optim.AdamW,
+  "step": int64 scalar tensor}``, and ``train_step`` updates it IN PLACE
+  (JAX donates the state and returns a new one) and returns it with the
+  step's loss.
+- One device only: ``plan`` is ``None`` or a device, and there is no
+  ``shard_state``. Sharded plans (FSDP/TP), sequence-parallel attention
+  (ring, Ulysses, zigzag: ROADMAP queue 1 item 13) and fp8 training
+  (item 9) raise ``NotImplementedError``.
+- AdamW's state is allocated when the state is made, not at the first
+  step, so a checkpoint of a fresh state has every leaf of a trained one.
+- ``make_tiny_trainer`` draws its batches with numpy from the seed (JAX
+  draws them with ``jax.random``), so its runs match each other, not
+  JAX's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch.utils import checkpoint as _ckpt
+
+from kubeflow_tpu_torch.models.llama import (
+    LLAMA_CONFIGS,
+    Llama,
+    LlamaConfig,
+    _lm_head_logits,
+    forward,
+    forward_hidden,
+    init_params,
+)
+
+
+def per_token_nll(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
+                  attn_impl: str = "auto") -> torch.Tensor:
+    """(B, S-1) next-token negative log likelihoods — the one place the
+    NLL math lives (training mean-loss and perplexity eval both fold it)."""
+    logits = forward(params, cfg, tokens, attn_impl=attn_impl)[:, :-1]
+    targets = tokens[:, 1:].long()
+    logprobs = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logprobs, -1, targets[..., None])[..., 0]
+
+
+def causal_lm_loss(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
+                   attn_impl: str = "auto") -> torch.Tensor:
+    """Next-token cross entropy over (B, S) token batches."""
+    return torch.mean(per_token_nll(params, cfg, tokens, attn_impl))
+
+
+def _chunk_nll_sum(params: Llama, h_c: torch.Tensor,
+                   t_c: torch.Tensor) -> torch.Tensor:
+    logits = _lm_head_logits(h_c, params)  # (B, c, V) f32, one chunk
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, t_c.long()[..., None])[..., 0]
+    return torch.sum(lse - tgt)
+
+
+def chunked_causal_lm_loss(params: Llama, cfg: LlamaConfig,
+                           tokens: torch.Tensor, attn_impl: str = "auto",
+                           chunk: int = 512, remat: str = "full"
+                           ) -> torch.Tensor:
+    """causal_lm_loss without ever materializing (B, S, vocab) logits.
+
+    The lm head and cross entropy run per sequence chunk, each chunk
+    checkpointed (the backward recomputes its logits), so at most one
+    chunk's f32 logits are alive; a tail shorter than ``chunk`` runs
+    unchecked, as in JAX. The same lse − target arithmetic in f32 as
+    ``causal_lm_loss``. ``remat`` goes to the layer stack."""
+    b, s = tokens.shape
+    if s < 2:
+        raise ValueError(
+            f"causal LM loss needs sequences of >= 2 tokens, got S={s}"
+        )
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    hidden = forward_hidden(params, cfg, tokens, attn_impl, remat=remat)
+    hidden = hidden[:, :-1]
+    targets = tokens[:, 1:]
+    n_pos = s - 1
+    chunk = min(chunk, n_pos)
+    n_chunks = n_pos // chunk
+    body = functools.partial(_chunk_nll_sum, params)
+    if torch.is_grad_enabled():
+        body = functools.partial(_ckpt.checkpoint, body, use_reentrant=False)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        span = slice(c * chunk, (c + 1) * chunk)
+        total = total + body(hidden[:, span], targets[:, span])
+    if n_chunks * chunk < n_pos:  # S-1 is rarely chunk-aligned
+        total = total + _chunk_nll_sum(params, hidden[:, n_chunks * chunk:],
+                                       targets[:, n_chunks * chunk:])
+    return total / (b * n_pos)
+
+
+# ---------------------------------------------------------------------------
+# Optimizer
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule: init → end over ``steps``, then end."""
+    def value(count: int) -> float:
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+    return value
+
+
+def _cosine(init: float, decay_steps: int,
+            alpha: float) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule: init → init·alpha over decay_steps."""
+    def value(count: int) -> float:
+        cosine = 0.5 * (1 + math.cos(math.pi * min(count, decay_steps)
+                                     / decay_steps))
+        return init * ((1 - alpha) * cosine + alpha)
+    return value
+
+
+def _join(first: Callable, second: Callable,
+          boundary: int) -> Callable[[int], float]:
+    """optax.join_schedules: the second piece from ``boundary`` on, fed
+    the count less the boundary."""
+    def value(count: int) -> float:
+        return first(count) if count < boundary else second(count - boundary)
+    return value
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """``optax.adamw(schedule, b1=0.9, b2=0.95, weight_decay=...)`` (eps
+    1e-8, decay on every leaf), after ``optax.clip_by_global_norm`` when
+    ``clip_norm`` > 0, over ``torch.optim.AdamW``: fused on the card (its
+    foreach path would hold temporaries as large as the params), the
+    single-tensor path on the CPU. ``schedule(n)`` is the lr of update n,
+    counted from 0."""
+
+    schedule: Callable[[int], float]
+    weight_decay: float = 0.1
+    clip_norm: float = 0.0
+
+    def init(self, params: Llama) -> torch.optim.AdamW:
+        """The optimizer over every parameter, its moments allocated now
+        (zeros) in the layout ``torch.optim.AdamW`` gives them at its first
+        step."""
+        plist = list(params.parameters())
+        fused = plist[0].device.type == "cuda"
+        opt = torch.optim.AdamW(
+            plist, lr=self.schedule(0), betas=(0.9, 0.95), eps=1e-8,
+            weight_decay=self.weight_decay,
+            fused=fused, foreach=False if not fused else None)
+        for p in plist:
+            opt.state[p] = {
+                "step": torch.zeros((), dtype=torch.float32,
+                                    device=p.device if fused else "cpu"),
+                "exp_avg": torch.zeros_like(
+                    p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(
+                    p, memory_format=torch.preserve_format),
+            }
+        return opt
+
+    def update(self, opt: torch.optim.AdamW, count: int) -> None:
+        """Update n = ``count`` from the grads in each parameter's
+        ``.grad``: clip (optax's formula: ``g / ‖g‖ · clip`` when ‖g‖ is
+        not below ``clip_norm``, with no ``+1e-6``), set the lr, step."""
+        grads = [p.grad for group in opt.param_groups for p in group["params"]
+                 if p.grad is not None]
+        if self.clip_norm > 0 and grads:
+            norm = global_norm(grads)
+            keep = norm < self.clip_norm
+            for g in grads:
+                g.copy_(torch.where(keep, g,
+                                    g / norm.to(g.dtype) * self.clip_norm))
+        lr = float(self.schedule(count))
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt(Σ x²) over every element of every tensor, in f32."""
+    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+
+
+def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
+                   warmup_steps: int = 0, decay_steps: int = 0,
+                   end_lr_ratio: float = 0.1, clip_norm: float = 0.0
+                   ) -> AdamW:
+    """AdamW with the standard LLM training schedule knobs.
+
+    - warmup_steps > 0: linear warmup from 0 to ``lr``;
+    - decay_steps > 0: cosine decay from ``lr`` to ``lr*end_lr_ratio``
+      over exactly ``decay_steps`` steps AFTER warmup; with
+      decay_steps=0 the lr stays at peak forever after warmup;
+    - clip_norm > 0: global-norm gradient clipping before the update.
+    """
+    if warmup_steps or decay_steps:
+        warm = _linear(0.0, lr, max(warmup_steps, 1))
+        rest = (_cosine(lr, decay_steps, end_lr_ratio) if decay_steps
+                else (lambda count: lr))
+        schedule = _join(warm, rest, warmup_steps)
+    else:
+        def schedule(count: int) -> float:
+            return lr
+    return AdamW(schedule, weight_decay=weight_decay, clip_norm=clip_norm)
+
+
+# ---------------------------------------------------------------------------
+# Train step
+
+
+def _check_plan(plan) -> None:
+    if plan is None or isinstance(plan, (str, torch.device)):
+        return
+    raise NotImplementedError(
+        f"plan {plan!r}: the port trains on one device (plan=None or a "
+        "device); sharded plans and shard_state (FSDP/TP) are still to be "
+        "ported (ROADMAP queue 1 item 12)"
+    )
+
+
+def make_train_step(
+    cfg: LlamaConfig,
+    plan=None,
+    optimizer: Optional[AdamW] = None,
+    use_ring_sp: Optional[bool] = None,
+    sp_impl: str = "ring",
+    grad_accum: int = 1,
+    loss_chunk: int = 512,
+    remat: str = "full",
+    fp8: bool = False,
+):
+    """Build ``(init_state, train_step)`` for one device.
+
+    ``init_state(params)`` turns the params' grads on and returns the
+    state dict; ``train_step(state, tokens)`` computes the loss and
+    grads, takes one optimizer update and returns ``(state, loss)``, the
+    state updated in place.
+
+    ``grad_accum`` > 1 splits the batch into that many microbatches and
+    sums their f32 gradients before ONE update (JAX's scan carry), each
+    microbatch STRIDED (``micro[i] = tokens[i::grad_accum]``, as JAX's
+    reshape-transpose gives). The f32 sum holds twice the bf16 params'
+    bytes beside them, as JAX's carry does. The batch's leading dim must
+    be divisible by grad_accum.
+
+    ``loss_chunk`` > 0 uses chunked_causal_lm_loss (full (B, S, vocab)
+    logits never materialize); 0 falls back to the dense loss.
+    ``remat`` picks the layer-stack checkpoint policy
+    (llama._REMAT_POLICIES: "full" | "dots" | "none")."""
+    if sp_impl not in ("ring", "ulysses", "zigzag"):
+        raise ValueError(
+            f"unknown sp_impl {sp_impl!r} (want 'ring'|'ulysses'|'zigzag')"
+        )
+    if use_ring_sp or sp_impl != "ring":
+        raise NotImplementedError(
+            "sequence-parallel attention (ring, Ulysses, zigzag) is not "
+            "ported yet (ROADMAP queue 1 item 13)"
+        )
+    if fp8:
+        raise NotImplementedError(
+            "fp8 training (models/fp8.py) is not ported yet (ROADMAP queue 1 "
+            "item 9)"
+        )
+    _check_plan(plan)
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    optimizer = optimizer or make_optimizer()
+
+    def init_state(params: Llama) -> dict:
+        params.requires_grad_(True)
+        return {"params": params, "opt_state": optimizer.init(params),
+                "step": torch.zeros((), dtype=torch.int64)}
+
+    def loss_fn(params: Llama, tokens: torch.Tensor) -> torch.Tensor:
+        if loss_chunk:
+            return chunked_causal_lm_loss(params, cfg, tokens, chunk=loss_chunk,
+                                          remat=remat)
+        return causal_lm_loss(params, cfg, tokens)
+
+    def train_step(state: dict, tokens: torch.Tensor):
+        params, opt = state["params"], state["opt_state"]
+        opt.zero_grad(set_to_none=True)
+        if grad_accum == 1:
+            loss = loss_fn(params, tokens)
+            loss.backward()
+        else:
+            b = tokens.shape[0]
+            if b % grad_accum:
+                raise ValueError(
+                    f"batch {b} not divisible by grad_accum {grad_accum}"
+                )
+            plist = list(params.parameters())
+            sums = [torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device) for p in plist]
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for i in range(grad_accum):
+                micro_loss = loss_fn(params, tokens[i::grad_accum])
+                micro_loss.backward()
+                loss = loss + micro_loss.detach()
+                for acc, p in zip(sums, plist):
+                    acc += p.grad.float()
+                    p.grad = None
+            loss = loss / grad_accum
+            for acc, p in zip(sums, plist):
+                p.grad = (acc / grad_accum).to(p.dtype)
+        optimizer.update(opt, int(state["step"]))
+        opt.zero_grad(set_to_none=True)
+        state["step"] += 1
+        return state, loss.detach()
+
+    return init_state, train_step
+
+
+@torch.no_grad()
+def token_nll(params: Llama, cfg: LlamaConfig,
+              tokens: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Per-batch (sum NLL, token count) for perplexity evaluation."""
+    nll = per_token_nll(params, cfg, tokens)
+    return torch.sum(nll), nll.numel()
+
+
+def evaluate_perplexity(params: Llama, cfg: LlamaConfig, batches) -> dict:
+    """Corpus perplexity over an iterable of (B, S) token batches.
+
+    Returns {"nll": mean per-token NLL, "perplexity": exp(nll),
+    "tokens": count}. Positions 1..S-1 are scored against the model's
+    prediction from the prefix."""
+    total = 0.0
+    count = 0
+    for tokens in batches:
+        s, n = token_nll(params, cfg, tokens)
+        total += float(s)
+        count += int(n)
+    if count == 0:
+        raise ValueError("no evaluation tokens")
+    nll = total / count
+    return {"nll": nll, "perplexity": math.exp(nll), "tokens": count}
+
+
+def make_tiny_trainer(steps: int = 4, batch: int = 2, seq: int = 16,
+                      seed: int = 0, device=None):
+    """Deterministic single-device tiny-llama trainer for durability
+    tests: ``(step_fn, fresh_state, batches)`` where ``fresh_state(key)``
+    builds an init state from weights seeded by ``key`` and ``batches`` is
+    a fixed token list (numpy draws from ``seed``). Rebuilding with the
+    same seed reproduces the exact run, so an interrupted-and-resumed run
+    can be held to an uninterrupted one with zero divergence."""
+    from kubeflow_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg = LLAMA_CONFIGS["tiny"]
+    init_state, step_fn = make_train_step(cfg)
+
+    def fresh_state(key: int = 0) -> dict:
+        gen = torch.Generator(device=dev).manual_seed(key)
+        return init_state(init_params(cfg, gen, dev))
+
+    batches = [
+        torch.from_numpy(np.random.default_rng(seed * 1000 + 100 + i).integers(
+            0, cfg.vocab_size, size=(batch, seq))).to(dev)
+        for i in range(steps)
+    ]
+    return step_fn, fresh_state, batches

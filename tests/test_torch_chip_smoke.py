@@ -8,12 +8,16 @@ output 3% off, it must fail. Shapes are llama-3-8b's heads: 16 rows of
 the ragged kernel (bf16 and int8 pools) and of the flash kernel (rows at
 positions 624..639), and 2 slots of the paged and dense decode kernels.
 
+The flash backward's gates are held the same way: the plain backward on
+the forward's O and lse, its dq, dk and dv rounded to bf16, passes them;
+with one 64-key tile of the 640 keys dropped, or 3% off, it fails them.
+
 The dense kernel's phase-3 cases run through ``dense_vs_plain`` as they
 will on the card (the wrapper's plain version stands in for the kernel).
-``continuous_phase`` runs at a small f32 width on the CPU with the kernel
-wrappers it reaches replaced by counting stand-ins that call the plain
-versions, so its launch arithmetic, comparisons and output checks are
-exercised before the card sees them.
+``continuous_phase`` and ``train_phase`` run at a small width on the CPU
+with the kernel wrappers they reach replaced by counting stand-ins that
+call the plain versions, so their launch arithmetic, comparisons and
+output checks are exercised before the card sees them.
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ SPANS = [(1, 640), (8, 640)]  # a decode row and a chunk, 640 keys each
 FLASH_SHAPE = (1, 32, 8, 16, 640, True, 624, 0, None)
 DECODE_SHAPE = dict(hq=32, hkv=8, d=128, bs=16, maxb=40, nb=81)
 DENSE_SHAPE = dict(hq=32, hkv=8, d=128, c=1024)
+# 64 rows at positions 576..639 against 640 keys, llama-3-8b heads.
+BWD_SHAPE = (1, 32, 8, 64, 640, True, 576, 0, None)
 VARIANTS = ["bf16", "int8", "flash", "decode", "dense"]
 
 
@@ -174,3 +180,65 @@ def test_continuous_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     assert launches["flash"] == 16 * cfg.n_layers
     assert launches["dense"] > 0 and launches["dense"] % cfg.n_layers == 0
     assert isinstance(eng, TC.ContinuousBatcher) and not eng._pending()
+
+
+def _bwd_errors(smoke, drop_tile=False, scale=1.0):
+    """The backward gates' errors of the plain backward standing in for
+    the kernels: run on the case (with keys 320..383 masked when
+    ``drop_tile``), its grads times ``scale`` and rounded to bf16."""
+    case = smoke._bwd_case(BWD_SHAPE, 128, seed=0)
+    run = dict(case)
+    if drop_tile:
+        mask = torch.ones((1, 640), dtype=torch.bool)
+        mask[:, 320:384] = False
+        run["kv_mask"] = mask
+    grads = [(g.float() * scale).to(torch.bfloat16)
+             for g in TA.flash_attention_bwd_reference(**run)]
+    return smoke._bwd_errors(grads, case)
+
+
+def _bwd_failed(smoke, errs) -> dict:
+    return {t: [g for g, limit in smoke.BWD_GATES.items()
+                if not errs[t][g] <= limit] for t in ("dq", "dk", "dv")}
+
+
+def test_plain_backward_rounded_to_bf16_passes_the_gates(smoke):
+    errs = _bwd_errors(smoke)
+    assert _bwd_failed(smoke, errs) == {"dq": [], "dk": [], "dv": []}, errs
+    assert errs["zeros_ok"]
+
+
+def test_a_dropped_key_tile_fails_the_backward_row_gate(smoke):
+    errs = _bwd_errors(smoke, drop_tile=True)
+    assert all("row_rel" in f for f in _bwd_failed(smoke, errs).values()), errs
+
+
+def test_gradients_three_percent_off_fail_the_backward_row_gate(smoke):
+    errs = _bwd_errors(smoke, scale=1.03)
+    assert all("row_rel" in f for f in _bwd_failed(smoke, errs).values()), errs
+
+
+def test_train_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
+    """The train phase at ``tiny`` width (bf16, 2 layers) on the CPU, S 64
+    in loss chunks of 16: the flash forward and backward wrappers count
+    like the kernels and compute the plain versions."""
+    real_fwd = TA.flash_attention_fwd
+
+    def fwd(*a, **kw):
+        real_fwd.launches += 1
+        return TA.flash_attention_reference(*a, **kw)
+
+    def bwd(*a, **kw):
+        TA.flash_bwd_dq.launches += 1
+        TA.flash_bwd_dkv.launches += 1
+        return TA.flash_attention_bwd_reference(*a, **kw)
+
+    monkeypatch.setattr(TA, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(TA, "flash_attention_bwd", bwd)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(smoke, "TRAIN_SEQ", 64)
+    monkeypatch.setattr(smoke, "LOSS_CHUNK", 16)
+    cfg = TL.LLAMA_CONFIGS["tiny"]
+    launched = smoke.train_phase(cfg)
+    n = cfg.n_layers * smoke.TRAIN_STEPS
+    assert launched == {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n}

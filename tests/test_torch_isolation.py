@@ -55,7 +55,9 @@ def test_importing_the_port_loads_no_jax():
         "kubeflow_tpu_torch.models.serving, "
         "kubeflow_tpu_torch.models.server, kubeflow_tpu_torch.models.bridge, "
         "kubeflow_tpu_torch.examples.serve_http, kubeflow_tpu_torch.ops._build, "
-        "kubeflow_tpu_torch.ops.attention, kubeflow_tpu_torch.ops.paged_attention\n"
+        "kubeflow_tpu_torch.ops.attention, kubeflow_tpu_torch.ops.paged_attention, "
+        "kubeflow_tpu_torch.models.train, kubeflow_tpu_torch.data.loader, "
+        "kubeflow_tpu_torch.runtime.checkpoint, kubeflow_tpu_torch.examples.train\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'kubeflow_tpu')]\n"
@@ -70,9 +72,11 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.examples import serve_http
+    from kubeflow_tpu_torch.examples import train as train_example
     from kubeflow_tpu_torch.models import llama as TL
     from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
     from kubeflow_tpu_torch.models.paged import PagedBatcher
+    from kubeflow_tpu_torch.models.train import make_tiny_trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TL.LLAMA_CONFIGS["tiny"]
@@ -90,6 +94,8 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
         lambda: serve_http.main(["--config", "tiny", "--port", "0"]),
         lambda: serve_http.main(["--config", "tiny", "--port", "0",
                                  "--paged"]),
+        lambda: train_example.main(["--config", "tiny", "--steps", "1"]),
+        lambda: make_tiny_trainer(),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
