@@ -104,6 +104,7 @@ It prints a ``{"kernels": [...]}`` line, the card line, and last
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
 import functools
@@ -333,6 +334,8 @@ FLASH_CASES = [(c, 128, f"small#{i}") for i, c in enumerate(FLASH_SMALL)] + [
     (FLASH_MAIN, 128, "main-prefill"),
     # A continuation re-admitted at 528 rows (a multiple of 16, not 128).
     ((1, 32, 8, 528, 528, True, 0, 0, (17,)), 128, "continuation-528"),
+    # The training forward (and its remat recompute), 64 launches a step.
+    ((1, 32, 8, 2048, 2048, True, 0, 0, None), 128, "train-2048"),
     # Past the TPU's whole-K/V line (2·Sk·D·2 B > 4 MB): its streamed kernel.
     ((1, 32, 8, 16384, 16384, True, 0, 0, None), 128, "long-16384"),
     ((1, 32, 8, 1024, 1024, True, 0, 256, (64,)), 128, "window-256"),
@@ -399,14 +402,17 @@ def flash_vs_plain():
 
 # Flash backward cases: the forward's (b, h, hkv, sq, sk, causal,
 # q_offset, window, left pads) and head dim. The CPU suite's
-# (tests/test_torch_flash_backward.py), the training shape (llama-3-8b
-# heads, S 2048, causal), a window with a q_offset, a left-padded mask
-# whose first 150 rows see no key, and head dim 64.
+# (tests/test_torch_flash_backward.py: the first three, group 8 and group 1
+# with a mask), the training shape (llama-3-8b heads, S 2048, causal), a
+# window with a q_offset, a left-padded mask whose first 150 rows see no
+# key, and head dim 64.
 BWD_TRAIN = (1, 32, 8, 2048, 2048, True, 0, 0, None)
 BWD_CASES = [
     ((1, 4, 2, 256, 384, True, 128, 120, None), 128, "gqa-window-q-offset"),
     ((2, 4, 2, 384, 384, True, 0, 0, (100, 300)), 128, "kv-mask-left-pad"),
     ((1, 4, 1, 256, 384, False, 0, 0, None), 128, "non-causal-gqa"),
+    ((1, 16, 2, 192, 256, True, 64, 0, None), 128, "group-8"),
+    ((2, 4, 4, 200, 200, False, 0, 0, (37, 90)), 128, "group-1-mask"),
     (BWD_TRAIN, 128, "train-2048"),
     ((2, 8, 2, 300, 700, True, 400, 333, (0, 250)), 128, "window-q-offset"),
     ((1, 8, 2, 200, 200, True, 0, 0, (150,)), 128, "keyless-rows"),
@@ -473,20 +479,38 @@ def _bwd_errors(grads, case) -> dict:
     return errs
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                            b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def check_bwd_repeat(grads, again, name: str) -> None:
+    """Kernel 7 twice on the same inputs must give dk and dv equal bit for
+    bit: each value is written once and its group summed in one order."""
+    for t, first, second in zip(("dk", "dv"), grads[1:], again[1:]):
+        check(_same_bits(first, second),
+              f"flash bwd {name}: {t} differs between two runs on the same "
+              "inputs")
+
+
 def flash_bwd_vs_plain():
     """Phase 3, flash backward (kernels 6 and 7): returns {dq|dk|dv: {gate:
-    the worst error, "abs": the worst absolute error}}."""
+    the worst error, "abs": the worst absolute error}}. Each case also runs
+    twice: dk and dv must repeat bit for bit."""
     worst = {n: dict.fromkeys(list(BWD_GATES) + ["abs"], 0.0)
              for n in ("dq", "dk", "dv")}
     for i, (shape, d, name) in enumerate(BWD_CASES):
         case = _bwd_case(shape, d, seed=800 + i)
         grads = flash_attention_bwd(**case)
+        check_bwd_repeat(grads, flash_attention_bwd(**case), name)
         torch.cuda.synchronize()
         errs = _bwd_errors(grads, case)
         torch.cuda.synchronize()
         log(f"  flash bwd {name:19s}: " + " ".join(
             f"{t}_{k}={v:.3e}" for t in ("dq", "dk", "dv")
-            for k, v in errs[t].items()) + f" zeros_ok={errs['zeros_ok']}")
+            for k, v in errs[t].items()) + f" zeros_ok={errs['zeros_ok']}"
+            " repeat_bit_equal=True")
         for t in ("dq", "dk", "dv"):
             for gate, limit in BWD_GATES.items():
                 err = errs[t][gate]
@@ -656,7 +680,7 @@ def _spin_cycles_per_ms() -> float:
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call by CUDA events, the 50 MB L2 flushed
+    """Median device time of one call by CUDA events, the 50 MB L2 flushed
     before each (the engine finds each layer's pool cold). A spin kernel
     queued ahead of each call keeps the card busy, for three times as long
     as the host takes to queue the call, so the events time the card's
@@ -670,7 +694,7 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     spin = int((3 * host_ms + 1.0) * _spin_cycles_per_ms())
-    total = 0.0
+    times = []
     for _ in range(iters):
         flush.zero_()
         torch.cuda._sleep(spin)
@@ -680,8 +704,8 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def _bound(case) -> tuple[float, str, dict]:
@@ -826,16 +850,19 @@ def _flash_bound(case):
     return _bound_of(nbytes, 4 * pairs * d)
 
 
-def _flash_library_call(case):
+def _flash_library_call(case, is_causal: bool = False):
     """One SDPA call with ``enable_gqa`` and the visibility as a boolean
-    mask; checked once against the plain version on rows that see a
-    key (SDPA gives NaN on rows that see none)."""
+    mask (or ``is_causal``, which lets the flash backend take it, for a
+    plain causal case); checked once against the plain version on rows
+    that see a key (SDPA gives NaN on rows that see none)."""
     q, k, v = case["q"], case["k"], case["v"]
     b = q.shape[0]
-    allowed = torch.stack([_flash_visible(case, i) for i in range(b)])[:, None]
+    allowed = (None if is_causal else
+               torch.stack([_flash_visible(case, i) for i in range(b)])[:, None])
 
     def call():
         return F.scaled_dot_product_attention(q, k, v, attn_mask=allowed,
+                                              is_causal=is_causal,
                                               enable_gqa=True)
 
     out = call()
@@ -849,19 +876,23 @@ def _flash_library_call(case):
 
 
 def timing_flash():
-    """Phase 4, flash forward: the main-path prefill, and the long shape
-    (kernel and library only: the plain version there is a yardstick of
-    nothing and takes seconds)."""
+    """Phase 4, flash forward: the main-path prefill, the training shape
+    (64 launches a train step; SDPA with ``is_causal`` as the yardstick)
+    and the long shape (kernel and library only: the plain version there
+    is a yardstick of nothing and takes seconds)."""
     rows = {}
     by_name = {name: (shape, d) for shape, d, name in FLASH_CASES}
-    for name, iters in (("main-prefill", 20), ("long-16384", 5)):
+    for name, iters in (("main-prefill", 20), ("train-2048", 20),
+                        ("long-16384", 5)):
         case = _flash_case(*by_name[name], seed=400)
         saved = flash_attention_fwd.launches
         kernel_ms = _time_ms(lambda: flash_attention_fwd(**case), iters=iters)
         flash_attention_fwd.launches = saved  # timing is no main path
         plain_ms = (_time_ms(lambda: flash_attention_reference(**case))
-                    if name == "main-prefill" else None)
-        library_ms = _time_ms(_flash_library_call(case), iters=iters)
+                    if name != "long-16384" else None)
+        library_ms = _time_ms(
+            _flash_library_call(case, is_causal=name == "train-2048"),
+            iters=iters)
         bound_ms, bound_by, work = _flash_bound(case)
         rows[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=bound_ms,
@@ -932,24 +963,36 @@ def _sdpa_backward_call(case):
     return call, backend
 
 
+BWD_ROUNDS = 3
+
+
 def timing_flash_bwd():
     """Phase 4, flash backward at the training shape: each kernel alone on
     prepared inputs, the whole wrapper (delta, padding and both kernels),
-    the plain version and one SDPA backward, beside each kernel's bound."""
+    the plain version and one SDPA backward, beside each kernel's bound.
+    Kernel 7 and the SDPA backward are timed in BWD_ROUNDS rounds, taken in
+    turns; each reports the median of its rounds, and the SDPA backward
+    its spread ((max − min) / median) too."""
     case = _bwd_case(BWD_TRAIN, 128, seed=900)
     *inputs, ints = attn_mod._bwd_inputs(
         **{n: case[n] for n in ("q", "k", "v", "out", "lse", "dout",
                                 "causal", "q_offset", "window", "kv_mask")})
     dq, dk, dv = (torch.empty_like(case[n]) for n in ("q", "k", "v"))
+    call, backend = _sdpa_backward_call(case)
     saved = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
     dq_ms = _time_ms(lambda: flash_bwd_dq(*inputs, dq, ints))
-    dkv_ms = _time_ms(lambda: flash_bwd_dkv(*inputs, dk, dv, ints))
+    dkv_rounds, library_rounds = [], []
+    for _ in range(BWD_ROUNDS):
+        dkv_rounds.append(_time_ms(lambda: flash_bwd_dkv(*inputs, dk, dv,
+                                                         ints)))
+        library_rounds.append(_time_ms(call))
     total_ms = _time_ms(lambda: flash_attention_bwd(**case))
     flash_bwd_dq.launches, flash_bwd_dkv.launches = saved  # no main path
     plain_ms = _time_ms(lambda: flash_attention_bwd_reference(**case),
                         iters=5)
-    call, backend = _sdpa_backward_call(case)
-    library_ms = _time_ms(call)
+    dkv_ms = float(np.median(dkv_rounds))
+    library_ms = float(np.median(library_rounds))
+    spread = (max(library_rounds) - min(library_rounds)) / library_ms
     bounds = _bwd_bounds(case)
     rows = {}
     for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
@@ -957,9 +1000,14 @@ def timing_flash_bwd():
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           bwd_total_ms=total_ms, library_backend=backend,
-                          **work)
+                          library_rounds_ms=library_rounds,
+                          library_spread=spread, **work)
         log(f"  flash bwd {name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}; {work['bytes']} B, {work['flops']} FLOP)")
+    rows["dkv"]["ms_rounds"] = dkv_rounds
+    log(f"  flash bwd dkv rounds: {[round(x, 4) for x in dkv_rounds]} ms; "
+        f"SDPA backward rounds: {[round(x, 4) for x in library_rounds]} ms, "
+        f"median {library_ms:.4f} ms, spread {spread:.3%}")
     log(f"  flash bwd: kernels 6 + 7 with delta and padding {total_ms:.4f} ms,"
         f" plain {plain_ms:.4f} ms, SDPA backward ({backend}) "
         f"{library_ms:.4f} ms")
@@ -1619,7 +1667,33 @@ def checkpoint_round_trip() -> None:
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def _only(names: str) -> int:
+    """``--only``: phase-3, phase-4 or train functions by name, each run
+    alone after the card and build phases, its result printed as JSON.
+    For targeted runs; prints no result line."""
+    table = {fn.__name__: fn for fn in (
+        kernel_vs_plain, flash_vs_plain, decode_vs_plain, dense_vs_plain,
+        flash_bwd_vs_plain, timing, timing_flash, timing_decode,
+        timing_dense, timing_flash_bwd)}
+    table["train_phase"] = lambda: train_phase(L.LLAMA_CONFIGS["llama-3-8b"])
+    for name in names.split(","):
+        if name not in table:
+            raise SystemExit(f"--only {name}: not one of {sorted(table)}")
+    for name in names.split(","):
+        t0 = time.monotonic()
+        log(f"[only] {name}")
+        log(json.dumps(table[name](), default=str))
+        log(f"  {name} took {time.monotonic() - t0:.2f} s")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phase functions (for example "
+                         "flash_bwd_vs_plain,timing_flash_bwd) to run alone "
+                         "after the card and build phases")
+    args = ap.parse_args(argv)
     # One card, the first visible one, set before CUDA starts: the process
     # drives and counts one card however many the host has.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -1655,6 +1729,8 @@ def main() -> int:
         log(f"  {name}: library already built" if took is None
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
+    if args.only:
+        return _only(args.only)
 
     log("[3/7] kernel vs plain")
     t0 = time.monotonic()
@@ -1716,6 +1792,8 @@ def main() -> int:
         }
 
     long_run = flash_times["long-16384"]
+    train_fwd = flash_times["train-2048"]
+    b, h, _, _, sk = BWD_TRAIN[:5]
     kernels = [
         entry("ragged_paged_attention",
               "kubeflow_tpu_torch/csrc/ragged_attention.cu",
@@ -1731,7 +1809,9 @@ def main() -> int:
               launches_train=train_launches["flash"],
               max_lse_err=flash_errors["lse"],
               long_16384={k: long_run[k] for k in (
-                  "ms", "library_ms", "bound_ms", "bound_by")}),
+                  "ms", "library_ms", "bound_ms", "bound_by")},
+              train_2048={k: train_fwd[k] for k in (
+                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}),
         entry("paged_decode_attention",
               "kubeflow_tpu_torch/csrc/paged_attention.cu",
               "kubeflow_tpu/ops/paged_attention.py:233",
@@ -1749,13 +1829,22 @@ def main() -> int:
             for gate in BWD_GATES},
          **{k: bwd_times[key][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "bwd_total_ms", "library_backend")},
-         "plain_and_library_cover": "dq, dk and dv in one call"}
-        for name, replaces, count, key, grads in (
+             "bwd_total_ms", "library_backend", "library_rounds_ms",
+             "library_spread")},
+         "plain_and_library_cover": "dq, dk and dv in one call", **extra}
+        for name, replaces, count, key, grads, extra in (
             ("flash_attention_bwd_dq", "kubeflow_tpu/ops/attention.py:772",
-             "bwd_dq", "dq", ("dq",)),
+             "bwd_dq", "dq", ("dq",), {}),
             ("flash_attention_bwd_dkv", "kubeflow_tpu/ops/attention.py:841",
-             "bwd_dkv", "dkv", ("dk", "dv")))
+             "bwd_dkv", "dkv", ("dk", "dv"), {
+                 "design": "one CTA per (64-key tile, q head, batch row), "
+                           "key tile slowest; f32 shares of dK/dV, then the "
+                           "group sum",
+                 "group_sum": "flash_bwd_group_sum_kernel: the G q-head "
+                              "shares of each kv head added in the order "
+                              "g = 0..G-1; dk, dv bit-equal on repeats",
+                 "ctas": attn_mod.dkv_ctas(b, h, sk),
+                 "ms_rounds": bwd_times["dkv"]["ms_rounds"]}))
     ]
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")

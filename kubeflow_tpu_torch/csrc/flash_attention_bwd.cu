@@ -18,31 +18,39 @@
 // What bounds it on this card: at the training shape (B 1, H 32, Hkv 8,
 // S 2048, D 128, causal) dq does 6·D FLOPs per visible (row, key) pair and
 // dk/dv 8·D, 5.2e10 and 6.9e10 FLOPs against ~60 MB and ~51 MB of inputs
-// and outputs: both are bound by operations (0.052 and 0.070 ms at
+// and outputs: both are bound by operations (0.0521 and 0.0695 ms at
 // 989 TFLOP/s), so the products run on the tensor cores and every K/V (dq)
 // or Q/dO (dk/dv) byte loaded into shared memory feeds 64 rows or keys.
 // What the design does about it:
-// - dQ: one CTA per (64-row query tile, q head, batch row), 4 warps of 16
-//   rows; Q and dO stay in shared memory, 64-key K/V tiles stream through
-//   two cp.async stages, S = Q·Kᵀ and dP = dO·Vᵀ and dQ += dS·K on
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate), dQ in registers for the
-//   whole key loop and written once;
-// - dK/dV: one CTA per (64-key tile, kv head, batch row), 4 warps of 16
-//   keys; K and V stay in shared memory, and the CTA walks every q head of
-//   the kv head's GQA group and every 64-row q tile that can see the key
-//   tile, Q/dO/lse/delta streaming through two cp.async stages; Sᵀ = K·Qᵀ,
-//   dPᵀ = V·dOᵀ, dV += Pᵀ·dO and dK += dSᵀ·Q on mma.sync. The group's sum
-//   stays in registers and is written once: no atomics, no second pass
-//   (the CUDA form of the JAX kernel's in-kernel group sweep);
+// - dQ (kernel 6, replacing _bwd_dq_kernel): one CTA per (64-row query
+//   tile, q head, batch row), 4 warps of 16 rows; Q and dO stay in shared
+//   memory, 64-key K/V tiles stream through two cp.async stages, S = Q·Kᵀ
+//   and dP = dO·Vᵀ and dQ += dS·K on mma.sync m16n8k16 (bf16 in, f32
+//   accumulate), dQ in registers for the whole key loop and written once;
+// - dK/dV (kernel 7, replacing _bwd_dkv_kernel, which sweeps each kv
+//   head's GQA group in its grid into one VMEM scratch): one CTA per
+//   (64-key tile, q head, batch row), 4 warps of 16 keys. K and V stay in
+//   shared memory; the CTA walks only its own q head's q tiles that can
+//   see the key tile, Q/dO/lse/delta streaming through two cp.async
+//   stages; Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dV += Pᵀ·dO and dK += dSᵀ·Q on
+//   mma.sync. Splitting the group over CTAs shortens the longest CTA
+//   fourfold (a causal key tile 0 walks 32 q tiles, not 4 × 32), and the
+//   block index puts the key tile slowest, so every head of the lowest
+//   key tiles (the longest CTAs under causal) starts first and the short
+//   ones fill the SMs behind them. Each CTA writes its q head's f32 share
+//   of dK and dV to scratch the wrapper allocates; flash_bwd_group_sum_kernel
+//   then adds the G shares of each kv head in the fixed order g = 0 …
+//   G−1, scales dK and rounds both to bf16. Every value is written by one
+//   thread and summed in one order: no atomics, and repeats are bit-equal;
+//   keys no row sees get exact zeros (their shares are all 0);
 // - tiles that causal or window visibility rules out are never loaded
 //   (each loop runs over the visible range), tiles no row or key of a warp
 //   can see are skipped by that warp, and tiles wholly visible to a warp
 //   skip the per-element mask.
 // P and dS are rounded to bf16 once each, as operands of the products;
 // p itself stays in f32 for ds, as in the JAX kernels.
-// Later work: wgmma and TMA, warp specialisation, a persistent schedule
-// that balances the causal dK/dV CTAs (key tile 0 walks every q tile, the
-// last one a single tile), and head_dim 256 (the dK/dV accumulators of 16
+// Later work: the dQ redesign, wgmma (one warpgroup per 64-key tile for
+// the four products), TMA, and head_dim 256 (the dK/dV accumulators of 16
 // keys × 256 do not fit a thread's registers in this layout).
 //
 // Any Sq, Sk >= 1: the wrapper pads lse (with NEG_INF) and delta to
@@ -356,9 +364,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int h, int hkv, int sq, int sk, int sk_pad,
-    int sq_pad, int causal, int q_offset, int window, float scale) {
+    const uint8_t* __restrict__ mask, float* __restrict__ dk_part,
+    float* __restrict__ dv_part, int b_count, int h, int hkv, int sq, int sk,
+    int sk_pad, int sq_pad, int causal, int q_offset, int window,
+    float scale) {
   constexpr int RS = D + 8;
   constexpr int ND = D / 8;
   constexpr int KD = D / 16;
@@ -369,16 +378,24 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   constexpr int NT = kRows / 8;   // n-tiles of Sᵀ per q tile
   constexpr int KS = kRows / 16;  // k-steps of Pᵀ·dO per q tile
 
-  const int k0 = blockIdx.x * kKeys;
-  const int kv_head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = h / hkv;
+  // Key tile slowest, so the scheduler hands out every (batch row, q
+  // head) of the lowest key tiles first: under causal those walk the most
+  // q tiles, and the short ones fill in behind them.
+  const int lin =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int k0 = lin / (h * b_count) * kKeys;
+  const int b = lin % (h * b_count) / h;
+  const int head = lin % h;
+  const int kv_head = head / (h / hkv);
   const int tid = threadIdx.x;
   const float scale_log2 = scale * kLog2e;
 
   const size_t bkv = (size_t)b * hkv + kv_head;
+  const size_t bh = (size_t)b * h + head;
   const __nv_bfloat16* k_bh = k + bkv * sk * D;
   const __nv_bfloat16* v_bh = v + bkv * sk * D;
+  const __nv_bfloat16* q_bh = q + bh * sq * D;
+  const __nv_bfloat16* do_bh = dout + bh * sq * D;
   const uint8_t* mask_b = mask ? mask + (size_t)b * sk_pad : nullptr;
 
   // The query rows that can see some key of this tile: [r_lo, r_hi].
@@ -387,8 +404,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int r_hi = window > 0 ? min(sq - 1, k_last + window - 1 - q_offset)
                               : sq - 1;
   const int qt_lo = r_lo / kRows;
-  const int nqt = r_hi >= r_lo ? r_hi / kRows - qt_lo + 1 : 0;
-  const int n_iter = group * nqt;  // (group member, q tile), member-major
+  const int n_iter = r_hi >= r_lo ? r_hi / kRows - qt_lo + 1 : 0;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const DkvSmem lay(D);
@@ -398,13 +414,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   float* ld_s = reinterpret_cast<float*>(smem_raw + lay.ld);
   uint8_t* mask_s = smem_raw + lay.mask;
 
-  // Q, dO, lse and delta of iteration `it` into stage st, one group.
+  // Q, dO, lse and delta of q tile qt_lo + it into stage st, one cp.async
+  // group.
   auto issue = [&](int it, int st) {
-    const int head = kv_head * group + it / nqt;
-    const int q0 = (qt_lo + it % nqt) * kRows;
-    const size_t bh = (size_t)b * h + head;
-    const __nv_bfloat16* q_bh = q + bh * sq * D;
-    const __nv_bfloat16* do_bh = dout + bh * sq * D;
+    const int q0 = (qt_lo + it) * kRows;
 #pragma unroll
     for (int i = 0; i < kIssueIters; ++i) {
       const int e = tid + i * kThreads;
@@ -465,7 +478,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
   for (int it = 0; it < n_iter; ++it) {
     const int st = it & 1;
-    const int q0 = (qt_lo + it % nqt) * kRows;
+    const int q0 = (qt_lo + it) * kRows;
     if (it + 1 < n_iter) {
       issue(it + 1, st ^ 1);
       cp_async_wait<1>();
@@ -558,20 +571,48 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   }
   cp_async_wait<0>();  // n_iter == 0: the K/V loads are still in flight
 
+  // This q head's share of dK (unscaled) and dV, in f32, for the group sum.
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int key = half ? kpos_b : kpos_a;
     if (key >= sk) continue;
-    const size_t row = (bkv * sk + key) * D + tq * 2;
+    const size_t row = (bh * sk + key) * D + tq * 2;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + row + n * 8) =
-          __floats2bfloat162_rn(dk_acc[n][half * 2] * scale,
-                                dk_acc[n][half * 2 + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + row + n * 8) =
-          __floats2bfloat162_rn(dv_acc[n][half * 2], dv_acc[n][half * 2 + 1]);
+      *reinterpret_cast<float2*>(dk_part + row + n * 8) =
+          make_float2(dk_acc[n][half * 2], dk_acc[n][half * 2 + 1]);
+      *reinterpret_cast<float2*>(dv_part + row + n * 8) =
+          make_float2(dv_acc[n][half * 2], dv_acc[n][half * 2 + 1]);
     }
   }
+}
+
+// The GQA group sum of kernel 7: dk = scale · Σ_g dk_part[g] and
+// dv = Σ_g dv_part[g] over the group's q heads g = 0 … G−1, always in that
+// order, so the result is the same bit for bit on every run. One thread
+// per 4 consecutive values of (B, Hkv, Sk, D).
+__global__ void __launch_bounds__(256) flash_bwd_group_sum_kernel(
+    const float4* __restrict__ dk_part, const float4* __restrict__ dv_part,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    size_t n4, int group, size_t head4, float scale) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  // i = (b·Hkv + kv_head)·head4 + j; q head kv_head·G + g's values of the
+  // same (key, d) sit at ((b·Hkv + kv_head)·G + g)·head4 + j.
+  const size_t src = i / head4 * group * head4 + i % head4;
+  float4 sk4 = dk_part[src], sv4 = dv_part[src];
+  for (int g = 1; g < group; ++g) {
+    const float4 a = dk_part[src + g * head4], c = dv_part[src + g * head4];
+    sk4.x += a.x; sk4.y += a.y; sk4.z += a.z; sk4.w += a.w;
+    sv4.x += c.x; sv4.y += c.y; sv4.z += c.z; sv4.w += c.w;
+  }
+  uint2 ok, ov;
+  ok.x = pack_bf16(sk4.x * scale, sk4.y * scale);
+  ok.y = pack_bf16(sk4.z * scale, sk4.w * scale);
+  ov.x = pack_bf16(sv4.x, sv4.y);
+  ov.y = pack_bf16(sv4.z, sv4.w);
+  reinterpret_cast<uint2*>(dk)[i] = ok;
+  reinterpret_cast<uint2*>(dv)[i] = ov;
 }
 
 // ----------------------------------------------------------------------------
@@ -615,23 +656,31 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* mask, void* dk,
-               void* dv, int b, int h, int hkv, int sq, int sk, int sk_pad,
-               int sq_pad, int causal, int q_offset, int window,
-               cudaStream_t stream) {
+               const void* lse, const void* delta, const void* mask,
+               void* dk_part, void* dv_part, void* dk, void* dv, int b, int h,
+               int hkv, int sq, int sk, int sk_pad, int sq_pad, int causal,
+               int q_offset, int window, cudaStream_t stream) {
   const size_t smem = DkvSmem(D).total;
   auto fn = flash_bwd_dkv_kernel<D>;
   if (int err = set_smem(fn, smem)) return err;
-  const dim3 grid((sk + kKeys - 1) / kKeys, hkv, b);
+  const float scale = 1.0f / sqrtf((float)D);
+  const dim3 grid((sk + kKeys - 1) / kKeys, h, b);
   fn<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), h,
-      hkv, sq, sk, sk_pad, sq_pad, causal, q_offset, window,
-      1.0f / sqrtf((float)D));
+      static_cast<float*>(dk_part), static_cast<float*>(dv_part), b, h, hkv,
+      sq, sk, sk_pad, sq_pad, causal, q_offset, window, scale);
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  const size_t head4 = (size_t)sk * D / 4;
+  const size_t n4 = (size_t)b * hkv * head4;
+  flash_bwd_group_sum_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0,
+                               stream>>>(
+      static_cast<const float4*>(dk_part), static_cast<const float4*>(dv_part),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n4,
+      h / hkv, head4, scale);
   return (int)cudaGetLastError();
 }
 
@@ -643,7 +692,8 @@ extern "C" {
 // a negative code for a shape they do not take. They allocate nothing.
 // q, dout (B, H, Sq, D), k, v (B, Hkv, Sk, D) bf16 contiguous; lse, delta
 // (B, H, Sq_pad) f32; mask (B, Sk_pad) bytes or null; dq (B, H, Sq, D),
-// dk, dv (B, Hkv, Sk, D) bf16.
+// dk, dv (B, Hkv, Sk, D) bf16; dk_part, dv_part (B, H, Sk, D) f32 scratch,
+// written whole before they are read (the caller need not clear them).
 int kftt_flash_bwd_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* mask, void* dq, int b, int h, int hkv,
@@ -666,20 +716,23 @@ int kftt_flash_bwd_dq(const void* q, const void* k, const void* v,
 
 int kftt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       const void* mask, void* dk, void* dv, int b, int h,
-                       int hkv, int sq, int sk, int sk_pad, int sq_pad, int d,
-                       int causal, int q_offset, int window, void* stream) {
+                       const void* mask, void* dk_part, void* dv_part,
+                       void* dk, void* dv, int b, int h, int hkv, int sq,
+                       int sk, int sk_pad, int sq_pad, int d, int causal,
+                       int q_offset, int window, void* stream) {
   if (int err = check_shape(b, h, hkv, sq, sk, sk_pad, sq_pad)) return err;
+  if ((size_t)((sk + kKeys - 1) / kKeys) * h * b > 0x7fffffffu)
+    return kErrShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch_dkv<64>(q, k, v, dout, lse, delta, mask, dk, dv, b, h,
-                            hkv, sq, sk, sk_pad, sq_pad, causal, q_offset,
-                            window, st);
+      return launch_dkv<64>(q, k, v, dout, lse, delta, mask, dk_part,
+                            dv_part, dk, dv, b, h, hkv, sq, sk, sk_pad,
+                            sq_pad, causal, q_offset, window, st);
     case 128:
-      return launch_dkv<128>(q, k, v, dout, lse, delta, mask, dk, dv, b, h,
-                             hkv, sq, sk, sk_pad, sq_pad, causal, q_offset,
-                             window, st);
+      return launch_dkv<128>(q, k, v, dout, lse, delta, mask, dk_part,
+                             dv_part, dk, dv, b, h, hkv, sq, sk, sk_pad,
+                             sq_pad, causal, q_offset, window, st);
     default:
       return kErrHeadDim;
   }

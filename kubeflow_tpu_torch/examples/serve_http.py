@@ -12,10 +12,21 @@ positions, default 1024: a flash prefill per admission, or
 ``--admit-chunk``-token pieces between decode steps; each decode step
 through the dense decode kernel). ``--paged`` serves ``PagedBatcher``:
 KUBEFLOW_TPU_SERVING_RAGGED=1 the ragged engine, unset or 0 the
-alternating one, with KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET and
-KUBEFLOW_TPU_KV_BITS as in JAX. KUBEFLOW_TPU_SERVING_PORT applies to
-both. Weights are a random init from ``--seed`` on the card (``--device
-cpu`` serves on the CPU); the model serves token ids.
+alternating one, with KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET,
+KUBEFLOW_TPU_KV_BITS and KUBEFLOW_TPU_HBM_FRACTION as in JAX.
+KUBEFLOW_TPU_SERVING_PORT applies to both. Weights are a random init from
+``--seed`` on the card (``--device cpu`` serves on the CPU); the model
+serves token ids.
+
+Every serving knob the JAX entry point reads is honored or refused here,
+before any weight is made: garbage in any of them exits with the JAX
+message, and a knob asking for what the port lacks exits naming the
+ROADMAP queue-1 item that brings it: KUBEFLOW_TPU_SERVING_TP > 1 (item
+11), and under ``--paged`` KUBEFLOW_TPU_SPEC_DRAFT_LEN > 0 (item 8; on the
+alternating engine the JAX "needs the ragged engine" exit comes first)
+and KUBEFLOW_TPU_KV_SWAP_BYTES > 0 (item 7). KUBEFLOW_TPU_LORA_CACHE_SLOTS
+is parsed under ``--paged`` and, when nonzero, only noted, as in JAX: it
+sizes multi-LoRA engines (item 8).
 """
 
 from __future__ import annotations
@@ -23,6 +34,70 @@ from __future__ import annotations
 import argparse
 import signal
 import threading
+from typing import Optional
+
+
+def _refuse_tp() -> None:
+    """KUBEFLOW_TPU_SERVING_TP: garbage exits with the JAX message, and a
+    degree above 1 exits, the port serving one card only."""
+    from kubeflow_tpu_torch.models.server import (
+        KUBEFLOW_TPU_SERVING_TP,
+        serving_tp_from_env,
+    )
+
+    try:
+        tp = serving_tp_from_env()
+    except ValueError as err:
+        raise SystemExit(str(err))
+    if tp > 1:
+        raise SystemExit(
+            f"{KUBEFLOW_TPU_SERVING_TP}={tp}: tensor-parallel serving "
+            "replicas are not ported to PyTorch yet (ROADMAP queue 1 item "
+            "11); unset it or set it to 1")
+
+
+def _paged_knobs() -> tuple[bool, Optional[int], dict]:
+    """The ``--paged`` engine's env knobs in the JAX entry point's order:
+    (ragged, token_budget, the kv-pool keywords). Exits on garbage and on
+    a knob that asks for what the port lacks; prints the JAX notice for a
+    nonzero KUBEFLOW_TPU_LORA_CACHE_SLOTS."""
+    from kubeflow_tpu_torch.models.server import (
+        KUBEFLOW_TPU_KV_SWAP_BYTES,
+        KUBEFLOW_TPU_SERVING_RAGGED,
+        KUBEFLOW_TPU_SPEC_DRAFT_LEN,
+        kv_pool_from_env,
+        lora_cache_from_env,
+        ragged_from_env,
+        spec_from_env,
+    )
+
+    try:
+        lora_cache_slots = lora_cache_from_env()
+        if lora_cache_slots:
+            print(f"lora cache slots={lora_cache_slots} (no adapters "
+                  "registered by this example; knob applies to multi-LoRA "
+                  "engines, not ported to PyTorch yet: ROADMAP queue 1 "
+                  "item 8)", flush=True)
+        kv_kw = kv_pool_from_env()
+        ragged, token_budget = ragged_from_env()
+        draft_len, _ = spec_from_env()
+    except ValueError as err:
+        raise SystemExit(str(err))
+    if draft_len > 0:
+        if not ragged:
+            raise SystemExit(
+                f"{KUBEFLOW_TPU_SPEC_DRAFT_LEN} needs the ragged engine "
+                f"(set {KUBEFLOW_TPU_SERVING_RAGGED}=1)")
+        raise SystemExit(
+            f"{KUBEFLOW_TPU_SPEC_DRAFT_LEN}={draft_len}: speculative "
+            "decoding is not ported to PyTorch yet (ROADMAP queue 1 item "
+            "8); unset it or set it to 0")
+    if kv_kw.get("swap_bytes", 0) > 0:
+        raise SystemExit(
+            f"{KUBEFLOW_TPU_KV_SWAP_BYTES}={kv_kw['swap_bytes']}: the "
+            "host-RAM swap tier is not ported to PyTorch yet (ROADMAP queue "
+            "1 item 7); unset it or set it to 0")
+    return ragged, token_budget, kv_kw
 
 
 def main(argv=None) -> None:
@@ -66,8 +141,6 @@ def main(argv=None) -> None:
     from kubeflow_tpu_torch.models.paged import PagedBatcher
     from kubeflow_tpu_torch.models.server import (
         InferenceServer,
-        kv_pool_from_env,
-        ragged_from_env,
         serving_port_from_env,
     )
     from kubeflow_tpu_torch.models.serving import GenerationConfig
@@ -75,11 +148,11 @@ def main(argv=None) -> None:
     try:
         if args.port is None:
             args.port = serving_port_from_env()
-        if args.paged:
-            ragged, token_budget = ragged_from_env()
-            kv_kw = kv_pool_from_env()
     except ValueError as err:
         raise SystemExit(str(err))
+    _refuse_tp()
+    if args.paged:
+        ragged, token_budget, kv_kw = _paged_knobs()
     device = resolve_device(args.device)
     cfg = L.LLAMA_CONFIGS[args.config]
     params = L.init_params(

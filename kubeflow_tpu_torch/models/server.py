@@ -51,6 +51,12 @@ KUBEFLOW_TPU_SERVING_PORT = "KUBEFLOW_TPU_SERVING_PORT"
 KUBEFLOW_TPU_SERVING_RAGGED = "KUBEFLOW_TPU_SERVING_RAGGED"
 KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET = "KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET"
 KUBEFLOW_TPU_KV_BITS = "KUBEFLOW_TPU_KV_BITS"
+KUBEFLOW_TPU_HBM_FRACTION = "KUBEFLOW_TPU_HBM_FRACTION"
+KUBEFLOW_TPU_KV_SWAP_BYTES = "KUBEFLOW_TPU_KV_SWAP_BYTES"
+KUBEFLOW_TPU_SPEC_DRAFT_LEN = "KUBEFLOW_TPU_SPEC_DRAFT_LEN"
+KUBEFLOW_TPU_SPEC_ADAPTIVE = "KUBEFLOW_TPU_SPEC_ADAPTIVE"
+KUBEFLOW_TPU_SERVING_TP = "KUBEFLOW_TPU_SERVING_TP"
+KUBEFLOW_TPU_LORA_CACHE_SLOTS = "KUBEFLOW_TPU_LORA_CACHE_SLOTS"
 
 
 def _percentiles(window) -> dict:
@@ -173,8 +179,10 @@ def ragged_from_env() -> tuple[bool, Optional[int]]:
 
 
 def kv_pool_from_env() -> dict:
-    """The ``kv_bits`` keyword for PagedBatcher from KUBEFLOW_TPU_KV_BITS
-    (unset keeps the engine default). Raises on garbage."""
+    """The ``kv_bits`` / ``hbm_fraction`` / ``swap_bytes`` keywords for
+    PagedBatcher from KUBEFLOW_TPU_KV_BITS, KUBEFLOW_TPU_HBM_FRACTION and
+    KUBEFLOW_TPU_KV_SWAP_BYTES; an unset variable leaves its keyword out
+    (the engine default). Raises on garbage."""
     kw: dict = {}
     raw = os.environ.get(KUBEFLOW_TPU_KV_BITS, "").strip()
     if raw:
@@ -184,7 +192,99 @@ def kv_pool_from_env() -> dict:
                 "(int8 values + bf16 scales)"
             )
         kw["kv_bits"] = int(raw)
+    raw = os.environ.get(KUBEFLOW_TPU_HBM_FRACTION, "").strip()
+    if raw:
+        try:
+            fraction = float(raw)
+        except ValueError:
+            fraction = 0.0
+        if not 0.0 < fraction <= 1.0:
+            raise ValueError(
+                f"{KUBEFLOW_TPU_HBM_FRACTION}={raw!r}: want a float in "
+                "(0, 1]"
+            )
+        kw["hbm_fraction"] = fraction
+    raw = os.environ.get(KUBEFLOW_TPU_KV_SWAP_BYTES, "").strip()
+    if raw:
+        try:
+            swap = int(raw)
+        except ValueError:
+            swap = -1
+        if swap < 0:
+            raise ValueError(
+                f"{KUBEFLOW_TPU_KV_SWAP_BYTES}={raw!r}: want a "
+                "non-negative byte count"
+            )
+        kw["swap_bytes"] = swap
     return kw
+
+
+def spec_from_env() -> tuple[int, bool]:
+    """(draft_len, adaptive) from KUBEFLOW_TPU_SPEC_DRAFT_LEN and
+    KUBEFLOW_TPU_SPEC_ADAPTIVE; draft_len 0 means speculation off. Raises
+    on garbage, and on ADAPTIVE=1 without a draft length."""
+    draft_len = 0
+    raw = os.environ.get(KUBEFLOW_TPU_SPEC_DRAFT_LEN, "").strip()
+    if raw:
+        try:
+            draft_len = int(raw)
+        except ValueError:
+            draft_len = -1
+        if draft_len < 0:
+            raise ValueError(
+                f"{KUBEFLOW_TPU_SPEC_DRAFT_LEN}={raw!r}: want a "
+                "non-negative draft length (0 disables speculation)"
+            )
+    raw = os.environ.get(KUBEFLOW_TPU_SPEC_ADAPTIVE, "").strip().lower()
+    if raw not in ("", "0", "1", "true", "false"):
+        raise ValueError(
+            f"{KUBEFLOW_TPU_SPEC_ADAPTIVE}={raw!r}: want 0/1/true/false"
+        )
+    adaptive = raw in ("1", "true")
+    if adaptive and not draft_len:
+        raise ValueError(
+            f"{KUBEFLOW_TPU_SPEC_ADAPTIVE}=1 without "
+            f"{KUBEFLOW_TPU_SPEC_DRAFT_LEN}: the adaptive range is "
+            "[1, draft_len], so a draft length must be set"
+        )
+    return draft_len, adaptive
+
+
+def serving_tp_from_env() -> int:
+    """The tensor-parallel degree from KUBEFLOW_TPU_SERVING_TP; unset is 1
+    (one card). Raises on garbage."""
+    raw = os.environ.get(KUBEFLOW_TPU_SERVING_TP, "").strip()
+    if not raw:
+        return 1
+    try:
+        tp = int(raw)
+    except ValueError:
+        tp = 0
+    if tp < 1:
+        raise ValueError(
+            f"{KUBEFLOW_TPU_SERVING_TP}={raw!r}: want an integer >= 1 "
+            "(1 keeps the single-chip engine)"
+        )
+    return tp
+
+
+def lora_cache_from_env() -> int:
+    """The hot-adapter cache slots of a multi-LoRA engine from
+    KUBEFLOW_TPU_LORA_CACHE_SLOTS; unset is 0 (residency uncapped). Raises
+    on garbage."""
+    raw = os.environ.get(KUBEFLOW_TPU_LORA_CACHE_SLOTS, "").strip()
+    if not raw:
+        return 0
+    try:
+        slots = int(raw)
+    except ValueError:
+        slots = -1
+    if slots < 0:
+        raise ValueError(
+            f"{KUBEFLOW_TPU_LORA_CACHE_SLOTS}={raw!r}: want a "
+            "non-negative slot count (0 leaves residency uncapped)"
+        )
+    return slots
 
 
 class InferenceServer:

@@ -279,7 +279,7 @@ def _bwd_library() -> ctypes.CDLL:
     from kubeflow_tpu_torch.ops import _build
 
     lib = _build.load("flash_attention_bwd")
-    for name, n_ptr in (("kftt_flash_bwd_dq", 8), ("kftt_flash_bwd_dkv", 9)):
+    for name, n_ptr in (("kftt_flash_bwd_dq", 8), ("kftt_flash_bwd_dkv", 11)):
         fn = getattr(lib, name)
         if fn.restype is not ctypes.c_int or not fn.argtypes:
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 11 + [
@@ -313,14 +313,25 @@ def flash_bwd_dq(q, k, v, dout, lse_pad, delta_pad, mask8, dq, ints) -> None:
 
 def flash_bwd_dkv(q, k, v, dout, lse_pad, delta_pad, mask8, dk, dv,
                   ints) -> None:
-    """Launch kernel 7 (dK and dV, each kv head's GQA group summed in the
-    CTA) on the tensors ``flash_bwd_dq`` takes."""
+    """Launch kernel 7 (dK and dV, each kv head's GQA group summed) on the
+    tensors ``flash_bwd_dq`` takes: one CTA per (64-key tile, q head,
+    batch row) writes that q head's f32 share of dK and dV into scratch
+    allocated here, then the group sum adds the shares of each group in a
+    fixed order into dk and dv (so repeats are bit-equal)."""
+    part = torch.empty((2,) + tuple(q.shape[:2]) + tuple(k.shape[2:]),
+                       dtype=torch.float32, device=q.device)
     _launch("kftt_flash_bwd_dkv", [
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse_pad.data_ptr(), delta_pad.data_ptr(),
-        None if mask8 is None else mask8.data_ptr(), dk.data_ptr(),
-        dv.data_ptr()], ints, q.device)
+        None if mask8 is None else mask8.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), dk.data_ptr(), dv.data_ptr()], ints, q.device)
     flash_bwd_dkv.launches += 1
+
+
+def dkv_ctas(b: int, h: int, sk: int) -> int:
+    """The CTAs kernel 7's main kernel launches: one per (64-key tile, q
+    head, batch row)."""
+    return -(-sk // 64) * h * b
 
 
 flash_bwd_dq.launches = 0

@@ -11,6 +11,9 @@ positions 624..639), and 2 slots of the paged and dense decode kernels.
 The flash backward's gates are held the same way: the plain backward on
 the forward's O and lse, its dq, dk and dv rounded to bf16, passes them;
 with one 64-key tile of the 640 keys dropped, or 3% off, it fails them.
+Phase 3's repeat check (dk and dv bit-equal over two runs on the same
+inputs) passes on two runs of the plain version and fails when one
+element of dk or dv is one bf16 ulp off.
 
 The dense kernel's phase-3 cases run through ``dense_vs_plain`` as they
 will on the card (the wrapper's plain version stands in for the kernel).
@@ -216,6 +219,33 @@ def test_a_dropped_key_tile_fails_the_backward_row_gate(smoke):
 def test_gradients_three_percent_off_fail_the_backward_row_gate(smoke):
     errs = _bwd_errors(smoke, scale=1.03)
     assert all("row_rel" in f for f in _bwd_failed(smoke, errs).values()), errs
+
+
+def _bwd_twice(smoke):
+    """Two runs of the backward wrapper (the plain version on the CPU) on
+    one case of group 8 (16 q heads over 2 kv heads)."""
+    case = smoke._bwd_case((1, 16, 2, 64, 128, True, 64, 0, None), 128,
+                           seed=0)
+    return case, TA.flash_attention_bwd(**case), TA.flash_attention_bwd(**case)
+
+
+def test_backward_repeat_check_passes_on_two_equal_runs(smoke):
+    _, first, second = _bwd_twice(smoke)
+    smoke.check_bwd_repeat(first, second, "rehearsal")
+
+
+@pytest.mark.parametrize("which", [1, 2])
+def test_backward_repeat_check_fails_on_one_ulp(smoke, which):
+    """One element of dk (or dv) one bf16 ulp off: the check fails."""
+    _, first, second = _bwd_twice(smoke)
+    again = [g.to(torch.bfloat16) for g in second]
+    first = [g.to(torch.bfloat16) for g in first]
+    smoke.check_bwd_repeat(first, again, "rehearsal")
+    bits = again[which].view(-1).view(torch.int16)
+    bits[bits.numel() // 2] += 1
+    assert not torch.equal(first[which], again[which])
+    with pytest.raises(AssertionError, match="differs between two runs"):
+        smoke.check_bwd_repeat(first, again, "rehearsal")
 
 
 def test_train_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):

@@ -35,7 +35,18 @@ CASES = {
     # key, and keys 0..99 (row 0) and 0..299 (row 1) are seen by no row.
     "kv-mask-left-pad": (2, 4, 2, 384, 384, True, 0, 0, (100, 300)),
     "non-causal-gqa": (1, 4, 1, 256, 384, False, 0, 0, None),
+    # chip_smoke's two kernel-7 schedule cases: a group of 8 q heads per kv
+    # head with a q_offset, and a group of 1 with left-padded keys over two
+    # batch rows (keys 0..36 and 0..89 seen by no row).
+    "group-8": (1, 16, 2, 192, 256, True, 64, 0, None),
+    "group-1-mask": (2, 4, 4, 200, 200, False, 0, 0, (37, 90)),
 }
+
+
+def _block(length: int) -> int:
+    """The Pallas kernels' block: theirs where the length is 128-aligned,
+    else 64 or the whole length (interpret mode has no TPU tiling)."""
+    return A._pick_block(length) or (64 if length % 64 == 0 else length)
 
 
 @pytest.fixture(autouse=True)
@@ -88,7 +99,7 @@ def test_backward_matches_pallas_kernels_interpreted(name):
     kf = jnp.asarray(k.reshape(b * hkv, sk, d))
     vf = jnp.asarray(v.reshape(b * hkv, sk, d))
     dof = jnp.asarray(do.reshape(b * h, sq, d))
-    blocks = (A._pick_block(sq), A._pick_block(sk))
+    blocks = (_block(sq), _block(sk))
     out, lse = A._fwd_pallas_call(qf, kf, vf, causal, q_offset, window,
                                   *blocks, interpret=True, kv_mask8=mask8,
                                   heads=h, kv_heads=hkv)
@@ -115,6 +126,8 @@ def test_backward_matches_pallas_kernels_interpreted(name):
     unseen = ~vis.reshape(b, hkv, h // hkv, sq, sk).any((2, 3))  # (B, Hkv, Sk)
     if name == "kv-mask-left-pad":
         assert keyless.any() and unseen.any()
+    if name == "group-1-mask":
+        assert unseen.any() and not keyless.any()
     assert not tdq.numpy()[keyless].any()
     assert not np.asarray(jdq).reshape(b, h, sq, d)[keyless].any()
     assert not tdk.numpy()[unseen].any() and not tdv.numpy()[unseen].any()

@@ -188,6 +188,161 @@ def test_env_knobs_parse(monkeypatch):
     assert TS.kv_pool_from_env() == {"kv_bits": 8}
 
 
+SERVING_KNOBS = ("KUBEFLOW_TPU_SERVING_PORT", "KUBEFLOW_TPU_SERVING_RAGGED",
+                 "KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET", "KUBEFLOW_TPU_KV_BITS",
+                 "KUBEFLOW_TPU_HBM_FRACTION", "KUBEFLOW_TPU_KV_SWAP_BYTES",
+                 "KUBEFLOW_TPU_SPEC_DRAFT_LEN", "KUBEFLOW_TPU_SPEC_ADAPTIVE",
+                 "KUBEFLOW_TPU_SERVING_TP", "KUBEFLOW_TPU_LORA_CACHE_SLOTS")
+# (env, the parser both packages have under this name): every knob the
+# JAX serve_http reads, with garbage.
+GARBAGE_KNOBS = [
+    ({"KUBEFLOW_TPU_SERVING_PORT": "80"}, "serving_port_from_env"),
+    ({"KUBEFLOW_TPU_SERVING_RAGGED": "yes"}, "ragged_from_env"),
+    ({"KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET": "x"}, "ragged_from_env"),
+    ({"KUBEFLOW_TPU_KV_BITS": "4"}, "kv_pool_from_env"),
+    ({"KUBEFLOW_TPU_HBM_FRACTION": "half"}, "kv_pool_from_env"),
+    ({"KUBEFLOW_TPU_HBM_FRACTION": "1.5"}, "kv_pool_from_env"),
+    ({"KUBEFLOW_TPU_KV_SWAP_BYTES": "-1"}, "kv_pool_from_env"),
+    ({"KUBEFLOW_TPU_SPEC_DRAFT_LEN": "banana"}, "spec_from_env"),
+    ({"KUBEFLOW_TPU_SPEC_ADAPTIVE": "maybe"}, "spec_from_env"),
+    ({"KUBEFLOW_TPU_SPEC_ADAPTIVE": "1"}, "spec_from_env"),
+    ({"KUBEFLOW_TPU_SERVING_TP": "0"}, "serving_tp_from_env"),
+    ({"KUBEFLOW_TPU_LORA_CACHE_SLOTS": "-2"}, "lora_cache_from_env"),
+]
+PAGED_ARGS = ["--config", "tiny", "--device", "cpu", "--port", "0",
+              "--paged", "--num-blocks", "16", "--slots", "2"]
+
+
+@pytest.fixture
+def clean_env(monkeypatch):
+    for var in SERVING_KNOBS:
+        monkeypatch.delenv(var, raising=False)
+    return monkeypatch
+
+
+class _Built(Exception):
+    pass
+
+
+def _no_weights(*args, **kwargs):
+    raise AssertionError("serve_http made weights before refusing a knob")
+
+
+def _knob_id(case):
+    return ",".join(f"{k[13:]}={v}" for k, v in case[0].items())
+
+
+@pytest.mark.parametrize("env,fn", GARBAGE_KNOBS,
+                         ids=[_knob_id(c) for c in GARBAGE_KNOBS])
+def test_garbage_knob_raises_the_jax_message(clean_env, env, fn):
+    for var, value in env.items():
+        clean_env.setenv(var, value)
+    with pytest.raises(ValueError) as jax_err:
+        getattr(JS, fn)()
+    with pytest.raises(ValueError) as port_err:
+        getattr(TS, fn)()
+    assert str(port_err.value) == str(jax_err.value)
+
+
+@pytest.mark.parametrize("env,fn", GARBAGE_KNOBS,
+                         ids=[_knob_id(c) for c in GARBAGE_KNOBS])
+def test_serve_http_exits_on_a_garbage_knob(clean_env, env, fn):
+    """``--paged`` reads every knob; garbage exits with the JAX parser's
+    message before any weight is made."""
+    from kubeflow_tpu_torch.examples import serve_http
+
+    for var, value in env.items():
+        clean_env.setenv(var, value)
+    with pytest.raises(ValueError) as jax_err:
+        getattr(JS, fn)()
+    clean_env.setattr(TL, "init_params", _no_weights)
+    args = [a for a in PAGED_ARGS if "SERVING_PORT" not in str(env)
+            or a not in ("--port", "0")]
+    with pytest.raises(SystemExit) as info:
+        serve_http.main(args)
+    assert str(info.value) == str(jax_err.value)
+
+
+@pytest.mark.parametrize("env,paged,says", [
+    ({"KUBEFLOW_TPU_KV_SWAP_BYTES": "1048576"}, True, "item 7"),
+    ({"KUBEFLOW_TPU_SERVING_TP": "2"}, True, "item 11"),
+    ({"KUBEFLOW_TPU_SERVING_TP": "2"}, False, "item 11"),
+    ({"KUBEFLOW_TPU_SPEC_DRAFT_LEN": "3",
+      "KUBEFLOW_TPU_SERVING_RAGGED": "1"}, True, "item 8"),
+    ({"KUBEFLOW_TPU_SPEC_DRAFT_LEN": "3", "KUBEFLOW_TPU_SPEC_ADAPTIVE": "1",
+      "KUBEFLOW_TPU_SERVING_RAGGED": "1"}, True, "item 8"),
+    # The JAX order: on the alternating engine, "needs the ragged engine".
+    ({"KUBEFLOW_TPU_SPEC_DRAFT_LEN": "3"}, True,
+     "KUBEFLOW_TPU_SPEC_DRAFT_LEN needs the ragged engine (set "
+     "KUBEFLOW_TPU_SERVING_RAGGED=1)"),
+])
+def test_serve_http_refuses_a_knob_the_port_lacks(clean_env, env, paged,
+                                                  says):
+    """A valid value of a knob whose feature is not ported exits at
+    startup, before any weight or engine is made, naming the ROADMAP
+    queue-1 item that brings it."""
+    from kubeflow_tpu_torch.examples import serve_http
+
+    for var, value in env.items():
+        clean_env.setenv(var, value)
+    clean_env.setattr(TL, "init_params", _no_weights)
+    args = PAGED_ARGS if paged else [a for a in PAGED_ARGS if a != "--paged"]
+    with pytest.raises(SystemExit) as info:
+        serve_http.main(args)
+    message = str(info.value)
+    assert says in message
+    assert next(iter(env)) in message
+
+
+def test_serve_http_honors_hbm_fraction(clean_env):
+    """KUBEFLOW_TPU_HBM_FRACTION reaches ``PagedBatcher(hbm_fraction=)``;
+    unset, the keyword stays out (the engine default)."""
+    from kubeflow_tpu_torch.examples import serve_http
+    from kubeflow_tpu_torch.models import paged as paged_mod
+
+    def built(*args, **kw):
+        raise _Built(kw)
+
+    clean_env.setattr(paged_mod, "PagedBatcher", built)
+    with pytest.raises(_Built) as info:
+        serve_http.main(PAGED_ARGS)
+    assert "hbm_fraction" not in info.value.args[0]
+    clean_env.setenv("KUBEFLOW_TPU_HBM_FRACTION", "0.5")
+    assert JS.kv_pool_from_env() == TS.kv_pool_from_env() == {
+        "hbm_fraction": 0.5}
+    with pytest.raises(_Built) as info:
+        serve_http.main(PAGED_ARGS)
+    assert info.value.args[0]["hbm_fraction"] == 0.5
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_serve_http_notes_lora_cache_slots_and_serves(clean_env, capsys,
+                                                      paged):
+    """KUBEFLOW_TPU_LORA_CACHE_SLOTS=4, as in JAX: under ``--paged`` the
+    server starts and prints the notice that the knob sizes multi-LoRA
+    engines; without ``--paged`` it is not read."""
+    from kubeflow_tpu_torch.examples import serve_http
+
+    class NoServer:
+        def __init__(self, engine, **kw):
+            self.engine = engine
+
+        def start(self):
+            raise _Built(self.engine)
+
+    clean_env.setenv("KUBEFLOW_TPU_LORA_CACHE_SLOTS", "4")
+    clean_env.setattr(TS, "InferenceServer", NoServer)
+    args = PAGED_ARGS if paged else [a for a in PAGED_ARGS if a != "--paged"]
+    with pytest.raises(_Built) as info:
+        serve_http.main(args)
+    assert isinstance(info.value.args[0],
+                      PagedBatcher if paged else ContinuousBatcher)
+    notice = "lora cache slots=4 (no adapters registered by this example"
+    assert (notice in capsys.readouterr().out) is paged
+    if paged:
+        assert JS.lora_cache_from_env() == TS.lora_cache_from_env() == 4
+
+
 def test_alternating_engine_serves_completions(tiny):
     """``PagedBatcher(ragged=False)`` behind the server: blocking and
     streamed completions equal ``run()`` on the same prompts."""
