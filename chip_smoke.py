@@ -21,7 +21,8 @@ every kernel's launch count set to 0 just before it and read just after:
 - training, ``models/train.py``'s ``make_train_step`` (remat "full", loss
   chunk 512, AdamW) at B 1, S 2048, whose every step runs the flash
   forward kernel twice per layer (forward and the remat recompute) and
-  the dQ and dK/dV kernels of ``csrc/flash_attention_bwd.cu`` once each.
+  the dQ and dK/dV kernels of ``csrc/flash_attention_bwd.cu`` once each
+  (dK/dV: the per-q-head kernel and its group sum, one wrapper call).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -49,23 +50,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the main-path decode (8 slots, C 1024, lengths 8..576), a mask with
    a hole, an idle slot (all-False row, exactly 0) and a slot at
    seq_len == C. Flash backward (dQ, dK/dV) on the forward kernel's O and
-   lse, against its plain f32 version: the CPU suite's cases, the training
-   shape (Hq 32, Hkv 8, S 2048, D 128, causal), a window with a q_offset,
-   a left-padded mask, rows that see no key and head dim 64; each of dq,
-   dk and dv held to ``BWD_GATES`` (max error over max |ref| and a
-   per-(row, head) norm gate, both 2^-6, derived where they are defined),
-   with dq exactly 0 on rows that see no key and dk, dv exactly 0 on keys
-   no row sees;
+   lse, against its plain f32 version: the CPU suite's cases (among them
+   a group of 8 q heads per kv head with a q_offset, and a group of 1
+   with left-padded keys), the training shape (Hq 32, Hkv 8, S 2048,
+   D 128, causal), a window with a q_offset, a left-padded mask, rows
+   that see no key and head dim 64; each of dq, dk and dv held to
+   ``BWD_GATES`` (max error over max |ref| and a per-(row, head) norm
+   gate, both 2^-6, derived where they are defined), with dq exactly 0 on
+   rows that see no key and dk, dv exactly 0 on keys no row sees; and
+   each case run twice, its dk and dv equal bit for bit;
 4. timing — CUDA events at the main-path shapes (L2 flushed between
-   launches): each kernel, its plain version, and one library call (a
+   launches; the median of each run of launches): each kernel, its plain
+   version, and one library call (a
    yardstick the port never calls: ``scaled_dot_product_attention`` over
    a per-slot batched view, with ``enable_gqa`` for the flash and decode
    kernels, over ``cache[:, :, :max_len]`` for the dense decode kernel),
    beside the least time the card could take (bytes over 3.35 TB/s, FLOPs
-   of the visible pairs over 989 TFLOP/s); the backward kernels at the
-   training shape, each alone, and together with delta and padding beside
-   one SDPA backward (flash backend, ``enable_gqa``; dq, dk and dv in one
-   call);
+   of the visible pairs over 989 TFLOP/s); the flash forward also at the
+   training shape against SDPA with ``is_causal``; the backward kernels
+   at the training shape, each alone (dK/dV in three rounds taken in
+   turns with the SDPA backward), and together with delta and padding
+   beside one SDPA backward (flash backend, ``enable_gqa``; dq, dk and dv
+   in one call);
 5. engines — 16 prompts of 8..500 tokens, 64 new tokens each: the ragged
    engine with a bf16 and an int8 pool, where launches must equal
    ``ragged_steps × n_layers``; the alternating engine with a bf16 pool,
@@ -99,7 +105,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    goes through save → ``restore_latest`` and must come back byte-equal.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and last
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. ``--only name,...`` runs phases 1 and
+2 and then only the named phase functions (for example
+``flash_bwd_vs_plain,timing_flash_bwd``), printing their results and no
+result line.
 """
 
 from __future__ import annotations

@@ -29,29 +29,40 @@
 //   accumulate), dQ in registers for the whole key loop and written once;
 // - dK/dV (kernel 7, replacing _bwd_dkv_kernel, which sweeps each kv
 //   head's GQA group in its grid into one VMEM scratch): one CTA per
-//   (64-key tile, q head, batch row), 4 warps of 16 keys. K and V stay in
-//   shared memory; the CTA walks only its own q head's q tiles that can
-//   see the key tile, Q/dO/lse/delta streaming through two cp.async
-//   stages; Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dV += Pᵀ·dO and dK += dSᵀ·Q on
-//   mma.sync. Splitting the group over CTAs shortens the longest CTA
-//   fourfold (a causal key tile 0 walks 32 q tiles, not 4 × 32), and the
-//   block index puts the key tile slowest, so every head of the lowest
-//   key tiles (the longest CTAs under causal) starts first and the short
-//   ones fill the SMs behind them. Each CTA writes its q head's f32 share
-//   of dK and dV to scratch the wrapper allocates; flash_bwd_group_sum_kernel
-//   then adds the G shares of each kv head in the fixed order g = 0 …
-//   G−1, scales dK and rounds both to bf16. Every value is written by one
-//   thread and summed in one order: no atomics, and repeats are bit-equal;
-//   keys no row sees get exact zeros (their shares are all 0);
+//   (64-key tile, q head, batch row), one warpgroup of 4 warps. K and V
+//   stay in shared memory; the CTA walks only its own q head's q tiles
+//   that can see the key tile, Q/dO/lse/delta streaming through two
+//   cp.async stages. K, V, Q and dO sit in the canonical 128-byte-swizzled
+//   layout of wgmma (column blocks of 64 values, the 16-byte chunk index
+//   XOR row % 8, applied by the cp.async writes). Each 64-row q tile goes
+//   in two halves of 32 rows: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as wgmma
+//   m64n32k16 (A = K or V, B = the Q or dO rows, both K-major over D);
+//   Pᵀ and dSᵀ are made in registers and packed straight into the A
+//   fragments of dV += Pᵀ·dO and dK += dSᵀ·Q, wgmma m64n128k16 (n64 at
+//   D 64) whose B, dO or Q, is read MN-major from the same tiles. The
+//   halves keep Sᵀ and dPᵀ at 32 f32 registers a thread beside dK and
+//   dV's 128, so nothing spills.
+//   Splitting the group over CTAs shortens the longest CTA fourfold (a
+//   causal key tile 0 walks 32 q tiles, not 4 × 32), and the block index
+//   puts the key tile slowest, so every head of the lowest key tiles (the
+//   longest CTAs under causal) starts first and the short ones fill the
+//   SMs behind them. Each CTA writes its q head's f32 share of dK and dV
+//   to scratch the wrapper allocates; flash_bwd_group_sum_kernel then adds
+//   the G shares of each kv head in the fixed order g = 0 … G−1, scales dK
+//   and rounds both to bf16. Every value is written by one thread and
+//   summed in one order: no atomics, and repeats are bit-equal; keys no
+//   row sees get exact zeros (their shares are all 0);
 // - tiles that causal or window visibility rules out are never loaded
-//   (each loop runs over the visible range), tiles no row or key of a warp
-//   can see are skipped by that warp, and tiles wholly visible to a warp
-//   skip the per-element mask.
+//   (each loop runs over the visible range); in dQ a warp skips a key tile
+//   none of its rows can see, in dK/dV a warp whose keys no row of the q
+//   tile sees takes P = dS = 0 without the exponentials (the products run
+//   on the whole warpgroup); tiles wholly visible to a warp skip the
+//   per-element mask.
 // P and dS are rounded to bf16 once each, as operands of the products;
 // p itself stays in f32 for ds, as in the JAX kernels.
-// Later work: the dQ redesign, wgmma (one warpgroup per 64-key tile for
-// the four products), TMA, and head_dim 256 (the dK/dV accumulators of 16
-// keys × 256 do not fit a thread's registers in this layout).
+// Later work: the dQ redesign (still mma.sync), TMA, and head_dim 256
+// (dK and dV of 64 keys × 256 do not fit a warpgroup's registers: it
+// needs D split over warpgroups or two passes).
 //
 // Any Sq, Sk >= 1: the wrapper pads lse (with NEG_INF) and delta to
 // Sq_pad, a multiple of 64, and the mask to (B, Sk_pad) bytes, Sk_pad a
@@ -339,23 +350,203 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 }
 
 // ----------------------------------------------------------------------------
-// Kernel 7: dK and dV.
+// Kernel 7: dK and dV, on wgmma.
 
-// Byte offsets into dynamic shared memory:
-//   k, v: [kKeys][D + 8] bf16 each
-//   qd:   [stage][Q|dO][kRows][D + 8] bf16, two stages
+// Byte offset of 16-byte chunk c (D / 8 chunks a row) of row r in a
+// [ROWS][D] bf16 tile held in the canonical 128-byte-swizzled layout of
+// wgmma: column blocks of 64 values, each [ROWS][128 B], and within a row
+// the chunk index XOR row % 8. The tile starts on a 1024-byte boundary.
+template <int ROWS>
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
+  return (c / 8) * (ROWS * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+// A wgmma shared-memory descriptor of the 128-byte swizzle: start address,
+// leading and stride byte offsets (in 16-byte units) and the layout type.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Makes this thread's generic-proxy writes to shared memory (cp.async
+// included) visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of r across a wgmma
+// issue or wait (the hardware owns the registers in between).
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The accumulator operands of a wgmma with 16, 32 or 64 f32 registers a
+// thread.
+#define KFTT_REGS_16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15"
+#define KFTT_OUTS_16(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define KFTT_REGS_32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define KFTT_OUTS_32(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define KFTT_REGS_64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+#define KFTT_OUTS_64(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (+)= A·Bᵀ for one m64n32k16 step, A and B K-major in shared
+// memory; acc = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_m64n32(float* d, uint64_t a,
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      KFTT_REGS_16
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : KFTT_OUTS_16(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A·B for one m64n64k16 step: A a bf16 fragment in registers (the
+// accumulator layout of a 64-row product), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_m64n64(float* d, const uint32_t* a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      KFTT_REGS_32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : KFTT_OUTS_32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A·B for one m64n128k16 step: A a bf16 fragment in registers (the
+// accumulator layout of a 64-row product), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      KFTT_REGS_64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : KFTT_OUTS_64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// A shared address the compiler cannot see through, so the descriptors
+// made from it are rebuilt in each iteration instead of being hoisted out
+// of the loop into registers the accumulators need.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// The wgmma products of one (key tile, q tile) pair: D = 64 or 128. The
+// descriptors are those of the tiles' first bytes; a step adds its offset
+// (in 16-byte units) to the start address field.
+template <int D>
+struct DkvMma {
+  static constexpr int kTile = 64 * D * 2;  // bytes of a 64-row tile
+  // Sᵀ = K·Qᵀ (or dPᵀ = V·dOᵀ) for 32 q rows: A the key tile, B 32 rows
+  // of the q tile, both K-major over D; step kk covers D values 16kk …
+  // 16kk + 15, 32 bytes into a 128-byte row, or the next column block
+  // every 4 steps.
+  static __device__ __forceinline__ void scores(float* d, uint64_t a_desc,
+                                                uint64_t b_desc) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = ((kk / 4) * (64 * 128) + (kk % 4) * 32) >> 4;
+      wgmma_ss_m64n32(d, a_desc + off, b_desc + off, kk > 0);
+    }
+  }
+  // d += Pᵀ·dO (or dSᵀ·Q) over 32 q rows: A the packed fragments a[ks] of
+  // 16 rows each, B those rows of the q tile MN-major (q rows the
+  // reduction, D the columns), step ks starting 16 rows of 128 B further.
+  static __device__ __forceinline__ void update(float* d, uint32_t (*a)[4],
+                                                uint64_t b_desc) {
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const uint64_t desc = b_desc + ((ks * 16 * 128) >> 4);
+      if constexpr (D == 128) wgmma_rs_m64n128(d, a[ks], desc);
+      else wgmma_rs_m64n64(d, a[ks], desc);
+    }
+  }
+  // K-major tiles: 8 rows of 128 B per stride step (LBO unused).
+  static __device__ __forceinline__ uint64_t k_major(uint32_t addr) {
+    return sw128_desc(opaque(addr), 16, 1024);
+  }
+  // MN-major tiles: 8 rows of 128 B per stride step, column blocks of 64
+  // values 64 · 128 B apart.
+  static __device__ __forceinline__ uint64_t mn_major(uint32_t addr) {
+    return sw128_desc(opaque(addr), 64 * 128, 1024);
+  }
+};
+
+// Byte offsets from a 1024-byte-aligned base in dynamic shared memory:
+//   k, v: [kKeys][D] bf16 each, 128-byte swizzled
+//   qd:   [stage][Q|dO][kRows][D] bf16, two stages, 128-byte swizzled
 //   ld:   [stage][lse|delta][kRows] f32
 //   mask: [kKeys] bytes
+// `total` adds 1024 bytes for aligning the base.
 struct DkvSmem {
   size_t k, v, qd, ld, mask, total;
   __host__ __device__ explicit DkvSmem(int d) {
-    const size_t padded = (size_t)(d + 8) * 2;
+    const size_t tile = (size_t)64 * d * 2;
     k = 0;
-    v = k + kKeys * padded;
-    qd = v + kKeys * padded;
-    ld = qd + 2 * 2 * kRows * padded;
+    v = k + tile;
+    qd = v + tile;
+    ld = qd + 4 * tile;
     mask = ld + 2 * 2 * kRows * 4;
-    total = mask + kKeys;
+    total = mask + kKeys + 1024;
   }
 };
 
@@ -368,15 +559,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     float* __restrict__ dv_part, int b_count, int h, int hkv, int sq, int sk,
     int sk_pad, int sq_pad, int causal, int q_offset, int window,
     float scale) {
-  constexpr int RS = D + 8;
+  using Mma = DkvMma<D>;
   constexpr int ND = D / 8;
-  constexpr int KD = D / 16;
   constexpr int kRowChunks = D / 8;
-  constexpr int kTileChunks = 2 * kRows * kRowChunks;  // Q and dO
-  constexpr int kIssueIters = (kTileChunks + kThreads - 1) / kThreads;
-  constexpr int kLdChunks = 2 * kRows / 4;             // lse and delta
-  constexpr int NT = kRows / 8;   // n-tiles of Sᵀ per q tile
-  constexpr int KS = kRows / 16;  // k-steps of Pᵀ·dO per q tile
+  constexpr int kLdChunks = 2 * kRows / 4;  // lse and delta
+  constexpr int NH = 32 / 8;  // n-tiles of Sᵀ per half q tile
 
   // Key tile slowest, so the scheduler hands out every (batch row, q
   // head) of the lowest key tiles first: under causal those walk the most
@@ -408,50 +595,56 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const DkvSmem lay(D);
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.k);
-  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.v);
-  __nv_bfloat16* qd_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.qd);
-  float* ld_s = reinterpret_cast<float*>(smem_raw + lay.ld);
-  uint8_t* mask_s = smem_raw + lay.mask;
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t k_s = raw + (uint32_t)(base - smem_raw) + lay.k;
+  const uint32_t v_s = k_s + Mma::kTile;
+  const uint32_t qd_s = k_s + lay.qd;
+  float* ld_s = reinterpret_cast<float*>(base + lay.ld);
+  uint8_t* mask_s = base + lay.mask;
+
+  // This thread's 16-byte chunk of a row and its first row: it copies
+  // every kRowStep-th row from there, a multiple of 8 rows apart, so its
+  // chunk lands at the same swizzled place in each and every address is
+  // one base plus a constant.
+  constexpr int kRowStep = kThreads / kRowChunks;  // 8 at D 128, 16 at D 64
+  const int c_own = tid % kRowChunks;
+  const int r_own = tid / kRowChunks;
+  const uint32_t sw_own = sw128_offset<kRows>(r_own, c_own);
 
   // Q, dO, lse and delta of q tile qt_lo + it into stage st, one cp.async
   // group.
   auto issue = [&](int it, int st) {
-    const int q0 = (qt_lo + it) * kRows;
+    const int q0 = (qt_lo + it) * kRows + r_own;
+    unsigned char* dst = base + lay.qd + st * 2 * Mma::kTile + sw_own;
+    const size_t src = (size_t)q0 * D + c_own * 8;
 #pragma unroll
-    for (int i = 0; i < kIssueIters; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < kTileChunks) {
-        const int is_do = e >= kRows * kRowChunks;
-        const int ee = e - is_do * kRows * kRowChunks;
-        const int r = ee / kRowChunks;
-        const int c = (ee % kRowChunks) * 8;
-        const bool live = q0 + r < sq;
-        const __nv_bfloat16* src = is_do ? do_bh : q_bh;
-        cp_async16(qd_s + ((st * 2 + is_do) * kRows + r) * RS + c,
-                   live ? src + (size_t)(q0 + r) * D + c : src, live);
-      }
+    for (int i = 0; i < kRows / kRowStep; ++i) {
+      const bool live = q0 + i * kRowStep < sq;
+      const size_t at = live ? src + (size_t)i * kRowStep * D : 0;
+      cp_async16(dst + i * kRowStep * 128, q_bh + at, live);
+      cp_async16(dst + Mma::kTile + i * kRowStep * 128, do_bh + at, live);
     }
     if (tid < kLdChunks) {
       const int is_delta = tid >= kLdChunks / 2;
       const int c = (tid - is_delta * kLdChunks / 2) * 4;
       cp_async16(ld_s + (st * 2 + is_delta) * kRows + c,
-                 (is_delta ? delta : lse) + bh * sq_pad + q0 + c, true);
+                 (is_delta ? delta : lse) + bh * sq_pad + (q0 - r_own) + c,
+                 true);
     }
     cp_async_commit();
   };
 
   // K and V rows of this tile (keys past Sk are zero) and the mask bytes;
   // they join the first iteration's group.
-  for (int e = tid; e < 2 * kKeys * kRowChunks; e += kThreads) {
-    const int is_v = e >= kKeys * kRowChunks;
-    const int ee = e - is_v * kKeys * kRowChunks;
-    const int j = ee / kRowChunks;
-    const int c = (ee % kRowChunks) * 8;
-    const bool live = k0 + j < sk;
-    const __nv_bfloat16* src = is_v ? v_bh : k_bh;
-    cp_async16((is_v ? v_s : k_s) + j * RS + c,
-               live ? src + (size_t)(k0 + j) * D + c : src, live);
+#pragma unroll
+  for (int i = 0; i < kKeys / kRowStep; ++i) {
+    const int j = k0 + r_own + i * kRowStep;
+    const bool live = j < sk;
+    const size_t at = live ? (size_t)j * D + c_own * 8 : 0;
+    cp_async16(base + lay.k + sw_own + i * kRowStep * 128, k_bh + at, live);
+    cp_async16(base + lay.k + Mma::kTile + sw_own + i * kRowStep * 128,
+               v_bh + at, live);
   }
   if (mask_b != nullptr && tid < kKeys / 16)
     cp_async16(mask_s + tid * 16, mask_b + k0 + tid * 16, true);
@@ -460,21 +653,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int gq = lane / 4;
   const int tq = lane % 4;
-  const int ka = warp * 16 + gq;  // this thread's key rows a and b
+  // This thread's key rows a and b: the rows of the wgmma accumulator
+  // fragment (warp w holds rows 16w … 16w + 15, as mma.sync's C).
+  const int ka = warp * 16 + lane / 4;
   const int kb = ka + 8;
   const int kpos_a = k0 + ka;
   const int kpos_b = k0 + kb;
   const int wk_lo = k0 + warp * 16;  // the warp's first and last keys
   const int wk_hi = wk_lo + 15;
 
-  float dk_acc[ND][4], dv_acc[ND][4];
+  float dk_acc[ND * 4], dv_acc[ND * 4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
-    dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
-  }
+  for (int i = 0; i < ND * 4; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   for (int it = 0; it < n_iter; ++it) {
     const int st = it & 1;
@@ -485,86 +676,78 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     } else {
       cp_async_wait<0>();
     }
+    fence_async_shared();
     __syncthreads();
 
-    // Positions of the tile's first and last rows.
+    // Positions of the tile's first and last rows; the CTA skips a tile
+    // none of its keys can see (wgmma runs on all four warps or none).
     const int pos_lo = q0 + q_offset;
     const int pos_hi = pos_lo + kRows - 1;
+    const bool cta_dead = (causal && k0 > pos_hi) ||
+                          (window > 0 && k0 + kKeys - 1 <= pos_lo - window);
     const bool dead = wk_lo >= sk || (causal && wk_lo > pos_hi) ||
                       (window > 0 && wk_hi <= pos_lo - window);
     const bool interior = mask_b == nullptr && wk_hi < sk &&
                           (!causal || wk_hi <= pos_lo) &&
                           (window <= 0 || wk_lo > pos_hi - window);
-    if (!dead) {
-      const __nv_bfloat16* q_t = qd_s + st * 2 * kRows * RS;
-      const __nv_bfloat16* do_t = q_t + kRows * RS;
+    if (!cta_dead) {
+      const uint32_t q_t = qd_s + st * 2 * Mma::kTile;
+      const uint32_t do_t = q_t + Mma::kTile;
       const float* lse_t = ld_s + st * 2 * kRows;
       const float* delta_t = lse_t + kRows;
-      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ for this warp's 16 keys × 64 rows.
-      float sc[NT][4], dp[NT][4];
+      // The tile in two halves of 32 q rows, so Sᵀ and dPᵀ take 32 f32
+      // registers a thread beside the 128 of dK and dV.
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-      }
-      const __nv_bfloat16* kfr = k_s + ka * RS + tq * 2;
-      const __nv_bfloat16* vfr = v_s + ka * RS + tq * 2;
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t rows = half * 32 * 128;  // bytes into each q tile
+        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, 64 keys × 32 rows.
+        float sc[NH * 4], dp[NH * 4];
+        wgmma_fence();
+        Mma::scores(sc, Mma::k_major(k_s), Mma::k_major(q_t + rows));
+        Mma::scores(dp, Mma::k_major(v_s), Mma::k_major(do_t + rows));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<NH * 4>(sc);
+        fence_regs<NH * 4>(dp);
+        // Pᵀ and dSᵀ, packed as the A fragments of Pᵀ·dO and dSᵀ·Q:
+        // element (nt, e) is key a for e < 2, key b otherwise, at row
+        // q0 + half*32 + nt*8 + tq*2 + (e & 1).
+        uint32_t pp[2][4], pd[2][4];
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a_k[4], a_v[4];
-        load_a<RS>(kfr, kk, a_k);
-        load_a<RS>(vfr, kk, a_v);
+        for (int nt = 0; nt < NH; ++nt) {
+          float p[4], ds[4];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int off = (nt * 8 + gq) * RS + kk * 16 + tq * 2;
-          mma_bf16(sc[nt], a_k, ld32(q_t + off), ld32(q_t + off + 8));
-          mma_bf16(dp[nt], a_v, ld32(do_t + off), ld32(do_t + off + 8));
-        }
-      }
-      // Pᵀ and dSᵀ, packed as the A fragments of Pᵀ·dO and dSᵀ·Q: element
-      // (nt, e) is key a for e < 2, key b otherwise, at row
-      // q0 + nt*8 + tq*2 + (e & 1).
-      uint32_t pp[KS][4], pd[KS][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = nt * 8 + tq * 2 + (e & 1);
-          const float l = lse_t[r];
-          bool ok = l > kNegInf * 0.5f;
-          if (!interior) {
-            const int kpos = e >= 2 ? kpos_b : kpos_a;
-            const int qpos = q0 + r + q_offset;
-            ok = ok && kpos < sk &&
-                 (mask_b == nullptr || mask_s[kpos - k0] != 0) &&
-                 (!causal || kpos <= qpos) &&
-                 (window <= 0 || kpos > qpos - window);
+          for (int e = 0; e < 4; ++e) {
+            const int r = half * 32 + nt * 8 + tq * 2 + (e & 1);
+            const float l = lse_t[r];
+            bool ok = !dead && l > kNegInf * 0.5f;
+            if (!interior) {
+              const int kpos = e >= 2 ? kpos_b : kpos_a;
+              const int qpos = q0 + r + q_offset;
+              ok = ok && kpos < sk &&
+                   (mask_b == nullptr || mask_s[kpos - k0] != 0) &&
+                   (!causal || kpos <= qpos) &&
+                   (window <= 0 || kpos > qpos - window);
+            }
+            p[e] = ok ? exp2f(sc[nt * 4 + e] * scale_log2 - l * kLog2e)
+                      : 0.f;
+            ds[e] = p[e] * (dp[nt * 4 + e] - delta_t[r]);
           }
-          p[e] = ok ? exp2f(sc[nt][e] * scale_log2 - l * kLog2e) : 0.f;
-          ds[e] = p[e] * (dp[nt][e] - delta_t[r]);
+          pp[nt / 2][(nt % 2) * 2] = pack_bf16(p[0], p[1]);
+          pp[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+          pd[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
+          pd[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
         }
-        pp[nt / 2][(nt % 2) * 2] = pack_bf16(p[0], p[1]);
-        pp[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-        pd[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
-        pd[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-      }
-      // dV += Pᵀ·dO and dK += dSᵀ·Q, dO and Q row-major transposed into
-      // the B fragments.
-      const uint32_t do_lane = static_cast<uint32_t>(
-          __cvta_generic_to_shared(do_t + (lane % 16) * RS));
-      const uint32_t q_lane = static_cast<uint32_t>(
-          __cvta_generic_to_shared(q_t + (lane % 16) * RS));
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          uint32_t b0, b1;
-          ldmatrix_trans(do_lane, ks * 16 * RS + n * 8, b0, b1);
-          mma_bf16(dv_acc[n], pp[ks], b0, b1);
-          ldmatrix_trans(q_lane, ks * 16 * RS + n * 8, b0, b1);
-          mma_bf16(dk_acc[n], pd[ks], b0, b1);
-        }
+        // dV += Pᵀ·dO and dK += dSᵀ·Q over these 32 rows.
+        fence_regs<ND * 4>(dv_acc);
+        fence_regs<ND * 4>(dk_acc);
+        wgmma_fence();
+        Mma::update(dv_acc, pp, Mma::mn_major(do_t + rows));
+        Mma::update(dk_acc, pd, Mma::mn_major(q_t + rows));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<ND * 4>(dv_acc);
+        fence_regs<ND * 4>(dk_acc);
       }
     }
     __syncthreads();  // the next iteration refills this stage
@@ -580,9 +763,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<float2*>(dk_part + row + n * 8) =
-          make_float2(dk_acc[n][half * 2], dk_acc[n][half * 2 + 1]);
+          make_float2(dk_acc[n * 4 + half * 2], dk_acc[n * 4 + half * 2 + 1]);
       *reinterpret_cast<float2*>(dv_part + row + n * 8) =
-          make_float2(dv_acc[n][half * 2], dv_acc[n][half * 2 + 1]);
+          make_float2(dv_acc[n * 4 + half * 2], dv_acc[n * 4 + half * 2 + 1]);
     }
   }
 }

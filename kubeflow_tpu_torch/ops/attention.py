@@ -30,9 +30,11 @@ its names, argument order and layouts:
   ``delta = rowsum(dO ⊙ O)`` is a plain f32 reduction here (XLA's, outside
   the Pallas kernels, in JAX). On a CUDA tensor it launches the two
   hand-written kernels of ``csrc/flash_attention_bwd.cu`` — dQ
-  (``flash_bwd_dq``, replacing the Pallas dq call) and dK/dV with the GQA
-  group summed in the kernel (``flash_bwd_dkv``, replacing the dk/dv
-  call), each counting its launches in ``.launches`` — or raises; a CPU
+  (``flash_bwd_dq``, replacing the Pallas dq call) and dK/dV
+  (``flash_bwd_dkv``, replacing the dk/dv call: a wgmma kernel per key
+  tile and q head, then a group sum over each kv head's q heads in a
+  fixed order, so dk and dv repeat bit for bit), each wrapper counting
+  its calls in ``.launches`` — or raises; a CPU
   tensor runs ``flash_attention_bwd_reference``, the plain f32 version
   of the formula above ``_bwd_dq_kernel``. The kernels take bf16 and
   head_dim 64 or 128.
@@ -316,8 +318,9 @@ def flash_bwd_dkv(q, k, v, dout, lse_pad, delta_pad, mask8, dk, dv,
     """Launch kernel 7 (dK and dV, each kv head's GQA group summed) on the
     tensors ``flash_bwd_dq`` takes: one CTA per (64-key tile, q head,
     batch row) writes that q head's f32 share of dK and dV into scratch
-    allocated here, then the group sum adds the shares of each group in a
-    fixed order into dk and dv (so repeats are bit-equal)."""
+    allocated here (2 × B·H·Sk·D f32, freed on return), then the group
+    sum adds the shares of each group in a fixed order into dk and dv (so
+    repeats are bit-equal). One call, one count."""
     part = torch.empty((2,) + tuple(q.shape[:2]) + tuple(k.shape[2:]),
                        dtype=torch.float32, device=q.device)
     _launch("kftt_flash_bwd_dkv", [
