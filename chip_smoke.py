@@ -1802,7 +1802,7 @@ def main(argv=None) -> int:
 
     long_run = flash_times["long-16384"]
     train_fwd = flash_times["train-2048"]
-    b, h, _, _, sk = BWD_TRAIN[:5]
+    b, h, hkv, _, sk = BWD_TRAIN[:5]
     kernels = [
         entry("ragged_paged_attention",
               "kubeflow_tpu_torch/csrc/ragged_attention.cu",
@@ -1846,13 +1846,14 @@ def main(argv=None) -> int:
              "bwd_dq", "dq", ("dq",), {}),
             ("flash_attention_bwd_dkv", "kubeflow_tpu/ops/attention.py:841",
              "bwd_dkv", "dkv", ("dk", "dv"), {
-                 "design": "one CTA per (64-key tile, q head, batch row), "
-                           "key tile slowest; f32 shares of dK/dV, then the "
-                           "group sum",
+                 "design": "wgmma, one warpgroup per (64-key tile, q "
+                           "head, batch row), key tile slowest; f32 shares "
+                           "of dK/dV, then the group sum",
                  "group_sum": "flash_bwd_group_sum_kernel: the G q-head "
                               "shares of each kv head added in the order "
                               "g = 0..G-1; dk, dv bit-equal on repeats",
                  "ctas": attn_mod.dkv_ctas(b, h, sk),
+                 "group_sum_ctas": -(-(b * hkv * sk * 128 // 4) // 256),
                  "ms_rounds": bwd_times["dkv"]["ms_rounds"]}))
     ]
     phases["total"] = time.monotonic() - t_start
