@@ -105,15 +105,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    goes through save → ``restore_latest`` and must come back byte-equal.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and last
-``{"ok": true, "device": {...}}``. ``--only name,...`` runs phases 1 and
-2 and then only the named phase functions (for example
-``flash_bwd_vs_plain,timing_flash_bwd``), printing their results and no
-result line.
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
-import argparse
 import concurrent.futures
 import contextlib
 import functools
@@ -996,6 +992,9 @@ def timing_flash_bwd():
                                                          ints)))
         library_rounds.append(_time_ms(call))
     total_ms = _time_ms(lambda: flash_attention_bwd(**case))
+    ctas = _launched_ctas(lambda: flash_bwd_dkv(*inputs, dk, dv, ints), {
+        "ctas": "flash_bwd_dkv_kernel",
+        "group_sum_ctas": "flash_bwd_group_sum_kernel"})
     flash_bwd_dq.launches, flash_bwd_dkv.launches = saved  # no main path
     plain_ms = _time_ms(lambda: flash_attention_bwd_reference(**case),
                         iters=5)
@@ -1013,7 +1012,9 @@ def timing_flash_bwd():
                           library_spread=spread, **work)
         log(f"  flash bwd {name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}; {work['bytes']} B, {work['flops']} FLOP)")
-    rows["dkv"]["ms_rounds"] = dkv_rounds
+    rows["dkv"].update(ms_rounds=dkv_rounds, **ctas)
+    log(f"  flash bwd dkv launched {ctas['ctas']} CTAs, then "
+        f"{ctas['group_sum_ctas']} for the group sum (profiler grids)")
     log(f"  flash bwd dkv rounds: {[round(x, 4) for x in dkv_rounds]} ms; "
         f"SDPA backward rounds: {[round(x, 4) for x in library_rounds]} ms, "
         f"median {library_ms:.4f} ms, spread {spread:.3%}")
@@ -1465,6 +1466,32 @@ def _trace(engine, prompts, kernels: dict) -> dict:
     return out
 
 
+def _launched_ctas(fn, kernels: dict) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (card activity only) and
+    read from the trace's kernel records the CTAs, the product of the
+    launch grid, that each of ``kernels``' ({label: name substring})
+    kernels launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    out = {}
+    for label, needle in kernels.items():
+        grids = [ev.get("args", {}).get("grid") for ev in events
+                 if ev.get("cat") == "kernel" and needle in ev.get("name", "")]
+        check(grids and all(grids),
+              f"the trace holds no {needle} launch with its grid")
+        out[label] = sum(math.prod(g) for g in grids)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # HTTP
 
@@ -1676,33 +1703,7 @@ def checkpoint_round_trip() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _only(names: str) -> int:
-    """``--only``: phase-3, phase-4 or train functions by name, each run
-    alone after the card and build phases, its result printed as JSON.
-    For targeted runs; prints no result line."""
-    table = {fn.__name__: fn for fn in (
-        kernel_vs_plain, flash_vs_plain, decode_vs_plain, dense_vs_plain,
-        flash_bwd_vs_plain, timing, timing_flash, timing_decode,
-        timing_dense, timing_flash_bwd)}
-    table["train_phase"] = lambda: train_phase(L.LLAMA_CONFIGS["llama-3-8b"])
-    for name in names.split(","):
-        if name not in table:
-            raise SystemExit(f"--only {name}: not one of {sorted(table)}")
-    for name in names.split(","):
-        t0 = time.monotonic()
-        log(f"[only] {name}")
-        log(json.dumps(table[name](), default=str))
-        log(f"  {name} took {time.monotonic() - t0:.2f} s")
-    return 0
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default=None,
-                    help="comma-separated phase functions (for example "
-                         "flash_bwd_vs_plain,timing_flash_bwd) to run alone "
-                         "after the card and build phases")
-    args = ap.parse_args(argv)
+def main() -> int:
     # One card, the first visible one, set before CUDA starts: the process
     # drives and counts one card however many the host has.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -1738,8 +1739,6 @@ def main(argv=None) -> int:
         log(f"  {name}: library already built" if took is None
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
-    if args.only:
-        return _only(args.only)
 
     log("[3/7] kernel vs plain")
     t0 = time.monotonic()
@@ -1802,7 +1801,6 @@ def main(argv=None) -> int:
 
     long_run = flash_times["long-16384"]
     train_fwd = flash_times["train-2048"]
-    b, h, hkv, _, sk = BWD_TRAIN[:5]
     kernels = [
         entry("ragged_paged_attention",
               "kubeflow_tpu_torch/csrc/ragged_attention.cu",
@@ -1852,9 +1850,8 @@ def main(argv=None) -> int:
                  "group_sum": "flash_bwd_group_sum_kernel: the G q-head "
                               "shares of each kv head added in the order "
                               "g = 0..G-1; dk, dv bit-equal on repeats",
-                 "ctas": attn_mod.dkv_ctas(b, h, sk),
-                 "group_sum_ctas": -(-(b * hkv * sk * 128 // 4) // 256),
-                 "ms_rounds": bwd_times["dkv"]["ms_rounds"]}))
+                 **{k: bwd_times["dkv"][k] for k in (
+                     "ctas", "group_sum_ctas", "ms_rounds")}}))
     ]
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")

@@ -331,12 +331,6 @@ def flash_bwd_dkv(q, k, v, dout, lse_pad, delta_pad, mask8, dk, dv,
     flash_bwd_dkv.launches += 1
 
 
-def dkv_ctas(b: int, h: int, sk: int) -> int:
-    """The CTAs kernel 7's main kernel launches: one per (64-key tile, q
-    head, batch row)."""
-    return -(-sk // 64) * h * b
-
-
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
