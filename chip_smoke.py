@@ -347,8 +347,16 @@ FLASH_CASES = [(c, 128, f"small#{i}") for i, c in enumerate(FLASH_SMALL)] + [
     ((2, 8, 2, 300, 700, True, 400, 333, (0, 250)), 128, "window-q-offset"),
     ((1, 8, 2, 200, 200, True, 0, 0, (30,)), 64, "d64"),
     ((1, 8, 2, 200, 200, True, 0, 0, (30,)), 256, "d256"),
+    # GQA groups of 1 and 8 (the cases above have groups 1, 2 and 4).
+    ((1, 8, 8, 320, 320, True, 0, 0, (45,)), 128, "group-1"),
+    ((2, 16, 2, 260, 452, True, 192, 0, None), 128, "group-8"),
 ]
 LSE_TOL = 1e-3
+FLASH_DESIGN = (
+    "wgmma, one warpgroup per (64-row q tile, q head, batch row), q tile "
+    "slowest and the last first; Q kept in a 128-byte-swizzled tile, 64-key "
+    "K/V tiles double-buffered by cp.async; S = Q·Kᵀ SS m64n64k16, P from "
+    "registers into O += P·V RS with V MN-major")
 
 
 def _flash_case(shape, d, seed):
@@ -382,19 +390,31 @@ def _flash_errors(out, lse, case) -> dict:
     return errs
 
 
+def check_fwd_repeat(first, again, name: str) -> None:
+    """The forward twice on the same inputs must give O and lse equal bit
+    for bit: every value is written once, by one thread, and no sum
+    depends on timing (no atomics)."""
+    for t, a, b in zip(("O", "lse"), first, again):
+        check(_same_bits(a, b),
+              f"flash {name}: {t} differs between two runs on the same inputs")
+
+
 def flash_vs_plain():
-    """Phase 3, flash forward; returns {gate: the worst error}."""
+    """Phase 3, flash forward; returns {gate: the worst error}. Each case
+    also runs twice: O and lse must repeat bit for bit."""
     worst: dict = {}
     for i, (shape, d, name) in enumerate(FLASH_CASES):
         case = _flash_case(shape, d, seed=200 + i)
         out, lse = flash_attention_fwd(**case)
+        check_fwd_repeat((out, lse), flash_attention_fwd(**case), name)
         torch.cuda.synchronize()
         errs = _flash_errors(out, lse, case)
         torch.cuda.synchronize()
         log(f"  flash {name:17s}: " + " ".join(
             f"max_{k}_err={v:.3e}" for k, v in errs.items()
             if k != "keyless_rows_ok")
-            + f" keyless_rows_ok={errs['keyless_rows_ok']}")
+            + f" keyless_rows_ok={errs['keyless_rows_ok']}"
+            " repeat_bit_equal=True")
         _gate(f"flash {name}", errs, worst)
         check(errs["lse"] <= LSE_TOL,
               f"flash {name}: lse error {errs['lse']} > {LSE_TOL}")
@@ -855,13 +875,24 @@ def _flash_bound(case):
     return _bound_of(nbytes, 4 * pairs * d)
 
 
-def _flash_library_call(case, is_causal: bool = False):
-    """One SDPA call with ``enable_gqa`` and the visibility as a boolean
-    mask (or ``is_causal``, which lets the flash backend take it, for a
-    plain causal case); checked once against the plain version on rows
-    that see a key (SDPA gives NaN on rows that see none)."""
+def _sdpa_is_causal(case) -> bool:
+    """Whether SDPA's ``is_causal`` states this case's visibility: square,
+    causal, q_offset 0, no window and no mask. Such a case is timed with
+    it, which lets SDPA take its flash backend; any other passes the
+    visibility as a boolean mask."""
+    return (case["q"].shape[2] == case["k"].shape[2] and bool(case["causal"])
+            and case["q_offset"] == 0 and not case["window"]
+            and case["kv_mask"] is None)
+
+
+def _flash_library_call(case):
+    """One SDPA call with ``enable_gqa``: ``is_causal`` where
+    ``_sdpa_is_causal`` allows it, else the visibility as a boolean mask;
+    checked once against the plain version on rows that see a key (SDPA
+    gives NaN on rows that see none)."""
     q, k, v = case["q"], case["k"], case["v"]
     b = q.shape[0]
+    is_causal = _sdpa_is_causal(case)
     allowed = (None if is_causal else
                torch.stack([_flash_visible(case, i) for i in range(b)])[:, None])
 
@@ -880,32 +911,40 @@ def _flash_library_call(case, is_causal: bool = False):
     return call
 
 
+FLASH_TIMED = (("main-prefill", 20), ("continuation-528", 20),
+               ("train-2048", 20), ("long-16384", 5))
+
+
 def timing_flash():
-    """Phase 4, flash forward: the main-path prefill, the training shape
-    (64 launches a train step; SDPA with ``is_causal`` as the yardstick)
-    and the long shape (kernel and library only: the plain version there
-    is a yardstick of nothing and takes seconds)."""
+    """Phase 4, flash forward: the main-path prefill, a 528-row
+    continuation, the training shape (64 launches a train step) and the
+    long shape (kernel and library only: the plain version there is a
+    yardstick of nothing and takes seconds), each beside one SDPA call
+    (``is_causal`` where ``_sdpa_is_causal`` allows it). Each case also
+    reports the CTAs its launch ran, read from a profiler trace."""
     rows = {}
     by_name = {name: (shape, d) for shape, d, name in FLASH_CASES}
-    for name, iters in (("main-prefill", 20), ("train-2048", 20),
-                        ("long-16384", 5)):
+    for name, iters in FLASH_TIMED:
         case = _flash_case(*by_name[name], seed=400)
         saved = flash_attention_fwd.launches
         kernel_ms = _time_ms(lambda: flash_attention_fwd(**case), iters=iters)
+        ctas = _launched_ctas(lambda: flash_attention_fwd(**case),
+                              {"ctas": "flash_fwd_kernel"})["ctas"]
         flash_attention_fwd.launches = saved  # timing is no main path
         plain_ms = (_time_ms(lambda: flash_attention_reference(**case))
                     if name != "long-16384" else None)
-        library_ms = _time_ms(
-            _flash_library_call(case, is_causal=name == "train-2048"),
-            iters=iters)
+        library_ms = _time_ms(_flash_library_call(case), iters=iters)
         bound_ms, bound_by, work = _flash_bound(case)
         rows[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, **work)
-        log(f"  flash {name}: kernel {kernel_ms:.4f} ms, plain "
+                          bound_by=bound_by, ctas=ctas,
+                          library_is_causal=_sdpa_is_causal(case), **work)
+        log(f"  flash {name}: kernel {kernel_ms:.4f} ms ({ctas} CTAs), plain "
             f"{plain_ms if plain_ms is None else round(plain_ms, 4)} ms, "
-            f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; {work['bytes']} B, {work['flops']} FLOP)")
+            f"library {library_ms:.4f} ms"
+            f"{' (is_causal)' if _sdpa_is_causal(case) else ''}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {work['bytes']} B, "
+            f"{work['flops']} FLOP)")
         del case
     return rows
 
@@ -1799,8 +1838,6 @@ def main() -> int:
                                      "bound_by", "library_ms")},
         }
 
-    long_run = flash_times["long-16384"]
-    train_fwd = flash_times["train-2048"]
     kernels = [
         entry("ragged_paged_attention",
               "kubeflow_tpu_torch/csrc/ragged_attention.cu",
@@ -1815,10 +1852,11 @@ def main() -> int:
               launches_continuous=cont_launches["flash"],
               launches_train=train_launches["flash"],
               max_lse_err=flash_errors["lse"],
-              long_16384={k: long_run[k] for k in (
-                  "ms", "library_ms", "bound_ms", "bound_by")},
-              train_2048={k: train_fwd[k] for k in (
-                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}),
+              design=FLASH_DESIGN, ctas=flash_times["main-prefill"]["ctas"],
+              **{name.replace("-", "_"): {k: flash_times[name][k] for k in (
+                  "ms", "plain_ms", "library_ms", "library_is_causal",
+                  "bound_ms", "bound_by", "ctas")}
+                 for name, _ in FLASH_TIMED if name != "main-prefill"}),
         entry("paged_decode_attention",
               "kubeflow_tpu_torch/csrc/paged_attention.cu",
               "kubeflow_tpu/ops/paged_attention.py:233",

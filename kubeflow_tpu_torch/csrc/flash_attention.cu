@@ -17,25 +17,43 @@
 // Sq = Sk = 512, D 128, causal) the causal FLOPs (2.1 G) and the bytes
 // every input and output must move (~10 MB) are near balance, the bytes
 // bound (~3.1 us at 3.35 TB/s) a little above the FLOPs bound (~2.2 us at
-// 989 TFLOP/s); from Sq = Sk = 1024 up operations bind, since FLOPs grow
-// with Sq·Sk and bytes with Sq + Sk. So the work must run on the tensor
-// cores, and each K/V byte read from HBM must feed many query rows.
+// 989 TFLOP/s); from Sq = Sk = 1024 up operations bind (training, S 2048:
+// 34.4 GFLOP, 0.0348 ms), since FLOPs grow with Sq·Sk and bytes with
+// Sq + Sk. So the work must run on Hopper's warpgroup tensor-core
+// products, and each K/V byte read from HBM must feed many query rows.
 // What the design does about it:
-// - one CTA per (64-row query tile, q head, batch row), 4 warps of 16 rows,
-//   the k loop inside the CTA (CTAs run in no order; nothing carries
-//   between them);
-// - the math on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-//   accumulate): S = Q·Kᵀ, an online softmax in exp2 units on the S
-//   fragments in registers, O += P·V with V through ldmatrix.trans; the
-//   output accumulator stays in registers for the whole loop;
-// - key tiles of 64 with cp.async into two shared-memory stages, the next
-//   tile's loads in flight while the current one is computed;
-// - causal and window tiles that no row of the CTA can see are never
-//   loaded (the loop runs over the tile's visible key range), tiles no row
-//   of a warp can see are skipped by that warp, and tiles wholly visible
-//   to a warp skip the per-element mask.
-// Later work: wgmma and TMA, warp specialisation, and a CTA holding the
-// whole GQA group of a kv head so K/V are read once for the group.
+// - one CTA of one warpgroup (4 warps, 128 threads) per (64-row query
+//   tile, q head, batch row), the key loop inside the CTA (CTAs run in no
+//   order; nothing carries between them). The q tile is the slowest index
+//   of the block order and runs backwards, so under causal the longest
+//   CTAs (the last q tiles) start first and the short ones fill the SMs
+//   behind them; neighbouring CTAs are the q heads of one kv head, which
+//   read the same K/V from L2;
+// - Q is copied once into a 128-byte-swizzled tile (the canonical wgmma
+//   layout, 1024-byte aligned) and read by every key tile's product; K and
+//   V come in 64-key tiles of the same layout through two cp.async stages,
+//   the next tile in flight while one is computed. Each thread copies one
+//   16-byte chunk of every 8th row (every 4th at D 256, with two
+//   swizzle bases), so every copy address is a base plus a constant;
+// - S = Q·Kᵀ is wgmma m64n64k16 with both operands in shared memory,
+//   K-major over D; the online softmax (exp2 units) runs on the f32
+//   accumulator fragment; P is rounded to bf16 and packed in place as
+//   the register A fragment of O += P·V, wgmma m64nDk16 (two m64n128k16
+//   at D 256) with V read MN-major (keys the reduction) from the same
+//   tile layout; O stays in registers for the whole loop (64 f32 a
+//   thread at D 128, 128 at D 256). The descriptors are rebuilt each step
+//   from an address the compiler cannot see through (`opaque`), and
+//   `fence_regs` pins the accumulators around each product, so nothing
+//   is hoisted into registers the accumulators need: ptxas reports 113,
+//   151 and 209 registers at D 64, 128 and 256 with no spill (NVIDIA
+//   H100 80GB HBM3, CUDA 12.8), so every head dim runs this body;
+// - the loop runs only over the key tiles some row of the CTA can see
+//   (causal and window bounds), so the warpgroup issues every product;
+//   a warp whose 16 rows see a tile whole skips the per-element mask.
+// Rows and keys are independent of the schedule and nothing is summed
+// across threads in a varying order, so O and lse repeat bit for bit.
+// Later work: keeping the next tile's S = Q·Kᵀ in flight during the
+// softmax, TMA with a producer warp.
 //
 // Any Sq, Sk >= 1: rows past Sq are zero-filled and never stored, keys
 // past Sk are zero-filled and masked. The optional kv_mask comes padded by
@@ -54,16 +72,25 @@ namespace {
 using kftt::cp_async16;
 using kftt::cp_async_commit;
 using kftt::cp_async_wait;
-using kftt::ld32;
-using kftt::mma_bf16;
+using kftt::fence_async_shared;
+using kftt::fence_regs;
+using kftt::opaque;
 using kftt::pack_bf16;
+using kftt::sw128_desc;
+using kftt::sw128_offset;
+using kftt::wgmma_commit;
+using kftt::wgmma_fence;
+using kftt::wgmma_rs_m64n128;
+using kftt::wgmma_rs_m64n64;
+using kftt::wgmma_ss_m64n64;
+using kftt::wgmma_wait;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // query rows of one CTA
-constexpr int kKeys = 64;           // keys per tile
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kRows = 64;      // query rows of a CTA
+constexpr int kKeys = 64;      // keys per tile
 constexpr size_t kMaxSmem = 232448;
-constexpr float kNegInf = -1e30f;   // lse of a row with no visible key
+constexpr float kNegInf = -1e30f;  // lse of a row with no visible key
+constexpr float kLog2e = 1.4426950408889634f;
 
 enum : int {
   kErrHeadDim = -1,
@@ -72,19 +99,65 @@ enum : int {
   kErrShape = -4,
 };
 
-// Byte offsets into dynamic shared memory. bf16 rows are padded by 8
-// elements (16 bytes), as in ragged_attention.cu.
-//   q:    [kRows][D + 8] bf16
-//   kv:   [stage][K|V][kKeys][D + 8] bf16, two stages
+// The wgmma products of one key tile. The descriptors are those of the
+// tiles' first bytes; a step adds its offset (in 16-byte units) to the
+// start address field. Every tile is [64 rows][D] bf16, 128-byte swizzled.
+template <int D>
+struct FwdMma {
+  static constexpr int kTile = 64 * D * 2;  // bytes of a tile
+  // S = Q·Kᵀ, 64 rows × 64 keys: A the q tile, B the key tile, both
+  // K-major over D; step kk covers D values 16kk … 16kk + 15, 32 bytes
+  // into a 128-byte row, or the next column block every 4 steps.
+  static __device__ __forceinline__ void scores(float* s, uint64_t q_desc,
+                                                uint64_t k_desc) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = ((kk / 4) * (64 * 128) + (kk % 4) * 32) >> 4;
+      wgmma_ss_m64n64(s, q_desc + off, k_desc + off, kk > 0);
+    }
+  }
+  // O += P·V: A the packed fragments p[ks] of keys 16ks … 16ks + 15, B the
+  // V tile MN-major (keys the reduction, D the columns), step ks starting
+  // 16 rows of 128 B further. At D 256 each step is two n128 products on
+  // the halves of D, two column blocks (2 · 64 · 128 B) apart.
+  static __device__ __forceinline__ void update(float* o, uint32_t (*p)[4],
+                                                uint64_t v_desc) {
+#pragma unroll
+    for (int ks = 0; ks < kKeys / 16; ++ks) {
+      const uint64_t desc = v_desc + ((ks * 16 * 128) >> 4);
+      if constexpr (D == 64) {
+        wgmma_rs_m64n64(o, p[ks], desc);
+      } else {
+        wgmma_rs_m64n128(o, p[ks], desc);
+        if constexpr (D == 256)
+          wgmma_rs_m64n128(o + 64, p[ks], desc + ((2 * 64 * 128) >> 4));
+      }
+    }
+  }
+  // K-major tiles: 8 rows of 128 B per stride step (LBO unused).
+  static __device__ __forceinline__ uint64_t k_major(uint32_t addr) {
+    return sw128_desc(opaque(addr), 16, 1024);
+  }
+  // MN-major tiles: 8 rows of 128 B per stride step, column blocks of 64
+  // values 64 · 128 B apart.
+  static __device__ __forceinline__ uint64_t mn_major(uint32_t addr) {
+    return sw128_desc(opaque(addr), 64 * 128, 1024);
+  }
+};
+
+// Byte offsets from a 1024-byte-aligned base in dynamic shared memory:
+//   q:    [kRows][D] bf16, 128-byte swizzled
+//   kv:   [stage][K|V][kKeys][D] bf16, two stages, 128-byte swizzled
 //   mask: [stage][kKeys] kv_mask bytes
+// `total` adds 1024 bytes for aligning the base.
 struct Smem {
   size_t q, kv, mask, total;
   __host__ __device__ explicit Smem(int d) {
-    const size_t padded = (size_t)(d + 8) * 2;
+    const size_t tile = (size_t)64 * d * 2;
     q = 0;
-    kv = q + kRows * padded;
-    mask = kv + 2 * 2 * kKeys * padded;
-    total = mask + 2 * kKeys;
+    kv = q + tile;
+    mask = kv + 4 * tile;
+    total = mask + 2 * kKeys + 1024;
   }
 };
 
@@ -92,24 +165,27 @@ template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int h, int hkv,
-    int sq, int sk, int sk_pad, int causal, int q_offset, int window,
-    float scale) {
-  constexpr int RS = D + 8;          // padded bf16 row, elements
-  constexpr int ND = D / 8;          // n-tiles of the output
-  constexpr int kRowChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kTileChunks = 2 * kKeys * kRowChunks;  // K and V
-  constexpr int kIssueIters = (kTileChunks + kThreads - 1) / kThreads;
-  constexpr int NT = kKeys / 8;   // n-tiles of S per key tile
-  constexpr int KS = kKeys / 16;  // k-steps of P·V per key tile
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int b_count,
+    int h, int hkv, int sq, int sk, int sk_pad, int causal, int q_offset,
+    int window, float scale) {
+  using Mma = FwdMma<D>;
+  constexpr int ND = D / 8;     // n-tiles of O
+  constexpr int NT = kKeys / 8;  // n-tiles of S
+  constexpr int kRowChunks = D / 8;  // 16-byte chunks of a row
+  constexpr int kRowStep = kThreads / kRowChunks;  // 16, 8, 4 at D 64/128/256
 
-  const int q0 = blockIdx.x * kRows;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
+  // The q tile slowest in the block order and the last (under causal the
+  // longest) first, so the longest CTAs start first and the short ones
+  // fill the SMs behind them; the heads of one kv head stay neighbours.
+  const int lin =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int q0 = (gridDim.x - 1 - lin / (h * b_count)) * kRows;
+  const int b = lin % (h * b_count) / h;
+  const int head = lin % h;
   const int kv_head = head / (h / hkv);
   const int tid = threadIdx.x;
   // Scores in log2 units, so the softmax's exponentials are exp2.
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * kLog2e;
 
   const size_t bh = (size_t)b * h + head;
   const __nv_bfloat16* q_bh = q + bh * sq * D;
@@ -128,63 +204,76 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem lay(D);
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.q);
-  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.kv);
-  uint8_t* mask_s = smem_raw + lay.mask;
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t q_s = raw + (uint32_t)(base - smem_raw) + lay.q;
+  const uint32_t kv_s = q_s - lay.q + lay.kv;
+  uint8_t* mask_s = base + lay.mask;
 
-  // Issue the cp.async loads of key tile kt into stage st and commit them
-  // as one group; keys past Sk are zero-filled.
+  // This thread's 16-byte chunk of a row and its first row: it copies
+  // every kRowStep-th row from there, so every copy address is one base
+  // plus a constant. At D 256 (a step of 4 rows) the swizzle of the odd
+  // steps differs from the even ones': two bases.
+  const int c_own = tid % kRowChunks;
+  const int r_own = tid / kRowChunks;
+  const uint32_t sw_even = sw128_offset<kRows>(r_own, c_own);
+  const uint32_t sw_odd =
+      sw128_offset<kRows>(r_own + kRowStep, c_own) - kRowStep * 128;
+  auto sw_at = [&](int i) {
+    return (kRowStep % 8 == 0 || i % 2 == 0 ? sw_even : sw_odd) +
+           (uint32_t)(i * kRowStep * 128);
+  };
+
+  // K, V and the mask bytes of key tile kt into stage st, one cp.async
+  // group; keys past Sk are zero-filled.
   auto issue = [&](int kt, int st) {
-    const int k0 = kt * kKeys;
+    const int j0 = kt * kKeys + r_own;
+    unsigned char* dst = base + lay.kv + st * 2 * Mma::kTile;
+    const size_t src = (size_t)j0 * D + c_own * 8;
 #pragma unroll
-    for (int i = 0; i < kIssueIters; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < kTileChunks) {
-        const int is_v = e >= kKeys * kRowChunks;
-        const int ee = e - is_v * kKeys * kRowChunks;
-        const int j = ee / kRowChunks;
-        const int c = (ee % kRowChunks) * 8;
-        const int key = k0 + j;
-        const bool live = key < sk;
-        const __nv_bfloat16* src =
-            (is_v ? v_bh : k_bh) + (live ? (size_t)key * D + c : 0);
-        cp_async16(kv_s + ((st * 2 + is_v) * kKeys + j) * RS + c, src, live);
-      }
+    for (int i = 0; i < kKeys / kRowStep; ++i) {
+      const bool live = j0 + i * kRowStep < sk;
+      const size_t at = live ? src + (size_t)i * kRowStep * D : 0;
+      cp_async16(dst + sw_at(i), k_bh + at, live);
+      cp_async16(dst + Mma::kTile + sw_at(i), v_bh + at, live);
     }
     if (mask_b != nullptr && tid < kKeys / 16)
-      cp_async16(mask_s + st * kKeys + tid * 16, mask_b + k0 + tid * 16,
-                 true);
+      cp_async16(mask_s + st * kKeys + tid * 16,
+                 mask_b + kt * kKeys + tid * 16, true);
     cp_async_commit();
   };
 
   // Query rows; rows past Sq are zero. They join the first tile's group.
-  for (int e = tid; e < kRows * (D / 8); e += kThreads) {
-    const int r = e / (D / 8);
-    const int c = (e % (D / 8)) * 8;
-    const bool live = q0 + r < sq;
-    cp_async16(q_s + r * RS + c, live ? q_bh + (size_t)(q0 + r) * D + c : q_bh,
-               live);
+  {
+    const int r0 = q0 + r_own;
+    const size_t src = (size_t)r0 * D + c_own * 8;
+#pragma unroll
+    for (int i = 0; i < kRows / kRowStep; ++i) {
+      const bool live = r0 + i * kRowStep < sq;
+      const size_t at = live ? src + (size_t)i * kRowStep * D : 0;
+      cp_async16(base + lay.q + sw_at(i), q_bh + at, live);
+    }
   }
   if (nkt > 0) issue(kt_lo, 0);
   else cp_async_commit();
 
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int gq = lane / 4;  // fragment row within 8
-  const int tq = lane % 4;  // fragment column pair
-  const int ra = warp * 16 + gq;
-  const int rb = ra + 8;
+  const int tq = lane % 4;
+  // This thread's rows a and b: the rows of the wgmma accumulator
+  // fragment (warp w holds rows 16w … 16w + 15, as mma.sync's C).
+  const int ra = warp * 16 + lane / 4;
   const int qpos_a = q0 + ra + q_offset;
-  const int qpos_b = q0 + rb + q_offset;
+  const int qpos_b = qpos_a + 8;
   // The warp's first and last query positions.
   const int wpos_lo = q0 + warp * 16 + q_offset;
   const int wpos_hi = wpos_lo + 15;
-  const bool warp_live = warp * 16 < rows_here;
 
-  float o[ND][4];
+  float o[ND * 4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY;  // running max, rows a and b
+  for (int i = 0; i < ND * 4; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY;  // running max (log2 units)
   float l_a = 0.f, l_b = 0.f;              // this thread's partial sums
 
   for (int i = 0; i < nkt; ++i) {
@@ -196,117 +285,98 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     } else {
       cp_async_wait<0>();
     }
+    fence_async_shared();
     __syncthreads();
 
-    // Tiles no row of this warp can see are skipped; tiles every row of
-    // it sees whole skip the per-element mask.
-    const bool dead = !warp_live || (causal && k0 > wpos_hi) ||
-                      (window > 0 && k0 + kKeys - 1 <= wpos_lo - window);
+    const uint32_t k_t = kv_s + st * 2 * Mma::kTile;
+    const uint32_t v_t = k_t + Mma::kTile;
+    // S = Q·Kᵀ for the CTA's 64 rows × 64 keys. The loop runs only over
+    // tiles some row of the CTA sees, so the warpgroup always issues it.
+    float s[NT * 4];
+    wgmma_fence();
+    Mma::scores(s, Mma::k_major(q_s), Mma::k_major(k_t));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NT * 4>(s);
+
+    // Tiles every row of this warp sees whole skip the per-element mask.
+    // Element (nt, e) is row a for e < 2, row b otherwise, at key
+    // k0 + nt*8 + tq*2 + (e & 1).
     const bool interior = mask_b == nullptr && k0 + kKeys <= sk &&
                           (!causal || k0 + kKeys - 1 <= wpos_lo) &&
                           (window <= 0 || k0 > wpos_hi - window);
-    if (!dead) {
-      const __nv_bfloat16* k_t = kv_s + st * 2 * kKeys * RS;
-      const __nv_bfloat16* v_t = k_t + kKeys * RS;
+    if (!interior) {
       const uint8_t* mask_t = mask_s + st * kKeys;
-      // S = Q·Kᵀ for this warp's 16 rows × 64 keys.
-      float sc[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const __nv_bfloat16* qa = q_s + ra * RS + tq * 2;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = ld32(qa + kk * 16);
-        a[1] = ld32(qa + 8 * RS + kk * 16);
-        a[2] = ld32(qa + kk * 16 + 8);
-        a[3] = ld32(qa + 8 * RS + kk * 16 + 8);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const __nv_bfloat16* kb = k_t + (nt * 8 + gq) * RS + kk * 16 + tq * 2;
-          mma_bf16(sc[nt], a, ld32(kb), ld32(kb + 8));
-        }
-      }
-      // Scale, mask and the per-row tile max. Element (nt, e) is row a for
-      // e < 2, row b otherwise, at key k0 + nt*8 + tq*2 + (e & 1).
-      float bmax_a = -INFINITY, bmax_b = -INFINITY;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const bool row_b = e >= 2;
-          float x = sc[nt][e] * scale_log2;
-          if (!interior) {
-            const int key = nt * 8 + tq * 2 + (e & 1);
-            const int kpos = k0 + key;
-            const int qpos = row_b ? qpos_b : qpos_a;
-            const bool ok = kpos < sk &&
-                            (mask_b == nullptr || mask_t[key] != 0) &&
-                            (!causal || kpos <= qpos) &&
-                            (window <= 0 || kpos > qpos - window);
-            x = ok ? x : -INFINITY;
-          }
-          sc[nt][e] = x;
-          if (row_b) bmax_b = fmaxf(bmax_b, x);
-          else bmax_a = fmaxf(bmax_a, x);
-        }
-      }
-      // The four lanes of a quad share a row.
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        bmax_a = fmaxf(bmax_a, __shfl_xor_sync(0xffffffffu, bmax_a, off));
-        bmax_b = fmaxf(bmax_b, __shfl_xor_sync(0xffffffffu, bmax_b, off));
-      }
-      // Online softmax. A row with no visible key so far keeps m = -inf:
-      // alpha and p are pinned to 0, never NaN.
-      const float mn_a = fmaxf(m_a, bmax_a);
-      const float mn_b = fmaxf(m_b, bmax_b);
-      const float al_a = mn_a == -INFINITY ? 0.f : exp2f(m_a - mn_a);
-      const float al_b = mn_b == -INFINITY ? 0.f : exp2f(m_b - mn_b);
-      m_a = mn_a;
-      m_b = mn_b;
-      float sum_a = 0.f, sum_b = 0.f;
-      // P in bf16 as the A fragments of P·V: k-step ks covers keys
-      // ks*16 .. +15, i.e. S n-tiles 2ks (a0, a1) and 2ks+1 (a2, a3).
-      uint32_t pa[KS][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float mn = e >= 2 ? mn_b : mn_a;
-          p[e] = mn == -INFINITY ? 0.f : exp2f(sc[nt][e] - mn);
-        }
-        sum_a += p[0] + p[1];
-        sum_b += p[2] + p[3];
-        pa[nt / 2][(nt % 2) * 2] = pack_bf16(p[0], p[1]);
-        pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-      }
-      l_a = l_a * al_a + sum_a;
-      l_b = l_b * al_b + sum_b;
-      // ldmatrix row address of this lane in the V tile (rows 0..15 of a
-      // k-step; lanes 16..31 repeat them, their addresses are not read).
-      const uint32_t v_lane = static_cast<uint32_t>(
-          __cvta_generic_to_shared(v_t + (lane % 16) * RS));
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        o[n][0] *= al_a;
-        o[n][1] *= al_a;
-        o[n][2] *= al_b;
-        o[n][3] *= al_b;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          // V[key][d] row-major, transposed into the B fragment.
-          uint32_t b0, b1;
-          asm volatile(
-              "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-              : "=r"(b0), "=r"(b1)
-              : "r"(v_lane + (uint32_t)((ks * 16 * RS + n * 8) * 2)));
-          mma_bf16(o[n], pa[ks], b0, b1);
+          const int key = nt * 8 + tq * 2 + (e & 1);
+          const int kpos = k0 + key;
+          const int qpos = e >= 2 ? qpos_b : qpos_a;
+          const bool ok = kpos < sk &&
+                          (mask_b == nullptr || mask_t[key] != 0) &&
+                          (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          if (!ok) s[nt * 4 + e] = -INFINITY;
         }
       }
     }
+    // The per-row tile max; the four lanes of a quad share a row.
+    float bmax_a = -INFINITY, bmax_b = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      bmax_a = fmaxf(bmax_a, fmaxf(s[nt * 4], s[nt * 4 + 1]));
+      bmax_b = fmaxf(bmax_b, fmaxf(s[nt * 4 + 2], s[nt * 4 + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      bmax_a = fmaxf(bmax_a, __shfl_xor_sync(0xffffffffu, bmax_a, off));
+      bmax_b = fmaxf(bmax_b, __shfl_xor_sync(0xffffffffu, bmax_b, off));
+    }
+    // Online softmax. A row with no visible key so far keeps m = -inf: its
+    // alpha is pinned to 0 and its exponent offset to 0, so every p of it
+    // is exp2(-inf) = 0, never NaN.
+    const float mn_a = fmaxf(m_a, bmax_a * scale_log2);
+    const float mn_b = fmaxf(m_b, bmax_b * scale_log2);
+    const float al_a = mn_a == -INFINITY ? 0.f : exp2f(m_a - mn_a);
+    const float al_b = mn_b == -INFINITY ? 0.f : exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    const float off_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float off_b = mn_b == -INFINITY ? 0.f : mn_b;
+    // P in bf16, packed in place as the A fragments of P·V: k-step ks
+    // covers keys ks*16 … +15, i.e. S n-tiles 2ks (a0, a1) and 2ks+1
+    // (a2, a3).
+    float sum_a = 0.f, sum_b = 0.f;
+    uint32_t pa[kKeys / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float p0 = exp2f(fmaf(s[nt * 4], scale_log2, -off_a));
+      const float p1 = exp2f(fmaf(s[nt * 4 + 1], scale_log2, -off_a));
+      const float p2 = exp2f(fmaf(s[nt * 4 + 2], scale_log2, -off_b));
+      const float p3 = exp2f(fmaf(s[nt * 4 + 3], scale_log2, -off_b));
+      sum_a += p0 + p1;
+      sum_b += p2 + p3;
+      pa[nt / 2][(nt % 2) * 2] = pack_bf16(p0, p1);
+      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n * 4] *= al_a;
+      o[n * 4 + 1] *= al_a;
+      o[n * 4 + 2] *= al_b;
+      o[n * 4 + 3] *= al_b;
+    }
+    // O += P·V.
+    fence_regs<ND * 4>(o);
+    wgmma_fence();
+    Mma::update(o, pa, Mma::mn_major(v_t));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<ND * 4>(o);
     __syncthreads();  // the next iteration refills this tile's stage
   }
   cp_async_wait<0>();  // nkt == 0: the query loads are still in flight
@@ -318,17 +388,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int row = q0 + (half ? rb : ra);
+    const int row = q0 + ra + half * 8;
     if (row >= sq) continue;
     const float m = half ? m_b : m_a;
     const float l = half ? l_b : l_a;
-    // A row that saw no key has o = 0 (every p was pinned to 0).
+    // A row that saw no key has o = 0 (every p was 0).
     const float inv = 1.f / fmaxf(l, 1e-30f);
     __nv_bfloat16* dst = out + (bh * sq + row) * D + tq * 2;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
-          o[n][half * 2] * inv, o[n][half * 2 + 1] * inv);
+          o[n * 4 + half * 2] * inv, o[n * 4 + half * 2 + 1] * inv);
     }
     if (tq == 0)
       lse[bh * sq + row] =
@@ -352,7 +422,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), h, hkv, sq, sk, sk_pad, causal, q_offset,
+      static_cast<float*>(lse), b, h, hkv, sq, sk, sk_pad, causal, q_offset,
       window, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
@@ -372,7 +442,8 @@ int kftt_flash_attention_fwd(const void* q, const void* k, const void* v,
                              void* stream) {
   if (hkv <= 0 || h % hkv) return kErrGroup;
   if (b <= 0 || sq <= 0 || sk <= 0 || sk_pad < sk || sk_pad % kKeys ||
-      b > 65535 || h > 65535)
+      b > 65535 || h > 65535 ||
+      (size_t)((sq + kRows - 1) / kRows) * h * b > 0x7fffffffu)
     return kErrShape;
   if (Smem(d).total > kMaxSmem) return kErrSmem;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,6 +1,8 @@
 // Device helpers shared by the port's hand-written kernels: bf16 packing,
-// the mma.sync m16n8k16 tensor-core product (bf16 in, f32 accumulate) and
-// cp.async 16-byte copies with their group commit/wait.
+// the mma.sync m16n8k16 tensor-core product (bf16 in, f32 accumulate),
+// cp.async 16-byte copies with their group commit/wait, and Hopper's
+// warpgroup products (wgmma, sm_90a only) with the 128-byte-swizzled
+// shared-memory layout and descriptors they read.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,6 +53,157 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte offset of 16-byte chunk c (D / 8 chunks a row) of row r in a
+// [ROWS][D] bf16 tile held in the canonical 128-byte-swizzled layout of
+// wgmma: column blocks of 64 values, each [ROWS][128 B], and within a row
+// the chunk index XOR row % 8. The tile starts on a 1024-byte boundary.
+template <int ROWS>
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
+  return (c / 8) * (ROWS * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+// A wgmma shared-memory descriptor of the 128-byte swizzle: start address,
+// leading and stride byte offsets (in 16-byte units) and the layout type.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Makes this thread's generic-proxy writes to shared memory (cp.async
+// included) visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of r across a wgmma
+// issue or wait (the hardware owns the registers in between).
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The accumulator operands of a wgmma with 16, 32 or 64 f32 registers a
+// thread.
+#define KFTT_REGS_16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15"
+#define KFTT_OUTS_16(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define KFTT_REGS_32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define KFTT_OUTS_32(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define KFTT_REGS_64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+#define KFTT_OUTS_64(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (+)= A·Bᵀ for one m64n32k16 step, A and B K-major in shared
+// memory; acc = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_m64n32(float* d, uint64_t a,
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      KFTT_REGS_16
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : KFTT_OUTS_16(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (+)= A·Bᵀ for one m64n64k16 step, A and B K-major in shared
+// memory; acc = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t a,
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      KFTT_REGS_32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : KFTT_OUTS_32(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A·B for one m64n64k16 step: A a bf16 fragment in registers (the
+// accumulator layout of a 64-row product), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_m64n64(float* d, const uint32_t* a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      KFTT_REGS_32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : KFTT_OUTS_32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A·B for one m64n128k16 step: A a bf16 fragment in registers (the
+// accumulator layout of a 64-row product), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      KFTT_REGS_64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : KFTT_OUTS_64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// A shared address the compiler cannot see through, so the descriptors
+// made from it are rebuilt in each iteration instead of being hoisted out
+// of the loop into registers the accumulators need.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 }  // namespace kftt

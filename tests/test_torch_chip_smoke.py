@@ -11,9 +11,12 @@ positions 624..639), and 2 slots of the paged and dense decode kernels.
 The flash backward's gates are held the same way: the plain backward on
 the forward's O and lse, its dq, dk and dv rounded to bf16, passes them;
 with one 64-key tile of the 640 keys dropped, or 3% off, it fails them.
-Phase 3's repeat check (dk and dv bit-equal over two runs on the same
-inputs) passes on two runs of the plain version and fails when one
-element of dk or dv is one bf16 ulp off.
+Phase 3's repeat checks (dk and dv, and the forward's O and lse,
+bit-equal over two runs on the same inputs) pass on two runs of the plain
+version and fail when one element is one ulp off. The forward's SDPA
+yardstick takes ``is_causal`` exactly for the square, causal, unmasked,
+unwindowed cases at q_offset 0, and the forward's cases cover every head
+dim, visibility rule and GQA group the kernel takes.
 
 The dense kernel's phase-3 cases run through ``dense_vs_plain`` as they
 will on the card (the wrapper's plain version stands in for the kernel).
@@ -272,3 +275,82 @@ def test_train_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     launched = smoke.train_phase(cfg)
     n = cfg.n_layers * smoke.TRAIN_STEPS
     assert launched == {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n}
+
+
+def _fwd_twice(smoke):
+    """Two runs of the forward wrapper (the plain version on the CPU) on
+    one case of group 4 with left padding."""
+    case = smoke._flash_case((1, 8, 2, 64, 96, True, 32, 0, (40,)), 128,
+                             seed=0)
+    return TA.flash_attention_fwd(**case), TA.flash_attention_fwd(**case)
+
+
+def test_forward_repeat_check_passes_on_two_equal_runs(smoke):
+    first, second = _fwd_twice(smoke)
+    smoke.check_fwd_repeat(first, second, "rehearsal")
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_forward_repeat_check_fails_on_one_bit(smoke, which):
+    """One element of O (or lse) one ulp off: the check fails."""
+    first, second = _fwd_twice(smoke)
+    again = [t.clone() for t in second]
+    bits = again[which].view(-1).view(
+        torch.int16 if again[which].dtype == torch.bfloat16 else torch.int32)
+    bits[bits.numel() // 2] += 1
+    assert not torch.equal(first[which], again[which])
+    with pytest.raises(AssertionError, match="differs between two runs"):
+        smoke.check_fwd_repeat(first, again, "rehearsal")
+
+
+def _shape_case(shape):
+    """A flash case with the shape's metadata and empty head dims: what
+    ``_sdpa_is_causal`` and ``_flash_visible`` read, at no cost."""
+    b, h, hkv, sq, sk, causal, q_offset, window, pads = shape
+    kv_mask = (None if pads is None else
+               torch.arange(sk)[None, :] >= torch.tensor(pads)[:, None])
+    return dict(q=torch.empty((b, h, sq, 0)), k=torch.empty((b, hkv, sk, 0)),
+                causal=causal, q_offset=q_offset, window=window,
+                kv_mask=kv_mask)
+
+
+SQUARE_CAUSAL = (1, 32, 8, 2048, 2048, True, 0, 0, None)
+
+
+@pytest.mark.parametrize("shape,expected", [
+    (SQUARE_CAUSAL, True),
+    ((1, 32, 8, 16384, 16384, True, 0, 0, None), True),
+    ((2, 8, 8, 100, 100, True, 0, 0, None), True),
+    ((1, 32, 8, 2048, 2049, True, 0, 0, None), False),   # Sq != Sk
+    ((1, 32, 8, 2048, 2048, False, 0, 0, None), False),  # not causal
+    ((1, 32, 8, 2048, 2048, True, 1, 0, None), False),   # q_offset
+    ((1, 32, 8, 2048, 2048, True, 0, 256, None), False),  # window
+    ((1, 32, 8, 2048, 2048, True, 0, 0, (0,)), False),   # a mask
+])
+def test_sdpa_takes_is_causal_exactly_for_plain_causal_shapes(smoke, shape,
+                                                              expected):
+    assert smoke._sdpa_is_causal(_shape_case(shape)) is expected
+
+
+def test_timed_flash_cases_use_is_causal_where_they_qualify(smoke):
+    by_name = {name: shape for shape, _, name in smoke.FLASH_CASES}
+    chosen = {name: smoke._sdpa_is_causal(_shape_case(by_name[name]))
+              for name, _ in smoke.FLASH_TIMED}
+    assert chosen == {"main-prefill": False, "continuation-528": False,
+                      "train-2048": True, "long-16384": True}
+
+
+def test_flash_cases_cover_every_kind_the_kernel_takes(smoke):
+    """Head dims 64/128/256, a window, a q_offset, a kv_mask, rows that see
+    no key, and GQA groups of 1, 4 and 8."""
+    shapes = [(shape, d) for shape, d, _ in smoke.FLASH_CASES]
+    assert {d for _, d in shapes} == {64, 128, 256}
+    assert any(s[7] > 0 for s, _ in shapes)
+    assert any(s[6] > 0 for s, _ in shapes)
+    assert any(s[8] is not None for s, _ in shapes)
+    assert {1, 4, 8} <= {s[1] // s[2] for s, _ in shapes}
+    keyless = [name for shape, _, name in smoke.FLASH_CASES
+               if max(shape[3], shape[4]) <= 4096 and not all(
+                   bool(smoke._flash_visible(_shape_case(shape), i)
+                        .any(-1).all()) for i in range(shape[0]))]
+    assert keyless, "no case has a row that sees no key"

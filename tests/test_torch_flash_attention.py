@@ -33,6 +33,8 @@ CASES = {
     "kv-mask-left-pad": (2, 4, 2, 384, 384, True, 0, 0, (100, 300)),
     "window-q-offset": (1, 2, 2, 256, 384, True, 128, 150, None),
     "non-causal": (1, 2, 1, 256, 384, False, 0, 0, None),
+    # A group of 8 q heads per kv head, continuing at q_offset 128.
+    "gqa-16/2-q-offset": (1, 16, 2, 128, 256, True, 128, 0, None),
 }
 
 
