@@ -22,19 +22,22 @@
 // Sq + Sk. So the work must run on Hopper's warpgroup tensor-core
 // products, and each K/V byte read from HBM must feed many query rows.
 // What the design does about it:
-// - one CTA of one warpgroup (4 warps, 128 threads) per (64-row query
-//   tile, q head, batch row), the key loop inside the CTA (CTAs run in no
-//   order; nothing carries between them). The q tile is the slowest index
-//   of the block order and runs backwards, so under causal the longest
-//   CTAs (the last q tiles) start first and the short ones fill the SMs
-//   behind them; neighbouring CTAs are the q heads of one kv head, which
-//   read the same K/V from L2;
-// - Q is copied once into a 128-byte-swizzled tile (the canonical wgmma
-//   layout, 1024-byte aligned) and read by every key tile's product; K and
-//   V come in 64-key tiles of the same layout through two cp.async stages,
-//   the next tile in flight while one is computed. Each thread copies one
-//   16-byte chunk of every 8th row (every 4th at D 256, with two
-//   swizzle bases), so every copy address is a base plus a constant;
+// - one CTA per (64-row query tile, q head, batch row): one warpgroup (4
+//   warps) computes and a fifth warp copies; the key loop runs inside the
+//   CTA (CTAs run in no order; nothing carries between them). The q tile
+//   is the slowest index of the block order and runs backwards, so under
+//   causal the longest CTAs (the last q tiles) start first and the short
+//   ones fill the SMs behind them; neighbouring CTAs are the q heads of
+//   one kv head, which read the same K/V from L2;
+// - the copying warp's one thread moves the q tile once, then each 64-key
+//   K and V tile, with the Tensor Memory Accelerator (3-D tensor maps over
+//   (planes, rows, D), boxes of 64 rows × 64 values with the 128-byte
+//   swizzle that wgmma reads, rows past Sq or Sk filled with zeros by the
+//   hardware) and the tile's mask bytes with a bulk copy, into two
+//   stages, on `full` / `empty` mbarriers: it refills a stage once the
+//   warpgroup has released it. The warpgroup issues no copy, no proxy
+//   fence and no block-wide barrier in the loop: it waits on `full`,
+//   computes, and arrives on `empty`;
 // - S = Q·Kᵀ is wgmma m64n64k16 with both operands in shared memory,
 //   K-major over D; the online softmax (exp2 units) runs on the f32
 //   accumulator fragment; P is rounded to bf16 and packed in place as
@@ -44,22 +47,25 @@
 //   thread at D 128, 128 at D 256). The descriptors are rebuilt each step
 //   from an address the compiler cannot see through (`opaque`), and
 //   `fence_regs` pins the accumulators around each product, so nothing
-//   is hoisted into registers the accumulators need: ptxas reports 113,
-//   151 and 209 registers at D 64, 128 and 256 with no spill (NVIDIA
-//   H100 80GB HBM3, CUDA 12.8), so every head dim runs this body;
+//   is hoisted into registers the accumulators need: ptxas reports 95,
+//   158 and 212 registers at D 64, 128 and 256 with no spill (CUDA 12.8,
+//   sm_90a), so every head dim runs this body (2 CTAs an SM at D 128, by
+//   shared memory);
 // - the loop runs only over the key tiles some row of the CTA can see
 //   (causal and window bounds), so the warpgroup issues every product;
 //   a warp whose 16 rows see a tile whole skips the per-element mask.
+// Keeping the next tile's S = Q·Kᵀ in flight during the softmax (FA3's
+// in-warpgroup overlap) was built and measured slower here: the other CTA
+// on the SM already fills the tensor cores during a softmax.
 // Rows and keys are independent of the schedule and nothing is summed
 // across threads in a varying order, so O and lse repeat bit for bit.
-// Later work: keeping the next tile's S = Q·Kᵀ in flight during the
-// softmax, TMA with a producer warp.
 //
 // Any Sq, Sk >= 1: rows past Sq are zero-filled and never stored, keys
 // past Sk are zero-filled and masked. The optional kv_mask comes padded by
 // the wrapper to (B, Sk_pad) bytes, Sk_pad a multiple of 64, so each
 // tile's mask bytes are one aligned 64-byte copy.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,15 +75,17 @@
 
 namespace {
 
-using kftt::cp_async16;
-using kftt::cp_async_commit;
-using kftt::cp_async_wait;
-using kftt::fence_async_shared;
+using kftt::bulk_load;
+using kftt::fence_mbar_init;
 using kftt::fence_regs;
+using kftt::mbar_arrive;
+using kftt::mbar_expect_tx;
+using kftt::mbar_init;
+using kftt::mbar_wait;
 using kftt::opaque;
 using kftt::pack_bf16;
 using kftt::sw128_desc;
-using kftt::sw128_offset;
+using kftt::tma_load_3d;
 using kftt::wgmma_commit;
 using kftt::wgmma_fence;
 using kftt::wgmma_rs_m64n128;
@@ -85,7 +93,8 @@ using kftt::wgmma_rs_m64n64;
 using kftt::wgmma_ss_m64n64;
 using kftt::wgmma_wait;
 
-constexpr int kThreads = 128;  // one warpgroup
+constexpr int kConsumers = 128;           // one warpgroup computes
+constexpr int kThreads = kConsumers + 32;  // and one warp copies
 constexpr int kRows = 64;      // query rows of a CTA
 constexpr int kKeys = 64;      // keys per tile
 constexpr size_t kMaxSmem = 232448;
@@ -97,6 +106,7 @@ enum : int {
   kErrSmem = -2,
   kErrGroup = -3,
   kErrShape = -4,
+  kErrTensorMap = -5,
 };
 
 // The wgmma products of one key tile. The descriptors are those of the
@@ -149,30 +159,32 @@ struct FwdMma {
 //   q:    [kRows][D] bf16, 128-byte swizzled
 //   kv:   [stage][K|V][kKeys][D] bf16, two stages, 128-byte swizzled
 //   mask: [stage][kKeys] kv_mask bytes
+//   bar:  full[2], empty[2] and q mbarriers, 8 bytes each
 // `total` adds 1024 bytes for aligning the base.
 struct Smem {
-  size_t q, kv, mask, total;
+  size_t q, kv, mask, bar, total;
   __host__ __device__ explicit Smem(int d) {
     const size_t tile = (size_t)64 * d * 2;
     q = 0;
     kv = q + tile;
     mask = kv + 4 * tile;
-    total = mask + 2 * kKeys + 1024;
+    bar = mask + 2 * kKeys;
+    total = bar + 5 * 8 + 1024;
   }
 };
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int b_count,
-    int h, int hkv, int sq, int sk, int sk_pad, int causal, int q_offset,
-    int window, float scale) {
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int b_count, int h, int hkv, int sq, int sk,
+    int sk_pad, int causal, int q_offset, int window, float scale) {
   using Mma = FwdMma<D>;
   constexpr int ND = D / 8;     // n-tiles of O
   constexpr int NT = kKeys / 8;  // n-tiles of S
-  constexpr int kRowChunks = D / 8;  // 16-byte chunks of a row
-  constexpr int kRowStep = kThreads / kRowChunks;  // 16, 8, 4 at D 64/128/256
+  constexpr int kBlocks = D / 64;  // 64-column blocks of a tile (TMA boxes)
 
   // The q tile slowest in the block order and the last (under causal the
   // longest) first, so the longest CTAs start first and the short ones
@@ -182,15 +194,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int q0 = (gridDim.x - 1 - lin / (h * b_count)) * kRows;
   const int b = lin % (h * b_count) / h;
   const int head = lin % h;
-  const int kv_head = head / (h / hkv);
+  const int bkv = b * hkv + head / (h / hkv);
   const int tid = threadIdx.x;
   // Scores in log2 units, so the softmax's exponentials are exp2.
   const float scale_log2 = scale * kLog2e;
 
   const size_t bh = (size_t)b * h + head;
-  const __nv_bfloat16* q_bh = q + bh * sq * D;
-  const __nv_bfloat16* k_bh = k + ((size_t)b * hkv + kv_head) * sk * D;
-  const __nv_bfloat16* v_bh = v + ((size_t)b * hkv + kv_head) * sk * D;
   const uint8_t* mask_b = mask ? mask + (size_t)b * sk_pad : nullptr;
 
   // The keys some row of this CTA can see: [k_lo, k_hi).
@@ -207,56 +216,56 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  const uint32_t q_s = raw + (uint32_t)(base - smem_raw) + lay.q;
-  const uint32_t kv_s = q_s - lay.q + lay.kv;
-  uint8_t* mask_s = base + lay.mask;
-
-  // This thread's 16-byte chunk of a row and its first row: it copies
-  // every kRowStep-th row from there, so every copy address is one base
-  // plus a constant. At D 256 (a step of 4 rows) the swizzle of the odd
-  // steps differs from the even ones': two bases.
-  const int c_own = tid % kRowChunks;
-  const int r_own = tid / kRowChunks;
-  const uint32_t sw_even = sw128_offset<kRows>(r_own, c_own);
-  const uint32_t sw_odd =
-      sw128_offset<kRows>(r_own + kRowStep, c_own) - kRowStep * 128;
-  auto sw_at = [&](int i) {
-    return (kRowStep % 8 == 0 || i % 2 == 0 ? sw_even : sw_odd) +
-           (uint32_t)(i * kRowStep * 128);
+  const uint32_t base_s = raw + (uint32_t)(base - smem_raw);
+  const uint32_t q_s = base_s + lay.q;
+  const uint8_t* mask_s = base + lay.mask;
+  // full[st]: stage st holds its tile; empty[st]: the consumers are done
+  // with it; q_bar: the q tile has landed.
+  auto full = [&](int st) { return base_s + lay.bar + 8 * st; };
+  auto empty = [&](int st) { return base_s + lay.bar + 16 + 8 * st; };
+  const uint32_t q_bar = base_s + lay.bar + 32;
+  auto k_tile = [&](int st) {
+    return base_s + lay.kv + st * 2 * Mma::kTile;
   };
 
-  // K, V and the mask bytes of key tile kt into stage st, one cp.async
-  // group; keys past Sk are zero-filled.
-  auto issue = [&](int kt, int st) {
-    const int j0 = kt * kKeys + r_own;
-    unsigned char* dst = base + lay.kv + st * 2 * Mma::kTile;
-    const size_t src = (size_t)j0 * D + c_own * 8;
-#pragma unroll
-    for (int i = 0; i < kKeys / kRowStep; ++i) {
-      const bool live = j0 + i * kRowStep < sk;
-      const size_t at = live ? src + (size_t)i * kRowStep * D : 0;
-      cp_async16(dst + sw_at(i), k_bh + at, live);
-      cp_async16(dst + Mma::kTile + sw_at(i), v_bh + at, live);
+  if (tid == 0) {
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers);
     }
-    if (mask_b != nullptr && tid < kKeys / 16)
-      cp_async16(mask_s + st * kKeys + tid * 16,
-                 mask_b + kt * kKeys + tid * 16, true);
-    cp_async_commit();
-  };
-
-  // Query rows; rows past Sq are zero. They join the first tile's group.
-  {
-    const int r0 = q0 + r_own;
-    const size_t src = (size_t)r0 * D + c_own * 8;
-#pragma unroll
-    for (int i = 0; i < kRows / kRowStep; ++i) {
-      const bool live = r0 + i * kRowStep < sq;
-      const size_t at = live ? src + (size_t)i * kRowStep * D : 0;
-      cp_async16(base + lay.q + sw_at(i), q_bh + at, live);
-    }
+    mbar_init(q_bar, 1);
+    fence_mbar_init();
   }
-  if (nkt > 0) issue(kt_lo, 0);
-  else cp_async_commit();
+  __syncthreads();
+
+  // The copying warp: one thread issues the TMA copies of the q tile and
+  // then of each key tile's K and V (and a bulk copy of its mask bytes)
+  // into the stages in turn, waiting for a stage to be released before
+  // refilling it. Rows past Sq and keys past Sk come in as zeros.
+  if (tid >= kConsumers) {
+    if (tid == kConsumers && nkt > 0) {
+      mbar_expect_tx(q_bar, Mma::kTile);
+      for (int c = 0; c < kBlocks; ++c)
+        tma_load_3d(q_s + c * 64 * 128, &q_map, c * 64, q0, (int)bh, q_bar);
+      for (int i = 0; i < nkt; ++i) {
+        const int st = i & 1;
+        const int k0 = (kt_lo + i) * kKeys;
+        if (i >= 2) mbar_wait(empty(st), ((i >> 1) - 1) & 1);
+        mbar_expect_tx(full(st),
+                       2 * Mma::kTile + (mask_b != nullptr ? kKeys : 0));
+        for (int c = 0; c < kBlocks; ++c) {
+          tma_load_3d(k_tile(st) + c * 64 * 128, &k_map, c * 64, k0, bkv,
+                      full(st));
+          tma_load_3d(k_tile(st) + Mma::kTile + c * 64 * 128, &v_map, c * 64,
+                      k0, bkv, full(st));
+        }
+        if (mask_b != nullptr)
+          bulk_load(base_s + lay.mask + st * kKeys, mask_b + k0, kKeys,
+                    full(st));
+      }
+    }
+    return;
+  }
 
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -276,19 +285,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   float m_a = -INFINITY, m_b = -INFINITY;  // running max (log2 units)
   float l_a = 0.f, l_b = 0.f;              // this thread's partial sums
 
+  if (nkt > 0) mbar_wait(q_bar, 0);
   for (int i = 0; i < nkt; ++i) {
     const int st = i & 1;
     const int k0 = (kt_lo + i) * kKeys;
-    if (i + 1 < nkt) {
-      issue(kt_lo + i + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_async_shared();
-    __syncthreads();
+    mbar_wait(full(st), (i >> 1) & 1);
 
-    const uint32_t k_t = kv_s + st * 2 * Mma::kTile;
+    const uint32_t k_t = k_tile(st);
     const uint32_t v_t = k_t + Mma::kTile;
     // S = Q·Kᵀ for the CTA's 64 rows × 64 keys. The loop runs only over
     // tiles some row of the CTA sees, so the warpgroup always issues it.
@@ -377,9 +380,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<ND * 4>(o);
-    __syncthreads();  // the next iteration refills this tile's stage
+    mbar_arrive(empty(st));  // this stage may be refilled
   }
-  cp_async_wait<0>();  // nkt == 0: the query loads are still in flight
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -406,11 +408,63 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
+// cuTensorMapEncodeTiled, a driver function, reached through the runtime
+// so the library links no driver library of its own.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a (planes, rows, d) bf16 tensor: boxes of 64 rows × 64
+// values (128 bytes), 128-byte swizzled as wgmma reads them; rows past
+// `rows` read as zeros.
+int tensor_map(CUtensorMap* map, const void* data, int d, int rows,
+               int planes) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrTensorMap;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)d * 2 * rows};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(data),
+      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            void* out, void* lse, int b, int h, int hkv, int sq, int sk,
            int sk_pad, int causal, int q_offset, int window,
            cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  if (int err = tensor_map(&q_map, q, D, sq, b * h)) return err;
+  if (int err = tensor_map(&k_map, k, D, sk, b * hkv)) return err;
+  if (int err = tensor_map(&v_map, v, D, sk, b * hkv)) return err;
   const size_t smem = Smem(D).total;
   auto fn = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -418,12 +472,9 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kRows - 1) / kRows, h, b);
   fn<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), b, h, hkv, sq, sk, sk_pad, causal, q_offset,
-      window, 1.0f / sqrtf((float)D));
+      q_map, k_map, v_map, static_cast<const uint8_t*>(mask),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), b, h, hkv,
+      sq, sk, sk_pad, causal, q_offset, window, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -468,6 +519,7 @@ const char* kftt_error_string(int code) {
     case kErrSmem: return "tile needs more shared memory than a block has";
     case kErrGroup: return "H must be a positive multiple of Hkv";
     case kErrShape: return "B, Sq, Sk must be >= 1 and Sk_pad a multiple of 64";
+    case kErrTensorMap: return "cuTensorMapEncodeTiled is missing or refused a map";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -16,7 +16,9 @@ bit-equal over two runs on the same inputs) pass on two runs of the plain
 version and fail when one element is one ulp off. The forward's SDPA
 yardstick takes ``is_causal`` exactly for the square, causal, unmasked,
 unwindowed cases at q_offset 0, and the forward's cases cover every head
-dim, visibility rule and GQA group the kernel takes.
+dim, visibility rule and GQA group the kernel takes. The CTA count read
+from a profiler trace survives a trace that drops the kernel's record,
+and fails when three do.
 
 The dense kernel's phase-3 cases run through ``dense_vs_plain`` as they
 will on the card (the wrapper's plain version stands in for the kernel).
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib.util
+import json
 from pathlib import Path
 
 import pytest
@@ -354,3 +357,46 @@ def test_flash_cases_cover_every_kind_the_kernel_takes(smoke):
                    bool(smoke._flash_visible(_shape_case(shape), i)
                         .any(-1).all()) for i in range(shape[0]))]
     assert keyless, "no case has a row that sees no key"
+
+
+FWD_RECORD = {"cat": "kernel", "name": "void flash_fwd_kernel<128>(...)",
+              "args": {"grid": [32, 32, 1]}}
+
+
+def _fake_profiler(monkeypatch, traces):
+    """``torch.profiler.profile`` replaced by one whose successive traces
+    hold the given kernel records."""
+    traces = iter(traces)
+
+    class Profile:
+        def __init__(self, activities):
+            self.events = next(traces)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                json.dump({"traceEvents": self.events}, f)
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+
+def test_launched_ctas_traces_again_when_a_record_is_dropped(smoke,
+                                                             monkeypatch):
+    _fake_profiler(monkeypatch, [[], [FWD_RECORD]])
+    calls = []
+    got = smoke._launched_ctas(lambda: calls.append(1),
+                               {"ctas": "flash_fwd_kernel"})
+    assert got == {"ctas": 1024} and len(calls) == 2
+
+
+def test_launched_ctas_fails_when_three_traces_miss_the_kernel(smoke,
+                                                               monkeypatch):
+    _fake_profiler(monkeypatch, [[], [], [], [FWD_RECORD]])
+    with pytest.raises(AssertionError, match="3 traces hold no"):
+        smoke._launched_ctas(lambda: None, {"ctas": "flash_fwd_kernel"})
