@@ -43,8 +43,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    rows exactly 0. Flash forward: the CPU suite's cases, the main-path
    prefill (Hq 32, Hkv 8, Sq = Sk = 512, D 128, causal, left padding), a
    shape past the TPU's 4 MB whole-K/V line (Sq = Sk = 16384), window
-   cases and a 528-row continuation; lse within 1e-3 where a row sees a
-   key, and <= -1e29 with O = 0 where it sees none. Paged decode: the CPU
+   cases, a 528-row continuation, head dims 64 and 256 and GQA groups of 1
+   and 8; lse within 1e-3 where a row sees a key, and <= -1e29 with O = 0
+   where it sees none; each case run twice, its O and lse equal bit for
+   bit. Paged decode: the CPU
    suite's layouts and the main-path decode (8 slots, lengths 8..576),
    an idle slot and a stale length. Dense decode: the CPU suite's layouts
    and the main-path decode (8 slots, C 1024, lengths 8..576), a mask with
@@ -66,8 +68,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    a per-slot batched view, with ``enable_gqa`` for the flash and decode
    kernels, over ``cache[:, :, :max_len]`` for the dense decode kernel),
    beside the least time the card could take (bytes over 3.35 TB/s, FLOPs
-   of the visible pairs over 989 TFLOP/s); the flash forward also at the
-   training shape against SDPA with ``is_causal``; the backward kernels
+   of the visible pairs over 989 TFLOP/s); the flash forward at the
+   main-path prefill, a 528-row continuation, the training shape and
+   S 16384, against SDPA with ``is_causal`` wherever that states the
+   case's visibility (square, causal, q_offset 0, no window, no mask),
+   else with the visibility as a boolean mask, and with the CTAs its
+   launch ran, read from a profiler trace; the backward kernels
    at the training shape, each alone (dK/dV in three rounds taken in
    turns with the SDPA backward), and together with delta and padding
    beside one SDPA backward (flash backend, ``enable_gqa``; dq, dk and dv
@@ -1506,14 +1512,15 @@ def _trace(engine, prompts, kernels: dict) -> dict:
     return out
 
 
-def _launched_ctas(fn, kernels: dict, tries: int = 3) -> dict:
+def _launched_ctas(fn, kernels: dict) -> dict:
     """Run ``fn`` once under ``torch.profiler`` (card activity only) and
     read from the trace's kernel records the CTAs, the product of the
     launch grid, that each of ``kernels``' ({label: name substring})
     kernels launched. The profiler now and then drops a kernel's record
-    from a trace: ``fn`` is then traced again, up to ``tries`` times."""
+    from a trace: ``fn`` is then traced again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
+    tries = 3
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
