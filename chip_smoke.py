@@ -19,7 +19,8 @@ every kernel's launch count set to 0 just before it and read just after:
   decode steps run the dense decode kernel of ``csrc/paged_attention.cu``,
   each once per layer;
 - training, ``models/train.py``'s ``make_train_step`` (remat "full", loss
-  chunk 512, AdamW) at B 1, S 2048, whose every step runs the flash
+  chunk 512, AdamW) at B 1, S 2048, of ``llama-3-8b`` (head dim 128) and
+  then ``gemma-2b`` (head dim 256), whose every step runs the flash
   forward kernel twice per layer (forward and the remat recompute) and
   the dQ and dK/dV kernels of ``csrc/flash_attention_bwd.cu`` once each
   (dK/dV: the per-q-head kernel and its group sum, one wrapper call).
@@ -56,11 +57,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    a group of 8 q heads per kv head with a q_offset, and a group of 1
    with left-padded keys), the training shape (Hq 32, Hkv 8, S 2048,
    D 128, causal), a window with a q_offset, a left-padded mask, rows
-   that see no key and head dim 64; each of dq, dk and dv held to
+   that see no key and head dim 64, and at head dim 256 gemma-2b's
+   training shape (Hq 8, Hkv 1, S 2048, causal), its heads with a
+   q_offset, a left-padded mask with a window and rows that see no key;
+   each of dq, dk and dv held to
    ``BWD_GATES`` (max error over max |ref| and a per-(row, head) norm
    gate, both 2^-6, derived where they are defined), with dq exactly 0 on
    rows that see no key and dk, dv exactly 0 on keys no row sees; and
-   each case run twice, its dk and dv equal bit for bit;
+   each case run twice, its dq, dk and dv equal bit for bit;
 4. timing — CUDA events at the main-path shapes (L2 flushed between
    launches; the median of each run of launches): each kernel, its plain
    version, and one library call (a
@@ -74,10 +78,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    case's visibility (square, causal, q_offset 0, no window, no mask),
    else with the visibility as a boolean mask, and with the CTAs its
    launch ran, read from a profiler trace; the backward kernels
-   at the training shape, each alone (dK/dV in three rounds taken in
-   turns with the SDPA backward), and together with delta and padding
-   beside one SDPA backward (flash backend, ``enable_gqa``; dq, dk and dv
-   in one call);
+   at llama-3-8b's and gemma-2b's training shapes, each alone (dQ, dK/dV
+   and the SDPA backward in three rounds taken in turns, with the CTAs
+   each launch ran), and together with delta and padding beside one SDPA
+   backward (flash backend with ``enable_gqa`` where it takes the shape;
+   dq, dk and dv in one call);
 5. engines — 16 prompts of 8..500 tokens, 64 new tokens each: the ragged
    engine with a bf16 and an int8 pool, where launches must equal
    ``ragged_steps × n_layers``; the alternating engine with a bf16 pool,
@@ -98,8 +103,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. HTTP — 4 concurrent ``/v1/completions`` (2 streamed) against the
    server over each bf16 engine; streamed tokens must equal the blocking
    response for the same prompt; then ``/stats`` and a clean stop;
-7. train — the serving model and engines are freed, then llama-3-8b at
-   full width and depth trains from random bf16 weights on batches of a
+7. train — the serving model and engines are freed, then llama-3-8b and
+   after it gemma-2b, each at full width and depth, train from random
+   bf16 weights on batches of a
    numpy corpus through the port's ``TokenLoader``: step 1's loss and
    grads with the kernels against plain attention (``impl="xla"``): loss
    and global grad norm within 2e-2 relative, layer 0's and the last
@@ -107,7 +113,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    exactly 2 × n_layers flash forward, n_layers dQ and n_layers dK/dV
    launches, after which the loss on step 1's batch must be finite and
    below step 1's. Peak memory and tokens/s are printed as a smoke run's,
-   not a benchmark's. Last, a ``tiny`` bf16 trainer state on the card
+   not a benchmark's. Last, once, a ``tiny`` bf16 trainer state on the card
    goes through save → ``restore_latest`` and must come back byte-equal.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and last
@@ -437,8 +443,11 @@ def flash_vs_plain():
 # (tests/test_torch_flash_backward.py: the first three, group 8 and group 1
 # with a mask), the training shape (llama-3-8b heads, S 2048, causal), a
 # window with a q_offset, a left-padded mask whose first 150 rows see no
-# key, and head dim 64.
+# key, and head dim 64; then head dim 256: gemma-2b's training shape (8 q
+# heads over 1 kv head, S 2048, causal), its heads with a q_offset, a
+# left-padded mask with a window, and rows that see no key.
 BWD_TRAIN = (1, 32, 8, 2048, 2048, True, 0, 0, None)
+BWD_GEMMA = (1, 8, 1, 2048, 2048, True, 0, 0, None)
 BWD_CASES = [
     ((1, 4, 2, 256, 384, True, 128, 120, None), 128, "gqa-window-q-offset"),
     ((2, 4, 2, 384, 384, True, 0, 0, (100, 300)), 128, "kv-mask-left-pad"),
@@ -449,6 +458,10 @@ BWD_CASES = [
     ((2, 8, 2, 300, 700, True, 400, 333, (0, 250)), 128, "window-q-offset"),
     ((1, 8, 2, 200, 200, True, 0, 0, (150,)), 128, "keyless-rows"),
     ((1, 8, 2, 200, 200, True, 0, 0, (30,)), 64, "d64"),
+    (BWD_GEMMA, 256, "gemma-2b-2048"),
+    ((1, 8, 1, 300, 576, True, 276, 0, None), 256, "d256-q-offset"),
+    ((2, 8, 1, 384, 384, True, 0, 200, (100, 300)), 256, "d256-mask-window"),
+    ((1, 8, 2, 200, 200, True, 0, 0, (150,)), 256, "d256-keyless-rows"),
 ]
 # Backward gates, each of dq, dk and dv against the plain version on the
 # same inputs kept in f32. The kernels round two operands to bf16 once
@@ -518,9 +531,10 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def check_bwd_repeat(grads, again, name: str) -> None:
-    """Kernel 7 twice on the same inputs must give dk and dv equal bit for
-    bit: each value is written once and its group summed in one order."""
-    for t, first, second in zip(("dk", "dv"), grads[1:], again[1:]):
+    """The backward twice on the same inputs must give dq, dk and dv equal
+    bit for bit: each value is written once, by one thread (dK and dV's
+    group summed in one order), and no sum depends on timing."""
+    for t, first, second in zip(("dq", "dk", "dv"), grads, again):
         check(_same_bits(first, second),
               f"flash bwd {name}: {t} differs between two runs on the same "
               "inputs")
@@ -529,7 +543,7 @@ def check_bwd_repeat(grads, again, name: str) -> None:
 def flash_bwd_vs_plain():
     """Phase 3, flash backward (kernels 6 and 7): returns {dq|dk|dv: {gate:
     the worst error, "abs": the worst absolute error}}. Each case also runs
-    twice: dk and dv must repeat bit for bit."""
+    twice: dq, dk and dv must repeat bit for bit."""
     worst = {n: dict.fromkeys(list(BWD_GATES) + ["abs"], 0.0)
              for n in ("dq", "dk", "dv")}
     for i, (shape, d, name) in enumerate(BWD_CASES):
@@ -976,28 +990,34 @@ def _bwd_bounds(case) -> dict:
 
 
 def _sdpa_backward_call(case):
-    """One SDPA backward over the same work: causal, ``enable_gqa``, dq,
-    dk and dv in one call, on the flash backend; where that backend
-    refuses GQA, over K/V repeated to the q heads (the repeat is set-up,
-    untimed, and its grads are summed back over each group for the check).
+    """One SDPA backward over the same work: causal, dq, dk and dv in one
+    call. It asks for the flash backend with ``enable_gqa``; where that is
+    refused, the flash backend over K/V repeated to the q heads (the repeat
+    is set-up, untimed, and its grads are summed back over each group for
+    the check); where that is refused too, whichever backend SDPA picks.
     Checked once against the plain version. Returns (call, backend)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     q, k, v, dout = (case[n].detach() for n in ("q", "k", "v", "dout"))
     group = q.shape[1] // k.shape[1]
-    backend = "flash, enable_gqa"
-    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+    qg = q.clone().requires_grad_()
+    attempts = (("flash, enable_gqa", [SDPBackend.FLASH_ATTENTION], False),
+                ("flash, K/V repeated", [SDPBackend.FLASH_ATTENTION], True),
+                ("SDPA's choice, K/V repeated", None, True))
+    for backend, backends, repeat in attempts:
+        kg, vg = ((x.repeat_interleave(group, dim=1) if repeat else x.clone())
+                  .detach().requires_grad_() for x in (k, v))
         try:
-            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                                 enable_gqa=True)
+            with (sdpa_kernel(backends) if backends
+                  else contextlib.nullcontext()):
+                out = F.scaled_dot_product_attention(
+                    qg, kg, vg, is_causal=True, enable_gqa=not repeat)
+            break
         except RuntimeError as err:
-            log(f"  SDPA flash backend refused GQA ({str(err)[:80]}); "
-                "timing it over repeated K/V")
-            backend = "flash, K/V repeated"
-            kg, vg = (x.repeat_interleave(group, dim=1).detach()
-                      .requires_grad_() for x in (k, v))
-            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            log(f"  SDPA refused {backend} ({str(err)[:80]})")
+    else:
+        raise AssertionError("SDPA ran the backward on no backend")
+    log(f"  SDPA backward yardstick: {backend}")
 
     def call():
         return torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True)
@@ -1015,59 +1035,96 @@ def _sdpa_backward_call(case):
 
 
 BWD_ROUNDS = 3
+BWD_DQ_DESIGN = (
+    "wgmma, one warpgroup per (64-row q tile, q head, batch row), q tile "
+    "slowest and the last first; Q and dO held, 64-key K/V tiles in two "
+    "cp.async stages (128-byte swizzle); S = Q·Kᵀ and dP = dO·Vᵀ SS "
+    "m64n64k16 (two 32-key halves of m64n32 at D 256), dS from registers "
+    "into dQ += dS·K RS with K MN-major")
+BWD_DKV_DESIGN = (
+    "wgmma, one warpgroup per (64-key tile, q head, batch row; at D 256 "
+    "also per 128-column half, recomputing Sᵀ and dPᵀ), key tile slowest; "
+    "f32 shares of dK/dV, then the group sum")
+# What the kernels line reports of each backward kernel at a timed shape.
+BWD_ROW_KEYS = ("ms", "ms_rounds", "spread", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "bwd_total_ms", "library_backend",
+                "library_rounds_ms", "library_spread", "ctas")
+# The backward's timed shapes: llama-3-8b's training attention (32 launches
+# of each kernel a step) and gemma-2b's (18 a step).
+BWD_TIMED = (("train-2048", BWD_TRAIN, 128), ("gemma-2b-2048", BWD_GEMMA, 256))
 
 
-def timing_flash_bwd():
-    """Phase 4, flash backward at the training shape: each kernel alone on
-    prepared inputs, the whole wrapper (delta, padding and both kernels),
-    the plain version and one SDPA backward, beside each kernel's bound.
-    Kernel 7 and the SDPA backward are timed in BWD_ROUNDS rounds, taken in
-    turns; each reports the median of its rounds, and the SDPA backward
-    its spread ((max − min) / median) too."""
-    case = _bwd_case(BWD_TRAIN, 128, seed=900)
+def _spread(rounds) -> float:
+    return (max(rounds) - min(rounds)) / float(np.median(rounds))
+
+
+def _timing_flash_bwd_case(shape, d) -> dict:
+    """{"dq" | "dkv": row} at one shape: each kernel alone on prepared
+    inputs, dQ, dK/dV and the SDPA backward in BWD_ROUNDS rounds taken in
+    turns (each the median of its rounds, with its spread (max − min) /
+    median), the whole wrapper (delta, padding and both kernels) and the
+    plain version, beside each kernel's bound and the CTAs of each launch
+    read from profiler grids."""
+    case = _bwd_case(shape, d, seed=900)
     *inputs, ints = attn_mod._bwd_inputs(
         **{n: case[n] for n in ("q", "k", "v", "out", "lse", "dout",
                                 "causal", "q_offset", "window", "kv_mask")})
     dq, dk, dv = (torch.empty_like(case[n]) for n in ("q", "k", "v"))
     call, backend = _sdpa_backward_call(case)
     saved = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
-    dq_ms = _time_ms(lambda: flash_bwd_dq(*inputs, dq, ints))
-    dkv_rounds, library_rounds = [], []
+    rounds = {"dq": [], "dkv": [], "library": []}
     for _ in range(BWD_ROUNDS):
-        dkv_rounds.append(_time_ms(lambda: flash_bwd_dkv(*inputs, dk, dv,
-                                                         ints)))
-        library_rounds.append(_time_ms(call))
+        rounds["dq"].append(_time_ms(lambda: flash_bwd_dq(*inputs, dq, ints)))
+        rounds["dkv"].append(_time_ms(lambda: flash_bwd_dkv(*inputs, dk, dv,
+                                                            ints)))
+        rounds["library"].append(_time_ms(call))
     total_ms = _time_ms(lambda: flash_attention_bwd(**case))
-    ctas = _launched_ctas(lambda: flash_bwd_dkv(*inputs, dk, dv, ints), {
-        "ctas": "flash_bwd_dkv_kernel",
-        "group_sum_ctas": "flash_bwd_group_sum_kernel"})
+    ctas = {"dq": _launched_ctas(lambda: flash_bwd_dq(*inputs, dq, ints),
+                                 {"ctas": "flash_bwd_dq_kernel"}),
+            "dkv": _launched_ctas(lambda: flash_bwd_dkv(*inputs, dk, dv, ints), {
+                "ctas": "flash_bwd_dkv_kernel",
+                "group_sum_ctas": "flash_bwd_group_sum_kernel"})}
     flash_bwd_dq.launches, flash_bwd_dkv.launches = saved  # no main path
     plain_ms = _time_ms(lambda: flash_attention_bwd_reference(**case),
                         iters=5)
-    dkv_ms = float(np.median(dkv_rounds))
-    library_ms = float(np.median(library_rounds))
-    spread = (max(library_rounds) - min(library_rounds)) / library_ms
+    med = {k: float(np.median(r)) for k, r in rounds.items()}
     bounds = _bwd_bounds(case)
     rows = {}
-    for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+    for name in ("dq", "dkv"):
         bound_ms, bound_by, work = bounds[name]
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          bwd_total_ms=total_ms, library_backend=backend,
-                          library_rounds_ms=library_rounds,
-                          library_spread=spread, **work)
-        log(f"  flash bwd {name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; {work['bytes']} B, {work['flops']} FLOP)")
-    rows["dkv"].update(ms_rounds=dkv_rounds, **ctas)
-    log(f"  flash bwd dkv launched {ctas['ctas']} CTAs, then "
-        f"{ctas['group_sum_ctas']} for the group sum (profiler grids)")
-    log(f"  flash bwd dkv rounds: {[round(x, 4) for x in dkv_rounds]} ms; "
-        f"SDPA backward rounds: {[round(x, 4) for x in library_rounds]} ms, "
-        f"median {library_ms:.4f} ms, spread {spread:.3%}")
+        rows[name] = dict(ms=med[name], ms_rounds=rounds[name],
+                          spread=_spread(rounds[name]), plain_ms=plain_ms,
+                          library_ms=med["library"], bound_ms=bound_ms,
+                          bound_by=bound_by, bwd_total_ms=total_ms,
+                          library_backend=backend,
+                          library_rounds_ms=rounds["library"],
+                          library_spread=_spread(rounds["library"]),
+                          **ctas[name], **work)
+        log(f"  flash bwd {name}: kernel {med[name]:.4f} ms (rounds "
+            f"{[round(x, 4) for x in rounds[name]]}, spread "
+            f"{_spread(rounds[name]):.3%}; {ctas[name]['ctas']} CTAs), bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {work['bytes']} B, "
+            f"{work['flops']} FLOP)")
+    log(f"  flash bwd dkv's group sum launched "
+        f"{ctas['dkv']['group_sum_ctas']} CTAs (profiler grids)")
+    log(f"  SDPA backward rounds: "
+        f"{[round(x, 4) for x in rounds['library']]} ms, median "
+        f"{med['library']:.4f} ms, spread {_spread(rounds['library']):.3%}")
     log(f"  flash bwd: kernels 6 + 7 with delta and padding {total_ms:.4f} ms,"
         f" plain {plain_ms:.4f} ms, SDPA backward ({backend}) "
-        f"{library_ms:.4f} ms")
+        f"{med['library']:.4f} ms")
     del case, inputs
+    return rows
+
+
+def timing_flash_bwd(names=None) -> dict:
+    """Phase 4, flash backward: {shape name: {"dq" | "dkv": row}} for the
+    BWD_TIMED shapes (all, or those in ``names``)."""
+    rows = {}
+    for name, shape, d in BWD_TIMED:
+        if names is None or name in names:
+            log(f"  flash bwd at {name} (D {d}):")
+            rows[name] = _timing_flash_bwd_case(shape, d)
     return rows
 
 
@@ -1718,6 +1775,22 @@ def train_phase(cfg):
     del state, params, batches
     gc.collect()
     torch.cuda.empty_cache()
+    return launched
+
+
+# The models phase 7 trains, one after the other: llama-3-8b (head dim 128)
+# and gemma-2b (head dim 256, 8 q heads over 1 kv head, tied embeddings).
+TRAIN_MODELS = ("llama-3-8b", "gemma-2b")
+
+
+def train_phases(cfgs: dict) -> dict:
+    """Phase 7: ``train_phase`` for each {name: config}, each model freed
+    before the next is made, then one checkpoint round trip. Returns
+    {name: launches}."""
+    launched = {}
+    for name, cfg in cfgs.items():
+        log(f"  {name}: full width and depth, random weights")
+        launched[name] = train_phase(cfg)
     checkpoint_round_trip()
     return launched
 
@@ -1830,7 +1903,7 @@ def main() -> int:
     http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
-    log("[7/7] train: llama-3-8b, full width and depth, random weights")
+    log(f"[7/7] train: {', '.join(TRAIN_MODELS)}")
     t0 = time.monotonic()
     # The serving model, engines and pools go first: training needs ~66 GB.
     del params, engine, alt_engine, cont_engine
@@ -1838,7 +1911,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
         "after the serving phases")
-    train_launches = train_phase(cfg)
+    trained = train_phases({name: L.LLAMA_CONFIGS[name]
+                            for name in TRAIN_MODELS})
+    train_launches = trained["llama-3-8b"]
     phases["train"] = time.monotonic() - t0
 
     def entry(name, source, replaces, launched, errs, timed, **extra):
@@ -1864,6 +1939,7 @@ def main() -> int:
               also_replaces="kubeflow_tpu/ops/attention.py:547",
               launches_continuous=cont_launches["flash"],
               launches_train=train_launches["flash"],
+              launches_train_gemma_2b=trained["gemma-2b"]["flash"],
               max_lse_err=flash_errors["lse"],
               design=FLASH_DESIGN, ctas=flash_times["main-prefill"]["ctas"],
               **{name.replace("-", "_"): {k: flash_times[name][k] for k in (
@@ -1882,27 +1958,26 @@ def main() -> int:
         {"name": name, "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": replaces, "launches": train_launches[count],
+         "launches_gemma_2b": trained["gemma-2b"][count],
          "max_abs_err": max(bwd_errors[t]["abs"] for t in grads),
          **{f"max_{gate}_err": max(bwd_errors[t][gate] for t in grads)
             for gate in BWD_GATES},
-         **{k: bwd_times[key][k] for k in (
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "bwd_total_ms", "library_backend", "library_rounds_ms",
-             "library_spread")},
+         **{k: bwd_times["train-2048"][key][k] for k in BWD_ROW_KEYS},
+         "gemma_2b_2048": {k: bwd_times["gemma-2b-2048"][key][k]
+                           for k in BWD_ROW_KEYS},
+         "head_dims": [64, 128, 256],
          "plain_and_library_cover": "dq, dk and dv in one call", **extra}
         for name, replaces, count, key, grads, extra in (
             ("flash_attention_bwd_dq", "kubeflow_tpu/ops/attention.py:772",
-             "bwd_dq", "dq", ("dq",), {}),
+             "bwd_dq", "dq", ("dq",), {"design": BWD_DQ_DESIGN}),
             ("flash_attention_bwd_dkv", "kubeflow_tpu/ops/attention.py:841",
              "bwd_dkv", "dkv", ("dk", "dv"), {
-                 "design": "wgmma, one warpgroup per (64-key tile, q "
-                           "head, batch row), key tile slowest; f32 shares "
-                           "of dK/dV, then the group sum",
+                 "design": BWD_DKV_DESIGN,
                  "group_sum": "flash_bwd_group_sum_kernel: the G q-head "
                               "shares of each kv head added in the order "
                               "g = 0..G-1; dk, dv bit-equal on repeats",
-                 **{k: bwd_times["dkv"][k] for k in (
-                     "ctas", "group_sum_ctas", "ms_rounds")}}))
+                 "group_sum_ctas":
+                     bwd_times["train-2048"]["dkv"]["group_sum_ctas"]}))
     ]
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")

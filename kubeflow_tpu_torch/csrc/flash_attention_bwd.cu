@@ -14,34 +14,53 @@
 // position <= row + q_offset when causal, > row + q_offset − window when
 // window > 0, and mask[b, key] != 0 when a mask is given. The exponentials
 // run in exp2 units with lse brought to log2 units, as the forward's do.
+// Head dims 64, 128 and 256.
 //
 // What bounds it on this card: at the training shape (B 1, H 32, Hkv 8,
 // S 2048, D 128, causal) dq does 6·D FLOPs per visible (row, key) pair and
 // dk/dv 8·D, 5.2e10 and 6.9e10 FLOPs against ~60 MB and ~51 MB of inputs
 // and outputs: both are bound by operations (0.0521 and 0.0695 ms at
-// 989 TFLOP/s), so the products run on the tensor cores and every K/V (dq)
-// or Q/dO (dk/dv) byte loaded into shared memory feeds 64 rows or keys.
-// What the design does about it:
-// - dQ (kernel 6, replacing _bwd_dq_kernel): one CTA per (64-row query
-//   tile, q head, batch row), 4 warps of 16 rows; Q and dO stay in shared
-//   memory, 64-key K/V tiles stream through two cp.async stages, S = Q·Kᵀ
-//   and dP = dO·Vᵀ and dQ += dS·K on mma.sync m16n8k16 (bf16 in, f32
-//   accumulate), dQ in registers for the whole key loop and written once;
+// 989 TFLOP/s), so the products run on Hopper's warpgroup tensor-core
+// products (wgmma) and every K/V (dq) or Q/dO (dk/dv) byte loaded into
+// shared memory feeds 64 rows or keys. Both kernels keep their tiles in
+// the canonical 128-byte-swizzled layout of wgmma (column blocks of 64
+// values, the 16-byte chunk index XOR row % 8, applied by the cp.async
+// writes), which serves the K-major and the MN-major reads alike. The m64
+// accumulator fragment of one product is the register A fragment of the
+// next, so P and dS go from the scores to the updates without a trip
+// through shared memory. What the design does about it:
+// - dQ (kernel 6, replacing _bwd_dq_kernel, which sweeps q and key blocks
+//   in its grid with a VMEM accumulator): one CTA per (64-row query tile,
+//   q head, batch row), one warpgroup of 4 warps; the block order puts the
+//   q tile slowest and the last first, so under causal the longest CTAs
+//   start first and the short ones fill the SMs behind them. Q and dO sit
+//   in shared memory for the whole key loop; 64-key K/V tiles stream
+//   through two cp.async stages. S = Q·Kᵀ and dP = dO·Vᵀ are wgmma with
+//   both operands in shared memory, K-major over D; dS = P ⊙ (dP − delta)
+//   is made on the accumulator fragments and packed to bf16 into the A
+//   fragments of dQ += dS·K, wgmma m64nDk16 (two m64n128 at D 256) whose
+//   B, K, is read MN-major (keys the reduction) from the same tile. dQ
+//   stays in registers (64 f32 a thread at D 128, 128 at D 256) and is
+//   scaled and rounded to bf16 once. At D 256 each key tile goes in two
+//   halves of 32 keys, so S and dP take 16 + 16 registers beside dQ's 128;
+//   at D 64 and 128 a tile is one step of 64 keys;
 // - dK/dV (kernel 7, replacing _bwd_dkv_kernel, which sweeps each kv
 //   head's GQA group in its grid into one VMEM scratch): one CTA per
-//   (64-key tile, q head, batch row), one warpgroup of 4 warps. K and V
-//   stay in shared memory; the CTA walks only its own q head's q tiles
-//   that can see the key tile, Q/dO/lse/delta streaming through two
-//   cp.async stages. K, V, Q and dO sit in the canonical 128-byte-swizzled
-//   layout of wgmma (column blocks of 64 values, the 16-byte chunk index
-//   XOR row % 8, applied by the cp.async writes). Each 64-row q tile goes
-//   in two halves of 32 rows: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as wgmma
-//   m64n32k16 (A = K or V, B = the Q or dO rows, both K-major over D);
-//   Pᵀ and dSᵀ are made in registers and packed straight into the A
-//   fragments of dV += Pᵀ·dO and dK += dSᵀ·Q, wgmma m64n128k16 (n64 at
-//   D 64) whose B, dO or Q, is read MN-major from the same tiles. The
-//   halves keep Sᵀ and dPᵀ at 32 f32 registers a thread beside dK and
-//   dV's 128, so nothing spills.
+//   (64-key tile, q head, batch row, and at D 256 half of D), one
+//   warpgroup. K and V stay in shared memory; the CTA walks only its own q
+//   head's q tiles that can see the key tile, Q/dO/lse/delta streaming
+//   through two cp.async stages. Each 64-row q tile goes in two halves of
+//   32 rows: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as wgmma m64n32k16 (A = K or V, B =
+//   the Q or dO rows, both K-major over D); Pᵀ and dSᵀ are made in
+//   registers and packed straight into the A fragments of dV += Pᵀ·dO and
+//   dK += dSᵀ·Q, wgmma m64n128k16 (n64 at D 64) whose B, dO or Q, is read
+//   MN-major from the same tiles. The halves keep Sᵀ and dPᵀ at 32 f32
+//   registers a thread beside dK and dV's 128, so nothing spills. dK and
+//   dV of 64 keys × 256 would take 256 f32 a thread: at D 256 each CTA
+//   computes Sᵀ and dPᵀ over the whole head dim but accumulates only its
+//   own 128 columns of dK and dV, so its registers are D 128's, at the
+//   cost of computing Sᵀ and dPᵀ in both halves (12·D FLOPs a pair instead
+//   of 8·D).
 //   Splitting the group over CTAs shortens the longest CTA fourfold (a
 //   causal key tile 0 walks 32 q tiles, not 4 × 32), and the block index
 //   puts the key tile slowest, so every head of the lowest key tiles (the
@@ -53,16 +72,18 @@
 //   summed in one order: no atomics, and repeats are bit-equal; keys no
 //   row sees get exact zeros (their shares are all 0);
 // - tiles that causal or window visibility rules out are never loaded
-//   (each loop runs over the visible range); in dQ a warp skips a key tile
-//   none of its rows can see, in dK/dV a warp whose keys no row of the q
-//   tile sees takes P = dS = 0 without the exponentials (the products run
-//   on the whole warpgroup); tiles wholly visible to a warp skip the
-//   per-element mask.
+//   (each loop runs over the visible range, so the warpgroup issues every
+//   product); a warp whose rows (dQ) or keys (dK/dV) see none of a step
+//   takes P = dS = 0 without the exponentials, and steps wholly visible to
+//   a warp skip the per-element mask.
+// Registers are the hard limit: the compiler hoists copy addresses and
+// wgmma descriptors out of the loops into registers the accumulators need.
+// So each thread copies one 16-byte chunk of every 8th row (addresses one
+// base plus constants), descriptors are rebuilt each step from an address
+// the compiler cannot see through (`opaque`), and `fence_regs` pins the
+// accumulators around each product.
 // P and dS are rounded to bf16 once each, as operands of the products;
 // p itself stays in f32 for ds, as in the JAX kernels.
-// Later work: the dQ redesign (still mma.sync), TMA, and head_dim 256
-// (dK and dV of 64 keys × 256 do not fit a warpgroup's registers: it
-// needs D split over warpgroups or two passes).
 //
 // Any Sq, Sk >= 1: the wrapper pads lse (with NEG_INF) and delta to
 // Sq_pad, a multiple of 64, and the mask to (B, Sk_pad) bytes, Sk_pad a
@@ -83,8 +104,6 @@ using kftt::cp_async_commit;
 using kftt::cp_async_wait;
 using kftt::fence_async_shared;
 using kftt::fence_regs;
-using kftt::ld32;
-using kftt::mma_bf16;
 using kftt::opaque;
 using kftt::pack_bf16;
 using kftt::sw128_desc;
@@ -94,12 +113,12 @@ using kftt::wgmma_fence;
 using kftt::wgmma_rs_m64n128;
 using kftt::wgmma_rs_m64n64;
 using kftt::wgmma_ss_m64n32;
+using kftt::wgmma_ss_m64n64;
 using kftt::wgmma_wait;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // query rows of a tile
-constexpr int kKeys = 64;           // keys of a tile
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kRows = 64;      // query rows of a tile
+constexpr int kKeys = 64;      // keys of a tile
 constexpr size_t kMaxSmem = 232448;
 constexpr float kNegInf = -1e30f;  // lse of a row with no visible key
 constexpr float kLog2e = 1.4426950408889634f;
@@ -111,45 +130,104 @@ enum : int {
   kErrShape = -4,
 };
 
-// The ldmatrix.x2.trans B fragment of a row-major [k][n] bf16 tile: rows
-// k0..k0+15 from the lane addresses (lanes 0..15; 16..31 repeat them),
-// columns n..n+7. `lane_row` is the shared address of this lane's row.
-__device__ __forceinline__ void ldmatrix_trans(uint32_t lane_row, int offset,
-                                               uint32_t& b0, uint32_t& b1) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b0), "=r"(b1)
-      : "r"(lane_row + (uint32_t)(offset * 2)));
+// K-major tiles: 8 rows of 128 B per stride step (LBO unused).
+__device__ __forceinline__ uint64_t k_major(uint32_t addr) {
+  return sw128_desc(opaque(addr), 16, 1024);
+}
+// MN-major tiles: 8 rows of 128 B per stride step, column blocks of 64
+// values 64 · 128 B apart.
+__device__ __forceinline__ uint64_t mn_major(uint32_t addr) {
+  return sw128_desc(opaque(addr), 64 * 128, 1024);
 }
 
-// The A fragment of rows r..r+15 of a row-major bf16 tile with row stride
-// RS, k-step kk (columns kk*16..+15); `base` points at row r + gq, column
-// tq*2.
-template <int RS>
-__device__ __forceinline__ void load_a(const __nv_bfloat16* base, int kk,
-                                       uint32_t* a) {
-  a[0] = ld32(base + kk * 16);
-  a[1] = ld32(base + 8 * RS + kk * 16);
-  a[2] = ld32(base + kk * 16 + 8);
-  a[3] = ld32(base + 8 * RS + kk * 16 + 8);
+// S (+)= A·Bᵀ over the head dim for 64 rows of A and N rows of B (32 or
+// 64), both K-major 64-row tiles; step kk covers D values 16kk … 16kk + 15,
+// 32 bytes into a 128-byte row, or the next column block every 4 steps.
+template <int D, int N>
+__device__ __forceinline__ void scores(float* s, uint64_t a_desc,
+                                       uint64_t b_desc) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = ((kk / 4) * (64 * 128) + (kk % 4) * 32) >> 4;
+    if constexpr (N == 64) wgmma_ss_m64n64(s, a_desc + off, b_desc + off, kk > 0);
+    else wgmma_ss_m64n32(s, a_desc + off, b_desc + off, kk > 0);
+  }
 }
+
+// d += A·B over R rows of B (the reduction; R / 16 steps): A the packed
+// fragments a[ks] of 16 rows each, B those rows of a tile read MN-major
+// (N columns from the descriptor's column block on), step ks starting 16
+// rows of 128 B further. N = 256 is two n128 products on the halves, two
+// column blocks (2 · 64 · 128 B) apart.
+template <int N, int R>
+__device__ __forceinline__ void update(float* d, uint32_t (*a)[4],
+                                       uint64_t b_desc) {
+#pragma unroll
+  for (int ks = 0; ks < R / 16; ++ks) {
+    const uint64_t desc = b_desc + ((ks * 16 * 128) >> 4);
+    if constexpr (N == 64) {
+      wgmma_rs_m64n64(d, a[ks], desc);
+    } else {
+      wgmma_rs_m64n128(d, a[ks], desc);
+      if constexpr (N == 256)
+        wgmma_rs_m64n128(d + 64, a[ks], desc + ((2 * 64 * 128) >> 4));
+    }
+  }
+}
+
+// A thread's share of the cp.async copy of a [64][D] bf16 tile into the
+// 128-byte-swizzled layout: chunk c_own (and at D 256 also chunk c_own +
+// 16, two column blocks further) of every kRowStep-th row from r_own.
+// kRowStep is a multiple of 8, so the chunk lands at the same swizzled
+// place in every row it copies and each address is a base plus constants.
+template <int D>
+struct TileCopy {
+  static constexpr int kChunks = D / 8 < 16 ? D / 8 : 16;
+  static constexpr int kPasses = D / 8 / kChunks;       // 2 at D 256, else 1
+  static constexpr int kRowStep = kThreads / kChunks;  // 16 at D 64, else 8
+  const int r_own, c_own;
+  const uint32_t sw_own;
+  __device__ explicit TileCopy(int tid)
+      : r_own(tid / kChunks),
+        c_own(tid % kChunks),
+        sw_own(sw128_offset<64>(tid / kChunks, tid % kChunks)) {}
+  // Rows row0 … row0 + 63 of src (rows of D values; zeros from row
+  // `rows` on) into the tile at dst.
+  __device__ __forceinline__ void copy(unsigned char* dst,
+                                       const __nv_bfloat16* src, int row0,
+                                       int rows) const {
+    const int r = row0 + r_own;
+    const size_t at = (size_t)r * D + c_own * 8;
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+#pragma unroll
+      for (int i = 0; i < 64 / kRowStep; ++i) {
+        const bool live = r + i * kRowStep < rows;
+        cp_async16(dst + sw_own + p * 2 * 64 * 128 + i * kRowStep * 128,
+                   src + (live ? at + (size_t)i * kRowStep * D + p * 128 : 0),
+                   live);
+      }
+    }
+  }
+};
 
 // ----------------------------------------------------------------------------
-// Kernel 6: dQ.
+// Kernel 6: dQ, on wgmma.
 
-// Byte offsets into dynamic shared memory (bf16 rows padded by 8):
-//   q, do: [kRows][D + 8] bf16 each
-//   kv:    [stage][K|V][kKeys][D + 8] bf16, two stages
-//   mask:  [stage][kKeys] bytes
+// Byte offsets from a 1024-byte-aligned base in dynamic shared memory:
+//   q, dout: [kRows][D] bf16 each, 128-byte swizzled
+//   kv:      [stage][K|V][kKeys][D] bf16, two stages, 128-byte swizzled
+//   mask:    [stage][kKeys] bytes
+// `total` adds 1024 bytes for aligning the base.
 struct DqSmem {
   size_t q, dout, kv, mask, total;
   __host__ __device__ explicit DqSmem(int d) {
-    const size_t padded = (size_t)(d + 8) * 2;
+    const size_t tile = (size_t)64 * d * 2;
     q = 0;
-    dout = q + kRows * padded;
-    kv = dout + kRows * padded;
-    mask = kv + 2 * 2 * kKeys * padded;
-    total = mask + 2 * kKeys;
+    dout = q + tile;
+    kv = dout + tile;
+    mask = kv + 4 * tile;
+    total = mask + 2 * kKeys + 1024;
   }
 };
 
@@ -158,21 +236,24 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dq, int h,
-    int hkv, int sq, int sk, int sk_pad, int sq_pad, int causal, int q_offset,
-    int window, float scale) {
-  constexpr int RS = D + 8;
-  constexpr int ND = D / 8;   // n-tiles of dQ
-  constexpr int KD = D / 16;  // k-steps over the head dim
-  constexpr int kRowChunks = D / 8;
-  constexpr int kTileChunks = 2 * kKeys * kRowChunks;
-  constexpr int kIssueIters = (kTileChunks + kThreads - 1) / kThreads;
-  constexpr int NT = kKeys / 8;   // n-tiles of S per key tile
-  constexpr int KS = kKeys / 16;  // k-steps of dS·K per key tile
+    const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dq,
+    int b_count, int h, int hkv, int sq, int sk, int sk_pad, int sq_pad,
+    int causal, int q_offset, int window, float scale) {
+  constexpr int kTile = 64 * D * 2;  // bytes of a 64-row tile
+  constexpr int ND = D / 8;          // n-tiles of dQ
+  // Keys of one step: at D 256 a tile goes in two halves, so S and dP
+  // take 16 f32 registers each beside dQ's 128.
+  constexpr int KS = D == 256 ? 32 : 64;
+  constexpr int NT = KS / 8;  // n-tiles of S in a step
 
-  const int q0 = blockIdx.x * kRows;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
+  // The q tile slowest in the block order and the last (under causal the
+  // longest) first; the heads of one kv head stay neighbours, reading the
+  // same K/V from L2.
+  const int lin =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int q0 = (gridDim.x - 1 - lin / (h * b_count)) * kRows;
+  const int b = lin % (h * b_count) / h;
+  const int head = lin % h;
   const int kv_head = head / (h / hkv);
   const int tid = threadIdx.x;
   const float scale_log2 = scale * kLog2e;
@@ -195,72 +276,58 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const DqSmem lay(D);
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.q);
-  __nv_bfloat16* do_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.dout);
-  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.kv);
-  uint8_t* mask_s = smem_raw + lay.mask;
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t base_s = raw + (uint32_t)(base - smem_raw);
+  const uint32_t q_s = base_s + lay.q;
+  const uint32_t do_s = base_s + lay.dout;
+  const uint8_t* mask_s = base + lay.mask;
+  const TileCopy<D> tile(tid);
 
+  // K, V and the mask bytes of key tile kt into stage st, one group.
   auto issue = [&](int kt, int st) {
     const int k0 = kt * kKeys;
-#pragma unroll
-    for (int i = 0; i < kIssueIters; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < kTileChunks) {
-        const int is_v = e >= kKeys * kRowChunks;
-        const int ee = e - is_v * kKeys * kRowChunks;
-        const int j = ee / kRowChunks;
-        const int c = (ee % kRowChunks) * 8;
-        const int key = k0 + j;
-        const bool live = key < sk;
-        const __nv_bfloat16* src =
-            (is_v ? v_bh : k_bh) + (live ? (size_t)key * D + c : 0);
-        cp_async16(kv_s + ((st * 2 + is_v) * kKeys + j) * RS + c, src, live);
-      }
-    }
+    unsigned char* dst = base + lay.kv + st * 2 * kTile;
+    tile.copy(dst, k_bh, k0, sk);
+    tile.copy(dst + kTile, v_bh, k0, sk);
     if (mask_b != nullptr && tid < kKeys / 16)
-      cp_async16(mask_s + st * kKeys + tid * 16, mask_b + k0 + tid * 16,
-                 true);
+      cp_async16(base + lay.mask + st * kKeys + tid * 16,
+                 mask_b + k0 + tid * 16, true);
     cp_async_commit();
   };
 
-  // Q and dO rows; rows past Sq are zero. They join the first tile's group.
-  for (int e = tid; e < 2 * kRows * kRowChunks; e += kThreads) {
-    const int is_do = e >= kRows * kRowChunks;
-    const int ee = e - is_do * kRows * kRowChunks;
-    const int r = ee / kRowChunks;
-    const int c = (ee % kRowChunks) * 8;
-    const bool live = q0 + r < sq;
-    const __nv_bfloat16* src = is_do ? do_bh : q_bh;
-    cp_async16((is_do ? do_s : q_s) + r * RS + c,
-               live ? src + (size_t)(q0 + r) * D + c : src, live);
+  // Q and dO rows (rows past Sq are zero) join the first tile's group. A
+  // CTA whose rows see no key loads nothing and writes zeros.
+  if (nkt > 0) {
+    tile.copy(base + lay.q, q_bh, q0, sq);
+    tile.copy(base + lay.dout, do_bh, q0, sq);
+    issue(kt_lo, 0);
   }
-  if (nkt > 0) issue(kt_lo, 0);
-  else cp_async_commit();
 
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int gq = lane / 4;
   const int tq = lane % 4;
-  const int ra = warp * 16 + gq;
-  const int rb = ra + 8;
+  // This thread's rows a and b: the rows of the wgmma accumulator
+  // fragment (warp w holds rows 16w … 16w + 15, as mma.sync's C).
+  const int ra = warp * 16 + lane / 4;
   const int qpos_a = q0 + ra + q_offset;
-  const int qpos_b = q0 + rb + q_offset;
-  const int wpos_lo = q0 + warp * 16 + q_offset;
-  const int wpos_hi = wpos_lo + 15;
-  const bool warp_live = warp * 16 < rows_here;
+  const int qpos_b = qpos_a + 8;
+  const int wpos_lo = q0 + warp * 16 + q_offset;  // the warp's first and
+  const int wpos_hi = wpos_lo + 15;               // last positions
   // Rows a and b's lse in log2 units, delta, and whether the row sees a
-  // key at all (q0 + rb < Sq_pad: the padded rows hold NEG_INF and 0).
+  // key at all (rows up to Sq_pad exist: the pad holds NEG_INF and 0).
   const float* lse_bh = lse + bh * sq_pad;
   const float* delta_bh = delta + bh * sq_pad;
-  const float lse_a = lse_bh[q0 + ra], lse_b = lse_bh[q0 + rb];
+  const float lse_a = lse_bh[q0 + ra], lse_b = lse_bh[q0 + ra + 8];
   const bool live_a = lse_a > kNegInf * 0.5f;
   const bool live_b = lse_b > kNegInf * 0.5f;
   const float lse2_a = lse_a * kLog2e, lse2_b = lse_b * kLog2e;
-  const float delta_a = delta_bh[q0 + ra], delta_b = delta_bh[q0 + rb];
+  const float delta_a = delta_bh[q0 + ra], delta_b = delta_bh[q0 + ra + 8];
 
-  float acc[ND][4];
+  float acc[ND * 4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < ND * 4; ++i) acc[i] = 0.f;
 
   for (int i = 0; i < nkt; ++i) {
     const int st = i & 1;
@@ -271,51 +338,46 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     } else {
       cp_async_wait<0>();
     }
+    fence_async_shared();
     __syncthreads();
 
-    const bool dead = !warp_live || (causal && k0 > wpos_hi) ||
-                      (window > 0 && k0 + kKeys - 1 <= wpos_lo - window);
-    const bool interior = mask_b == nullptr && k0 + kKeys <= sk &&
-                          (!causal || k0 + kKeys - 1 <= wpos_lo) &&
-                          (window <= 0 || k0 > wpos_hi - window);
-    if (!dead) {
-      const __nv_bfloat16* k_t = kv_s + st * 2 * kKeys * RS;
-      const __nv_bfloat16* v_t = k_t + kKeys * RS;
-      const uint8_t* mask_t = mask_s + st * kKeys;
-      // S = Q·Kᵀ and dP = dO·Vᵀ for this warp's 16 rows × 64 keys.
-      float sc[NT][4], dp[NT][4];
+    const uint32_t k_t = base_s + lay.kv + st * 2 * kTile;
+    const uint32_t v_t = k_t + kTile;
+    const uint8_t* mask_t = mask_s + st * kKeys;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-      }
-      const __nv_bfloat16* qa = q_s + ra * RS + tq * 2;
-      const __nv_bfloat16* da = do_s + ra * RS + tq * 2;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a_q[4], a_do[4];
-        load_a<RS>(qa, kk, a_q);
-        load_a<RS>(da, kk, a_do);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int off = (nt * 8 + gq) * RS + kk * 16 + tq * 2;
-          mma_bf16(sc[nt], a_q, ld32(k_t + off), ld32(k_t + off + 8));
-          mma_bf16(dp[nt], a_do, ld32(v_t + off), ld32(v_t + off + 8));
-        }
-      }
+    for (int half = 0; half < kKeys / KS; ++half) {
+      const uint32_t keys = half * KS * 128;  // bytes into each key tile
+      const int s0 = k0 + half * KS;          // the step's first key
+      // S = Q·Kᵀ and dP = dO·Vᵀ, 64 rows × KS keys.
+      float s[NT * 4], dp[NT * 4];
+      wgmma_fence();
+      scores<D, KS>(s, k_major(q_s), k_major(k_t + keys));
+      scores<D, KS>(dp, k_major(do_s), k_major(v_t + keys));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<NT * 4>(s);
+      fence_regs<NT * 4>(dp);
+
+      // A warp none of whose rows sees a key of the step takes dS = 0;
+      // one whose rows see all of them skips the per-element mask.
+      const bool dead = s0 >= sk || (causal && s0 > wpos_hi) ||
+                        (window > 0 && s0 + KS - 1 <= wpos_lo - window);
+      const bool interior = mask_b == nullptr && s0 + KS <= sk &&
+                            (!causal || s0 + KS - 1 <= wpos_lo) &&
+                            (window <= 0 || s0 > wpos_hi - window);
       // dS = P ⊙ (dP − delta), packed as the A fragments of dS·K: element
       // (nt, e) is row a for e < 2, row b otherwise, at key
-      // k0 + nt*8 + tq*2 + (e & 1).
-      uint32_t pa[KS][4];
+      // s0 + nt*8 + tq*2 + (e & 1); k-step j covers n-tiles 2j and 2j + 1.
+      uint32_t pa[KS / 16][4];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         float ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool row_b = e >= 2;
-          bool ok = row_b ? live_b : live_a;
+          bool ok = !dead && (row_b ? live_b : live_a);
           if (!interior) {
-            const int key = nt * 8 + tq * 2 + (e & 1);
+            const int key = half * KS + nt * 8 + tq * 2 + (e & 1);
             const int kpos = k0 + key;
             const int qpos = row_b ? qpos_b : qpos_a;
             ok = ok && kpos < sk && (mask_b == nullptr || mask_t[key] != 0) &&
@@ -323,86 +385,39 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
                  (window <= 0 || kpos > qpos - window);
           }
           const float p =
-              ok ? exp2f(sc[nt][e] * scale_log2 - (row_b ? lse2_b : lse2_a))
+              ok ? exp2f(s[nt * 4 + e] * scale_log2 - (row_b ? lse2_b : lse2_a))
                  : 0.f;
-          ds[e] = p * (dp[nt][e] - (row_b ? delta_b : delta_a));
+          ds[e] = p * (dp[nt * 4 + e] - (row_b ? delta_b : delta_a));
         }
         pa[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
         pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
-      // dQ += dS·K, K[key][d] row-major transposed into the B fragment.
-      const uint32_t k_lane = static_cast<uint32_t>(
-          __cvta_generic_to_shared(k_t + (lane % 16) * RS));
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          uint32_t b0, b1;
-          ldmatrix_trans(k_lane, ks * 16 * RS + n * 8, b0, b1);
-          mma_bf16(acc[n], pa[ks], b0, b1);
-        }
-      }
+      // dQ += dS·K over the step's keys, K read MN-major.
+      fence_regs<ND * 4>(acc);
+      wgmma_fence();
+      update<D, KS>(acc, pa, mn_major(k_t + keys));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<ND * 4>(acc);
     }
-    __syncthreads();  // the next iteration refills this tile's stage
+    __syncthreads();  // the next iteration refills this stage
   }
-  cp_async_wait<0>();  // nkt == 0: the Q/dO loads are still in flight
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int row = q0 + (half ? rb : ra);
+    const int row = q0 + ra + half * 8;
     if (row >= sq) continue;
     __nv_bfloat16* dst = dq + (bh * sq + row) * D + tq * 2;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
-          acc[n][half * 2] * scale, acc[n][half * 2 + 1] * scale);
+          acc[n * 4 + half * 2] * scale, acc[n * 4 + half * 2 + 1] * scale);
     }
   }
 }
 
 // ----------------------------------------------------------------------------
 // Kernel 7: dK and dV, on wgmma.
-
-// The wgmma products of one (key tile, q tile) pair: D = 64 or 128. The
-// descriptors are those of the tiles' first bytes; a step adds its offset
-// (in 16-byte units) to the start address field.
-template <int D>
-struct DkvMma {
-  static constexpr int kTile = 64 * D * 2;  // bytes of a 64-row tile
-  // Sᵀ = K·Qᵀ (or dPᵀ = V·dOᵀ) for 32 q rows: A the key tile, B 32 rows
-  // of the q tile, both K-major over D; step kk covers D values 16kk …
-  // 16kk + 15, 32 bytes into a 128-byte row, or the next column block
-  // every 4 steps.
-  static __device__ __forceinline__ void scores(float* d, uint64_t a_desc,
-                                                uint64_t b_desc) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = ((kk / 4) * (64 * 128) + (kk % 4) * 32) >> 4;
-      wgmma_ss_m64n32(d, a_desc + off, b_desc + off, kk > 0);
-    }
-  }
-  // d += Pᵀ·dO (or dSᵀ·Q) over 32 q rows: A the packed fragments a[ks] of
-  // 16 rows each, B those rows of the q tile MN-major (q rows the
-  // reduction, D the columns), step ks starting 16 rows of 128 B further.
-  static __device__ __forceinline__ void update(float* d, uint32_t (*a)[4],
-                                                uint64_t b_desc) {
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      const uint64_t desc = b_desc + ((ks * 16 * 128) >> 4);
-      if constexpr (D == 128) wgmma_rs_m64n128(d, a[ks], desc);
-      else wgmma_rs_m64n64(d, a[ks], desc);
-    }
-  }
-  // K-major tiles: 8 rows of 128 B per stride step (LBO unused).
-  static __device__ __forceinline__ uint64_t k_major(uint32_t addr) {
-    return sw128_desc(opaque(addr), 16, 1024);
-  }
-  // MN-major tiles: 8 rows of 128 B per stride step, column blocks of 64
-  // values 64 · 128 B apart.
-  static __device__ __forceinline__ uint64_t mn_major(uint32_t addr) {
-    return sw128_desc(opaque(addr), 64 * 128, 1024);
-  }
-};
 
 // Byte offsets from a 1024-byte-aligned base in dynamic shared memory:
 //   k, v: [kKeys][D] bf16 each, 128-byte swizzled
@@ -423,6 +438,13 @@ struct DkvSmem {
   }
 };
 
+// The columns of dK and dV one CTA accumulates: all of D up to 128, one
+// half of D 256.
+template <int D>
+__host__ __device__ constexpr int dkv_cols() {
+  return D < 128 ? D : 128;
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -432,20 +454,23 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     float* __restrict__ dv_part, int b_count, int h, int hkv, int sq, int sk,
     int sk_pad, int sq_pad, int causal, int q_offset, int window,
     float scale) {
-  using Mma = DkvMma<D>;
-  constexpr int ND = D / 8;
-  constexpr int kRowChunks = D / 8;
+  constexpr int kTile = 64 * D * 2;  // bytes of a 64-row tile
+  constexpr int DC = dkv_cols<D>();  // columns of dK and dV of this CTA
+  constexpr int NSPLIT = D / DC;     // CTAs over one key tile's columns
+  constexpr int ND = DC / 8;
   constexpr int kLdChunks = 2 * kRows / 4;  // lse and delta
   constexpr int NH = 32 / 8;  // n-tiles of Sᵀ per half q tile
 
   // Key tile slowest, so the scheduler hands out every (batch row, q
-  // head) of the lowest key tiles first: under causal those walk the most
-  // q tiles, and the short ones fill in behind them.
+  // head, column half) of the lowest key tiles first: under causal those
+  // walk the most q tiles, and the short ones fill in behind them.
   const int lin =
       blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  const int k0 = lin / (h * b_count) * kKeys;
-  const int b = lin % (h * b_count) / h;
-  const int head = lin % h;
+  const int per_tile = h * b_count * NSPLIT;
+  const int k0 = lin / per_tile * kKeys;
+  const int col0 = lin % NSPLIT * DC;  // this CTA's first column of dK, dV
+  const int b = lin % per_tile / NSPLIT / h;
+  const int head = lin / NSPLIT % h;
   const int kv_head = head / (h / hkv);
   const int tid = threadIdx.x;
   const float scale_log2 = scale * kLog2e;
@@ -471,54 +496,32 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
   const uint32_t k_s = raw + (uint32_t)(base - smem_raw) + lay.k;
-  const uint32_t v_s = k_s + Mma::kTile;
+  const uint32_t v_s = k_s + kTile;
   const uint32_t qd_s = k_s + lay.qd;
   float* ld_s = reinterpret_cast<float*>(base + lay.ld);
   uint8_t* mask_s = base + lay.mask;
-
-  // This thread's 16-byte chunk of a row and its first row: it copies
-  // every kRowStep-th row from there, a multiple of 8 rows apart, so its
-  // chunk lands at the same swizzled place in each and every address is
-  // one base plus a constant.
-  constexpr int kRowStep = kThreads / kRowChunks;  // 8 at D 128, 16 at D 64
-  const int c_own = tid % kRowChunks;
-  const int r_own = tid / kRowChunks;
-  const uint32_t sw_own = sw128_offset<kRows>(r_own, c_own);
+  const TileCopy<D> tile(tid);
 
   // Q, dO, lse and delta of q tile qt_lo + it into stage st, one cp.async
   // group.
   auto issue = [&](int it, int st) {
-    const int q0 = (qt_lo + it) * kRows + r_own;
-    unsigned char* dst = base + lay.qd + st * 2 * Mma::kTile + sw_own;
-    const size_t src = (size_t)q0 * D + c_own * 8;
-#pragma unroll
-    for (int i = 0; i < kRows / kRowStep; ++i) {
-      const bool live = q0 + i * kRowStep < sq;
-      const size_t at = live ? src + (size_t)i * kRowStep * D : 0;
-      cp_async16(dst + i * kRowStep * 128, q_bh + at, live);
-      cp_async16(dst + Mma::kTile + i * kRowStep * 128, do_bh + at, live);
-    }
+    const int q0 = (qt_lo + it) * kRows;
+    unsigned char* dst = base + lay.qd + st * 2 * kTile;
+    tile.copy(dst, q_bh, q0, sq);
+    tile.copy(dst + kTile, do_bh, q0, sq);
     if (tid < kLdChunks) {
       const int is_delta = tid >= kLdChunks / 2;
       const int c = (tid - is_delta * kLdChunks / 2) * 4;
       cp_async16(ld_s + (st * 2 + is_delta) * kRows + c,
-                 (is_delta ? delta : lse) + bh * sq_pad + (q0 - r_own) + c,
-                 true);
+                 (is_delta ? delta : lse) + bh * sq_pad + q0 + c, true);
     }
     cp_async_commit();
   };
 
   // K and V rows of this tile (keys past Sk are zero) and the mask bytes;
   // they join the first iteration's group.
-#pragma unroll
-  for (int i = 0; i < kKeys / kRowStep; ++i) {
-    const int j = k0 + r_own + i * kRowStep;
-    const bool live = j < sk;
-    const size_t at = live ? (size_t)j * D + c_own * 8 : 0;
-    cp_async16(base + lay.k + sw_own + i * kRowStep * 128, k_bh + at, live);
-    cp_async16(base + lay.k + Mma::kTile + sw_own + i * kRowStep * 128,
-               v_bh + at, live);
-  }
+  tile.copy(base + lay.k, k_bh, k0, sk);
+  tile.copy(base + lay.k + kTile, v_bh, k0, sk);
   if (mask_b != nullptr && tid < kKeys / 16)
     cp_async16(mask_s + tid * 16, mask_b + k0 + tid * 16, true);
   if (n_iter > 0) issue(0, 0);
@@ -564,8 +567,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
                           (!causal || wk_hi <= pos_lo) &&
                           (window <= 0 || wk_lo > pos_hi - window);
     if (!cta_dead) {
-      const uint32_t q_t = qd_s + st * 2 * Mma::kTile;
-      const uint32_t do_t = q_t + Mma::kTile;
+      const uint32_t q_t = qd_s + st * 2 * kTile;
+      const uint32_t do_t = q_t + kTile;
+      // This CTA's columns of Q and dO: col0 / 64 column blocks in.
+      const uint32_t cols = col0 / 64 * (64 * 128);
       const float* lse_t = ld_s + st * 2 * kRows;
       const float* delta_t = lse_t + kRows;
       // The tile in two halves of 32 q rows, so Sᵀ and dPᵀ take 32 f32
@@ -573,11 +578,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const uint32_t rows = half * 32 * 128;  // bytes into each q tile
-        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, 64 keys × 32 rows.
+        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, 64 keys × 32 rows, over all of D.
         float sc[NH * 4], dp[NH * 4];
         wgmma_fence();
-        Mma::scores(sc, Mma::k_major(k_s), Mma::k_major(q_t + rows));
-        Mma::scores(dp, Mma::k_major(v_s), Mma::k_major(do_t + rows));
+        scores<D, 32>(sc, k_major(k_s), k_major(q_t + rows));
+        scores<D, 32>(dp, k_major(v_s), k_major(do_t + rows));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs<NH * 4>(sc);
@@ -611,12 +616,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
           pd[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
           pd[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
         }
-        // dV += Pᵀ·dO and dK += dSᵀ·Q over these 32 rows.
+        // dV += Pᵀ·dO and dK += dSᵀ·Q over these 32 rows, this CTA's
+        // columns.
         fence_regs<ND * 4>(dv_acc);
         fence_regs<ND * 4>(dk_acc);
         wgmma_fence();
-        Mma::update(dv_acc, pp, Mma::mn_major(do_t + rows));
-        Mma::update(dk_acc, pd, Mma::mn_major(q_t + rows));
+        update<DC, 32>(dv_acc, pp, mn_major(do_t + cols + rows));
+        update<DC, 32>(dk_acc, pd, mn_major(q_t + cols + rows));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs<ND * 4>(dv_acc);
@@ -632,7 +638,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   for (int half = 0; half < 2; ++half) {
     const int key = half ? kpos_b : kpos_a;
     if (key >= sk) continue;
-    const size_t row = (bh * sk + key) * D + tq * 2;
+    const size_t row = (bh * sk + key) * D + col0 + tq * 2;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<float2*>(dk_part + row + n * 8) =
@@ -705,8 +711,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<__nv_bfloat16*>(dq), h, hkv, sq, sk, sk_pad, sq_pad, causal,
-      q_offset, window, 1.0f / sqrtf((float)D));
+      static_cast<__nv_bfloat16*>(dq), b, h, hkv, sq, sk, sk_pad, sq_pad,
+      causal, q_offset, window, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -720,7 +726,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   auto fn = flash_bwd_dkv_kernel<D>;
   if (int err = set_smem(fn, smem)) return err;
   const float scale = 1.0f / sqrtf((float)D);
-  const dim3 grid((sk + kKeys - 1) / kKeys, h, b);
+  const dim3 grid((sk + kKeys - 1) / kKeys * (D / dkv_cols<D>()), h, b);
   fn<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -756,6 +762,7 @@ int kftt_flash_bwd_dq(const void* q, const void* k, const void* v,
                       int sq, int sk, int sk_pad, int sq_pad, int d,
                       int causal, int q_offset, int window, void* stream) {
   if (int err = check_shape(b, h, hkv, sq, sk, sk_pad, sq_pad)) return err;
+  if ((size_t)(sq_pad / kRows) * h * b > 0x7fffffffu) return kErrShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
@@ -763,6 +770,10 @@ int kftt_flash_bwd_dq(const void* q, const void* k, const void* v,
                            sk, sk_pad, sq_pad, causal, q_offset, window, st);
     case 128:
       return launch_dq<128>(q, k, v, dout, lse, delta, mask, dq, b, h, hkv,
+                            sq, sk, sk_pad, sq_pad, causal, q_offset, window,
+                            st);
+    case 256:
+      return launch_dq<256>(q, k, v, dout, lse, delta, mask, dq, b, h, hkv,
                             sq, sk, sk_pad, sq_pad, causal, q_offset, window,
                             st);
     default:
@@ -777,7 +788,7 @@ int kftt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                        int sk, int sk_pad, int sq_pad, int d, int causal,
                        int q_offset, int window, void* stream) {
   if (int err = check_shape(b, h, hkv, sq, sk, sk_pad, sq_pad)) return err;
-  if ((size_t)((sk + kKeys - 1) / kKeys) * h * b > 0x7fffffffu)
+  if ((size_t)((sk + kKeys - 1) / kKeys) * 2 * h * b > 0x7fffffffu)
     return kErrShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
@@ -789,6 +800,10 @@ int kftt_flash_bwd_dkv(const void* q, const void* k, const void* v,
       return launch_dkv<128>(q, k, v, dout, lse, delta, mask, dk_part,
                              dv_part, dk, dv, b, h, hkv, sq, sk, sk_pad,
                              sq_pad, causal, q_offset, window, st);
+    case 256:
+      return launch_dkv<256>(q, k, v, dout, lse, delta, mask, dk_part,
+                             dv_part, dk, dv, b, h, hkv, sq, sk, sk_pad,
+                             sq_pad, causal, q_offset, window, st);
     default:
       return kErrHeadDim;
   }
@@ -796,7 +811,7 @@ int kftt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 const char* kftt_error_string(int code) {
   switch (code) {
-    case kErrHeadDim: return "head_dim must be 64 or 128";
+    case kErrHeadDim: return "head_dim must be 64, 128 or 256";
     case kErrSmem: return "tile needs more shared memory than a block has";
     case kErrGroup: return "H must be a positive multiple of Hkv";
     case kErrShape:

@@ -30,14 +30,15 @@ its names, argument order and layouts:
   ``delta = rowsum(dO ⊙ O)`` is a plain f32 reduction here (XLA's, outside
   the Pallas kernels, in JAX). On a CUDA tensor it launches the two
   hand-written kernels of ``csrc/flash_attention_bwd.cu`` — dQ
-  (``flash_bwd_dq``, replacing the Pallas dq call) and dK/dV
-  (``flash_bwd_dkv``, replacing the dk/dv call: a wgmma kernel per key
-  tile and q head, then a group sum over each kv head's q heads in a
+  (``flash_bwd_dq``, replacing the Pallas dq call: a wgmma kernel per q
+  tile and q head) and dK/dV (``flash_bwd_dkv``, replacing the dk/dv
+  call: a wgmma kernel per key tile and q head, at head_dim 256 also per
+  half of the head dim, then a group sum over each kv head's q heads in a
   fixed order, so dk and dv repeat bit for bit), each wrapper counting
   its calls in ``.launches`` — or raises; a CPU
   tensor runs ``flash_attention_bwd_reference``, the plain f32 version
   of the formula above ``_bwd_dq_kernel``. The kernels take bf16 and
-  head_dim 64 or 128.
+  head_dim 64, 128 or 256.
 - ``flash_attention(impl="auto")`` goes through ``FlashAttention``, a
   ``torch.autograd.Function`` whose forward is ``flash_attention_fwd``
   (saving q, k, v, O, lse and the mask, as the JAX ``custom_vjp`` saves
@@ -65,7 +66,7 @@ NEG_INF = -1e30  # the JAX package's finite mask value and masked-row lse
 # long prompt's f32 score matrix stays bounded in memory.
 _PLAIN_CHUNK_ELEMS = 1 << 27
 _C_FUNC = "kftt_flash_attention_fwd"
-_BWD_HEAD_DIMS = (64, 128)
+_BWD_HEAD_DIMS = (64, 128, 256)
 
 
 def _check_heads(q: torch.Tensor, k: torch.Tensor) -> None:
@@ -317,7 +318,8 @@ def flash_bwd_dkv(q, k, v, dout, lse_pad, delta_pad, mask8, dk, dv,
                   ints) -> None:
     """Launch kernel 7 (dK and dV, each kv head's GQA group summed) on the
     tensors ``flash_bwd_dq`` takes: one CTA per (64-key tile, q head,
-    batch row) writes that q head's f32 share of dK and dV into scratch
+    batch row; at head_dim 256 also per half of the head dim's columns)
+    writes that q head's f32 share of dK and dV into scratch
     allocated here (2 × B·H·Sk·D f32, freed on return), then the group
     sum adds the shares of each group in a fixed order into dk and dv (so
     repeats are bit-equal). One call, one count."""
@@ -348,8 +350,8 @@ def flash_attention_bwd(
     kv_mask: Optional[torch.Tensor] = None,  # (B, Sk)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's saved O and lse. A CUDA tensor
-    launches the dQ and the dK/dV kernels (bf16, head_dim 64 or 128) and
-    raises on anything else; a CPU tensor runs the plain version."""
+    launches the dQ and the dK/dV kernels (bf16, head_dim 64, 128 or 256)
+    and raises on anything else; a CPU tensor runs the plain version."""
     _check_inputs(q, k, v, kv_mask)
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape

@@ -11,9 +11,10 @@ positions 624..639), and 2 slots of the paged and dense decode kernels.
 The flash backward's gates are held the same way: the plain backward on
 the forward's O and lse, its dq, dk and dv rounded to bf16, passes them;
 with one 64-key tile of the 640 keys dropped, or 3% off, it fails them.
-Phase 3's repeat checks (dk and dv, and the forward's O and lse,
+Phase 3's repeat checks (dq, dk and dv, and the forward's O and lse,
 bit-equal over two runs on the same inputs) pass on two runs of the plain
-version and fail when one element is one ulp off. The forward's SDPA
+version and fail when one element is one ulp off. The backward's cases
+cover head dims 64, 128 and 256. The forward's SDPA
 yardstick takes ``is_causal`` exactly for the square, causal, unmasked,
 unwindowed cases at q_offset 0, and the forward's cases cover every head
 dim, visibility rule and GQA group the kernel takes. The CTA count read
@@ -22,7 +23,8 @@ and fails when three do.
 
 The dense kernel's phase-3 cases run through ``dense_vs_plain`` as they
 will on the card (the wrapper's plain version stands in for the kernel).
-``continuous_phase`` and ``train_phase`` run at a small width on the CPU
+``continuous_phase`` and ``train_phase`` (and ``train_phases`` over a
+llama-shaped and a gemma-shaped config) run at a small width on the CPU
 with the kernel wrappers they reach replaced by counting stand-ins that
 call the plain versions, so their launch arithmetic, comparisons and
 output checks are exercised before the card sees them.
@@ -240,9 +242,10 @@ def test_backward_repeat_check_passes_on_two_equal_runs(smoke):
     smoke.check_bwd_repeat(first, second, "rehearsal")
 
 
-@pytest.mark.parametrize("which", [1, 2])
+@pytest.mark.parametrize("which", [0, 1, 2])
 def test_backward_repeat_check_fails_on_one_ulp(smoke, which):
-    """One element of dk (or dv) one bf16 ulp off: the check fails."""
+    """One element of dq (or dk, or dv) one bf16 ulp off: the check
+    fails."""
     _, first, second = _bwd_twice(smoke)
     again = [g.to(torch.bfloat16) for g in second]
     first = [g.to(torch.bfloat16) for g in first]
@@ -254,10 +257,10 @@ def test_backward_repeat_check_fails_on_one_ulp(smoke, which):
         smoke.check_bwd_repeat(first, again, "rehearsal")
 
 
-def test_train_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
-    """The train phase at ``tiny`` width (bf16, 2 layers) on the CPU, S 64
-    in loss chunks of 16: the flash forward and backward wrappers count
-    like the kernels and compute the plain versions."""
+def _stand_in_kernels(smoke, monkeypatch):
+    """The flash forward and backward wrappers replaced by stand-ins that
+    count like the kernels and compute the plain versions; S 64 in loss
+    chunks of 16."""
     real_fwd = TA.flash_attention_fwd
 
     def fwd(*a, **kw):
@@ -274,10 +277,55 @@ def test_train_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
     monkeypatch.setattr(smoke, "TRAIN_SEQ", 64)
     monkeypatch.setattr(smoke, "LOSS_CHUNK", 16)
+
+
+def test_train_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
+    """The train phase at ``tiny`` width (bf16, 2 layers) on the CPU."""
+    _stand_in_kernels(smoke, monkeypatch)
     cfg = TL.LLAMA_CONFIGS["tiny"]
     launched = smoke.train_phase(cfg)
     n = cfg.n_layers * smoke.TRAIN_STEPS
     assert launched == {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n}
+
+
+def test_train_phases_with_gemma_rehearsed_on_the_cpu(smoke, no_card,
+                                                      monkeypatch):
+    """Phase 7 as the card runs it, a llama config and then a gemma one
+    (head dim 256, GELU, (1 + w) norms, scaled and tied embeddings, 2 q
+    heads over 1 kv head), each cut to a small width and 2 layers in bf16,
+    then the checkpoint round trip once."""
+    _stand_in_kernels(smoke, monkeypatch)
+    assert smoke.TRAIN_MODELS == ("llama-3-8b", "gemma-2b")
+    gemma = dataclasses.replace(
+        TL.LLAMA_CONFIGS["gemma-2b"], vocab_size=256, dim=128, n_layers=2,
+        n_heads=2, n_kv_heads=1, ffn_hidden=256, max_seq_len=256)
+    assert gemma.head_dim == 256 and gemma.tie_embeddings
+    rounds, real_round_trip = [], smoke.checkpoint_round_trip
+    monkeypatch.setattr(smoke, "checkpoint_round_trip",
+                        lambda: rounds.append(real_round_trip()))
+    launched = smoke.train_phases({"tiny": TL.LLAMA_CONFIGS["tiny"],
+                                   "gemma-2b": gemma})
+    n = 2 * smoke.TRAIN_STEPS
+    assert launched == {name: {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n}
+                        for name in ("tiny", "gemma-2b")}
+    assert rounds == [None]
+
+
+def test_backward_cases_cover_every_head_dim_the_kernels_take(smoke):
+    """Head dims 64, 128 and 256 (as ``_BWD_HEAD_DIMS``), and at 256
+    gemma-2b's heads, a q_offset, a window, a mask and keyless rows."""
+    assert {d for _, d, _ in smoke.BWD_CASES} == set(TA._BWD_HEAD_DIMS) == {
+        64, 128, 256}
+    d256 = [shape for shape, d, _ in smoke.BWD_CASES if d == 256]
+    assert any(s[1:3] == (8, 1) for s in d256)
+    assert any(s[6] > 0 for s in d256) and any(s[7] > 0 for s in d256)
+    assert any(s[8] is not None for s in d256)
+    assert any(not all(bool(smoke._flash_visible(_shape_case(s), i)
+                            .any(-1).all()) for i in range(s[0]))
+               for s in d256)
+    timed = {name: (shape, d) for name, shape, d in smoke.BWD_TIMED}
+    assert timed == {"train-2048": (smoke.BWD_TRAIN, 128),
+                     "gemma-2b-2048": (smoke.BWD_GEMMA, 256)}
 
 
 def _fwd_twice(smoke):

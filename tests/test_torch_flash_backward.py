@@ -3,7 +3,8 @@
 The same numpy inputs (f32, from a seed) go through the Pallas backward
 ``_bwd_pallas_call`` in interpret mode (its dq and dk/dv kernels, from the
 Pallas forward's O and lse) and through the port's ``flash_attention_bwd``
-on CPU tensors (its plain version), from the same O and lse. dq, dk and
+on CPU tensors (its plain version), from the same O and lse, at head dim
+128 and, in two cases of gemma's shape, 256. dq, dk and
 dv must agree within 1e-4 of the largest |reference| value; a row that
 sees no key has dq exactly 0 on both sides, and a key no row sees has dk
 and dv exactly 0. Then ``torch.autograd`` through the port's
@@ -40,7 +41,14 @@ CASES = {
     # batch rows (keys 0..36 and 0..89 seen by no row).
     "group-8": (1, 16, 2, 192, 256, True, 64, 0, None),
     "group-1-mask": (2, 4, 4, 200, 200, False, 0, 0, (37, 90)),
+    # Head dim 256 (gemma): gemma-2b's group of q heads over one kv head
+    # with a q_offset, and a left-padded mask with a window whose first
+    # rows see no key.
+    "d256-gemma-q-offset": (1, 4, 1, 128, 192, True, 64, 0, None),
+    "d256-mask-window": (2, 2, 1, 128, 128, True, 0, 48, (20, 100)),
 }
+# Head dim of a case: 128 unless named here.
+HEAD_DIM = {"d256-gemma-q-offset": 256, "d256-mask-window": 256}
 
 
 def _block(length: int) -> int:
@@ -91,7 +99,8 @@ def _visible(b, h, sq, sk, causal, q_offset, window, mask):
 @pytest.mark.parametrize("name", list(CASES))
 def test_backward_matches_pallas_kernels_interpreted(name):
     b, h, hkv, sq, sk, causal, q_offset, window, pads = CASES[name]
-    q, k, v, do, mask = _inputs(b, h, hkv, sq, sk, pads)
+    q, k, v, do, mask = _inputs(b, h, hkv, sq, sk, pads,
+                                d=HEAD_DIM.get(name, 128))
     d = q.shape[-1]
     mask8 = (None if mask is None
              else jnp.asarray(mask.astype(np.int8).reshape(b, 1, sk)))
@@ -128,16 +137,20 @@ def test_backward_matches_pallas_kernels_interpreted(name):
         assert keyless.any() and unseen.any()
     if name == "group-1-mask":
         assert unseen.any() and not keyless.any()
+    if name == "d256-mask-window":
+        assert keyless.any() and unseen.any()
     assert not tdq.numpy()[keyless].any()
     assert not np.asarray(jdq).reshape(b, h, sq, d)[keyless].any()
     assert not tdk.numpy()[unseen].any() and not tdv.numpy()[unseen].any()
 
 
-@pytest.mark.parametrize("name", ["gqa-window-q-offset", "kv-mask-left-pad"])
+@pytest.mark.parametrize("name", ["gqa-window-q-offset", "kv-mask-left-pad",
+                                  "d256-mask-window"])
 def test_autograd_through_the_function_matches_jax_grad(name):
     """Loss = Σ O ⊙ G for a fixed random G, so dO = G."""
     b, h, hkv, sq, sk, causal, q_offset, window, pads = CASES[name]
-    q, k, v, g, mask = _inputs(b, h, hkv, sq, sk, pads, seed=1)
+    q, k, v, g, mask = _inputs(b, h, hkv, sq, sk, pads, seed=1,
+                               d=HEAD_DIM.get(name, 128))
 
     def jloss(q, k, v):
         out = A._flash_attention_pallas(

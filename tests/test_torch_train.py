@@ -1,6 +1,8 @@
 """PyTorch port of models/train.py vs the JAX reference.
 
-f32 ``tiny`` and ``tiny-gqa`` with JAX's weights brought over through
+f32 ``tiny``, ``tiny-gqa`` and a gemma-2b-shaped ``gemma-tiny`` (head
+dim 256, GELU, (1 + w) norms, scaled and tied embeddings, cut to a small
+width, depth, ffn and vocab) with JAX's weights brought over through
 ``models/bridge.py``, tokens from a numpy seed, everything on the CPU
 (the port's attention through the plain versions of the flash forward and
 backward). Tolerances: the losses 1e-5; gradients 1e-4 of the largest
@@ -33,9 +35,22 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
+# gemma-2b's published config with only its sizes cut: head_dim_override
+# 256, GELU, norm_add_unit, embed_scale and tie_embeddings stay.
+GEMMA_TINY = dict(vocab_size=256, dim=128, n_layers=2, n_heads=2,
+                  n_kv_heads=1, ffn_hidden=256, max_seq_len=256)
+
+
 def _model(name, seed=0):
-    jcfg = dataclasses.replace(L.LLAMA_CONFIGS[name], dtype=jnp.float32)
-    tcfg = dataclasses.replace(TL.LLAMA_CONFIGS[name], dtype=torch.float32)
+    if name == "gemma-tiny":
+        jcfg = dataclasses.replace(L.LLAMA_CONFIGS["gemma-2b"],
+                                   dtype=jnp.float32, **GEMMA_TINY)
+        tcfg = dataclasses.replace(TL.LLAMA_CONFIGS["gemma-2b"],
+                                   dtype=torch.float32, **GEMMA_TINY)
+    else:
+        jcfg = dataclasses.replace(L.LLAMA_CONFIGS[name], dtype=jnp.float32)
+        tcfg = dataclasses.replace(TL.LLAMA_CONFIGS[name],
+                                   dtype=torch.float32)
     tree = jax.tree.map(np.asarray, L.init_params(jcfg, jax.random.PRNGKey(seed)))
     return jcfg, tcfg, jax.tree.map(jnp.asarray, tree), params_from_jax(
         tree, tcfg, device="cpu")
@@ -47,9 +62,11 @@ def _tokens(shape, vocab, seed=0):
 
 
 def _grad_tree(model: TL.Llama) -> dict:
-    """The port's grads in the JAX tree's layout (layer leaves stacked)."""
+    """The port's grads in the JAX tree's layout (layer leaves stacked); a
+    tied config has no ``lm_head`` leaf, as the JAX tree has none."""
     out = {n: getattr(model, n).grad.numpy() for n in ("embed", "final_norm",
-                                                        "lm_head")}
+                                                        "lm_head")
+           if getattr(model, n) is not None}
     out["layers"] = {
         name: np.stack([getattr(layer, name).grad.numpy()
                         for layer in model.layers])
@@ -104,7 +121,7 @@ class TestLosses:
 
 @pytest.mark.parametrize("name,remat", [
     ("tiny", "full"), ("tiny-gqa", "full"), ("tiny-gqa", "dots"),
-    ("tiny-gqa", "none"),
+    ("tiny-gqa", "none"), ("gemma-tiny", "full"),
 ])
 def test_chunked_loss_grads_match_jax_grad(name, remat):
     jcfg, tcfg, jp, tp = _model(name, seed=1)
@@ -119,7 +136,10 @@ def test_chunked_loss_grads_match_jax_grad(name, remat):
     assert loss.item() == pytest.approx(float(jval), rel=1e-5)
     got = _grad_tree(tp)
     ref = jax.tree.map(np.asarray, jgrads)
-    for key in ("embed", "final_norm", "lm_head"):
+    assert set(got) == set(ref)
+    if tcfg.tie_embeddings:
+        assert tcfg.head_dim == 256 and "lm_head" not in got
+    for key in set(got) - {"layers"}:
         scale = np.abs(ref[key]).max()
         assert np.abs(got[key] - ref[key]).max() <= 1e-4 * scale, key
     for key, g in got["layers"].items():
