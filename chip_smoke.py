@@ -1037,10 +1037,11 @@ def _sdpa_backward_call(case):
 BWD_ROUNDS = 3
 BWD_DQ_DESIGN = (
     "wgmma, one warpgroup per (64-row q tile, q head, batch row), q tile "
-    "slowest and the last first; Q and dO held, 64-key K/V tiles in two "
-    "cp.async stages (128-byte swizzle); S = Q·Kᵀ and dP = dO·Vᵀ SS "
-    "m64n64k16 (two 32-key halves of m64n32 at D 256), dS from registers "
-    "into dQ += dS·K RS with K MN-major")
+    "slowest and the last first; a producer warp copies Q and dO once and "
+    "64-key K/V tiles into two stages with TMA (128-byte swizzle) on "
+    "mbarriers; S = Q·Kᵀ and dP = dO·Vᵀ SS m64n64k16 (two 32-key halves "
+    "of m64n32 at D 256), dS from registers into dQ += dS·K RS with K "
+    "MN-major")
 BWD_DKV_DESIGN = (
     "wgmma, one warpgroup per (64-key tile, q head, batch row; at D 256 "
     "also per 128-column half, recomputing Sᵀ and dPᵀ), key tile slowest; "

@@ -65,7 +65,6 @@
 // the wrapper to (B, Sk_pad) bytes, Sk_pad a multiple of 64, so each
 // tile's mask bytes are one aligned 64-byte copy.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,6 +84,7 @@ using kftt::mbar_wait;
 using kftt::opaque;
 using kftt::pack_bf16;
 using kftt::sw128_desc;
+using kftt::tensor_map;
 using kftt::tma_load_3d;
 using kftt::wgmma_commit;
 using kftt::wgmma_fence;
@@ -408,63 +408,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, a driver function, reached through the runtime
-// so the library links no driver library of its own.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The TMA map of a (planes, rows, d) bf16 tensor: boxes of 64 rows × 64
-// values (128 bytes), 128-byte swizzled as wgmma reads them; rows past
-// `rows` read as zeros.
-int tensor_map(CUtensorMap* map, const void* data, int d, int rows,
-               int planes) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return kErrTensorMap;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)d * 2 * rows};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(data),
-      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            void* out, void* lse, int b, int h, int hkv, int sq, int sk,
            int sk_pad, int causal, int q_offset, int window,
            cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
-  if (int err = tensor_map(&q_map, q, D, sq, b * h)) return err;
-  if (int err = tensor_map(&k_map, k, D, sk, b * hkv)) return err;
-  if (int err = tensor_map(&v_map, v, D, sk, b * hkv)) return err;
+  if (!tensor_map(&q_map, q, D, sq, b * h) ||
+      !tensor_map(&k_map, k, D, sk, b * hkv) ||
+      !tensor_map(&v_map, v, D, sk, b * hkv))
+    return kErrTensorMap;
   const size_t smem = Smem(D).total;
   auto fn = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(

@@ -24,18 +24,25 @@
 // products (wgmma) and every K/V (dq) or Q/dO (dk/dv) byte loaded into
 // shared memory feeds 64 rows or keys. Both kernels keep their tiles in
 // the canonical 128-byte-swizzled layout of wgmma (column blocks of 64
-// values, the 16-byte chunk index XOR row % 8, applied by the cp.async
-// writes), which serves the K-major and the MN-major reads alike. The m64
+// values, the 16-byte chunk index XOR row % 8, applied by TMA in dQ and by
+// the cp.async writes in dK/dV), which serves the K-major and the MN-major
+// reads alike. The m64
 // accumulator fragment of one product is the register A fragment of the
 // next, so P and dS go from the scores to the updates without a trip
 // through shared memory. What the design does about it:
 // - dQ (kernel 6, replacing _bwd_dq_kernel, which sweeps q and key blocks
 //   in its grid with a VMEM accumulator): one CTA per (64-row query tile,
-//   q head, batch row), one warpgroup of 4 warps; the block order puts the
-//   q tile slowest and the last first, so under causal the longest CTAs
-//   start first and the short ones fill the SMs behind them. Q and dO sit
-//   in shared memory for the whole key loop; 64-key K/V tiles stream
-//   through two cp.async stages. S = Q·Kᵀ and dP = dO·Vᵀ are wgmma with
+//   q head, batch row): one warpgroup of 4 warps computes and a fifth warp
+//   copies; the block order puts the q tile slowest and the last first, so
+//   under causal the longest CTAs start first and the short ones fill the
+//   SMs behind them. The copying warp's one thread moves Q and dO once,
+//   then each 64-key K and V tile, with the Tensor Memory Accelerator
+//   (3-D tensor maps over (planes, rows, D), 64 × 64 boxes, rows past Sq
+//   or Sk filled with zeros by the hardware) and the tile's mask bytes
+//   with a bulk copy, into two stages on `full` / `empty` mbarriers; the
+//   warpgroup issues no copy, proxy fence or block-wide barrier in its
+//   loop (12% faster than the warpgroup's own cp.async copies, measured).
+//   S = Q·Kᵀ and dP = dO·Vᵀ are wgmma with
 //   both operands in shared memory, K-major over D; dS = P ⊙ (dP − delta)
 //   is made on the accumulator fragments and packed to bf16 into the A
 //   fragments of dQ += dS·K, wgmma m64nDk16 (two m64n128 at D 256) whose
@@ -78,10 +85,11 @@
 //   a warp skip the per-element mask.
 // Registers are the hard limit: the compiler hoists copy addresses and
 // wgmma descriptors out of the loops into registers the accumulators need.
-// So each thread copies one 16-byte chunk of every 8th row (addresses one
-// base plus constants), descriptors are rebuilt each step from an address
-// the compiler cannot see through (`opaque`), and `fence_regs` pins the
-// accumulators around each product.
+// So each thread of dK/dV copies one 16-byte chunk of every 8th row
+// (addresses one base plus constants), descriptors are rebuilt each step
+// from an address the compiler cannot see through (`opaque`), and
+// `fence_regs` pins the accumulators around each product: no kernel
+// spills at any head dim.
 // P and dS are rounded to bf16 once each, as operands of the products;
 // p itself stays in f32 for ds, as in the JAX kernels.
 //
@@ -99,15 +107,23 @@
 
 namespace {
 
+using kftt::bulk_load;
 using kftt::cp_async16;
 using kftt::cp_async_commit;
 using kftt::cp_async_wait;
 using kftt::fence_async_shared;
+using kftt::fence_mbar_init;
 using kftt::fence_regs;
+using kftt::mbar_arrive;
+using kftt::mbar_expect_tx;
+using kftt::mbar_init;
+using kftt::mbar_wait;
 using kftt::opaque;
 using kftt::pack_bf16;
 using kftt::sw128_desc;
 using kftt::sw128_offset;
+using kftt::tensor_map;
+using kftt::tma_load_3d;
 using kftt::wgmma_commit;
 using kftt::wgmma_fence;
 using kftt::wgmma_rs_m64n128;
@@ -128,6 +144,7 @@ enum : int {
   kErrSmem = -2,
   kErrGroup = -3,
   kErrShape = -4,
+  kErrTensorMap = -5,
 };
 
 // K-major tiles: 8 rows of 128 B per stride step (LBO unused).
@@ -175,37 +192,43 @@ __device__ __forceinline__ void update(float* d, uint32_t (*a)[4],
   }
 }
 
-// A thread's share of the cp.async copy of a [64][D] bf16 tile into the
-// 128-byte-swizzled layout: chunk c_own (and at D 256 also chunk c_own +
-// 16, two column blocks further) of every kRowStep-th row from r_own.
-// kRowStep is a multiple of 8, so the chunk lands at the same swizzled
-// place in every row it copies and each address is a base plus constants.
+// A thread's share of the cp.async copy of two [64][D] bf16 tiles (Q and
+// dO, or K and V) into the 128-byte-swizzled layout, the second tile kTile
+// bytes after the first: chunk c_own (and at D 256 also chunk c_own + 16,
+// two column blocks further) of every kRowStep-th row from r_own, the two
+// tiles' rows in turn. kRowStep is a multiple of 8, so the chunk lands at
+// the same swizzled place in every row it copies and each address is a
+// base plus constants.
 template <int D>
-struct TileCopy {
+struct PairCopy {
+  static constexpr int kTile = 64 * D * 2;
   static constexpr int kChunks = D / 8 < 16 ? D / 8 : 16;
   static constexpr int kPasses = D / 8 / kChunks;       // 2 at D 256, else 1
   static constexpr int kRowStep = kThreads / kChunks;  // 16 at D 64, else 8
   const int r_own, c_own;
   const uint32_t sw_own;
-  __device__ explicit TileCopy(int tid)
+  __device__ explicit PairCopy(int tid)
       : r_own(tid / kChunks),
         c_own(tid % kChunks),
         sw_own(sw128_offset<64>(tid / kChunks, tid % kChunks)) {}
-  // Rows row0 … row0 + 63 of src (rows of D values; zeros from row
-  // `rows` on) into the tile at dst.
+  // Rows row0 … row0 + 63 of a and of b (rows of D values; zeros from row
+  // `rows` on) into the tiles at dst.
   __device__ __forceinline__ void copy(unsigned char* dst,
-                                       const __nv_bfloat16* src, int row0,
+                                       const __nv_bfloat16* a,
+                                       const __nv_bfloat16* b, int row0,
                                        int rows) const {
     const int r = row0 + r_own;
-    const size_t at = (size_t)r * D + c_own * 8;
+    const size_t src = (size_t)r * D + c_own * 8;
+    dst += sw_own;
 #pragma unroll
     for (int p = 0; p < kPasses; ++p) {
 #pragma unroll
       for (int i = 0; i < 64 / kRowStep; ++i) {
         const bool live = r + i * kRowStep < rows;
-        cp_async16(dst + sw_own + p * 2 * 64 * 128 + i * kRowStep * 128,
-                   src + (live ? at + (size_t)i * kRowStep * D + p * 128 : 0),
-                   live);
+        const size_t at = live ? src + (size_t)i * kRowStep * D + p * 128 : 0;
+        const int to = p * 2 * 64 * 128 + i * kRowStep * 128;
+        cp_async16(dst + to, a + at, live);
+        cp_async16(dst + kTile + to, b + at, live);
       }
     }
   }
@@ -218,28 +241,35 @@ struct TileCopy {
 //   q, dout: [kRows][D] bf16 each, 128-byte swizzled
 //   kv:      [stage][K|V][kKeys][D] bf16, two stages, 128-byte swizzled
 //   mask:    [stage][kKeys] bytes
+//   bar:     full[2], empty[2] and q mbarriers, 8 bytes each
 // `total` adds 1024 bytes for aligning the base.
 struct DqSmem {
-  size_t q, dout, kv, mask, total;
+  size_t q, dout, kv, mask, bar, total;
   __host__ __device__ explicit DqSmem(int d) {
     const size_t tile = (size_t)64 * d * 2;
     q = 0;
     dout = q + tile;
     kv = dout + tile;
     mask = kv + 4 * tile;
-    total = mask + 2 * kKeys + 1024;
+    bar = mask + 2 * kKeys;
+    total = bar + 5 * 8 + 1024;
   }
 };
 
+constexpr int kDqThreads = kThreads + 32;  // a warpgroup and a copying warp
+
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap do_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dq,
     int b_count, int h, int hkv, int sq, int sk, int sk_pad, int sq_pad,
     int causal, int q_offset, int window, float scale) {
   constexpr int kTile = 64 * D * 2;  // bytes of a 64-row tile
+  constexpr int kBlocks = D / 64;    // 64-column blocks (TMA boxes) a tile
   constexpr int ND = D / 8;          // n-tiles of dQ
   // Keys of one step: at D 256 a tile goes in two halves, so S and dP
   // take 16 f32 registers each beside dQ's 128.
@@ -254,15 +284,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int q0 = (gridDim.x - 1 - lin / (h * b_count)) * kRows;
   const int b = lin % (h * b_count) / h;
   const int head = lin % h;
-  const int kv_head = head / (h / hkv);
+  const int bkv = b * hkv + head / (h / hkv);
   const int tid = threadIdx.x;
   const float scale_log2 = scale * kLog2e;
 
   const size_t bh = (size_t)b * h + head;
-  const __nv_bfloat16* q_bh = q + bh * sq * D;
-  const __nv_bfloat16* do_bh = dout + bh * sq * D;
-  const __nv_bfloat16* k_bh = k + ((size_t)b * hkv + kv_head) * sk * D;
-  const __nv_bfloat16* v_bh = v + ((size_t)b * hkv + kv_head) * sk * D;
   const uint8_t* mask_b = mask ? mask + (size_t)b * sk_pad : nullptr;
 
   // The keys some row of this CTA can see: [k_lo, k_hi).
@@ -283,26 +309,52 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const uint32_t q_s = base_s + lay.q;
   const uint32_t do_s = base_s + lay.dout;
   const uint8_t* mask_s = base + lay.mask;
-  const TileCopy<D> tile(tid);
+  // full[st]: stage st holds its tile; empty[st]: the warpgroup is done
+  // with it; q_bar: Q and dO have landed.
+  auto full = [&](int st) { return base_s + lay.bar + 8 * st; };
+  auto empty = [&](int st) { return base_s + lay.bar + 16 + 8 * st; };
+  const uint32_t q_bar = base_s + lay.bar + 32;
+  auto k_tile = [&](int st) { return base_s + lay.kv + st * 2 * kTile; };
 
-  // K, V and the mask bytes of key tile kt into stage st, one group.
-  auto issue = [&](int kt, int st) {
-    const int k0 = kt * kKeys;
-    unsigned char* dst = base + lay.kv + st * 2 * kTile;
-    tile.copy(dst, k_bh, k0, sk);
-    tile.copy(dst + kTile, v_bh, k0, sk);
-    if (mask_b != nullptr && tid < kKeys / 16)
-      cp_async16(base + lay.mask + st * kKeys + tid * 16,
-                 mask_b + k0 + tid * 16, true);
-    cp_async_commit();
-  };
+  if (tid == 0) {
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kThreads);
+    }
+    mbar_init(q_bar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
 
-  // Q and dO rows (rows past Sq are zero) join the first tile's group. A
-  // CTA whose rows see no key loads nothing and writes zeros.
-  if (nkt > 0) {
-    tile.copy(base + lay.q, q_bh, q0, sq);
-    tile.copy(base + lay.dout, do_bh, q0, sq);
-    issue(kt_lo, 0);
+  // The copying warp: one thread issues the TMA copies of Q and dO and
+  // then of each key tile's K and V (and a bulk copy of its mask bytes)
+  // into the stages in turn, waiting for a stage to be released before
+  // refilling it. Rows past Sq and keys past Sk come in as zeros. A CTA
+  // whose rows see no key loads nothing and writes zeros.
+  if (tid >= kThreads) {
+    if (tid == kThreads && nkt > 0) {
+      mbar_expect_tx(q_bar, 2 * kTile);
+      for (int c = 0; c < kBlocks; ++c) {
+        tma_load_3d(q_s + c * 64 * 128, &q_map, c * 64, q0, (int)bh, q_bar);
+        tma_load_3d(do_s + c * 64 * 128, &do_map, c * 64, q0, (int)bh, q_bar);
+      }
+      for (int i = 0; i < nkt; ++i) {
+        const int st = i & 1;
+        const int k0 = (kt_lo + i) * kKeys;
+        if (i >= 2) mbar_wait(empty(st), ((i >> 1) - 1) & 1);
+        mbar_expect_tx(full(st), 2 * kTile + (mask_b != nullptr ? kKeys : 0));
+        for (int c = 0; c < kBlocks; ++c) {
+          tma_load_3d(k_tile(st) + c * 64 * 128, &k_map, c * 64, k0, bkv,
+                      full(st));
+          tma_load_3d(k_tile(st) + kTile + c * 64 * 128, &v_map, c * 64, k0,
+                      bkv, full(st));
+        }
+        if (mask_b != nullptr)
+          bulk_load(base_s + lay.mask + st * kKeys, mask_b + k0, kKeys,
+                    full(st));
+      }
+    }
+    return;
   }
 
   const int warp = tid / 32;
@@ -329,19 +381,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
   for (int i = 0; i < ND * 4; ++i) acc[i] = 0.f;
 
+  if (nkt > 0) mbar_wait(q_bar, 0);
   for (int i = 0; i < nkt; ++i) {
     const int st = i & 1;
     const int k0 = (kt_lo + i) * kKeys;
-    if (i + 1 < nkt) {
-      issue(kt_lo + i + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_async_shared();
-    __syncthreads();
+    mbar_wait(full(st), (i >> 1) & 1);
 
-    const uint32_t k_t = base_s + lay.kv + st * 2 * kTile;
+    const uint32_t k_t = k_tile(st);
     const uint32_t v_t = k_t + kTile;
     const uint8_t* mask_t = mask_s + st * kKeys;
 #pragma unroll
@@ -400,7 +446,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       wgmma_wait<0>();
       fence_regs<ND * 4>(acc);
     }
-    __syncthreads();  // the next iteration refills this stage
+    mbar_arrive(empty(st));  // this stage may be refilled
   }
 
 #pragma unroll
@@ -500,15 +546,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const uint32_t qd_s = k_s + lay.qd;
   float* ld_s = reinterpret_cast<float*>(base + lay.ld);
   uint8_t* mask_s = base + lay.mask;
-  const TileCopy<D> tile(tid);
+  const PairCopy<D> pair(tid);
 
   // Q, dO, lse and delta of q tile qt_lo + it into stage st, one cp.async
   // group.
   auto issue = [&](int it, int st) {
     const int q0 = (qt_lo + it) * kRows;
-    unsigned char* dst = base + lay.qd + st * 2 * kTile;
-    tile.copy(dst, q_bh, q0, sq);
-    tile.copy(dst + kTile, do_bh, q0, sq);
+    pair.copy(base + lay.qd + st * 2 * kTile, q_bh, do_bh, q0, sq);
     if (tid < kLdChunks) {
       const int is_delta = tid >= kLdChunks / 2;
       const int c = (tid - is_delta * kLdChunks / 2) * 4;
@@ -520,8 +564,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
   // K and V rows of this tile (keys past Sk are zero) and the mask bytes;
   // they join the first iteration's group.
-  tile.copy(base + lay.k, k_bh, k0, sk);
-  tile.copy(base + lay.k + kTile, v_bh, k0, sk);
+  pair.copy(base + lay.k, k_bh, v_bh, k0, sk);
   if (mask_b != nullptr && tid < kKeys / 16)
     cp_async16(mask_s + tid * 16, mask_b + k0 + tid * 16, true);
   if (n_iter > 0) issue(0, 0);
@@ -701,15 +744,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* mask, void* dq,
               int b, int h, int hkv, int sq, int sk, int sk_pad, int sq_pad,
               int causal, int q_offset, int window, cudaStream_t stream) {
+  CUtensorMap q_map, do_map, k_map, v_map;
+  if (!tensor_map(&q_map, q, D, sq, b * h) ||
+      !tensor_map(&do_map, dout, D, sq, b * h) ||
+      !tensor_map(&k_map, k, D, sk, b * hkv) ||
+      !tensor_map(&v_map, v, D, sk, b * hkv))
+    return kErrTensorMap;
   const size_t smem = DqSmem(D).total;
   auto fn = flash_bwd_dq_kernel<D>;
   if (int err = set_smem(fn, smem)) return err;
   const dim3 grid(sq_pad / kRows, h, b);
-  fn<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+  fn<<<grid, kDqThreads, smem, stream>>>(
+      q_map, do_map, k_map, v_map, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
       static_cast<__nv_bfloat16*>(dq), b, h, hkv, sq, sk, sk_pad, sq_pad,
       causal, q_offset, window, 1.0f / sqrtf((float)D));
@@ -817,6 +863,8 @@ const char* kftt_error_string(int code) {
     case kErrShape:
       return "B, Sq, Sk must be >= 1, Sk_pad a multiple of 64 and Sq_pad a "
              "multiple of 64";
+    case kErrTensorMap:
+      return "cuTensorMapEncodeTiled is missing or refused a map";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -1,10 +1,13 @@
-// Device helpers shared by the port's hand-written kernels: bf16 packing,
-// the mma.sync m16n8k16 tensor-core product (bf16 in, f32 accumulate),
-// cp.async 16-byte copies with their group commit/wait, and Hopper's
+// Helpers shared by the port's hand-written kernels: bf16 packing, the
+// mma.sync m16n8k16 tensor-core product (bf16 in, f32 accumulate),
+// cp.async 16-byte copies with their group commit/wait, Hopper's
 // warpgroup products (wgmma, sm_90a only) with the 128-byte-swizzled
-// shared-memory layout and descriptors they read.
+// shared-memory layout and descriptors they read, mbarriers and the Tensor
+// Memory Accelerator (TMA), and on the host the TMA maps the kernels'
+// copies read.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -265,6 +268,54 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// cuTensorMapEncodeTiled, a driver function, reached through the runtime
+// so a library links no driver library of its own.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a (planes, rows, d) bf16 tensor: boxes of 64 rows × 64
+// values (128 bytes), 128-byte swizzled as wgmma reads them; rows past
+// `rows` read as zeros. False when the driver has no encoder or refuses
+// the map.
+inline bool tensor_map(CUtensorMap* map, const void* data, int d, int rows,
+                       int planes) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)d * 2 * rows};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(data), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace kftt
