@@ -108,8 +108,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16 weights on batches of a
    numpy corpus through the port's ``TokenLoader``: step 1's loss and
    grads with the kernels against plain attention (``impl="xla"``): loss
-   and global grad norm within 2e-2 relative, layer 0's and the last
-   layer's wq grads at cosine >= 0.99; then 3 optimizer steps, each with
+   and global grad norm within 2e-2 relative; layer 0's and the last
+   layer's wq grads at cosine >= 0.99 with the backward kernels under the
+   plain forward, and with every kernel wherever plain attention nudged
+   by one bf16 rounding of its output stays inside that cosine (llama-3-8b
+   does; gemma-2b's random-weight wq grads do not, so there the
+   all-kernels cosine is printed beside the nudge's); then 3 optimizer
+   steps, each with
    exactly 2 × n_layers flash forward, n_layers dQ and n_layers dK/dV
    launches, after which the loss on step 1's batch must be finite and
    below step 1's. Peak memory and tokens/s are printed as a smoke run's,
@@ -1675,6 +1680,44 @@ def _train_corpus(tmp: str, vocab: int) -> str:
                                 rng.integers(0, min(vocab, 1000), 1 << 20)))
 
 
+@contextlib.contextmanager
+def _attention(fwd=None, bwd=None):
+    """Route ``FlashAttention``'s forward and/or backward through other
+    functions for the duration (impl "auto" only)."""
+    saved = attn_mod.flash_attention_fwd, attn_mod.flash_attention_bwd
+    attn_mod.flash_attention_fwd = fwd or saved[0]
+    attn_mod.flash_attention_bwd = bwd or saved[1]
+    try:
+        yield
+    finally:
+        attn_mod.flash_attention_fwd, attn_mod.flash_attention_bwd = saved
+
+
+def _plain_fwd(q, k, v, causal=True, q_offset=0, window=0, kv_mask=None):
+    return flash_attention_reference(q, k, v, causal, q_offset, window,
+                                     kv_mask)
+
+
+def _plain_bwd(q, k, v, out, lse, dout, causal=True, q_offset=0, window=0,
+               kv_mask=None):
+    grads = flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, dout.float(),
+        causal, q_offset, window, kv_mask)
+    return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
+
+
+def _nudged_fwd(gen):
+    """The plain forward with each output value moved by a random
+    2^-9 · N(0, 1) of itself (the size of one bf16 rounding) before it is
+    rounded: what any correct bf16 forward may differ from it by."""
+    def fwd(q, k, v, causal=True, q_offset=0, window=0, kv_mask=None):
+        out, lse = flash_attention_reference(
+            q.float(), k.float(), v.float(), causal, q_offset, window, kv_mask)
+        noise = torch.randn(out.shape, generator=gen, device=out.device)
+        return (out * (1 + 2.0 ** -9 * noise)).to(q.dtype), lse
+    return fwd
+
+
 def _loss_and_grads(params, cfg, tokens, impl: str):
     """Step 1's chunked loss and grads through ``impl`` attention: (loss,
     global grad norm, layer 0's and the last layer's wq grads in f32)."""
@@ -1689,11 +1732,22 @@ def _loss_and_grads(params, cfg, tokens, impl: str):
     return out
 
 
+def _wq_cos(a, b) -> list[float]:
+    return [float(F.cosine_similarity(x.flatten(), y.flatten(), dim=0))
+            for x, y in zip(a[2], b[2])]
+
+
 def train_phase(cfg):
     """Phase 7: ``cfg`` at full width, random bf16 weights from the seed,
     B 1, S 2048, remat "full", loss chunk 512, AdamW, tokens from the
     port's TokenLoader. Step 1's loss and grads with the kernels against
-    plain attention; then TRAIN_STEPS optimizer steps, each launching the
+    plain attention: loss and grad norm within TRAIN_TOL; the wq grads of
+    the backward kernels under the plain forward at TRAIN_TOL's cosine;
+    and the wq grads of all the kernels at that cosine wherever it can
+    judge them, i.e. where plain attention with its output nudged by one
+    bf16 rounding (``_nudged_fwd``) stays inside it (else they are
+    printed beside the nudge's). Then TRAIN_STEPS optimizer steps, each
+    launching the
     flash forward 2 × n_layers times (forward and the remat recompute) and
     each backward kernel n_layers times; the loss on step 1's batch after
     them must be below step 1's. Returns {kernel: launches in those
@@ -1715,6 +1769,11 @@ def train_phase(cfg):
 
     params.requires_grad_(True)
     plain = _loss_and_grads(params, cfg, batches[0], "xla")
+    with _attention(fwd=_plain_fwd):
+        bwd_only = _loss_and_grads(params, cfg, batches[0], "auto")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    with _attention(fwd=_nudged_fwd(gen), bwd=_plain_bwd):
+        nudged = _loss_and_grads(params, cfg, batches[0], "auto")
     _zero_counts()
     kern = _loss_and_grads(params, cfg, batches[0], "auto")
     torch.cuda.synchronize()
@@ -1724,18 +1783,29 @@ def train_phase(cfg):
           == (2 * n, n, n), f"step 1 with the kernels launched {counts}")
     loss_rel = abs(kern[0] - plain[0]) / abs(plain[0])
     norm_rel = abs(kern[1] - plain[1]) / plain[1]
-    cos = [float(F.cosine_similarity(a.flatten(), b.flatten(), dim=0))
-           for a, b in zip(kern[2], plain[2])]
+    cos, cos_bwd, cos_nudged = (_wq_cos(x, plain)
+                                for x in (kern, bwd_only, nudged))
     log(f"  step 1, kernels vs plain attention: loss {kern[0]:.6f} vs "
         f"{plain[0]:.6f} (rel {loss_rel:.3e}), grad norm {kern[1]:.6f} vs "
         f"{plain[1]:.6f} (rel {norm_rel:.3e}), wq grad cosine layer 0 "
-        f"{cos[0]:.6f}, layer {n - 1} {cos[1]:.6f}")
+        f"{cos[0]:.6f}, layer {n - 1} {cos[1]:.6f}; the backward kernels "
+        f"under the plain forward {cos_bwd[0]:.6f}, {cos_bwd[1]:.6f}; plain "
+        f"attention nudged by one bf16 rounding {cos_nudged[0]:.6f}, "
+        f"{cos_nudged[1]:.6f}")
     check(all(math.isfinite(x) for x in (kern[0], kern[1], plain[0], plain[1])),
           "non-finite step-1 loss or grad norm")
+    check(min(cos_bwd) >= TRAIN_TOL["wq_cos"],
+          f"wq grad cosine of the backward kernels {cos_bwd}")
     check(loss_rel <= TRAIN_TOL["loss_rel"], f"step-1 loss rel {loss_rel}")
     check(norm_rel <= TRAIN_TOL["grad_norm_rel"], f"grad norm rel {norm_rel}")
-    check(min(cos) >= TRAIN_TOL["wq_cos"], f"wq grad cosine {cos}")
-    del plain, kern
+    if min(cos_nudged) >= TRAIN_TOL["wq_cos"]:
+        check(min(cos) >= TRAIN_TOL["wq_cos"], f"wq grad cosine {cos}")
+    else:
+        log(f"  {cfg.n_layers}-layer model's wq grads move to cosine "
+            f"{min(cos_nudged):.6f} under one bf16 rounding of attention's "
+            "output: the all-kernels cosine is printed, not gated; the "
+            "forward is held to the plain version in phase 3")
+    del plain, kern, bwd_only, nudged
 
     init_state, step_fn = train_mod.make_train_step(
         cfg, remat="full", loss_chunk=LOSS_CHUNK)

@@ -288,6 +288,40 @@ def test_train_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     assert launched == {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n}
 
 
+def test_train_phase_gates_the_backward_kernels_wq_cosine(smoke, no_card,
+                                                          monkeypatch):
+    """A backward stand-in whose dq is 0 (a dQ kernel that wrote nothing)
+    under the plain forward fails the backward kernels' wq cosine gate."""
+    _stand_in_kernels(smoke, monkeypatch)
+    counting = TA.flash_attention_bwd
+
+    def no_dq(*a, **kw):
+        dq, dk, dv = counting(*a, **kw)
+        return torch.zeros_like(dq), dk, dv
+
+    monkeypatch.setattr(TA, "flash_attention_bwd", no_dq)
+    with pytest.raises(AssertionError, match="of the backward kernels"):
+        smoke.train_phase(TL.LLAMA_CONFIGS["tiny"])
+
+
+def test_train_phase_without_the_all_kernels_gate_where_a_nudge_fails_it(
+        smoke, no_card, monkeypatch, capsys):
+    """Where plain attention with its output nudged leaves TRAIN_TOL's
+    cosine (here the nudge is a sign flip), the all-kernels wq cosine is
+    printed, not gated, and the phase goes on."""
+    _stand_in_kernels(smoke, monkeypatch)
+
+    def flipped(gen):
+        def fwd(*a, **kw):
+            out, lse = TA.flash_attention_reference(*a, **kw)
+            return -out, lse
+        return fwd
+
+    monkeypatch.setattr(smoke, "_nudged_fwd", flipped)
+    smoke.train_phase(TL.LLAMA_CONFIGS["tiny"])
+    assert "printed, not gated" in capsys.readouterr().out
+
+
 def test_train_phases_with_gemma_rehearsed_on_the_cpu(smoke, no_card,
                                                       monkeypatch):
     """Phase 7 as the card runs it, a llama config and then a gemma one
