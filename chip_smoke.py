@@ -1683,7 +1683,8 @@ def _train_corpus(tmp: str, vocab: int) -> str:
 @contextlib.contextmanager
 def _attention(fwd=None, bwd=None):
     """Route ``FlashAttention``'s forward and/or backward through other
-    functions for the duration (impl "auto" only)."""
+    functions of the wrappers' arguments for the duration (impl "auto"
+    only)."""
     saved = attn_mod.flash_attention_fwd, attn_mod.flash_attention_bwd
     attn_mod.flash_attention_fwd = fwd or saved[0]
     attn_mod.flash_attention_bwd = bwd or saved[1]
@@ -1691,19 +1692,6 @@ def _attention(fwd=None, bwd=None):
         yield
     finally:
         attn_mod.flash_attention_fwd, attn_mod.flash_attention_bwd = saved
-
-
-def _plain_fwd(q, k, v, causal=True, q_offset=0, window=0, kv_mask=None):
-    return flash_attention_reference(q, k, v, causal, q_offset, window,
-                                     kv_mask)
-
-
-def _plain_bwd(q, k, v, out, lse, dout, causal=True, q_offset=0, window=0,
-               kv_mask=None):
-    grads = flash_attention_bwd_reference(
-        q.float(), k.float(), v.float(), out.float(), lse, dout.float(),
-        causal, q_offset, window, kv_mask)
-    return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
 def _nudged_fwd(gen):
@@ -1769,10 +1757,10 @@ def train_phase(cfg):
 
     params.requires_grad_(True)
     plain = _loss_and_grads(params, cfg, batches[0], "xla")
-    with _attention(fwd=_plain_fwd):
+    with _attention(fwd=flash_attention_reference):
         bwd_only = _loss_and_grads(params, cfg, batches[0], "auto")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    with _attention(fwd=_nudged_fwd(gen), bwd=_plain_bwd):
+    with _attention(fwd=_nudged_fwd(gen), bwd=flash_attention_bwd_reference):
         nudged = _loss_and_grads(params, cfg, batches[0], "auto")
     _zero_counts()
     kern = _loss_and_grads(params, cfg, batches[0], "auto")
