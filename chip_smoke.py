@@ -367,6 +367,8 @@ FLASH_CASES = [(c, 128, f"small#{i}") for i, c in enumerate(FLASH_SMALL)] + [
     # GQA groups of 1 and 8 (the cases above have groups 1, 2 and 4).
     ((1, 8, 8, 320, 320, True, 0, 0, (45,)), 128, "group-1"),
     ((2, 16, 2, 260, 452, True, 192, 0, None), 128, "group-8"),
+    # gemma-2b's training forward: 8 q heads over 1 kv head, head dim 256.
+    ((1, 8, 1, 2048, 2048, True, 0, 0, None), 256, "gemma-2b-2048"),
 ]
 LSE_TOL = 1e-3
 FLASH_DESIGN = (
@@ -996,32 +998,30 @@ def _bwd_bounds(case) -> dict:
 
 def _sdpa_backward_call(case):
     """One SDPA backward over the same work: causal, dq, dk and dv in one
-    call. It asks for the flash backend with ``enable_gqa``; where that is
-    refused, the flash backend over K/V repeated to the q heads (the repeat
-    is set-up, untimed, and its grads are summed back over each group for
-    the check); where that is refused too, whichever backend SDPA picks.
-    Checked once against the plain version. Returns (call, backend)."""
+    call, on the flash backend only: with ``enable_gqa``, or where that is
+    refused, over K/V repeated to the q heads (the repeat is set-up,
+    untimed, and its grads are summed back over each group for the check).
+    Raises if the flash backend refuses both, so that the yardstick never
+    quietly becomes a slower backend. Checked once against the plain
+    version. Returns (call, backend)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     q, k, v, dout = (case[n].detach() for n in ("q", "k", "v", "dout"))
     group = q.shape[1] // k.shape[1]
     qg = q.clone().requires_grad_()
-    attempts = (("flash, enable_gqa", [SDPBackend.FLASH_ATTENTION], False),
-                ("flash, K/V repeated", [SDPBackend.FLASH_ATTENTION], True),
-                ("SDPA's choice, K/V repeated", None, True))
-    for backend, backends, repeat in attempts:
+    for backend, repeat in (("flash, enable_gqa", False),
+                            ("flash, K/V repeated", True)):
         kg, vg = ((x.repeat_interleave(group, dim=1) if repeat else x.clone())
                   .detach().requires_grad_() for x in (k, v))
         try:
-            with (sdpa_kernel(backends) if backends
-                  else contextlib.nullcontext()):
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
                 out = F.scaled_dot_product_attention(
                     qg, kg, vg, is_causal=True, enable_gqa=not repeat)
             break
         except RuntimeError as err:
-            log(f"  SDPA refused {backend} ({str(err)[:80]})")
+            log(f"  SDPA flash backend refused {backend} ({str(err)[:80]})")
     else:
-        raise AssertionError("SDPA ran the backward on no backend")
+        raise AssertionError("SDPA's flash backend refused the backward")
     log(f"  SDPA backward yardstick: {backend}")
 
     def call():
@@ -1123,14 +1123,13 @@ def _timing_flash_bwd_case(shape, d) -> dict:
     return rows
 
 
-def timing_flash_bwd(names=None) -> dict:
+def timing_flash_bwd() -> dict:
     """Phase 4, flash backward: {shape name: {"dq" | "dkv": row}} for the
-    BWD_TIMED shapes (all, or those in ``names``)."""
+    BWD_TIMED shapes."""
     rows = {}
     for name, shape, d in BWD_TIMED:
-        if names is None or name in names:
-            log(f"  flash bwd at {name} (D {d}):")
-            rows[name] = _timing_flash_bwd_case(shape, d)
+        log(f"  flash bwd at {name} (D {d}):")
+        rows[name] = _timing_flash_bwd_case(shape, d)
     return rows
 
 
@@ -1670,6 +1669,19 @@ LOSS_CHUNK = 512
 # attention (impl="xla"): bf16 weights and activations, the two paths
 # rounding attention's output and grads at other places.
 TRAIN_TOL = {"loss_rel": 2e-2, "grad_norm_rel": 2e-2, "wq_cos": 0.99}
+# The all-kernels wq cosine of each layer must reach TRAIN_TOL's, or where
+# plain attention with its output nudged by one bf16 rounding
+# (``_nudged_fwd``) falls below that itself, the nudge's cosine less this
+# margin. A correct bf16 forward rounds less than the nudge moves: on
+# gemma-2b at random init the kernels and SDPA both read 0.951 / 0.923 and
+# the nudge 0.930 / 0.895, two draws of the nudge 0.003 apart (PERF.md §6).
+# On llama-3-8b the nudge reads 0.9997, so its gate stays at 0.99.
+WQ_NUDGE_MARGIN = 0.005
+
+
+def _wq_cos_floor(cos_nudged) -> list[float]:
+    """Each layer's least all-kernels wq cosine, from the nudge's."""
+    return [min(TRAIN_TOL["wq_cos"], c - WQ_NUDGE_MARGIN) for c in cos_nudged]
 
 
 def _train_corpus(tmp: str, vocab: int) -> str:
@@ -1729,13 +1741,10 @@ def train_phase(cfg):
     """Phase 7: ``cfg`` at full width, random bf16 weights from the seed,
     B 1, S 2048, remat "full", loss chunk 512, AdamW, tokens from the
     port's TokenLoader. Step 1's loss and grads with the kernels against
-    plain attention: loss and grad norm within TRAIN_TOL; the wq grads of
-    the backward kernels under the plain forward at TRAIN_TOL's cosine;
-    and the wq grads of all the kernels at that cosine wherever it can
-    judge them, i.e. where plain attention with its output nudged by one
-    bf16 rounding (``_nudged_fwd``) stays inside it (else they are
-    printed beside the nudge's). Then TRAIN_STEPS optimizer steps, each
-    launching the
+    plain attention: the wq grads of the backward kernels under the plain
+    forward at TRAIN_TOL's cosine, those of all the kernels at
+    ``_wq_cos_floor`` of the nudge's, loss and grad norm within TRAIN_TOL.
+    Then TRAIN_STEPS optimizer steps, each launching the
     flash forward 2 × n_layers times (forward and the remat recompute) and
     each backward kernel n_layers times; the loss on step 1's batch after
     them must be below step 1's. Returns {kernel: launches in those
@@ -1773,26 +1782,23 @@ def train_phase(cfg):
     norm_rel = abs(kern[1] - plain[1]) / plain[1]
     cos, cos_bwd, cos_nudged = (_wq_cos(x, plain)
                                 for x in (kern, bwd_only, nudged))
+    cos_floor = _wq_cos_floor(cos_nudged)
     log(f"  step 1, kernels vs plain attention: loss {kern[0]:.6f} vs "
         f"{plain[0]:.6f} (rel {loss_rel:.3e}), grad norm {kern[1]:.6f} vs "
         f"{plain[1]:.6f} (rel {norm_rel:.3e}), wq grad cosine layer 0 "
         f"{cos[0]:.6f}, layer {n - 1} {cos[1]:.6f}; the backward kernels "
         f"under the plain forward {cos_bwd[0]:.6f}, {cos_bwd[1]:.6f}; plain "
         f"attention nudged by one bf16 rounding {cos_nudged[0]:.6f}, "
-        f"{cos_nudged[1]:.6f}")
+        f"{cos_nudged[1]:.6f}, so the kernels' cosine is held at "
+        f"{cos_floor[0]:.6f}, {cos_floor[1]:.6f}")
     check(all(math.isfinite(x) for x in (kern[0], kern[1], plain[0], plain[1])),
           "non-finite step-1 loss or grad norm")
     check(min(cos_bwd) >= TRAIN_TOL["wq_cos"],
           f"wq grad cosine of the backward kernels {cos_bwd}")
+    check(all(c >= f for c, f in zip(cos, cos_floor)),
+          f"wq grad cosine of all the kernels {cos} below {cos_floor}")
     check(loss_rel <= TRAIN_TOL["loss_rel"], f"step-1 loss rel {loss_rel}")
     check(norm_rel <= TRAIN_TOL["grad_norm_rel"], f"grad norm rel {norm_rel}")
-    if min(cos_nudged) >= TRAIN_TOL["wq_cos"]:
-        check(min(cos) >= TRAIN_TOL["wq_cos"], f"wq grad cosine {cos}")
-    else:
-        log(f"  {cfg.n_layers}-layer model's wq grads move to cosine "
-            f"{min(cos_nudged):.6f} under one bf16 rounding of attention's "
-            "output: the all-kernels cosine is printed, not gated; the "
-            "forward is held to the plain version in phase 3")
     del plain, kern, bwd_only, nudged
 
     init_state, step_fn = train_mod.make_train_step(

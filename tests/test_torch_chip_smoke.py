@@ -304,22 +304,35 @@ def test_train_phase_gates_the_backward_kernels_wq_cosine(smoke, no_card,
         smoke.train_phase(TL.LLAMA_CONFIGS["tiny"])
 
 
-def test_train_phase_without_the_all_kernels_gate_where_a_nudge_fails_it(
-        smoke, no_card, monkeypatch, capsys):
-    """Where plain attention with its output nudged leaves TRAIN_TOL's
-    cosine (here the nudge is a sign flip), the all-kernels wq cosine is
-    printed, not gated, and the phase goes on."""
+def test_train_phase_gates_the_all_kernels_wq_cosine(smoke, no_card,
+                                                     monkeypatch):
+    """A forward stand-in that scales the scores twice over (a wrong
+    softmax scale) under the plain backward's stand-in fails the
+    all-kernels wq cosine gate, which the nudge holds at 0.99 here."""
     _stand_in_kernels(smoke, monkeypatch)
+    counting = TA.flash_attention_fwd
 
-    def flipped(gen):
-        def fwd(*a, **kw):
-            out, lse = TA.flash_attention_reference(*a, **kw)
-            return -out, lse
-        return fwd
+    def hot(q, *a, **kw):
+        return counting(q * 2, *a, **kw)
 
-    monkeypatch.setattr(smoke, "_nudged_fwd", flipped)
-    smoke.train_phase(TL.LLAMA_CONFIGS["tiny"])
-    assert "printed, not gated" in capsys.readouterr().out
+    monkeypatch.setattr(TA, "flash_attention_fwd", hot)
+    with pytest.raises(AssertionError, match="of all the kernels"):
+        smoke.train_phase(TL.LLAMA_CONFIGS["tiny"])
+
+
+# wq grad cosines at layers 0 and last on the card (PERF.md §6, PR 8): the
+# nudge's, the least each layer's all-kernels cosine may be, and the
+# kernels' own readings, which must pass.
+@pytest.mark.parametrize("nudged,floor,kernels", [
+    ((0.999699, 0.999787), (0.99, 0.99), (0.999735, 0.999842)),  # llama-3-8b
+    ((0.929557, 0.894733), (0.924557, 0.889733), (0.950978, 0.922978)),
+])
+def test_wq_cos_floor_is_the_bound_or_just_under_the_nudge(smoke, nudged,
+                                                           floor, kernels):
+    got = smoke._wq_cos_floor(nudged)
+    assert got == pytest.approx(floor, abs=1e-12)
+    assert all(c >= f for c, f in zip(kernels, got))
+    assert all(f <= smoke.TRAIN_TOL["wq_cos"] for f in got)
 
 
 def test_train_phases_with_gemma_rehearsed_on_the_cpu(smoke, no_card,
@@ -360,6 +373,13 @@ def test_backward_cases_cover_every_head_dim_the_kernels_take(smoke):
     timed = {name: (shape, d) for name, shape, d in smoke.BWD_TIMED}
     assert timed == {"train-2048": (smoke.BWD_TRAIN, 128),
                      "gemma-2b-2048": (smoke.BWD_GEMMA, 256)}
+
+
+def test_forward_cases_cover_every_timed_backward_shape(smoke):
+    """The forward kernel that feeds each timed backward shape (O and lse)
+    is held to its plain version at that shape in phase 3."""
+    checked = {(shape, d) for shape, d, _ in smoke.FLASH_CASES}
+    assert all((shape, d) in checked for _, shape, d in smoke.BWD_TIMED)
 
 
 def _fwd_twice(smoke):
