@@ -52,8 +52,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    an idle slot and a stale length. Dense decode: the CPU suite's layouts
    and the main-path decode (8 slots, C 1024, lengths 8..576), a mask with
    a hole, an idle slot (all-False row, exactly 0) and a slot at
-   seq_len == C. Flash backward (dQ, dK/dV) on the forward kernel's O and
-   lse, against its plain f32 version: the CPU suite's cases (among them
+   seq_len == C. Both decode kernels also: lengths at a boundary of
+   their runs of keys and one either side, a masked span longer than a
+   run, an idle slot and a stale length beside slots over several runs,
+   head dims 64 and 256 and gemma-2b's heads over several runs, and at
+   llama-3-8b's heads 8 slots of 512..4096 keys and one of 8192; each
+   case run twice, its output equal bit for bit. Flash backward (dQ,
+   dK/dV) on the forward kernel's O and lse, against its plain f32
+   version: the CPU suite's cases (among them
    a group of 8 q heads per kv head with a q_offset, and a group of 1
    with left-padded keys), the training shape (Hq 32, Hkv 8, S 2048,
    D 128, causal), a window with a q_offset, a left-padded mask, rows
@@ -70,9 +76,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    version, and one library call (a
    yardstick the port never calls: ``scaled_dot_product_attention`` over
    a per-slot batched view, with ``enable_gqa`` for the flash and decode
-   kernels, over ``cache[:, :, :max_len]`` for the dense decode kernel),
-   beside the least time the card could take (bytes over 3.35 TB/s, FLOPs
-   of the visible pairs over 989 TFLOP/s); the flash forward at the
+   kernels), beside the least time the card could take (bytes over 3.35
+   TB/s, FLOPs of the visible pairs over 989 TFLOP/s); both decode
+   kernels at the main-path decode, 8 slots of 512..4096 keys and one
+   slot of 8192, each with the CTAs and kernels its call launched (read
+   from profiler traces) and SDPA by its own dispatch, the keys cut to
+   the live prefix where that is the whole visibility (else the
+   visibility as a mask), the backend that ran named from its kernels;
+   the paged kernel's main-path keys also gathered into a dense cache
+   and timed through the dense kernel; the flash forward at the
    main-path prefill, a 528-row continuation, the training shape and
    S 16384, against SDPA with ``is_causal`` wherever that states the
    case's visibility (square, causal, q_offset 0, no window, no mask),
@@ -156,6 +168,7 @@ from kubeflow_tpu_torch.models import train as train_mod
 from kubeflow_tpu_torch.models.serving import GenerationConfig
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import attention as attn_mod
+from kubeflow_tpu_torch.ops import paged_attention as decode_mod
 from kubeflow_tpu_torch.ops.attention import (
     NEG_INF,
     flash_attention_bwd,
@@ -584,6 +597,12 @@ def flash_bwd_vs_plain():
 DEC_SMALL = dict(hq=8, hkv=4, d=128, bs=16, maxb=6, nb=32)
 DEC_MAIN = dict(hq=32, hkv=8, d=128, bs=16, maxb=37, nb=8 * 37 + 1)
 DEC_MAIN_LENS = [int(x) for x in np.linspace(8, 576, 8)]
+# Six slots over a 1024-key span, and llama-3-8b's heads over long spans.
+DEC_SPLIT = dict(hq=8, hkv=4, d=128, bs=16, maxb=64, nb=6 * 64 + 1)
+SPLIT_LENS = [255, 256, 257, 511, 512, 513]
+DEC_LONG = dict(hq=32, hkv=8, d=128, bs=16, maxb=256, nb=8 * 256 + 1)
+DEC_SINGLE = dict(hq=32, hkv=8, d=128, bs=16, maxb=512, nb=512 + 1)
+LONG_LENS = [int(x) for x in np.linspace(512, 4096, 8)]
 DEC_CASES = [
     ([17, 40, 96], DEC_SMALL, {}, "partial-tails"),
     ([1, 33, 96], DEC_SMALL, {"all_true": True}, "all-true"),
@@ -595,11 +614,30 @@ DEC_CASES = [
     (DEC_MAIN_LENS, DEC_MAIN, {"pad_frac": 0.25}, "main-decode"),
     ([17, 40, 96], {**DEC_SMALL, "d": 64}, {}, "d64"),
     ([17, 40, 96], {**DEC_SMALL, "d": 256}, {}, "d256"),
+    # Slots whose histories span several of the kernel's runs of keys
+    # (decode_splits: 64, 128, 256 or 512 keys): lengths at 256 and 512
+    # keys, a run boundary for each, and one key either side; a
+    # masked span longer than a run, so that a whole run sees no key; an
+    # idle slot and a stale length beside split slots; head dims 64 and
+    # 256, and gemma-2b's heads (8 q, 1 kv, D 256).
+    (SPLIT_LENS, DEC_SPLIT, {}, "split-bounds"),
+    ([700, 900], DEC_SPLIT, {"hole": (0, 60, 600)}, "masked-run"),
+    ([300, 1, 10_000, 700], DEC_SPLIT, {"idle": (1,)}, "idle-stale-split"),
+    ([100, 300, 513, 1024], {**DEC_SPLIT, "d": 64}, {"pad_frac": 0.25},
+     "split-d64"),
+    ([100, 300, 513, 1024], {**DEC_SPLIT, "d": 256}, {"pad_frac": 0.25},
+     "split-d256"),
+    ([129, 700, 1000], {**DEC_SPLIT, "hq": 8, "hkv": 1, "d": 256}, {},
+     "split-gemma"),
+    # Long histories at llama-3-8b's heads: 8 slots of 512..4096 keys, a
+    # quarter of each left padding, and one slot of 8192.
+    (LONG_LENS, DEC_LONG, {"pad_frac": 0.25}, "long-4096"),
+    ([8192], DEC_SINGLE, {}, "single-8192"),
 ]
 
 
 def _decode_case(seq_lens, *, hq, hkv, d, bs, maxb, nb, seed, all_true=False,
-                 holes=False, idle=(), pad_frac=0.0):
+                 holes=False, hole=None, idle=(), pad_frac=0.0):
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     b = len(seq_lens)
 
@@ -618,6 +656,9 @@ def _decode_case(seq_lens, *, hq, hkv, d, bs, maxb, nb, seed, all_true=False,
     if holes:
         kv_mask[0, 5:9] = False
         kv_mask[1, 16:32] = False  # a wholly masked block
+    if hole is not None:
+        row, lo, hi = hole
+        kv_mask[row, lo:hi] = False
     for i in idle:
         tables[i] = 0
         seq[i] = 1
@@ -627,16 +668,26 @@ def _decode_case(seq_lens, *, hq, hkv, d, bs, maxb, nb, seed, all_true=False,
                 seq_lens=seq, block_size=bs)
 
 
+def check_decode_repeat(first, again, name: str) -> None:
+    """A decode kernel twice on the same inputs must give the same bits:
+    each output is written once, by one thread, and the merge of a slot's
+    runs adds them in split order, whichever run finished last."""
+    check(_same_bits(first, again),
+          f"{name}: the output differs between two runs on the same inputs")
+
+
 def _decode_vs_plain(label, cases, make_case, kernel, reference, kv_names):
     """Phase 3 for a decode kernel: each case through ``kernel`` and
     through ``reference`` on the same values in f32 (``kv_names`` the two
-    K/V inputs); idle rows must be exactly 0. Returns {gate: the worst
+    K/V inputs); idle rows must be exactly 0, and a second run of the
+    kernel must repeat the first bit for bit. Returns {gate: the worst
     error}."""
     k_name, v_name = kv_names
     worst: dict = {}
     for i, (lens, shape, opts, name, seed) in enumerate(cases):
         case = make_case(lens, seed=seed, **shape, **opts)
         out = kernel(**case)
+        check_decode_repeat(out, kernel(**case), f"{label} {name}")
         torch.cuda.synchronize()
         plain = {**case, **{n: case[n].float() for n in ("q", k_name, v_name)}}
         ref = reference(**plain)
@@ -644,9 +695,10 @@ def _decode_vs_plain(label, cases, make_case, kernel, reference, kv_names):
         errs = _diff_errors(out.float(), ref, ref_abs)
         finite = bool(torch.isfinite(out).all())
         idle_zero = all(bool((out[j] == 0).all()) for j in opts.get("idle", ()))
-        log(f"  {label} {name:14s}: " + " ".join(
+        log(f"  {label} {name:16s}: " + " ".join(
             f"max_{k}_err={v:.3e}" for k, v in errs.items())
-            + f" finite={finite} idle_rows_zero={idle_zero}")
+            + f" finite={finite} idle_rows_zero={idle_zero}"
+            " repeat_bit_equal=True")
         _gate(f"{label} {name}", errs, worst)
         check(finite and idle_zero, f"{label} {name}: non-finite output or "
                                     "an idle row not exactly 0")
@@ -668,6 +720,9 @@ def decode_vs_plain():
 # engine keeps it (the positional bound hides the rest).
 DENSE_SMALL = dict(hq=8, hkv=4, d=128, c=256)
 DENSE_MAIN = dict(hq=32, hkv=8, d=128, c=1024)
+DENSE_SPLIT = dict(hq=8, hkv=4, d=128, c=1024)
+DENSE_LONG = dict(hq=32, hkv=8, d=128, c=4096)
+DENSE_SINGLE = dict(hq=32, hkv=8, d=128, c=8192)
 DENSE_CASES = [
     ([1, 100, 256], DENSE_SMALL, {"hole": (1, 10, 20)}, "hole"),
     ([17, 65, 130], DENSE_SMALL, {}, "partial-blocks"),
@@ -683,6 +738,18 @@ DENSE_CASES = [
      "main-full"),
     ([17, 65, 130], {**DENSE_SMALL, "d": 64}, {}, "d64"),
     ([17, 65, 130], {**DENSE_SMALL, "d": 256}, {}, "d256"),
+    # Slots over several runs, as DEC_CASES; the stale length is past C.
+    (SPLIT_LENS, DENSE_SPLIT, {}, "split-bounds"),
+    ([700, 900], DENSE_SPLIT, {"hole": (0, 60, 600)}, "masked-run"),
+    ([300, 1, 10_000, 700], DENSE_SPLIT, {"idle": (1,)}, "idle-stale-split"),
+    ([100, 300, 513, 1024], {**DENSE_SPLIT, "d": 64}, {"pad_frac": 0.25},
+     "split-d64"),
+    ([100, 300, 513, 1024], {**DENSE_SPLIT, "d": 256}, {"pad_frac": 0.25},
+     "split-d256"),
+    ([129, 700, 1000], {**DENSE_SPLIT, "hq": 8, "hkv": 1, "d": 256}, {},
+     "split-gemma"),
+    (LONG_LENS, DENSE_LONG, {"pad_frac": 0.25}, "long-4096"),
+    ([8192], DENSE_SINGLE, {}, "single-8192"),
 ]
 
 
@@ -1158,57 +1225,64 @@ def _decode_bound(case):
     return _bound_of(nbytes, 4 * keys * hq * d)
 
 
-def _decode_library_call(case):
-    """One SDPA call over the per-slot gathered view (gather untimed) with
-    ``enable_gqa`` and the validity as a boolean mask; checked once
-    against the plain version."""
-    q, tables = case["q"], case["tables"].long()
-    b, hq, d = q.shape
-    _, hkv, bs, _ = case["k_pool"].shape
-    length = tables.shape[1] * bs
+def _live_prefix(case):
+    """n where every slot's visible keys are exactly its first n (no
+    padding, no hole, one length for all), else None."""
+    vis = _decode_visible(case)
+    n = int(vis[0].sum())
+    k_pos = torch.arange(vis.shape[1], device=DEVICE)
+    return n if bool((vis == (k_pos < n)[None, :]).all()) else None
 
-    def dense(pool):
-        return pool[tables].permute(0, 2, 1, 3, 4).reshape(b, hkv, length, d)
 
-    k, v = dense(case["k_pool"]), dense(case["v_pool"])
+# SDPA's backends, by a substring of the kernels each launches.
+SDPA_BACKENDS = (("cudnn", "cuDNN"), ("flash", "flash"), ("fmha", "efficient"))
+
+
+def _sdpa_decode_call(q, k, v, allowed, reference):
+    """One SDPA call, query length 1, with ``enable_gqa``, as PyTorch's own
+    dispatch runs it; ``allowed`` is None where the keys are cut to the
+    live prefix (so that a fused backend can take it), else the
+    visibility as a boolean mask. Checked once against ``reference``; the
+    backend that ran is named from the kernels of one traced call (math
+    when none is a fused backend's). Returns (call, backend name)."""
     qd = q[:, :, None, :]
-    allowed = _decode_visible(case)[:, None, None, :]
 
     def call():
         return F.scaled_dot_product_attention(qd, k, v, attn_mask=allowed,
                                               enable_gqa=True)
 
-    out = call()[:, :, 0]
-    ref = paged_decode_reference(**{**case, "q": q.float()})
-    err = float((out.float() - ref.float()).abs().max())
+    err = float((call()[:, :, 0].float() - reference.float()).abs().max())
     check(err <= TOL, f"decode library yardstick differs from the plain "
                       f"version by {err}")
-    return call
+    for _ in range(3):  # a trace now and then drops its kernel records
+        records = _kernel_records(call)
+        if records:
+            break
+    check(bool(records), "3 traces hold no kernel of the SDPA yardstick")
+    names = " ".join(ev.get("name", "") for ev in records).lower()
+    backend = next((label for needle, label in SDPA_BACKENDS
+                    if needle in names), "math")
+    return call, backend
 
 
-def _timing_decode(label, case, kernel, reference, library_call, bound):
-    """Phase 4 for a decode kernel at one case: the kernel, its plain
-    version, the library call and the bound."""
-    saved = kernel.launches
-    kernel_ms = _time_ms(lambda: kernel(**case))
-    kernel.launches = saved  # timing is no main path
-    plain_ms = _time_ms(lambda: reference(**case))
-    library_ms = _time_ms(library_call(case))
-    bound_ms, bound_by, work = bound(case)
-    log(f"  {label} main: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}; {work['bytes']} B, {work['flops']} FLOP)")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, **work)
+def _decode_library_call(case):
+    """One SDPA call over the per-slot gathered view (gather untimed):
+    over the live prefix alone where ``_live_prefix`` finds one, else with
+    the visibility as a boolean mask. Returns (call, backend name)."""
+    q, tables = case["q"], case["tables"].long()
+    b, hq, d = q.shape
+    _, hkv, bs, _ = case["k_pool"].shape
+    length = tables.shape[1] * bs
+    n = _live_prefix(case)
 
+    def dense(pool):
+        g = pool[tables].permute(0, 2, 1, 3, 4).reshape(b, hkv, length, d)
+        return g if n is None else g[:, :, :n].contiguous()
 
-def timing_decode():
-    """Phase 4, paged decode at the main-path decode shape."""
-    return _timing_decode(
-        "decode", _decode_case(DEC_MAIN_LENS, seed=500, pad_frac=0.25,
-                               **DEC_MAIN),
-        paged_decode_attention, paged_decode_reference,
-        _decode_library_call, _decode_bound)
+    allowed = None if n is not None else _decode_visible(case)[:, None, None]
+    return _sdpa_decode_call(
+        q, dense(case["k_pool"]), dense(case["v_pool"]), allowed,
+        paged_decode_reference(**{**case, "q": q.float()}))
 
 
 def _dense_bound(case):
@@ -1228,35 +1302,152 @@ def _dense_bound(case):
 
 
 def _dense_library_call(case):
-    """One SDPA call with ``enable_gqa`` over ``cache[:, :, :max_len]``
-    (the longest live prefix) with the validity as a boolean mask; checked
-    once against the plain version."""
+    """One SDPA call over ``cache[:, :, :n]``: n the live prefix where
+    ``_live_prefix`` finds one (no mask), else the longest live prefix
+    with the visibility as a boolean mask. Returns (call, backend name)."""
     q = case["q"]
-    max_len = min(int(case["seq_lens"].max()), case["k_cache"].shape[2])
-    k = case["k_cache"][:, :, :max_len]
-    v = case["v_cache"][:, :, :max_len]
-    qd = q[:, :, None, :]
-    allowed = _decode_visible(case)[:, None, None, :max_len]
+    n = _live_prefix(case)
+    max_len = n if n is not None else min(int(case["seq_lens"].max()),
+                                          case["k_cache"].shape[2])
+    allowed = (None if n is not None else
+               _decode_visible(case)[:, None, None, :max_len])
+    return _sdpa_decode_call(
+        q, case["k_cache"][:, :, :max_len], case["v_cache"][:, :, :max_len],
+        allowed, dense_decode_reference(**{**case, "q": q.float()}))
 
-    def call():
-        return F.scaled_dot_product_attention(qd, k, v, attn_mask=allowed,
-                                              enable_gqa=True)
 
-    out = call()[:, :, 0]
-    ref = dense_decode_reference(**{**case, "q": q.float()})
-    err = float((out.float() - ref.float()).abs().max())
-    check(err <= TOL, f"dense library yardstick differs from the plain "
-                      f"version by {err}")
-    return call
+DECODE_DESIGN = (
+    "one body for both kernels, mma.sync m16n8k16; grid (split, kv head, "
+    "slot), each CTA one run of 64..512 keys of one slot (decode_splits: "
+    "at most 32 runs a slot and 1024 CTAs a call) for the kv head's G q "
+    "rows, in 64-key tiles through two cp.async stages; runs past the "
+    "slot's live keys exit at once; paged: the run's table entries loaded "
+    "beside seq_len; a slot over several runs: f32 partials to scratch, "
+    "the last run by an atomic ticket merges them in split order (one "
+    "launch a call)")
+# The decode kernels' timed shapes, each built for the paged and the dense
+# kernel: the engine's main-path decode (llama-3-8b heads, 8 slots, lengths
+# 8..576, a quarter of each left padding; paged MAXB 37, dense C 1024), 8
+# slots of 512..4096 keys (MAXB 256, C 4096) and one slot of 8192 (MAXB
+# 512, C 8192).
+DECODE_TIMED = (
+    ("main-decode",
+     lambda: _decode_case(DEC_MAIN_LENS, seed=500, pad_frac=0.25, **DEC_MAIN),
+     lambda: _dense_case(DEC_MAIN_LENS, seed=700, pad_frac=0.25,
+                         **DENSE_MAIN)),
+    ("long-4096",
+     lambda: _decode_case(LONG_LENS, seed=501, pad_frac=0.25, **DEC_LONG),
+     lambda: _dense_case(LONG_LENS, seed=701, pad_frac=0.25, **DENSE_LONG)),
+    ("single-8192",
+     lambda: _decode_case([8192], seed=502, **DEC_SINGLE),
+     lambda: _dense_case([8192], seed=702, **DENSE_SINGLE)),
+)
+DECODE_ROW_KEYS = ("ms", "plain_ms", "library_ms", "library_backend",
+                   "bound_ms", "bound_by", "ctas")
+
+
+def _kernel_records(fn) -> list:
+    """The kernel records of one traced run of ``fn`` (card activity
+    only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [ev for ev in events if ev.get("cat") == "kernel"]
+
+
+def _timing_decode(label, case, kernel, reference, library_call, bound,
+                   needle):
+    """Phase 4 for a decode kernel at one case: the kernel, the CTAs and
+    kernels its call launched (read from profiler traces), its plain
+    version, the library call and the bound."""
+    saved = kernel.launches
+    kernel_ms = _time_ms(lambda: kernel(**case))
+    grids, records = _launch_grids(lambda: kernel(**case), {"ctas": needle})
+    kernel.launches = saved  # timing is no main path
+    ctas = sum(math.prod(g) for g in grids["ctas"])
+    per_call = len(records)
+    check(per_call == 1, f"{label}: one call launched {per_call} kernels "
+                         f"({[ev.get('name', '')[:40] for ev in records]})")
+    b, span = case["kv_mask"].shape
+    hkv = case["k_pool" if "k_pool" in case else "k_cache"].shape[1]
+    split, nsplit = decode_mod.decode_splits(span, b, hkv)
+    check(ctas == b * hkv * nsplit,
+          f"{label}: {ctas} CTAs launched, not {b}·{hkv}·{nsplit} for "
+          f"decode_splits' {nsplit} runs of {split} keys")
+    plain_ms = _time_ms(lambda: reference(**case))
+    call, backend = library_call(case)
+    library_ms = _time_ms(call)
+    bound_ms, bound_by, work = bound(case)
+    log(f"  {label}: kernel {kernel_ms:.4f} ms ({ctas} CTAs: {nsplit} runs "
+        f"of {split} keys a slot, {per_call} launch a call), plain "
+        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (SDPA {backend}), "
+        f"bound {bound_ms:.4f} ms ({bound_by}; {work['bytes']} B, "
+        f"{work['flops']} FLOP)")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_backend=backend, bound_ms=bound_ms,
+                bound_by=bound_by, ctas=ctas, split=split,
+                launches_per_call=per_call, **work)
+
+
+def timing_decode():
+    """Phase 4, paged decode: {shape name: row} at every DECODE_TIMED
+    shape; main-decode also times the dense kernel on the same keys
+    gathered into contiguous caches (``dense_on_gathered_ms``), which
+    leaves the table walk as the two kernels' only difference."""
+    rows = {}
+    for name, make, _ in DECODE_TIMED:
+        case = make()
+        rows[name] = _timing_decode(
+            f"decode {name}", case, paged_decode_attention,
+            paged_decode_reference, _decode_library_call, _decode_bound,
+            "paged_decode_kernel")
+        if name == "main-decode":
+            rows[name]["dense_on_gathered_ms"] = _dense_on_gathered_ms(case)
+        del case
+    return rows
+
+
+def _dense_on_gathered_ms(case) -> float:
+    """The dense kernel's time on a paged case's keys gathered into
+    (B, Hkv, MAXB·BS, D) caches, with its mask and lengths."""
+    tables = case["tables"].long()
+    b, _, d = case["q"].shape
+    _, hkv, bs, _ = case["k_pool"].shape
+
+    def dense(pool):
+        return (pool[tables].permute(0, 2, 1, 3, 4)
+                .reshape(b, hkv, tables.shape[1] * bs, d).contiguous())
+
+    gathered = dict(q=case["q"], k_cache=dense(case["k_pool"]),
+                    v_cache=dense(case["v_pool"]), kv_mask=case["kv_mask"],
+                    seq_lens=case["seq_lens"], block_size=bs)
+    saved = dense_decode_attention.launches
+    ms = _time_ms(lambda: dense_decode_attention(**gathered))
+    dense_decode_attention.launches = saved
+    log(f"  dense kernel on the gathered main-decode keys: {ms:.4f} ms")
+    return ms
 
 
 def timing_dense():
-    """Phase 4, dense decode at the main-path decode shape."""
-    return _timing_decode(
-        "dense", _dense_case(DEC_MAIN_LENS, seed=700, pad_frac=0.25,
-                             **DENSE_MAIN),
-        dense_decode_attention, dense_decode_reference,
-        _dense_library_call, _dense_bound)
+    """Phase 4, dense decode: {shape name: row} at every DECODE_TIMED
+    shape."""
+    rows = {}
+    for name, _, make in DECODE_TIMED:
+        case = make()
+        rows[name] = _timing_decode(
+            f"dense {name}", case, dense_decode_attention,
+            dense_decode_reference, _dense_library_call, _dense_bound,
+            "dense_decode_kernel")
+        del case
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1574,34 +1765,32 @@ def _trace(engine, prompts, kernels: dict) -> dict:
     return out
 
 
-def _launched_ctas(fn, kernels: dict) -> dict:
+def _launch_grids(fn, kernels: dict) -> tuple[dict, list]:
     """Run ``fn`` once under ``torch.profiler`` (card activity only) and
-    read from the trace's kernel records the CTAs, the product of the
-    launch grid, that each of ``kernels``' ({label: name substring})
-    kernels launched. The profiler now and then drops a kernel's record
-    from a trace: ``fn`` is then traced again, up to three times."""
-    from torch.profiler import ProfilerActivity, profile
-
+    read from the trace's kernel records the launch grid of each of
+    ``kernels``' ({label: name substring}) launches: ({label: [grid,
+    ...]}, every kernel record of the trace). The profiler now and then
+    drops a kernel's record from a trace: ``fn`` is then traced again, up
+    to three times."""
     tries = 3
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
+        events = _kernel_records(fn)
         grids = {label: [ev.get("args", {}).get("grid") for ev in events
-                         if ev.get("cat") == "kernel"
-                         and needle in ev.get("name", "")]
+                         if needle in ev.get("name", "")]
                  for label, needle in kernels.items()}
         if all(g and all(g) for g in grids.values()):
             break
     for label, needle in kernels.items():
         check(grids[label] and all(grids[label]),
               f"{tries} traces hold no {needle} launch with its grid")
+    return grids, events
+
+
+def _launched_ctas(fn, kernels: dict) -> dict:
+    """The CTAs, the product of the launch grid, that each of ``kernels``'
+    ({label: name substring}) kernels launched in one traced run of
+    ``fn`` (``_launch_grids``)."""
+    grids, _ = _launch_grids(fn, kernels)
     return {label: sum(math.prod(g) for g in grids[label])
             for label in kernels}
 
@@ -2011,14 +2200,24 @@ def main() -> int:
                   "ms", "plain_ms", "library_ms", "library_is_causal",
                   "bound_ms", "bound_by", "ctas")}
                  for name, _ in FLASH_TIMED if name != "main-prefill"}),
-        entry("paged_decode_attention",
-              "kubeflow_tpu_torch/csrc/paged_attention.cu",
-              "kubeflow_tpu/ops/paged_attention.py:233",
-              alt_launches["decode"], decode_errors, decode_times),
-        entry("dense_decode_attention",
-              "kubeflow_tpu_torch/csrc/paged_attention.cu",
-              "kubeflow_tpu/ops/paged_attention.py:298",
-              cont_launches["dense"], dense_errors, dense_times),
+    ] + [
+        entry(name, "kubeflow_tpu_torch/csrc/paged_attention.cu", replaces,
+              launched, errs, timed["main-decode"], design=DECODE_DESIGN,
+              **{k: timed["main-decode"][k] for k in timed["main-decode"]
+                 if k in ("launches_per_call", "library_backend",
+                          "dense_on_gathered_ms")},
+              ctas={k: timed[k]["ctas"] for k, _, _ in DECODE_TIMED},
+              split={k: timed[k]["split"] for k, _, _ in DECODE_TIMED},
+              **{k.replace("-", "_"): {f: timed[k][f]
+                                       for f in DECODE_ROW_KEYS}
+                 for k, _, _ in DECODE_TIMED if k != "main-decode"})
+        for name, replaces, launched, errs, timed in (
+            ("paged_decode_attention",
+             "kubeflow_tpu/ops/paged_attention.py:233",
+             alt_launches["decode"], decode_errors, decode_times),
+            ("dense_decode_attention",
+             "kubeflow_tpu/ops/paged_attention.py:298",
+             cont_launches["dense"], dense_errors, dense_times))
     ] + [
         {"name": name, "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/flash_attention_bwd.cu",

@@ -20,14 +20,22 @@
 // What bounds it on this card: bytes. Each live K/V element is read once
 // and used for G multiply-adds (G = 4 at llama-3-8b), ~4 FLOPs per byte,
 // far below the ~295 FLOPs/byte where compute would bind; the floor is the
-// live keys over HBM bandwidth (3.35 TB/s).
+// live keys over HBM bandwidth (3.35 TB/s). Reaching it takes many bytes
+// in flight on every SM at once, which one CTA walking a slot's history
+// tile by tile never has.
 // What the design does about it:
-// - one CTA per (slot, kv head) takes the kv head's G query rows, so each
-//   key is read from HBM once for the whole group;
-// - it walks only the slot's live keys: min(ceil(seq_len / BS), MAXB)
-//   blocks through a copy of the table row in shared memory (paged), or
-//   the first min(seq_len, C) rows of the slot's cache (dense); never past
-//   the end, even for an idle slot's stale length;
+// - the grid is (split, kv head, slot): each CTA takes one run of `split`
+//   keys of one slot (64, 128, 256 or 512, which the host fixes from the
+//   span, B and Hkv, never from seq_lens) and serves the kv head's G query
+//   rows, so each key is read from HBM once for the whole group and a long
+//   history is read by many SMs at once. A CTA whose run starts at or past
+//   the slot's live keys exits before any load;
+// - a slot's live keys are its first min(ceil(seq_len / BS), MAXB) blocks
+//   (paged) or the first min(seq_len, C) rows of its cache (dense); never
+//   past the end, even for an idle slot's stale length. The paged kernel
+//   loads its run's table entries beside seq_len, not after it, and turns
+//   them into one pool row a key in shared memory, so its copies divide
+//   by nothing;
 // - keys are staged in tiles of 64 with 16-byte cp.async loads into two
 //   shared-memory stages: the next tile is in flight while the current one
 //   is computed, and a tile costs two barriers;
@@ -37,8 +45,15 @@
 //   in, f32 accumulate; the G rows padded to 16), so a tile's math is a few
 //   instructions per warp and the loop waits only on memory. The
 //   probabilities are rounded to bf16 for P·V, as in the port's ragged
-//   kernel.
-// Later work: a split of long histories over several CTAs.
+//   kernel;
+// - a slot whose live keys fit in one run is finished by that run's CTA.
+//   Otherwise each live CTA writes its unnormalised f32 partial O and its
+//   rows' max m and sum l to scratch (a run that sees no key writes
+//   m = -inf, l = 0 and weighs 0), then takes a ticket on its (slot, kv
+//   head) counter. The last to arrive merges the partials in split order,
+//   with their loads 8 at a time in flight, so the output is the same bits
+//   on every run whichever CTA came last, and sets the counter back to 0
+//   for the next call: one launch a call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,76 +75,112 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kKeys = 16 * kWarps;  // keys per tile, 16 for each warp
 constexpr int kRows = 16;           // query rows of one mma tile: G <= 16
-constexpr size_t kMaxSmem = 232448;
+constexpr int kMaxSplit = 512;      // keys of one run, at most
 
 enum : int {
   kErrHeadDim = -1,
-  kErrSmem = -2,
   kErrGroup = -3,
+  kErrSplit = -4,
 };
+
+// A read-only load issued where it stands: the compiler keeps it ahead
+// of the branch that first uses another load's value (seq_len's).
+__device__ __forceinline__ int ld_issued(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
 
 // Byte offsets into dynamic shared memory. bf16 rows are padded by 8
 // elements (16 bytes), as in ragged_attention.cu.
 //   q:     [kRows][D + 8] bf16, rows past G zero
 //   kv:    [stage][K|V][kKeys][D + 8] bf16, two stages
-//   table: [MAXB] int, the slot's table row (paged only; MAXB = 0 dense)
+//   rows:  [split] int, the pool row of each of the run's keys (paged
+//          only; 0 dense)
 // After the key loop the kv bytes hold the warps' partial results for the
 // merge: [warp][D/8][4][32] f32 accumulators, then [warp][4][32] f32
 // (m_a, m_b, l_a, l_b).
 struct Smem {
-  size_t q, kv, table, total;
-  __host__ __device__ Smem(int d, int maxb) {
+  size_t q, kv, rows, total;
+  __host__ __device__ Smem(int d, int row_count) {
     const size_t padded = (size_t)(d + 8) * 2;
     q = 0;
     kv = q + kRows * padded;
-    table = kv + 2 * 2 * kKeys * padded;
-    total = table + (size_t)maxb * 4;
+    rows = kv + 2 * 2 * kKeys * padded;
+    total = rows + (size_t)row_count * 4;
   }
 };
 
 // The shared body. kDense picks where key k of slot b, kv head h lives:
 // row ((b*Hkv + h)*span + k) of the dense caches (span = C), or row
 // (table[k / bs]*Hkv + h)*bs + k % bs of the pools (span = MAXB*bs).
+// CTA (s, h, b) takes keys [s*split, (s + 1)*split) of slot b's live ones.
+// Scratch, for slots whose live keys span more than one run: part_o
+// (B, Hkv, nsplit, G, D) f32 and part_ml (B, Hkv, nsplit, G) (m, l);
+// counters (B*Hkv), 0 between calls.
 template <int D, bool kDense>
 __device__ __forceinline__ void decode_body(
     const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k_src,
     const __nv_bfloat16* __restrict__ v_src, const int* __restrict__ tables,
     const uint8_t* __restrict__ kv_mask, const int* __restrict__ seq_lens,
-    __nv_bfloat16* __restrict__ out, int hq, int hkv, int bs, int maxb,
-    int span, float scale) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+    float2* __restrict__ part_ml, unsigned* __restrict__ counters, int hq,
+    int hkv, int bs, int maxb, int span, int split, int nsplit, float scale) {
   constexpr int RS = D + 8;
   constexpr int ND = D / 8;  // n-tiles of the output
   constexpr int kRowChunks = D / 8;
   constexpr int kTileChunks = 2 * kKeys * kRowChunks;
   constexpr int kIssueIters = (kTileChunks + kThreads - 1) / kThreads;
 
-  const int b = blockIdx.x;
+  const int s = blockIdx.x;
   const int h = blockIdx.y;
+  const int b = blockIdx.z;
   const int group = hq / hkv;
   const int tid = threadIdx.x;
+  const int k0 = s * split;
   const int seq_len = seq_lens[b];
-  int nblk = 0, nkeys;
-  if constexpr (kDense) {
-    nkeys = seq_len > 0 ? min(seq_len, span) : 0;
-  } else {
-    nblk = seq_len > 0 ? min((seq_len + bs - 1) / bs, maxb) : 0;
-    nkeys = nblk * bs;
+  // Paged: the table entries of this thread's keys of the run, k0 + tid +
+  // i*kThreads, loaded beside seq_len (their addresses need none of it).
+  constexpr int kRunIters = kDense ? 0 : kMaxSplit / kThreads;
+  int entry[kRunIters > 0 ? kRunIters : 1];
+#pragma unroll
+  for (int i = 0; i < kRunIters; ++i) {
+    const int blk = (k0 + tid + i * kThreads) / bs;
+    entry[i] = tid + i * kThreads < split && blk < maxb
+                   ? ld_issued(tables + (size_t)b * maxb + blk)
+                   : 0;
   }
-  const int ntiles = (nkeys + kKeys - 1) / kKeys;
+  int nkeys;
+  if constexpr (kDense)
+    nkeys = seq_len > 0 ? min(seq_len, span) : 0;
+  else
+    nkeys = seq_len > 0 ? min((seq_len + bs - 1) / bs, maxb) * bs : 0;
+  // Runs that hold live keys; at least one, so that a slot with no key
+  // still writes its zero rows.
+  const int nlive = max(1, (nkeys + split - 1) / split);
+  if (s >= nlive) return;
+  const int k1 = min(k0 + split, nkeys);
+  const int ntiles = k1 > k0 ? (k1 - k0 + kKeys - 1) / kKeys : 0;
   // Scores in log2 units, so the softmax's exponentials are exp2.
   const float scale_log2 = scale * 1.4426950408889634f;
   const uint8_t* mask_row = kv_mask + (size_t)b * span;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem lay(D, maxb);
+  const Smem lay(D, kDense ? 0 : split);
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.q);
   __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.kv);
-  int* table_s = reinterpret_cast<int*>(smem_raw + lay.table);
+  int* rows_s = reinterpret_cast<int*>(smem_raw + lay.rows);
 
-  if constexpr (!kDense) {
-    for (int i = tid; i < nblk; i += kThreads)
-      table_s[i] = tables[(size_t)b * maxb + i];
+  // Paged: the pool row of each of the run's keys, so that the copies
+  // below divide by nothing.
+#pragma unroll
+  for (int i = 0; i < kRunIters; ++i) {
+    const int kk = tid + i * kThreads;
+    if (kk < split) {
+      const int kpos = k0 + kk;
+      rows_s[kk] = (entry[i] * hkv + h) * bs + kpos % bs;
+    }
   }
   // Query rows g < G: q head h*G + g; rows past G are zero. They join the
   // first tile's group.
@@ -140,10 +191,10 @@ __device__ __forceinline__ void decode_body(
     cp_async16(q_s + r * RS + c,
                live ? q + ((size_t)b * hq + h * group + r) * D + c : q, live);
   }
-  __syncthreads();  // table_s is read by every thread's loads
+  __syncthreads();  // rows_s is read by every thread's loads
 
-  // Issue the cp.async loads of key tile t into stage st as one group.
-  // Keys past the live ones are zero-filled.
+  // Issue the cp.async loads of the run's key tile t into stage st as one
+  // group. Keys past the run's live ones are zero-filled.
   auto issue = [&](int t, int st) {
 #pragma unroll
     for (int i = 0; i < kIssueIters; ++i) {
@@ -153,15 +204,15 @@ __device__ __forceinline__ void decode_body(
         const int ee = e - is_v * kKeys * kRowChunks;
         const int j = ee / kRowChunks;
         const int c = (ee % kRowChunks) * 8;
-        const int kpos = t * kKeys + j;
-        const bool live = kpos < nkeys;
+        const int kpos = k0 + t * kKeys + j;
+        const bool live = kpos < k1;
         const __nv_bfloat16* src = is_v ? v_src : k_src;
         if (live) {
           size_t row;
           if constexpr (kDense)
             row = ((size_t)b * hkv + h) * span + kpos;
           else
-            row = ((size_t)table_s[kpos / bs] * hkv + h) * bs + kpos % bs;
+            row = (size_t)(unsigned)rows_s[kpos - k0];
           src += row * D + c;
         }
         cp_async16(kv_s + ((st * 2 + is_v) * kKeys + j) * RS + c, src, live);
@@ -194,8 +245,8 @@ __device__ __forceinline__ void decode_body(
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int kpos = t * kKeys + key0 + nt * 8 + tq * 2 + u;
-        valid[nt][u] = kpos < nkeys && kpos < seq_len && mask_row[kpos] != 0;
+        const int kpos = k0 + t * kKeys + key0 + nt * 8 + tq * 2 + u;
+        valid[nt][u] = kpos < k1 && kpos < seq_len && mask_row[kpos] != 0;
       }
     if (t + 1 < ntiles) {
       issue(t + 1, st ^ 1);
@@ -308,106 +359,238 @@ __device__ __forceinline__ void decode_body(
   pml[(warp * 4 + 2) * 32 + lane] = l_a;
   pml[(warp * 4 + 3) * 32 + lane] = l_b;
   __syncthreads();
-  if (warp != 0) return;
-  for (int w = 1; w < kWarps; ++w) {
-    const float m2a = pml[(w * 4 + 0) * 32 + lane];
-    const float m2b = pml[(w * 4 + 1) * 32 + lane];
-    const float mna = fmaxf(m_a, m2a);
-    const float mnb = fmaxf(m_b, m2b);
-    // A warp that saw no visible key has m = -inf and weight 0.
-    const float sa = m_a == -INFINITY ? 0.f : exp2f(m_a - mna);
-    const float sb = m_b == -INFINITY ? 0.f : exp2f(m_b - mnb);
-    const float wa = m2a == -INFINITY ? 0.f : exp2f(m2a - mna);
-    const float wb = m2b == -INFINITY ? 0.f : exp2f(m2b - mnb);
-    l_a = l_a * sa + pml[(w * 4 + 2) * 32 + lane] * wa;
-    l_b = l_b * sb + pml[(w * 4 + 3) * 32 + lane] * wb;
-    m_a = mna;
-    m_b = mnb;
+  const size_t grp = (size_t)b * hkv + h;  // this CTA's (slot, kv head)
+  if (warp == 0) {
+    for (int w = 1; w < kWarps; ++w) {
+      const float m2a = pml[(w * 4 + 0) * 32 + lane];
+      const float m2b = pml[(w * 4 + 1) * 32 + lane];
+      const float mna = fmaxf(m_a, m2a);
+      const float mnb = fmaxf(m_b, m2b);
+      // A warp that saw no visible key has m = -inf and weight 0.
+      const float sa = m_a == -INFINITY ? 0.f : exp2f(m_a - mna);
+      const float sb = m_b == -INFINITY ? 0.f : exp2f(m_b - mnb);
+      const float wa = m2a == -INFINITY ? 0.f : exp2f(m2a - mna);
+      const float wb = m2b == -INFINITY ? 0.f : exp2f(m2b - mnb);
+      l_a = l_a * sa + pml[(w * 4 + 2) * 32 + lane] * wa;
+      l_b = l_b * sb + pml[(w * 4 + 3) * 32 + lane] * wb;
+      m_a = mna;
+      m_b = mnb;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      const float* p2 = po + ((w * ND + n) * 4) * 32 + lane;
-      o[n][0] = o[n][0] * sa + p2[0] * wa;
-      o[n][1] = o[n][1] * sa + p2[32] * wa;
-      o[n][2] = o[n][2] * sb + p2[64] * wb;
-      o[n][3] = o[n][3] * sb + p2[96] * wb;
+      for (int n = 0; n < ND; ++n) {
+        const float* p2 = po + ((w * ND + n) * 4) * 32 + lane;
+        o[n][0] = o[n][0] * sa + p2[0] * wa;
+        o[n][1] = o[n][1] * sa + p2[32] * wa;
+        o[n][2] = o[n][2] * sb + p2[64] * wb;
+        o[n][3] = o[n][3] * sb + p2[96] * wb;
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = gq + half * 8;
+      if (r >= group) continue;
+      if (nlive == 1) {
+        // The run holds all the slot's live keys: normalise and write the
+        // output. A row that saw no key has o = 0 (every p was pinned to 0).
+        const float inv = 1.f / fmaxf(half ? l_b : l_a, 1e-30f);
+        __nv_bfloat16* dst = out + ((size_t)b * hq + h * group + r) * D + tq * 2;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+              __floats2bfloat162_rn(o[n][half * 2] * inv,
+                                    o[n][half * 2 + 1] * inv);
+        }
+      } else {
+        const size_t row = (grp * nsplit + s) * group + r;
+        float* dst = part_o + row * D + tq * 2;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          *reinterpret_cast<float2*>(dst + n * 8) =
+              make_float2(o[n][half * 2], o[n][half * 2 + 1]);
+        }
+        if (tq == 0)
+          part_ml[row] = make_float2(half ? m_b : m_a, half ? l_b : l_a);
+      }
     }
   }
-  // A row that saw no key has o = 0 (every p was pinned to 0).
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = gq + half * 8;
-    if (r >= group) continue;
-    const float inv = 1.f / fmaxf(half ? l_b : l_a, 1e-30f);
-    __nv_bfloat16* dst = out + ((size_t)b * hq + h * group + r) * D + tq * 2;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
-          o[n][half * 2] * inv, o[n][half * 2 + 1] * inv);
+  if (nlive == 1) return;
+
+  // The ticket: the partials are written (barrier, then a device-wide
+  // fence), so the CTA that takes the last ticket sees every one of them.
+  __shared__ int last;
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    const unsigned ticket = atomicAdd(counters + grp, 1u);
+    last = ticket == (unsigned)(nlive - 1);
+    if (last) counters[grp] = 0;  // every live run has arrived
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // The merge, in split order. Each warp takes rows g = warp, warp + 4,
+  // ...: its lanes load the runs' m and l (lane i runs i, i + 32, ...),
+  // the row's max comes by shuffles, and each run's weight goes to shared
+  // memory (a run that saw no visible key has m = -inf and weight 0).
+  // Then each thread takes 4 adjacent columns of a row and adds the runs'
+  // partials, read through L2 (other SMs wrote them) 8 at a time, in
+  // split order.
+  float* w_s = reinterpret_cast<float*>(smem_raw + lay.kv);  // [nlive][G]
+  float* l_s = w_s + nlive * group;                          // [nlive][G]
+  const float2* ml = part_ml + grp * nsplit * group;
+  const float* pog = part_o + grp * nsplit * group * D;
+  for (int g = warp; g < group; g += kWarps) {
+    float mx = -INFINITY;
+    for (int sp = lane; sp < nlive; sp += 32) {
+      const float2 v = __ldcg(ml + (size_t)sp * group + g);
+      w_s[sp * group + g] = v.x;
+      l_s[sp * group + g] = v.y;
+      mx = fmaxf(mx, v.x);
     }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    for (int sp = lane; sp < nlive; sp += 32) {
+      const float m = w_s[sp * group + g];
+      w_s[sp * group + g] = m == -INFINITY ? 0.f : exp2f(m - mx);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < group * (D / 4); e += kThreads) {
+    const int r = e / (D / 4);
+    const int c = (e % (D / 4)) * 4;
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    auto add = [&](int sp, const float4& x) {
+      const float w = w_s[sp * group + r];
+      l += w * l_s[sp * group + r];
+      acc.x += w * x.x;
+      acc.y += w * x.y;
+      acc.z += w * x.z;
+      acc.w += w * x.w;
+    };
+    // Whole batches of 8 runs, then the last nlive % 8 loaded together
+    // under a predicate: a slot of a few runs waits on one trip to L2.
+    const int whole = nlive & ~7;
+    int sp = 0;
+#pragma unroll 8
+    for (; sp < whole; ++sp)
+      add(sp, __ldcg(reinterpret_cast<const float4*>(
+                  pog + ((size_t)sp * group + r) * D + c)));
+    float4 x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (sp + u < nlive)
+        x[u] = __ldcg(reinterpret_cast<const float4*>(
+            pog + ((size_t)(sp + u) * group + r) * D + c));
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (sp + u < nlive) add(sp + u, x[u]);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    uint2 packed;
+    packed.x = pack_bf16(acc.x * inv, acc.y * inv);
+    packed.y = pack_bf16(acc.z * inv, acc.w * inv);
+    *reinterpret_cast<uint2*>(out + ((size_t)b * hq + h * group + r) * D + c) =
+        packed;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+__global__ void __launch_bounds__(kThreads, D == 256 ? 1 : 3)
+    paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k_pool,
     const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ tables,
     const uint8_t* __restrict__ kv_mask, const int* __restrict__ seq_lens,
-    __nv_bfloat16* __restrict__ out, int hq, int hkv, int bs, int maxb,
-    float scale) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+    float2* __restrict__ part_ml, unsigned* __restrict__ counters, int hq,
+    int hkv, int bs, int maxb, int split, int nsplit, float scale) {
   decode_body<D, false>(q, k_pool, v_pool, tables, kv_mask, seq_lens, out,
-                        hq, hkv, bs, maxb, maxb * bs, scale);
+                        part_o, part_ml, counters, hq, hkv, bs, maxb,
+                        maxb * bs, split, nsplit, scale);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) dense_decode_kernel(
+__global__ void __launch_bounds__(kThreads, D == 256 ? 1 : 3)
+    dense_decode_kernel(
     const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k_cache,
     const __nv_bfloat16* __restrict__ v_cache,
     const uint8_t* __restrict__ kv_mask, const int* __restrict__ seq_lens,
-    __nv_bfloat16* __restrict__ out, int hq, int hkv, int c, float scale) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+    float2* __restrict__ part_ml, unsigned* __restrict__ counters, int hq,
+    int hkv, int c, int split, int nsplit, float scale) {
   decode_body<D, true>(q, k_cache, v_cache, nullptr, kv_mask, seq_lens, out,
-                       hq, hkv, 0, 0, c, scale);
+                       part_o, part_ml, counters, hq, hkv, 0, 0, c, split,
+                       nsplit, scale);
 }
+
+// The scratch pointers: part_ml follows part_o's B*Hkv*nsplit*G*D floats.
+struct Scratch {
+  float* part_o;
+  float2* part_ml;
+  Scratch(void* scratch, int b, int hkv, int nsplit, int group, int d)
+      : part_o(static_cast<float*>(scratch)),
+        part_ml(reinterpret_cast<float2*>(
+            part_o + (size_t)b * hkv * nsplit * group * d)) {}
+};
 
 template <int D>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* tables, const void* kv_mask, const void* seq_lens,
-           void* out, int b, int hq, int hkv, int bs, int maxb,
-           cudaStream_t stream) {
-  const size_t smem = Smem(D, maxb).total;
+           void* out, void* scratch, void* counters, int b, int hq, int hkv,
+           int bs, int maxb, int split, int nsplit, cudaStream_t stream) {
+  const size_t smem = Smem(D, split).total;
   auto fn = paged_decode_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(b, hkv);
+  const Scratch part(scratch, b, hkv, nsplit, hq / hkv, D);
+  const dim3 grid(nsplit, hkv, b);
   fn<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool),
       static_cast<const int*>(tables), static_cast<const uint8_t*>(kv_mask),
-      static_cast<const int*>(seq_lens), static_cast<__nv_bfloat16*>(out), hq,
-      hkv, bs, maxb, 1.0f / sqrtf((float)D));
+      static_cast<const int*>(seq_lens), static_cast<__nv_bfloat16*>(out),
+      part.part_o, part.part_ml, static_cast<unsigned*>(counters), hq, hkv,
+      bs, maxb, split, nsplit, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dense(const void* q, const void* k_cache, const void* v_cache,
-                 const void* kv_mask, const void* seq_lens, void* out, int b,
-                 int hq, int hkv, int c, cudaStream_t stream) {
+                 const void* kv_mask, const void* seq_lens, void* out,
+                 void* scratch, void* counters, int b, int hq, int hkv, int c,
+                 int split, int nsplit, cudaStream_t stream) {
   const size_t smem = Smem(D, 0).total;
   auto fn = dense_decode_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(b, hkv);
+  const Scratch part(scratch, b, hkv, nsplit, hq / hkv, D);
+  const dim3 grid(nsplit, hkv, b);
   fn<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_cache),
       static_cast<const __nv_bfloat16*>(v_cache),
       static_cast<const uint8_t*>(kv_mask), static_cast<const int*>(seq_lens),
-      static_cast<__nv_bfloat16*>(out), hq, hkv, c, 1.0f / sqrtf((float)D));
+      static_cast<__nv_bfloat16*>(out), part.part_o, part.part_ml,
+      static_cast<unsigned*>(counters), hq, hkv, c, split, nsplit,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
+}
+
+// The refusals both entry points share: the group, and runs of `split`
+// keys (a multiple of 64, at most 512) whose nsplit runs cover the span,
+// with each run's m and l in the tile stages for the merge.
+int check_shape(int hq, int hkv, int d, int span, int split, int nsplit) {
+  if (hkv <= 0 || hq % hkv || hq / hkv > kRows) return kErrGroup;
+  if (split <= 0 || split % kKeys || split > kMaxSplit || nsplit <= 0 ||
+      (long long)split * nsplit < span ||
+      (size_t)nsplit * 2 * (hq / hkv) * 4 > Smem(d, 0).rows - Smem(d, 0).kv)
+    return kErrSplit;
+  return 0;
 }
 
 }  // namespace
@@ -415,50 +598,64 @@ int launch_dense(const void* q, const void* k_cache, const void* v_cache,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or a
-// negative code for a shape this kernel does not take. Allocates nothing.
+// negative code for a shape this kernel does not take. Allocates nothing:
+// `scratch` holds at least B*Hkv*nsplit*G*(D + 2) floats (the partials of
+// slots whose live keys span more than one run) and `counters` B*Hkv
+// unsigned ints, 0 before the call and 0 again after it.
 int kftt_paged_decode_attention(const void* q, const void* k_pool,
                                 const void* v_pool, const void* tables,
                                 const void* kv_mask, const void* seq_lens,
-                                void* out, int b, int hq, int hkv, int d,
-                                int bs, int maxb, void* stream) {
-  if (hkv <= 0 || hq % hkv || hq / hkv > kRows) return kErrGroup;
-  if (Smem(d, maxb).total > kMaxSmem) return kErrSmem;
+                                void* out, void* scratch, void* counters,
+                                int b, int hq, int hkv, int d, int bs,
+                                int maxb, int split, int nsplit,
+                                void* stream) {
+  if (int err = check_shape(hq, hkv, d, maxb * bs, split, nsplit))
+    return err;
   if (b == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch<64>(q, k_pool, v_pool, tables, kv_mask, seq_lens, out, b,
-                        hq, hkv, bs, maxb, st);
+      return launch<64>(q, k_pool, v_pool, tables, kv_mask, seq_lens, out,
+                        scratch, counters, b, hq, hkv, bs, maxb, split,
+                        nsplit, st);
     case 128:
-      return launch<128>(q, k_pool, v_pool, tables, kv_mask, seq_lens, out, b,
-                         hq, hkv, bs, maxb, st);
+      return launch<128>(q, k_pool, v_pool, tables, kv_mask, seq_lens, out,
+                         scratch, counters, b, hq, hkv, bs, maxb, split,
+                         nsplit, st);
     case 256:
-      return launch<256>(q, k_pool, v_pool, tables, kv_mask, seq_lens, out, b,
-                         hq, hkv, bs, maxb, st);
+      return launch<256>(q, k_pool, v_pool, tables, kv_mask, seq_lens, out,
+                         scratch, counters, b, hq, hkv, bs, maxb, split,
+                         nsplit, st);
     default:
       return kErrHeadDim;
   }
 }
 
 // The dense variant: q (B, Hq, D), caches (B, Hkv, C, D), kv_mask (B, C)
-// bytes, seq_lens (B,) int32. Same return codes.
+// bytes, seq_lens (B,) int32; scratch and counters as above. Same return
+// codes.
 int kftt_dense_decode_attention(const void* q, const void* k_cache,
                                 const void* v_cache, const void* kv_mask,
-                                const void* seq_lens, void* out, int b, int hq,
-                                int hkv, int d, int c, void* stream) {
-  if (hkv <= 0 || hq % hkv || hq / hkv > kRows) return kErrGroup;
+                                const void* seq_lens, void* out,
+                                void* scratch, void* counters, int b, int hq,
+                                int hkv, int d, int c, int split, int nsplit,
+                                void* stream) {
+  if (int err = check_shape(hq, hkv, d, c, split, nsplit)) return err;
   if (b == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch_dense<64>(q, k_cache, v_cache, kv_mask, seq_lens, out, b,
-                              hq, hkv, c, st);
+      return launch_dense<64>(q, k_cache, v_cache, kv_mask, seq_lens, out,
+                              scratch, counters, b, hq, hkv, c, split, nsplit,
+                              st);
     case 128:
-      return launch_dense<128>(q, k_cache, v_cache, kv_mask, seq_lens, out, b,
-                               hq, hkv, c, st);
+      return launch_dense<128>(q, k_cache, v_cache, kv_mask, seq_lens, out,
+                               scratch, counters, b, hq, hkv, c, split,
+                               nsplit, st);
     case 256:
-      return launch_dense<256>(q, k_cache, v_cache, kv_mask, seq_lens, out, b,
-                               hq, hkv, c, st);
+      return launch_dense<256>(q, k_cache, v_cache, kv_mask, seq_lens, out,
+                               scratch, counters, b, hq, hkv, c, split,
+                               nsplit, st);
     default:
       return kErrHeadDim;
   }
@@ -467,8 +664,8 @@ int kftt_dense_decode_attention(const void* q, const void* k_cache,
 const char* kftt_error_string(int code) {
   switch (code) {
     case kErrHeadDim: return "head_dim must be 64, 128 or 256";
-    case kErrSmem: return "the slot's table row and tiles need more shared memory than a block has";
     case kErrGroup: return "Hq must be a multiple of Hkv with Hq / Hkv <= 16";
+    case kErrSplit: return "split must be a multiple of 64 keys, at most 512, and nsplit runs of it must cover the span, their merge fitting in shared memory";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

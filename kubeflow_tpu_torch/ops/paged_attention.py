@@ -6,11 +6,27 @@ and shape checks. Both wrappers launch one hand-written CUDA source,
 ``csrc/paged_attention.cu``, whose body is shared and differs only in
 where a slot's keys live, as the two Pallas kernels share ``_attend``.
 
+The kernel splits each slot's history over CTAs (flash-decoding): its grid
+is (split, kv head, slot), each CTA taking one run of ``split`` keys, a
+multiple of 64 that ``decode_splits`` fixes from the span (MAXB·BS or C),
+B and Hkv alone, never from ``seq_lens``, so that no call waits on the
+card. A run past the slot's live keys exits at once. Where a slot's live
+keys span more than one run, each run writes an unnormalised f32 partial
+to a scratch buffer, and the last run to finish, found by a ticket on a
+per-(slot, kv head) counter, merges them in split order: the output
+repeats bit for bit. The wrapper keeps the scratch (``torch.empty``: the
+kernel writes each partial before it reads it) and the counters (zeroed
+once; the kernel sets each back to 0) per device and stream, and grows
+them when a call needs more: launches on one stream run in order, so one
+call's partials are merged before the next call writes its own, and a
+call is one launch with no allocation.
+
 - ``paged_decode_attention`` — the wrapper of the hand-written CUDA kernel
   ``csrc/paged_attention.cu`` (built by ``ops/_build.py``, bound with
   ctypes). On a CUDA tensor it launches the kernel on the current stream
   or raises; it never falls back. ``paged_decode_attention.launches``
-  counts its launches. On a CPU tensor it returns the plain version.
+  counts its launches, one a call. On a CPU tensor it returns the plain
+  version.
 - ``paged_decode_reference`` — the plain PyTorch version: it gathers each
   slot's logical view through the tables and applies ``kv_mask AND
   k_pos < seq_len`` in f32; a row whose keys are all masked gives 0, as
@@ -19,13 +35,13 @@ where a slot's keys live, as the two Pallas kernels share ``_attend``.
 Layouts: q (B, Hq, D), one new token per slot; pools (NB, Hkv, BS, D)
 bf16 (int8 pools keep the engine's gathered path, as in JAX); tables
 (B, MAXB) int32; kv_mask (B, MAXB·BS) bool; seq_lens (B,) int32, the
-position + 1 that bounds the walk. The kernel walks only the slot's
+position + 1 that bounds the walk. The kernel reads only the slot's
 ``min(ceil(seq_len / BS), MAXB)`` live blocks.
 
 - ``dense_decode_attention`` — the same decode over the dense per-slot
   cache of ``ContinuousBatcher``: k/v caches (B, Hkv, C, D) bf16, one
   layer's slice of the stacked cache, read in place (a non-contiguous
-  cache raises; it is never copied); kv_mask (B, C). The kernel walks only
+  cache raises; it is never copied); kv_mask (B, C). The kernel reads only
   each slot's first ``min(seq_len, C)`` keys, in 64-key tiles.
   ``block_size`` bounds the walk in JAX and changes no result; it is kept,
   with JAX's ``C % block_size`` check. ``dense_decode_attention.launches``
@@ -37,12 +53,58 @@ position + 1 that bounds the walk. The kernel walks only the slot's
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 _C_FUNC = "kftt_paged_decode_attention"
 _C_DENSE = "kftt_dense_decode_attention"
+# The runs of keys the kernel's CTAs take: multiples of its 64-key tile,
+# at most 512 keys; at most MAX_RUNS runs a (slot, kv head) for the merge
+# to add, and MAX_CTAS CTAs a call, where more would add CTAs without
+# adding bytes in flight.
+MAX_SPLIT = 512
+MAX_RUNS = 32
+MAX_CTAS = 1024
+# {(device index, stream): [int32 counters, each 0 between calls; f32
+# scratch]}.
+_buffers: dict[tuple[int, int], list[torch.Tensor]] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def decode_splits(span: int, b: int, hkv: int) -> tuple[int, int]:
+    """(split, nsplit): the keys each CTA takes and the runs of them that
+    cover a walk of ``span`` keys (MAXB·BS or C) for each of the B·Hkv
+    (slot, kv head) pairs. split is the least of 64, 128, 256 and 512
+    that keeps nsplit <= MAX_RUNS and B·Hkv·nsplit <= MAX_CTAS (512 where
+    none does). Fixed from these shapes alone, never from seq_lens: a run
+    past a slot's live keys costs one CTA that exits at once."""
+    split = 64
+    while split < MAX_SPLIT and (-(-span // split) > MAX_RUNS
+                                 or b * hkv * -(-span // split) > MAX_CTAS):
+        split *= 2
+    return split, max(1, -(-span // split))
+
+
+def _launch_buffers(q, b, hkv, span):
+    """The split, its count, the scratch and the ticket counters of the
+    current stream, grown to this call's size, and the stream."""
+    split, nsplit = decode_splits(span, b, hkv)
+    group, d = q.shape[1] // hkv, q.shape[2]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    key = (q.device.index, stream)
+    buffers = _buffers.get(key)
+    if buffers is None:
+        buffers = _buffers[key] = [
+            torch.zeros(0, dtype=torch.int32, device=q.device),
+            torch.empty(0, dtype=torch.float32, device=q.device)]
+    if buffers[0].numel() < b * hkv:
+        buffers[0] = torch.zeros(b * hkv, dtype=torch.int32, device=q.device)
+    if buffers[1].numel() < b * hkv * nsplit * group * (d + 2):
+        buffers[1] = torch.empty(b * hkv * nsplit * group * (d + 2),
+                                 dtype=torch.float32, device=q.device)
+    return split, nsplit, buffers[1], buffers[0], stream
 
 
 def _validate(q, k_pool, tables, kv_mask, block_size) -> None:
@@ -65,7 +127,7 @@ def _library() -> ctypes.CDLL:
     from kubeflow_tpu_torch.ops import _build
 
     lib = _build.load("paged_attention")
-    for name, pointers, ints in ((_C_FUNC, 7, 6), (_C_DENSE, 6, 5)):
+    for name, pointers, ints in ((_C_FUNC, 9, 8), (_C_DENSE, 8, 7)):
         fn = getattr(lib, name)
         if fn.restype is not ctypes.c_int or not fn.argtypes:
             fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints \
@@ -123,11 +185,13 @@ def paged_decode_attention(
         return out  # no slot: nothing launched, nothing counted
     lib = _library()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        split, nsplit, scratch, counters, stream = _launch_buffers(
+            q, b, hkv, maxb * bs)
         rc = getattr(lib, _C_FUNC)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), kv_mask.data_ptr(), seq_lens.data_ptr(),
-            out.data_ptr(), b, hq, hkv, d, bs, maxb, stream,
+            out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+            b, hq, hkv, d, bs, maxb, split, nsplit, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -241,11 +305,13 @@ def dense_decode_attention(
         return out  # no slot: nothing launched, nothing counted
     lib = _library()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        split, nsplit, scratch, counters, stream = _launch_buffers(
+            q, b, hkv, c)
         rc = getattr(lib, _C_DENSE)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             kv_mask.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            b, hq, hkv, d, c, stream,
+            scratch.data_ptr(), counters.data_ptr(),
+            b, hq, hkv, d, c, split, nsplit, stream,
         )
     if rc != 0:
         raise RuntimeError(

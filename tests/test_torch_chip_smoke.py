@@ -21,7 +21,17 @@ dim, visibility rule and GQA group the kernel takes. The CTA count read
 from a profiler trace survives a trace that drops the kernel's record,
 and fails when three do.
 
-The dense kernel's phase-3 cases run through ``dense_vs_plain`` as they
+The decode kernels' repeat check passes on two runs of the plain version
+and fails on a one-ulp nudge; their phase-3 cases cover a boundary of the
+runs of keys that ``decode_splits`` picks (one key either side), a
+masked span longer than a run, 8192 keys, an idle slot and a stale length
+beside split slots; ``decode_splits`` covers every span in runs of a
+multiple of 64 keys from shapes alone; a decode kernel's timing reads
+its CTAs, its kernels a call and its runs a slot from one traced call,
+and fails unless the call was one launch of ``decode_splits``' grid; the
+decode SDPA yardstick drops its mask exactly where the visibility is a
+live prefix, and names the backend from a trace's kernels. The paged and dense kernels' phase-3
+cases run through ``decode_vs_plain`` and ``dense_vs_plain`` as they
 will on the card (the wrapper's plain version stands in for the kernel).
 ``continuous_phase`` and ``train_phase`` (and ``train_phases`` over a
 llama-shaped and a gemma-shaped config) run at a small width on the CPU
@@ -156,6 +166,165 @@ def test_dense_vs_plain_rehearsed_on_the_cpu(smoke, no_card):
     worst = smoke.dense_vs_plain()
     assert set(worst) == set(smoke.GATES)
     assert all(worst[g] <= smoke.GATES[g] for g in worst)
+
+
+def test_decode_vs_plain_rehearsed_on_the_cpu(smoke, no_card):
+    worst = smoke.decode_vs_plain()
+    assert set(worst) == set(smoke.GATES)
+    assert all(worst[g] <= smoke.GATES[g] for g in worst)
+
+
+def _decode_twice(smoke, kernel):
+    """Two runs of a decode wrapper (the plain version on the CPU) on a
+    case over several of the kernel's runs of keys, with left padding."""
+    if kernel == "paged":
+        case = smoke._decode_case([300, 700], seed=0, pad_frac=0.25,
+                                  **smoke.DEC_SPLIT)
+        wrapper = TPA.paged_decode_attention
+    else:
+        case = smoke._dense_case([300, 700], seed=0, pad_frac=0.25,
+                                 **smoke.DENSE_SPLIT)
+        wrapper = TPA.dense_decode_attention
+    return wrapper(**case), wrapper(**case)
+
+
+@pytest.mark.parametrize("kernel", ["paged", "dense"])
+def test_decode_repeat_check_passes_on_two_equal_runs(smoke, kernel):
+    first, second = _decode_twice(smoke, kernel)
+    smoke.check_decode_repeat(first, second, "rehearsal")
+
+
+@pytest.mark.parametrize("kernel", ["paged", "dense"])
+def test_decode_repeat_check_fails_on_one_ulp(smoke, kernel):
+    """One element of the output one ulp off: the check fails."""
+    first, second = _decode_twice(smoke, kernel)
+    again = second.clone()
+    again.view(-1).view(torch.int16)[again.numel() // 2] += 1
+    assert not torch.equal(first, again)
+    with pytest.raises(AssertionError, match="differs between two runs"):
+        smoke.check_decode_repeat(first, again, "rehearsal")
+
+
+def _case_kinds(smoke, cases, span_of):
+    """{kind: names} of the decode cases: a length at a run boundary of
+    ``decode_splits``' split for the case's span with one key either side,
+    a masked span longer than a run, 8192 keys, an idle slot, and a stale
+    length (past the span) beside slots over several runs."""
+    kinds: dict = {}
+    for lens, shape, opts, name in cases:
+        span = span_of(shape)
+        split, nsplit = TPA.decode_splits(span, len(lens), shape["hkv"])
+        if nsplit > 1 and any({k * split - 1, k * split, k * split + 1}
+                              <= set(lens) for k in range(1, nsplit)):
+            kinds.setdefault("boundary", []).append(name)
+        if "hole" in opts and opts["hole"][2] - opts["hole"][1] > split:
+            kinds.setdefault("masked-run", []).append(name)
+        if max(lens) >= 8192:
+            kinds.setdefault("8192", []).append(name)
+        if opts.get("idle"):
+            kinds.setdefault("idle", []).append(name)
+        if max(lens) > span and nsplit > 1:
+            kinds.setdefault("stale-split", []).append(name)
+    return kinds
+
+
+@pytest.mark.parametrize("kernel", ["paged", "dense"])
+def test_decode_cases_cover_the_split_design(smoke, kernel):
+    cases, span_of = (
+        (smoke.DEC_CASES, lambda s: s["maxb"] * s["bs"]) if kernel == "paged"
+        else (smoke.DENSE_CASES, lambda s: s["c"]))
+    kinds = _case_kinds(smoke, cases, span_of)
+    assert set(kinds) == {"boundary", "masked-run", "8192", "idle",
+                          "stale-split"}, kinds
+    assert {64, 128, 256} <= {shape["d"] for _, shape, _, _ in cases}
+
+
+def test_timed_decode_shapes(smoke):
+    assert [name for name, _, _ in smoke.DECODE_TIMED] == [
+        "main-decode", "long-4096", "single-8192"]
+
+
+DENSE_RECORD = {"cat": "kernel", "name": "void dense_decode_kernel<64>",
+                "args": {"grid": [4, 2, 1]}}
+
+
+@pytest.mark.parametrize("records,fails", [
+    ([DENSE_RECORD], None),
+    ([DENSE_RECORD, {"cat": "kernel", "name": "elementwise_kernel",
+                     "args": {"grid": [1, 1, 1]}}], "launched 2 kernels"),
+    ([{**DENSE_RECORD, "args": {"grid": [2, 2, 1]}}], "4 CTAs launched"),
+])
+def test_timing_decode_checks_the_launch_it_traced(smoke, monkeypatch,
+                                                   records, fails):
+    """One traced call gives the CTAs, the kernels a call and, through the
+    grid, the runs a slot: the row holds them only if the call was one
+    launch of ``decode_splits``' grid (4 runs of 64 keys × 2 kv heads × 1
+    slot here), and the timing fails otherwise."""
+    traces = iter([records, [{"cat": "kernel", "name": "cudnn_sdpa"}]])
+    monkeypatch.setattr(smoke, "_kernel_records", lambda fn: next(traces))
+    monkeypatch.setattr(smoke, "_time_ms", lambda fn: (fn(), 1.0)[1])
+    case = smoke._dense_case([40], seed=0, hq=4, hkv=2, d=64, c=256)
+    args = ("dense rehearsal", case, TPA.dense_decode_attention,
+            dense_decode_reference, smoke._dense_library_call,
+            smoke._dense_bound, "dense_decode_kernel")
+    if fails:
+        with pytest.raises(AssertionError, match=fails):
+            smoke._timing_decode(*args)
+        return
+    row = smoke._timing_decode(*args)
+    assert (row["ctas"], row["split"], row["launches_per_call"]) == (8, 64, 1)
+    assert row["library_backend"] == "cuDNN"
+
+
+@pytest.mark.parametrize("span,b,hkv", [
+    (96, 3, 4), (592, 8, 8), (1024, 8, 8), (1024, 1, 8), (4096, 8, 8),
+    (8192, 1, 8), (8192, 8, 8), (100_000, 4, 8), (1, 1, 1),
+])
+def test_decode_splits_cover_the_span_in_runs_of_64(span, b, hkv):
+    split, nsplit = TPA.decode_splits(span, b, hkv)
+    assert split % 64 == 0 and 64 <= split <= TPA.MAX_SPLIT
+    assert (nsplit - 1) * split < span <= nsplit * split or span <= split
+    assert nsplit <= TPA.MAX_RUNS or split == TPA.MAX_SPLIT
+
+
+def test_decode_splits_read_only_shapes():
+    """The split is fixed from ints the host has (span, B, Hkv): no
+    tensor, so no seq_lens, reaches it, and no call waits on the card."""
+    import inspect
+
+    assert list(inspect.signature(TPA.decode_splits).parameters) == [
+        "span", "b", "hkv"]
+    assert TPA.decode_splits(592, 8, 8) == (64, 10)
+    assert TPA.decode_splits(4096, 8, 8) == (256, 16)
+    assert TPA.decode_splits(8192, 1, 8) == (256, 32)
+
+
+@pytest.mark.parametrize("lens,pad_frac,prefix", [
+    ([8192], 0.0, 8192), ([300, 300], 0.0, 300), ([300, 700], 0.0, None),
+    ([700], 0.25, None),
+])
+def test_sdpa_gets_no_mask_exactly_for_a_live_prefix(smoke, lens, pad_frac,
+                                                      prefix):
+    case = smoke._dense_case(lens, seed=0, pad_frac=pad_frac, hq=2, hkv=1,
+                             d=64, c=8192)
+    assert smoke._live_prefix(case) == prefix
+
+
+@pytest.mark.parametrize("names,backend", [
+    (["cudnn_generated_fort_native_sdpa_sm90_flash_fprop"], "cuDNN"),
+    (["void pytorch_flash::flash_fwd_kernel<...>"], "flash"),
+    (["fmha_cutlassF_bf16_aligned_64x64_rf_sm80"], "efficient"),
+    (["gemv2T_kernel", "softmax_warp_forward"], "math"),
+])
+def test_sdpa_decode_yardstick_names_the_backend_that_ran(smoke, monkeypatch,
+                                                          names, backend):
+    """The backend is read from the kernels of a traced call; a trace that
+    holds none is taken again."""
+    traces = iter([[], [{"cat": "kernel", "name": n} for n in names]])
+    monkeypatch.setattr(smoke, "_kernel_records", lambda fn: next(traces))
+    case = smoke._dense_case([40], seed=0, hq=4, hkv=2, d=64, c=64)
+    _, got = smoke._dense_library_call(case)
+    assert got == backend
 
 
 def test_continuous_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
