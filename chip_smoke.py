@@ -40,8 +40,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version over ``|v|`` (the size of the weighted sum before any
    cancellation); for each row and q head ``‖out - ref‖ <= 2^-6 · ‖ref‖``
    over the head dim. Ragged attention: the span layouts of the CPU suite
-   and one main-path shape, bf16 and int8 pools, on owned rows; unowned
-   rows exactly 0. Flash forward: the CPU suite's cases, the main-path
+   and one main-path shape, then tiles over several of the kernel's runs
+   of keys (a causal bound at a run boundary and one key either side, a
+   masked span longer than a run, an idle slot with a stale kv_len beside
+   split slots, one row over 8192 keys, 8 rows over 512..4096 keys,
+   32-token q-tiles, head dims 64 and 256), bf16 and int8 pools, on owned
+   rows; unowned rows exactly 0; each case run twice, its output equal bit
+   for bit. Flash forward: the CPU suite's cases, the main-path
    prefill (Hq 32, Hkv 8, Sq = Sk = 512, D 128, causal, left padding), a
    shape past the TPU's 4 MB whole-K/V line (Sq = Sk = 16384), window
    cases, a 528-row continuation, head dims 64 and 256 and GQA groups of 1
@@ -77,7 +82,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    yardstick the port never calls: ``scaled_dot_product_attention`` over
    a per-slot batched view, with ``enable_gqa`` for the flash and decode
    kernels), beside the least time the card could take (bytes over 3.35
-   TB/s, FLOPs of the visible pairs over 989 TFLOP/s); both decode
+   TB/s, FLOPs of the visible pairs over 989 TFLOP/s); ragged attention
+   at the shapes the ragged engine runs (``RAGGED_TIMED``: an admission
+   step of 512 rows, the width-8 decode step, 8 slots of 512..4096 keys,
+   one slot of 8192, a 512-row chunk over 4096 keys; int8 at the first
+   two), each with the CTAs and kernels its call launched (read from a
+   profiler trace and checked: one launch of the split grid), against
+   the decode SDPA yardstick where every sequence has one row; both decode
    kernels at the main-path decode, 8 slots of 512..4096 keys and one
    slot of 8192, each with the CTAs and kernels its call launched (read
    from profiler traces) and SDPA by its own dispatch, the keys cut to
@@ -169,6 +180,7 @@ from kubeflow_tpu_torch.models.serving import GenerationConfig
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import attention as attn_mod
 from kubeflow_tpu_torch.ops import paged_attention as decode_mod
+from kubeflow_tpu_torch.ops import ragged_attention as ragged_mod
 from kubeflow_tpu_torch.ops.attention import (
     NEG_INF,
     flash_attention_bwd,
@@ -216,8 +228,10 @@ def check(cond: bool, msg: str) -> None:
 # Kernel cases
 
 
-def _case(spans, *, hq, hkv, d, bs, maxb, nb, t, seed, all_true=False):
-    """Random bf16 q/pools and the metadata for [(seq_len, kv_len)]."""
+def _case(spans, *, hq, hkv, d, bs, maxb, nb, t, seed, all_true=False,
+          hole=None):
+    """Random bf16 q/pools and the metadata for [(seq_len, kv_len)];
+    ``hole`` = (sequence, lo, hi) masks that sequence's keys lo..hi-1."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     dev = DEVICE
     q = torch.randn((t, hq, d), generator=g, device=dev).to(torch.bfloat16)
@@ -238,6 +252,9 @@ def _case(spans, *, hq, hkv, d, bs, maxb, nb, t, seed, all_true=False):
         kv_mask = torch.ones((s, maxb * bs), dtype=torch.bool, device=dev)
     else:
         kv_mask = torch.arange(maxb * bs, device=dev)[None, :] < kvl_t[:, None]
+    if hole is not None:
+        row, lo, hi = hole
+        kv_mask[row, lo:hi] = False
     return dict(
         q=q, k_pool=kp, v_pool=vp, tables=tables, kv_mask=kv_mask,
         seq_starts=torch.tensor(starts, dtype=torch.int32, device=dev),
@@ -323,33 +340,87 @@ def _gate(name: str, errs: dict, worst: dict) -> None:
         worst[gate] = max(worst.get(gate, 0.0), errs[gate])
 
 
+# The engine's decode lengths (8 slots, 8..576 keys) and long histories
+# (8 slots, 512..4096 keys), shared by the ragged and decode cases.
+DEC_MAIN_LENS = [int(x) for x in np.linspace(8, 576, 8)]
+LONG_LENS = [int(x) for x in np.linspace(512, 4096, 8)]
+# Tiles whose keys span several of the kernel's runs (ragged_splits: 2 to
+# 6 runs of 192 to 512 keys at these shapes): up to 7 sequences of up to
+# 96 rows over a 1024-key span; 16 q heads a kv head for 32-token q-tiles
+# of 128 rows; llama-3-8b's heads over long spans with one row a slot.
+RAG_SPLIT = dict(hq=8, hkv=4, d=128, bs=16, maxb=64, nb=7 * 64 + 1, t=96)
+RAG_QT32 = dict(hq=16, hkv=4, d=128, bs=16, maxb=64, nb=3 * 64 + 1, t=96)
+RAG_DECODE = dict(hq=32, hkv=8, d=128, bs=16, maxb=37, nb=8 * 37 + 1, t=8)
+RAG_LONG = dict(hq=32, hkv=8, d=128, bs=16, maxb=256, nb=8 * 256 + 1, t=8)
+RAG_SINGLE = dict(hq=32, hkv=8, d=128, bs=16, maxb=512, nb=512 + 1, t=8)
+RAG_CHUNK = dict(hq=32, hkv=8, d=128, bs=16, maxb=256, nb=256 + 1, t=512)
+# Phase 3's ragged cases: (spans, shape, options, q_tile, name, seed). The
+# CPU suite's layouts, the other head dims and 32-token q-tiles, the
+# main-path shape; then the split design's edges: decode rows and
+# one-tile prefill chunks whose causal bound falls at a run boundary (512
+# keys) and one key either side, and a 40-row chunk near the span's end;
+# a masked span longer than a run, so that a whole run sees no key;
+# an idle slot with a stale kv_len past the span beside split slots; one
+# row over 8192 keys (7 unowned rows) and 8 rows over 512..4096 keys;
+# 32-token q-tiles (128 rows a CTA) and head dims 64 and 256 over several
+# runs.
+RAGGED_CASES = [
+    (spans, SMALL, {"all_true": all_true}, q_tile, f"small#{i}", i)
+    for i, (spans, q_tile, all_true) in enumerate(SMALL_LAYOUTS)
+] + [
+    (SMALL_LAYOUTS[i][0], {**SMALL, "d": d}, {}, 16, f"d{d}#{i}", 50 + i)
+    for i, d in ((2, 64), (3, 256))
+] + [
+    (MAIN_SPANS, MAIN, {}, 16, "main", 100),
+    (MAIN_SPANS, MAIN, {}, 32, "main-qt32", 101),
+    ([(1, 511), (1, 512), (1, 513), (16, 511), (16, 512), (16, 513),
+      (40, 1000)], RAG_SPLIT, {}, 16, "split-bounds", 150),
+    ([(1, 700), (30, 900)], RAG_SPLIT, {"hole": (0, 60, 600)}, 16,
+     "masked-run", 151),
+    ([(1, 300), (0, 10_000), (1, 700), (20, 700)], RAG_SPLIT, {}, 16,
+     "idle-stale-split", 152),
+    ([(1, 8192)], RAG_SINGLE, {}, 16, "single-8192", 153),
+    ([(1, n) for n in LONG_LENS], RAG_LONG, {}, 16, "long-4096", 154),
+    ([(70, 900), (1, 513), (20, 130)], RAG_QT32, {}, 32, "split-qt32", 155),
+    ([(1, 700), (30, 900), (1, 513)], {**RAG_SPLIT, "d": 64}, {}, 16,
+     "split-d64", 156),
+    ([(1, 700), (30, 900), (1, 513)], {**RAG_SPLIT, "d": 256}, {}, 16,
+     "split-d256", 157),
+]
+
+
+def check_ragged_repeat(first, again, name: str) -> None:
+    """Ragged attention twice on the same inputs must give the same bits:
+    each output is written once, by one thread, and the merge of a tile's
+    runs adds them in run order, whichever run finished last."""
+    check(_same_bits(first, again),
+          f"{name}: the output differs between two runs on the same inputs")
+
+
 def kernel_vs_plain():
-    """Phase 3, ragged attention: every case, bf16 and int8; returns
-    {variant: {gate: the worst error}}."""
-    cases = [(_case(spans, seed=i, all_true=all_true, **SMALL), q_tile,
-              f"small#{i}")
-             for i, (spans, q_tile, all_true) in enumerate(SMALL_LAYOUTS)]
-    # The other head dims the kernel is built for, and 32-token q-tiles
-    # (128 query rows per CTA, every warp its own rows).
-    cases += [(_case(SMALL_LAYOUTS[i][0], seed=50 + i, **{**SMALL, "d": d}),
-               16, f"d{d}#{i}") for i, d in ((2, 64), (3, 256))]
-    cases.append((_case(MAIN_SPANS, seed=100, **MAIN), 16, "main"))
-    cases.append((_case(MAIN_SPANS, seed=101, **MAIN), 32, "main-qt32"))
+    """Phase 3, ragged attention: every RAGGED_CASES case, bf16 and int8,
+    each run twice and its output equal bit for bit; returns {variant:
+    {gate: the worst error}}."""
     worst = {v: dict.fromkeys(GATES, 0.0) for v in ("bf16", "int8")}
-    for base, q_tile, name in cases:
+    for spans, shape, opts, q_tile, name, seed in RAGGED_CASES:
+        base = _case(spans, seed=seed, **shape, **opts)
         for variant in ("bf16", "int8"):
             case = base if variant == "bf16" else _quantized(base)
             out = ragged_paged_attention(**case, q_tile=q_tile)
+            check_ragged_repeat(
+                out, ragged_paged_attention(**case, q_tile=q_tile),
+                f"{name} {variant}")
             torch.cuda.synchronize()
             owned = _owned(case)
             errs = _errors(out, case, owned)
             torch.cuda.synchronize()
             unowned_zero = bool((out[~owned] == 0).all())
-            log(f"  {name:9s} {variant}: " + " ".join(
+            log(f"  {name:16s} {variant}: " + " ".join(
                 f"max_{k}_err={v:.3e}" for k, v in errs.items())
-                + f" unowned_rows_zero={unowned_zero}")
+                + f" unowned_rows_zero={unowned_zero} repeat_bit_equal=True")
             _gate(f"{name} {variant}", errs, worst[variant])
             check(unowned_zero, f"{name} {variant}: unowned rows not 0")
+        del base
     return worst
 
 
@@ -596,13 +667,11 @@ def flash_bwd_vs_plain():
 # lengths 8..576 with a quarter of each history left padding.
 DEC_SMALL = dict(hq=8, hkv=4, d=128, bs=16, maxb=6, nb=32)
 DEC_MAIN = dict(hq=32, hkv=8, d=128, bs=16, maxb=37, nb=8 * 37 + 1)
-DEC_MAIN_LENS = [int(x) for x in np.linspace(8, 576, 8)]
 # Six slots over a 1024-key span, and llama-3-8b's heads over long spans.
 DEC_SPLIT = dict(hq=8, hkv=4, d=128, bs=16, maxb=64, nb=6 * 64 + 1)
 SPLIT_LENS = [255, 256, 257, 511, 512, 513]
 DEC_LONG = dict(hq=32, hkv=8, d=128, bs=16, maxb=256, nb=8 * 256 + 1)
 DEC_SINGLE = dict(hq=32, hkv=8, d=128, bs=16, maxb=512, nb=512 + 1)
-LONG_LENS = [int(x) for x in np.linspace(512, 4096, 8)]
 DEC_CASES = [
     ([17, 40, 96], DEC_SMALL, {}, "partial-tails"),
     ([1, 33, 96], DEC_SMALL, {"all_true": True}, "all-true"),
@@ -913,24 +982,126 @@ def _library_call(case):
     return call
 
 
+RAGGED_DESIGN = (
+    "compact tile grid (ragged_tiles: min(T, (T + S·(q_tile − 1)) / q_tile) "
+    "q-tiles, each CTA finding its sequence and tile by a warp's prefix sum "
+    "of the tiles a sequence owns, on the card); grid (run, kv head, "
+    "tile), each CTA one run of its tile's keys up to the tile's causal "
+    "bound (ragged_splits: a multiple of 64 keys, at most 32 runs a tile "
+    "and 132 CTAs a call, one wave at one CTA an SM) for all q_tile·G "
+    "rows of the kv head's group, "
+    "8 warps on mma.sync m16n8k16 in 64-key tiles through two cp.async "
+    "stages; runs past the tile's keys exit at once; a tile over several "
+    "runs: f32 partials to scratch, the last run by an atomic ticket "
+    "merges them in run order (one launch a call)")
+# Phase 4's ragged shapes, llama-3-8b heads and block 16: (name, spans,
+# shape, seed, variants). An admission step (4 decode rows and 4 prefill
+# chunks in a 512-row dispatch, kv lengths up to 640); the width-8 decode
+# step, one row a slot over 8..576 keys, which most of the engine's steps
+# are; long notebook sessions (8 slots of 512..4096 keys); one stream of
+# 8192 keys at the width-8 dispatch (7 unowned rows); a long prompt's
+# continuation chunk (512 rows at positions 3584..4095 of 4096 keys). int8
+# pools at the two shapes the int8 engine runs.
+RAGGED_TIMED = (
+    ("main-mixed", MAIN_SPANS, MAIN, 100, ("bf16", "int8")),
+    ("ragged-decode", [(1, n) for n in DEC_MAIN_LENS], RAG_DECODE, 510,
+     ("bf16", "int8")),
+    ("ragged-long-4096", [(1, n) for n in LONG_LENS], RAG_LONG, 511,
+     ("bf16",)),
+    ("ragged-single-8192", [(1, 8192)], RAG_SINGLE, 512, ("bf16",)),
+    ("ragged-chunk-4096", [(512, 4096)], RAG_CHUNK, 513, ("bf16",)),
+)
+RAGGED_ROW_KEYS = ("ms", "plain_ms", "library_ms", "library_backend",
+                   "bound_ms", "bound_by", "ctas", "launches_per_call",
+                   "kernels_per_call")
+
+
+def _ragged_ctas(case) -> int:
+    """The CTAs one call launches at the wrapper's q_tile of 16, which the
+    engine runs: ragged_tiles · Hkv · nsplit of ragged_splits, from the
+    case's shapes."""
+    q_tile = 16
+    t = case["q"].shape[0]
+    s, maxb = case["tables"].shape
+    hkv, bs = case["k_pool"].shape[1:3]
+    _, nsplit = ragged_mod.ragged_splits(t, s, maxb * bs, hkv, q_tile)
+    return ragged_mod.ragged_tiles(t, s, q_tile) * hkv * nsplit
+
+
+def _ragged_library_call(case):
+    """(call, backend name). Where every sequence has one row (the decode
+    shapes), the decode yardstick: one SDPA call, query length 1, over each
+    slot's gathered keys, cut to the live prefix where that is the whole
+    visibility, else with the visibility as a mask (int8 pools dequantized
+    to bf16 first, untimed). Otherwise ``_library_call``'s per-slot
+    batched view with the visibility as a mask."""
+    if set(case["seq_lens"].tolist()) != {1}:
+        call = _library_call(case)
+        return call, _sdpa_backend(call)
+    pools = {}
+    for name in ("k_pool", "v_pool"):
+        pool, scale = case[name], case.get(name.replace("_", "_scale_"))
+        if scale is not None:
+            pool = (pool.float() * scale.float()[..., None]).to(torch.bfloat16)
+        pools[name] = pool
+    return _decode_library_call(dict(
+        q=case["q"][case["seq_starts"].long()], **pools,
+        tables=case["tables"], kv_mask=case["kv_mask"],
+        seq_lens=case["kv_lens"], block_size=case["block_size"]))
+
+
+def _timing_ragged(label, case) -> dict:
+    """Phase 4 for ragged attention at one case: the kernel, the CTAs and
+    kernels its call launched (read from one retried trace and checked:
+    one launch of ``_ragged_ctas`` CTAs), its plain version, the library
+    call and the bound."""
+    saved = ragged_paged_attention.launches
+    kernel_ms = _time_ms(lambda: ragged_paged_attention(**case))
+    grids, records = _launch_grids(lambda: ragged_paged_attention(**case),
+                                   {"ctas": "ragged_kernel"})
+    ragged_paged_attention.launches = saved  # timing is no main path
+    ctas = sum(math.prod(g) for g in grids["ctas"])
+    # One launch of the kernel; the one other kernel a call may run is the
+    # zero fill of the output's unowned rows (torch.zeros_like).
+    per_call = len(grids["ctas"])
+    others = [ev.get("name", "") for ev in records
+              if "ragged_kernel" not in ev.get("name", "")]
+    check(per_call == 1 and len(others) <= 1
+          and all("fill" in name.lower() for name in others),
+          f"{label}: one call launched {per_call} ragged kernels and "
+          f"{[name[:60] for name in others]}")
+    expected = _ragged_ctas(case)
+    check(ctas == expected, f"{label}: {ctas} CTAs launched, not the "
+                            f"{expected} of ragged_tiles · Hkv · nsplit")
+    plain_ms = _time_ms(lambda: ragged_attention_reference(**case))
+    call, backend = _ragged_library_call(case)
+    library_ms = _time_ms(call)
+    bound_ms, bound_by, work = _bound(case)
+    log(f"  {label}: kernel {kernel_ms:.4f} ms ({ctas} CTAs, {per_call} "
+        f"launch a call, {len(records)} kernels with the output's zero "
+        f"fill), plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms (SDPA {backend}), bound {bound_ms:.4f} ms "
+        f"({bound_by}; {work['bytes']} B, {work['flops']} FLOP)")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_backend=backend, bound_ms=bound_ms,
+                bound_by=bound_by, ctas=ctas, launches_per_call=per_call,
+                kernels_per_call=len(records), **work)
+
+
 def timing():
-    """Phase 4: the main-path shape, bf16 and int8."""
-    base = _case(MAIN_SPANS, seed=100, **MAIN)
+    """Phase 4, ragged attention: {shape name: {variant: row}} at every
+    RAGGED_TIMED shape."""
     rows = {}
-    for variant in ("bf16", "int8"):
-        case = base if variant == "bf16" else _quantized(base)
-        saved = ragged_paged_attention.launches
-        kernel_ms = _time_ms(lambda: ragged_paged_attention(**case))
-        ragged_paged_attention.launches = saved  # timing is no main path
-        plain_ms = _time_ms(lambda: ragged_attention_reference(**case))
-        library_ms = _time_ms(_library_call(case))
-        bound_ms, bound_by, work = _bound(case)
-        rows[variant] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, **work)
-        log(f"  {variant}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms,"
-            f" library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; {work['bytes']} B, {work['flops']} FLOP)")
+    for name, spans, shape, seed, variants in RAGGED_TIMED:
+        base = _case(spans, seed=seed, **shape)
+        rows[name] = {
+            variant: _timing_ragged(
+                f"{name} {variant}",
+                base if variant == "bf16" else _quantized(base))
+            for variant in variants}
+        del base
+        # The plain version's gathered keys at the chunk shape take ~17 GB.
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1254,15 +1425,21 @@ def _sdpa_decode_call(q, k, v, allowed, reference):
     err = float((call()[:, :, 0].float() - reference.float()).abs().max())
     check(err <= TOL, f"decode library yardstick differs from the plain "
                       f"version by {err}")
+    return call, _sdpa_backend(call)
+
+
+def _sdpa_backend(call) -> str:
+    """The SDPA backend ``call`` runs, named from the kernels of one traced
+    call (math when none is a fused backend's); a trace that holds no
+    kernel is taken again, up to three times."""
     for _ in range(3):  # a trace now and then drops its kernel records
         records = _kernel_records(call)
         if records:
             break
     check(bool(records), "3 traces hold no kernel of the SDPA yardstick")
     names = " ".join(ev.get("name", "") for ev in records).lower()
-    backend = next((label for needle, label in SDPA_BACKENDS
-                    if needle in names), "math")
-    return call, backend
+    return next((label for needle, label in SDPA_BACKENDS
+                 if needle in names), "math")
 
 
 def _decode_library_call(case):
@@ -1355,6 +1532,12 @@ def _kernel_records(fn) -> list:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return _profiled_kernels(prof)
+
+
+def _profiled_kernels(prof) -> list:
+    """The kernel records (name, ``dur`` in µs, ``args.grid``) of a
+    finished ``torch.profiler`` run, from its chrome trace."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -1735,7 +1918,9 @@ def _trace(engine, prompts, kernels: dict) -> dict:
     read that one run: its wall seconds, the card's busy seconds (the
     union of kernel intervals), the idle share 1 − busy/wall, each of
     ``kernels``' ({label: name substring}) device seconds and share of
-    busy time, and the six largest kernels' device seconds. The
+    busy time, and its [launches, device seconds] by launch grid (the
+    grid tells a step's dispatch width), and the six largest kernels'
+    device seconds. The
     profiler's own cost on the host stretches this run's wall, so its
     idle share is an upper bound for an untraced run."""
     from torch.profiler import ProfilerActivity, profile
@@ -1755,11 +1940,21 @@ def _trace(engine, prompts, kernels: dict) -> dict:
     busy = _busy_seconds(intervals)
     check(busy > 0, "the trace holds no kernel on the card")
     out = {"wall_s": wall, "busy_s": busy, "idle_share": 1.0 - busy / wall}
+    records = _profiled_kernels(prof)
     for label, needle in kernels.items():
         seconds = sum(v for k, v in by_name.items() if needle in k)
         check(seconds > 0, f"the trace holds no {needle} on the card")
         out[f"{label}_s"] = seconds
         out[f"{label}_share_of_busy"] = seconds / busy
+        by_grid: dict[str, list] = {}
+        for ev in records:
+            if needle in ev.get("name", ""):
+                grid = "x".join(map(str, ev.get("args", {}).get("grid") or []))
+                row = by_grid.setdefault(grid, [0, 0.0])
+                row[0] += 1
+                row[1] += ev.get("dur", 0) / 1e6
+        out[f"{label}_by_grid"] = dict(sorted(by_grid.items(),
+                                              key=lambda kv: -kv[1][1]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out["top_kernels_s"] = [[k[:60], v] for k, v in top]
     return out
@@ -2184,7 +2379,16 @@ def main() -> int:
         entry("ragged_paged_attention",
               "kubeflow_tpu_torch/csrc/ragged_attention.cu",
               "kubeflow_tpu/ops/ragged_attention.py:330", launches[variant],
-              errors[variant], times[variant], variant=variant)
+              errors[variant], times["main-mixed"][variant], variant=variant,
+              design=RAGGED_DESIGN,
+              library_backend=times["main-mixed"][variant]["library_backend"],
+              launches_per_call={k: times[k][variant]["launches_per_call"]
+                                 for k in times if variant in times[k]},
+              ctas={k: times[k][variant]["ctas"]
+                    for k in times if variant in times[k]},
+              **{k.replace("-", "_"): {f: times[k][variant][f]
+                                       for f in RAGGED_ROW_KEYS}
+                 for k in times if k != "main-mixed" and variant in times[k]})
         for variant in ("bf16", "int8")
     ] + [
         entry("flash_attention", "kubeflow_tpu_torch/csrc/flash_attention.cu",

@@ -11,45 +11,69 @@
 // (NB, Hkv, BS). Rows whose keys are all masked come out 0; rows owned by
 // no sequence are never written (the wrapper zero-fills the output).
 //
-// What bounds it on this card: bytes. At decode each query row reads its
+// What bounds it on this card: bytes, at every shape the engine runs but a
+// long prompt's continuation chunk. At decode each query row reads its
 // whole live history once, about 4 FLOPs per K/V byte — far below the
 // ~295 FLOPs/byte where the H100's bf16 tensor cores would be the limit —
 // so the floor is the live K/V blocks over HBM bandwidth (3.35 TB/s).
+// Reaching it takes many bytes in flight on every SM at once, which one
+// CTA walking a tile's whole history in series never has: the engine's
+// decode steps are 8 rows, one a slot, so a grid of one CTA per (tile,
+// kv head) has 64 CTAs for 132 SMs.
 // What the design does about it:
-// - one CTA per (sequence, q-tile of 16 tokens, kv head) takes all 16·G
-//   query rows of the tile's GQA group, so each K/V block is read from HBM
-//   once per tile and reused by every q head that shares it (G = Hq/Hkv),
-//   instead of once per query row; the loop stops at the tile's causal
-//   bound, so no dead key is read;
+// - a compact tile grid: the grid's tile axis holds the at most
+//   min(T, (T + S·(q_tile − 1)) / q_tile) q-tiles of q_tile tokens that
+//   can own rows. Each CTA finds its (sequence, tile) by a warp's prefix
+//   sum of ceil(seq_len / q_tile) over the S sequences, loading seq_starts
+//   and kv_lens in the same trip; a tile index past the last owned tile
+//   exits at once, so the host never reads the device metadata;
+// - the grid is (run, kv head, tile): each CTA takes one run of `split`
+//   keys (a multiple of 64, which the host fixes from T, S, MAXB·BS, Hkv
+//   and q_tile, never from seq_lens) of its tile's key range [0, hi), hi
+//   being the tile's causal bound, and serves all q_tile·G query rows of
+//   the kv head's GQA group (G = Hq/Hkv), so each K/V block is read from
+//   HBM once per tile and reused by every q head that shares it, and a
+//   long history is read by many SMs at once. A run that starts at or
+//   past hi exits before any load. The 8 warps take 227-255 registers a
+//   thread, so an SM holds one CTA: the host caps a call at one wave of
+//   CTAs, and a tile is split only where few tiles walk far (the width-8
+//   decode steps, long histories), not where the tiles already fill the
+//   card (an admission step, a long prompt's chunk);
 // - keys are staged in tiles of 64 with cp.async into two shared-memory
 //   stages: the next tile's loads are in flight while the current tile is
-//   computed, and every load of a tile is issued before any is waited for,
-//   so a CTA pays one memory latency per tile, not one per load;
+//   computed, and every load of a tile is issued before any is waited for;
 // - the math runs on the tensor cores (mma.sync m16n8k16, bf16 in, f32
 //   accumulate): S = Q·Kᵀ, the online softmax on the S fragments in
 //   registers, O += P·V with V read through ldmatrix.trans, the output
-//   accumulator in registers for the whole loop;
+//   accumulator in registers for the whole run;
 // - each of the CTA's 8 warps takes 16 query rows; where the tile has fewer
 //   rows than that (a decode tile has G), the warps of a row group split
 //   every key tile between them, each with its own online softmax, and
-//   merge their partial results at the end, so a decode tile's math runs on
-//   four warps and not one.
+//   merge their partial results at the end of the run;
+// - a tile whose keys fit in one run is finished by that run's CTA.
+//   Otherwise each run writes its rows' unnormalised f32 partial O and
+//   their max m and sum l to scratch (a run that sees no key writes
+//   m = -inf, l = 0 and weighs 0), then takes a ticket on its (tile, kv
+//   head) counter. The last run to arrive merges the partials in run
+//   order, so the output is the same bits on every run whichever CTA came
+//   last, and sets the counter back to 0: one launch a call.
 //
 // int8 pools: the raw int8 tile is staged, then widened in shared memory
-// to bf16 (exact: |v| <= 127). Each key's K scale multiplies its f32
-// score, and each key's V scale multiplies its f32 probability before that
-// is rounded to bf16 for P·V — sum_k p_k·(s_k·v_k) = sum_k (p_k·s_k)·v_k.
+// to bf16 (exact: |v| <= 127), each thread widening the chunks it copied,
+// so a tile costs the same two barriers as a bf16 one. Each key's K scale
+// multiplies its f32 score, and each key's V scale multiplies its f32
+// probability before that is rounded to bf16 for P·V —
+// sum_k p_k·(s_k·v_k) = sum_k (p_k·s_k)·v_k.
 //
-// Not yet done (later work): wgmma, TMA, warp specialisation, and a split
-// over the kv axis for long single-row decode.
+// A long prompt's continuation chunk (hundreds of rows over thousands of
+// keys) is bound by operations; there mma.sync's 16-row products, and not
+// wgmma's 64-row ones, are what this kernel leaves on the table.
 //
 // Differences from the TPU kernel that correctness depends on:
 // - CTAs run concurrently and in no order, so a partial last q-tile never
 //   writes a row past seq_start + seq_len (the TPU kernel wrote whole
-//   tiles and relied on a later sequential program to overwrite them).
-// - The grid is sized from shapes only (ceil(T/q_tile) tiles per
-//   sequence); tiles past a sequence's length exit at once, so the host
-//   never reads the device metadata.
+//   tiles and relied on a later sequential program to overwrite them), and
+//   a tile over several runs is merged by whichever run finishes last.
 // - Keys are walked in tiles of 64 positions through the tables, so any
 //   block size works; a tile may span blocks.
 
@@ -74,6 +98,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxRows = 16 * kWarps;  // q_tile * group rows of one CTA
 constexpr int kKeys = 64;              // keys per tile, a multiple of 16
+constexpr int kMaxRuns = 32;           // runs of one tile, at most
 constexpr size_t kMaxSmem = 232448;
 
 enum : int {
@@ -81,7 +106,17 @@ enum : int {
   kErrRows = -2,
   kErrSmem = -3,
   kErrGroup = -4,
+  kErrSplit = -5,
 };
+
+// The q-tiles of q_tile tokens that can own rows of a T-row batch of S
+// sequences: each owns at least one row, and sum_s ceil(n_s / q_tile) <=
+// (T + S·(q_tile - 1)) / q_tile.
+__host__ __device__ inline int grid_tiles(int t, int s, int q_tile) {
+  const long long bound =
+      ((long long)t + (long long)(s < t ? s : t) * (q_tile - 1)) / q_tile;
+  return (int)(bound < t ? bound : t);
+}
 
 // Byte offsets into dynamic shared memory. bf16 rows are padded by 8
 // elements (16 bytes): rows stay 16-byte aligned, and the 8 rows one
@@ -95,8 +130,9 @@ enum : int {
 //          table span), so the loads of a tile never wait on the tables
 //   mask:  [stage][kKeys] kv_mask bytes of the tile's keys
 // After the key loop, the bytes from kv on hold the warps' partial results
-// for the merge: [warp][D/8][4][32] f32 accumulators, then [warp][4][32]
-// f32 (m_a, m_b, l_a, l_b).
+// for their merge: [warp][D/8][4][32] f32 accumulators, then [warp][4][32]
+// f32 (m_a, m_b, l_a, l_b); and, in the CTA that merges a tile's runs, the
+// runs' weights and sums, [2][kMaxRuns][kMaxRows] f32.
 struct Smem {
   size_t q, kv, raw, scale, row, mask, total;
   __host__ __device__ Smem(int d, int rows_pad, bool quant) {
@@ -109,10 +145,16 @@ struct Smem {
     mask = row + sizeof(int) * 2 * kKeys;
     total = mask + 2 * kKeys;
     const size_t merge = kv + sizeof(float) * kWarps * 32 * 4 * (d / 8 + 1);
+    const size_t runs = kv + sizeof(float) * 2 * kMaxRuns * kMaxRows;
     if (merge > total) total = merge;
+    if (runs > total) total = runs;
   }
 };
 
+// CTA (run, h, tile) takes keys [run*split, (run + 1)*split) of its tile's
+// range [0, hi) for kv head h. Scratch, for tiles over more than one run:
+// part_o (T, Hq, nsplit, D) f32 and part_ml (T, Hq, nsplit) (m, l), by q
+// row and q head; counters (tiles, Hkv), 0 between calls.
 template <int D, bool QUANT>
 __global__ void __launch_bounds__(kThreads) ragged_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pool,
@@ -120,8 +162,10 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
     const __nv_bfloat16* __restrict__ v_scale, const int* __restrict__ tables,
     const uint8_t* __restrict__ kv_mask, const int* __restrict__ seq_starts,
     const int* __restrict__ seq_lens, const int* __restrict__ kv_lens,
-    __nv_bfloat16* __restrict__ out, int hq, int hkv, int bs, int maxb,
-    int q_tile, float scale) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+    float2* __restrict__ part_ml, unsigned* __restrict__ counters, int nseq,
+    int hq, int hkv, int bs, int maxb, int q_tile, int split, int nsplit,
+    float scale) {
   constexpr int RS = D + 8;       // padded bf16 row, elements
   constexpr int ND = D / 8;       // n-tiles of the output
   constexpr int kChunk = QUANT ? 16 : 8;  // pool elements per 16 bytes
@@ -129,23 +173,67 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
   constexpr int kTileChunks = 2 * kKeys * kRowChunks;  // K and V
   constexpr int kIssueIters = (kTileChunks + kThreads - 1) / kThreads;
 
-  const int t = blockIdx.x;
-  const int s = blockIdx.y;
-  const int h = blockIdx.z;
-  const int qlen = seq_lens[s];
-  if (t * q_tile >= qlen) return;  // past this sequence's rows, or idle
+  const int run = blockIdx.x;
+  const int h = blockIdx.y;
+  const int tile = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  // This CTA's (sequence s, tile t of s): every warp scans the sequences'
+  // tile counts 32 at a time, loading their starts and kv lengths in the
+  // same trip. A tile index past the last owned tile owns no row.
+  int s = -1, t = 0, qlen = 0, start = 0, kvlen = 0;
+  {
+    int before = 0;  // tiles of the sequences scanned so far
+    for (int s0 = 0; s0 < nseq; s0 += 32) {
+      const int i = s0 + lane;
+      int n = 0, st = 0, kl = 0;
+      if (i < nseq) {
+        n = seq_lens[i];
+        st = seq_starts[i];
+        kl = kv_lens[i];
+      }
+      const int c = n > 0 ? (n + q_tile - 1) / q_tile : 0;
+      int incl = c;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      const int first = before + incl - c;
+      const unsigned hit =
+          __ballot_sync(0xffffffffu, tile >= first && tile < first + c);
+      if (hit) {
+        const int src = __ffs(hit) - 1;
+        s = s0 + src;
+        t = tile - __shfl_sync(0xffffffffu, first, src);
+        qlen = __shfl_sync(0xffffffffu, n, src);
+        start = __shfl_sync(0xffffffffu, st, src);
+        kvlen = __shfl_sync(0xffffffffu, kl, src);
+        break;
+      }
+      before += __shfl_sync(0xffffffffu, incl, 31);
+    }
+  }
+  if (s < 0) return;
   const int group = hq / hkv;
-  const int start = seq_starts[s];
-  const int kvlen = kv_lens[s];
   const int base = kvlen - qlen;  // kv position of the chunk's row 0
   const int ntok = min(q_tile, qlen - t * q_tile);
   const int rows = ntok * group;  // valid (token, group) rows, token-major
   const int row0 = start + t * q_tile;
-  const int hi = min(base + (t + 1) * q_tile, kvlen);  // tile's kv bound
-  const int nkt = (hi + kKeys - 1) / kKeys;
   const int span = maxb * bs;
+  // The tile's keys: its rows see none at or past hi, nor past the table
+  // span.
+  const int hi = max(0, min(min(base + (t + 1) * q_tile, kvlen), span));
+  // Runs that hold the tile's keys; at least one, so that a tile with no
+  // key still writes its zero rows.
+  const int nlive = max(1, (hi + split - 1) / split);
+  if (run >= nlive) return;
+  const int k0 = run * split;
+  const int k1 = min(k0 + split, hi);
+  const int nkt = k1 > k0 ? (k1 - k0 + kKeys - 1) / kKeys : 0;
   const int rows_pad = (q_tile * group + 15) / 16 * 16;
-  const int tid = threadIdx.x;
   // Scores in log2 units, so the softmax's exponentials are exp2.
   const float scale_log2 = scale * 1.4426950408889634f;
   const uint8_t* mask_row = kv_mask + (size_t)s * span;
@@ -160,11 +248,14 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
   int* row_s = reinterpret_cast<int*>(smem_raw + lay.row);
   uint8_t* mask_s = smem_raw + lay.mask;
 
-  // Thread tid < kKeys: the pool row of key tid of tile kt for this slot
-  // and kv head, -1 past the table span. Loaded a tile before the tile's
-  // K/V loads are issued, and kept in row_s[kt & 1].
+  // Thread tid < kKeys: the pool row of key tid of the run's key tile kt
+  // for this slot and kv head, -1 past the table span. Loaded a tile before
+  // the tile's K/V loads are issued, and kept in row_s[kt & 1]. Keys of the
+  // run's last tile past k1 are either past hi, which no row of the tile
+  // sees, or past the span (split is a multiple of kKeys, so a run's tiles
+  // never reach into the next run).
   auto load_row = [&](int kt) -> int {
-    const int kpos = kt * kKeys + tid;
+    const int kpos = k0 + kt * kKeys + tid;
     if (tid >= kKeys || kpos >= span) return -1;
     return (table[kpos / bs] * hkv + h) * bs + kpos % bs;
   };
@@ -212,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
     const int j = tid % kKeys;
     const int row = tid < 2 * kKeys ? row_s[(kt & 1) * kKeys + j] : -1;
     if (row < 0) return m;
-    if (tid < kKeys) m.mask = mask_row[kt * kKeys + j];
+    if (tid < kKeys) m.mask = mask_row[k0 + kt * kKeys + j];
     if (QUANT) m.scale = (tid >= kKeys ? v_scale : k_scale)[row];
     return m;
   };
@@ -246,19 +337,18 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
     cp_async_wait<0>();
   }
 
-  const int warp = tid / 32;
-  const int lane = tid % 32;
   const int gq = lane / 4;  // fragment row within 8
   const int tq = lane % 4;  // fragment column pair
-  // Warp roles: the tile's live row groups of 16 rows each get `split`
+  // Warp roles: the tile's live row groups of 16 rows each get `wsplit`
   // warps (a power of two, at most 4); warp `part` of a group takes keys
-  // [part, part + 1) * kKeys / split of every key tile.
+  // [part, part + 1) * kKeys / wsplit of every key tile.
   const int groups = (rows + 15) / 16;
-  int split = 1;
-  while (split < 4 && 2 * split * groups <= kWarps) split *= 2;
-  const int rgroup = warp / split;
-  const int part = warp % split;
+  int wsplit = 1;
+  while (wsplit < 4 && 2 * wsplit * groups <= kWarps) wsplit *= 2;
+  const int rgroup = warp / wsplit;
+  const int part = warp % wsplit;
   const bool computes = rgroup < groups;
+  const bool owner = computes && part == 0;  // holds the group's result
   // This thread's two rows and their absolute query positions.
   const int ra = rgroup * 16 + gq;
   const int rb = ra + 8;
@@ -275,7 +365,7 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
 
   for (int kt = 0; kt < nkt; ++kt) {
     const int st = kt & 1;
-    const int k0 = kt * kKeys;
+    const int kb = k0 + kt * kKeys;  // kv position of the tile's key 0
     const bool more = kt + 1 < nkt;
     // Put the next tile in flight (its stage was last read by the tile
     // before this one, which every thread has finished), then wait for
@@ -289,28 +379,37 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
     } else {
       cp_async_wait<0>();
     }
+    if (QUANT) {
+      // Widen the raw int8 tile to bf16 (exact). Each thread widens the
+      // 16-byte chunks its own cp.async loads brought (the chunks of
+      // `issue`), which its own wait covers, so no barrier comes between
+      // the wait and the widening; the bf16 stage was last read by the
+      // previous tile's math, which the barrier ending that tile closed.
+#pragma unroll
+      for (int i = 0; i < kIssueIters; ++i) {
+        const int e = tid + i * kThreads;
+        if (e < kTileChunks) {
+          const int is_v = e >= kKeys * kRowChunks;
+          const int ee = e - is_v * kKeys * kRowChunks;
+          const int j = ee / kRowChunks;
+          const int c = (ee % kRowChunks) * kChunk;
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              raw_s + ((st * 2 + is_v) * kKeys + j) * D + c);
+          const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+          __align__(16) __nv_bfloat16 vals[16];
+#pragma unroll
+          for (int u = 0; u < 16; ++u) vals[u] = __float2bfloat16_rn((float)b[u]);
+          uint4* dst = reinterpret_cast<uint4*>(kv_s + (is_v * kKeys + j) * RS + c);
+          dst[0] = reinterpret_cast<const uint4*>(vals)[0];
+          dst[1] = reinterpret_cast<const uint4*>(vals)[1];
+        }
+      }
+    }
     __syncthreads();
 
     const __nv_bfloat16* k_t;
     const __nv_bfloat16* v_t;
     if (QUANT) {
-      // Widen the raw int8 tile to bf16 (exact).
-      for (int e = tid; e < 2 * kKeys * (D / 16); e += kThreads) {
-        const int is_v = e >= kKeys * (D / 16);
-        const int ee = e - is_v * kKeys * (D / 16);
-        const int j = ee / (D / 16);
-        const int c = (ee % (D / 16)) * 16;
-        const uint4 raw = *reinterpret_cast<const uint4*>(
-            raw_s + ((st * 2 + is_v) * kKeys + j) * D + c);
-        const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-        __align__(16) __nv_bfloat16 vals[16];
-#pragma unroll
-        for (int u = 0; u < 16; ++u) vals[u] = __float2bfloat16_rn((float)b[u]);
-        uint4* dst = reinterpret_cast<uint4*>(kv_s + (is_v * kKeys + j) * RS + c);
-        dst[0] = reinterpret_cast<const uint4*>(vals)[0];
-        dst[1] = reinterpret_cast<const uint4*>(vals)[1];
-      }
-      __syncthreads();
       k_t = kv_s;
       v_t = kv_s + kKeys * RS;
     } else {
@@ -340,21 +439,21 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
         a[3] = ld32(qa + 8 * RS + kk * 16 + 8);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const __nv_bfloat16* kb =
+          const __nv_bfloat16* kbp =
               k_t + (key0 + nt * 8 + gq) * RS + kk * 16 + tq * 2;
-          mma_bf16(sc[nt], a, ld32(kb), ld32(kb + 8));
+          mma_bf16(sc[nt], a, ld32(kbp), ld32(kbp + 8));
         }
       }
       // Scale, mask (stored kv_mask AND the positional causal bound) and
       // the per-row tile max. Element (nt, i) is row a for i < 2, row b
-      // otherwise, at key k0 + key0 + nt*8 + tq*2 + (i & 1).
+      // otherwise, at key kb + key0 + nt*8 + tq*2 + (i & 1).
       float bmax_a = -INFINITY, bmax_b = -INFINITY;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int key = key0 + nt * 8 + tq * 2 + (i & 1);
-          const int kpos = k0 + key;
+          const int kpos = kb + key;
           const bool row_b = i >= 2;
           const bool ok = (row_b ? vb : va) && mask_t[key] &&
                           kpos <= (row_b ? qpos_b : qpos_a);
@@ -429,8 +528,8 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
       }
     };
     if (computes) {
-      if (split == 1) attend(Int<kKeys / 8>{});
-      else if (split == 2) attend(Int<kKeys / 16>{});
+      if (wsplit == 1) attend(Int<kKeys / 8>{});
+      else if (wsplit == 2) attend(Int<kKeys / 16>{});
       else attend(Int<kKeys / 32>{});
     }
     // The next tile's per-key data goes to the stage this tile's
@@ -447,7 +546,7 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
       l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
     }
   }
-  if (split > 1) {
+  if (wsplit > 1) {
     // Merge the group's partial results into its part-0 warp: each
     // partial is rescaled from its own running max to the common one.
     // The key loop ended on a barrier, so the tile stages are free.
@@ -464,49 +563,144 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(
       pml[(warp * 4 + 3) * 32 + lane] = l_b;
     }
     __syncthreads();
-    if (!computes || part != 0) return;
-    for (int w = warp + 1; w < warp + split; ++w) {
-      const float m2a = pml[(w * 4 + 0) * 32 + lane];
-      const float m2b = pml[(w * 4 + 1) * 32 + lane];
-      const float mna = fmaxf(m_a, m2a);
-      const float mnb = fmaxf(m_b, m2b);
-      // A part that saw no visible key has m = -inf and weight 0.
-      const float sa = m_a == -INFINITY ? 0.f : exp2f(m_a - mna);
-      const float sb = m_b == -INFINITY ? 0.f : exp2f(m_b - mnb);
-      const float wa = m2a == -INFINITY ? 0.f : exp2f(m2a - mna);
-      const float wb = m2b == -INFINITY ? 0.f : exp2f(m2b - mnb);
-      l_a = l_a * sa + pml[(w * 4 + 2) * 32 + lane] * wa;
-      l_b = l_b * sb + pml[(w * 4 + 3) * 32 + lane] * wb;
-      m_a = mna;
-      m_b = mnb;
+    if (owner) {
+      for (int w = warp + 1; w < warp + wsplit; ++w) {
+        const float m2a = pml[(w * 4 + 0) * 32 + lane];
+        const float m2b = pml[(w * 4 + 1) * 32 + lane];
+        const float mna = fmaxf(m_a, m2a);
+        const float mnb = fmaxf(m_b, m2b);
+        // A part that saw no visible key has m = -inf and weight 0.
+        const float sa = m_a == -INFINITY ? 0.f : exp2f(m_a - mna);
+        const float sb = m_b == -INFINITY ? 0.f : exp2f(m_b - mnb);
+        const float wa = m2a == -INFINITY ? 0.f : exp2f(m2a - mna);
+        const float wb = m2b == -INFINITY ? 0.f : exp2f(m2b - mnb);
+        l_a = l_a * sa + pml[(w * 4 + 2) * 32 + lane] * wa;
+        l_b = l_b * sb + pml[(w * 4 + 3) * 32 + lane] * wb;
+        m_a = mna;
+        m_b = mnb;
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const float* p2 = po + ((w * ND + n) * 4) * 32 + lane;
-        o[n][0] = o[n][0] * sa + p2[0] * wa;
-        o[n][1] = o[n][1] * sa + p2[32] * wa;
-        o[n][2] = o[n][2] * sb + p2[64] * wb;
-        o[n][3] = o[n][3] * sb + p2[96] * wb;
+        for (int n = 0; n < ND; ++n) {
+          const float* p2 = po + ((w * ND + n) * 4) * 32 + lane;
+          o[n][0] = o[n][0] * sa + p2[0] * wa;
+          o[n][1] = o[n][1] * sa + p2[32] * wa;
+          o[n][2] = o[n][2] * sb + p2[64] * wb;
+          o[n][3] = o[n][3] * sb + p2[96] * wb;
+        }
       }
     }
   }
-  if (!computes) return;
-  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
-  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
-  // Masked store: only the tile's own rows (row < seq_start + seq_len).
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = half ? rb : ra;
-    if (r >= rows) continue;
-    const float inv = half ? inv_b : inv_a;
+  // Row r of the tile is q row row0 + r / G, q head h*G + r % G.
+  auto out_index = [&](int r) -> size_t {
     const int tk = r / group;
-    const int g = r - tk * group;
-    __nv_bfloat16* dst =
-        out + ((size_t)(row0 + tk) * hq + h * group + g) * D + tq * 2;
+    return (size_t)(row0 + tk) * hq + h * group + (r - tk * group);
+  };
+  if (owner) {
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
-          o[n][half * 2] * inv, o[n][half * 2 + 1] * inv);
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? rb : ra;
+      if (r >= rows) continue;  // only the tile's own rows
+      if (nlive == 1) {
+        // The run holds all the tile's keys: normalise and write the
+        // output. A row that saw no key has o = 0 (every p was pinned).
+        const float inv = 1.f / fmaxf(half ? l_b : l_a, 1e-30f);
+        __nv_bfloat16* dst = out + out_index(r) * D + tq * 2;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+              __floats2bfloat162_rn(o[n][half * 2] * inv,
+                                    o[n][half * 2 + 1] * inv);
+        }
+      } else {
+        const size_t idx = out_index(r) * nsplit + run;
+        float* dst = part_o + idx * D + tq * 2;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          *reinterpret_cast<float2*>(dst + n * 8) =
+              make_float2(o[n][half * 2], o[n][half * 2 + 1]);
+        }
+        if (tq == 0)
+          part_ml[idx] = make_float2(half ? m_b : m_a, half ? l_b : l_a);
+      }
     }
+  }
+  if (nlive == 1) return;
+
+  // The ticket: the partials are written (barrier, then a device-wide
+  // fence), so the CTA that takes the last ticket sees every one of them.
+  __shared__ int last;
+  __syncthreads();
+  const size_t grp = (size_t)tile * hkv + h;  // this CTA's (tile, kv head)
+  if (tid == 0) {
+    __threadfence();
+    const unsigned ticket = atomicAdd(counters + grp, 1u);
+    last = ticket == (unsigned)(nlive - 1);
+    if (last) counters[grp] = 0;  // every live run has arrived
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // The merge, in run order. Each warp takes rows r = warp, warp + 8, ...:
+  // its lanes load the runs' m and l (lane i runs i, i + 32), the row's max
+  // comes by shuffles, and each run's weight goes to shared memory (a run
+  // that saw no visible key has m = -inf and weight 0). Then each thread
+  // takes 4 adjacent columns of a row and adds the runs' partials, read
+  // through L2 (other SMs wrote them) 8 at a time, in run order.
+  float* w_s = reinterpret_cast<float*>(smem_raw + lay.kv);  // [run][row]
+  float* l_s = w_s + kMaxRuns * kMaxRows;                    // [run][row]
+  for (int r = warp; r < rows; r += kWarps) {
+    const float2* ml = part_ml + out_index(r) * nsplit;
+    float mx = -INFINITY;
+    for (int sp = lane; sp < nlive; sp += 32) {
+      const float2 v = __ldcg(ml + sp);
+      w_s[sp * kMaxRows + r] = v.x;
+      l_s[sp * kMaxRows + r] = v.y;
+      mx = fmaxf(mx, v.x);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    for (int sp = lane; sp < nlive; sp += 32) {
+      const float m = w_s[sp * kMaxRows + r];
+      w_s[sp * kMaxRows + r] = m == -INFINITY ? 0.f : exp2f(m - mx);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < rows * (D / 4); e += kThreads) {
+    const int r = e / (D / 4);
+    const int c = (e % (D / 4)) * 4;
+    const size_t oi = out_index(r);
+    const float* pog = part_o + oi * nsplit * D + c;
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    auto add = [&](int sp, const float4& x) {
+      const float w = w_s[sp * kMaxRows + r];
+      l += w * l_s[sp * kMaxRows + r];
+      acc.x += w * x.x;
+      acc.y += w * x.y;
+      acc.z += w * x.z;
+      acc.w += w * x.w;
+    };
+    // Whole batches of 8 runs, then the last nlive % 8 loaded together
+    // under a predicate: a tile of a few runs waits on one trip to L2.
+    const int whole = nlive & ~7;
+    int sp = 0;
+#pragma unroll 8
+    for (; sp < whole; ++sp)
+      add(sp, __ldcg(reinterpret_cast<const float4*>(pog + (size_t)sp * D)));
+    float4 x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (sp + u < nlive)
+        x[u] = __ldcg(reinterpret_cast<const float4*>(pog + (size_t)(sp + u) * D));
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (sp + u < nlive) add(sp + u, x[u]);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    uint2 packed;
+    packed.x = pack_bf16(acc.x * inv, acc.y * inv);
+    packed.y = pack_bf16(acc.z * inv, acc.w * inv);
+    *reinterpret_cast<uint2*>(out + oi * D + c) = packed;
   }
 }
 
@@ -514,27 +708,40 @@ size_t smem_bytes(int d, int rows_alloc, bool quant) {
   return Smem(d, (rows_alloc + 15) / 16 * 16, quant).total;
 }
 
+// The scratch pointers: part_ml follows part_o's T*Hq*nsplit*D floats.
+struct Scratch {
+  float* part_o;
+  float2* part_ml;
+  Scratch(void* scratch, int t, int hq, int nsplit, int d)
+      : part_o(static_cast<float*>(scratch)),
+        part_ml(reinterpret_cast<float2*>(
+            part_o + (size_t)t * hq * nsplit * d)) {}
+};
+
 template <int D, bool QUANT>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* k_scale, const void* v_scale, const void* tables,
            const void* kv_mask, const void* seq_starts, const void* seq_lens,
-           const void* kv_lens, void* out, int t, int hq, int hkv, int bs,
-           int s, int maxb, int q_tile, cudaStream_t stream) {
+           const void* kv_lens, void* out, void* scratch, void* counters,
+           int t, int hq, int hkv, int bs, int s, int maxb, int q_tile,
+           int split, int nsplit, cudaStream_t stream) {
   const int rows_alloc = q_tile * (hq / hkv);
   const size_t smem = smem_bytes(D, rows_alloc, QUANT);
   auto fn = ragged_kernel<D, QUANT>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((t + q_tile - 1) / q_tile, s, hkv);
+  const Scratch part(scratch, t, hq, nsplit, D);
+  const dim3 grid(nsplit, hkv, grid_tiles(t, s, q_tile));
   fn<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
       static_cast<const __nv_bfloat16*>(k_scale),
       static_cast<const __nv_bfloat16*>(v_scale),
       static_cast<const int*>(tables), static_cast<const uint8_t*>(kv_mask),
       static_cast<const int*>(seq_starts), static_cast<const int*>(seq_lens),
-      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out), hq,
-      hkv, bs, maxb, q_tile, 1.0f / sqrtf((float)D));
+      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out),
+      part.part_o, part.part_ml, static_cast<unsigned*>(counters), s, hq,
+      hkv, bs, maxb, q_tile, split, nsplit, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -542,16 +749,19 @@ template <int D>
 int launch_d(int quantized, const void* q, const void* k_pool,
              const void* v_pool, const void* k_scale, const void* v_scale,
              const void* tables, const void* kv_mask, const void* seq_starts,
-             const void* seq_lens, const void* kv_lens, void* out, int t,
-             int hq, int hkv, int bs, int s, int maxb, int q_tile,
+             const void* seq_lens, const void* kv_lens, void* out,
+             void* scratch, void* counters, int t, int hq, int hkv, int bs,
+             int s, int maxb, int q_tile, int split, int nsplit,
              cudaStream_t stream) {
   if (quantized)
     return launch<D, true>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                           kv_mask, seq_starts, seq_lens, kv_lens, out, t, hq,
-                           hkv, bs, s, maxb, q_tile, stream);
+                           kv_mask, seq_starts, seq_lens, kv_lens, out,
+                           scratch, counters, t, hq, hkv, bs, s, maxb, q_tile,
+                           split, nsplit, stream);
   return launch<D, false>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                          kv_mask, seq_starts, seq_lens, kv_lens, out, t, hq,
-                          hkv, bs, s, maxb, q_tile, stream);
+                          kv_mask, seq_starts, seq_lens, kv_lens, out,
+                          scratch, counters, t, hq, hkv, bs, s, maxb, q_tile,
+                          split, nsplit, stream);
 }
 
 }  // namespace
@@ -559,32 +769,44 @@ int launch_d(int quantized, const void* q, const void* k_pool,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or a
-// negative code for a shape this kernel does not take. Allocates nothing.
+// negative code for a shape this kernel does not take. Allocates nothing:
+// `scratch` holds at least T*Hq*nsplit*(D + 2) floats (the partials of
+// tiles over more than one run) and `counters` tiles*Hkv unsigned ints
+// (tiles = min(T, (T + min(S, T)*(q_tile - 1)) / q_tile)), 0 before the
+// call and 0 again after it. Runs of `split` keys, a multiple of 64, at
+// most 32 of them, cover the table span MAXB*BS.
 int kftt_ragged_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
     const void* kv_mask, const void* seq_starts, const void* seq_lens,
-    const void* kv_lens, void* out, int t, int hq, int hkv, int d, int bs,
-    int s, int maxb, int q_tile, int quantized, void* stream) {
+    const void* kv_lens, void* out, void* scratch, void* counters, int t,
+    int hq, int hkv, int d, int bs, int s, int maxb, int q_tile,
+    int quantized, int split, int nsplit, void* stream) {
   if (hkv <= 0 || hq % hkv) return kErrGroup;
   if (q_tile <= 0 || q_tile * (hq / hkv) > kMaxRows) return kErrRows;
   if (smem_bytes(d, q_tile * (hq / hkv), quantized != 0) > kMaxSmem)
     return kErrSmem;
+  if (split <= 0 || split % kKeys || nsplit <= 0 || nsplit > kMaxRuns ||
+      (long long)split * nsplit < (long long)maxb * bs)
+    return kErrSplit;
   if (t == 0 || s == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
       return launch_d<64>(quantized, q, k_pool, v_pool, k_scale, v_scale,
                           tables, kv_mask, seq_starts, seq_lens, kv_lens, out,
-                          t, hq, hkv, bs, s, maxb, q_tile, st);
+                          scratch, counters, t, hq, hkv, bs, s, maxb, q_tile,
+                          split, nsplit, st);
     case 128:
       return launch_d<128>(quantized, q, k_pool, v_pool, k_scale, v_scale,
-                           tables, kv_mask, seq_starts, seq_lens, kv_lens, out,
-                           t, hq, hkv, bs, s, maxb, q_tile, st);
+                           tables, kv_mask, seq_starts, seq_lens, kv_lens,
+                           out, scratch, counters, t, hq, hkv, bs, s, maxb,
+                           q_tile, split, nsplit, st);
     case 256:
       return launch_d<256>(quantized, q, k_pool, v_pool, k_scale, v_scale,
-                           tables, kv_mask, seq_starts, seq_lens, kv_lens, out,
-                           t, hq, hkv, bs, s, maxb, q_tile, st);
+                           tables, kv_mask, seq_starts, seq_lens, kv_lens,
+                           out, scratch, counters, t, hq, hkv, bs, s, maxb,
+                           q_tile, split, nsplit, st);
     default:
       return kErrHeadDim;
   }
@@ -596,6 +818,7 @@ const char* kftt_error_string(int code) {
     case kErrRows: return "q_tile * (Hq / Hkv) must be in 1..128";
     case kErrSmem: return "tile needs more shared memory than a block has";
     case kErrGroup: return "Hq must be a positive multiple of Hkv";
+    case kErrSplit: return "split must be a positive multiple of 64 keys and at most 32 runs of it must cover the table span";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -87,24 +87,35 @@ def decode_splits(span: int, b: int, hkv: int) -> tuple[int, int]:
     return split, max(1, -(-span // split))
 
 
+def stream_buffers(device, n_counters: int, n_floats: int):
+    """(f32 scratch, int32 ticket counters, stream) of ``device``'s current
+    stream, grown to at least ``n_floats`` and ``n_counters``. Shared by
+    every split kernel (the decode kernels and ragged attention): launches
+    on one stream run in order, each kernel writes its partials before it
+    reads them and leaves every counter at 0, so one call's merge is done
+    before the next call writes."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    buffers = _buffers.get(key)
+    if buffers is None:
+        buffers = _buffers[key] = [
+            torch.zeros(0, dtype=torch.int32, device=device),
+            torch.empty(0, dtype=torch.float32, device=device)]
+    if buffers[0].numel() < n_counters:
+        buffers[0] = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    if buffers[1].numel() < n_floats:
+        buffers[1] = torch.empty(n_floats, dtype=torch.float32, device=device)
+    return buffers[1], buffers[0], stream
+
+
 def _launch_buffers(q, b, hkv, span):
     """The split, its count, the scratch and the ticket counters of the
     current stream, grown to this call's size, and the stream."""
     split, nsplit = decode_splits(span, b, hkv)
     group, d = q.shape[1] // hkv, q.shape[2]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    key = (q.device.index, stream)
-    buffers = _buffers.get(key)
-    if buffers is None:
-        buffers = _buffers[key] = [
-            torch.zeros(0, dtype=torch.int32, device=q.device),
-            torch.empty(0, dtype=torch.float32, device=q.device)]
-    if buffers[0].numel() < b * hkv:
-        buffers[0] = torch.zeros(b * hkv, dtype=torch.int32, device=q.device)
-    if buffers[1].numel() < b * hkv * nsplit * group * (d + 2):
-        buffers[1] = torch.empty(b * hkv * nsplit * group * (d + 2),
-                                 dtype=torch.float32, device=q.device)
-    return split, nsplit, buffers[1], buffers[0], stream
+    scratch, counters, stream = stream_buffers(
+        q.device, b * hkv, b * hkv * nsplit * group * (d + 2))
+    return split, nsplit, scratch, counters, stream
 
 
 def _validate(q, k_pool, tables, kv_mask, block_size) -> None:

@@ -7,8 +7,8 @@ signatures and layouts:
   ``csrc/ragged_attention.cu`` (built by ``ops/_build.py``, bound with
   ctypes). On a CUDA tensor it launches the kernel on the current stream
   or raises; it never falls back. ``ragged_paged_attention.launches``
-  counts its launches. On a CPU tensor it returns the plain version,
-  because a CPU tensor is all it was given.
+  counts its launches, one a call. On a CPU tensor it returns the plain
+  version, because a CPU tensor is all it was given.
 - ``ragged_attention_reference`` — the plain PyTorch version: it derives
   each row's owning sequence from the metadata, gathers the slot's
   logical view through the tables and applies the validity rule
@@ -22,17 +22,69 @@ int32; kv_mask (S, MAXB·BS) bool, carrying padding only (the positional
 bound hides future positions); seq_starts/seq_lens/kv_lens (S,) int32
 with disjoint left-to-right row spans and ``seq_lens == 0`` for an idle
 slot. Rows owned by no sequence come out 0.
+
+The kernel's grid is (run, kv head, tile). Its tile axis is compact: the
+``ragged_tiles(T, S, q_tile)`` q-tiles that can own rows, each CTA finding
+its (sequence, tile) from a prefix sum of ``ceil(seq_lens / q_tile)`` on
+the card, so the host never reads ``seq_lens``. Each tile's keys, up to
+its causal bound, are split over CTAs (flash-decoding): each takes one run
+of ``split`` keys, a multiple of 64 that ``ragged_splits`` fixes from T,
+S, MAXB·BS, Hkv and q_tile alone; a run past the tile's keys exits at
+once. Where a tile's keys span more than one run, each run writes its
+rows' unnormalised f32 partial to a scratch buffer, and the last run to
+finish, found by a ticket on a per-(tile, kv head) counter, merges them in
+run order: the output repeats bit for bit. The scratch (T·Hq·nsplit·(D+2)
+f32) and the counters (tiles·Hkv int32, 0 between calls) are the decode
+kernels' per-(device, stream) buffers (``ops.paged_attention.
+stream_buffers``), grown on demand: a call is one launch and allocates
+nothing but its output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
 import torch
 
+from kubeflow_tpu_torch.ops.paged_attention import stream_buffers
+
 _C_FUNC = "kftt_ragged_paged_attention"
+# The runs of keys the kernel's CTAs take: multiples of its 64-key tile, at
+# most MAX_RUNS of them a (tile, kv head) for the merge to add, and at most
+# MAX_CTAS CTAs a call: one wave of the H100's 132 SMs, which hold one CTA
+# each (the kernel's 8 warps take 227-255 registers a thread). A second
+# wave waits on the first one's whole chain (tile lookup, table trip,
+# keys, partial, ticket, merge): in the engine's width-8 steps two waves
+# of shorter runs lost to one wave of longer ones.
+MAX_RUNS = 32
+MAX_CTAS = 132
+
+
+def ragged_tiles(t: int, s: int, q_tile: int) -> int:
+    """The q-tiles of ``q_tile`` tokens that can own rows of a T-row batch
+    of S sequences, the kernel's tile axis: every owned tile holds at least
+    one row, and sum_s ceil(n_s / q_tile) <= (T + S·(q_tile − 1)) / q_tile
+    (only min(S, T) sequences can own a row)."""
+    return min(t, (t + min(s, t) * (q_tile - 1)) // q_tile)
+
+
+@functools.lru_cache(maxsize=None)
+def ragged_splits(t: int, s: int, span: int, hkv: int,
+                  q_tile: int) -> tuple[int, int]:
+    """(split, nsplit): the keys each CTA takes and the runs of them that
+    cover a tile's walk of at most ``span`` keys (MAXB·BS). nsplit is the
+    most runs that keep nsplit <= MAX_RUNS, tiles·Hkv·nsplit <= MAX_CTAS
+    and split >= 64, and 1 where tiles·Hkv alone passes MAX_CTAS (the
+    tiles fill the card without a split); split is then the least
+    multiple of 64 whose nsplit runs cover the span. Fixed from these shapes alone, never from
+    seq_lens: a run past a tile's keys costs one CTA that exits at once."""
+    tiles = ragged_tiles(t, s, q_tile)
+    runs = max(1, min(MAX_RUNS, MAX_CTAS // (tiles * hkv), -(-span // 64)))
+    split = (-(-span // runs) + 63) // 64 * 64
+    return split, max(1, -(-span // split))
 
 
 def _validate(q, k_pool, tables, kv_mask, block_size, k_scale_pool,
@@ -68,7 +120,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ragged_attention")
     fn = getattr(lib, _C_FUNC)
     if fn.restype is not ctypes.c_int or not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
@@ -147,15 +199,20 @@ def ragged_paged_attention(
     if t == 0 or s == 0:
         return out  # no row or no sequence: nothing launched, nothing counted
     lib = _library()
+    split, nsplit = ragged_splits(t, s, maxb * bs, hkv, q_tile)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        scratch, counters, stream = stream_buffers(
+            q.device, ragged_tiles(t, s, q_tile) * hkv,
+            t * hq * nsplit * (d + 2))
         rc = getattr(lib, _C_FUNC)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale_pool.data_ptr() if quantized else None,
             v_scale_pool.data_ptr() if quantized else None,
             tables.data_ptr(), kv_mask.data_ptr(), seq_starts.data_ptr(),
             seq_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            t, hq, hkv, d, bs, s, maxb, q_tile, int(quantized), stream,
+            scratch.data_ptr(), counters.data_ptr(),
+            t, hq, hkv, d, bs, s, maxb, q_tile, int(quantized), split,
+            nsplit, stream,
         )
     if rc != 0:
         raise RuntimeError(

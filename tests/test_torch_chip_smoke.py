@@ -47,6 +47,7 @@ import importlib.util
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -54,6 +55,7 @@ from kubeflow_tpu_torch.models import continuous as TC
 from kubeflow_tpu_torch.models import llama as TL
 from kubeflow_tpu_torch.ops import attention as TA
 from kubeflow_tpu_torch.ops import paged_attention as TPA
+from kubeflow_tpu_torch.ops import ragged_attention as TRA
 from kubeflow_tpu_torch.ops.attention import flash_attention_reference
 from kubeflow_tpu_torch.ops.paged_attention import (
     dense_decode_reference,
@@ -671,3 +673,265 @@ def test_launched_ctas_fails_when_three_traces_miss_the_kernel(smoke,
     _fake_profiler(monkeypatch, [[], [], [], [FWD_RECORD]])
     with pytest.raises(AssertionError, match="3 traces hold no"):
         smoke._launched_ctas(lambda: None, {"ctas": "flash_fwd_kernel"})
+
+
+# Ragged attention's split design: phase 3's repeat check and cases, and
+# phase 4's shapes and traced launch, rehearsed on the CPU.
+
+
+def _ragged_twice(smoke, variant):
+    """Two runs of the ragged wrapper (the plain version on the CPU) on a
+    case whose tiles span several of the kernel's runs of keys."""
+    case = smoke._case([(1, 700), (30, 900)], seed=0, **smoke.RAG_SPLIT)
+    if variant == "int8":
+        case = smoke._quantized(case)
+    return TRA.ragged_paged_attention(**case), \
+        TRA.ragged_paged_attention(**case)
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8"])
+def test_ragged_repeat_check_passes_on_two_equal_runs(smoke, variant):
+    first, second = _ragged_twice(smoke, variant)
+    smoke.check_ragged_repeat(first, second, "rehearsal")
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8"])
+def test_ragged_repeat_check_fails_on_one_ulp(smoke, variant):
+    """One element of the output one ulp off: the check fails."""
+    first, second = _ragged_twice(smoke, variant)
+    again = second.clone()
+    again.view(-1).view(torch.int16)[again.numel() // 3] += 1
+    assert not torch.equal(first, again)
+    with pytest.raises(AssertionError, match="differs between two runs"):
+        smoke.check_ragged_repeat(first, again, "rehearsal")
+
+
+def _tile_bounds(spans, q_tile, span):
+    """The causal bound hi of every tile of every sequence: its rows see
+    no key at or past min(kv_len − n + (t + 1)·q_tile, kv_len, span)."""
+    return [max(0, min(kvl - n + (t + 1) * q_tile, kvl, span))
+            for n, kvl in spans for t in range(-(-n // q_tile))]
+
+
+def _ragged_kinds(cases):
+    """{kind: names} of phase 3's ragged cases over several of
+    ``ragged_splits``' runs: a tile bound at a run boundary with one key
+    either side, a masked span longer than a run, 8192 keys, an idle slot
+    with a stale kv_len past the span, 32-token q-tiles of 128 rows, and
+    each head dim."""
+    kinds: dict = {}
+    for spans, shape, opts, q_tile, name, _ in cases:
+        span = shape["maxb"] * shape["bs"]
+        split, nsplit = TRA.ragged_splits(shape["t"], len(spans), span,
+                                          shape["hkv"], q_tile)
+        his = set(_tile_bounds(spans, q_tile, span))
+        if nsplit == 1 or max(his) <= split:
+            continue
+        kind = kinds.setdefault
+        kind(f"d{shape['d']}", []).append(name)
+        if any({k * split - 1, k * split, k * split + 1} <= his
+               for k in range(1, nsplit)):
+            kind("boundary", []).append(name)
+        if "hole" in opts and opts["hole"][2] - opts["hole"][1] > split:
+            kind("masked-run", []).append(name)
+        if max(kvl for n, kvl in spans if n) >= 8192:
+            kind("8192", []).append(name)
+        if any(n == 0 and kvl > span for n, kvl in spans):
+            kind("idle-stale", []).append(name)
+        if q_tile * shape["hq"] // shape["hkv"] == 128:
+            kind("qt32", []).append(name)
+    return kinds
+
+
+def test_ragged_cases_cover_the_split_design(smoke):
+    kinds = _ragged_kinds(smoke.RAGGED_CASES)
+    assert {"boundary", "masked-run", "8192", "idle-stale", "qt32", "d64",
+            "d128", "d256"} <= set(kinds), kinds
+
+
+def test_timed_ragged_shapes(smoke):
+    assert [(name, variants) for name, _, _, _, variants
+            in smoke.RAGGED_TIMED] == [
+        ("main-mixed", ("bf16", "int8")), ("ragged-decode", ("bf16", "int8")),
+        ("ragged-long-4096", ("bf16",)), ("ragged-single-8192", ("bf16",)),
+        ("ragged-chunk-4096", ("bf16",))]
+
+
+@pytest.mark.parametrize("t,s,span,hkv,q_tile", [
+    (512, 8, 640, 8, 16), (8, 8, 592, 8, 16), (8, 8, 4096, 8, 16),
+    (8, 1, 8192, 8, 16), (512, 1, 4096, 8, 16), (96, 7, 1024, 4, 16),
+    (24, 3, 96, 4, 16), (512, 8, 640, 8, 32), (2048, 64, 100_000, 8, 16),
+    (1, 1, 16, 1, 16),
+])
+def test_ragged_splits_cover_every_tile_span_in_runs_of_64(t, s, span, hkv,
+                                                           q_tile):
+    split, nsplit = TRA.ragged_splits(t, s, span, hkv, q_tile)
+    assert split % 64 == 0 and split >= 64
+    assert 1 <= nsplit <= TRA.MAX_RUNS
+    # The runs cover the span, each of them holding some of it.
+    assert (nsplit - 1) * split < span <= nsplit * split
+    tiles = TRA.ragged_tiles(t, s, q_tile)
+    assert tiles * hkv * nsplit <= TRA.MAX_CTAS or nsplit == 1
+
+
+def test_ragged_splits_read_only_shapes():
+    """The split is fixed from ints the host has (T, S, span, Hkv,
+    q_tile): no tensor, so no seq_lens, reaches it, and no call waits on
+    the card."""
+    import inspect
+
+    assert list(inspect.signature(TRA.ragged_splits).parameters) == [
+        "t", "s", "span", "hkv", "q_tile"]
+    # The engine's shapes: no split where the tiles already fill two waves
+    # (an admission step, a long chunk), runs where few tiles walk far.
+    assert TRA.ragged_splits(512, 8, 640, 8, 16) == (640, 1)
+    assert TRA.ragged_splits(8, 8, 592, 8, 16) == (320, 2)
+    assert TRA.ragged_splits(8, 8, 4096, 8, 16) == (2048, 2)
+    assert TRA.ragged_splits(8, 1, 8192, 8, 16) == (512, 16)
+    assert TRA.ragged_splits(512, 1, 4096, 8, 16) == (4096, 1)
+
+
+def _random_layouts(seed: int):
+    """(T, q_tile, spans) layouts as the ragged scheduler makes them:
+    disjoint row spans within T, idle slots (0 rows) among them."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(200):
+        t = int(rng.choice([8, 16, 64, 512, 2048]))
+        q_tile = int(rng.choice([1, 4, 16, 32]))
+        s = int(rng.integers(1, 65))
+        cuts = np.sort(rng.integers(0, t + 1, size=s - 1))
+        lens = np.diff(np.concatenate([[0], cuts, [rng.integers(0, t + 1)]]))
+        lens = np.clip(lens, 0, None)
+        lens[rng.random(s) < 0.2] = 0
+        out.append((t, q_tile, [(int(n), 1) for n in lens]))
+    return out
+
+
+@pytest.mark.parametrize("layouts", ["phase-3"] + [f"random-{i}"
+                                                   for i in range(4)])
+def test_compact_grid_bounds_the_owned_tiles(smoke, layouts):
+    """Every tile that owns rows lies inside the kernel's compact tile
+    axis, ragged_tiles(T, S, q_tile), for every phase-3 layout and for
+    random schedules."""
+    if layouts == "phase-3":
+        cases = [(shape["t"], q_tile, spans)
+                 for spans, shape, _, q_tile, _, _ in smoke.RAGGED_CASES]
+    else:
+        cases = _random_layouts(int(layouts.split("-")[1]))
+    for t, q_tile, spans in cases:
+        assert sum(n for n, _ in spans) <= t
+        owned = sum(-(-n // q_tile) for n, _ in spans)
+        assert owned <= TRA.ragged_tiles(t, len(spans), q_tile), (
+            t, q_tile, spans)
+
+
+def test_ragged_vs_plain_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
+    """Phase 3's ragged cases at their small shapes (every head dim, the
+    run boundaries, the masked run, the idle stale slot and 32-token
+    q-tiles), each run twice, as on the card."""
+    cases = [c for c in smoke.RAGGED_CASES
+             if c[1]["t"] <= 96 and c[1]["maxb"] * c[1]["bs"] <= 1024]
+    assert len(cases) == 17
+    monkeypatch.setattr(smoke, "RAGGED_CASES", cases)
+    worst = smoke.kernel_vs_plain()
+    for variant in ("bf16", "int8"):
+        assert all(worst[variant][g] <= smoke.GATES[g] for g in smoke.GATES)
+
+
+# One launch of 6 runs × 2 kv heads × 1 tile: a row of 300 keys at span
+# 384 (ragged_splits: 6 runs of 64 keys).
+RAGGED_RECORD = {"cat": "kernel", "name": "void ragged_kernel<64, false>",
+                 "args": {"grid": [6, 2, 1]}}
+
+
+# The wrapper's zero fill of the output (torch.zeros_like), as the
+# profiler names it.
+FILL_RECORD = {"cat": "kernel", "name": "void at::native::vectorized_"
+               "elementwise_kernel<4, at::native::FillFunctor<c10::BFloat16>"
+               ">", "args": {"grid": [16, 1, 1]}}
+
+
+@pytest.mark.parametrize("records,fails", [
+    ([RAGGED_RECORD], None),
+    ([FILL_RECORD, RAGGED_RECORD], None),
+    ([RAGGED_RECORD, RAGGED_RECORD], "launched 2 ragged kernels"),
+    ([FILL_RECORD, RAGGED_RECORD, {
+        "cat": "kernel", "name": "void at::native::index_elementwise_kernel",
+        "args": {"grid": [1, 1, 1]}}], "launched 1 ragged kernels and"),
+    ([{**RAGGED_RECORD, "args": {"grid": [3, 2, 1]}}], "6 CTAs launched"),
+])
+def test_timing_ragged_checks_the_launch_it_traced(smoke, monkeypatch,
+                                                   records, fails):
+    """One traced call gives the CTAs and the kernels a call: the row holds
+    them only if the call was one launch of ragged_tiles · Hkv · nsplit
+    CTAs beside at most the output's zero fill, and the timing fails on
+    two launches of the kernel, on any other kernel and on another grid.
+    A one-row-a-slot case takes the decode yardstick, its backend named
+    from a trace."""
+    traces = iter([records, [{"cat": "kernel", "name": "cudnn_sdpa"}]])
+    monkeypatch.setattr(smoke, "_kernel_records", lambda fn: next(traces))
+    monkeypatch.setattr(smoke, "_time_ms", lambda fn: (fn(), 1.0)[1])
+    case = smoke._case([(1, 300)], seed=0, hq=4, hkv=2, d=64, bs=16,
+                       maxb=24, nb=25, t=8)
+    if fails:
+        with pytest.raises(AssertionError, match=fails):
+            smoke._timing_ragged("rehearsal", case)
+        return
+    row = smoke._timing_ragged("rehearsal", case)
+    assert (row["ctas"], row["launches_per_call"]) == (12, 1)
+    assert row["kernels_per_call"] == len(records)
+    assert row["library_backend"] == "cuDNN"
+
+
+def test_trace_splits_each_kernel_by_launch_grid(smoke, monkeypatch):
+    """The traced rerun sums each kernel's device time by name, and by
+    launch grid from the chrome trace: a width-8 step's launch (4 runs ×
+    8 kv heads × 8 tiles) apart from a 512-row step's (39 tiles)."""
+    decode = {"cat": "kernel", "name": "void ragged_kernel<128, false>",
+              "args": {"grid": [4, 8, 8]}, "dur": 20.0}
+    admit = {**decode, "args": {"grid": [1, 8, 39]}, "dur": 60.0}
+    other = {"cat": "kernel", "name": "nvjet_gemm", "args": {"grid": [1]},
+             "dur": 100.0}
+    records = [decode, decode, admit, other]
+
+    class Range:
+        def __init__(self, start, dur):
+            self.start, self.end = start, start + dur
+
+        def elapsed_us(self):
+            return self.end - self.start
+
+    class Event:
+        device_type = torch.autograd.DeviceType.CUDA
+
+        def __init__(self, i, ev):
+            self.name = ev["name"]
+            self.time_range = Range(1000.0 * i, ev["dur"])
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [Event(i, ev) for i, ev in enumerate(records)]
+
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                json.dump({"traceEvents": records}, f)
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(smoke, "_serve", lambda engine, prompts: None)
+    out = smoke._trace(None, [], {"attention": "ragged_kernel"})
+    assert out["attention_s"] == pytest.approx(100e-6)
+    assert out["busy_s"] == pytest.approx(200e-6)
+    assert out["attention_by_grid"] == {
+        "1x8x39": [1, pytest.approx(60e-6)],
+        "4x8x8": [2, pytest.approx(40e-6)]}
