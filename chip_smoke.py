@@ -18,6 +18,12 @@ every kernel's launch count set to 0 just before it and read just after:
   whose admissions prefill through ``csrc/flash_attention.cu`` and whose
   decode steps run the dense decode kernel of ``csrc/paged_attention.cu``,
   each once per layer;
+- quantized weights: ``models/quant.py``'s ``quantize_params`` (int8,
+  int4, fp8) on the same model, served by the ragged engine under each
+  scheme and by the continuous engine under int8 (what ``serve_http
+  --int8`` serves), whose decode steps run every projection and the lm
+  head through ``csrc/quant_matmul.cu`` (7 × n_layers + 1 launches a
+  step) and whose wider products (admissions) through the wide path;
 - training, ``models/train.py``'s ``make_train_step`` (remat "full", loss
   chunk 512, AdamW) at B 1, S 2048, of ``llama-3-8b`` (head dim 128) and
   then ``gemma-2b`` (head dim 256), whose every step runs the flash
@@ -75,7 +81,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``BWD_GATES`` (max error over max |ref| and a per-(row, head) norm
    gate, both 2^-6, derived where they are defined), with dq exactly 0 on
    rows that see no key and dk, dv exactly 0 on keys no row sees; and
-   each case run twice, its dq, dk and dv equal bit for bit;
+   each case run twice, its dq, dk and dv equal bit for bit.
+   quant_matmul: llama-3-8b's weight shapes (wq/wo, wk/wv, w_gate/w_up,
+   w_down, the lm head) and two odd ones (N 1040, V 1000), each under
+   int8, int4 (group 128) and fp8, at 1, 8 and 16 rows, against the
+   plain version on the card (cuBLAS with f32 reductions), held to
+   ``QUANT_GATES`` (element by element 2^-7 of |ref| plus the
+   cancellation-free product, per row 2^-8); each call twice, bit-equal;
+   one traced call a weight and scheme must be one launch of the kernel
+   with ``kernel_ctas``' CTAs and no other kernel (no cast, no copy);
 4. timing — CUDA events at the main-path shapes (L2 flushed between
    launches; the median of each run of launches): each kernel, its plain
    version, and one library call (a
@@ -105,7 +119,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the SDPA backward in three rounds taken in turns, with the CTAs
    each launch ran), and together with delta and padding beside one SDPA
    backward (flash backend with ``enable_gqa`` where it takes the shape;
-   dq, dk and dv in one call);
+   dq, dk and dv in one call); quant_matmul at 8 rows for each weight
+   shape and scheme, beside its bound (q, s, x and the output over 3.35
+   TB/s), its plain version and ``torch.matmul`` on the bf16 weight of
+   the same shape (what the bf16 engine runs), and at 512 rows the wide
+   path beside ``torch.matmul`` on the bf16 weight;
 5. engines — 16 prompts of 8..500 tokens, 64 new tokens each: the ragged
    engine with a bf16 and an int8 pool, where launches must equal
    ``ragged_steps × n_layers``; the alternating engine with a bf16 pool,
@@ -122,7 +140,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    admission (``admit_chunk=128``), compared to one-shot admission by the
    same rule; last, 8 prompts are served once more under
    ``torch.profiler``, and that one run's trace gives the card's busy
-   time, idle share and time by kernel;
+   time, idle share and time by kernel. Then the quantized engines
+   (``quant_engine_phase``) on the same 16 prompts: launches must equal
+   (7 × n_layers + 1) for each step of at most 16 rows plus one lm-head
+   launch for each wider step (ragged), or for each decode step plus one
+   for each admission (continuous), and wide-path products 7 × n_layers
+   for each wider step or admission; 4 prompts are served again with
+   every quantized product through its plain version and compared as
+   above; 8 prompts traced again, once for the card's busy time, idle
+   share and quant_matmul's seconds, once with the wide path's calls
+   marked, for its kernels' seconds: together the weight products;
 6. HTTP — 4 concurrent ``/v1/completions`` (2 streamed) against the
    server over each bf16 engine; streamed tokens must equal the blocking
    response for the same prompt; then ``/stats`` and a clean stop;
@@ -171,7 +198,9 @@ from kubeflow_tpu_torch.data.loader import TokenLoader, write_token_file
 from kubeflow_tpu_torch.models import continuous as cont_mod
 from kubeflow_tpu_torch.models import llama as L
 from kubeflow_tpu_torch.models import paged as paged_mod
+from kubeflow_tpu_torch.models import quant as quant_mod
 from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
+from kubeflow_tpu_torch.models.fp8 import quantize_weight_fp8
 from kubeflow_tpu_torch.models.llama import _kv_quantize
 from kubeflow_tpu_torch.models.paged import PagedBatcher
 from kubeflow_tpu_torch.models.server import InferenceServer
@@ -180,6 +209,7 @@ from kubeflow_tpu_torch.models.serving import GenerationConfig
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import attention as attn_mod
 from kubeflow_tpu_torch.ops import paged_attention as decode_mod
+from kubeflow_tpu_torch.ops import quant_matmul as qmm_mod
 from kubeflow_tpu_torch.ops import ragged_attention as ragged_mod
 from kubeflow_tpu_torch.ops.attention import (
     NEG_INF,
@@ -195,6 +225,11 @@ from kubeflow_tpu_torch.ops.paged_attention import (
     dense_decode_reference,
     paged_decode_attention,
     paged_decode_reference,
+)
+from kubeflow_tpu_torch.ops.quant_matmul import (
+    quant_matmul,
+    quant_matmul_reference,
+    quant_matmul_wide,
 )
 from kubeflow_tpu_torch.ops.ragged_attention import (
     ragged_attention_reference,
@@ -1634,14 +1669,229 @@ def timing_dense():
 
 
 # ---------------------------------------------------------------------------
+# Quantized weights: the quant_matmul kernel
+
+
+# llama-3-8b's weights as the kernel reads them: (name, rows, cols, head).
+# A layer weight is (K, N) = (rows, cols); the lm head is (V, K). Then a
+# layer weight whose N = 1040 is not a multiple of the 128-channel tile,
+# and a head whose V = 1000 is not a multiple of a CTA's 128 rows.
+QUANT_SHAPES = (
+    ("wq-wo", 4096, 4096, False),
+    ("wk-wv", 4096, 1024, False),
+    ("w_gate-w_up", 4096, 14336, False),
+    ("w_down", 14336, 4096, False),
+    ("lm_head", 128256, 4096, True),
+    ("odd-1040", 4096, 1040, False),
+    ("odd-head-1000", 1000, 4096, True),
+)
+QUANT_SCHEMES = ("int8", "int4", "fp8")
+QUANT_ROWS = (1, 8, qmm_mod.MAX_ROWS)
+QUANT_GROUP = 128  # the int4 group, quantize_params' default
+# Kernel vs plain, both rounding at the same points (bf16 product, then the
+# scale; or the bf16 int4 operand) and differing only in the order of
+# their f32 sums: a value moves by at most one bf16 rounding where the two
+# sums fall either side of a rounding boundary. "rel": element by element
+# |out − ref| <= 2^-7 · (|ref| + ref_abs), twice the bf16 rounding bound,
+# ref_abs the product of |x| and |W| (the sum before any cancellation);
+# "row_rel": per row ‖out − ref‖ <= 2^-8 · ‖ref‖, the bf16 rounding bound
+# itself (few values of a row move at all).
+QUANT_GATES = {"rel": 2.0 ** -7, "row_rel": 2.0 ** -8}
+QUANT_DESIGN = (
+    "mma.sync m16n8k16 with the weight as the A operand (16 channels a "
+    "tile) and x^T as B (one or two 8-row tiles, M <= 16); the A fragment "
+    "built in registers from 16-byte loads (int4: 8 bytes, 16 values) by "
+    "exact bit operations, x staged in shared memory; layer weights (K, N): "
+    "CTAs of 8 warps over 128 channels, the warps splitting the k-steps and "
+    "adding their partials in warp order, the contraction split over CTAs "
+    "where the tiles leave SMs idle (kn_plan, one wave), split partials "
+    "merged by a ticket in split order; the head (V, K): a warp per 16-row "
+    "tile over the whole contraction, 4 loads a row in flight")
+
+
+def _quant_source(name, rows, cols, head, seed):
+    """The bf16 weight of a QUANT_SHAPES entry: N(0, 1/K) from the seed."""
+    k = cols if head else rows
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return (torch.randn(rows, cols, generator=g, device=DEVICE)
+            * (1.0 / math.sqrt(k))).to(torch.bfloat16)
+
+
+def _quantize_one(w, scheme, head):
+    axis = 1 if head else 0
+    if scheme == "int8":
+        return quant_mod.quantize_weight(w, axis)
+    if scheme == "fp8":
+        return quantize_weight_fp8(w, axis)
+    return quant_mod.quantize_weight_int4(w, axis, group=QUANT_GROUP)
+
+
+def _quant_x(m, k, seed):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return torch.randn(m, k, generator=g, device=DEVICE).to(torch.bfloat16)
+
+
+def _quant_errors(out, ref, x, w, head) -> dict:
+    deq = quant_mod.dequantize_weight(w, torch.float32).abs()
+    ref_abs = x.float().abs() @ (deq.T if head else deq)
+    diff = (out.float() - ref.float()).abs()
+    reff = ref.float()
+    row = (torch.linalg.vector_norm(diff, dim=-1)
+           / torch.linalg.vector_norm(reff, dim=-1).clamp_min(1e-30))
+    return {"abs": float(diff.max()),
+            "rel": float((diff / (reff.abs() + ref_abs)
+                          .clamp_min(1e-30)).max()),
+            "row_rel": float(row.max())}
+
+
+def check_quant_repeat(first, again, name: str) -> None:
+    check(_same_bits(first, again),
+          f"{name}: quant_matmul repeats differ in bits")
+
+
+@contextlib.contextmanager
+def _f32_reductions():
+    """cuBLAS's bf16 products with f32 reductions only (no bf16 split-K
+    partials): the plain version's sums as exact as the kernel's."""
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            saved
+
+
+def quant_vs_plain():
+    """Phase 3, quant_matmul: every QUANT_SHAPES weight under each scheme
+    at M in QUANT_ROWS, against the plain version on the same inputs, at
+    QUANT_GATES; each call run twice, bit-equal; and one traced call per
+    weight and scheme at M = 8 that must be one launch of the kernel with
+    kernel_ctas' CTAs and nothing else (no cast, no copy). Returns the
+    worst of each error."""
+    saved = quant_matmul.launches
+    worst = dict.fromkeys(("abs", "rel", "row_rel"), 0.0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    with _f32_reductions():
+        for i, (name, rows, cols, head) in enumerate(QUANT_SHAPES):
+            k, n = (cols, rows) if head else (rows, cols)
+            src = _quant_source(name, rows, cols, head, SEED + 900 + i)
+            for scheme in QUANT_SCHEMES:
+                w = _quantize_one(src, scheme, head)
+                for m in QUANT_ROWS:
+                    x = _quant_x(m, k, SEED + 950 + m)
+                    out = quant_matmul(x, w.q, w.s, scheme, head)
+                    again = quant_matmul(x, w.q, w.s, scheme, head)
+                    ref = quant_matmul_reference(x, w.q, w.s, scheme, head)
+                    torch.cuda.synchronize()
+                    label = f"{name} {scheme} M={m}"
+                    check_quant_repeat(out, again, label)
+                    errs = _quant_errors(out, ref, x, w, head)
+                    for gate, limit in QUANT_GATES.items():
+                        check(errs[gate] <= limit,
+                              f"{label}: {gate} error {errs[gate]:.3e} > "
+                              f"{limit:.3e}")
+                    for key in worst:
+                        worst[key] = max(worst[key], errs[key])
+                x = _quant_x(8, k, SEED + 958)
+                records = _kernel_records(
+                    lambda: quant_matmul(x, w.q, w.s, scheme, head))
+                names = [ev.get("name", "")[:48] for ev in records]
+                check(len(records) == 1 and "quant_mm_" in names[0],
+                      f"{name} {scheme}: one call launched {names}")
+                ctas = math.prod(records[0].get("args", {}).get("grid")
+                                 or [0])
+                want = qmm_mod.kernel_ctas(k, n, head, sms)
+                check(ctas == want, f"{name} {scheme}: {ctas} CTAs, "
+                                    f"kernel_ctas says {want}")
+                del w
+            log(f"  quant_matmul {name} ({rows}x{cols}"
+                f"{', head' if head else ''}): int8, int4, fp8 at M "
+                f"{QUANT_ROWS} within {QUANT_GATES}, repeats bit-equal, one "
+                f"launch of {qmm_mod.kernel_ctas(k, n, head, sms)} CTAs a "
+                f"call; worst so far {json.dumps(worst)}")
+            del src
+    quant_matmul.launches = saved  # comparisons are no main path
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _quant_bound(w, m, k, n, head) -> tuple[float, str, dict]:
+    """Each input read once (q, s, x) and the output written once (bf16,
+    the head f32), over HBM bandwidth; 2·M·K·N FLOPs over the bf16 peak."""
+    nbytes = (w.q.numel() * w.q.element_size() + w.s.numel() * 4
+              + m * k * 2 + m * n * (4 if head else 2))
+    return _bound_of(nbytes, 2 * m * k * n)
+
+
+# The row counts phase 4 times: the decode width of every engine's steps,
+# and a 512-row admission, which goes to the wide path.
+QUANT_M = 8
+QUANT_WIDE_M = 512
+QUANT_ROW_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                  "wide_512_ms", "library_512_ms", "bound_512_ms", "ctas")
+
+
+def timing_quant():
+    """Phase 4, quant_matmul at M = 8 for each QUANT_SHAPES weight (the odd
+    shapes left out) and scheme: the kernel, its plain version (the wide
+    path's expression), the library yardstick (``torch.matmul`` on the
+    bf16 weight of the same shape: what the bf16 engine runs) and the
+    bound; at M = 512 the wide path, the yardstick and the bound. Returns
+    {shape: {scheme: row}}."""
+    saved = quant_matmul.launches, quant_matmul_wide.calls
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows_out: dict = {}
+    for i, (name, rows, cols, head) in enumerate(QUANT_SHAPES):
+        if name.startswith("odd"):
+            continue
+        k, n = (cols, rows) if head else (rows, cols)
+        src = _quant_source(name, rows, cols, head, SEED + 900 + i)
+        x = _quant_x(QUANT_M, k, SEED + 960)
+        xw = _quant_x(QUANT_WIDE_M, k, SEED + 961)
+        lib = (lambda a: a @ src.T) if head else (lambda a: a @ src)
+        library_ms = _time_ms(lambda: lib(x))
+        library_512_ms = _time_ms(lambda: lib(xw))
+        rows_out[name] = {}
+        for scheme in QUANT_SCHEMES:
+            w = _quantize_one(src, scheme, head)
+            ms = _time_ms(lambda: quant_matmul(x, w.q, w.s, scheme, head))
+            plain_ms = _time_ms(
+                lambda: quant_matmul_reference(x, w.q, w.s, scheme, head))
+            wide_ms = _time_ms(
+                lambda: quant_matmul_wide(xw, w.q, w.s, scheme, head))
+            bound_ms, bound_by, work = _quant_bound(w, QUANT_M, k, n, head)
+            bound_512, by_512, _ = _quant_bound(w, QUANT_WIDE_M, k, n, head)
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       wide_512_ms=wide_ms, library_512_ms=library_512_ms,
+                       bound_512_ms=bound_512, bound_512_by=by_512,
+                       ctas=qmm_mod.kernel_ctas(k, n, head, sms),
+                       bytes=work["bytes"])
+            rows_out[name][scheme] = row
+            log(f"  quant_matmul {name} {scheme} M={QUANT_M}: kernel "
+                f"{ms:.4f} ms ({row['ctas']} CTAs), plain {plain_ms:.4f}, "
+                f"bf16 torch.matmul {library_ms:.4f}, bound {bound_ms:.4f} "
+                f"({bound_by}, {work['bytes']} B); M={QUANT_WIDE_M}: wide "
+                f"path {wide_ms:.4f}, bf16 torch.matmul {library_512_ms:.4f}, "
+                f"bound {bound_512:.4f} ({by_512})")
+            del w
+        del src, x, xw
+    quant_matmul.launches, quant_matmul_wide.calls = saved
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+# ---------------------------------------------------------------------------
 # Engines
 
 
 def _zero_counts() -> None:
     for wrapper in (ragged_paged_attention, flash_attention_fwd,
                     paged_decode_attention, dense_decode_attention,
-                    flash_bwd_dq, flash_bwd_dkv):
+                    flash_bwd_dq, flash_bwd_dkv, quant_matmul):
         wrapper.launches = 0
+    quant_matmul_wide.calls = 0
 
 
 def _counts() -> dict:
@@ -1650,7 +1900,9 @@ def _counts() -> dict:
             "decode": paged_decode_attention.launches,
             "dense": dense_decode_attention.launches,
             "bwd_dq": flash_bwd_dq.launches,
-            "bwd_dkv": flash_bwd_dkv.launches}
+            "bwd_dkv": flash_bwd_dkv.launches,
+            "quant": quant_matmul.launches,
+            "wide": quant_matmul_wide.calls}
 
 
 def _prompts(cfg, n: int, lo: int, hi: int, seed: int) -> list[list[int]]:
@@ -1898,6 +2150,209 @@ def continuous_phase(params, cfg):
     return {"flash": counts["flash"], "dense": counts["dense"]}, engine
 
 
+# The quantized engines phase 5 serves: the ragged engine under each
+# scheme, and under int8 the continuous engine (what ``serve_http --int8``
+# serves).
+QUANT_ENGINES = ((8, ("ragged", "continuous")), (4, ("ragged",)),
+                 ("fp8", ("ragged",)))
+
+
+def _quant_label(bits) -> str:
+    return "fp8" if bits == "fp8" else f"int{bits}"
+
+
+@contextlib.contextmanager
+def _plain_quant():
+    """Every quantized product of the model through its plain version on
+    the card (``quant_matmul_reference``), kernel and wide path alike."""
+    real = L.quant_matmul
+
+    def plain(x, w):
+        return quant_matmul_reference(x, w.q, w.s, w.scheme, w.axis == 1)
+
+    L.quant_matmul = plain
+    try:
+        yield
+    finally:
+        L.quant_matmul = real
+
+
+@contextlib.contextmanager
+def _recording(module, name, record):
+    """Append ``record(*args, **kwargs)`` to a list for each call of
+    ``module.<name>`` while inside; yields the list."""
+    seen = []
+    real = getattr(module, name)
+
+    def call(*args, **kwargs):
+        seen.append(record(*args, **kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, call)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def _expected_quant_calls(kind, widths, admits, steps, n_layers) -> dict:
+    """The quant_matmul launches and wide-path calls a run must make: each
+    forward pass runs 7 products a layer at its width (the kernel up to
+    MAX_ROWS rows, the wide path above) and one lm-head product at the
+    rows it samples (a slot each, or the one row an admission samples),
+    always on the kernel. ``widths``: the ragged steps' dispatch widths;
+    the continuous engine's admissions are 512 rows and its steps 8."""
+    per = 7 * n_layers
+    if kind == "ragged":
+        narrow = sum(w <= qmm_mod.MAX_ROWS for w in widths)
+        return {"quant": (per + 1) * narrow + (len(widths) - narrow),
+                "wide": per * (len(widths) - narrow)}
+    return {"quant": (per + 1) * steps + admits, "wide": per * admits}
+
+
+def _wide_seconds(engine, prompts) -> tuple[float, int]:
+    """Serve under ``torch.profiler`` (host and card) with each wide-path
+    call inside a ``record_function`` range: (the card's seconds in the
+    kernels launched inside those ranges, the ranges). A kernel belongs to
+    the range its launch call lies in (their shared correlation id)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    real = quant_mod.quant_matmul_wide
+
+    def annotated(*args, **kwargs):
+        with record_function("quant_matmul_wide"):
+            return real(*args, **kwargs)
+
+    quant_mod.quant_matmul_wide = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _serve(engine, prompts)
+            torch.cuda.synchronize()
+    finally:
+        quant_mod.quant_matmul_wide = real
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    ranges = sorted((ev["ts"], ev["ts"] + ev.get("dur", 0)) for ev in events
+                    if ev.get("name") == "quant_matmul_wide"
+                    and ev.get("cat") == "user_annotation")
+    launched = {ev["args"]["correlation"]: ev["ts"] for ev in events
+                if ev.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in ev.get("args", {})}
+    starts = [s for s, _ in ranges]
+    seconds = 0.0
+    for ev in events:
+        if ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts = launched.get(ev.get("args", {}).get("correlation"))
+        if ts is None:
+            continue
+        i = int(np.searchsorted(starts, ts, side="right")) - 1
+        if i >= 0 and ts <= ranges[i][1]:
+            seconds += ev.get("dur", 0) / 1e6
+    return seconds, len(ranges)
+
+
+def _quant_engine(qparams, cfg, kind, label, prompts) -> dict:
+    """Phase 5, one quantized engine: the main-path run with its launch
+    arithmetic checked, kernel vs plain products on 4 prompts, and the
+    traced reruns. Returns its record."""
+    if kind == "ragged":
+        def make(**kw):
+            return _engine(qparams, cfg, 0, **kw)
+        watch = (paged_mod, "_paged_ragged_step",
+                 lambda params, cfg_, tokens, *a, **k: tokens.shape[0])
+        attention = {"attention": "ragged_kernel"}
+    else:
+        def make(**kw):
+            return _cont_engine(qparams, cfg, **kw)
+        watch = (cont_mod, "_admit_slot", lambda *a, **k: None)
+        attention = {"flash": "flash_fwd_kernel",
+                     "decode": "dense_decode_kernel"}
+    engine = make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _recording(*watch) as seen, \
+            _counting_calls(cont_mod, "_cb_step") as calls:
+        _zero_counts()
+        t0 = time.monotonic()
+        toks, lps = _serve(engine, prompts)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = _counts()
+    n = cfg.n_layers
+    if kind == "ragged":
+        steps, admits = engine.ragged_steps, 0
+        check(len(seen) == steps > 0, f"{len(seen)} ragged steps recorded, "
+                                      f"the engine counts {steps}")
+        check(counts["ragged"] == steps * n,
+              f"{counts['ragged']} ragged launches for {steps} steps")
+        want = _expected_quant_calls(kind, seen, 0, steps, n)
+    else:
+        steps, admits = calls["_cb_step"], len(seen)
+        check(admits > 0 and steps > 0, "the engine ran no admission or step")
+        check(counts["flash"] == admits * n and counts["dense"] == steps * n,
+              f"{label} continuous: attention launches {counts} for "
+              f"{admits} admissions and {steps} steps")
+        want = _expected_quant_calls(kind, (), admits, steps, n)
+    got = {"quant": counts["quant"], "wide": counts["wide"]}
+    check(got == want, f"{kind} {label}: quantized products {got}, the "
+                       f"steps ask for {want}")
+    _check_outputs(cfg, toks, lps)
+    peak = torch.cuda.max_memory_allocated()
+    widths = ({str(w): seen.count(w) for w in sorted(set(seen))}
+              if kind == "ragged" else None)
+    log(f"  {kind} {label}: {steps} steps, {admits} admissions, "
+        f"{sum(len(t) for t in toks)} tokens out, {wall:.3f} s wall, "
+        f"{got['quant']} quant_matmul launches and {got['wide']} wide-path "
+        f"products (steps by width: {widths}), weights "
+        f"{quant_mod.quantized_bytes(qparams) / 2**30:.2f} GiB, peak "
+        f"{peak / 2**30:.2f} GiB")
+    sub = prompts[::4]
+    kern = _serve(make(), sub)
+    with _plain_quant():
+        plain = _serve(make(), sub)
+    report = _compare(kern, plain)
+    log(f"  {kind} {label}: kernel vs plain products on 4 prompts "
+        f"(fork -1 = tokens equal): {json.dumps(report)}")
+    trace = _trace(make(), prompts[::2], {"quant": "quant_mm_", **attention})
+    wide_s, ranges = _wide_seconds(make(), prompts[::2])
+    trace["wide_path_s"] = wide_s
+    trace["wide_path_calls"] = ranges
+    trace["weight_products_s"] = trace["quant_s"] + wide_s
+    log(f"  {kind} {label}: traced rerun of 8 prompts: {json.dumps(trace)}")
+    return {"launches": got["quant"], "wide_calls": got["wide"],
+            "steps": steps, "admissions": admits, "wall_s": wall,
+            "peak_gib": peak / 2**30, "widths": widths,
+            "weight_bytes": quant_mod.quantized_bytes(qparams),
+            "compare": report, "trace": trace}
+
+
+def quant_engine_phase(params, cfg) -> dict:
+    """Phase 5, quantized weights: for each QUANT_ENGINES scheme, the
+    projections and the lm head of ``params`` (kept in bf16 for the phases
+    after) quantized on the card, each engine served by ``_quant_engine``,
+    then the quantized model freed. Returns {engine label: record}."""
+    prompts = _prompts(cfg, 16, 8, 500, SEED)
+    rows = {}
+    for bits, kinds in QUANT_ENGINES:
+        t0 = time.monotonic()
+        qparams = quant_mod.quantize_params(params, bits=bits)
+        torch.cuda.synchronize()
+        label = _quant_label(bits)
+        log(f"  quantized to {label} in {time.monotonic() - t0:.2f} s")
+        for kind in kinds:
+            rows[f"{kind}-{label}"] = _quant_engine(qparams, cfg, kind,
+                                                    label, prompts)
+        del qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _busy_seconds(intervals) -> float:
     """Length of the union of [start, end) intervals (us), in seconds."""
     total, cur_s, cur_e = 0.0, None, None
@@ -1955,6 +2410,11 @@ def _trace(engine, prompts, kernels: dict) -> dict:
                 row[1] += ev.get("dur", 0) / 1e6
         out[f"{label}_by_grid"] = dict(sorted(by_grid.items(),
                                               key=lambda kv: -kv[1][1]))
+    # The dense matrix products' kernels (cuBLAS names them nvjet, gemm
+    # or xmma): a bf16 engine's weight products, a quantized engine's
+    # wide path.
+    out["gemm_s"] = sum(v for k, v in by_name.items()
+                        if any(t in k for t in ("nvjet", "gemm", "xmma")))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out["top_kernels_s"] = [[k[:60], v] for k, v in top]
     return out
@@ -2321,6 +2781,7 @@ def main() -> int:
     decode_errors = decode_vs_plain()
     dense_errors = dense_vs_plain()
     bwd_errors = flash_bwd_vs_plain()
+    quant_errors = quant_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
     log("[4/7] timing at the main-path shapes")
@@ -2330,6 +2791,7 @@ def main() -> int:
     decode_times = timing_decode()
     dense_times = timing_dense()
     bwd_times = timing_flash_bwd()
+    quant_times = timing_quant()
     phases["timing"] = time.monotonic() - t0
 
     log("[5/7] engines: llama-3-8b, full width and depth, random weights")
@@ -2343,6 +2805,7 @@ def main() -> int:
     launches, engine = engine_phase(params, cfg)
     alt_launches, alt_engine = alternating_phase(params, cfg)
     cont_launches, cont_engine = continuous_phase(params, cfg)
+    quant_rows = quant_engine_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
     log("[6/7] HTTP")
@@ -2447,6 +2910,36 @@ def main() -> int:
                  "group_sum_ctas":
                      bwd_times["train-2048"]["dkv"]["group_sum_ctas"]}))
     ]
+    kernels.append({
+        "name": "quant_matmul", "route": "cuda",
+        "source": "kubeflow_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "kubeflow_tpu/models/llama.py:191",
+        "pallas": None,
+        "replaces_note": "no Pallas kernel: _mm (:191) and _lm_head_logits "
+                         "(:213) leave the dequantization to XLA's fusion",
+        "launches": quant_rows["ragged-int8"]["launches"],
+        "launches_by_engine": {k: v["launches"] for k, v in quant_rows.items()},
+        "wide_calls_by_engine": {k: v["wide_calls"]
+                                 for k, v in quant_rows.items()},
+        "max_abs_err": quant_errors["abs"],
+        "max_rel_err": quant_errors["rel"],
+        "max_row_rel_err": quant_errors["row_rel"],
+        **{k: quant_times["wq-wo"]["int8"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": "torch.matmul on the bf16 weight of the same shape",
+        "timed_at": "wq-wo int8, M 8; every shape and scheme in shapes",
+        "max_rows": qmm_mod.MAX_ROWS, "design": QUANT_DESIGN,
+        "shapes": {name: {scheme: {k: row[k] for k in QUANT_ROW_KEYS}
+                          for scheme, row in by_scheme.items()}
+                   for name, by_scheme in quant_times.items()},
+        "engines": {k: {"weight_products_s":
+                        v["trace"]["weight_products_s"],
+                        "quant_s": v["trace"]["quant_s"],
+                        "wide_path_s": v["trace"]["wide_path_s"],
+                        "busy_s": v["trace"]["busy_s"],
+                        "idle_share": v["trace"]["idle_share"]}
+                    for k, v in quant_rows.items()},
+    })
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     print(json.dumps({"kernels": kernels}))

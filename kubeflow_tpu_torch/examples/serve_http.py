@@ -16,7 +16,10 @@ alternating one, with KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET,
 KUBEFLOW_TPU_KV_BITS and KUBEFLOW_TPU_HBM_FRACTION as in JAX.
 KUBEFLOW_TPU_SERVING_PORT applies to both. Weights are a random init from
 ``--seed`` on the card (``--device cpu`` serves on the CPU); the model
-serves token ids.
+serves token ids. ``--int8`` quantizes the projections and the lm head to
+int8 (``models/quant.py``, releasing each bf16 source as its copy lands),
+as the JAX entry point does; like it, this entry point does not read
+KUBEFLOW_TPU_QUANT (``serve_batched`` does).
 
 Every serving knob the JAX entry point reads is honored or refused here,
 before any weight is made: garbage in any of them exits with the JAX
@@ -128,6 +131,9 @@ def main(argv=None) -> None:
                     help="default per-request deadline (504 on expiry)")
     ap.add_argument("--drain-s", type=float, default=5.0,
                     help="SIGTERM drain budget before stragglers abort")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 weight-only quantization of the projections "
+                         "and the lm head")
     args = ap.parse_args(argv)
     if args.paged and args.admit_chunk:
         raise SystemExit("--admit-chunk is a continuous-engine feature; "
@@ -158,6 +164,10 @@ def main(argv=None) -> None:
     params = L.init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed), device
     )
+    if args.int8:
+        from kubeflow_tpu_torch.models.quant import quantize_params
+
+        params = quantize_params(params, free_source=True)
     gen = GenerationConfig(max_new_tokens=args.max_new_tokens,
                            temperature=args.temperature)
     if args.paged:
@@ -181,7 +191,8 @@ def main(argv=None) -> None:
                           default_deadline_s=args.deadline_s,
                           drain_s=args.drain_s).start()
     print(f"serving {args.config} on http://{srv.host}:{srv.port} "
-          f"({kind}, {args.slots} slots, {device})", flush=True)
+          f"({kind}, {args.slots} slots, {device}"
+          f"{', int8 weights' if args.int8 else ''})", flush=True)
 
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())

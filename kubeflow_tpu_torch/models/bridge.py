@@ -10,6 +10,15 @@ bf16 leaves arrive as numpy arrays whose dtype is named ``bfloat16`` (an
 extension dtype numpy itself lacks); they cross as raw 16-bit words —
 ``.view(np.uint16)`` on one side, ``.view(torch.bfloat16)`` on the
 other — so no bf16 conversion library is needed and every bit survives.
+
+Quantized leaves (``models/quant.py``) are ``{"q", "s"}`` dicts: a
+stacked layer leaf ``q`` (L, in, out) with ``s`` (L, 1, out) or, int4,
+(L, in/group, out); the lm head ``q`` (V, D) with ``s`` (V, 1) or
+(V, D/group). ``q`` is int8, ``float8_e4m3fn`` (crossing as its bytes) or
+int4 (a dtype named ``int4``, read with ``astype(np.int8)`` and packed two
+a byte); each becomes a ``QuantizedWeight``. ``params_to_numpy`` gives
+them back byte for byte, int4 unpacked and cast to the ``like`` leaf's
+dtype.
 """
 
 from __future__ import annotations
@@ -19,10 +28,15 @@ import torch
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
+from kubeflow_tpu_torch.models.quant import QuantizedWeight, _set
+from kubeflow_tpu_torch.ops.quant_matmul import pack_int4
 
 _LAYER_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
                  "w_gate", "w_up", "w_down", "bq", "bk", "bv")
 _TOP_LEAVES = ("embed", "final_norm", "lm_head")
+
+
+_SCHEME_OF = {"int8": "int8", "float8_e4m3fn": "fp8", "int4": "int4"}
 
 
 def _to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -30,16 +44,45 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     arr = np.array(arr, order="C")
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    if arr.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(arr.view(np.uint8)).view(torch.float8_e4m3fn)
+    if arr.dtype.name == "int4":
+        return torch.from_numpy(arr.astype(np.int8))
     return torch.from_numpy(arr)
 
 
 def _to_numpy(t: torch.Tensor, like: np.ndarray = None) -> np.ndarray:
     t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        words = t.view(torch.int16).numpy().view(np.uint16)
-        # Without a bf16 template the words come back as uint16.
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        words = t.view(torch.int16 if t.dtype == torch.bfloat16
+                       else torch.uint8).numpy()
+        words = words.view(np.uint16) if t.dtype == torch.bfloat16 else words
+        # Without a template the raw words come back (uint16, uint8).
         return words if like is None else words.view(like.dtype)
+    if like is not None and like.dtype.name == "int4":
+        return t.numpy().astype(like.dtype)
     return t.numpy()
+
+
+def _quantized(leaf: dict, like: torch.Tensor, axis: int, device,
+               name: str) -> QuantizedWeight:
+    """One layer's (or the head's) ``{"q", "s"}`` leaf as a
+    ``QuantizedWeight`` in place of ``like``, shape-checked."""
+    if set(leaf) != {"q", "s"}:
+        raise ValueError(f"{name}: a quantized leaf holds q and s, got "
+                         f"{sorted(leaf)}")
+    scheme = _SCHEME_OF.get(np.asarray(leaf["q"]).dtype.name)
+    q, s = _to_torch(leaf["q"]), _to_torch(leaf["s"])
+    if scheme is None or s.dtype != torch.float32:
+        raise ValueError(f"{name}: q {np.asarray(leaf['q']).dtype} / s "
+                         f"{s.dtype} is no quantized weight")
+    if tuple(q.shape) != tuple(like.shape):
+        raise ValueError(f"{name}: got {tuple(q.shape)}, model wants "
+                         f"{tuple(like.shape)}")
+    if scheme == "int4":
+        q = pack_int4(q)
+    return QuantizedWeight(q.to(device), s.to(device), scheme, axis,
+                           like.shape)
 
 
 def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Llama:
@@ -53,7 +96,11 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Llama:
     if unknown:
         raise ValueError(f"unexpected parameter leaves: {sorted(unknown)}")
 
-    def put(param, arr, name):
+    def put(owner, attr, arr, name, axis):
+        param = getattr(owner, attr)
+        if isinstance(arr, dict):
+            _set(owner, attr, _quantized(arr, param, axis, dev, name))
+            return
         src = _to_torch(arr)
         if tuple(src.shape) != tuple(param.shape) or src.dtype != param.dtype:
             raise ValueError(
@@ -68,20 +115,24 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Llama:
         if (param is None) != (name not in tree):
             raise ValueError(f"leaf {name!r} does not match the config")
         if param is not None:
-            put(param, tree[name], name)
+            put(model, name, tree[name], name, 1)
     for name in _LAYER_LEAVES:
         stacked = tree["layers"].get(name)
         if (getattr(model.layers[0], name) is None) != (stacked is None):
             raise ValueError(f"layer leaf {name!r} does not match the config")
         if stacked is None:
             continue
-        if len(stacked) != cfg.n_layers:
+        count = len(stacked["q"]) if isinstance(stacked, dict) else len(stacked)
+        if count != cfg.n_layers or (isinstance(stacked, dict)
+                                     and len(stacked["s"]) != count):
             raise ValueError(
-                f"layers/{name}: {len(stacked)} stacked layers, config has "
+                f"layers/{name}: {count} stacked layers, config has "
                 f"{cfg.n_layers}"
             )
         for i, layer in enumerate(model.layers):
-            put(getattr(layer, name), stacked[i], f"layers/{name}[{i}]")
+            arr = ({k: v[i] for k, v in stacked.items()}
+                   if isinstance(stacked, dict) else stacked[i])
+            put(layer, name, arr, f"layers/{name}[{i}]", 0)
     return model
 
 
@@ -91,18 +142,28 @@ def params_to_numpy(model: Llama, like: dict = None) -> dict:
     brought to numpy) where given, else they come back as uint16 words."""
     like = like or {}
     like_layers = like.get("layers", {})
+
+    def leaf(w, ref):
+        if not isinstance(w, QuantizedWeight):
+            return _to_numpy(w, ref)
+        ref = ref or {}
+        return {"q": _to_numpy(w.values(), ref.get("q")),
+                "s": _to_numpy(w.s, ref.get("s"))}
+
     out: dict = {}
     for name in _TOP_LEAVES:
         param = getattr(model, name)
         if param is not None:
-            out[name] = _to_numpy(param, like.get(name))
+            out[name] = leaf(param, like.get(name))
     layers: dict = {}
     for name in _LAYER_LEAVES:
         if getattr(model.layers[0], name) is None:
             continue
         ref = like_layers.get(name)
-        layers[name] = np.stack([
-            _to_numpy(getattr(layer, name), ref) for layer in model.layers
-        ])
+        per_layer = [leaf(getattr(layer, name), ref) for layer in model.layers]
+        layers[name] = ({k: np.stack([p[k] for p in per_layer])
+                         for k in ("q", "s")}
+                        if isinstance(per_layer[0], dict)
+                        else np.stack(per_layer))
     out["layers"] = layers
     return out

@@ -30,6 +30,11 @@ jitted scan, and draw from a ``torch.Generator`` where JAX takes a key.
 Caches are updated IN PLACE (JAX donates them and returns new ones), and
 the functions return the cache they were given.
 
+Projections and the lm head may be quantized (``models/quant.py``: int8,
+int4, fp8): ``_mm`` and ``_lm_head_logits`` take a ``QuantizedWeight``
+with the JAX functions' rounding points, through the hand-written
+``quant_matmul`` kernel at decode widths on the card.
+
 Training: ``forward_hidden`` and ``forward`` record an autograd graph when
 grad mode is on and the weights require grad. Weights are created frozen
 (``requires_grad=False``), as serving wants them; ``params.requires_grad_()``
@@ -56,6 +61,8 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils import checkpoint as _ckpt
 
+from kubeflow_tpu_torch.models.quant import QuantizedWeight
+from kubeflow_tpu_torch.models.quant import matmul as quant_matmul
 from kubeflow_tpu_torch.ops.attention import NEG_INF, flash_attention
 
 
@@ -161,7 +168,9 @@ def _weight(shape: tuple, cfg: LlamaConfig, device) -> nn.Parameter:
 
 
 class LlamaLayer(nn.Module):
-    """One transformer layer's weights, ``(in, out)`` layout."""
+    """One transformer layer's weights, ``(in, out)`` layout. A projection
+    may be a ``models/quant.py`` ``QuantizedWeight`` in place of its
+    parameter (``quantize_params``)."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -239,11 +248,17 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
 
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a dense weight. Quantized weights (the JAX package's
-    models/quant.py and models/fp8.py wrappers) are not ported yet."""
+    """x @ w where w is dense OR quantized (``models/quant.py``): int8 and
+    fp8 ``(x @ q) * s``, the product rounded to the model dtype and then
+    scaled; int4 ``x @ dequantize(w)``, the operand dequantized in f32 and
+    rounded, as the JAX function rounds them. The fp8-training wrappers
+    are not ported yet (ROADMAP queue 1 item 12)."""
+    if isinstance(w, QuantizedWeight):
+        return quant_matmul(x, w)
     if not isinstance(w, torch.Tensor):
         raise TypeError(
-            f"only dense weights are supported, got {type(w).__name__}"
+            f"only dense or quantized weights are supported, got "
+            f"{type(w).__name__}"
         )
     return x @ w
 
@@ -258,8 +273,11 @@ def _qkv(h: torch.Tensor, layer: LlamaLayer):
 
 def _lm_head_logits(x: torch.Tensor, params: Llama) -> torch.Tensor:
     """x @ lm_head.T in the model dtype, THEN cast to f32 logits. Tied
-    models project through the embedding matrix."""
+    models project through the embedding matrix. A quantized head gives
+    f32(x @ q.T) * s (int8, fp8) or f32(x @ dequantize(w).T) (int4)."""
     w = params.lm_head if params.lm_head is not None else params.embed
+    if isinstance(w, QuantizedWeight):
+        return quant_matmul(x, w)
     return (x @ w.T).float()
 
 

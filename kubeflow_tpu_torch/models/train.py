@@ -14,8 +14,8 @@ What differs from JAX:
   step's loss.
 - One device only: ``plan`` is ``None`` or a device, and there is no
   ``shard_state``. Sharded plans (FSDP/TP), sequence-parallel attention
-  (ring, Ulysses, zigzag: ROADMAP queue 1 item 13) and fp8 training
-  (item 9) raise ``NotImplementedError``.
+  (ring, Ulysses, zigzag: ROADMAP queue 1 item 13), fp8 training and
+  training a quantized model (item 12) raise ``NotImplementedError``.
 - AdamW's state is allocated when the state is made, not at the first
   step, so a checkpoint of a fresh state has every leaf of a trained one.
 - ``make_tiny_trainer`` draws its batches with numpy from the seed (JAX
@@ -43,6 +43,7 @@ from kubeflow_tpu_torch.models.llama import (
     forward_hidden,
     init_params,
 )
+from kubeflow_tpu_torch.models.quant import QuantizedWeight
 
 
 def per_token_nll(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -272,7 +273,7 @@ def make_train_step(
     if fp8:
         raise NotImplementedError(
             "fp8 training (models/fp8.py) is not ported yet (ROADMAP queue 1 "
-            "item 9)"
+            "item 12)"
         )
     _check_plan(plan)
     if grad_accum < 1:
@@ -280,6 +281,13 @@ def make_train_step(
     optimizer = optimizer or make_optimizer()
 
     def init_state(params: Llama) -> dict:
+        quantized = [name for name, mod in params.named_modules()
+                     if isinstance(mod, QuantizedWeight)]
+        if quantized:
+            raise NotImplementedError(
+                f"{quantized[0]} is quantized: training a quantized model "
+                "(the quantized finetune) is not ported yet (ROADMAP queue 1 "
+                "item 12)")
         params.requires_grad_(True)
         return {"params": params, "opt_state": optimizer.init(params),
                 "step": torch.zeros((), dtype=torch.int64)}

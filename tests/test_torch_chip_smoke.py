@@ -935,3 +935,234 @@ def test_trace_splits_each_kernel_by_launch_grid(smoke, monkeypatch):
     assert out["attention_by_grid"] == {
         "1x8x39": [1, pytest.approx(60e-6)],
         "4x8x8": [2, pytest.approx(40e-6)]}
+
+
+# -- quantized weights --------------------------------------------------------
+
+QUANT_SMALL = (("layer", 256, 160, False), ("head", 200, 256, True))
+
+
+@pytest.fixture
+def quant_small(smoke, monkeypatch):
+    """Phase 3 and 4's quant_matmul at small shapes on the CPU: one layer
+    weight, one head; the trace of a call stands in as one launch of the
+    kernel with the CTAs kernel_ctas names."""
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(smoke, "QUANT_SHAPES", QUANT_SMALL)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: Props())
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(smoke.qmm_mod, "kernel_ctas", lambda *a: 3)
+    monkeypatch.setattr(smoke, "_kernel_records", lambda fn: (fn(), [
+        {"cat": "kernel", "name": "void quant_mm_kn_kernel<0, 1>",
+         "args": {"grid": [3, 1, 1]}}])[1])
+    monkeypatch.setattr(smoke, "QUANT_GROUP", 32)
+
+
+def test_quant_vs_plain_rehearsed_on_the_cpu(smoke, no_card, quant_small):
+    worst = smoke.quant_vs_plain()
+    assert set(worst) == {"abs", "rel", "row_rel"}
+    assert all(worst[g] <= smoke.QUANT_GATES[g] for g in smoke.QUANT_GATES)
+
+
+def test_quant_vs_plain_fails_on_a_second_kernel_in_the_call(
+        smoke, no_card, quant_small, monkeypatch):
+    monkeypatch.setattr(smoke, "_kernel_records", lambda fn: [
+        {"cat": "kernel", "name": "void quant_mm_kn_kernel<0, 1>",
+         "args": {"grid": [3, 1, 1]}},
+        {"cat": "kernel", "name": "elementwise_kernel copy",
+         "args": {"grid": [4096, 1, 1]}}])
+    with pytest.raises(AssertionError, match="one call launched"):
+        smoke.quant_vs_plain()
+
+
+def _quant_pair(smoke, scheme, head):
+    name, rows, cols, _ = QUANT_SMALL[1 if head else 0]
+    src = smoke._quant_source(name, rows, cols, head, seed=3)
+    w = smoke._quantize_one(src, scheme, head)
+    x = smoke._quant_x(8, cols if head else rows, seed=4)
+    ref = smoke.quant_matmul_reference(x, w.q, w.s, scheme, head)
+    return x, w, ref
+
+
+@pytest.mark.parametrize("scheme", ["int8", "int4", "fp8"])
+@pytest.mark.parametrize("head", [False, True])
+def test_quant_gates_pass_one_rounding_and_fail_one_percent(smoke, quant_small,
+                                                            scheme, head):
+    """One element moved by one bf16 unit in the last place passes the
+    gates; the whole output 1% off fails the row gate; a zeroed row fails
+    both."""
+    x, w, ref = _quant_pair(smoke, scheme, head)
+    nudged = ref.clone()
+    bits = nudged.view(torch.int16 if ref.dtype == torch.bfloat16
+                       else torch.int32).reshape(-1)
+    bits[bits.numel() // 3] += 1 if ref.dtype == torch.bfloat16 else 1 << 16
+    errs = smoke._quant_errors(nudged, ref, x, w, head)
+    assert all(errs[g] <= smoke.QUANT_GATES[g] for g in smoke.QUANT_GATES)
+    errs = smoke._quant_errors(ref * 1.01, ref, x, w, head)
+    assert errs["row_rel"] > smoke.QUANT_GATES["row_rel"]
+    zeroed = ref.clone()
+    zeroed[3] = 0
+    errs = smoke._quant_errors(zeroed, ref, x, w, head)
+    assert all(errs[g] > smoke.QUANT_GATES[g] for g in smoke.QUANT_GATES)
+
+
+def test_quant_repeat_check_fails_on_one_ulp(smoke, quant_small):
+    _, _, ref = _quant_pair(smoke, "int8", False)
+    smoke.check_quant_repeat(ref, ref.clone(), "rehearsal")
+    again = ref.clone()
+    again.view(torch.int16).reshape(-1)[5] += 1
+    with pytest.raises(AssertionError, match="repeats differ"):
+        smoke.check_quant_repeat(ref, again, "rehearsal")
+
+
+def test_timing_quant_rehearsed_on_the_cpu(smoke, no_card, quant_small,
+                                           monkeypatch):
+    monkeypatch.setattr(smoke, "_time_ms", lambda fn: (fn(), 1.0)[1])
+    rows = smoke.timing_quant()
+    assert set(rows) == {"layer", "head"}
+    for name, by_scheme in rows.items():
+        assert set(by_scheme) == {"int8", "int4", "fp8"}
+        for row in by_scheme.values():
+            assert set(smoke.QUANT_ROW_KEYS) <= set(row)
+            assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+    # int8 reads (K, N) bytes, int4 half of them, plus the scales.
+    layer = rows["layer"]
+    assert layer["int4"]["bytes"] < layer["int8"]["bytes"]
+
+
+@pytest.mark.parametrize("kind,widths,admits,steps,want", [
+    ("ragged", [8, 8, 512, 16, 32], 0, 5, {"quant": 3 * 225 + 2,
+                                            "wide": 2 * 224}),
+    ("continuous", (), 3, 10, {"quant": 10 * 225 + 3, "wide": 3 * 224}),
+])
+def test_expected_quant_calls(smoke, kind, widths, admits, steps, want):
+    """A 32-layer decode step launches 7·32 + 1 kernels; a step wider than
+    MAX_ROWS takes its 7·32 products on the wide path and its head (one
+    row a slot, or an admission's one sampled row) on the kernel."""
+    assert smoke._expected_quant_calls(kind, widths, admits, steps,
+                                       32) == want
+
+
+def test_wide_seconds_counts_the_kernels_launched_inside_the_ranges(
+        smoke, monkeypatch):
+    """A kernel belongs to the wide path when its launch (matched by
+    correlation id) lies inside a ``quant_matmul_wide`` range."""
+    records = [
+        {"cat": "user_annotation", "name": "quant_matmul_wide", "ts": 100,
+         "dur": 50},
+        {"cat": "user_annotation", "name": "quant_matmul_wide", "ts": 400,
+         "dur": 20},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 110,
+         "args": {"correlation": 1}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 140,
+         "args": {"correlation": 2}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 300,
+         "args": {"correlation": 3}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 410,
+         "args": {"correlation": 4}},
+        {"cat": "kernel", "name": "copy", "dur": 7, "args": {"correlation": 1}},
+        {"cat": "kernel", "name": "nvjet", "dur": 30,
+         "args": {"correlation": 2}},
+        {"cat": "kernel", "name": "quant_mm_kn", "dur": 11,
+         "args": {"correlation": 3}},
+        {"cat": "kernel", "name": "nvjet", "dur": 5,
+         "args": {"correlation": 4}},
+    ]
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                json.dump({"traceEvents": records}, f)
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(smoke, "_serve", lambda engine, prompts: None)
+    seconds, ranges = smoke._wide_seconds(None, [])
+    assert ranges == 2 and seconds == pytest.approx(42e-6)
+
+
+def test_quant_engine_phase_rehearsed_on_the_cpu(smoke, no_card,
+                                                 monkeypatch):
+    """Phase 5's quantized engines at a small width on the CPU (f32, dim
+    256 so that int4's group of 128 fits): the products go through a
+    stand-in of ``models.quant.matmul`` that counts like the card would
+    (the kernel up to MAX_ROWS rows, the wide path above), the attention
+    wrappers through counting stand-ins, and the profiler is not run."""
+    from kubeflow_tpu_torch.models import paged as TP
+    from kubeflow_tpu_torch.models import quant as TQ
+    from kubeflow_tpu_torch.ops import quant_matmul as QM
+
+    def product(x, w):
+        head = w.axis == 1
+        if x.numel() // x.shape[-1] > QM.MAX_ROWS:
+            return QM.quant_matmul_wide(x, w.q, w.s, w.scheme, head)
+        QM.quant_matmul.launches += 1
+        return QM.quant_matmul_reference(x, w.q, w.s, w.scheme, head)
+
+    real_ragged, real_flash = TRA.ragged_paged_attention, TA.flash_attention_fwd
+    real_dense = TPA.dense_decode_attention
+
+    def ragged(*a, **kw):
+        real_ragged.launches += 1
+        return TRA.ragged_attention_reference(*a, **kw)
+
+    def flash(*a, **kw):
+        real_flash.launches += 1
+        return TA.flash_attention_reference(*a, **kw)
+
+    def dense(*a, **kw):
+        real_dense.launches += 1
+        return TPA.dense_decode_reference(*a, **kw)
+
+    monkeypatch.setattr(TL, "quant_matmul", product)
+    monkeypatch.setattr(TP, "ragged_paged_attention", ragged)
+    monkeypatch.setattr(TA, "flash_attention_fwd", flash)
+    monkeypatch.setattr(TC, "dense_decode_attention", dense)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    real_engine, real_cont = smoke._engine, smoke._cont_engine
+
+    def engine(params, cfg, kv_bits, attn_kernel=None, ragged=True):
+        eng = real_engine(params, cfg, kv_bits, attn_kernel=False,
+                          ragged=ragged)
+        eng.attn_kernel = attn_kernel is not False
+        return eng
+
+    def cont(params, cfg, attn_kernel=None, admit_chunk=None):
+        eng = real_cont(params, cfg, attn_kernel=False,
+                        admit_chunk=admit_chunk)
+        if attn_kernel is not False:
+            eng._attn_kernel = TC._kernel_block_size(eng.cache_len)
+        return eng
+
+    monkeypatch.setattr(smoke, "_engine", engine)
+    monkeypatch.setattr(smoke, "_cont_engine", cont)
+    monkeypatch.setattr(smoke, "_trace", lambda *a, **k: {
+        "quant_s": 0.5, "busy_s": 2.0, "idle_share": 0.5})
+    monkeypatch.setattr(smoke, "_wide_seconds", lambda *a: (0.25, 3))
+    monkeypatch.setattr(smoke, "QUANT_ENGINES",
+                        ((8, ("ragged", "continuous")), (4, ("ragged",))))
+    cfg = dataclasses.replace(TL.LLAMA_CONFIGS["tiny"], dim=256,
+                              ffn_hidden=512, dtype=torch.float32)
+    params = TL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rows = smoke.quant_engine_phase(params, cfg)
+    assert set(rows) == {"ragged-int8", "continuous-int8", "ragged-int4"}
+    for label, row in rows.items():
+        assert row["launches"] > 0 and row["wide_calls"] > 0, label
+        assert row["trace"]["weight_products_s"] == pytest.approx(0.75)
+        assert all(r["fork"] != 0 for r in row["compare"])
+    cont_row = rows["continuous-int8"]
+    assert cont_row["wide_calls"] == 7 * cfg.n_layers * 16  # 16 admissions
+    assert isinstance(params.layers[0].wq, torch.nn.Parameter)
+    assert not any(isinstance(m, TQ.QuantizedWeight) for m in params.modules())

@@ -57,7 +57,10 @@ def test_importing_the_port_loads_no_jax():
         "kubeflow_tpu_torch.examples.serve_http, kubeflow_tpu_torch.ops._build, "
         "kubeflow_tpu_torch.ops.attention, kubeflow_tpu_torch.ops.paged_attention, "
         "kubeflow_tpu_torch.models.train, kubeflow_tpu_torch.data.loader, "
-        "kubeflow_tpu_torch.runtime.checkpoint, kubeflow_tpu_torch.examples.train\n"
+        "kubeflow_tpu_torch.runtime.checkpoint, kubeflow_tpu_torch.examples.train, "
+        "kubeflow_tpu_torch.models.quant, kubeflow_tpu_torch.models.fp8, "
+        "kubeflow_tpu_torch.ops.quant_matmul, "
+        "kubeflow_tpu_torch.examples.serve_batched\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'kubeflow_tpu')]\n"
@@ -71,7 +74,7 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
     from kubeflow_tpu_torch.device import resolve_device
-    from kubeflow_tpu_torch.examples import serve_http
+    from kubeflow_tpu_torch.examples import serve_batched, serve_http
     from kubeflow_tpu_torch.examples import train as train_example
     from kubeflow_tpu_torch.models import llama as TL
     from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
@@ -94,6 +97,11 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
         lambda: serve_http.main(["--config", "tiny", "--port", "0"]),
         lambda: serve_http.main(["--config", "tiny", "--port", "0",
                                  "--paged"]),
+        lambda: serve_http.main(["--config", "tiny", "--port", "0",
+                                 "--int8"]),
+        lambda: serve_batched.main(["--config", "tiny"]),
+        lambda: serve_batched.main(["--config", "tiny", "--int8",
+                                    "--paged"]),
         lambda: train_example.main(["--config", "tiny", "--steps", "1"]),
         lambda: make_tiny_trainer(),
     ):
