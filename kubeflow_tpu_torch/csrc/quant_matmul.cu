@@ -51,8 +51,9 @@
 // - x is staged in shared memory, 2048 (kn) or 1024 (nk) contraction values
 //   at a time, rows past M zero;
 // - kn splits the contraction over the 8 warps of a CTA (each warp a
-//   contiguous run of k-steps of each staged chunk, the next k-step's
-//   weights in flight while one is multiplied), adds the warps' partials
+//   contiguous run of k-steps of each staged chunk, the next two k-steps'
+//   weights in flight while two are multiplied, the first two while x is
+//   staged), adds the warps' partials
 //   in shared memory in warp order, and splits it over CTAs (grid
 //   (channel tile, split)) where 128-channel tiles alone would not fill the
 //   card: the host picks the split from the shapes and the SM count. A tile
@@ -283,22 +284,30 @@ __global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
 
   for (int c0 = s_begin; c0 < s_end; c0 += kChunkSteps) {
     const int csteps = min(kChunkSteps, s_end - c0);
-    __syncthreads();
-    stage_x<MP>(x, xs, XS, m, k, c0 * 16, csteps * 16);
-    __syncthreads();
     const int per_warp = (csteps + kWarps - 1) / kWarps;
     const int w_begin = c0 + warp * per_warp;
     const int w_end = min(c0 + csteps, w_begin + per_warp);
-    if (w_begin >= w_end) continue;
-    uint32_t cur[4][4], nxt[4][4];
-    load(w_begin, cur);
-    for (int st = w_begin; st < w_end; ++st) {
-      if (st + 1 < w_end) load(st + 1, nxt);
-      step(st, c0, cur);
+    // This warp's first two k-steps are in flight while x is staged; in
+    // the loop two more are loaded while two are multiplied.
+    uint32_t a0[4][4], a1[4][4];
+    if (w_begin < w_end) load(w_begin, a0);
+    if (w_begin + 1 < w_end) load(w_begin + 1, a1);
+    __syncthreads();  // the previous chunk's readers are done
+    stage_x<MP>(x, xs, XS, m, k, c0 * 16, csteps * 16);
+    __syncthreads();
+    for (int st = w_begin; st < w_end; st += 2) {
+      uint32_t b0[4][4], b1[4][4];
+      if (st + 2 < w_end) load(st + 2, b0);
+      if (st + 3 < w_end) load(st + 3, b1);
+      step(st, c0, a0);
+      if (st + 1 < w_end) step(st + 1, c0, a1);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) cur[r][c] = nxt[r][c];
+        for (int c = 0; c < 4; ++c) {
+          a0[r][c] = b0[r][c];
+          a1[r][c] = b1[r][c];
+        }
     }
   }
 
