@@ -1824,12 +1824,28 @@ def _quant_bound(w, m, k, n, head) -> tuple[float, str, dict]:
     return _bound_of(nbytes, 2 * m * k * n)
 
 
+def _host_us(fn, calls: int = 1000) -> float:
+    """The host's microseconds a call of ``fn``, over ``calls`` calls queued
+    back to back (the card runs behind; the queue is synchronized after
+    the clock stops)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / calls * 1e6
+
+
 # The row counts phase 4 times: the decode width of every engine's steps,
 # and a 512-row admission, which goes to the wide path.
 QUANT_M = 8
 QUANT_WIDE_M = 512
 QUANT_ROW_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                  "wide_512_ms", "library_512_ms", "bound_512_ms", "ctas")
+                  "wide_512_ms", "library_512_ms", "bound_512_ms", "ctas",
+                  "host_us", "library_host_us")
 
 
 def timing_quant():
@@ -1862,7 +1878,12 @@ def timing_quant():
                 lambda: quant_matmul_wide(xw, w.q, w.s, scheme, head))
             bound_ms, bound_by, work = _quant_bound(w, QUANT_M, k, n, head)
             bound_512, by_512, _ = _quant_bound(w, QUANT_WIDE_M, k, n, head)
+            # What an engine's step pays on the host a product: the
+            # model's path (models/quant.matmul) beside bf16's ``x @ w``.
+            host = (_host_us(lambda: quant_mod.matmul(x, w)),
+                    _host_us(lambda: lib(x)))
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       host_us=host[0], library_host_us=host[1],
                        bound_ms=bound_ms, bound_by=bound_by,
                        wide_512_ms=wide_ms, library_512_ms=library_512_ms,
                        bound_512_ms=bound_512, bound_512_by=by_512,
@@ -1874,7 +1895,8 @@ def timing_quant():
                 f"bf16 torch.matmul {library_ms:.4f}, bound {bound_ms:.4f} "
                 f"({bound_by}, {work['bytes']} B); M={QUANT_WIDE_M}: wide "
                 f"path {wide_ms:.4f}, bf16 torch.matmul {library_512_ms:.4f}, "
-                f"bound {bound_512:.4f} ({by_512})")
+                f"bound {bound_512:.4f} ({by_512}); host {host[0]:.1f} µs a "
+                f"call, bf16 {host[1]:.1f}")
             del w
         del src, x, xw
     quant_matmul.launches, quant_matmul_wide.calls = saved
