@@ -148,8 +148,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    for each wider step or admission; 4 prompts are served again with
    every quantized product through its plain version and compared as
    above; 8 prompts traced again, once for the card's busy time, idle
-   share and quant_matmul's seconds, once with the wide path's calls
-   marked, for its kernels' seconds: together the weight products;
+   share and quant_matmul's seconds, once with the wide path's products
+   on a stream of their own, for its kernels' seconds: together the
+   weight products;
 6. HTTP — 4 concurrent ``/v1/completions`` (2 streamed) against the
    server over each bf16 engine; streamed tokens must equal the blocking
    response for the same prompt; then ``/stats`` and a clean stop;
@@ -177,6 +178,7 @@ It prints a ``{"kernels": [...]}`` line, the card line, and last
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import functools
@@ -2233,49 +2235,40 @@ def _expected_quant_calls(kind, widths, admits, steps, n_layers) -> dict:
 
 
 def _wide_seconds(engine, prompts) -> tuple[float, int]:
-    """Serve under ``torch.profiler`` (host and card) with each wide-path
-    call inside a ``record_function`` range: (the card's seconds in the
-    kernels launched inside those ranges, the ranges). A kernel belongs to
-    the range its launch call lies in (their shared correlation id)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
+    """Serve under ``torch.profiler`` (card activity only) with every
+    wide-path product on a stream of its own, ordered against the engine's
+    stream both ways: (the card's seconds in the kernels on streams other
+    than the one most kernels ran on, the wide-path calls)."""
     real = quant_mod.quant_matmul_wide
+    side: list = []
+    calls = [0]
 
-    def annotated(*args, **kwargs):
-        with record_function("quant_matmul_wide"):
-            return real(*args, **kwargs)
+    def on_side(*args, **kwargs):
+        if not side:
+            side.append(torch.cuda.Stream())
+        main = torch.cuda.current_stream()
+        side[0].wait_stream(main)
+        with torch.cuda.stream(side[0]):
+            out = real(*args, **kwargs)
+        main.wait_stream(side[0])
+        out.record_stream(main)
+        calls[0] += 1
+        return out
 
-    quant_mod.quant_matmul_wide = annotated
+    quant_mod.quant_matmul_wide = on_side
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _serve(engine, prompts)
-            torch.cuda.synchronize()
+        records = _kernel_records(lambda: _serve(engine, prompts))
     finally:
         quant_mod.quant_matmul_wide = real
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    ranges = sorted((ev["ts"], ev["ts"] + ev.get("dur", 0)) for ev in events
-                    if ev.get("name") == "quant_matmul_wide"
-                    and ev.get("cat") == "user_annotation")
-    launched = {ev["args"]["correlation"]: ev["ts"] for ev in events
-                if ev.get("cat") in ("cuda_runtime", "cuda_driver")
-                and "correlation" in ev.get("args", {})}
-    starts = [s for s, _ in ranges]
-    seconds = 0.0
-    for ev in events:
-        if ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        ts = launched.get(ev.get("args", {}).get("correlation"))
-        if ts is None:
-            continue
-        i = int(np.searchsorted(starts, ts, side="right")) - 1
-        if i >= 0 and ts <= ranges[i][1]:
-            seconds += ev.get("dur", 0) / 1e6
-    return seconds, len(ranges)
+    streams = collections.Counter(ev.get("args", {}).get("stream")
+                                  for ev in records)
+    engine_stream = streams.most_common(1)[0][0]
+    wide = [ev for ev in records
+            if ev.get("args", {}).get("stream") != engine_stream]
+    check(bool(wide) == bool(calls[0]),
+          f"{calls[0]} wide-path calls, {len(wide)} kernels off the "
+          "engine's stream")
+    return sum(ev.get("dur", 0) for ev in wide) / 1e6, calls[0]
 
 
 def _quant_engine(qparams, cfg, kind, label, prompts) -> dict:
@@ -2341,9 +2334,9 @@ def _quant_engine(qparams, cfg, kind, label, prompts) -> dict:
     log(f"  {kind} {label}: kernel vs plain products on 4 prompts "
         f"(fork -1 = tokens equal): {json.dumps(report)}")
     trace = _trace(make(), prompts[::2], {"quant": "quant_mm_", **attention})
-    wide_s, ranges = _wide_seconds(make(), prompts[::2])
+    wide_s, calls = _wide_seconds(make(), prompts[::2])
     trace["wide_path_s"] = wide_s
-    trace["wide_path_calls"] = ranges
+    trace["wide_path_calls"] = calls
     trace["weight_products_s"] = trace["quant_s"] + wide_s
     log(f"  {kind} {label}: traced rerun of 8 prompts: {json.dumps(trace)}")
     return {"launches": got["quant"], "wide_calls": got["wide"],

@@ -42,6 +42,7 @@ output checks are exercised before the card sees them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -1046,51 +1047,48 @@ def test_expected_quant_calls(smoke, kind, widths, admits, steps, want):
                                        32) == want
 
 
-def test_wide_seconds_counts_the_kernels_launched_inside_the_ranges(
-        smoke, monkeypatch):
-    """A kernel belongs to the wide path when its launch (matched by
-    correlation id) lies inside a ``quant_matmul_wide`` range."""
-    records = [
-        {"cat": "user_annotation", "name": "quant_matmul_wide", "ts": 100,
-         "dur": 50},
-        {"cat": "user_annotation", "name": "quant_matmul_wide", "ts": 400,
-         "dur": 20},
-        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 110,
-         "args": {"correlation": 1}},
-        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 140,
-         "args": {"correlation": 2}},
-        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 300,
-         "args": {"correlation": 3}},
-        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 410,
-         "args": {"correlation": 4}},
-        {"cat": "kernel", "name": "copy", "dur": 7, "args": {"correlation": 1}},
-        {"cat": "kernel", "name": "nvjet", "dur": 30,
-         "args": {"correlation": 2}},
-        {"cat": "kernel", "name": "quant_mm_kn", "dur": 11,
-         "args": {"correlation": 3}},
-        {"cat": "kernel", "name": "nvjet", "dur": 5,
-         "args": {"correlation": 4}},
-    ]
+class _Stream:
+    """A stand-in CUDA stream: ordering calls do nothing on the CPU."""
 
-    class Profile:
-        def __init__(self, activities):
-            pass
+    def wait_stream(self, other):
+        pass
 
-        def __enter__(self):
-            return self
 
-        def __exit__(self, *exc):
-            return False
+@pytest.mark.parametrize("streams,calls,fails", [
+    ([7, 7, 13, 7, 13], 2, None), ([7, 7, 7], 0, None),
+    ([7, 7, 7], 2, "off the engine's stream")])
+def test_wide_seconds_counts_the_kernels_off_the_engine_stream(
+        smoke, monkeypatch, streams, calls, fails):
+    """The wide path's kernels are those on another stream than the one
+    most kernels ran on; wide-path calls with none of them fail. The
+    traced run here makes ``calls`` wide-path calls through the
+    side-stream wrapper, which is taken away after."""
+    records = [{"cat": "kernel", "name": f"k{i}", "dur": 10 * (i + 1),
+                "args": {"stream": st}} for i, st in enumerate(streams)]
+    real = smoke.quant_mod.quant_matmul_wide
+    w = smoke.quant_mod.quantize_weight(torch.randn(4, 4), 0)
 
-        def export_chrome_trace(self, path):
-            with open(path, "w") as f:
-                json.dump({"traceEvents": records}, f)
+    def traced(fn):
+        for _ in range(calls):
+            smoke.quant_mod.quant_matmul_wide(torch.zeros(1, 4), w.q, w.s,
+                                              "int8")
+        return records
 
-    monkeypatch.setattr(torch.profiler, "profile", Profile)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(smoke, "_serve", lambda engine, prompts: None)
-    seconds, ranges = smoke._wide_seconds(None, [])
-    assert ranges == 2 and seconds == pytest.approx(42e-6)
+    monkeypatch.setattr(smoke, "_kernel_records", traced)
+    monkeypatch.setattr(torch.cuda, "Stream", _Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", _Stream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda st: contextlib.nullcontext())
+    monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, st: None)
+    if fails:
+        with pytest.raises(AssertionError, match=fails):
+            smoke._wide_seconds(None, [])
+    else:
+        seconds, n = smoke._wide_seconds(None, [])
+        assert n == calls
+        assert seconds == pytest.approx(sum(
+            10 * (i + 1) for i, st in enumerate(streams) if st == 13) * 1e-6)
+    assert smoke.quant_mod.quant_matmul_wide is real
 
 
 def test_quant_engine_phase_rehearsed_on_the_cpu(smoke, no_card,
