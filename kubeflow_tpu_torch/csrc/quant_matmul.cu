@@ -51,9 +51,10 @@
 // - x is staged in shared memory, 2048 (kn) or 1024 (nk) contraction values
 //   at a time, rows past M zero;
 // - kn splits the contraction over the 8 warps of a CTA (each warp a
-//   contiguous run of k-steps of each staged chunk, the next two k-steps'
-//   weights in flight while two are multiplied, the first two while x is
-//   staged), adds the warps' partials
+//   contiguous run of k-steps of each staged chunk, the next seven k-steps'
+//   weights in flight through a cp.async ring in shared memory while one
+//   is multiplied, the first seven while x is staged), adds the warps'
+//   partials
 //   in shared memory in warp order, and splits it over CTAs (grid
 //   (channel tile, split)) where 128-channel tiles alone would not fill the
 //   card: the host picks the split from the shapes and the SM count. A tile
@@ -76,8 +77,10 @@ using kftt::pack_bf16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kWarpN = 128;       // kn: channels of a warp, 16 per thread group
+constexpr int kTileN = 128;       // kn: channels of a CTA, 16 per thread group
 constexpr int kChunkSteps = 128;  // kn: k-steps (16 rows each) staged at once
+constexpr int kStages = 8;        // kn: k-steps a thread keeps in flight + 1
+constexpr int kStageBytes = 4 * 32 * 16;  // kn: a warp's k-step, 4 rows
 constexpr int kNkChunk = 1024;    // nk: contraction values staged at once
 constexpr int kNkBatch = 4;       // nk: loads of each row in flight
 constexpr int kXPad = 8;          // bf16 of padding after a staged x row
@@ -137,6 +140,14 @@ __device__ __forceinline__ uint2 ld_stream8(const void* p) {
   return v;
 }
 
+// 8 bytes global → shared, asynchronously; zero-filled when !live.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool live) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(live ? 8 : 0));
+}
+
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -161,22 +172,26 @@ __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
 // ---------------------------------------------------------------------------
 // kn: out (M, N) bf16 = x (M, K) @ W, W stored (K, N) (int4: (K, N/2)).
 //
-// The CTA's 8 warps are WN along the channels (a CTA covers TN = 128·WN
-// channels, so it reads 128·WN contiguous bytes of a row at once; int4
-// half that) by KW = 8 / WN along the contraction. Grid (N / TN tiles,
-// ksplit). CTA (tile, z) takes k-steps [z*spc, (z + 1)*spc) of 16 rows
-// each, in chunks of kChunkSteps; inside a chunk warp (wn, wk) takes the
-// wk-th contiguous run of its steps. Thread (g, t) holds, for k-step st,
-// rows 16*st + 4t + r (r = 0..3) of channels n0 + 128wn + 16g .. + 15:
+// Grid (N / 128 tiles, ksplit). CTA (tile, z) takes k-steps [z*spc,
+// (z + 1)*spc) of 16 rows each, in chunks of kChunkSteps; inside a chunk
+// warp w takes a contiguous run of its steps. Thread (g, t) holds, for
+// k-step st, rows 16*st + 4t + r (r = 0..3) of channels n0 + 16g .. + 15:
 // mma k-slots 2t, 2t+1, 2t+8, 2t+9 are rows 4t+0..3, and channel tile j's
-// mma rows g and g+8 are channels 16g + 2j and 16g + 2j + 1 of the warp's.
-// Its accumulators acc[j][mt] are then rows m = 8mt + 2t, +1 of those
-// channels.
+// mma rows g and g+8 are channels 16g + 2j and 16g + 2j + 1. Its
+// accumulators acc[j][mt] are then rows m = 8mt + 2t, +1 of channels
+// 16g + 2j, +1.
 //
-// Shared memory: xs [MP][kChunkSteps*16 + kXPad] bf16, then red
-// [KW][MP][TN] f32 (the warps' partials). Scratch, for ksplit > 1:
-// (tiles, ksplit, MP, TN) f32; counters (tiles), 0 between calls.
-template <int SCHEME, int MT, int WN>
+// The weights reach registers through a ring of kStages k-steps in shared
+// memory per warp, filled by cp.async: each thread copies its own 4 rows'
+// 16 bytes (int4: 8) and reads them back itself, so a thread waits on its
+// own copies only, and kStages - 1 k-steps (14 KB a warp) stay in flight.
+//
+// Shared memory: xs [MP][kChunkSteps*16 + kXPad] bf16, then the ring
+// [kWarps][kStages][4 rows][32 lanes][16 B], whose bytes hold red
+// [kWarps][MP][kTileN] f32 (the warps' partials) after the loop. Scratch,
+// for ksplit > 1: (tiles, ksplit, MP, kTileN) f32; counters (tiles), 0
+// between calls.
+template <int SCHEME, int MT>
 __global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
     const float* __restrict__ s, __nv_bfloat16* __restrict__ out,
@@ -184,19 +199,17 @@ __global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
     int k, int n, int group, int spc, int ksplit) {
   constexpr int MP = 8 * MT;
   constexpr int XS = kChunkSteps * 16 + kXPad;
-  constexpr int TN = kWarpN * WN;
-  constexpr int KW = kWarps / WN;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* red = reinterpret_cast<float*>(smem + (size_t)MP * XS * 2);
+  unsigned char* ring = smem + (size_t)MP * XS * 2;
+  float* red = reinterpret_cast<float*>(ring);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int wn = warp % WN, wk = warp / WN;
   const int g = lane / 4, t = lane % 4;
   const int tile = blockIdx.x, z = blockIdx.y;
-  const int n0 = tile * TN;
-  const int col = n0 + kWarpN * wn + 16 * g;  // this thread's first channel
+  const int n0 = tile * kTileN;
+  const int col = n0 + 16 * g;  // this thread's first channel
   const bool col_live = col < n;  // n % 16 == 0: all 16 or none
   const size_t row_bytes = SCHEME == kInt4 ? (size_t)n / 2 : (size_t)n;
   const uint8_t* qcol = q + (SCHEME == kInt4 ? col / 2 : col);
@@ -212,18 +225,33 @@ __global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[j][mt][c] = 0.f;
 
-  auto load = [&](int st, uint32_t (&w)[4][4]) {
+  unsigned char* my_ring = ring + (size_t)warp * kStages * kStageBytes +
+                           lane * 16;
+  // Copy this thread's 4 rows of k-step st into its ring slot.
+  auto issue = [&](int st) {
+    unsigned char* dst = my_ring + (st % kStages) * kStageBytes;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const uint8_t* p = qcol + (size_t)(st * 16 + 4 * t + r) * row_bytes;
+      const uint8_t* p =
+          col_live ? qcol + (size_t)(st * 16 + 4 * t + r) * row_bytes : q;
+      if constexpr (SCHEME == kInt4)
+        cp_async8(dst + r * 32 * 16, p, col_live);
+      else
+        kftt::cp_async16(dst + r * 32 * 16, p, col_live);
+    }
+  };
+  // Read them back once they have landed.
+  auto fetch = [&](int st, uint32_t (&w)[4][4]) {
+    const unsigned char* src = my_ring + (st % kStages) * kStageBytes;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
       if constexpr (SCHEME == kInt4) {
-        const uint2 v = col_live ? ld_stream8(p) : make_uint2(0u, 0u);
+        const uint2 v = *reinterpret_cast<const uint2*>(src + r * 32 * 16);
         w[r][0] = v.x;
         w[r][1] = v.y;
         w[r][2] = w[r][3] = 0u;
       } else {
-        const uint4 v =
-            col_live ? ld_stream16(p) : make_uint4(0u, 0u, 0u, 0u);
+        const uint4 v = *reinterpret_cast<const uint4*>(src + r * 32 * 16);
         w[r][0] = v.x;
         w[r][1] = v.y;
         w[r][2] = v.z;
@@ -290,45 +318,42 @@ __global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
 
   for (int c0 = s_begin; c0 < s_end; c0 += kChunkSteps) {
     const int csteps = min(kChunkSteps, s_end - c0);
-    const int per_warp = (csteps + KW - 1) / KW;
-    const int w_begin = c0 + wk * per_warp;
+    const int per_warp = (csteps + kWarps - 1) / kWarps;
+    const int w_begin = c0 + warp * per_warp;
     const int w_end = min(c0 + csteps, w_begin + per_warp);
-    // This warp's first two k-steps are in flight while x is staged; in
-    // the loop two more are loaded while two are multiplied.
-    uint32_t a0[4][4], a1[4][4];
-    if (w_begin < w_end) load(w_begin, a0);
-    if (w_begin + 1 < w_end) load(w_begin + 1, a1);
+    // This warp's first kStages - 1 k-steps are in flight while x is
+    // staged, one commit group each (empty past the run's end).
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {
+      if (w_begin + i < w_end) issue(w_begin + i);
+      kftt::cp_async_commit();
+    }
     __syncthreads();  // the previous chunk's readers are done
     stage_x<MP>(x, xs, XS, m, k, c0 * 16, csteps * 16);
     __syncthreads();
-    for (int st = w_begin; st < w_end; st += 2) {
-      uint32_t b0[4][4], b1[4][4];
-      if (st + 2 < w_end) load(st + 2, b0);
-      if (st + 3 < w_end) load(st + 3, b1);
-      step(st, c0, a0);
-      if (st + 1 < w_end) step(st + 1, c0, a1);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          a0[r][c] = b0[r][c];
-          a1[r][c] = b1[r][c];
-        }
+    for (int st = w_begin; st < w_end; ++st) {
+      // The slot refilled is the one read in the previous trip.
+      if (st + kStages - 1 < w_end) issue(st + kStages - 1);
+      kftt::cp_async_commit();
+      kftt::cp_async_wait<kStages - 1>();  // step st has landed
+      uint32_t w[4][4];
+      fetch(st, w);
+      step(st, c0, w);
     }
   }
+  kftt::cp_async_wait<0>();
+  __syncthreads();  // red takes the ring's bytes: every warp is done
 
-  // The warps' partials, then their sum over the KW warps of each channel
-  // in order.
+  // The warps' partials, then their sum in warp order.
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       const int r0 = mt * 8 + 2 * t;
-      float* dst = red + ((size_t)wk * MP + r0) * TN + kWarpN * wn + 16 * g +
-                   2 * j;
+      float* dst = red + ((size_t)warp * MP + r0) * kTileN + 16 * g + 2 * j;
       *reinterpret_cast<float2*>(dst) =
           make_float2(acc[j][mt][0], acc[j][mt][2]);
-      *reinterpret_cast<float2*>(dst + TN) =
+      *reinterpret_cast<float2*>(dst + kTileN) =
           make_float2(acc[j][mt][1], acc[j][mt][3]);
     }
   __syncthreads();
@@ -344,26 +369,26 @@ __global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
     out[(size_t)r * n + n0 + c] = o;
   };
 
-  constexpr int kPer = MP * TN / kThreads;
+  constexpr int kPer = MP * kTileN / kThreads;
   float part[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int e = tid + i * kThreads;
     float v = 0.f;
 #pragma unroll
-    for (int w = 0; w < KW; ++w) v += red[(size_t)w * MP * TN + e];
+    for (int w = 0; w < kWarps; ++w) v += red[(size_t)w * MP * kTileN + e];
     part[i] = v;
   }
   if (ksplit == 1) {
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
-      epilogue(part[i], e / TN, e % TN);
+      epilogue(part[i], e / kTileN, e % kTileN);
     }
     return;
   }
 
-  float* mine = scratch + ((size_t)tile * ksplit + z) * MP * TN;
+  float* mine = scratch + ((size_t)tile * ksplit + z) * MP * kTileN;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) mine[tid + i * kThreads] = part[i];
   // The ticket: each thread's partials are fenced, then one thread counts
@@ -379,14 +404,14 @@ __global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
   }
   __syncthreads();
   if (!last) return;
-  const float* all = scratch + (size_t)tile * ksplit * MP * TN;
+  const float* all = scratch + (size_t)tile * ksplit * MP * kTileN;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int e = tid + i * kThreads;
     float v = 0.f;
     for (int zz = 0; zz < ksplit; ++zz)
-      v += __ldcg(all + (size_t)zz * MP * TN + e);
-    epilogue(v, e / TN, e % TN);
+      v += __ldcg(all + (size_t)zz * MP * kTileN + e);
+    epilogue(v, e / kTileN, e % kTileN);
   }
 }
 
@@ -524,21 +549,23 @@ cudaError_t allow_smem(Fn fn, size_t smem, unsigned* done) {
 }
 
 size_t kn_smem(int mt) {
+  const size_t red = (size_t)kWarps * 8 * mt * kTileN * 4;
+  const size_t ring = (size_t)kWarps * kStages * kStageBytes;
   return (size_t)8 * mt * (kChunkSteps * 16 + kXPad) * 2 +
-         (size_t)kWarps * 8 * mt * kWarpN * 4;
+         (ring > red ? ring : red);
 }
 
 size_t nk_smem(int mt) { return (size_t)8 * mt * (kNkChunk + kXPad) * 2; }
 
-template <int SCHEME, int MT, int WN>
+template <int SCHEME, int MT>
 int launch_kn(const void* x, const void* q, const void* s, void* out,
               void* scratch, void* counters, int m, int k, int n, int group,
               int spc, int ksplit, cudaStream_t stream) {
-  auto fn = quant_mm_kn_kernel<SCHEME, MT, WN>;
+  auto fn = quant_mm_kn_kernel<SCHEME, MT>;
   const size_t smem = kn_smem(MT);
   static unsigned done = 0;  // one per instantiation
   if (cudaError_t err = allow_smem(fn, smem, &done)) return (int)err;
-  const dim3 grid((n + kWarpN * WN - 1) / (kWarpN * WN), ksplit);
+  const dim3 grid((n + kTileN - 1) / kTileN, ksplit);
   fn<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
       static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out),
@@ -570,72 +597,46 @@ int check(int scheme, int m, int group) {
   return 0;
 }
 
-// The kn instantiation of one (scheme, rows tiles, warps along N).
-template <int SCHEME, int MT>
-int dispatch_kn(int wn, const void* x, const void* q, const void* s,
-                void* out, void* scratch, void* counters, int m, int k,
-                int n, int group, int spc, int ksplit, cudaStream_t st) {
-  switch (wn) {
-    case 1:
-      return launch_kn<SCHEME, MT, 1>(x, q, s, out, scratch, counters, m, k,
-                                      n, group, spc, ksplit, st);
-    case 2:
-      return launch_kn<SCHEME, MT, 2>(x, q, s, out, scratch, counters, m, k,
-                                      n, group, spc, ksplit, st);
-    case 4:
-      return launch_kn<SCHEME, MT, 4>(x, q, s, out, scratch, counters, m, k,
-                                      n, group, spc, ksplit, st);
-    default:
-      return launch_kn<SCHEME, MT, 8>(x, q, s, out, scratch, counters, m, k,
-                                      n, group, spc, ksplit, st);
-  }
-}
-
-template <int SCHEME>
-int dispatch_kn_rows(int wn, const void* x, const void* q, const void* s,
-                     void* out, void* scratch, void* counters, int m, int k,
-                     int n, int group, int spc, int ksplit, cudaStream_t st) {
-  return m > 8 ? dispatch_kn<SCHEME, 2>(wn, x, q, s, out, scratch, counters,
-                                        m, k, n, group, spc, ksplit, st)
-               : dispatch_kn<SCHEME, 1>(wn, x, q, s, out, scratch, counters,
-                                        m, k, n, group, spc, ksplit, st);
-}
-
 }  // namespace
 
 extern "C" {
 
 // out (M, N) bf16 = x (M, K) bf16 @ W, W a layer weight stored (K, N)
 // int8 / fp8 e4m3 bytes with s (N,) f32, or (K, N/2) packed int4 with s
-// (K / group, N) f32. K % 16 == 0, N % 16 == 0, M <= 16. A CTA covers
-// 128·wn channels (wn 1, 2, 4 or 8 of its 8 warps along them); CTAs (N /
-// (128·wn) rounded up, ksplit) each take `spc` k-steps of 16 rows;
-// ksplit * spc covers K / 16. Launches on `stream` and returns
-// cudaGetLastError() (0 on success), or a negative code for a shape this
-// kernel does not take. Allocates nothing: `scratch` holds ceil(N /
-// (128·wn)) * ksplit * 16 * 128·wn floats when ksplit > 1 and `counters`
-// ceil(N / (128·wn)) unsigned ints, 0 before the call and 0 again after.
+// (K / group, N) f32. K % 16 == 0, N % 16 == 0, M <= 16. CTAs (N / 128
+// rounded up, ksplit) each take `spc` k-steps of 16 rows; ksplit * spc
+// covers K / 16. Launches on `stream` and returns cudaGetLastError() (0 on
+// success), or a negative code for a shape this kernel does not take.
+// Allocates nothing: `scratch` holds ceil(N / 128) * ksplit * 16 * 128
+// floats when ksplit > 1 and `counters` ceil(N / 128) unsigned ints, 0
+// before the call and 0 again after it.
 int kftt_quant_matmul_kn(const void* x, const void* q, const void* s,
                          void* out, void* scratch, void* counters, int m,
-                         int k, int n, int scheme, int group, int wn,
-                         int spc, int ksplit, void* stream) {
+                         int k, int n, int scheme, int group, int spc,
+                         int ksplit, void* stream) {
   if (int err = check(scheme, m, group)) return err;
   if (k <= 0 || n <= 0 || k % 16 || n % 16) return kErrShape;
-  if (wn != 1 && wn != 2 && wn != 4 && wn != 8) return kErrSplit;
   if (spc <= 0 || ksplit <= 0 || (long long)spc * ksplit < k / 16 ||
       (long long)spc * (ksplit - 1) >= k / 16)
     return kErrSplit;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool two = m > 8;
   switch (scheme) {
     case kInt8:
-      return dispatch_kn_rows<kInt8>(wn, x, q, s, out, scratch, counters, m,
-                                     k, n, group, spc, ksplit, st);
+      return two ? launch_kn<kInt8, 2>(x, q, s, out, scratch, counters, m, k,
+                                       n, group, spc, ksplit, st)
+                 : launch_kn<kInt8, 1>(x, q, s, out, scratch, counters, m, k,
+                                       n, group, spc, ksplit, st);
     case kFp8:
-      return dispatch_kn_rows<kFp8>(wn, x, q, s, out, scratch, counters, m,
-                                    k, n, group, spc, ksplit, st);
+      return two ? launch_kn<kFp8, 2>(x, q, s, out, scratch, counters, m, k,
+                                      n, group, spc, ksplit, st)
+                 : launch_kn<kFp8, 1>(x, q, s, out, scratch, counters, m, k,
+                                      n, group, spc, ksplit, st);
     default:
-      return dispatch_kn_rows<kInt4>(wn, x, q, s, out, scratch, counters, m,
-                                     k, n, group, spc, ksplit, st);
+      return two ? launch_kn<kInt4, 2>(x, q, s, out, scratch, counters, m, k,
+                                       n, group, spc, ksplit, st)
+                 : launch_kn<kInt4, 1>(x, q, s, out, scratch, counters, m, k,
+                                       n, group, spc, ksplit, st);
   }
 }
 
@@ -669,7 +670,7 @@ const char* kftt_error_string(int code) {
     case kErrRows: return "x must have 1 to 16 rows";
     case kErrShape: return "kn needs K and N multiples of 16; nk needs K a multiple of 64 (int4: 128)";
     case kErrGroup: return "the int4 group must be a positive multiple of 32";
-    case kErrSplit: return "wn must be 1, 2, 4 or 8, and ksplit runs of spc k-steps must cover K / 16 with none empty";
+    case kErrSplit: return "ksplit runs of spc k-steps must cover K / 16 with none empty";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

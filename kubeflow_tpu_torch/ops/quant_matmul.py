@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
 
 import torch
 
@@ -60,11 +59,9 @@ SCHEMES = {"int8": 0, "fp8": 1, "int4": 2}
 # 8-slot decode step of every engine and the ragged engine's width-8
 # dispatch).
 MAX_ROWS = 16
-# A layer product's warp covers WARP_N output channels, a CTA WARP_N·wn
-# (wn of its 8 warps along the channels, the rest along the contraction);
-# the contraction is cut into k-steps of 16 rows, at least MIN_STEPS of
-# them a CTA.
-WARP_N = 128
+# A layer product's CTA covers TILE_N output channels; its contraction is
+# cut into k-steps of 16 rows, at least MIN_STEPS of them a CTA.
+TILE_N = 128
 MIN_STEPS = 16
 # The head kernel's CTA covers NK_ROWS rows of the (V, K) weight.
 NK_ROWS = 128
@@ -157,32 +154,24 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def kn_warps_n(n: int) -> int:
-    """The warps of a CTA along the channels, from N alone."""
-    return 1
-
-
 @functools.lru_cache(maxsize=None)
-def kn_plan(k: int, n: int, sms: int,
-            wn: Optional[int] = None) -> tuple[int, int, int, int]:
-    """(warps along the channels, channel tiles, k-steps a CTA, CTAs a
-    tile) of a layer product: tiles of 128·wn channels, and where they
-    alone leave SMs idle the contraction split over up to ``sms // tiles``
-    CTAs of at least MIN_STEPS k-steps (16 rows each), none empty. From
-    the shapes and SM count alone."""
-    wn = kn_warps_n(n) if wn is None else wn
-    tiles = -(-n // (WARP_N * wn))
+def kn_plan(k: int, n: int, sms: int) -> tuple[int, int, int]:
+    """(channel tiles, k-steps a CTA, CTAs a tile) of a layer product:
+    128-channel tiles, and where they alone leave SMs idle the contraction
+    split over up to ``sms // tiles`` CTAs of at least MIN_STEPS k-steps
+    (16 rows each), none empty. From the shapes and SM count alone."""
+    tiles = -(-n // TILE_N)
     ksteps = k // 16
     ksplit = max(1, min(sms // tiles, -(-ksteps // MIN_STEPS)))
     spc = -(-ksteps // ksplit)
-    return wn, tiles, spc, -(-ksteps // spc)
+    return tiles, spc, -(-ksteps // spc)
 
 
 def kernel_ctas(k: int, n: int, head: bool, sms: int) -> int:
     """The CTAs one launch runs for this weight shape."""
     if head:
         return -(-n // NK_ROWS)
-    _, tiles, _, ksplit = kn_plan(k, n, sms)
+    tiles, _, ksplit = kn_plan(k, n, sms)
     return tiles * ksplit
 
 
@@ -190,7 +179,7 @@ def _library() -> ctypes.CDLL:
     from kubeflow_tpu_torch.ops import _build
 
     lib = _build.load("quant_matmul")
-    for name, pointers, ints in ((_C_KN, 6, 8), (_C_NK, 4, 5)):
+    for name, pointers, ints in ((_C_KN, 6, 7), (_C_NK, 4, 5)):
         fn = getattr(lib, name)
         if fn.restype is not ctypes.c_int or not fn.argtypes:
             fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints \
@@ -209,9 +198,8 @@ _buffers: dict[tuple[int, int], list[torch.Tensor]] = {}
 
 def _plan(q: torch.Tensor, s: torch.Tensor, scheme: str, head: bool,
           device: torch.device) -> tuple:
-    """(C function, K, N, scheme code, group, warps along the channels,
-    tiles, k-steps a CTA, CTAs a tile) of one weight on ``device``, its
-    checks made on the first call."""
+    """(C function, K, N, scheme code, group, tiles, k-steps a CTA, CTAs a
+    tile) of one weight on ``device``, its checks made on the first call."""
     key = (q.data_ptr(), s.data_ptr(), q.shape, s.shape, q.dtype, scheme,
            head, q.get_device(), s.get_device(), device.index)
     plan = _plans.get(key)
@@ -240,10 +228,10 @@ def _plan(q: torch.Tensor, s: torch.Tensor, scheme: str, head: bool,
         raise ValueError(f"the kernel needs an int4 group that is a "
                          f"multiple of 32, got {group}")
     lib = _library()
-    wn, tiles, spc, ksplit = ((0, 0, 0, 0) if head
-                              else kn_plan(k, n, _sm_count(device.index)))
+    tiles, spc, ksplit = ((0, 0, 0) if head
+                          else kn_plan(k, n, _sm_count(device.index)))
     plan = (getattr(lib, _C_NK if head else _C_KN), k, n, SCHEMES[scheme],
-            group, wn, tiles, spc, ksplit)
+            group, tiles, spc, ksplit)
     if len(_plans) > 4096:  # weights freed and made anew: start over
         _plans.clear()
     _plans[key] = plan
@@ -284,8 +272,8 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
             return quant_matmul(x, q, s, scheme, head)
-    fn, k, n, code, group, wn, tiles, spc, ksplit = _plan(q, s, scheme,
-                                                          head, device)
+    fn, k, n, code, group, tiles, spc, ksplit = _plan(q, s, scheme, head,
+                                                      device)
     if x.shape[-1] != k:
         raise ValueError(f"x has {x.shape[-1]} features, the weight "
                          f"contracts {k}")
@@ -309,11 +297,10 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                 rows, k, n, code, group, stream)
     else:
         scratch, counters = _stream_buffers(
-            device.index, stream, tiles,
-            tiles * ksplit * MAX_ROWS * WARP_N * wn)
+            device.index, stream, tiles, tiles * ksplit * MAX_ROWS * TILE_N)
         rc = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), counters.data_ptr(), rows, k, n, code,
-                group, wn, spc, ksplit, stream)
+                group, spc, ksplit, stream)
     if rc != 0:
         raise RuntimeError("quant_matmul launch failed: "
                            + _library().kftt_error_string(rc).decode())

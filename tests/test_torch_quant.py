@@ -213,8 +213,8 @@ def test_product_wrapper_refusals():
 def test_kernel_split_covers_every_k_step_once(k, n, sms):
     """kn_plan's CTAs fit one wave where the tiles allow and cover the
     contraction's k-steps with no empty CTA."""
-    wn, tiles, spc, ksplit = QM.kn_plan(k, n, sms)
-    assert tiles == -(-n // (QM.WARP_N * wn)) and wn in (1, 2, 4, 8)
+    tiles, spc, ksplit = QM.kn_plan(k, n, sms)
+    assert tiles == -(-n // QM.TILE_N)
     assert spc * ksplit >= k // 16 > spc * (ksplit - 1)
     assert tiles * ksplit <= max(sms, tiles)
     assert QM.kernel_ctas(k, n, False, sms) == tiles * ksplit
