@@ -50,11 +50,12 @@
 //   the slow rate;
 // - x is staged in shared memory, 2048 (kn) or 1024 (nk) contraction values
 //   at a time, rows past M zero;
+// - kn runs two CTAs an SM at up to 8 rows (one at 16: its smem), so 16
+//   warps hide each other's dequantization chains;
 // - kn splits the contraction over the 8 warps of a CTA (each warp a
-//   contiguous run of k-steps of each staged chunk, the next seven k-steps'
-//   weights in flight through a cp.async ring in shared memory while one
-//   is multiplied, the first seven while x is staged), adds the warps'
-//   partials
+//   contiguous run of k-steps of each staged chunk, the next two k-steps'
+//   weights in flight while two are multiplied, the first two while x is
+//   staged), adds the warps' partials
 //   in shared memory in warp order, and splits it over CTAs (grid
 //   (channel tile, split)) where 128-channel tiles alone would not fill the
 //   card: the host picks the split from the shapes and the SM count. A tile
@@ -79,8 +80,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTileN = 128;       // kn: channels of a CTA, 16 per thread group
 constexpr int kChunkSteps = 128;  // kn: k-steps (16 rows each) staged at once
-constexpr int kStages = 8;        // kn: k-steps a thread keeps in flight + 1
-constexpr int kStageBytes = 4 * 32 * 16;  // kn: a warp's k-step, 4 rows
 constexpr int kNkChunk = 1024;    // nk: contraction values staged at once
 constexpr int kNkBatch = 4;       // nk: loads of each row in flight
 constexpr int kXPad = 8;          // bf16 of padding after a staged x row
@@ -140,14 +139,6 @@ __device__ __forceinline__ uint2 ld_stream8(const void* p) {
   return v;
 }
 
-// 8 bytes global → shared, asynchronously; zero-filled when !live.
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          bool live) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-               "l"(src), "r"(live ? 8 : 0));
-}
-
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -181,18 +172,11 @@ __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
 // accumulators acc[j][mt] are then rows m = 8mt + 2t, +1 of channels
 // 16g + 2j, +1.
 //
-// The weights reach registers through a ring of kStages k-steps in shared
-// memory per warp, filled by cp.async: each thread copies its own 4 rows'
-// 16 bytes (int4: 8) and reads them back itself, so a thread waits on its
-// own copies only, and kStages - 1 k-steps (14 KB a warp) stay in flight.
-//
-// Shared memory: xs [MP][kChunkSteps*16 + kXPad] bf16, then the ring
-// [kWarps][kStages][4 rows][32 lanes][16 B], whose bytes hold red
-// [kWarps][MP][kTileN] f32 (the warps' partials) after the loop. Scratch,
-// for ksplit > 1: (tiles, ksplit, MP, kTileN) f32; counters (tiles), 0
-// between calls.
+// Shared memory: xs [MP][kChunkSteps*16 + kXPad] bf16, then red
+// [kWarps][MP][kTileN] f32 (the warps' partials). Scratch, for ksplit > 1:
+// (tiles, ksplit, MP, kTileN) f32; counters (tiles), 0 between calls.
 template <int SCHEME, int MT>
-__global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
+__global__ void __launch_bounds__(kThreads, 3 - MT) quant_mm_kn_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
     const float* __restrict__ s, __nv_bfloat16* __restrict__ out,
     float* __restrict__ scratch, unsigned* __restrict__ counters, int m,
@@ -201,8 +185,7 @@ __global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
   constexpr int XS = kChunkSteps * 16 + kXPad;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  unsigned char* ring = smem + (size_t)MP * XS * 2;
-  float* red = reinterpret_cast<float*>(ring);
+  float* red = reinterpret_cast<float*>(smem + (size_t)MP * XS * 2);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -225,33 +208,18 @@ __global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[j][mt][c] = 0.f;
 
-  unsigned char* my_ring = ring + (size_t)warp * kStages * kStageBytes +
-                           lane * 16;
-  // Copy this thread's 4 rows of k-step st into its ring slot.
-  auto issue = [&](int st) {
-    unsigned char* dst = my_ring + (st % kStages) * kStageBytes;
+  auto load = [&](int st, uint32_t (&w)[4][4]) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const uint8_t* p =
-          col_live ? qcol + (size_t)(st * 16 + 4 * t + r) * row_bytes : q;
-      if constexpr (SCHEME == kInt4)
-        cp_async8(dst + r * 32 * 16, p, col_live);
-      else
-        kftt::cp_async16(dst + r * 32 * 16, p, col_live);
-    }
-  };
-  // Read them back once they have landed.
-  auto fetch = [&](int st, uint32_t (&w)[4][4]) {
-    const unsigned char* src = my_ring + (st % kStages) * kStageBytes;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
+      const uint8_t* p = qcol + (size_t)(st * 16 + 4 * t + r) * row_bytes;
       if constexpr (SCHEME == kInt4) {
-        const uint2 v = *reinterpret_cast<const uint2*>(src + r * 32 * 16);
+        const uint2 v = col_live ? ld_stream8(p) : make_uint2(0u, 0u);
         w[r][0] = v.x;
         w[r][1] = v.y;
         w[r][2] = w[r][3] = 0u;
       } else {
-        const uint4 v = *reinterpret_cast<const uint4*>(src + r * 32 * 16);
+        const uint4 v =
+            col_live ? ld_stream16(p) : make_uint4(0u, 0u, 0u, 0u);
         w[r][0] = v.x;
         w[r][1] = v.y;
         w[r][2] = v.z;
@@ -321,28 +289,29 @@ __global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
     const int per_warp = (csteps + kWarps - 1) / kWarps;
     const int w_begin = c0 + warp * per_warp;
     const int w_end = min(c0 + csteps, w_begin + per_warp);
-    // This warp's first kStages - 1 k-steps are in flight while x is
-    // staged, one commit group each (empty past the run's end).
-#pragma unroll
-    for (int i = 0; i < kStages - 1; ++i) {
-      if (w_begin + i < w_end) issue(w_begin + i);
-      kftt::cp_async_commit();
-    }
+    // This warp's first two k-steps are in flight while x is staged; in
+    // the loop two more are loaded while two are multiplied.
+    uint32_t a0[4][4], a1[4][4];
+    if (w_begin < w_end) load(w_begin, a0);
+    if (w_begin + 1 < w_end) load(w_begin + 1, a1);
     __syncthreads();  // the previous chunk's readers are done
     stage_x<MP>(x, xs, XS, m, k, c0 * 16, csteps * 16);
     __syncthreads();
-    for (int st = w_begin; st < w_end; ++st) {
-      // The slot refilled is the one read in the previous trip.
-      if (st + kStages - 1 < w_end) issue(st + kStages - 1);
-      kftt::cp_async_commit();
-      kftt::cp_async_wait<kStages - 1>();  // step st has landed
-      uint32_t w[4][4];
-      fetch(st, w);
-      step(st, c0, w);
+    for (int st = w_begin; st < w_end; st += 2) {
+      uint32_t b0[4][4], b1[4][4];
+      if (st + 2 < w_end) load(st + 2, b0);
+      if (st + 3 < w_end) load(st + 3, b1);
+      step(st, c0, a0);
+      if (st + 1 < w_end) step(st + 1, c0, a1);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          a0[r][c] = b0[r][c];
+          a1[r][c] = b1[r][c];
+        }
     }
   }
-  kftt::cp_async_wait<0>();
-  __syncthreads();  // red takes the ring's bytes: every warp is done
 
   // The warps' partials, then their sum in warp order.
 #pragma unroll
@@ -549,10 +518,8 @@ cudaError_t allow_smem(Fn fn, size_t smem, unsigned* done) {
 }
 
 size_t kn_smem(int mt) {
-  const size_t red = (size_t)kWarps * 8 * mt * kTileN * 4;
-  const size_t ring = (size_t)kWarps * kStages * kStageBytes;
   return (size_t)8 * mt * (kChunkSteps * 16 + kXPad) * 2 +
-         (ring > red ? ring : red);
+         (size_t)kWarps * 8 * mt * kTileN * 4;
 }
 
 size_t nk_smem(int mt) { return (size_t)8 * mt * (kNkChunk + kXPad) * 2; }
