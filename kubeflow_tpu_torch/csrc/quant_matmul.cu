@@ -50,8 +50,6 @@
 //   the slow rate;
 // - x is staged in shared memory, 2048 (kn) or 1024 (nk) contraction values
 //   at a time, rows past M zero;
-// - kn runs two CTAs an SM at up to 8 rows (one at 16: its smem), so 16
-//   warps hide each other's dequantization chains;
 // - kn splits the contraction over the 8 warps of a CTA (each warp a
 //   contiguous run of k-steps of each staged chunk, the next two k-steps'
 //   weights in flight while two are multiplied, the first two while x is
@@ -176,7 +174,7 @@ __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
 // [kWarps][MP][kTileN] f32 (the warps' partials). Scratch, for ksplit > 1:
 // (tiles, ksplit, MP, kTileN) f32; counters (tiles), 0 between calls.
 template <int SCHEME, int MT>
-__global__ void __launch_bounds__(kThreads, 3 - MT) quant_mm_kn_kernel(
+__global__ void __launch_bounds__(kThreads, 1) quant_mm_kn_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
     const float* __restrict__ s, __nv_bfloat16* __restrict__ out,
     float* __restrict__ scratch, unsigned* __restrict__ counters, int m,

@@ -149,10 +149,6 @@ def _layout(q_shape: tuple, s_shape: tuple, scheme: str, head: bool):
     return k, n, 0
 
 
-# The layer kernel's CTAs an SM holds at once (at up to 8 rows).
-CTAS_PER_SM = 2
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -172,10 +168,10 @@ def kn_plan(k: int, n: int, sms: int) -> tuple[int, int, int]:
 
 
 def kernel_ctas(k: int, n: int, head: bool, sms: int) -> int:
-    """The CTAs one launch runs for this weight shape on ``sms`` SMs."""
+    """The CTAs one launch runs for this weight shape."""
     if head:
         return -(-n // NK_ROWS)
-    tiles, _, ksplit = kn_plan(k, n, CTAS_PER_SM * sms)
+    tiles, _, ksplit = kn_plan(k, n, sms)
     return tiles * ksplit
 
 
@@ -233,8 +229,7 @@ def _plan(q: torch.Tensor, s: torch.Tensor, scheme: str, head: bool,
                          f"multiple of 32, got {group}")
     lib = _library()
     tiles, spc, ksplit = ((0, 0, 0) if head
-                          else kn_plan(k, n,
-                                       CTAS_PER_SM * _sm_count(device.index)))
+                          else kn_plan(k, n, _sm_count(device.index)))
     plan = (getattr(lib, _C_NK if head else _C_KN), k, n, SCHEMES[scheme],
             group, tiles, spc, ksplit)
     if len(_plans) > 4096:  # weights freed and made anew: start over
