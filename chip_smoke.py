@@ -1796,13 +1796,13 @@ def quant_vs_plain():
                     for key in worst:
                         worst[key] = max(worst[key], errs[key])
                 x = _quant_x(8, k, SEED + 958)
-                records = _kernel_records(
-                    lambda: quant_matmul(x, w.q, w.s, scheme, head))
+                grids, records = _launch_grids(
+                    lambda: quant_matmul(x, w.q, w.s, scheme, head),
+                    {"ctas": "quant_mm_"})
                 names = [ev.get("name", "")[:48] for ev in records]
-                check(len(records) == 1 and "quant_mm_" in names[0],
+                check(len(records) == 1,
                       f"{name} {scheme}: one call launched {names}")
-                ctas = math.prod(records[0].get("args", {}).get("grid")
-                                 or [0])
+                ctas = math.prod(grids["ctas"][0])
                 want = qmm_mod.kernel_ctas(k, n, head, sms)
                 check(ctas == want, f"{name} {scheme}: {ctas} CTAs, "
                                     f"kernel_ctas says {want}")

@@ -121,23 +121,19 @@ __device__ __forceinline__ uint32_t pack_exact(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
 }
 
-// Weight loads, issued where they stand: volatile, so the compiler keeps
-// them ahead of the (volatile) mma of the k-steps before them instead of
-// sinking each next to its first use, which would leave one k-step in
-// flight.
 __device__ __forceinline__ uint4 ld_stream16(const void* p) {
   uint4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
   return v;
 }
 
 __device__ __forceinline__ uint2 ld_stream8(const void* p) {
   uint2 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
-               : "=r"(v.x), "=r"(v.y)
-               : "l"(p));
+  asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+      : "=r"(v.x), "=r"(v.y)
+      : "l"(p));
   return v;
 }
 

@@ -70,17 +70,9 @@ class QuantizedWeight(nn.Module):
         self.axis = axis
         self.shape = torch.Size(shape)
 
-    @property
-    def device(self) -> torch.device:
-        return self.q.device
-
     def values(self) -> torch.Tensor:
         """The stored values, unpacked (int4 as int8)."""
         return unpack_int4(self.q) if self.scheme == "int4" else self.q
-
-    def extra_repr(self) -> str:
-        return (f"{self.scheme}, shape={tuple(self.shape)}, axis={self.axis}, "
-                f"s={tuple(self.s.shape)}")
 
 
 def _scale(amax: torch.Tensor, levels: float) -> torch.Tensor:
