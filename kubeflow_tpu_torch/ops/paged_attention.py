@@ -94,7 +94,9 @@ def stream_buffers(device, n_counters: int, n_floats: int):
     on one stream run in order, each kernel writes its partials before it
     reads them and leaves every counter at 0, so one call's merge is done
     before the next call writes."""
-    stream = torch.cuda.current_stream(device).cuda_stream
+    # The raw stream handle: no Stream object is made on the host each
+    # call (quant_matmul calls this 7 times a layer).
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
     key = (device.index, stream)
     buffers = _buffers.get(key)
     if buffers is None:

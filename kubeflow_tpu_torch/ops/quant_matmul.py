@@ -38,9 +38,9 @@ shape), K and N multiples of 16 for a layer weight, K a multiple of 64
 (int4: 128) for the head, and an int4 group that is a multiple of 32. A
 layer product is split over CTAs by ``kn_plan`` (128-channel tiles, the
 contraction split where the tiles alone would not fill the SMs), a split
-tile's partials merged by a ticket in split order, in scratch kept per
-device and stream: one launch a call, repeats bit-equal, nothing
-allocated but the output. A decode step makes 7 calls a layer, so the
+tile's partials merged by a ticket in split order, in the decode
+kernels' per-stream scratch (``ops.paged_attention.stream_buffers``): one
+launch a call, repeats bit-equal, nothing allocated but the output. A decode step makes 7 calls a layer, so the
 wrapper checks each weight once (``_plan``) and keeps its launch
 arguments.
 """
@@ -51,6 +51,8 @@ import ctypes
 import functools
 
 import torch
+
+from kubeflow_tpu_torch.ops.paged_attention import stream_buffers
 
 _C_KN = "kftt_quant_matmul_kn"
 _C_NK = "kftt_quant_matmul_nk"
@@ -192,8 +194,6 @@ def _library() -> ctypes.CDLL:
 # cost of a call shows in every step: each weight is checked once, and its
 # launch arguments kept, keyed by its storage, shapes, dtype and device.
 _plans: dict[tuple, tuple] = {}
-# {(device index, stream): [f32 scratch, int32 counters, 0 between calls]}.
-_buffers: dict[tuple[int, int], list[torch.Tensor]] = {}
 
 
 def _plan(q: torch.Tensor, s: torch.Tensor, scheme: str, head: bool,
@@ -238,22 +238,6 @@ def _plan(q: torch.Tensor, s: torch.Tensor, scheme: str, head: bool,
     return plan
 
 
-def _stream_buffers(index: int, stream: int, counters: int, floats: int):
-    """(scratch, counters) of one device and stream, grown on demand: the
-    kernel writes each partial before it reads it and leaves every counter
-    at 0, and launches on one stream run in order."""
-    bufs = _buffers.get((index, stream))
-    if bufs is None or bufs[1].numel() < counters or bufs[0].numel() < floats:
-        old = bufs or [torch.empty(0), torch.empty(0)]
-        dev = torch.device("cuda", index)
-        bufs = _buffers[(index, stream)] = [
-            torch.empty(max(floats, old[0].numel()), dtype=torch.float32,
-                        device=dev),
-            torch.zeros(max(counters, old[1].numel()), dtype=torch.int32,
-                        device=dev)]
-    return bufs
-
-
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                  scheme: str, head: bool = False) -> torch.Tensor:
     """``x @ W`` for a quantized layer weight, in x's dtype, or with
@@ -291,13 +275,13 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
     if head:
         rc = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-                rows, k, n, code, group, stream)
+                rows, k, n, code, group,
+                torch._C._cuda_getCurrentRawStream(device.index))
     else:
-        scratch, counters = _stream_buffers(
-            device.index, stream, tiles, tiles * ksplit * MAX_ROWS * TILE_N)
+        scratch, counters, stream = stream_buffers(
+            device, tiles, tiles * ksplit * MAX_ROWS * TILE_N)
         rc = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), counters.data_ptr(), rows, k, n, code,
                 group, spc, ksplit, stream)
