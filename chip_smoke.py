@@ -1873,7 +1873,8 @@ def timing_quant():
         rows_out[name] = {}
         for scheme in QUANT_SCHEMES:
             w = _quantize_one(src, scheme, head)
-            ms = _time_ms(lambda: quant_matmul(x, w.q, w.s, scheme, head))
+            # The model's path: the kernel, with the weight's checked plan.
+            ms = _time_ms(lambda: quant_mod.matmul(x, w))
             plain_ms = _time_ms(
                 lambda: quant_matmul_reference(x, w.q, w.s, scheme, head))
             wide_ms = _time_ms(

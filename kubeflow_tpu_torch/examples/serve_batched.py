@@ -11,9 +11,8 @@ through ``PagedBatcher`` (the alternating engine, 16-token blocks,
 ``--fp8`` quantize the projections and the lm head (``models/quant.py``;
 at most one of them); with none given, KUBEFLOW_TPU_QUANT (the notebook's
 ``tpu-quantization`` annotation, as the webhook projects it) decides.
-int4 groups ``--group`` contraction values (default 128, the JAX entry
-point's fixed group, which the ``tiny`` configs' 128-wide projections
-cannot take: ``--group 32`` quantizes them); a group a weight cannot take
+int4 groups 128 contraction values, as the JAX entry point does; a config
+whose projections that group cannot split (the ``tiny`` ones, 128 wide)
 exits with the JAX message. ``--kv8`` stores the KV cache as int8.
 
 What the port lacks is refused before any weight is made, naming the
@@ -62,8 +61,6 @@ def main(argv=None) -> None:
                     help="group-wise int4 weights (~4x fewer weight bytes)")
     ap.add_argument("--fp8", action="store_true",
                     help="e4m3 weight-only (2x fewer weight bytes)")
-    ap.add_argument("--group", type=int, default=128,
-                    help="int4 group size (contraction values per scale)")
     ap.add_argument("--kv8", action="store_true",
                     help="int8 KV cache (halves per-token cache reads)")
     ap.add_argument("--paged", action="store_true",
@@ -109,8 +106,7 @@ def main(argv=None) -> None:
         cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     if bits:
         try:
-            params = quantize_params(params, free_source=True, bits=bits,
-                                     group=args.group)
+            params = quantize_params(params, free_source=True, bits=bits)
         except ValueError as err:
             raise SystemExit(str(err))
         label = bits if bits == "fp8" else f"int{bits}"

@@ -41,7 +41,9 @@ from torch import nn
 
 from kubeflow_tpu_torch.ops.quant_matmul import (
     MAX_ROWS,
+    KernelPlan,
     dequantize,
+    kernel_plan,
     pack_int4,
     quant_matmul,
     quant_matmul_wide,
@@ -59,16 +61,37 @@ class QuantizedWeight(nn.Module):
     """A weight stored quantized: buffers ``q`` (int8, ``float8_e4m3fn``,
     or packed int4 ``uint8``) and ``s`` (f32 scales). ``scheme`` is
     "int8", "int4" or "fp8", ``axis`` the contraction axis (0 for a layer
-    weight, 1 for the lm head) and ``shape`` the weight's unpacked shape."""
+    weight, 1 for the lm head) and ``shape`` the weight's unpacked shape.
+    On the card it keeps the kernel's checked launch arguments
+    (``plan``), made on first use and dropped whenever ``q`` or ``s`` is
+    replaced or moved."""
 
     def __init__(self, q: torch.Tensor, s: torch.Tensor, scheme: str,
                  axis: int, shape) -> None:
         super().__init__()
+        self._plan = None
         self.register_buffer("q", q)
         self.register_buffer("s", s)
         self.scheme = scheme
         self.axis = axis
         self.shape = torch.Size(shape)
+
+    def __setattr__(self, name, value) -> None:
+        if name in ("q", "s"):
+            self._plan = None
+        super().__setattr__(name, value)
+
+    def _apply(self, fn, recurse=True):
+        # .to(), .cuda() and the like put new tensors in the buffers.
+        self._plan = None
+        return super()._apply(fn, recurse)
+
+    def plan(self) -> KernelPlan:
+        """``kernel_plan`` of ``q`` and ``s`` as they stand, made once."""
+        if self._plan is None:
+            self._plan = kernel_plan(self.q, self.s, self.scheme,
+                                     self.axis == 1)
+        return self._plan
 
     def values(self) -> torch.Tensor:
         """The stored values, unpacked (int4 as int8)."""
@@ -147,9 +170,11 @@ def matmul(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
     above; on the CPU the plain version."""
     head = w.axis == 1
     rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
-    if x.device.type == "cuda" and rows > MAX_ROWS:
+    if x.device.type != "cuda":
+        return quant_matmul(x, w.q, w.s, w.scheme, head)
+    if rows > MAX_ROWS:
         return quant_matmul_wide(x, w.q, w.s, w.scheme, head)
-    return quant_matmul(x, w.q, w.s, w.scheme, head)
+    return quant_matmul(x, w.q, w.s, w.scheme, head, w.plan())
 
 
 def _set(module: nn.Module, name: str, value) -> None:

@@ -40,15 +40,16 @@ layer product is split over CTAs by ``kn_plan`` (128-channel tiles, the
 contraction split where the tiles alone would not fill the SMs), a split
 tile's partials merged by a ticket in split order, in the decode
 kernels' per-stream scratch (``ops.paged_attention.stream_buffers``): one
-launch a call, repeats bit-equal, nothing allocated but the output. A decode step makes 7 calls a layer, so the
-wrapper checks each weight once (``_plan``) and keeps its launch
-arguments.
+launch a call, repeats bit-equal, nothing allocated but the output. A
+decode step makes 7 calls a layer, so a weight is checked once
+(``kernel_plan``) and its launch arguments passed to every call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -190,28 +191,34 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-# A decode step makes 7 products a layer plus the head's, so the host's
-# cost of a call shows in every step: each weight is checked once, and its
-# launch arguments kept, keyed by its storage, shapes, dtype and device.
-_plans: dict[tuple, tuple] = {}
+class KernelPlan(NamedTuple):
+    """A weight's checked launch arguments (``kernel_plan``)."""
+    fn: object  # the C function: the layer or the head kernel
+    k: int
+    n: int
+    code: int  # SCHEMES[scheme]
+    group: int
+    tiles: int  # kn_plan's channel tiles, k-steps a CTA, CTAs a tile
+    spc: int
+    ksplit: int
+    device: int  # the index of the card that holds q and s
 
 
-def _plan(q: torch.Tensor, s: torch.Tensor, scheme: str, head: bool,
-          device: torch.device) -> tuple:
-    """(C function, K, N, scheme code, group, tiles, k-steps a CTA, CTAs a
-    tile) of one weight on ``device``, its checks made on the first call."""
-    key = (q.data_ptr(), s.data_ptr(), q.shape, s.shape, q.dtype, scheme,
-           head, q.get_device(), s.get_device(), device.index)
-    plan = _plans.get(key)
-    if plan is not None:
-        return plan
+def kernel_plan(q: torch.Tensor, s: torch.Tensor, scheme: str,
+                head: bool) -> KernelPlan:
+    """Check that the kernel takes this stored weight (dtypes, one card,
+    contiguous and 16-byte aligned, its K, N and group) and return its
+    launch arguments. A decode step makes 7 products a layer plus the
+    head's, so the host's cost of a call shows in every step:
+    ``models/quant.py``'s ``QuantizedWeight`` makes its plan once and
+    passes it to every ``quant_matmul`` call."""
     k, n, group = _layout(q.shape, s.shape, scheme, head)
     want = torch.uint8 if scheme == "int4" else (
         torch.int8 if scheme == "int8" else torch.float8_e4m3fn)
     if q.dtype != want or s.dtype != torch.float32:
         raise ValueError(f"{scheme} needs q {want} and s float32, got "
                          f"{q.dtype} and {s.dtype}")
-    if q.device != device or s.device != device:
+    if q.device.type != "cuda" or s.device != q.device:
         raise ValueError("x, q and s must be on one CUDA device")
     if not (q.is_contiguous() and s.is_contiguous()):
         raise ValueError("q and s must be contiguous (the kernel reads the "
@@ -228,22 +235,22 @@ def _plan(q: torch.Tensor, s: torch.Tensor, scheme: str, head: bool,
         raise ValueError(f"the kernel needs an int4 group that is a "
                          f"multiple of 32, got {group}")
     lib = _library()
+    index = q.get_device()
     tiles, spc, ksplit = ((0, 0, 0) if head
-                          else kn_plan(k, n, _sm_count(device.index)))
-    plan = (getattr(lib, _C_NK if head else _C_KN), k, n, SCHEMES[scheme],
-            group, tiles, spc, ksplit)
-    if len(_plans) > 4096:  # weights freed and made anew: start over
-        _plans.clear()
-    _plans[key] = plan
-    return plan
+                          else kn_plan(k, n, _sm_count(index)))
+    return KernelPlan(getattr(lib, _C_NK if head else _C_KN), k, n,
+                      SCHEMES[scheme], group, tiles, spc, ksplit, index)
 
 
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                 scheme: str, head: bool = False) -> torch.Tensor:
+                 scheme: str, head: bool = False,
+                 plan: KernelPlan | None = None) -> torch.Tensor:
     """``x @ W`` for a quantized layer weight, in x's dtype, or with
     ``head`` the f32 logits ``x @ W.T`` of a quantized lm head. CUDA
     tensors launch the kernel (bf16 x of at most MAX_ROWS rows) and raise
-    on anything else; CPU tensors run the plain version."""
+    on anything else; CPU tensors run the plain version. ``plan`` is
+    ``kernel_plan(q, s, scheme, head)`` of these very tensors, made once
+    by the caller; without it the call checks the weight itself."""
     device = x.device
     if device.type != "cuda":
         k, _, _ = _layout(q.shape, s.shape, scheme, head)
@@ -255,9 +262,12 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"unsupported device {device}")
     if device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
-            return quant_matmul(x, q, s, scheme, head)
-    fn, k, n, code, group, tiles, spc, ksplit = _plan(q, s, scheme, head,
-                                                      device)
+            return quant_matmul(x, q, s, scheme, head, plan)
+    if plan is None:
+        plan = kernel_plan(q, s, scheme, head)
+    fn, k, n, code, group, tiles, spc, ksplit, index = plan
+    if index != device.index:
+        raise ValueError("x, q and s must be on one CUDA device")
     if x.shape[-1] != k:
         raise ValueError(f"x has {x.shape[-1]} features, the weight "
                          f"contracts {k}")
