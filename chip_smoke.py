@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 The port serves ``llama-3-8b`` at full width and depth (random weights
-from a seed) behind ``InferenceServer`` on three main paths, each run with
+from a seed) behind ``InferenceServer`` on its main paths, each run with
 every kernel's launch count set to 0 just before it and read just after:
 
 - the ragged engine, ``PagedBatcher(ragged=True)``, whose every step runs
@@ -24,6 +24,12 @@ every kernel's launch count set to 0 just before it and read just after:
   --int8`` serves), whose decode steps run every projection and the lm
   head through ``csrc/quant_matmul.cu`` (7 × n_layers + 1 launches a
   step) and whose wider products (admissions) through the wide path;
+- the rest of the paged engine on the alternating engine: the prefix
+  cache (its tails prefill on the gathered view, its decode steps run
+  ``csrc/paged_attention.cu``), the prompt cache (a miss prefills through
+  ``csrc/flash_attention.cu``), the host-RAM swap tier, and KV payloads
+  handed to an alternating and a ragged engine (whose decode runs the
+  paged and the ragged kernel), in process and over ``/kv/*``;
 - training, ``models/train.py``'s ``make_train_step`` (remat "full", loss
   chunk 512, AdamW) at B 1, S 2048, of ``llama-3-8b`` (head dim 128) and
   then ``gemma-2b`` (head dim 256), whose every step runs the flash
@@ -154,7 +160,34 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. HTTP — 4 concurrent ``/v1/completions`` (2 streamed) against the
    server over each bf16 engine; streamed tokens must equal the blocking
    response for the same prompt; then ``/stats`` and a clean stop;
-7. train — the serving model and engines are freed, then llama-3-8b and
+7. prefix and handoff — the rest of the paged engine on the same model,
+   alternating engines of 8 slots, block 16, bucket 512, 64 new tokens:
+   the prefix cache over a pool that evicts nothing (512 blocks) serves
+   16 prompts sharing a 384-token prefix (tails of 8..116 tokens): 360
+   prefix hits, paged decode launches equal to ``_paged_step`` calls ×
+   n_layers and no flash launch (the tails prefill on the gathered
+   view), tokens held to the engine without a cache by phase 5's rule;
+   the prompt cache serves 8 identical prompts with one prefill (n_layers
+   flash launches) and 7 hits; a one-slot pool of 40 usable blocks with a
+   host tier of 32 blocks (64 MiB) serves a prefix, a second one (which
+   demotes the first one's leaves) and the first again: blocks promoted,
+   16 restored tokens each, each promoted block byte-equal to its
+   snapshot before demotion, tokens held to the first round's; engine A
+   exports 4 prompts (200..500 tokens) at their first token, and an
+   alternating engine B, then a ragged one, imports them (every shipped
+   block byte-equal to the payload in B's pool), decodes them (paged
+   decode, or ragged, launches as in phase 5; no prefill) and is held to
+   A's fused run; over HTTP a ``tier_role="prefill"`` server's
+   ``/kv/prefill`` payload streamed by a decode server through
+   ``kv_import`` (its body cap raised to fit) equals a fused server's
+   blocking response, ``/kv/probe`` counts the warmed prefix,
+   ``/kv/chain`` → ``/kv/chain/import`` registers it on a cold server
+   (whose completion then hits it), and ``/stats`` carries the
+   ``prefix_cache``, ``kv_swap`` and ``kv_handoff`` blocks. Smoke numbers,
+   not a benchmark's, beside the card line: cold and prefix-hit admission
+   seconds (median of 5), export and import seconds and MB of the
+   500-token payload, swap-out and swap-in µs a block (medians);
+8. train — the serving model and engines are freed, then llama-3-8b and
    after it gemma-2b, each at full width and depth, train from random
    bf16 weights on batches of a
    numpy corpus through the port's ``TokenLoader``: step 1's loss and
@@ -178,6 +211,7 @@ It prints a ``{"kernels": [...]}`` line, the card line, and last
 
 from __future__ import annotations
 
+import base64
 import collections
 import concurrent.futures
 import contextlib
@@ -2519,6 +2553,379 @@ def http_phase(engine, label: str):
 
 
 # ---------------------------------------------------------------------------
+# Prefix and handoff
+
+
+PREFIX_LEN = 384  # the shared prefix: 24 blocks of 16
+PREFIX_BLOCKS = 512  # llama-3-8b: 1 GiB, a pool that evicts nothing here
+SWAP_BLOCKS = 32  # the host tier: 64 MiB of llama-3-8b blocks
+HANDOFF_LENS = (200, 300, 400, 500)
+ADMIT_ROUNDS = 5
+
+
+def _prefix_engine(params, cfg, **kw):
+    """The alternating engine of this phase (8 slots, block 16, bucket
+    512, 64 new tokens) with ``kw`` on top: the caches, a ragged tier."""
+    kw = {"slots": 8, "num_blocks": PREFIX_BLOCKS, "prompt_bucket": 512,
+          **kw}
+    return PagedBatcher(
+        params, cfg, gen=GenerationConfig(max_new_tokens=64, eos_id=-1),
+        block_size=16, device=DEVICE, **kw)
+
+
+def _synced_seconds(fn, *args, **kwargs):
+    """(fn's result, its seconds between two synchronizations)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def _shared_prefix_prompts(cfg, n: int, seed: int) -> list[list[int]]:
+    """``n`` prompts: one PREFIX_LEN-token prefix, then distinct tails of
+    8..116 tokens."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(3, cfg.vocab_size, size=PREFIX_LEN).tolist()
+    return [prefix + rng.integers(3, cfg.vocab_size, size=int(t)).tolist()
+            for t in np.linspace(8, 116, n).astype(int)]
+
+
+def _block_bytes(engine, blk: int) -> dict:
+    """Every pool leaf's rows of one block, as bytes (bf16 through its
+    16-bit view, as the wire carries it)."""
+    out = {}
+    for name, leaf in engine.pool.items():
+        rows = leaf[:, blk].contiguous().cpu()
+        if rows.dtype == torch.bfloat16:
+            rows = rows.view(torch.int16)
+        out[name] = rows.numpy().tobytes()
+    return out
+
+
+def check_imported_bytes(engine, rid: int, payload: dict) -> int:
+    """Every block the payload ships equals, byte for byte, what
+    ``import_blocks`` left in ``engine``'s pool; returns the blocks
+    checked."""
+    req = next(r for r in engine._by_slot if r is not None and r.rid == rid)
+    checked = 0
+    for j, ent in enumerate(payload["blocks"]):
+        if "data" not in ent:
+            continue
+        got = _block_bytes(engine, req.blocks[j])
+        for name, b64 in ent["data"].items():
+            check(got[name] == base64.b64decode(b64),
+                  f"imported block {j}'s {name} rows differ from the payload")
+        checked += 1
+    return checked
+
+
+def _chain_keys(prompt, block_size: int = 16) -> list[str]:
+    keys, parent = [], None
+    for j in range((len(prompt) - 1) // block_size):
+        parent = PagedBatcher._chain_key(
+            parent, prompt[j * block_size:(j + 1) * block_size])
+        keys.append(parent.hex())
+    return keys
+
+
+def _admission_seconds(engine, prompt) -> float:
+    """One admission pass over a one-token request of ``prompt``: its
+    prefill (or its cache hit), first token and retirement."""
+    engine.submit(prompt, max_new_tokens=1)
+    _, seconds = _synced_seconds(engine._admit_free_slots)
+    check(not engine._pending(), "a one-token request outlived admission")
+    engine.run()
+    return seconds
+
+
+def _prefix_cache_part(params, cfg) -> dict:
+    """16 prompts sharing a 384-token prefix through the prefix cache:
+    hits, launches, tokens against the engine without a cache; then the
+    cold and hit admission seconds."""
+    prompts = _shared_prefix_prompts(cfg, 16, SEED + 1)
+    engine = _prefix_engine(params, cfg, prefix_cache=True)
+    with _counting_calls(paged_mod, "_paged_step",
+                         "_paged_prefix_admit") as calls:
+        _zero_counts()
+        (toks, lps), wall = _synced_seconds(_serve, engine, prompts)
+        counts = _counts()
+    want = (len(prompts) - 1) * (PREFIX_LEN // 16)
+    check(engine.prefix_hits == want,
+          f"{engine.prefix_hits} prefix hits, want {want}")
+    check(engine.prefix_evictions == 0, "the prefix pool evicted")
+    steps = calls["_paged_step"]
+    check(steps > 0 and counts["decode"] == steps * cfg.n_layers,
+          f"{counts['decode']} decode launches for {steps} steps × "
+          f"{cfg.n_layers} layers")
+    check(counts["flash"] == counts["ragged"] == counts["dense"] == 0,
+          f"the prefix engine launched {counts}")
+    _check_outputs(cfg, toks, lps)
+    report = _compare((toks, lps), _serve(_prefix_engine(params, cfg),
+                                          prompts))
+    log(f"  prefix cache: {engine.prefix_hits} hits, "
+        f"{engine.prefix_misses} misses, {calls['_paged_prefix_admit']} "
+        f"tail prefills, {steps} decode steps, {counts['decode']} decode "
+        f"launches, {wall:.3f} s wall; vs no cache (fork -1 = tokens "
+        f"equal): {json.dumps(report)}")
+    rng = np.random.default_rng(SEED + 2)
+    timing = _prefix_engine(params, cfg, prefix_cache=True)
+    cold, hit = [], []
+    for _ in range(ADMIT_ROUNDS):
+        prefix = rng.integers(3, cfg.vocab_size, size=PREFIX_LEN).tolist()
+        tails = rng.integers(3, cfg.vocab_size, size=(2, 64)).tolist()
+        cold.append(_admission_seconds(timing, prefix + tails[0]))
+        hit.append(_admission_seconds(timing, prefix + tails[1]))
+    check(timing.prefix_hits == ADMIT_ROUNDS * (PREFIX_LEN // 16),
+          f"the timed admissions hit {timing.prefix_hits} blocks")
+    return {"prefix_hits": engine.prefix_hits,
+            "decode_launches": counts["decode"],
+            "cold_admit_s": float(np.median(cold)),
+            "hit_admit_s": float(np.median(hit))}
+
+
+def _prompt_cache_part(params, cfg) -> dict:
+    """8 identical prompts through the prompt cache: one prefill, 7 hits,
+    tokens against the engine without a cache."""
+    prompt = _prompts(cfg, 1, 300, 300, SEED + 3)[0]
+    engine = _prefix_engine(params, cfg, prompt_cache=True)
+    with _counting_calls(paged_mod, "_paged_admit", "_paged_step") as calls:
+        _zero_counts()
+        toks, lps = _serve(engine, [prompt] * 8)
+        counts = _counts()
+    admits = calls["_paged_admit"]
+    check(admits == 1, f"{admits} prefills of 8 identical prompts")
+    check(counts["flash"] == cfg.n_layers,
+          f"{counts['flash']} flash launches for one prefill")
+    check(counts["decode"] == calls["_paged_step"] * cfg.n_layers,
+          f"{counts['decode']} decode launches for "
+          f"{calls['_paged_step']} steps")
+    check(len(engine._prompt_cache) == 1 and all(t == toks[0] for t in toks),
+          "the 8 cached prompts decoded apart")
+    _check_outputs(cfg, toks, lps)
+    report = _compare(([toks[0]], [lps[0]]),
+                      _serve(_prefix_engine(params, cfg), [prompt]))
+    log(f"  prompt cache: 8 identical prompts, {admits} prefill, "
+        f"{8 - admits} hits, {counts['flash']} flash launches; vs no cache "
+        f"(fork -1 = tokens equal): {json.dumps(report)}")
+    return {"prompt_cache_hits": 8 - admits, "flash_launches": counts["flash"]}
+
+
+def _swap_part(params, cfg) -> dict:
+    """A one-slot pool too small for two 384-token prefixes, with a host
+    tier of SWAP_BLOCKS blocks: serving the second demotes the first
+    one's leaves, serving the first again promotes them byte-exact."""
+    block = paged_mod._kv_block_bytes(cfg, 16)
+    rng = np.random.default_rng(SEED + 4)
+    a, b = (rng.integers(3, cfg.vocab_size, size=PREFIX_LEN + 8).tolist()
+            for _ in range(2))
+    # 25 blocks hold a prompt, 29 its decode: 40 usable blocks cannot
+    # keep a's 24 cached blocks and serve b.
+    engine = _prefix_engine(params, cfg, slots=1, num_blocks=41,
+                            prefix_cache=True,
+                            swap_bytes=SWAP_BLOCKS * block)
+    seconds = {"out": [], "in": []}
+    swap_out, swap_promote = engine._swap_out, engine._swap_promote
+
+    def timed_out(*args):
+        _, dt = _synced_seconds(swap_out, *args)
+        seconds["out"].append(dt)
+
+    def timed_in(*args):
+        n_out = len(seconds["out"])
+        ent, dt = _synced_seconds(swap_promote, *args)
+        if ent is not None:  # less the demotions its allocation made
+            seconds["in"].append(dt - sum(seconds["out"][n_out:]))
+        return ent
+
+    engine._swap_out, engine._swap_promote = timed_out, timed_in
+    first = _serve(engine, [a])
+    snapshot = {key: _block_bytes(engine, ent["block"])
+                for key, ent in engine._prefix_entries.items()}
+    _serve(engine, [b])
+    demoted = [key for key in snapshot if engine.swap_contains(key)]
+    check(demoted, "serving the second prefix demoted none of the first's")
+    again = _serve(engine, [a])
+    check(engine.kv_swap_in > 0, "serving the first prefix again promoted "
+                                 "nothing")
+    check(engine.kv_swap_restored_tokens == 16 * engine.kv_swap_in,
+          f"{engine.kv_swap_restored_tokens} restored tokens for "
+          f"{engine.kv_swap_in} promotions")
+    promoted = [key for key in demoted if key in engine._prefix_entries]
+    check(len(promoted) == engine.kv_swap_in,
+          f"{len(promoted)} of the first prefix's demoted blocks are back, "
+          f"{engine.kv_swap_in} promoted")
+    for key in promoted:
+        check(_block_bytes(engine, engine._prefix_entries[key]["block"])
+              == snapshot[key], "a promoted block's bytes differ from their "
+                                "snapshot before demotion")
+    _check_outputs(cfg, *again)
+    report = _compare(first, again)
+    log(f"  swap: {engine.kv_swap_out} blocks out, {engine.kv_swap_in} in "
+        f"({engine.kv_swap_restored_tokens} tokens), {len(promoted)} "
+        f"promoted blocks byte-equal; round 3 vs round 1 (fork -1 = tokens "
+        f"equal): {json.dumps(report)}")
+    return {"swap_out": engine.kv_swap_out, "swap_in": engine.kv_swap_in,
+            "swap_out_us_per_block": float(np.median(seconds["out"])) * 1e6,
+            "swap_in_us_per_block": float(np.median(seconds["in"])) * 1e6}
+
+
+def _handoff_part(params, cfg) -> dict:
+    """Engine A (the prefill tier) exports 4 prompts at their first token;
+    an alternating engine B and then a ragged one import and decode them,
+    held to A's fused run."""
+    prompts = [_prompts(cfg, 1, n, n, SEED + 10 + i)[0]
+               for i, n in enumerate(HANDOFF_LENS)]
+    a = _prefix_engine(params, cfg, prefix_cache=True)
+    payloads, export_s = {}, {}
+
+    def export(rid, token):
+        if rid not in payloads:
+            payloads[rid], export_s[rid] = _synced_seconds(a.export_blocks,
+                                                           rid)
+
+    a.on_token = export
+    rids = [a.submit(p, max_new_tokens=1) for p in prompts]
+    a.run()
+    payloads = [payloads[r] for r in rids]
+    fused = _serve(_prefix_engine(params, cfg, prefix_cache=True), prompts)
+    out = {"export_s": export_s[rids[-1]],
+           "payload_mb": len(json.dumps(payloads[-1])) / 1e6}
+    for kind in ("alternating", "ragged"):
+        ragged = kind == "ragged"
+        b = _prefix_engine(params, cfg, prefix_cache=not ragged,
+                           ragged=ragged,
+                           token_budget=512 if ragged else None)
+        bids, import_s, checked = [], [], 0
+        for payload in payloads:
+            rid, dt = _synced_seconds(b.import_blocks, payload)
+            check(rid is not None, f"{kind}: the import found no slot")
+            checked += check_imported_bytes(b, rid, payload)
+            bids.append(rid)
+            import_s.append(dt)
+        with _counting_calls(paged_mod, "_paged_step") as calls:
+            _zero_counts()
+            res = b.run()
+            lps = b.run_logprobs()
+            counts = _counts()
+        got = ([res[r] for r in bids], [lps[r] for r in bids])
+        _check_outputs(cfg, *got)
+        report = _compare(fused, got)
+        if ragged:
+            launched, want = counts["ragged"], b.ragged_steps * cfg.n_layers
+            others = (counts["decode"], counts["flash"], counts["dense"])
+        else:
+            launched = counts["decode"]
+            want = calls["_paged_step"] * cfg.n_layers
+            others = (counts["ragged"], counts["flash"], counts["dense"])
+        check(launched > 0 and launched == want,
+              f"{kind}: {launched} attention launches, want {want}")
+        check(others == (0, 0, 0), f"{kind}: the import tier launched "
+                                   f"{counts}")
+        log(f"  handoff to {kind}: 4 payloads, {checked} blocks byte-equal, "
+            f"{launched} kernel launches; vs A's fused run (fork -1 = "
+            f"tokens equal): {json.dumps(report)}")
+        out[f"{kind}_launches"] = launched
+        if not ragged:
+            out["import_s"] = import_s[-1]
+    return out
+
+
+def _post_json(port: int, path: str, body: dict, timeout: float = 300.0):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _get_json(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def _kv_http_part(params, cfg) -> None:
+    """A prefill-tier server's /kv/prefill payload streamed by a decode
+    server through ``kv_import`` (its body cap raised to fit) equals a
+    fused server's blocking response; /kv/probe counts the warmed prefix,
+    /kv/chain → /kv/chain/import registers it on a cold server, and
+    /stats carries the prefix_cache, kv_swap and kv_handoff blocks."""
+    prompt = _prompts(cfg, 1, 500, 500, SEED + 20)[0]
+    keys = _chain_keys(prompt)
+    cap = 256 << 20
+    swap = SWAP_BLOCKS * paged_mod._kv_block_bytes(cfg, 16)
+    servers = {
+        name: InferenceServer(
+            _prefix_engine(params, cfg, num_blocks=128, **kw), port=0,
+            model_name="llama-3-8b", drain_s=30.0, max_body_bytes=cap,
+            tier_role=role).start()
+        for name, role, kw in (
+            ("prefill", "prefill", {"prefix_cache": True,
+                                    "swap_bytes": swap}),
+            ("decode", "decode", {}),
+            ("fused", "fused", {"prefix_cache": True}),
+            ("cold", "fused", {"prefix_cache": True}))}
+    port = {name: srv.port for name, srv in servers.items()}
+    try:
+        hop = _post_json(port["prefill"], "/kv/prefill", {"prompt": prompt})
+        check(hop["finished"]["tokens"] == [hop["payload"]["pending_token"]],
+              "the prefill hop's token is not its payload's pending token")
+        streamed = _post(port["decode"], {"kv_import": hop["payload"],
+                                          "max_tokens": 16, "stream": True})
+        blocking = _post(port["fused"], {"prompt": prompt, "max_tokens": 16})
+        check(len(blocking) == 16 and streamed == blocking,
+              f"kv_import stream {streamed} != fused {blocking}")
+        probe = _post_json(port["prefill"], "/kv/probe", {"keys": keys})
+        check(probe["matched"] == len(keys),
+              f"/kv/probe matched {probe['matched']} of {len(keys)}")
+        chain = _post_json(port["prefill"], "/kv/chain", {"keys": keys})
+        check(chain["matched"] == len(keys), "/kv/chain fell short")
+        reg = _post_json(port["cold"], "/kv/chain/import",
+                         {"tokens": prompt, "payload": chain["payload"]})
+        check(reg["registered"] == len(keys),
+              f"/kv/chain/import registered {reg['registered']}")
+        _post(port["cold"], {"prompt": prompt, "max_tokens": 4})
+        cold = _get_json(port["cold"], "/stats")["prefix_cache"]
+        check(cold["hits"] == len(keys),
+              f"the cold server's completion hit {cold['hits']} blocks")
+        stats = _get_json(port["prefill"], "/stats")
+        missing = [k for k in ("prefix_cache", "kv_swap", "kv_handoff")
+                   if k not in stats]
+        check(not missing and stats["tier_role"] == "prefill",
+              f"/stats lacks {missing}")
+        check(stats["kv_handoff"]["exports"] == 1
+              and stats["kv_handoff"]["chain_exports"] == 1,
+              f"/stats kv_handoff {stats['kv_handoff']}")
+        log(f"  HTTP: /kv/prefill payload streamed through kv_import = the "
+            f"fused response; /kv/probe matched {probe['matched']}; "
+            f"/kv/chain/import registered {reg['registered']}; /stats "
+            f"prefix_cache={stats['prefix_cache']} "
+            f"kv_handoff={stats['kv_handoff']}")
+    finally:
+        for srv in servers.values():
+            srv.stop()
+
+
+def prefix_phase(params, cfg, card: str) -> dict:
+    """Phase 7: the prefix and prompt caches, the swap tier, the KV
+    handoff in process and over HTTP, on the serving model. Returns the
+    launch counts and smoke numbers; the phase's engines are freed on
+    return."""
+    out = {**_prefix_cache_part(params, cfg),
+           **_prompt_cache_part(params, cfg),
+           **_swap_part(params, cfg),
+           **_handoff_part(params, cfg)}
+    _kv_http_part(params, cfg)
+    numbers = {k: out[k] for k in (
+        "cold_admit_s", "hit_admit_s", "export_s", "import_s", "payload_mb",
+        "swap_out_us_per_block", "swap_in_us_per_block")}
+    log(f"  smoke numbers (a 500-token payload; not a benchmark) on {card}: "
+        f"{json.dumps(numbers)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Train
 
 
@@ -2765,7 +3172,7 @@ def main() -> int:
     t_start = time.monotonic()
     phases = {}
 
-    log("[1/7] card")
+    log("[1/8] card")
     smi = subprocess.run(
         ["nvidia-smi", "-i", card_id, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -2779,7 +3186,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     phases["card"] = time.monotonic() - t_start
 
-    log("[2/7] build")
+    log("[2/8] build")
     t0 = time.monotonic()
     seconds = _build.build()
     for name, took in seconds.items():
@@ -2790,7 +3197,7 @@ def main() -> int:
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
 
-    log("[3/7] kernel vs plain")
+    log("[3/8] kernel vs plain")
     t0 = time.monotonic()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
@@ -2800,7 +3207,7 @@ def main() -> int:
     quant_errors = quant_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
-    log("[4/7] timing at the main-path shapes")
+    log("[4/8] timing at the main-path shapes")
     t0 = time.monotonic()
     times = timing()
     flash_times = timing_flash()
@@ -2810,7 +3217,7 @@ def main() -> int:
     quant_times = timing_quant()
     phases["timing"] = time.monotonic() - t0
 
-    log("[5/7] engines: llama-3-8b, full width and depth, random weights")
+    log("[5/8] engines: llama-3-8b, full width and depth, random weights")
     t0 = time.monotonic()
     cfg = L.LLAMA_CONFIGS["llama-3-8b"]
     params = L.init_params(
@@ -2824,14 +3231,19 @@ def main() -> int:
     quant_rows = quant_engine_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
-    log("[6/7] HTTP")
+    log("[6/8] HTTP")
     t0 = time.monotonic()
     http_phase(engine, "ragged")
     http_phase(alt_engine, "alternating")
     http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
-    log(f"[7/7] train: {', '.join(TRAIN_MODELS)}")
+    log("[7/8] prefix and handoff")
+    t0 = time.monotonic()
+    prefix = prefix_phase(params, cfg, card)
+    phases["prefix"] = time.monotonic() - t0
+
+    log(f"[8/8] train: {', '.join(TRAIN_MODELS)}")
     t0 = time.monotonic()
     # The serving model, engines and pools go first: training needs ~66 GB.
     del params, engine, alt_engine, cont_engine
@@ -2956,6 +3368,15 @@ def main() -> int:
                         "idle_share": v["trace"]["idle_share"]}
                     for k, v in quant_rows.items()},
     })
+    # Phase 7's runs, each counted from 0 just before it.
+    for k in kernels:
+        if k["name"] == "paged_decode_attention":
+            k["launches_prefix_cache"] = prefix["decode_launches"]
+            k["launches_handoff"] = prefix["alternating_launches"]
+        elif k["name"] == "flash_attention":
+            k["launches_prompt_cache"] = prefix["flash_launches"]
+        elif k["name"] == "ragged_paged_attention" and k["variant"] == "bf16":
+            k["launches_handoff"] = prefix["ragged_launches"]
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     print(json.dumps({"kernels": kernels}))

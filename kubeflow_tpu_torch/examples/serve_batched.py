@@ -14,12 +14,14 @@ at most one of them); with none given, KUBEFLOW_TPU_QUANT (the notebook's
 int4 groups 128 contraction values, as the JAX entry point does; a config
 whose projections that group cannot split (the ``tiny`` ones, 128 wide)
 exits with the JAX message. ``--kv8`` stores the KV cache as int8.
+``--prompt-cache`` (identical prompts share their blocks) and
+``--prefix-cache`` (common prefixes share blocks, only the tail is
+prefilled) reach the ``--paged`` engine, at most one of them, as in JAX.
 
 What the port lacks is refused before any weight is made, naming the
 ROADMAP queue-1 item that brings it: ``--checkpoint`` and ``--prompt``
 (item 12, ``models/convert.py`` and its tokenizer), ``--speculative``
-(item 8), ``--prompt-cache`` and ``--prefix-cache`` (item 7), ``--tp``
-above 1 (item 11) and ``--sp`` above 1 (item 13).
+(item 8), ``--tp`` above 1 (item 11) and ``--sp`` above 1 (item 13).
 """
 
 from __future__ import annotations
@@ -36,8 +38,6 @@ def _refusals(args) -> None:
          "text prompts (they need --checkpoint's tokenizer, "
          "models/convert.py)", 12),
         (args.speculative, "--speculative", "speculative serving", 8),
-        (args.prompt_cache, "--prompt-cache", "the prompt cache", 7),
-        (args.prefix_cache, "--prefix-cache", "the prefix cache", 7),
         (args.tp > 1, "--tp", "tensor-parallel serving", 11),
         (args.sp > 1, "--sp", "sequence-parallel KV shards", 13),
     )
@@ -68,8 +68,13 @@ def main(argv=None) -> None:
     ap.add_argument("--speculative", type=int, default=0, metavar="N")
     ap.add_argument("--num-blocks", type=int, default=64,
                     help="block-pool size for --paged (16-token blocks)")
-    ap.add_argument("--prompt-cache", action="store_true")
-    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--prompt-cache", action="store_true",
+                    help="(--paged) share identical prompts' KV blocks "
+                         "and skip their re-prefill")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="(--paged) position-0-anchored admission: share "
+                         "common PREFIX blocks across different-length "
+                         "prompts, prefill only the unmatched tail")
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--sp", type=int, default=1)
     ap.add_argument("--max-new-tokens", type=int, default=16)
@@ -78,6 +83,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if sum((args.int8, args.int4, args.fp8)) > 1:
         raise SystemExit("--int8/--int4/--fp8 are mutually exclusive")
+    if args.prompt_cache and args.prefix_cache:
+        raise SystemExit("--prompt-cache and --prefix-cache are mutually "
+                         "exclusive (prefix subsumes identical prompts)")
     _refusals(args)
 
     import numpy as np
@@ -129,7 +137,8 @@ def main(argv=None) -> None:
         pb = PagedBatcher(
             params, cfg, gen=gen, slots=min(4, len(prompts)),
             num_blocks=args.num_blocks, block_size=16, prompt_bucket=bucket,
-            kv_bits=kv_bits, device=device,
+            kv_bits=kv_bits, prompt_cache=args.prompt_cache,
+            prefix_cache=args.prefix_cache, device=device,
         )
         rids = [pb.submit(p) for p in prompts]
         results = pb.run()

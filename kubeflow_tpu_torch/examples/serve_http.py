@@ -14,7 +14,11 @@ through the dense decode kernel). ``--paged`` serves ``PagedBatcher``:
 KUBEFLOW_TPU_SERVING_RAGGED=1 the ragged engine, unset or 0 the
 alternating one, with KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET,
 KUBEFLOW_TPU_KV_BITS and KUBEFLOW_TPU_HBM_FRACTION as in JAX.
-KUBEFLOW_TPU_SERVING_PORT applies to both. Weights are a random init from
+KUBEFLOW_TPU_SERVING_PORT applies to both. KUBEFLOW_TPU_KV_SWAP_BYTES > 0
+gives the paged engine a host-RAM swap tier of that many bytes and turns
+its prefix cache on, as in JAX (a swap tier holds demoted prefix leaves);
+on the ragged engine the engine refuses that pair with the JAX message.
+Weights are a random init from
 ``--seed`` on the card (``--device cpu`` serves on the CPU); the model
 serves token ids. ``--int8`` quantizes the projections and the lm head to
 int8 (``models/quant.py``, releasing each bf16 source as its copy lands),
@@ -25,11 +29,10 @@ Every serving knob the JAX entry point reads is honored or refused here,
 before any weight is made: garbage in any of them exits with the JAX
 message, and a knob asking for what the port lacks exits naming the
 ROADMAP queue-1 item that brings it: KUBEFLOW_TPU_SERVING_TP > 1 (item
-11), and under ``--paged`` KUBEFLOW_TPU_SPEC_DRAFT_LEN > 0 (item 8; on the
-alternating engine the JAX "needs the ragged engine" exit comes first)
-and KUBEFLOW_TPU_KV_SWAP_BYTES > 0 (item 7). KUBEFLOW_TPU_LORA_CACHE_SLOTS
-is parsed under ``--paged`` and, when nonzero, only noted, as in JAX: it
-sizes multi-LoRA engines (item 8).
+11) and under ``--paged`` KUBEFLOW_TPU_SPEC_DRAFT_LEN > 0 (item 8; on the
+alternating engine the JAX "needs the ragged engine" exit comes first).
+KUBEFLOW_TPU_LORA_CACHE_SLOTS is parsed under ``--paged`` and, when
+nonzero, only noted, as in JAX: it sizes multi-LoRA engines (item 8).
 """
 
 from __future__ import annotations
@@ -65,7 +68,6 @@ def _paged_knobs() -> tuple[bool, Optional[int], dict]:
     a knob that asks for what the port lacks; prints the JAX notice for a
     nonzero KUBEFLOW_TPU_LORA_CACHE_SLOTS."""
     from kubeflow_tpu_torch.models.server import (
-        KUBEFLOW_TPU_KV_SWAP_BYTES,
         KUBEFLOW_TPU_SERVING_RAGGED,
         KUBEFLOW_TPU_SPEC_DRAFT_LEN,
         kv_pool_from_env,
@@ -95,11 +97,6 @@ def _paged_knobs() -> tuple[bool, Optional[int], dict]:
             f"{KUBEFLOW_TPU_SPEC_DRAFT_LEN}={draft_len}: speculative "
             "decoding is not ported to PyTorch yet (ROADMAP queue 1 item "
             "8); unset it or set it to 0")
-    if kv_kw.get("swap_bytes", 0) > 0:
-        raise SystemExit(
-            f"{KUBEFLOW_TPU_KV_SWAP_BYTES}={kv_kw['swap_bytes']}: the "
-            "host-RAM swap tier is not ported to PyTorch yet (ROADMAP queue "
-            "1 item 7); unset it or set it to 0")
     return ragged, token_budget, kv_kw
 
 
@@ -175,7 +172,9 @@ def main(argv=None) -> None:
             params, cfg, gen=gen, slots=args.slots,
             num_blocks=args.num_blocks, block_size=args.block_size,
             prompt_bucket=args.prompt_bucket, ragged=ragged,
-            token_budget=token_budget, device=device, **kv_kw,
+            token_budget=token_budget,
+            prefix_cache=kv_kw.get("swap_bytes", 0) > 0,
+            device=device, **kv_kw,
         )
         kind = f"{'ragged' if ragged else 'alternating'} paged"
     else:

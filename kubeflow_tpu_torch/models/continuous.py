@@ -219,6 +219,9 @@ class _Request:
     # Paged engine: physical block ids this request holds, in position
     # order.
     blocks: list[int] = dataclasses.field(default_factory=list)
+    # Paged engine: the blocks of ``blocks`` held through a cache
+    # (refcounted, freed by the last holder), not owned.
+    shared: frozenset = frozenset()
     # Absolute monotonic deadline (None = none); an expired request
     # retires through the abort path at its next emitted token.
     deadline: Optional[float] = None

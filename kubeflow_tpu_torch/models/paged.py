@@ -24,25 +24,48 @@ Two schedules, as in JAX:
   (``_paged_step``) runs every slot's next token, attending through
   ``ops/paged_attention.py``'s paged decode for a bf16 pool with
   ``attn_kernel``, else through the gathered view and
-  ``_gqa_decode_attention`` (int8 pools, and the CPU).
+  ``_gqa_decode_attention`` (int8 pools, sliding-window configs, and the
+  CPU).
 
 Each kernel's wrapper launches the CUDA kernel on the card and runs its
-plain version on the CPU.
+plain version on the CPU. Sliding-window configs keep every attention on
+the gathered view, where the window bound lives (``attn_kernel`` defaults
+off for them and refuses True), on both engines.
+
+Two opt-in prompt-reuse tiers of the alternating engine, as in JAX:
+``prompt_cache=True`` shares identical padded prompts' blocks and first
+logits; ``prefix_cache=True`` admits position-0-ANCHORED (token i at
+position i) and shares common prefixes block by block through a chain
+hash (``_chain_key``), prefilling only the unmatched tail through the
+tables (``_paged_prefix_admit``, in ``admit_chunk`` pieces, on the
+gathered view: a chunk of more than one row never reaches the decode
+kernel). ``swap_bytes`` > 0 demotes evicted prefix leaves to host memory
+(LRU within the byte budget) and promotes them back on a chain hit.
+``export_blocks``/``import_blocks`` carry a live request's prompt KV
+between replicas (disaggregated serving) and
+``export_chain``/``import_chain`` a cached chain (the fleet's peer prefix
+tier), in the JAX package's version-1 wire format byte for byte: leaf
+dtypes under JAX's names, each block's ``(L, Hkv, BS[, D])`` rows as
+base64 of C-order bytes (bf16 through a 16-bit integer view).
 
 The pool keeps the JAX package's stacked layout, ``(L, NB, Hkv, BS, D)``
 per leaf (plus ``(L, NB, Hkv, BS)`` bf16 scale leaves for ``kv_bits=8``),
-because it is the wire format later engines export. PyTorch has no buffer
-donation, so the steps update the pool IN PLACE instead of returning a
-new one. Block tables, positions and the allocator are host numpy and
-plain Python between steps; block 0 is the null block, never allocated.
+because it is the wire format. PyTorch has no buffer donation, so the
+steps, swap promotion and imports update the pool IN PLACE instead of
+returning a new one; a block they write is always a freshly taken one,
+never one a running request holds. Block tables, positions and the
+allocator are host numpy and plain Python between steps; block 0 is the
+null block, never allocated.
 
-Not ported yet: the prompt and prefix caches, the host-RAM swap tier, KV
-export/import, tensor-parallel plans, adapters and sliding-window
-configs. Each raises ``NotImplementedError``.
+Not ported yet: tensor-parallel plans (``plan=``) and adapters (a payload
+whose ``adapter`` is not null is refused).
 """
 
 from __future__ import annotations
 
+import base64
+import hashlib
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -138,24 +161,23 @@ def pool_blocks_from_hbm(
 def _scatter_chunk(pool_l: dict, k: torch.Tensor, v: torch.Tensor,
                    blks: torch.Tensor, offs: torch.Tensor) -> None:
     """Scatter a (B, Hkv, K, D) chunk into (block, offset) per token, IN
-    PLACE. ``pool[bj, :, oj] = k[:, :, j]`` keeps numpy's advanced-index
-    semantics (the (B,) index axes come first). Requests own disjoint
-    blocks, so live rows never collide. Scale leaves present → quantize
-    on write (int8 KV)."""
+    PLACE: one indexed write per leaf for the whole chunk,
+    ``pool[blks, :, offs] = rows`` (numpy's advanced-index semantics put
+    the (B·K,) token axis first), where JAX unrolls one write per chunk
+    column. A chunk's live tokens own distinct cells (requests own
+    disjoint blocks, a chunk's positions differ), so the order of writes
+    is immaterial; only the ragged step's tail pads share a cell, in the
+    null block. Scale leaves present → quantize on write (int8 KV)."""
+    news = {"k": k, "v": v}
     if "k_scale" in pool_l:
-        kq, ks = _kv_quantize(k)
-        vq, vs = _kv_quantize(v)
-        for j in range(blks.shape[1]):
-            bj, oj = blks[:, j], offs[:, j]
-            pool_l["k"][bj, :, oj] = kq[:, :, j]
-            pool_l["v"][bj, :, oj] = vq[:, :, j]
-            pool_l["k_scale"][bj, :, oj] = ks[:, :, j]
-            pool_l["v_scale"][bj, :, oj] = vs[:, :, j]
-    else:
-        for j in range(blks.shape[1]):
-            bj, oj = blks[:, j], offs[:, j]
-            pool_l["k"][bj, :, oj] = k[:, :, j]
-            pool_l["v"][bj, :, oj] = v[:, :, j]
+        (news["k"], news["k_scale"]), (news["v"], news["v_scale"]) = (
+            _kv_quantize(k), _kv_quantize(v))
+    bi, oi = blks.reshape(-1), offs.reshape(-1)
+    for name, new in news.items():
+        # (B, Hkv, K[, D]) → (B·K, Hkv[, D]), token-major as bi and oi.
+        rows = new.transpose(1, 2).reshape(-1, *new.shape[1:2],
+                                           *new.shape[3:])
+        pool_l[name][bi, :, oi] = rows
 
 
 def _chunk_coords(cfg: LlamaConfig, tables: torch.Tensor,
@@ -252,19 +274,26 @@ def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
                       attn_positions, block_size: int,
                       attn_kernel: bool = False,
                       ragged: Optional[tuple] = None) -> torch.Tensor:
-    """The layer loop of a paged step: per layer, scatter the batch's K/V
-    into the pool (in place) BEFORE attention reads it, then attend.
+    """The layer loop of a paged step: per layer, scatter the batch's
+    (B, K) chunk of K/V into the pool (in place) BEFORE attention reads
+    it, then attend through ``tables`` at ``attn_positions``.
 
-    ``ragged = (seq_starts, seq_lens, kv_lens, tables, kv_mask)``: the
-    per-SEQUENCE metadata of a flattened mixed batch, attended by the
-    ragged kernel's wrapper with ``attn_kernel``, else its plain version
-    (``tables``/``kv_mask``/``attn_positions`` are then unused). Without
-    it, one token per slot: ``attn_kernel`` reads the pool through
-    ``tables`` with the paged decode kernel's wrapper (bf16 pools only:
-    the constructor keeps it off for int8 pools, and the wrapper raises on
-    one); otherwise the gathered view goes through
-    ``_gqa_decode_attention``. Returns the hidden states (B, 1, dim)."""
+    ``ragged = (seq_starts, seq_lens, kv_lens, seq_tables, seq_mask)``:
+    the per-SEQUENCE metadata of a flattened mixed batch (K = 1, the
+    ``tables``/``kv_mask`` per token), attended by the ragged kernel's
+    wrapper with ``attn_kernel``, else by its plain version. Without it,
+    ``attn_kernel`` reads the pool through ``tables`` with the paged
+    decode kernel's wrapper (bf16 pools only: the constructor keeps it off
+    for int8 pools, and the wrapper raises on one). The kernels take one
+    row a slot and no window, as in JAX: a chunk of K > 1 rows (a prefix
+    admission) and a sliding-window config go through the gathered view
+    and ``_gqa_decode_attention`` whatever ``attn_kernel`` says, and so
+    does everything without it. Returns the hidden states (B, K, dim)."""
     x = _embed(params, cfg, tokens)
+    use_kernel = (
+        attn_kernel and tokens.shape[1] == 1 and not cfg.sliding_window
+        and (ragged is not None or "k_scale" not in pool)
+    )
 
     def gathered(leaf):
         return _gathered_view(leaf, tables, cfg.n_kv_heads, block_size,
@@ -279,9 +308,11 @@ def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
                        per_batch=True)
         v = _split_heads(hv, cfg.n_kv_heads)
         _scatter_chunk(pool_l, k, v, blks, offs)
-        if ragged is not None:
+        if ragged is not None and not cfg.sliding_window:
+            # The plain ragged attention has no window: a windowed config
+            # takes the per-token gathered view below, as JAX's does.
             seq_starts, seq_lens, kv_lens, seq_tables, seq_mask = ragged
-            attend = (ragged_paged_attention if attn_kernel
+            attend = (ragged_paged_attention if use_kernel
                       else ragged_attention_reference)
             attn = attend(
                 q[:, :, 0, :], pool_l["k"], pool_l["v"], seq_tables, seq_mask,
@@ -289,7 +320,7 @@ def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
                 k_scale_pool=pool_l.get("k_scale"),
                 v_scale_pool=pool_l.get("v_scale"),
             )[:, :, None, :]
-        elif attn_kernel:
+        elif use_kernel:
             attn = paged_decode_attention(
                 q[:, :, 0, :], pool_l["k"], pool_l["v"], tables, kv_mask,
                 attn_positions + 1, block_size,
@@ -347,9 +378,11 @@ def _paged_ragged_step(
     # block, or they would overwrite slot 0's live KV.
     tok_valid = torch.arange(tokens.shape[0], device=tokens.device) < n_tokens
     blks = torch.where(tok_valid[:, None], blks, 0)
+    # The per-token view (each row its slot's table and mask, at its own
+    # position) is what a sliding-window config attends through.
     x = _paged_chunk_scan(
-        params, cfg, tokens, pool, None, None, cos, sin, blks, offs, None,
-        block_size, attn_kernel=attn_kernel,
+        params, cfg, tokens, pool, tok_tables, kv_mask[tok_seq], cos, sin,
+        blks, offs, posmat, block_size, attn_kernel=attn_kernel,
         ragged=(seq_starts, seq_lens, kv_lens, tables, kv_mask),
     )
     # Logits only at each slot's last row: the lm head runs S wide.
@@ -358,10 +391,68 @@ def _paged_ragged_step(
     return _sample_rows(logits, generator, temps, top_k, top_p, bias)
 
 
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (it comes with {where})"
-    )
+@torch.no_grad()
+def _paged_prefix_admit(
+    params: Llama,
+    cfg: LlamaConfig,
+    chunk: torch.Tensor,     # (1, Kp) tail tokens, right-padded
+    pool: dict,              # updated in place
+    table: torch.Tensor,     # (1, MAXB) the slot's table, prefix filled
+    pos0: int,               # first tail position (a block multiple)
+    kv_mask: torch.Tensor,   # (1, MAXB * BS)
+    last_idx: int,           # the last REAL token's index in the chunk
+    block_size: int,
+) -> torch.Tensor:
+    """Tail prefill THROUGH the block table (prefix-cached admission):
+    the (1, Kp) chunk is decoded at positions ``pos0..pos0+Kp-1`` and
+    attends the shared prefix blocks through the table, chunk-causal, on
+    the gathered view. Right-padding needs no mask: pads sit at FUTURE
+    positions, invisible to every real row, and decode overwrites each
+    before any query reaches it. Returns the logits (V,) at
+    ``last_idx``."""
+    posmat = pos0 + torch.arange(chunk.shape[1], device=chunk.device)[None, :]
+    table = table.long()
+    cos, sin, blks, offs = _chunk_coords(cfg, table, posmat, block_size)
+    x = _paged_chunk_scan(params, cfg, chunk, pool, table, kv_mask, cos, sin,
+                          blks, offs, posmat, block_size)
+    x_last = _norm(x[0, last_idx], params.final_norm, cfg)
+    return _lm_head_logits(x_last[None], params)[0]
+
+
+# The wire format's leaf dtypes, under the JAX package's names, with the
+# numpy type that carries each one's bytes (numpy has no bf16: a 16-bit
+# integer view carries it bit for bit).
+_WIRE_DTYPES = {
+    torch.bfloat16: ("bfloat16", np.int16),
+    torch.float32: ("float32", np.float32),
+    torch.int8: ("int8", np.int8),
+}
+_CARRIERS = {torch.bfloat16: torch.int16}
+
+
+def _wire_dtype(leaf: torch.Tensor) -> str:
+    return _WIRE_DTYPES[leaf.dtype][0]
+
+
+def _rows_b64(rows: torch.Tensor) -> str:
+    """One block's (L, Hkv, BS[, D]) rows → base64 of their C-order
+    bytes."""
+    rows = rows.contiguous()
+    rows = rows.view(_CARRIERS.get(rows.dtype, rows.dtype))
+    return base64.b64encode(rows.numpy().tobytes()).decode("ascii")
+
+
+def _rows_from_b64(data: str, dtype: torch.dtype, shape: tuple) -> np.ndarray:
+    """Inverse of ``_rows_b64``: the block's rows as a numpy array of the
+    leaf's carrier type."""
+    carrier = _WIRE_DTYPES[dtype][1]
+    return np.frombuffer(base64.b64decode(data), dtype=carrier).reshape(shape)
+
+
+def _carried_to_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Carrier-typed numpy rows → a CPU tensor of the leaf's dtype."""
+    t = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    return t.view(dtype) if dtype in _CARRIERS else t
 
 
 class PagedBatcher(_BatcherBase):
@@ -377,13 +468,16 @@ class PagedBatcher(_BatcherBase):
     ``attn_kernel`` picks the decode attention: None runs the CUDA kernel
     on the card (the ragged kernel, or for ``ragged=False`` the paged
     decode kernel, which reads bf16 pools only, so it defaults off for
-    ``kv_bits=8``) and the plain attention on the CPU; True on the CPU
-    raises, as does True with ``kv_bits`` and no ``ragged``; False on the
-    card runs the plain attention (for comparing the two). Admission
-    prefills always go through ``flash_attention(impl="auto")``. Sampled
-    rows draw from ``generator`` (a seeded ``torch.Generator`` on the
-    device; seed 0 when None), so they cannot match JAX's draws bit for
-    bit.
+    ``kv_bits=8``; both default off for sliding-window configs) and the
+    plain attention on the CPU; True on the CPU raises, as do True with
+    ``kv_bits`` and no ``ragged`` and True with a sliding window; False on
+    the card runs the plain attention (for comparing the two). Admission
+    prefills always go through ``flash_attention(impl="auto")``; prefix-
+    cached admissions through the gathered view. ``prompt_cache``,
+    ``prefix_cache`` (with ``admit_chunk``) and ``swap_bytes`` keep the
+    JAX semantics and messages. Sampled rows draw from ``generator`` (a
+    seeded ``torch.Generator`` on the device; seed 0 when None), so they
+    cannot match JAX's draws bit for bit.
     """
 
     def __init__(
@@ -398,28 +492,22 @@ class PagedBatcher(_BatcherBase):
         generator: Optional[torch.Generator] = None,
         plan=None,
         kv_bits: int = 0,  # 8 → int8 block pool (halved KV bytes)
-        prompt_cache: bool = False,
-        prefix_cache: bool = False,
-        attn_kernel: Optional[bool] = None,  # CUDA ragged attention kernel
+        prompt_cache: bool = False,  # share identical prompts' blocks
+        prefix_cache: bool = False,  # share common PREFIXES block by block
+        admit_chunk: Optional[int] = None,  # prefix-admission piece width
+        attn_kernel: Optional[bool] = None,  # CUDA attention kernels
         ragged: bool = False,  # fused mixed prefill/decode batches
         token_budget: Optional[int] = None,  # ragged rows per step
         hbm_fraction: Optional[float] = None,  # size pool from device memory
-        swap_bytes: int = 0,
+        swap_bytes: int = 0,  # host-RAM swap tier for cold prefix chains
         device=None,
     ):
         self.gen = gen or GenerationConfig()
         if plan is not None:
-            raise _not_ported("plan= (tensor-parallel serving)",
-                              "tensor-parallel replicas")
-        if prompt_cache or prefix_cache:
-            raise _not_ported("prompt_cache/prefix_cache",
-                              "the rest of the paged engine")
-        if swap_bytes:
-            raise _not_ported("swap_bytes (the host-RAM swap tier)",
-                              "the rest of the paged engine")
-        if cfg.sliding_window:
-            raise _not_ported("sliding-window attention",
-                              "the rest of the paged engine")
+            raise NotImplementedError(
+                "plan= (tensor-parallel serving) is not ported to PyTorch "
+                "yet (ROADMAP queue 1 item 11)"
+            )
         self.device = resolve_device(device)
         if attn_kernel and kv_bits and not ragged:
             raise ValueError(
@@ -429,6 +517,12 @@ class PagedBatcher(_BatcherBase):
                 "kernel dequantizes int8 pools: add ragged=True or drop "
                 "one of the two"
             )
+        if attn_kernel and cfg.sliding_window:
+            raise ValueError(
+                "attn_kernel=True does not support sliding-window "
+                "configs (the window bound lives in the gathered path) "
+                "— drop attn_kernel for this model"
+            )
         if attn_kernel and self.device.type != "cuda":
             raise ValueError(
                 "attn_kernel=True needs the CUDA card; on device='cpu' the "
@@ -436,6 +530,7 @@ class PagedBatcher(_BatcherBase):
             )
         self.attn_kernel = (
             self.device.type == "cuda" and (not kv_bits or ragged)
+            and not cfg.sliding_window
             if attn_kernel is None else bool(attn_kernel)
         )
         if params.device != self.device:
@@ -448,7 +543,30 @@ class PagedBatcher(_BatcherBase):
                 f"prompt_bucket {prompt_bucket} must be a multiple of "
                 f"block_size {block_size}"
             )
+        if admit_chunk is None:
+            # ~256 tokens, rounded up to a block multiple so the default
+            # is valid for any block_size (it only matters on the
+            # prefix_cache admission path).
+            admit_chunk = max(block_size, -(-256 // block_size) * block_size)
+        elif prefix_cache and (admit_chunk % block_size or admit_chunk <= 0):
+            raise ValueError(
+                f"admit_chunk {admit_chunk} must be a positive multiple "
+                f"of block_size {block_size}"
+            )
+        if prompt_cache and prefix_cache:
+            raise ValueError(
+                "prompt_cache and prefix_cache are mutually exclusive: "
+                "prefix_cache subsumes whole-prompt sharing (identical "
+                "prompts share all their full blocks) under the "
+                "position-0-anchored layout"
+            )
         if ragged:
+            if prompt_cache or prefix_cache:
+                raise ValueError(
+                    "ragged=True does not compose with prompt_cache/"
+                    "prefix_cache yet — the sharing tiers admit through "
+                    "their own prefill programs; drop one of the two"
+                )
             if token_budget is None:
                 token_budget = 512
             if token_budget < slots:
@@ -501,6 +619,56 @@ class PagedBatcher(_BatcherBase):
         # Block 0 is the NULL block, never allocated: inactive slots keep
         # tables=0/positions=0, so their ignored writes land there.
         self._free = list(range(1, num_blocks))
+        # Prompt cache: identical PADDED prompts share their prompt blocks
+        # and first logits. Decode writes only land at positions >= the
+        # (block-aligned) bucket, so shared blocks are never written.
+        # Entries are evicted before the allocator preempts.
+        self._prompt_cache_enabled = prompt_cache
+        self._prompt_cache: dict = {}  # (padded, mask) bytes -> entry
+        self._shared_refs: dict = {}  # block -> cache hold + active users
+        # Prefix cache: position-0-anchored admission makes a common
+        # prefix occupy identical blocks at identical positions across
+        # prompts of any length, so full prompt blocks are content-
+        # addressed by the chain hash and shared. The block of the LAST
+        # prompt token is never registered (decode writes it, and a
+        # full-chain hit would leave no tail to take logits from). Only
+        # chain LEAVES are evictable.
+        self._prefix_cache_enabled = prefix_cache
+        self._prefix_entries: dict = {}  # chain key -> block/parent/children
+        # Counted over registrable prompt blocks at committed admissions
+        # (a hit is a block whose prefill was skipped).
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_evictions = 0
+        self.admit_chunk = admit_chunk
+        # Host-RAM swap tier: a demoted prefix leaf's rows are copied to
+        # host tensors under the same chain key, within a byte budget
+        # with LRU demotion; a chain walk that misses the pool but hits
+        # here promotes the block back (a prefix hit: its prefill is
+        # skipped). The parent key rides along so promotion can refuse a
+        # chain that no longer matches.
+        if swap_bytes < 0:
+            raise ValueError(f"swap_bytes must be >= 0, got {swap_bytes}")
+        self.swap_bytes_limit = int(swap_bytes)
+        self._swap: "OrderedDict[bytes, dict]" = OrderedDict()
+        self.swap_bytes_used = 0
+        self.kv_swap_out = 0
+        self.kv_swap_in = 0
+        self.kv_swap_restored_tokens = 0
+        # KV handoff (disaggregated serving): lifetime counters, plus the
+        # imported requests' first tokens, delivered at the next
+        # admission pass (after the serving frontend has registered the
+        # request).
+        self.kv_exports = 0
+        self.kv_imports = 0
+        self.kv_import_blocks_reused = 0
+        self.kv_import_blocks_written = 0
+        self._kv_pending_first: list[tuple] = []
+        # Peer prefix tier: cache-chain export/import counters.
+        self.kv_chain_exports = 0
+        self.kv_chain_imports = 0
+        self.kv_chain_blocks_sent = 0
+        self.kv_chain_blocks_written = 0
         self._init_base(self.gen, slots, prompt_bucket)
 
     @property
@@ -510,13 +678,16 @@ class PagedBatcher(_BatcherBase):
     # -- allocator ---------------------------------------------------------
 
     def _take_blocks(self, n: int, preempt: bool = True) -> Optional[list[int]]:
-        """n blocks off the free list. With ``preempt`` (the DECODE path:
-        a running request needs its next block) the youngest active
-        request is evicted until the pool can supply n; the ADMISSION path
-        passes preempt=False and waits for retirements instead (evicting a
+        """n blocks off the free list. Idle cached blocks yield first
+        (``_evict_cached``). Then, with ``preempt`` (the DECODE path: a
+        running request needs its next block), the youngest active request
+        is evicted until the pool can supply n; the ADMISSION path passes
+        preempt=False and waits for retirements instead (evicting a
         running request to admit a queued one thrashes). None when the
         pool cannot supply n under the given policy."""
         while len(self._free) < n:
+            if self._evict_cached():
+                continue
             if not preempt:
                 return None
             victim = self._youngest_active()
@@ -526,15 +697,138 @@ class PagedBatcher(_BatcherBase):
         taken, self._free = self._free[:n], self._free[n:]
         return taken
 
+    def _evict_cached(self) -> bool:
+        """Free one cache-held block set, whichever cache is on."""
+        if self._prompt_cache_enabled:
+            return self._evict_cached_prompt()
+        if self._prefix_cache_enabled:
+            return self._evict_prefix_leaf()
+        return False
+
+    def _evict_prefix_leaf(self) -> bool:
+        """Drop one prefix-chain LEAF no active request references
+        (refcount 1, the cache's own hold), returning its block. Leaf-only:
+        matching walks parent to child, so an evicted middle link would
+        orphan its tail. Insertion order is the LRU order (hits re-append
+        their chain). With a swap budget the leaf is demoted to host
+        memory first."""
+        for key, ent in self._prefix_entries.items():
+            if (ent["children"] == 0
+                    and self._shared_refs.get(ent["block"], 0) == 1):
+                if self.swap_bytes_limit:
+                    self._swap_out(key, ent)
+                del self._prefix_entries[key]
+                del self._shared_refs[ent["block"]]
+                self._free.append(ent["block"])
+                if ent["parent"] is not None:
+                    self._prefix_entries[ent["parent"]]["children"] -= 1
+                self.prefix_evictions += 1
+                return True
+        return False
+
+    def _evict_cached_prompt(self) -> bool:
+        """Drop one cached prompt no active request references (every
+        block at refcount 1), returning its blocks. Insertion order is the
+        LRU order (hits move their entry to the end)."""
+        for key, entry in self._prompt_cache.items():
+            if all(self._shared_refs.get(b, 0) == 1 for b in entry["blocks"]):
+                del self._prompt_cache[key]
+                for b in entry["blocks"]:
+                    del self._shared_refs[b]
+                    self._free.append(b)
+                return True
+        return False
+
     def _reserve_take(self, need: int) -> Optional[list[int]]:
         """Watermark-guarded admission allocation: keep one free block per
         RUNNING request on top of the admit cost, so admission never grabs
-        the blocks running slots need at their next boundary. Never
-        preempts; None = stall."""
+        the blocks running slots need at their next boundary. Cached
+        blocks yield first; never preempts; None = stall."""
         reserve = sum(1 for r in self._by_slot if r is not None)
+        while len(self._free) < need + reserve and self._evict_cached():
+            pass
         if len(self._free) < need + reserve:
             return None
         return self._take_blocks(need, preempt=False)
+
+    # -- host-RAM swap tier ------------------------------------------------
+
+    def _swap_out(self, key: bytes, ent: dict) -> None:
+        """Demote one prefix leaf's block to host memory: a copy of every
+        pool leaf's rows for the block, keyed by its chain key, within
+        ``swap_bytes_limit`` (LRU eviction inside the tier; a block over
+        the whole budget is plainly evicted)."""
+        leaves = {name: leaf[:, ent["block"]].to("cpu", copy=True)
+                  for name, leaf in self.pool.items()}
+        nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+        if nbytes > self.swap_bytes_limit:
+            return
+        old = self._swap.pop(key, None)
+        if old is not None:
+            self.swap_bytes_used -= old["bytes"]
+        self._swap[key] = {
+            "leaves": leaves, "parent": ent["parent"], "bytes": nbytes,
+        }
+        self.swap_bytes_used += nbytes
+        self.kv_swap_out += 1
+        while self.swap_bytes_used > self.swap_bytes_limit:
+            _, victim = self._swap.popitem(last=False)  # LRU
+            self.swap_bytes_used -= victim["bytes"]
+
+    def _swap_promote(self, key: bytes, parent: Optional[bytes]):
+        """Promote a swap-resident block back into a freshly taken pool
+        block and re-register it on the prefix chain (cache hold,
+        refcount 1). Returns the new ``_prefix_entries`` record, or None
+        when the key is not swap-resident, its recorded parent differs
+        from the caller's chain walk, or the pool cannot spare a block
+        under the admission watermark (all three are a miss)."""
+        entry = self._swap.get(key)
+        if entry is None or entry["parent"] != parent:
+            return None
+        blocks = self._reserve_take(1)
+        if blocks is None:
+            return None
+        (blk,) = blocks
+        for name, host in entry["leaves"].items():
+            self.pool[name][:, blk] = host.to(self.device)
+        del self._swap[key]
+        self.swap_bytes_used -= entry["bytes"]
+        ent = {"block": blk, "parent": parent, "children": 0}
+        self._prefix_entries[key] = ent
+        if parent is not None:
+            self._prefix_entries[parent]["children"] += 1
+        self._shared_refs[blk] = 1
+        self.kv_swap_in += 1
+        self.kv_swap_restored_tokens += self.block_size
+        return ent
+
+    def swap_contains(self, key: bytes) -> bool:
+        """True when a chain key's block sits in the host-RAM tier (the
+        /kv/probe advisory: restorable without a prefill)."""
+        return key in self._swap
+
+    @property
+    def swap_blocks(self) -> int:
+        """Blocks parked in the host-RAM swap tier."""
+        return len(self._swap)
+
+    @property
+    def prefix_cached_blocks(self) -> int:
+        """Blocks registered on warm prefix chains."""
+        return len(self._prefix_entries)
+
+    @staticmethod
+    def _chain_key(parent: Optional[bytes], tokens,
+                   adapter: Optional[int] = None) -> bytes:
+        """Content address of one full block given its prefix chain:
+        ``sha1(parent ‖ int32 tokens)`` from the ``b"root"`` root (an
+        adapter salts the root), byte for byte the JAX package's."""
+        if parent is None:
+            parent = (b"root" if adapter is None
+                      else b"root|adapter:%d" % int(adapter))
+        h = hashlib.sha1(parent)
+        h.update(np.asarray(tokens, np.int32).tobytes())
+        return h.digest()
 
     def _youngest_active(self) -> Optional[int]:
         slots = [
@@ -568,10 +862,20 @@ class PagedBatcher(_BatcherBase):
         self._queue.insert(0, cont)
 
     def _clear_slot_storage(self, slot: int, req: _Request) -> None:
-        """Return a request's blocks and fence the slot's state — shared
-        by normal release and mid-prefill teardown."""
-        self._free.extend(req.blocks)
+        """Return a request's blocks (a shared one only when its last
+        holder lets go) and fence the slot's state — shared by normal
+        release and mid-prefill teardown."""
+        for blk in req.blocks:
+            if blk in req.shared:
+                self._shared_refs[blk] -= 1
+                if self._shared_refs[blk] == 0:
+                    # The cache entry went already; the last user frees.
+                    del self._shared_refs[blk]
+                    self._free.append(blk)
+            else:
+                self._free.append(blk)
         req.blocks = []
+        req.shared = frozenset()
         self.kv_mask[slot] = False
         self.tables[slot] = 0  # dead writes go to the null block
         self.positions[slot] = 0
@@ -581,11 +885,421 @@ class PagedBatcher(_BatcherBase):
         self._clear_slot_storage(slot, req)
         self._by_slot[slot] = None
 
+    # -- KV handoff (disaggregated prefill and decode tiers) ---------------
+
+    def _leaf_specs(self) -> dict:
+        return {
+            name: {"dtype": _wire_dtype(leaf),
+                   "shape": [leaf.shape[0], *leaf.shape[2:]]}
+            for name, leaf in self.pool.items()
+        }
+
+    def _block_rows(self, blk_ids: list[int]) -> dict:
+        """One gather per leaf of the given blocks' rows, on the host:
+        {name: (L, n, Hkv, BS[, D])}."""
+        idx = torch.as_tensor(blk_ids, dtype=torch.long, device=self.device)
+        return {name: leaf[:, idx].cpu() for name, leaf in self.pool.items()}
+
+    def _check_payload(self, payload, what: str) -> dict:
+        """The envelope checks import_blocks and import_chain share;
+        returns {leaf name: one block's row shape}."""
+        if not isinstance(payload, dict) or payload.get("version") != 1:
+            raise ValueError(f"{what}: missing or unsupported version")
+        if int(payload.get("block_size", -1)) != self.block_size:
+            raise ValueError(
+                f"{what} block_size {payload.get('block_size')!r} != "
+                f"engine block_size {self.block_size}"
+            )
+        kv_bits = 8 if "k_scale" in self.pool else 0
+        if int(payload.get("kv_bits", -1)) != kv_bits:
+            raise ValueError(
+                f"{what} kv_bits {payload.get('kv_bits')!r} does not "
+                f"match this pool's storage format (kv_bits={kv_bits})"
+            )
+        leaves = payload.get("leaves") or {}
+        if set(leaves) != set(self.pool):
+            raise ValueError(f"{what} leaves do not match this pool")
+        shapes: dict[str, tuple] = {}
+        for name, spec in leaves.items():
+            leaf = self.pool[name]
+            want = (leaf.shape[0], *leaf.shape[2:])
+            if (tuple(spec.get("shape") or ()) != want
+                    or spec.get("dtype") != _wire_dtype(leaf)):
+                raise ValueError(
+                    f"{what} leaf {name!r}: shape/dtype "
+                    f"{spec.get('shape')}/{spec.get('dtype')} != local "
+                    f"{list(want)}/{_wire_dtype(leaf)}"
+                )
+            shapes[name] = want
+        return shapes
+
+    def export_blocks(self, rid: int, skip_keys=()) -> dict:
+        """Serialize a live request's prompt-KV blocks for a cross-replica
+        handoff, at FIRST-token time: positions[slot] still equals the
+        prompt's KV length and the sampled token's KV is unwritten, so the
+        payload is the prefill state a decode replica needs plus the
+        pending first token. Full blocks are chain-keyed as prefix
+        admission keys them; a key in ``skip_keys`` (hex) ships as a stub
+        without data (the suffix-only transfer to a replica that holds the
+        chain). The tail block always ships. Requires prefix_cache=True:
+        the anchored layout is the wire format."""
+        if not self._prefix_cache_enabled:
+            raise RuntimeError(
+                "export_blocks requires prefix_cache=True (the anchored "
+                "admission layout is the transfer wire format)"
+            )
+        slot = next((i for i, r in enumerate(self._by_slot)
+                     if r is not None and r.rid == rid), None)
+        if slot is None:
+            raise KeyError(
+                f"rid {rid} holds no slot — export at first-token time, "
+                "while the request is still installed"
+            )
+        req = self._by_slot[slot]
+        if not req.tokens:
+            raise RuntimeError(
+                "export_blocks before the first sampled token: the "
+                "pending token is part of the payload"
+            )
+        bs = self.block_size
+        lng = int(self.positions[slot])  # prompt KV length
+        nblocks = -(-lng // bs)
+        kv_tokens = (req.prompt + req.tokens)[:lng]
+        registrable = (lng - 1) // bs  # nblocks - 1: exactly one tail
+        skip = {k if isinstance(k, str) else bytes(k).hex()
+                for k in skip_keys}
+        keys: list[str] = []
+        parent: Optional[bytes] = None
+        for j in range(registrable):
+            parent = self._chain_key(parent, kv_tokens[j * bs:(j + 1) * bs])
+            keys.append(parent.hex())
+        send = [j for j in range(nblocks)
+                if j >= registrable or keys[j] not in skip]
+        leaf_rows = self._block_rows([req.blocks[j] for j in send])
+        at = {j: i for i, j in enumerate(send)}
+        blocks = []
+        for j in range(nblocks):
+            ent: dict = {"key": keys[j] if j < registrable else None}
+            i = at.get(j)
+            if i is not None:
+                ent["data"] = {name: _rows_b64(rows[:, i])
+                               for name, rows in leaf_rows.items()}
+            blocks.append(ent)
+        self.kv_exports += 1
+        return {
+            "version": 1,
+            "block_size": bs,
+            "kv_bits": 8 if "k_scale" in self.pool else 0,
+            "adapter": None,
+            "tokens": [int(t) for t in kv_tokens],
+            "pending_token": int(req.tokens[-1]),
+            "pending_logprob": (
+                float(req.logprobs[-1]) if req.logprobs else None
+            ),
+            "leaves": self._leaf_specs(),
+            "blocks": blocks,
+        }
+
+    def import_blocks(self, payload: dict,
+                      max_new_tokens: Optional[int] = None,
+                      temperature: Optional[float] = None,
+                      stop=None, logit_bias: Optional[dict] = None,
+                      deadline_s: Optional[float] = None) -> Optional[int]:
+        """Admit a request DIRECTLY into a free slot from an exported KV
+        payload, skipping its prefill. Chain keys are recomputed here and
+        checked against the payload (a mismatch means the two replicas'
+        hashing diverged: refused). With prefix_cache on, the longest
+        locally cached chain (swap tier included) is reused and only the
+        rest is written; a stub past it raises KeyError (the suffix-only
+        transfer raced an eviction). A slot mid-admission is never taken.
+
+        Returns the new rid, or None when no slot or blocks are free under
+        the admission watermark. The pending first token is delivered
+        through the normal retirement path at the next drive quantum."""
+        shapes = self._check_payload(payload, "kv payload")
+        tokens = [int(t) for t in payload.get("tokens") or []]
+        bs = self.block_size
+        lng = len(tokens)
+        nblocks = -(-lng // bs)
+        entries = payload.get("blocks") or []
+        if lng == 0 or len(entries) != nblocks:
+            raise ValueError(
+                f"kv payload carries {len(entries)} blocks for a "
+                f"{lng}-token prompt (want {nblocks})"
+            )
+        adapter = payload.get("adapter")
+        if adapter is not None and (
+                not isinstance(adapter, int) or isinstance(adapter, bool)):
+            raise ValueError(
+                f"kv payload adapter must be an int or null, "
+                f"got {adapter!r}"
+            )
+        if adapter is not None:
+            raise ValueError(
+                f"kv payload adapter {adapter}: LoRA adapters are not "
+                "ported to PyTorch yet (ROADMAP queue 1 item 8); send a "
+                "base-model payload"
+            )
+        # Validation and the rid, through _build_request.
+        req = self._build_request(
+            tokens, max_new_tokens=max_new_tokens, temperature=temperature,
+            stop=stop, logit_bias=logit_bias, deadline_s=deadline_s,
+        )
+        slot = next((i for i, r in enumerate(self._by_slot)
+                     if r is None and i not in self._ragged_admit), None)
+        if slot is None:
+            return None
+        registrable = (lng - 1) // bs
+        keys: list[bytes] = []
+        parent: Optional[bytes] = None
+        for j in range(registrable):
+            parent = self._chain_key(parent, tokens[j * bs:(j + 1) * bs])
+            sent = entries[j].get("key")
+            if sent is not None and sent != parent.hex():
+                raise ValueError(
+                    f"kv payload chain-key mismatch at block {j}: the "
+                    "exporting replica's chain hashing diverged from ours"
+                )
+            keys.append(parent)
+        # Longest local chain (none without prefix_cache: every block is
+        # written). Matched blocks are pinned as the walk advances:
+        # promotion allocates under the watermark and may evict unpinned
+        # leaves.
+        m = 0
+        shared_blocks: list[int] = []
+        if self._prefix_cache_enabled:
+            walk_parent: Optional[bytes] = None
+            for j in range(registrable):
+                ent = self._prefix_entries.get(keys[j])
+                if ent is None and self._swap:
+                    ent = self._swap_promote(keys[j], walk_parent)
+                if ent is None:
+                    break
+                shared_blocks.append(ent["block"])
+                self._shared_refs[ent["block"]] += 1
+                m += 1
+                walk_parent = keys[j]
+        bad = next((j for j in range(nblocks)
+                    if j >= m and "data" not in entries[j]), None)
+        if bad is not None:
+            for blk in shared_blocks:  # un-pin; promoted blocks stay warm
+                self._shared_refs[blk] -= 1
+            raise KeyError(
+                f"kv payload block {bad} is a stub but its chain is "
+                "not cached here (suffix-only transfer raced an "
+                "eviction) — resend with full block data"
+            )
+        for k in keys[:m]:  # a hit refreshes recency
+            self._prefix_entries[k] = self._prefix_entries.pop(k)
+        need = nblocks - m
+        blocks = self._reserve_take(need)
+        if blocks is None:
+            for blk in shared_blocks:
+                self._shared_refs[blk] -= 1
+            return None
+        all_blocks = shared_blocks + blocks
+        # One indexed write per leaf of the shipped blocks (at least the
+        # tail), into blocks just taken off the free list.
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
+        for name, leaf in self.pool.items():
+            stacked = np.stack(
+                [_rows_from_b64(entries[j]["data"][name], leaf.dtype,
+                                shapes[name])
+                 for j in range(m, nblocks)], axis=1)
+            leaf[:, idx] = _carried_to_tensor(stacked,
+                                              leaf.dtype).to(self.device)
+        # Register the imported FULL blocks on the chain (cache hold +
+        # this request's, as prefix admission does).
+        if self._prefix_cache_enabled:
+            chain_parent = keys[m - 1] if m else None
+            for j in range(m, registrable):
+                self._prefix_entries[keys[j]] = {
+                    "block": all_blocks[j], "parent": chain_parent,
+                    "children": 0,
+                }
+                if chain_parent is not None:
+                    self._prefix_entries[chain_parent]["children"] += 1
+                self._shared_refs[all_blocks[j]] = 2
+                chain_parent = keys[j]
+            req.shared = frozenset(all_blocks[:registrable])
+            self.prefix_hits += m
+            self.prefix_misses += registrable - m
+        # Install as a DECODING slot, as anchored admission leaves one:
+        # decode continues at lng.
+        req.blocks = all_blocks
+        self.tables[slot] = 0
+        self.tables[slot, :nblocks] = all_blocks
+        self.positions[slot] = lng
+        self.kv_mask[slot] = True
+        self.temps[slot] = (self.gen.temperature if req.temperature is None
+                            else req.temperature)
+        self._install_bias(slot, req)
+        req.budget = self._initial_budget(req)
+        self._by_slot[slot] = req
+        self.kv_imports += 1
+        self.kv_import_blocks_reused += m
+        self.kv_import_blocks_written += need
+        self._kv_pending_first.append((
+            slot, req.rid, int(payload["pending_token"]),
+            payload.get("pending_logprob"),
+        ))
+        return req.rid
+
+    def _deliver_imported(self) -> None:
+        """Feed imported requests' pending first tokens through the normal
+        retirement path (EOS, stop, budget and cancel apply as to any
+        token). Runs at the top of every admission pass."""
+        while self._kv_pending_first:
+            slot, rid, token, lp = self._kv_pending_first.pop(0)
+            req = self._by_slot[slot]
+            if req is None or req.rid != rid:
+                continue  # preempted or cancelled before delivery
+            self._note_token(slot, token, lp)
+
+    # -- peer prefix tier ----------------------------------------------------
+
+    def chain_block_bytes(self) -> int:
+        """Wire bytes ONE full block costs in a chain payload: base64 of
+        every leaf's rows plus a small envelope (the /kv/probe advisory)."""
+        raw = sum(leaf.numel() * leaf.element_size() // leaf.shape[1]
+                  for leaf in self.pool.values())
+        return 4 * ((raw + 2) // 3) + 96
+
+    def export_chain(self, keys) -> Optional[dict]:
+        """Serialize the longest held prefix of a chain-key walk straight
+        from the prefix cache (swap-resident links promoted first); no
+        request is involved. The version-1 wire format without the live
+        request's fields; None when not even the first key is held."""
+        if not self._prefix_cache_enabled:
+            raise RuntimeError(
+                "export_chain requires prefix_cache=True (the chain "
+                "registry is the export source)"
+            )
+        raw = [k if isinstance(k, bytes) else bytes.fromhex(k) for k in keys]
+        ents: list[tuple] = []
+        parent: Optional[bytes] = None
+        for key in raw:
+            ent = self._prefix_entries.get(key)
+            if ent is None and self._swap:
+                ent = self._swap_promote(key, parent)
+            if ent is None:
+                break
+            ents.append((key, ent))
+            parent = key
+        if not ents:
+            return None
+        leaf_rows = self._block_rows([e["block"] for _, e in ents])
+        blocks = [
+            {"key": key.hex(),
+             "data": {name: _rows_b64(rows[:, i])
+                      for name, rows in leaf_rows.items()}}
+            for i, (key, _) in enumerate(ents)
+        ]
+        for key, _ in ents:  # an export is a hit: refresh recency
+            self._prefix_entries[key] = self._prefix_entries.pop(key)
+        self.kv_chain_exports += 1
+        self.kv_chain_blocks_sent += len(blocks)
+        return {
+            "version": 1,
+            "block_size": self.block_size,
+            "kv_bits": 8 if "k_scale" in self.pool else 0,
+            "adapter": None,
+            "leaves": self._leaf_specs(),
+            "blocks": blocks,
+        }
+
+    def import_chain(self, payload: dict, tokens) -> int:
+        """Register an exported cache chain into this engine's prefix
+        cache without installing a request (the peer-fetch import). Keys
+        are recomputed from the fetching request's own tokens and checked
+        block by block; skew or a mismatch raises ValueError. Best effort
+        under the admission watermark: the walk stops at the first block
+        the pool cannot spare. Returns how many leading chain keys are now
+        resident."""
+        if not self._prefix_cache_enabled:
+            raise ValueError(
+                "import_chain requires prefix_cache=True (there is no "
+                "chain registry to import into)"
+            )
+        shapes = self._check_payload(payload, "kv chain payload")
+        toks = [int(t) for t in tokens]
+        bs = self.block_size
+        registrable = max(0, (len(toks) - 1) // bs)
+        entries = payload.get("blocks") or []
+        if not entries or len(entries) > registrable:
+            raise ValueError(
+                f"kv chain payload carries {len(entries)} blocks for a "
+                f"prompt with {registrable} registrable blocks"
+            )
+        keys: list[bytes] = []
+        parent: Optional[bytes] = None
+        for j in range(len(entries)):
+            parent = self._chain_key(parent, toks[j * bs:(j + 1) * bs])
+            if entries[j].get("key") != parent.hex():
+                raise ValueError(
+                    f"kv chain payload chain-key mismatch at block {j}: "
+                    "the exporting peer's chain diverged from this "
+                    "prompt's"
+                )
+            if "data" not in entries[j]:
+                raise ValueError(
+                    f"kv chain payload block {j} is a stub — chain "
+                    "exports always carry full block data"
+                )
+            keys.append(parent)
+        # Pin each link as the walk advances: _reserve_take may evict
+        # unreferenced leaves, and the block registered one step ago is
+        # such a leaf until its child links in.
+        resident = 0
+        written = 0
+        pinned: list[int] = []
+        chain_parent: Optional[bytes] = None
+        try:
+            for j, key in enumerate(keys):
+                ent = self._prefix_entries.get(key)
+                if ent is None and self._swap:
+                    ent = self._swap_promote(key, chain_parent)
+                if ent is None:
+                    take = self._reserve_take(1)
+                    if take is None:
+                        break  # pool pressure: keep what landed
+                    (blk,) = take
+                    for name, leaf in self.pool.items():
+                        row = _rows_from_b64(entries[j]["data"][name],
+                                             leaf.dtype, shapes[name])
+                        leaf[:, blk] = _carried_to_tensor(
+                            row, leaf.dtype).to(self.device)
+                    ent = {"block": blk, "parent": chain_parent,
+                           "children": 0}
+                    self._prefix_entries[key] = ent
+                    if chain_parent is not None:
+                        self._prefix_entries[chain_parent]["children"] += 1
+                    self._shared_refs[blk] = 1
+                    written += 1
+                else:
+                    # Reuse refreshes recency, like any chain hit.
+                    self._prefix_entries[key] = self._prefix_entries.pop(key)
+                self._shared_refs[ent["block"]] += 1
+                pinned.append(ent["block"])
+                resident += 1
+                chain_parent = key
+        finally:
+            for blk in pinned:
+                self._shared_refs[blk] -= 1
+        self.kv_chain_imports += 1
+        self.kv_chain_blocks_written += written
+        return resident
+
     # -- scheduling --------------------------------------------------------
 
     def _admit_free_slots(self) -> None:
+        if self._kv_pending_first:
+            self._deliver_imported()
         if self.ragged:
             self._admit_free_slots_ragged()
+            return
+        if self._prefix_cache_enabled:
+            self._admit_free_slots_prefix()
             return
         for slot in range(self.slots):
             if self._by_slot[slot] is not None:
@@ -602,24 +1316,57 @@ class PagedBatcher(_BatcherBase):
                 self.prompt_bucket,
                 -(-len(effective) // self.block_size) * self.block_size,
             )
-            need = bucket // self.block_size
-            blocks = self._reserve_take(need)
-            if blocks is None:
-                if not any(r is not None for r in self._by_slot):
-                    raise RuntimeError(
-                        f"block pool too small: {need} blocks needed for "
-                        f"a {len(effective)}-token prompt, pool has "
-                        f"{self.num_blocks - 1} usable; raise num_blocks"
-                    )
-                return  # pool busy; retry after in-flight slots retire
+            # A prompt-cache hit (pure prompts only: a continuation's
+            # tokens are request-unique) reuses the shared blocks and the
+            # cached first logits: no allocation, no prefill. The key
+            # carries the validity MASK too: a prompt led by pad_id pads
+            # to the same bytes as the one without that token.
+            padded = mask = cache_key = cache_hit = None
+            if self._prompt_cache_enabled and not head.tokens:
+                padded, mask = left_pad([effective], self.gen.pad_id, bucket)
+                cache_key = (padded.tobytes(), mask.tobytes())
+                cache_hit = self._prompt_cache.get(cache_key)
+            if cache_hit is not None:
+                # Move to the end: eviction scans insertion order.
+                self._prompt_cache[cache_key] = self._prompt_cache.pop(
+                    cache_key)
+                blocks = list(cache_hit["blocks"])
+            else:
+                need = bucket // self.block_size
+                blocks = self._reserve_take(need)
+                if blocks is None:
+                    if not any(r is not None for r in self._by_slot):
+                        raise RuntimeError(
+                            f"block pool too small: {need} blocks needed "
+                            f"for a {len(effective)}-token prompt, pool has "
+                            f"{self.num_blocks - 1} usable; raise num_blocks"
+                        )
+                    return  # pool busy; retry after in-flight slots retire
             req = self._pop_queue()
-            padded, mask = left_pad([effective], self.gen.pad_id, bucket)
-            prompt_mask = None if mask.all() else self._up(mask)
-            logits = _paged_admit(
-                self.params, self.cfg, self._up(padded), self.pool,
-                prompt_mask, self._up(np.asarray(blocks, np.int32)),
-                self.block_size,
-            )
+            if padded is None:
+                padded, mask = left_pad([effective], self.gen.pad_id, bucket)
+            shared: frozenset = frozenset()
+            if cache_hit is not None:
+                for blk in blocks:
+                    self._shared_refs[blk] += 1
+                logits = cache_hit["logits"]
+                shared = frozenset(blocks)
+            else:
+                prompt_mask = None if mask.all() else self._up(mask)
+                logits = _paged_admit(
+                    self.params, self.cfg, self._up(padded), self.pool,
+                    prompt_mask, self._up(np.asarray(blocks, np.int32)),
+                    self.block_size,
+                )
+                if cache_key is not None:
+                    # One hold for the cache, one for this request.
+                    self._prompt_cache[cache_key] = {
+                        "blocks": list(blocks), "logits": logits,
+                    }
+                    for blk in blocks:
+                        self._shared_refs[blk] = (
+                            self._shared_refs.get(blk, 0) + 2)
+                    shared = frozenset(blocks)
             self.tables[slot] = 0  # stale entries never alias freed blocks
             self.tables[slot, :len(blocks)] = blocks
             self.positions[slot] = bucket
@@ -630,6 +1377,111 @@ class PagedBatcher(_BatcherBase):
             self.kv_mask[slot] = self._up(row)
             self._finish_admit(slot, _Request(
                 req.rid, req.prompt, list(req.tokens), blocks=blocks,
+                shared=shared, max_new=req.max_new,
+                temperature=req.temperature, stop=req.stop,
+                logit_bias=req.logit_bias, logprobs=req.logprobs,
+                deadline=req.deadline,
+            ), logits)
+
+    def _admit_free_slots_prefix(self) -> None:
+        """Admission under the position-0-anchored layout (prefix_cache):
+        match the longest cached chain (promoting swap-resident links),
+        allocate only the tail, prefill the tail THROUGH the table in
+        ``admit_chunk`` pieces, register the new full blocks. No padding:
+        token i sits at position i, decode continues at the prompt's
+        length, and the kv_mask row is all True. An admitted request keeps
+        its deadline (JAX's rebuild drops it)."""
+        bs = self.block_size
+        for slot in range(self.slots):
+            if self._by_slot[slot] is not None:
+                continue
+            if not self._queue:
+                return
+            head = self._queue[0]
+            effective = head.prompt + head.tokens
+            lng = len(effective)
+            nblocks = -(-lng // bs)
+            # Longest cached chain over FULL blocks, short of the last
+            # token's block (kept mutable and recomputed).
+            registrable = (lng - 1) // bs
+            keys: list[bytes] = []
+            shared_blocks: list[int] = []
+            parent: Optional[bytes] = None
+            for j in range(registrable):
+                key = self._chain_key(parent, effective[j * bs:(j + 1) * bs])
+                ent = self._prefix_entries.get(key)
+                if ent is None and self._swap:
+                    # A pool miss, the swap tier next: a promoted block
+                    # is a hit (its prefill is skipped either way).
+                    ent = self._swap_promote(key, parent)
+                if ent is None:
+                    break
+                keys.append(key)
+                shared_blocks.append(ent["block"])
+                # Pin now: a promotion later in this walk allocates under
+                # the watermark and may evict unpinned leaves.
+                self._shared_refs[ent["block"]] += 1
+                parent = key
+            m = len(shared_blocks)
+            for key in keys:  # a hit refreshes recency
+                self._prefix_entries[key] = self._prefix_entries.pop(key)
+            need = nblocks - m
+            blocks = self._reserve_take(need)
+            if blocks is None:
+                for blk in shared_blocks:  # un-pin; admission stalled
+                    self._shared_refs[blk] -= 1
+                if not any(r is not None for r in self._by_slot):
+                    raise RuntimeError(
+                        f"block pool too small: {need} blocks needed for "
+                        f"a {lng}-token prompt ({m} matched cached), pool "
+                        f"has {self.num_blocks - 1} usable; raise "
+                        "num_blocks"
+                    )
+                return  # pool busy; retry after in-flight slots retire
+            req = self._pop_queue()
+            # Counted once allocation committed: a stalled walk re-walks.
+            self.prefix_hits += m
+            self.prefix_misses += registrable - m
+            all_blocks = shared_blocks + blocks
+            self.tables[slot] = 0  # stale entries never alias freed blocks
+            self.tables[slot, :len(all_blocks)] = all_blocks
+            self.positions[slot] = lng
+            self.kv_mask[slot] = True
+            # The tail, right-padded to the owned blocks' span: every pad
+            # write lands at a future position inside an owned block.
+            start = m * bs
+            padded_len = (nblocks - m) * bs
+            chunk = np.full((1, padded_len), self.gen.pad_id, np.int32)
+            chunk[0, :lng - start] = effective[start:]
+            table = self._up(self.tables[slot:slot + 1])
+            full = torch.ones((1, self.max_blocks * bs), dtype=torch.bool,
+                              device=self.device)
+            # Fixed-width pieces of admit_chunk (the last one shorter):
+            # only the final piece, which holds the last real token,
+            # keeps its logits.
+            off = 0
+            while off < padded_len:
+                width = min(self.admit_chunk, padded_len - off)
+                last_idx = min(max(lng - 1 - start - off, 0), width - 1)
+                logits = _paged_prefix_admit(
+                    self.params, self.cfg, self._up(chunk[:, off:off + width]),
+                    self.pool, table, start + off, full, last_idx, bs,
+                )
+                off += width
+            # Register the NEW full blocks on the chain: cache hold plus
+            # this request's.
+            for j in range(m, registrable):
+                key = self._chain_key(parent, effective[j * bs:(j + 1) * bs])
+                self._prefix_entries[key] = {
+                    "block": all_blocks[j], "parent": parent, "children": 0,
+                }
+                if parent is not None:
+                    self._prefix_entries[parent]["children"] += 1
+                self._shared_refs[all_blocks[j]] = 2
+                parent = key
+            self._finish_admit(slot, _Request(
+                req.rid, req.prompt, list(req.tokens), blocks=all_blocks,
+                shared=frozenset(all_blocks[:registrable]),
                 max_new=req.max_new, temperature=req.temperature,
                 stop=req.stop, logit_bias=req.logit_bias,
                 logprobs=req.logprobs, deadline=req.deadline,

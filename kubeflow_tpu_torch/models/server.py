@@ -14,21 +14,35 @@ Endpoints, with the JAX server's request fields and response shapes:
   ``stop``, ``logit_bias``, ``logprobs``, ``deadline_s``, ``model`` (the
   served name only), ``stream`` (``text/event-stream`` lines
   ``data: {"id", "token"}`` ending ``data: [DONE]``, an error event first
-  on abort);
+  on abort), and ``kv_import`` (an exported KV payload: the request is
+  installed from it without a prefill, ``n`` 1 only);
+- ``POST /kv/prefill`` — the prefill tier's hop: the prompt is prefilled,
+  one token sampled, and the paged-KV payload cut at first-token time
+  (``skip_keys`` names chain blocks to send as stubs);
+- ``POST /kv/probe`` (how many leading chain ``keys`` this replica holds,
+  swap tier included, with the byte advisory), ``POST /kv/chain`` (export
+  the held prefix of ``keys`` from the prefix cache) and ``POST
+  /kv/chain/import`` (register a chain ``payload`` against the request's
+  ``tokens``): the fleet's peer prefix tier;
 - ``GET /healthz`` (503 once the engine thread died or a drain started),
-  ``GET /v1/models``, ``GET /stats`` (the engine and latency keys below,
-  under the JAX server's names).
+  ``GET /v1/models``, ``GET /stats`` (the engine, latency and
+  ``tier_role`` keys and, where the engine has them, the
+  ``prefix_cache``, ``kv_swap`` and ``kv_handoff`` blocks, under the JAX
+  server's names).
 
 Request lifecycle: ``max_queue_depth`` sheds with 429 + Retry-After
-without taking the engine lock; ``max_body_bytes`` caps Content-Length
-(413); per-request deadlines retire the slot at the next step (504 with
-partial tokens); a client that disconnects cancels its requests;
-``stop()`` drains for ``drain_s`` (503 to new submits) and then aborts
-stragglers; an engine failure aborts every waiting request and turns
-/healthz red.
+without taking the engine lock (an import with no free slot or blocks
+sheds too); ``max_body_bytes`` caps Content-Length (413; a KV payload
+needs a raised cap); per-request deadlines retire the slot at the next
+step (504 with partial tokens); a client that disconnects cancels its
+requests; ``stop()`` drains for ``drain_s`` (503 to new submits) and then
+aborts stragglers; an engine failure aborts every waiting request and
+turns /healthz red. The ``/kv/*`` hops answer with the JAX server's codes:
+400 for a bad body or payload, 409 for a stub whose chain is gone (or an
+engine that cannot export), 413, 429 and 503.
 
 Not here yet: tracing spans, the flight recorder, Prometheus mirroring,
-the ``/kv/*`` handoff endpoints, LoRA routing and speculative stats.
+LoRA routing and speculative stats.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ KUBEFLOW_TPU_SPEC_DRAFT_LEN = "KUBEFLOW_TPU_SPEC_DRAFT_LEN"
 KUBEFLOW_TPU_SPEC_ADAPTIVE = "KUBEFLOW_TPU_SPEC_ADAPTIVE"
 KUBEFLOW_TPU_SERVING_TP = "KUBEFLOW_TPU_SERVING_TP"
 KUBEFLOW_TPU_LORA_CACHE_SLOTS = "KUBEFLOW_TPU_LORA_CACHE_SLOTS"
+KUBEFLOW_TPU_GATEWAY_TIER_ROLE = "KUBEFLOW_TPU_GATEWAY_TIER_ROLE"
 
 
 def _percentiles(window) -> dict:
@@ -287,6 +302,52 @@ def lora_cache_from_env() -> int:
     return slots
 
 
+def tier_role_from_env() -> str:
+    """The disaggregated-serving role this replica advertises on /stats,
+    from KUBEFLOW_TPU_GATEWAY_TIER_ROLE (unset is "fused"). Raises on
+    garbage."""
+    raw = os.environ.get(KUBEFLOW_TPU_GATEWAY_TIER_ROLE, "").strip().lower()
+    if raw not in ("", "fused", "prefill", "decode"):
+        raise ValueError(
+            f"{KUBEFLOW_TPU_GATEWAY_TIER_ROLE}={raw!r}: want "
+            "fused/prefill/decode"
+        )
+    return raw or "fused"
+
+
+def _logit_bias_field(req: dict) -> Optional[dict]:
+    logit_bias = req.get("logit_bias")
+    if logit_bias is not None and not isinstance(logit_bias, dict):
+        raise ValueError(
+            "logit_bias must be an object mapping token ids to biases"
+        )
+    return logit_bias
+
+
+def _deadline_field(req: dict) -> Optional[float]:
+    deadline_s = req.get("deadline_s")
+    if deadline_s is not None and (
+        isinstance(deadline_s, bool)
+        or not isinstance(deadline_s, (int, float))
+        or not math.isfinite(deadline_s)
+        or deadline_s <= 0
+    ):
+        raise ValueError(
+            f"deadline_s must be a finite number > 0, got {deadline_s!r}"
+        )
+    return deadline_s
+
+
+def _chain_keys_field(req: dict, name: str) -> list[bytes]:
+    """A request's list of hex chain keys, decoded; ValueError when it is
+    not a list of hex strings."""
+    keys = req.get(name) or []
+    if not isinstance(keys, list) or not all(
+            isinstance(k, str) for k in keys):
+        raise ValueError(f"{name} must be a list of hex strings")
+    return [bytes.fromhex(k) for k in keys]
+
+
 class InferenceServer:
     """HTTP front-end driving one batching engine on a background thread.
 
@@ -301,10 +362,18 @@ class InferenceServer:
                  max_body_bytes: int = 4 << 20,
                  default_deadline_s: Optional[float] = None,
                  max_deadline_s: Optional[float] = None,
-                 drain_s: float = 5.0):
+                 drain_s: float = 5.0,
+                 tier_role: str = "fused"):
         if max_queue_depth < 1:
             raise ValueError(f"max_queue_depth must be >= 1, got "
                              f"{max_queue_depth}")
+        if tier_role not in ("fused", "prefill", "decode"):
+            raise ValueError(
+                f"tier_role must be fused/prefill/decode, got {tier_role!r}"
+            )
+        # Advisory: the engine serves whatever arrives; tier membership
+        # is the gateway's routing decision.
+        self.tier_role = tier_role
         self.max_queue_depth = max_queue_depth
         self.max_body_bytes = max_body_bytes
         self.default_deadline_s = default_deadline_s
@@ -340,6 +409,11 @@ class InferenceServer:
         self._itl = collections.deque(maxlen=256)
         self._tokens_out = 0
         self._started_at = None
+        # Pending KV exports (the prefill tier): rid → {"skip", "payload",
+        # "error"}, registered at submit under the engine lock and filled
+        # by _on_token at the first token, the one moment the slot still
+        # holds the prompt's blocks and the sampled token is known.
+        self._kv_exports: dict[int, dict] = {}
         self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
         self._httpd.daemon_threads = True
         self.host, self.port = self._httpd.server_address[:2]
@@ -363,6 +437,15 @@ class InferenceServer:
             self._queue_wait.append(time.monotonic() - t0)
 
     def _on_token(self, rid: int, token: int) -> None:
+        exp = self._kv_exports.get(rid)
+        if exp is not None and exp["payload"] is None and exp["error"] is None:
+            # The prefill-tier request retires right after this token
+            # (max_new_tokens=1); its chains stay registered here.
+            try:
+                exp["payload"] = self.engine.export_blocks(
+                    rid, skip_keys=exp["skip"])
+            except Exception as err:  # answered as the hop's failure
+                exp["error"] = str(err)
         self._tokens_out += 1
         if rid in self._submit_ts:
             now = time.monotonic()
@@ -527,6 +610,7 @@ class InferenceServer:
                 temperature: Optional[float] = None,
                 stop=None, logit_bias=None,
                 deadline_s: Optional[float] = None,
+                kv_export=None,  # skip-key set: cut a KV payload
                 ) -> tuple[int, queue.Queue]:
         self._shed_check()
         q: queue.Queue = queue.Queue()
@@ -545,6 +629,49 @@ class InferenceServer:
                                      temperature=temperature, stop=stop,
                                      logit_bias=logit_bias,
                                      deadline_s=deadline_s)
+            if kv_export is not None:
+                # Same lock hold as the submit: on_token cannot fire for
+                # this rid before the registry entry exists.
+                self._kv_exports[rid] = {
+                    "skip": kv_export, "payload": None, "error": None,
+                }
+            self._queues[rid] = q
+            self._submit_ts[rid] = time.monotonic()
+            self._work.notify_all()
+        return rid, q
+
+    def _submit_import(self, payload: dict, max_tokens: Optional[int],
+                       temperature: Optional[float] = None,
+                       stop=None, logit_bias=None,
+                       deadline_s: Optional[float] = None,
+                       ) -> tuple[int, queue.Queue]:
+        """Decode-tier admission: install an exported KV payload straight
+        into a slot (no prefill, no queue). A refusal for want of a slot
+        or blocks sheds (429), as a full queue does."""
+        self._shed_check()
+        q: queue.Queue = queue.Queue()
+        deadline_s = self._resolve_deadline(deadline_s)
+        with self._work:
+            if self._engine_error is not None:
+                raise EngineFailedError(self._engine_error)
+            if self._draining or self._shutdown:
+                raise DrainingError("server is draining; retry elsewhere")
+            if not hasattr(self.engine, "import_blocks"):
+                raise ValueError(
+                    "this replica's engine cannot import KV payloads "
+                    "(paged engines only)"
+                )
+            rid = self.engine.import_blocks(
+                payload, max_new_tokens=max_tokens,
+                temperature=temperature, stop=stop,
+                logit_bias=logit_bias, deadline_s=deadline_s,
+            )
+            if rid is None:
+                with self._shed_lock:
+                    self._shed += 1
+                raise OverloadedError(
+                    "no free slot/blocks for KV import; retry elsewhere"
+                )
             self._queues[rid] = q
             self._submit_ts[rid] = time.monotonic()
             self._work.notify_all()
@@ -561,6 +688,7 @@ class InferenceServer:
     def _finish(self, rid: int) -> None:
         with self._lock:
             self._queues.pop(rid, None)
+            self._kv_exports.pop(rid, None)
             # Aborted requests never retire: reap their stamps here.
             self._forget(rid)
 
@@ -610,6 +738,37 @@ class InferenceServer:
                         eng.ragged_tokens / steps, 2
                     ) if steps else 0.0,
                 }
+            pc = None
+            if getattr(eng, "_prefix_cache_enabled", False):
+                hits, misses = eng.prefix_hits, eng.prefix_misses
+                pc = {
+                    "hits": hits,
+                    "misses": misses,
+                    "evictions": eng.prefix_evictions,
+                    "cached_blocks": eng.prefix_cached_blocks,
+                    "hit_ratio": round(hits / (hits + misses), 4)
+                    if hits + misses else 0.0,
+                }
+            kv = None
+            if hasattr(eng, "import_blocks"):
+                kv = {
+                    "exports": eng.kv_exports,
+                    "imports": eng.kv_imports,
+                    "import_blocks_reused": eng.kv_import_blocks_reused,
+                    "import_blocks_written": eng.kv_import_blocks_written,
+                    "chain_exports": eng.kv_chain_exports,
+                    "chain_imports": eng.kv_chain_imports,
+                }
+            swap = None
+            if getattr(eng, "swap_bytes_limit", 0):
+                swap = {
+                    "swap_out": eng.kv_swap_out,
+                    "swap_in": eng.kv_swap_in,
+                    "restored_tokens": eng.kv_swap_restored_tokens,
+                    "swap_bytes": eng.swap_bytes_used,
+                    "swap_blocks": eng.swap_blocks,
+                    "swap_bytes_limit": eng.swap_bytes_limit,
+                }
             ttft, e2e = list(self._ttft), list(self._e2e)
             queue_wait, itl = list(self._queue_wait), list(self._itl)
             tokens_out = self._tokens_out
@@ -638,8 +797,12 @@ class InferenceServer:
             "max_queue_depth": self.max_queue_depth,
             "draining": self._draining,
             "drain_duration_s": self._drain_duration,
+            "tier_role": self.tier_role,
+            **({"kv_handoff": kv} if kv is not None else {}),
+            **({"kv_swap": swap} if swap is not None else {}),
             **({"kv_pool": pool} if pool is not None else {}),
             **({"ragged": rag} if rag is not None else {}),
+            **({"prefix_cache": pc} if pc is not None else {}),
         }
 
     def _handler_class(self):
@@ -693,10 +856,200 @@ class InferenceServer:
                     self._json(404, {"error": "not found"})
 
             def do_POST(self):
-                if self.path != "/v1/completions":
+                route = {
+                    "/v1/completions": self._completions,
+                    "/kv/prefill": self._kv_prefill,
+                    "/kv/probe": self._kv_probe,
+                    "/kv/chain": self._kv_chain,
+                    "/kv/chain/import": self._kv_chain_import,
+                }.get(self.path)
+                if route is None:
                     self._json(404, {"error": "not found"})
                     return
-                self._completions()
+                route()
+
+            def _kv_body(self, parse):
+                """Read and parse a /kv/* body: ``parse(req)`` returns
+                what the hop needs. Answers 413 or 400 itself and returns
+                None then."""
+                try:
+                    body = _read_body(self, server.max_body_bytes)
+                    return parse(json.loads(body or b"{}"))
+                except BodyTooLarge as err:
+                    self._json(413, {"error": str(err)})
+                except (ValueError, json.JSONDecodeError) as err:
+                    self._json(400, {"error": str(err)})
+                return None
+
+            def _kv_probe(self):
+                """How many leading blocks of the chain ``keys`` (hex, in
+                chain order) this replica holds, swap-resident ones
+                included (an import promotes them), with the wire bytes a
+                block costs. Nothing is pinned: an eviction may race the
+                import, which then answers 409."""
+                raw = self._kv_body(lambda req: _chain_keys_field(req, "keys"))
+                if raw is None:
+                    return
+                matched = 0
+                block_bytes = 0
+                eng = server.engine
+                with server._lock:
+                    if getattr(eng, "_prefix_cache_enabled", False):
+                        for k in raw:
+                            if (k not in eng._prefix_entries
+                                    and not eng.swap_contains(k)):
+                                break
+                            matched += 1
+                    if hasattr(eng, "chain_block_bytes"):
+                        block_bytes = int(eng.chain_block_bytes())
+                self._json(200, {
+                    "matched": matched,
+                    "block_bytes": block_bytes,
+                    "payload_bytes": matched * block_bytes,
+                })
+
+            def _kv_chain(self):
+                """Export the longest held prefix of ``keys`` straight
+                from the prefix cache (swap-resident links promoted
+                first); the chains stay registered here."""
+                raw = self._kv_body(lambda req: _chain_keys_field(req, "keys"))
+                if raw is None:
+                    return
+                export = getattr(server.engine, "export_chain", None)
+                if export is None or not raw:
+                    self._json(200, {"matched": 0, "payload": None})
+                    return
+                try:
+                    with server._lock:
+                        payload = export(raw)
+                except RuntimeError as err:
+                    self._json(409, {"error": str(err)})
+                    return
+                self._json(200, {
+                    "matched": len(payload["blocks"]) if payload else 0,
+                    "payload": payload,
+                })
+
+            def _kv_chain_import(self):
+                """Validate and register an exported chain against the
+                request's own prompt ``tokens``; a bad payload is a 400
+                (the fetcher falls back to a local prefill)."""
+                def parse(req):
+                    tokens = req.get("tokens")
+                    if not (isinstance(tokens, list) and tokens and all(
+                            isinstance(t, int) and not isinstance(t, bool)
+                            for t in tokens)):
+                        raise ValueError(
+                            "tokens must be a non-empty list of ints")
+                    return tokens, req.get("payload")
+
+                parsed = self._kv_body(parse)
+                if parsed is None:
+                    return
+                tokens, payload = parsed
+                imp = getattr(server.engine, "import_chain", None)
+                if imp is None:
+                    self._json(409, {
+                        "error": "this replica's engine cannot import "
+                                 "cache chains"
+                    })
+                    return
+                try:
+                    with server._lock:
+                        registered = imp(payload, tokens)
+                except ValueError as err:
+                    self._json(400, {"error": str(err)})
+                    return
+                self._json(200, {"registered": registered})
+
+            def _kv_prefill(self):
+                """The prefill tier's hop: prefill the prompt, sample ONE
+                token, and cut the KV payload at that first token. The
+                request retires at once (its chains stay registered
+                here); a request that finishes at its first token (EOS, a
+                one-token stop) needs no decode hop."""
+                try:
+                    body = _read_body(self, server.max_body_bytes)
+                except BodyTooLarge as err:
+                    self._json(413, {"error": str(err)})
+                    return
+                except ValueError as err:
+                    self._json(400, {"error": str(err)})
+                    return
+                try:
+                    req = json.loads(body or b"{}")
+                    prompt = server._decode_prompt(req.get("prompt"))
+                    skip = req.get("skip_keys") or []
+                    if not isinstance(skip, list) or not all(
+                            isinstance(k, str) for k in skip):
+                        raise ValueError(
+                            "skip_keys must be a list of hex strings")
+                    temperature = req.get("temperature")
+                    stop = server._decode_stop(req.get("stop"))
+                    logit_bias = _logit_bias_field(req)
+                    deadline_s = _deadline_field(req)
+                    if not hasattr(server.engine, "export_blocks"):
+                        raise ValueError(
+                            "this replica's engine cannot export KV "
+                            "payloads (prefix_cache paged engines only)"
+                        )
+                except (ValueError, TypeError, json.JSONDecodeError) as err:
+                    self._json(400, {"error": str(err)})
+                    return
+                try:
+                    rid, q = server._submit(
+                        prompt, 1, req.get("model"), temperature, stop,
+                        logit_bias, deadline_s, kv_export=frozenset(skip),
+                    )
+                except OverloadedError as err:
+                    self.send_response(429)
+                    self._retry_after_close(str(err))
+                    return
+                except DrainingError as err:
+                    self.send_response(503)
+                    self._retry_after_close(str(err))
+                    return
+                except EngineFailedError as err:
+                    self._json(503, {"error": str(err)})
+                    return
+                except ValueError as err:
+                    self._json(400, {"error": str(err)})
+                    return
+                # The registry entry outlives _finish's pop: take the
+                # reference now, read it once the final item lands.
+                exp = server._kv_exports.get(rid)
+                try:
+                    tokens: list = []
+                    while True:
+                        try:
+                            item = q.get(timeout=0.25)
+                        except queue.Empty:
+                            if _client_gone(self.connection):
+                                server._cancel(rid)
+                                return
+                            continue
+                        if isinstance(item, (_Final, _Abort)):
+                            break
+                        tokens.append(item)
+                    if isinstance(item, _Abort):
+                        code = 504 if item.reason == "deadline" else 500
+                        self._json(code, {"error": item.reason,
+                                          "partial_tokens": tokens})
+                        return
+                    if exp is not None and exp["error"] is not None:
+                        self._json(500, {"error": exp["error"]})
+                        return
+                    self._json(200, {
+                        "id": f"cmpl-{rid}",
+                        "payload": exp["payload"] if exp else None,
+                        "finished": {
+                            "tokens": item.tokens,
+                            "logprobs": item.logprobs,
+                            "finish_reason": item.finish_reason,
+                        },
+                    })
+                finally:
+                    server._finish(rid)
 
             def _completions(self):
                 try:
@@ -709,7 +1062,20 @@ class InferenceServer:
                     return
                 try:
                     req = json.loads(body or b"{}")
-                    prompt = server._decode_prompt(req.get("prompt"))
+                    kv_import = req.get("kv_import")
+                    if kv_import is not None and not isinstance(
+                            kv_import, dict):
+                        raise ValueError(
+                            "kv_import must be an exported KV payload "
+                            "object"
+                        )
+                    if kv_import is not None:
+                        # The payload carries the prompt (usage counts).
+                        prompt = [
+                            int(t) for t in kv_import.get("tokens") or []
+                        ]
+                    else:
+                        prompt = server._decode_prompt(req.get("prompt"))
                     max_tokens = req.get("max_tokens")
                     if max_tokens is not None and (
                         not isinstance(max_tokens, int)
@@ -729,38 +1095,28 @@ class InferenceServer:
                             f"n must be an integer in [1, 64], got {n!r}"
                         )
                     stop = server._decode_stop(req.get("stop"))
-                    logit_bias = req.get("logit_bias")
-                    if logit_bias is not None and not isinstance(
-                        logit_bias, dict
-                    ):
-                        raise ValueError(
-                            "logit_bias must be an object mapping token "
-                            "ids to biases"
-                        )
-                    deadline_s = req.get("deadline_s")
-                    if deadline_s is not None and (
-                        isinstance(deadline_s, bool)
-                        or not isinstance(deadline_s, (int, float))
-                        or not math.isfinite(deadline_s)
-                        or deadline_s <= 0
-                    ):
-                        raise ValueError(
-                            f"deadline_s must be a finite number > 0, "
-                            f"got {deadline_s!r}"
-                        )
+                    logit_bias = _logit_bias_field(req)
+                    deadline_s = _deadline_field(req)
                     stream = bool(req.get("stream", False))
                     if stream and n > 1:
                         raise ValueError("stream does not support n > 1")
                     want_logprobs = bool(req.get("logprobs", False))
                     if want_logprobs and stream:
                         raise ValueError("stream does not support logprobs")
+                    if kv_import is not None and n != 1:
+                        raise ValueError("kv_import does not support n > 1")
                 except (ValueError, TypeError, json.JSONDecodeError) as err:
                     self._json(400, {"error": str(err)})
                     return
                 subs = []
                 try:
                     try:
-                        for _ in range(n):
+                        if kv_import is not None:
+                            subs.append(server._submit_import(
+                                kv_import, max_tokens, temperature, stop,
+                                logit_bias, deadline_s,
+                            ))
+                        for _ in range(n if kv_import is None else 0):
                             subs.append(server._submit(
                                 prompt, max_tokens, req.get("model"),
                                 temperature, stop, logit_bias, deadline_s,
@@ -785,6 +1141,11 @@ class InferenceServer:
                         for rid, _ in subs:
                             server._cancel(rid, "sibling choice refused")
                         self._json(400, {"error": str(err)})
+                        return
+                    except KeyError as err:
+                        # A stub whose chain is no longer cached here:
+                        # resend with full data, or route fused.
+                        self._json(409, {"error": str(err)})
                         return
                     if stream:
                         self._stream(*subs[0])

@@ -1164,3 +1164,77 @@ def test_quant_engine_phase_rehearsed_on_the_cpu(smoke, no_card,
     assert cont_row["wide_calls"] == 7 * cfg.n_layers * 16  # 16 admissions
     assert isinstance(params.layers[0].wq, torch.nn.Parameter)
     assert not any(isinstance(m, TQ.QuantizedWeight) for m in params.modules())
+
+
+@pytest.fixture
+def prefix_stand_ins(smoke, monkeypatch):
+    """Phase 7 on the CPU: the attention wrappers the engines reach count
+    like the kernels and compute the plain versions, and every engine is
+    told its kernel is on."""
+    from kubeflow_tpu_torch.models import paged as TP
+
+    real = {"decode": TPA.paged_decode_attention,
+            "ragged": TRA.ragged_paged_attention,
+            "flash": TA.flash_attention_fwd}
+    plain = {"decode": TPA.paged_decode_reference,
+             "ragged": TRA.ragged_attention_reference,
+             "flash": TA.flash_attention_reference}
+
+    def stand_in(name):
+        def call(*a, **kw):
+            real[name].launches += 1
+            return plain[name](*a, **kw)
+        return call
+
+    monkeypatch.setattr(TP, "paged_decode_attention", stand_in("decode"))
+    monkeypatch.setattr(TP, "ragged_paged_attention", stand_in("ragged"))
+    monkeypatch.setattr(TA, "flash_attention_fwd", stand_in("flash"))
+    real_engine = smoke._prefix_engine
+
+    def engine(params, cfg, **kw):
+        eng = real_engine(params, cfg, **kw)
+        eng.attn_kernel = True
+        return eng
+
+    monkeypatch.setattr(smoke, "_prefix_engine", engine)
+
+
+def test_prefix_phase_rehearsed_on_the_cpu(smoke, no_card, prefix_stand_ins):
+    """Phase 7 at f32 ``tiny`` width: 360 prefix hits, the launch
+    arithmetic of each engine, the swap tier's promoted blocks byte-equal
+    to their snapshots, every imported block byte-equal to its payload,
+    and the HTTP hops."""
+    cfg = dataclasses.replace(TL.LLAMA_CONFIGS["tiny"], dtype=torch.float32)
+    params = TL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = smoke.prefix_phase(params, cfg, "a CPU rehearsal")
+    assert out["prefix_hits"] == 15 * 24
+    assert out["prompt_cache_hits"] == 7
+    assert out["flash_launches"] == cfg.n_layers
+    assert out["decode_launches"] > 0 and out["swap_in"] > 0
+    for kind in ("alternating", "ragged"):
+        assert out[f"{kind}_launches"] % cfg.n_layers == 0
+    assert out["payload_mb"] > 0
+
+
+def test_imported_bytes_check_fails_on_one_byte(smoke, no_card,
+                                                prefix_stand_ins):
+    """``check_imported_bytes`` passes on an import and fails when one
+    byte of one block's payload differs from the pool."""
+    import base64
+
+    cfg = dataclasses.replace(TL.LLAMA_CONFIGS["tiny"], dtype=torch.float32)
+    params = TL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    a = smoke._prefix_engine(params, cfg, prefix_cache=True)
+    out = {}
+    a.on_token = lambda rid, tok: out.setdefault(rid, a.export_blocks(rid))
+    rid = a.submit(list(range(3, 43)), max_new_tokens=1)
+    a.run()
+    payload = out[rid]
+    b = smoke._prefix_engine(params, cfg)
+    bid = b.import_blocks(payload)
+    assert smoke.check_imported_bytes(b, bid, payload) == 3
+    raw = bytearray(base64.b64decode(payload["blocks"][1]["data"]["v"]))
+    raw[5] ^= 1
+    payload["blocks"][1]["data"]["v"] = base64.b64encode(bytes(raw)).decode()
+    with pytest.raises(AssertionError, match="block 1's v"):
+        smoke.check_imported_bytes(b, bid, payload)

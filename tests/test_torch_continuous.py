@@ -381,3 +381,32 @@ def test_cache_store_rows_clips_at_the_end():
         if kv_bits:
             assert torch.equal(cache["k_scale"][1, :, 6:8], ks[1, :, :2])
             assert torch.equal(cache["v_scale"][0, :, 1:5], vs[0])
+
+
+# -- sliding-window configs ---------------------------------------------------
+
+
+@pytest.mark.parametrize("entry", ["oneshot", "ragged", "generate"])
+def test_sliding_window_parity(f32_gqa, entry):
+    """A ``sliding_window=8`` config with prompts longer than the window:
+    the dense engine with one-shot admission and with ragged admission in
+    lockstep with JAX's (the window in the flash prefill, the chunked
+    admissions and the gathered decode), and ``generate`` token for token
+    against JAX's."""
+    jcfg, tcfg, jparams, tparams = f32_gqa
+    models = (dataclasses.replace(jcfg, sliding_window=8),
+              dataclasses.replace(tcfg, sliding_window=8), jparams, tparams)
+    prompts = _prompts(4, seed=5, lo=10, hi=16)
+    if entry == "generate":
+        toks = np.asarray([p[:10] for p in prompts], np.int32)
+        ref = np.asarray(L.generate(jparams, models[0], jnp.asarray(toks),
+                                    steps=8, cache_len=24))
+        out = TL.generate(tparams, models[1], torch.from_numpy(toks),
+                          steps=8, cache_len=24)
+        np.testing.assert_array_equal(out.numpy(), ref)
+        return
+    kw = ({"ragged": True, "admit_chunk": 8, "cache_len": 40}
+          if entry == "ragged" else {"cache_len": 32})
+    jcb, tcb = _pair(models, 8, slots=2, prompt_bucket=16, **kw)
+    out = _lockstep(jcb, tcb, prompts)
+    assert all(len(t) == 8 for t in out.values())

@@ -225,20 +225,30 @@ def test_cpu_engine_never_calls_the_kernel(f32_gqa, monkeypatch):
 
 
 def test_constructor_refusals(f32_gqa):
-    _, tcfg, _, tparams = f32_gqa
-    kw = dict(slots=2, num_blocks=16, block_size=8, prompt_bucket=16,
-              device="cpu")
+    """The ragged engine refuses the sharing tiers with JAX's ValueError
+    and text; plan= alone is still not ported (item 11); swap_bytes and
+    sliding-window configs construct, the window with its kernel off."""
+    jcfg, tcfg, jparams, tparams = f32_gqa
+    jkw = dict(slots=2, num_blocks=16, block_size=8, prompt_bucket=16)
+    kw = dict(jkw, device="cpu")
     with pytest.raises(ValueError, match="attn_kernel"):
         TP.PagedBatcher(tparams, tcfg, ragged=True, attn_kernel=True, **kw)
     for bad in ({"ragged": True, "prefix_cache": True},
-                {"ragged": True, "prompt_cache": True},
-                {"ragged": True, "swap_bytes": 1024},
-                {"ragged": True, "plan": object()}):
-        with pytest.raises(NotImplementedError):
+                {"ragged": True, "prompt_cache": True}):
+        with pytest.raises(ValueError) as jerr:
+            JP.PagedBatcher(jparams, jcfg, **bad, **jkw)
+        with pytest.raises(ValueError) as terr:
             TP.PagedBatcher(tparams, tcfg, **bad, **kw)
-    with pytest.raises(NotImplementedError, match="sliding"):
-        TP.PagedBatcher(tparams, dataclasses.replace(tcfg, sliding_window=8),
-                        ragged=True, **kw)
+        assert str(terr.value) == str(jerr.value)
+    for ragged in (False, True):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            TP.PagedBatcher(tparams, tcfg, ragged=ragged, plan=object(),
+                            **kw)
+    assert TP.PagedBatcher(tparams, tcfg, ragged=True, swap_bytes=1024,
+                           **kw).swap_bytes_limit == 1024
+    win = TP.PagedBatcher(tparams, dataclasses.replace(tcfg, sliding_window=8),
+                          ragged=True, **kw)
+    assert win.attn_kernel is False
     with pytest.raises(ValueError, match="token_budget"):
         TP.PagedBatcher(tparams, tcfg, ragged=True, token_budget=1, **kw)
     with pytest.raises(ValueError, match="prompt_bucket"):
@@ -345,5 +355,7 @@ def test_alternating_engine_constructs(f32_gqa):
         TP.PagedBatcher(tparams, tcfg, attn_kernel=True, kv_bits=8, **kw)
     with pytest.raises(ValueError, match="attn_kernel"):
         TP.PagedBatcher(tparams, tcfg, attn_kernel=True, **kw)
+    assert TP.PagedBatcher(tparams, tcfg, prompt_cache=True,
+                           **kw)._prompt_cache_enabled
     with pytest.raises(NotImplementedError):
-        TP.PagedBatcher(tparams, tcfg, prompt_cache=True, **kw)
+        TP.PagedBatcher(tparams, tcfg, plan=object(), **kw)

@@ -581,8 +581,8 @@ def test_serve_batched_runs_on_the_cpu(monkeypatch, capsys, argv, env, label):
     (["--checkpoint", "/ckpt"], "item 12"),
     (["--prompt", "hello"], "item 12"),
     (["--speculative", "2"], "item 8"),
-    (["--prompt-cache", "--paged"], "item 7"),
-    (["--prefix-cache", "--paged"], "item 7"),
+    (["--prompt-cache", "--prefix-cache", "--paged"],
+     "--prompt-cache and --prefix-cache are mutually exclusive"),
     (["--tp", "2"], "item 11"),
     (["--sp", "2"], "item 13"),
 ])
@@ -597,6 +597,33 @@ def test_serve_batched_refuses_what_the_port_lacks(monkeypatch, argv,
     with pytest.raises(SystemExit) as info:
         serve_batched.main(["--device", "cpu"] + argv)
     assert message in str(info.value)
+
+
+@pytest.mark.parametrize("flag", ["--prompt-cache", "--prefix-cache"])
+def test_serve_batched_serves_with_a_sharing_tier(monkeypatch, capsys, flag):
+    """``--prompt-cache`` and ``--prefix-cache`` reach the ``--paged``
+    engine (the sharing tiers of ROADMAP queue 1 item 7), which serves
+    the three prompts with the tier on."""
+    from kubeflow_tpu_torch.examples import serve_batched
+    from kubeflow_tpu_torch.models import paged as TP
+
+    built = []
+    real = TP.PagedBatcher
+
+    def engine(*a, **kw):
+        built.append(kw)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(TP, "PagedBatcher", engine)
+    serve_batched.main(["--device", "cpu", "--paged", flag])
+    out = capsys.readouterr().out
+    assert "blocks free after run" in out
+    assert sum(line.startswith(f"[{i}] ") for line in out.splitlines()
+               for i in range(3)) == 3
+    (kw,) = built
+    on = flag.lstrip("-").replace("-", "_")
+    off = "prefix_cache" if on == "prompt_cache" else "prompt_cache"
+    assert kw[on] is True and kw[off] is False
 
 
 def test_serve_batched_exits_with_the_jax_messages(monkeypatch):

@@ -264,7 +264,6 @@ def test_serve_http_exits_on_a_garbage_knob(clean_env, env, fn):
 
 
 @pytest.mark.parametrize("env,paged,says", [
-    ({"KUBEFLOW_TPU_KV_SWAP_BYTES": "1048576"}, True, "item 7"),
     ({"KUBEFLOW_TPU_SERVING_TP": "2"}, True, "item 11"),
     ({"KUBEFLOW_TPU_SERVING_TP": "2"}, False, "item 11"),
     ({"KUBEFLOW_TPU_SPEC_DRAFT_LEN": "3",
@@ -292,6 +291,37 @@ def test_serve_http_refuses_a_knob_the_port_lacks(clean_env, env, paged,
     message = str(info.value)
     assert says in message
     assert next(iter(env)) in message
+
+
+def test_serve_http_swap_bytes_turns_the_prefix_cache_on(clean_env):
+    """KUBEFLOW_TPU_KV_SWAP_BYTES > 0 gives the alternating engine that
+    swap tier and its prefix cache, as in JAX; with
+    KUBEFLOW_TPU_SERVING_RAGGED=1 the engine refuses the pair with JAX's
+    message."""
+    from kubeflow_tpu_torch.examples import serve_http
+
+    class NoServer:
+        def __init__(self, engine, **kw):
+            self.engine = engine
+
+        def start(self):
+            raise _Built(self.engine)
+
+    clean_env.setenv("KUBEFLOW_TPU_KV_SWAP_BYTES", "1048576")
+    clean_env.setattr(TS, "InferenceServer", NoServer)
+    with pytest.raises(_Built) as info:
+        serve_http.main(PAGED_ARGS)
+    engine = info.value.args[0]
+    assert engine.swap_bytes_limit == 1048576
+    assert engine._prefix_cache_enabled and not engine.ragged
+    clean_env.setenv("KUBEFLOW_TPU_SERVING_RAGGED", "1")
+    cfg = L.LLAMA_CONFIGS["tiny"]
+    with pytest.raises(ValueError) as jax_err:
+        JP.PagedBatcher(L.init_params(cfg, jax.random.PRNGKey(0)), cfg,
+                        ragged=True, prefix_cache=True, swap_bytes=1048576)
+    with pytest.raises(ValueError) as port_err:
+        serve_http.main(PAGED_ARGS)
+    assert str(port_err.value) == str(jax_err.value)
 
 
 def test_serve_http_honors_hbm_fraction(clean_env):
