@@ -30,6 +30,13 @@ every kernel's launch count set to 0 just before it and read just after:
   ``csrc/flash_attention.cu``), the host-RAM swap tier, and KV payloads
   handed to an alternating and a ragged engine (whose decode runs the
   paged and the ragged kernel), in process and over ``/kv/*``;
+- speculation and multi-LoRA: ``SpeculativePagedBatcher(ragged=True)``
+  over a draft of the model's first 8 layers (``serve_http``'s cut), whose
+  every verify dispatch runs ``csrc/ragged_attention.cu`` in each layer
+  at spans of 5 rows a slot and whose draft primes prefill through
+  ``csrc/flash_attention.cu``; the alternating and continuous spec
+  engines; ``MultiLoraPagedBatcher`` serving two adapters and base in one
+  ragged batch, and both behind the server;
 - training, ``models/train.py``'s ``make_train_step`` (remat "full", loss
   chunk 512, AdamW) at B 1, S 2048, of ``llama-3-8b`` (head dim 128) and
   then ``gemma-2b`` (head dim 256), whose every step runs the flash
@@ -56,8 +63,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    of keys (a causal bound at a run boundary and one key either side, a
    masked span longer than a run, an idle slot with a stale kv_len beside
    split slots, one row over 8192 keys, 8 rows over 512..4096 keys,
-   32-token q-tiles, head dims 64 and 256), bf16 and int8 pools, on owned
-   rows; unowned rows exactly 0; each case run twice, its output equal bit
+   32-token q-tiles, head dims 64 and 256, and the speculative verify
+   spans: 8 slots × 5 rows over 8..564 keys and over 512..4096 keys at
+   the engine's 64-row width), bf16 and int8 pools, on owned rows; unowned rows exactly 0; each case run twice, its output equal bit
    for bit. Flash forward: the CPU suite's cases, the main-path
    prefill (Hq 32, Hkv 8, Sq = Sk = 512, D 128, causal, left padding), a
    shape past the TPU's 4 MB whole-K/V line (Sq = Sk = 16384), window
@@ -105,8 +113,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    TB/s, FLOPs of the visible pairs over 989 TFLOP/s); ragged attention
    at the shapes the ragged engine runs (``RAGGED_TIMED``: an admission
    step of 512 rows, the width-8 decode step, 8 slots of 512..4096 keys,
-   one slot of 8192, a 512-row chunk over 4096 keys; int8 at the first
-   two), each with the CTAs and kernels its call launched (read from a
+   one slot of 8192, a 512-row chunk over 4096 keys, the spec engine's
+   verify round of 8 × 5 rows over 8..564 and over 512..4096 keys; int8
+   at the first two and the verify rounds), each with the CTAs and kernels its call launched (read from a
    profiler trace and checked: one launch of the split grid), against
    the decode SDPA yardstick where every sequence has one row; both decode
    kernels at the main-path decode, 8 slots of 512..4096 keys and one
@@ -187,7 +196,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    not a benchmark's, beside the card line: cold and prefix-hit admission
    seconds (median of 5), export and import seconds and MB of the
    500-token payload, swap-out and swap-in µs a block (medians);
-8. train — the serving model and engines are freed, then llama-3-8b and
+8. speculation and multi-LoRA — on the same model, a draft of its first
+   8 layers (``truncated_draft``, sharing its modules): the ragged
+   ``SpeculativePagedBatcher`` (k_spec 4, phase 5's engine and 16 prompts)
+   over a bf16 and an int8 pool, where ragged launches must equal verify
+   dispatches × n_layers and flash launches draft primes × 8 (no other
+   attention kernel), the free blocks must come back, and the tokens are
+   held to phase 5's plain ragged run by its near-tie rule (equal, or at
+   the first fork the two tokens' logprobs under a plain forward of the
+   common prefix within 2e-2); one round with rejections, whose every
+   rejected cell (int8 scales too) must be its snapshot's bytes; a
+   self-draft (the target as its own draft) on 4 prompts accepting at
+   least 0.9, each rejection a near-tie; the alternating and the continuous spec engines (as
+   ``serve_batched --speculative`` builds the latter) on 4 prompts, no
+   decode kernel, flash launches = prefills' layers; then
+   ``MultiLoraPagedBatcher`` (a hot cache of one slot) serving two rank-16
+   adapters on all seven targets (drawn from the seed, each delta ~3% of
+   its projection's output) and base over 12 prompts in one batch:
+   launches as phase 5, the cache's churn, peak memory, each adapter's
+   rows held to a plain engine over ``merge_lora`` (one merged copy at a
+   time) and base rows to phase 5's run by the near-tie rule (a fork's
+   forward over the merged model; logprobs before it within 2e-2); over
+   HTTP, each adapter and base at once, blocking and then streamed
+   (streamed = blocking; two-token prompts keep each round at one
+   dispatch width), an unknown ``model`` 400, ``/v1/models`` listing all
+   three, and over the spec engine ``/stats``' ``speculative`` block and
+   a 400 for ``logprobs``. Smoke numbers beside the card line: acceptance,
+   rounds, the 16 prompts' wall against the plain engine's, the verify
+   dispatch widths;
+9. train — the serving model and engines are freed, then llama-3-8b and
    after it gemma-2b, each at full width and depth, train from random
    bf16 weights on batches of a
    numpy corpus through the port's ``TokenLoader``: step 1's loss and
@@ -224,6 +261,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -233,15 +271,27 @@ from torch.nn import functional as F
 from kubeflow_tpu_torch.data.loader import TokenLoader, write_token_file
 from kubeflow_tpu_torch.models import continuous as cont_mod
 from kubeflow_tpu_torch.models import llama as L
+from kubeflow_tpu_torch.models import lora as lora_mod
 from kubeflow_tpu_torch.models import paged as paged_mod
 from kubeflow_tpu_torch.models import quant as quant_mod
+from kubeflow_tpu_torch.models import speculative as spec_mod
 from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
 from kubeflow_tpu_torch.models.fp8 import quantize_weight_fp8
 from kubeflow_tpu_torch.models.llama import _kv_quantize
+from kubeflow_tpu_torch.models.lora import LoraConfig, merge_lora
+from kubeflow_tpu_torch.models.multilora import (
+    MultiLoraPagedBatcher,
+    stack_adapters,
+)
 from kubeflow_tpu_torch.models.paged import PagedBatcher
 from kubeflow_tpu_torch.models.server import InferenceServer
 from kubeflow_tpu_torch.models import train as train_mod
 from kubeflow_tpu_torch.models.serving import GenerationConfig
+from kubeflow_tpu_torch.models.speculative import (
+    SpeculativeContinuousBatcher,
+    SpeculativePagedBatcher,
+    truncated_draft,
+)
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import attention as attn_mod
 from kubeflow_tpu_torch.ops import paged_attention as decode_mod
@@ -425,6 +475,17 @@ RAG_DECODE = dict(hq=32, hkv=8, d=128, bs=16, maxb=37, nb=8 * 37 + 1, t=8)
 RAG_LONG = dict(hq=32, hkv=8, d=128, bs=16, maxb=256, nb=8 * 256 + 1, t=8)
 RAG_SINGLE = dict(hq=32, hkv=8, d=128, bs=16, maxb=512, nb=512 + 1, t=8)
 RAG_CHUNK = dict(hq=32, hkv=8, d=128, bs=16, maxb=256, nb=256 + 1, t=512)
+# Speculative verify spans (k_spec 4: 1 + 4 rows a slot, 5 of a 16-row
+# q-tile, each row bounded by k_pos <= kv_len − 5 + j): the ragged spec
+# engine's full-house round of 8 slots over 8..564 keys, and 8 slots of
+# 512..4096 keys, both at the dispatch width the engine pads 40 rows to.
+SPEC_K = 4
+VERIFY_LENS = [int(x) for x in np.linspace(8, 564, 8)]
+VERIFY_SPANS = [(SPEC_K + 1, n) for n in VERIFY_LENS]
+VERIFY_LONG_SPANS = [(SPEC_K + 1, n) for n in LONG_LENS]
+RAG_VERIFY = dict(hq=32, hkv=8, d=128, bs=16, maxb=37, nb=8 * 37 + 1, t=64)
+RAG_VERIFY_LONG = dict(hq=32, hkv=8, d=128, bs=16, maxb=256, nb=8 * 256 + 1,
+                       t=64)
 # Phase 3's ragged cases: (spans, shape, options, q_tile, name, seed). The
 # CPU suite's layouts, the other head dims and 32-token q-tiles, the
 # main-path shape; then the split design's edges: decode rows and
@@ -457,6 +518,8 @@ RAGGED_CASES = [
      "split-d64", 156),
     ([(1, 700), (30, 900), (1, 513)], {**RAG_SPLIT, "d": 256}, {}, 16,
      "split-d256", 157),
+    (VERIFY_SPANS, RAG_VERIFY, {}, 16, "verify-spans", 158),
+    (VERIFY_LONG_SPANS, RAG_VERIFY_LONG, {}, 16, "verify-spans-4096", 159),
 ]
 
 
@@ -1081,6 +1144,9 @@ RAGGED_TIMED = (
      ("bf16",)),
     ("ragged-single-8192", [(1, 8192)], RAG_SINGLE, 512, ("bf16",)),
     ("ragged-chunk-4096", [(512, 4096)], RAG_CHUNK, 513, ("bf16",)),
+    ("ragged-verify", VERIFY_SPANS, RAG_VERIFY, 514, ("bf16", "int8")),
+    ("ragged-verify-4096", VERIFY_LONG_SPANS, RAG_VERIFY_LONG, 515,
+     ("bf16", "int8")),
 )
 RAGGED_ROW_KEYS = ("ms", "plain_ms", "library_ms", "library_backend",
                    "bound_ms", "bound_by", "ctas", "launches_per_call",
@@ -2059,9 +2125,10 @@ def _compare(kern, plain) -> dict:
     return report
 
 
-def engine_phase(params, cfg):
+def engine_phase(params, cfg, runs=None):
     """Phase 5, the ragged engine: returns ({variant: launches}, the bf16
-    engine)."""
+    engine). ``runs``, where given, keeps each variant's (tokens,
+    logprobs, wall) under ("ragged", kv_bits, prompts) for phase 8."""
     prompts = _prompts(cfg, 16, 8, 500, SEED)
     launches, engines = {}, {}
     for variant, bits in (("bf16", 0), ("int8", 8)):
@@ -2083,6 +2150,8 @@ def engine_phase(params, cfg):
         check(counts["flash"] == counts["decode"] == counts["dense"] == 0,
               f"{variant}: the ragged engine launched {counts}")
         _check_outputs(cfg, toks, lps)
+        if runs is not None:
+            runs[("ragged", bits, len(prompts))] = (toks, lps, wall)
         n_tok = sum(len(tk) for tk in toks)
         peak = torch.cuda.max_memory_allocated()
         log(f"  ragged {variant}: {steps} steps, {engine.ragged_tokens} rows,"
@@ -2104,9 +2173,10 @@ def engine_phase(params, cfg):
     return launches, engines["bf16"]
 
 
-def alternating_phase(params, cfg):
+def alternating_phase(params, cfg, runs=None):
     """Phase 5, the alternating engine with a bf16 pool: returns
-    ({"flash": launches, "decode": launches}, the engine)."""
+    ({"flash": launches, "decode": launches}, the engine). ``runs``, where
+    given, keeps the 4-prompt kernel run under "alternating"."""
     prompts = _prompts(cfg, 16, 8, 500, SEED)
     engine = _engine(params, cfg, 0, ragged=False)
     check(engine.attn_kernel, "the alternating engine's decode kernel is off")
@@ -2137,6 +2207,8 @@ def alternating_phase(params, cfg):
         f"{counts['decode']} decode launches, peak {peak / 2**30:.2f} GiB")
     sub = prompts[::4]
     kern = _serve(_engine(params, cfg, 0, ragged=False), sub)
+    if runs is not None:
+        runs["alternating"] = kern
     with _plain_prefill(paged_mod, "_paged_admit"):
         plain = _serve(_engine(params, cfg, 0, ragged=False,
                                attn_kernel=False), sub)
@@ -2153,10 +2225,11 @@ def alternating_phase(params, cfg):
     return {"flash": counts["flash"], "decode": counts["decode"]}, engine
 
 
-def continuous_phase(params, cfg):
+def continuous_phase(params, cfg, runs=None):
     """Phase 5, the continuous engine with a bf16 cache of 1024 positions
     per slot: returns ({"flash": launches, "dense": launches}, the
-    engine)."""
+    engine). ``runs``, where given, keeps the 4-prompt kernel run under
+    "continuous"."""
     prompts = _prompts(cfg, 16, 8, 500, SEED)
     engine = _cont_engine(params, cfg)
     check(engine._attn_kernel == 512,
@@ -2190,6 +2263,8 @@ def continuous_phase(params, cfg):
         f"{peak / 2**30:.2f} GiB")
     sub = prompts[::4]
     kern = _serve(_cont_engine(params, cfg), sub)
+    if runs is not None:
+        runs["continuous"] = kern
     with _plain_prefill(cont_mod, "_admit_slot"):
         plain = _serve(_cont_engine(params, cfg, attn_kernel=False), sub)
     report = _compare(kern, plain)
@@ -2926,6 +3001,491 @@ def prefix_phase(params, cfg, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Speculation and multi-LoRA
+
+
+DRAFT_LAYERS = 8  # serve_http's draft of llama-3-8b: n_layers // 4
+SELF_DRAFT_MIN = 0.9  # a self-draft's acceptance: only bf16 near-ties reject
+LORA_RANK = 16
+# Each adapter's delta, over its projection's output (ratio of the two
+# standard deviations for unit-scale inputs).
+LORA_DELTA = 0.03
+LORA_NAMES = ("a0", "a1")
+
+
+def _spec_engine(params, cfg, dparams, dcfg, kv_bits=0, ragged=True):
+    """The paged engine of phase 5 (8 slots, block 16, bucket 512, 64 new
+    tokens) as ``SpeculativePagedBatcher`` with k_spec SPEC_K."""
+    return SpeculativePagedBatcher(
+        params, cfg, dparams, dcfg,
+        gen=GenerationConfig(max_new_tokens=64, eos_id=-1), slots=8,
+        num_blocks=8 * 37 + 24, block_size=16, prompt_bucket=512,
+        k_spec=SPEC_K, kv_bits=kv_bits, ragged=ragged,
+        token_budget=512 if ragged else None, device=DEVICE)
+
+
+def _serve_tokens(engine, prompts) -> list:
+    """Serve ``prompts`` on an engine that keeps no logprobs; their tokens
+    in order."""
+    rids = [engine.submit(p) for p in prompts]
+    out = engine.run()
+    return [out[r] for r in rids]
+
+
+def _check_spec_outputs(cfg, toks) -> None:
+    for tk in toks:
+        check(len(tk) == 64, "a request stopped early")
+        check(all(0 <= x < cfg.vocab_size for x in tk), "token off vocab")
+
+
+@contextlib.contextmanager
+def _counting_layers(module, *names):
+    """Count the calls of ``module.<name>`` for each name while inside and
+    the model layers they ran (their config, the second argument):
+    yields {"calls": n, "layers": Σ n_layers}."""
+    seen = {"calls": 0, "layers": 0}
+    real = {n: getattr(module, n) for n in names}
+
+    def counted(name):
+        def call(params, cfg, *args, **kwargs):
+            seen["calls"] += 1
+            seen["layers"] += cfg.n_layers
+            return real[name](params, cfg, *args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(module, name, counted(name))
+    try:
+        yield seen
+    finally:
+        for name in names:
+            setattr(module, name, real[name])
+
+
+def _expected_spec_counts(kind: str, dispatches: int, prefill_layers: int,
+                          n_layers: int) -> dict:
+    """The attention launches a speculative run must make. Every prefill
+    (a draft prime, and on the alternating and continuous engines the
+    target's admissions) is one flash launch a layer: ``prefill_layers``
+    is the layers of all of them. The ragged engine's verify dispatches
+    run the ragged kernel once a layer, and nothing else attends with a
+    kernel (the draft's steps and the other engines' verifies attend on
+    the gathered view or the dense cache, plain)."""
+    return {"ragged": dispatches * n_layers if kind == "ragged" else 0,
+            "flash": prefill_layers, "decode": 0, "dense": 0}
+
+
+def _plain_forward_logprobs(params, cfg, tokens) -> torch.Tensor:
+    """log_softmax of the plain forward's next-token logits after
+    ``tokens``, in f32."""
+    with torch.no_grad():
+        x = L.forward_hidden(params, cfg, torch.tensor(
+            [tokens], dtype=torch.long, device=DEVICE), attn_impl="xla")
+        return torch.log_softmax(L._lm_head_logits(x[:, -1], params),
+                                 dim=-1)[0]
+
+
+def _near_tie_gap(params, cfg, context, a: int, b: int) -> float:
+    """|logprob(a) − logprob(b)| of the next token after ``context`` under
+    one plain forward of ``params``, held to TOL: two choices that close
+    are a bf16 near-tie, which any rounding may decide either way."""
+    lp = _plain_forward_logprobs(params, cfg, context)
+    gap = abs(float(lp[a] - lp[b]))
+    check(gap <= TOL, f"tokens {a} and {b} after {len(context)} tokens are "
+                      f"no near-tie: logprobs {gap} apart under a plain "
+                      "forward")
+    return gap
+
+
+def _compare_greedy(params, cfg, prompts, got, plain, got_lps=None) -> list:
+    """Tokens of an engine (``got``, with their logprobs ``got_lps`` where
+    it keeps them) held to a plain engine's over the model ``params``
+    (``plain`` = (tokens, logprobs)) by phase 5's rule for bf16
+    near-ties: tokens equal, or at their first fork the two choices are a
+    near-tie (``_near_tie_gap``), and where both keep logprobs, the
+    chosen tokens' logprobs before the fork within TOL. A first-token
+    fork passes as any other: with bf16 logits, ties are common at random
+    weights. Returns per prompt the fork (-1: none), the gap there and
+    the largest logprob difference before it."""
+    report = []
+    for i, (prompt, gt, pt) in enumerate(zip(prompts, got, plain[0])):
+        fork = next((j for j, (a, b) in enumerate(zip(gt, pt)) if a != b),
+                    -1)
+        upto = len(gt) if fork < 0 else fork
+        diff = None
+        if got_lps is not None:
+            diff = max((abs(a - b) for a, b in zip(got_lps[i][:upto],
+                                                   plain[1][i][:upto])),
+                       default=0.0)
+            check(diff <= TOL, f"chosen-token logprobs differ by {diff} "
+                               f"before the fork at {fork}")
+        gap = (None if fork < 0 else _near_tie_gap(
+            params, cfg, prompt + pt[:fork], gt[fork], pt[fork]))
+        report.append({"fork": fork, "gap": gap, "max_logprob_diff": diff})
+    return report
+
+
+@contextlib.contextmanager
+def _rejections():
+    """While inside, record each speculative round's first rejected
+    proposal of every slot: (context, the draft's token, the target's),
+    the context being the request's prompt and tokens so far and the
+    round's accepted proposals. Yields the list."""
+    seen = []
+    real = spec_mod._apply_spec_round
+
+    def walk(outer, engine, active, preds, props, k_spec=None):
+        k = outer.k_spec if k_spec is None else k_spec
+        for slot in active:
+            n = 0
+            while n < k and preds[slot, n] == props[slot, n]:
+                n += 1
+            if n < k:
+                req = engine._by_slot[slot]
+                seen.append((req.prompt + req.tokens
+                             + [int(t) for t in props[slot, :n]],
+                             int(props[slot, n]), int(preds[slot, n])))
+        return real(outer, engine, active, preds, props, k_spec=k_spec)
+
+    spec_mod._apply_spec_round = walk
+    try:
+        yield seen
+    finally:
+        spec_mod._apply_spec_round = real
+
+
+def check_rollback_round(sb, prompt) -> int:
+    """Serve ``prompt`` alone on a ragged speculative engine up to a round
+    that rejects a proposal: after it, each rejected cell of every pool
+    leaf (int8 scales too) must be, byte for byte, its snapshot from
+    before the dispatch. Returns the cells checked."""
+    pb = sb._pb
+    snaps = []
+    real = paged_mod._gather_cells
+
+    def spy(pool, blks, offs):
+        snap = real(pool, blks, offs)
+        snaps.append((snap, list(blks), list(offs)))
+        return snap
+
+    paged_mod._gather_cells = spy
+    try:
+        sb.submit(prompt)
+        while pb._pending():
+            snaps.clear()
+            slot = next((i for i, r in enumerate(pb._by_slot)
+                         if r is not None), None)
+            pos0 = None if slot is None else int(pb.positions[slot])
+            pb.drive_once()
+            if not snaps or slot is None or pb._by_slot[slot] is None:
+                continue
+            snap, blks, offs = snaps[0]
+            kept = int(pb.positions[slot]) - pos0
+            if kept == len(blks):
+                continue  # every proposal accepted
+            now = real(pb.pool, blks, offs)
+            for name, rows in snap.items():
+                check(_same_bits(now[name][kept:], rows[kept:]),
+                      f"a rejected cell's {name} differs from its snapshot")
+            sb.run()
+            return len(blks) - kept
+    finally:
+        paged_mod._gather_cells = real
+    raise AssertionError("no round rejected a proposal")
+
+
+def _spec_ragged_part(params, cfg, dparams, dcfg, runs) -> dict:
+    """The ragged speculative engine over a bf16 and an int8 pool on phase
+    5's 16 prompts, held to the plain ragged engine; a rollback round; a
+    self-draft on 4 prompts."""
+    prompts = _prompts(cfg, 16, 8, 500, SEED)
+    out = {}
+    for variant, bits in (("bf16", 0), ("int8", 8)):
+        engine = _spec_engine(params, cfg, dparams, dcfg, bits)
+        start = engine.free_blocks
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _counting_layers(cont_mod, "_admit_slot") as primes, \
+                _recording(paged_mod, "_paged_ragged_verify",
+                           lambda p, c, tokens, *a, **k: tokens.shape[0]
+                           ) as widths:
+            _zero_counts()
+            toks, wall = _synced_seconds(_serve_tokens, engine, prompts)
+            counts = _counts()
+        steps = engine._pb.ragged_steps
+        want = _expected_spec_counts("ragged", steps, primes["layers"],
+                                     cfg.n_layers)
+        check(steps == len(widths) > 0, f"{steps} ragged steps, "
+                                        f"{len(widths)} verify dispatches")
+        check({k: counts[k] for k in want} == want,
+              f"{variant}: launches {counts}, want {want}")
+        check(primes["calls"] >= len(prompts) and
+              primes["layers"] == primes["calls"] * DRAFT_LAYERS,
+              f"{primes} draft primes for {len(prompts)} admissions")
+        check(engine.free_blocks == start,
+              f"{engine.free_blocks} free blocks after the run, {start} "
+              "before")
+        _check_spec_outputs(cfg, toks)
+        plain = _plain_ragged(params, cfg, bits, prompts, runs)
+        report = _compare_greedy(params, cfg, prompts, toks, plain[:2])
+        rolled = check_rollback_round(
+            _spec_engine(params, cfg, dparams, dcfg, bits), prompts[3])
+        stats = engine.spec_stats()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  speculative ragged {variant}: {steps} verify dispatches "
+            f"({counts['ragged']} ragged launches), {primes['calls']} "
+            f"draft primes ({counts['flash']} flash launches), "
+            f"{json.dumps(stats)}, free blocks back to {start}, "
+            f"{rolled} rejected cells byte-equal after a rollback, "
+            f"peak {peak / 2**30:.2f} GiB; vs the plain ragged engine "
+            f"(fork -1 = tokens equal): {json.dumps(report)}")
+        out[variant] = {
+            "launches": counts["ragged"], "flash_launches": counts["flash"],
+            "acceptance_rate": stats["acceptance_rate"],
+            "rounds": stats["rounds"], "wall_s": wall, "plain_wall_s":
+            plain[2], "widths": dict(collections.Counter(widths))}
+    sub = prompts[::4]
+    plain = _plain_ragged(params, cfg, 0, prompts, runs)
+    engine = _spec_engine(params, cfg, params, cfg)
+    with _rejections() as rejected:
+        toks = _serve_tokens(engine, sub)
+    report = _compare_greedy(params, cfg, sub, toks,
+                             (plain[0][::4], plain[1][::4]))
+    rate = engine.acceptance_rate
+    check(rate >= SELF_DRAFT_MIN,
+          f"a self-draft accepted {rate} of its proposals")
+    # Only bf16 near-ties may reject a self-draft's proposal.
+    gaps = [_near_tie_gap(params, cfg, *r) for r in rejected]
+    log(f"  self-draft (the target as its own draft) on 4 prompts: "
+        f"acceptance {rate}, {len(gaps)} rejections, each a near-tie "
+        f"(largest gap {max(gaps, default=0.0)}); vs the plain ragged "
+        f"engine: {json.dumps(report)}")
+    out["self_draft_acceptance"] = rate
+    return out
+
+
+def _plain_ragged(params, cfg, bits, prompts, runs):
+    """(tokens, logprobs, wall) of the plain ragged engine on ``prompts``:
+    phase 5's run where ``runs`` holds it, else a run now (kept there)."""
+    key = ("ragged", bits, len(prompts))
+    if key not in runs:
+        (toks, lps), wall = _synced_seconds(_serve,
+                                            _engine(params, cfg, bits),
+                                            prompts)
+        runs[key] = (toks, lps, wall)
+    return runs[key]
+
+
+def _spec_other_part(params, cfg, dparams, dcfg, runs) -> dict:
+    """The alternating speculative engine and the continuous one (as
+    ``serve_batched --speculative`` builds it) on 4 prompts each, held to
+    the plain alternating and continuous engines."""
+    prompts = _prompts(cfg, 16, 8, 500, SEED)[::4]
+    out = {}
+    bucket = 16 * ((max(len(p) for p in prompts) + 15) // 16)
+    gen = GenerationConfig(max_new_tokens=64, eos_id=-1)
+    for kind in ("alternating", "continuous"):
+        if kind == "alternating":
+            engine = _spec_engine(params, cfg, dparams, dcfg, ragged=False)
+            plain = runs.get(kind) or _serve(
+                _engine(params, cfg, 0, ragged=False), prompts)
+        else:
+            engine = SpeculativeContinuousBatcher(
+                params, cfg, dparams, dcfg, gen=gen, slots=len(prompts),
+                cache_len=bucket + gen.max_new_tokens + SPEC_K + 1,
+                prompt_bucket=bucket, k_spec=SPEC_K, device=DEVICE)
+            plain = runs.get(kind) or _serve(_cont_engine(params, cfg),
+                                             prompts)
+        with _counting_layers(paged_mod, "_paged_admit") as admits, \
+                _counting_layers(cont_mod, "_admit_slot") as slot_admits:
+            _zero_counts()
+            toks = _serve_tokens(engine, prompts)
+            counts = _counts()
+        prefill = admits["layers"] + slot_admits["layers"]
+        want = _expected_spec_counts(kind, 0, prefill, cfg.n_layers)
+        check({k: counts[k] for k in want} == want,
+              f"{kind}: launches {counts}, want {want}")
+        _check_spec_outputs(cfg, toks)
+        report = _compare_greedy(params, cfg, prompts, toks, plain)
+        stats = engine.spec_stats()
+        log(f"  speculative {kind}: {counts['flash']} flash launches "
+            f"({admits['calls'] + slot_admits['calls']} prefills), no "
+            f"decode kernel, {json.dumps(stats)}; vs the plain {kind} "
+            f"engine (fork -1 = tokens equal): {json.dumps(report)}")
+        out[kind] = {"flash_launches": counts["flash"],
+                     "acceptance_rate": stats["acceptance_rate"]}
+    return out
+
+
+def _draw_adapter(cfg, lcfg, seed: int) -> dict:
+    """A rank-r adapter on every target of ``lcfg`` from ``seed``: a ~
+    N(0, 1/in), as the base weights are drawn, and b ~ N(0, LORA_DELTA² /
+    (r · scaling²)), so that each delta x@a@b · scaling is LORA_DELTA of
+    its projection's output x@W, in standard deviation."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = {}
+    for target in lcfg.targets:
+        d_in, d_out = lora_mod._target_shapes(cfg)[target]
+        a = torch.randn((cfg.n_layers, d_in, lcfg.rank), generator=gen,
+                        device=DEVICE) / math.sqrt(d_in)
+        b = torch.randn((cfg.n_layers, lcfg.rank, d_out), generator=gen,
+                        device=DEVICE) * (LORA_DELTA / math.sqrt(lcfg.rank)
+                                          / lcfg.scaling)
+        out[target] = {"a": a.to(cfg.dtype), "b": b.to(cfg.dtype)}
+    return out
+
+
+def _lora_engine(params, cfg, stacked, lcfg, **kw):
+    return MultiLoraPagedBatcher(
+        params, cfg, stacked, lcfg, adapter_names=list(LORA_NAMES),
+        gen=GenerationConfig(max_new_tokens=64, eos_id=-1), slots=8,
+        num_blocks=8 * 37 + 24, block_size=16, prompt_bucket=512,
+        ragged=True, token_budget=512, device=DEVICE, **kw)
+
+
+def _lora_part(params, cfg, runs):
+    """``MultiLoraPagedBatcher`` (hot cache of one slot) serving 2 adapters
+    and base over 12 of phase 5's prompts in one batch: launches, the hot
+    cache's churn, peak memory; each adapter's rows held to the plain
+    ragged engine over ``merge_lora`` (one merged copy at a time), base
+    rows to phase 5's run. Returns (numbers, the engine's stacked
+    adapters and config)."""
+    lcfg = LoraConfig(rank=LORA_RANK, alpha=float(LORA_RANK),
+                      targets=lora_mod._ADAPTABLE)
+    adapters = [_draw_adapter(cfg, lcfg, SEED + 30 + i)
+                for i in range(len(LORA_NAMES))]
+    stacked = stack_adapters(adapters, cfg, lcfg)
+    prompts = _prompts(cfg, 16, 8, 500, SEED)
+    tags = [(*LORA_NAMES, None)[i % 3] for i in range(12)]
+    engine = _lora_engine(params, cfg, stacked, lcfg, lora_cache_slots=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    rids = [engine.submit(p, adapter=t) for p, t in zip(prompts, tags)]
+    res, wall = _synced_seconds(engine.run)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    toks = [res[r] for r in rids]
+    lps = [engine.run_logprobs()[r] for r in rids]
+    steps = engine.ragged_steps
+    check(steps > 0 and counts["ragged"] == steps * cfg.n_layers,
+          f"{counts['ragged']} ragged launches for {steps} steps")
+    check(counts["flash"] == counts["decode"] == counts["dense"] == 0,
+          f"the multi-LoRA engine launched {counts}")
+    _check_outputs(cfg, toks, lps)
+    cache = engine.lora_cache_stats()
+    check(cache["misses"] >= 2 and cache["evictions"] >= 1,
+          f"the one-slot hot cache saw no churn: {cache}")
+    reports = {}
+    plain = _plain_ragged(params, cfg, 0, prompts, runs)
+    for name in (*LORA_NAMES, None):
+        idx = [i for i, t in enumerate(tags) if t == name]
+        sub = [prompts[i] for i in idx]
+        if name is None:
+            ref = params
+            want = ([plain[0][i] for i in idx], [plain[1][i] for i in idx])
+        else:
+            ref = merge_lora(params, adapters[LORA_NAMES.index(name)], lcfg)
+            want = _serve(_engine(ref, cfg, 0), sub)
+        reports[name or "base"] = _compare_greedy(
+            ref, cfg, sub, [toks[i] for i in idx], want,
+            got_lps=[lps[i] for i in idx])
+        del ref  # one merged copy at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  multi-LoRA: 2 adapters (rank {LORA_RANK}, 7 targets) + base, "
+        f"12 prompts, {steps} steps, {counts['ragged']} ragged launches, "
+        f"{wall:.3f} s wall, hot cache {json.dumps(cache)}, peak "
+        f"{peak / 2**30:.2f} GiB; each tag vs a plain ragged engine over "
+        f"its merged weights (fork -1 = tokens equal): "
+        f"{json.dumps(reports)}")
+    return {"launches": counts["ragged"], "wall_s": wall,
+            "peak_gib": peak / 2**30, "lora_cache": cache}, (stacked, lcfg)
+
+
+def _spec_lora_http_part(params, cfg, dparams, dcfg, stacked, lcfg) -> None:
+    """Over the multi-LoRA engine, 3 concurrent requests, one for each
+    adapter and base, blocking, then the same 3 streamed: streamed =
+    blocking; an unknown ``model`` is 400 and /v1/models lists all three.
+    Two-token prompts keep every dispatch of a round at the 8-row floor
+    (6 rows at most), as phase 6's do, so both copies run at one width: a
+    16-row dispatch takes other GEMM kernels, whose rounding may decide a
+    bf16 near-tie otherwise. Over the ragged speculative engine, /stats
+    carries ``speculative`` and ``logprobs`` is 400."""
+    srv = InferenceServer(_lora_engine(params, cfg, stacked, lcfg,
+                                       lora_cache_slots=1), port=0,
+                          model_name="llama-3-8b", drain_s=30.0).start()
+    try:
+        models = ("llama-3-8b", *LORA_NAMES)
+        prompt, other = _prompts(cfg, 2, 2, 2, SEED + 40)
+        results = {}
+        for stream in (False, True):
+            bodies = [{"prompt": prompt, "max_tokens": 16, "stream": stream,
+                       "model": m} for m in models]
+            with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+                results[stream] = list(pool.map(
+                    lambda b: _post(srv.port, b), bodies))
+        for m, blocking, streamed in zip(models, results[False],
+                                         results[True]):
+            check(len(blocking) == 16 and streamed == blocking,
+                  f"{m}: streamed {streamed} != blocking {blocking}")
+        try:
+            _post(srv.port, {"prompt": prompt, "model": "nope"})
+            check(False, "an unknown model was served")
+        except urllib.error.HTTPError as err:
+            check(err.code == 400, f"an unknown model got {err.code}")
+        listed = [m["id"] for m in _get_json(srv.port, "/v1/models")["data"]]
+        check(listed == list(models), f"/v1/models lists {listed}")
+        lora = _get_json(srv.port, "/stats")["lora_cache"]
+    finally:
+        srv.stop()
+    srv = InferenceServer(_spec_engine(params, cfg, dparams, dcfg), port=0,
+                          model_name="llama-3-8b", drain_s=30.0).start()
+    try:
+        tokens = _post(srv.port, {"prompt": other, "max_tokens": 16})
+        check(len(tokens) == 16, "speculative blocking response length")
+        try:
+            _post(srv.port, {"prompt": other, "logprobs": True})
+            check(False, "a speculative engine answered logprobs")
+        except urllib.error.HTTPError as err:
+            check(err.code == 400, f"logprobs got {err.code}")
+        spec = _get_json(srv.port, "/stats").get("speculative")
+        check(spec is not None and spec["rounds"] > 0,
+              f"/stats speculative: {spec}")
+    finally:
+        srv.stop()
+    log(f"  HTTP: 3 models at once, streamed = blocking, unknown model 400, "
+        f"/v1/models {listed}, lora_cache {json.dumps(lora)}; speculative "
+        f"/stats {json.dumps(spec)}, logprobs 400")
+
+
+def spec_lora_phase(params, cfg, card: str, runs=None) -> dict:
+    """Phase 8: speculation (the ragged engine over bf16 and int8 pools,
+    the alternating and continuous engines) and multi-LoRA on the serving
+    model, with a draft of its first DRAFT_LAYERS layers, held to phase
+    5's plain runs (``runs``, as ``engine_phase`` and the others keep
+    them; what is missing runs here). Returns the launch counts and smoke
+    numbers; its engines are freed on return."""
+    runs = {} if runs is None else runs
+    dparams, dcfg = truncated_draft(params, cfg, DRAFT_LAYERS)
+    ragged = _spec_ragged_part(params, cfg, dparams, dcfg, runs)
+    other = _spec_other_part(params, cfg, dparams, dcfg, runs)
+    lora, (stacked, lcfg) = _lora_part(params, cfg, runs)
+    _spec_lora_http_part(params, cfg, dparams, dcfg, stacked, lcfg)
+    numbers = {
+        **{f"{v}_{k}": ragged[v][k] for v in ("bf16", "int8") for k in (
+            "acceptance_rate", "rounds", "wall_s", "plain_wall_s",
+            "widths")},
+        "self_draft_acceptance": ragged["self_draft_acceptance"],
+        **{f"{kind}_acceptance_rate": other[kind]["acceptance_rate"]
+           for kind in other},
+        "lora_wall_s": lora["wall_s"], "lora_peak_gib": lora["peak_gib"]}
+    log(f"  smoke numbers (not a benchmark) on {card}: "
+        f"{json.dumps(numbers)}")
+    return {"ragged": ragged, "other": other, "lora": lora}
+
+
+# ---------------------------------------------------------------------------
 # Train
 
 
@@ -3172,7 +3732,7 @@ def main() -> int:
     t_start = time.monotonic()
     phases = {}
 
-    log("[1/8] card")
+    log("[1/9] card")
     smi = subprocess.run(
         ["nvidia-smi", "-i", card_id, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -3186,7 +3746,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     phases["card"] = time.monotonic() - t_start
 
-    log("[2/8] build")
+    log("[2/9] build")
     t0 = time.monotonic()
     seconds = _build.build()
     for name, took in seconds.items():
@@ -3197,7 +3757,7 @@ def main() -> int:
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
 
-    log("[3/8] kernel vs plain")
+    log("[3/9] kernel vs plain")
     t0 = time.monotonic()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
@@ -3207,7 +3767,7 @@ def main() -> int:
     quant_errors = quant_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
-    log("[4/8] timing at the main-path shapes")
+    log("[4/9] timing at the main-path shapes")
     t0 = time.monotonic()
     times = timing()
     flash_times = timing_flash()
@@ -3217,7 +3777,7 @@ def main() -> int:
     quant_times = timing_quant()
     phases["timing"] = time.monotonic() - t0
 
-    log("[5/8] engines: llama-3-8b, full width and depth, random weights")
+    log("[5/9] engines: llama-3-8b, full width and depth, random weights")
     t0 = time.monotonic()
     cfg = L.LLAMA_CONFIGS["llama-3-8b"]
     params = L.init_params(
@@ -3225,25 +3785,32 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  init {cfg.param_count() / 1e9:.2f}B params in "
         f"{time.monotonic() - t0:.2f} s")
-    launches, engine = engine_phase(params, cfg)
-    alt_launches, alt_engine = alternating_phase(params, cfg)
-    cont_launches, cont_engine = continuous_phase(params, cfg)
+    runs = {}  # phase 5's plain runs, which phase 8 is held to
+    launches, engine = engine_phase(params, cfg, runs)
+    alt_launches, alt_engine = alternating_phase(params, cfg, runs)
+    cont_launches, cont_engine = continuous_phase(params, cfg, runs)
     quant_rows = quant_engine_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
-    log("[6/8] HTTP")
+    log("[6/9] HTTP")
     t0 = time.monotonic()
     http_phase(engine, "ragged")
     http_phase(alt_engine, "alternating")
     http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
-    log("[7/8] prefix and handoff")
+    log("[7/9] prefix and handoff")
     t0 = time.monotonic()
     prefix = prefix_phase(params, cfg, card)
     phases["prefix"] = time.monotonic() - t0
 
-    log(f"[8/8] train: {', '.join(TRAIN_MODELS)}")
+    log("[8/9] speculation and multi-LoRA")
+    t0 = time.monotonic()
+    spec = spec_lora_phase(params, cfg, card, runs)
+    del runs
+    phases["spec_lora"] = time.monotonic() - t0
+
+    log(f"[9/9] train: {', '.join(TRAIN_MODELS)}")
     t0 = time.monotonic()
     # The serving model, engines and pools go first: training needs ~66 GB.
     del params, engine, alt_engine, cont_engine
@@ -3377,6 +3944,20 @@ def main() -> int:
             k["launches_prompt_cache"] = prefix["flash_launches"]
         elif k["name"] == "ragged_paged_attention" and k["variant"] == "bf16":
             k["launches_handoff"] = prefix["ragged_launches"]
+    # Phase 8's runs, each counted from 0 just before it.
+    for k in kernels:
+        if k["name"] == "ragged_paged_attention":
+            k["launches_speculative"] = spec["ragged"][k["variant"]][
+                "launches"]
+            if k["variant"] == "bf16":
+                k["launches_multilora"] = spec["lora"]["launches"]
+        elif k["name"] == "flash_attention":
+            k["launches_speculative_draft"] = spec["ragged"]["bf16"][
+                "flash_launches"]
+            k["launches_speculative_alternating"] = spec["other"][
+                "alternating"]["flash_launches"]
+            k["launches_speculative_continuous"] = spec["other"][
+                "continuous"]["flash_launches"]
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     print(json.dumps({"kernels": kernels}))

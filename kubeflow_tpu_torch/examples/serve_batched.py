@@ -17,11 +17,16 @@ exits with the JAX message. ``--kv8`` stores the KV cache as int8.
 ``--prompt-cache`` (identical prompts share their blocks) and
 ``--prefix-cache`` (common prefixes share blocks, only the tail is
 prefilled) reach the ``--paged`` engine, at most one of them, as in JAX.
+``--speculative N`` (greedy only) decodes through a draft of the model's
+first N layers (``truncated_draft``): ``SpeculativePagedBatcher`` under
+``--paged`` (the alternating engine, with the caches above), else
+``SpeculativeContinuousBatcher`` (k_spec 4, a cache of bucket +
+max_new_tokens + 5 positions), and prints the acceptance rate.
 
 What the port lacks is refused before any weight is made, naming the
 ROADMAP queue-1 item that brings it: ``--checkpoint`` and ``--prompt``
-(item 12, ``models/convert.py`` and its tokenizer), ``--speculative``
-(item 8), ``--tp`` above 1 (item 11) and ``--sp`` above 1 (item 13).
+(item 12, ``models/convert.py`` and its tokenizer), ``--tp`` above 1
+(item 11) and ``--sp`` above 1 (item 13).
 """
 
 from __future__ import annotations
@@ -37,7 +42,6 @@ def _refusals(args) -> None:
         (args.prompt is not None, "--prompt",
          "text prompts (they need --checkpoint's tokenizer, "
          "models/convert.py)", 12),
-        (args.speculative, "--speculative", "speculative serving", 8),
         (args.tp > 1, "--tp", "tensor-parallel serving", 11),
         (args.sp > 1, "--sp", "sequence-parallel KV shards", 13),
     )
@@ -130,7 +134,44 @@ def main(argv=None) -> None:
         top_p=0.95 if args.temperature else 1.0,
         eos_id=2,
     )
-    if args.paged:
+    if args.speculative:
+        from kubeflow_tpu_torch.models.speculative import (
+            SpeculativeContinuousBatcher,
+            SpeculativePagedBatcher,
+            truncated_draft,
+        )
+
+        if args.temperature:
+            raise SystemExit("--speculative is greedy-only (temperature 0)")
+        try:
+            dparams, dcfg = truncated_draft(params, cfg, args.speculative)
+        except ValueError as err:
+            raise SystemExit(str(err))
+        bucket = 16 * ((max(len(p) for p in prompts) + 15) // 16)
+        if args.paged:
+            sb = SpeculativePagedBatcher(
+                params, cfg, dparams, dcfg, gen=gen,
+                slots=min(4, len(prompts)), num_blocks=args.num_blocks,
+                block_size=16, prompt_bucket=bucket, kv_bits=kv_bits,
+                prompt_cache=args.prompt_cache,
+                prefix_cache=args.prefix_cache, device=device,
+            )
+        else:
+            k_spec = 4
+            sb = SpeculativeContinuousBatcher(
+                params, cfg, dparams, dcfg, gen=gen,
+                slots=min(4, len(prompts)),
+                cache_len=bucket + gen.max_new_tokens + k_spec + 1,
+                prompt_bucket=bucket, k_spec=k_spec, kv_bits=kv_bits,
+                device=device,
+            )
+        rids = [sb.submit(p) for p in prompts]
+        results = sb.run()
+        outs = [results[r] for r in rids]
+        print(f"speculative ({args.speculative}-layer draft, "
+              f"{'paged' if args.paged else 'continuous'}): acceptance "
+              f"{sb.acceptance_rate:.2f}")
+    elif args.paged:
         from kubeflow_tpu_torch.models.paged import PagedBatcher
 
         bucket = 16 * ((max(len(p) for p in prompts) + 15) // 16)

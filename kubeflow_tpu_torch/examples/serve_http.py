@@ -18,6 +18,13 @@ KUBEFLOW_TPU_SERVING_PORT applies to both. KUBEFLOW_TPU_KV_SWAP_BYTES > 0
 gives the paged engine a host-RAM swap tier of that many bytes and turns
 its prefix cache on, as in JAX (a swap tier holds demoted prefix leaves);
 on the ragged engine the engine refuses that pair with the JAX message.
+Under ``--paged`` KUBEFLOW_TPU_SPEC_DRAFT_LEN = k > 0 serves
+``SpeculativePagedBatcher(ragged=True)`` with ``k_spec`` k, a draft of the
+target's first ``n_layers // 4`` layers (``truncated_draft``) and
+KUBEFLOW_TPU_SPEC_ADAPTIVE's acceptance-adaptive draft length, as in JAX:
+it needs KUBEFLOW_TPU_SERVING_RAGGED=1 and takes KUBEFLOW_TPU_KV_BITS but
+not KUBEFLOW_TPU_HBM_FRACTION or _KV_SWAP_BYTES (each exits with the JAX
+message). Its server answers a ``logprobs`` request with 400.
 Weights are a random init from
 ``--seed`` on the card (``--device cpu`` serves on the CPU); the model
 serves token ids. ``--int8`` quantizes the projections and the lm head to
@@ -29,10 +36,12 @@ Every serving knob the JAX entry point reads is honored or refused here,
 before any weight is made: garbage in any of them exits with the JAX
 message, and a knob asking for what the port lacks exits naming the
 ROADMAP queue-1 item that brings it: KUBEFLOW_TPU_SERVING_TP > 1 (item
-11) and under ``--paged`` KUBEFLOW_TPU_SPEC_DRAFT_LEN > 0 (item 8; on the
-alternating engine the JAX "needs the ragged engine" exit comes first).
-KUBEFLOW_TPU_LORA_CACHE_SLOTS is parsed under ``--paged`` and, when
-nonzero, only noted, as in JAX: it sizes multi-LoRA engines (item 8).
+11). KUBEFLOW_TPU_LORA_CACHE_SLOTS is parsed under ``--paged`` and, when
+nonzero, only noted, as in JAX: it sizes multi-LoRA engines
+(``models/multilora.py``), which this example does not build (it serves
+one base model; adapters are served by building
+``MultiLoraPagedBatcher`` behind ``InferenceServer``, whose requests pick
+an adapter by ``model``).
 """
 
 from __future__ import annotations
@@ -62,11 +71,12 @@ def _refuse_tp() -> None:
             "11); unset it or set it to 1")
 
 
-def _paged_knobs() -> tuple[bool, Optional[int], dict]:
+def _paged_knobs() -> tuple[bool, Optional[int], dict, int, bool]:
     """The ``--paged`` engine's env knobs in the JAX entry point's order:
-    (ragged, token_budget, the kv-pool keywords). Exits on garbage and on
-    a knob that asks for what the port lacks; prints the JAX notice for a
-    nonzero KUBEFLOW_TPU_LORA_CACHE_SLOTS."""
+    (ragged, token_budget, the kv-pool keywords, the speculative draft
+    length (0: none), adaptive). Exits on garbage and on a combination
+    JAX refuses; prints the JAX notice for a nonzero
+    KUBEFLOW_TPU_LORA_CACHE_SLOTS."""
     from kubeflow_tpu_torch.models.server import (
         KUBEFLOW_TPU_SERVING_RAGGED,
         KUBEFLOW_TPU_SPEC_DRAFT_LEN,
@@ -80,24 +90,26 @@ def _paged_knobs() -> tuple[bool, Optional[int], dict]:
         lora_cache_slots = lora_cache_from_env()
         if lora_cache_slots:
             print(f"lora cache slots={lora_cache_slots} (no adapters "
-                  "registered by this example; knob applies to multi-LoRA "
-                  "engines, not ported to PyTorch yet: ROADMAP queue 1 "
-                  "item 8)", flush=True)
+                  "registered by this example; knob applies to "
+                  "multi-LoRA engines)", flush=True)
         kv_kw = kv_pool_from_env()
         ragged, token_budget = ragged_from_env()
-        draft_len, _ = spec_from_env()
+        draft_len, adaptive = spec_from_env()
     except ValueError as err:
         raise SystemExit(str(err))
     if draft_len > 0:
+        # Speculation is a scheduling mode of the ragged engine: each slot
+        # contributes (1 + draft_len) verify rows to the fused dispatch.
         if not ragged:
             raise SystemExit(
                 f"{KUBEFLOW_TPU_SPEC_DRAFT_LEN} needs the ragged engine "
                 f"(set {KUBEFLOW_TPU_SERVING_RAGGED}=1)")
-        raise SystemExit(
-            f"{KUBEFLOW_TPU_SPEC_DRAFT_LEN}={draft_len}: speculative "
-            "decoding is not ported to PyTorch yet (ROADMAP queue 1 item "
-            "8); unset it or set it to 0")
-    return ragged, token_budget, kv_kw
+        if set(kv_kw) - {"kv_bits"}:
+            raise SystemExit(
+                "speculative serving supports KUBEFLOW_TPU_KV_BITS "
+                "but not the HBM sizing / swap-tier knobs; unset "
+                "KUBEFLOW_TPU_HBM_FRACTION / _KV_SWAP_BYTES")
+    return ragged, token_budget, kv_kw, draft_len, adaptive
 
 
 def main(argv=None) -> None:
@@ -155,7 +167,7 @@ def main(argv=None) -> None:
         raise SystemExit(str(err))
     _refuse_tp()
     if args.paged:
-        ragged, token_budget, kv_kw = _paged_knobs()
+        ragged, token_budget, kv_kw, draft_len, adaptive = _paged_knobs()
     device = resolve_device(args.device)
     cfg = L.LLAMA_CONFIGS[args.config]
     params = L.init_params(
@@ -167,7 +179,25 @@ def main(argv=None) -> None:
         params = quantize_params(params, free_source=True)
     gen = GenerationConfig(max_new_tokens=args.max_new_tokens,
                            temperature=args.temperature)
-    if args.paged:
+    if args.paged and draft_len:
+        from kubeflow_tpu_torch.models.speculative import (
+            SpeculativePagedBatcher,
+            truncated_draft,
+        )
+
+        d_params, d_cfg = truncated_draft(params, cfg,
+                                          max(1, cfg.n_layers // 4))
+        engine = SpeculativePagedBatcher(
+            params, cfg, d_params, d_cfg, gen=gen, slots=args.slots,
+            num_blocks=args.num_blocks, block_size=args.block_size,
+            prompt_bucket=args.prompt_bucket, k_spec=draft_len,
+            adaptive=adaptive, ragged=True, token_budget=token_budget,
+            kv_bits=kv_kw.get("kv_bits", 0), device=device,
+        )
+        kind = (f"ragged paged, speculative k={draft_len} over a "
+                f"{d_cfg.n_layers}-layer draft"
+                f"{', adaptive' if adaptive else ''}")
+    elif args.paged:
         engine = PagedBatcher(
             params, cfg, gen=gen, slots=args.slots,
             num_blocks=args.num_blocks, block_size=args.block_size,

@@ -19,6 +19,11 @@ int4 (a dtype named ``int4``, read with ``astype(np.int8)`` and packed two
 a byte); each becomes a ``QuantizedWeight``. ``params_to_numpy`` gives
 them back byte for byte, int4 unpacked and cast to the ``like`` leaf's
 dtype.
+
+LoRA adapters (``models/lora.py``) keep JAX's tree as it is, a dict of
+``{"a", "b"}`` per target: ``lora_from_jax``/``lora_to_numpy`` move one
+adapter, ``stacked_from_jax`` a ``stack_adapters`` tree, leaf by leaf and
+byte for byte.
 """
 
 from __future__ import annotations
@@ -167,3 +172,51 @@ def params_to_numpy(model: Llama, like: dict = None) -> dict:
                         else np.stack(per_layer))
     out["layers"] = layers
     return out
+
+
+def _adapter_tree(tree: dict, rank: int, device, convert) -> dict:
+    """Check a LoRA tree's structure ({target: {"a", "b"}} with leaves of
+    ``rank`` dims) and map ``convert`` over its leaves."""
+    from kubeflow_tpu_torch.models.lora import _ADAPTABLE
+
+    unknown = set(tree) - set(_ADAPTABLE)
+    if unknown:
+        raise ValueError(f"unknown LoRA targets {sorted(unknown)}; valid: "
+                         f"{_ADAPTABLE}")
+    out = {}
+    for target, ab in tree.items():
+        if set(ab) != {"a", "b"}:
+            raise ValueError(f"{target}: an adapter holds a and b, got "
+                             f"{sorted(ab)}")
+        for side in ("a", "b"):
+            if np.ndim(ab[side]) != rank:
+                raise ValueError(
+                    f"{target}/{side}: {np.ndim(ab[side])} dims, want {rank}")
+        out[target] = {side: convert(ab[side]) for side in ("a", "b")}
+    return out
+
+
+def lora_from_jax(tree: dict, device=None) -> dict:
+    """One JAX adapter tree of numpy leaves ({target: {"a": (L, in, r),
+    "b": (L, r, out)}}) → the same tree of tensors on ``device``, byte for
+    byte (bf16 as its 16-bit words)."""
+    dev = resolve_device(device)
+    return _adapter_tree(tree, 3, dev, lambda a: _to_torch(a).to(dev))
+
+
+def lora_to_numpy(lora: dict, like: dict = None) -> dict:
+    """Inverse of ``lora_from_jax`` (and of ``stacked_from_jax``): bf16
+    leaves take ``like``'s numpy dtype where given, else come back as
+    uint16 words."""
+    like = like or {}
+    return {t: {side: _to_numpy(ab[side], like.get(t, {}).get(side))
+                for side in ("a", "b")}
+            for t, ab in lora.items()}
+
+
+def stacked_from_jax(tree: dict, device=None) -> dict:
+    """A JAX ``stack_adapters`` tree of numpy leaves ({target: {"a":
+    (N+1, L, in, r), "b": (N+1, L, r, out)}}, the zero base row last) →
+    the same tree of tensors on ``device``, byte for byte."""
+    dev = resolve_device(device)
+    return _adapter_tree(tree, 4, dev, lambda a: _to_torch(a).to(dev))

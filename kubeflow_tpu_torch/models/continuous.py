@@ -225,6 +225,10 @@ class _Request:
     # Absolute monotonic deadline (None = none); an expired request
     # retires through the abort path at its next emitted token.
     deadline: Optional[float] = None
+    # Multi-LoRA engines: the adapter's stacked row (None = the base
+    # model). It travels with the request through preemption and salts
+    # the prefix chain key, so KV never crosses adapters.
+    adapter_id: Optional[int] = None
 
 
 class _AdmissionCursor:
@@ -260,6 +264,10 @@ class _BatcherBase:
     submit validation, the drive loop, and per-token retirement.
     Subclasses set ``cfg`` and ``device`` and provide
     ``_admit_free_slots``, ``_step`` and ``_release_slot``."""
+
+    # The steps report each sampled token's logprob (the speculative
+    # engines, whose rounds verify argmaxes, do not).
+    supports_logprobs = True
 
     def _init_base(self, gen: GenerationConfig, slots: int,
                    prompt_bucket: int) -> None:
@@ -723,8 +731,7 @@ class ContinuousBatcher(_BatcherBase):
                                     self.prompt_bucket)
             prompt_mask = None if mask.all() else self._up(mask)
             padded = self._up(padded)
-            logits = _admit_slot(self.params, self.cfg, padded, prompt_mask,
-                                 self.cache, self.kv_mask, slot)
+            logits = self._prefill_into_slot(slot, req, padded, prompt_mask)
             self._install_admitted(slot, req, padded, prompt_mask, logits)
 
     def _admit_one_chunk(self) -> None:
@@ -818,6 +825,16 @@ class ContinuousBatcher(_BatcherBase):
         self._by_slot[slot] = req
         req.budget = self._initial_budget(req)
         self._note_token(slot, first, first_lp)
+
+    def _prefill_into_slot(self, slot: int, req: _Request, padded,
+                           prompt_mask) -> torch.Tensor:
+        """The engine's half of a one-shot admission: prefill ``padded``
+        into ``slot`` and return the first logits. The multi-LoRA engine
+        overrides it (an adapted prefill); everything around it (padding,
+        the _post_admit hook, sampling, budget) stays in the one loop."""
+        del req
+        return _admit_slot(self.params, self.cfg, padded, prompt_mask,
+                           self.cache, self.kv_mask, slot)
 
     def _release_slot(self, slot: int) -> None:
         self._by_slot[slot] = None

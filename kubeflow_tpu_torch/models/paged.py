@@ -57,8 +57,19 @@ never one a running request holds. Block tables, positions and the
 allocator are host numpy and plain Python between steps; block 0 is the
 null block, never allocated.
 
-Not ported yet: tensor-parallel plans (``plan=``) and adapters (a payload
-whose ``adapter`` is not null is refused).
+Speculation and adapters hook in as in JAX: ``_paged_ragged_verify`` is the
+ragged dispatch with an argmax head over every row (the speculative verify
+spans of ``models/speculative.py``), ``_paged_verify`` the alternating
+engine's (B, k+1) verify through the tables, ``_gather_cells`` and
+``_restore_cells`` the snapshot and rollback of a verify's rejected cells,
+``headroom_tokens`` the table span a round writes past the pointer, and
+``_post_admit`` primes a lockstep draft cache at every admission that
+prefills (one-shot, prompt-cache hit, prefix-cached, a completed ragged
+admission). ``_ragged_adapters`` (None here, ``models/multilora.py``
+overrides it) puts each slot's LoRA deltas into every ragged dispatch;
+an adapter salts a request's chain keys and rides its KV payloads.
+
+Not ported yet: tensor-parallel plans (``plan=``).
 """
 
 from __future__ import annotations
@@ -273,7 +284,8 @@ def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
                       pool: dict, tables, kv_mask, cos, sin, blks, offs,
                       attn_positions, block_size: int,
                       attn_kernel: bool = False,
-                      ragged: Optional[tuple] = None) -> torch.Tensor:
+                      ragged: Optional[tuple] = None,
+                      adapters: Optional[tuple] = None) -> torch.Tensor:
     """The layer loop of a paged step: per layer, scatter the batch's
     (B, K) chunk of K/V into the pool (in place) BEFORE attention reads
     it, then attend through ``tables`` at ``attn_positions``.
@@ -288,7 +300,25 @@ def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
     row a slot and no window, as in JAX: a chunk of K > 1 rows (a prefix
     admission) and a sliding-window config go through the gathered view
     and ``_gqa_decode_attention`` whatever ``attn_kernel`` says, and so
-    does everything without it. Returns the hidden states (B, K, dim)."""
+    does everything without it.
+
+    ``adapters = (stacked, ids (S,), scaling, route)`` (``_row_adapters``)
+    adds each row's slot's LoRA deltas to the projections inside this one
+    body, gathered one layer at a time (``multilora._gather_adapters``),
+    so every caller (ragged decode, admission chunks, verify spans) is
+    adapter-correct without a second forward. Returns the hidden states
+    (B, K, dim)."""
+    if adapters is not None:
+        # Lazy: multilora subclasses PagedBatcher, so the module-level
+        # import runs multilora → paged.
+        from kubeflow_tpu_torch.models.multilora import (
+            _adapted_mlp,
+            _adapted_qkv,
+            _delta,
+            _gather_adapters,
+        )
+
+        stacked, ids, scaling, route = adapters
     x = _embed(params, cfg, tokens)
     use_kernel = (
         attn_kernel and tokens.shape[1] == 1 and not cfg.sliding_window
@@ -301,8 +331,13 @@ def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
 
     for li, layer in enumerate(params.layers):
         pool_l = {name: leaf[li] for name, leaf in pool.items()}
+        sel = (None if adapters is None
+               else _gather_adapters(stacked, ids, li))
         h = _norm(x, layer.attn_norm, cfg)
-        hq, hk, hv = _qkv(h, layer)
+        if sel is None:
+            hq, hk, hv = _qkv(h, layer)
+        else:
+            hq, hk, hv = _adapted_qkv(h, layer, sel, scaling, route)
         q = apply_rope(_split_heads(hq, cfg.n_heads), cos, sin, per_batch=True)
         k = apply_rope(_split_heads(hk, cfg.n_kv_heads), cos, sin,
                        per_batch=True)
@@ -335,10 +370,53 @@ def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
                 v_scale=(gathered(pool_l["v_scale"])
                          if "v_scale" in pool_l else None),
             )
-        x = x + _mm(_merge_heads(attn), layer.wo)
+        merged = _merge_heads(attn)
+        o = _mm(merged, layer.wo)
+        if sel is not None and "wo" in sel:
+            o = o + _delta(merged, sel, "wo", scaling, route)
+        x = x + o
         h = _norm(x, layer.mlp_norm, cfg)
-        x = x + _mlp(layer, h, cfg)
+        x = x + (_mlp(layer, h, cfg) if sel is None
+                 else _adapted_mlp(layer, h, cfg, sel, scaling, route))
     return x
+
+
+def _row_adapters(adapters: Optional[tuple],
+                  tok_seq: torch.Tensor) -> Optional[tuple]:
+    """Per-SLOT adapter spec (stacked, ids (S,), scaling) → the chunk
+    body's (stacked, ids, scaling, route), ``route`` sending each
+    flattened row to its owning slot's pair (``multilora._slot_route``).
+    None passes through (the base-only body)."""
+    if adapters is None:
+        return None
+    from kubeflow_tpu_torch.models.multilora import _slot_route
+
+    stacked, ids, scaling = adapters
+    return stacked, ids.long(), scaling, _slot_route(stacked, ids, tok_seq)
+
+
+def _ragged_hidden(params: Llama, cfg: LlamaConfig, tokens, pool, tables,
+                   kv_mask, tok_pos, tok_seq, n_tokens: int, seq_starts,
+                   seq_lens, kv_lens, block_size: int, attn_kernel: bool,
+                   adapters) -> torch.Tensor:
+    """The body of a ragged dispatch, shared by the sampling step and the
+    verify: (T, 1, dim) hidden states, the pool written in place."""
+    tok_seq = tok_seq.long()
+    posmat = tok_pos.long()[:, None]
+    tok_tables = tables.long()[tok_seq]
+    cos, sin, blks, offs = _chunk_coords(cfg, tok_tables, posmat, block_size)
+    # Tail pads carry tok_seq 0: force their scatter target to the null
+    # block, or they would overwrite slot 0's live KV.
+    tok_valid = torch.arange(tokens.shape[0], device=tokens.device) < n_tokens
+    blks = torch.where(tok_valid[:, None], blks, 0)
+    # The per-token view (each row its slot's table and mask, at its own
+    # position) is what a sliding-window config attends through.
+    return _paged_chunk_scan(
+        params, cfg, tokens, pool, tok_tables, kv_mask[tok_seq], cos, sin,
+        blks, offs, posmat, block_size, attn_kernel=attn_kernel,
+        ragged=(seq_starts, seq_lens, kv_lens, tables, kv_mask),
+        adapters=_row_adapters(adapters, tok_seq),
+    )
 
 
 @torch.no_grad()
@@ -363,32 +441,109 @@ def _paged_ragged_step(
     top_p: float,
     bias: Optional[torch.Tensor] = None,  # (S, V) per-slot logit bias
     attn_kernel: bool = False,
+    adapters: Optional[tuple] = None,  # (stacked, ids (S,), scaling)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ONE fused dispatch for a mixed decode/prefill batch. Every token
     scatters at its own (block, offset) and attends its slot's view at its
     own absolute position, so chunk causality and cross-chunk isolation
     fall out of the masking rule. Returns per-SLOT (next_token, chosen
     logprob) sampled at each span's last row; rows of mid-prefill or idle
-    slots are sampled too and discarded by the scheduler."""
-    tok_seq = tok_seq.long()
-    posmat = tok_pos.long()[:, None]
-    tok_tables = tables.long()[tok_seq]
-    cos, sin, blks, offs = _chunk_coords(cfg, tok_tables, posmat, block_size)
-    # Tail pads carry tok_seq 0: force their scatter target to the null
-    # block, or they would overwrite slot 0's live KV.
-    tok_valid = torch.arange(tokens.shape[0], device=tokens.device) < n_tokens
-    blks = torch.where(tok_valid[:, None], blks, 0)
-    # The per-token view (each row its slot's table and mask, at its own
-    # position) is what a sliding-window config attends through.
-    x = _paged_chunk_scan(
-        params, cfg, tokens, pool, tok_tables, kv_mask[tok_seq], cos, sin,
-        blks, offs, posmat, block_size, attn_kernel=attn_kernel,
-        ragged=(seq_starts, seq_lens, kv_lens, tables, kv_mask),
-    )
+    slots are sampled too and discarded by the scheduler. ``adapters``:
+    every row rides its owning slot's LoRA adapter (multi-LoRA over the
+    ragged dispatch; admission chunks included)."""
+    x = _ragged_hidden(params, cfg, tokens, pool, tables, kv_mask, tok_pos,
+                       tok_seq, n_tokens, seq_starts, seq_lens, kv_lens,
+                       block_size, attn_kernel, adapters)
     # Logits only at each slot's last row: the lm head runs S wide.
     xs = x[last_rows.long(), 0]  # (S, dim)
     logits = _lm_head_logits(_norm(xs, params.final_norm, cfg), params)
     return _sample_rows(logits, generator, temps, top_k, top_p, bias)
+
+
+@torch.no_grad()
+def _paged_ragged_verify(
+    params: Llama,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,      # (T, 1) flattened mixed batch, tail-padded
+    pool: dict,                # updated in place
+    tables: torch.Tensor,      # (S, MAXB)
+    kv_mask: torch.Tensor,     # (S, MAXB * BS)
+    tok_pos: torch.Tensor,     # (T,)
+    tok_seq: torch.Tensor,     # (T,)
+    n_tokens: int,
+    seq_starts: torch.Tensor,  # (S,)
+    seq_lens: torch.Tensor,    # (S,)
+    kv_lens: torch.Tensor,     # (S,)
+    block_size: int,
+    attn_kernel: bool = False,
+    adapters: Optional[tuple] = None,  # (stacked, ids (S,), scaling)
+) -> torch.Tensor:
+    """The ragged dispatch with a T-wide ARGMAX head: speculation as a
+    scheduling mode of the fused step. The rows are laid out as for
+    ``_paged_ragged_step``; a speculating slot's (1 + k) verify span
+    [last, d_1..d_k] has at row j the target's prediction after ...[last,
+    d_1..d_j], so the head runs at EVERY row (an admission-completing
+    span's first token is its last row's argmax). Span causality is the
+    attention's position bound: row j of a span sees k_pos <= kv_len -
+    seq_len + j. Returns the per-row argmax (T,), the first maximum on
+    ties as ``jnp.argmax``."""
+    x = _ragged_hidden(params, cfg, tokens, pool, tables, kv_mask, tok_pos,
+                       tok_seq, n_tokens, seq_starts, seq_lens, kv_lens,
+                       block_size, attn_kernel, adapters)
+    logits = _lm_head_logits(_norm(x[:, 0], params.final_norm, cfg), params)
+    return torch.argmax(logits, dim=-1)
+
+
+def _gather_cells(pool: dict, blks, offs) -> dict:
+    """Snapshot the pool cells addressed by parallel (block, offset)
+    lists, the read half of speculative rollback: a COPY (advanced
+    indexing) that later in-place writes cannot alias. Value leaves
+    (L, NB, Hkv, BS, D) gather to (N, L, Hkv, D), int8 scale leaves (one
+    rank lower) to (N, L, Hkv): the indexed axes, split by a slice, move
+    to the front."""
+    dev = next(iter(pool.values())).device
+    bi = torch.as_tensor(blks, dtype=torch.long, device=dev)
+    oi = torch.as_tensor(offs, dtype=torch.long, device=dev)
+    return {name: leaf[:, bi, :, oi] for name, leaf in pool.items()}
+
+
+def _restore_cells(pool: dict, snap: dict, blks, offs) -> None:
+    """Write a ``_gather_cells`` snapshot back IN PLACE, every leaf (int8
+    scales too), the unwind half of rollback: a rejected cell returns to
+    its exact pre-dispatch bytes."""
+    dev = next(iter(pool.values())).device
+    bi = torch.as_tensor(blks, dtype=torch.long, device=dev)
+    oi = torch.as_tensor(offs, dtype=torch.long, device=dev)
+    for name, leaf in pool.items():
+        leaf[:, bi, :, oi] = snap[name]
+
+
+@torch.no_grad()
+def _paged_verify(
+    params: Llama,
+    cfg: LlamaConfig,
+    chunk: torch.Tensor,       # (B, K): [last, d_1..d_{K-1}] per row
+    pool: dict,                # updated in place
+    tables: torch.Tensor,      # (B, MAXB)
+    positions: torch.Tensor,   # (B,) per-row write offsets
+    kv_mask: torch.Tensor,     # (B, MAXB * BS)
+    block_size: int,
+) -> torch.Tensor:
+    """Target verification through the BLOCK POOL: decode a (B, K) chunk
+    at per-row offsets (row b's token j writes block tables[b, (p_b + j)
+    // BS], offset (p_b + j) % BS, and query j attends logical slots <=
+    p_b + j) on the gathered view (a chunk of K > 1 rows never reaches
+    the decode kernel, as in JAX). Returns the argmax predictions (B,
+    K)."""
+    positions = positions.long()
+    k_len = chunk.shape[1]
+    posmat = positions[:, None] + torch.arange(k_len, device=chunk.device)
+    tables = tables.long()
+    cos, sin, blks, offs = _chunk_coords(cfg, tables, posmat, block_size)
+    x = _paged_chunk_scan(params, cfg, chunk, pool, tables, kv_mask, cos,
+                          sin, blks, offs, posmat, block_size)
+    logits = _lm_head_logits(_norm(x, params.final_norm, cfg), params)
+    return torch.argmax(logits, dim=-1)
 
 
 @torch.no_grad()
@@ -477,7 +632,9 @@ class PagedBatcher(_BatcherBase):
     ``prefix_cache`` (with ``admit_chunk``) and ``swap_bytes`` keep the
     JAX semantics and messages. Sampled rows draw from ``generator`` (a
     seeded ``torch.Generator`` on the device; seed 0 when None), so they
-    cannot match JAX's draws bit for bit.
+    cannot match JAX's draws bit for bit. ``headroom_tokens`` widens the
+    block tables by that many positions (the speculative engines' verify
+    writes past the pointer).
     """
 
     def __init__(
@@ -500,6 +657,7 @@ class PagedBatcher(_BatcherBase):
         token_budget: Optional[int] = None,  # ragged rows per step
         hbm_fraction: Optional[float] = None,  # size pool from device memory
         swap_bytes: int = 0,  # host-RAM swap tier for cold prefix chains
+        headroom_tokens: int = 0,  # extra table span (speculative rounds)
         device=None,
     ):
         self.gen = gen or GenerationConfig()
@@ -598,8 +756,12 @@ class PagedBatcher(_BatcherBase):
         # Capacity (in blocks) one request can ever hold: +1 because a
         # preempted continuation re-admits at a block-aligned padded
         # length, which can overhang the nominal span by one block.
+        # ``headroom_tokens``: a speculative round writes up to k_spec + 1
+        # positions past the pointer before rewinding; the tables must
+        # span those too.
         self.max_blocks = (
-            prompt_bucket + self.gen.max_new_tokens + block_size - 1
+            prompt_bucket + self.gen.max_new_tokens + headroom_tokens
+            + block_size - 1
         ) // block_size + 1
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
@@ -858,7 +1020,8 @@ class PagedBatcher(_BatcherBase):
         cont = _Request(req.rid, req.prompt, req.tokens, max_new=req.max_new,
                         temperature=req.temperature, stop=req.stop,
                         logit_bias=req.logit_bias,
-                        logprobs=req.logprobs, deadline=req.deadline)
+                        logprobs=req.logprobs, deadline=req.deadline,
+                        adapter_id=req.adapter_id)
         self._queue.insert(0, cont)
 
     def _clear_slot_storage(self, slot: int, req: _Request) -> None:
@@ -971,7 +1134,8 @@ class PagedBatcher(_BatcherBase):
         keys: list[str] = []
         parent: Optional[bytes] = None
         for j in range(registrable):
-            parent = self._chain_key(parent, kv_tokens[j * bs:(j + 1) * bs])
+            parent = self._chain_key(parent, kv_tokens[j * bs:(j + 1) * bs],
+                                     adapter=req.adapter_id)
             keys.append(parent.hex())
         send = [j for j in range(nblocks)
                 if j >= registrable or keys[j] not in skip]
@@ -990,7 +1154,7 @@ class PagedBatcher(_BatcherBase):
             "version": 1,
             "block_size": bs,
             "kv_bits": 8 if "k_scale" in self.pool else 0,
-            "adapter": None,
+            "adapter": req.adapter_id,
             "tokens": [int(t) for t in kv_tokens],
             "pending_token": int(req.tokens[-1]),
             "pending_logprob": (
@@ -1034,17 +1198,12 @@ class PagedBatcher(_BatcherBase):
                 f"kv payload adapter must be an int or null, "
                 f"got {adapter!r}"
             )
-        if adapter is not None:
-            raise ValueError(
-                f"kv payload adapter {adapter}: LoRA adapters are not "
-                "ported to PyTorch yet (ROADMAP queue 1 item 8); send a "
-                "base-model payload"
-            )
         # Validation and the rid, through _build_request.
         req = self._build_request(
             tokens, max_new_tokens=max_new_tokens, temperature=temperature,
             stop=stop, logit_bias=logit_bias, deadline_s=deadline_s,
         )
+        req.adapter_id = adapter
         slot = next((i for i, r in enumerate(self._by_slot)
                      if r is None and i not in self._ragged_admit), None)
         if slot is None:
@@ -1053,7 +1212,8 @@ class PagedBatcher(_BatcherBase):
         keys: list[bytes] = []
         parent: Optional[bytes] = None
         for j in range(registrable):
-            parent = self._chain_key(parent, tokens[j * bs:(j + 1) * bs])
+            parent = self._chain_key(parent, tokens[j * bs:(j + 1) * bs],
+                                     adapter=adapter)
             sent = entries[j].get("key")
             if sent is not None and sent != parent.hex():
                 raise ValueError(
@@ -1346,15 +1506,16 @@ class PagedBatcher(_BatcherBase):
             if padded is None:
                 padded, mask = left_pad([effective], self.gen.pad_id, bucket)
             shared: frozenset = frozenset()
+            prompt_mask = None if mask.all() else self._up(mask)
+            padded_dev = self._up(padded)
             if cache_hit is not None:
                 for blk in blocks:
                     self._shared_refs[blk] += 1
                 logits = cache_hit["logits"]
                 shared = frozenset(blocks)
             else:
-                prompt_mask = None if mask.all() else self._up(mask)
                 logits = _paged_admit(
-                    self.params, self.cfg, self._up(padded), self.pool,
+                    self.params, self.cfg, padded_dev, self.pool,
                     prompt_mask, self._up(np.asarray(blocks, np.int32)),
                     self.block_size,
                 )
@@ -1380,8 +1541,8 @@ class PagedBatcher(_BatcherBase):
                 shared=shared, max_new=req.max_new,
                 temperature=req.temperature, stop=req.stop,
                 logit_bias=req.logit_bias, logprobs=req.logprobs,
-                deadline=req.deadline,
-            ), logits)
+                deadline=req.deadline, adapter_id=req.adapter_id,
+            ), logits, padded_dev, prompt_mask)
 
     def _admit_free_slots_prefix(self) -> None:
         """Admission under the position-0-anchored layout (prefix_cache):
@@ -1408,7 +1569,8 @@ class PagedBatcher(_BatcherBase):
             shared_blocks: list[int] = []
             parent: Optional[bytes] = None
             for j in range(registrable):
-                key = self._chain_key(parent, effective[j * bs:(j + 1) * bs])
+                key = self._chain_key(parent, effective[j * bs:(j + 1) * bs],
+                                      adapter=head.adapter_id)
                 ent = self._prefix_entries.get(key)
                 if ent is None and self._swap:
                     # A pool miss, the swap tier next: a promoted block
@@ -1471,7 +1633,8 @@ class PagedBatcher(_BatcherBase):
             # Register the NEW full blocks on the chain: cache hold plus
             # this request's.
             for j in range(m, registrable):
-                key = self._chain_key(parent, effective[j * bs:(j + 1) * bs])
+                key = self._chain_key(parent, effective[j * bs:(j + 1) * bs],
+                                      adapter=req.adapter_id)
                 self._prefix_entries[key] = {
                     "block": all_blocks[j], "parent": parent, "children": 0,
                 }
@@ -1479,19 +1642,28 @@ class PagedBatcher(_BatcherBase):
                     self._prefix_entries[parent]["children"] += 1
                 self._shared_refs[all_blocks[j]] = 2
                 parent = key
+            # A lockstep draft primes anchored too: the whole prompt at
+            # positions 0..L-1, pads after it and no mask (they sit at
+            # future positions, as the tail chunk's pads do).
+            dpad = np.full((1, max(self.prompt_bucket, nblocks * bs)),
+                           self.gen.pad_id, np.int32)
+            dpad[0, :lng] = effective
             self._finish_admit(slot, _Request(
                 req.rid, req.prompt, list(req.tokens), blocks=all_blocks,
                 shared=frozenset(all_blocks[:registrable]),
                 max_new=req.max_new, temperature=req.temperature,
                 stop=req.stop, logit_bias=req.logit_bias,
                 logprobs=req.logprobs, deadline=req.deadline,
-            ), logits)
+                adapter_id=req.adapter_id,
+            ), logits, self._up(dpad), None)
 
-    def _finish_admit(self, slot: int, req: _Request,
-                      logits: torch.Tensor) -> None:
+    def _finish_admit(self, slot: int, req: _Request, logits: torch.Tensor,
+                      draft_tokens: torch.Tensor,
+                      draft_mask: Optional[torch.Tensor]) -> None:
         """Admission tail: sample the first token off the admission
-        logits, install the request, and feed the token through
-        retirement."""
+        logits, install the request, prime any lockstep draft cache
+        (``_post_admit`` with the padded prompt and its mask), and feed
+        the token through retirement."""
         temp = (self.gen.temperature if req.temperature is None
                 else req.temperature)
         bias_row = self._install_bias(slot, req)
@@ -1503,6 +1675,7 @@ class PagedBatcher(_BatcherBase):
         req.budget = self._initial_budget(req) - len(req.tokens)
         self.temps[slot] = temp
         self._by_slot[slot] = req
+        self._post_admit(slot, draft_tokens, draft_mask)
         self._note_token(slot, first, first_lp)
 
     def _admit_free_slots_ragged(self) -> None:
@@ -1549,6 +1722,7 @@ class PagedBatcher(_BatcherBase):
                 max_new=req.max_new, temperature=req.temperature,
                 stop=req.stop, logit_bias=req.logit_bias,
                 logprobs=req.logprobs, deadline=req.deadline,
+                adapter_id=req.adapter_id,
             )
             # Sampling state goes live NOW: the chunk that completes this
             # prefill samples the first token inside its own dispatch.
@@ -1559,6 +1733,7 @@ class PagedBatcher(_BatcherBase):
             self._ragged_admit[slot] = {
                 "req": installed,
                 "padded": padded,
+                "prompt_mask": None if mask.all() else self._up(mask),
                 "cursor": _AdmissionCursor(mask[0], bucket),
             }
 
@@ -1706,13 +1881,24 @@ class PagedBatcher(_BatcherBase):
     def _complete_ragged_admissions(self, completing, first_tok: dict,
                                     first_lp: dict) -> None:
         """Install admissions whose last prompt chunk just dispatched; the
-        SAME dispatch produced each one's first token."""
+        SAME dispatch produced each one's first token (``first_lp`` has no
+        entry on an argmax-only verify dispatch). A lockstep draft cache
+        primes here (``_post_admit``)."""
         for slot in completing:
             a = self._ragged_admit.pop(slot)
             req = a["req"]
             req.budget = self._initial_budget(req) - len(req.tokens)
             self._by_slot[slot] = req
+            self._post_admit(slot, self._up(a["padded"]), a["prompt_mask"])
             self._note_token(slot, first_tok[slot], first_lp.get(slot))
+
+    def _ragged_adapters(self) -> Optional[tuple]:
+        """Per-slot adapter spec (stacked, ids (S,), scaling) for the
+        fused dispatches, or None (the base-only body).
+        ``MultiLoraPagedBatcher`` overrides it; every scheduling mode
+        (decode, admission chunks, verify spans) goes through this one
+        hook, so they cannot disagree about a slot's adapter."""
+        return None
 
     def _step_ragged(self) -> None:
         """One fused mixed prefill/decode dispatch: every decoding slot's
@@ -1738,7 +1924,7 @@ class PagedBatcher(_BatcherBase):
             up(tok_seq[:width]), rows, up(seq_starts), up(seq_lens),
             up(kv_lens), up(last_rows), self.generator, self.block_size,
             up(self.temps), self.gen.top_k, self.gen.top_p, bias=self._bias,
-            attn_kernel=self.attn_kernel,
+            attn_kernel=self.attn_kernel, adapters=self._ragged_adapters(),
         )
         self._stamp_ragged(rows, decode_rows=len(active))
         host_next = nxt.cpu().numpy()

@@ -11,8 +11,10 @@ hooks.
 Endpoints, with the JAX server's request fields and response shapes:
 - ``POST /v1/completions`` — ``prompt`` (token ids, or a string with a
   ``tokenizer``), ``max_tokens``, ``temperature``, ``n`` (1..64),
-  ``stop``, ``logit_bias``, ``logprobs``, ``deadline_s``, ``model`` (the
-  served name only), ``stream`` (``text/event-stream`` lines
+  ``stop``, ``logit_bias``, ``logprobs`` (400 from a speculative engine,
+  whose rounds verify argmaxes), ``deadline_s``, ``model`` (the served
+  name or, on a multi-LoRA engine, an adapter's: ``resolve_adapter``
+  routes it; an unknown name is 400), ``stream`` (``text/event-stream`` lines
   ``data: {"id", "token"}`` ending ``data: [DONE]``, an error event first
   on abort), and ``kv_import`` (an exported KV payload: the request is
   installed from it without a prefill, ``n`` 1 only);
@@ -25,10 +27,14 @@ Endpoints, with the JAX server's request fields and response shapes:
   /kv/chain/import`` (register a chain ``payload`` against the request's
   ``tokens``): the fleet's peer prefix tier;
 - ``GET /healthz`` (503 once the engine thread died or a drain started),
-  ``GET /v1/models``, ``GET /stats`` (the engine, latency and
-  ``tier_role`` keys and, where the engine has them, the
-  ``prefix_cache``, ``kv_swap`` and ``kv_handoff`` blocks, under the JAX
-  server's names).
+  ``GET /v1/models`` (the served name, then each adapter's), ``GET
+  /stats`` (the engine, latency and ``tier_role`` keys and, where the
+  engine has them, the ``prefix_cache``, ``kv_swap``, ``kv_handoff``,
+  ``speculative`` and ``lora_cache`` blocks, under the JAX server's
+  names).
+
+A speculative engine is a wrapper around an inner batcher (``_engine``):
+the server drives the inner one and reads the wrapper's ``spec_stats``.
 
 Request lifecycle: ``max_queue_depth`` sheds with 429 + Retry-After
 without taking the engine lock (an import with no free slot or blocks
@@ -41,8 +47,8 @@ turns /healthz red. The ``/kv/*`` hops answer with the JAX server's codes:
 400 for a bad body or payload, 409 for a stub whose chain is gone (or an
 engine that cannot export), 413, 429 and 503.
 
-Not here yet: tracing spans, the flight recorder, Prometheus mirroring,
-LoRA routing and speculative stats.
+Not here yet: tracing spans, the flight recorder, and Prometheus
+mirroring (of the speculative and LoRA-cache counters too).
 """
 
 from __future__ import annotations
@@ -379,7 +385,19 @@ class InferenceServer:
         self.default_deadline_s = default_deadline_s
         self.max_deadline_s = max_deadline_s
         self.drain_s = drain_s
-        self.engine = engine
+        # A speculative engine wraps an inner batcher (``_engine``) that
+        # owns the queue, slots and drive loop: hooks and the loop target
+        # it. The wrapper owns the acceptance stats.
+        self.engine = getattr(engine, "_engine", engine)
+        self._spec = engine if hasattr(engine, "spec_stats") else None
+        if model_name in getattr(self.engine, "adapter_names", ()):
+            # The "model == model_name → base" shortcut in _submit would
+            # make that adapter unreachable.
+            raise ValueError(
+                f"model_name {model_name!r} collides with an adapter "
+                "name — requests for the adapter would be routed to the "
+                "base model"
+            )
         self.tokenizer = tokenizer
         self.model_name = model_name
         self._lock = threading.Lock()
@@ -424,10 +442,10 @@ class InferenceServer:
             target=self._httpd.serve_forever, name="inference-http",
             daemon=True,
         )
-        engine.on_token = self._on_token
-        engine.on_retire = self._on_retire
-        engine.on_abort = self._on_abort
-        engine.on_admit = self._on_admit
+        self.engine.on_token = self._on_token
+        self.engine.on_retire = self._on_retire
+        self.engine.on_abort = self._on_abort
+        self.engine.on_admit = self._on_admit
 
     # -- engine side (all under self._lock) --------------------------------
 
@@ -620,15 +638,21 @@ class InferenceServer:
                 raise EngineFailedError(self._engine_error)
             if self._draining or self._shutdown:
                 raise DrainingError("server is draining; retry elsewhere")
+            route = {}
             if model is not None and model != self.model_name:
-                raise ValueError(
-                    f"unknown model {model!r} (this server serves "
-                    f"{self.model_name!r})"
-                )
+                # Multi-LoRA routing: the request's "model" names the
+                # adapter; resolve_adapter raises ValueError (400) for an
+                # unknown one. The served name is the base model.
+                if not hasattr(self.engine, "resolve_adapter"):
+                    raise ValueError(
+                        f"unknown model {model!r} (this server serves "
+                        f"{self.model_name!r})"
+                    )
+                route = {"adapter": model}
             rid = self.engine.submit(prompt, max_new_tokens=max_tokens,
                                      temperature=temperature, stop=stop,
                                      logit_bias=logit_bias,
-                                     deadline_s=deadline_s)
+                                     deadline_s=deadline_s, **route)
             if kv_export is not None:
                 # Same lock hold as the submit: on_token cannot fire for
                 # this rid before the registry entry exists.
@@ -769,6 +793,11 @@ class InferenceServer:
                     "swap_blocks": eng.swap_blocks,
                     "swap_bytes_limit": eng.swap_bytes_limit,
                 }
+            # The speculative wrapper's counters and the hot-adapter
+            # cache's (None when its residency is uncapped).
+            spec = self._spec.spec_stats() if self._spec is not None else None
+            lc_fn = getattr(eng, "lora_cache_stats", None)
+            lora = lc_fn() if lc_fn is not None else None
             ttft, e2e = list(self._ttft), list(self._e2e)
             queue_wait, itl = list(self._queue_wait), list(self._itl)
             tokens_out = self._tokens_out
@@ -802,6 +831,8 @@ class InferenceServer:
             **({"kv_swap": swap} if swap is not None else {}),
             **({"kv_pool": pool} if pool is not None else {}),
             **({"ragged": rag} if rag is not None else {}),
+            **({"speculative": spec} if spec is not None else {}),
+            **({"lora_cache": lora} if lora is not None else {}),
             **({"prefix_cache": pc} if pc is not None else {}),
         }
 
@@ -845,10 +876,11 @@ class InferenceServer:
                     else:
                         self._json(200, {"status": "ok"})
                 elif self.path == "/v1/models":
+                    ids = [server.model_name] + list(
+                        getattr(server.engine, "adapter_names", []))
                     self._json(200, {
                         "object": "list",
-                        "data": [{"id": server.model_name,
-                                  "object": "model"}],
+                        "data": [{"id": i, "object": "model"} for i in ids],
                     })
                 elif self.path == "/stats":
                     self._json(200, server.stats())
@@ -1103,6 +1135,13 @@ class InferenceServer:
                     want_logprobs = bool(req.get("logprobs", False))
                     if want_logprobs and stream:
                         raise ValueError("stream does not support logprobs")
+                    if want_logprobs and not getattr(
+                        server.engine, "supports_logprobs", False
+                    ):
+                        raise ValueError(
+                            "this engine does not compute logprobs "
+                            "(speculative serving verifies argmax rounds)"
+                        )
                     if kv_import is not None and n != 1:
                         raise ValueError("kv_import does not support n > 1")
                 except (ValueError, TypeError, json.JSONDecodeError) as err:

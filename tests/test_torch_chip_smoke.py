@@ -38,6 +38,13 @@ llama-shaped and a gemma-shaped config) run at a small width on the CPU
 with the kernel wrappers they reach replaced by counting stand-ins that
 call the plain versions, so their launch arithmetic, comparisons and
 output checks are exercised before the card sees them.
+
+Phase 8's helpers, the same way: the verify-span cases (5 rows a slot,
+each bounded by ``k_pos <= kv_len − 5 + j``) against a row-by-row
+attention written out here; the rollback byte check, which passes on the
+engine and fails when the rollback is skipped; the launch-count formula;
+the adapter draw's delta size; and the whole phase at ``tiny`` width with
+counting stand-ins.
 """
 
 from __future__ import annotations
@@ -755,7 +762,8 @@ def test_timed_ragged_shapes(smoke):
             in smoke.RAGGED_TIMED] == [
         ("main-mixed", ("bf16", "int8")), ("ragged-decode", ("bf16", "int8")),
         ("ragged-long-4096", ("bf16",)), ("ragged-single-8192", ("bf16",)),
-        ("ragged-chunk-4096", ("bf16",))]
+        ("ragged-chunk-4096", ("bf16",)), ("ragged-verify", ("bf16", "int8")),
+        ("ragged-verify-4096", ("bf16", "int8"))]
 
 
 @pytest.mark.parametrize("t,s,span,hkv,q_tile", [
@@ -829,11 +837,11 @@ def test_compact_grid_bounds_the_owned_tiles(smoke, layouts):
 
 def test_ragged_vs_plain_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     """Phase 3's ragged cases at their small shapes (every head dim, the
-    run boundaries, the masked run, the idle stale slot and 32-token
-    q-tiles), each run twice, as on the card."""
+    run boundaries, the masked run, the idle stale slot, 32-token q-tiles
+    and the verify spans), each run twice, as on the card."""
     cases = [c for c in smoke.RAGGED_CASES
              if c[1]["t"] <= 96 and c[1]["maxb"] * c[1]["bs"] <= 1024]
-    assert len(cases) == 17
+    assert len(cases) == 18
     monkeypatch.setattr(smoke, "RAGGED_CASES", cases)
     worst = smoke.kernel_vs_plain()
     for variant in ("bf16", "int8"):
@@ -1238,3 +1246,164 @@ def test_imported_bytes_check_fails_on_one_byte(smoke, no_card,
     payload["blocks"][1]["data"]["v"] = base64.b64encode(bytes(raw)).decode()
     with pytest.raises(AssertionError, match="block 1's v"):
         smoke.check_imported_bytes(b, bid, payload)
+
+
+# -- phase 8: speculation and multi-LoRA --------------------------------------
+
+
+def _row_by_row(case):
+    """Attention of each owned row over its slot's keys, the span's causal
+    rule written out: row j of a span of n rows over kv_len keys sees
+    k_pos <= kv_len − n + j where the mask is set."""
+    q = case["q"].float()
+    out = torch.zeros_like(q)
+    bs = case["block_size"]
+    g = q.shape[1] // case["k_pool"].shape[1]
+    for s, (s0, n, kvl) in enumerate(zip(case["seq_starts"].tolist(),
+                                         case["seq_lens"].tolist(),
+                                         case["kv_lens"].tolist())):
+        blocks = case["tables"][s].long()
+        k = case["k_pool"][blocks].float().permute(1, 0, 2, 3).reshape(
+            case["k_pool"].shape[1], -1, q.shape[2])
+        v = case["v_pool"][blocks].float().permute(1, 0, 2, 3).reshape(
+            k.shape)
+        for j in range(n):
+            seen = (torch.arange(k.shape[1]) <= kvl - n + j) & \
+                case["kv_mask"][s]
+            for h in range(q.shape[1]):
+                scores = (k[h // g] @ q[s0 + j, h]) / q.shape[2] ** 0.5
+                p = torch.softmax(scores.masked_fill(~seen, -1e30), dim=0)
+                out[s0 + j, h] = p @ v[h // g]
+    return out
+
+
+def test_verify_span_cases_hold_the_span_causality(smoke):
+    """Phase 8's "verify-spans" case: 8 slots × 5 rows over 8..564 keys at
+    the 64-row width the engine pads to; the plain version equals the
+    span rule written out, on every owned row."""
+    assert smoke.VERIFY_SPANS == [(5, n) for n in smoke.VERIFY_LENS]
+    assert smoke.VERIFY_LENS[0] == 8 and smoke.VERIFY_LENS[-1] == 564
+    shape = {**smoke.RAG_VERIFY, "hq": 8, "hkv": 2, "d": 32}
+    case = smoke._case(smoke.VERIFY_SPANS, seed=158, **shape)
+    owned = smoke._owned(case)
+    assert int(owned.sum()) == 40 and case["q"].shape[0] == 64
+    plain = ragged_attention_reference(**{**case, "q": case["q"].float()})
+    torch.testing.assert_close(plain[owned], _row_by_row(case)[owned],
+                               rtol=1e-5, atol=1e-5)
+    names = [c[4] for c in smoke.RAGGED_CASES]
+    assert {"verify-spans", "verify-spans-4096"} <= set(names)
+
+
+def test_expected_spec_counts(smoke):
+    assert smoke._expected_spec_counts("ragged", 7, 3 * 8, 32) == {
+        "ragged": 224, "flash": 24, "decode": 0, "dense": 0}
+    for kind in ("alternating", "continuous"):
+        assert smoke._expected_spec_counts(kind, 0, 4 * 40, 32) == {
+            "ragged": 0, "flash": 160, "decode": 0, "dense": 0}
+
+
+def test_adapter_draw_is_a_few_percent_of_the_projection(smoke):
+    cfg = dataclasses.replace(TL.LLAMA_CONFIGS["tiny"], dim=512,
+                              ffn_hidden=1024, dtype=torch.float32)
+    from kubeflow_tpu_torch.models.lora import LoraConfig
+
+    lcfg = LoraConfig(rank=16, alpha=16.0,
+                      targets=("wq", "wk", "w_up", "w_down"))
+    ad = smoke._draw_adapter(cfg, lcfg, 30)
+    params = TL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for target, ab in ad.items():
+        w = getattr(params.layers[1], target)
+        x = torch.randn((256, w.shape[0]), generator=torch.Generator()
+                        .manual_seed(1))
+        ratio = float((x @ ab["a"][1] @ ab["b"][1] * lcfg.scaling).std()
+                      / (x @ w).std())
+        assert 0.5 * smoke.LORA_DELTA < ratio < 2 * smoke.LORA_DELTA, (
+            target, ratio)
+    again = smoke._draw_adapter(cfg, lcfg, 30)
+    assert all(torch.equal(again[t]["b"], ad[t]["b"]) for t in ad)
+
+
+@pytest.fixture
+def spec_stand_ins(smoke, monkeypatch):
+    """Phase 8 on the CPU: the attention wrappers count like the kernels
+    and compute the plain versions; every paged engine is told its kernel
+    is on; the draft is one layer of tiny's two."""
+    from kubeflow_tpu_torch.models import paged as TP
+
+    real = {"ragged": TRA.ragged_paged_attention,
+            "flash": TA.flash_attention_fwd}
+    plain = {"ragged": TRA.ragged_attention_reference,
+             "flash": TA.flash_attention_reference}
+
+    def stand_in(name):
+        def call(*a, **kw):
+            real[name].launches += 1
+            return plain[name](*a, **kw)
+        return call
+
+    monkeypatch.setattr(TP, "ragged_paged_attention", stand_in("ragged"))
+    monkeypatch.setattr(TA, "flash_attention_fwd", stand_in("flash"))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(smoke, "DRAFT_LAYERS", 1)
+    real_prompts = smoke._prompts
+    # Prompts of up to 100 tokens where the card's reach 500: the
+    # schedules keep their shape (two waves of 8 slots) at a fifth of
+    # the CPU's prefill work.
+    monkeypatch.setattr(smoke, "_prompts", lambda cfg, n, lo, hi, seed:
+                        real_prompts(cfg, n, lo, min(hi, 100), seed))
+    for name, inner in (("_spec_engine", "_pb"), ("_engine", None),
+                        ("_lora_engine", None)):
+        real_make = getattr(smoke, name)
+
+        def make(*a, real_make=real_make, inner=inner, **kw):
+            eng = real_make(*a, **kw)
+            target = getattr(eng, inner) if inner else eng
+            if target.ragged and kw.get("attn_kernel") is not False:
+                target.attn_kernel = True
+            return eng
+
+        monkeypatch.setattr(smoke, name, make)
+
+
+def _tiny_f32():
+    cfg = dataclasses.replace(TL.LLAMA_CONFIGS["tiny"], dtype=torch.float32)
+    return cfg, TL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def test_rollback_check_passes_and_fails_when_skipped(smoke, no_card,
+                                                      spec_stand_ins,
+                                                      monkeypatch):
+    from kubeflow_tpu_torch.models import paged as TP
+    from kubeflow_tpu_torch.models.speculative import truncated_draft
+
+    cfg, params = _tiny_f32()
+    dparams, dcfg = truncated_draft(params, cfg, 1)
+    prompt = smoke._prompts(cfg, 1, 40, 40, 3)[0]
+    for bits in (0, 8):
+        sb = smoke._spec_engine(params, cfg, dparams, dcfg, bits)
+        assert smoke.check_rollback_round(sb, prompt) > 0
+        assert sb.free_blocks == sb._pb.num_blocks - 1
+    monkeypatch.setattr(TP, "_restore_cells", lambda *a: None)
+    sb = smoke._spec_engine(params, cfg, dparams, dcfg, 8)
+    with pytest.raises(AssertionError, match="rejected cell"):
+        smoke.check_rollback_round(sb, prompt)
+
+
+def test_spec_lora_phase_rehearsed_on_the_cpu(smoke, no_card,
+                                              spec_stand_ins):
+    """Phase 8 at f32 ``tiny`` width: the launch arithmetic of each
+    engine, free blocks restored, a rollback round, the self-draft's
+    acceptance, the adapters' rows against merged engines, the hot cache's
+    churn and the HTTP surface."""
+    cfg, params = _tiny_f32()
+    out = smoke.spec_lora_phase(params, cfg, "a CPU rehearsal")
+    for variant in ("bf16", "int8"):
+        row = out["ragged"][variant]
+        assert row["launches"] > 0 and row["launches"] % cfg.n_layers == 0
+        assert row["flash_launches"] >= 16 * smoke.DRAFT_LAYERS
+        assert sum(row["widths"].values()) * cfg.n_layers == row["launches"]
+    assert out["ragged"]["self_draft_acceptance"] >= smoke.SELF_DRAFT_MIN
+    for kind in ("alternating", "continuous"):
+        assert out["other"][kind]["flash_launches"] >= 4 * (
+            cfg.n_layers + smoke.DRAFT_LAYERS)
+    assert out["lora"]["lora_cache"]["evictions"] >= 1

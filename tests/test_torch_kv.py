@@ -312,12 +312,6 @@ def test_import_validation_is_jax_s(f32_gqa):
         assert str(terr.value) == str(jerr.value)
 
 
-def test_adapter_payload_is_refused_naming_item_8(f32_gqa):
-    payload = _prefill_payload(_jax(f32_gqa), PROMPT)
-    with pytest.raises(ValueError, match="item 8"):
-        _port(f32_gqa).import_blocks({**payload, "adapter": 2})
-
-
 def test_export_requires_prefix_cache_and_a_live_slot(f32_gqa):
     for make in (_jax, _port):
         plain = make(f32_gqa, prefix_cache=False)

@@ -580,7 +580,6 @@ def test_serve_batched_runs_on_the_cpu(monkeypatch, capsys, argv, env, label):
     (["--int8", "--fp8"], "--int8/--int4/--fp8 are mutually exclusive"),
     (["--checkpoint", "/ckpt"], "item 12"),
     (["--prompt", "hello"], "item 12"),
-    (["--speculative", "2"], "item 8"),
     (["--prompt-cache", "--prefix-cache", "--paged"],
      "--prompt-cache and --prefix-cache are mutually exclusive"),
     (["--tp", "2"], "item 11"),

@@ -266,10 +266,6 @@ def test_serve_http_exits_on_a_garbage_knob(clean_env, env, fn):
 @pytest.mark.parametrize("env,paged,says", [
     ({"KUBEFLOW_TPU_SERVING_TP": "2"}, True, "item 11"),
     ({"KUBEFLOW_TPU_SERVING_TP": "2"}, False, "item 11"),
-    ({"KUBEFLOW_TPU_SPEC_DRAFT_LEN": "3",
-      "KUBEFLOW_TPU_SERVING_RAGGED": "1"}, True, "item 8"),
-    ({"KUBEFLOW_TPU_SPEC_DRAFT_LEN": "3", "KUBEFLOW_TPU_SPEC_ADAPTIVE": "1",
-      "KUBEFLOW_TPU_SERVING_RAGGED": "1"}, True, "item 8"),
     # The JAX order: on the alternating engine, "needs the ragged engine".
     ({"KUBEFLOW_TPU_SPEC_DRAFT_LEN": "3"}, True,
      "KUBEFLOW_TPU_SPEC_DRAFT_LEN needs the ragged engine (set "
