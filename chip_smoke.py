@@ -37,6 +37,11 @@ every kernel's launch count set to 0 just before it and read just after:
   ``csrc/flash_attention.cu``; the alternating and continuous spec
   engines; ``MultiLoraPagedBatcher`` serving two adapters and base in one
   ragged batch, and both behind the server;
+- a Hugging Face checkpoint of the served weights (``models/convert.py``'s
+  ``load_hf_checkpoint``) served by ``examples/serve_http.py --checkpoint``
+  over the ragged engine (``csrc/ragged_attention.cu``) and the continuous
+  one (``csrc/flash_attention.cu``, the dense decode kernel), with the
+  server's tracing, flight recorder, stall capture and metrics mirroring;
 - training, ``models/train.py``'s ``make_train_step`` (remat "full", loss
   chunk 512, AdamW) at B 1, S 2048, of ``llama-3-8b`` (head dim 128) and
   then ``gemma-2b`` (head dim 256), whose every step runs the flash
@@ -224,7 +229,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    a 400 for ``logprobs``. Smoke numbers beside the card line: acceptance,
    rounds, the 16 prompts' wall against the plain engine's, the verify
    dispatch widths;
-9. train — the serving model and engines are freed, then llama-3-8b and
+9. checkpoint and observability — phases 5-8's engines are freed and the
+   served weights (llama-3-8b, 16.06 GB of bf16) written as a Hugging Face
+   checkpoint by ``write_hf_checkpoint`` (``params_to_hf_state_dict``:
+   HF's names and layout, ``config.json``, 4 safetensors shards and their
+   index) into a temporary directory, removed at the end;
+   ``load_hf_checkpoint(dir, device="cuda")`` must give every leaf bit for
+   bit, with the host's resident memory growing by less than a quarter of
+   the checkpoint and 64 MB (the load streams). Then ``python -m
+   kubeflow_tpu_torch.examples.serve_http --checkpoint DIR --paged`` as a
+   process with phase 6's ragged engine flags, KUBEFLOW_TPU_SERVING_RAGGED
+   =1, KUBEFLOW_TPU_TRACE_RING=512 and KUBEFLOW_TPU_STALL_PROFILE_DIR:
+   once ``/healthz`` answers, phase 6's 4 requests (2 streamed), each
+   under a ``traceparent`` of its own, must give phase 6's ragged tokens
+   (cut at serve_http's end of sequence, 2); ``/debug/traces`` must hold
+   under each sent trace the ``server.request`` span (a child of the
+   sender's), and ``queue_wait``, ``prefill`` and ``first_decode`` under
+   it, summing to the request's TTFT within 10%, and ``engine.step``
+   spans as roots; ``/stats`` its flight recorder (steps = the engine's
+   ragged steps) and ``engine_step_stalls``; SIGTERM must drain it to
+   exit 0. The same without ``--paged`` (the continuous engine) on the 2
+   blocking requests, held to phase 6's continuous tokens. Both are sent
+   token ids (the checkpoint holds no tokenizer). Last, in process, the ragged
+   engine behind ``InferenceServer`` with stall capture armed and a
+   recording metrics bundle serves phase 5's 16 prompts; after 16 steps
+   one step sleeps (20 × the median step, at least 0.5 s): one stall
+   counted, one capture whose trace holds the ragged kernel, ragged
+   launches = steps × n_layers, and the bundle reads what ``/stats``
+   reads. Smoke numbers beside the card line: write and load seconds and
+   GB/s, the host's resident growth, the seconds to ``/healthz``, TTFT
+   from the span sums beside ``/stats``' ``ttft_s``;
+10. train — the serving model is freed, then llama-3-8b and
    after it gemma-2b, each at full width and depth, train from random
    bf16 weights on batches of a
    numpy corpus through the port's ``TokenLoader``: step 1's loss and
@@ -252,14 +287,20 @@ import base64
 import collections
 import concurrent.futures
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
 import math
 import os
+import secrets
+import shutil
+import signal
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -270,6 +311,7 @@ from torch.nn import functional as F
 
 from kubeflow_tpu_torch.data.loader import TokenLoader, write_token_file
 from kubeflow_tpu_torch.models import continuous as cont_mod
+from kubeflow_tpu_torch.models import convert as convert_mod
 from kubeflow_tpu_torch.models import llama as L
 from kubeflow_tpu_torch.models import lora as lora_mod
 from kubeflow_tpu_torch.models import paged as paged_mod
@@ -292,6 +334,7 @@ from kubeflow_tpu_torch.models.speculative import (
     SpeculativePagedBatcher,
     truncated_draft,
 )
+from kubeflow_tpu_torch.observability import profiling as profiling_mod
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import attention as attn_mod
 from kubeflow_tpu_torch.ops import paged_attention as decode_mod
@@ -1321,8 +1364,8 @@ FLASH_TIMED = (("main-prefill", 20), ("continuation-528", 20),
 def timing_flash():
     """Phase 4, flash forward: the main-path prefill, a 528-row
     continuation, the training shape (64 launches a train step) and the
-    long shape (kernel and library only: the plain version there is a
-    yardstick of nothing and takes seconds), each beside one SDPA call
+    long shape (its plain version timed once: it takes seconds), each
+    beside its plain version and one SDPA call
     (``is_causal`` where ``_sdpa_is_causal`` allows it). Each case also
     reports the CTAs its launch ran, read from a profiler trace."""
     rows = {}
@@ -1334,8 +1377,10 @@ def timing_flash():
         ctas = _launched_ctas(lambda: flash_attention_fwd(**case),
                               {"ctas": "flash_fwd_kernel"})["ctas"]
         flash_attention_fwd.launches = saved  # timing is no main path
-        plain_ms = (_time_ms(lambda: flash_attention_reference(**case))
-                    if name != "long-16384" else None)
+        # The plain version at S 16384 takes seconds a call: one timed.
+        long = name == "long-16384"
+        plain_ms = _time_ms(lambda: flash_attention_reference(**case),
+                            **({"iters": 1, "warmup": 0} if long else {}))
         library_ms = _time_ms(_flash_library_call(case), iters=iters)
         bound_ms, bound_by, work = _flash_bound(case)
         rows[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
@@ -1343,7 +1388,7 @@ def timing_flash():
                           bound_by=bound_by, ctas=ctas,
                           library_is_causal=_sdpa_is_causal(case), **work)
         log(f"  flash {name}: kernel {kernel_ms:.4f} ms ({ctas} CTAs), plain "
-            f"{plain_ms if plain_ms is None else round(plain_ms, 4)} ms, "
+            f"{plain_ms:.4f} ms, "
             f"library {library_ms:.4f} ms"
             f"{' (is_causal)' if _sdpa_is_causal(case) else ''}, bound "
             f"{bound_ms:.4f} ms ({bound_by}; {work['bytes']} B, "
@@ -2579,11 +2624,12 @@ def _launched_ctas(fn, kernels: dict) -> dict:
 # HTTP
 
 
-def _post(port: int, body: dict, timeout: float = 300.0):
+def _post(port: int, body: dict, timeout: float = 300.0, headers=None):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/completions",
         data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"}, method="POST",
+        headers={"Content-Type": "application/json", **(headers or {})},
+        method="POST",
     )
     with urllib.request.urlopen(req, timeout=timeout) as resp:
         raw = resp.read().decode()
@@ -2597,19 +2643,21 @@ def _post(port: int, body: dict, timeout: float = 300.0):
     return [e["token"] for e in out]
 
 
-def http_phase(engine, label: str):
+HTTP_PROMPTS = ((128000, 9906), (128000, 791))
+
+
+def http_phase(engine, label: str) -> dict:
     """Phase 6: 2 prompts × (blocking, streamed), all 4 at once. On the
     ragged engine two-token prompts keep every dispatch at the 8-row
     floor; on the alternating and continuous ones every admission is one
     (1, 512) prefill and every step runs all 8 slots: either way a
     streamed copy and a blocking copy run at one width and must agree
-    token for token."""
+    token for token. Returns {prompt: tokens} (phase 9 is held to it)."""
     srv = InferenceServer(engine, port=0, model_name="llama-3-8b",
                           drain_s=30.0).start()
     try:
-        prompts = [[128000, 9906], [128000, 791]]
-        bodies = [{"prompt": p, "max_tokens": 16, "stream": stream}
-                  for p in prompts for stream in (False, True)]
+        bodies = [{"prompt": list(p), "max_tokens": 16, "stream": stream}
+                  for p in HTTP_PROMPTS for stream in (False, True)]
         with concurrent.futures.ThreadPoolExecutor(4) as pool:
             results = list(pool.map(lambda b: _post(srv.port, b), bodies))
         for i in range(0, 4, 2):
@@ -2625,6 +2673,7 @@ def http_phase(engine, label: str):
             f"ttft_s={stats['ttft_s']} ragged={stats.get('ragged')}")
     finally:
         srv.stop()
+    return {p: results[2 * i] for i, p in enumerate(HTTP_PROMPTS)}
 
 
 # ---------------------------------------------------------------------------
@@ -3486,6 +3535,517 @@ def spec_lora_phase(params, cfg, card: str, runs=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Checkpoint and observability
+
+
+CKPT_SHARDS = 4  # as the published Llama-3-8B checkpoint is cut
+_ST_DTYPES = {torch.bfloat16: "BF16", torch.float32: "F32",
+              torch.float16: "F16"}
+_HF_DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32",
+              torch.float16: "float16"}
+# serve_http's flags and env for phase 6's engines (``_engine`` and
+# ``_cont_engine``): the same slots, pool, bucket, token budget and
+# new-token cap, so the process serves phase 6's tokens.
+SERVE_PAGED = ["--paged", "--slots", "8", "--num-blocks", str(8 * 37 + 24),
+               "--block-size", "16", "--prompt-bucket", "512",
+               "--max-new-tokens", "64"]
+SERVE_CONT = ["--slots", "8", "--cache-len", "1024", "--prompt-bucket",
+              "512", "--max-new-tokens", "64"]
+SERVE_ENV = {"KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET": "512",
+             "KUBEFLOW_TPU_TRACE_RING": "512"}
+SERVE_DEVICE: list = []  # the card; a CPU rehearsal passes --device cpu
+SERVE_EOS = 2  # serve_http's end of sequence; phase 6's engines have none
+SERVE_TIMEOUT = 600.0
+RSS_SLACK = 64 << 20  # the process's own allocations during a load
+STALL_AFTER = 16  # normal steps before the delayed one: min_samples
+STALL_SECONDS = "1"  # the stall capture's length
+REQUEST_SPANS = ("first_decode", "prefill", "queue_wait", "server.request")
+
+
+def hf_config_json(cfg) -> dict:
+    """The ``config.json`` of a Llama checkpoint of ``cfg``."""
+    out = {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+        "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_heads,
+        "num_key_value_heads": cfg.n_kv_heads,
+        "intermediate_size": cfg.ffn_hidden, "rope_theta": cfg.rope_theta,
+        "max_position_embeddings": cfg.max_seq_len,
+        "rms_norm_eps": cfg.norm_eps, "hidden_act": "silu",
+        "head_dim": cfg.head_dim, "tie_word_embeddings": cfg.tie_embeddings,
+        "torch_dtype": _HF_DTYPES[cfg.dtype],
+    }
+    if cfg.rope_scaling is not None:
+        out["rope_scaling"] = {"rope_type": "llama3",
+                               **dataclasses.asdict(cfg.rope_scaling)}
+    return out
+
+
+def _hf_order(key: str) -> tuple:
+    """HF's order of a state dict: the embedding, the layers in turn, the
+    final norm, the head."""
+    parts = key.split(".")
+    if "layers" in parts:
+        return (1, int(parts[parts.index("layers") + 1]))
+    return (0, 0) if "embed_tokens" in key else (2, int("lm_head" in key))
+
+
+def write_hf_checkpoint(params, cfg, path: str,
+                        shards: int = CKPT_SHARDS) -> dict:
+    """Write ``params`` as a Hugging Face checkpoint under ``path``:
+    ``config.json``, ``shards`` safetensors files of about equal bytes
+    (HF's names, order and ``(out, in)`` layout, every tensor in the model
+    dtype) and their index ``model.safetensors.index.json``. The format:
+    an 8-byte little-endian header length, a JSON header padded to 8
+    bytes (each tensor's dtype, shape and data offsets), the raw bytes.
+    Tensors come to the host one at a time. Returns {"bytes", "shards",
+    "tensors"}."""
+    sd = convert_mod.params_to_hf_state_dict(cfg, params)
+    keys = sorted(sd, key=_hf_order)
+    size = {k: sd[k].numel() * sd[k].element_size() for k in keys}
+    total = sum(size.values())
+    groups, cur, acc = [], [], 0
+    for i, k in enumerate(keys):
+        cur.append(k)
+        acc += size[k]
+        # Cut at each quarter of the bytes, or where every shard left
+        # needs one of the tensors left.
+        left = shards - 1 - len(groups)
+        if left and (acc >= total * (len(groups) + 1) / shards
+                     or len(keys) - 1 - i == left):
+            groups.append(cur)
+            cur = []
+    groups.append(cur)
+    weight_map = {}
+    for i, group in enumerate(groups):
+        name = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for k in group:
+            header[k] = {"dtype": _ST_DTYPES[sd[k].dtype],
+                         "shape": list(sd[k].shape),
+                         "data_offsets": [offset, offset + size[k]]}
+            offset += size[k]
+            weight_map[k] = name
+        raw = json.dumps(header, separators=(",", ":")).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(path, name), "wb") as f:
+            f.write(struct.pack("<Q", len(raw)))
+            f.write(raw)
+            for k in group:
+                host = sd[k].contiguous().cpu()
+                f.write(host.view(torch.uint8).numpy())
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f, indent=2)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config_json(cfg), f, indent=2)
+    return {"bytes": total, "shards": shards, "tensors": len(keys)}
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+@contextlib.contextmanager
+def _peak_rss():
+    """Sample this process's resident bytes every 5 ms while inside;
+    yields {"base", "peak"}, filled in on the way out."""
+    out = {"base": _rss_bytes(), "peak": 0}
+    stop = threading.Event()
+
+    def sample():
+        while True:
+            out["peak"] = max(out["peak"], _rss_bytes())
+            if stop.wait(0.005):
+                return
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        sampler.join()
+        out["peak"] = max(out["peak"], _rss_bytes())
+
+
+def _cfg_fields(cfg) -> dict:
+    out = dataclasses.asdict(cfg)
+    out.pop("dtype")
+    return out
+
+
+def _load_part(params, cfg, ckpt: str, nbytes: int) -> dict:
+    """``load_hf_checkpoint`` onto the card: every leaf bit-equal to the
+    served model's, the host's resident bytes well under the
+    checkpoint's."""
+    gc.collect()
+    t0 = time.monotonic()
+    with _peak_rss() as rss:
+        lcfg, loaded = convert_mod.load_hf_checkpoint(ckpt, device=DEVICE)
+        torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    check(_cfg_fields(lcfg) == _cfg_fields(cfg) and lcfg.dtype == cfg.dtype,
+          f"the checkpoint's config {lcfg} is not the served one {cfg}")
+    mine, theirs = list(params.named_parameters()), list(
+        loaded.named_parameters())
+    check([n for n, _ in mine] == [n for n, _ in theirs],
+          "the loaded model has other leaves")
+    differ = [n for (n, a), (_, b) in zip(mine, theirs)
+              if a.dtype != b.dtype or a.shape != b.shape
+              or not torch.equal(a.view(torch.uint8), b.view(torch.uint8))]
+    check(not differ, f"{len(differ)} leaves differ from the served "
+                      f"model's, first {differ[:3]}")
+    growth = rss["peak"] - rss["base"]
+    # A load onto the host keeps the model there; the rest is staging.
+    staged = growth - (nbytes if torch.device(DEVICE).type == "cpu" else 0)
+    check(staged < nbytes / 4 + RSS_SLACK,
+          f"the load grew the host's resident memory by {growth / 1e9:.2f} "
+          f"GB for a {nbytes / 1e9:.2f} GB checkpoint: it did not stream")
+    del loaded, theirs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"load_s": load_s, "load_gb_per_s": nbytes / load_s / 1e9,
+            "rss_base_gb": rss["base"] / 1e9,
+            "rss_peak_gb": rss["peak"] / 1e9, "rss_growth_gb": growth / 1e9,
+            "leaves": len(mine)}
+
+
+def _start_serve_http(ckpt: str, flags: list, env: dict):
+    """``serve_http --checkpoint`` as a process, from this checkout: returns
+    (the process, its port, its output lines so far, the seconds from
+    start to a healthy /healthz). A reader thread keeps its output
+    drained."""
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.examples.serve_http",
+         "--checkpoint", ckpt, "--port", "0", "--drain-s", "30", *flags,
+         *SERVE_DEVICE],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, **env})
+    lines, serving = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("serving "):
+                serving.set()
+        serving.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        serving.wait(SERVE_TIMEOUT)
+        ready = [x for x in lines if x.startswith("serving ")]
+        check(bool(ready), "serve_http did not come up: "
+                           + "\n".join(lines[-30:]))
+        port = int(ready[0].split("http://")[1].split()[0].rsplit(":", 1)[1])
+        deadline = time.monotonic() + SERVE_TIMEOUT
+        while True:
+            try:
+                if _get_json(port, "/healthz") == {"status": "ok"}:
+                    break
+            except (OSError, ValueError):
+                pass
+            check(time.monotonic() < deadline and proc.poll() is None,
+                  "serve_http never answered /healthz: "
+                  + "\n".join(lines[-30:]))
+            time.sleep(0.05)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    return proc, port, lines, time.monotonic() - t0
+
+
+def _stop_serve_http(proc, lines) -> None:
+    """SIGTERM: the server drains and the process exits 0."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    check(proc.returncode == 0, f"serve_http exited {proc.returncode} on "
+                                "SIGTERM: " + "\n".join(lines[-30:]))
+
+
+def _eos_cut(tokens: list, eos: int) -> list:
+    return tokens[:tokens.index(eos)] if eos in tokens else tokens
+
+
+def check_request_traces(traces: list, sent: dict) -> dict:
+    """Each sent trace ({trace id: the sender's span id}) holds the root
+    ``server.request`` span, a child of the sender's, and ``queue_wait``,
+    ``prefill`` and ``first_decode``, children of the root, whose
+    durations sum to the root's ``first_token`` TTFT within 10% (or 5
+    ms); every ``engine.step`` span is a root of its own, as JAX's.
+    Returns {trace id: (span sum s, TTFT s)}."""
+    out = {}
+    for tid, parent in sent.items():
+        mine = [t for t in traces if t["trace_id"] == tid]
+        check(sorted(t["name"] for t in mine) == list(REQUEST_SPANS),
+              f"trace {tid} holds {sorted(t['name'] for t in mine)}")
+        by = {t["name"]: t for t in mine}
+        root = by["server.request"]
+        check(root["parent_id"] == parent,
+              f"server.request of {tid} hangs off {root['parent_id']}")
+        for name in ("queue_wait", "prefill", "first_decode"):
+            check(by[name]["parent_id"] == root["span_id"],
+                  f"{name} of {tid} is not a child of server.request")
+        (evt,) = [e for e in root["events"] if e["name"] == "first_token"]
+        ttft = evt["attributes"]["ttft_s"]
+        span_sum = sum(by[n]["end_time"] - by[n]["start_time"]
+                       for n in ("queue_wait", "prefill", "first_decode"))
+        check(abs(span_sum - ttft) <= max(0.10 * ttft, 0.005),
+              f"{tid}: the spans sum to {span_sum} s, TTFT was {ttft} s")
+        out[tid] = (span_sum, ttft)
+    steps = [t for t in traces if t["name"] == "engine.step"]
+    check(bool(steps) and all(t["parent_id"] == "" for t in steps),
+          "engine.step spans missing or not roots")
+    return out
+
+
+def _serve_checkpoint(ckpt: str, flags: list, env: dict, want: dict,
+                      streamed: bool) -> dict:
+    """``serve_http --checkpoint`` over ``flags``: phase 6's prompts
+    (each blocking and, with ``streamed``, streamed too; all at once), each
+    under a trace of its own. Tokens are held to ``want`` (phase 6's,
+    {prompt: tokens}, cut at serve_http's end of sequence), the spans to
+    ``check_request_traces``; then ``/stats`` and a SIGTERM drain."""
+    proc, port, lines, up_s = _start_serve_http(ckpt, flags, env)
+    # The checkpoint holds no tokenizer: serve_http says so (or, where a
+    # transformers version makes one up, serves with it); the requests
+    # below send token ids either way.
+    log("  serve_http printed: " + " | ".join(x[:160] for x in lines))
+    try:
+        bodies = [{"prompt": list(p), "max_tokens": 16, "stream": stream}
+                  for p in HTTP_PROMPTS
+                  for stream in ((False, True) if streamed else (False,))]
+        heads = [(secrets.token_hex(16), secrets.token_hex(8))
+                 for _ in bodies]
+        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+            results = list(pool.map(
+                lambda bh: _post(port, bh[0], headers={
+                    "traceparent": f"00-{bh[1][0]}-{bh[1][1]}-01"}),
+                zip(bodies, heads)))
+        for body, got in zip(bodies, results):
+            exp = _eos_cut(want[tuple(body["prompt"])], SERVE_EOS)
+            check(got == exp, f"serve_http --checkpoint gave {got} for "
+                              f"{body}, phase 6 {exp}")
+        sent = dict(heads)
+        deadline = time.monotonic() + 60
+        while True:  # a root span ends just after its response
+            traces = _get_json(port, "/debug/traces")["traces"]
+            done = {t["trace_id"] for t in traces
+                    if t["name"] == "server.request"}
+            if set(sent) <= done or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        spans = check_request_traces(traces, sent)
+        stats = _get_json(port, "/stats")
+    finally:
+        _stop_serve_http(proc, lines)
+    check(stats["served"] == len(bodies), f"/stats served {stats['served']}")
+    flight = stats["flight"]
+    check("engine_step_stalls" in stats and flight["steps"] > 0,
+          "/stats has no flight recorder")
+    if "ragged" in stats:
+        check(flight["steps"] == stats["ragged"]["steps"],
+              f"flight steps {flight['steps']} != engine steps "
+              f"{stats['ragged']['steps']}")
+    if "KUBEFLOW_TPU_STALL_PROFILE_DIR" in env:
+        check("stall_profiles" in flight, "stall capture is not armed")
+    sums = [s for s, _ in spans.values()]
+    p95 = stats["ttft_s"]["p95"]
+    check(abs(max(sums) - p95) <= max(0.10 * p95, 0.005),
+          f"the longest span sum {max(sums)} s against /stats' TTFT p95 "
+          f"{p95} s")
+    return {"healthz_s": up_s, "ttft_span_sum_s": sorted(sums),
+            "ttft_span_gap_max": max(abs(a - b) / b
+                                     for a, b in spans.values()),
+            "ttft_s": stats["ttft_s"], "flight_steps": flight["steps"],
+            "engine_step_stalls": stats["engine_step_stalls"]}
+
+
+class _Recorded:
+    """One metric as the server writes it: ``.inc()`` adds, ``.set()``
+    replaces."""
+
+    def __init__(self):
+        self.value = 0.0
+
+    def inc(self, by: float = 1.0) -> None:
+        self.value += by
+
+    def set(self, value: float) -> None:
+        self.value = value
+
+
+class RecordingMetrics:
+    """A metrics bundle whose attributes are ``_Recorded`` metrics, made
+    on first use (the server only calls ``.inc()`` and ``.set()``)."""
+
+    def __getattr__(self, name: str) -> _Recorded:
+        if name.startswith("__"):
+            raise AttributeError(name)
+        metric = self.__dict__[name] = _Recorded()
+        return metric
+
+
+def _stall_part(params, cfg, profiles: str) -> dict:
+    """The ragged engine behind an in-process server with stall capture
+    armed (``KUBEFLOW_TPU_STALL_PROFILE_DIR``) and a recording metrics
+    bundle: after STALL_AFTER normal steps one step sleeps 20 × the median
+    step (at least 0.5 s), the recorder counts a stall, and the capture's
+    trace holds the ragged kernel. Launches as phase 5's rule; the
+    bundle reads what /stats reads."""
+    engine = _engine(params, cfg, 0)
+    metrics = RecordingMetrics()
+    env = {"KUBEFLOW_TPU_STALL_PROFILE_DIR": profiles,
+           "KUBEFLOW_TPU_STALL_PROFILE_SECONDS": STALL_SECONDS}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        srv = InferenceServer(engine, port=0, model_name="llama-3-8b",
+                              metrics=metrics, drain_s=30.0)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(srv._stall_profiler is not None, "stall capture is not armed")
+    real_step, calls, delay = engine._step, [0], {}
+
+    def step():
+        # Inside drive_once's timed quantum.
+        calls[0] += 1
+        if calls[0] == STALL_AFTER + 1:
+            median = srv.flight.snapshot()["step_s"]["p50"]
+            delay["s"] = max(0.5, 20 * median)
+            time.sleep(delay["s"])
+        real_step()
+
+    engine._step = step
+    prompts = _prompts(cfg, 16, 8, 500, SEED)
+    srv.start()
+    try:
+        _zero_counts()
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+            toks = list(pool.map(lambda p: _post(
+                srv.port, {"prompt": p, "max_tokens": 64}), prompts))
+        counts = _counts()
+        deadline = time.monotonic() + 120
+        while srv.stats()["flight"]["stall_profiles"]["captures"] < 1 \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+    finally:
+        srv.stop()
+    stats = srv.stats()
+    flight = stats["flight"]
+    check(len(toks) == 16 and all(len(t) == 64 for t in toks),
+          "a request stopped early")
+    steps = engine.ragged_steps
+    check(counts["ragged"] == steps * cfg.n_layers,
+          f"{counts['ragged']} ragged launches for {steps} steps × "
+          f"{cfg.n_layers} layers")
+    check(counts["flash"] == counts["decode"] == counts["dense"] == 0,
+          f"the ragged engine launched {counts}")
+    check(calls[0] > STALL_AFTER and flight["steps"] == steps,
+          f"{calls[0]} steps run, the recorder saw {flight['steps']}, the "
+          f"engine {steps}")
+    check(stats["engine_step_stalls"] >= 1 and flight["last_stall"]
+          is not None, "the delayed step was not counted as a stall")
+    prof = flight["stall_profiles"]
+    check(prof["captures"] == 1 and prof["last_error"] is None,
+          f"stall capture: {prof}")
+    path = os.path.join(prof["last"]["path"], profiling_mod.TRACE_FILE)
+    with open(path) as f:
+        kernels = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    ragged_in_trace = sum("ragged_kernel" in k for k in kernels)
+    check(ragged_in_trace > 0, f"the stall trace holds {len(kernels)} "
+                               "kernels, none of them the ragged kernel")
+    mirrored = {
+        "engine_step_stall_total": (metrics.engine_step_stall_total.value,
+                                    stats["engine_step_stalls"]),
+        "serving_ragged_batch_fill": (
+            round(metrics.serving_ragged_batch_fill.value, 4),
+            stats["ragged"]["batch_fill"]),
+        "serving_requests_shed_total": (
+            metrics.serving_requests_shed_total.value,
+            stats["requests_shed"]),
+        "serving_drain_seconds": (metrics.serving_drain_seconds.value,
+                                  stats["drain_duration_s"]),
+    }
+    check(all(a == b for a, b in mirrored.values()),
+          f"the metrics bundle disagrees with /stats: {mirrored}")
+    return {"launches": counts["ragged"], "steps": steps,
+            "delay_s": delay["s"], "stalls": stats["engine_step_stalls"],
+            "last_stall": flight["last_stall"],
+            "trace_kernels": len(kernels),
+            "trace_ragged_kernels": ragged_in_trace,
+            "metrics": {k: a for k, (a, _) in mirrored.items()}}
+
+
+def checkpoint_phase(params, cfg, card: str, http_tokens: dict) -> dict:
+    """Phase 9: the served weights written as a 4-shard HF checkpoint and
+    loaded back bit-equal; ``serve_http --checkpoint`` over it (ragged,
+    then continuous) held to phase 6's tokens (``http_tokens``: {engine:
+    {prompt: tokens}}) with its spans and /stats; the stall capture in
+    process. Everything it writes goes under a temporary directory,
+    removed at the end."""
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        ckpt = os.path.join(tmp, "llama")
+        os.makedirs(ckpt)
+        nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+        free = shutil.disk_usage(tmp).free
+        check(free > 1.1 * nbytes, f"{tmp} has {free / 1e9:.2f} GB free, "
+                                   f"the checkpoint needs {nbytes / 1e9:.2f}")
+        t0 = time.monotonic()
+        written = write_hf_checkpoint(params, cfg, ckpt)
+        write_s = time.monotonic() - t0
+        check(written["bytes"] == nbytes, "the shards hold other bytes")
+        log(f"  wrote {written['tensors']} tensors, {nbytes / 1e9:.2f} GB in "
+            f"{written['shards']} shards in {write_s:.2f} s")
+        loaded = _load_part(params, cfg, ckpt, nbytes)
+        log(f"  loaded bit-equal: {json.dumps(loaded)}")
+        profiles = os.path.join(tmp, "profiles")
+        ragged = _serve_checkpoint(
+            ckpt, SERVE_PAGED, {**SERVE_ENV, "KUBEFLOW_TPU_SERVING_RAGGED": "1",
+                                "KUBEFLOW_TPU_STALL_PROFILE_DIR": profiles},
+            http_tokens["ragged"], streamed=True)
+        log(f"  serve_http --checkpoint --paged (ragged): {json.dumps(ragged)}")
+        cont = _serve_checkpoint(ckpt, SERVE_CONT, SERVE_ENV,
+                                 http_tokens["continuous"], streamed=False)
+        log(f"  serve_http --checkpoint (continuous): {json.dumps(cont)}")
+        stall = _stall_part(params, cfg, os.path.join(tmp, "stall"))
+        log(f"  stall capture in process: {json.dumps(stall)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers = {"write_s": write_s, "write_gb_per_s": nbytes / write_s / 1e9,
+               "load_s": loaded["load_s"],
+               "load_gb_per_s": loaded["load_gb_per_s"],
+               "load_rss_growth_gb": loaded["rss_growth_gb"],
+               "healthz_s": {"ragged": ragged["healthz_s"],
+                             "continuous": cont["healthz_s"]},
+               "ttft_span_sum_s": {"ragged": ragged["ttft_span_sum_s"],
+                                   "continuous": cont["ttft_span_sum_s"]},
+               "ttft_span_gap_max": max(ragged["ttft_span_gap_max"],
+                                        cont["ttft_span_gap_max"]),
+               "stats_ttft_s": {"ragged": ragged["ttft_s"],
+                                "continuous": cont["ttft_s"]}}
+    log(f"  smoke numbers (not a benchmark) on {card}: {json.dumps(numbers)}")
+    return {"numbers": numbers, "stall": stall, "ragged": ragged,
+            "continuous": cont}
+
+
+# ---------------------------------------------------------------------------
 # Train
 
 
@@ -3732,7 +4292,7 @@ def main() -> int:
     t_start = time.monotonic()
     phases = {}
 
-    log("[1/9] card")
+    log("[1/10] card")
     smi = subprocess.run(
         ["nvidia-smi", "-i", card_id, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -3746,7 +4306,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     phases["card"] = time.monotonic() - t_start
 
-    log("[2/9] build")
+    log("[2/10] build")
     t0 = time.monotonic()
     seconds = _build.build()
     for name, took in seconds.items():
@@ -3757,7 +4317,7 @@ def main() -> int:
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
 
-    log("[3/9] kernel vs plain")
+    log("[3/10] kernel vs plain")
     t0 = time.monotonic()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
@@ -3767,7 +4327,7 @@ def main() -> int:
     quant_errors = quant_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
-    log("[4/9] timing at the main-path shapes")
+    log("[4/10] timing at the main-path shapes")
     t0 = time.monotonic()
     times = timing()
     flash_times = timing_flash()
@@ -3777,7 +4337,7 @@ def main() -> int:
     quant_times = timing_quant()
     phases["timing"] = time.monotonic() - t0
 
-    log("[5/9] engines: llama-3-8b, full width and depth, random weights")
+    log("[5/10] engines: llama-3-8b, full width and depth, random weights")
     t0 = time.monotonic()
     cfg = L.LLAMA_CONFIGS["llama-3-8b"]
     params = L.init_params(
@@ -3792,28 +4352,37 @@ def main() -> int:
     quant_rows = quant_engine_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
-    log("[6/9] HTTP")
+    log("[6/10] HTTP")
     t0 = time.monotonic()
-    http_phase(engine, "ragged")
+    http_tokens = {"ragged": http_phase(engine, "ragged")}
     http_phase(alt_engine, "alternating")
-    http_phase(cont_engine, "continuous")
+    http_tokens["continuous"] = http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
-    log("[7/9] prefix and handoff")
+    log("[7/10] prefix and handoff")
     t0 = time.monotonic()
     prefix = prefix_phase(params, cfg, card)
     phases["prefix"] = time.monotonic() - t0
 
-    log("[8/9] speculation and multi-LoRA")
+    log("[8/10] speculation and multi-LoRA")
     t0 = time.monotonic()
     spec = spec_lora_phase(params, cfg, card, runs)
     del runs
     phases["spec_lora"] = time.monotonic() - t0
 
-    log(f"[9/9] train: {', '.join(TRAIN_MODELS)}")
+    log("[9/10] checkpoint and observability")
     t0 = time.monotonic()
-    # The serving model, engines and pools go first: training needs ~66 GB.
-    del params, engine, alt_engine, cont_engine
+    # Phases 5-8's engines and pools go first; the served weights stay.
+    del engine, alt_engine, cont_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = checkpoint_phase(params, cfg, card, http_tokens)
+    phases["checkpoint"] = time.monotonic() - t0
+
+    log(f"[10/10] train: {', '.join(TRAIN_MODELS)}")
+    t0 = time.monotonic()
+    # The serving model goes first: training needs ~66 GB.
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
@@ -3944,6 +4513,8 @@ def main() -> int:
             k["launches_prompt_cache"] = prefix["flash_launches"]
         elif k["name"] == "ragged_paged_attention" and k["variant"] == "bf16":
             k["launches_handoff"] = prefix["ragged_launches"]
+            # Phase 9's in-process server, counted from 0 just before it.
+            k["launches_stall_capture"] = ckpt["stall"]["launches"]
     # Phase 8's runs, each counted from 0 just before it.
     for k in kernels:
         if k["name"] == "ragged_paged_attention":

@@ -4,8 +4,14 @@
 
 The PyTorch counterpart of ``examples/serve_batched.py``. Weights are a
 random init from ``--seed`` on the card (``--device cpu`` runs on the
-CPU); three prompts of raw token ids (5, 11 and 8 tokens, drawn with numpy
-from seed 0) are generated with ``batch_generate``, or with ``--paged``
+CPU), or ``--checkpoint DIR`` loads a Hugging Face checkpoint
+(``models/convert.py``) with its tokenizer where ``transformers`` is
+installed. ``--prompt TEXT`` (repeatable) sends text prompts through that
+tokenizer, ending at its EOS, and prints the decoded text; it needs
+``--checkpoint``, and a checkpoint whose tokenizer does not load exits
+with the JAX message. Without ``--prompt``, three prompts of raw token
+ids (5, 11 and 8 tokens, drawn with numpy from seed 0) are generated with
+``batch_generate``, or with ``--paged``
 through ``PagedBatcher`` (the alternating engine, 16-token blocks,
 ``--num-blocks`` of them). ``--int8``, ``--int4`` and
 ``--fp8`` quantize the projections and the lm head (``models/quant.py``;
@@ -24,9 +30,8 @@ first N layers (``truncated_draft``): ``SpeculativePagedBatcher`` under
 max_new_tokens + 5 positions), and prints the acceptance rate.
 
 What the port lacks is refused before any weight is made, naming the
-ROADMAP queue-1 item that brings it: ``--checkpoint`` and ``--prompt``
-(item 12, ``models/convert.py`` and its tokenizer), ``--tp`` above 1
-(item 11) and ``--sp`` above 1 (item 13).
+ROADMAP queue-1 item that brings it: ``--tp`` above 1 (item 11) and
+``--sp`` above 1 (item 13).
 """
 
 from __future__ import annotations
@@ -37,11 +42,6 @@ import argparse
 def _refusals(args) -> None:
     """Exit on every flag that asks for what the port lacks."""
     lacking = (
-        (args.checkpoint is not None, "--checkpoint",
-         "loading HF checkpoints (models/convert.py)", 12),
-        (args.prompt is not None, "--prompt",
-         "text prompts (they need --checkpoint's tokenizer, "
-         "models/convert.py)", 12),
         (args.tp > 1, "--tp", "tensor-parallel serving", 11),
         (args.sp > 1, "--sp", "sequence-parallel KV shards", 13),
     )
@@ -83,7 +83,9 @@ def main(argv=None) -> None:
     ap.add_argument("--sp", type=int, default=1)
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--prompt", action="append", default=None)
+    ap.add_argument("--prompt", action="append", default=None,
+                    help="text prompt (needs --checkpoint's tokenizer); "
+                         "repeatable")
     args = ap.parse_args(argv)
     if sum((args.int8, args.int4, args.fp8)) > 1:
         raise SystemExit("--int8/--int4/--fp8 are mutually exclusive")
@@ -91,6 +93,10 @@ def main(argv=None) -> None:
         raise SystemExit("--prompt-cache and --prefix-cache are mutually "
                          "exclusive (prefix subsumes identical prompts)")
     _refusals(args)
+    if args.prompt and not args.checkpoint:
+        # The JAX entry point serves its random token ids instead.
+        raise SystemExit("--prompt needs --checkpoint: text prompts go "
+                         "through the checkpoint's tokenizer")
 
     import numpy as np
     import torch
@@ -113,9 +119,25 @@ def main(argv=None) -> None:
     except ValueError as err:
         raise SystemExit(str(err))
     device = resolve_device(args.device)
-    cfg = L.LLAMA_CONFIGS[args.config]
-    params = L.init_params(
-        cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    tokenizer = None
+    if args.checkpoint:
+        from kubeflow_tpu_torch.models.convert import load_hf_checkpoint
+
+        cfg, params = load_hf_checkpoint(args.checkpoint, device=device)
+        try:
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(args.checkpoint)
+        except Exception as err:
+            if args.prompt:
+                raise SystemExit(
+                    f"--prompt given but tokenizer load failed: {err}")
+            print(f"# tokenizer unavailable ({err}); serving token IDs")
+    else:
+        cfg = L.LLAMA_CONFIGS[args.config]
+        params = L.init_params(
+            cfg, torch.Generator(device=device).manual_seed(args.seed),
+            device)
     if bits:
         try:
             params = quantize_params(params, free_source=True, bits=bits)
@@ -125,14 +147,20 @@ def main(argv=None) -> None:
         print(f"{label} weight-only quantization applied", flush=True)
     kv_bits = 8 if args.kv8 else 0
 
-    rng = np.random.default_rng(0)
-    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
-               for n in (5, 11, 8)]
+    if args.prompt:
+        prompts = [list(tokenizer(p)["input_ids"]) for p in args.prompt]
+        eos = tokenizer.eos_token_id
+        eos = -1 if eos is None else eos
+    else:
+        rng = np.random.default_rng(0)
+        prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+                   for n in (5, 11, 8)]
+        eos = 2
     gen = GenerationConfig(
         max_new_tokens=args.max_new_tokens,
         temperature=args.temperature,
         top_p=0.95 if args.temperature else 1.0,
-        eos_id=2,
+        eos_id=eos,
     )
     if args.speculative:
         from kubeflow_tpu_torch.models.speculative import (
@@ -189,8 +217,11 @@ def main(argv=None) -> None:
     else:
         outs = batch_generate(params, cfg, prompts, gen, kv_bits=kv_bits)
     for i, out in enumerate(outs):
-        print(f"[{i}] {len(out)} tokens: {out[:16]}"
-              f"{'...' if len(out) > 16 else ''}")
+        if args.prompt:
+            print(f"[{i}] {tokenizer.decode(out)}")
+        else:
+            print(f"[{i}] {len(out)} tokens: {out[:16]}"
+                  f"{'...' if len(out) > 16 else ''}")
 
 
 if __name__ == "__main__":

@@ -5,6 +5,9 @@
       -d '{"prompt": [1, 2, 3, 4], "max_tokens": 8}'
     curl -s localhost:8000/stats
 
+    python -m kubeflow_tpu_torch.examples.serve_http \
+      --checkpoint /models/Meta-Llama-3-8B --paged &
+
 The PyTorch counterpart of ``examples/serve_http.py``, with the engine
 chosen as the JAX entry point chooses it. Without ``--paged`` it serves
 ``ContinuousBatcher`` (a dense per-slot cache of ``--cache-len``
@@ -25,11 +28,17 @@ KUBEFLOW_TPU_SPEC_ADAPTIVE's acceptance-adaptive draft length, as in JAX:
 it needs KUBEFLOW_TPU_SERVING_RAGGED=1 and takes KUBEFLOW_TPU_KV_BITS but
 not KUBEFLOW_TPU_HBM_FRACTION or _KV_SWAP_BYTES (each exits with the JAX
 message). Its server answers a ``logprobs`` request with 400.
-Weights are a random init from
-``--seed`` on the card (``--device cpu`` serves on the CPU); the model
-serves token ids. ``--int8`` quantizes the projections and the lm head to
-int8 (``models/quant.py``, releasing each bf16 source as its copy lands),
-as the JAX entry point does; like it, this entry point does not read
+Weights are a random init from ``--seed`` on the card (``--device cpu``
+serves on the CPU), and the model serves token ids; or ``--checkpoint
+DIR`` loads a Hugging Face checkpoint (``config.json`` and
+``*.safetensors``, through ``models/convert.py``'s own reader) and takes
+its config in place of ``--config``, with the tokenizer from
+``transformers.AutoTokenizer`` where that package and the directory's
+tokenizer files are there (text prompts and decoded text), else the JAX
+entry point's notice and token ids only. ``--int8`` quantizes the
+projections and the lm head to int8 (``models/quant.py``, releasing each
+bf16 source as its copy lands), after a checkpoint's load, as the JAX
+entry point does; like it, this entry point does not read
 KUBEFLOW_TPU_QUANT (``serve_batched`` does).
 
 Every serving knob the JAX entry point reads is honored or refused here,
@@ -42,6 +51,11 @@ nonzero, only noted, as in JAX: it sizes multi-LoRA engines
 one base model; adapters are served by building
 ``MultiLoraPagedBatcher`` behind ``InferenceServer``, whose requests pick
 an adapter by ``model``).
+
+Tracing and stall capture are the server's (``models/server.py``):
+KUBEFLOW_TPU_TRACE_RING / _TRACE_SAMPLE / _TRACE_EXPORT turn spans on
+(``GET /debug/traces``), KUBEFLOW_TPU_STALL_PROFILE_DIR arms a profiler
+capture on an engine stall.
 """
 
 from __future__ import annotations
@@ -115,6 +129,9 @@ def _paged_knobs() -> tuple[bool, Optional[int], dict, int, bool]:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="tiny")
+    ap.add_argument("--checkpoint", default=None,
+                    help="a Hugging Face checkpoint directory; its config "
+                         "replaces --config")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' to run on the CPU")
     ap.add_argument("--seed", type=int, default=0,
@@ -169,10 +186,23 @@ def main(argv=None) -> None:
     if args.paged:
         ragged, token_budget, kv_kw, draft_len, adaptive = _paged_knobs()
     device = resolve_device(args.device)
-    cfg = L.LLAMA_CONFIGS[args.config]
-    params = L.init_params(
-        cfg, torch.Generator(device=device).manual_seed(args.seed), device
-    )
+    tokenizer = None
+    if args.checkpoint:
+        from kubeflow_tpu_torch.models.convert import load_hf_checkpoint
+
+        cfg, params = load_hf_checkpoint(args.checkpoint, device=device)
+        try:
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(args.checkpoint)
+        except Exception as err:
+            print(f"no tokenizer ({err}); serving token ids only",
+                  flush=True)
+    else:
+        cfg = L.LLAMA_CONFIGS[args.config]
+        params = L.init_params(
+            cfg, torch.Generator(device=device).manual_seed(args.seed),
+            device)
     if args.int8:
         from kubeflow_tpu_torch.models.quant import quantize_params
 
@@ -214,12 +244,13 @@ def main(argv=None) -> None:
             device=device,
         )
         kind = "continuous"
+    name = args.checkpoint or args.config
     srv = InferenceServer(engine, host=args.host, port=args.port,
-                          model_name=args.config,
+                          tokenizer=tokenizer, model_name=name,
                           max_queue_depth=args.max_queue_depth,
                           default_deadline_s=args.deadline_s,
                           drain_s=args.drain_s).start()
-    print(f"serving {args.config} on http://{srv.host}:{srv.port} "
+    print(f"serving {name} on http://{srv.host}:{srv.port} "
           f"({kind}, {args.slots} slots, {device}"
           f"{', int8 weights' if args.int8 else ''})", flush=True)
 

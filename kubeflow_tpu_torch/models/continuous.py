@@ -25,8 +25,13 @@ PLACE on the device; positions, tokens and temperatures are host numpy,
 uploaded once per step; the per-step readback is the (B,) next tokens and
 their logprobs.
 
-Not here yet: the tracing span and flight-recorder sample around
-``drive_once``, tensor-parallel and sequence-parallel plans.
+``drive_once`` (admit + step) is timed on the engine's clock and fed to
+an attached flight recorder (``observability/flight.py``); with a
+recording tracer installed it runs inside an ``engine.step`` span that
+carries ``last_step``. Each step ends in the readback of its sampled
+tokens, so the host's time covers the card's work too.
+
+Not here yet: tensor-parallel and sequence-parallel plans.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from kubeflow_tpu_torch.models.llama import (
     sample_logits_per_row,
 )
 from kubeflow_tpu_torch.models.serving import GenerationConfig, left_pad
+from kubeflow_tpu_torch.observability import tracing
 from kubeflow_tpu_torch.ops.paged_attention import dense_decode_attention
 
 
@@ -296,6 +302,9 @@ class _BatcherBase:
         self.on_retire = None
         self.on_abort = None
         self.on_admit = None
+        # Optional observability.flight.FlightRecorder, attached by the
+        # serving frontend: drive_once feeds it every quantum's time.
+        self.flight = None
         # What the most recent drive quantum did (fill ratio, decode/
         # prefill row split), stamped by the engine's step.
         self.last_step: dict = {}
@@ -477,11 +486,42 @@ class _BatcherBase:
         return req
 
     def drive_once(self) -> None:
-        """One drive quantum (admit + step), shared by run() and the
-        serving frontend's engine thread."""
+        """One drive quantum (admit + step), timed: shared by run() and
+        the serving frontend's engine thread. Feeds the attached flight
+        recorder and, only when a recording tracer is installed, wraps
+        the quantum in an ``engine.step`` span carrying ``last_step``."""
+        span = None
+        if tracing.enabled():
+            span = tracing.get_tracer("engine").start_span("engine.step")
+        t0 = self._clock()
         self.last_step = {}
-        self._admit_free_slots()
-        self._step()
+        try:
+            self._admit_free_slots()
+            self._step()
+        except Exception as err:
+            if span is not None:
+                span.record_error(err)
+            raise
+        finally:
+            # Every engine's _step and _step_ragged end in the readback
+            # of the sampled tokens (``nxt.cpu()``), which waits for the
+            # card: dt covers the card's work, not just the launches.
+            # Taking that readback out of the step (ROADMAP item 15) must
+            # move this timing to a card event.
+            dt = self._clock() - t0
+            stalled = False
+            if self.flight is not None:
+                stalled = self.flight.record_step(
+                    dt, self.last_step.get("fill"))
+                if stalled:
+                    self.last_step["stalled"] = True
+            if span is not None:
+                for k, v in self.last_step.items():
+                    span.set_attribute(k, v)
+                span.set_attribute("duration_s", round(dt, 6))
+                if stalled:
+                    span.add_event("stall", {"duration_s": round(dt, 6)})
+                span.end()
 
     def run(self) -> dict[int, list[int]]:
         """Drive until queue and slots drain; returns {rid: tokens}."""

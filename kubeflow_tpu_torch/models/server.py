@@ -31,7 +31,9 @@ Endpoints, with the JAX server's request fields and response shapes:
   /stats`` (the engine, latency and ``tier_role`` keys and, where the
   engine has them, the ``prefix_cache``, ``kv_swap``, ``kv_handoff``,
   ``speculative`` and ``lora_cache`` blocks, under the JAX server's
-  names).
+  names; ``engine_step_stalls`` and ``flight``, the flight recorder's
+  window, with ``stall_profiles`` where stall capture is armed), ``GET
+  /debug/traces`` (the finished spans of the trace ring).
 
 A speculative engine is a wrapper around an inner batcher (``_engine``):
 the server drives the inner one and reads the wrapper's ``spec_stats``.
@@ -47,8 +49,26 @@ turns /healthz red. The ``/kv/*`` hops answer with the JAX server's codes:
 400 for a bad body or payload, 409 for a stub whose chain is gone (or an
 engine that cannot export), 413, 429 and 503.
 
-Not here yet: tracing spans, the flight recorder, and Prometheus
-mirroring (of the speculative and LoRA-cache counters too).
+Observability, as the JAX server has it:
+- tracing (``observability/tracing.py``, on when a ``KUBEFLOW_TPU_TRACE_*``
+  variable is set or a test installs a provider): every POST runs in a
+  ``server.request`` root span that joins an incoming ``traceparent``;
+  each request gets a ``queue_wait`` span (submit to batcher pickup), a
+  ``prefill`` span (pickup to first token; ``kv_import`` for an imported
+  payload) and a ``first_decode`` span (the fused tail to the token), all
+  children of the root, and the root a ``first_token`` event with the
+  TTFT; the engine's ``drive_once`` adds an ``engine.step`` span each
+  quantum. Responses carry ``X-Request-Id``: the caller's, else the
+  trace id;
+- the flight recorder (``observability/flight.py``), always on, fed by
+  ``drive_once``; ``KUBEFLOW_TPU_STALL_PROFILE_DIR`` arms a profile
+  capture on a stall (``StallProfiler``);
+- ``metrics=``: a bundle whose attributes the server mirrors into with
+  ``.inc()`` and ``.set()`` only, at the JAX server's sites and under its
+  attribute names (``serving_requests_shed_total``,
+  ``engine_step_stall_total``, ``serving_prefix_cache_hits_total``, ...),
+  so the JAX package's Prometheus ``Metrics`` bundle plugs in as it is.
+  The port imports no metrics library.
 """
 
 from __future__ import annotations
@@ -64,6 +84,12 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+
+from kubeflow_tpu_torch.observability import tracing
+from kubeflow_tpu_torch.observability.flight import (
+    FlightRecorder,
+    stall_profiler_from_env,
+)
 
 # The port's own copies of the env contract names it reads (the JAX
 # package's api/annotations.py and webhook/tpu_env.py).
@@ -369,6 +395,7 @@ class InferenceServer:
                  default_deadline_s: Optional[float] = None,
                  max_deadline_s: Optional[float] = None,
                  drain_s: float = 5.0,
+                 metrics=None,
                  tier_role: str = "fused"):
         if max_queue_depth < 1:
             raise ValueError(f"max_queue_depth must be >= 1, got "
@@ -380,11 +407,17 @@ class InferenceServer:
         # Advisory: the engine serves whatever arrives; tier membership
         # is the gateway's routing decision.
         self.tier_role = tier_role
+        # Env-gated tracing: a no-op unless KUBEFLOW_TPU_TRACE_* is set,
+        # and never replaces a provider a test already installed.
+        tracing.configure_from_env()
         self.max_queue_depth = max_queue_depth
         self.max_body_bytes = max_body_bytes
         self.default_deadline_s = default_deadline_s
         self.max_deadline_s = max_deadline_s
         self.drain_s = drain_s
+        # Optional metrics bundle: /stats' counters mirrored with .inc()
+        # and .set() on its attributes.
+        self.metrics = metrics
         # A speculative engine wraps an inner batcher (``_engine``) that
         # owns the queue, slots and drive loop: hooks and the loop target
         # it. The wrapper owns the acceptance stats.
@@ -432,6 +465,26 @@ class InferenceServer:
         # by _on_token at the first token, the one moment the slot still
         # holds the prompt's blocks and the sampled token is known.
         self._kv_exports: dict[int, dict] = {}
+        # Metric counters only go up: the engine's monotonic tallies are
+        # mirrored by delta from the last values mirrored.
+        self._prefix_mirrored = (0, 0, 0)
+        self._swap_mirrored = (0, 0, 0)
+        self._spec_mirrored = (0, 0)
+        self._lora_mirrored = (0, 0, 0)
+        self._stalls_mirrored = 0
+        # Per-request spans: rid → {"root", "queue_wait" or "prefill"}.
+        # queue_wait starts at submit (handler thread) and ends at pickup
+        # (engine thread, _on_admit); prefill ends at the first token.
+        # Mutated under the engine lock.
+        self._req_spans: dict[int, dict] = {}
+        # The flight recorder, always on, on the engine's clock (tests
+        # drive stalls with a fake one); stall capture only when the env
+        # names a directory, its hook called outside the recorder's lock.
+        self.flight = FlightRecorder(
+            clock=getattr(self.engine, "_clock", None))
+        self._stall_profiler = stall_profiler_from_env()
+        if self._stall_profiler is not None:
+            self.flight.on_stall = self._stall_profiler.on_stall
         self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
         self._httpd.daemon_threads = True
         self.host, self.port = self._httpd.server_address[:2]
@@ -446,13 +499,35 @@ class InferenceServer:
         self.engine.on_retire = self._on_retire
         self.engine.on_abort = self._on_abort
         self.engine.on_admit = self._on_admit
+        self.engine.flight = self.flight
 
     # -- engine side (all under self._lock) --------------------------------
 
     def _on_admit(self, rid: int) -> None:
+        """Batcher pickup (engine thread): queue_wait ends and prefill
+        begins, so TTFT splits into queue_wait + prefill + first_decode."""
         t0 = self._submit_ts.get(rid)
         if t0 is not None:
             self._queue_wait.append(time.monotonic() - t0)
+        spans = self._req_spans.get(rid)
+        if spans is None:
+            return
+        qs = spans.pop("queue_wait", None)
+        if qs is not None:
+            qs.end()
+        spans["prefill"] = tracing.get_tracer("server").begin_span(
+            "prefill", parent=spans.get("root"), rid=rid)
+
+    def _end_request_spans(self, rid: int, error: str = "") -> None:
+        """End a request's open child spans (the root is the handler's);
+        an abort's reason marks them as errors."""
+        spans = self._req_spans.pop(rid, None)
+        for name, span in (spans or {}).items():
+            if name == "root" or span is None:
+                continue
+            if error:
+                span.record_error(RuntimeError(error))
+            span.end()
 
     def _on_token(self, rid: int, token: int) -> None:
         exp = self._kv_exports.get(rid)
@@ -474,9 +549,30 @@ class InferenceServer:
             if rid not in self._first_ts:
                 self._first_ts[rid] = now
                 self._ttft.append(now - self._submit_ts[rid])
+                self._first_token_spans(rid, now - self._submit_ts[rid])
         q = self._queues.get(rid)
         if q is not None:
             q.put(token)
+
+    def _first_token_spans(self, rid: int, ttft: float) -> None:
+        spans = self._req_spans.get(rid)
+        if spans is None:
+            return
+        ps = spans.pop("prefill", None)
+        root = spans.get("root")
+        if ps is not None:
+            ps.end()
+            # The first token is sampled in the dispatch that completes
+            # the prefill, so first_decode is the (near-zero) tail from
+            # the prefill's end to the token's delivery: the three spans
+            # sum to the submit → first-token wall clock.
+            fd = tracing.get_tracer("server").begin_span(
+                "first_decode", parent=root, rid=rid, fused=True)
+            fd.start_time = ps.end_time
+            fd.end()
+        if root is not None:
+            root.add_event("first_token", {"rid": rid,
+                                           "ttft_s": round(ttft, 6)})
 
     def _forget(self, rid: int) -> Optional[float]:
         self._first_ts.pop(rid, None)
@@ -489,6 +585,7 @@ class InferenceServer:
         t0 = self._forget(rid)
         if t0 is not None:
             self._e2e.append(time.monotonic() - t0)
+        self._end_request_spans(rid)
         q = self._queues.get(rid)
         if q is not None:
             q.put(_Final(list(tokens), list(logprobs), finish_reason))
@@ -496,9 +593,12 @@ class InferenceServer:
     def _on_abort(self, rid: int, tokens: list, reason: str) -> None:
         if reason == "deadline":
             self._deadline_expired += 1
+            self._inc("serving_deadline_expired_total")
         else:
             self._cancelled += 1
+            self._inc("serving_requests_cancelled_total")
         self._forget(rid)
+        self._end_request_spans(rid, error=reason)
         q = self._queues.get(rid)
         if q is not None:
             q.put(_Abort(reason))
@@ -513,7 +613,10 @@ class InferenceServer:
                 # Admit + one step under the lock: handler threads only
                 # touch the engine between steps.
                 try:
+                    # Timed inside: feeds the flight recorder and the
+                    # engine.step span.
                     self.engine.drive_once()
+                    self._mirror_metrics()
                 except Exception as err:  # device OOM, a failed launch, ...
                     # The engine is in an unknown state: abort every
                     # waiting request, flip /healthz red, stop driving.
@@ -522,6 +625,51 @@ class InferenceServer:
                     for q in self._queues.values():
                         q.put(abort)
                     return
+
+    def _inc(self, name: str) -> None:
+        if self.metrics is not None:
+            getattr(self.metrics, name).inc()
+
+    def _mirror_metrics(self) -> None:
+        """After each quantum: the engine's tallies into the metrics
+        bundle, counters by delta (engine thread, under the lock)."""
+        m, eng = self.metrics, self.engine
+        if m is None:
+            return
+        stalls = self.flight.stalls
+        m.engine_step_stall_total.inc(stalls - self._stalls_mirrored)
+        self._stalls_mirrored = stalls
+        if getattr(eng, "ragged", False) and hasattr(eng, "ragged_fill"):
+            m.serving_ragged_batch_fill.set(eng.ragged_fill)
+        if getattr(eng, "_prefix_cache_enabled", False):
+            now = (eng.prefix_hits, eng.prefix_misses, eng.prefix_evictions)
+            for name, v, was in zip(("hits", "misses", "evictions"), now,
+                                    self._prefix_mirrored):
+                getattr(m, f"serving_prefix_cache_{name}_total").inc(v - was)
+            self._prefix_mirrored = now
+            m.serving_prefix_cached_blocks.set(eng.prefix_cached_blocks)
+        if getattr(eng, "swap_bytes_limit", 0):
+            now = (eng.kv_swap_out, eng.kv_swap_in,
+                   eng.kv_swap_restored_tokens)
+            for name, v, was in zip(("out", "in", "restored_tokens"), now,
+                                    self._swap_mirrored):
+                getattr(m, f"serving_kv_swap_{name}_total").inc(v - was)
+            self._swap_mirrored = now
+            m.serving_kv_swap_bytes.set(eng.swap_bytes_used)
+        if self._spec is not None:
+            st = self._spec.spec_stats()
+            now = (st["accepted"], st["rounds"])
+            m.serving_spec_accept_total.inc(now[0] - self._spec_mirrored[0])
+            m.serving_spec_rounds_total.inc(now[1] - self._spec_mirrored[1])
+            self._spec_mirrored = now
+        lc_fn = getattr(eng, "lora_cache_stats", None)
+        lc = lc_fn() if lc_fn is not None else None
+        if lc is not None:
+            now = (lc["hits"], lc["misses"], lc["evictions"])
+            for name, v, was in zip(("hits", "misses", "evictions"), now,
+                                    self._lora_mirrored):
+                getattr(m, f"serving_lora_cache_{name}_total").inc(v - was)
+            self._lora_mirrored = now
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -561,6 +709,8 @@ class InferenceServer:
             for q in self._queues.values():
                 q.put(abort)
             self._drain_duration = time.monotonic() - drain_started
+            if self.metrics is not None:
+                self.metrics.serving_drain_seconds.set(self._drain_duration)
         if self._http_thread.is_alive():
             self._httpd.shutdown()
         self._httpd.server_close()
@@ -612,6 +762,7 @@ class InferenceServer:
         if len(self.engine._queue) >= self.max_queue_depth:
             with self._shed_lock:
                 self._shed += 1
+            self._inc("serving_requests_shed_total")
             raise OverloadedError(
                 f"pending queue is full ({self.max_queue_depth} deep)"
             )
@@ -661,6 +812,19 @@ class InferenceServer:
                 }
             self._queues[rid] = q
             self._submit_ts[rid] = time.monotonic()
+            if tracing.enabled():
+                # Handler thread: the root span is this thread's current
+                # one. queue_wait ends in the ENGINE thread, so it is not
+                # installed as this thread's current span.
+                root = tracing.current_span()
+                self._req_spans[rid] = {
+                    "root": root,
+                    "queue_wait": tracing.get_tracer("server").begin_span(
+                        "queue_wait", parent=root, rid=rid,
+                        queue_depth=len(self.engine._queue)),
+                }
+            if self.metrics is not None:
+                self.metrics.serving_queue_depth.set(len(self.engine._queue))
             self._work.notify_all()
         return rid, q
 
@@ -693,11 +857,22 @@ class InferenceServer:
             if rid is None:
                 with self._shed_lock:
                     self._shed += 1
+                self._inc("serving_requests_shed_total")
                 raise OverloadedError(
                     "no free slot/blocks for KV import; retry elsewhere"
                 )
             self._queues[rid] = q
             self._submit_ts[rid] = time.monotonic()
+            if tracing.enabled():
+                # No queue: the import itself stands in the prefill slot,
+                # ended at the first token.
+                root = tracing.current_span()
+                self._req_spans[rid] = {
+                    "root": root,
+                    "prefill": tracing.get_tracer("server").begin_span(
+                        "kv_import", parent=root, rid=rid,
+                        blocks=len(payload.get("blocks") or [])),
+                }
             self._work.notify_all()
         return rid, q
 
@@ -715,6 +890,7 @@ class InferenceServer:
             self._kv_exports.pop(rid, None)
             # Aborted requests never retire: reap their stamps here.
             self._forget(rid)
+            self._end_request_spans(rid)
 
     def _decode_prompt(self, prompt) -> list[int]:
         if isinstance(prompt, str):
@@ -805,6 +981,9 @@ class InferenceServer:
             deadline_expired = self._deadline_expired
         with self._shed_lock:
             shed = self._shed
+        fl = self.flight.snapshot()
+        if self._stall_profiler is not None:
+            fl["stall_profiles"] = self._stall_profiler.summary()
         up = (time.monotonic() - self._started_at
               if self._started_at is not None else 0.0)
         return {
@@ -834,6 +1013,8 @@ class InferenceServer:
             **({"speculative": spec} if spec is not None else {}),
             **({"lora_cache": lora} if lora is not None else {}),
             **({"prefix_cache": pc} if pc is not None else {}),
+            "engine_step_stalls": fl["stalls"],
+            "flight": fl,
         }
 
     def _handler_class(self):
@@ -844,12 +1025,19 @@ class InferenceServer:
             # would pin a handler thread with no read timeout.
             protocol_version = "HTTP/1.1"
 
+            # Correlation id of a POST's responses (X-Request-Id, and a
+            # truncated stream's error event): the caller's, else the
+            # trace id, else a fresh id.
+            _req_id = None
+
             def log_message(self, *args):  # quiet by default
                 pass
 
             def _json(self, code: int, payload: dict) -> None:
                 body = json.dumps(payload).encode()
                 self.send_response(code)
+                if self._req_id:
+                    self.send_header("X-Request-Id", self._req_id)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
                 self.send_header("Connection", "close")
@@ -884,6 +1072,11 @@ class InferenceServer:
                     })
                 elif self.path == "/stats":
                     self._json(200, server.stats())
+                elif self.path == "/debug/traces":
+                    ring = tracing.trace_ring()
+                    self._json(200, {
+                        "traces": ring.snapshot() if ring else [],
+                    })
                 else:
                     self._json(404, {"error": "not found"})
 
@@ -898,7 +1091,16 @@ class InferenceServer:
                 if route is None:
                     self._json(404, {"error": "not found"})
                     return
-                route()
+                # The replica's root span joins the caller's trace (a
+                # gateway hop's traceparent), so one export holds the
+                # gateway → server → engine chain; /kv/* hops join too.
+                with tracing.get_tracer("server").start_span(
+                        "server.request",
+                        traceparent=self.headers.get("traceparent")) as span:
+                    self._req_id = (self.headers.get("x-request-id")
+                                    or span.trace_id
+                                    or tracing.new_trace_id())
+                    route(span)
 
             def _kv_body(self, parse):
                 """Read and parse a /kv/* body: ``parse(req)`` returns
@@ -913,7 +1115,7 @@ class InferenceServer:
                     self._json(400, {"error": str(err)})
                 return None
 
-            def _kv_probe(self):
+            def _kv_probe(self, span):
                 """How many leading blocks of the chain ``keys`` (hex, in
                 chain order) this replica holds, swap-resident ones
                 included (an import promotes them), with the wire bytes a
@@ -934,13 +1136,14 @@ class InferenceServer:
                             matched += 1
                     if hasattr(eng, "chain_block_bytes"):
                         block_bytes = int(eng.chain_block_bytes())
+                span.set_attribute("kv_probe_matched", matched)
                 self._json(200, {
                     "matched": matched,
                     "block_bytes": block_bytes,
                     "payload_bytes": matched * block_bytes,
                 })
 
-            def _kv_chain(self):
+            def _kv_chain(self, span):
                 """Export the longest held prefix of ``keys`` straight
                 from the prefix cache (swap-resident links promoted
                 first); the chains stay registered here."""
@@ -957,12 +1160,11 @@ class InferenceServer:
                 except RuntimeError as err:
                     self._json(409, {"error": str(err)})
                     return
-                self._json(200, {
-                    "matched": len(payload["blocks"]) if payload else 0,
-                    "payload": payload,
-                })
+                matched = len(payload["blocks"]) if payload else 0
+                span.set_attribute("kv_chain_blocks", matched)
+                self._json(200, {"matched": matched, "payload": payload})
 
-            def _kv_chain_import(self):
+            def _kv_chain_import(self, span):
                 """Validate and register an exported chain against the
                 request's own prompt ``tokens``; a bad payload is a 400
                 (the fetcher falls back to a local prefill)."""
@@ -992,9 +1194,10 @@ class InferenceServer:
                 except ValueError as err:
                     self._json(400, {"error": str(err)})
                     return
+                span.set_attribute("kv_chain_registered", registered)
                 self._json(200, {"registered": registered})
 
-            def _kv_prefill(self):
+            def _kv_prefill(self, span):
                 """The prefill tier's hop: prefill the prompt, sample ONE
                 token, and cut the KV payload at that first token. The
                 request retires at once (its chains stay registered
@@ -1028,6 +1231,8 @@ class InferenceServer:
                 except (ValueError, TypeError, json.JSONDecodeError) as err:
                     self._json(400, {"error": str(err)})
                     return
+                span.set_attribute("prompt_tokens", len(prompt))
+                span.set_attribute("kv_prefill", True)
                 try:
                     rid, q = server._submit(
                         prompt, 1, req.get("model"), temperature, stop,
@@ -1083,7 +1288,7 @@ class InferenceServer:
                 finally:
                     server._finish(rid)
 
-            def _completions(self):
+            def _completions(self, span):
                 try:
                     body = _read_body(self, server.max_body_bytes)
                 except BodyTooLarge as err:
@@ -1147,6 +1352,9 @@ class InferenceServer:
                 except (ValueError, TypeError, json.JSONDecodeError) as err:
                     self._json(400, {"error": str(err)})
                     return
+                span.set_attribute("stream", stream)
+                span.set_attribute("n", n)
+                span.set_attribute("prompt_tokens", len(prompt))
                 subs = []
                 try:
                     try:
@@ -1250,6 +1458,8 @@ class InferenceServer:
             def _stream(self, rid, q):
                 try:
                     self.send_response(200)
+                    if self._req_id:
+                        self.send_header("X-Request-Id", self._req_id)
                     self.send_header("Content-Type", "text/event-stream")
                     self.send_header("Cache-Control", "no-cache")
                     self.send_header("Connection", "close")
@@ -1264,9 +1474,12 @@ class InferenceServer:
                         if isinstance(item, (_Final, _Abort)):
                             server._finish(rid)
                             if isinstance(item, _Abort):
+                                # The request id joins a truncated stream
+                                # to the trace export.
                                 self.wfile.write(
                                     b"data: " + json.dumps(
-                                        {"error": item.reason}
+                                        {"error": item.reason,
+                                         "request_id": self._req_id}
                                     ).encode() + b"\n\n"
                                 )
                             self.wfile.write(b"data: [DONE]\n\n")

@@ -1407,3 +1407,181 @@ def test_spec_lora_phase_rehearsed_on_the_cpu(smoke, no_card,
         assert out["other"][kind]["flash_launches"] >= 4 * (
             cfg.n_layers + smoke.DRAFT_LAYERS)
     assert out["lora"]["lora_cache"]["evictions"] >= 1
+
+
+# -- phase 9: checkpoint and observability -------------------------------------
+
+
+def _tiny_bf16(vocab=256, layers=4):
+    cfg = dataclasses.replace(TL.LLAMA_CONFIGS["tiny-gqa"], vocab_size=vocab,
+                              n_layers=layers)
+    return cfg, TL.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def test_checkpoint_writer_shards_read_back_equal(smoke, tmp_path):
+    """``write_hf_checkpoint``'s 4 shards, read back by ``safetensors``,
+    by the port's reader and by ``transformers``, hold the served leaves
+    bit for bit under HF's names; its index and config are HF's."""
+    import transformers
+    from safetensors.torch import load_file
+
+    from kubeflow_tpu_torch.models import convert as TCv
+
+    cfg, params = _tiny_bf16()
+    out = smoke.write_hf_checkpoint(params, cfg, str(tmp_path))
+    want = TCv.params_to_hf_state_dict(cfg, params)
+    shards = sorted(tmp_path.glob("*.safetensors"))
+    assert [p.name for p in shards] == [
+        f"model-0000{i}-of-00004.safetensors" for i in range(1, 5)]
+    assert out == {"bytes": sum(v.numel() * 2 for v in want.values()),
+                   "shards": 4, "tensors": len(want)}
+    index = json.loads((tmp_path / "model.safetensors.index.json")
+                       .read_text())
+    read = {}
+    for shard in shards:
+        got = load_file(str(shard))
+        assert got and all(index["weight_map"][k] == shard.name for k in got)
+        read.update(got)
+    assert set(read) == set(want) == set(index["weight_map"])
+    for key, value in want.items():
+        assert read[key].dtype == torch.bfloat16
+        assert torch.equal(read[key].view(torch.int16),
+                           value.contiguous().view(torch.int16)), key
+    lcfg, loaded = TCv.load_hf_checkpoint(tmp_path, device="cpu")
+    assert lcfg == cfg
+    for (n, a), (_, b) in zip(params.named_parameters(),
+                              loaded.named_parameters()):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), n
+    hf = transformers.LlamaForCausalLM.from_pretrained(
+        tmp_path, torch_dtype=torch.bfloat16)
+    for key, value in hf.state_dict().items():
+        assert torch.equal(value.view(torch.int16),
+                           want[key].contiguous().view(torch.int16)), key
+
+
+def test_phase_numbering_and_kernels_line_are_kept(smoke):
+    """Ten phases in order, the checkpoint phase ninth, and the kernels
+    line still naming every kernel of the port with all its keys."""
+    import inspect
+    import re
+
+    main = inspect.getsource(smoke.main)
+    assert re.findall(r'log\(f?"\[(\d+)/(\d+)\]', main) == [
+        (str(i), "10") for i in range(1, 11)]
+    assert '"[9/10] checkpoint and observability"' in main
+    assert main.index("checkpoint_phase(") < main.index("train_phases(")
+    for name in ("ragged_paged_attention", "flash_attention",
+                 "paged_decode_attention", "dense_decode_attention",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "quant_matmul"):
+        assert f'"{name}"' in main, name
+    for key in ("route", "source", "replaces", "launches", "max_abs_err",
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        assert f'"{key}"' in main, key
+    assert 'print(json.dumps({"ok": True, "device": {' in main
+
+
+def test_request_trace_check_fails_on_a_broken_chain(smoke):
+    def span(name, sid, parent, start, end, events=()):
+        return {"name": name, "trace_id": "t", "span_id": sid,
+                "parent_id": parent, "start_time": start, "end_time": end,
+                "events": list(events)}
+
+    root = span("server.request", "r", "p", 0.0, 1.0, [
+        {"name": "first_token", "attributes": {"ttft_s": 0.5}}])
+    good = [root, span("queue_wait", "q", "r", 0.0, 0.1),
+            span("prefill", "f", "r", 0.1, 0.5),
+            span("first_decode", "d", "r", 0.5, 0.5),
+            dict(span("engine.step", "s", "", 0.2, 0.3), trace_id="u")]
+    assert smoke.check_request_traces(good, {"t": "p"}) == {"t": (0.5, 0.5)}
+    broken = [dict(s, parent_id="x") if s["name"] == "prefill" else s
+              for s in good]
+    with pytest.raises(AssertionError, match="prefill"):
+        smoke.check_request_traces(broken, {"t": "p"})
+    slow = [dict(s, end_time=0.8) if s["name"] == "prefill" else s
+            for s in good]
+    with pytest.raises(AssertionError, match="spans sum"):
+        smoke.check_request_traces(slow, {"t": "p"})
+    with pytest.raises(AssertionError, match="hangs off"):
+        smoke.check_request_traces(good, {"t": "other"})
+
+
+def test_checkpoint_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
+    """Phase 9 at tiny width in bf16 (vocab 128256, for phase 6's prompt
+    ids) on the CPU: the writer and the bit-equal load; ``serve_http
+    --checkpoint --device cpu`` as a process, paged-ragged then
+    continuous, held to in-process servers over engines of the same flags
+    (phase 6's role), with its traces, /stats and SIGTERM drain; the
+    in-process stall capture with a counting ragged stand-in and a stand-in
+    profiler whose trace names the ragged kernel."""
+    import contextlib as _contextlib
+
+    from kubeflow_tpu_torch.models import paged as TP
+    from kubeflow_tpu_torch.models.paged import PagedBatcher
+    from kubeflow_tpu_torch.models.serving import GenerationConfig
+    from kubeflow_tpu_torch.observability import profiling
+
+    cfg, params = _tiny_bf16(vocab=128256, layers=2)
+    monkeypatch.setattr(smoke, "SERVE_DEVICE", ["--device", "cpu"])
+    monkeypatch.setattr(smoke, "SERVE_PAGED", [
+        "--paged", "--slots", "2", "--num-blocks", "64", "--block-size",
+        "16", "--prompt-bucket", "32", "--max-new-tokens", "16"])
+    monkeypatch.setattr(smoke, "SERVE_CONT", [
+        "--slots", "2", "--cache-len", "64", "--prompt-bucket", "32",
+        "--max-new-tokens", "16"])
+    monkeypatch.setattr(smoke, "SERVE_ENV", {
+        "KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET": "32",
+        "KUBEFLOW_TPU_TRACE_RING": "512"})
+    gen = GenerationConfig(max_new_tokens=16, eos_id=-1)
+    http_tokens = {
+        "ragged": smoke.http_phase(PagedBatcher(
+            params, cfg, gen=gen, slots=2, num_blocks=64, block_size=16,
+            prompt_bucket=32, ragged=True, token_budget=32, device="cpu"),
+            "ragged"),
+        "continuous": smoke.http_phase(TC.ContinuousBatcher(
+            params, cfg, gen=gen, slots=2, cache_len=64, prompt_bucket=32,
+            device="cpu"), "continuous")}
+
+    real = TRA.ragged_paged_attention
+
+    def ragged(*a, **kw):
+        real.launches += 1
+        return TRA.ragged_attention_reference(*a, **kw)
+
+    monkeypatch.setattr(TP, "ragged_paged_attention", ragged)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    real_engine, real_prompts = smoke._engine, smoke._prompts
+
+    def engine(params, cfg, kv_bits, attn_kernel=None, ragged=True):
+        eng = real_engine(params, cfg, kv_bits, attn_kernel=False,
+                          ragged=ragged)
+        eng.attn_kernel = True
+        return eng
+
+    monkeypatch.setattr(smoke, "_engine", engine)
+    monkeypatch.setattr(smoke, "_prompts", lambda cfg, n, lo, hi, seed:
+                        real_prompts(cfg, n, lo, min(hi, 100), seed))
+
+    @_contextlib.contextmanager
+    def trace(log_dir, name):
+        path = Path(log_dir) / name
+        path.mkdir(parents=True)
+        yield path
+        (path / profiling.TRACE_FILE).write_text(json.dumps({
+            "traceEvents": [{"cat": "kernel", "name": "ragged_kernel<128>"},
+                            {"cat": "cpu_op", "name": "aten::mm"}]}))
+
+    monkeypatch.setattr(profiling, "trace", trace)
+    out = smoke.checkpoint_phase(params, cfg, "a CPU rehearsal", http_tokens)
+    numbers = out["numbers"]
+    nbytes = sum(p.numel() * 2 for p in params.parameters())
+    assert numbers["load_rss_growth_gb"] < (
+        nbytes * 1.25 + smoke.RSS_SLACK) / 1e9
+    for kind in ("ragged", "continuous"):
+        assert numbers["healthz_s"][kind] > 0
+        assert len(numbers["ttft_span_sum_s"][kind]) == (
+            4 if kind == "ragged" else 2)
+    stall = out["stall"]
+    assert stall["launches"] == stall["steps"] * cfg.n_layers > 0
+    assert stall["stalls"] >= 1 and stall["trace_ragged_kernels"] == 1
+    assert stall["metrics"]["engine_step_stall_total"] == stall["stalls"]

@@ -2,8 +2,11 @@
 
 ``kubeflow_tpu_torch`` and ``chip_smoke.py`` import nothing from ``jax``,
 ``jaxlib``, ``ml_dtypes`` or ``kubeflow_tpu`` (not even its JAX-free
-modules), and the port's entry points refuse to run without a card unless
-the caller passes ``device="cpu"``.
+modules), nor ``safetensors`` or ``prometheus_client`` (the port reads
+checkpoints itself and mirrors metrics into a bundle the caller passes);
+``transformers`` is imported only for an optional tokenizer, inside a
+function. The port's entry points refuse to run without a card unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,11 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "kubeflow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "kubeflow_tpu", "safetensors",
+             "prometheus_client")
+# Never imported when the port is: the tokenizer's package is loaded only
+# by an entry point given a checkpoint.
+NOT_AT_IMPORT = FORBIDDEN + ("transformers",)
 
 
 def _port_files() -> list[Path]:
@@ -60,10 +67,14 @@ def test_importing_the_port_loads_no_jax():
         "kubeflow_tpu_torch.runtime.checkpoint, kubeflow_tpu_torch.examples.train, "
         "kubeflow_tpu_torch.models.quant, kubeflow_tpu_torch.models.fp8, "
         "kubeflow_tpu_torch.ops.quant_matmul, "
-        "kubeflow_tpu_torch.examples.serve_batched\n"
+        "kubeflow_tpu_torch.examples.serve_batched, "
+        "kubeflow_tpu_torch.models.convert, "
+        "kubeflow_tpu_torch.observability.tracing, "
+        "kubeflow_tpu_torch.observability.flight, "
+        "kubeflow_tpu_torch.observability.profiling\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'ml_dtypes', 'kubeflow_tpu')]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{NOT_AT_IMPORT!r}]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code, str(ROOT)],
@@ -76,6 +87,7 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.examples import serve_batched, serve_http
     from kubeflow_tpu_torch.examples import train as train_example
+    from kubeflow_tpu_torch.models import convert as TC
     from kubeflow_tpu_torch.models import llama as TL
     from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
     from kubeflow_tpu_torch.models.paged import PagedBatcher
@@ -104,6 +116,8 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
                                     "--paged"]),
         lambda: train_example.main(["--config", "tiny", "--steps", "1"]),
         lambda: make_tiny_trainer(),
+        lambda: TC.params_from_hf_state_dict(
+            cfg, TC.params_to_hf_state_dict(cfg, params)),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
