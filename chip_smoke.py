@@ -47,7 +47,14 @@ every kernel's launch count set to 0 just before it and read just after:
   then ``gemma-2b`` (head dim 256), whose every step runs the flash
   forward kernel twice per layer (forward and the remat recompute) and
   the dQ and dK/dV kernels of ``csrc/flash_attention_bwd.cu`` once each
-  (dK/dV: the per-q-head kernel and its group sum, one wrapper call).
+  (dK/dV: the per-q-head kernel and its group sum, one wrapper call);
+- finetuning ``llama-3-8b`` at B 1, S 2048 on batches from the native
+  ``TokenLoader``: ``models/lora.py``'s ``make_lora_train_step`` (rank 8 on
+  wq and wv, the base frozen) and ``make_train_step(fp8=True)`` over the
+  same masters (``models/fp8.py``: every projection's products with fp8
+  operands through ``torch._scaled_mm``), each step running the same
+  three flash kernels as training, and ``examples/finetune_lora.py`` as a
+  user runs it.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -275,9 +282,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches, after which the loss on step 1's batch must be finite and
    below step 1's. Peak memory and tokens/s are printed as a smoke run's,
    not a benchmark's. Last, once, a ``tiny`` bf16 trainer state on the card
-   goes through save → ``restore_latest`` and must come back byte-equal.
+   goes through save → ``restore_latest`` and must come back byte-equal;
+11. finetune — (a) fp8 products at llama-3-8b's shapes, 2048 rows through
+   wq (4096²), w_gate (4096×14336) and w_down (14336×4096): the card's
+   e4m3 casts of x and w and e5m2 cast of g equal the CPU's byte for
+   byte; the forward (e4m3 × e4m3), dx (e5m2 × e4m3) and dw (e4m3 ×
+   e5m2) through ``fp8_product`` (``_scaled_mm``, unit scales, f32 out)
+   with JAX's epilogue (divide by the two scales, cast to bf16) held to
+   GATES against the plain version (the fp8 operands upcast, f32
+   ``torch.matmul``); each timed (median of 20, L2 flushed) beside
+   ``_scaled_mm`` alone on operands already in its layouts, bf16
+   ``torch.matmul`` at the same shape, the product's own amax, cast and
+   epilogue passes, and its bound (FLOPs over 1979 TFLOP/s, dense fp8, or
+   bytes over 3.35 TB/s). (c) llama-3-8b at full width and depth, random
+   bf16 weights from the seed, 3 batches of (1, 2048) from the native
+   ``TokenLoader``: rank-8 bf16 adapters on wq and wv, lr 1e-3; at b = 0
+   the adapted loss equals the base loss bit for bit; step 1's b grads
+   with the kernels at cosine >= 0.99 against plain attention; 3 steps,
+   each 2 × n_layers flash, n_layers dQ and dK/dV launches and no fp8
+   product; every base weight byte-equal after, the adapters moved, the
+   loss on step 1's batch lower. (b) The same masters wrapped for fp8
+   (remat "full", loss chunk 512, AdamW): step 1's loss within 0.15 of
+   the bf16 model's on the same batch (JAX's bound); 3 steps, each 2 ×
+   n_layers flash, n_layers dQ and dK/dV and 4 × 7 × n_layers
+   ``_scaled_mm`` launches; after step k every history holds k
+   observations (the x and w ones non-zero; a g one is 0 where e5m2 at
+   the delayed scale flushed the whole gradient, as JAX's arithmetic
+   does, and the count is printed); the masters stay bf16; the loss
+   falls. Then
+   ``examples/finetune_lora.main`` with no ``--device`` over a 2-layer
+   model at head dim 64 (the tiny configs' 32 is not a head dim the
+   kernels take) written as an HF checkpoint, 2 steps and ``--export``:
+   launches 2 × 2 × 2 flash, 4 dQ, 4 dK/dV; the export holds the
+   checkpoint's keys and shapes with only q_proj and v_proj moved. Peak
+   memory and step walls print as a smoke run's.
 
-It prints a ``{"kernels": [...]}`` line, the card line, and last
+It prints a ``{"fp8_products": ...}`` line (a library call, not a kernel
+of the port), a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -310,8 +351,10 @@ import torch
 from torch.nn import functional as F
 
 from kubeflow_tpu_torch.data.loader import TokenLoader, write_token_file
+from kubeflow_tpu_torch.examples import finetune_lora as finetune_example
 from kubeflow_tpu_torch.models import continuous as cont_mod
 from kubeflow_tpu_torch.models import convert as convert_mod
+from kubeflow_tpu_torch.models import fp8 as fp8_mod
 from kubeflow_tpu_torch.models import llama as L
 from kubeflow_tpu_torch.models import lora as lora_mod
 from kubeflow_tpu_torch.models import paged as paged_mod
@@ -2062,6 +2105,7 @@ def _zero_counts() -> None:
                     flash_bwd_dq, flash_bwd_dkv, quant_matmul):
         wrapper.launches = 0
     quant_matmul_wide.calls = 0
+    fp8_mod.fp8_product.launches = 0
 
 
 def _counts() -> dict:
@@ -2072,7 +2116,8 @@ def _counts() -> dict:
             "bwd_dq": flash_bwd_dq.launches,
             "bwd_dkv": flash_bwd_dkv.launches,
             "quant": quant_matmul.launches,
-            "wide": quant_matmul_wide.calls}
+            "wide": quant_matmul_wide.calls,
+            "fp8": fp8_mod.fp8_product.launches}
 
 
 def _prompts(cfg, n: int, lo: int, hi: int, seed: int) -> list[list[int]]:
@@ -4278,6 +4323,423 @@ def checkpoint_round_trip() -> None:
 
 
 # ---------------------------------------------------------------------------
+# Finetune
+
+FT_MODEL = "llama-3-8b"
+# Phase 11's fp8 products: 2048 rows (B 1 × S 2048) through llama-3-8b's
+# wq (4096²), w_gate (4096×14336) and w_down (14336×4096).
+FP8_ROWS = 2048
+FP8_SHAPES = (("wq", 4096, 4096), ("w_gate", 4096, 14336),
+              ("w_down", 14336, 4096))
+FP8_FLOPS_PER_S = 1979e12  # H100 SXM dense fp8
+FP8_ROW_KEYS = ("ms", "scaled_mm_ms", "bf16_ms", "passes_ms", "bound_ms",
+                "bound_by")
+# JAX's own bound on an fp8 loss against bf16's (tests/test_fp8.py).
+FP8_BF16_LOSS_TOL = 0.15
+FT_LORA = dict(rank=8, targets=("wq", "wv"))
+FT_LORA_LR = 1e-3
+# examples/finetune_lora.py's run on the card: a 2-layer Llama at head dim
+# 64 (the tiny configs' 32 is not a head dim the flash kernels take) as an
+# HF checkpoint, 2 steps of (4, 64) tokens.
+FT_EXAMPLE_CFG = dataclasses.replace(
+    L.LLAMA_CONFIGS["tiny"], dim=256, n_heads=4, n_kv_heads=2,
+    ffn_hidden=512)
+FT_EXAMPLE_STEPS = 2
+
+
+def _fp8_operands(k: int, n: int, seed: int) -> dict:
+    """A product's bf16 x (rows, k), w (k, n) and g (rows, n) from the
+    seed, their delayed scales taken from histories that hold each
+    tensor's amax, and the card's casts."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((FP8_ROWS, k), generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=DEVICE)
+         / math.sqrt(k)).to(torch.bfloat16)
+    dy = (torch.randn((FP8_ROWS, n), generator=g, device=DEVICE)
+          * 1e-3).to(torch.bfloat16)
+    zeros = torch.zeros(16, dtype=torch.float32, device=DEVICE)
+    s = {name: fp8_mod._scale_from(fp8_mod._record(zeros, t), fmax)
+         for name, t, fmax in (("x", x, fp8_mod.E4M3_MAX),
+                               ("w", w, fp8_mod.E4M3_MAX),
+                               ("g", dy, fp8_mod.E5M2_MAX))}
+    q = {"x": fp8_mod._cast(x, s["x"], torch.float8_e4m3fn,
+                            fp8_mod.E4M3_MAX),
+         "w": fp8_mod._cast(w, s["w"], torch.float8_e4m3fn,
+                            fp8_mod.E4M3_MAX),
+         "g": fp8_mod._cast(dy, s["g"], torch.float8_e5m2,
+                            fp8_mod.E5M2_MAX)}
+    return {"x": x, "w": w, "g": dy, "s": s, "q": q}
+
+
+def _fp8_products(ops) -> dict:
+    """{product: (a, b, scale of a, scale of b)} of one weight: the
+    forward qx @ qw, dx = qg @ qwᵀ and dw = qxᵀ @ qg, as ``Fp8Matmul``
+    hands them to ``fp8_product``."""
+    q, s = ops["q"], ops["s"]
+    return {"forward": (q["x"], q["w"], s["x"], s["w"]),
+            "dx": (q["g"], q["w"].t(), s["g"], s["w"]),
+            "dw": (q["x"].t(), q["g"], s["x"], s["g"])}
+
+
+def _fp8_passes(ops, product: str):
+    """A product's own passes beside the product, as ``Fp8Matmul`` runs
+    them: the forward's two scales, two casts and two amax records and its
+    epilogue (divide, cast to bf16); dx's scale, cast and record of g and
+    its epilogue; dw's epilogue (it reuses qx and qg)."""
+    x, w, dy, s = ops["x"], ops["w"], ops["g"], ops["s"]
+    hist = torch.zeros(16, dtype=torch.float32, device=DEVICE)
+    k, n = w.shape
+    shape = {"forward": (FP8_ROWS, n), "dx": (FP8_ROWS, k), "dw": (k, n)}
+    out = torch.empty(shape[product], dtype=torch.float32, device=DEVICE)
+
+    def forward():
+        for t in (x, w):
+            fp8_mod._cast(t, fp8_mod._scale_from(hist, fp8_mod.E4M3_MAX),
+                          torch.float8_e4m3fn, fp8_mod.E4M3_MAX)
+            fp8_mod._record(hist, t)
+        (out / (s["x"] * s["w"])).to(torch.bfloat16)
+
+    def dx():
+        fp8_mod._cast(dy, fp8_mod._scale_from(hist, fp8_mod.E5M2_MAX),
+                      torch.float8_e5m2, fp8_mod.E5M2_MAX)
+        fp8_mod._record(hist, dy)
+        (out / (s["g"] * s["w"])).to(torch.bfloat16)
+
+    def dw():
+        (out / (s["x"] * s["g"])).to(torch.bfloat16)
+
+    return {"forward": forward, "dx": dx, "dw": dw}[product]
+
+
+def fp8_products_phase(card: str) -> dict:
+    """Phase 11 (a): for each FP8_SHAPES weight, the card's e4m3 casts of x
+    and w and e5m2 cast of g must equal the CPU's byte for byte; each
+    product (forward e4m3 × e4m3, dx e5m2 × e4m3, dw e4m3 × e5m2) through
+    ``fp8_product`` (``_scaled_mm``) with JAX's epilogue is held to GATES
+    against the plain version; each is timed beside ``_scaled_mm`` alone
+    on operands already in its layouts, bf16 ``torch.matmul`` at the same
+    shape, its own amax-and-cast passes and its bound. Returns {shape:
+    {product: row}}."""
+    saved = fp8_mod.fp8_product.launches
+    rows: dict = {}
+    worst: dict = {}
+    one = torch.ones((), dtype=torch.float32, device=DEVICE)
+    for i, (name, k, n) in enumerate(FP8_SHAPES):
+        ops = _fp8_operands(k, n, SEED + 1100 + i)
+        for t, fmt, fmax in (("x", torch.float8_e4m3fn, fp8_mod.E4M3_MAX),
+                             ("w", torch.float8_e4m3fn, fp8_mod.E4M3_MAX),
+                             ("g", torch.float8_e5m2, fp8_mod.E5M2_MAX)):
+            host = fp8_mod._cast(ops[t].cpu(), ops["s"][t].cpu(), fmt, fmax)
+            check(_same_bits(ops["q"][t].cpu(), host),
+                  f"fp8 {name}: the card's {fmt} cast of {t} differs from "
+                  "the CPU's")
+        rows[name] = {}
+        for product, (a, b, sa, sb) in _fp8_products(ops).items():
+            scale = sa * sb
+            got = (fp8_mod.fp8_product(a, b) / scale).to(torch.bfloat16)
+            ref = fp8_mod.fp8_product_reference(a, b) / scale
+            ref_abs = (a.float().abs() @ b.float().abs()) / scale
+            errs = _diff_errors(got.float(), ref, ref_abs)
+            _gate(f"fp8 {name} {product}", errs, worst)
+            # _scaled_mm alone, its operands already laid out as it takes
+            # them (row-major a, column-major b).
+            a_row, b_col = a.contiguous(), b.t().contiguous().t()
+            ms = _time_ms(lambda: fp8_mod.fp8_product(a, b))
+            mm_ms = _time_ms(lambda: torch._scaled_mm(
+                a_row, b_col, scale_a=one, scale_b=one,
+                out_dtype=torch.float32, use_fast_accum=False))
+            a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+            bf16_ms = _time_ms(lambda: torch.matmul(a16, b16))
+            passes_ms = _time_ms(_fp8_passes(ops, product))
+            m_, k_ = a.shape
+            n_ = b.shape[1]
+            nbytes = m_ * k_ + k_ * n_ + 4 * m_ * n_
+            flops = 2 * m_ * k_ * n_
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_flops = flops / FP8_FLOPS_PER_S * 1e3
+            row = dict(ms=ms, scaled_mm_ms=mm_ms, bf16_ms=bf16_ms,
+                       passes_ms=passes_ms, bound_ms=max(t_bytes, t_flops),
+                       bound_by="bytes" if t_bytes >= t_flops
+                       else "operations", shape=[m_, k_, n_],
+                       dtypes=[str(a.dtype), str(b.dtype)], **errs)
+            rows[name][product] = row
+            log(f"  fp8 {name} {product} ({m_}x{k_} @ {k_}x{n_}, "
+                f"{row['dtypes'][0]} x {row['dtypes'][1]}): fp8_product "
+                f"{ms:.4f} ms, _scaled_mm alone {mm_ms:.4f}, bf16 "
+                f"torch.matmul {bf16_ms:.4f}, amax-and-cast passes "
+                f"{passes_ms:.4f}, bound {row['bound_ms']:.4f} "
+                f"({row['bound_by']}); errors {errs}")
+            del a16, b16, a_row, b_col
+        del ops
+    fp8_mod.fp8_product.launches = saved
+    torch.cuda.empty_cache()
+    log(f"  fp8 products on {card}: casts byte-equal to the CPU's, worst "
+        f"errors {worst}")
+    return rows
+
+
+def _fp8_weights(params) -> list:
+    return [m for m in params.modules() if isinstance(m, fp8_mod.Fp8Weight)]
+
+
+def _check_history_fill(params, k: int) -> dict:
+    """After step k every history holds k observations and zeros after
+    them; every x and w observation is non-zero (an amax of activations
+    or of a weight). A g observation is 0 where the whole gradient was:
+    JAX's arithmetic casts g to e5m2 at its delayed scale, 1.0 from an
+    empty history, which flushes a gradient under e5m2's least subnormal
+    (2^-16) to 0, and every layer below it then sees a zero gradient.
+    Returns {history: its zero observations}."""
+    zeros = {}
+    for name in ("x_hist", "w_hist", "g_hist"):
+        hists = torch.stack([getattr(w, name).detach()
+                             for w in _fp8_weights(params)])
+        check(not bool((hists[:, k:] != 0).any()),
+              f"after step {k} a {name} holds more than {k} observations")
+        zeros[name] = int((hists[:, :k] == 0).sum())
+    check(zeros["x_hist"] == zeros["w_hist"] == 0,
+          f"after step {k} the histories hold zero observations: {zeros}")
+    return zeros
+
+
+def _step_counts(before: dict, after: dict) -> dict:
+    return {key: after[key] - before[key] for key in after}
+
+
+def _lora_b_grads(params, cfg, lora, lcfg, tokens, impl: str) -> list:
+    """Step 1's dense loss through ``impl`` attention and the b grads of
+    each target at layers 0 and last, in f32."""
+    for t in train_mod.tensor_leaves(lora):
+        t.grad = None
+    merged = lora_mod.merge_lora_differentiable(params, lora, lcfg)
+    loss = train_mod.causal_lm_loss(merged, cfg, tokens, attn_impl=impl)
+    loss.backward()
+    del merged
+    out = [lora[t]["b"].grad[i].float().clone()
+           for t in lcfg.targets for i in (0, -1)]
+    for t in train_mod.tensor_leaves(lora):
+        t.grad = None
+    return out
+
+
+def lora_finetune_part(params, cfg, batches) -> dict:
+    """Phase 11 (c): rank-8 bf16 adapters on wq and wv over the frozen
+    model, lr 1e-3. At b = 0 the adapted loss equals the base loss bit for
+    bit; step 1's b grads with the kernels hold phase 10's wq cosine
+    against plain attention; 3 steps each launch 2n flash, n dQ and n
+    dK/dV kernels and no fp8 product; every base weight stays byte-equal,
+    the adapters move and the loss on step 1's batch falls. Returns
+    {kernel: launches in those steps}."""
+    n = cfg.n_layers
+    lcfg = LoraConfig(**FT_LORA)
+    lora = lora_mod.init_lora_params(
+        cfg, lcfg, torch.Generator(device=DEVICE).manual_seed(SEED + 3),
+        dtype=torch.bfloat16, device=DEVICE)
+    # A copy of every base weight on the card, for the byte check after.
+    frozen = {name: p.detach().clone() for name, p in params.named_parameters()}
+    copy_gib = sum(t.numel() * t.element_size()
+                   for t in frozen.values()) / 2**30
+    with torch.no_grad():
+        base = train_mod.causal_lm_loss(params, cfg, batches[0])
+        adapted = train_mod.causal_lm_loss(
+            lora_mod.merge_lora_differentiable(params, lora, lcfg), cfg,
+            batches[0])
+    check(_same_bits(base, adapted), f"at b = 0 the adapted loss "
+          f"{float(adapted)!r} differs from the base loss {float(base)!r}")
+    init_state, step_fn = lora_mod.make_lora_train_step(
+        cfg, lcfg, learning_rate=FT_LORA_LR)
+    state = init_state(lora)
+    plain = _lora_b_grads(params, cfg, lora, lcfg, batches[0], "xla")
+    _zero_counts()
+    kern = _lora_b_grads(params, cfg, lora, lcfg, batches[0], "auto")
+    counts = _counts()
+    check((counts["flash"], counts["bwd_dq"], counts["bwd_dkv"])
+          == (2 * n, n, n), f"LoRA step 1's grads launched {counts}")
+    cos = [float(F.cosine_similarity(a.flatten(), b.flatten(), dim=0))
+           for a, b in zip(kern, plain)]
+    log(f"  LoRA: loss at b = 0 {float(base):.6f}, bit-equal to the base "
+        f"model's; step 1's b grad cosine, kernels vs plain attention "
+        f"(wq, wv at layers 0 and {n - 1}): {[round(c, 6) for c in cos]}")
+    check(min(cos) >= TRAIN_TOL["wq_cos"], f"LoRA b grad cosine {cos}")
+    del plain, kern
+    losses, walls = [], []
+    _zero_counts()
+    for i, tokens in enumerate(batches):
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, loss = step_fn(state, params, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        losses.append(float(loss))
+        step = _step_counts(before, _counts())
+        check((step["flash"], step["bwd_dq"], step["bwd_dkv"], step["fp8"])
+              == (2 * n, n, n, 0), f"LoRA step {i + 1} launched {step}")
+    launched = {k: _counts()[k] for k in ("flash", "bwd_dq", "bwd_dkv")}
+    with torch.no_grad():
+        after = float(train_mod.causal_lm_loss(
+            lora_mod.merge_lora_differentiable(params, state["lora"], lcfg),
+            cfg, batches[0]))
+    peak = torch.cuda.max_memory_allocated()
+    moved = all(bool((ab["b"] != 0).any()) for ab in state["lora"].values())
+    same = all(_same_bits(p.detach(), frozen[name])
+               and p.grad is None and not p.requires_grad
+               for name, p in params.named_parameters())
+    log(f"  LoRA steps: losses {losses}, then {after:.6f} on step 1's "
+        f"batch; launches {launched}; base byte-equal {same}, adapters "
+        f"moved {moved}; smoke run, not a benchmark: peak memory "
+        f"{peak / 2**30:.2f} GiB (with the base's {copy_gib:.2f} GiB copy "
+        f"for the byte check), step walls {[round(w, 4) for w in walls]} s")
+    check(same, "a base weight changed or holds a grad")
+    check(moved, "an adapter's b did not move")
+    check(all(math.isfinite(x) for x in losses + [after]),
+          "a non-finite LoRA loss")
+    check(after < losses[0], f"the LoRA loss did not fall: {after} after "
+          f"vs {losses[0]}")
+    del state, lora, frozen
+    return {"launches": launched, "losses": losses, "after": after,
+            "peak_gib": peak / 2**30, "copy_gib": copy_gib, "walls": walls}
+
+
+def fp8_train_part(params, cfg, batches) -> dict:
+    """Phase 11 (b): the same masters wrapped for fp8 (``wrap_params_fp8``),
+    remat "full", loss chunk 512, AdamW. Step 1's fp8 loss within
+    FP8_BF16_LOSS_TOL of the bf16 model's loss on the same batch; 3 steps
+    each launching 2n flash, n dQ, n dK/dV and 4 × 7 × n ``_scaled_mm``
+    (the forward, its remat recompute, dx and dw of every projection);
+    after step k every history holds k observations (``_check_history_fill``);
+    the masters stay bf16; the loss on step 1's batch falls. Returns the
+    numbers."""
+    n = cfg.n_layers
+    with torch.no_grad():
+        bf16_loss = float(train_mod.chunked_causal_lm_loss(
+            params, cfg, batches[0], chunk=LOSS_CHUNK))
+    wrapped = fp8_mod.wrap_params_fp8(params)
+    init_state, step_fn = train_mod.make_train_step(
+        cfg, remat="full", loss_chunk=LOSS_CHUNK, fp8=True)
+    state = init_state(wrapped)
+    losses, walls, zeros = [], [], []
+    _zero_counts()
+    for i, tokens in enumerate(batches):
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, loss = step_fn(state, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        losses.append(float(loss))
+        step = _step_counts(before, _counts())
+        want = {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n, "fp8": 4 * 7 * n}
+        check({k: step[k] for k in want} == want,
+              f"fp8 train step {i + 1} launched {step}")
+        check(step["ragged"] == step["decode"] == step["dense"]
+              == step["quant"] == 0, f"fp8 step {i + 1} launched {step}")
+        zeros.append(_check_history_fill(state["params"], i + 1)["g_hist"])
+    launched = {k: _counts()[k] for k in ("flash", "bwd_dq", "bwd_dkv",
+                                          "fp8")}
+    peak = torch.cuda.max_memory_allocated()
+    masters = {p.dtype for p in fp8_mod.unwrap_params_fp8(
+        state["params"]).parameters()}
+    with torch.no_grad():
+        after = float(train_mod.chunked_causal_lm_loss(
+            state["params"], cfg, batches[0], chunk=LOSS_CHUNK))
+    log(f"  fp8 train: step 1's loss {losses[0]:.6f} beside the bf16 "
+        f"model's {bf16_loss:.6f} on the same batch (|d| "
+        f"{abs(losses[0] - bf16_loss):.6f}); losses {losses}, then "
+        f"{after:.6f} on step 1's batch; launches {launched} in "
+        f"{len(batches)} steps; masters {sorted(map(str, masters))}; zero g "
+        f"observations of the {7 * n} projections after each step {zeros} "
+        f"(flushed gradients); smoke "
+        f"run, not a benchmark: peak memory {peak / 2**30:.2f} GiB, step "
+        f"walls {[round(w, 4) for w in walls]} s")
+    check(abs(losses[0] - bf16_loss) < FP8_BF16_LOSS_TOL,
+          f"fp8 step 1's loss {losses[0]} vs bf16 {bf16_loss}")
+    check(masters == {torch.bfloat16}, f"masters {masters}")
+    check(all(math.isfinite(x) for x in losses + [after]),
+          "a non-finite fp8 loss")
+    check(after < losses[0], f"the fp8 loss did not fall: {after} after vs "
+          f"{losses[0]}")
+    del state, wrapped
+    return {"launches": launched, "losses": losses, "bf16_loss": bf16_loss,
+            "after": after, "peak_gib": peak / 2**30, "walls": walls,
+            "zero_g_observations": zeros}
+
+
+def finetune_example_part() -> dict:
+    """``examples/finetune_lora.main`` on the card with no ``--device``:
+    FT_EXAMPLE_CFG's random weights as an HF checkpoint, 2 steps,
+    ``--export``. Each step launches 2 × 2 flash and 2 dQ and dK/dV
+    kernels; the export holds the checkpoint's keys and shapes, and only
+    q_proj and v_proj moved."""
+    cfg = FT_EXAMPLE_CFG
+    n = cfg.n_layers * FT_EXAMPLE_STEPS
+    params = L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 4), DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        os.makedirs(ckpt)
+        write_hf_checkpoint(params, cfg, ckpt, shards=1)
+        out = os.path.join(tmp, "merged.npz")
+        _zero_counts()
+        finetune_example.main(["--checkpoint", ckpt, "--steps",
+                               str(FT_EXAMPLE_STEPS), "--export", out,
+                               *SERVE_DEVICE])
+        counts = _counts()
+        got = np.load(out)
+        want = {k: v.float().cpu().numpy() for k, v in
+                convert_mod.params_to_hf_state_dict(cfg, params).items()}
+        check(sorted(got.files) == sorted(want), "the export's keys differ "
+              "from the checkpoint's")
+        moved = sorted(k for k in want if not np.array_equal(got[k], want[k]))
+        check(all(got[k].shape == v.shape and got[k].dtype == np.float32
+                  for k, v in want.items()), "an exported shape or dtype")
+        check(bool(moved) and all(k.endswith(("q_proj.weight",
+                                              "v_proj.weight"))
+                                  for k in moved), f"moved: {moved}")
+    check((counts["flash"], counts["bwd_dq"], counts["bwd_dkv"])
+          == (2 * n, n, n), f"finetune_lora launched {counts}")
+    log(f"  examples/finetune_lora on the card: {len(want)} tensors "
+        f"exported, {len(moved)} moved (q_proj, v_proj); launches {counts}")
+    return {k: counts[k] for k in ("flash", "bwd_dq", "bwd_dkv")}
+
+
+def finetune_phase(card: str) -> dict:
+    """Phase 11: the fp8 products, then llama-3-8b at full width and depth
+    (random bf16 weights from the seed) on 3 batches of (1, 2048) from the
+    native TokenLoader: the LoRA finetune over the frozen model, then the
+    same masters wrapped for fp8 training, then ``finetune_lora`` as a
+    user runs it."""
+    products = fp8_products_phase(card)
+    cfg = L.LLAMA_CONFIGS[FT_MODEL]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        with TokenLoader(_train_corpus(tmp, cfg.vocab_size), 1, TRAIN_SEQ,
+                         seed=SEED + 2) as loader:
+            check(loader.native, "the TokenLoader runs its Python path")
+            batches = [torch.from_numpy(loader.next()).to(DEVICE)
+                       for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    log(f"  {FT_MODEL}: init and {TRAIN_STEPS} batches of (1, {TRAIN_SEQ}) "
+        f"from the native TokenLoader in {time.monotonic() - t0:.2f} s")
+    lora = lora_finetune_part(params, cfg, batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fp8 = fp8_train_part(params, cfg, batches)
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    example = finetune_example_part()
+    return {"products": products, "lora": lora, "fp8": fp8,
+            "example": example}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4292,7 +4754,7 @@ def main() -> int:
     t_start = time.monotonic()
     phases = {}
 
-    log("[1/10] card")
+    log("[1/11] card")
     smi = subprocess.run(
         ["nvidia-smi", "-i", card_id, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -4306,7 +4768,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     phases["card"] = time.monotonic() - t_start
 
-    log("[2/10] build")
+    log("[2/11] build")
     t0 = time.monotonic()
     seconds = _build.build()
     for name, took in seconds.items():
@@ -4317,7 +4779,7 @@ def main() -> int:
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
 
-    log("[3/10] kernel vs plain")
+    log("[3/11] kernel vs plain")
     t0 = time.monotonic()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
@@ -4327,7 +4789,7 @@ def main() -> int:
     quant_errors = quant_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
-    log("[4/10] timing at the main-path shapes")
+    log("[4/11] timing at the main-path shapes")
     t0 = time.monotonic()
     times = timing()
     flash_times = timing_flash()
@@ -4337,7 +4799,7 @@ def main() -> int:
     quant_times = timing_quant()
     phases["timing"] = time.monotonic() - t0
 
-    log("[5/10] engines: llama-3-8b, full width and depth, random weights")
+    log("[5/11] engines: llama-3-8b, full width and depth, random weights")
     t0 = time.monotonic()
     cfg = L.LLAMA_CONFIGS["llama-3-8b"]
     params = L.init_params(
@@ -4352,25 +4814,25 @@ def main() -> int:
     quant_rows = quant_engine_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
-    log("[6/10] HTTP")
+    log("[6/11] HTTP")
     t0 = time.monotonic()
     http_tokens = {"ragged": http_phase(engine, "ragged")}
     http_phase(alt_engine, "alternating")
     http_tokens["continuous"] = http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
-    log("[7/10] prefix and handoff")
+    log("[7/11] prefix and handoff")
     t0 = time.monotonic()
     prefix = prefix_phase(params, cfg, card)
     phases["prefix"] = time.monotonic() - t0
 
-    log("[8/10] speculation and multi-LoRA")
+    log("[8/11] speculation and multi-LoRA")
     t0 = time.monotonic()
     spec = spec_lora_phase(params, cfg, card, runs)
     del runs
     phases["spec_lora"] = time.monotonic() - t0
 
-    log("[9/10] checkpoint and observability")
+    log("[9/11] checkpoint and observability")
     t0 = time.monotonic()
     # Phases 5-8's engines and pools go first; the served weights stay.
     del engine, alt_engine, cont_engine
@@ -4379,7 +4841,7 @@ def main() -> int:
     ckpt = checkpoint_phase(params, cfg, card, http_tokens)
     phases["checkpoint"] = time.monotonic() - t0
 
-    log(f"[10/10] train: {', '.join(TRAIN_MODELS)}")
+    log(f"[10/11] train: {', '.join(TRAIN_MODELS)}")
     t0 = time.monotonic()
     # The serving model goes first: training needs ~66 GB.
     del params
@@ -4391,6 +4853,12 @@ def main() -> int:
                             for name in TRAIN_MODELS})
     train_launches = trained["llama-3-8b"]
     phases["train"] = time.monotonic() - t0
+
+    log(f"[11/11] finetune: fp8 products, then {FT_MODEL}'s LoRA finetune "
+        "and fp8 training, then examples/finetune_lora")
+    t0 = time.monotonic()
+    finetune = finetune_phase(card)
+    phases["finetune"] = time.monotonic() - t0
 
     def entry(name, source, replaces, launched, errs, timed, **extra):
         return {
@@ -4425,6 +4893,9 @@ def main() -> int:
               launches_continuous=cont_launches["flash"],
               launches_train=train_launches["flash"],
               launches_train_gemma_2b=trained["gemma-2b"]["flash"],
+              launches_finetune_lora=finetune["lora"]["launches"]["flash"],
+              launches_fp8_train=finetune["fp8"]["launches"]["flash"],
+              launches_finetune_example=finetune["example"]["flash"],
               max_lse_err=flash_errors["lse"],
               design=FLASH_DESIGN, ctas=flash_times["main-prefill"]["ctas"],
               **{name.replace("-", "_"): {k: flash_times[name][k] for k in (
@@ -4454,6 +4925,9 @@ def main() -> int:
          "source": "kubeflow_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": replaces, "launches": train_launches[count],
          "launches_gemma_2b": trained["gemma-2b"][count],
+         "launches_finetune_lora": finetune["lora"]["launches"][count],
+         "launches_fp8_train": finetune["fp8"]["launches"][count],
+         "launches_finetune_example": finetune["example"][count],
          "max_abs_err": max(bwd_errors[t]["abs"] for t in grads),
          **{f"max_{gate}_err": max(bwd_errors[t][gate] for t in grads)
             for gate in BWD_GATES},
@@ -4531,6 +5005,14 @@ def main() -> int:
                 "continuous"]["flash_launches"]
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
+    # The fp8 products are torch._scaled_mm, a library call that stands
+    # where JAX has plain dots (kubeflow_tpu/models/fp8.py:108-111,
+    # :131-139), not a kernel of the port: their own line.
+    print(json.dumps({"fp8_products": {
+        "route": "torch._scaled_mm", "source":
+            "kubeflow_tpu_torch/models/fp8.py", "launches_fp8_train":
+            finetune["fp8"]["launches"]["fp8"], "rows": FP8_ROWS,
+            "shapes": finetune["products"]}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,68 @@
 """Token batch loader: random (batch, seq) windows of a uint32 corpus.
 
-The port's own copy of the numpy sampler of ``kubeflow_tpu/data/loader.py``
-(its Python path): the same file format (flat little-endian uint32), the
-same xorshift64* stream and the same O(log n) resume skip, so a stream is
-a pure function of (corpus, batch, seq, seed, start_batch) and equals the
-JAX package's bit for bit. The JAX package's native C++ prefetcher
-(``native/dataloader.cpp``) is not ported: batches are assembled on the
-calling thread. ``sharded_loader`` takes the process id and count from
+Counterpart of ``kubeflow_tpu/data/loader.py``: the same file format
+(flat little-endian uint32), the same xorshift64* stream and the same
+O(log n) resume skip, so a stream is a pure function of (corpus, batch,
+seq, seed, start_batch) and equals the JAX package's bit for bit, on
+either path:
+
+- native (the default): the port's own copy of the C++ prefetcher,
+  ``csrc/host/dataloader.cpp``, built with ``g++`` into ``_build/`` at
+  first use (``ops/_build.build_host``) and bound with ctypes. It mmaps
+  the corpus and assembles batches on a producer thread into a queue of
+  ``prefetch`` batches, so batch assembly overlaps the device's work.
+- Python (``force_python=True``): the numpy sampler, on the calling
+  thread.
+
+``TokenLoader.native`` says which one runs. Where JAX differs: its loader
+falls back to the Python path silently when the library does not build
+or load, or ``dl_open`` fails; the port raises instead (a build failure
+names the build log), and the Python path runs only when asked for.
+
+``sharded_loader`` takes the process id and count from
 ``torch.distributed`` when it is initialized, else 0 and 1.
 """
 
 from __future__ import annotations
 
+import ctypes
+import weakref
 from pathlib import Path
 from typing import Iterator, Optional
 
 import numpy as np
 
+from kubeflow_tpu_torch.ops import _build
+
 _MASK = (1 << 64) - 1
+_SRC = _build.HOST_SRC / "dataloader.cpp"
+# dl_abi_version() of the library: the arguments declared below.
+_ABI_VERSION = 2
+_libs: dict[Path, ctypes.CDLL] = {}
+
+
+def _load_native() -> ctypes.CDLL:
+    """The prefetcher's library, built on first use; raises if it does
+    not build, load or match ``_ABI_VERSION``."""
+    path = _build.build_host(_SRC)
+    if path not in _libs:
+        lib = ctypes.CDLL(str(path))
+        lib.dl_abi_version.restype = ctypes.c_int
+        lib.dl_abi_version.argtypes = []
+        if lib.dl_abi_version() != _ABI_VERSION:
+            raise RuntimeError(f"{path}: dl_abi_version "
+                               f"{lib.dl_abi_version()} != {_ABI_VERSION}")
+        lib.dl_open.restype = ctypes.c_void_p
+        lib.dl_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_uint64, ctypes.c_int,
+                                ctypes.c_uint64]
+        lib.dl_next.restype = ctypes.c_int
+        lib.dl_next.argtypes = [ctypes.c_void_p,
+                                ctypes.POINTER(ctypes.c_int32)]
+        lib.dl_close.restype = None
+        lib.dl_close.argtypes = [ctypes.c_void_p]
+        _libs[path] = lib
+    return _libs[path]
 
 
 def write_token_file(path: str | Path, tokens: np.ndarray) -> Path:
@@ -68,9 +113,11 @@ class TokenLoader:
     each row a window starting at ``xorshift64*() % (n_tokens - seq + 1)``.
     ``start_batch`` skips the batches a checkpointed run already consumed
     (the output multiply does not feed the state, so only the xorshift
-    transition is advanced, by start_batch·batch steps)."""
+    transition is advanced, by start_batch·batch steps). ``prefetch`` is
+    the native queue's depth; ``force_python`` picks the numpy path."""
 
     def __init__(self, path: str | Path, batch: int, seq: int, seed: int = 1,
+                 prefetch: int = 4, force_python: bool = False,
                  start_batch: int = 0):
         self.path = Path(path)
         if not self.path.exists():
@@ -83,10 +130,28 @@ class TokenLoader:
         if n_tokens < seq:
             raise ValueError(f"corpus has {n_tokens} tokens < seq={seq}")
         self.n_tokens = n_tokens
-        self._tokens: Optional[np.memmap] = np.memmap(
-            self.path, dtype=np.uint32, mode="r")
-        rng = seed if seed else 0x9E3779B97F4A7C15
-        self._rng = _xorshift_skip(rng, start_batch * batch)
+        self._lib = self._handle = None
+        self._tokens: Optional[np.memmap] = None
+        if force_python:
+            self._tokens = np.memmap(self.path, dtype=np.uint32, mode="r")
+            rng = seed if seed else 0x9E3779B97F4A7C15
+            self._rng = _xorshift_skip(rng, start_batch * batch)
+            return
+        lib = _load_native()
+        handle = lib.dl_open(str(self.path).encode(), batch, seq, seed,
+                             prefetch, start_batch)
+        if not handle:
+            raise RuntimeError(
+                f"the native loader could not open {self.path} (batch "
+                f"{batch}, seq {seq}, prefetch {prefetch})")
+        self._lib, self._handle = lib, handle
+        # Stops the producer thread and unmaps the corpus even if close()
+        # is never called.
+        self._finalizer = weakref.finalize(self, lib.dl_close, handle)
+
+    @property
+    def native(self) -> bool:
+        return self._lib is not None
 
     def _next_rand(self) -> int:
         x = self._rng
@@ -97,6 +162,14 @@ class TokenLoader:
         return (x * 0x2545F4914F6CDD1D) & _MASK
 
     def next(self) -> np.ndarray:
+        if self._lib is not None:
+            if not self._handle:
+                raise ValueError("loader is closed")
+            out = np.empty((self.batch, self.seq), np.int32)
+            if self._lib.dl_next(self._handle, out.ctypes.data_as(
+                    ctypes.POINTER(ctypes.c_int32))) != 0:
+                raise RuntimeError("native loader failed")
+            return out
         if self._tokens is None:
             raise ValueError("loader is closed")
         max_start = self.n_tokens - self.seq
@@ -115,6 +188,9 @@ class TokenLoader:
             yield self.next()
 
     def close(self) -> None:
+        if self._handle:
+            self._finalizer()  # dl_close, once
+            self._handle = None
         self._tokens = None  # drops the memmap
 
     def __enter__(self) -> "TokenLoader":
@@ -135,7 +211,7 @@ def _process_identity() -> tuple[int, int]:
 def sharded_loader(path: str | Path, global_batch: int, seq: int,
                    seed: int = 1, process_id: Optional[int] = None,
                    num_processes: Optional[int] = None,
-                   start_batch: int = 0) -> TokenLoader:
+                   start_batch: int = 0, **kwargs) -> TokenLoader:
     """Per-process loader for multi-process training: each process loads
     ONLY its global_batch/num_processes rows, from a process-disjoint
     stream (the seed is splitmix-style mixed with the process id).
@@ -143,7 +219,8 @@ def sharded_loader(path: str | Path, global_batch: int, seq: int,
     ``start_batch`` is a GLOBAL batch index (``runtime.checkpoint.
     resume_start_batch`` after ``restore_latest``): every process's stream
     advances by the same count, so a resumed run replays nothing and
-    skips nothing."""
+    skips nothing. ``kwargs`` go to ``TokenLoader`` (``prefetch``,
+    ``force_python``)."""
     env_pid, env_num = _process_identity()
     pid = env_pid if process_id is None else process_id
     num = env_num if num_processes is None else num_processes
@@ -155,4 +232,4 @@ def sharded_loader(path: str | Path, global_batch: int, seq: int,
     # Keep the mixed seed nonzero (xorshift fixed point) and in int range.
     mixed = (mixed % ((1 << 63) - 1)) or 1
     return TokenLoader(path, global_batch // num, seq, seed=mixed,
-                       start_batch=start_batch)
+                       start_batch=start_batch, **kwargs)

@@ -10,8 +10,9 @@ synthetic, drawn from a ``torch.Generator`` seeded by the step, so a
 resumed run continues the stream instead of replaying it; or, with
 ``--data``, windows of a uint32 corpus (``data.loader.write_token_file``
 format) through ``sharded_loader`` resumed at the checkpoint's cursor.
-Weights are a random init from seed 0. Runs on the card unless
-``--device cpu``.
+Weights are a random init from seed 0; ``--fp8`` wraps them for fp8
+training (``models/fp8.py``: bf16 masters, fp8 product operands with
+delayed scaling). Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ def main(argv=None) -> None:
     ap.add_argument("--remat", default="full", choices=["full", "dots", "none"])
     ap.add_argument("--loss-chunk", type=int, default=512,
                     help="lm-head/cross-entropy chunk; 0 = the dense loss")
+    ap.add_argument("--fp8", action="store_true",
+                    help="train with fp8 matmul operands (delayed "
+                         "scaling; bf16 master weights — models/fp8.py). "
+                         "Numerics identical everywhere; the matmul-rate "
+                         "win engages where the MXU has fp8 lanes")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' to run on the CPU")
     args = ap.parse_args(argv)
@@ -43,6 +49,7 @@ def main(argv=None) -> None:
     from kubeflow_tpu_torch.data.loader import sharded_loader
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.models import llama as L
+    from kubeflow_tpu_torch.models.fp8 import wrap_params_fp8
     from kubeflow_tpu_torch.models.train import make_train_step
     from kubeflow_tpu_torch.runtime.checkpoint import (
         CheckpointManager,
@@ -52,9 +59,12 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
     cfg = L.LLAMA_CONFIGS[args.config]
     init_state, step = make_train_step(cfg, remat=args.remat,
-                                       loss_chunk=args.loss_chunk)
+                                       loss_chunk=args.loss_chunk,
+                                       fp8=args.fp8)
     params = L.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if args.fp8:
+        params = wrap_params_fp8(params)
     state = init_state(params)
     print(f"{cfg.param_count():,} params on {dev}", flush=True)
 

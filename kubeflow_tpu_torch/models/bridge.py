@@ -20,6 +20,12 @@ a byte); each becomes a ``QuantizedWeight``. ``params_to_numpy`` gives
 them back byte for byte, int4 unpacked and cast to the ``like`` leaf's
 dtype.
 
+fp8-training leaves (``models/fp8.py``'s ``wrap_params_fp8``) are
+``{"hp": (L, in, out), "fp8": {"x_hist", "w_hist", "g_hist": (L, H)}}``:
+the master stacked as any layer leaf and each history stacked per layer;
+each layer's slice becomes an ``Fp8Weight`` and comes back stacked, so a
+train state crosses both ways.
+
 LoRA adapters (``models/lora.py``) keep JAX's tree as it is, a dict of
 ``{"a", "b"}`` per target: ``lora_from_jax``/``lora_to_numpy`` move one
 adapter, ``stacked_from_jax`` a ``stack_adapters`` tree, leaf by leaf and
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.device import resolve_device
+from kubeflow_tpu_torch.models.fp8 import _META, Fp8Weight
 from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
 from kubeflow_tpu_torch.models.quant import QuantizedWeight, _set
 from kubeflow_tpu_torch.ops.quant_matmul import pack_int4
@@ -103,6 +110,17 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Llama:
 
     def put(owner, attr, arr, name, axis):
         param = getattr(owner, attr)
+        if isinstance(arr, dict) and "hp" in arr:
+            if set(arr) != {"hp", "fp8"} or set(arr["fp8"]) != set(_META):
+                raise ValueError(f"{name}: an fp8 leaf holds hp and fp8 "
+                                 f"{_META}, got {sorted(arr)}")
+            put(owner, attr, arr["hp"], f"{name}/hp", axis)
+            meta = {h: _to_torch(arr["fp8"][h]).to(dev) for h in _META}
+            if any(m.dtype != torch.float32 or m.dim() != 1
+                   for m in meta.values()):
+                raise ValueError(f"{name}/fp8: histories must be 1-D f32")
+            _set(owner, attr, Fp8Weight(getattr(owner, attr), meta))
+            return
         if isinstance(arr, dict):
             _set(owner, attr, _quantized(arr, param, axis, dev, name))
             return
@@ -127,18 +145,36 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Llama:
             raise ValueError(f"layer leaf {name!r} does not match the config")
         if stacked is None:
             continue
-        count = len(stacked["q"]) if isinstance(stacked, dict) else len(stacked)
-        if count != cfg.n_layers or (isinstance(stacked, dict)
-                                     and len(stacked["s"]) != count):
+        if isinstance(stacked, dict) and "hp" in stacked:
+            count = len(stacked["hp"])
+            parts = [len(h) for h in stacked["fp8"].values()]
+        elif isinstance(stacked, dict):
+            count, parts = len(stacked["q"]), [len(stacked["s"])]
+        else:
+            count, parts = len(stacked), []
+        if count != cfg.n_layers or any(n != count for n in parts):
             raise ValueError(
                 f"layers/{name}: {count} stacked layers, config has "
                 f"{cfg.n_layers}"
             )
         for i, layer in enumerate(model.layers):
-            arr = ({k: v[i] for k, v in stacked.items()}
-                   if isinstance(stacked, dict) else stacked[i])
+            arr = _layer_slice(stacked, i)
             put(layer, name, arr, f"layers/{name}[{i}]", 0)
     return model
+
+
+def _layer_slice(stacked, i: int):
+    """Layer ``i`` of a stacked leaf, a dict leaf sliced leaf by leaf."""
+    if isinstance(stacked, dict):
+        return {k: _layer_slice(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+def _stacked(per_layer: list):
+    """Inverse of ``_layer_slice``: per-layer leaves stacked on axis 0."""
+    if isinstance(per_layer[0], dict):
+        return {k: _stacked([p[k] for p in per_layer]) for k in per_layer[0]}
+    return np.stack(per_layer)
 
 
 def params_to_numpy(model: Llama, like: dict = None) -> dict:
@@ -149,6 +185,10 @@ def params_to_numpy(model: Llama, like: dict = None) -> dict:
     like_layers = like.get("layers", {})
 
     def leaf(w, ref):
+        if isinstance(w, Fp8Weight):
+            ref = ref or {}
+            return {"hp": _to_numpy(w.hp, ref.get("hp")),
+                    "fp8": {h: _to_numpy(m) for h, m in w.meta().items()}}
         if not isinstance(w, QuantizedWeight):
             return _to_numpy(w, ref)
         ref = ref or {}
@@ -165,11 +205,8 @@ def params_to_numpy(model: Llama, like: dict = None) -> dict:
         if getattr(model.layers[0], name) is None:
             continue
         ref = like_layers.get(name)
-        per_layer = [leaf(getattr(layer, name), ref) for layer in model.layers]
-        layers[name] = ({k: np.stack([p[k] for p in per_layer])
-                         for k in ("q", "s")}
-                        if isinstance(per_layer[0], dict)
-                        else np.stack(per_layer))
+        layers[name] = _stacked([leaf(getattr(layer, name), ref)
+                                 for layer in model.layers])
     out["layers"] = layers
     return out
 

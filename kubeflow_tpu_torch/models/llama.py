@@ -33,7 +33,9 @@ the functions return the cache they were given.
 Projections and the lm head may be quantized (``models/quant.py``: int8,
 int4, fp8): ``_mm`` and ``_lm_head_logits`` take a ``QuantizedWeight``
 with the JAX functions' rounding points, through the hand-written
-``quant_matmul`` kernel at decode widths on the card.
+``quant_matmul`` kernel at decode widths on the card. For fp8 training a
+projection may be an ``Fp8Weight`` (``models/fp8.py``), which ``_mm``
+sends through ``fp8_matmul``.
 
 Training: ``forward_hidden`` and ``forward`` record an autograd graph when
 grad mode is on and the weights require grad. Weights are created frozen
@@ -43,10 +45,11 @@ then differentiates through ``FlashAttention`` (the backward kernels on the
 card). ``forward_hidden``'s ``remat`` picks one of ``_REMAT_POLICIES``, the
 JAX names: ``"full"`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant) and recomputes it in the
-backward; ``"dots"`` saves the outputs of the projections (``aten.mm``:
-the products with no batch dims) and recomputes the rest, attention
-included; ``"none"`` saves what autograd saves. The serving functions run
-under ``torch.no_grad``.
+backward; ``"dots"`` saves the outputs of the projections (``aten.mm``,
+and ``aten._scaled_mm`` for fp8 training on the card: the products with
+no batch dims) and recomputes the rest, attention included; ``"none"``
+saves what autograd saves. The serving functions run under
+``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils import checkpoint as _ckpt
 
+from kubeflow_tpu_torch.models.fp8 import Fp8Weight, fp8_matmul
 from kubeflow_tpu_torch.models.quant import QuantizedWeight
 from kubeflow_tpu_torch.models.quant import matmul as quant_matmul
 from kubeflow_tpu_torch.ops.attention import NEG_INF, flash_attention
@@ -248,13 +252,17 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
 
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w where w is dense OR quantized (``models/quant.py``): int8 and
-    fp8 ``(x @ q) * s``, the product rounded to the model dtype and then
+    """x @ w where w is dense OR quantized (``models/quant.py``) OR an
+    fp8-training wrapper (``models/fp8.py``). Quantized: int8 and fp8
+    ``(x @ q) * s``, the product rounded to the model dtype and then
     scaled; int4 ``x @ dequantize(w)``, the operand dequantized in f32 and
-    rounded, as the JAX function rounds them. The fp8-training wrappers
-    are not ported yet (ROADMAP queue 1 item 12)."""
+    rounded, as the JAX function rounds them. fp8 training: the master
+    weight ``hp`` and its delayed-scaling histories through
+    ``fp8_matmul``, the products with fp8 operands."""
     if isinstance(w, QuantizedWeight):
         return quant_matmul(x, w)
+    if isinstance(w, Fp8Weight):
+        return fp8_matmul(x, w.hp, w.meta())
     if not isinstance(w, torch.Tensor):
         raise TypeError(
             f"only dense or quantized weights are supported, got "
@@ -409,11 +417,16 @@ def _layer_fwd(layer: LlamaLayer, cfg: LlamaConfig, x: torch.Tensor,
 # Entry points
 
 
+# The products with no batch dims: the projections' (``aten.mm``) and the
+# fp8 ones on the card (``aten._scaled_mm``, ``models/fp8.py``).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten._scaled_mm.default)
+
+
 def _save_dots(ctx, op, *args, **kwargs):
-    """The "dots" policy: keep the projections' outputs (``aten.mm``, the
-    products with no batch dims, JAX's ``dots_with_no_batch_dims_saveable``)
-    and recompute everything else."""
-    if op is torch.ops.aten.mm.default:
+    """The "dots" policy: keep the projections' outputs (the products with
+    no batch dims, JAX's ``dots_with_no_batch_dims_saveable``) and
+    recompute everything else."""
+    if op in _DOTS:
         return _ckpt.CheckpointPolicy.MUST_SAVE
     return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 

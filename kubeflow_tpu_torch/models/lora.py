@@ -1,15 +1,19 @@
-"""LoRA adapters for the Llama family: the serving half.
+"""LoRA adapters for the Llama family: finetuning and serving.
 
-Counterpart of ``kubeflow_tpu/models/lora.py`` up to its train step. An
-adapter keeps the JAX tree's layout, one dict per target weight with the
-layer axis stacked first: for a target W (in, out) of every layer,
-``{"a": (L, in, r), "b": (L, r, out)}``, and W' = W + (alpha/r) · a@b.
-``merge_lora`` folds an adapter into a new ``Llama`` that shares every
-other weight; ``models/multilora.py`` serves many adapters over one base
-instead.
+Counterpart of ``kubeflow_tpu/models/lora.py``. An adapter keeps the JAX
+tree's layout, one dict per target weight with the layer axis stacked
+first: for a target W (in, out) of every layer, ``{"a": (L, in, r), "b":
+(L, r, out)}``, and W' = W + (alpha/r) · a@b.
 
-Not here yet: ``make_lora_train_step``, the LoRA finetune (ROADMAP queue
-1 item 12).
+- Serving: ``merge_lora`` folds an adapter into a new ``Llama`` that
+  shares every other weight, under ``torch.no_grad``;
+  ``models/multilora.py`` serves many adapters over one base instead.
+- Finetuning: ``make_lora_train_step`` trains only the adapters.
+  ``merge_lora_differentiable`` merges every layer's targets before the
+  forward, as JAX's step does, but keeps the graph from ``a`` and ``b``
+  to the merged weights; every base weight enters as a detached view, so
+  the base never requires grad and gets no gradient. At llama-3-8b the
+  merged wq and wv copies hold ~1.34 GB beside the base.
 """
 
 from __future__ import annotations
@@ -24,6 +28,12 @@ from torch import nn
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
 from kubeflow_tpu_torch.models.quant import QuantizedWeight, _set
+from kubeflow_tpu_torch.models.train import (
+    _check_plan,
+    causal_lm_loss,
+    make_optimizer,
+    tensor_leaves,
+)
 
 # Weights eligible for adapters: every layer's (in, out) projection.
 _ADAPTABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -82,13 +92,14 @@ def _target_shapes(cfg: LlamaConfig) -> dict:
     }
 
 
-@torch.no_grad()
-def merge_lora(params: Llama, lora: dict, lcfg: LoraConfig) -> Llama:
-    """Base params + scaled adapter deltas → a new ``Llama`` (every entry
-    point works unchanged) that shares each weight the adapter does not
-    touch with ``params``. Each merged weight is summed in f32 (a@b
-    accumulated in f32, as JAX's ``preferred_element_type``) and cast back
-    to the weight's dtype, one layer at a time."""
+def _merged(params: Llama, lora: dict, lcfg: LoraConfig,
+            graph: bool) -> Llama:
+    """A new ``Llama`` over ``params``' weights with each target merged:
+    W + (a@b) · scaling, summed in f32 (a@b accumulated in f32, as JAX's
+    ``preferred_element_type``) and cast back to the weight's dtype, one
+    layer at a time. With ``graph`` the merged targets keep their graph
+    and every base weight enters detached; without, the base parameters
+    are shared as they are and the merged ones are frozen parameters."""
     quantized = [name for name, mod in params.named_modules()
                  if isinstance(mod, QuantizedWeight)]
     if quantized:
@@ -97,15 +108,32 @@ def merge_lora(params: Llama, lora: dict, lcfg: LoraConfig) -> Llama:
         )
     out = Llama(params.cfg, device="meta")
     for name, p in params.named_parameters():
-        _set(out, name, p)
+        _set(out, name, p.detach() if graph else p)
     for target, ab in lora.items():
         for i, layer in enumerate(params.layers):
-            w = getattr(layer, target)
+            w = getattr(layer, target).detach()
             delta = (ab["a"][i].float() @ ab["b"][i].float()) * lcfg.scaling
             merged = (w.float() + delta).to(w.dtype)
-            _set(out.layers[i], target,
-                 nn.Parameter(merged, requires_grad=False))
+            _set(out.layers[i], target, merged if graph
+                 else nn.Parameter(merged, requires_grad=False))
     return out
+
+
+@torch.no_grad()
+def merge_lora(params: Llama, lora: dict, lcfg: LoraConfig) -> Llama:
+    """Base params + scaled adapter deltas → a new ``Llama`` (every entry
+    point works unchanged) that shares each weight the adapter does not
+    touch with ``params``; no graph is recorded."""
+    return _merged(params, lora, lcfg, graph=False)
+
+
+def merge_lora_differentiable(params: Llama, lora: dict,
+                              lcfg: LoraConfig) -> Llama:
+    """``merge_lora`` that keeps its graph: the merged targets are tensors
+    computed from ``a`` and ``b``, and every other weight a detached view
+    of ``params``' (shared storage, never requiring grad), so a loss on
+    the result differentiates into the adapters alone."""
+    return _merged(params, lora, lcfg, graph=True)
 
 
 def lora_param_count(cfg: LlamaConfig, lcfg: LoraConfig) -> int:
@@ -114,3 +142,44 @@ def lora_param_count(cfg: LlamaConfig, lcfg: LoraConfig) -> int:
         cfg.n_layers * lcfg.rank * (shapes[t][0] + shapes[t][1])
         for t in lcfg.targets
     )
+
+
+def make_lora_train_step(cfg: LlamaConfig, lcfg: LoraConfig, plan=None,
+                         optimizer=None, learning_rate: float = 1e-4):
+    """Build ``(init_state, step)`` where ONLY the adapters train.
+
+    ``init_state(lora_params)`` turns the adapters' grads on and returns
+    ``{"lora", "opt_state", "step"}``; ``step(state, base_params, tokens)``
+    takes the dense ``causal_lm_loss`` of the merged model
+    (``merge_lora_differentiable``), one AdamW update of the adapters
+    (``make_optimizer(lr=learning_rate, weight_decay=0.0)`` unless
+    ``optimizer`` is given) and returns ``(state, loss)``, the state
+    updated in place (JAX donates it and returns a new one). The base
+    stays frozen: it records no graph and is never written. ``plan`` is
+    ``None`` or a device, as ``make_train_step``'s."""
+    _check_plan(plan)
+    optimizer = optimizer or make_optimizer(lr=learning_rate,
+                                            weight_decay=0.0)
+
+    def init_state(lora_params: dict) -> dict:
+        for t in tensor_leaves(lora_params):
+            t.requires_grad_(True)
+        return {"lora": lora_params,
+                "opt_state": optimizer.init(lora_params),
+                "step": torch.zeros((), dtype=torch.int64)}
+
+    def step(state: dict, base_params: Llama, tokens: torch.Tensor):
+        leaves = tensor_leaves(state["lora"])
+        for t in leaves:
+            t.grad = None
+        merged = merge_lora_differentiable(base_params, state["lora"], lcfg)
+        loss = causal_lm_loss(merged, cfg, tokens)
+        loss.backward()
+        del merged
+        optimizer.update(state["opt_state"], int(state["step"]))
+        for t in leaves:
+            t.grad = None
+        state["step"] += 1
+        return state, loss.detach()
+
+    return init_state, step

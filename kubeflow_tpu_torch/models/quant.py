@@ -178,12 +178,13 @@ def matmul(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
 
 
 def _set(module: nn.Module, name: str, value) -> None:
-    """Put ``value`` at ``module``'s dotted ``name``; a quantized weight
-    takes the place of a parameter."""
+    """Put ``value`` at ``module``'s dotted ``name``; a module (a quantized
+    or fp8-training weight) or a plain tensor (a merged LoRA weight) takes
+    the place of a parameter."""
     *path, leaf = name.split(".")
     for part in path:
         module = getattr(module, part)
-    if isinstance(value, QuantizedWeight) and leaf in module._parameters:
+    if not isinstance(value, nn.Parameter) and leaf in module._parameters:
         delattr(module, leaf)
     setattr(module, leaf, value)
 

@@ -4,8 +4,9 @@ Counterpart of ``kubeflow_tpu/models/train.py`` for one card (or the
 CPU): the same losses (dense, and chunked so full (B, S, vocab) logits
 never exist), the same remat policies (``models/llama.py``
 ``_REMAT_POLICIES``), AdamW with optax's semantics and schedule, and
-gradient accumulation over strided microbatches. Attention differentiates
-through the flash kernels' ``FlashAttention`` (``ops/attention.py``).
+gradient accumulation over strided microbatches, and fp8 training with
+delayed scaling (``models/fp8.py``). Attention differentiates through the
+flash kernels' ``FlashAttention`` (``ops/attention.py``).
 
 What differs from JAX:
 - The train state is ``{"params": Llama, "opt_state": torch.optim.AdamW,
@@ -13,9 +14,16 @@ What differs from JAX:
   (JAX donates the state and returns a new one) and returns it with the
   step's loss.
 - One device only: ``plan`` is ``None`` or a device, and there is no
-  ``shard_state``. Sharded plans (FSDP/TP), sequence-parallel attention
-  (ring, Ulysses, zigzag: ROADMAP queue 1 item 13), fp8 training and
-  training a quantized model (item 12) raise ``NotImplementedError``.
+  ``shard_state``. Sharded plans (FSDP/TP, ROADMAP queue 1 item 12) and
+  sequence-parallel attention (ring, Ulysses, zigzag: item 13) raise
+  ``NotImplementedError``. A quantized model is refused too: the JAX
+  package cannot train one either.
+- fp8 (``fp8=True``): JAX partitions the optimizer with
+  ``optax.multi_transform``; here AdamW is made over the master weights
+  alone (``fp8.fp8_partition_labels``), so its decay and the clip never
+  see a history, and after AdamW's update each history is replaced by its
+  gradient, its next value (``fp8.fp8_meta_replace``: optax's ``h + (next
+  - h)``).
 - AdamW's state is allocated when the state is made, not at the first
   step, so a checkpoint of a fresh state has every leaf of a trained one.
 - ``make_tiny_trainer`` draws its batches with numpy from the seed (JAX
@@ -32,8 +40,14 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch import nn
 from torch.utils import checkpoint as _ckpt
 
+from kubeflow_tpu_torch.models.fp8 import (
+    fp8_meta_replace,
+    fp8_partition_labels,
+    has_fp8_params,
+)
 from kubeflow_tpu_torch.models.llama import (
     LLAMA_CONFIGS,
     Llama,
@@ -151,11 +165,12 @@ class AdamW:
     weight_decay: float = 0.1
     clip_norm: float = 0.0
 
-    def init(self, params: Llama) -> torch.optim.AdamW:
-        """The optimizer over every parameter, its moments allocated now
-        (zeros) in the layout ``torch.optim.AdamW`` gives them at its first
-        step."""
-        plist = list(params.parameters())
+    def init(self, params) -> torch.optim.AdamW:
+        """The optimizer over ``params`` (a model's parameters, a dict tree
+        of tensors in sorted-key order as JAX flattens it, or a list), its
+        moments allocated now (zeros) in the layout ``torch.optim.AdamW``
+        gives them at its first step."""
+        plist = tensor_leaves(params)
         fused = plist[0].device.type == "cuda"
         opt = torch.optim.AdamW(
             plist, lr=self.schedule(0), betas=(0.9, 0.95), eps=1e-8,
@@ -188,6 +203,18 @@ class AdamW:
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
+
+
+def tensor_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a module (its parameters), a dict tree (sorted keys)
+    or a sequence, in order."""
+    if isinstance(tree, nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for key in sorted(tree) for t in tensor_leaves(tree[key])]
+    return [t for item in tree for t in tensor_leaves(item)]
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -260,7 +287,13 @@ def make_train_step(
     ``loss_chunk`` > 0 uses chunked_causal_lm_loss (full (B, S, vocab)
     logits never materialize); 0 falls back to the dense loss.
     ``remat`` picks the layer-stack checkpoint policy
-    (llama._REMAT_POLICIES: "full" | "dots" | "none")."""
+    (llama._REMAT_POLICIES: "full" | "dots" | "none").
+
+    ``fp8=True`` trains with fp8 product operands (models/fp8.py): pass
+    params through ``fp8.wrap_params_fp8`` first; AdamW sees the master
+    weights while each fp8 history is replaced by its autograd-carried
+    next value (averaged over the microbatches under ``grad_accum``).
+    init_state raises if the params tree and the flag disagree."""
     if sp_impl not in ("ring", "ulysses", "zigzag"):
         raise ValueError(
             f"unknown sp_impl {sp_impl!r} (want 'ring'|'ulysses'|'zigzag')"
@@ -270,26 +303,31 @@ def make_train_step(
             "sequence-parallel attention (ring, Ulysses, zigzag) is not "
             "ported yet (ROADMAP queue 1 item 13)"
         )
-    if fp8:
-        raise NotImplementedError(
-            "fp8 training (models/fp8.py) is not ported yet (ROADMAP queue 1 "
-            "item 12)"
-        )
     _check_plan(plan)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     optimizer = optimizer or make_optimizer()
 
     def init_state(params: Llama) -> dict:
+        if has_fp8_params(params) != fp8:
+            raise ValueError(
+                "params tree and fp8 flag disagree: "
+                f"has_fp8_params={has_fp8_params(params)}, fp8={fp8} "
+                "(wrap with fp8.wrap_params_fp8 AND pass fp8=True)"
+            )
         quantized = [name for name, mod in params.named_modules()
                      if isinstance(mod, QuantizedWeight)]
         if quantized:
             raise NotImplementedError(
-                f"{quantized[0]} is quantized: training a quantized model "
-                "(the quantized finetune) is not ported yet (ROADMAP queue 1 "
-                "item 12)")
+                f"{quantized[0]} is quantized: a quantized model cannot be "
+                "trained, and the JAX package cannot train one either (its "
+                "make_train_step fails in jax.grad on the int8 leaves, its "
+                "make_lora_train_step in merge_lora)")
         params.requires_grad_(True)
-        return {"params": params, "opt_state": optimizer.init(params),
+        labels = fp8_partition_labels(params)
+        masters = [p for name, p in params.named_parameters()
+                   if labels[name] == "default"]
+        return {"params": params, "opt_state": optimizer.init(masters),
                 "step": torch.zeros((), dtype=torch.int64)}
 
     def loss_fn(params: Llama, tokens: torch.Tensor) -> torch.Tensor:
@@ -300,7 +338,7 @@ def make_train_step(
 
     def train_step(state: dict, tokens: torch.Tensor):
         params, opt = state["params"], state["opt_state"]
-        opt.zero_grad(set_to_none=True)
+        params.zero_grad(set_to_none=True)
         if grad_accum == 1:
             loss = loss_fn(params, tokens)
             loss.backward()
@@ -325,7 +363,9 @@ def make_train_step(
             for acc, p in zip(sums, plist):
                 p.grad = (acc / grad_accum).to(p.dtype)
         optimizer.update(opt, int(state["step"]))
-        opt.zero_grad(set_to_none=True)
+        if fp8:
+            fp8_meta_replace(params)
+        params.zero_grad(set_to_none=True)
         state["step"] += 1
         return state, loss.detach()
 

@@ -8,6 +8,10 @@ library. Nothing is built at import time: the first ``load(name)`` builds
 every missing library, one ``nvcc`` per source, all started together;
 later loads reuse the files.
 
+Host code (``csrc/host/*.cpp``, outside the ``*.cu`` set) builds with
+``g++`` instead, one library a source on first use (``build_host``), named
+and placed the same way.
+
 Builds of one checkout serialize on ``_build/build.lock`` (an advisory
 ``flock``, released when its file is closed or its process ends).
 """
@@ -29,6 +33,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
+HOST_SRC = CSRC / "host"
+# native/dataloader.cpp's flags, as the JAX package builds it.
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -105,6 +112,41 @@ def build() -> dict[str, Optional[float]]:
             with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
                 took.update(zip(todo, pool.map(nvcc, todo)))
         return took
+
+
+def host_library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes())
+    digest.update("\0".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host(source: Path) -> Path:
+    """The ``g++`` library of a host source, built when missing. Raises
+    naming the build log (``<library>.log``) if ``g++`` fails or is
+    missing; there is no fallback."""
+    out_path = host_library_path(source)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log = out_path.with_suffix(".log")
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out_path.exists():
+            return out_path
+        tmp = out_path.with_name(out_path.name + f".tmp{os.getpid()}")
+        try:
+            proc = subprocess.run(
+                ["g++", *GXX_FLAGS, str(source), "-o", str(tmp)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                timeout=300)
+            output, code = proc.stdout, proc.returncode
+        except (OSError, subprocess.SubprocessError) as err:
+            output, code = f"{type(err).__name__}: {err}\n", None
+        log.write_text(output)
+        if code != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"host build of {source.name} failed (g++ "
+                               f"exit {code}); see {log}")
+        os.replace(tmp, out_path)
+    return out_path
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1460,16 +1460,18 @@ def test_checkpoint_writer_shards_read_back_equal(smoke, tmp_path):
 
 
 def test_phase_numbering_and_kernels_line_are_kept(smoke):
-    """Ten phases in order, the checkpoint phase ninth, and the kernels
-    line still naming every kernel of the port with all its keys."""
+    """Eleven phases in order, the checkpoint phase ninth and the finetune
+    phase last, and the kernels line still naming every kernel of the port
+    with all its keys."""
     import inspect
     import re
 
     main = inspect.getsource(smoke.main)
     assert re.findall(r'log\(f?"\[(\d+)/(\d+)\]', main) == [
-        (str(i), "10") for i in range(1, 11)]
-    assert '"[9/10] checkpoint and observability"' in main
+        (str(i), "11") for i in range(1, 12)]
+    assert '"[9/11] checkpoint and observability"' in main
     assert main.index("checkpoint_phase(") < main.index("train_phases(")
+    assert main.index("train_phases(") < main.index("finetune_phase(")
     for name in ("ragged_paged_attention", "flash_attention",
                  "paged_decode_attention", "dense_decode_attention",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
@@ -1585,3 +1587,136 @@ def test_checkpoint_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     assert stall["launches"] == stall["steps"] * cfg.n_layers > 0
     assert stall["stalls"] >= 1 and stall["trace_ragged_kernels"] == 1
     assert stall["metrics"]["engine_step_stall_total"] == stall["stalls"]
+
+
+# -- phase 11, finetune -------------------------------------------------------
+
+
+def _stand_in_fp8_product(monkeypatch):
+    """``fp8_product`` replaced by a stand-in that counts like the card's
+    ``_scaled_mm`` calls and computes the plain version."""
+    from kubeflow_tpu_torch.models import fp8 as TF
+
+    def product(a, b):
+        product.launches += 1
+        return TF.fp8_product_reference(a, b)
+
+    product.launches = 0
+    monkeypatch.setattr(TF, "fp8_product", product)
+    return product
+
+
+@pytest.fixture
+def finetune_small(smoke, monkeypatch):
+    """Phase 11 at a CPU's size: the flash wrappers and the fp8 product
+    counted by stand-ins, S 64 in loss chunks of 16, tiny (bf16, 2 layers)
+    for llama-3-8b, 32 rows through three small fp8 shapes, timing stubbed
+    (each timed function still runs once) and the example on the CPU."""
+    _stand_in_kernels(smoke, monkeypatch)
+    product = _stand_in_fp8_product(monkeypatch)
+    monkeypatch.setattr(smoke, "FT_MODEL", "tiny")
+    monkeypatch.setattr(smoke, "FP8_ROWS", 32)
+    monkeypatch.setattr(smoke, "FP8_SHAPES", (("wq", 64, 64),
+                                              ("w_gate", 64, 96),
+                                              ("w_down", 96, 64)))
+    monkeypatch.setattr(smoke, "_time_ms", lambda fn: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "SERVE_DEVICE", ["--device", "cpu"])
+    return product
+
+
+def test_fp8_products_rehearsed_on_the_cpu(smoke, no_card, finetune_small):
+    rows = smoke.fp8_products_phase("cpu")
+    assert set(rows) == {"wq", "w_gate", "w_down"}
+    for name, k, n in smoke.FP8_SHAPES:
+        by_product = rows[name]
+        assert set(by_product) == {"forward", "dx", "dw"}
+        assert by_product["forward"]["shape"] == [32, k, n]
+        assert by_product["dx"]["shape"] == [32, n, k]
+        assert by_product["dw"]["shape"] == [k, 32, n]
+        assert by_product["dx"]["dtypes"] == ["torch.float8_e5m2",
+                                              "torch.float8_e4m3fn"]
+        assert by_product["dw"]["dtypes"] == ["torch.float8_e4m3fn",
+                                              "torch.float8_e5m2"]
+        for row in by_product.values():
+            assert set(smoke.FP8_ROW_KEYS) <= set(row)
+            assert all(row[g] <= smoke.GATES[g] for g in smoke.GATES)
+
+
+def test_fp8_product_gate_fails_on_a_wrong_scale(smoke, no_card,
+                                                 finetune_small,
+                                                 monkeypatch):
+    """A product whose epilogue lost one factor of 1 + 2^-6 fails the
+    gates: the check reads the product's own output."""
+    real = finetune_small
+
+    def off(a, b):
+        return real(a, b) * (1 + 2.0 ** -6)
+
+    off.launches = 0
+    from kubeflow_tpu_torch.models import fp8 as TF
+
+    monkeypatch.setattr(TF, "fp8_product", off)
+    with pytest.raises(AssertionError, match="fp8 wq forward: kernel vs plain"):
+        smoke.fp8_products_phase("cpu")
+
+
+def test_history_fill_check(smoke):
+    cfg = TL.LLAMA_CONFIGS["tiny"]
+    from kubeflow_tpu_torch.models import fp8 as TF
+
+    params = TF.wrap_params_fp8(TL.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    assert smoke._check_history_fill(params, 0) == dict.fromkeys(
+        ("x_hist", "w_hist", "g_hist"), 0)
+    with torch.no_grad():
+        for w in smoke._fp8_weights(params):
+            for h in w.meta().values():
+                h[:2] = 1.0
+    assert smoke._check_history_fill(params, 2)["g_hist"] == 0
+    # A flushed gradient: a g observation of 0 is counted, not refused.
+    params.layers[0].wq.g_hist.data[1] = 0.0
+    assert smoke._check_history_fill(params, 2)["g_hist"] == 1
+    params.layers[1].w_up.g_hist.data[2] = 3.0
+    with pytest.raises(AssertionError, match="more than 2 observations"):
+        smoke._check_history_fill(params, 2)
+    params.layers[1].w_up.g_hist.data[2] = 0.0
+    params.layers[1].w_up.x_hist.data[0] = 0.0
+    with pytest.raises(AssertionError, match="zero observations"):
+        smoke._check_history_fill(params, 2)
+
+
+def test_finetune_phase_rehearsed_on_the_cpu(smoke, no_card, finetune_small):
+    """Phase 11 whole at tiny width: the LoRA steps launch 2n / n / n flash
+    kernels and no fp8 product, the fp8 steps 2n / n / n and 4 × 7 × n fp8
+    products, the example 2 × 2 × 2 / 4 / 4."""
+    out = smoke.finetune_phase("cpu")
+    n = 2 * smoke.TRAIN_STEPS
+    assert out["lora"]["launches"] == {"flash": 2 * n, "bwd_dq": n,
+                                       "bwd_dkv": n}
+    assert out["fp8"]["launches"] == {"flash": 2 * n, "bwd_dq": n,
+                                      "bwd_dkv": n, "fp8": 28 * n}
+    assert out["example"] == {"flash": 8, "bwd_dq": 4, "bwd_dkv": 4}
+    assert abs(out["fp8"]["losses"][0] - out["fp8"]["bf16_loss"]) < 0.15
+    assert out["fp8"]["after"] < out["fp8"]["losses"][0]
+    assert out["lora"]["after"] < out["lora"]["losses"][0]
+
+
+def test_finetune_phase_catches_a_moved_base(smoke, no_card, finetune_small,
+                                             monkeypatch):
+    """A LoRA step that also writes the base fails the byte check."""
+    from kubeflow_tpu_torch.models import lora as TLo
+
+    real = TLo.make_lora_train_step
+
+    def leaky(*a, **kw):
+        init, step = real(*a, **kw)
+
+        def step_and_write(state, base, tokens):
+            with torch.no_grad():
+                base.layers[0].wk.data.view(torch.int16)[0, 0] += 1
+            return step(state, base, tokens)
+        return init, step_and_write
+
+    monkeypatch.setattr(TLo, "make_lora_train_step", leaky)
+    with pytest.raises(AssertionError, match="a base weight changed"):
+        smoke.finetune_phase("cpu")

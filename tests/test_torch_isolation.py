@@ -5,8 +5,10 @@
 modules), nor ``safetensors`` or ``prometheus_client`` (the port reads
 checkpoints itself and mirrors metrics into a bundle the caller passes);
 ``transformers`` is imported only for an optional tokenizer, inside a
-function. The port's entry points refuse to run without a card unless the
-caller passes ``device="cpu"``.
+function. The port's native token loader is built from the port's own
+source into ``kubeflow_tpu_torch/_build/``, never loaded from the JAX
+package's ``native/``. The port's entry points refuse to run without a
+card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -71,7 +73,9 @@ def test_importing_the_port_loads_no_jax():
         "kubeflow_tpu_torch.models.convert, "
         "kubeflow_tpu_torch.observability.tracing, "
         "kubeflow_tpu_torch.observability.flight, "
-        "kubeflow_tpu_torch.observability.profiling\n"
+        "kubeflow_tpu_torch.observability.profiling, "
+        "kubeflow_tpu_torch.models.lora, "
+        "kubeflow_tpu_torch.examples.finetune_lora\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{NOT_AT_IMPORT!r}]\n"
@@ -85,7 +89,11 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
     from kubeflow_tpu_torch.device import resolve_device
-    from kubeflow_tpu_torch.examples import serve_batched, serve_http
+    from kubeflow_tpu_torch.examples import (
+        finetune_lora,
+        serve_batched,
+        serve_http,
+    )
     from kubeflow_tpu_torch.examples import train as train_example
     from kubeflow_tpu_torch.models import convert as TC
     from kubeflow_tpu_torch.models import llama as TL
@@ -115,6 +123,9 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
         lambda: serve_batched.main(["--config", "tiny", "--int8",
                                     "--paged"]),
         lambda: train_example.main(["--config", "tiny", "--steps", "1"]),
+        lambda: train_example.main(["--config", "tiny", "--steps", "1",
+                                    "--fp8"]),
+        lambda: finetune_lora.main(["--steps", "1"]),
         lambda: make_tiny_trainer(),
         lambda: TC.params_from_hf_state_dict(
             cfg, TC.params_to_hf_state_dict(cfg, params)),
@@ -125,3 +136,33 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
     pb = PagedBatcher(params, cfg, slots=2, num_blocks=16, block_size=8,
                       prompt_bucket=16, ragged=True, device="cpu")
     assert pb.device.type == "cpu" and pb.attn_kernel is False
+
+
+def test_the_native_loader_maps_nothing_of_the_jax_package(tmp_path):
+    """A process that opens the port's native TokenLoader maps the port's
+    own library from ``_build/`` and no file under ``native/``, and the
+    port's sources name no path of the JAX package's ``native/``."""
+    corpus = tmp_path / "corpus.bin"
+    corpus.write_bytes(bytes(range(256)) * 16)
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "from kubeflow_tpu_torch.data.loader import TokenLoader\n"
+        "with TokenLoader(sys.argv[2], 2, 8) as loader:\n"
+        "    assert loader.native\n"
+        "    loader.next()\n"
+        "    print(open('/proc/self/maps').read())\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT),
+                           str(corpus)], capture_output=True, text=True,
+                          timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    mapped = {line.split()[-1] for line in proc.stdout.splitlines()
+              if line.count(" ") >= 5 and "/" in line}
+    build = ROOT / "kubeflow_tpu_torch" / "_build"
+    assert any(m.startswith(str(build) + "/libdataloader-") for m in mapped)
+    assert not [m for m in mapped if m.startswith(str(ROOT / "native"))]
+    for f in _port_files():
+        text = f.read_text()
+        assert "libkftpu_dataloader" not in text, f
+        assert '/ "native"' not in text and "native/lib" not in text, f

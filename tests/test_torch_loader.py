@@ -1,9 +1,12 @@
 """The port's token loader vs the JAX package's, bit for bit.
 
 Both sample (batch, seq) windows of one uint32 corpus with the xorshift64*
-stream; the port has only the numpy path, so it is held to the JAX
-package's ``TokenLoader(force_python=True)``, with and without a resume
-``start_batch``, and through ``sharded_loader`` for two process ids.
+stream. The port's default path is its own copy of the native prefetcher
+(built with g++ into ``kubeflow_tpu_torch/_build/``); it and the port's
+``force_python`` path are held to the JAX package's native and Python
+loaders, with and without a resume ``start_batch``, and through
+``sharded_loader`` for two process ids. A source that does not compile
+raises naming its build log (the JAX loader would fall back to Python).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import pytest
 
 from kubeflow_tpu.data import loader as J
 from kubeflow_tpu_torch.data import loader as P
+from kubeflow_tpu_torch.ops import _build
 
 
 @pytest.fixture
@@ -82,6 +86,72 @@ def test_refusals(corpus, tmp_path):
     with pytest.raises(ValueError, match="not divisible"):
         P.sharded_loader(corpus, 3, 4, process_id=0, num_processes=2)
     loader = P.TokenLoader(corpus, 1, 4)
+    loader.close()
+    with pytest.raises(ValueError, match="closed"):
+        loader.next()
+
+
+def test_native_loader_builds_into_the_build_dir(corpus):
+    with P.TokenLoader(corpus, 2, 8) as got:
+        assert got.native
+    lib = _build.host_library_path(P._SRC)
+    assert lib.parent == _build.BUILD_DIR and lib.exists()
+    assert P._SRC.parent == _build.HOST_SRC
+    assert P._SRC not in _build.sources().values()
+    with P.TokenLoader(corpus, 2, 8, force_python=True) as got:
+        assert not got.native
+
+
+@pytest.mark.parametrize("port_python", [False, True],
+                         ids=["native", "python"])
+@pytest.mark.parametrize("jax_python", [False, True],
+                         ids=["jax-native", "jax-python"])
+@pytest.mark.parametrize("seed,start_batch", [(1, 0), (0, 0), (9, 3),
+                                              (2, 1000)])
+def test_both_paths_equal_both_jax_loaders(corpus, port_python, jax_python,
+                                           seed, start_batch):
+    ref = J.TokenLoader(corpus, 4, 33, seed=seed, force_python=jax_python,
+                        start_batch=start_batch, prefetch=2)
+    assert ref.native != jax_python
+    with P.TokenLoader(corpus, 4, 33, seed=seed, force_python=port_python,
+                       start_batch=start_batch, prefetch=2) as got:
+        assert got.native != port_python
+        for want in ref.batches(5):
+            np.testing.assert_array_equal(got.next(), want)
+    ref.close()
+
+
+def test_native_sharded_loader_equals_the_jax_one(corpus):
+    for pid in (0, 1):
+        ref = J.sharded_loader(corpus, 4, 11, seed=5, process_id=pid,
+                               num_processes=2, start_batch=2)
+        got = P.sharded_loader(corpus, 4, 11, seed=5, process_id=pid,
+                               num_processes=2, start_batch=2, prefetch=1)
+        assert got.native
+        for _ in range(4):
+            np.testing.assert_array_equal(got.next(), ref.next())
+        got.close()
+        ref.close()
+
+
+def test_a_broken_build_raises_naming_its_log(corpus, tmp_path, monkeypatch):
+    broken = tmp_path / "dataloader.cpp"
+    broken.write_text("extern \"C\" int dl_abi_version() { return }\n")
+    monkeypatch.setattr(P, "_SRC", broken)
+    with pytest.raises(RuntimeError, match=r"g\+\+ exit 1\); see .*\.log"):
+        P.TokenLoader(corpus, 1, 4)
+    log = _build.host_library_path(broken).with_suffix(".log")
+    assert "error" in log.read_text()
+    assert not _build.host_library_path(broken).exists()
+    # The Python path is still there when asked for by name.
+    with P.TokenLoader(corpus, 1, 4, force_python=True) as got:
+        assert got.next().shape == (1, 4)
+
+
+def test_native_loader_closes_once_and_refuses_after(corpus):
+    loader = P.TokenLoader(corpus, 2, 8)
+    assert loader.next().shape == (2, 8)
+    loader.close()
     loader.close()
     with pytest.raises(ValueError, match="closed"):
         loader.next()

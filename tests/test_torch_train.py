@@ -223,7 +223,6 @@ def test_make_train_step_refusals():
         TT.make_train_step(cfg, sp_impl="rings")
     for kw, item in ((dict(use_ring_sp=True), "item 13"),
                      (dict(sp_impl="ulysses"), "item 13"),
-                     (dict(fp8=True), "item 12"),
                      (dict(plan=object()), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             TT.make_train_step(cfg, **kw)
