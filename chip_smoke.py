@@ -54,7 +54,12 @@ every kernel's launch count set to 0 just before it and read just after:
   same masters (``models/fp8.py``: every projection's products with fp8
   operands through ``torch._scaled_mm``), each step running the same
   three flash kernels as training, and ``examples/finetune_lora.py`` as a
-  user runs it.
+  user runs it;
+- resuming after a preemption (``runtime/``): a child process trains
+  ``gemma-2b`` on the card (the same three flash kernels a step) under
+  ``bootstrap`` and ``install_preemption_handler``, is sent SIGTERM and
+  emergency-saves its newest step; the step is restored on the card
+  through ``MigrationOrchestrator`` and trained from.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -77,8 +82,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    split slots, one row over 8192 keys, 8 rows over 512..4096 keys,
    32-token q-tiles, head dims 64 and 256, and the speculative verify
    spans: 8 slots × 5 rows over 8..564 keys and over 512..4096 keys at
-   the engine's 64-row width), bf16 and int8 pools, on owned rows; unowned rows exactly 0; each case run twice, its output equal bit
-   for bit. Flash forward: the CPU suite's cases, the main-path
+   the engine's 64-row width; GQA group 1 at llama-2-7b's and gemma-7b's
+   heads and group 8 at gemma-2b's, over several runs and over
+   512..4096 keys), bf16 and int8 pools, on owned rows; unowned rows
+   exactly 0; each case run twice, its output equal bit for bit. Flash forward: the CPU suite's cases, the main-path
    prefill (Hq 32, Hkv 8, Sq = Sk = 512, D 128, causal, left padding), a
    shape past the TPU's 4 MB whole-K/V line (Sq = Sk = 16384), window
    cases, a 528-row continuation, head dims 64 and 256 and GQA groups of 1
@@ -92,7 +99,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    seq_len == C. Both decode kernels also: lengths at a boundary of
    their runs of keys and one either side, a masked span longer than a
    run, an idle slot and a stale length beside slots over several runs,
-   head dims 64 and 256 and gemma-2b's heads over several runs, and at
+   head dims 64 and 256, gemma-2b's heads (group 8) and GQA group 1 at
+   llama-2-7b's and gemma-7b's heads over several runs, and at
    llama-3-8b's heads 8 slots of 512..4096 keys and one of 8192; each
    case run twice, its output equal bit for bit. Flash backward (dQ,
    dK/dV) on the forward kernel's O and lse, against its plain f32
@@ -315,10 +323,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels take) written as an HF checkpoint, 2 steps and ``--export``:
    launches 2 × 2 × 2 flash, 4 dQ, 4 dK/dV; the export holds the
    checkpoint's keys and shapes with only q_proj and v_proj moved. Peak
-   memory and step walls print as a smoke run's.
+   memory and step walls print as a smoke run's;
+12. resume — MemAvailable and the free disk must each hold 2.5 × the
+   gemma-2b train state (~15 GB: bf16 params and two bf16 AdamW moments).
+   A child (``python -c`` on ``resume_child``, with
+   ``TPU_CHECKPOINT_GRACE_S=120`` and ``KUBEFLOW_TPU_CHECKPOINT_DIR`` set)
+   calls ``bootstrap(expected_devices=1)``, makes a ``CheckpointManager``
+   in ``checkpoint_dir_from_env()`` (interval 100, async, keep 2),
+   ``install_preemption_handler`` and trains gemma-2b at full width and
+   depth (B 1, S 2048, remat "full", AdamW, TokenLoader batches) 3 steps,
+   each followed by ``save``: step 1 commits on the worker thread, 2 and
+   3 are pending only. After each ``save`` it prints the step's wall, the
+   ``save`` call's wall (the host copy), the step's launches (2 × 18
+   flash, 18 dQ, 18 dK/dV) and every leaf's digest on the card (the sum
+   of its bytes, and of each byte times its position mod 2^31 − 1), then
+   waits in ``signal.pause()``. Sent SIGTERM, it must die of it (-15)
+   within the grace + 5 s, its log naming the emergency commit of step 3;
+   steps 1 and 3 are on disk and step 3's manifest holds the cursor. The
+   parent restores on the card into ``fresh_state(7)`` through a
+   ``MigrationOrchestrator(MigrationConfig(fresh_within_s=0))`` whose
+   save step finds nothing newer (restore budget 600 s: 15 GB read
+   twice); every leaf's digest must equal the child's step 3, and a leaf
+   may equal the fresh state's only where both inits agree (under 1% of
+   the bytes); ``resume_start_batch`` gives 3; one step from the restored
+   state on the loader's 4th batch launches 2 × 18 flash, 18 dQ and 18
+   dK/dV kernels with a finite loss. It prints the emergency save's
+   seconds and GB/s, each ``save``'s snapshot seconds, the restore's
+   seconds split into validation and copy, SIGTERM to exit, and the
+   migration's step durations.
 
 It prints a ``{"fp8_products": ...}`` line (a library call, not a kernel
-of the port), a ``{"kernels": [...]}`` line, the card line, and last
+of the port), a ``{"resume": ...}`` line (phase 12's numbers), a
+``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -407,9 +443,15 @@ from kubeflow_tpu_torch.ops.ragged_attention import (
     ragged_attention_reference,
     ragged_paged_attention,
 )
+from kubeflow_tpu_torch.runtime import checkpoint as ckpt_mod
 from kubeflow_tpu_torch.runtime.checkpoint import (
     CheckpointManager,
     flatten_state,
+    resume_start_batch,
+)
+from kubeflow_tpu_torch.runtime.migration import (
+    MigrationConfig,
+    MigrationOrchestrator,
 )
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -572,6 +614,14 @@ VERIFY_LONG_SPANS = [(SPEC_K + 1, n) for n in LONG_LENS]
 RAG_VERIFY = dict(hq=32, hkv=8, d=128, bs=16, maxb=37, nb=8 * 37 + 1, t=64)
 RAG_VERIFY_LONG = dict(hq=32, hkv=8, d=128, bs=16, maxb=256, nb=8 * 256 + 1,
                        t=64)
+# GQA group 1 at llama-2-7b's heads (32/32, D 128) and gemma-7b's (16/16,
+# D 256); group 8 at gemma-2b's (8/1, D 256).
+RAG_G1 = dict(hq=32, hkv=32, d=128, bs=16, maxb=40, nb=8 * 40 + 1, t=128)
+G1_SPANS = [(1, 640), (40, 40), (1, 300), (30, 430), (1, 129), (20, 100),
+            (1, 17), (20, 600)]
+RAG_G1_D256 = dict(hq=16, hkv=16, d=256, bs=16, maxb=64, nb=4 * 64 + 1, t=64)
+RAG_G8 = dict(hq=8, hkv=1, d=256, bs=16, maxb=64, nb=5 * 64 + 1, t=96)
+RAG_G8_LONG = dict(hq=8, hkv=1, d=256, bs=16, maxb=256, nb=8 * 256 + 1, t=8)
 # Phase 3's ragged cases: (spans, shape, options, q_tile, name, seed). The
 # CPU suite's layouts, the other head dims and 32-token q-tiles, the
 # main-path shape; then the split design's edges: decode rows and
@@ -606,6 +656,16 @@ RAGGED_CASES = [
      "split-d256", 157),
     (VERIFY_SPANS, RAG_VERIFY, {}, 16, "verify-spans", 158),
     (VERIFY_LONG_SPANS, RAG_VERIFY_LONG, {}, 16, "verify-spans-4096", 159),
+    # GQA groups the ragged engine serves beside llama-3-8b's 4: one q head
+    # a kv head (llama-2-7b, gemma-7b) and 8 over one (gemma-2b), decode
+    # rows and chunks over several runs of keys, and gemma-2b's heads over
+    # 8 slots of 512..4096 keys.
+    (G1_SPANS, RAG_G1, {}, 16, "gqa1-llama-2-7b", 160),
+    ([(1, 1000), (40, 40), (1, 513), (16, 512)], RAG_G1_D256, {}, 16,
+     "gqa1-gemma-7b", 161),
+    ([(1, 1000), (40, 40), (1, 513), (30, 700), (1, 17)], RAG_G8, {}, 16,
+     "gqa8-gemma-2b", 162),
+    ([(1, n) for n in LONG_LENS], RAG_G8_LONG, {}, 16, "gqa8-long-4096", 163),
 ]
 
 
@@ -922,6 +982,12 @@ DEC_CASES = [
     # quarter of each left padding, and one slot of 8192.
     (LONG_LENS, DEC_LONG, {"pad_frac": 0.25}, "long-4096"),
     ([8192], DEC_SINGLE, {}, "single-8192"),
+    # GQA group 1: llama-2-7b's heads (32/32, D 128) and gemma-7b's (16/16,
+    # D 256), over one and several runs of keys.
+    ([129, 700, 1000, 40], {**DEC_SPLIT, "hq": 32, "hkv": 32},
+     {"pad_frac": 0.25}, "gqa1-llama-2-7b"),
+    ([100, 513, 1024], {**DEC_SPLIT, "hq": 16, "hkv": 16, "d": 256}, {},
+     "gqa1-gemma-7b"),
 ]
 
 
@@ -1039,6 +1105,11 @@ DENSE_CASES = [
      "split-gemma"),
     (LONG_LENS, DENSE_LONG, {"pad_frac": 0.25}, "long-4096"),
     ([8192], DENSE_SINGLE, {}, "single-8192"),
+    # GQA group 1, as DEC_CASES.
+    ([129, 700, 1000, 40], {**DENSE_SPLIT, "hq": 32, "hkv": 32},
+     {"pad_frac": 0.25}, "gqa1-llama-2-7b"),
+    ([100, 513, 1024], {**DENSE_SPLIT, "hq": 16, "hkv": 16, "d": 256}, {},
+     "gqa1-gemma-7b"),
 ]
 
 
@@ -4740,6 +4811,443 @@ def finetune_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Resume
+
+RESUME_MODEL = "gemma-2b"
+RESUME_STEPS = 3
+RESUME_GRACE_S = 120
+# The parent restores into a state made from another seed, so that equal
+# digests can come only from the checkpoint's bytes.
+RESUME_FRESH_SEED = 7
+# The host holds the pending snapshot beside the async queue's copy (and,
+# while the next one is made, a third); the disk holds two steps.
+RESUME_HEADROOM = 2.5
+RESUME_CHILD_TIMEOUT = 900.0
+# The restore of a 15 GB state reads every file twice (validation, then
+# the copy), so its budget is larger than MigrationConfig's default 60 s.
+RESUME_RESTORE_BUDGET_S = 600.0
+RESUME_TAG = "resume-child "
+# The per-leaf digest: the sum of the leaf's bytes, and the sum of each
+# byte times its position modulo a prime, modulo the prime; computed where
+# the leaf lies, DIGEST_CHUNK bytes at a time.
+DIGEST_PRIME = 2_147_483_647
+DIGEST_CHUNK = 1 << 26
+# The child: ``python -c`` on this, from the checkout's root, with the
+# corpus, the model, S, the loss chunk, the steps and the device ("" for
+# the card).
+RESUME_CHILD_CODE = ("import sys, chip_smoke; "
+                     "sys.exit(chip_smoke.resume_child(sys.argv[1:]))")
+
+
+@torch.no_grad()
+def leaf_digest(t: torch.Tensor) -> list[int]:
+    """[Σ bytes, Σ byte · (position mod P) mod P] over ``t``'s raw bytes."""
+    data = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    total = torch.zeros((), dtype=torch.int64, device=data.device)
+    weighted = torch.zeros((), dtype=torch.int64, device=data.device)
+    for start in range(0, data.numel(), DIGEST_CHUNK):
+        chunk = data[start:start + DIGEST_CHUNK].to(torch.int64)
+        pos = torch.arange(start, start + chunk.numel(), dtype=torch.int64,
+                           device=data.device) % DIGEST_PRIME
+        total += chunk.sum()
+        weighted = (weighted + (chunk * pos % DIGEST_PRIME).sum()
+                    ) % DIGEST_PRIME
+    return [int(total), int(weighted)]
+
+
+def state_digests(state) -> dict:
+    """{leaf path: leaf_digest} of a train state."""
+    return {path: leaf_digest(t) for path, t in flatten_state(state)}
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def resume_child_args(argv: list) -> dict:
+    """The child's arguments: corpus, model, seq, loss chunk, steps, and
+    the device ("" for the card, as a user's call passes none)."""
+    if len(argv) != 6:
+        raise SystemExit("usage: resume_child CORPUS MODEL SEQ LOSS_CHUNK "
+                         f"STEPS DEVICE, got {argv}")
+    corpus, model, seq, chunk, steps, device = argv
+    if model not in L.LLAMA_CONFIGS:
+        raise SystemExit(f"unknown model {model!r}")
+    try:
+        seq, chunk, steps = int(seq), int(chunk), int(steps)
+    except ValueError:
+        raise SystemExit(f"SEQ, LOSS_CHUNK and STEPS must be integers: {argv}")
+    if seq < 2 or chunk < 0 or steps < 1:
+        raise SystemExit(f"bad SEQ, LOSS_CHUNK or STEPS in {argv}")
+    return {"corpus": corpus, "model": model, "seq": seq,
+            "loss_chunk": chunk, "steps": steps, "device": device or None}
+
+
+def _child_print(event: str, **fields) -> None:
+    print(RESUME_TAG + json.dumps({"event": event, **fields}), flush=True)
+
+
+def child_record(line: str):
+    """The record of a child's output line, or None for any other line."""
+    if not line.startswith(RESUME_TAG):
+        return None
+    return json.loads(line[len(RESUME_TAG):])
+
+
+def resume_child(argv: list) -> int:
+    """Phase 12's child, as a notebook user trains: ``bootstrap``, a
+    ``CheckpointManager`` in ``checkpoint_dir_from_env()`` (interval 100,
+    async, keep 2), ``install_preemption_handler``, then each step's
+    ``save``: step 1 commits on the worker thread, later steps are only
+    pending. After each ``save`` returns it prints the step's wall, the
+    ``save`` call's wall (the host copy), the step's kernel launches and
+    every leaf's digest, computed on the card; then it waits in
+    ``signal.pause()`` for SIGTERM, whose handler commits the newest step
+    and ends the process with the signal."""
+    import logging
+
+    from kubeflow_tpu_torch.runtime import (
+        bootstrap,
+        checkpoint_dir_from_env,
+        install_preemption_handler,
+    )
+
+    args = resume_child_args(argv)
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(name)s %(levelname)s %(message)s")
+    rt = bootstrap(expected_devices=1, device=args["device"])
+    dev = rt.device
+    ckpt = CheckpointManager(checkpoint_dir_from_env(),
+                             save_interval_steps=100, async_save=True,
+                             max_to_keep=2)
+    install_preemption_handler(ckpt)
+    cfg = L.LLAMA_CONFIGS[args["model"]]
+    params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           dev)
+    init_state, step_fn = train_mod.make_train_step(
+        cfg, remat="full", loss_chunk=args["loss_chunk"])
+    state = init_state(params)
+    _child_print("init", device=str(dev), digests=state_digests(state))
+    with TokenLoader(args["corpus"], 1, args["seq"], seed=SEED + 1) as loader:
+        batches = [torch.from_numpy(loader.next()).to(dev)
+                   for _ in range(args["steps"])]
+    for step, tokens in enumerate(batches, start=1):
+        before = _counts()
+        _sync(dev)
+        t0 = time.monotonic()
+        state, loss = step_fn(state, tokens)
+        _sync(dev)
+        step_s = time.monotonic() - t0
+        launches = _step_counts(before, _counts())
+        t0 = time.monotonic()
+        enqueued = ckpt.save(step, state, metadata={"start_batch": step})
+        save_s = time.monotonic() - t0
+        _child_print("saved", step=step, loss=float(loss), step_s=step_s,
+                     save_s=save_s, enqueued=enqueued, launches=launches,
+                     digests=state_digests(state))
+    signal.pause()
+    return 1  # only when SIGTERM's disposition let the process live
+
+
+def _state_nbytes(state) -> int:
+    return sum(t.numel() * t.element_size() for _, t in flatten_state(state))
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _run_resume_child(corpus: str, ckpt_dir: str, cfg_name: str) -> dict:
+    """Start the child, wait for its last "saved" record, send SIGTERM and
+    wait for its death: {"records", "log", "returncode", "exit_s"}."""
+    device = "" if DEVICE == "cuda" else DEVICE
+    proc = subprocess.Popen(
+        [sys.executable, "-c", RESUME_CHILD_CODE, corpus, cfg_name,
+         str(TRAIN_SEQ), str(LOSS_CHUNK), str(RESUME_STEPS), device],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, "TPU_CHECKPOINT_GRACE_S": str(RESUME_GRACE_S),
+             "KUBEFLOW_TPU_CHECKPOINT_DIR": ckpt_dir})
+    records, log_lines, last = [], [], threading.Event()
+
+    def read_out():
+        for line in proc.stdout:
+            rec = child_record(line.rstrip("\n"))
+            if rec is not None:
+                records.append(rec)
+                if rec["event"] == "saved" and rec["step"] == RESUME_STEPS:
+                    last.set()
+        last.set()
+
+    def read_err():
+        for line in proc.stderr:
+            log_lines.append(line.rstrip("\n"))
+
+    readers = [threading.Thread(target=f, daemon=True)
+               for f in (read_out, read_err)]
+    for r in readers:
+        r.start()
+    try:
+        last.wait(RESUME_CHILD_TIMEOUT)
+        check(bool(records) and records[-1]["event"] == "saved"
+              and records[-1]["step"] == RESUME_STEPS and proc.poll() is None,
+              f"the child did not report step {RESUME_STEPS} (rc "
+              f"{proc.poll()}): " + "\n".join(log_lines[-30:]))
+        t0 = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=RESUME_GRACE_S + 5)
+        except subprocess.TimeoutExpired:
+            check(False, "the child outlived SIGTERM by the grace + 5 s: "
+                  + "\n".join(log_lines[-30:]))
+        exit_s = time.monotonic() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for r in readers:
+            r.join(timeout=30)
+    return {"records": records, "log": log_lines,
+            "returncode": proc.returncode, "exit_s": exit_s}
+
+
+def logged_seconds(lines: list, prefix: str) -> float:
+    """The seconds of the last log line holding ``prefix`` and ending in
+    "in <seconds>s"."""
+    hits = [x for x in lines if prefix in x]
+    check(bool(hits), f"the child's log has no {prefix!r}")
+    return float(hits[-1].rsplit(" in ", 1)[1].rstrip("s"))
+
+
+@contextlib.contextmanager
+def _timed(module, name: str, seconds: dict):
+    """Sum the wall seconds of ``module.name``'s calls into
+    ``seconds[name]`` for the duration."""
+    real = getattr(module, name)
+    seconds[name] = 0.0
+
+    def timed(*args, **kwargs):
+        t0 = time.monotonic()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            seconds[name] += time.monotonic() - t0
+
+    setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, real)
+
+
+def _check_child(child: dict, n: int) -> tuple:
+    """The child's records: one "init", a "saved" for every step, each
+    with its step's launches (2n flash, n dQ, n dK/dV on the card; none
+    on the CPU, where the wrappers run their plain versions) and a finite
+    loss, only step 1's save enqueued; death by SIGTERM. Returns (init,
+    {step: saved record})."""
+    recs = child["records"]
+    init = [r for r in recs if r["event"] == "init"]
+    saved = {r["step"]: r for r in recs if r["event"] == "saved"}
+    check(len(init) == 1 and sorted(saved) == list(
+        range(1, RESUME_STEPS + 1)), f"child records {len(recs)}")
+    check(child["returncode"] == -signal.SIGTERM,
+          f"the child exited {child['returncode']}, not by SIGTERM: "
+          + "\n".join(child["log"][-30:]))
+    want = ({"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n} if DEVICE == "cuda"
+            else {"flash": 0, "bwd_dq": 0, "bwd_dkv": 0})
+    for step, rec in saved.items():
+        got = {k: rec["launches"][k] for k in want}
+        check(got == want, f"the child's step {step} launched "
+                           f"{rec['launches']}")
+        check(math.isfinite(rec["loss"]), f"child loss {rec['loss']}")
+        check(rec["enqueued"] == (step == 1),
+              f"the child's save {step} returned {rec['enqueued']}")
+    return init[0], saved
+
+
+def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
+    """Phase 12: a child trains ``cfg_name`` at full width and depth on the
+    card (B 1, S 2048, remat "full", AdamW, TokenLoader batches) with the
+    emergency-save handler installed, and is sent SIGTERM after its last
+    ``save``: it must die of the signal within the grace + 5 s, after
+    committing its newest step. The parent then restores that step on the
+    card into a state from another seed through a ``MigrationOrchestrator``
+    (its save step finds nothing newer), holds every leaf's digest to the
+    child's, reads the loader cursor back and trains one step from it,
+    counting its launches. Returns the phase's numbers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = L.LLAMA_CONFIGS[cfg_name]
+    n = cfg.n_layers
+    init_state, step_fn = train_mod.make_train_step(
+        cfg, remat="full", loss_chunk=LOSS_CHUNK)
+    tmp = tempfile.mkdtemp(prefix="resume-")
+    try:
+        # The params and two AdamW moments like them; scalars aside.
+        est = 3 * cfg.param_count() * torch.empty(
+            (), dtype=cfg.dtype).element_size()
+        mem, disk = _mem_available(), shutil.disk_usage(tmp).free
+        log(f"  {cfg_name}: train state ~{est / 1e9:.2f} GB; host "
+            f"MemAvailable {mem / 1e9:.2f} GB, free disk {disk / 1e9:.2f} GB "
+            f"under {tmp}")
+        check(mem >= RESUME_HEADROOM * est and disk >= RESUME_HEADROOM * est,
+              f"phase 12 needs {RESUME_HEADROOM}x the state ({est / 1e9:.2f} "
+              f"GB) in host memory and on disk: MemAvailable "
+              f"{mem / 1e9:.2f} GB, free disk {disk / 1e9:.2f} GB")
+        corpus = _train_corpus(tmp, cfg.vocab_size)
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        child = _run_resume_child(corpus, ckpt_dir, cfg_name)
+        init, saved = _check_child(child, n)
+        emergency_s = logged_seconds(
+            child["log"], f"emergency save: committed step {RESUME_STEPS}")
+        first_s = logged_seconds(child["log"], "checkpoint step 1 committed")
+        # The emergency save's write alone, without its drain of step 1.
+        write_s = logged_seconds(
+            child["log"], f"checkpoint step {RESUME_STEPS} committed")
+
+        mgr = CheckpointManager(ckpt_dir, max_to_keep=2)
+        on_disk = sorted(int(p) for p in os.listdir(ckpt_dir) if p.isdigit())
+        check(mgr.latest_step() == RESUME_STEPS
+              and on_disk == [1, RESUME_STEPS], f"committed steps {on_disk}")
+        with open(os.path.join(ckpt_dir, str(RESUME_STEPS),
+                               ckpt_mod.MANIFEST_NAME)) as f:
+            manifest = json.load(f)
+        nbytes = sum(e["size"] for e in manifest["files"])
+        check(manifest["step"] == RESUME_STEPS
+              and manifest["metadata"] == {"start_batch": RESUME_STEPS}
+              and manifest["process"] == {"index": 0, "count": 1}
+              and [e["path"] for e in manifest["files"]]
+              == list(saved[RESUME_STEPS]["digests"]),
+              "the emergency step's manifest")
+
+        params = L.init_params(
+            cfg, torch.Generator(device=DEVICE).manual_seed(
+                RESUME_FRESH_SEED), DEVICE)
+        state = init_state(params)
+        check(_state_nbytes(state) == nbytes,
+              f"{nbytes} bytes on disk, {_state_nbytes(state)} in a state")
+        fresh = state_digests(state)
+        seconds, fallbacks = {}, []
+
+        def restore_fn(deadline):
+            t0 = time.monotonic()
+            with _timed(ckpt_mod, "_load_validated", seconds), \
+                    _timed(ckpt_mod, "_copy_into", seconds):
+                _, at = mgr.restore_latest(state)
+            _sync(DEVICE)
+            seconds["restore"] = time.monotonic() - t0
+            return {"step": at, "start_batch": resume_start_batch(mgr, at)}
+
+        orch = MigrationOrchestrator(
+            MigrationConfig(fresh_within_s=0.0,
+                            restore_budget_s=RESUME_RESTORE_BUDGET_S),
+            checkpoint=mgr, claim_fn=lambda claimant, deadline: "card-0",
+            restore_fn=restore_fn, flip_fn=lambda deadline: True,
+            fallback_fn=lambda step, reason: fallbacks.append((step, reason)))
+        report = orch.migrate("preemption-notice")
+        check(report.completed and not fallbacks,
+              f"migration fell back: {report}")
+        check(report.steps["save"]["detail"]
+              == f"nothing newer than committed step {RESUME_STEPS}",
+              f"save step: {report.steps['save']}")
+        check((report.restored_step, report.start_batch)
+              == (RESUME_STEPS, RESUME_STEPS), f"restored {report}")
+        check(resume_start_batch(mgr, report.restored_step) == RESUME_STEPS,
+              "resume_start_batch")
+
+        restored = state_digests(state)
+        child3, child0 = saved[RESUME_STEPS]["digests"], init["digests"]
+        check(restored == child3, f"restored leaves differ from the child's "
+              f"step {RESUME_STEPS}: "
+              f"{[p for p in child3 if restored.get(p) != child3[p]][:5]}")
+        # A leaf may equal the fresh state's only where every seed inits it
+        # alike and training left it (norm scales whose updates bf16
+        # rounds away).
+        same = [p for p in child3 if child3[p] == fresh[p]]
+        check(all(child0[p] == fresh[p] for p in same),
+              f"leaves equal to the fresh state's without a reason: {same}")
+        sizes = {e["path"]: e["size"] for e in manifest["files"]}
+        same_share = sum(sizes[p] for p in same) / nbytes
+        check(same_share < 0.01, f"{same_share:.3%} of the bytes equal the "
+              "fresh state's")
+
+        with TokenLoader(corpus, 1, TRAIN_SEQ, seed=SEED + 1,
+                         start_batch=report.start_batch) as loader:
+            tokens = torch.from_numpy(loader.next()).to(DEVICE)
+        _zero_counts()
+        _sync(DEVICE)
+        t0 = time.monotonic()
+        state, loss = step_fn(state, tokens)
+        _sync(DEVICE)
+        step_s = time.monotonic() - t0
+        counts = _counts()
+        launched = {k: counts[k] for k in ("flash", "bwd_dq", "bwd_dkv")}
+        check(launched == {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n},
+              f"the resumed step launched {counts}")
+        check(math.isfinite(float(loss)), f"the resumed step's loss {loss}")
+        check(int(state["step"]) == RESUME_STEPS + 1,
+              f"the state's step after resuming: {int(state['step'])}")
+
+        gb = nbytes / 1e9
+        numbers = {
+            "model": cfg_name, "state_gb": gb, "grace_s": RESUME_GRACE_S,
+            "emergency_save_s": emergency_s,
+            "emergency_save_gb_per_s": gb / emergency_s,
+            "emergency_write_s": write_s,
+            "first_commit_s": first_s,
+            "snapshot_s": [saved[s]["save_s"] for s in sorted(saved)],
+            "child_step_s": [saved[s]["step_s"] for s in sorted(saved)],
+            "sigterm_to_exit_s": child["exit_s"],
+            "restore_s": seconds["restore"],
+            "restore_validate_s": seconds["_load_validated"],
+            "restore_copy_s": seconds["_copy_into"],
+            "restore_gb_per_s": gb / seconds["restore"],
+            "migration_s": {k: v.get("duration_s")
+                            for k, v in report.steps.items()},
+            "migration_total_s": report.duration_s,
+            "leaves": len(child3), "leaves_equal_at_init": len(same),
+            "resumed_loss": float(loss), "resumed_step_s": step_s,
+            "launches": launched,
+            "child_launches": {s: {k: saved[s]["launches"][k]
+                                   for k in launched}
+                               for s in sorted(saved)},
+        }
+        log(f"  child: step walls "
+            f"{[round(x, 4) for x in numbers['child_step_s']]} s, save() "
+            f"(the host copy) {[round(x, 4) for x in numbers['snapshot_s']]}"
+            f" s; step 1 committed asynchronously in {first_s:.3f} s")
+        log(f"  SIGTERM → exit {child['exit_s']:.3f} s (grace "
+            f"{RESUME_GRACE_S} s, exit code {child['returncode']}); "
+            f"emergency save of step {RESUME_STEPS}: {gb:.2f} GB in "
+            f"{emergency_s:.3f} s, {gb / emergency_s:.3f} GB/s, its drain "
+            f"of step 1's write included; the write alone {write_s:.3f} s, "
+            f"{gb / write_s:.3f} GB/s")
+        log(f"  restore on the card: {seconds['restore']:.3f} s "
+            f"({gb / seconds['restore']:.3f} GB/s), validation "
+            f"{seconds['_load_validated']:.3f} s, copy "
+            f"{seconds['_copy_into']:.3f} s; migration steps (s) "
+            f"{json.dumps(numbers['migration_s'])}, total "
+            f"{report.duration_s:.3f}")
+        log(f"  {len(child3)} leaves' digests equal the child's step "
+            f"{RESUME_STEPS}; {len(same)} equal the fresh state's too (alike "
+            f"at init for every seed, {same_share:.4%} of the bytes); "
+            f"resume_start_batch {report.start_batch}; the resumed step's "
+            f"loss {float(loss):.6f} in {step_s:.3f} s, launches {launched}")
+        del state, params
+        return numbers
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4754,7 +5262,7 @@ def main() -> int:
     t_start = time.monotonic()
     phases = {}
 
-    log("[1/11] card")
+    log("[1/12] card")
     smi = subprocess.run(
         ["nvidia-smi", "-i", card_id, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -4768,7 +5276,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     phases["card"] = time.monotonic() - t_start
 
-    log("[2/11] build")
+    log("[2/12] build")
     t0 = time.monotonic()
     seconds = _build.build()
     for name, took in seconds.items():
@@ -4779,7 +5287,7 @@ def main() -> int:
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
 
-    log("[3/11] kernel vs plain")
+    log("[3/12] kernel vs plain")
     t0 = time.monotonic()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
@@ -4789,7 +5297,7 @@ def main() -> int:
     quant_errors = quant_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
-    log("[4/11] timing at the main-path shapes")
+    log("[4/12] timing at the main-path shapes")
     t0 = time.monotonic()
     times = timing()
     flash_times = timing_flash()
@@ -4799,7 +5307,7 @@ def main() -> int:
     quant_times = timing_quant()
     phases["timing"] = time.monotonic() - t0
 
-    log("[5/11] engines: llama-3-8b, full width and depth, random weights")
+    log("[5/12] engines: llama-3-8b, full width and depth, random weights")
     t0 = time.monotonic()
     cfg = L.LLAMA_CONFIGS["llama-3-8b"]
     params = L.init_params(
@@ -4814,25 +5322,25 @@ def main() -> int:
     quant_rows = quant_engine_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
-    log("[6/11] HTTP")
+    log("[6/12] HTTP")
     t0 = time.monotonic()
     http_tokens = {"ragged": http_phase(engine, "ragged")}
     http_phase(alt_engine, "alternating")
     http_tokens["continuous"] = http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
-    log("[7/11] prefix and handoff")
+    log("[7/12] prefix and handoff")
     t0 = time.monotonic()
     prefix = prefix_phase(params, cfg, card)
     phases["prefix"] = time.monotonic() - t0
 
-    log("[8/11] speculation and multi-LoRA")
+    log("[8/12] speculation and multi-LoRA")
     t0 = time.monotonic()
     spec = spec_lora_phase(params, cfg, card, runs)
     del runs
     phases["spec_lora"] = time.monotonic() - t0
 
-    log("[9/11] checkpoint and observability")
+    log("[9/12] checkpoint and observability")
     t0 = time.monotonic()
     # Phases 5-8's engines and pools go first; the served weights stay.
     del engine, alt_engine, cont_engine
@@ -4841,7 +5349,7 @@ def main() -> int:
     ckpt = checkpoint_phase(params, cfg, card, http_tokens)
     phases["checkpoint"] = time.monotonic() - t0
 
-    log(f"[10/11] train: {', '.join(TRAIN_MODELS)}")
+    log(f"[10/12] train: {', '.join(TRAIN_MODELS)}")
     t0 = time.monotonic()
     # The serving model goes first: training needs ~66 GB.
     del params
@@ -4854,11 +5362,17 @@ def main() -> int:
     train_launches = trained["llama-3-8b"]
     phases["train"] = time.monotonic() - t0
 
-    log(f"[11/11] finetune: fp8 products, then {FT_MODEL}'s LoRA finetune "
+    log(f"[11/12] finetune: fp8 products, then {FT_MODEL}'s LoRA finetune "
         "and fp8 training, then examples/finetune_lora")
     t0 = time.monotonic()
     finetune = finetune_phase(card)
     phases["finetune"] = time.monotonic() - t0
+
+    log(f"[12/12] resume: SIGTERM to a child training {RESUME_MODEL}, then "
+        "its emergency checkpoint restored on the card")
+    t0 = time.monotonic()
+    resume = resume_phase()
+    phases["resume"] = time.monotonic() - t0
 
     def entry(name, source, replaces, launched, errs, timed, **extra):
         return {
@@ -4896,6 +5410,10 @@ def main() -> int:
               launches_finetune_lora=finetune["lora"]["launches"]["flash"],
               launches_fp8_train=finetune["fp8"]["launches"]["flash"],
               launches_finetune_example=finetune["example"]["flash"],
+              launches_resume=resume["launches"]["flash"],
+              launches_resume_child={
+                  step: got["flash"]
+                  for step, got in resume["child_launches"].items()},
               max_lse_err=flash_errors["lse"],
               design=FLASH_DESIGN, ctas=flash_times["main-prefill"]["ctas"],
               **{name.replace("-", "_"): {k: flash_times[name][k] for k in (
@@ -4928,6 +5446,10 @@ def main() -> int:
          "launches_finetune_lora": finetune["lora"]["launches"][count],
          "launches_fp8_train": finetune["fp8"]["launches"][count],
          "launches_finetune_example": finetune["example"][count],
+         "launches_resume": resume["launches"][count],
+         "launches_resume_child": {
+             step: got[count]
+             for step, got in resume["child_launches"].items()},
          "max_abs_err": max(bwd_errors[t]["abs"] for t in grads),
          **{f"max_{gate}_err": max(bwd_errors[t][gate] for t in grads)
             for gate in BWD_GATES},
@@ -5013,6 +5535,7 @@ def main() -> int:
             "kubeflow_tpu_torch/models/fp8.py", "launches_fp8_train":
             finetune["fp8"]["launches"]["fp8"], "rows": FP8_ROWS,
             "shapes": finetune["products"]}}))
+    print(json.dumps({"resume": resume}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

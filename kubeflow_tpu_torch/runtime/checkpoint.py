@@ -1,24 +1,44 @@
-"""Crash-safe checkpointing of a torch training state on one process.
+"""Crash-safe checkpointing of a torch training state.
 
-The single-process subset of ``kubeflow_tpu/runtime/checkpoint.py``, on
-the same on-disk format, so either package's manager validates and reads
-a step directory the other wrote:
+The counterpart of ``kubeflow_tpu/runtime/checkpoint.py`` for whole
+leaves, on the same on-disk format, so either package's manager validates
+and reads a step directory the other wrote:
 
 - **Atomic commit.** Each step is written into a ``.tmp-*`` staging dir:
   one ``NNNNN.bin`` per leaf (its raw bytes) and, last, ``manifest.json``
-  (``format`` 1, the step, the caller's metadata, and per file its leaf
-  path, dtype name, shape, size and CRC32). Every file is fsynced, then
-  the staging dir, then ``CheckpointIO.commit`` renames it to ``<step>/``
-  (the one rename) and fsyncs the parent. A process killed mid-save
-  leaves a ``.tmp-*`` dir that restore never looks at.
+  (``format`` 1, the step, the caller's metadata, the writing process's
+  index and count, and per file its leaf path, dtype name, shape, size
+  and CRC32). Every file is fsynced, then the staging dir, then
+  ``CheckpointIO.commit`` renames it to ``<step>/`` (the one rename) and
+  fsyncs the parent. A process killed mid-save leaves a ``.tmp-*`` dir
+  that restore never looks at.
 - **Validated restore with quarantine.** ``restore_latest`` walks
   committed steps newest first, re-verifies each file's size and CRC32,
-  moves a step that fails aside as ``corrupt-<step>-*`` and falls back to
-  the next newest.
+  moves a step that fails aside as ``corrupt-<step>-*`` (counted by
+  ``checkpoint_corrupt_total``) and falls back to the next newest.
+- **Deadline-bounded emergency save.** ``save`` records every state it
+  is handed as a host snapshot, interval-skipped or not;
+  ``emergency_save`` (the SIGTERM path, ``runtime.bootstrap.
+  install_preemption_handler``) writes the newest one synchronously
+  inside a grace budget, and skips when it is already committed or when
+  the last save's duration exceeds what is left of the budget. Every
+  duration and freshness figure reads the injected ``clock``.
 - **Exact resume.** ``train_with_checkpointing`` records the loader cursor
   (``{"start_batch": step}``) in each save's metadata;
   ``resume_start_batch`` reads it back for
   ``data.loader.sharded_loader(start_batch=...)``.
+- **One root per process.** With ``process_count > 1`` each process
+  commits into ``<dir>/proc<k>/`` (identity from ``process_index``/
+  ``process_count``, else the webhook's env contract through
+  ``runtime.bootstrap.runtime_from_env``), and ``latest_step`` /
+  ``restore_latest`` consider only steps that every process committed.
+
+Spans ``checkpoint.write`` (``step``, ``committed``),
+``checkpoint.emergency_save`` (``grace_s``, ``committed``) and
+``checkpoint.restore`` (``restored_step``) go through the port's
+``observability/tracing.py``; the metric hooks (``checkpoint_save_seconds``,
+``checkpoint_corrupt_total``, ``checkpoint_emergency_total``) are read off
+``metrics`` by name, so any bundle with those attributes works.
 
 A state is a tree of dicts (keys in sorted order, as JAX flattens them),
 ``nn.Module``s (their ``state_dict()`` order), optimizers (their
@@ -31,9 +51,10 @@ leaf is stored as its raw 16-bit words under the dtype name
 at a time, so a large state is never held twice: pass a state of the same
 structure (a fresh ``init_state``) and it comes back filled.
 
-Not ported (ROADMAP queue 1 item 14): the emergency save and its SIGTERM
-handler, multi-process ``proc<k>/`` roots and sharded leaves, and the
-tracing spans and metrics hooks.
+Not ported (ROADMAP queue 1 item 12, sharded training): leaves sharded
+over several processes. Saving a ``DTensor`` raises, and a step whose
+manifest holds ``"shard"`` entries (JAX's ``proc<k>`` shard format)
+raises ValueError on restore and is left where it is.
 """
 
 from __future__ import annotations
@@ -47,11 +68,13 @@ import threading
 import time
 import zlib
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from kubeflow_tpu_torch.observability import tracing
 
 log = logging.getLogger(__name__)
 
@@ -61,10 +84,23 @@ MANIFEST_FORMAT = 1
 # quarantine keeps the step number visible but breaks the match the same way.
 _TMP_PREFIX = ".tmp-"
 CORRUPT_PREFIX = "corrupt-"
+# An emergency save must never block forever: with no grace budget given,
+# draining in-flight async saves is still bounded by this.
+_DEFAULT_EMERGENCY_DRAIN_S = 30.0
 
 
 class CorruptCheckpointError(Exception):
     """A committed step directory failed manifest validation."""
+
+
+def process_identity_from_env(env: Optional[dict] = None) -> tuple:
+    """(process_index, process_count) from the webhook's env contract, via
+    the parser ``bootstrap`` uses. Touches no device and no process
+    group, so constructing a manager never does."""
+    from kubeflow_tpu_torch.runtime.bootstrap import runtime_from_env
+
+    rt = runtime_from_env(env)
+    return rt.process_id, rt.num_workers
 
 
 class CheckpointIO:
@@ -117,6 +153,16 @@ def flatten_state(state: Any, prefix: str = "") -> list[tuple[str, torch.Tensor]
                     f"{type(state).__name__}")
 
 
+def _spans_processes(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``DTensor``: a leaf laid out over a device mesh,
+    whose bytes other processes hold too."""
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:
+        return False
+    return isinstance(t, DTensor)
+
+
 def _leaf_bytes(t: torch.Tensor) -> tuple[str, bytes]:
     """(dtype name, raw bytes) of a CPU tensor."""
     t = t.detach().contiguous()
@@ -149,42 +195,86 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 
 class CheckpointManager:
-    """Durable checkpoint policy on one process: atomic saves, validated
-    restores.
+    """Durable checkpoint policy: atomic saves, validated restores.
 
-    - ``save(step, state)`` honors ``save_interval_steps`` (returns whether
-      a save happened; the first call always commits, so a short run is
-      never checkpoint-less) and keeps ``max_to_keep`` checkpoints. With
-      ``async_save=True`` the state is copied to host memory before
-      ``save`` returns and written by a worker thread; ``wait()`` joins it.
+    - ``save(step, state)`` copies the state to host memory (so the caller
+      may go on updating it in place), records that snapshot as the
+      pending one, honours ``save_interval_steps`` (returns whether a save
+      happened; the first call always commits, so a short run is never
+      checkpoint-less) and keeps ``max_to_keep`` checkpoints. With
+      ``async_save=True`` a worker thread writes the snapshot; ``wait()``
+      joins it.
     - Save failures with an ``OSError`` (disk full, quota) are contained:
       the staging dir is removed, ``save_failures``/``last_save_error``
       record it, and the previous committed step stays valid.
+    - ``emergency_save(grace_s)`` is the preemption path: one synchronous
+      save of the pending snapshot, skipped when already committed or when
+      it cannot finish inside the grace budget.
     - ``restore_latest(template)`` copies the newest step that validates
       into ``template``'s tensors and returns ``(template, step)``, or
       ``(template, None)`` when no step validates.
+    - Several processes: each owns ``<directory>/proc<k>/``; saves and
+      quarantines touch only its own root, while ``latest_step`` and
+      ``restore_latest`` consider only steps present in every process's
+      root.
     """
 
-    def __init__(self, directory: str | Path, max_to_keep: int = 3,
-                 save_interval_steps: int = 1, async_save: bool = False,
-                 io: Optional[CheckpointIO] = None):
+    def __init__(
+        self,
+        directory: str | Path,
+        max_to_keep: int = 3,
+        save_interval_steps: int = 1,
+        async_save: bool = False,
+        metrics: Any = None,
+        io: Optional[CheckpointIO] = None,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
+        env: Optional[dict] = None,
+        clock: Optional[Callable[[], float]] = None,
+    ):
+        # Every budget and freshness figure reads THIS clock (monotonic by
+        # default): preemptions coincide with wall-clock steps on the host,
+        # and a backwards jump mid-grace would start a save SIGKILL tears.
+        self._clock = clock or time.monotonic
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max(1, int(max_to_keep))
         self.save_interval_steps = max(1, int(save_interval_steps))
         self.io = io or CheckpointIO()
+        self.metrics = metrics
+        if process_index is None or process_count is None:
+            env_index, env_count = process_identity_from_env(env)
+            process_index = env_index if process_index is None else process_index
+            process_count = env_count if process_count is None else process_count
+        self.process_index = int(process_index)
+        self.process_count = max(1, int(process_count))
+        if not 0 <= self.process_index < self.process_count:
+            raise ValueError(f"process_index {self.process_index} not in "
+                             f"[0, {self.process_count})")
+        self._root = (self.directory if self.process_count == 1
+                      else self.directory / f"proc{self.process_index}")
+        self._root.mkdir(parents=True, exist_ok=True)
         # Metadata dict of the step restore_latest() last returned.
         self.restored_metadata: dict = {}
         self.last_save_error: Optional[BaseException] = None
         self.save_failures = 0
-        # _lock serializes whole checkpoint writes; _seq_lock guards the
-        # staging-name counter and the save-outcome state, always taken
-        # after _lock and never around I/O.
+        # _lock serializes whole checkpoint writes (the emergency path
+        # takes it with a timeout). _seq_lock guards the staging-name
+        # counter and the save-outcome state, always taken after _lock and
+        # never around I/O.
         self._lock = threading.RLock()
         self._seq_lock = threading.Lock()
         self._seq = 0
         self._last_saved_step: Optional[int] = None  # interval gate
         self._last_committed_step: Optional[int] = self.latest_step()
+        self._last_save_duration: Optional[float] = None
+        # Clock instant of the last commit (or validating restore) THIS
+        # process made; None for a step inherited from disk, whose age the
+        # clock cannot vouch for (last_commit_age() says +inf).
+        self._last_commit_at: Optional[float] = None
+        # Newest (step, host snapshot, metadata) handed to save(),
+        # committed or not: what emergency_save flushes.
+        self._pending: Optional[tuple] = None
         self._async = bool(async_save)
         self._queue: Optional[queue.Queue] = None
         self._worker: Optional[threading.Thread] = None
@@ -194,16 +284,37 @@ class CheckpointManager:
     def save(self, step: int, state: Any, force: bool = False,
              metadata: Optional[dict] = None) -> bool:
         """Persist ``state`` as ``step`` per policy; returns whether a save
-        was enqueued (async) or durably committed (sync). The leaves are
-        copied to host memory before this returns, so the caller may go
-        on updating the state in place."""
+        was enqueued (async) or durably committed (sync). Every call copies
+        the leaves to host memory and records the copy for
+        ``emergency_save``, even one the interval skips: the state is
+        updated in place, so a reference to the live tensors would flush a
+        state torn by the next optimizer step."""
         step = int(step)
+        meta = dict(metadata or {})
+        leaves = flatten_state(state)
+        spanning = [path for path, t in leaves if _spans_processes(t)]
+        if spanning and self.process_count == 1:
+            raise RuntimeError(
+                f"state leaf {spanning[0]} is a DTensor spanning other "
+                "processes, but this CheckpointManager believes it is the "
+                "only process. Construct it with process_index=rank, "
+                "process_count=world size (the webhook's env contract fills "
+                "these automatically in notebook pods) so that every host "
+                "saves its own shards instead of attempting a cross-host "
+                "gather.")
+        if spanning:
+            raise NotImplementedError(
+                f"state leaf {spanning[0]} is a DTensor: saving each "
+                "process's shards is sharded training, not ported yet "
+                "(ROADMAP queue 1 item 12)")
+        snapshot = [(path, t.detach().to("cpu", copy=True))
+                    for path, t in leaves]
+        # The newest state, even when the interval skips it: an emergency
+        # save flushes what training last produced.
+        self._pending = (step, snapshot, meta)
         if (not force and self._last_saved_step is not None
                 and step % self.save_interval_steps != 0):
             return False
-        meta = dict(metadata or {})
-        snapshot = [(path, t.detach().to("cpu", copy=True))
-                    for path, t in flatten_state(state)]
         self._last_saved_step = step
         if self._async:
             self._ensure_worker()
@@ -212,15 +323,102 @@ class CheckpointManager:
         with self._lock:
             return self._write_step(step, snapshot, meta)
 
+    def emergency_save(self, grace_s: Optional[float] = None) -> bool:
+        """One final synchronous save inside a termination grace budget,
+        traced as ``checkpoint.emergency_save``."""
+        with tracing.get_tracer("checkpoint").start_span(
+            "checkpoint.emergency_save",
+            **({"grace_s": grace_s} if grace_s is not None else {}),
+        ) as span:
+            ok = self._emergency_save(grace_s)
+            span.set_attribute("committed", ok)
+            return ok
+
+    def _emergency_save(self, grace_s: Optional[float] = None) -> bool:
+        """Returns True only if a new step was durably committed. Skips
+        when nothing is newer than the last committed step, or when
+        ``grace_s`` minus the time spent draining in-flight saves is
+        smaller than the last save's duration.
+
+        Every blocking step is time-bounded (the drain of async saves, the
+        write lock): this runs on the exit path, possibly while the thread
+        the signal interrupted holds the queue mutex or the write lock.
+        The pending snapshot supersedes anything still queued, so giving up
+        on the drain loses nothing. Nothing here touches a device: the
+        snapshot is host memory."""
+        t0 = self._clock()
+        if grace_s is None:
+            drain_timeout = _DEFAULT_EMERGENCY_DRAIN_S
+        else:
+            reserve = (self._last_save_duration or 0.0) + 1.0
+            drain_timeout = max(
+                0.0, min(float(grace_s) - reserve, float(grace_s) / 2))
+        if not self.wait(timeout=drain_timeout):
+            log.error("emergency save: pending async saves did not drain "
+                      "within %.1fs; writing the newest snapshot anyway",
+                      drain_timeout)
+        pending = self._pending
+        if pending is None:
+            log.info("emergency save: no state has been handed to save()")
+            return False
+        step, snapshot, meta = pending
+        if self._last_committed_step == step:
+            log.info("emergency save: step %d already durably committed; "
+                     "skipping", step)
+            return False
+        if grace_s is not None:
+            remaining = float(grace_s) - (self._clock() - t0)
+            estimate = self._last_save_duration
+            if remaining <= 0 or (estimate is not None
+                                  and estimate > remaining):
+                log.error(
+                    "emergency save: skipping step %d — estimated save "
+                    "duration %s exceeds remaining grace budget %.2fs", step,
+                    f"{estimate:.2f}s" if estimate is not None else "unknown",
+                    max(0.0, remaining))
+                return False
+            lock_timeout = max(0.0, float(grace_s) - (self._clock() - t0))
+        else:
+            lock_timeout = _DEFAULT_EMERGENCY_DRAIN_S
+        locked = self._lock.acquire(timeout=lock_timeout)
+        if not locked:
+            # The holder is frozen (likely the thread this signal
+            # interrupted). Writing anyway is safe: staging names are
+            # uniquified under _seq_lock.
+            log.error("emergency save: write lock not acquired within "
+                      "%.1fs; writing without it", lock_timeout)
+        try:
+            ok = self._write_step(step, snapshot, meta)
+        finally:
+            if locked:
+                self._lock.release()
+        if ok:
+            self._last_saved_step = step
+            counter = getattr(self.metrics, "checkpoint_emergency_total", None)
+            if counter is not None:
+                counter.inc()
+            log.warning("emergency save: committed step %d in %.2fs", step,
+                        self._clock() - t0)
+        return ok
+
     def _write_step(self, step: int, snapshot: list, meta: dict) -> bool:
+        with tracing.get_tracer("checkpoint").start_span(
+            "checkpoint.write", step=step,
+        ) as span:
+            ok = self._write_step_inner(step, snapshot, meta)
+            span.set_attribute("committed", ok)
+            return ok
+
+    def _write_step_inner(self, step: int, snapshot: list,
+                          meta: dict) -> bool:
         """The atomic commit protocol; returns whether ``step`` committed.
         An OSError is contained and its staging dir removed; anything else
         propagates and leaves the staging dir, invisible to restore."""
-        t0 = time.monotonic()
-        final = self.directory / str(step)
+        t0 = self._clock()
+        final = self._root / str(step)
         with self._seq_lock:
             self._seq += 1
-            staged = self.directory / (
+            staged = self._root / (
                 f"{_TMP_PREFIX}{step}-{os.getpid()}-{self._seq}")
         try:
             if staged.exists():
@@ -236,7 +434,9 @@ class CheckpointManager:
                               "crc32": zlib.crc32(data) & 0xFFFFFFFF})
             manifest = {"format": MANIFEST_FORMAT, "step": step,
                         "metadata": meta,
-                        "process": {"index": 0, "count": 1}, "files": files}
+                        "process": {"index": self.process_index,
+                                    "count": self.process_count},
+                        "files": files}
             # Written last: its presence certifies every data file above.
             self.io.write_file(staged / MANIFEST_NAME,
                                json.dumps(manifest, sort_keys=True).encode())
@@ -250,16 +450,21 @@ class CheckpointManager:
             log.error("checkpoint save of step %d failed: %s", step, err)
             shutil.rmtree(staged, ignore_errors=True)
             return False
+        duration = self._clock() - t0
         with self._seq_lock:
+            self._last_save_duration = duration
             self._last_committed_step = step
-        log.info("checkpoint step %d committed in %.3fs", step,
-                 time.monotonic() - t0)
+            self._last_commit_at = self._clock()
+        hist = getattr(self.metrics, "checkpoint_save_seconds", None)
+        if hist is not None:
+            hist.observe(duration)
+        log.info("checkpoint step %d committed in %.3fs", step, duration)
         self._prune()
         return True
 
     def _prune(self) -> None:
         for s in self._local_steps()[: -self.max_to_keep]:
-            shutil.rmtree(self.directory / str(s), ignore_errors=True)
+            shutil.rmtree(self._root / str(s), ignore_errors=True)
 
     # -- async worker --------------------------------------------------------
 
@@ -284,10 +489,11 @@ class CheckpointManager:
                 try:
                     with self._lock:
                         self._write_step(step, snapshot, meta)
-                except Exception as err:
+                except BaseException as err:
                     # _write_step contains OSError itself; anything else
-                    # (unserializable metadata) must not kill the worker and
-                    # wedge every later wait() — record it, keep draining.
+                    # (unserializable metadata, MemoryError) must not kill
+                    # the worker and wedge every later wait() — record it,
+                    # keep draining.
                     with self._seq_lock:
                         self.last_save_error = err
                         self.save_failures += 1
@@ -296,9 +502,13 @@ class CheckpointManager:
             finally:
                 self._queue.task_done()
 
-    def wait(self) -> bool:
+    def wait(self, timeout: Optional[float] = None) -> bool:
         """Block until every enqueued async save has committed or failed;
-        returns False only when the worker died with saves queued."""
+        returns whether the queue fully drained (False at once when the
+        worker died with saves queued). A ``timeout`` bounds the wait,
+        the acquisition of the queue's lock included, so a caller on the
+        signal path (which may have interrupted a thread inside the
+        queue's mutex) cannot deadlock."""
         q = self._queue
         if q is None:
             return True
@@ -307,8 +517,21 @@ class CheckpointManager:
             log.error("checkpoint worker thread is dead with %d saves queued",
                       q.unfinished_tasks)
             return False
-        q.join()
-        return True
+        if timeout is None:
+            q.join()
+            return True
+        deadline = self._clock() + timeout
+        if not q.all_tasks_done.acquire(timeout=timeout):
+            return False
+        try:
+            while q.unfinished_tasks:
+                remaining = deadline - self._clock()
+                if remaining <= 0:
+                    return False
+                q.all_tasks_done.wait(remaining)
+            return True
+        finally:
+            q.all_tasks_done.release()
 
     def close(self) -> None:
         self.wait()
@@ -322,32 +545,68 @@ class CheckpointManager:
     # -- restore -------------------------------------------------------------
 
     def latest_step(self) -> Optional[int]:
-        """Newest step with a manifest (validated only at restore)."""
-        steps = self._local_steps()
+        """Newest restorable step: a manifest in this process's root and
+        in every other process's (validated only at restore)."""
+        steps = self._committed_steps()
         return steps[-1] if steps else None
+
+    def last_commit_age(self) -> float:
+        """Seconds on the injected clock since THIS process last committed
+        (or restored) a step; +inf when it has not, since a step inherited
+        on disk has only wall-time mtimes."""
+        with self._seq_lock:
+            last = self._last_commit_at
+        if last is None:
+            return float("inf")
+        return max(0.0, self._clock() - last)
 
     def _local_steps(self) -> list:
         return sorted(
-            int(p.name) for p in self.directory.iterdir()
+            int(p.name) for p in self._root.iterdir()
             if p.is_dir() and p.name.isdigit() and (p / MANIFEST_NAME).exists()
         )
 
+    def _committed_steps(self) -> list:
+        """Locally committed steps that every peer root holds too: a step
+        a dead host never committed is not a checkpoint."""
+        steps = self._local_steps()
+        if self.process_count == 1:
+            return steps
+        return [s for s in steps if self._peers_committed(s)]
+
+    def _peers_committed(self, step: int) -> bool:
+        return all(
+            (self.directory / f"proc{j}" / str(step) / MANIFEST_NAME).exists()
+            for j in range(self.process_count) if j != self.process_index)
+
     def restore_latest(self, template: Any) -> tuple:
-        """(template, step): the newest step that validates, copied into
-        ``template``'s tensors, or (template, None) untouched. Steps failing
-        validation are quarantined as ``corrupt-<step>-*`` (never deleted)
-        and the walk falls back to the next newest. A template of another
-        structure raises ValueError and quarantines nothing. The restored
-        step's metadata lands in ``self.restored_metadata``."""
+        """(template, step): the newest step that validates (and that every
+        process committed), copied into ``template``'s tensors, or
+        (template, None) untouched. Steps failing validation are
+        quarantined as ``corrupt-<step>-*`` (never deleted) and the walk
+        falls back to the next newest. A template of another structure,
+        or a step of sharded leaves, raises ValueError and quarantines
+        nothing. The restored step's metadata lands in
+        ``self.restored_metadata``. Traced as ``checkpoint.restore``."""
+        with tracing.get_tracer("checkpoint").start_span(
+            "checkpoint.restore",
+        ) as span:
+            state, step = self._restore_latest(template)
+            span.set_attribute("restored_step", step)
+            return state, step
+
+    def _restore_latest(self, template: Any) -> tuple:
         self.restored_metadata = {}
         candidates = sorted(
-            (int(p.name) for p in self.directory.iterdir()
+            (int(p.name) for p in self._root.iterdir()
              if p.is_dir() and p.name.isdigit()),
             reverse=True,
         )
         leaves = flatten_state(template)
         for step in candidates:
-            step_dir = self.directory / str(step)
+            if self.process_count > 1 and not self._peers_committed(step):
+                continue
+            step_dir = self._root / str(step)
             try:
                 entries, meta = _load_validated(step_dir)
                 _check_template(leaves, entries, step_dir)
@@ -358,6 +617,9 @@ class CheckpointManager:
             self.restored_metadata = meta
             with self._seq_lock:
                 self._last_committed_step = step
+                # A restore just validated these bytes: as fresh as a
+                # commit made now.
+                self._last_commit_at = self._clock()
             return template, step
         return template, None
 
@@ -366,12 +628,15 @@ class CheckpointManager:
         while True:
             with self._seq_lock:
                 self._seq += 1
-                dest = self.directory / f"{CORRUPT_PREFIX}{step}-{self._seq}"
+                dest = self._root / f"{CORRUPT_PREFIX}{step}-{self._seq}"
             if not dest.exists():
                 break
         log.error("checkpoint step %d failed validation (%s); quarantined "
                   "as %s", step, err, dest.name)
         self.io.commit(step_dir, dest)
+        counter = getattr(self.metrics, "checkpoint_corrupt_total", None)
+        if counter is not None:
+            counter.inc()
 
 
 def _read_checked(step_dir: Path, entry: dict) -> bytes:
@@ -392,7 +657,9 @@ def _load_validated(step_dir: Path) -> tuple[list, dict]:
     """(manifest file entries, metadata) of a committed step, every file's
     size, CRC32, dtype and shape verified — one file in memory at a time.
     Raises CorruptCheckpointError on any mismatch: a checkpoint is valid
-    entirely or not at all."""
+    entirely or not at all. A step of sharded leaves raises ValueError
+    before any file is read: it is not corrupt, this manager cannot
+    assemble it."""
     manifest_path = step_dir / MANIFEST_NAME
     if not manifest_path.exists():
         raise CorruptCheckpointError("manifest missing")
@@ -404,11 +671,14 @@ def _load_validated(step_dir: Path) -> tuple[list, dict]:
         raise CorruptCheckpointError(
             f"unknown manifest format {manifest.get('format')!r}")
     entries = manifest.get("files", [])
+    sharded = [entry["name"] for entry in entries if "shard" in entry]
+    if sharded:
+        raise ValueError(
+            f"checkpoint {step_dir.name}: {sharded[0]} is one process's "
+            "shard of a leaf sharded over several processes; assembling "
+            "shards is sharded training, not ported yet (ROADMAP queue 1 "
+            "item 12)")
     for entry in entries:
-        if "shard" in entry:
-            raise CorruptCheckpointError(
-                f"{entry['name']}: a multi-process shard; this manager reads "
-                "single-process steps only")
         _leaf_from_bytes(_read_checked(step_dir, entry), entry["dtype"],
                          entry["shape"])
     return entries, dict(manifest.get("metadata", {}))
@@ -476,6 +746,6 @@ def train_with_checkpointing(step_fn, state: Any, batches,
             ckpt.save(step, state, metadata={"start_batch": step})
     finally:
         ckpt.wait()
-    if losses and losses[-1].is_cuda:
+    if losses and getattr(losses[-1], "is_cuda", False):
         torch.cuda.synchronize(losses[-1].device)
     return state, losses

@@ -837,11 +837,12 @@ def test_compact_grid_bounds_the_owned_tiles(smoke, layouts):
 
 def test_ragged_vs_plain_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     """Phase 3's ragged cases at their small shapes (every head dim, the
-    run boundaries, the masked run, the idle stale slot, 32-token q-tiles
-    and the verify spans), each run twice, as on the card."""
+    run boundaries, the masked run, the idle stale slot, 32-token q-tiles,
+    the verify spans and GQA groups 1 and 8 at head dim 256), each run
+    twice, as on the card."""
     cases = [c for c in smoke.RAGGED_CASES
              if c[1]["t"] <= 96 and c[1]["maxb"] * c[1]["bs"] <= 1024]
-    assert len(cases) == 18
+    assert len(cases) == 20
     monkeypatch.setattr(smoke, "RAGGED_CASES", cases)
     worst = smoke.kernel_vs_plain()
     for variant in ("bf16", "int8"):
@@ -1460,18 +1461,19 @@ def test_checkpoint_writer_shards_read_back_equal(smoke, tmp_path):
 
 
 def test_phase_numbering_and_kernels_line_are_kept(smoke):
-    """Eleven phases in order, the checkpoint phase ninth and the finetune
-    phase last, and the kernels line still naming every kernel of the port
-    with all its keys."""
+    """Twelve phases in order, the checkpoint phase ninth, the finetune
+    phase eleventh and the resume phase last, and the kernels line still
+    naming every kernel of the port with all its keys."""
     import inspect
     import re
 
     main = inspect.getsource(smoke.main)
     assert re.findall(r'log\(f?"\[(\d+)/(\d+)\]', main) == [
-        (str(i), "11") for i in range(1, 12)]
-    assert '"[9/11] checkpoint and observability"' in main
+        (str(i), "12") for i in range(1, 13)]
+    assert '"[9/12] checkpoint and observability"' in main
     assert main.index("checkpoint_phase(") < main.index("train_phases(")
     assert main.index("train_phases(") < main.index("finetune_phase(")
+    assert main.index("finetune_phase(") < main.index("resume_phase(")
     for name in ("ragged_paged_attention", "flash_attention",
                  "paged_decode_attention", "dense_decode_attention",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
@@ -1720,3 +1722,129 @@ def test_finetune_phase_catches_a_moved_base(smoke, no_card, finetune_small,
     monkeypatch.setattr(TLo, "make_lora_train_step", leaky)
     with pytest.raises(AssertionError, match="a base weight changed"):
         smoke.finetune_phase("cpu")
+
+
+# -- phase 12: resume after a preemption --------------------------------------
+
+
+def test_resume_child_arguments(smoke):
+    got = smoke.resume_child_args(["c.bin", "gemma-2b", "2048", "512", "3",
+                                   ""])
+    assert got == {"corpus": "c.bin", "model": "gemma-2b", "seq": 2048,
+                   "loss_chunk": 512, "steps": 3, "device": None}
+    assert smoke.resume_child_args(["c", "tiny", "32", "0", "1", "cpu"])[
+        "device"] == "cpu"
+    for bad in ([], ["c", "gemma-2b", "2048", "512", "3"],
+                ["c", "no-such-model", "32", "16", "3", ""],
+                ["c", "tiny", "x", "16", "3", ""],
+                ["c", "tiny", "1", "16", "3", ""],
+                ["c", "tiny", "32", "-1", "3", ""],
+                ["c", "tiny", "32", "16", "0", ""]):
+        with pytest.raises(SystemExit):
+            smoke.resume_child_args(bad)
+
+
+def _digest_by_numpy(t: torch.Tensor, prime: int) -> list:
+    raw = t.reshape(-1).view(torch.uint8).numpy().astype(np.int64)
+    pos = np.arange(raw.size, dtype=np.int64) % prime
+    return [int(raw.sum()), int((raw * pos % prime).sum() % prime)]
+
+
+def test_leaf_digest_sums_bytes_and_weights_them_by_position(smoke,
+                                                             monkeypatch):
+    g = torch.Generator().manual_seed(0)
+    leaves = [torch.randn((37, 5), generator=g),
+              torch.randn(41, generator=g).to(torch.bfloat16),
+              torch.tensor(3, dtype=torch.int64), torch.tensor(2.0),
+              torch.randn((4, 6), generator=g).t()]  # not contiguous
+    want = [_digest_by_numpy(t.contiguous(), smoke.DIGEST_PRIME)
+            for t in leaves]
+    assert [smoke.leaf_digest(t) for t in leaves] == want
+    monkeypatch.setattr(smoke, "DIGEST_CHUNK", 7)  # many chunks a leaf
+    assert [smoke.leaf_digest(t) for t in leaves] == want
+    # Two bytes swapped keep the sum and move the weighted sum; one byte
+    # changed moves both.
+    raw = leaves[0].reshape(-1).view(torch.uint8).clone()
+    i = int(torch.nonzero(raw[1:] != raw[:-1])[0])
+    swapped = raw.clone()
+    swapped[i], swapped[i + 1] = raw[i + 1], raw[i]
+    got = smoke.leaf_digest(swapped)
+    assert got[0] == want[0][0] and got[1] != want[0][1]
+    raw[5] ^= 1
+    got = smoke.leaf_digest(raw)
+    assert got[0] != want[0][0] and got[1] != want[0][1]
+
+
+def test_child_records_and_logged_seconds(smoke):
+    line = smoke.RESUME_TAG + json.dumps({"event": "saved", "step": 3})
+    assert smoke.child_record(line) == {"event": "saved", "step": 3}
+    assert smoke.child_record("kubeflow_tpu_torch INFO saved 3") is None
+    lines = [
+        "kubeflow_tpu_torch.runtime.checkpoint INFO checkpoint step 1 "
+        "committed in 11.250s",
+        "kubeflow_tpu_torch.runtime.checkpoint WARNING emergency save: "
+        "committed step 3 in 12.34s",
+    ]
+    assert smoke.logged_seconds(
+        lines, "emergency save: committed step 3") == 12.34
+    assert smoke.logged_seconds(lines, "checkpoint step 1 committed") == 11.25
+    with pytest.raises(AssertionError, match="no 'step 9'"):
+        smoke.logged_seconds(lines, "step 9")
+
+
+@pytest.fixture()
+def resume_small(smoke, no_card, monkeypatch):
+    """Phase 12 at ``tiny`` on the CPU: S 64 in loss chunks of 16; the
+    parent's flash wrappers are counting stand-ins, the child's run their
+    plain versions and count nothing."""
+    _stand_in_kernels(smoke, monkeypatch)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    return TL.LLAMA_CONFIGS["tiny"]
+
+
+def test_resume_phase_rehearsed_on_the_cpu(smoke, resume_small):
+    """The child dies of SIGTERM after committing step 3; the parent's
+    restore through the orchestrator gives the child's digests, the
+    cursor 3, and a step with the stand-ins' launches."""
+    out = smoke.resume_phase("tiny")
+    n = resume_small.n_layers
+    assert out["launches"] == {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n}
+    assert out["child_launches"] == {
+        s: {"flash": 0, "bwd_dq": 0, "bwd_dkv": 0} for s in (1, 2, 3)}
+    assert set(out["migration_s"]) == {"save", "claim", "restore", "flip"}
+    assert len(out["snapshot_s"]) == len(out["child_step_s"]) == 3
+    assert 0 < out["emergency_save_s"] and 0 < out["sigterm_to_exit_s"] < 125
+    assert out["restore_validate_s"] + out["restore_copy_s"] <= out[
+        "restore_s"]
+    assert out["leaves_equal_at_init"] < out["leaves"]
+
+
+def test_resume_phase_catches_a_wrong_restore(smoke, resume_small,
+                                              monkeypatch):
+    """A restore that copies every leaf but then zeroes one fails the
+    digest check."""
+    from kubeflow_tpu_torch.runtime import checkpoint as TCk
+
+    real = TCk._copy_into
+
+    def lossy(leaves, entries, step_dir):
+        real(leaves, entries, step_dir)
+        next(t for _, t in leaves if t.is_floating_point()).zero_()
+
+    monkeypatch.setattr(TCk, "_copy_into", lossy)
+    with pytest.raises(AssertionError, match="restored leaves differ"):
+        smoke.resume_phase("tiny")
+
+
+def test_group_one_and_eight_cases_run_on_the_card(smoke):
+    """Phase 3 holds the ragged kernel at GQA groups 1 and 8 (bf16 and
+    int8 pools) and both decode kernels at group 1, beside the groups they
+    had."""
+    ragged = {s["hq"] // s["hkv"] for _, s, *_ in smoke.RAGGED_CASES}
+    decode = {s["hq"] // s["hkv"] for _, s, *_ in smoke.DEC_CASES}
+    dense = {s["hq"] // s["hkv"] for _, s, *_ in smoke.DENSE_CASES}
+    assert {1, 8} <= ragged and 1 in decode and 1 in dense
+    for cases in (smoke.RAGGED_CASES, smoke.DEC_CASES, smoke.DENSE_CASES):
+        names = [c[-2] if cases is smoke.RAGGED_CASES else c[-1]
+                 for c in cases]
+        assert len(names) == len(set(names))
