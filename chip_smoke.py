@@ -350,10 +350,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    dK/dV kernels with a finite loss. It prints the emergency save's
    seconds and GB/s, each ``save``'s snapshot seconds, the restore's
    seconds split into validation and copy, SIGTERM to exit, and the
-   migration's step durations.
+   migration's step durations;
+13. tp — tensor-parallel replicas (``models/tp_serving.py``). First one
+   launch each of the ragged, flash, paged decode and dense decode
+   kernels at a tp=2 rank's shapes of llama-3-8b (16 q, 4 kv heads),
+   held to their plain
+   versions by phase 3's gates. (a) Degree 2 on the one card: two child
+   processes (``python -c`` on ``tp_child``), each one rank of a gloo
+   group of 2 it builds itself, both on ``cuda:0`` — this phase's own
+   configuration (one card holds both ranks; gloo stages the CUDA
+   tensors through the host), not a fallback. Each draws llama-3-8b from
+   the seed leaf by leaf and keeps its shard (16 of 32 q heads, 4 of 8 kv
+   heads, 7168 of 14336 hidden, half the vocab), then serves 8 of phase
+   5's prompts (every other one), 32 new tokens, on the ragged bf16
+   engine (8 slots, budget 512) and 4 of them on the alternating and the
+   continuous engines, with ``plan=``: per rank, ragged launches = ragged
+   steps × 32, flash = admissions × 32, paged (alternating) or dense
+   (continuous) decode = decode steps × 32; both ranks emit
+   the same tokens, held to phase 5's (its first 32) by phase 8's
+   near-tie rule, a fork's gap from a tp forward of the common prefix
+   with plain attention. (b) Degree 1 over NCCL in this process: an
+   explicit ``MeshPlan(make_mesh(tp=1))`` on a world-1 NCCL group (the
+   backend of real multi-card replicas; its collectives are the
+   identity) and the ragged engine on phase 5's 16 prompts give phase 5's
+   tokens and logprobs bit for bit, launches = steps × 32; so do the
+   same weights with the plan lifted, and the two runs, each traced once
+   more, say where the plan's time goes (the host seconds in the
+   functions that call the collectives, the card's busy seconds and its
+   NCCL kernels'). It prints each
+   rank's peak memory, the phase's seconds split into spawn, init and
+   serve, and tokens/s at degree 2 and 1 beside phase 5's.
 
 It prints a ``{"fp8_products": ...}`` line (a library call, not a kernel
 of the port), a ``{"resume": ...}`` line (phase 12's numbers), a
+``{"tp": ...}`` line (phase 13's numbers), a
 ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -373,6 +403,7 @@ import os
 import secrets
 import shutil
 import signal
+import socket
 import struct
 import subprocess
 import sys
@@ -413,6 +444,8 @@ from kubeflow_tpu_torch.models.speculative import (
     SpeculativePagedBatcher,
     truncated_draft,
 )
+from kubeflow_tpu_torch.models.tp_serving import serving_plan
+from kubeflow_tpu_torch.parallel.mesh import MeshPlan, make_mesh
 from kubeflow_tpu_torch.observability import profiling as profiling_mod
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import attention as attn_mod
@@ -2207,11 +2240,12 @@ def _engine(params, cfg, kv_bits: int, attn_kernel=None, ragged=True):
     )
 
 
-def _cont_engine(params, cfg, attn_kernel=None, admit_chunk=None):
+def _cont_engine(params, cfg, attn_kernel=None, admit_chunk=None,
+                 plan=None, max_new=64):
     return ContinuousBatcher(
-        params, cfg, gen=GenerationConfig(max_new_tokens=64, eos_id=-1),
+        params, cfg, gen=GenerationConfig(max_new_tokens=max_new, eos_id=-1),
         slots=8, cache_len=1024, prompt_bucket=512, attn_kernel=attn_kernel,
-        admit_chunk=admit_chunk, device=DEVICE,
+        admit_chunk=admit_chunk, plan=plan, device=DEVICE,
     )
 
 
@@ -2701,6 +2735,10 @@ def _trace(engine, prompts, kernels: dict) -> dict:
     # wide path.
     out["gemm_s"] = sum(v for k, v in by_name.items()
                         if any(t in k for t in ("nvjet", "gemm", "xmma")))
+    # NCCL's kernels (a sharded model's collectives; none elsewhere).
+    out["nccl_s"] = sum(v for k, v in by_name.items() if "nccl" in k.lower())
+    out["nccl_launches"] = sum(1 for ev in records
+                               if "nccl" in ev.get("name", "").lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out["top_kernels_s"] = [[k[:60], v] for k, v in top]
     return out
@@ -5250,6 +5288,430 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: tensor-parallel replicas
+
+TP_DEGREE = 2
+TP_MODEL = "llama-3-8b"
+TP_DTYPE = None  # the model's own (bf16); the CPU rehearsal runs float32
+TP_NEW = 32  # new tokens a request at degree 2 (phase 5's first 32)
+TP_CHILD_TIMEOUT = 600.0
+TP_TAG = "tp-child "
+TP_CHILD_CODE = ("import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.tp_child(sys.argv[1:]))")
+
+
+def tp_rank_shapes_vs_plain() -> dict:
+    """One launch of each attention kernel a tp=2 rank of llama-3-8b runs
+    (16 q heads over 4 kv heads) on the ragged, alternating and continuous
+    engines, at the main-path shapes, held to its plain version by phase
+    3's gates (each twice, bit-equal). Returns {kernel: {gate: error}}."""
+    rank = {"hq": 32 // TP_DEGREE, "hkv": 8 // TP_DEGREE}
+    out: dict = {"ragged": {}, "flash": {}}
+    case = _case(MAIN_SPANS, seed=170, **{**MAIN, **rank})
+    got = ragged_paged_attention(**case, q_tile=16)
+    check_ragged_repeat(got, ragged_paged_attention(**case, q_tile=16),
+                        "tp-rank main")
+    owned = _owned(case)
+    _gate("tp-rank ragged main", _errors(got, case, owned), out["ragged"])
+    check(bool((got[~owned] == 0).all()), "tp-rank ragged: unowned rows "
+                                          "not 0")
+    fcase = _flash_case((1, rank["hq"], rank["hkv"], 512, 512, True, 0, 0,
+                         (200,)), 128, seed=171)
+    o, lse = flash_attention_fwd(**fcase)
+    check_fwd_repeat((o, lse), flash_attention_fwd(**fcase), "tp-rank")
+    errs = _flash_errors(o, lse, fcase)
+    _gate("tp-rank flash main-prefill", errs, out["flash"])
+    check(errs["lse"] <= LSE_TOL and errs["keyless_rows_ok"],
+          f"tp-rank flash: lse error {errs['lse']} or a keyless row")
+    out["flash"]["lse"] = errs["lse"]
+    out["decode"] = _decode_vs_plain(
+        "tp-rank decode", [(DEC_MAIN_LENS, {**DEC_MAIN, **rank}, {},
+                            "main-decode", 172)],
+        _decode_case, paged_decode_attention, paged_decode_reference,
+        ("k_pool", "v_pool"))
+    out["dense"] = _decode_vs_plain(
+        "tp-rank dense", [(DEC_MAIN_LENS, {**DENSE_MAIN, **rank},
+                           {"pad_frac": 0.25}, "main-decode", 173)],
+        _dense_case, dense_decode_attention, dense_decode_reference,
+        ("k_cache", "v_cache"))
+    log(f"  kernels at a tp={TP_DEGREE} rank's shapes (16 q / 4 kv heads): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _tp_engine(params, cfg, plan, ragged: bool, max_new: int):
+    """Phase 5's ragged (``ragged``) or alternating paged engine."""
+    return PagedBatcher(
+        params, cfg, gen=GenerationConfig(max_new_tokens=max_new, eos_id=-1),
+        slots=8, num_blocks=8 * 37 + 24, block_size=16, prompt_bucket=512,
+        ragged=ragged, token_budget=512 if ragged else None, plan=plan,
+        device=DEVICE,
+    )
+
+
+def _tp_config(name: str, dtype):
+    cfg = L.LLAMA_CONFIGS[name]
+    return cfg if dtype is None else dataclasses.replace(
+        cfg, dtype=getattr(torch, dtype))
+
+
+def _launches_a_call(cfg) -> int:
+    """Kernel launches a forward makes: one a layer on the card; none on
+    the CPU, where the wrappers run their plain versions."""
+    return cfg.n_layers if torch.device(DEVICE).type == "cuda" else 0
+
+
+def tp_child(argv: list) -> int:
+    """One rank of phase 13 (a): joins the gloo group of ``TP_DEGREE`` on
+    the spec's device (``cuda:0`` on the card), draws its shard of the
+    spec's model from the seed, serves the ragged, alternating and
+    continuous engines with ``plan=``, holds their tokens to phase 5's by
+    the near-tie rule
+    (the tp forwards are collectives: both ranks make them), and prints
+    one ``tp-child {json}`` record."""
+    global DEVICE
+    spec = json.loads(open(argv[0]).read())
+    rank = int(argv[1])
+    started = time.time()
+    DEVICE = spec["device"]
+    on_card = torch.device(DEVICE).type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if on_card:
+        torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{spec['port']}", rank=rank,
+        world_size=TP_DEGREE)
+    plan = serving_plan(TP_DEGREE)
+    cfg = _tp_config(spec["model"], spec["dtype"])
+    params = L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
+        plan=plan)
+    _sync(DEVICE)
+    weights = torch.cuda.memory_allocated() if on_card else 0
+    inited = time.time()
+    rec = {"rank": rank, "started": started, "inited": inited,
+           "weights_gib": weights / 2**30,
+           "wq_shape": list(params.layers[0].wq.shape),
+           "w_down_shape": list(params.layers[0].w_down.shape)}
+    # (kind, prompts, the module and its admission and step functions)
+    kinds = (("ragged", "prompts", paged_mod, "_paged_admit", "_paged_step"),
+             ("alternating", "alt_prompts", paged_mod, "_paged_admit",
+              "_paged_step"),
+             ("continuous", "alt_prompts", cont_mod, "_admit_slot",
+              "_cb_step"))
+    for kind, key, module, admit, step in kinds:
+        prompts = spec[key]
+        if kind == "continuous":
+            engine = _cont_engine(params, cfg, plan=plan, max_new=TP_NEW)
+            check(engine._attn_kernel == 512 or not on_card,
+                  f"continuous: the dense kernel is off under a plan "
+                  f"(block size {engine._attn_kernel})")
+            heads = engine.cache["k"].shape[2]
+        else:
+            engine = _tp_engine(params, cfg, plan, kind == "ragged", TP_NEW)
+            check(engine.attn_kernel or not on_card,
+                  f"{kind}: the kernels are off under a plan")
+            heads = engine.pool["k"].shape[2]
+        check(heads == cfg.n_kv_heads // TP_DEGREE,
+              f"{kind}: the rank's KV holds {heads} kv heads")
+        per = _launches_a_call(cfg)
+        with _counting_calls(module, admit, step) as calls:
+            _sync(DEVICE)
+            _zero_counts()
+            t0 = time.monotonic()
+            toks, lps = _serve(engine, prompts)
+            _sync(DEVICE)
+            wall = time.monotonic() - t0
+            counts = _counts()
+        admits, steps = calls[admit], calls[step]
+        if kind == "ragged":
+            steps = engine.ragged_steps
+            check(steps > 0 and counts["ragged"] == steps * per,
+                  f"rank {rank}: {counts['ragged']} ragged launches for "
+                  f"{steps} steps × {cfg.n_layers} layers")
+            check(counts["flash"] == counts["decode"] == counts["dense"]
+                  == 0, f"rank {rank}: the ragged engine launched {counts}")
+        else:
+            # One flash prefill a layer an admission, and one decode kernel
+            # a layer a step: paged decode here, dense on the continuous.
+            decode = "dense" if kind == "continuous" else "decode"
+            others = {"ragged", "decode", "dense"} - {decode}
+            check(admits > 0 and steps > 0
+                  and counts["flash"] == admits * per
+                  and counts[decode] == steps * per
+                  and all(counts[k] == 0 for k in others),
+                  f"rank {rank}, {kind}: {counts} for {admits} admissions "
+                  f"and {steps} steps × {cfg.n_layers} layers")
+        ref = spec["ref"][kind]
+        plain = ([t[:TP_NEW] for t in ref[0]], [lp[:TP_NEW] for lp in ref[1]])
+        report = _compare_greedy(params, cfg, prompts, toks, plain, lps)
+        rec[kind] = {"tokens": toks, "wall_s": wall, "counts": counts,
+                     "admissions": admits, "decode_steps": steps,
+                     "tokens_out": sum(len(t) for t in toks),
+                     "forks": report}
+        del engine
+    rec["served"] = time.time()
+    rec["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if on_card else 0.0)
+    print(TP_TAG + json.dumps(rec), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _tp_degree_two(p5: dict, prompts: list) -> dict:
+    """Phase 13 (a): the two children, their records checked against
+    each other; returns the per-rank numbers."""
+    spec = {"port": _free_port(), "device": DEVICE, "model": TP_MODEL,
+            "dtype": TP_DTYPE,
+            "prompts": prompts[::2],
+            "alt_prompts": prompts[::4],
+            "ref": {"ragged": [[t for t in p5["ragged"][0][::2]],
+                               [lp for lp in p5["ragged"][1][::2]]],
+                    "alternating": [p5["alternating"][0],
+                                    p5["alternating"][1]],
+                    "continuous": [p5["continuous"][0],
+                                   p5["continuous"][1]]}}
+    with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                     delete=False) as f:
+        json.dump(spec, f)
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TP_CHILD_CODE, f.name, str(rank)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for rank in range(TP_DEGREE)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=TP_CHILD_TIMEOUT))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        os.unlink(f.name)
+    done = time.time()
+    recs = []
+    for proc, (out, err) in zip(procs, outs):
+        check(proc.returncode == 0, f"tp child exited {proc.returncode}: "
+                                    + err[-6000:])
+        recs.append(next(json.loads(line[len(TP_TAG):])
+                         for line in out.splitlines()
+                         if line.startswith(TP_TAG)))
+    for kind in ("ragged", "alternating", "continuous"):
+        check(recs[0][kind]["tokens"] == recs[1][kind]["tokens"],
+              f"{kind}: the two ranks emitted different tokens")
+        check(recs[0][kind]["counts"] == recs[1][kind]["counts"],
+              f"{kind}: the two ranks launched different counts")
+    wall = recs[0]["ragged"]["wall_s"]
+    numbers = {
+        "seconds": {"spawn": max(r["started"] for r in recs) - t0,
+                    "init": max(r["inited"] - r["started"] for r in recs),
+                    "serve": max(r["served"] - r["inited"] for r in recs),
+                    "total": done - t0},
+        "peak_gib": [r["peak_gib"] for r in recs],
+        "weights_gib": [r["weights_gib"] for r in recs],
+        "wq_shape": recs[0]["wq_shape"],
+        "w_down_shape": recs[0]["w_down_shape"],
+        "launches": {"ragged": [r["ragged"]["counts"]["ragged"]
+                                for r in recs],
+                     "flash": [r["alternating"]["counts"]["flash"]
+                               for r in recs],
+                     "decode": [r["alternating"]["counts"]["decode"]
+                                for r in recs],
+                     "continuous_flash": [
+                         r["continuous"]["counts"]["flash"] for r in recs],
+                     "dense": [r["continuous"]["counts"]["dense"]
+                               for r in recs]},
+        "ragged_steps": recs[0]["ragged"]["decode_steps"],
+        "admissions": recs[0]["alternating"]["admissions"],
+        "decode_steps": recs[0]["alternating"]["decode_steps"],
+        "continuous_admissions": recs[0]["continuous"]["admissions"],
+        "continuous_steps": recs[0]["continuous"]["decode_steps"],
+        "tokens_per_s": recs[0]["ragged"]["tokens_out"] / wall,
+        "alternating_tokens_per_s": (
+            recs[0]["alternating"]["tokens_out"]
+            / recs[0]["alternating"]["wall_s"]),
+        "continuous_tokens_per_s": (
+            recs[0]["continuous"]["tokens_out"]
+            / recs[0]["continuous"]["wall_s"]),
+        "forks": {k: recs[0][k]["forks"]
+                  for k in ("ragged", "alternating", "continuous")},
+    }
+    log(f"  degree {TP_DEGREE} on one card (gloo, both ranks on cuda:0): "
+        f"{json.dumps(numbers)}")
+    return numbers
+
+
+# The functions of a sharded forward that call a collective (one
+# ``all_reduce`` after wo and after w_down, the embedding's, the head's
+# ``all_gather``), timed where the engines call them: ``models/paged.py``
+# imports them by name.
+TP_COLLECTIVE_CALLS = ("_tp_sum", "_embed", "_lm_head_logits")
+
+
+@contextlib.contextmanager
+def _host_timed(modules, names):
+    """Calls and host seconds of each ``<module>.<name>`` while inside, in
+    every module of ``modules`` that holds it; yields {name: [calls,
+    seconds]}. A call's host seconds are what it costs the host to queue
+    its work (and any wait a collective makes it take), not the card's
+    time for that work."""
+    seen = {name: [0, 0.0] for name in names}
+    patched = []
+
+    def timed(name, real):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                seen[name][0] += 1
+                seen[name][1] += time.perf_counter() - t0
+        return call
+
+    for module in modules:
+        for name in names:
+            real = getattr(module, name, None)
+            if real is not None:
+                setattr(module, name, timed(name, real))
+                patched.append((module, name, real))
+    try:
+        yield seen
+    finally:
+        for module, name, real in patched:
+            setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def _unplanned(params):
+    """A tp=1 shard (every leaf whole) as a model with no shard record
+    while inside: its forward is then the unplanned one, collectives
+    and masked embedding left out."""
+    shard = params.shard
+    owners = [params, *params.layers]
+    for owner in owners:
+        owner.shard = None
+    try:
+        yield params
+    finally:
+        for owner in owners:
+            owner.shard = shard
+
+
+def _tp_degree_one(p5: dict, prompts: list) -> dict:
+    """Phase 13 (b): a tp=1 plan over a world-1 NCCL group in this process;
+    phase 5's ragged bf16 run again, bit for bit. Then where the plan's
+    time goes: the same weights served without the plan, both runs with
+    the host seconds of the collectives' functions, and each traced once
+    (8 prompts) for the card's busy seconds and its NCCL kernels'."""
+    cfg = _tp_config(TP_MODEL, TP_DTYPE)
+    on_card = torch.device(DEVICE).type == "cuda"
+    # NCCL on the card; the CPU rehearsal of this phase has only gloo.
+    torch.distributed.init_process_group(
+        "nccl" if on_card else "gloo",
+        init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
+    try:
+        plan = MeshPlan(make_mesh(tp=1))
+        check(plan.tp_group is not None, "a tp=1 plan over a world-1 group "
+                                         "has no tp group")
+        params = L.init_params(
+            cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
+            plan=plan)
+        runs = {}
+        for label in ("planned", "unplanned"):
+            with contextlib.ExitStack() as stack:
+                if label == "unplanned":
+                    stack.enter_context(_unplanned(params))
+                engine = _tp_engine(
+                    params, cfg, plan if label == "planned" else None, True,
+                    64)
+                host = stack.enter_context(
+                    _host_timed((L, paged_mod), TP_COLLECTIVE_CALLS))
+                _sync(DEVICE)
+                _zero_counts()
+                t0 = time.monotonic()
+                toks, lps = _serve(engine, prompts)
+                _sync(DEVICE)
+                wall = time.monotonic() - t0
+                counts = _counts()
+            steps = engine.ragged_steps
+            check(counts["ragged"] == steps * _launches_a_call(cfg),
+                  f"tp=1 {label}: {counts['ragged']} launches for {steps} "
+                  "steps")
+            check(toks == p5["ragged"][0], f"tp=1 {label}: tokens differ "
+                                           "from phase 5's")
+            check(lps == p5["ragged"][1], f"tp=1 {label}: logprobs differ "
+                                          "from phase 5's bit for bit")
+            runs[label] = {
+                "launches": counts["ragged"], "steps": steps, "wall_s": wall,
+                "tokens_per_s": sum(len(t) for t in toks) / wall,
+                "host_s": {k: {"calls": n, "seconds": sec,
+                               "ms_a_call": 1e3 * sec / max(n, 1)}
+                           for k, (n, sec) in host.items()},
+            }
+            del engine
+        for label in ("planned", "unplanned"):
+            with contextlib.ExitStack() as stack:
+                if label == "unplanned":
+                    stack.enter_context(_unplanned(params))
+                engine = _tp_engine(
+                    params, cfg, plan if label == "planned" else None, True,
+                    64)
+                trace = _trace(engine, prompts[::2],
+                               {"attention": "ragged_kernel"})
+            trace["steps"] = engine.ragged_steps
+            runs[label]["trace"] = {
+                k: trace[k] for k in ("wall_s", "busy_s", "idle_share",
+                                      "attention_s", "gemm_s", "nccl_s",
+                                      "nccl_launches", "steps",
+                                      "top_kernels_s")}
+            del engine
+        planned, unplanned = runs["planned"], runs["unplanned"]
+        gap = planned["wall_s"] - unplanned["wall_s"]
+        host_gap = sum(planned["host_s"][k]["seconds"]
+                       - unplanned["host_s"][k]["seconds"]
+                       for k in TP_COLLECTIVE_CALLS)
+        numbers = {"backend": torch.distributed.get_backend(),
+                   "launches": planned["launches"],
+                   "steps": planned["steps"],
+                   "tokens_per_s": planned["tokens_per_s"],
+                   "bit_equal_to_phase_5": True,
+                   "planned": planned, "unplanned": unplanned,
+                   "wall_gap_s": gap,
+                   "wall_gap_ms_a_step": 1e3 * gap / planned["steps"],
+                   "host_gap_in_collective_calls_s": host_gap,
+                   "busy_gap_s": (planned["trace"]["busy_s"]
+                                  - unplanned["trace"]["busy_s"])}
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"  degree 1 over NCCL: {json.dumps(numbers)}")
+    return numbers
+
+
+def tp_phase(p5: dict) -> dict:
+    """Phase 13. ``p5`` holds phase 5's ragged bf16 run of 16 prompts,
+    (tokens, logprobs, wall), and its alternating and continuous kernel
+    runs of 4, (tokens, logprobs)."""
+    cfg = L.LLAMA_CONFIGS[TP_MODEL]
+    prompts = _prompts(cfg, 16, 8, 500, SEED)
+    kernels = tp_rank_shapes_vs_plain()
+    two = _tp_degree_two(p5, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = _tp_degree_one(p5, prompts)
+    p5_rate = (sum(len(t) for t in p5["ragged"][0]) / p5["ragged"][2])
+    return {"kernels": kernels, "degree_2": two, "degree_1": one,
+            "phase_5_tokens_per_s": p5_rate}
+
+
 def main() -> int:
     # One card, the first visible one, set before CUDA starts: the process
     # drives and counts one card however many the host has.
@@ -5262,7 +5724,7 @@ def main() -> int:
     t_start = time.monotonic()
     phases = {}
 
-    log("[1/12] card")
+    log("[1/13] card")
     smi = subprocess.run(
         ["nvidia-smi", "-i", card_id, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -5276,7 +5738,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     phases["card"] = time.monotonic() - t_start
 
-    log("[2/12] build")
+    log("[2/13] build")
     t0 = time.monotonic()
     seconds = _build.build()
     for name, took in seconds.items():
@@ -5287,7 +5749,7 @@ def main() -> int:
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
 
-    log("[3/12] kernel vs plain")
+    log("[3/13] kernel vs plain")
     t0 = time.monotonic()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
@@ -5297,7 +5759,7 @@ def main() -> int:
     quant_errors = quant_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
-    log("[4/12] timing at the main-path shapes")
+    log("[4/13] timing at the main-path shapes")
     t0 = time.monotonic()
     times = timing()
     flash_times = timing_flash()
@@ -5307,7 +5769,7 @@ def main() -> int:
     quant_times = timing_quant()
     phases["timing"] = time.monotonic() - t0
 
-    log("[5/12] engines: llama-3-8b, full width and depth, random weights")
+    log("[5/13] engines: llama-3-8b, full width and depth, random weights")
     t0 = time.monotonic()
     cfg = L.LLAMA_CONFIGS["llama-3-8b"]
     params = L.init_params(
@@ -5322,25 +5784,29 @@ def main() -> int:
     quant_rows = quant_engine_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
-    log("[6/12] HTTP")
+    log("[6/13] HTTP")
     t0 = time.monotonic()
     http_tokens = {"ragged": http_phase(engine, "ragged")}
     http_phase(alt_engine, "alternating")
     http_tokens["continuous"] = http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
-    log("[7/12] prefix and handoff")
+    log("[7/13] prefix and handoff")
     t0 = time.monotonic()
     prefix = prefix_phase(params, cfg, card)
     phases["prefix"] = time.monotonic() - t0
 
-    log("[8/12] speculation and multi-LoRA")
+    log("[8/13] speculation and multi-LoRA")
     t0 = time.monotonic()
     spec = spec_lora_phase(params, cfg, card, runs)
+    # Phase 13 holds its tokens to phase 5's.
+    p5 = {"ragged": runs[("ragged", 0, 16)],
+          "alternating": runs["alternating"],
+          "continuous": runs["continuous"]}
     del runs
     phases["spec_lora"] = time.monotonic() - t0
 
-    log("[9/12] checkpoint and observability")
+    log("[9/13] checkpoint and observability")
     t0 = time.monotonic()
     # Phases 5-8's engines and pools go first; the served weights stay.
     del engine, alt_engine, cont_engine
@@ -5349,7 +5815,7 @@ def main() -> int:
     ckpt = checkpoint_phase(params, cfg, card, http_tokens)
     phases["checkpoint"] = time.monotonic() - t0
 
-    log(f"[10/12] train: {', '.join(TRAIN_MODELS)}")
+    log(f"[10/13] train: {', '.join(TRAIN_MODELS)}")
     t0 = time.monotonic()
     # The serving model goes first: training needs ~66 GB.
     del params
@@ -5362,17 +5828,23 @@ def main() -> int:
     train_launches = trained["llama-3-8b"]
     phases["train"] = time.monotonic() - t0
 
-    log(f"[11/12] finetune: fp8 products, then {FT_MODEL}'s LoRA finetune "
+    log(f"[11/13] finetune: fp8 products, then {FT_MODEL}'s LoRA finetune "
         "and fp8 training, then examples/finetune_lora")
     t0 = time.monotonic()
     finetune = finetune_phase(card)
     phases["finetune"] = time.monotonic() - t0
 
-    log(f"[12/12] resume: SIGTERM to a child training {RESUME_MODEL}, then "
+    log(f"[12/13] resume: SIGTERM to a child training {RESUME_MODEL}, then "
         "its emergency checkpoint restored on the card")
     t0 = time.monotonic()
     resume = resume_phase()
     phases["resume"] = time.monotonic() - t0
+
+    log(f"[13/13] tp: degree {TP_DEGREE} on the one card over gloo, then "
+        "degree 1 over NCCL")
+    t0 = time.monotonic()
+    tp = tp_phase(p5)
+    phases["tp"] = time.monotonic() - t0
 
     def entry(name, source, replaces, launched, errs, timed, **extra):
         return {
@@ -5525,6 +5997,21 @@ def main() -> int:
                 "alternating"]["flash_launches"]
             k["launches_speculative_continuous"] = spec["other"][
                 "continuous"]["flash_launches"]
+    # Phase 13's runs, each rank's counts from 0 just before its engine.
+    for k in kernels:
+        key = {"ragged_paged_attention": "ragged",
+               "flash_attention": "flash",
+               "paged_decode_attention": "decode",
+               "dense_decode_attention": "dense"}.get(k["name"])
+        if key is None or k.get("variant") == "int8":
+            continue
+        k["launches_tp2_per_rank"] = tp["degree_2"]["launches"][key]
+        k["tp_rank_max_abs_err"] = tp["kernels"][key]["abs"]
+        if key == "flash":
+            k["launches_tp2_per_rank_continuous"] = tp["degree_2"][
+                "launches"]["continuous_flash"]
+        if key == "ragged":
+            k["launches_tp1_nccl"] = tp["degree_1"]["launches"]
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     # The fp8 products are torch._scaled_mm, a library call that stands
@@ -5536,6 +6023,7 @@ def main() -> int:
             finetune["fp8"]["launches"]["fp8"], "rows": FP8_ROWS,
             "shapes": finetune["products"]}}))
     print(json.dumps({"resume": resume}))
+    print(json.dumps({"tp": tp}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,27 +29,33 @@ first N layers (``truncated_draft``): ``SpeculativePagedBatcher`` under
 ``SpeculativeContinuousBatcher`` (k_spec 4, a cache of bucket +
 max_new_tokens + 5 positions), and prints the acceptance rate.
 
+``--tp N`` runs the continuous, paged and speculative paths as one
+tensor-parallel replica (``models/tp_serving.py``): this process starts
+N - 1 more (this entry point again, with ``--tp-rank``/``--tp-port``),
+each on ``cuda:<rank>`` over NCCL or, with ``--device cpu``, all over
+gloo; every rank draws the weights whole, leaf by leaf, keeps its shard
+and makes the same engine calls, and rank 0 prints. Without ``--paged``
+or ``--speculative`` it serves ``ContinuousBatcher`` over a cache of
+bucket + max_new_tokens positions, as the JAX entry point's plan path
+does. Quantized weights under ``--tp`` exit (a tp plan cannot shard
+them, nor can JAX's).
+
 What the port lacks is refused before any weight is made, naming the
-ROADMAP queue-1 item that brings it: ``--tp`` above 1 (item 11) and
-``--sp`` above 1 (item 13).
+ROADMAP queue-1 item that brings it: ``--sp`` above 1 (item 13).
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 
 def _refusals(args) -> None:
     """Exit on every flag that asks for what the port lacks."""
-    lacking = (
-        (args.tp > 1, "--tp", "tensor-parallel serving", 11),
-        (args.sp > 1, "--sp", "sequence-parallel KV shards", 13),
-    )
-    for given, flag, what, item in lacking:
-        if given:
-            raise SystemExit(
-                f"{flag}: {what} is not ported to PyTorch yet (ROADMAP "
-                f"queue 1 item {item}); drop it")
+    if args.sp > 1:
+        raise SystemExit(
+            "--sp: sequence-parallel KV shards are not ported to PyTorch "
+            "yet (ROADMAP queue 1 item 13); drop it")
 
 
 def main(argv=None) -> None:
@@ -86,6 +92,12 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt", action="append", default=None,
                     help="text prompt (needs --checkpoint's tokenizer); "
                          "repeatable")
+    # A tensor-parallel run's other ranks: started by rank 0 only.
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
     if sum((args.int8, args.int4, args.fp8)) > 1:
         raise SystemExit("--int8/--int4/--fp8 are mutually exclusive")
@@ -98,19 +110,12 @@ def main(argv=None) -> None:
         raise SystemExit("--prompt needs --checkpoint: text prompts go "
                          "through the checkpoint's tokenizer")
 
-    import numpy as np
     import torch
 
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.models import llama as L
-    from kubeflow_tpu_torch.models.quant import (
-        quant_bits_from_env,
-        quantize_params,
-    )
-    from kubeflow_tpu_torch.models.serving import (
-        GenerationConfig,
-        batch_generate,
-    )
+    from kubeflow_tpu_torch.models import tp_serving
+    from kubeflow_tpu_torch.models.quant import quant_bits_from_env
 
     # CLI flags win; otherwise the notebook runtime option applies.
     try:
@@ -118,12 +123,57 @@ def main(argv=None) -> None:
                 else quant_bits_from_env())
     except ValueError as err:
         raise SystemExit(str(err))
+    if args.tp > 1 and bits:
+        raise SystemExit(
+            "--tp: quantized weights cannot be sharded by a tp plan; "
+            "drop the quantization (flag or KUBEFLOW_TPU_QUANT) or --tp")
     device = resolve_device(args.device)
+    plan, rank, followers = None, 0, []
+    if args.tp > 1:
+        if not args.checkpoint:
+            try:
+                tp_serving.validate_serving_tp(
+                    L.LLAMA_CONFIGS[args.config], args.tp,
+                    n_devices=(torch.cuda.device_count()
+                               if device.type == "cuda" else None))
+            except ValueError as err:
+                raise SystemExit(str(err))
+        if args.tp_rank is None:
+            args.tp_port, followers = tp_serving.spawn_followers(
+                "kubeflow_tpu_torch.examples.serve_batched", argv, args.tp)
+        else:
+            rank = args.tp_rank
+        device = tp_serving.init_replica_rank(args.tp, rank, args.tp_port,
+                                              args.device)
+        plan = tp_serving.serving_plan(args.tp)
+    try:
+        _generate(args, bits, device, plan, rank)
+    finally:
+        if plan is not None:
+            torch.distributed.destroy_process_group()
+        tp_serving.stop_followers(followers)
+
+
+def _generate(args, bits, device, plan, rank) -> None:
+    """Weights (this rank's shard under a plan), the engine, the run; rank
+    0 prints."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models import llama as L
+    from kubeflow_tpu_torch.models.quant import quantize_params
+    from kubeflow_tpu_torch.models.serving import (
+        GenerationConfig,
+        batch_generate,
+    )
+
+    say = print if rank == 0 else (lambda *a, **kw: None)
     tokenizer = None
     if args.checkpoint:
         from kubeflow_tpu_torch.models.convert import load_hf_checkpoint
 
-        cfg, params = load_hf_checkpoint(args.checkpoint, device=device)
+        cfg, params = load_hf_checkpoint(args.checkpoint, device=device,
+                                         plan=plan)
         try:
             from transformers import AutoTokenizer
 
@@ -132,19 +182,19 @@ def main(argv=None) -> None:
             if args.prompt:
                 raise SystemExit(
                     f"--prompt given but tokenizer load failed: {err}")
-            print(f"# tokenizer unavailable ({err}); serving token IDs")
+            say(f"# tokenizer unavailable ({err}); serving token IDs")
     else:
         cfg = L.LLAMA_CONFIGS[args.config]
         params = L.init_params(
             cfg, torch.Generator(device=device).manual_seed(args.seed),
-            device)
+            device, plan=plan)
     if bits:
         try:
             params = quantize_params(params, free_source=True, bits=bits)
         except ValueError as err:
             raise SystemExit(str(err))
         label = bits if bits == "fp8" else f"int{bits}"
-        print(f"{label} weight-only quantization applied", flush=True)
+        say(f"{label} weight-only quantization applied", flush=True)
     kv_bits = 8 if args.kv8 else 0
 
     if args.prompt:
@@ -182,7 +232,7 @@ def main(argv=None) -> None:
                 slots=min(4, len(prompts)), num_blocks=args.num_blocks,
                 block_size=16, prompt_bucket=bucket, kv_bits=kv_bits,
                 prompt_cache=args.prompt_cache,
-                prefix_cache=args.prefix_cache, device=device,
+                prefix_cache=args.prefix_cache, plan=plan, device=device,
             )
         else:
             k_spec = 4
@@ -191,12 +241,12 @@ def main(argv=None) -> None:
                 slots=min(4, len(prompts)),
                 cache_len=bucket + gen.max_new_tokens + k_spec + 1,
                 prompt_bucket=bucket, k_spec=k_spec, kv_bits=kv_bits,
-                device=device,
+                plan=plan, device=device,
             )
         rids = [sb.submit(p) for p in prompts]
         results = sb.run()
         outs = [results[r] for r in rids]
-        print(f"speculative ({args.speculative}-layer draft, "
+        say(f"speculative ({args.speculative}-layer draft, "
               f"{'paged' if args.paged else 'continuous'}): acceptance "
               f"{sb.acceptance_rate:.2f}")
     elif args.paged:
@@ -207,21 +257,36 @@ def main(argv=None) -> None:
             params, cfg, gen=gen, slots=min(4, len(prompts)),
             num_blocks=args.num_blocks, block_size=16, prompt_bucket=bucket,
             kv_bits=kv_bits, prompt_cache=args.prompt_cache,
-            prefix_cache=args.prefix_cache, device=device,
+            prefix_cache=args.prefix_cache, plan=plan, device=device,
         )
         rids = [pb.submit(p) for p in prompts]
         results = pb.run()
         outs = [results[r] for r in rids]
-        print(f"paged: {pb.free_blocks}/{args.num_blocks - 1} blocks free "
-              "after run")
+        say(f"paged: {pb.free_blocks}/{args.num_blocks - 1} blocks free "
+            "after run")
+    elif plan is not None:
+        # The plan path without --paged: continuous batching over a
+        # head-sharded dense cache, as the JAX entry point's.
+        from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
+
+        bucket = 16 * ((max(len(p) for p in prompts) + 15) // 16)
+        cb = ContinuousBatcher(
+            params, cfg, gen=gen, slots=min(4, len(prompts)),
+            cache_len=bucket + gen.max_new_tokens, prompt_bucket=bucket,
+            kv_bits=kv_bits, plan=plan, device=device,
+        )
+        rids = [cb.submit(p) for p in prompts]
+        results = cb.run()
+        outs = [results[r] for r in rids]
+        say(f"tensor-parallel continuous batching: tp={plan.tp}")
     else:
         outs = batch_generate(params, cfg, prompts, gen, kv_bits=kv_bits)
     for i, out in enumerate(outs):
         if args.prompt:
-            print(f"[{i}] {tokenizer.decode(out)}")
+            say(f"[{i}] {tokenizer.decode(out)}")
         else:
-            print(f"[{i}] {len(out)} tokens: {out[:16]}"
-                  f"{'...' if len(out) > 16 else ''}")
+            say(f"[{i}] {len(out)} tokens: {out[:16]}"
+                f"{'...' if len(out) > 16 else ''}")
 
 
 if __name__ == "__main__":

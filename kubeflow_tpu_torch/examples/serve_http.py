@@ -43,9 +43,17 @@ KUBEFLOW_TPU_QUANT (``serve_batched`` does).
 
 Every serving knob the JAX entry point reads is honored or refused here,
 before any weight is made: garbage in any of them exits with the JAX
-message, and a knob asking for what the port lacks exits naming the
-ROADMAP queue-1 item that brings it: KUBEFLOW_TPU_SERVING_TP > 1 (item
-11). KUBEFLOW_TPU_LORA_CACHE_SLOTS is parsed under ``--paged`` and, when
+message. KUBEFLOW_TPU_SERVING_TP = N > 1 serves a tensor-parallel replica
+(``models/tp_serving.py``): it is validated first (JAX's messages; on the
+card against ``torch.cuda.device_count()``, so a one-card host exits with
+"needs N devices, have 1"; ``--admit-chunk`` and ``--int8`` are refused),
+then this process starts N - 1 follower processes (this entry point again,
+with ``--tp-rank``/``--tp-port``), each on ``cuda:<rank>`` over NCCL, or
+all on the CPU over gloo with ``--device cpu``; every rank draws the
+weights whole, leaf by leaf, and keeps its shard, and rank 0 serves
+through ``TPReplica`` while the others ``follow``. SIGTERM stops the
+followers too, and a follower that dies ends the replica.
+KUBEFLOW_TPU_LORA_CACHE_SLOTS is parsed under ``--paged`` and, when
 nonzero, only noted, as in JAX: it sizes multi-LoRA engines
 (``models/multilora.py``), which this example does not build (it serves
 one base model; adapters are served by building
@@ -61,28 +69,41 @@ capture on an engine stall.
 from __future__ import annotations
 
 import argparse
+import json
+import pathlib
 import signal
+import sys
 import threading
 from typing import Optional
 
 
-def _refuse_tp() -> None:
-    """KUBEFLOW_TPU_SERVING_TP: garbage exits with the JAX message, and a
-    degree above 1 exits, the port serving one card only."""
-    from kubeflow_tpu_torch.models.server import (
-        KUBEFLOW_TPU_SERVING_TP,
-        serving_tp_from_env,
-    )
+def _serving_tp(args, cfg, device) -> int:
+    """KUBEFLOW_TPU_SERVING_TP, validated against the model and the card
+    count before any weight is made; garbage and every refusal exit with
+    the JAX message."""
+    import torch
+
+    from kubeflow_tpu_torch.models.server import serving_tp_from_env
+    from kubeflow_tpu_torch.models.tp_serving import validate_serving_tp
 
     try:
         tp = serving_tp_from_env()
+        validate_serving_tp(
+            cfg, tp,
+            n_devices=(torch.cuda.device_count() if device.type == "cuda"
+                       else None))
     except ValueError as err:
         raise SystemExit(str(err))
-    if tp > 1:
+    if tp > 1 and args.admit_chunk:
         raise SystemExit(
-            f"{KUBEFLOW_TPU_SERVING_TP}={tp}: tensor-parallel serving "
-            "replicas are not ported to PyTorch yet (ROADMAP queue 1 item "
-            "11); unset it or set it to 1")
+            "--admit-chunk is a single-chip continuous-engine feature; "
+            "drop it or unset KUBEFLOW_TPU_SERVING_TP")
+    if tp > 1 and args.int8:
+        raise SystemExit(
+            "--int8: quantized weights cannot be sharded by a tp plan; "
+            "drop it or unset KUBEFLOW_TPU_SERVING_TP")
+    return tp
+
 
 
 def _paged_knobs() -> tuple[bool, Optional[int], dict, int, bool]:
@@ -160,49 +181,90 @@ def main(argv=None) -> None:
     ap.add_argument("--int8", action="store_true",
                     help="int8 weight-only quantization of the projections "
                          "and the lm head")
+    # A tensor-parallel replica's followers: started by rank 0 only.
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
     if args.paged and args.admit_chunk:
         raise SystemExit("--admit-chunk is a continuous-engine feature; "
                          "drop it or drop --paged")
 
-    import torch
-
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.models import llama as L
-    from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
-    from kubeflow_tpu_torch.models.paged import PagedBatcher
-    from kubeflow_tpu_torch.models.server import (
-        InferenceServer,
-        serving_port_from_env,
-    )
-    from kubeflow_tpu_torch.models.serving import GenerationConfig
+    from kubeflow_tpu_torch.models import tp_serving
+    from kubeflow_tpu_torch.models.convert import config_from_hf
+    from kubeflow_tpu_torch.models.server import serving_port_from_env
 
     try:
         if args.port is None:
             args.port = serving_port_from_env()
     except ValueError as err:
         raise SystemExit(str(err))
-    _refuse_tp()
-    if args.paged:
-        ragged, token_budget, kv_kw, draft_len, adaptive = _paged_knobs()
+    knobs = _paged_knobs() if args.paged else None
     device = resolve_device(args.device)
+    cfg = (config_from_hf(json.loads(
+        (pathlib.Path(args.checkpoint) / "config.json").read_text()))
+        if args.checkpoint else L.LLAMA_CONFIGS[args.config])
+    tp = _serving_tp(args, cfg, device)
+    plan, rank, followers = None, 0, []
+    if tp > 1:
+        if args.tp_rank is None:
+            args.tp_port, followers = tp_serving.spawn_followers(
+                "kubeflow_tpu_torch.examples.serve_http", argv, tp)
+        else:
+            rank = args.tp_rank
+        try:
+            device = tp_serving.init_replica_rank(tp, rank, args.tp_port,
+                                                  args.device)
+            plan = tp_serving.serving_plan(tp)
+        except BaseException:
+            tp_serving.stop_followers(followers, timeout=0)
+            raise
+        if rank == 0:
+            print(f"tensor-parallel replica: tp={tp} "
+                  f"(mesh axes {plan.axes}, head-sharded KV pool)",
+                  flush=True)
+    try:
+        _serve(args, knobs, cfg, device, plan, rank, followers)
+    finally:
+        tp_serving.stop_followers(followers, timeout=0)
+
+
+def _serve(args, knobs, cfg, device, plan, rank, followers) -> None:
+    """Build the weights and the engine (this rank's shard under a plan)
+    and serve: rank 0 over HTTP, every other rank following it."""
+    import torch
+
+    from kubeflow_tpu_torch.models import llama as L
+    from kubeflow_tpu_torch.models import tp_serving
+    from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.models.paged import PagedBatcher
+    from kubeflow_tpu_torch.models.server import InferenceServer
+    from kubeflow_tpu_torch.models.serving import GenerationConfig
+
+    if args.paged:
+        ragged, token_budget, kv_kw, draft_len, adaptive = knobs
     tokenizer = None
     if args.checkpoint:
         from kubeflow_tpu_torch.models.convert import load_hf_checkpoint
 
-        cfg, params = load_hf_checkpoint(args.checkpoint, device=device)
-        try:
-            from transformers import AutoTokenizer
+        cfg, params = load_hf_checkpoint(args.checkpoint, device=device,
+                                         plan=plan)
+        if rank == 0:
+            try:
+                from transformers import AutoTokenizer
 
-            tokenizer = AutoTokenizer.from_pretrained(args.checkpoint)
-        except Exception as err:
-            print(f"no tokenizer ({err}); serving token ids only",
-                  flush=True)
+                tokenizer = AutoTokenizer.from_pretrained(args.checkpoint)
+            except Exception as err:
+                print(f"no tokenizer ({err}); serving token ids only",
+                      flush=True)
     else:
-        cfg = L.LLAMA_CONFIGS[args.config]
         params = L.init_params(
             cfg, torch.Generator(device=device).manual_seed(args.seed),
-            device)
+            device, plan=plan)
     if args.int8:
         from kubeflow_tpu_torch.models.quant import quantize_params
 
@@ -222,7 +284,7 @@ def main(argv=None) -> None:
             num_blocks=args.num_blocks, block_size=args.block_size,
             prompt_bucket=args.prompt_bucket, k_spec=draft_len,
             adaptive=adaptive, ragged=True, token_budget=token_budget,
-            kv_bits=kv_kw.get("kv_bits", 0), device=device,
+            kv_bits=kv_kw.get("kv_bits", 0), plan=plan, device=device,
         )
         kind = (f"ragged paged, speculative k={draft_len} over a "
                 f"{d_cfg.n_layers}-layer draft"
@@ -234,16 +296,21 @@ def main(argv=None) -> None:
             prompt_bucket=args.prompt_bucket, ragged=ragged,
             token_budget=token_budget,
             prefix_cache=kv_kw.get("swap_bytes", 0) > 0,
-            device=device, **kv_kw,
+            plan=plan, device=device, **kv_kw,
         )
         kind = f"{'ragged' if ragged else 'alternating'} paged"
     else:
         engine = ContinuousBatcher(
             params, cfg, gen=gen, slots=args.slots, cache_len=args.cache_len,
             prompt_bucket=args.prompt_bucket, admit_chunk=args.admit_chunk,
-            device=device,
+            plan=plan, device=device,
         )
         kind = "continuous"
+    if rank > 0:
+        tp_serving.follow(engine, plan)
+        return
+    if plan is not None:
+        engine = tp_serving.TPReplica(engine, plan)
     name = args.checkpoint or args.config
     srv = InferenceServer(engine, host=args.host, port=args.port,
                           tokenizer=tokenizer, model_name=name,
@@ -257,8 +324,25 @@ def main(argv=None) -> None:
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     signal.signal(signal.SIGINT, lambda *_: stop.set())
+    lost = []
+
+    def watch() -> None:  # a follower that dies ends the replica
+        while not stop.wait(0.5):
+            lost.extend(p for p in followers if p.poll() is not None)
+            if lost:
+                stop.set()
+
+    if followers:
+        threading.Thread(target=watch, daemon=True).start()
     stop.wait()
+    if lost:
+        raise SystemExit(
+            f"tensor-parallel replica: follower exited with "
+            f"{lost[0].returncode}; stopping")
     srv.stop()
+    if plan is not None:
+        engine.close()
+        tp_serving.stop_followers(followers)
 
 
 if __name__ == "__main__":

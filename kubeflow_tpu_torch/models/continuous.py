@@ -31,7 +31,15 @@ recording tracer installed it runs inside an ``engine.step`` span that
 carries ``last_step``. Each step ends in the readback of its sampled
 tokens, so the host's time covers the card's work too.
 
-Not here yet: tensor-parallel and sequence-parallel plans.
+``plan=`` (a pure-``tp`` MeshPlan, ``models/tp_serving.py``) makes the
+engine one rank of a tensor-parallel replica: the weights are this rank's
+shard (``MeshPlan.shard_params``), the cache holds the rank's kv heads,
+``(L, B, Hkv/tp, C, D)``, and every rank runs the same calls in lockstep.
+What differs from JAX there: JAX refuses ``attn_kernel=True`` with a plan
+and defaults it off (its Pallas call is single-device under GSPMD); a
+rank's cache here is its own, so the dense kernel keeps its one-card
+default (on, on the card) and accepts True. Sequence-parallel plans
+(``sp`` > 1) are ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -624,7 +632,10 @@ class ContinuousBatcher(_BatcherBase):
     One-shot admissions prefill through
     ``flash_attention(impl="auto")``. Sampled rows draw from ``generator``
     (a seeded ``torch.Generator`` on the device; seed 0 when None), where
-    JAX takes a key. ``plan=`` (tensor-parallel serving) is not ported.
+    JAX takes a key. ``plan=`` makes the engine one rank of a
+    tensor-parallel replica (``params`` must be the rank's shard,
+    ``MeshPlan.check_shard``); ``admit_chunk`` and ``sp`` > 1 are refused
+    with it.
     """
 
     def __init__(
@@ -683,11 +694,6 @@ class ContinuousBatcher(_BatcherBase):
         # Explicit True with an unsupported composition is a reasoned
         # rejection, never a silent fallback.
         if attn_kernel:
-            if plan is not None:
-                raise ValueError(
-                    "attn_kernel=True does not compose with plan= (the "
-                    "dense kernel is single-device) — drop one of the two"
-                )
             if kv_bits:
                 raise ValueError(
                     "attn_kernel=True does not compose with kv_bits (the "
@@ -712,7 +718,7 @@ class ContinuousBatcher(_BatcherBase):
             )
         if attn_kernel is None:
             attn_kernel = (
-                self.device.type == "cuda" and plan is None and not kv_bits
+                self.device.type == "cuda" and not kv_bits
                 and not cfg.sliding_window and not ragged
                 and cfg.dtype == torch.bfloat16
             )
@@ -722,12 +728,18 @@ class ContinuousBatcher(_BatcherBase):
                 f"cache_len {cache_len} too small for prompt_bucket "
                 f"{prompt_bucket} + max_new_tokens {self.gen.max_new_tokens}"
             )
+        kv_cfg = cfg
         if plan is not None:
-            raise NotImplementedError(
-                "plan= (tensor-parallel serving) is not ported to PyTorch "
-                "yet (it comes with the tensor-parallel replicas, ROADMAP "
-                "queue 1 item 11)"
-            )
+            if plan.mesh.shape.get("sp", 1) > 1:
+                raise NotImplementedError(
+                    "sp-sharded caches (the split-KV sequence-parallel "
+                    "decode) are not ported to PyTorch yet (ROADMAP queue 1 "
+                    "item 13); use a pure-tp plan"
+                )
+            # The cache's kv-head rule first, before any weight is cut.
+            plan.check_kv_heads(cfg.n_kv_heads)
+            plan.check_shard(params)
+            kv_cfg = plan.shard_config(cfg)
         if params.device != self.device:
             raise ValueError(
                 f"params live on {params.device}, the engine on "
@@ -742,10 +754,13 @@ class ContinuousBatcher(_BatcherBase):
             )
         self.params = params
         self.cfg = cfg
+        self.plan = plan
+        # /stats "mesh": None on one rank, so its stats stay as they were.
+        self.mesh_axes = plan.axes if plan is not None else None
         self.cache_len = cache_len
         self.generator = generator
         self.kv_bits = kv_bits
-        self.cache = init_kv_cache(cfg, slots, cache_len, kv_bits=kv_bits,
+        self.cache = init_kv_cache(kv_cfg, slots, cache_len, kv_bits=kv_bits,
                                    device=self.device)
         self.kv_mask = torch.zeros((slots, cache_len), dtype=torch.bool,
                                    device=self.device)

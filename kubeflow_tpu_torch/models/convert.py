@@ -189,16 +189,21 @@ def _check_keys(plan: list[tuple], have: Mapping) -> None:
 
 
 def _put(model: Llama, leaf: tuple, src: torch.Tensor, linear: bool,
-         key: str) -> None:
+         key: str, plan=None, whole: Optional[tuple] = None) -> None:
     """Copy ``src`` (HF layout, any device) into the model's leaf: to the
     model's device in its own dtype first, then converted and, for a
-    projection, transposed there."""
+    projection, transposed there. Under a tp ``plan`` the model is a
+    rank's shard and ``whole`` the leaf's unsharded shape: ``src`` is cut
+    to the rank's slice before the copy, so only the slice moves."""
     layer, name = leaf
     param = getattr(model if layer is None else model.layers[layer], name)
-    want = tuple(param.shape[::-1]) if linear else tuple(param.shape)
+    shape = tuple(param.shape) if whole is None else whole
+    want = shape[::-1] if linear else shape
     if tuple(src.shape) != want:
         raise ValueError(f"{key}: got shape {tuple(src.shape)}, the config "
                          f"wants {want}")
+    if plan is not None:
+        src = plan.shard_leaf(name, src, transposed=linear)
     src = src.to(param.device)
     with torch.no_grad():
         param.copy_(src.T if linear else src)
@@ -293,13 +298,16 @@ def _entry(path: pathlib.Path, size: int, base: int, key: str,
 
 
 def load_hf_checkpoint(path, dtype: Optional[torch.dtype] = None,
-                       device=None) -> tuple[LlamaConfig, Llama]:
+                       device=None, plan=None) -> tuple[LlamaConfig, Llama]:
     """(config, model) from an HF checkpoint directory: ``config.json``
     and every ``*.safetensors`` shard, F32, F16 or BF16 (a later shard's
     tensor wins over an earlier one of the same name, tensors the model
     does not take are skipped). The model lands on ``device`` (the card
     unless ``"cpu"`` is asked for) in ``dtype`` (default bf16), and the
-    returned config carries that dtype."""
+    returned config carries that dtype. ``plan`` (a tp MeshPlan,
+    ``parallel/mesh.py``) loads this rank's shard alone: each tensor is
+    cut to the rank's slice as it is read, so a rank's device never holds
+    the whole model (the values are ``shard_params`` of the whole load)."""
     path = pathlib.Path(path)
     cfg = config_from_hf(json.loads((path / "config.json").read_text()))
     shards = sorted(path.glob("*.safetensors"))
@@ -312,11 +320,19 @@ def load_hf_checkpoint(path, dtype: Optional[torch.dtype] = None,
         size, base, header = _read_header(shard)
         for key, entry in header.items():
             index[key] = (shard, size, base, entry)
-    plan = _plan(cfg, _prefix(index))
-    _check_keys(plan, index)
-    model = Llama(cfg, dev)
+    leaves = _plan(cfg, _prefix(index))
+    _check_keys(leaves, index)
+    whole: dict = {}
+    if plan is None:
+        model = Llama(cfg, dev)
+    else:
+        plan.check_serving()
+        model = Llama(plan.shard_config(cfg), dev)
+        model.cfg = cfg
+        whole = {name: tuple(p.shape)
+                 for name, p in Llama(cfg, "meta").named_parameters()}
     todo: dict[pathlib.Path, list] = {}
-    for key, leaf, linear in plan:
+    for key, leaf, linear in leaves:
         shard, size, base, entry = index[key]
         todo.setdefault(shard, []).append(
             (_entry(shard, size, base, key, entry), key, leaf, linear))
@@ -334,6 +350,10 @@ def load_hf_checkpoint(path, dtype: Optional[torch.dtype] = None,
                     src = torch.frombuffer(mm, dtype=dt,
                                            count=math.prod(shape),
                                            offset=offset - start).view(shape)
-                    _put(model, leaf, src, linear, key)
+                    layer, name = leaf
+                    _put(model, leaf, src, linear, key, plan, whole.get(
+                        name if layer is None else f"layers.{layer}.{name}"))
                     del src
+    if plan is not None:
+        plan.mark(model)
     return cfg, model

@@ -30,6 +30,18 @@ jitted scan, and draw from a ``torch.Generator`` where JAX takes a key.
 Caches are updated IN PLACE (JAX donates them and returns new ones), and
 the functions return the cache they were given.
 
+Under a tensor-parallel plan (``parallel/mesh.py``'s ``shard_params``)
+a rank's ``Llama`` holds its slice of every sharded leaf and a ``shard``
+record (the tp group, this rank's vocab rows) on itself and each layer.
+The forward reads the local head counts from the widths it is given
+(``_split_heads`` splits by the head dim) and adds the collectives GSPMD
+inserts in JAX: one ``all_reduce`` of the partial outputs of ``wo`` and
+of ``w_down`` each, in the model dtype (``_tp_sum``), a masked lookup of
+the vocab-split embedding plus ``all_reduce`` (exact: one value and
+zeros), and an ``all_gather`` of the vocab-split head's f32 logits. The
+vocab must divide by tp (every ``LLAMA_CONFIGS`` vocab divides by 8).
+Without a shard the forward is unchanged.
+
 Projections and the lm head may be quantized (``models/quant.py``: int8,
 int4, fp8): ``_mm`` and ``_lm_head_logits`` take a ``QuantizedWeight``
 with the JAX functions' rounding points, through the hand-written
@@ -174,7 +186,10 @@ def _weight(shape: tuple, cfg: LlamaConfig, device) -> nn.Parameter:
 class LlamaLayer(nn.Module):
     """One transformer layer's weights, ``(in, out)`` layout. A projection
     may be a ``models/quant.py`` ``QuantizedWeight`` in place of its
-    parameter (``quantize_params``)."""
+    parameter (``quantize_params``). ``shard`` is the tp record of a
+    sharded layer (``parallel/mesh.py``), None for a whole one."""
+
+    shard = None
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -198,7 +213,10 @@ class LlamaLayer(nn.Module):
 class Llama(nn.Module):
     """A whole model's weights: embedding, layers, final norm and (untied
     configs only) the lm head. Tied configs carry NO ``lm_head``: the
-    head projects through ``embed``, as in the JAX tree."""
+    head projects through ``embed``, as in the JAX tree. ``shard`` is the
+    tp record of a sharded model, None for a whole one."""
+
+    shard = None
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -220,22 +238,37 @@ class Llama(nn.Module):
 
 
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> Llama:
+                device=None, plan=None) -> Llama:
     """Random init, 1/sqrt(fan_in) scaling, on ``device`` (resolved by
     ``device.resolve_device``: the card unless ``"cpu"`` is asked for).
     Values come from ``generator`` (seed 0 on the device when None) and
     are drawn directly in the model dtype, so an 8B init never holds an
     f32 temporary. They do not match JAX's ``PRNGKey`` draws; parity tests
-    bring JAX weights over through ``models/bridge.py`` instead."""
+    bring JAX weights over through ``models/bridge.py`` instead.
+
+    ``plan`` (a tp MeshPlan, ``parallel/mesh.py``) returns this rank's
+    shard of the same model: each leaf is drawn whole, in the whole
+    model's order, and cut to the rank's slice at once, so the values are
+    the unsharded init's and the peak extra memory is one whole leaf."""
     from kubeflow_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    model = Llama(cfg, dev)
+    if plan is None:
+        model = Llama(cfg, dev)
+        whole = dict(model.named_parameters())
+    else:
+        plan.check_serving()
+        model = Llama(plan.shard_config(cfg), dev)
+        model.cfg = cfg
+        whole = dict(Llama(cfg, "meta").named_parameters())
+    local = dict(model.named_parameters())
     with torch.no_grad():
-        for name, p in model.named_parameters():
+        for name, meta in whole.items():
             leaf = name.rsplit(".", 1)[-1]
+            p = meta if plan is None else torch.empty(
+                meta.shape, dtype=cfg.dtype, device=dev)
             if leaf in ("attn_norm", "mlp_norm", "final_norm"):
                 p.fill_(1.0)
             elif leaf in ("bq", "bk", "bv"):
@@ -244,6 +277,11 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
                 p.normal_(generator=generator)
                 p.mul_(torch.tensor(1.0 / math.sqrt(p.shape[-2]),
                                     dtype=cfg.dtype, device=dev))
+            if plan is not None:
+                local[name].copy_(plan.shard_leaf(leaf, p))
+                del p
+    if plan is not None:
+        plan.mark(model)
     return model
 
 
@@ -279,14 +317,40 @@ def _qkv(h: torch.Tensor, layer: LlamaLayer):
     return q, k, v
 
 
+def _tp_group(owner):
+    """The tp group of a sharded model or layer; None for a whole one."""
+    shard = owner.shard
+    return None if shard is None else shard.group
+
+
+def _tp_sum(y: torch.Tensor, owner) -> torch.Tensor:
+    """Sum the partial outputs of a row-sharded projection (``wo``,
+    ``w_down``) over the tp group, in place and in their dtype: the psum
+    GSPMD inserts after them in JAX. The identity without a shard."""
+    group = _tp_group(owner)
+    if group is None:
+        return y
+    y = y.contiguous()
+    torch.distributed.all_reduce(y, group=group)
+    return y
+
+
 def _lm_head_logits(x: torch.Tensor, params: Llama) -> torch.Tensor:
     """x @ lm_head.T in the model dtype, THEN cast to f32 logits. Tied
     models project through the embedding matrix. A quantized head gives
-    f32(x @ q.T) * s (int8, fp8) or f32(x @ dequantize(w).T) (int4)."""
+    f32(x @ q.T) * s (int8, fp8) or f32(x @ dequantize(w).T) (int4). A
+    vocab-split head gathers every rank's f32 logits along the vocab, so
+    each rank samples from the full row."""
     w = params.lm_head if params.lm_head is not None else params.embed
     if isinstance(w, QuantizedWeight):
         return quant_matmul(x, w)
-    return (x @ w.T).float()
+    logits = (x @ w.T).float()
+    group = _tp_group(params)
+    if group is None:
+        return logits
+    parts = [torch.empty_like(logits) for _ in range(params.shard.size)]
+    torch.distributed.all_gather(parts, logits.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -304,7 +368,17 @@ def _norm(x: torch.Tensor, weight: torch.Tensor, cfg: LlamaConfig) -> torch.Tens
 
 
 def _embed(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params.embed[tokens]
+    if _tp_group(params) is None:
+        x = params.embed[tokens]
+    else:
+        # Vocab-split rows: each rank looks up the tokens it holds, zeros
+        # elsewhere, and the sum over ranks is the one row, exactly.
+        shard = params.shard
+        local = tokens - shard.vocab_lo
+        held = (local >= 0) & (local < shard.vocab_local)
+        x = params.embed[local.clamp(0, shard.vocab_local - 1)]
+        x = torch.where(held[..., None], x, torch.zeros_like(x))
+        torch.distributed.all_reduce(x, group=shard.group)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.dim), dtype=x.dtype, device=x.device)
     return x
@@ -376,9 +450,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
 
 
-def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """(B, S, H·D) → (B, H, S, D): the head count is read off the width,
+    so a tp rank's slice splits into its local heads."""
     b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, -1).transpose(1, 2)  # (B, H, S, D)
+    return x.reshape(b, s, -1, head_dim).transpose(1, 2)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -393,7 +469,7 @@ def _mlp(layer: LlamaLayer, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     else:
         gate = F.silu(pre)
     up = _mm(x, layer.w_up).float()
-    return _mm((gate * up).to(x.dtype), layer.w_down)
+    return _tp_sum(_mm((gate * up).to(x.dtype), layer.w_down), layer)
 
 
 def _layer_fwd(layer: LlamaLayer, cfg: LlamaConfig, x: torch.Tensor,
@@ -403,12 +479,12 @@ def _layer_fwd(layer: LlamaLayer, cfg: LlamaConfig, x: torch.Tensor,
     ``flash_attention`` reads the GQA group's kv head itself."""
     h = _norm(x, layer.attn_norm, cfg)
     hq, hk, hv = _qkv(h, layer)
-    q = apply_rope(_split_heads(hq, cfg.n_heads), cos, sin)
-    k = apply_rope(_split_heads(hk, cfg.n_kv_heads), cos, sin)
-    v = _split_heads(hv, cfg.n_kv_heads)
+    q = apply_rope(_split_heads(hq, cfg.head_dim), cos, sin)
+    k = apply_rope(_split_heads(hk, cfg.head_dim), cos, sin)
+    v = _split_heads(hv, cfg.head_dim)
     attn = flash_attention(q, k, v, causal=True, impl=attn_impl,
                            window=cfg.sliding_window)
-    x = x + _mm(_merge_heads(attn), layer.wo)
+    x = x + _tp_sum(_mm(_merge_heads(attn), layer.wo), layer)
     h = _norm(x, layer.mlp_norm, cfg)
     return x + _mlp(layer, h, cfg)
 
@@ -611,15 +687,15 @@ def _prefill_impl(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
         cache_l = {name: leaf[li] for name, leaf in kv_cache.items()}
         h = _norm(x, layer.attn_norm, cfg)
         hq, hk, hv = _qkv(h, layer)
-        q = apply_rope(_split_heads(hq, cfg.n_heads), cos, sin)
-        k = apply_rope(_split_heads(hk, cfg.n_kv_heads), cos, sin)
-        v = _split_heads(hv, cfg.n_kv_heads)
+        q = apply_rope(_split_heads(hq, cfg.head_dim), cos, sin)
+        k = apply_rope(_split_heads(hk, cfg.head_dim), cos, sin)
+        v = _split_heads(hv, cfg.head_dim)
         _cache_store(cache_l, k, v, 0)
         # Attention runs on the FRESH full-precision K/V; an int8 cache
         # quantizes storage only.
         attn = flash_attention(q, k, v, causal=True, impl=attn_impl,
                                window=cfg.sliding_window, kv_mask=kv_mask)
-        x = x + _mm(_merge_heads(attn), layer.wo)
+        x = x + _tp_sum(_mm(_merge_heads(attn), layer.wo), layer)
         h = _norm(x, layer.mlp_norm, cfg)
         x = x + _mlp(layer, h, cfg)
     x_last = _norm(x[:, -1], params.final_norm, cfg)
@@ -714,12 +790,12 @@ def _chunk_decode_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
         cache_l = {name: leaf[li] for name, leaf in kv_cache.items()}
         h = _norm(x, layer.attn_norm, cfg)
         hq, hk, hv = _qkv(h, layer)
-        q = apply_rope(_split_heads(hq, cfg.n_heads), cos, sin)
-        k = apply_rope(_split_heads(hk, cfg.n_kv_heads), cos, sin)
-        v = _split_heads(hv, cfg.n_kv_heads)
+        q = apply_rope(_split_heads(hq, cfg.head_dim), cos, sin)
+        k = apply_rope(_split_heads(hk, cfg.head_dim), cos, sin)
+        v = _split_heads(hv, cfg.head_dim)
         store(cache_l, k, v)
         attn = attend(q, cache_l)
-        x = x + _mm(_merge_heads(attn), layer.wo)
+        x = x + _tp_sum(_mm(_merge_heads(attn), layer.wo), layer)
         h = _norm(x, layer.mlp_norm, cfg)
         x = x + _mlp(layer, h, cfg)
     x = _norm(x, params.final_norm, cfg)

@@ -55,6 +55,7 @@ from kubeflow_tpu_torch.models.llama import (
     _norm,
     _qkv,
     _split_heads,
+    _tp_sum,
     apply_rope,
     rope_frequencies,
 )
@@ -143,7 +144,7 @@ def _adapted_mlp(layer, x, cfg, sel, scaling, route=None):
     out = _mm(hidden, layer.w_down)
     if "w_down" in sel:
         out = out + _delta(hidden, sel, "w_down", scaling, route)
-    return out
+    return _tp_sum(out, layer)
 
 
 def _gather_adapters(stacked: dict, ids: torch.Tensor, layer: int) -> dict:
@@ -171,11 +172,11 @@ def _adapted_layer(layer, cfg, x, sel, scaling, cos, sin, positions,
     both rank 1 but mean different things to rope and the mask."""
     h = _norm(x, layer.attn_norm, cfg)
     hq, hk, hv = _adapted_qkv(h, layer, sel, scaling)
-    q = apply_rope(_split_heads(hq, cfg.n_heads), cos, sin,
+    q = apply_rope(_split_heads(hq, cfg.head_dim), cos, sin,
                    per_batch=per_batch)
-    k = apply_rope(_split_heads(hk, cfg.n_kv_heads), cos, sin,
+    k = apply_rope(_split_heads(hk, cfg.head_dim), cos, sin,
                    per_batch=per_batch)
-    v = _split_heads(hv, cfg.n_kv_heads)
+    v = _split_heads(hv, cfg.head_dim)
     store(cache_l, k, v)
     attn = _gqa_decode_attention(
         q, cache_l["k"], cache_l["v"], positions, window=cfg.sliding_window,
@@ -185,7 +186,7 @@ def _adapted_layer(layer, cfg, x, sel, scaling, cos, sin, positions,
     o = _mm(merged, layer.wo)
     if "wo" in sel:
         o = o + _delta(merged, sel, "wo", scaling)
-    x = x + o
+    x = x + _tp_sum(o, layer)
     h = _norm(x, layer.mlp_norm, cfg)
     return x + _adapted_mlp(layer, h, cfg, sel, scaling)
 
@@ -464,6 +465,10 @@ class MultiLoraPagedBatcher(_AdapterRegistry, PagedBatcher):
     >>> mb.submit(p1, adapter="math"); mb.submit(p2)   # adapter + base
     >>> results = mb.run()
     >>> mb.lora_cache_stats()   # {"hits": ..., "evictions": ...}
+
+    ``plan=`` composes, as in JAX: the base weights are the rank's shard
+    (``MeshPlan.check_shard``), and each rank's dispatch reads its slice
+    of the whole adapters (``MeshPlan.shard_adapters``).
     """
 
     def __init__(self, params, cfg, stacked: dict, lcfg: LoraConfig,
@@ -486,6 +491,9 @@ class MultiLoraPagedBatcher(_AdapterRegistry, PagedBatcher):
         super().__init__(params, cfg, **kw)
         self._init_adapters(stacked, lcfg, adapter_names,
                             lora_cache_slots, lora_load_s)
+        self._dispatch_stacked = (
+            stacked if self.plan is None
+            else self.plan.shard_adapters(stacked))
 
     def submit(self, prompt, max_new_tokens=None, adapter=None,
                temperature=None, stop=None, logit_bias=None,
@@ -508,4 +516,4 @@ class MultiLoraPagedBatcher(_AdapterRegistry, PagedBatcher):
             aid = a["req"].adapter_id
             if aid is not None:
                 ids[slot] = aid
-        return self.stacked, self._up(ids), self.scaling
+        return self._dispatch_stacked, self._up(ids), self.scaling

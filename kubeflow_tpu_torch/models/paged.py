@@ -69,7 +69,28 @@ admission). ``_ragged_adapters`` (None here, ``models/multilora.py``
 overrides it) puts each slot's LoRA deltas into every ragged dispatch;
 an adapter salts a request's chain keys and rides its KV payloads.
 
-Not ported yet: tensor-parallel plans (``plan=``).
+Tensor-parallel replicas (``plan=``, a ``parallel/mesh.py`` MeshPlan of
+pure ``tp``; ``models/tp_serving.py``): every rank of the replica runs
+this engine in lockstep on its own shard. The weights are cut by
+the caller (``init_params(plan=)``, ``load_hf_checkpoint(plan=)`` or
+``MeshPlan.shard_params``), the pool holds the rank's kv heads,
+``(L, NB, Hkv/tp, BS, D)``, and the forward sums and gathers over the tp
+group (``models/llama.py``). The host state (allocator, tables, chain
+keys, generator) is the same on every rank, because the inputs and the
+gathered logits are. The wire stays the 1-rank one: ``export_blocks``
+and ``export_chain`` all-gather the heads of the blocks they ship (a
+collective: every rank calls them together), ``import_blocks`` and
+``import_chain`` keep each rank's head slice of the payload, and the swap
+tier keeps each rank's own rows while counting the gathered bytes against
+``swap_bytes``, as JAX's ``np.asarray`` of a sharded leaf does, so its
+evictions are JAX's. ``_kv_block_bytes`` and ``pool_blocks_from_hbm``
+take ``tp`` and size from per-shard headroom.
+
+What differs from JAX under a plan: JAX refuses ``attn_kernel=True`` with
+``plan=`` and defaults it off (a Pallas call under GSPMD would gather the
+pool). A rank's tensors here are its own, so the kernels run over the
+rank's heads as on one card: ``attn_kernel`` keeps its one-card default
+(on, on the card) and accepts True.
 """
 
 from __future__ import annotations
@@ -104,8 +125,8 @@ from kubeflow_tpu_torch.models.llama import (
     _prefill_impl,
     _qkv,
     _split_heads,
+    _tp_sum,
     apply_rope,
-    init_kv_cache,
     rope_frequencies,
     sample_logits,
 )
@@ -126,10 +147,16 @@ def init_block_pool(cfg: LlamaConfig, num_blocks: int, block_size: int,
     return _kv_cache_leaves(shape, cfg.dtype, kv_bits, device)
 
 
-def _kv_block_bytes(cfg: LlamaConfig, block_size: int, kv_bits: int = 0) -> int:
+def _kv_block_bytes(cfg: LlamaConfig, block_size: int, kv_bits: int = 0,
+                    tp: int = 1) -> int:
     """Raw bytes ONE pool block occupies across every leaf (k + v, plus
-    the bf16 scale leaves under kv_bits=8)."""
-    rows = cfg.n_layers * cfg.n_kv_heads * block_size
+    the bf16 scale leaves under kv_bits=8). ``tp`` > 1 gives the cost on
+    one rank of a head-sharded pool: n_kv_heads/tp heads' rows."""
+    if tp < 1 or cfg.n_kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must be >= 1 and divide n_kv_heads={cfg.n_kv_heads}"
+        )
+    rows = cfg.n_layers * (cfg.n_kv_heads // tp) * block_size
     if kv_bits == 8:
         # int8 values + one bf16 scale per (layer, head, offset) row.
         return 2 * rows * cfg.head_dim + 2 * rows * 2
@@ -145,12 +172,15 @@ def pool_blocks_from_hbm(
     fallback: int = 64,
     device=None,
     with_source: bool = False,
+    tp: int = 1,
 ):
     """Size a block pool from the card's free memory: spend ``fraction``
     of it (free device memory plus what PyTorch's caching allocator holds
     unused) on KV blocks. A CPU device has no such number and returns
     ``fallback``. ``with_source`` returns ``(blocks, source)``, source
-    ``"hbm"`` or ``"fallback"`` — the /stats pool-sizing record."""
+    ``"hbm"`` or ``"fallback"`` — the /stats pool-sizing record. ``tp``
+    > 1 sizes off the rank's own headroom: a head-sharded pool costs each
+    rank 1/tp of a block, so the same free memory holds tp× the blocks."""
     def _ret(blocks: int, source: str):
         return (blocks, source) if with_source else blocks
 
@@ -162,7 +192,7 @@ def pool_blocks_from_hbm(
     free, _ = torch.cuda.mem_get_info(dev)
     free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
     budget = int(free * fraction)
-    per_block = _kv_block_bytes(cfg, block_size, kv_bits)
+    per_block = _kv_block_bytes(cfg, block_size, kv_bits, tp=tp)
     if budget <= 0:
         return _ret(fallback, "fallback")
     # Block 0 is the null block; 2 is the smallest pool with a usable one.
@@ -234,8 +264,10 @@ def _paged_admit(params: Llama, cfg: LlamaConfig,
     over all layers, where JAX copies block by block into a new pool.
     ``attn_impl`` goes to the prefill's ``flash_attention``."""
     lb = tokens.shape[1]
-    temp = init_kv_cache(cfg, 1, lb, kv_bits=8 if "k_scale" in pool else 0,
-                         device=tokens.device)
+    # The pool's own kv-head count: a tp rank's is n_kv_heads / tp.
+    temp = _kv_cache_leaves(
+        (cfg.n_layers, 1, pool["k"].shape[2], lb, cfg.head_dim), cfg.dtype,
+        8 if "k_scale" in pool else 0, tokens.device)
     logits, temp = _prefill_impl(params, cfg, tokens, temp,
                                  kv_mask=prompt_mask, attn_impl=attn_impl)
     nblk = lb // block_size
@@ -326,7 +358,7 @@ def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
     )
 
     def gathered(leaf):
-        return _gathered_view(leaf, tables, cfg.n_kv_heads, block_size,
+        return _gathered_view(leaf, tables, leaf.shape[1], block_size,
                               cfg.head_dim)
 
     for li, layer in enumerate(params.layers):
@@ -338,10 +370,11 @@ def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
             hq, hk, hv = _qkv(h, layer)
         else:
             hq, hk, hv = _adapted_qkv(h, layer, sel, scaling, route)
-        q = apply_rope(_split_heads(hq, cfg.n_heads), cos, sin, per_batch=True)
-        k = apply_rope(_split_heads(hk, cfg.n_kv_heads), cos, sin,
+        q = apply_rope(_split_heads(hq, cfg.head_dim), cos, sin,
                        per_batch=True)
-        v = _split_heads(hv, cfg.n_kv_heads)
+        k = apply_rope(_split_heads(hk, cfg.head_dim), cos, sin,
+                       per_batch=True)
+        v = _split_heads(hv, cfg.head_dim)
         _scatter_chunk(pool_l, k, v, blks, offs)
         if ragged is not None and not cfg.sliding_window:
             # The plain ragged attention has no window: a windowed config
@@ -374,7 +407,7 @@ def _paged_chunk_scan(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
         o = _mm(merged, layer.wo)
         if sel is not None and "wo" in sel:
             o = o + _delta(merged, sel, "wo", scaling, route)
-        x = x + o
+        x = x + _tp_sum(o, layer)
         h = _norm(x, layer.mlp_norm, cfg)
         x = x + (_mlp(layer, h, cfg) if sel is None
                  else _adapted_mlp(layer, h, cfg, sel, scaling, route))
@@ -634,7 +667,10 @@ class PagedBatcher(_BatcherBase):
     seeded ``torch.Generator`` on the device; seed 0 when None), so they
     cannot match JAX's draws bit for bit. ``headroom_tokens`` widens the
     block tables by that many positions (the speculative engines' verify
-    writes past the pointer).
+    writes past the pointer). ``plan`` (a pure-``tp`` MeshPlan) makes this
+    engine one rank of a tensor-parallel replica: ``params`` must be the
+    rank's shard (``MeshPlan.check_shard``), and the pool holds the rank's
+    kv heads; every rank must make the same calls.
     """
 
     def __init__(
@@ -661,11 +697,6 @@ class PagedBatcher(_BatcherBase):
         device=None,
     ):
         self.gen = gen or GenerationConfig()
-        if plan is not None:
-            raise NotImplementedError(
-                "plan= (tensor-parallel serving) is not ported to PyTorch "
-                "yet (ROADMAP queue 1 item 11)"
-            )
         self.device = resolve_device(device)
         if attn_kernel and kv_bits and not ragged:
             raise ValueError(
@@ -740,6 +771,27 @@ class PagedBatcher(_BatcherBase):
         self.ragged_fill = 0.0
         self.ragged_steps = 0
         self.ragged_tokens = 0
+        kv_cfg = cfg
+        if plan is not None:
+            # A paged pool shards by BLOCK ownership, not by contiguous
+            # sequence ranges: there is no sequence axis to split.
+            if plan.mesh.shape.get("sp", 1) > 1:
+                raise ValueError(
+                    "PagedBatcher does not support sp-sharded meshes; "
+                    "the block pool has no contiguous sequence axis to "
+                    "shard (use ContinuousBatcher for sp)"
+                )
+            # The pool's kv-head rule first, before any weight is cut.
+            plan.check_kv_heads(cfg.n_kv_heads)
+            plan.check_shard(params)
+            kv_cfg = plan.shard_config(cfg)
+        self.plan = plan
+        # /stats "mesh": the replica's non-trivial axes; None on one rank,
+        # so the one-rank stats stay as they were.
+        self.mesh_axes = plan.axes if plan is not None else None
+        self._tp = plan.tp if plan is not None else 1
+        self._tp_rank = plan.tp_rank if plan is not None else 0
+        self._tp_group = plan.tp_group if plan is not None else None
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -748,6 +800,7 @@ class PagedBatcher(_BatcherBase):
             num_blocks, self.pool_source = pool_blocks_from_hbm(
                 cfg, block_size, kv_bits, fraction=hbm_fraction,
                 fallback=num_blocks, device=self.device, with_source=True,
+                tp=self._tp,
             )
         else:
             self.pool_source = "config"
@@ -771,7 +824,7 @@ class PagedBatcher(_BatcherBase):
                 f"{self.device}"
             )
         self.generator = generator
-        self.pool = init_block_pool(cfg, num_blocks, block_size,
+        self.pool = init_block_pool(kv_cfg, num_blocks, block_size,
                                     kv_bits=kv_bits, device=self.device)
         self.kv_mask = torch.zeros((slots, self.max_blocks * block_size),
                                    dtype=torch.bool, device=self.device)
@@ -922,7 +975,10 @@ class PagedBatcher(_BatcherBase):
         the whole budget is plainly evicted)."""
         leaves = {name: leaf[:, ent["block"]].to("cpu", copy=True)
                   for name, leaf in self.pool.items()}
-        nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+        # Each rank keeps its own heads' rows; the budget counts the
+        # gathered block, as JAX's np.asarray of a sharded leaf does.
+        nbytes = self._tp * sum(t.numel() * t.element_size()
+                                for t in leaves.values())
         if nbytes > self.swap_bytes_limit:
             return
         old = self._swap.pop(key, None)
@@ -1050,18 +1106,43 @@ class PagedBatcher(_BatcherBase):
 
     # -- KV handoff (disaggregated prefill and decode tiers) ---------------
 
+    def _wire_shape(self, leaf: torch.Tensor) -> tuple:
+        """One block's rows on the wire, (L, Hkv, BS[, D]): every kv head,
+        whatever this rank holds."""
+        return (leaf.shape[0], leaf.shape[2] * self._tp, *leaf.shape[3:])
+
     def _leaf_specs(self) -> dict:
         return {
             name: {"dtype": _wire_dtype(leaf),
-                   "shape": [leaf.shape[0], *leaf.shape[2:]]}
+                   "shape": list(self._wire_shape(leaf))}
             for name, leaf in self.pool.items()
         }
 
     def _block_rows(self, blk_ids: list[int]) -> dict:
         """One gather per leaf of the given blocks' rows, on the host:
-        {name: (L, n, Hkv, BS[, D])}."""
+        {name: (L, n, Hkv, BS[, D])}. Under a tp plan the ranks' heads are
+        all-gathered first: a collective, so every rank calls this
+        together."""
         idx = torch.as_tensor(blk_ids, dtype=torch.long, device=self.device)
-        return {name: leaf[:, idx].cpu() for name, leaf in self.pool.items()}
+        out = {}
+        for name, leaf in self.pool.items():
+            rows = leaf[:, idx]
+            if self._tp_group is not None:
+                parts = [torch.empty_like(rows) for _ in range(self._tp)]
+                torch.distributed.all_gather(parts, rows.contiguous(),
+                                             group=self._tp_group)
+                rows = torch.cat(parts, dim=2)
+            out[name] = rows.cpu()
+        return out
+
+    def _own_heads(self, rows: np.ndarray, axis: int) -> np.ndarray:
+        """This rank's kv heads of wire rows whose head axis is ``axis``."""
+        if self._tp == 1:
+            return rows
+        n = rows.shape[axis] // self._tp
+        index = [slice(None)] * rows.ndim
+        index[axis] = slice(self._tp_rank * n, (self._tp_rank + 1) * n)
+        return np.ascontiguousarray(rows[tuple(index)])
 
     def _check_payload(self, payload, what: str) -> dict:
         """The envelope checks import_blocks and import_chain share;
@@ -1085,7 +1166,7 @@ class PagedBatcher(_BatcherBase):
         shapes: dict[str, tuple] = {}
         for name, spec in leaves.items():
             leaf = self.pool[name]
-            want = (leaf.shape[0], *leaf.shape[2:])
+            want = self._wire_shape(leaf)
             if (tuple(spec.get("shape") or ()) != want
                     or spec.get("dtype") != _wire_dtype(leaf)):
                 raise ValueError(
@@ -1266,8 +1347,8 @@ class PagedBatcher(_BatcherBase):
                 [_rows_from_b64(entries[j]["data"][name], leaf.dtype,
                                 shapes[name])
                  for j in range(m, nblocks)], axis=1)
-            leaf[:, idx] = _carried_to_tensor(stacked,
-                                              leaf.dtype).to(self.device)
+            leaf[:, idx] = _carried_to_tensor(
+                self._own_heads(stacked, 2), leaf.dtype).to(self.device)
         # Register the imported FULL blocks on the chain (cache hold +
         # this request's, as prefix admission does).
         if self._prefix_cache_enabled:
@@ -1321,8 +1402,8 @@ class PagedBatcher(_BatcherBase):
     def chain_block_bytes(self) -> int:
         """Wire bytes ONE full block costs in a chain payload: base64 of
         every leaf's rows plus a small envelope (the /kv/probe advisory)."""
-        raw = sum(leaf.numel() * leaf.element_size() // leaf.shape[1]
-                  for leaf in self.pool.values())
+        raw = self._tp * sum(leaf.numel() * leaf.element_size()
+                             // leaf.shape[1] for leaf in self.pool.values())
         return 4 * ((raw + 2) // 3) + 96
 
     def export_chain(self, keys) -> Optional[dict]:
@@ -1428,7 +1509,8 @@ class PagedBatcher(_BatcherBase):
                         row = _rows_from_b64(entries[j]["data"][name],
                                              leaf.dtype, shapes[name])
                         leaf[:, blk] = _carried_to_tensor(
-                            row, leaf.dtype).to(self.device)
+                            self._own_heads(row, 1),
+                            leaf.dtype).to(self.device)
                     ent = {"block": blk, "parent": chain_parent,
                            "children": 0}
                     self._prefix_entries[key] = ent

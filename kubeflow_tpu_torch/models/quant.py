@@ -251,6 +251,29 @@ def quantize_params(params, targets=_LAYER_TARGETS,
     return out
 
 
+def refuse_sharding(params) -> None:
+    """ValueError when ``params`` (a ``Llama`` or the bridge's numpy tree)
+    holds a quantized or fp8-training weight: a tp plan cannot shard one
+    (its per-column scales would not split with the columns; JAX's
+    ``device_put`` raises on the ``(L, 1, out)`` scale of ``wo``). Called
+    before any leaf is placed, so a refused model is left as it was."""
+    from kubeflow_tpu_torch.models.fp8 import Fp8Weight
+
+    if isinstance(params, nn.Module):
+        found = [name for name, mod in params.named_modules()
+                 if isinstance(mod, (QuantizedWeight, Fp8Weight))]
+    else:
+        found = [name for name, leaf in
+                 [*params.items(), *params.get("layers", {}).items()]
+                 if isinstance(leaf, dict) and name != "layers"]
+    if found:
+        raise ValueError(
+            f"quantized weights cannot be sharded by a tp plan "
+            f"({', '.join(sorted(found))}): their scales do not split with "
+            "the columns; serve a quantized model on one rank"
+        )
+
+
 def quantized_bytes(params) -> int:
     """Device bytes of a (possibly quantized) model: every parameter and
     buffer as stored (int4 packed two values a byte)."""

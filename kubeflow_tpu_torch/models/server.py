@@ -37,6 +37,12 @@ Endpoints, with the JAX server's request fields and response shapes:
 
 A speculative engine is a wrapper around an inner batcher (``_engine``):
 the server drives the inner one and reads the wrapper's ``spec_stats``.
+A tensor-parallel replica is served on its rank 0 through
+``models/tp_serving.TPReplica``, which mirrors every engine call that
+changes state to the other ranks; ``/stats`` then carries ``mesh`` (the
+replica's axes, absent on one rank), and a prefill-tier request is marked
+for export (``mark_kv_export``) so that every rank cuts the payload's
+head gather at the same token.
 
 Request lifecycle: ``max_queue_depth`` sheds with 429 + Retry-After
 without taking the engine lock (an import with no free slot or blocks
@@ -810,6 +816,12 @@ class InferenceServer:
                 self._kv_exports[rid] = {
                     "skip": kv_export, "payload": None, "error": None,
                 }
+                # A tensor-parallel replica's export is a collective: its
+                # other ranks must cut it at the same token, so they are
+                # told now (models/tp_serving.TPReplica).
+                mark = getattr(self.engine, "mark_kv_export", None)
+                if mark is not None:
+                    mark(rid, kv_export)
             self._queues[rid] = q
             self._submit_ts[rid] = time.monotonic()
             if tracing.enabled():
@@ -923,6 +935,9 @@ class InferenceServer:
             if getattr(eng, "num_blocks", None):
                 pool = {"num_blocks": eng.num_blocks,
                         "source": getattr(eng, "pool_source", "config")}
+            # A tensor-parallel replica spans a mesh; absent (not null)
+            # for one-rank engines, so their /stats are unchanged.
+            mesh = getattr(eng, "mesh_axes", None)
             rag = None
             # Engines that count their fused dispatches (the ragged
             # PagedBatcher) report them; the ragged ContinuousBatcher
@@ -1009,6 +1024,7 @@ class InferenceServer:
             **({"kv_handoff": kv} if kv is not None else {}),
             **({"kv_swap": swap} if swap is not None else {}),
             **({"kv_pool": pool} if pool is not None else {}),
+            **({"mesh": mesh} if mesh is not None else {}),
             **({"ragged": rag} if rag is not None else {}),
             **({"speculative": spec} if spec is not None else {}),
             **({"lora_cache": lora} if lora is not None else {}),

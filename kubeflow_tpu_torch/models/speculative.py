@@ -35,6 +35,13 @@ Draft and target attend their dense caches with the plain attention, as
 JAX's ``_decode_chunk_batch_impl`` does; the acceptance walk runs on the
 host over two readbacks a round (predictions and proposals), and
 ``torch.argmax``, like ``jnp.argmax``, takes the first maximum.
+
+Under ``plan=`` (``models/tp_serving.py``) both engines are one rank of a
+tensor-parallel replica: the target and the draft must both be the
+rank's shards under the same plan (``truncated_draft`` of a shard is
+one; the draft's kv heads must divide by tp too), the draft's dense cache
+holding the rank's kv heads. The acceptance walk sees the
+gathered argmaxes, the same on every rank.
 """
 
 from __future__ import annotations
@@ -270,17 +277,25 @@ class _SpecServingBase:
         return _Inner
 
     def _init_draft(self, draft_params, draft_cfg, slots, draft_len,
-                    k_spec, kv_bits) -> None:
+                    k_spec, kv_bits, plan=None) -> None:
         device = self._engine.device
         if draft_params.device != device:
             raise ValueError(
                 f"draft params live on {draft_params.device}, the engine "
                 f"on {device}; build them with the same device"
             )
+        kv_cfg = draft_cfg
+        if plan is not None:
+            # The draft rides the same mesh: its cache's kv-head rule
+            # first (its head count can differ from the target's), then
+            # its weights must be the rank's shard too.
+            plan.check_kv_heads(draft_cfg.n_kv_heads)
+            plan.check_shard(draft_params)
+            kv_cfg = plan.shard_config(draft_cfg)
         self.draft_params = draft_params
         self.draft_cfg = draft_cfg
         self.k_spec = k_spec
-        self.draft_cache = init_kv_cache(draft_cfg, slots, draft_len,
+        self.draft_cache = init_kv_cache(kv_cfg, slots, draft_len,
                                          kv_bits=kv_bits, device=device)
         self.draft_kv_mask = torch.zeros((slots, draft_len), dtype=torch.bool,
                                          device=device)
@@ -356,14 +371,6 @@ class _SpecServingBase:
         return torch.cat([last, proposals], dim=1)
 
 
-def _refuse_plan(plan) -> None:
-    if plan is not None:
-        raise NotImplementedError(
-            "plan= (tensor-parallel serving) is not ported to PyTorch yet "
-            "(ROADMAP queue 1 item 11)"
-        )
-
-
 class SpeculativeContinuousBatcher(_SpecServingBase):
     """Continuous batching with speculative decoding as the STEP: every
     round, the draft proposes k tokens per slot and the target verifies
@@ -397,7 +404,14 @@ class SpeculativeContinuousBatcher(_SpecServingBase):
     ):
         gen = gen or GenerationConfig()
         self._require_greedy(gen)
-        _refuse_plan(plan)
+        if plan is not None and plan.mesh.shape.get("sp", 1) > 1:
+            raise ValueError(
+                "SpeculativeContinuousBatcher does not support sp-sharded "
+                "meshes: draft-propose and target-verify run the chunked "
+                "decode (K>1 tokens per step), which has no split-KV sp "
+                "merge; use tp (and dp/fsdp) axes, or ContinuousBatcher "
+                "for sp-sharded caches"
+            )
         # A round writes up to k_spec + 1 slots past the pointer before
         # rewinding; the cache needs that headroom past the nominal span.
         if prompt_bucket + gen.max_new_tokens + k_spec + 1 > cache_len:
@@ -409,11 +423,11 @@ class SpeculativeContinuousBatcher(_SpecServingBase):
         self._engine = self._cb = self._make_inner(
             _continuous.ContinuousBatcher)(
             params, target_cfg, gen=gen, slots=slots, cache_len=cache_len,
-            prompt_bucket=prompt_bucket, generator=generator,
+            prompt_bucket=prompt_bucket, generator=generator, plan=plan,
             kv_bits=kv_bits, device=device,
         )
         self._init_draft(draft_params, draft_cfg, slots, cache_len, k_spec,
-                         kv_bits)
+                         kv_bits, plan)
 
     def _spec_step(self) -> None:
         cb = self._cb
@@ -476,7 +490,6 @@ class SpeculativePagedBatcher(_SpecServingBase):
     ):
         gen = gen or GenerationConfig()
         self._require_greedy(gen)
-        _refuse_plan(plan)
         if adaptive and not ragged:
             raise ValueError(
                 "adaptive=True requires ragged=True: the fixed-slot "
@@ -507,11 +520,12 @@ class SpeculativePagedBatcher(_SpecServingBase):
             prompt_cache=prompt_cache, prefix_cache=prefix_cache,
             admit_chunk=admit_chunk, ragged=ragged,
             token_budget=token_budget, attn_kernel=attn_kernel,
-            device=device,
+            plan=plan, device=device,
         )
         # A dense draft cache over the pool's logical window.
         self._init_draft(draft_params, draft_cfg, slots,
-                         self._pb.max_blocks * block_size, k_spec, kv_bits)
+                         self._pb.max_blocks * block_size, k_spec, kv_bits,
+                         plan)
 
     @property
     def free_blocks(self) -> int:
@@ -642,8 +656,9 @@ def truncated_draft(params: Llama, cfg: LlamaConfig,
     """A zero-training draft from the TARGET's own weights: its first
     ``n_layers`` layers (the same ``LlamaLayer`` modules, quantized
     projections and their checked kernel plans included), with the
-    embedding, final norm and lm head shared, not copied. Returns
-    (draft_params, draft_cfg) for any spec engine."""
+    embedding, final norm and lm head shared, not copied, and the
+    target's tp shard record. Returns (draft_params, draft_cfg) for any
+    spec engine."""
     if not 1 <= n_layers < cfg.n_layers:
         raise ValueError(
             f"draft n_layers must be in 1..{cfg.n_layers - 1}, "
@@ -656,4 +671,6 @@ def truncated_draft(params: Llama, cfg: LlamaConfig,
         w = getattr(params, name)
         if w is not None:
             _set(draft, name, w)
+    # A tp shard's draft is the same shard (its leaves are the target's).
+    draft.shard = params.shard
     return draft, dcfg

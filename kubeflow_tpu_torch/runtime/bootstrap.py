@@ -20,9 +20,9 @@ What differs from JAX:
   on one process), where JAX reads ``jax.device_count()``.
 - There is no ``honor_jax_platforms_env``: torch has no platform setting
   to route; the device is what ``device`` names.
-- ``SliceRuntime.mesh`` checks the axis sizes as JAX does and then
-  refuses: a device mesh is ``parallel/mesh.py``, not ported yet (ROADMAP
-  queue 1 item 11).
+- ``SliceRuntime.mesh`` checks the axis sizes as JAX does and returns a
+  ``parallel/mesh.py`` Mesh over the process group's ranks (one device
+  each), its axes named and ordered as given, as JAX's are.
 - ``maybe_start_profiler_server`` refuses a valid port: torch has no
   counterpart of ``jax.profiler.start_server``.
 """
@@ -76,13 +76,23 @@ class SliceRuntime:
         return self.slice_id == 0 and self.worker_id == 0
 
     def mesh(self, **axis_sizes: int):
-        """Check ``axis_sizes`` against the global device count as JAX's
-        ``rt.mesh`` does (a single -1 is inferred), then refuse: the mesh
-        itself is ``parallel/mesh.py``."""
-        sizes = mesh_axes(axis_sizes, global_device_count(self.device))
-        raise NotImplementedError(
-            f"mesh {sizes}: a device mesh over the slice (parallel/mesh.py) "
-            "is not ported to PyTorch yet (ROADMAP queue 1 item 11)")
+        """A mesh over the whole slice: ``axis_sizes`` must multiply to the
+        global device count (a single -1 is inferred), as in JAX's
+        ``rt.mesh``. Example: ``rt.mesh(dp=2, tp=8)`` on 16 cards. Every
+        rank calls it together (the axis subgroups are collective)."""
+        from kubeflow_tpu_torch.parallel.mesh import _mesh_over, _world
+
+        total = global_device_count(self.device)
+        sizes = mesh_axes(axis_sizes, total)
+        world = _world()[0]
+        if world != total:
+            raise ValueError(
+                f"mesh {sizes}: the port drives one device per rank, and "
+                f"this process group has {world} rank(s) for {total} "
+                "devices; start one process per card"
+            )
+        return _mesh_over(list(range(world)), tuple(sizes),
+                          tuple(sizes.values()))
 
 
 def mesh_axes(axis_sizes: dict, total: int) -> dict:

@@ -187,10 +187,14 @@ def test_mesh_axis_arithmetic_and_errors_match_jax(axes):
 
 
 def test_mesh_checks_the_axes_then_refuses_naming_item_11():
+    """Item 11 ported the mesh: ``rt.mesh`` checks the axes as JAX's does
+    and returns a mesh over the process group's ranks, axes named and
+    ordered as given (one CPU process: one rank)."""
     rt = PB.bootstrap(env={}, device="cpu")
     assert rt.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        rt.mesh(dp=-1)
+    mesh = rt.mesh(dp=-1)
+    assert mesh.shape == {"dp": 1} and mesh.ranks.tolist() == [0]
+    assert rt.mesh(x=1, y=-1).axis_names == ("x", "y")
     with pytest.raises(ValueError, match="multiply to 2"):
         rt.mesh(dp=2)
 

@@ -53,6 +53,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -940,6 +941,7 @@ def test_trace_splits_each_kernel_by_launch_grid(smoke, monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(smoke, "_serve", lambda engine, prompts: None)
     out = smoke._trace(None, [], {"attention": "ragged_kernel"})
+    assert out["nccl_s"] == 0 and out["nccl_launches"] == 0
     assert out["attention_s"] == pytest.approx(100e-6)
     assert out["busy_s"] == pytest.approx(200e-6)
     assert out["attention_by_grid"] == {
@@ -1461,19 +1463,21 @@ def test_checkpoint_writer_shards_read_back_equal(smoke, tmp_path):
 
 
 def test_phase_numbering_and_kernels_line_are_kept(smoke):
-    """Twelve phases in order, the checkpoint phase ninth, the finetune
-    phase eleventh and the resume phase last, and the kernels line still
-    naming every kernel of the port with all its keys."""
+    """Thirteen phases in order, the checkpoint phase ninth, the finetune
+    phase eleventh, the resume phase twelfth and the tp phase last, and
+    the kernels line still naming every kernel of the port with all its
+    keys."""
     import inspect
     import re
 
     main = inspect.getsource(smoke.main)
     assert re.findall(r'log\(f?"\[(\d+)/(\d+)\]', main) == [
-        (str(i), "12") for i in range(1, 13)]
-    assert '"[9/12] checkpoint and observability"' in main
+        (str(i), "13") for i in range(1, 14)]
+    assert '"[9/13] checkpoint and observability"' in main
     assert main.index("checkpoint_phase(") < main.index("train_phases(")
     assert main.index("train_phases(") < main.index("finetune_phase(")
     assert main.index("finetune_phase(") < main.index("resume_phase(")
+    assert main.index("resume_phase(") < main.index("= tp_phase(")
     for name in ("ragged_paged_attention", "flash_attention",
                  "paged_decode_attention", "dense_decode_attention",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
@@ -1848,3 +1852,67 @@ def test_group_one_and_eight_cases_run_on_the_card(smoke):
         names = [c[-2] if cases is smoke.RAGGED_CASES else c[-1]
                  for c in cases]
         assert len(names) == len(set(names))
+
+
+def test_tp_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
+    """Phase 13 at ``tiny`` in float32 on the CPU (bf16 ``tiny``'s
+    chosen-token logprobs move by up to 0.022 with the psum order, past
+    the rule's 2e-2, where llama-3-8b's move by the 0.004-0.008 of phase
+    5's kernel against plain): the kernels at a rank's shapes through
+    their plain versions, two gloo children (which count no launches on
+    the CPU) held to a one-rank run by the near-tie rule and to each
+    other, and the degree-1 plan over a world-1 gloo group bit for bit
+    against the one-rank run, then again with the plan lifted, each run's
+    collective functions timed on the host (the card's trace of the two,
+    which the CPU cannot take, stands in as each engine's run alone)."""
+    trace_keys = ("wall_s", "busy_s", "idle_share", "attention_s", "gemm_s",
+                  "nccl_s", "nccl_launches", "top_kernels_s")
+
+    def trace(engine, prompts, kernels):
+        smoke._serve(engine, prompts)
+        return dict.fromkeys(trace_keys, 0.0)
+
+    monkeypatch.setattr(smoke, "_trace", trace)
+    monkeypatch.setattr(smoke, "TP_MODEL", "tiny")
+    monkeypatch.setattr(smoke, "TP_DTYPE", "float32")
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    cfg = dataclasses.replace(TL.LLAMA_CONFIGS["tiny"], dtype=torch.float32)
+    prompts = smoke._prompts(cfg, 16, 8, 500, smoke.SEED)
+    params = TL.init_params(cfg, torch.Generator().manual_seed(smoke.SEED),
+                            "cpu")
+    t0 = time.monotonic()
+    ragged = smoke._serve(smoke._tp_engine(params, cfg, None, True, 64),
+                          prompts)
+    p5 = {"ragged": (*ragged, time.monotonic() - t0),
+          "alternating": smoke._serve(
+              smoke._engine(params, cfg, 0, ragged=False), prompts[::4]),
+          "continuous": smoke._serve(smoke._cont_engine(params, cfg),
+                                     prompts[::4])}
+    out = smoke.tp_phase(p5)
+    two = out["degree_2"]
+    assert two["launches"] == {"ragged": [0, 0], "flash": [0, 0],
+                               "decode": [0, 0], "continuous_flash": [0, 0],
+                               "dense": [0, 0]}
+    assert two["ragged_steps"] > 0 and two["decode_steps"] > 0
+    assert two["continuous_admissions"] == 4
+    assert two["continuous_steps"] > 0
+    assert two["wq_shape"] == [cfg.dim, cfg.dim // 2]
+    assert two["w_down_shape"] == [cfg.ffn_hidden // 2, cfg.dim]
+    assert set(two["seconds"]) == {"spawn", "init", "serve", "total"}
+    assert len(two["forks"]["ragged"]) == 8
+    assert len(two["forks"]["alternating"]) == 4
+    assert len(two["forks"]["continuous"]) == 4
+    one = out["degree_1"]
+    assert one["bit_equal_to_phase_5"]
+    assert one["backend"] == "gloo"
+    steps = one["planned"]["steps"]
+    assert one["unplanned"]["steps"] == steps > 0
+    # A forward's collectives: wo and w_down a layer, the embedding and the
+    # head; the unplanned forward calls the same functions.
+    calls = {k: v["calls"] for k, v in one["planned"]["host_s"].items()}
+    assert calls["_tp_sum"] == 2 * cfg.n_layers * calls["_embed"]
+    assert calls["_embed"] == calls["_lm_head_logits"] == steps
+    assert {k: v["calls"] for k, v in
+            one["unplanned"]["host_s"].items()} == calls
+    assert set(one["planned"]["trace"]) == {*trace_keys, "steps"}
+    assert set(out["kernels"]) == {"ragged", "flash", "decode", "dense"}

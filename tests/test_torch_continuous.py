@@ -21,6 +21,7 @@ engine emits its one-shot engine's tokens where JAX's forks.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import jax
@@ -32,11 +33,13 @@ import torch
 from kubeflow_tpu.models import continuous as JC
 from kubeflow_tpu.models import llama as L
 from kubeflow_tpu.models.serving import GenerationConfig as JGen
+from kubeflow_tpu.parallel import mesh as JM
 from kubeflow_tpu_torch.models import continuous as TC
 from kubeflow_tpu_torch.models import llama as TL
 from kubeflow_tpu_torch.models.bridge import params_from_jax
 from kubeflow_tpu_torch.models.serving import GenerationConfig as TGen
 from kubeflow_tpu_torch.ops import paged_attention as TPA
+from kubeflow_tpu_torch.parallel import mesh as TM
 
 
 @pytest.fixture(autouse=True)
@@ -192,31 +195,57 @@ def _refusal(make):
     dict(max_new=8, attn_kernel=True, plan=True),
 ])
 def test_constructor_refusals_carry_the_jax_messages(f32_gqa, kw):
+    """Each refusal with JAX's type and text. The one deliberate
+    difference: JAX refuses ``attn_kernel=True`` with ``plan=``, the port
+    accepts the pair (a rank's cache is its own), so on the CPU it refuses
+    only for want of the card."""
     jcfg, tcfg, jparams, tparams = f32_gqa
     kw = dict(kw)
     max_new = kw.pop("max_new", 128)
     if kw.pop("window", 0):
         jcfg = dataclasses.replace(jcfg, sliding_window=8)
         tcfg = dataclasses.replace(tcfg, sliding_window=8)
-    plan = object() if kw.pop("plan", False) else None
+    planned = kw.pop("plan", False)
+    jplan = JM.MeshPlan(JM.make_mesh(devices=jax.devices()[:1])) \
+        if planned else None
+    tplan = TM.MeshPlan(TM.make_mesh()) if planned else None
     base = dict(slots=2, cache_len=kw.pop("cache_len", 64), prompt_bucket=16,
-                plan=plan, **kw)
+                **kw)
     jerr = _refusal(lambda: JC.ContinuousBatcher(
-        jparams, jcfg, gen=JGen(max_new_tokens=max_new), **base))
+        jparams, jcfg, gen=JGen(max_new_tokens=max_new), plan=jplan, **base))
+    # Under a plan the engine takes a rank's shard, cut here.
     terr = _refusal(lambda: TC.ContinuousBatcher(
-        tparams, tcfg, gen=TGen(max_new_tokens=max_new), device="cpu",
-        **base))
+        tplan.shard_params(copy.deepcopy(tparams)) if planned else tparams,
+        tcfg, gen=TGen(max_new_tokens=max_new),
+        device="cpu", plan=tplan, **base))
+    if planned and kw.get("attn_kernel"):
+        assert "does not compose with plan=" in jerr[1]
+        assert terr[0] is ValueError and "needs the CUDA card" in terr[1]
+        return
     assert terr == jerr
 
 
-def test_port_only_refusals(f32_gqa):
-    """The port's own refusals: ``plan=`` is not ported, and the dense
-    kernel needs the card."""
+def test_port_only_refusals(f32_gqa, monkeypatch):
+    """The port's own refusals: a sequence-sharded plan is item 13, and
+    the dense kernel needs the card. A tp plan constructs (its kv heads
+    on this rank); on the card it takes ``attn_kernel=True``, which JAX
+    refuses with a plan, and goes on to its next check."""
     _, tcfg, _, tparams = f32_gqa
     kw = dict(gen=TGen(max_new_tokens=8), slots=2, cache_len=64,
               prompt_bucket=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        TC.ContinuousBatcher(tparams, tcfg, plan=object(), **kw)
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        TC.ContinuousBatcher(tparams, tcfg, plan=TM.MeshPlan(
+            TM.make_mesh(sp=2, devices=[0, 1])), **kw)
+    one = TM.MeshPlan(TM.make_mesh())
+    shard = one.shard_params(copy.deepcopy(tparams))
+    cb = TC.ContinuousBatcher(shard, tcfg, plan=one, **kw)
+    assert cb.mesh_axes == {"tp": 1} and cb._attn_kernel == 0
+    with monkeypatch.context() as m:
+        m.setattr(TC, "resolve_device", lambda device: torch.device("cuda"))
+        bf16 = dataclasses.replace(tcfg, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="params live on"):
+            TC.ContinuousBatcher(shard, bf16, attn_kernel=True, plan=one,
+                                 **dict(kw, device=None))
     with pytest.raises(ValueError, match="CUDA card"):
         TC.ContinuousBatcher(tparams, tcfg, attn_kernel=True, **kw)
     cb = TC.ContinuousBatcher(tparams, tcfg, **kw)

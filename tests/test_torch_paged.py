@@ -24,6 +24,7 @@ prefill runs the plain flash attention and its decode the gathered
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import jax
@@ -35,6 +36,7 @@ import torch
 from kubeflow_tpu.models import llama as L
 from kubeflow_tpu.models import paged as JP
 from kubeflow_tpu.models.serving import GenerationConfig as JGen
+from kubeflow_tpu.parallel import mesh as JM
 from kubeflow_tpu_torch.models import llama as TL
 from kubeflow_tpu_torch.models import paged as TP
 from kubeflow_tpu_torch.models.bridge import params_from_jax
@@ -42,6 +44,7 @@ from kubeflow_tpu_torch.models.serving import GenerationConfig as TGen
 from kubeflow_tpu_torch.ops import attention as TA
 from kubeflow_tpu_torch.ops import paged_attention as TPA
 from kubeflow_tpu_torch.ops import ragged_attention as TRA
+from kubeflow_tpu_torch.parallel import mesh as TM
 
 
 @pytest.fixture(autouse=True)
@@ -226,7 +229,8 @@ def test_cpu_engine_never_calls_the_kernel(f32_gqa, monkeypatch):
 
 def test_constructor_refusals(f32_gqa):
     """The ragged engine refuses the sharing tiers with JAX's ValueError
-    and text; plan= alone is still not ported (item 11); swap_bytes and
+    and text; a tp plan constructs on both engines (item 11, ported) and
+    an sp-sharded one is refused with JAX's text; swap_bytes and
     sliding-window configs construct, the window with its kernel off."""
     jcfg, tcfg, jparams, tparams = f32_gqa
     jkw = dict(slots=2, num_blocks=16, block_size=8, prompt_bucket=16)
@@ -241,9 +245,17 @@ def test_constructor_refusals(f32_gqa):
             TP.PagedBatcher(tparams, tcfg, **bad, **kw)
         assert str(terr.value) == str(jerr.value)
     for ragged in (False, True):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            TP.PagedBatcher(tparams, tcfg, ragged=ragged, plan=object(),
-                            **kw)
+        one = TM.MeshPlan(TM.make_mesh())
+        planned = TP.PagedBatcher(one.shard_params(copy.deepcopy(tparams)),
+                                  tcfg, ragged=ragged, plan=one, **kw)
+        assert planned.mesh_axes == {"tp": 1}
+        with pytest.raises(ValueError) as jerr:
+            JP.PagedBatcher(jparams, jcfg, ragged=ragged, plan=JM.MeshPlan(
+                JM.make_mesh(sp=2, devices=jax.devices()[:2])), **jkw)
+        with pytest.raises(ValueError) as terr:
+            TP.PagedBatcher(tparams, tcfg, ragged=ragged, plan=TM.MeshPlan(
+                TM.make_mesh(sp=2, devices=[0, 1])), **kw)
+        assert str(terr.value) == str(jerr.value)
     assert TP.PagedBatcher(tparams, tcfg, ragged=True, swap_bytes=1024,
                            **kw).swap_bytes_limit == 1024
     win = TP.PagedBatcher(tparams, dataclasses.replace(tcfg, sliding_window=8),
@@ -357,5 +369,9 @@ def test_alternating_engine_constructs(f32_gqa):
         TP.PagedBatcher(tparams, tcfg, attn_kernel=True, **kw)
     assert TP.PagedBatcher(tparams, tcfg, prompt_cache=True,
                            **kw)._prompt_cache_enabled
-    with pytest.raises(NotImplementedError):
-        TP.PagedBatcher(tparams, tcfg, plan=object(), **kw)
+    # A tp plan constructs (item 11): its pool holds this rank's heads.
+    one = TM.MeshPlan(TM.make_mesh())
+    planned = TP.PagedBatcher(one.shard_params(copy.deepcopy(tparams)),
+                              tcfg, plan=one, **kw)
+    assert planned.ragged is False and planned.mesh_axes == {"tp": 1}
+    assert planned.pool["k"].shape == pb.pool["k"].shape

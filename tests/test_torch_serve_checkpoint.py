@@ -84,8 +84,8 @@ def _f32_loaders(monkeypatch):
 
     monkeypatch.setattr(JC, "load_hf_checkpoint", jax_f32)
     monkeypatch.setattr(TC, "load_hf_checkpoint",
-                        lambda path, dtype=None, device=None: real_t(
-                            path, torch.float32, device))
+                        lambda path, dtype=None, device=None, plan=None:
+                        real_t(path, torch.float32, device, plan))
 
 
 def _jax_example(name):

@@ -264,8 +264,13 @@ def test_serve_http_exits_on_a_garbage_knob(clean_env, env, fn):
 
 
 @pytest.mark.parametrize("env,paged,says", [
-    ({"KUBEFLOW_TPU_SERVING_TP": "2"}, True, "item 11"),
-    ({"KUBEFLOW_TPU_SERVING_TP": "2"}, False, "item 11"),
+    # Item 11 is ported: tp=2 passes validation and starts the replica's
+    # follower before any weight is made (the start is stubbed here;
+    # tests/test_torch_tp_serving.py serves a real one).
+    pytest.param({"KUBEFLOW_TPU_SERVING_TP": "2"}, True,
+                 "tensor-parallel replica of tp=2", id="env0-True-item 11"),
+    pytest.param({"KUBEFLOW_TPU_SERVING_TP": "2"}, False,
+                 "tensor-parallel replica of tp=2", id="env1-False-item 11"),
     # The JAX order: on the alternating engine, "needs the ragged engine".
     ({"KUBEFLOW_TPU_SPEC_DRAFT_LEN": "3"}, True,
      "KUBEFLOW_TPU_SPEC_DRAFT_LEN needs the ragged engine (set "
@@ -273,14 +278,23 @@ def test_serve_http_exits_on_a_garbage_knob(clean_env, env, fn):
 ])
 def test_serve_http_refuses_a_knob_the_port_lacks(clean_env, env, paged,
                                                   says):
-    """A valid value of a knob whose feature is not ported exits at
-    startup, before any weight or engine is made, naming the ROADMAP
-    queue-1 item that brings it."""
+    """A valid value of a knob is acted on at startup, before any weight
+    or engine is made: a combination JAX refuses exits with its message,
+    and KUBEFLOW_TPU_SERVING_TP=2 starts the replica's follower with this
+    entry point's own arguments."""
     from kubeflow_tpu_torch.examples import serve_http
+    from kubeflow_tpu_torch.models import tp_serving
+
+    def spawn(module, argv, tp):
+        assert module == "kubeflow_tpu_torch.examples.serve_http"
+        assert argv == args
+        raise SystemExit(f"{TS.KUBEFLOW_TPU_SERVING_TP}: a tensor-parallel "
+                         f"replica of tp={tp} starts")
 
     for var, value in env.items():
         clean_env.setenv(var, value)
     clean_env.setattr(TL, "init_params", _no_weights)
+    clean_env.setattr(tp_serving, "spawn_followers", spawn)
     args = PAGED_ARGS if paged else [a for a in PAGED_ARGS if a != "--paged"]
     with pytest.raises(SystemExit) as info:
         serve_http.main(args)

@@ -426,10 +426,35 @@ def test_refusals_carry_the_jax_messages(target, draft):
         tparams, tcfg, dtparams, dtcfg, gen=TGen(max_new_tokens=46),
         cache_len=64, prompt_bucket=16, device="cpu"))
     assert got == want
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TS.SpeculativePagedBatcher(tparams, tcfg, dtparams, dtcfg,
-                                   num_blocks=40, plan=object(),
-                                   device="cpu")
+    # plan= is ported (tests/test_torch_tp_serving.py serves through it);
+    # an sp-sharded mesh keeps JAX's refusal and text on both engines.
+    import copy
+
+    from kubeflow_tpu.parallel import mesh as JM
+    from kubeflow_tpu_torch.parallel import mesh as TM
+
+    jplan = JM.MeshPlan(JM.make_mesh(sp=2, devices=jax.devices()[:2]))
+    tplan = TM.MeshPlan(TM.make_mesh(sp=2, devices=[0, 1]))
+    want = _jax_error(lambda: JS.SpeculativeContinuousBatcher(
+        jparams, jcfg, djparams, djcfg, gen=JGen(max_new_tokens=4),
+        cache_len=64, prompt_bucket=16, plan=jplan))
+    got = _jax_error(lambda: TS.SpeculativeContinuousBatcher(
+        tparams, tcfg, dtparams, dtcfg, gen=TGen(max_new_tokens=4),
+        cache_len=64, prompt_bucket=16, plan=tplan, device="cpu"))
+    assert got == want
+    want = _jax_error(lambda: JS.SpeculativePagedBatcher(
+        jparams, jcfg, djparams, djcfg, gen=JGen(max_new_tokens=4),
+        num_blocks=40, plan=jplan))
+    got = _jax_error(lambda: TS.SpeculativePagedBatcher(
+        tparams, tcfg, dtparams, dtcfg, gen=TGen(max_new_tokens=4),
+        num_blocks=40, plan=tplan, device="cpu"))
+    assert got == want
+    one = TM.MeshPlan(TM.make_mesh(tp=1))
+    sb = TS.SpeculativePagedBatcher(
+        one.shard_params(copy.deepcopy(tparams)), tcfg,
+        one.shard_params(copy.deepcopy(dtparams)), dtcfg,
+        gen=TGen(max_new_tokens=4), num_blocks=40, plan=one, device="cpu")
+    assert sb._engine.mesh_axes == {"tp": 1}
 
 
 def test_per_request_sampling_and_bias_are_refused(target, draft):
