@@ -59,7 +59,13 @@ every kernel's launch count set to 0 just before it and read just after:
   ``gemma-2b`` on the card (the same three flash kernels a step) under
   ``bootstrap`` and ``install_preemption_handler``, is sent SIGTERM and
   emergency-saves its newest step; the step is restored on the card
-  through ``MigrationOrchestrator`` and trained from.
+  through ``MigrationOrchestrator`` and trained from;
+- sharded training (``models/train.py`` under a ``MeshPlan``):
+  ``gemma-2b`` at fsdp=2 and ``llama-3-8b`` at tp=2, each as two gloo
+  ranks on the one card, every step the same three flash kernels a layer
+  over a rank's rows or heads, the fsdp state saved and restored in
+  JAX's shard format, and ``examples/train_sharded.py`` as a user runs
+  it.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -182,10 +188,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    for each admission (continuous), and wide-path products 7 × n_layers
    for each wider step or admission; 4 prompts are served again with
    every quantized product through its plain version and compared as
-   above; 8 prompts traced again, once for the card's busy time, idle
-   share and quant_matmul's seconds, once with the wide path's products
-   on a stream of their own, for its kernels' seconds: together the
-   weight products;
+   above; 8 prompts traced again, the wide path's products on a stream
+   of their own, for the card's busy time, idle share, quant_matmul's
+   seconds and the wide path's kernels' seconds: together the weight
+   products (each trace read from its chrome trace);
 6. HTTP — 4 concurrent ``/v1/completions`` (2 streamed) against the
    server over each bf16 engine; streamed tokens must equal the blocking
    response for the same prompt; then ``/stats`` and a clean stop;
@@ -373,18 +379,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    explicit ``MeshPlan(make_mesh(tp=1))`` on a world-1 NCCL group (the
    backend of real multi-card replicas; its collectives are the
    identity) and the ragged engine on phase 5's 16 prompts give phase 5's
-   tokens and logprobs bit for bit, launches = steps × 32; so do the
-   same weights with the plan lifted, and the two runs, each traced once
-   more, say where the plan's time goes (the host seconds in the
-   functions that call the collectives, the card's busy seconds and its
-   NCCL kernels'). It prints each
+   tokens and logprobs bit for bit, launches = steps × 32, with the host
+   seconds in the functions that call the collectives. It prints each
    rank's peak memory, the phase's seconds split into spawn, init and
-   serve, and tokens/s at degree 2 and 1 beside phase 5's.
+   serve, and tokens/s at degree 2 and 1 beside phase 5's;
+14. train_sharded — sharded training (``models/train.py`` under a
+   ``MeshPlan``, ``parallel/collectives.py``). (0) One launch each of the
+   flash forward, dQ and dK/dV at a tp=2 rank's training shape of
+   llama-3-8b (B 1, S 2048, 16 q / 4 kv heads, D 128), held to their
+   plain versions by phase 3's gates. (a) fsdp=2 gemma-2b at full width
+   and depth as two gloo children on ``cuda:0`` (phase 13's one-card
+   configuration): before spawning, this process runs one unsharded
+   step 1 on the same weights and global batch (B 2, S 2048: each rank's
+   row from ``sharded_loader`` through ``device_put_global``) and frees
+   it; each rank draws its shard from the seed (``init_params(plan=)``),
+   shards AdamW (``shard_state``: half the state a rank), and trains 3
+   steps (remat "full", loss chunk 512), step 1's loss and global grad
+   norm within 2e-2 relative of the unsharded step's, each step 2 × 18
+   flash, 18 dQ and 18 dK/dV launches a rank, the loss on step 1's
+   batch lower after; then both ranks save into their ``proc<k>/`` roots
+   (JAX's shard format; MemAvailable and the free disk must hold 2.5 ×
+   the state), restore into a fresh sharded state from another seed
+   with every leaf's digest equal, and train one step more (the roots
+   are removed after). (b) tp=2 llama-3-8b, two gloo children again, on
+   phase 10's weights and step-1 batch: step 1's loss and grad norm
+   within 2e-2 of phase 10's (recorded there), 2 steps of 2 × 32 flash,
+   32 dQ and 32 dK/dV launches a rank. (c) ``examples/train_sharded.main``
+   as one rank over a world-1 NCCL group: phase 11's 2-layer head-dim-64
+   model for 2 steps with ``--ckpt-dir`` and ``--data``, then again,
+   resuming at step 2. It prints each rank's peak memory, step walls,
+   bytes, calls and host seconds in the collectives a step, the save and
+   restore seconds and GB/s a rank, and the phase's seconds split into
+   reference, spawn, init, train and checkpoint.
 
 It prints a ``{"fp8_products": ...}`` line (a library call, not a kernel
 of the port), a ``{"resume": ...}`` line (phase 12's numbers), a
-``{"tp": ...}`` line (phase 13's numbers), a
-``{"kernels": [...]}`` line, the card line, and last
+``{"tp": ...}`` line (phase 13's numbers), a ``{"train_sharded": ...}``
+line (phase 14's numbers), a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -397,6 +428,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -417,7 +449,12 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from kubeflow_tpu_torch.data.loader import TokenLoader, write_token_file
+from kubeflow_tpu_torch.data.loader import (
+    TokenLoader,
+    device_put_global,
+    sharded_loader,
+    write_token_file,
+)
 from kubeflow_tpu_torch.examples import finetune_lora as finetune_example
 from kubeflow_tpu_torch.models import continuous as cont_mod
 from kubeflow_tpu_torch.models import convert as convert_mod
@@ -1864,15 +1901,29 @@ def _kernel_records(fn) -> list:
     return _profiled_kernels(prof)
 
 
-def _profiled_kernels(prof) -> list:
-    """The kernel records (name, ``dur`` in µs, ``args.grid``) of a
-    finished ``torch.profiler`` run, from its chrome trace."""
+# The card's records in a chrome trace: kernels, copies and fills.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _profiled_device_events(prof) -> list:
+    """The card's records (name, ``ts`` and ``dur`` in µs, ``args``) of a
+    finished ``torch.profiler`` run, from its chrome trace: kernels,
+    copies and fills. (``prof.events()`` holds the same, but building it
+    costs ~17 s of host time a traced rerun of ~70 steps, PERF.md §6, PR
+    18.)"""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    return [ev for ev in events if ev.get("cat") == "kernel"]
+    return [ev for ev in events if ev.get("cat") in DEVICE_CATS]
+
+
+def _profiled_kernels(prof) -> list:
+    """The kernel records (name, ``dur`` in µs, ``args.grid``) of a
+    finished ``torch.profiler`` run, from its chrome trace."""
+    return [ev for ev in _profiled_device_events(prof)
+            if ev.get("cat") == "kernel"]
 
 
 def _timing_decode(label, case, kernel, reference, library_call, bound,
@@ -2354,16 +2405,19 @@ def engine_phase(params, cfg, runs=None):
             f"kernel launches, peak {peak / 2**30:.2f} GiB")
         # Kernel vs plain attention on the same 4 prompts and schedule.
         sub = prompts[::4]
+        t0 = time.monotonic()
         kern = _serve(_engine(params, cfg, bits), sub)
         plain = _serve(_engine(params, cfg, bits, attn_kernel=False), sub)
         report = _compare(kern, plain)
         log(f"  ragged {variant}: kernel vs plain engine on 4 prompts "
-            f"(fork -1 = tokens equal): {json.dumps(report)}")
+            f"(fork -1 = tokens equal; {time.monotonic() - t0:.2f} s): "
+            f"{json.dumps(report)}")
+        t0 = time.monotonic()
         traced = _engine(params, cfg, bits)
         trace = _trace(traced, prompts[::2], {"attention": "ragged_kernel"})
         trace["steps"] = traced.ragged_steps
-        log(f"  ragged {variant}: traced rerun of 8 prompts: "
-            f"{json.dumps(trace)}")
+        log(f"  ragged {variant}: traced rerun of 8 prompts "
+            f"({time.monotonic() - t0:.2f} s): {json.dumps(trace)}")
         engines[variant] = engine
     return launches, engines["bf16"]
 
@@ -2401,6 +2455,7 @@ def alternating_phase(params, cfg, runs=None):
         f"{n_tok} tokens out, {wall:.3f} s wall, {counts['flash']} flash and "
         f"{counts['decode']} decode launches, peak {peak / 2**30:.2f} GiB")
     sub = prompts[::4]
+    t0 = time.monotonic()
     kern = _serve(_engine(params, cfg, 0, ragged=False), sub)
     if runs is not None:
         runs["alternating"] = kern
@@ -2409,14 +2464,17 @@ def alternating_phase(params, cfg, runs=None):
                                attn_kernel=False), sub)
     report = _compare(kern, plain)
     log(f"  alternating bf16: kernels vs plain engine on 4 prompts "
-        f"(fork -1 = tokens equal): {json.dumps(report)}")
+        f"(fork -1 = tokens equal; {time.monotonic() - t0:.2f} s): "
+        f"{json.dumps(report)}")
+    t0 = time.monotonic()
     with _counting_calls(paged_mod, "_paged_admit", "_paged_step") as calls:
         trace = _trace(_engine(params, cfg, 0, ragged=False), prompts[::2],
                        {"flash": "flash_fwd_kernel",
                         "decode": "paged_decode_kernel"})
     trace["admissions"] = calls["_paged_admit"]
     trace["steps"] = calls["_paged_step"]
-    log(f"  alternating bf16: traced rerun of 8 prompts: {json.dumps(trace)}")
+    log(f"  alternating bf16: traced rerun of 8 prompts "
+        f"({time.monotonic() - t0:.2f} s): {json.dumps(trace)}")
     return {"flash": counts["flash"], "decode": counts["decode"]}, engine
 
 
@@ -2457,6 +2515,7 @@ def continuous_phase(params, cfg, runs=None):
         f"{counts['dense']} dense decode launches, peak "
         f"{peak / 2**30:.2f} GiB")
     sub = prompts[::4]
+    t0 = time.monotonic()
     kern = _serve(_cont_engine(params, cfg), sub)
     if runs is not None:
         runs["continuous"] = kern
@@ -2464,18 +2523,23 @@ def continuous_phase(params, cfg, runs=None):
         plain = _serve(_cont_engine(params, cfg, attn_kernel=False), sub)
     report = _compare(kern, plain)
     log(f"  continuous bf16: kernels vs plain engine on 4 prompts "
-        f"(fork -1 = tokens equal): {json.dumps(report)}")
+        f"(fork -1 = tokens equal; {time.monotonic() - t0:.2f} s): "
+        f"{json.dumps(report)}")
+    t0 = time.monotonic()
     chunked = _serve(_cont_engine(params, cfg, admit_chunk=128), sub)
     report = _compare(kern, chunked)
     log(f"  continuous bf16: one-shot vs admit_chunk=128 on 4 prompts "
-        f"(fork -1 = tokens equal): {json.dumps(report)}")
+        f"(fork -1 = tokens equal; {time.monotonic() - t0:.2f} s): "
+        f"{json.dumps(report)}")
+    t0 = time.monotonic()
     with _counting_calls(cont_mod, "_admit_slot", "_cb_step") as calls:
         trace = _trace(_cont_engine(params, cfg), prompts[::2],
                        {"flash": "flash_fwd_kernel",
                         "decode": "dense_decode_kernel"})
     trace["admissions"] = calls["_admit_slot"]
     trace["steps"] = calls["_cb_step"]
-    log(f"  continuous bf16: traced rerun of 8 prompts: {json.dumps(trace)}")
+    log(f"  continuous bf16: traced rerun of 8 prompts "
+        f"({time.monotonic() - t0:.2f} s): {json.dumps(trace)}")
     return {"flash": counts["flash"], "dense": counts["dense"]}, engine
 
 
@@ -2539,11 +2603,11 @@ def _expected_quant_calls(kind, widths, admits, steps, n_layers) -> dict:
     return {"quant": (per + 1) * steps + admits, "wide": per * admits}
 
 
-def _wide_seconds(engine, prompts) -> tuple[float, int]:
-    """Serve under ``torch.profiler`` (card activity only) with every
-    wide-path product on a stream of its own, ordered against the engine's
-    stream both ways: (the card's seconds in the kernels on streams other
-    than the one most kernels ran on, the wide-path calls)."""
+@contextlib.contextmanager
+def _wide_on_side():
+    """While inside, every wide-path product runs on a stream of its own,
+    ordered against the engine's stream both ways (so the card's work
+    keeps its order); yields [the wide-path calls made]."""
     real = quant_mod.quant_matmul_wide
     side: list = []
     calls = [0]
@@ -2562,18 +2626,25 @@ def _wide_seconds(engine, prompts) -> tuple[float, int]:
 
     quant_mod.quant_matmul_wide = on_side
     try:
-        records = _kernel_records(lambda: _serve(engine, prompts))
+        yield calls
     finally:
         quant_mod.quant_matmul_wide = real
+
+
+def _wide_seconds(records, calls: int) -> float:
+    """The card's seconds in the kernels of ``records`` on streams other
+    than the one most kernels ran on: the wide path's, run under
+    ``_wide_on_side`` with ``calls`` wide-path calls (none of them and
+    calls made, or the reverse, fails)."""
     streams = collections.Counter(ev.get("args", {}).get("stream")
                                   for ev in records)
     engine_stream = streams.most_common(1)[0][0]
     wide = [ev for ev in records
             if ev.get("args", {}).get("stream") != engine_stream]
-    check(bool(wide) == bool(calls[0]),
-          f"{calls[0]} wide-path calls, {len(wide)} kernels off the "
+    check(bool(wide) == bool(calls),
+          f"{calls} wide-path calls, {len(wide)} kernels off the "
           "engine's stream")
-    return sum(ev.get("dur", 0) for ev in wide) / 1e6, calls[0]
+    return sum(ev.get("dur", 0) for ev in wide) / 1e6
 
 
 def _quant_engine(qparams, cfg, kind, label, prompts) -> dict:
@@ -2632,18 +2703,20 @@ def _quant_engine(qparams, cfg, kind, label, prompts) -> dict:
         f"{quant_mod.quantized_bytes(qparams) / 2**30:.2f} GiB, peak "
         f"{peak / 2**30:.2f} GiB")
     sub = prompts[::4]
+    t0 = time.monotonic()
     kern = _serve(make(), sub)
     with _plain_quant():
         plain = _serve(make(), sub)
     report = _compare(kern, plain)
     log(f"  {kind} {label}: kernel vs plain products on 4 prompts "
-        f"(fork -1 = tokens equal): {json.dumps(report)}")
-    trace = _trace(make(), prompts[::2], {"quant": "quant_mm_", **attention})
-    wide_s, calls = _wide_seconds(make(), prompts[::2])
-    trace["wide_path_s"] = wide_s
-    trace["wide_path_calls"] = calls
-    trace["weight_products_s"] = trace["quant_s"] + wide_s
-    log(f"  {kind} {label}: traced rerun of 8 prompts: {json.dumps(trace)}")
+        f"(fork -1 = tokens equal; {time.monotonic() - t0:.2f} s): "
+        f"{json.dumps(report)}")
+    t0 = time.monotonic()
+    trace = _trace(make(), prompts[::2], {"quant": "quant_mm_", **attention},
+                   wide=True)
+    trace["weight_products_s"] = trace["quant_s"] + trace["wide_path_s"]
+    log(f"  {kind} {label}: traced rerun of 8 prompts "
+        f"({time.monotonic() - t0:.2f} s): {json.dumps(trace)}")
     return {"launches": got["quant"], "wide_calls": got["wide"],
             "steps": steps, "admissions": admits, "wall_s": wall,
             "peak_gib": peak / 2**30, "widths": widths,
@@ -2688,34 +2761,42 @@ def _busy_seconds(intervals) -> float:
     return total / 1e6
 
 
-def _trace(engine, prompts, kernels: dict) -> dict:
+def _trace(engine, prompts, kernels: dict, wide: bool = False) -> dict:
     """Serve the prompts under ``torch.profiler`` (card activity only) and
     read that one run: its wall seconds, the card's busy seconds (the
     union of kernel intervals), the idle share 1 − busy/wall, each of
     ``kernels``' ({label: name substring}) device seconds and share of
     busy time, and its [launches, device seconds] by launch grid (the
     grid tells a step's dispatch width), and the six largest kernels'
-    device seconds. The
+    device seconds. With ``wide`` the wide path's products run on a
+    stream of their own (``_wide_on_side``) and its device seconds and
+    calls join the record. The
     profiler's own cost on the host stretches this run's wall, so its
     idle share is an upper bound for an untraced run."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with contextlib.ExitStack() as stack:
+        calls = stack.enter_context(_wide_on_side()) if wide else None
+        prof = stack.enter_context(profile(
+            activities=[ProfilerActivity.CUDA]))
         t0 = time.monotonic()
         _serve(engine, prompts)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     by_name: dict[str, float] = {}
     intervals = []
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name] = (by_name.get(ev.name, 0.0)
-                                + ev.time_range.elapsed_us() / 1e6)
-            intervals.append((ev.time_range.start, ev.time_range.end))
+    device = _profiled_device_events(prof)
+    for ev in device:
+        dur = ev.get("dur", 0)
+        by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + dur / 1e6
+        intervals.append((ev["ts"], ev["ts"] + dur))
     busy = _busy_seconds(intervals)
     check(busy > 0, "the trace holds no kernel on the card")
     out = {"wall_s": wall, "busy_s": busy, "idle_share": 1.0 - busy / wall}
-    records = _profiled_kernels(prof)
+    records = [ev for ev in device if ev.get("cat") == "kernel"]
+    if wide:
+        out["wide_path_s"] = _wide_seconds(records, calls[0])
+        out["wide_path_calls"] = calls[0]
     for label, needle in kernels.items():
         seconds = sum(v for k, v in by_name.items() if needle in k)
         check(seconds > 0, f"the trace holds no {needle} on the card")
@@ -4340,6 +4421,7 @@ def train_phase(cfg):
           f"wq grad cosine of all the kernels {cos} below {cos_floor}")
     check(loss_rel <= TRAIN_TOL["loss_rel"], f"step-1 loss rel {loss_rel}")
     check(norm_rel <= TRAIN_TOL["grad_norm_rel"], f"grad norm rel {norm_rel}")
+    STEP_ONE[cfg] = {"loss": kern[0], "grad_norm": kern[1]}
     del plain, kern, bwd_only, nudged
 
     init_state, step_fn = train_mod.make_train_step(
@@ -5590,28 +5672,11 @@ def _host_timed(modules, names):
             setattr(module, name, real)
 
 
-@contextlib.contextmanager
-def _unplanned(params):
-    """A tp=1 shard (every leaf whole) as a model with no shard record
-    while inside: its forward is then the unplanned one, collectives
-    and masked embedding left out."""
-    shard = params.shard
-    owners = [params, *params.layers]
-    for owner in owners:
-        owner.shard = None
-    try:
-        yield params
-    finally:
-        for owner in owners:
-            owner.shard = shard
-
-
 def _tp_degree_one(p5: dict, prompts: list) -> dict:
     """Phase 13 (b): a tp=1 plan over a world-1 NCCL group in this process;
-    phase 5's ragged bf16 run again, bit for bit. Then where the plan's
-    time goes: the same weights served without the plan, both runs with
-    the host seconds of the collectives' functions, and each traced once
-    (8 prompts) for the card's busy seconds and its NCCL kernels'."""
+    phase 5's ragged bf16 run again, bit for bit, with the host seconds
+    of the functions that call the collectives. (The plan's cost, from a
+    rerun with the plan lifted and two traced reruns, is in PERF.md §6.)"""
     cfg = _tp_config(TP_MODEL, TP_DTYPE)
     on_card = torch.device(DEVICE).type == "cuda"
     # NCCL on the card; the CPU rehearsal of this phase has only gloo.
@@ -5625,71 +5690,30 @@ def _tp_degree_one(p5: dict, prompts: list) -> dict:
         params = L.init_params(
             cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
             plan=plan)
-        runs = {}
-        for label in ("planned", "unplanned"):
-            with contextlib.ExitStack() as stack:
-                if label == "unplanned":
-                    stack.enter_context(_unplanned(params))
-                engine = _tp_engine(
-                    params, cfg, plan if label == "planned" else None, True,
-                    64)
-                host = stack.enter_context(
-                    _host_timed((L, paged_mod), TP_COLLECTIVE_CALLS))
-                _sync(DEVICE)
-                _zero_counts()
-                t0 = time.monotonic()
-                toks, lps = _serve(engine, prompts)
-                _sync(DEVICE)
-                wall = time.monotonic() - t0
-                counts = _counts()
-            steps = engine.ragged_steps
-            check(counts["ragged"] == steps * _launches_a_call(cfg),
-                  f"tp=1 {label}: {counts['ragged']} launches for {steps} "
-                  "steps")
-            check(toks == p5["ragged"][0], f"tp=1 {label}: tokens differ "
-                                           "from phase 5's")
-            check(lps == p5["ragged"][1], f"tp=1 {label}: logprobs differ "
-                                          "from phase 5's bit for bit")
-            runs[label] = {
-                "launches": counts["ragged"], "steps": steps, "wall_s": wall,
-                "tokens_per_s": sum(len(t) for t in toks) / wall,
-                "host_s": {k: {"calls": n, "seconds": sec,
-                               "ms_a_call": 1e3 * sec / max(n, 1)}
-                           for k, (n, sec) in host.items()},
-            }
-            del engine
-        for label in ("planned", "unplanned"):
-            with contextlib.ExitStack() as stack:
-                if label == "unplanned":
-                    stack.enter_context(_unplanned(params))
-                engine = _tp_engine(
-                    params, cfg, plan if label == "planned" else None, True,
-                    64)
-                trace = _trace(engine, prompts[::2],
-                               {"attention": "ragged_kernel"})
-            trace["steps"] = engine.ragged_steps
-            runs[label]["trace"] = {
-                k: trace[k] for k in ("wall_s", "busy_s", "idle_share",
-                                      "attention_s", "gemm_s", "nccl_s",
-                                      "nccl_launches", "steps",
-                                      "top_kernels_s")}
-            del engine
-        planned, unplanned = runs["planned"], runs["unplanned"]
-        gap = planned["wall_s"] - unplanned["wall_s"]
-        host_gap = sum(planned["host_s"][k]["seconds"]
-                       - unplanned["host_s"][k]["seconds"]
-                       for k in TP_COLLECTIVE_CALLS)
+        engine = _tp_engine(params, cfg, plan, True, 64)
+        with _host_timed((L, paged_mod), TP_COLLECTIVE_CALLS) as host:
+            _sync(DEVICE)
+            _zero_counts()
+            t0 = time.monotonic()
+            toks, lps = _serve(engine, prompts)
+            _sync(DEVICE)
+            wall = time.monotonic() - t0
+            counts = _counts()
+        steps = engine.ragged_steps
+        check(counts["ragged"] == steps * _launches_a_call(cfg),
+              f"tp=1: {counts['ragged']} launches for {steps} steps")
+        check(toks == p5["ragged"][0], "tp=1: tokens differ from phase 5's")
+        check(lps == p5["ragged"][1], "tp=1: logprobs differ from phase 5's "
+                                      "bit for bit")
         numbers = {"backend": torch.distributed.get_backend(),
-                   "launches": planned["launches"],
-                   "steps": planned["steps"],
-                   "tokens_per_s": planned["tokens_per_s"],
+                   "launches": counts["ragged"], "steps": steps,
+                   "wall_s": wall,
+                   "tokens_per_s": sum(len(t) for t in toks) / wall,
                    "bit_equal_to_phase_5": True,
-                   "planned": planned, "unplanned": unplanned,
-                   "wall_gap_s": gap,
-                   "wall_gap_ms_a_step": 1e3 * gap / planned["steps"],
-                   "host_gap_in_collective_calls_s": host_gap,
-                   "busy_gap_s": (planned["trace"]["busy_s"]
-                                  - unplanned["trace"]["busy_s"])}
+                   "host_s": {k: {"calls": n, "seconds": sec,
+                                  "ms_a_call": 1e3 * sec / max(n, 1)}
+                              for k, (n, sec) in host.items()}}
+        del engine
     finally:
         torch.distributed.destroy_process_group()
     log(f"  degree 1 over NCCL: {json.dumps(numbers)}")
@@ -5712,6 +5736,483 @@ def tp_phase(p5: dict) -> dict:
             "phase_5_tokens_per_s": p5_rate}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: sharded training over torch.distributed
+
+TS_DEGREE = 2
+TS_FSDP_MODEL = "gemma-2b"
+TS_TP_MODEL = "llama-3-8b"
+TS_FSDP_STEPS = 3
+TS_TP_STEPS = 2
+TS_GLOBAL_BATCH = 2  # (a): one row a rank
+# Step 1's loss and global grad norm against the unsharded step's: bf16
+# sums in another order (phase 10's gate).
+TS_TOL = {"loss_rel": 2e-2, "grad_norm_rel": 2e-2}
+# A tp=2 rank's attention at llama-3-8b's training shape: 16 q over 4 kv
+# heads, B 1, S 2048, D 128.
+TS_RANK_SHAPE = (1, 32 // TS_DEGREE, 8 // TS_DEGREE, TRAIN_SEQ, TRAIN_SEQ,
+                 True, 0, 0, None)
+TS_CHILD_TIMEOUT = 900.0
+TS_TAG = "ts-child "
+TS_CHILD_CODE = ("import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.ts_child(sys.argv[1:]))")
+# The host holds each rank's save snapshot (half the state) and the disk
+# the whole state: both must hold this many times the whole state.
+TS_HEADROOM = 2.5
+# (c): examples/train_sharded over phase 11's 2-layer head-dim-64 model,
+# registered under this name for the run.
+TS_EXAMPLE_NAME = "smoke-2l-d64"
+TS_EXAMPLE_STEPS = 2
+# The collectives a sharded step calls, metered in each child.
+TS_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter_tensor")
+# Phase 10's step-1 loss and global grad norm with the kernels, by config:
+# what phase 14 (b) is held to.
+STEP_ONE: dict = {}
+
+
+def ts_rank_shapes_vs_plain() -> dict:
+    """Phase 14 (0): one launch each of the flash forward, dQ and dK/dV at
+    a tp=2 rank's training shape of llama-3-8b (16 q / 4 kv heads, B 1, S
+    2048, D 128), held to their plain versions by phase 3's gates (each
+    twice, bit-equal). Returns {"flash": {gate: error}, "dq"|"dk"|"dv":
+    {gate: error}}."""
+    case = _bwd_case(TS_RANK_SHAPE, 128, seed=1400)
+    fwd = {k: case[k] for k in ("q", "k", "v", "causal", "q_offset",
+                                "window", "kv_mask")}
+    check_fwd_repeat((case["out"], case["lse"]), flash_attention_fwd(**fwd),
+                     "ts-rank")
+    out = {"flash": {}}
+    errs = _flash_errors(case["out"], case["lse"], fwd)
+    _gate("ts-rank flash train-2048", errs, out["flash"])
+    check(errs["lse"] <= LSE_TOL and errs["keyless_rows_ok"],
+          f"ts-rank flash: lse error {errs['lse']} or a keyless row")
+    out["flash"]["lse"] = errs["lse"]
+    grads = flash_attention_bwd(**case)
+    check_bwd_repeat(grads, flash_attention_bwd(**case), "ts-rank")
+    berrs = _bwd_errors(grads, case)
+    for t in ("dq", "dk", "dv"):
+        for gate, limit in BWD_GATES.items():
+            err = berrs[t][gate]
+            check(math.isfinite(err) and err <= limit,
+                  f"ts-rank bwd {t}: {gate} error {err} > {limit}")
+        out[t] = berrs[t]
+    check(berrs["zeros_ok"], "ts-rank bwd: a zero gradient is not zero")
+    log(f"  kernels at a tp={TS_DEGREE} rank's training shape (16 q / 4 kv "
+        f"heads, S {TRAIN_SEQ}): {json.dumps(out)}")
+    return out
+
+
+@contextlib.contextmanager
+def _collective_meter():
+    """Calls, bytes and host seconds of the ``torch.distributed``
+    collectives a sharded step calls, while inside; yields {"calls",
+    "bytes", "seconds"}. An all_reduce moves its tensor's bytes, an
+    all_gather the bytes it gathers, a reduce-scatter its input's. A
+    call's host seconds include any wait the collective makes it take."""
+    dist = torch.distributed
+    seen = {"calls": 0, "bytes": 0, "seconds": 0.0}
+    real = {name: getattr(dist, name) for name in TS_COLLECTIVES}
+
+    def metered(name):
+        def call(*args, **kwargs):
+            first = args[0]
+            if name == "all_gather":
+                nbytes = sum(t.numel() * t.element_size() for t in first)
+            elif name == "reduce_scatter_tensor":
+                nbytes = args[1].numel() * args[1].element_size()
+            else:
+                nbytes = first.numel() * first.element_size()
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                seen["calls"] += 1
+                seen["bytes"] += nbytes
+                seen["seconds"] += time.perf_counter() - t0
+        return call
+
+    for name in TS_COLLECTIVES:
+        setattr(dist, name, metered(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def _ts_print(event: str, **fields) -> None:
+    print(TS_TAG + json.dumps({"event": event, **fields}), flush=True)
+
+
+def _global_mean(value: torch.Tensor, plan) -> float:
+    """The mean over the batch axes of a rank's local mean."""
+    value = value.detach().clone()
+    if plan.batch_group is not None:
+        torch.distributed.all_reduce(value, group=plan.batch_group)
+    return float(value) / plan.n_batch
+
+
+def _ts_batches(spec, plan, n: int) -> list:
+    """(a): n batches of this rank's rows through ``sharded_loader`` and
+    ``device_put_global``; (b): phase 10's batches (the whole global
+    batch: tp ranks share it)."""
+    if spec["mode"] == "fsdp":
+        with sharded_loader(spec["corpus"], TS_GLOBAL_BATCH, spec["seq"],
+                            seed=SEED + 3, mesh=plan.mesh) as loader:
+            return [device_put_global(loader.next(), plan.mesh,
+                                      plan.batch_spec[:2], device=DEVICE)
+                    for _ in range(n)]
+    with TokenLoader(spec["corpus"], 1, spec["seq"], seed=SEED + 1) as loader:
+        return [torch.from_numpy(loader.next()).to(DEVICE) for _ in range(n)]
+
+
+def ts_child(argv: list) -> int:
+    """One rank of phase 14 (a) or (b): joins the gloo group of
+    ``TS_DEGREE`` on the spec's device (``cuda:0`` on the card), draws its
+    shard of the spec's model from the seed (``init_params(plan=)``),
+    shards the AdamW state (``shard_state``) and trains, holding step 1's
+    loss and global grad norm to the spec's unsharded reference and every
+    step's launches to 2 × n_layers flash, n_layers dQ and n_layers
+    dK/dV. (a) then evaluates step 1's batch, saves the state into its
+    ``proc<k>/`` root, restores it into a fresh sharded state from another
+    seed (every leaf's digest equal) and trains one step more. Prints
+    ``ts-child`` records; the last one, "done", carries the numbers."""
+    global DEVICE
+    spec = json.loads(open(argv[0]).read())
+    rank = int(argv[1])
+    started = time.time()
+    DEVICE = spec["device"]
+    on_card = torch.device(DEVICE).type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if on_card:
+        torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{spec['port']}", rank=rank,
+        world_size=TS_DEGREE)
+    axes = {"fsdp": TS_DEGREE} if spec["mode"] == "fsdp" else {
+        "tp": TS_DEGREE}
+    plan = MeshPlan(make_mesh(**axes))
+    cfg = _tp_config(spec["model"], spec["dtype"])
+    n = cfg.n_layers
+    params = L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
+        plan=plan)
+    init_state, step_fn = train_mod.make_train_step(
+        cfg, plan, remat="full", loss_chunk=spec["loss_chunk"])
+    state = train_mod.shard_state(plan, init_state(params))
+    batches = _ts_batches(spec, plan, spec["steps"] + 1)
+    _sync(DEVICE)
+    state_bytes = _state_nbytes(state)
+    inited = time.time()
+    rec = {"rank": rank, "mode": spec["mode"], "state_bytes": state_bytes,
+           "wq_shape": list(params.layers[0].wq.shape),
+           "embed_shape": list(params.embed.shape)}
+    del params  # the state holds it; (a)'s restore frees the state
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, walls, launches, metered = [], [], [], []
+    _zero_counts()
+    for i, tokens in enumerate(batches[:spec["steps"]]):
+        before = _counts()
+        _sync(DEVICE)
+        with _collective_meter() as seen:
+            t0 = time.monotonic()
+            loss = step_fn.loss_and_grads(state, tokens)
+            if i == 0:
+                rec["step1"] = {"loss": float(loss),
+                                "grad_norm": float(step_fn.grad_norm(state))}
+            step_fn.apply(state)
+            _sync(DEVICE)
+            walls.append(time.monotonic() - t0)
+        losses.append(float(loss))
+        metered.append(dict(seen))
+        got = _step_counts(before, _counts())
+        launches.append({k: got[k] for k in ("flash", "bwd_dq", "bwd_dkv")})
+        per = n if on_card else 0
+        check(launches[-1] == {"flash": 2 * per, "bwd_dq": per,
+                               "bwd_dkv": per},
+              f"rank {rank}: step {i + 1} launched {got}")
+        check(got["ragged"] == got["decode"] == got["dense"] == 0,
+              f"rank {rank}: the train step launched a serving kernel")
+        _ts_print("step", rank=rank, step=i + 1, loss=losses[-1],
+                  wall_s=walls[-1])
+    ref = spec["ref"]
+    for key in ("loss", "grad_norm"):
+        rel = abs(rec["step1"][key] - ref[key]) / abs(ref[key])
+        rec["step1"][f"{key}_rel"] = rel
+        check(rel <= TS_TOL[f"{key}_rel"],
+              f"rank {rank}: step 1's {key} {rec['step1'][key]} vs the "
+              f"unsharded {ref[key]} (rel {rel:.3e})")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    rec.update(losses=losses, step_s=walls, launches=launches,
+               collectives=metered)
+    if spec["mode"] == "fsdp":
+        with torch.no_grad():
+            after = _global_mean(train_mod.chunked_causal_lm_loss(
+                state["params"], cfg, plan.local_batch(batches[0]),
+                chunk=spec["loss_chunk"]), plan)
+        check(after < losses[0], f"rank {rank}: the loss on step 1's batch "
+              f"did not fall: {after} after vs {losses[0]}")
+        rec["after_loss"] = after
+        rec.update(_ts_checkpoint(spec, plan, cfg, state, init_state,
+                                  step_fn, batches[-1], rank))
+    rec["trained"] = time.time()
+    rec["started"], rec["inited"] = started, inited
+    rec["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if on_card else 0.0)
+    _ts_print("done", **rec)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _ts_checkpoint(spec, plan, cfg, state, init_state, step_fn, tokens,
+                   rank) -> dict:
+    """(a)'s checkpoint: both ranks save into their ``proc<k>/`` roots,
+    each writing all it holds, the state is freed, a fresh sharded state from another seed restores
+    the step (every leaf's digest equal to the saved one) and trains one
+    step more with a finite loss."""
+    step = int(state["step"])
+    digests = state_digests(state)
+    mgr = CheckpointManager(spec["ckpt_dir"], process_index=rank,
+                            process_count=TS_DEGREE)
+    _sync(DEVICE)
+    t0 = time.monotonic()
+    check(mgr.save(step, state, metadata={"start_batch": step}),
+          f"rank {rank}: the save of step {step} failed")
+    save_s = time.monotonic() - t0
+    mgr.close()
+    del mgr  # its pending host snapshot with it
+    written = sum(
+        os.path.getsize(os.path.join(root, name))
+        for root, _, names in os.walk(os.path.join(
+            spec["ckpt_dir"], f"proc{rank}")) for name in names
+        if name.endswith(".bin"))
+    # Each rank writes every piece it holds (JAX's per-process rule), so
+    # its root alone restores it, under JAX's manager too.
+    check(written == _state_nbytes(state),
+          f"rank {rank}: wrote {written} bytes of the "
+          f"{_state_nbytes(state)} it holds")
+    state.clear()
+    gc.collect()
+    _sync(DEVICE)
+    torch.distributed.barrier()  # every root committed before a restore
+    fresh = train_mod.shard_state(plan, init_state(L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(RESUME_FRESH_SEED),
+        DEVICE, plan=plan)))
+    _sync(DEVICE)
+    t0 = time.monotonic()
+    _, at = CheckpointManager(spec["ckpt_dir"], process_index=rank,
+                              process_count=TS_DEGREE).restore_latest(fresh)
+    _sync(DEVICE)
+    restore_s = time.monotonic() - t0
+    check(at == step, f"rank {rank}: restored step {at}, saved {step}")
+    restored = state_digests(fresh)
+    check(restored == digests, f"rank {rank}: restored leaves differ: "
+          f"{[p for p in digests if restored.get(p) != digests[p]][:5]}")
+    before = _counts()
+    _, loss = step_fn(fresh, tokens)
+    got = _step_counts(before, _counts())
+    check(math.isfinite(float(loss)),
+          f"rank {rank}: the step after the restore: loss {float(loss)}")
+    gb = _state_nbytes(fresh) / 1e9
+    return {"save_s": save_s, "restore_s": restore_s, "written_gb":
+            written / 1e9, "state_gb": gb,
+            "save_gb_per_s": written / 1e9 / save_s,
+            "restore_gb_per_s": gb / restore_s, "leaves": len(digests),
+            "resumed_loss": float(loss),
+            "resumed_launches": {k: got[k] for k in ("flash", "bwd_dq",
+                                                     "bwd_dkv")}}
+
+
+def _ts_reference(cfg, tokens) -> dict:
+    """The unsharded step 1 on the same weights and global batch: its
+    loss and global grad norm with the kernels (phase 10's
+    ``_loss_and_grads``); the model is freed after."""
+    params = L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    params.requires_grad_(True)
+    loss, norm, _ = _loss_and_grads(params, cfg, tokens, "auto")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grad_norm": norm}
+
+
+def _run_ts_children(spec: dict) -> tuple:
+    """Both ranks of (a) or (b) as ``python -c`` children; their "done"
+    records, and the seconds from the spawn to the last one's start."""
+    with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                     delete=False) as f:
+        json.dump(spec, f)
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TS_CHILD_CODE, f.name, str(rank)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for rank in range(TS_DEGREE)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=TS_CHILD_TIMEOUT))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        os.unlink(f.name)
+    recs = []
+    for proc, (out, err) in zip(procs, outs):
+        check(proc.returncode == 0, f"{spec['mode']} child exited "
+              f"{proc.returncode}: " + err[-6000:])
+        done = [json.loads(line[len(TS_TAG):]) for line in out.splitlines()
+                if line.startswith(TS_TAG)]
+        recs.append(next(r for r in done if r["event"] == "done"))
+    return recs, t0
+
+
+def _ts_part(spec: dict, ref_s: float) -> dict:
+    """Spawn (a) or (b), check the ranks against each other and return
+    the part's numbers."""
+    recs, t0 = _run_ts_children(spec)
+    done = time.time()
+    for key in ("losses", "launches", "step1"):
+        check(recs[0][key] == recs[1][key],
+              f"{spec['mode']}: the ranks' {key} differ: {recs[0][key]} vs "
+              f"{recs[1][key]}")
+    out = {
+        "model": spec["model"], "mesh": spec["mode"],
+        "seconds": {"reference": ref_s,
+                    "spawn": max(r["started"] for r in recs) - t0,
+                    "init": max(r["inited"] - r["started"] for r in recs),
+                    "train": max(r["trained"] - r["inited"] for r in recs),
+                    "total": done - t0},
+        "step1": recs[0]["step1"], "reference": spec["ref"],
+        "losses": recs[0]["losses"], "launches": recs[0]["launches"],
+        "step_s": [r["step_s"] for r in recs],
+        "peak_gib": [r["peak_gib"] for r in recs],
+        "state_gb": [r["state_bytes"] / 1e9 for r in recs],
+        "collective_bytes_per_step": [c["bytes"] for c in
+                                      recs[0]["collectives"]],
+        "collective_calls_per_step": [c["calls"] for c in
+                                      recs[0]["collectives"]],
+        "collective_host_s_per_step": [[c["seconds"] for c in
+                                        r["collectives"]] for r in recs],
+        "wq_shape": recs[0]["wq_shape"], "embed_shape": recs[0]["embed_shape"],
+    }
+    if spec["mode"] == "fsdp":
+        for key in ("save_s", "restore_s", "written_gb", "save_gb_per_s",
+                    "restore_gb_per_s", "resumed_loss", "resumed_launches",
+                    "after_loss", "leaves"):
+            out[key] = [r[key] for r in recs]
+        out["seconds"]["checkpoint"] = max(r["save_s"] + r["restore_s"]
+                                           for r in recs)
+    log(f"  {spec['mode']}={TS_DEGREE} {spec['model']}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _ts_example(corpus: str) -> dict:
+    """(c): ``examples/train_sharded.main`` as one rank over a world-1
+    NCCL group (on the CPU rehearsal, gloo): FT_EXAMPLE_CFG, 2 steps with
+    ``--ckpt-dir`` and ``--data``, then again to 3 steps, which must
+    resume at step 2. Returns the launches of the first run."""
+    from kubeflow_tpu_torch.examples import train_sharded as example
+
+    on_card = torch.device(DEVICE).type == "cuda"
+    torch.distributed.init_process_group(
+        "nccl" if on_card else "gloo",
+        init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
+    L.LLAMA_CONFIGS[TS_EXAMPLE_NAME] = FT_EXAMPLE_CFG
+    tmp = tempfile.mkdtemp(prefix="train-sharded-")
+    try:
+        flags = ["--config", TS_EXAMPLE_NAME, "--batch", "4", "--seq", "64",
+                 "--ckpt-dir", tmp, "--data", corpus,
+                 *([] if on_card else ["--device", DEVICE])]
+        runs = []
+        for steps in (TS_EXAMPLE_STEPS, TS_EXAMPLE_STEPS + 1):
+            out = io.StringIO()
+            _zero_counts()
+            with contextlib.redirect_stdout(out):
+                example.main(["--steps", str(steps), *flags])
+            runs.append((out.getvalue().splitlines(), _counts()))
+        backend = torch.distributed.get_backend()
+    finally:
+        del L.LLAMA_CONFIGS[TS_EXAMPLE_NAME]
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.distributed.destroy_process_group()
+    (first, counts), (again, counts2) = runs
+    n = FT_EXAMPLE_CFG.n_layers * (TS_EXAMPLE_STEPS if on_card else 0)
+    launched = {k: counts[k] for k in ("flash", "bwd_dq", "bwd_dkv")}
+    check(launched == {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n},
+          f"train_sharded launched {counts}")
+    check(f"resumed from step {TS_EXAMPLE_STEPS} (preemption recovery)"
+          in again, f"train_sharded did not resume: {again}")
+    steps = [x for x in first + again if x.startswith("step ")]
+    check(len(steps) == TS_EXAMPLE_STEPS + 1, f"train_sharded: {steps}")
+    log(f"  examples/train_sharded over a world-1 {backend} group: "
+        f"{steps}; launches {launched}")
+    return {"backend": backend, "launches": launched, "steps": steps}
+
+
+def train_sharded_phase() -> dict:
+    """Phase 14: the rank-shape kernels, then (a) fsdp=2 gemma-2b and (b)
+    tp=2 llama-3-8b, each as two gloo ranks on the one card after an
+    unsharded reference, then (c) examples/train_sharded over a world-1
+    NCCL group. Returns the phase's numbers."""
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = ts_rank_shapes_vs_plain()
+    tmp = tempfile.mkdtemp(prefix="ts-")
+    try:
+        # (a): the disk and the host must hold the state's save.
+        cfg = _tp_config(TS_FSDP_MODEL, TP_DTYPE)
+        est = 3 * cfg.param_count() * torch.empty(
+            (), dtype=cfg.dtype).element_size()
+        mem, disk = _mem_available(), shutil.disk_usage(tmp).free
+        log(f"  {TS_FSDP_MODEL}: train state ~{est / 1e9:.2f} GB; host "
+            f"MemAvailable {mem / 1e9:.2f} GB, free disk {disk / 1e9:.2f} GB "
+            f"under {tmp}")
+        check(mem >= TS_HEADROOM * est and disk >= TS_HEADROOM * est,
+              f"phase 14 needs {TS_HEADROOM}x the state ({est / 1e9:.2f} GB)"
+              f" in host memory and on disk: MemAvailable {mem / 1e9:.2f} "
+              f"GB, free disk {disk / 1e9:.2f} GB")
+        corpus = _train_corpus(tmp, cfg.vocab_size)
+        t0 = time.monotonic()
+        rows = [sharded_loader(corpus, TS_GLOBAL_BATCH, TRAIN_SEQ,
+                               seed=SEED + 3, process_id=k,
+                               num_processes=TS_DEGREE)
+                for k in range(TS_DEGREE)]
+        tokens = torch.from_numpy(np.concatenate(
+            [ld.next() for ld in rows])).to(DEVICE)
+        for ld in rows:
+            ld.close()
+        ref = _ts_reference(cfg, tokens)
+        del tokens
+        base = {"port": 0, "device": DEVICE, "dtype": TP_DTYPE,
+                "corpus": corpus, "loss_chunk": LOSS_CHUNK,
+                "seq": TRAIN_SEQ}
+        fsdp = _ts_part({**base, "port": _free_port(), "mode": "fsdp",
+                         "model": TS_FSDP_MODEL, "steps": TS_FSDP_STEPS,
+                         "ref": ref, "ckpt_dir": os.path.join(tmp, "ckpt")},
+                        time.monotonic() - t0)
+        shutil.rmtree(os.path.join(tmp, "ckpt"), ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b): phase 10's llama-3-8b step 1, recorded there.
+        tcfg = _tp_config(TS_TP_MODEL, TP_DTYPE)
+        tp = _ts_part({**base, "port": _free_port(), "mode": "tp",
+                       "model": TS_TP_MODEL, "steps": TS_TP_STEPS,
+                       "ref": STEP_ONE[tcfg]}, 0.0)
+        example = _ts_example(corpus)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers = {"kernels": kernels, "fsdp": fsdp, "tp": tp,
+               "example": example,
+               "seconds": time.monotonic() - t_phase}
+    return numbers
+
+
 def main() -> int:
     # One card, the first visible one, set before CUDA starts: the process
     # drives and counts one card however many the host has.
@@ -5724,7 +6225,7 @@ def main() -> int:
     t_start = time.monotonic()
     phases = {}
 
-    log("[1/13] card")
+    log("[1/14] card")
     smi = subprocess.run(
         ["nvidia-smi", "-i", card_id, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -5738,7 +6239,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     phases["card"] = time.monotonic() - t_start
 
-    log("[2/13] build")
+    log("[2/14] build")
     t0 = time.monotonic()
     seconds = _build.build()
     for name, took in seconds.items():
@@ -5749,7 +6250,7 @@ def main() -> int:
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
 
-    log("[3/13] kernel vs plain")
+    log("[3/14] kernel vs plain")
     t0 = time.monotonic()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
@@ -5759,7 +6260,7 @@ def main() -> int:
     quant_errors = quant_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
-    log("[4/13] timing at the main-path shapes")
+    log("[4/14] timing at the main-path shapes")
     t0 = time.monotonic()
     times = timing()
     flash_times = timing_flash()
@@ -5769,7 +6270,7 @@ def main() -> int:
     quant_times = timing_quant()
     phases["timing"] = time.monotonic() - t0
 
-    log("[5/13] engines: llama-3-8b, full width and depth, random weights")
+    log("[5/14] engines: llama-3-8b, full width and depth, random weights")
     t0 = time.monotonic()
     cfg = L.LLAMA_CONFIGS["llama-3-8b"]
     params = L.init_params(
@@ -5784,19 +6285,19 @@ def main() -> int:
     quant_rows = quant_engine_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
-    log("[6/13] HTTP")
+    log("[6/14] HTTP")
     t0 = time.monotonic()
     http_tokens = {"ragged": http_phase(engine, "ragged")}
     http_phase(alt_engine, "alternating")
     http_tokens["continuous"] = http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
-    log("[7/13] prefix and handoff")
+    log("[7/14] prefix and handoff")
     t0 = time.monotonic()
     prefix = prefix_phase(params, cfg, card)
     phases["prefix"] = time.monotonic() - t0
 
-    log("[8/13] speculation and multi-LoRA")
+    log("[8/14] speculation and multi-LoRA")
     t0 = time.monotonic()
     spec = spec_lora_phase(params, cfg, card, runs)
     # Phase 13 holds its tokens to phase 5's.
@@ -5806,7 +6307,7 @@ def main() -> int:
     del runs
     phases["spec_lora"] = time.monotonic() - t0
 
-    log("[9/13] checkpoint and observability")
+    log("[9/14] checkpoint and observability")
     t0 = time.monotonic()
     # Phases 5-8's engines and pools go first; the served weights stay.
     del engine, alt_engine, cont_engine
@@ -5815,7 +6316,7 @@ def main() -> int:
     ckpt = checkpoint_phase(params, cfg, card, http_tokens)
     phases["checkpoint"] = time.monotonic() - t0
 
-    log(f"[10/13] train: {', '.join(TRAIN_MODELS)}")
+    log(f"[10/14] train: {', '.join(TRAIN_MODELS)}")
     t0 = time.monotonic()
     # The serving model goes first: training needs ~66 GB.
     del params
@@ -5828,23 +6329,30 @@ def main() -> int:
     train_launches = trained["llama-3-8b"]
     phases["train"] = time.monotonic() - t0
 
-    log(f"[11/13] finetune: fp8 products, then {FT_MODEL}'s LoRA finetune "
+    log(f"[11/14] finetune: fp8 products, then {FT_MODEL}'s LoRA finetune "
         "and fp8 training, then examples/finetune_lora")
     t0 = time.monotonic()
     finetune = finetune_phase(card)
     phases["finetune"] = time.monotonic() - t0
 
-    log(f"[12/13] resume: SIGTERM to a child training {RESUME_MODEL}, then "
+    log(f"[12/14] resume: SIGTERM to a child training {RESUME_MODEL}, then "
         "its emergency checkpoint restored on the card")
     t0 = time.monotonic()
     resume = resume_phase()
     phases["resume"] = time.monotonic() - t0
 
-    log(f"[13/13] tp: degree {TP_DEGREE} on the one card over gloo, then "
+    log(f"[13/14] tp: degree {TP_DEGREE} on the one card over gloo, then "
         "degree 1 over NCCL")
     t0 = time.monotonic()
     tp = tp_phase(p5)
     phases["tp"] = time.monotonic() - t0
+
+    log(f"[14/14] train_sharded: fsdp={TS_DEGREE} {TS_FSDP_MODEL} and "
+        f"tp={TS_DEGREE} {TS_TP_MODEL} as gloo ranks on the one card, then "
+        "examples/train_sharded over NCCL")
+    t0 = time.monotonic()
+    sharded = train_sharded_phase()
+    phases["train_sharded"] = time.monotonic() - t0
 
     def entry(name, source, replaces, launched, errs, timed, **extra):
         return {
@@ -6012,6 +6520,22 @@ def main() -> int:
                 "launches"]["continuous_flash"]
         if key == "ragged":
             k["launches_tp1_nccl"] = tp["degree_1"]["launches"]
+    # Phase 14's runs, each rank's counts from 0 just before its steps.
+    for k in kernels:
+        key = {"flash_attention": "flash",
+               "flash_attention_bwd_dq": "bwd_dq",
+               "flash_attention_bwd_dkv": "bwd_dkv"}.get(k["name"])
+        if key is None:
+            continue
+        for part in ("fsdp", "tp"):
+            k[f"launches_train_sharded_{part}_per_rank"] = [
+                step[key] for step in sharded[part]["launches"]]
+        k["launches_train_sharded_example"] = sharded["example"][
+            "launches"][key]
+        k["ts_rank_max_abs_err"] = max(
+            sharded["kernels"][t]["abs"] for t in {
+                "flash": ("flash",), "bwd_dq": ("dq",),
+                "bwd_dkv": ("dk", "dv")}[key])
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     # The fp8 products are torch._scaled_mm, a library call that stands
@@ -6024,6 +6548,7 @@ def main() -> int:
             "shapes": finetune["products"]}}))
     print(json.dumps({"resume": resume}))
     print(json.dumps({"tp": tp}))
+    print(json.dumps({"train_sharded": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

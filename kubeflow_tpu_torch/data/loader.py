@@ -19,8 +19,16 @@ falls back to the Python path silently when the library does not build
 or load, or ``dl_open`` fails; the port raises instead (a build failure
 names the build log), and the Python path runs only when asked for.
 
-``sharded_loader`` takes the process id and count from
-``torch.distributed`` when it is initialized, else 0 and 1.
+Sharded training (``device_put_global``, ``sharded_loader``): JAX runs one
+process a host over several devices, and a process's rows are its
+devices' rows of the global batch. The port runs one process a device,
+so a process's identity in the global batch is its BATCH COORDINATE: its
+index over the mesh's batch axes (dp · fsdp) and their count. Ranks that
+differ only along tp (or any axis that does not split the batch) are one
+coordinate and read the same rows, as one JAX host's devices do.
+``sharded_loader`` takes it from ``mesh`` when given, else from
+``torch.distributed`` (every rank its own coordinate: a mesh of fsdp =
+world), else 0 and 1.
 """
 
 from __future__ import annotations
@@ -200,9 +208,16 @@ class TokenLoader:
         self.close()
 
 
-def _process_identity() -> tuple[int, int]:
+def _process_identity(mesh=None) -> tuple[int, int]:
+    """(batch coordinate, count of coordinates): this rank's index over
+    ``mesh``'s batch axes and their size; without a mesh, the process
+    group's (rank, world size), or (0, 1) with none up."""
     import torch.distributed as dist
 
+    if mesh is not None:
+        from kubeflow_tpu_torch.parallel.mesh import BATCH_AXES
+
+        return mesh.axis_index(BATCH_AXES), mesh.axis_size(BATCH_AXES)
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
@@ -211,17 +226,20 @@ def _process_identity() -> tuple[int, int]:
 def sharded_loader(path: str | Path, global_batch: int, seq: int,
                    seed: int = 1, process_id: Optional[int] = None,
                    num_processes: Optional[int] = None,
-                   start_batch: int = 0, **kwargs) -> TokenLoader:
+                   start_batch: int = 0, mesh=None,
+                   **kwargs) -> TokenLoader:
     """Per-process loader for multi-process training: each process loads
     ONLY its global_batch/num_processes rows, from a process-disjoint
-    stream (the seed is splitmix-style mixed with the process id).
+    stream (the seed is splitmix-style mixed with the process id). The
+    process id and count default to the batch coordinate of ``mesh``
+    (``_process_identity``): tp peers read the same rows.
 
     ``start_batch`` is a GLOBAL batch index (``runtime.checkpoint.
     resume_start_batch`` after ``restore_latest``): every process's stream
     advances by the same count, so a resumed run replays nothing and
     skips nothing. ``kwargs`` go to ``TokenLoader`` (``prefetch``,
     ``force_python``)."""
-    env_pid, env_num = _process_identity()
+    env_pid, env_num = _process_identity(mesh)
     pid = env_pid if process_id is None else process_id
     num = env_num if num_processes is None else num_processes
     if global_batch % num != 0:
@@ -233,3 +251,31 @@ def sharded_loader(path: str | Path, global_batch: int, seq: int,
     mixed = (mixed % ((1 << 63) - 1)) or 1
     return TokenLoader(path, global_batch // num, seq, seed=mixed,
                        start_batch=start_batch, **kwargs)
+
+
+def device_put_global(local_batch: np.ndarray, mesh, spec, device=None):
+    """This process's rows of the GLOBAL batch, as a tensor on ``device``
+    (the card unless ``"cpu"`` is asked for) with the global batch's
+    ``Placement`` over ``mesh`` and ``spec`` (e.g. ``MeshPlan.batch_spec``)
+    beside it: the piece JAX's ``make_array_from_process_local_data``
+    puts on this process's device. A rank is one device, so its local
+    rows are its whole piece (``sharded_loader`` reads exactly them); the
+    global shape is the local one times the axes of ``spec`` a dim.
+    ``make_train_step``'s step takes the piece as it is."""
+    import torch
+
+    from kubeflow_tpu_torch.device import resolve_device
+    from kubeflow_tpu_torch.parallel.mesh import Placement, place
+
+    local = np.asarray(local_batch)
+    spec = tuple(spec)
+    global_shape = tuple(
+        n * (mesh.axis_size(spec[d]) if d < len(spec) else 1)
+        for d, n in enumerate(local.shape))
+    placement = Placement(mesh, spec, global_shape)
+    if placement.local_shape != local.shape:
+        raise ValueError(
+            f"local batch {local.shape} is not this rank's piece "
+            f"{placement.local_shape} of {global_shape}")
+    dev = resolve_device(device)
+    return place(torch.from_numpy(local).to(dev), placement)

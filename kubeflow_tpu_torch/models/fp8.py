@@ -85,10 +85,15 @@ def _scale_from(hist: torch.Tensor, fmax: float,
                        torch.ones_like(den))
 
 
-def _record(hist: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _record(hist: torch.Tensor, x: torch.Tensor, group=None) -> torch.Tensor:
     """The history rolled by one with ``max|x|`` (in f32) at its front: a
-    new tensor, the history left as it was."""
+    new tensor, the history left as it was. With a ``group`` (a plan's
+    mesh) the maximum is over every rank's piece of ``x``: the amax of
+    the global tensor, as JAX's ``max`` over a sharded array."""
     amax = torch.amax(torch.abs(x)).float().reshape(1)
+    if group is not None:
+        torch.distributed.all_reduce(amax, op=torch.distributed.ReduceOp.MAX,
+                                     group=group)
     return torch.cat([amax, hist[:-1]])
 
 
@@ -144,7 +149,7 @@ def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _fp8_forward(x: torch.Tensor, w: torch.Tensor, x_hist: torch.Tensor,
-                 w_hist: torch.Tensor):
+                 w_hist: torch.Tensor, group=None):
     """JAX's ``_fp8_fwd``: (y, qx, qw, sx, sw, next x_hist, next w_hist)."""
     sx = _scale_from(x_hist, E4M3_MAX)
     sw = _scale_from(w_hist, E4M3_MAX)
@@ -152,12 +157,13 @@ def _fp8_forward(x: torch.Tensor, w: torch.Tensor, x_hist: torch.Tensor,
     qw = _cast(w, sw, torch.float8_e4m3fn, E4M3_MAX)
     # f32 accumulation, then both operand scales undone in the epilogue.
     y = (_matmul(qx, qw) / (sx * sw)).to(x.dtype)
-    return y, qx, qw, sx, sw, _record(x_hist, x), _record(w_hist, w)
+    return (y, qx, qw, sx, sw, _record(x_hist, x, group),
+            _record(w_hist, w, group))
 
 
 def _fp8_backward(g: torch.Tensor, qx: torch.Tensor, qw: torch.Tensor,
                   sx: torch.Tensor, sw: torch.Tensor, g_hist: torch.Tensor,
-                  x_dtype, w_dtype):
+                  x_dtype, w_dtype, group=None):
     """JAX's ``_fp8_bwd``: (dx, dw, qg, next g_hist); dx = qg @ qwᵀ and
     dw = qx₂ᵀ @ qg₂, each accumulated in f32 and divided by its scales."""
     sg = _scale_from(g_hist, E5M2_MAX)
@@ -166,7 +172,7 @@ def _fp8_backward(g: torch.Tensor, qx: torch.Tensor, qw: torch.Tensor,
     qg2 = qg.reshape(-1, qg.shape[-1])
     qx2 = qx.reshape(-1, qx.shape[-1])
     dw = (fp8_product(qx2.t(), qg2) / (sx * sg)).to(w_dtype)
-    return dx, dw, qg, _record(g_hist, g)
+    return dx, dw, qg, _record(g_hist, g, group)
 
 
 class Fp8Matmul(torch.autograd.Function):
@@ -174,26 +180,31 @@ class Fp8Matmul(torch.autograd.Function):
     each history is its next value (overwrite with gradient)."""
 
     @staticmethod
-    def forward(ctx, x, w, x_hist, w_hist, g_hist):
-        y, qx, qw, sx, sw, next_x, next_w = _fp8_forward(x, w, x_hist, w_hist)
+    def forward(ctx, x, w, x_hist, w_hist, g_hist, group=None):
+        y, qx, qw, sx, sw, next_x, next_w = _fp8_forward(
+            x, w, x_hist, w_hist, group)
         ctx.save_for_backward(qx, qw, sx, sw, next_x, next_w, g_hist)
         ctx.dtypes = (x.dtype, w.dtype)
+        ctx.group = group
         return y
 
     @staticmethod
     def backward(ctx, g):
         qx, qw, sx, sw, next_x, next_w, g_hist = ctx.saved_tensors
         dx, dw, _, next_g = _fp8_backward(g, qx, qw, sx, sw, g_hist,
-                                          *ctx.dtypes)
-        return dx, dw, next_x, next_w, next_g
+                                          *ctx.dtypes, ctx.group)
+        return dx, dw, next_x, next_w, next_g, None
 
 
-def fp8_matmul(x: torch.Tensor, w: torch.Tensor, meta: dict) -> torch.Tensor:
+def fp8_matmul(x: torch.Tensor, w: torch.Tensor, meta: dict,
+               group=None) -> torch.Tensor:
     """``x @ w`` with fp8 operands and delayed scaling. x: (..., K), w:
     (K, N), meta: ``init_meta()``'s dict. Differentiable in x and w; each
     history's gradient is its next value (``models/train.py`` replaces the
-    history by it)."""
-    return Fp8Matmul.apply(x, w, *(meta[name] for name in _META))
+    history by it). Under a plan, ``group`` is the mesh's: each amax is
+    then the maximum over every rank's piece (x and g split over the
+    batch and tp, w over tp), so every rank records the same histories."""
+    return Fp8Matmul.apply(x, w, *(meta[name] for name in _META), group)
 
 
 class Fp8Weight(nn.Module):

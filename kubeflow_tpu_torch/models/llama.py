@@ -30,17 +30,22 @@ jitted scan, and draw from a ``torch.Generator`` where JAX takes a key.
 Caches are updated IN PLACE (JAX donates them and returns new ones), and
 the functions return the cache they were given.
 
-Under a tensor-parallel plan (``parallel/mesh.py``'s ``shard_params``)
-a rank's ``Llama`` holds its slice of every sharded leaf and a ``shard``
-record (the tp group, this rank's vocab rows) on itself and each layer.
-The forward reads the local head counts from the widths it is given
-(``_split_heads`` splits by the head dim) and adds the collectives GSPMD
-inserts in JAX: one ``all_reduce`` of the partial outputs of ``wo`` and
-of ``w_down`` each, in the model dtype (``_tp_sum``), a masked lookup of
-the vocab-split embedding plus ``all_reduce`` (exact: one value and
-zeros), and an ``all_gather`` of the vocab-split head's f32 logits. The
+Under a plan (``parallel/mesh.py``'s ``init_params(plan=)``,
+``shard_params``) a rank's ``Llama`` holds its slice of every sharded leaf,
+each with its ``Placement``, and a ``shard`` record (the tp group, this
+rank's vocab rows) on itself and each layer. The forward reads the local
+head counts from the widths it is given (``_split_heads`` splits by the
+head dim) and calls the collectives GSPMD inserts in JAX, each
+differentiable (``parallel/collectives.py``): one sum over tp of the
+partial outputs of ``wo`` and of ``w_down`` each, in the model dtype
+(``_tp_sum``), its conjugate before every column-parallel product, a
+masked lookup of the vocab-split embedding plus a sum (exact: one value
+and zeros), and a gather of the vocab-split head's f32 logits. A leaf
+fsdp cuts is gathered where it is used (``_whole``), inside the layer
+body a remat policy wraps, and its gradient reduce-scattered back. The
 vocab must divide by tp (every ``LLAMA_CONFIGS`` vocab divides by 8).
-Without a shard the forward is unchanged.
+Without a shard the forward is unchanged; outside autograd the serving
+path reduces in place, as it did.
 
 Projections and the lm head may be quantized (``models/quant.py``: int8,
 int4, fp8): ``_mm`` and ``_lm_head_logits`` take a ``QuantizedWeight``
@@ -80,6 +85,8 @@ from kubeflow_tpu_torch.models.fp8 import Fp8Weight, fp8_matmul
 from kubeflow_tpu_torch.models.quant import QuantizedWeight
 from kubeflow_tpu_torch.models.quant import matmul as quant_matmul
 from kubeflow_tpu_torch.ops.attention import NEG_INF, flash_attention
+from kubeflow_tpu_torch.parallel import collectives
+from kubeflow_tpu_torch.parallel.mesh import AXES, placement_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,10 +253,11 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
     f32 temporary. They do not match JAX's ``PRNGKey`` draws; parity tests
     bring JAX weights over through ``models/bridge.py`` instead.
 
-    ``plan`` (a tp MeshPlan, ``parallel/mesh.py``) returns this rank's
-    shard of the same model: each leaf is drawn whole, in the whole
-    model's order, and cut to the rank's slice at once, so the values are
-    the unsharded init's and the peak extra memory is one whole leaf."""
+    ``plan`` (a MeshPlan, ``parallel/mesh.py``: tp, fsdp, dp) returns this
+    rank's shard of the same model, each leaf with its ``Placement``: each
+    leaf is drawn whole, in the whole model's order, and cut to the rank's
+    slice at once, so the values are the unsharded init's and the peak
+    extra memory is one whole leaf."""
     from kubeflow_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
@@ -259,9 +267,8 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
         model = Llama(cfg, dev)
         whole = dict(model.named_parameters())
     else:
-        plan.check_serving()
-        model = Llama(plan.shard_config(cfg), dev)
-        model.cfg = cfg
+        plan.check_training()
+        model = plan.empty_shard(cfg, dev)
         whole = dict(Llama(cfg, "meta").named_parameters())
     local = dict(model.named_parameters())
     with torch.no_grad():
@@ -278,15 +285,29 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
                 p.mul_(torch.tensor(1.0 / math.sqrt(p.shape[-2]),
                                     dtype=cfg.dtype, device=dev))
             if plan is not None:
-                local[name].copy_(plan.shard_leaf(leaf, p))
+                local[name].copy_(placement_of(local[name]).slice(p))
                 del p
-    if plan is not None:
-        plan.mark(model)
     return model
 
 
 # ---------------------------------------------------------------------------
 # Building blocks (f32 internals, model-dtype boundaries)
+
+
+def _whole(w: torch.Tensor) -> torch.Tensor:
+    """A leaf whole along the dim fsdp cuts: its fsdp slices gathered
+    (``collectives.fsdp_gather``, whose backward reduce-scatters the
+    gradient), or the leaf itself when fsdp does not cut it. Called where
+    the leaf is used, inside the layer body a remat policy wraps, so a
+    recompute gathers again and no more than a layer is gathered at
+    once."""
+    pl = placement_of(w)
+    if pl is None:
+        return w
+    dim = pl.split_dim("fsdp")
+    if dim is None:
+        return w
+    return collectives.fsdp_gather(w, pl.mesh.group("fsdp"), dim)
 
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
@@ -296,21 +317,28 @@ def _mm(x: torch.Tensor, w) -> torch.Tensor:
     scaled; int4 ``x @ dequantize(w)``, the operand dequantized in f32 and
     rounded, as the JAX function rounds them. fp8 training: the master
     weight ``hp`` and its delayed-scaling histories through
-    ``fp8_matmul``, the products with fp8 operands."""
+    ``fp8_matmul``, the products with fp8 operands; under a plan each
+    amax is the maximum over the whole mesh, as GSPMD's ``max`` over a
+    global array. A dense weight fsdp cuts is gathered first
+    (``_whole``)."""
     if isinstance(w, QuantizedWeight):
         return quant_matmul(x, w)
     if isinstance(w, Fp8Weight):
-        return fp8_matmul(x, w.hp, w.meta())
+        pl = placement_of(w.hp)
+        return fp8_matmul(x, _whole(w.hp), w.meta(),
+                          group=None if pl is None else pl.mesh.group(AXES))
     if not isinstance(w, torch.Tensor):
         raise TypeError(
             f"only dense or quantized weights are supported, got "
             f"{type(w).__name__}"
         )
-    return x @ w
+    return x @ _whole(w)
 
 
 def _qkv(h: torch.Tensor, layer: LlamaLayer):
-    """q/k/v projections with optional qwen2-style biases."""
+    """q/k/v projections with optional qwen2-style biases. Under tp the
+    input's gradient is summed over the ranks' heads (``tp_copy``)."""
+    h = collectives.tp_copy(h, _tp_group(layer))
     q, k, v = _mm(h, layer.wq), _mm(h, layer.wk), _mm(h, layer.wv)
     if layer.bq is not None:
         q, k, v = q + layer.bq, k + layer.bk, v + layer.bv
@@ -325,32 +353,34 @@ def _tp_group(owner):
 
 def _tp_sum(y: torch.Tensor, owner) -> torch.Tensor:
     """Sum the partial outputs of a row-sharded projection (``wo``,
-    ``w_down``) over the tp group, in place and in their dtype: the psum
-    GSPMD inserts after them in JAX. The identity without a shard."""
-    group = _tp_group(owner)
-    if group is None:
-        return y
-    y = y.contiguous()
-    torch.distributed.all_reduce(y, group=group)
-    return y
+    ``w_down``) over the tp group, in their dtype: the psum GSPMD inserts
+    after them in JAX (in place outside autograd; the identity in the
+    backward). The identity without a shard."""
+    return collectives.tp_sum(y, _tp_group(owner))
 
 
-def _lm_head_logits(x: torch.Tensor, params: Llama) -> torch.Tensor:
+def _head_weight(params: Llama):
+    """The lm head's weight (the embedding's for tied models), whole
+    along the dim fsdp cuts."""
+    w = params.lm_head if params.lm_head is not None else params.embed
+    return w if isinstance(w, QuantizedWeight) else _whole(w)
+
+
+def _lm_head_logits(x: torch.Tensor, params: Llama,
+                    w=None) -> torch.Tensor:
     """x @ lm_head.T in the model dtype, THEN cast to f32 logits. Tied
     models project through the embedding matrix. A quantized head gives
     f32(x @ q.T) * s (int8, fp8) or f32(x @ dequantize(w).T) (int4). A
     vocab-split head gathers every rank's f32 logits along the vocab, so
-    each rank samples from the full row."""
-    w = params.lm_head if params.lm_head is not None else params.embed
+    each rank samples from the full row. ``w``: the head weight as
+    ``_head_weight`` gives it, where the caller gathered it once for
+    several calls."""
+    w = _head_weight(params) if w is None else w
     if isinstance(w, QuantizedWeight):
         return quant_matmul(x, w)
-    logits = (x @ w.T).float()
     group = _tp_group(params)
-    if group is None:
-        return logits
-    parts = [torch.empty_like(logits) for _ in range(params.shard.size)]
-    torch.distributed.all_gather(parts, logits.contiguous(), group=group)
-    return torch.cat(parts, dim=-1)
+    x = collectives.tp_copy(x, group)
+    return collectives.tp_gather((x @ w.T).float(), group)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -368,17 +398,20 @@ def _norm(x: torch.Tensor, weight: torch.Tensor, cfg: LlamaConfig) -> torch.Tens
 
 
 def _embed(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+    embed = _whole(params.embed)
     if _tp_group(params) is None:
-        x = params.embed[tokens]
+        x = embed[tokens]
     else:
         # Vocab-split rows: each rank looks up the tokens it holds, zeros
-        # elsewhere, and the sum over ranks is the one row, exactly.
+        # elsewhere, and the sum over ranks is the one row, exactly. In
+        # the backward each rank scatters the whole row's gradient into
+        # the rows it holds.
         shard = params.shard
         local = tokens - shard.vocab_lo
         held = (local >= 0) & (local < shard.vocab_local)
-        x = params.embed[local.clamp(0, shard.vocab_local - 1)]
+        x = embed[local.clamp(0, shard.vocab_local - 1)]
         x = torch.where(held[..., None], x, torch.zeros_like(x))
-        torch.distributed.all_reduce(x, group=shard.group)
+        x = collectives.tp_sum(x, shard.group)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.dim), dtype=x.dtype, device=x.device)
     return x
@@ -463,6 +496,7 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp(layer: LlamaLayer, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    x = collectives.tp_copy(x, _tp_group(layer))
     pre = _mm(x, layer.w_gate).float()
     if cfg.act == "gelu":
         gate = F.gelu(pre, approximate="tanh")  # pytorch-tanh gelu

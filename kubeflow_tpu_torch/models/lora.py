@@ -14,6 +14,13 @@ first: for a target W (in, out) of every layer, ``{"a": (L, in, r), "b":
   to the merged weights; every base weight enters as a detached view, so
   the base never requires grad and gets no gradient. At llama-3-8b the
   merged wq and wv copies hold ~1.34 GB beside the base.
+- Finetuning under a plan (JAX's ``make_lora_train_step(plan=)``): the
+  base is this rank's shard (``MeshPlan.shard_params``), the adapters
+  stay whole on every rank, and each rank merges its slice of ``a @ b``
+  into its slice of each target (``a``'s rows and ``b``'s columns that
+  the target's placement gives it). The batch is split over dp · fsdp;
+  each adapter's gradient is summed over the mesh (every rank computed
+  its slice's share) and averaged over the batch axes.
 """
 
 from __future__ import annotations
@@ -29,11 +36,13 @@ from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
 from kubeflow_tpu_torch.models.quant import QuantizedWeight, _set
 from kubeflow_tpu_torch.models.train import (
-    _check_plan,
+    _mesh_plan,
+    batch_mean,
     causal_lm_loss,
     make_optimizer,
     tensor_leaves,
 )
+from kubeflow_tpu_torch.parallel.mesh import AXES, place, placement_of
 
 # Weights eligible for adapters: every layer's (in, out) projection.
 _ADAPTABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -108,15 +117,35 @@ def _merged(params: Llama, lora: dict, lcfg: LoraConfig,
         )
     out = Llama(params.cfg, device="meta")
     for name, p in params.named_parameters():
-        _set(out, name, p.detach() if graph else p)
+        _set(out, name, _placed_like(p.detach(), p) if graph else p)
     for target, ab in lora.items():
         for i, layer in enumerate(params.layers):
-            w = getattr(layer, target).detach()
-            delta = (ab["a"][i].float() @ ab["b"][i].float()) * lcfg.scaling
+            base = getattr(layer, target)
+            w = base.detach()
+            a, b = ab["a"][i], ab["b"][i]
+            pl = placement_of(base)
+            if pl is not None:
+                # This rank's slice of a @ b: a's rows of the target's
+                # first dim, b's columns of its second.
+                (r0, r1), (c0, c1) = pl.index()
+                a, b = a[r0:r1], b[:, c0:c1]
+            delta = (a.float() @ b.float()) * lcfg.scaling
             merged = (w.float() + delta).to(w.dtype)
-            _set(out.layers[i], target, merged if graph
-                 else nn.Parameter(merged, requires_grad=False))
+            if graph:
+                _set(out.layers[i], target, _placed_like(merged, base))
+            else:
+                _set(out.layers[i], target, _placed_like(
+                    nn.Parameter(merged, requires_grad=False), base))
+    out.shard = params.shard
+    for layer, src in zip(out.layers, params.layers):
+        layer.shard = src.shard
     return out
+
+
+def _placed_like(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``t`` with ``src``'s ``Placement`` beside it, where it has one."""
+    pl = placement_of(src)
+    return t if pl is None else place(t, pl)
 
 
 @torch.no_grad()
@@ -156,8 +185,10 @@ def make_lora_train_step(cfg: LlamaConfig, lcfg: LoraConfig, plan=None,
     ``optimizer`` is given) and returns ``(state, loss)``, the state
     updated in place (JAX donates it and returns a new one). The base
     stays frozen: it records no graph and is never written. ``plan`` is
-    ``None`` or a device, as ``make_train_step``'s."""
-    _check_plan(plan)
+    ``None`` or a device, or a ``MeshPlan`` whose shard ``base_params``
+    is (the batch a global one each rank takes its rows of, as
+    ``make_train_step``'s); the loss returned is the global batch's."""
+    plan = _mesh_plan(plan)
     optimizer = optimizer or make_optimizer(lr=learning_rate,
                                             weight_decay=0.0)
 
@@ -172,14 +203,23 @@ def make_lora_train_step(cfg: LlamaConfig, lcfg: LoraConfig, plan=None,
         leaves = tensor_leaves(state["lora"])
         for t in leaves:
             t.grad = None
+        if plan is not None:
+            tokens = plan.local_batch(tokens)
         merged = merge_lora_differentiable(base_params, state["lora"], lcfg)
         loss = causal_lm_loss(merged, cfg, tokens)
         loss.backward()
         del merged
+        loss = loss.detach()
+        if plan is not None:
+            # Each adapter's gradient is summed over the mesh (every rank
+            # holds its share of its slice of each product), then averaged
+            # over the batch axes.
+            group = plan.mesh.group(AXES)
+            loss = batch_mean(plan, [(t.grad, group) for t in leaves], loss)
         optimizer.update(state["opt_state"], int(state["step"]))
         for t in leaves:
             t.grad = None
         state["step"] += 1
-        return state, loss.detach()
+        return state, loss
 
     return init_state, step

@@ -1,23 +1,38 @@
-"""Training step: causal-LM loss and AdamW on one device.
+"""Training step: causal-LM loss and AdamW, on one device or sharded
+over a mesh of ``torch.distributed`` ranks.
 
-Counterpart of ``kubeflow_tpu/models/train.py`` for one card (or the
-CPU): the same losses (dense, and chunked so full (B, S, vocab) logits
-never exist), the same remat policies (``models/llama.py``
-``_REMAT_POLICIES``), AdamW with optax's semantics and schedule, and
-gradient accumulation over strided microbatches, and fp8 training with
-delayed scaling (``models/fp8.py``). Attention differentiates through the
-flash kernels' ``FlashAttention`` (``ops/attention.py``).
+Counterpart of ``kubeflow_tpu/models/train.py``: the same losses (dense,
+and chunked so full (B, S, vocab) logits never exist), the same remat
+policies (``models/llama.py`` ``_REMAT_POLICIES``), AdamW with optax's
+semantics and schedule, gradient accumulation over strided microbatches,
+and fp8 training with delayed scaling (``models/fp8.py``). Attention
+differentiates through the flash kernels' ``FlashAttention``
+(``ops/attention.py``).
+
+Sharded (``plan`` a ``MeshPlan``, after ``shard_state``): each rank holds
+its slice of every parameter and Adam moment (``parallel/mesh.py``'s
+``param_spec``: tp over heads, hidden and vocab, fsdp over the input
+dim), takes its ``batch_sharding`` rows of the global batch, and runs the
+forward with the collectives GSPMD would insert (``models/llama.py``).
+After the backward the gradients are averaged over the batch axes: a leaf
+fsdp cuts was reduce-scattered over fsdp in the backward and is summed
+over dp; every other leaf is summed over dp · fsdp. The loss returned is
+the global mean, the clip's norm the global norm (each leaf's squares
+counted once however many ranks hold a replica), and AdamW updates each
+rank's slices elementwise, so a sharded step is the unsharded step's
+arithmetic in another order.
 
 What differs from JAX:
 - The train state is ``{"params": Llama, "opt_state": torch.optim.AdamW,
   "step": int64 scalar tensor}``, and ``train_step`` updates it IN PLACE
   (JAX donates the state and returns a new one) and returns it with the
-  step's loss.
-- One device only: ``plan`` is ``None`` or a device, and there is no
-  ``shard_state``. Sharded plans (FSDP/TP, ROADMAP queue 1 item 12) and
-  sequence-parallel attention (ring, Ulysses, zigzag: item 13) raise
-  ``NotImplementedError``. A quantized model is refused too: the JAX
-  package cannot train one either.
+  step's loss. ``shard_state`` cuts it in place too.
+- ``plan`` may also be ``None`` or a device: one device, no collective.
+  Sequence-parallel attention (ring, Ulysses, zigzag) and sp/pp/ep meshes
+  raise ``NotImplementedError`` (ROADMAP queue 1 item 13). A quantized
+  model is refused: the JAX package cannot train one either.
+- ``train_step`` is a ``TrainStep``: calling it is JAX's step; its
+  ``loss_and_grads``, ``grad_norm`` and ``apply`` are the step's parts.
 - fp8 (``fp8=True``): JAX partitions the optimizer with
   ``optax.multi_transform``; here AdamW is made over the master weights
   alone (``fp8.fp8_partition_labels``), so its decay and the clip never
@@ -28,7 +43,8 @@ What differs from JAX:
   step, so a checkpoint of a fresh state has every leaf of a trained one.
 - ``make_tiny_trainer`` draws its batches with numpy from the seed (JAX
   draws them with ``jax.random``), so its runs match each other, not
-  JAX's.
+  JAX's. Its state goes through ``shard_state`` on a one-rank plan, as
+  JAX's does.
 """
 
 from __future__ import annotations
@@ -52,12 +68,21 @@ from kubeflow_tpu_torch.models.llama import (
     LLAMA_CONFIGS,
     Llama,
     LlamaConfig,
+    _head_weight,
     _lm_head_logits,
     forward,
     forward_hidden,
     init_params,
 )
 from kubeflow_tpu_torch.models.quant import QuantizedWeight
+from kubeflow_tpu_torch.parallel.mesh import (
+    AXES,
+    MeshPlan,
+    _world,
+    make_mesh,
+    place,
+    placement_of,
+)
 
 
 def per_token_nll(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -76,9 +101,9 @@ def causal_lm_loss(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
     return torch.mean(per_token_nll(params, cfg, tokens, attn_impl))
 
 
-def _chunk_nll_sum(params: Llama, h_c: torch.Tensor,
-                   t_c: torch.Tensor) -> torch.Tensor:
-    logits = _lm_head_logits(h_c, params)  # (B, c, V) f32, one chunk
+def _chunk_nll_sum(params: Llama, h_c: torch.Tensor, t_c: torch.Tensor,
+                   w) -> torch.Tensor:
+    logits = _lm_head_logits(h_c, params, w)  # (B, c, V) f32, one chunk
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, t_c.long()[..., None])[..., 0]
     return torch.sum(lse - tgt)
@@ -94,7 +119,8 @@ def chunked_causal_lm_loss(params: Llama, cfg: LlamaConfig,
     checkpointed (the backward recomputes its logits), so at most one
     chunk's f32 logits are alive; a tail shorter than ``chunk`` runs
     unchecked, as in JAX. The same lse − target arithmetic in f32 as
-    ``causal_lm_loss``. ``remat`` goes to the layer stack."""
+    ``causal_lm_loss``. ``remat`` goes to the layer stack. The head's
+    weight is taken (under fsdp: gathered) once for every chunk."""
     b, s = tokens.shape
     if s < 2:
         raise ValueError(
@@ -108,16 +134,17 @@ def chunked_causal_lm_loss(params: Llama, cfg: LlamaConfig,
     n_pos = s - 1
     chunk = min(chunk, n_pos)
     n_chunks = n_pos // chunk
+    w = _head_weight(params)
     body = functools.partial(_chunk_nll_sum, params)
     if torch.is_grad_enabled():
         body = functools.partial(_ckpt.checkpoint, body, use_reentrant=False)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(n_chunks):
         span = slice(c * chunk, (c + 1) * chunk)
-        total = total + body(hidden[:, span], targets[:, span])
+        total = total + body(hidden[:, span], targets[:, span], w)
     if n_chunks * chunk < n_pos:  # S-1 is rarely chunk-aligned
         total = total + _chunk_nll_sum(params, hidden[:, n_chunks * chunk:],
-                                       targets[:, n_chunks * chunk:])
+                                       targets[:, n_chunks * chunk:], w)
     return total / (b * n_pos)
 
 
@@ -187,14 +214,17 @@ class AdamW:
             }
         return opt
 
-    def update(self, opt: torch.optim.AdamW, count: int) -> None:
+    def update(self, opt: torch.optim.AdamW, count: int,
+               norm: Optional[torch.Tensor] = None) -> None:
         """Update n = ``count`` from the grads in each parameter's
         ``.grad``: clip (optax's formula: ``g / ‖g‖ · clip`` when ‖g‖ is
-        not below ``clip_norm``, with no ``+1e-6``), set the lr, step."""
+        not below ``clip_norm``, with no ``+1e-6``), set the lr, step.
+        ``norm``: the global norm of the grads where the caller has it
+        (a sharded step's, over the mesh)."""
         grads = [p.grad for group in opt.param_groups for p in group["params"]
                  if p.grad is not None]
         if self.clip_norm > 0 and grads:
-            norm = global_norm(grads)
+            norm = global_norm(grads) if norm is None else norm
             keep = norm < self.clip_norm
             for g in grads:
                 g.copy_(torch.where(keep, g,
@@ -249,14 +279,180 @@ def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
 # Train step
 
 
-def _check_plan(plan) -> None:
+def _mesh_plan(plan) -> Optional[MeshPlan]:
+    """The ``MeshPlan`` of a sharded step; None for one device (``plan``
+    None or a device)."""
     if plan is None or isinstance(plan, (str, torch.device)):
-        return
-    raise NotImplementedError(
-        f"plan {plan!r}: the port trains on one device (plan=None or a "
-        "device); sharded plans and shard_state (FSDP/TP) are still to be "
-        "ported (ROADMAP queue 1 item 12)"
-    )
+        return None
+    if not isinstance(plan, MeshPlan):
+        raise TypeError(
+            f"plan {plan!r}: want None, a device or a MeshPlan")
+    plan.check_training()
+    return plan
+
+
+def _placed_replicas(t: torch.Tensor, plan: MeshPlan) -> int:
+    """How many ranks of ``plan``'s mesh hold the piece ``t`` is."""
+    pl = placement_of(t)
+    return plan.mesh.size if pl is None else pl.replicas
+
+
+def shard_state(plan: MeshPlan, state: dict) -> dict:
+    """Place params + optimizer state onto the mesh per the plan, IN PLACE
+    (and return the state): every parameter is cut to this rank's slice
+    by ``param_spec`` with its ``Placement`` (``MeshPlan.cut``; a
+    parameter already cut stays), each Adam moment takes its parameter's
+    placement (JAX's path-stripping rule) and is cut where it is still
+    whole, and scalars (the step counts) stay whole: replicated. A moment
+    is cut one at a time, so the peak extra memory is one leaf."""
+    plan.check_training()
+    params, opt = state["params"], state["opt_state"]
+    plan.cut(params)
+    with torch.no_grad():
+        for group in opt.param_groups:
+            for p in group["params"]:
+                pl = placement_of(p)
+                moments = opt.state.get(p, {})
+                for key, m in list(moments.items()):
+                    if m.dim() == 0:
+                        continue
+                    if (tuple(m.shape) == pl.global_shape
+                            != pl.local_shape):
+                        m = pl.slice(m).clone()
+                        moments[key] = m
+                    place(m, pl)
+    return state
+
+
+def batch_mean(plan: MeshPlan, grads: list, loss: torch.Tensor
+               ) -> torch.Tensor:
+    """The mean over the plan's batch axes: of each gradient of ``grads``,
+    ``(grad, group)`` pairs, in place (summed over ``group`` first, where
+    there is one), and of ``loss``, returned."""
+    dist = torch.distributed
+    n = plan.n_batch
+    for grad, group in grads:
+        if group is not None:
+            dist.all_reduce(grad, group=group)
+        if n > 1:
+            grad.div_(n)
+    if plan.batch_group is not None:
+        loss = loss.clone()
+        dist.all_reduce(loss, group=plan.batch_group)
+    return loss / n if n > 1 else loss
+
+
+class TrainStep:
+    """``state, loss = train_step(state, tokens)``: one optimizer step,
+    the state updated in place. Its parts, for a caller that reads the
+    gradients between them: ``loss_and_grads`` (the loss, the gradients
+    left in each parameter's ``.grad``, averaged over the batch axes under
+    a plan), ``grad_norm`` (their global norm) and ``apply`` (the update,
+    the fp8 histories replaced, the step counted)."""
+
+    def __init__(self, cfg, plan, optimizer, grad_accum, loss_chunk, remat,
+                 fp8):
+        self.cfg, self.plan, self.optimizer = cfg, plan, optimizer
+        self.grad_accum, self.loss_chunk = grad_accum, loss_chunk
+        self.remat, self.fp8 = remat, fp8
+
+    def loss_fn(self, params: Llama, tokens: torch.Tensor) -> torch.Tensor:
+        if self.loss_chunk:
+            return chunked_causal_lm_loss(params, self.cfg, tokens,
+                                          chunk=self.loss_chunk,
+                                          remat=self.remat)
+        return causal_lm_loss(params, self.cfg, tokens)
+
+    def _masters(self, params: Llama) -> list:
+        labels = fp8_partition_labels(params)
+        return [(name, p) for name, p in params.named_parameters()
+                if labels[name] == "default"]
+
+    def loss_and_grads(self, state: dict, tokens: torch.Tensor
+                       ) -> torch.Tensor:
+        params = state["params"]
+        ga = self.grad_accum
+        params.zero_grad(set_to_none=True)
+        if self.plan is not None:
+            tokens = self.plan.local_batch(tokens)
+        if ga == 1:
+            loss = self.loss_fn(params, tokens)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            b = tokens.shape[0]
+            if b % ga:
+                if self.plan is not None:
+                    raise ValueError(
+                        f"this rank's {b} rows of the batch are not "
+                        f"divisible by grad_accum {ga}: its strided "
+                        "microbatches would not be the global batch's")
+                raise ValueError(f"batch {b} not divisible by grad_accum {ga}")
+            plist = list(params.parameters())
+            sums = [torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device) for p in plist]
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for i in range(ga):
+                micro_loss = self.loss_fn(params, tokens[i::ga])
+                micro_loss.backward()
+                loss = loss + micro_loss.detach()
+                for acc, p in zip(sums, plist):
+                    acc += p.grad.float()
+                    p.grad = None
+            loss = loss / ga
+            for acc, p in zip(sums, plist):
+                p.grad = (acc / ga).to(p.dtype)
+        if self.plan is not None:
+            loss = self._average(params, loss)
+        return loss
+
+    def _average(self, params: Llama, loss: torch.Tensor) -> torch.Tensor:
+        """The global mean of the loss and the gradients over the batch
+        axes. A leaf fsdp cuts had its gradient summed over fsdp by the
+        backward's reduce-scatter: it is summed over dp here; every other
+        master over dp · fsdp. The fp8 histories' next values are already
+        the mesh's (their amaxes are)."""
+        plan = self.plan
+        grads = []
+        for _, p in self._masters(params):
+            if p.grad is None:
+                continue
+            pl = placement_of(p)
+            fsdp_cut = pl is not None and pl.split_dim("fsdp") is not None
+            grads.append((p.grad, plan.mesh.group("dp") if fsdp_cut
+                          else plan.batch_group))
+        return batch_mean(plan, grads, loss)
+
+    def grad_norm(self, state: dict) -> torch.Tensor:
+        """The global norm of the masters' gradients: under a plan each
+        rank's squares over the replicas of its pieces, summed over the
+        mesh."""
+        grads = [(p, p.grad) for _, p in self._masters(state["params"])
+                 if p.grad is not None]
+        if self.plan is None or self.plan.mesh.size == 1:
+            return global_norm([g for _, g in grads])
+        total = sum(torch.sum(g.float() * g.float())
+                    / _placed_replicas(p, self.plan) for p, g in grads)
+        group = self.plan.mesh.group(AXES)
+        if group is not None:
+            torch.distributed.all_reduce(total, group=group)
+        return torch.sqrt(total)
+
+    def apply(self, state: dict) -> None:
+        params = state["params"]
+        norm = None
+        if self.optimizer.clip_norm > 0 and self.plan is not None:
+            norm = self.grad_norm(state)
+        self.optimizer.update(state["opt_state"], int(state["step"]), norm)
+        if self.fp8:
+            fp8_meta_replace(params)
+        params.zero_grad(set_to_none=True)
+        state["step"] += 1
+
+    def __call__(self, state: dict, tokens: torch.Tensor):
+        loss = self.loss_and_grads(state, tokens)
+        self.apply(state)
+        return state, loss
 
 
 def make_train_step(
@@ -270,19 +466,26 @@ def make_train_step(
     remat: str = "full",
     fp8: bool = False,
 ):
-    """Build ``(init_state, train_step)`` for one device.
+    """Build ``(init_state, train_step)`` for one device or a mesh.
 
     ``init_state(params)`` turns the params' grads on and returns the
-    state dict; ``train_step(state, tokens)`` computes the loss and
-    grads, takes one optimizer update and returns ``(state, loss)``, the
-    state updated in place.
+    state dict; ``train_step(state, tokens)`` (a ``TrainStep``) computes
+    the loss and grads, takes one optimizer update and returns ``(state,
+    loss)``, the state updated in place.
+
+    ``plan``: None or a device trains on one device; a ``MeshPlan``
+    trains sharded over its mesh (each rank calls the step on the same
+    global batch, or on its piece from ``data.loader.device_put_global``,
+    and takes its ``batch_sharding`` rows; pass the state through
+    ``shard_state`` first). The loss returned is the global batch's.
 
     ``grad_accum`` > 1 splits the batch into that many microbatches and
     sums their f32 gradients before ONE update (JAX's scan carry), each
     microbatch STRIDED (``micro[i] = tokens[i::grad_accum]``, as JAX's
     reshape-transpose gives). The f32 sum holds twice the bf16 params'
     bytes beside them, as JAX's carry does. The batch's leading dim must
-    be divisible by grad_accum.
+    be divisible by grad_accum; under a plan each rank's rows must be,
+    so that its strided rows are its share of the global microbatches.
 
     ``loss_chunk`` > 0 uses chunked_causal_lm_loss (full (B, S, vocab)
     logits never materialize); 0 falls back to the dense loss.
@@ -303,7 +506,7 @@ def make_train_step(
             "sequence-parallel attention (ring, Ulysses, zigzag) is not "
             "ported yet (ROADMAP queue 1 item 13)"
         )
-    _check_plan(plan)
+    mesh_plan = _mesh_plan(plan)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     optimizer = optimizer or make_optimizer()
@@ -330,46 +533,8 @@ def make_train_step(
         return {"params": params, "opt_state": optimizer.init(masters),
                 "step": torch.zeros((), dtype=torch.int64)}
 
-    def loss_fn(params: Llama, tokens: torch.Tensor) -> torch.Tensor:
-        if loss_chunk:
-            return chunked_causal_lm_loss(params, cfg, tokens, chunk=loss_chunk,
-                                          remat=remat)
-        return causal_lm_loss(params, cfg, tokens)
-
-    def train_step(state: dict, tokens: torch.Tensor):
-        params, opt = state["params"], state["opt_state"]
-        params.zero_grad(set_to_none=True)
-        if grad_accum == 1:
-            loss = loss_fn(params, tokens)
-            loss.backward()
-        else:
-            b = tokens.shape[0]
-            if b % grad_accum:
-                raise ValueError(
-                    f"batch {b} not divisible by grad_accum {grad_accum}"
-                )
-            plist = list(params.parameters())
-            sums = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in plist]
-            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            for i in range(grad_accum):
-                micro_loss = loss_fn(params, tokens[i::grad_accum])
-                micro_loss.backward()
-                loss = loss + micro_loss.detach()
-                for acc, p in zip(sums, plist):
-                    acc += p.grad.float()
-                    p.grad = None
-            loss = loss / grad_accum
-            for acc, p in zip(sums, plist):
-                p.grad = (acc / grad_accum).to(p.dtype)
-        optimizer.update(opt, int(state["step"]))
-        if fp8:
-            fp8_meta_replace(params)
-        params.zero_grad(set_to_none=True)
-        state["step"] += 1
-        return state, loss.detach()
-
-    return init_state, train_step
+    return init_state, TrainStep(cfg, mesh_plan, optimizer, grad_accum,
+                                 loss_chunk, remat, fp8)
 
 
 @torch.no_grad()
@@ -409,12 +574,13 @@ def make_tiny_trainer(steps: int = 4, batch: int = 2, seq: int = 16,
     from kubeflow_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
+    plan = MeshPlan(make_mesh(devices=[_world()[1]]))
     cfg = LLAMA_CONFIGS["tiny"]
-    init_state, step_fn = make_train_step(cfg)
+    init_state, step_fn = make_train_step(cfg, plan)
 
     def fresh_state(key: int = 0) -> dict:
         gen = torch.Generator(device=dev).manual_seed(key)
-        return init_state(init_params(cfg, gen, dev))
+        return shard_state(plan, init_state(init_params(cfg, gen, dev)))
 
     batches = [
         torch.from_numpy(np.random.default_rng(seed * 1000 + 100 + i).integers(

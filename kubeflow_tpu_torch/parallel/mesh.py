@@ -20,34 +20,47 @@ Axes keep JAX's names and order, ``(dp, fsdp, ep, pp, sp, tp)``:
 - ``tp``  — tensor parallel (attention heads / MLP hidden / vocab)
 
 ``make_mesh`` builds the rank grid and one subgroup per non-trivial axis
-(the world group itself where an axis spans every rank). ``MeshPlan``
-carries the sharding rule of ``param_spec`` and applies its serving half:
-``shard_params`` cuts a full ``Llama`` (or the bridge's numpy tree) to
-this rank's ``tp`` shard leaf by leaf, and ``shard_kv_cache`` cuts a KV
-cache or block pool by kv head.
+(the world group itself where an axis spans every rank), plus one over the
+batch axes ``(dp, fsdp)`` and one over every axis. ``MeshPlan`` carries
+the sharding rule of ``param_spec`` and applies it:
+
+- ``shard_params`` cuts a full ``Llama`` (or the bridge's numpy tree) to
+  this rank's shard leaf by leaf, over ``tp`` and ``fsdp``; every leaf it
+  cuts carries a ``Placement``;
+- ``shard_kv_cache`` cuts a KV cache or block pool by kv head;
+- ``batch_spec``, ``logits_spec``, ``param_shardings`` (a ``Placement`` a
+  parameter) and ``batch_sharding`` (the ``Placement`` of a global batch,
+  whose ``index()`` holds this rank's rows) keep JAX's names.
+
+A ``Placement`` is the port's ``NamedSharding`` bound to one array: the
+mesh, the spec (an axis name, a tuple of names or None a dim, as a
+``PartitionSpec``) and the global shape. A sharded leaf is a plain tensor
+holding this rank's slice with its ``Placement`` beside it, as the
+attribute ``placement`` (``place``, ``placement_of``): what
+``models/llama.py`` gathers and what ``runtime/checkpoint.py`` writes in
+JAX's shard format.
 
 What differs from JAX:
 - ``devices`` are ranks; a rank's device is whatever it was started on
   (``cuda:<local rank>``, one card each, or the CPU under gloo).
-- ``shard_params`` shards a ``Llama`` IN PLACE, replacing each leaf by its
-  slice as it goes, so the peak extra memory is one leaf, never a second
-  model; the caller's module becomes the shard. The engines never
+- ``shard_params`` shards a ``Llama`` IN PLACE, replacing each leaf's data
+  by its slice as it goes, so the peak extra memory is one leaf, never a
+  second model; the caller's module becomes the shard. The engines never
   shard: under a plan they take a shard (``check_shard``), cut once by
-  the caller. The qkv biases (qwen2)
-  are sliced with their projections' columns, where JAX replicates them
-  and GSPMD slices the add.
-- Only ``tp`` is applied. ``fsdp``/``dp`` sharding, ``batch_spec``,
-  ``logits_spec``, ``param_shardings`` and ``batch_sharding`` (GSPMD
-  objects the serving engines do not need) come with sharded training,
-  ROADMAP queue 1 item 12; ``sp`` with item 13.
-- Quantized and fp8-training weights are refused (``ValueError``) before
-  any leaf is touched: JAX's ``device_put`` cannot shard them either (the
-  ``(L, 1, out)`` scale of ``wo`` does not divide over ``tp``).
+  the caller. The qkv biases (qwen2) are sliced with their projections'
+  columns, where JAX replicates them and GSPMD slices the add.
+- Serving takes tp alone: ``check_serving`` refuses dp/fsdp (ROADMAP
+  queue 1 item 12 (b)) and sp/pp/ep (item 13); training takes dp, fsdp
+  and tp, and refuses sp/pp/ep (``check_training``).
+- Quantized weights are refused (``ValueError``) before any leaf is
+  touched: JAX's ``device_put`` cannot shard them either (the ``(L, 1,
+  out)`` scale of ``wo`` does not divide over ``tp``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -55,6 +68,12 @@ import torch
 from torch import nn
 
 AXES = ("dp", "fsdp", "ep", "pp", "sp", "tp")
+# The axes a batch is split over, dp major (JAX's ``("dp", "fsdp")``).
+BATCH_AXES = ("dp", "fsdp")
+# Axis combinations that get a group of their own beside each axis: the
+# batch axes (the gradient sums) and every axis (the mesh-wide reductions:
+# the clip's global norm, fp8's amax).
+_GROUPED = (BATCH_AXES, AXES)
 
 
 def _world() -> tuple[int, int]:
@@ -65,11 +84,19 @@ def _world() -> tuple[int, int]:
     return 1, 0
 
 
+def _axes_of(entry) -> tuple:
+    """The mesh axes one dim of a spec names: None, a name or a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """A grid of ranks with named axes, and this rank's subgroup along
     each axis that needs one (absent for an axis of size 1 short of the
-    whole world)."""
+    whole world), keyed by the axis name, and over the batch axes and
+    every axis, keyed by the tuple of names."""
 
     ranks: np.ndarray  # int grid, one axis per name
     axis_names: tuple
@@ -84,16 +111,35 @@ class Mesh:
     def size(self) -> int:
         return int(self.ranks.size)
 
-    def coordinate(self, axis: str) -> int:
-        """This rank's index along ``axis``."""
-        _, rank = _world()
+    def coordinate(self, axis: str, rank: Optional[int] = None) -> int:
+        """``rank``'s (default: this rank's) index along ``axis``."""
+        if rank is None:
+            rank = _world()[1]
         where = np.argwhere(self.ranks == rank)
         if not len(where):
             raise ValueError(f"rank {rank} is not in this mesh")
         return int(where[0][self.axis_names.index(axis)])
 
-    def group(self, axis: str):
-        return self.groups.get(axis)
+    def axis_size(self, axes) -> int:
+        """The product of the sizes of ``axes`` (a name or a tuple; an
+        axis the mesh lacks counts 1)."""
+        shape = self.shape
+        return math.prod(shape.get(a, 1) for a in _axes_of(axes))
+
+    def axis_index(self, axes, rank: Optional[int] = None) -> int:
+        """``rank``'s index over ``axes`` taken together, the first one
+        major, as a PartitionSpec's tuple entry splits a dim."""
+        k = 0
+        for a in _axes_of(axes):
+            if a in self.shape:
+                k = k * self.shape[a] + self.coordinate(a, rank)
+        return k
+
+    def group(self, axes):
+        """This rank's group along ``axes`` (a name or a tuple of names),
+        None where it needs none."""
+        key = _axes_of(axes)
+        return self.groups.get(key[0] if len(key) == 1 else key)
 
 
 def _mesh_over(ranks: list, names: tuple, sizes: tuple) -> Mesh:
@@ -105,25 +151,34 @@ def _mesh_over(ranks: list, names: tuple, sizes: tuple) -> Mesh:
     grid = np.asarray(ranks, dtype=np.int64).reshape(sizes)
     world, rank = _world()
     groups: dict = {}
+    made: dict = {}
     up = world > 1 or (torch.distributed.is_available()
                        and torch.distributed.is_initialized())
-    for ax, name in enumerate(names):
-        # Every line of the grid along this axis is one group; all ranks
-        # create all of them, in the same order. An axis that spans the
+    combos = [(name,) for name in names] + [
+        combo for combo in _GROUPED if set(combo) <= set(names)]
+    for combo in combos:
+        # Every line of the grid along these axes is one group; all ranks
+        # create all of them, in the same order. A line that spans the
         # whole world is the world group (of one rank, too, when a group
         # is up: its collectives then run over that backend); any other
-        # axis of size 1 needs none.
-        lines = np.moveaxis(grid, ax, -1).reshape(-1, sizes[ax])
+        # line of one rank needs none. A line already made is reused.
+        idx = [names.index(a) for a in combo]
+        n = math.prod(sizes[i] for i in idx)
+        lines = np.moveaxis(grid, idx, list(range(-len(idx), 0))
+                            ).reshape(-1, n)
         for line in lines:
             members = [int(r) for r in line]
             if up and sorted(members) == list(range(world)):
                 group = torch.distributed.group.WORLD
-            elif sizes[ax] == 1 or not up:
+            elif n == 1 or not up:
                 continue  # no group needed, or none to make one in
             else:
-                group = torch.distributed.new_group(ranks=members)
+                if tuple(members) not in made:
+                    made[tuple(members)] = torch.distributed.new_group(
+                        ranks=members)
+                group = made[tuple(members)]
             if rank in members:
-                groups[name] = group
+                groups[combo[0] if len(combo) == 1 else combo] = group
     return Mesh(grid, tuple(names), groups)
 
 
@@ -147,9 +202,91 @@ def make_mesh(
     return _mesh_over(list(devices), AXES, (dp, fsdp, ep, pp, sp, tp))
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Placement:
+    """Where an array's pieces live: the port's ``NamedSharding`` bound to
+    the array's global shape. ``spec`` names, for each dim, the mesh axis
+    (or tuple of axes, the first major) that splits it, or None; dims past
+    its end are whole, as in a ``PartitionSpec``."""
+
+    mesh: Mesh
+    spec: tuple
+    global_shape: tuple
+
+    def _dims(self) -> list:
+        return [(n, _axes_of(self.spec[d]) if d < len(self.spec) else ())
+                for d, n in enumerate(self.global_shape)]
+
+    def index(self, rank: Optional[int] = None) -> tuple:
+        """``rank``'s (default: this rank's) piece as ``((start, stop),
+        ...)`` a dim, the form of a checkpoint's shard index."""
+        out = []
+        for n, axes in self._dims():
+            size = self.mesh.axis_size(axes)
+            if n % size:
+                raise ValueError(
+                    f"a dim of {n} does not divide over {axes} of size "
+                    f"{size} (global shape {self.global_shape})")
+            k = self.mesh.axis_index(axes, rank)
+            out.append((k * (n // size), (k + 1) * (n // size)))
+        return tuple(out)
+
+    @property
+    def local_shape(self) -> tuple:
+        return tuple(b - a for a, b in self.index())
+
+    @property
+    def split_axes(self) -> tuple:
+        """The axes of more than one rank that cut the array."""
+        return tuple(a for _, axes in self._dims() for a in axes
+                     if self.mesh.shape.get(a, 1) > 1)
+
+    def split_dim(self, axis: str) -> Optional[int]:
+        """The dim ``axis`` cuts, None when it cuts none (or is of one
+        rank)."""
+        if self.mesh.shape.get(axis, 1) == 1:
+            return None
+        return next((d for d, (_, axes) in enumerate(self._dims())
+                     if axis in axes), None)
+
+    @property
+    def replicas(self) -> int:
+        """How many ranks hold each piece."""
+        return self.mesh.size // self.mesh.axis_size(self.split_axes)
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.mesh.size > 1
+
+    def slice(self, value):
+        """This rank's piece of the whole ``value`` (a tensor or numpy
+        array of the global shape): ``value`` itself where the piece is
+        all of it."""
+        index = self.index()
+        if all(a == 0 and b == n
+               for (a, b), n in zip(index, self.global_shape)):
+            return value
+        return value[tuple(slice(a, b) for a, b in index)]
+
+
+def place(t, placement: Placement):
+    """Record ``placement`` beside the tensor ``t`` (its piece); returns
+    ``t``."""
+    t.placement = placement
+    return t
+
+
+def placement_of(t) -> Optional[Placement]:
+    """The ``Placement`` recorded beside ``t``, None for a whole tensor."""
+    return getattr(t, "placement", None)
+
+
 _COL_LEAVES = ("wq", "wk", "wv", "w_gate", "w_up")
 _ROW_LEAVES = ("wo", "w_down")
 _BIAS_LEAVES = ("bq", "bk", "bv")
+# fp8 training's delayed-scaling histories (models/fp8.py), by leaf name:
+# the port's path is ``layers.<i>.wq.x_hist`` where JAX's holds "fp8".
+_FP8_META = ("x_hist", "w_hist", "g_hist")
 
 
 @dataclasses.dataclass
@@ -194,6 +331,42 @@ class MeshPlan:
     def tp_group(self):
         return self.mesh.group("tp")
 
+    # -- activations -------------------------------------------------------
+    @property
+    def batch_spec(self) -> tuple:
+        """Activations: batch over (dp, fsdp), sequence over sp."""
+        return (BATCH_AXES, "sp", None)
+
+    @property
+    def logits_spec(self) -> tuple:
+        return (BATCH_AXES, "sp", "tp")
+
+    @property
+    def n_batch(self) -> int:
+        """How many pieces a batch is cut into: dp · fsdp."""
+        return self.mesh.axis_size(BATCH_AXES)
+
+    @property
+    def batch_group(self):
+        """The group over the batch axes: the ranks whose rows make one
+        global batch (None for one rank short of the world)."""
+        return self.mesh.group(BATCH_AXES)
+
+    def batch_sharding(self, shape: tuple) -> Placement:
+        """The ``Placement`` of a global batch of ``shape`` (``(B, S)``):
+        its ``index()[0]`` is this rank's row range."""
+        return Placement(self.mesh, self.batch_spec[:len(shape)],
+                         tuple(shape))
+
+    def local_batch(self, tokens):
+        """This rank's rows of ``tokens``: the tensor itself when it is
+        already a piece (``data.loader.device_put_global``), else its
+        ``batch_sharding`` rows of the global batch."""
+        if placement_of(tokens) is not None:
+            return tokens
+        lo, hi = self.batch_sharding(tuple(tokens.shape)).index()[0]
+        return tokens[lo:hi]
+
     # -- parameters --------------------------------------------------------
     def param_spec(self, path: tuple, value_ndim: int) -> tuple:
         """Sharding rule for a llama-family parameter by its path, as a
@@ -203,9 +376,9 @@ class MeshPlan:
         dimension."""
         del value_ndim
         name = "/".join(str(p) for p in path)
-        if "fp8" in path:
+        if "fp8" in path or str(path[-1]) in _FP8_META:
             # fp8 delayed-scaling histories: a few floats, replicated (the
-            # projection match below must not see "wq" in "wq/fp8/...").
+            # projection match below must not see "wq" in "wq/x_hist").
             return ()
         if "embed" in name or "lm_head" in name:
             return ("tp", "fsdp")  # (vocab, dim)
@@ -217,13 +390,30 @@ class MeshPlan:
             return ("tp",)  # the projection's out columns
         return ()  # norms replicated
 
+    def placement(self, name: str, global_shape: tuple) -> Placement:
+        """The ``Placement`` of the parameter at the dotted ``name``."""
+        path = tuple(name.split("."))
+        return Placement(self.mesh, self.param_spec(path, len(global_shape)),
+                         tuple(global_shape))
+
+    def param_shardings(self, params) -> dict:
+        """{parameter name: ``Placement``} of a model, whole or sharded:
+        JAX's NamedSharding tree."""
+        return {name: self.placement(name, _global_shape(p))
+                for name, p in params.named_parameters()}
+
     def check_serving(self) -> None:
         """Refuse the axes serving does not shard yet."""
         if any(self.mesh.shape.get(ax, 1) > 1 for ax in ("dp", "fsdp")):
             raise NotImplementedError(
-                f"mesh {self.axes}: dp/fsdp sharding is not ported to "
-                "PyTorch yet (sharded training, ROADMAP queue 1 item 12)"
+                f"mesh {self.axes}: serving under a dp/fsdp mesh is not "
+                "ported to PyTorch yet (ROADMAP queue 1 item 12 (b)); "
+                "serve under a tp plan"
             )
+        self.check_training()
+
+    def check_training(self) -> None:
+        """Refuse the axes training does not shard yet."""
         if any(self.mesh.shape.get(ax, 1) > 1 for ax in ("sp", "pp", "ep")):
             raise NotImplementedError(
                 f"mesh {self.axes}: sp/pp/ep are not ported to PyTorch yet "
@@ -242,8 +432,8 @@ class MeshPlan:
                 )
 
     def shard_config(self, cfg):
-        """The config of ONE rank's shard: heads, kv heads, MLP hidden and
-        vocab over tp, the head dim pinned. What a rank's KV storage is
+        """The config of ONE rank's tp shard: heads, kv heads, MLP hidden
+        and vocab over tp, the head dim pinned. What a rank's KV storage is
         allocated from; the forward keeps the full config."""
         self._check_divides(cfg)
         tp = self.tp
@@ -255,7 +445,7 @@ class MeshPlan:
         )
 
     def mark(self, model) -> None:
-        """Record this rank's shard on ``model`` and each of its layers:
+        """Record this rank's tp shard on ``model`` and each of its layers:
         the forward reads the tp group there (``models/llama.py``)."""
         local = model.cfg.vocab_size // self.tp
         model.shard = TPShard(self.tp_group, self.tp, self.tp_rank * local,
@@ -266,37 +456,69 @@ class MeshPlan:
     def shard_leaf(self, name: str, value, transposed: bool = False):
         """This rank's slice of one whole parameter leaf, by its name;
         ``transposed``: a 2-D ``value`` in the other layout (an HF
-        projection's ``(out, in)``), cut along the same logical axis."""
+        projection's ``(out, in)``), cut along the same logical axes."""
         spec = self.param_spec((name,), value.ndim)
         return self._slice(value, spec[::-1] if transposed else spec)
 
     def _slice(self, value, spec: tuple, offset: int = 0):
-        """This rank's tp slice of ``value`` (a tensor or numpy array)
-        along the axis ``spec`` names ``"tp"`` (shifted by ``offset``
-        leading axes); the value itself when tp does not shard it."""
-        if "tp" not in spec or self.tp == 1:
-            return value
-        axis = spec.index("tp") + offset
-        n = value.shape[axis] // self.tp
-        index = [slice(None)] * value.ndim
-        index[axis] = slice(self.tp_rank * n, (self.tp_rank + 1) * n)
-        return value[tuple(index)]
+        """This rank's slice of ``value`` (a tensor or numpy array) along
+        every axis ``spec`` names (shifted by ``offset`` leading dims);
+        the value itself when no axis of more than one rank cuts it."""
+        return Placement(self.mesh, (None,) * offset + tuple(spec),
+                         tuple(value.shape)).slice(value)
+
+    def empty_shard(self, cfg, device):
+        """A ``Llama`` of ``cfg`` whose every parameter is this rank's
+        piece, uninitialised, on ``device``, with its ``Placement``: what
+        ``llama.init_params(plan=)`` fills leaf by leaf."""
+        from kubeflow_tpu_torch.models.llama import Llama
+        from kubeflow_tpu_torch.models.quant import _set
+
+        self._check_divides(cfg)
+        model = Llama(cfg, "meta")
+        for name, meta in list(model.named_parameters()):
+            pl = self.placement(name, tuple(meta.shape))
+            _set(model, name, place(nn.Parameter(
+                torch.empty(pl.local_shape, dtype=meta.dtype, device=device),
+                requires_grad=False), pl))
+        self.mark(model)
+        return model
+
+    def cut(self, model) -> None:
+        """Cut a whole ``Llama`` (fp8-training weights too) to this rank's
+        shard IN PLACE, one leaf at a time: each parameter's data becomes
+        its slice (a copy; the whole leaf goes with its last reference)
+        and carries its ``Placement``. A parameter that already carries
+        one is this plan's piece and stays."""
+        self._check_divides(model.cfg)
+        with torch.no_grad():
+            for name, param in model.named_parameters():
+                if placement_of(param) is not None:
+                    continue
+                pl = self.placement(name, tuple(param.shape))
+                piece = pl.slice(param.data)
+                if piece is not param.data:
+                    param.data = piece.clone()
+                del piece
+                place(param, pl)
+        self.mark(model)
 
     def shard_params(self, params, cfg=None, device=None):
-        """This rank's tp shard of a full model. A ``Llama`` is sharded IN
-        PLACE, leaf by leaf (each full leaf is released as its slice
-        replaces it), and returned. The bridge's numpy tree (JAX's stacked
-        layout; ``cfg`` required) becomes a new ``Llama`` on ``device``
-        built from the slices alone. Quantized weights raise ValueError
+        """This rank's shard of a full model. A ``Llama`` is sharded IN
+        PLACE, leaf by leaf (``cut``), and returned. The bridge's numpy
+        tree (JAX's stacked layout; ``cfg`` required) becomes a new
+        ``Llama`` on ``device`` built from the tp slices alone (serving's
+        path). Quantized weights raise ValueError
         (``models/quant.refuse_sharding``) before any leaf is touched."""
         from kubeflow_tpu_torch.models import quant
         from kubeflow_tpu_torch.models.llama import Llama
 
-        self.check_serving()
+        self.check_training()
         quant.refuse_sharding(params)
         if not isinstance(params, Llama):
             if cfg is None:
                 raise ValueError("sharding a numpy tree needs its cfg")
+            self.check_serving()
             return self._shard_tree(params, cfg, device)
         shard = getattr(params, "shard", None)
         if shard is not None:
@@ -306,26 +528,7 @@ class MeshPlan:
                     f"plan is tp={self.tp}"
                 )
             return params
-        cfg = params.cfg
-        self._check_divides(cfg)
-        # A layer already sharded (one a truncated draft shares with its
-        # sharded target) keeps its slices.
-        owners = [params] + [layer for layer in params.layers
-                             if layer.shard is None]
-        with torch.no_grad():
-            for owner in owners:
-                for leaf, param in list(owner._parameters.items()):
-                    if param is None:
-                        continue
-                    piece = self.shard_leaf(leaf, param.data)
-                    if piece is param.data:  # replicated, or tp 1
-                        continue
-                    # The slice's copy replaces the full leaf, which goes
-                    # with its last reference: at most one leaf extra.
-                    setattr(owner, leaf, nn.Parameter(
-                        piece.clone(), requires_grad=param.requires_grad))
-                    del param, piece
-        self.mark(params)
+        self.cut(params)
         return params
 
     def _shard_tree(self, tree: dict, cfg, device):
@@ -359,17 +562,20 @@ class MeshPlan:
             spec = self.param_spec((target,), 2)
             side = "b" if spec.index("tp") == 1 else "a"
             out[target] = dict(ab)
-            out[target][side] = self._slice(ab[side], spec, offset=2)
+            tp_only = tuple(a if a == "tp" else None for a in spec)
+            out[target][side] = self._slice(ab[side], tp_only, offset=2)
         return out
 
     def check_shard(self, params) -> None:
-        """Refuse weights that are not this plan's shard. An engine under
-        a plan takes the rank's shard, cut once by its caller
-        (``llama.init_params(plan=)``, ``convert.load_hf_checkpoint(
-        plan=)`` or ``shard_params``), and never cuts the caller's model
-        itself. Quantized weights raise first, as in ``shard_params``."""
+        """Refuse weights that are not this plan's shard, and a plan
+        serving does not take. An engine under a plan takes the rank's
+        shard, cut once by its caller (``llama.init_params(plan=)``,
+        ``convert.load_hf_checkpoint(plan=)`` or ``shard_params``), and
+        never cuts the caller's model itself. Quantized weights raise
+        first, as in ``shard_params``."""
         from kubeflow_tpu_torch.models import quant
 
+        self.check_serving()
         quant.refuse_sharding(params)
         shard = getattr(params, "shard", None)
         if shard is None or shard.size != self.tp:
@@ -401,3 +607,8 @@ class MeshPlan:
         self.check_kv_heads(next(iter(cache.values())).shape[2])
         return {name: self._slice(leaf, (None, None, "tp")).clone()
                 if tp > 1 else leaf for name, leaf in cache.items()}
+
+
+def _global_shape(t) -> tuple:
+    pl = placement_of(t)
+    return tuple(t.shape) if pl is None else pl.global_shape

@@ -51,10 +51,25 @@ leaf is stored as its raw 16-bit words under the dtype name
 at a time, so a large state is never held twice: pass a state of the same
 structure (a fresh ``init_state``) and it comes back filled.
 
-Not ported (ROADMAP queue 1 item 12, sharded training): leaves sharded
-over several processes. Saving a ``DTensor`` raises, and a step whose
-manifest holds ``"shard"`` entries (JAX's ``proc<k>`` shard format)
-raises ValueError on restore and is left where it is.
+**Sharded leaves, in JAX's shard format.** A leaf laid out over several
+processes (a tensor with a ``parallel/mesh.py`` ``Placement`` over a mesh
+of more than one rank, or a ``DTensor``) is never gathered: each process
+writes its own piece into its ``proc<k>/`` root as ``NNNNN.sJ.bin``, its
+manifest entry carrying ``"shard": {"index": [[start, stop], ...],
+"global_shape": [...]}``, as JAX writes a process's addressable shards.
+JAX deduplicates pieces by index among one process's devices; a port
+process drives one device, so it writes the one piece it holds, and
+every rank that holds a replica (along dp, along tp for a leaf tp does
+not cut, every rank for a replicated leaf such as a norm) writes its
+own copy. So each root holds everything its process needs, and JAX's
+manager restores a step the port wrote at every process, as the port
+restores JAX's. Restore reads this process's root only: it copies each
+piece a sharded template leaf needs into its local tensor, one file at
+a time, and a piece the root lacks raises JAX's ValueError ("no saved
+shard for index ... sharding or process topology changed since the
+save?"). A whole template leaf takes a leaf this root saved as shards
+when its shards cover the array, as JAX's dense assembly does. A leaf
+on a mesh of one rank is whole.
 """
 
 from __future__ import annotations
@@ -75,6 +90,7 @@ import torch
 from torch import nn
 
 from kubeflow_tpu_torch.observability import tracing
+from kubeflow_tpu_torch.parallel.mesh import placement_of
 
 log = logging.getLogger(__name__)
 
@@ -153,14 +169,40 @@ def flatten_state(state: Any, prefix: str = "") -> list[tuple[str, torch.Tensor]
                     f"{type(state).__name__}")
 
 
-def _spans_processes(t: torch.Tensor) -> bool:
-    """Whether ``t`` is a ``DTensor``: a leaf laid out over a device mesh,
-    whose bytes other processes hold too."""
+def _shard_of(t: torch.Tensor) -> Optional[tuple]:
+    """(global shape, this process's index, the piece) of a leaf laid out
+    over several processes; None for a whole leaf. A ``Placement`` over a
+    mesh of one rank is whole; a ``DTensor`` always spans processes (its
+    piece by its mesh coordinate)."""
+    pl = placement_of(t)
+    if pl is not None:
+        if not pl.spans_processes:
+            return None
+        return pl.global_shape, pl.index(), t
     try:
         from torch.distributed.tensor import DTensor
     except ImportError:
-        return False
-    return isinstance(t, DTensor)
+        return None
+    if not isinstance(t, DTensor):
+        return None
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    index = tuple((int(o), int(o) + int(n)) for o, n in zip(offset, shape))
+    return tuple(t.shape), index, t.to_local()
+
+
+def _snapshot_leaf(t: torch.Tensor, shard: Optional[tuple]):
+    """A host copy of a whole leaf; for a sharded one, JAX's payload of a
+    process's shards: ``{"global_shape", "shards": [(index, copy)]}``."""
+    if shard is None:
+        return t.detach().to("cpu", copy=True)
+    global_shape, index, piece = shard
+    return {"global_shape": global_shape,
+            "shards": [(index, piece.detach().to("cpu", copy=True))]}
 
 
 def _leaf_bytes(t: torch.Tensor) -> tuple[str, bytes]:
@@ -291,24 +333,19 @@ class CheckpointManager:
         state torn by the next optimizer step."""
         step = int(step)
         meta = dict(metadata or {})
-        leaves = flatten_state(state)
-        spanning = [path for path, t in leaves if _spans_processes(t)]
+        leaves = [(path, t, _shard_of(t)) for path, t in flatten_state(state)]
+        spanning = [path for path, _, shard in leaves if shard is not None]
         if spanning and self.process_count == 1:
             raise RuntimeError(
-                f"state leaf {spanning[0]} is a DTensor spanning other "
+                f"state leaf {spanning[0]} is sharded over other "
                 "processes, but this CheckpointManager believes it is the "
                 "only process. Construct it with process_index=rank, "
                 "process_count=world size (the webhook's env contract fills "
                 "these automatically in notebook pods) so that every host "
                 "saves its own shards instead of attempting a cross-host "
                 "gather.")
-        if spanning:
-            raise NotImplementedError(
-                f"state leaf {spanning[0]} is a DTensor: saving each "
-                "process's shards is sharded training, not ported yet "
-                "(ROADMAP queue 1 item 12)")
-        snapshot = [(path, t.detach().to("cpu", copy=True))
-                    for path, t in leaves]
+        snapshot = [(path, _snapshot_leaf(t, shard))
+                    for path, t, shard in leaves]
         # The newest state, even when the interval skips it: an emergency
         # save flushes what training last produced.
         self._pending = (step, snapshot, meta)
@@ -426,12 +463,22 @@ class CheckpointManager:
             staged.mkdir(parents=True)
             files = []
             for i, (path, t) in enumerate(snapshot):
-                name = f"{i:05d}.bin"
-                dtype, data = _leaf_bytes(t)
-                self.io.write_file(staged / name, data)
-                files.append({"name": name, "path": path, "dtype": dtype,
-                              "shape": list(t.shape), "size": len(data),
-                              "crc32": zlib.crc32(data) & 0xFFFFFFFF})
+                if isinstance(t, dict):  # this process's pieces
+                    pieces = [(f"{i:05d}.s{j}.bin", arr, {
+                        "index": [list(p) for p in index],
+                        "global_shape": list(t["global_shape"])})
+                        for j, (index, arr) in enumerate(t["shards"])]
+                else:
+                    pieces = [(f"{i:05d}.bin", t, None)]
+                for name, arr, shard in pieces:
+                    dtype, data = _leaf_bytes(arr)
+                    self.io.write_file(staged / name, data)
+                    entry = {"name": name, "path": path, "dtype": dtype,
+                             "shape": list(arr.shape), "size": len(data),
+                             "crc32": zlib.crc32(data) & 0xFFFFFFFF}
+                    if shard is not None:
+                        entry["shard"] = shard
+                    files.append(entry)
             manifest = {"format": MANIFEST_FORMAT, "step": step,
                         "metadata": meta,
                         "process": {"index": self.process_index,
@@ -585,7 +632,8 @@ class CheckpointManager:
         (template, None) untouched. Steps failing validation are
         quarantined as ``corrupt-<step>-*`` (never deleted) and the walk
         falls back to the next newest. A template of another structure,
-        or a step of sharded leaves, raises ValueError and quarantines
+        or a sharded leaf whose piece this root does not hold (another
+        mesh, another process count), raises ValueError and quarantines
         nothing. The restored step's metadata lands in
         ``self.restored_metadata``. Traced as ``checkpoint.restore``."""
         with tracing.get_tracer("checkpoint").start_span(
@@ -609,8 +657,8 @@ class CheckpointManager:
             step_dir = self._root / str(step)
             try:
                 entries, meta = _load_validated(step_dir)
-                _check_template(leaves, entries, step_dir)
-                _copy_into(leaves, entries, step_dir)
+                _copy_into(_match_template(leaves, entries, step_dir),
+                           step_dir)
             except CorruptCheckpointError as err:
                 self._quarantine(step_dir, step, err)
                 continue
@@ -653,13 +701,7 @@ def _read_checked(step_dir: Path, entry: dict) -> bytes:
     return data
 
 
-def _load_validated(step_dir: Path) -> tuple[list, dict]:
-    """(manifest file entries, metadata) of a committed step, every file's
-    size, CRC32, dtype and shape verified — one file in memory at a time.
-    Raises CorruptCheckpointError on any mismatch: a checkpoint is valid
-    entirely or not at all. A step of sharded leaves raises ValueError
-    before any file is read: it is not corrupt, this manager cannot
-    assemble it."""
+def _read_manifest(step_dir: Path) -> dict:
     manifest_path = step_dir / MANIFEST_NAME
     if not manifest_path.exists():
         raise CorruptCheckpointError("manifest missing")
@@ -670,47 +712,109 @@ def _load_validated(step_dir: Path) -> tuple[list, dict]:
     if manifest.get("format") != MANIFEST_FORMAT:
         raise CorruptCheckpointError(
             f"unknown manifest format {manifest.get('format')!r}")
+    return manifest
+
+
+def _load_validated(step_dir: Path) -> tuple[list, dict]:
+    """(manifest file entries, metadata) of a committed step, every file's
+    size, CRC32, dtype and shape verified — one file in memory at a time.
+    Raises CorruptCheckpointError on any mismatch: a checkpoint is valid
+    entirely or not at all. A shard entry is one process's piece of a
+    leaf (JAX's format), validated as any file."""
+    manifest = _read_manifest(step_dir)
     entries = manifest.get("files", [])
-    sharded = [entry["name"] for entry in entries if "shard" in entry]
-    if sharded:
-        raise ValueError(
-            f"checkpoint {step_dir.name}: {sharded[0]} is one process's "
-            "shard of a leaf sharded over several processes; assembling "
-            "shards is sharded training, not ported yet (ROADMAP queue 1 "
-            "item 12)")
     for entry in entries:
         _leaf_from_bytes(_read_checked(step_dir, entry), entry["dtype"],
                          entry["shape"])
     return entries, dict(manifest.get("metadata", {}))
 
 
-def _check_template(leaves: list, entries: list, step_dir: Path) -> None:
-    """A template of another structure is the caller's error, not
-    corruption: ValueError."""
-    if len(leaves) != len(entries):
+def _index(shard: dict) -> tuple:
+    return tuple((int(a), int(b)) for a, b in shard["index"])
+
+
+def _match_template(leaves: list, entries: list, step_dir: Path) -> list:
+    """What to copy into each template tensor: ``[(tensor, [(entry, the
+    tensor's region, the file's region)])]``, one file a piece. A
+    template of another structure is the caller's error, not corruption:
+    ValueError, before any copy, as is a sharded template leaf whose piece
+    this root did not save, or a whole one its shards do not cover."""
+    whole = {e["path"]: e for e in entries if "shard" not in e}
+    shards: dict = {}
+    for e in entries:
+        if "shard" in e:
+            shards.setdefault(e["path"], {})[_index(e["shard"])] = e
+    saved = list(dict.fromkeys(e["path"] for e in entries))
+    if len(leaves) != len(saved):
         raise ValueError(
             f"template has {len(leaves)} leaves but checkpoint "
-            f"{step_dir.name} stored {len(entries)} — restoring into a "
+            f"{step_dir.name} stored {len(saved)} — restoring into a "
             "different model/optimizer structure?")
-    for (path, t), entry in zip(leaves, entries):
-        if (path != entry["path"] or list(t.shape) != entry["shape"]
-                or _dtype_name(t) != entry["dtype"]):
+    copies = []
+    for path, t in leaves:
+        # By path: a step another package wrote may order its leaves
+        # otherwise (JAX sorts a dict's keys; a module keeps its own).
+        if path not in whole and path not in shards:
             raise ValueError(
-                f"template leaf {path} {list(t.shape)} {_dtype_name(t)} does "
-                f"not match checkpoint leaf {entry['path']} {entry['shape']} "
-                f"{entry['dtype']} in {step_dir.name}")
+                f"template leaf {path} does not match a checkpoint leaf "
+                f"in {step_dir.name} (stored: {saved[:4]}...)")
+        shard = _shard_of(t)
+        dest = t if shard is None else shard[2]
+        global_shape = tuple(t.shape) if shard is None else shard[0]
+        some = whole.get(path) or next(iter(shards[path].values()))
+        shape = some["shard"]["global_shape"] if "shard" in some \
+            else some["shape"]
+        if (list(global_shape) != list(shape)
+                or _dtype_name(dest) != some["dtype"]):
+            raise ValueError(
+                f"template leaf {path} {list(global_shape)} "
+                f"{_dtype_name(dest)} does not match checkpoint leaf "
+                f"{some['path']} {shape} {some['dtype']} in {step_dir.name}")
+        want = (tuple((0, n) for n in global_shape) if shard is None
+                else shard[1])
+        local = tuple(slice(None) for _ in global_shape)
+        if path in whole:
+            region = tuple(slice(a, b) for a, b in want)
+            copies.append((dest, [(whole[path], local, region)]))
+        elif shard is not None:
+            found = shards[path].get(want)
+            if found is None:
+                raise ValueError(
+                    f"checkpoint {step_dir.name} leaf {path}: no saved "
+                    f"shard for index {want} — sharding or process "
+                    "topology changed since the save?")
+            copies.append((dest, [(found, local, local)]))
+        else:
+            # A whole template leaf from this root's shards (JAX's dense
+            # assembly): they must cover the array.
+            seen = torch.zeros(global_shape, dtype=torch.bool)
+            pieces = []
+            for index, e in shards[path].items():
+                region = tuple(slice(a, b) for a, b in index)
+                seen[region] = True
+                pieces.append((e, region, local))
+            if not bool(seen.all()):
+                raise ValueError(
+                    f"checkpoint {step_dir.name} leaf {path}: this "
+                    "process's shards do not cover the whole array; "
+                    "restore into a template carrying the original "
+                    "sharding")
+            copies.append((dest, pieces))
+    return copies
 
 
 @torch.no_grad()
-def _copy_into(leaves: list, entries: list, step_dir: Path) -> None:
-    """Copy each validated file into its template tensor, one at a time.
-    The files are read again (so only one is in host memory at once) and
-    re-checked: a file that changed since validation raises
-    CorruptCheckpointError, and the walk's fallback overwrites every leaf."""
-    for (_, t), entry in zip(leaves, entries):
-        value = _leaf_from_bytes(_read_checked(step_dir, entry),
-                                 entry["dtype"], entry["shape"])
-        t.copy_(value)
+def _copy_into(copies: list, step_dir: Path) -> None:
+    """Copy each validated file into its template tensor's region, one
+    file at a time. The files are read again (so only one is in host
+    memory at once) and re-checked: a file that changed since validation
+    raises CorruptCheckpointError, and the walk's fallback overwrites
+    every leaf."""
+    for dest, pieces in copies:
+        for entry, region, source in pieces:
+            data = _read_checked(step_dir, entry)
+            value = _leaf_from_bytes(data, entry["dtype"], entry["shape"])
+            dest[region].copy_(value[source])
 
 
 # -- training loop -----------------------------------------------------------

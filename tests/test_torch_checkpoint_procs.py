@@ -8,10 +8,11 @@ Steps written by one package at process (0, 2) and (1, 2) are read by the
 other's managers at the same identities; the same state saved by both
 gives byte-equal manifests and data files; the spans carry the
 reference's names and attributes through the port's tracing. A step of
-leaves sharded over processes (JAX's shard format) is refused by the port
-with a ValueError naming ROADMAP item 12 and left where it is, and a
-``DTensor`` handed to a one-process manager raises as JAX's multi-host
-guard does.
+leaves sharded over processes (JAX's shard format) written by JAX is
+restored by the port into a whole template (its root's shards cover the
+leaf, as JAX's dense assembly asks) and left where it is; a ``DTensor``
+handed to a one-process manager raises as JAX's multi-host guard does,
+and a two-process manager writes its piece in JAX's shard format.
 """
 
 from __future__ import annotations
@@ -258,9 +259,11 @@ def test_sharded_step_is_refused_and_left_in_place(tmp_path):
     before = sorted(str(p.relative_to(tmp_path)) for p in tmp_path.rglob("*"))
     for mgr in _mgrs("port", tmp_path):
         assert mgr.latest_step() == 1
-        with pytest.raises(ValueError, match="item 12"):
-            mgr.restore_latest(_tree("port", step=np.int64(0),
-                                     w=np.zeros((8, 8), np.float32)))
+        restored, at = mgr.restore_latest(_tree(
+            "port", step=np.int64(0), w=np.zeros((8, 8), np.float32)))
+        assert at == 1
+        np.testing.assert_array_equal(restored["w"].numpy(), data)
+        assert int(restored["step"]) == 3
     after = sorted(str(p.relative_to(tmp_path)) for p in tmp_path.rglob("*"))
     assert after == before
     assert not [p for p in tmp_path.rglob("corrupt-*")]
@@ -284,8 +287,12 @@ def test_dtensor_leaf_raises_as_the_multi_host_guard_does(tmp_path):
             P.CheckpointManager(tmp_path / "one").save(1, {"w": leaf})
         mgr = P.CheckpointManager(tmp_path / "two", process_index=0,
                                   process_count=2)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            mgr.save(1, {"w": leaf})
+        assert mgr.save(1, {"w": leaf})
+        manifest = json.loads(
+            (tmp_path / "two" / "proc0" / "1" / "manifest.json").read_text())
+        [entry] = manifest["files"]
+        assert entry["name"] == "00000.s0.bin"
+        assert entry["shard"] == {"index": [[0, 8]], "global_shape": [8]}
         assert P.CheckpointManager(tmp_path / "one").latest_step() is None
     finally:
         dist.destroy_process_group()

@@ -897,53 +897,25 @@ def test_timing_ragged_checks_the_launch_it_traced(smoke, monkeypatch,
 
 def test_trace_splits_each_kernel_by_launch_grid(smoke, monkeypatch):
     """The traced rerun sums each kernel's device time by name, and by
-    launch grid from the chrome trace: a width-8 step's launch (4 runs ×
-    8 kv heads × 8 tiles) apart from a 512-row step's (39 tiles)."""
+    launch grid, from the chrome trace: a width-8 step's launch (4 runs ×
+    8 kv heads × 8 tiles) apart from a 512-row step's (39 tiles); its busy
+    time is the union of the card's records, a copy's too."""
     decode = {"cat": "kernel", "name": "void ragged_kernel<128, false>",
               "args": {"grid": [4, 8, 8]}, "dur": 20.0}
     admit = {**decode, "args": {"grid": [1, 8, 39]}, "dur": 60.0}
     other = {"cat": "kernel", "name": "nvjet_gemm", "args": {"grid": [1]},
              "dur": 100.0}
-    records = [decode, decode, admit, other]
-
-    class Range:
-        def __init__(self, start, dur):
-            self.start, self.end = start, start + dur
-
-        def elapsed_us(self):
-            return self.end - self.start
-
-    class Event:
-        device_type = torch.autograd.DeviceType.CUDA
-
-        def __init__(self, i, ev):
-            self.name = ev["name"]
-            self.time_range = Range(1000.0 * i, ev["dur"])
-
-    class Profile:
-        def __init__(self, activities):
-            pass
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *exc):
-            return False
-
-        def events(self):
-            return [Event(i, ev) for i, ev in enumerate(records)]
-
-        def export_chrome_trace(self, path):
-            with open(path, "w") as f:
-                json.dump({"traceEvents": records}, f)
-
-    monkeypatch.setattr(torch.profiler, "profile", Profile)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    copy = {"cat": "gpu_memcpy", "name": "Memcpy HtoD", "dur": 10.0}
+    host = {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "dur": 5.0}
+    records = [{**ev, "ts": 1000.0 * i}
+               for i, ev in enumerate([decode, decode, admit, other, copy,
+                                       host])]
+    _fake_profiler(monkeypatch, [records])
     monkeypatch.setattr(smoke, "_serve", lambda engine, prompts: None)
     out = smoke._trace(None, [], {"attention": "ragged_kernel"})
     assert out["nccl_s"] == 0 and out["nccl_launches"] == 0
     assert out["attention_s"] == pytest.approx(100e-6)
-    assert out["busy_s"] == pytest.approx(200e-6)
+    assert out["busy_s"] == pytest.approx(210e-6)
     assert out["attention_by_grid"] == {
         "1x8x39": [1, pytest.approx(60e-6)],
         "4x8x8": [2, pytest.approx(40e-6)]}
@@ -1072,20 +1044,21 @@ def test_wide_seconds_counts_the_kernels_off_the_engine_stream(
         smoke, monkeypatch, streams, calls, fails):
     """The wide path's kernels are those on another stream than the one
     most kernels ran on; wide-path calls with none of them fail. The
-    traced run here makes ``calls`` wide-path calls through the
-    side-stream wrapper, which is taken away after."""
+    traced rerun (``_trace(wide=True)``) makes ``calls`` wide-path calls
+    through the side-stream wrapper, which is taken away after."""
     records = [{"cat": "kernel", "name": f"k{i}", "dur": 10 * (i + 1),
-                "args": {"stream": st}} for i, st in enumerate(streams)]
+                "ts": 1000.0 * i, "args": {"stream": st}}
+               for i, st in enumerate(streams)]
     real = smoke.quant_mod.quant_matmul_wide
     w = smoke.quant_mod.quantize_weight(torch.randn(4, 4), 0)
 
-    def traced(fn):
+    def serve(engine, prompts):
         for _ in range(calls):
             smoke.quant_mod.quant_matmul_wide(torch.zeros(1, 4), w.q, w.s,
                                               "int8")
-        return records
 
-    monkeypatch.setattr(smoke, "_kernel_records", traced)
+    _fake_profiler(monkeypatch, [records])
+    monkeypatch.setattr(smoke, "_serve", serve)
     monkeypatch.setattr(torch.cuda, "Stream", _Stream)
     monkeypatch.setattr(torch.cuda, "current_stream", _Stream)
     monkeypatch.setattr(torch.cuda, "stream",
@@ -1093,11 +1066,11 @@ def test_wide_seconds_counts_the_kernels_off_the_engine_stream(
     monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, st: None)
     if fails:
         with pytest.raises(AssertionError, match=fails):
-            smoke._wide_seconds(None, [])
+            smoke._trace(None, [], {}, wide=True)
     else:
-        seconds, n = smoke._wide_seconds(None, [])
-        assert n == calls
-        assert seconds == pytest.approx(sum(
+        out = smoke._trace(None, [], {}, wide=True)
+        assert out["wide_path_calls"] == calls
+        assert out["wide_path_s"] == pytest.approx(sum(
             10 * (i + 1) for i, st in enumerate(streams) if st == 13) * 1e-6)
     assert smoke.quant_mod.quant_matmul_wide is real
 
@@ -1158,8 +1131,9 @@ def test_quant_engine_phase_rehearsed_on_the_cpu(smoke, no_card,
     monkeypatch.setattr(smoke, "_engine", engine)
     monkeypatch.setattr(smoke, "_cont_engine", cont)
     monkeypatch.setattr(smoke, "_trace", lambda *a, **k: {
-        "quant_s": 0.5, "busy_s": 2.0, "idle_share": 0.5})
-    monkeypatch.setattr(smoke, "_wide_seconds", lambda *a: (0.25, 3))
+        "quant_s": 0.5, "busy_s": 2.0, "idle_share": 0.5,
+        **({"wide_path_s": 0.25, "wide_path_calls": 3}
+           if k.get("wide") else {})})
     monkeypatch.setattr(smoke, "QUANT_ENGINES",
                         ((8, ("ragged", "continuous")), (4, ("ragged",))))
     cfg = dataclasses.replace(TL.LLAMA_CONFIGS["tiny"], dim=256,
@@ -1463,21 +1437,23 @@ def test_checkpoint_writer_shards_read_back_equal(smoke, tmp_path):
 
 
 def test_phase_numbering_and_kernels_line_are_kept(smoke):
-    """Thirteen phases in order, the checkpoint phase ninth, the finetune
-    phase eleventh, the resume phase twelfth and the tp phase last, and
-    the kernels line still naming every kernel of the port with all its
-    keys."""
+    """Fourteen phases in order, the checkpoint phase ninth, the finetune
+    phase eleventh, the resume phase twelfth, the tp phase thirteenth and
+    the train_sharded phase last, and the kernels line still naming every
+    kernel of the port with all its keys."""
     import inspect
     import re
 
     main = inspect.getsource(smoke.main)
     assert re.findall(r'log\(f?"\[(\d+)/(\d+)\]', main) == [
-        (str(i), "13") for i in range(1, 14)]
-    assert '"[9/13] checkpoint and observability"' in main
+        (str(i), "14") for i in range(1, 15)]
+    assert '"[9/14] checkpoint and observability"' in main
     assert main.index("checkpoint_phase(") < main.index("train_phases(")
     assert main.index("train_phases(") < main.index("finetune_phase(")
     assert main.index("finetune_phase(") < main.index("resume_phase(")
     assert main.index("resume_phase(") < main.index("= tp_phase(")
+    assert main.index("= tp_phase(") < main.index("= train_sharded_phase(")
+    assert 'print(json.dumps({"train_sharded": sharded}))' in main
     for name in ("ragged_paged_attention", "flash_attention",
                  "paged_decode_attention", "dense_decode_attention",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
@@ -1831,9 +1807,9 @@ def test_resume_phase_catches_a_wrong_restore(smoke, resume_small,
 
     real = TCk._copy_into
 
-    def lossy(leaves, entries, step_dir):
-        real(leaves, entries, step_dir)
-        next(t for _, t in leaves if t.is_floating_point()).zero_()
+    def lossy(copies, own):
+        real(copies, own)
+        next(t for t, _ in copies if t.is_floating_point()).zero_()
 
     monkeypatch.setattr(TCk, "_copy_into", lossy)
     with pytest.raises(AssertionError, match="restored leaves differ"):
@@ -1862,17 +1838,8 @@ def test_tp_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     their plain versions, two gloo children (which count no launches on
     the CPU) held to a one-rank run by the near-tie rule and to each
     other, and the degree-1 plan over a world-1 gloo group bit for bit
-    against the one-rank run, then again with the plan lifted, each run's
-    collective functions timed on the host (the card's trace of the two,
-    which the CPU cannot take, stands in as each engine's run alone)."""
-    trace_keys = ("wall_s", "busy_s", "idle_share", "attention_s", "gemm_s",
-                  "nccl_s", "nccl_launches", "top_kernels_s")
-
-    def trace(engine, prompts, kernels):
-        smoke._serve(engine, prompts)
-        return dict.fromkeys(trace_keys, 0.0)
-
-    monkeypatch.setattr(smoke, "_trace", trace)
+    against the one-rank run, its collective functions timed on the
+    host."""
     monkeypatch.setattr(smoke, "TP_MODEL", "tiny")
     monkeypatch.setattr(smoke, "TP_DTYPE", "float32")
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
@@ -1905,14 +1872,62 @@ def test_tp_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     one = out["degree_1"]
     assert one["bit_equal_to_phase_5"]
     assert one["backend"] == "gloo"
-    steps = one["planned"]["steps"]
-    assert one["unplanned"]["steps"] == steps > 0
+    steps = one["steps"]
+    assert steps > 0 and one["launches"] == 0
     # A forward's collectives: wo and w_down a layer, the embedding and the
-    # head; the unplanned forward calls the same functions.
-    calls = {k: v["calls"] for k, v in one["planned"]["host_s"].items()}
+    # head.
+    calls = {k: v["calls"] for k, v in one["host_s"].items()}
     assert calls["_tp_sum"] == 2 * cfg.n_layers * calls["_embed"]
     assert calls["_embed"] == calls["_lm_head_logits"] == steps
-    assert {k: v["calls"] for k, v in
-            one["unplanned"]["host_s"].items()} == calls
-    assert set(one["planned"]["trace"]) == {*trace_keys, "steps"}
     assert set(out["kernels"]) == {"ragged", "flash", "decode", "dense"}
+
+
+def test_train_sharded_phase_rehearsed_on_the_cpu(smoke, no_card,
+                                                  monkeypatch):
+    """Phase 14 at ``tiny`` (fsdp=2) and ``tiny-gqa`` (tp=2) in float32 on
+    the CPU, S 64 in loss chunks of 16: the rank-shape kernels through
+    their plain versions at a small shape, the unsharded reference, two
+    gloo children each for (a) and (b) (which count no launches on the
+    CPU) held to it and to each other, (a)'s save into two ``proc<k>``
+    roots and its restore with every digest equal, and
+    ``examples/train_sharded`` over a world-1 gloo group resuming at step
+    2; then the ``train_sharded`` line's keys."""
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(smoke, "TRAIN_SEQ", 64)
+    monkeypatch.setattr(smoke, "LOSS_CHUNK", 16)
+    monkeypatch.setattr(smoke, "TS_RANK_SHAPE",
+                        (1, 4, 2, 64, 64, True, 0, 0, None))
+    monkeypatch.setattr(smoke, "TS_FSDP_MODEL", "tiny")
+    monkeypatch.setattr(smoke, "TS_TP_MODEL", "tiny-gqa")
+    monkeypatch.setattr(smoke, "TP_DTYPE", "float32")
+    cfg = smoke._tp_config("tiny-gqa", "float32")
+    # Phase 10's step 1, recorded where it runs.
+    with smoke.tempfile.TemporaryDirectory() as tmp:
+        corpus = smoke._train_corpus(tmp, cfg.vocab_size)
+        with smoke.TokenLoader(corpus, 1, 64, seed=smoke.SEED + 1) as ld:
+            tokens = torch.from_numpy(ld.next())
+    smoke.STEP_ONE[cfg] = smoke._ts_reference(cfg, tokens)
+    out = smoke.train_sharded_phase()
+    fsdp, tp = out["fsdp"], out["tp"]
+    zero = {"flash": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    assert fsdp["launches"] == [zero] * smoke.TS_FSDP_STEPS
+    assert tp["launches"] == [zero] * smoke.TS_TP_STEPS
+    for part in (fsdp, tp):
+        assert part["step1"]["loss_rel"] <= 1e-4
+        assert part["step1"]["grad_norm_rel"] <= 1e-4
+        assert set(part["seconds"]) >= {"reference", "spawn", "init",
+                                        "train", "total"}
+        assert len(part["collective_bytes_per_step"]) == len(part["losses"])
+        assert all(b > 0 for b in part["collective_bytes_per_step"])
+    tiny = TL.LLAMA_CONFIGS["tiny"]
+    # fsdp cuts the input dim, tp the output one.
+    assert fsdp["wq_shape"] == [tiny.dim // 2, tiny.dim]
+    assert tp["wq_shape"] == [cfg.dim, cfg.dim // 2]
+    assert fsdp["state_gb"][0] == fsdp["state_gb"][1] > 0
+    assert fsdp["resumed_launches"] == [zero, zero]
+    assert all(x < fsdp["losses"][0] for x in fsdp["after_loss"])
+    assert set(fsdp["seconds"]) >= {"checkpoint"}
+    assert out["example"]["backend"] == "gloo"
+    assert len(out["example"]["steps"]) == smoke.TS_EXAMPLE_STEPS + 1
+    assert set(out["kernels"]) == {"flash", "dq", "dk", "dv"}
+    assert smoke.TS_EXAMPLE_NAME not in TL.LLAMA_CONFIGS

@@ -182,10 +182,18 @@ def test_a_base_that_requires_grad_gets_none():
 
 
 def test_plan_other_than_a_device_is_refused():
+    """A plan is None, a device or a MeshPlan (sharded finetuning, ROADMAP
+    item 12); anything else is refused, and an sp mesh is item 13."""
+    from kubeflow_tpu_torch.parallel import mesh as TM
+
     cfg, lcfg = TL.LLAMA_CONFIGS["tiny"], TLo.LoraConfig()
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(TypeError, match="MeshPlan"):
         TLo.make_lora_train_step(cfg, lcfg, plan=object())
-    for plan in (None, "cpu", torch.device("cpu")):
+    with pytest.raises(NotImplementedError, match="item 13"):
+        TLo.make_lora_train_step(cfg, lcfg, plan=TM.MeshPlan(
+            TM.make_mesh(sp=2, devices=[0, 1])))
+    for plan in (None, "cpu", torch.device("cpu"),
+                 TM.MeshPlan(TM.make_mesh())):
         TLo.make_lora_train_step(cfg, lcfg, plan=plan)
 
 

@@ -27,6 +27,7 @@ from kubeflow_tpu.models import train as T
 from kubeflow_tpu.parallel.mesh import MeshPlan, make_mesh
 from kubeflow_tpu_torch.models import llama as TL
 from kubeflow_tpu_torch.models import train as TT
+from kubeflow_tpu_torch.parallel import mesh as TM
 from kubeflow_tpu_torch.models.bridge import params_from_jax
 
 
@@ -223,9 +224,16 @@ def test_make_train_step_refusals():
         TT.make_train_step(cfg, sp_impl="rings")
     for kw, item in ((dict(use_ring_sp=True), "item 13"),
                      (dict(sp_impl="ulysses"), "item 13"),
-                     (dict(plan=object()), "item 12")):
+                     (dict(plan=TM.MeshPlan(TM.make_mesh(
+                         sp=2, devices=[0, 1]))), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             TT.make_train_step(cfg, **kw)
+    # Sharded training (ROADMAP item 12) takes a MeshPlan; anything else
+    # that is not a device is a caller's error.
+    with pytest.raises(TypeError, match="MeshPlan"):
+        TT.make_train_step(cfg, plan=object())
+    _, step = TT.make_train_step(cfg, plan=TM.MeshPlan(TM.make_mesh()))
+    assert step.plan is not None and step.plan.n_batch == 1
     init_state, _ = TT.make_train_step(cfg, plan="cpu")
     state = init_state(TL.init_params(cfg, device="cpu"))
     assert all(p.requires_grad for p in state["params"].parameters())
