@@ -65,7 +65,15 @@ every kernel's launch count set to 0 just before it and read just after:
   ranks on the one card, every step the same three flash kernels a layer
   over a rank's rows or heads, the fsdp state saved and restored in
   JAX's shard format, and ``examples/train_sharded.py`` as a user runs
-  it.
+  it;
+- sequence, pipeline and expert parallelism, each as two gloo ranks on
+  the one card: ``gemma-2b`` trained under sp=2 with ring, Ulysses (its
+  local attention the flash forward and backward kernels) and zigzag
+  attention and under pp=2 (the GPipe schedule, each stage's layers
+  running the same three kernels), a Mixtral-style MoE at full width
+  under ep=2, and ``llama-3-8b`` served by ``ContinuousBatcher`` over a
+  cache cut along the sequence (admissions through the flash kernel, the
+  split-KV decode plain, as in JAX).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -330,29 +338,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches 2 × 2 × 2 flash, 4 dQ, 4 dK/dV; the export holds the
    checkpoint's keys and shapes with only q_proj and v_proj moved. Peak
    memory and step walls print as a smoke run's;
-12. resume — MemAvailable and the free disk must each hold 2.5 × the
-   gemma-2b train state (~15 GB: bf16 params and two bf16 AdamW moments).
+12. resume — gemma-2b at full width cut to 4 of its 18 layers
+   (``RESUME_LAYERS``; its checks do not depend on depth). MemAvailable
+   and the free disk must each hold 2.5 × its train state (~5.8 GB: bf16
+   params and two bf16 AdamW moments).
    A child (``python -c`` on ``resume_child``, with
    ``TPU_CHECKPOINT_GRACE_S=120`` and ``KUBEFLOW_TPU_CHECKPOINT_DIR`` set)
    calls ``bootstrap(expected_devices=1)``, makes a ``CheckpointManager``
    in ``checkpoint_dir_from_env()`` (interval 100, async, keep 2),
-   ``install_preemption_handler`` and trains gemma-2b at full width and
-   depth (B 1, S 2048, remat "full", AdamW, TokenLoader batches) 3 steps,
+   ``install_preemption_handler`` and trains the cut gemma-2b (B 1, S
+   2048, remat "full", AdamW, TokenLoader batches) 3 steps,
    each followed by ``save``: step 1 commits on the worker thread, 2 and
    3 are pending only. After each ``save`` it prints the step's wall, the
-   ``save`` call's wall (the host copy), the step's launches (2 × 18
-   flash, 18 dQ, 18 dK/dV) and every leaf's digest on the card (the sum
+   ``save`` call's wall (the host copy), the step's launches (2 × 4
+   flash, 4 dQ, 4 dK/dV) and every leaf's digest on the card (the sum
    of its bytes, and of each byte times its position mod 2^31 − 1), then
    waits in ``signal.pause()``. Sent SIGTERM, it must die of it (-15)
    within the grace + 5 s, its log naming the emergency commit of step 3;
    steps 1 and 3 are on disk and step 3's manifest holds the cursor. The
    parent restores on the card into ``fresh_state(7)`` through a
    ``MigrationOrchestrator(MigrationConfig(fresh_within_s=0))`` whose
-   save step finds nothing newer (restore budget 600 s: 15 GB read
-   twice); every leaf's digest must equal the child's step 3, and a leaf
+   save step finds nothing newer (restore budget 600 s); every leaf's
+   digest must equal the child's step 3, and a leaf
    may equal the fresh state's only where both inits agree (under 1% of
    the bytes); ``resume_start_batch`` gives 3; one step from the restored
-   state on the loader's 4th batch launches 2 × 18 flash, 18 dQ and 18
+   state on the loader's 4th batch launches 2 × 4 flash, 4 dQ and 4
    dK/dV kernels with a finite loss. It prints the emergency save's
    seconds and GB/s, each ``save``'s snapshot seconds, the restore's
    seconds split into validation and copy, SIGTERM to exit, and the
@@ -410,12 +420,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    resuming at step 2. It prints each rank's peak memory, step walls,
    bytes, calls and host seconds in the collectives a step, the save and
    restore seconds and GB/s a rank, and the phase's seconds split into
-   reference, spawn, init, train and checkpoint.
+   reference, spawn, init, train and checkpoint;
+15. sp_pp_ep — sequence, pipeline and expert parallelism
+   (``parallel/ring_attention.py``, ``ulysses.py``,
+   ``zigzag_attention.py``, ``pipeline.py``, ``models/moe.py``). (0) One
+   launch each of the flash forward, dQ and dK/dV at an Ulysses rank's
+   training shape of gemma-2b under sp=2 (B 2, 4 q / 4 kv heads after
+   the K/V broadcast: group 1, S 2048, D 256), held to their plain
+   versions by phase 3's gates. Then this process runs (c)'s unsharded
+   step 1 (mixtral-8x7b at full width — dim 4096, ffn 14336, 8 experts,
+   top-2 — cut to 2 of its 32 layers, random weights from the seed, B 1,
+   S 2048) and frees it, and spawns two gloo children on ``cuda:0``
+   once (phase 13's one-card configuration), which run in turn, freeing
+   each part's memory: (a) gemma-2b at full width and depth under sp=2,
+   each rank the whole state and 1024 of the 2048 positions of phase 14
+   (a)'s batch: step 1 under each of ``ring``, ``ulysses`` and
+   ``zigzag``, its loss and global grad norm within 2e-2 relative of
+   phase 14 (a)'s unsharded step 1 (recorded there); Ulysses launches 2 ×
+   18 flash, 18 dQ and 18 dK/dV a rank, ring and zigzag none (plain, as
+   JAX's); (b) the same model and batch under pp=2 (9 layers a stage,
+   n_micro 2, remat "full", the dense loss over full logits): step 1's
+   loss and grad norm within 2e-2 of the same reference, 2 × 18 flash, 18
+   dQ and 18 dK/dV a rank (bubbles skipped); (c) the cut mixtral-8x7b
+   under ep=2, 4 of the 8 experts a rank: step 1's loss (the aux term
+   included) and grad norm within 2e-2 of this process's, 2 flash, 2 dQ
+   and 2 dK/dV a rank; (d) llama-3-8b at full width and depth served by
+   ``ContinuousBatcher`` under sp=2 (each rank the whole weights and 512
+   of every slot's 1024 positions, bucket 512): phase 5's 4 continuous
+   prompts, 32 new tokens each, held to phase 5's continuous tokens (its
+   first 32) by the near-tie rule; flash launches = admissions × 32 a
+   rank, no decode kernel (the split-KV decode is plain, as JAX's). Both
+   ranks agree on every loss, launch count and token. It prints each
+   part's peak memory a rank, the step walls, and the collective calls,
+   bytes and host seconds a step, with the port's own host staging of
+   gloo's point-to-point and all-to-all transfers.
 
 It prints a ``{"fp8_products": ...}`` line (a library call, not a kernel
 of the port), a ``{"resume": ...}`` line (phase 12's numbers), a
 ``{"tp": ...}`` line (phase 13's numbers), a ``{"train_sharded": ...}``
-line (phase 14's numbers), a ``{"kernels": [...]}`` line, the card line, and last
+line (phase 14's numbers), a ``{"sp_pp_ep": ...}`` line (phase 15's
+numbers), a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -461,6 +505,7 @@ from kubeflow_tpu_torch.models import convert as convert_mod
 from kubeflow_tpu_torch.models import fp8 as fp8_mod
 from kubeflow_tpu_torch.models import llama as L
 from kubeflow_tpu_torch.models import lora as lora_mod
+from kubeflow_tpu_torch.models import moe as moe_mod
 from kubeflow_tpu_torch.models import paged as paged_mod
 from kubeflow_tpu_torch.models import quant as quant_mod
 from kubeflow_tpu_torch.models import speculative as spec_mod
@@ -482,6 +527,8 @@ from kubeflow_tpu_torch.models.speculative import (
     truncated_draft,
 )
 from kubeflow_tpu_torch.models.tp_serving import serving_plan
+from kubeflow_tpu_torch.parallel import collectives as collectives_mod
+from kubeflow_tpu_torch.parallel import pipeline as pipeline_mod
 from kubeflow_tpu_torch.parallel.mesh import MeshPlan, make_mesh
 from kubeflow_tpu_torch.observability import profiling as profiling_mod
 from kubeflow_tpu_torch.ops import _build
@@ -4934,6 +4981,11 @@ def finetune_phase(card: str) -> dict:
 # Resume
 
 RESUME_MODEL = "gemma-2b"
+# gemma-2b cut from 18 layers to 4: the checks (the emergency save on
+# SIGTERM, every digest equal after the restore, training on) do not
+# depend on depth, and the state's host copies, writes and reads scale
+# with it.
+RESUME_LAYERS = 4
 RESUME_STEPS = 3
 RESUME_GRACE_S = 120
 # The parent restores into a state made from another seed, so that equal
@@ -4953,8 +5005,8 @@ RESUME_TAG = "resume-child "
 DIGEST_PRIME = 2_147_483_647
 DIGEST_CHUNK = 1 << 26
 # The child: ``python -c`` on this, from the checkout's root, with the
-# corpus, the model, S, the loss chunk, the steps and the device ("" for
-# the card).
+# corpus, the model, its depth, S, the loss chunk, the steps and the
+# device ("" for the card).
 RESUME_CHILD_CODE = ("import sys, chip_smoke; "
                      "sys.exit(chip_smoke.resume_child(sys.argv[1:]))")
 
@@ -4986,22 +5038,30 @@ def _sync(dev) -> None:
 
 
 def resume_child_args(argv: list) -> dict:
-    """The child's arguments: corpus, model, seq, loss chunk, steps, and
-    the device ("" for the card, as a user's call passes none)."""
-    if len(argv) != 6:
-        raise SystemExit("usage: resume_child CORPUS MODEL SEQ LOSS_CHUNK "
-                         f"STEPS DEVICE, got {argv}")
-    corpus, model, seq, chunk, steps, device = argv
+    """The child's arguments: corpus, model, its depth (layers), seq, loss
+    chunk, steps, and the device ("" for the card, as a user's call
+    passes none)."""
+    if len(argv) != 7:
+        raise SystemExit("usage: resume_child CORPUS MODEL LAYERS SEQ "
+                         f"LOSS_CHUNK STEPS DEVICE, got {argv}")
+    corpus, model, layers, seq, chunk, steps, device = argv
     if model not in L.LLAMA_CONFIGS:
         raise SystemExit(f"unknown model {model!r}")
     try:
-        seq, chunk, steps = int(seq), int(chunk), int(steps)
+        layers, seq, chunk, steps = (int(layers), int(seq), int(chunk),
+                                     int(steps))
     except ValueError:
-        raise SystemExit(f"SEQ, LOSS_CHUNK and STEPS must be integers: {argv}")
-    if seq < 2 or chunk < 0 or steps < 1:
-        raise SystemExit(f"bad SEQ, LOSS_CHUNK or STEPS in {argv}")
-    return {"corpus": corpus, "model": model, "seq": seq,
+        raise SystemExit("LAYERS, SEQ, LOSS_CHUNK and STEPS must be "
+                         f"integers: {argv}")
+    if layers < 1 or seq < 2 or chunk < 0 or steps < 1:
+        raise SystemExit(f"bad LAYERS, SEQ, LOSS_CHUNK or STEPS in {argv}")
+    return {"corpus": corpus, "model": model, "layers": layers, "seq": seq,
             "loss_chunk": chunk, "steps": steps, "device": device or None}
+
+
+def resume_config(model: str, layers: int):
+    """``model``'s config cut to ``layers`` layers."""
+    return dataclasses.replace(L.LLAMA_CONFIGS[model], n_layers=layers)
 
 
 def _child_print(event: str, **fields) -> None:
@@ -5042,7 +5102,7 @@ def resume_child(argv: list) -> int:
                              save_interval_steps=100, async_save=True,
                              max_to_keep=2)
     install_preemption_handler(ckpt)
-    cfg = L.LLAMA_CONFIGS[args["model"]]
+    cfg = resume_config(args["model"], args["layers"])
     params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                            dev)
     init_state, step_fn = train_mod.make_train_step(
@@ -5088,7 +5148,8 @@ def _run_resume_child(corpus: str, ckpt_dir: str, cfg_name: str) -> dict:
     device = "" if DEVICE == "cuda" else DEVICE
     proc = subprocess.Popen(
         [sys.executable, "-c", RESUME_CHILD_CODE, corpus, cfg_name,
-         str(TRAIN_SEQ), str(LOSS_CHUNK), str(RESUME_STEPS), device],
+         str(RESUME_LAYERS), str(TRAIN_SEQ), str(LOSS_CHUNK),
+         str(RESUME_STEPS), device],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)),
         env={**os.environ, "TPU_CHECKPOINT_GRACE_S": str(RESUME_GRACE_S),
@@ -5192,7 +5253,8 @@ def _check_child(child: dict, n: int) -> tuple:
 
 
 def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
-    """Phase 12: a child trains ``cfg_name`` at full width and depth on the
+    """Phase 12: a child trains ``cfg_name`` at full width, cut to
+    ``RESUME_LAYERS`` layers, on the
     card (B 1, S 2048, remat "full", AdamW, TokenLoader batches) with the
     emergency-save handler installed, and is sent SIGTERM after its last
     ``save``: it must die of the signal within the grace + 5 s, after
@@ -5203,7 +5265,7 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
     counting its launches. Returns the phase's numbers."""
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = L.LLAMA_CONFIGS[cfg_name]
+    cfg = resume_config(cfg_name, RESUME_LAYERS)
     n = cfg.n_layers
     init_state, step_fn = train_mod.make_train_step(
         cfg, remat="full", loss_chunk=LOSS_CHUNK)
@@ -5316,7 +5378,8 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
 
         gb = nbytes / 1e9
         numbers = {
-            "model": cfg_name, "state_gb": gb, "grace_s": RESUME_GRACE_S,
+            "model": cfg_name, "layers": n, "state_gb": gb,
+            "grace_s": RESUME_GRACE_S,
             "emergency_save_s": emergency_s,
             "emergency_save_gb_per_s": gb / emergency_s,
             "emergency_write_s": write_s,
@@ -5803,23 +5866,27 @@ def ts_rank_shapes_vs_plain() -> dict:
 
 
 @contextlib.contextmanager
-def _collective_meter():
+def _collective_meter(names=TS_COLLECTIVES):
     """Calls, bytes and host seconds of the ``torch.distributed``
-    collectives a sharded step calls, while inside; yields {"calls",
-    "bytes", "seconds"}. An all_reduce moves its tensor's bytes, an
-    all_gather the bytes it gathers, a reduce-scatter its input's. A
-    call's host seconds include any wait the collective makes it take."""
+    collectives ``names`` while inside; yields {"calls", "bytes",
+    "seconds"}. An all_reduce moves its tensor's bytes, an all_gather the
+    bytes it gathers, a reduce-scatter and an all-to-all their input's, a
+    ``batch_isend_irecv`` the bytes it sends. A call's host seconds
+    include any wait the collective makes it take."""
     dist = torch.distributed
     seen = {"calls": 0, "bytes": 0, "seconds": 0.0}
-    real = {name: getattr(dist, name) for name in TS_COLLECTIVES}
+    real = {name: getattr(dist, name) for name in names}
 
     def metered(name):
         def call(*args, **kwargs):
             first = args[0]
             if name == "all_gather":
                 nbytes = sum(t.numel() * t.element_size() for t in first)
-            elif name == "reduce_scatter_tensor":
+            elif name in ("reduce_scatter_tensor", "all_to_all_single"):
                 nbytes = args[1].numel() * args[1].element_size()
+            elif name == "batch_isend_irecv":
+                nbytes = sum(op.tensor.numel() * op.tensor.element_size()
+                             for op in first if op.op is dist.isend)
             else:
                 nbytes = first.numel() * first.element_size()
             t0 = time.perf_counter()
@@ -5831,7 +5898,7 @@ def _collective_meter():
                 seen["seconds"] += time.perf_counter() - t0
         return call
 
-    for name in TS_COLLECTIVES:
+    for name in names:
         setattr(dist, name, metered(name))
     try:
         yield seen
@@ -6024,6 +6091,20 @@ def _ts_checkpoint(spec, plan, cfg, state, init_state, step_fn, tokens,
                                                      "bwd_dkv")}}
 
 
+def ts_global_batch(corpus: str) -> torch.Tensor:
+    """(a)'s global batch: each rank's row from ``sharded_loader``,
+    stacked in rank order, on the device."""
+    rows = [sharded_loader(corpus, TS_GLOBAL_BATCH, TRAIN_SEQ, seed=SEED + 3,
+                           process_id=k, num_processes=TS_DEGREE)
+            for k in range(TS_DEGREE)]
+    try:
+        return torch.from_numpy(np.concatenate(
+            [ld.next() for ld in rows])).to(DEVICE)
+    finally:
+        for ld in rows:
+            ld.close()
+
+
 def _ts_reference(cfg, tokens) -> dict:
     """The unsharded step 1 on the same weights and global batch: its
     loss and global grad norm with the kernels (phase 10's
@@ -6179,15 +6260,11 @@ def train_sharded_phase() -> dict:
               f"GB, free disk {disk / 1e9:.2f} GB")
         corpus = _train_corpus(tmp, cfg.vocab_size)
         t0 = time.monotonic()
-        rows = [sharded_loader(corpus, TS_GLOBAL_BATCH, TRAIN_SEQ,
-                               seed=SEED + 3, process_id=k,
-                               num_processes=TS_DEGREE)
-                for k in range(TS_DEGREE)]
-        tokens = torch.from_numpy(np.concatenate(
-            [ld.next() for ld in rows])).to(DEVICE)
-        for ld in rows:
-            ld.close()
+        tokens = ts_global_batch(corpus)
         ref = _ts_reference(cfg, tokens)
+        # Phase 15 (a) and (b) are held to this step 1 on this batch.
+        SP_REFERENCE.update(model=TS_FSDP_MODEL, tokens=tokens.cpu(),
+                            ref=ref)
         del tokens
         base = {"port": 0, "device": DEVICE, "dtype": TP_DTYPE,
                 "corpus": corpus, "loss_chunk": LOSS_CHUNK,
@@ -6213,6 +6290,403 @@ def train_sharded_phase() -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: sequence, pipeline and expert parallelism
+
+SPP_DEGREE = 2
+SPP_IMPLS = ("ring", "ulysses", "zigzag")
+SPP_N_MICRO = 2
+SPP_MOE_MODEL = "mixtral-8x7b"
+SPP_MOE_LAYERS = 2  # of mixtral-8x7b's 32: the depth cut
+SPP_MOE_BATCH = (1, TRAIN_SEQ)
+SPP_SERVE_NEW = 32  # new tokens a request (phase 5's first 32)
+# Step 1's loss and global grad norm against the unsharded step's: bf16
+# sums in another order (phase 10's gate).
+SPP_TOL = {"loss_rel": 2e-2, "grad_norm_rel": 2e-2}
+# An Ulysses rank's attention at gemma-2b's training shape under sp=2:
+# B 2, half of the 8 q heads after the K/V broadcast (4 q / 4 kv heads,
+# group 1), the whole S 2048, D 256.
+SPP_RANK_SHAPE = (2, 4, 4, TRAIN_SEQ, TRAIN_SEQ, True, 0, 0, None)
+SPP_RANK_D = 256
+SPP_CHILD_TIMEOUT = 900.0
+SPP_TAG = "spp-child "
+SPP_CHILD_CODE = ("import sys, chip_smoke; "
+                  "sys.exit(chip_smoke.spp_child(sys.argv[1:]))")
+# The collectives a step of phase 15 calls, metered in each child: phase
+# 14's and the ring's, the pipeline's and Ulysses' transfers.
+SPP_COLLECTIVES = TS_COLLECTIVES + ("batch_isend_irecv", "all_to_all_single")
+SPP_PARTS = ("sp", "pp", "ep", "serve")
+# Phase 14 (a)'s model, global batch and unsharded step 1 (loss, global
+# grad norm), recorded there: what phase 15 (a) and (b) are held to.
+SP_REFERENCE: dict = {}
+
+
+def spp_rank_shapes_vs_plain() -> dict:
+    """Phase 15 (0): one launch each of the flash forward, dQ and dK/dV at
+    an Ulysses rank's training shape of gemma-2b under sp=2 (B 2, 4 q / 4
+    kv heads after the broadcast, S 2048, D 256), held to their plain
+    versions by phase 3's gates (each twice, bit-equal)."""
+    case = _bwd_case(SPP_RANK_SHAPE, SPP_RANK_D, seed=1500)
+    fwd = {k: case[k] for k in ("q", "k", "v", "causal", "q_offset",
+                                "window", "kv_mask")}
+    check_fwd_repeat((case["out"], case["lse"]), flash_attention_fwd(**fwd),
+                     "spp-rank")
+    out = {"flash": {}}
+    errs = _flash_errors(case["out"], case["lse"], fwd)
+    _gate("spp-rank flash", errs, out["flash"])
+    check(errs["lse"] <= LSE_TOL and errs["keyless_rows_ok"],
+          f"spp-rank flash: lse error {errs['lse']} or a keyless row")
+    out["flash"]["lse"] = errs["lse"]
+    grads = flash_attention_bwd(**case)
+    check_bwd_repeat(grads, flash_attention_bwd(**case), "spp-rank")
+    berrs = _bwd_errors(grads, case)
+    for t in ("dq", "dk", "dv"):
+        for gate, limit in BWD_GATES.items():
+            err = berrs[t][gate]
+            check(math.isfinite(err) and err <= limit,
+                  f"spp-rank bwd {t}: {gate} error {err} > {limit}")
+        out[t] = berrs[t]
+    check(berrs["zeros_ok"], "spp-rank bwd: a zero gradient is not zero")
+    log(f"  kernels at an Ulysses rank's shape (B 2, 4 q / 4 kv heads, S "
+        f"{SPP_RANK_SHAPE[3]}, D {SPP_RANK_D}): {json.dumps(out)}")
+    return out
+
+
+def _spp_print(event: str, **fields) -> None:
+    print(SPP_TAG + json.dumps({"event": event, **fields}), flush=True)
+
+
+def _moe_config(name: str, layers: int, dtype):
+    cfg = dataclasses.replace(moe_mod.MOE_CONFIGS[name], n_layers=layers)
+    return cfg if dtype is None else dataclasses.replace(
+        cfg, dtype=getattr(torch, dtype))
+
+
+def _metered(fn):
+    """``fn()`` with its wall, kernel launches, collectives (calls, bytes,
+    host seconds) and the port's own host staging of them:
+    (result, {"wall_s", "launches", "collectives", "staged"}, all counts)."""
+    before, staged = _counts(), dict(collectives_mod.HOST_STAGING)
+    _sync(DEVICE)
+    with _collective_meter(SPP_COLLECTIVES) as seen:
+        t0 = time.monotonic()
+        out = fn()
+        _sync(DEVICE)
+        wall = time.monotonic() - t0
+    got = _step_counts(before, _counts())
+    return out, {
+        "wall_s": wall,
+        "launches": {k: got[k] for k in ("flash", "bwd_dq", "bwd_dkv")},
+        "collectives": dict(seen),
+        "staged": {k: collectives_mod.HOST_STAGING[k] - staged[k]
+                   for k in staged}}, got
+
+
+def _check_launches(got: dict, want: dict, what: str) -> None:
+    check({k: got[k] for k in want} == want
+          and got["ragged"] == got["decode"] == got["dense"] == 0,
+          f"{what} launched {got}, want {want}")
+
+
+def _check_step_one(rec: dict, ref: dict, what: str) -> None:
+    for key in ("loss", "grad_norm"):
+        rel = abs(rec[key] - ref[key]) / abs(ref[key])
+        rec[f"{key}_rel"] = rel
+        check(rel <= SPP_TOL[f"{key}_rel"],
+              f"{what}: step 1's {key} {rec[key]} vs the unsharded "
+              f"{ref[key]} (rel {rel:.3e})")
+
+
+def _spp_sp(spec: dict, rank: int) -> dict:
+    """(a): the whole state a rank, this rank's 1024 of the 2048 positions
+    of phase 14 (a)'s batch; step 1 under each sp_impl (Ulysses through
+    the flash kernels, ring and zigzag plain, as JAX's)."""
+    plan = MeshPlan(make_mesh(sp=SPP_DEGREE))
+    cfg = _tp_config(spec["sp_model"], spec["dtype"])
+    params = L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    tokens = torch.tensor(spec["sp_tokens"], device=DEVICE)
+    per = cfg.n_layers if torch.device(DEVICE).type == "cuda" else 0
+    out, state = {}, None
+    for impl in SPP_IMPLS:
+        init_state, step_fn = train_mod.make_train_step(
+            cfg, plan, sp_impl=impl, remat="full",
+            loss_chunk=spec["loss_chunk"])
+        if state is None:
+            state = train_mod.shard_state(plan, init_state(params))
+        (loss, norm), rec, got = _metered(lambda: (
+            step_fn.loss_and_grads(state, tokens), step_fn.grad_norm(state)))
+        n = per if impl == "ulysses" else 0
+        _check_launches(got, {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n},
+                        f"rank {rank} sp {impl}")
+        rec.update(loss=float(loss), grad_norm=float(norm))
+        _check_step_one(rec, spec["sp_ref"], f"rank {rank} sp {impl}")
+        out[impl] = rec
+    return {"impls": out, "local_seq": tokens.shape[1] // SPP_DEGREE}
+
+
+def _spp_pp(spec: dict, rank: int) -> dict:
+    """(b): the same model and batch at pp=2, this rank's half of the
+    layers, n_micro 2, remat "full"; step 1's loss and grad norm."""
+    plan = MeshPlan(make_mesh(pp=SPP_DEGREE))
+    cfg = _tp_config(spec["sp_model"], spec["dtype"])
+    params = pipeline_mod.shard_pipeline_params(L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE), plan)
+    tokens = torch.tensor(spec["sp_tokens"], device=DEVICE)
+    init_state, step_fn = pipeline_mod.make_pipeline_train_step(
+        cfg, plan, SPP_N_MICRO, remat="full")
+    state = init_state(params)
+    (loss, norm), rec, got = _metered(lambda: (
+        step_fn.loss_and_grads(state, tokens), step_fn.grad_norm(state)))
+    # Each of the rank's layers runs once a microbatch, twice with the
+    # remat recompute; bubbles are skipped.
+    n = (len(params.layers) * SPP_N_MICRO
+         if torch.device(DEVICE).type == "cuda" else 0)
+    _check_launches(got, {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n},
+                    f"rank {rank} pp")
+    rec.update(loss=float(loss), grad_norm=float(norm),
+               stage=list(params.stage), stage_layers=len(params.layers))
+    _check_step_one(rec, spec["sp_ref"], f"rank {rank} pp")
+    return rec
+
+
+def _spp_ep(spec: dict, rank: int) -> dict:
+    """(c): the MoE model at ep=2, this rank's half of the experts drawn
+    from the seed; step 1's loss (aux included) and grad norm."""
+    plan = MeshPlan(make_mesh(ep=SPP_DEGREE))
+    cfg = _moe_config(spec["moe_model"], spec["moe_layers"], spec["dtype"])
+    params = moe_mod.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
+        plan=plan)
+    init_state, step_fn, shard = moe_mod.make_moe_train_step(cfg, plan)
+    state = shard(init_state(params))
+    tokens = torch.tensor(spec["moe_tokens"], device=DEVICE)
+    (loss, norm), rec, got = _metered(lambda: (
+        step_fn.loss_and_grads(state, tokens), step_fn.grad_norm(state)))
+    n = cfg.n_layers if torch.device(DEVICE).type == "cuda" else 0
+    _check_launches(got, {"flash": n, "bwd_dq": n, "bwd_dkv": n},
+                    f"rank {rank} ep")
+    rec.update(loss=float(loss), grad_norm=float(norm),
+               experts=params.layers[0].w_gate.shape[0],
+               state_gb=_state_nbytes(state) / 1e9)
+    _check_step_one(rec, spec["moe_ref"], f"rank {rank} ep")
+    return rec
+
+
+def _spp_serve(spec: dict, rank: int) -> dict:
+    """(d): the continuous engine at sp=2 over phase 5's cache and bucket,
+    the whole weights a rank from the seed, this rank's 512 of every
+    slot's 1024 positions; phase 5's continuous prompts, their tokens held
+    to phase 5's by the near-tie rule."""
+    plan = MeshPlan(make_mesh(sp=SPP_DEGREE))
+    cfg = _tp_config(spec["serve_model"], spec["dtype"])
+    params = L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
+        plan=plan)
+    engine = _cont_engine(params, cfg, plan=plan, max_new=SPP_SERVE_NEW)
+    check(engine._attn_kernel == 0, "sp serving: the dense kernel is on")
+    cache_shape = list(engine.cache["k"].shape)
+    prompts = spec["prompts"]
+
+    def serve():
+        with _counting_calls(cont_mod, "_admit_slot", "_cb_step") as calls:
+            toks, lps = _serve(engine, prompts)
+        return toks, lps, dict(calls)
+
+    (toks, lps, calls), rec, got = _metered(serve)
+    per = _launches_a_call(cfg)
+    admits, steps = calls["_admit_slot"], calls["_cb_step"]
+    check(admits == len(prompts) and steps > 0
+          and got["flash"] == admits * per
+          and got["ragged"] == got["decode"] == got["dense"] == 0,
+          f"rank {rank} sp serving: {got} for {admits} admissions and "
+          f"{steps} steps")
+    ref = spec["serve_ref"]
+    plain = ([t[:SPP_SERVE_NEW] for t in ref[0]],
+             [lp[:SPP_SERVE_NEW] for lp in ref[1]])
+    rec.update(tokens=toks, forks=_compare_greedy(params, cfg, prompts, toks,
+                                                  plain, lps),
+               admissions=admits, decode_steps=steps,
+               flash_launches=got["flash"], cache_shape=cache_shape,
+               tokens_out=sum(len(t) for t in toks))
+    return rec
+
+
+def spp_child(argv: list) -> int:
+    """One rank of phase 15: joins the gloo group of ``SPP_DEGREE`` on the
+    spec's device (``cuda:0`` on the card) and runs the spec's parts in
+    turn, (a) sp training, (b) pp, (c) ep, (d) sp serving, freeing each
+    part's memory before the next; prints a ``spp-child`` record a part
+    (its numbers, wall and peak memory) and a last one, "done"."""
+    global DEVICE
+    spec = json.loads(open(argv[0]).read())
+    rank = int(argv[1])
+    DEVICE = spec["device"]
+    on_card = torch.device(DEVICE).type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if on_card:
+        torch.cuda.set_device(0)
+    started = time.time()
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{spec['port']}", rank=rank,
+        world_size=SPP_DEGREE)
+    parts = {"sp": _spp_sp, "pp": _spp_pp, "ep": _spp_ep,
+             "serve": _spp_serve}
+    for part in spec["parts"]:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        rec = parts[part](spec, rank)
+        gc.collect()
+        rec["seconds"] = time.monotonic() - t0
+        rec["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                           if on_card else 0.0)
+        if on_card:
+            torch.cuda.empty_cache()
+        _spp_print(part, rank=rank, **rec)
+    _spp_print("done", rank=rank, started=started, ended=time.time())
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _moe_reference(cfg, tokens) -> dict:
+    """(c)'s unsharded step 1 here, on the same weights and batch: its
+    loss (aux included) and global grad norm; the model is freed after."""
+    params = moe_mod.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    init_state, step_fn, _ = moe_mod.make_moe_train_step(cfg)
+    state = init_state(params)
+    loss = step_fn.loss_and_grads(state, tokens)
+    out = {"loss": float(loss), "grad_norm": float(step_fn.grad_norm(state))}
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _run_spp_children(spec: dict) -> tuple:
+    """Both ranks as ``python -c`` children; {part: [each rank's record]}
+    and the seconds from the spawn to the last child's end."""
+    with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                     delete=False) as f:
+        json.dump(spec, f)
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SPP_CHILD_CODE, f.name, str(rank)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for rank in range(SPP_DEGREE)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=SPP_CHILD_TIMEOUT))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        os.unlink(f.name)
+    by_part = {}
+    for proc, (out, err) in zip(procs, outs):
+        check(proc.returncode == 0, f"spp child exited {proc.returncode}: "
+                                    + err[-6000:])
+        for line in out.splitlines():
+            if line.startswith(SPP_TAG):
+                rec = json.loads(line[len(SPP_TAG):])
+                by_part.setdefault(rec.pop("event"), []).append(rec)
+    check(sorted(by_part) == sorted(list(spec["parts"]) + ["done"])
+          and all(len(v) == SPP_DEGREE for v in by_part.values()),
+          f"spp children's records: {sorted(by_part)}")
+    return by_part, time.time() - t0
+
+
+def _per_rank(recs: list, key: str) -> list:
+    return [r[key] for r in sorted(recs, key=lambda r: r["rank"])]
+
+
+def sp_pp_ep_phase(p5: dict) -> dict:
+    """Phase 15. ``p5`` holds phase 5's continuous run of 4 prompts,
+    (tokens, logprobs); ``SP_REFERENCE`` phase 14 (a)'s batch and
+    unsharded step 1. The rank-shape kernels, (c)'s unsharded reference,
+    then two gloo children on the one card for (a)-(d). Returns the
+    phase's numbers."""
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = spp_rank_shapes_vs_plain()
+    check(bool(SP_REFERENCE), "phase 14 (a) recorded no reference")
+    moe_cfg = _moe_config(SPP_MOE_MODEL, SPP_MOE_LAYERS, TP_DTYPE)
+    moe_tokens = torch.from_numpy(np.random.default_rng(SEED + 15).integers(
+        0, moe_cfg.vocab_size, SPP_MOE_BATCH)).to(DEVICE)
+    t0 = time.monotonic()
+    moe_ref = _moe_reference(moe_cfg, moe_tokens)
+    moe_ref_s = time.monotonic() - t0
+    serve_cfg = _tp_config(TP_MODEL, TP_DTYPE)
+    spec = {"port": _free_port(), "device": DEVICE, "dtype": TP_DTYPE,
+            "parts": list(SPP_PARTS), "loss_chunk": LOSS_CHUNK,
+            "sp_model": SP_REFERENCE["model"],
+            "sp_tokens": SP_REFERENCE["tokens"].tolist(),
+            "sp_ref": SP_REFERENCE["ref"],
+            "moe_model": SPP_MOE_MODEL, "moe_layers": SPP_MOE_LAYERS,
+            "moe_tokens": moe_tokens.tolist(), "moe_ref": moe_ref,
+            "serve_model": TP_MODEL,
+            "prompts": _prompts(serve_cfg, 16, 8, 500, SEED)[::4],
+            "serve_ref": [p5["continuous"][0], p5["continuous"][1]]}
+    by_part, children_s = _run_spp_children(spec)
+    sp, pp, ep, serve = (by_part[k] for k in SPP_PARTS)
+    for impl in SPP_IMPLS:
+        check(sp[0]["impls"][impl]["loss"] == sp[1]["impls"][impl]["loss"]
+              and sp[0]["impls"][impl]["launches"]
+              == sp[1]["impls"][impl]["launches"],
+              f"sp {impl}: the ranks differ")
+    check(pp[0]["loss"] == pp[1]["loss"], "pp: the ranks' losses differ")
+    check(ep[0]["loss"] == ep[1]["loss"], "ep: the ranks' losses differ")
+    check(serve[0]["tokens"] == serve[1]["tokens"],
+          "sp serving: the ranks emitted different tokens")
+
+    def step_numbers(recs):
+        return {k: _per_rank(recs, k) for k in (
+            "loss", "grad_norm", "loss_rel", "grad_norm_rel", "wall_s",
+            "launches", "collectives", "staged")}
+
+    numbers = {
+        "kernels": kernels,
+        "sp": {"model": SP_REFERENCE["model"], "reference":
+               SP_REFERENCE["ref"], "local_seq": sp[0]["local_seq"],
+               "impls": {impl: step_numbers([r["impls"][impl] | {
+                   "rank": r["rank"]} for r in sp]) for impl in SPP_IMPLS},
+               "peak_gib": _per_rank(sp, "peak_gib"),
+               "seconds": _per_rank(sp, "seconds")},
+        "pp": {"model": SP_REFERENCE["model"], "n_micro": SPP_N_MICRO,
+               "stage_layers": _per_rank(pp, "stage_layers"),
+               **step_numbers(pp), "peak_gib": _per_rank(pp, "peak_gib"),
+               "seconds": _per_rank(pp, "seconds")},
+        "ep": {"model": SPP_MOE_MODEL, "layers": SPP_MOE_LAYERS,
+               "reference": moe_ref, "reference_s": moe_ref_s,
+               "experts_per_rank": _per_rank(ep, "experts"),
+               "state_gb": _per_rank(ep, "state_gb"), **step_numbers(ep),
+               "peak_gib": _per_rank(ep, "peak_gib"),
+               "seconds": _per_rank(ep, "seconds")},
+        "serve": {"model": TP_MODEL, "cache_shape": serve[0]["cache_shape"],
+                  "admissions": serve[0]["admissions"],
+                  "decode_steps": serve[0]["decode_steps"],
+                  "flash_launches": _per_rank(serve, "flash_launches"),
+                  "tokens_per_s": serve[0]["tokens_out"]
+                  / serve[0]["wall_s"],
+                  "forks": serve[0]["forks"],
+                  "wall_s": _per_rank(serve, "wall_s"),
+                  "collectives": _per_rank(serve, "collectives"),
+                  "staged": _per_rank(serve, "staged"),
+                  "peak_gib": _per_rank(serve, "peak_gib"),
+                  "seconds": _per_rank(serve, "seconds")},
+        "children_s": children_s,
+        "seconds": time.monotonic() - t_phase,
+    }
+    log(f"  sp/pp/ep on one card (gloo, both ranks on cuda:0): "
+        f"{json.dumps(numbers)}")
+    return numbers
+
+
 def main() -> int:
     # One card, the first visible one, set before CUDA starts: the process
     # drives and counts one card however many the host has.
@@ -6225,7 +6699,7 @@ def main() -> int:
     t_start = time.monotonic()
     phases = {}
 
-    log("[1/14] card")
+    log("[1/15] card")
     smi = subprocess.run(
         ["nvidia-smi", "-i", card_id, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -6239,7 +6713,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     phases["card"] = time.monotonic() - t_start
 
-    log("[2/14] build")
+    log("[2/15] build")
     t0 = time.monotonic()
     seconds = _build.build()
     for name, took in seconds.items():
@@ -6250,7 +6724,7 @@ def main() -> int:
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
 
-    log("[3/14] kernel vs plain")
+    log("[3/15] kernel vs plain")
     t0 = time.monotonic()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
@@ -6260,7 +6734,7 @@ def main() -> int:
     quant_errors = quant_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
-    log("[4/14] timing at the main-path shapes")
+    log("[4/15] timing at the main-path shapes")
     t0 = time.monotonic()
     times = timing()
     flash_times = timing_flash()
@@ -6270,7 +6744,7 @@ def main() -> int:
     quant_times = timing_quant()
     phases["timing"] = time.monotonic() - t0
 
-    log("[5/14] engines: llama-3-8b, full width and depth, random weights")
+    log("[5/15] engines: llama-3-8b, full width and depth, random weights")
     t0 = time.monotonic()
     cfg = L.LLAMA_CONFIGS["llama-3-8b"]
     params = L.init_params(
@@ -6285,19 +6759,19 @@ def main() -> int:
     quant_rows = quant_engine_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
-    log("[6/14] HTTP")
+    log("[6/15] HTTP")
     t0 = time.monotonic()
     http_tokens = {"ragged": http_phase(engine, "ragged")}
     http_phase(alt_engine, "alternating")
     http_tokens["continuous"] = http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
-    log("[7/14] prefix and handoff")
+    log("[7/15] prefix and handoff")
     t0 = time.monotonic()
     prefix = prefix_phase(params, cfg, card)
     phases["prefix"] = time.monotonic() - t0
 
-    log("[8/14] speculation and multi-LoRA")
+    log("[8/15] speculation and multi-LoRA")
     t0 = time.monotonic()
     spec = spec_lora_phase(params, cfg, card, runs)
     # Phase 13 holds its tokens to phase 5's.
@@ -6307,7 +6781,7 @@ def main() -> int:
     del runs
     phases["spec_lora"] = time.monotonic() - t0
 
-    log("[9/14] checkpoint and observability")
+    log("[9/15] checkpoint and observability")
     t0 = time.monotonic()
     # Phases 5-8's engines and pools go first; the served weights stay.
     del engine, alt_engine, cont_engine
@@ -6316,7 +6790,7 @@ def main() -> int:
     ckpt = checkpoint_phase(params, cfg, card, http_tokens)
     phases["checkpoint"] = time.monotonic() - t0
 
-    log(f"[10/14] train: {', '.join(TRAIN_MODELS)}")
+    log(f"[10/15] train: {', '.join(TRAIN_MODELS)}")
     t0 = time.monotonic()
     # The serving model goes first: training needs ~66 GB.
     del params
@@ -6329,30 +6803,39 @@ def main() -> int:
     train_launches = trained["llama-3-8b"]
     phases["train"] = time.monotonic() - t0
 
-    log(f"[11/14] finetune: fp8 products, then {FT_MODEL}'s LoRA finetune "
+    log(f"[11/15] finetune: fp8 products, then {FT_MODEL}'s LoRA finetune "
         "and fp8 training, then examples/finetune_lora")
     t0 = time.monotonic()
     finetune = finetune_phase(card)
     phases["finetune"] = time.monotonic() - t0
 
-    log(f"[12/14] resume: SIGTERM to a child training {RESUME_MODEL}, then "
-        "its emergency checkpoint restored on the card")
+    log(f"[12/15] resume: SIGTERM to a child training {RESUME_MODEL} "
+        f"({RESUME_LAYERS} layers), then its emergency checkpoint restored "
+        "on the card")
     t0 = time.monotonic()
     resume = resume_phase()
     phases["resume"] = time.monotonic() - t0
 
-    log(f"[13/14] tp: degree {TP_DEGREE} on the one card over gloo, then "
+    log(f"[13/15] tp: degree {TP_DEGREE} on the one card over gloo, then "
         "degree 1 over NCCL")
     t0 = time.monotonic()
     tp = tp_phase(p5)
     phases["tp"] = time.monotonic() - t0
 
-    log(f"[14/14] train_sharded: fsdp={TS_DEGREE} {TS_FSDP_MODEL} and "
+    log(f"[14/15] train_sharded: fsdp={TS_DEGREE} {TS_FSDP_MODEL} and "
         f"tp={TS_DEGREE} {TS_TP_MODEL} as gloo ranks on the one card, then "
         "examples/train_sharded over NCCL")
     t0 = time.monotonic()
     sharded = train_sharded_phase()
     phases["train_sharded"] = time.monotonic() - t0
+
+    log(f"[15/15] sp_pp_ep: {SP_REFERENCE['model']} at sp={SPP_DEGREE} "
+        f"(ring, Ulysses, zigzag) and pp={SPP_DEGREE}, {SPP_MOE_MODEL} "
+        f"({SPP_MOE_LAYERS} layers) at ep={SPP_DEGREE}, {TP_MODEL} served "
+        f"at sp={SPP_DEGREE}, as gloo ranks on the one card")
+    t0 = time.monotonic()
+    spp = sp_pp_ep_phase(p5)
+    phases["sp_pp_ep"] = time.monotonic() - t0
 
     def entry(name, source, replaces, launched, errs, timed, **extra):
         return {
@@ -6536,6 +7019,26 @@ def main() -> int:
             sharded["kernels"][t]["abs"] for t in {
                 "flash": ("flash",), "bwd_dq": ("dq",),
                 "bwd_dkv": ("dk", "dv")}[key])
+    # Phase 15's runs, each rank's counts from 0 just before its step or
+    # its serving run.
+    for k in kernels:
+        key = {"flash_attention": "flash",
+               "flash_attention_bwd_dq": "bwd_dq",
+               "flash_attention_bwd_dkv": "bwd_dkv"}.get(k["name"])
+        if key is None:
+            continue
+        k["launches_sp_pp_ep_per_rank"] = {
+            **{f"sp_{impl}": [c[key] for c in spp["sp"]["impls"][impl][
+                "launches"]] for impl in SPP_IMPLS},
+            "pp": [c[key] for c in spp["pp"]["launches"]],
+            "ep": [c[key] for c in spp["ep"]["launches"]]}
+        if key == "flash":
+            k["launches_sp_pp_ep_per_rank"]["serve"] = spp["serve"][
+                "flash_launches"]
+        k["sp_rank_max_abs_err"] = max(
+            spp["kernels"][t]["abs"] for t in {
+                "flash": ("flash",), "bwd_dq": ("dq",),
+                "bwd_dkv": ("dk", "dv")}[key])
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     # The fp8 products are torch._scaled_mm, a library call that stands
@@ -6549,6 +7052,7 @@ def main() -> int:
     print(json.dumps({"resume": resume}))
     print(json.dumps({"tp": tp}))
     print(json.dumps({"train_sharded": sharded}))
+    print(json.dumps({"sp_pp_ep": spp}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

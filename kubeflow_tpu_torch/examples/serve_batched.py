@@ -40,8 +40,12 @@ bucket + max_new_tokens positions, as the JAX entry point's plan path
 does. Quantized weights under ``--tp`` exit (a tp plan cannot shard
 them, nor can JAX's).
 
-What the port lacks is refused before any weight is made, naming the
-ROADMAP queue-1 item that brings it: ``--sp`` above 1 (item 13).
+``--sp N`` (with or without ``--tp``) serves ``ContinuousBatcher`` over a
+cache cut over the sequence (the split-KV decode), as the JAX entry
+point's plan path: the replica is ``tp × sp`` processes started as for
+``--tp``, and the cache length (bucket + max_new_tokens) is rounded up to
+a multiple of sp. ``--paged --sp`` and ``--speculative --sp`` exit with
+the JAX messages, before any weight is made.
 """
 
 from __future__ import annotations
@@ -51,11 +55,15 @@ import sys
 
 
 def _refusals(args) -> None:
-    """Exit on every flag that asks for what the port lacks."""
-    if args.sp > 1:
-        raise SystemExit(
-            "--sp: sequence-parallel KV shards are not ported to PyTorch "
-            "yet (ROADMAP queue 1 item 13); drop it")
+    """Exit on the flag combinations JAX's entry point refuses under sp."""
+    if args.paged and args.sp > 1:
+        # The block pool has no contiguous sequence axis to shard.
+        raise SystemExit("--paged supports --tp but not --sp "
+                         "(use continuous batching for sp)")
+    if args.speculative and args.sp > 1:
+        # Chunked draft/verify has no split-KV sp merge.
+        raise SystemExit("--speculative supports --tp but not --sp "
+                         "(use plain continuous batching for sp)")
 
 
 def main(argv=None) -> None:
@@ -116,6 +124,7 @@ def main(argv=None) -> None:
     from kubeflow_tpu_torch.models import llama as L
     from kubeflow_tpu_torch.models import tp_serving
     from kubeflow_tpu_torch.models.quant import quant_bits_from_env
+    from kubeflow_tpu_torch.parallel.mesh import MeshPlan, make_mesh
 
     # CLI flags win; otherwise the notebook runtime option applies.
     try:
@@ -123,29 +132,30 @@ def main(argv=None) -> None:
                 else quant_bits_from_env())
     except ValueError as err:
         raise SystemExit(str(err))
-    if args.tp > 1 and bits:
+    if (args.tp > 1 or args.sp > 1) and bits:
         raise SystemExit(
-            "--tp: quantized weights cannot be sharded by a tp plan; "
-            "drop the quantization (flag or KUBEFLOW_TPU_QUANT) or --tp")
+            "--tp/--sp: quantized weights cannot be sharded by a plan; "
+            "drop the quantization (flag or KUBEFLOW_TPU_QUANT) or the plan")
     device = resolve_device(args.device)
     plan, rank, followers = None, 0, []
-    if args.tp > 1:
+    world = args.tp * args.sp
+    if world > 1:
         if not args.checkpoint:
             try:
                 tp_serving.validate_serving_tp(
                     L.LLAMA_CONFIGS[args.config], args.tp,
-                    n_devices=(torch.cuda.device_count()
+                    n_devices=(torch.cuda.device_count() // args.sp
                                if device.type == "cuda" else None))
             except ValueError as err:
                 raise SystemExit(str(err))
         if args.tp_rank is None:
             args.tp_port, followers = tp_serving.spawn_followers(
-                "kubeflow_tpu_torch.examples.serve_batched", argv, args.tp)
+                "kubeflow_tpu_torch.examples.serve_batched", argv, world)
         else:
             rank = args.tp_rank
-        device = tp_serving.init_replica_rank(args.tp, rank, args.tp_port,
+        device = tp_serving.init_replica_rank(world, rank, args.tp_port,
                                               args.device)
-        plan = tp_serving.serving_plan(args.tp)
+        plan = MeshPlan(make_mesh(tp=args.tp, sp=args.sp))
     try:
         _generate(args, bits, device, plan, rank)
     finally:
@@ -265,20 +275,23 @@ def _generate(args, bits, device, plan, rank) -> None:
         say(f"paged: {pb.free_blocks}/{args.num_blocks - 1} blocks free "
             "after run")
     elif plan is not None:
-        # The plan path without --paged: continuous batching over a
-        # head-sharded dense cache, as the JAX entry point's.
+        # The plan path without --paged: continuous batching over a dense
+        # cache cut by kv head (tp) and sequence (sp), as the JAX entry
+        # point's; the cache length a multiple of sp.
         from kubeflow_tpu_torch.models.continuous import ContinuousBatcher
 
         bucket = 16 * ((max(len(p) for p in prompts) + 15) // 16)
+        cache_len = args.sp * -(-(bucket + gen.max_new_tokens) // args.sp)
         cb = ContinuousBatcher(
             params, cfg, gen=gen, slots=min(4, len(prompts)),
-            cache_len=bucket + gen.max_new_tokens, prompt_bucket=bucket,
+            cache_len=cache_len, prompt_bucket=bucket,
             kv_bits=kv_bits, plan=plan, device=device,
         )
         rids = [cb.submit(p) for p in prompts]
         results = cb.run()
         outs = [results[r] for r in rids]
-        say(f"tensor-parallel continuous batching: tp={plan.tp}")
+        say(f"sharded serving: tp={args.tp} sp={args.sp} over "
+            f"{args.tp * args.sp} devices")
     else:
         outs = batch_generate(params, cfg, prompts, gen, kv_bits=kv_bits)
     for i, out in enumerate(outs):

@@ -38,11 +38,9 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--sp-impl", default="ring",
                     choices=["ring", "ulysses", "zigzag"],
-                    help="accepted for parity with the JAX example's flags: "
-                         "the fsdp mesh built here has no sp axis, so "
-                         "'ring' selects nothing, and the others raise "
-                         "NotImplementedError (sequence parallelism is "
-                         "ROADMAP item 13)")
+                    help="passed to make_train_step, as the JAX example "
+                         "does: the fsdp mesh built here has no sp axis, so "
+                         "it is validated and selects nothing")
     ap.add_argument("--data", default=None,
                     help="uint32 token corpus (data.loader.write_token_file "
                          "format); omitted = synthetic random tokens")

@@ -26,6 +26,10 @@ the master stacked as any layer leaf and each history stacked per layer;
 each layer's slice becomes an ``Fp8Weight`` and comes back stacked, so a
 train state crosses both ways.
 
+The MoE tree (``models/moe.py``) crosses the same way: ``moe_from_jax``
+unstacks each layer leaf, the expert leaves ``(L, E, …)`` to one
+``(E, …)`` a layer and the f32 router ``(L, dim, E)`` to ``(dim, E)``.
+
 LoRA adapters (``models/lora.py``) keep JAX's tree as it is, a dict of
 ``{"a", "b"}`` per target: ``lora_from_jax``/``lora_to_numpy`` move one
 adapter, ``stacked_from_jax`` a ``stack_adapters`` tree, leaf by leaf and
@@ -257,3 +261,38 @@ def stacked_from_jax(tree: dict, device=None) -> dict:
     the same tree of tensors on ``device``, byte for byte."""
     dev = resolve_device(device)
     return _adapter_tree(tree, 4, dev, lambda a: _to_torch(a).to(dev))
+
+
+def moe_from_jax(tree: dict, cfg, device=None):
+    """A JAX ``models/moe.py`` ``init_params`` tree of numpy arrays →
+    ``MoE`` on ``device``, leaf by leaf and byte for byte. Raises on a
+    leaf whose shape or dtype the config does not expect, or on a leaf
+    the model has no place for."""
+    from kubeflow_tpu_torch.models.moe import MoE
+
+    dev = resolve_device(device)
+    model = MoE(cfg, dev)
+    want = {name for name, _ in model.layers[0].named_parameters()}
+    unknown = (set(tree) - {"embed", "final_norm", "lm_head", "layers"}) | (
+        set(tree["layers"]) ^ want)
+    if unknown:
+        raise ValueError(f"unexpected or missing leaves: {sorted(unknown)}")
+
+    def put(param, arr, name):
+        src = _to_torch(arr)
+        if tuple(src.shape) != tuple(param.shape) or src.dtype != param.dtype:
+            raise ValueError(
+                f"{name}: got {tuple(src.shape)} {src.dtype}, model wants "
+                f"{tuple(param.shape)} {param.dtype}")
+        with torch.no_grad():
+            param.copy_(src)
+
+    for name in ("embed", "final_norm", "lm_head"):
+        put(getattr(model, name), tree[name], name)
+    for name, stacked in tree["layers"].items():
+        if len(stacked) != cfg.n_layers:
+            raise ValueError(f"layers/{name}: {len(stacked)} stacked layers, "
+                             f"config has {cfg.n_layers}")
+        for i, layer in enumerate(model.layers):
+            put(getattr(layer, name), stacked[i], f"layers/{name}[{i}]")
+    return model

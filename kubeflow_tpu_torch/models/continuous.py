@@ -38,8 +38,19 @@ shard (``MeshPlan.shard_params``), the cache holds the rank's kv heads,
 What differs from JAX there: JAX refuses ``attn_kernel=True`` with a plan
 and defaults it off (its Pallas call is single-device under GSPMD); a
 rank's cache here is its own, so the dense kernel keeps its one-card
-default (on, on the card) and accepts True. Sequence-parallel plans
-(``sp`` > 1) are ROADMAP queue 1 item 13.
+default (on, on the card) and accepts True under a pure-tp plan.
+
+Under an sp axis (with or without tp) the cache is cut over the
+sequence: a rank holds ``cache_len / sp`` consecutive positions of every
+slot, ``(L, B, Hkv/tp, C/sp, D)``, and its columns of the validity mask.
+A one-shot admission prefills the whole prompt on every rank (the flash
+kernel on the card) into a 1-row cache of the bucket and keeps the rows
+of the positions the rank owns; a decode step writes each slot's token
+on the rank that owns its position only, and attends through
+``parallel/ring_attention.py``'s ``sp_decode_attention`` (each rank its
+shard, merged over sp by one pmax and two psums), never the dense decode
+kernel, as in JAX. Chunked and ragged admission are refused under any
+plan.
 """
 
 from __future__ import annotations
@@ -82,7 +93,8 @@ def _admit_slot(params: Llama, cfg: LlamaConfig,
                 cache: dict,                          # (L, B, Hkv, C, D)
                 kv_mask: torch.Tensor,                # (B, C) bool
                 slot: int,
-                attn_impl: str = "auto") -> torch.Tensor:
+                attn_impl: str = "auto",
+                sp_start: Optional[int] = None) -> torch.Tensor:
     """Prefill one prompt into ``slot``; returns its first logits (V,).
 
     The prefill writes straight into the slot's rows of the stacked cache
@@ -91,14 +103,37 @@ def _admit_slot(params: Llama, cfg: LlamaConfig,
     in. Columns past the bucket keep the previous occupant's values; no
     query sees them (``k_pos <= pos``, and the kernel's ``k_pos <
     seq_len``) before the slot's own decode overwrites them. ``attn_impl``
-    goes to the prefill's ``flash_attention``."""
+    goes to the prefill's ``flash_attention``.
+
+    ``sp_start``: the cache is this rank's piece of a cache cut over sp,
+    from that global position on; the prompt is prefilled whole into a
+    1-row cache of the bucket and the rank keeps the positions it owns
+    (its mask columns past them stay True, as the whole row's do)."""
     lb = tokens.shape[1]
-    rows = {name: leaf[:, slot:slot + 1] for name, leaf in cache.items()}
-    logits, _ = _prefill_impl(params, cfg, tokens, rows, kv_mask=prompt_mask,
+    if sp_start is None:
+        rows = {name: leaf[:, slot:slot + 1] for name, leaf in cache.items()}
+        logits, _ = _prefill_impl(params, cfg, tokens, rows,
+                                  kv_mask=prompt_mask, attn_impl=attn_impl)
+        kv_mask[slot] = True
+        if prompt_mask is not None:
+            kv_mask[slot, :lb] = prompt_mask[0]
+        return logits[0]
+    # A cache cut over sp: the whole prompt into a 1-row cache of the
+    # bucket, then the positions this rank owns into the slot.
+    c_local = kv_mask.shape[1]
+    temp = {name: torch.zeros((leaf.shape[0], 1, leaf.shape[2], lb,
+                               *leaf.shape[4:]), dtype=leaf.dtype,
+                              device=leaf.device)
+            for name, leaf in cache.items()}
+    logits, _ = _prefill_impl(params, cfg, tokens, temp, kv_mask=prompt_mask,
                               attn_impl=attn_impl)
+    lo, hi = sp_start, min(sp_start + c_local, lb)
+    for name, leaf in cache.items():
+        if hi > lo:
+            leaf[:, slot, :, :hi - lo] = temp[name][:, 0, :, lo:hi]
     kv_mask[slot] = True
-    if prompt_mask is not None:
-        kv_mask[slot, :lb] = prompt_mask[0]
+    if prompt_mask is not None and hi > lo:
+        kv_mask[slot, :hi - lo] = prompt_mask[0, lo:hi]
     return logits[0]
 
 
@@ -133,21 +168,35 @@ def _cb_step(params: Llama, cfg: LlamaConfig,
              top_k: int, top_p: float,
              bias: Optional[torch.Tensor] = None,  # (B, V) per-slot bias
              attn_kernel: int = 0,      # > 0: the dense kernel, its chunk
+             decode_attn=None,          # the sp split-KV decode, or None
+             sp_start: int = 0,         # first position of the sp piece
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step across every slot at its own position; returns
     (next token, its logprob) per slot. ``attn_kernel`` > 0 attends a bf16
     cache through ``dense_decode_attention`` with that block size (each
     slot's filled prefix only); otherwise, and for int8 caches, through
     ``_gqa_decode_attention`` with the scales folded in. An idle slot
-    (all-False kv_mask row) attends nothing and its row is discarded. JAX's
-    ``decode_attn`` (the sequence-parallel split) is not ported.
+    (all-False kv_mask row) attends nothing and its row is discarded.
 
     The token is written at its slot's position with one indexed write per
     leaf, never clipped: the constructor's ``prompt_bucket +
-    max_new_tokens <= cache_len`` keeps every decode position below C."""
+    max_new_tokens <= cache_len`` keeps every decode position below C.
+
+    ``decode_attn``: the sequence-parallel split-KV decode
+    (``make_sharded_sp_decode``) over a cache cut along the sequence,
+    ``sp_start`` the first global position this rank's piece holds: a
+    slot's token is written only where its position falls in the piece.
+    """
     positions = positions.long()
     cos, sin = rope_frequencies(cfg, positions)  # (B, half)
     rows = torch.arange(positions.shape[0], device=positions.device)
+    local, pick = positions, slice(None)
+    if decode_attn is not None:
+        # The slots whose position falls in this rank's piece.
+        local = positions - sp_start
+        owned = (local >= 0) & (local < next(iter(cache.values())).shape[3])
+        rows, local = rows[owned], local[owned]
+        pick = rows
 
     def store(cache_l, k, v):  # k, v (B, Hkv, 1, D)
         news = {"k": k, "v": v}
@@ -155,9 +204,15 @@ def _cb_step(params: Llama, cfg: LlamaConfig,
             (news["k"], news["k_scale"]), (news["v"], news["v_scale"]) = (
                 _kv_quantize(k), _kv_quantize(v))
         for name, new in news.items():
-            cache_l[name][rows, :, positions] = new[:, :, 0]
+            cache_l[name][rows, :, local] = new[pick, :, 0]
 
-    if attn_kernel and "k_scale" not in cache:
+    if decode_attn is not None:
+        def attend(q, cache_l):
+            return decode_attn(
+                q, cache_l["k"], cache_l["v"], positions,
+                window=cfg.sliding_window, kv_mask=kv_mask, per_batch=True,
+                k_scale=cache_l.get("k_scale"), v_scale=cache_l.get("v_scale"))
+    elif attn_kernel and "k_scale" not in cache:
         seq_lens = (positions + 1).int()
 
         def attend(q, cache_l):
@@ -633,9 +688,10 @@ class ContinuousBatcher(_BatcherBase):
     ``flash_attention(impl="auto")``. Sampled rows draw from ``generator``
     (a seeded ``torch.Generator`` on the device; seed 0 when None), where
     JAX takes a key. ``plan=`` makes the engine one rank of a
-    tensor-parallel replica (``params`` must be the rank's shard,
-    ``MeshPlan.check_shard``); ``admit_chunk`` and ``sp`` > 1 are refused
-    with it.
+    tensor-parallel and/or sequence-parallel replica (``params`` must be
+    the rank's shard, ``MeshPlan.check_shard``; under sp the cache is cut
+    over the sequence and ``cache_len`` must divide by sp); ``admit_chunk``
+    is refused with it.
     """
 
     def __init__(
@@ -691,9 +747,16 @@ class ContinuousBatcher(_BatcherBase):
                     "(the fused chunk step is XLA) — drop one of the two"
                 )
         self.ragged = ragged
+        sp = 1 if plan is None else plan.sp
         # Explicit True with an unsupported composition is a reasoned
         # rejection, never a silent fallback.
         if attn_kernel:
+            if sp > 1:
+                # Under sp the decode is the split-KV merge, as in JAX.
+                raise ValueError(
+                    "attn_kernel=True does not compose with plan= (the "
+                    "dense kernel is single-device) — drop one of the two"
+                )
             if kv_bits:
                 raise ValueError(
                     "attn_kernel=True does not compose with kv_bits (the "
@@ -720,7 +783,7 @@ class ContinuousBatcher(_BatcherBase):
             attn_kernel = (
                 self.device.type == "cuda" and not kv_bits
                 and not cfg.sliding_window and not ragged
-                and cfg.dtype == torch.bfloat16
+                and cfg.dtype == torch.bfloat16 and sp == 1
             )
         self._attn_kernel = _kernel_block_size(cache_len) if attn_kernel else 0
         if prompt_bucket + self.gen.max_new_tokens > cache_len:
@@ -729,13 +792,19 @@ class ContinuousBatcher(_BatcherBase):
                 f"{prompt_bucket} + max_new_tokens {self.gen.max_new_tokens}"
             )
         kv_cfg = cfg
+        self._decode_attn, self._sp_start = None, None
         if plan is not None:
-            if plan.mesh.shape.get("sp", 1) > 1:
-                raise NotImplementedError(
-                    "sp-sharded caches (the split-KV sequence-parallel "
-                    "decode) are not ported to PyTorch yet (ROADMAP queue 1 "
-                    "item 13); use a pure-tp plan"
+            if sp > 1 and cache_len % sp:
+                raise ValueError(
+                    f"cache_len {cache_len} not divisible by sp={sp}"
                 )
+            if sp > 1:
+                from kubeflow_tpu_torch.parallel.ring_attention import (
+                    make_sharded_sp_decode,
+                )
+
+                self._decode_attn = make_sharded_sp_decode(plan)
+                self._sp_start = plan.sp_index * (cache_len // sp)
             # The cache's kv-head rule first, before any weight is cut.
             plan.check_kv_heads(cfg.n_kv_heads)
             plan.check_shard(params)
@@ -760,9 +829,10 @@ class ContinuousBatcher(_BatcherBase):
         self.cache_len = cache_len
         self.generator = generator
         self.kv_bits = kv_bits
-        self.cache = init_kv_cache(kv_cfg, slots, cache_len, kv_bits=kv_bits,
-                                   device=self.device)
-        self.kv_mask = torch.zeros((slots, cache_len), dtype=torch.bool,
+        # Under sp: this rank's cache_len / sp positions of every slot.
+        self.cache = init_kv_cache(kv_cfg, slots, cache_len // sp,
+                                   kv_bits=kv_bits, device=self.device)
+        self.kv_mask = torch.zeros((slots, cache_len // sp), dtype=torch.bool,
                                    device=self.device)
         # Host-side state, uploaded once per step.
         self.positions = np.zeros((slots,), np.int32)
@@ -889,7 +959,8 @@ class ContinuousBatcher(_BatcherBase):
         the _post_admit hook, sampling, budget) stays in the one loop."""
         del req
         return _admit_slot(self.params, self.cfg, padded, prompt_mask,
-                           self.cache, self.kv_mask, slot)
+                           self.cache, self.kv_mask, slot,
+                           sp_start=self._sp_start)
 
     def _release_slot(self, slot: int) -> None:
         self._by_slot[slot] = None
@@ -918,6 +989,7 @@ class ContinuousBatcher(_BatcherBase):
             self._up(self.positions), self.kv_mask, self.generator,
             self._up(self.temps), self.gen.top_k, self.gen.top_p,
             bias=self._bias, attn_kernel=self._attn_kernel,
+            decode_attn=self._decode_attn, sp_start=self._sp_start or 0,
         )
         # The emitted token will occupy the next cache index of its slot.
         for slot in active:

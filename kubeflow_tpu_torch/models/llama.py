@@ -267,7 +267,6 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
         model = Llama(cfg, dev)
         whole = dict(model.named_parameters())
     else:
-        plan.check_training()
         model = plan.empty_shard(cfg, dev)
         whole = dict(Llama(cfg, "meta").named_parameters())
     local = dict(model.named_parameters())
@@ -508,7 +507,7 @@ def _mlp(layer: LlamaLayer, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
 
 def _layer_fwd(layer: LlamaLayer, cfg: LlamaConfig, x: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor,
-               attn_impl: str) -> torch.Tensor:
+               attn_impl) -> torch.Tensor:
     """One transformer layer, full sequence. K/V go in unrepeated:
     ``flash_attention`` reads the GQA group's kv head itself."""
     h = _norm(x, layer.attn_norm, cfg)
@@ -555,20 +554,22 @@ _REMAT_POLICIES = {
 
 
 def forward_hidden(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
-                   attn_impl: str = "auto", remat: str = "full"
-                   ) -> torch.Tensor:
+                   attn_impl="auto", remat: str = "full",
+                   offset: int = 0) -> torch.Tensor:
     """Tokens (B, S) → final-normed hidden states (B, S, dim), without the
     lm head: the seam of the chunked cross entropy (``models/train.py``).
     ``remat`` picks the ``_REMAT_POLICIES`` entry; with no graph recorded
     (grad mode off) no layer is checkpointed, so it costs nothing at
-    inference."""
+    inference. ``offset``: the global position of ``tokens``' first
+    column, where they are a sequence-parallel rank's piece (rope
+    positions are global; JAX's arrays are whole, so it has none)."""
     if remat not in _REMAT_POLICIES:
         raise ValueError(
             f"unknown remat policy {remat!r} (want {sorted(_REMAT_POLICIES)})"
         )
     x = _embed(params, cfg, tokens)
     cos, sin = rope_frequencies(
-        cfg, torch.arange(tokens.shape[1], device=tokens.device))
+        cfg, offset + torch.arange(tokens.shape[1], device=tokens.device))
     wrap = _REMAT_POLICIES[remat if torch.is_grad_enabled() else "none"]
     for layer in params.layers:
         x = wrap(functools.partial(_layer_fwd, layer, cfg))(
@@ -577,10 +578,11 @@ def forward_hidden(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
 
 
 def forward(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
-            attn_impl: str = "auto") -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) → logits (B, S, V) f32."""
-    return _lm_head_logits(forward_hidden(params, cfg, tokens, attn_impl),
-                           params)
+            attn_impl="auto", offset: int = 0) -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) → logits (B, S, V) f32
+    (``offset`` as in ``forward_hidden``)."""
+    return _lm_head_logits(
+        forward_hidden(params, cfg, tokens, attn_impl, offset=offset), params)
 
 
 # ---------------------------------------------------------------------------

@@ -38,11 +38,17 @@ from kubeflow_tpu_torch.models.quant import QuantizedWeight, _set
 from kubeflow_tpu_torch.models.train import (
     _mesh_plan,
     batch_mean,
+    sp_attention,
     causal_lm_loss,
     make_optimizer,
     tensor_leaves,
 )
-from kubeflow_tpu_torch.parallel.mesh import AXES, place, placement_of
+from kubeflow_tpu_torch.parallel.mesh import (
+    AXES,
+    SP_GRAD_AXES,
+    place,
+    placement_of,
+)
 
 # Weights eligible for adapters: every layer's (in, out) projection.
 _ADAPTABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -187,8 +193,13 @@ def make_lora_train_step(cfg: LlamaConfig, lcfg: LoraConfig, plan=None,
     stays frozen: it records no graph and is never written. ``plan`` is
     ``None`` or a device, or a ``MeshPlan`` whose shard ``base_params``
     is (the batch a global one each rank takes its rows of, as
-    ``make_train_step``'s); the loss returned is the global batch's."""
+    ``make_train_step``'s); the loss returned is the global batch's. Under
+    an sp axis each rank takes its positions of its rows too, and attends
+    through the dense attention JAX keeps there ("auto" under GSPMD): its
+    queries against the K/V gathered over sp (``train.sp_attention`` with
+    ``use_ring_sp=False``), not the ring."""
     plan = _mesh_plan(plan)
+    attn_impl = sp_attention(plan, False, "ring")
     optimizer = optimizer or make_optimizer(lr=learning_rate,
                                             weight_decay=0.0)
 
@@ -203,19 +214,23 @@ def make_lora_train_step(cfg: LlamaConfig, lcfg: LoraConfig, plan=None,
         leaves = tensor_leaves(state["lora"])
         for t in leaves:
             t.grad = None
+        seq = None
         if plan is not None:
+            seq = plan.seq_piece(tokens)
             tokens = plan.local_batch(tokens)
         merged = merge_lora_differentiable(base_params, state["lora"], lcfg)
-        loss = causal_lm_loss(merged, cfg, tokens)
+        loss = causal_lm_loss(merged, cfg, tokens, attn_impl, seq)
         loss.backward()
         del merged
         loss = loss.detach()
         if plan is not None:
             # Each adapter's gradient is summed over the mesh (every rank
-            # holds its share of its slice of each product), then averaged
-            # over the batch axes.
+            # holds its share of its slice of each product, or of its
+            # positions under sp), then averaged over the batch axes.
             group = plan.mesh.group(AXES)
-            loss = batch_mean(plan, [(t.grad, group) for t in leaves], loss)
+            loss = batch_mean(plan, [(t.grad, group) for t in leaves], loss,
+                              plan.mesh.group(SP_GRAD_AXES) if plan.sp > 1
+                              else "batch")
         optimizer.update(state["opt_state"], int(state["step"]))
         for t in leaves:
             t.grad = None

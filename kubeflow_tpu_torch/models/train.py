@@ -28,9 +28,19 @@ What differs from JAX:
   (JAX donates the state and returns a new one) and returns it with the
   step's loss. ``shard_state`` cuts it in place too.
 - ``plan`` may also be ``None`` or a device: one device, no collective.
-  Sequence-parallel attention (ring, Ulysses, zigzag) and sp/pp/ep meshes
-  raise ``NotImplementedError`` (ROADMAP queue 1 item 13). A quantized
-  model is refused: the JAX package cannot train one either.
+  A quantized model is refused: the JAX package cannot train one either.
+- Under an sp axis each rank holds every parameter whole and its
+  positions of its rows (``MeshPlan.local_batch``), and writes out the
+  three facts GSPMD hides: rope positions are global (``forward_hidden``'s
+  ``offset``), the last target of a rank's piece is the next rank's first
+  token (only the last rank drops a position, ``MeshPlan.seq_piece``),
+  and each rank's loss is its positions' share of the global mean over B
+  · (S − 1), its gradients summed over sp as well as over dp · fsdp.
+  Attention is ``sp_impl``'s (``parallel/ring_attention.py``,
+  ``ulysses.py``, ``zigzag_attention.py``); with ``use_ring_sp=False``
+  on an sp mesh each rank attends the K/V gathered over sp, the dense
+  attention GSPMD would run. The pipeline and expert-parallel steps are
+  ``parallel/pipeline.py``'s and ``models/moe.py``'s.
 - ``train_step`` is a ``TrainStep``: calling it is JAX's step; its
   ``loss_and_grads``, ``grad_norm`` and ``apply`` are the step's parts.
 - fp8 (``fp8=True``): JAX partitions the optimizer with
@@ -75,9 +85,13 @@ from kubeflow_tpu_torch.models.llama import (
     init_params,
 )
 from kubeflow_tpu_torch.models.quant import QuantizedWeight
+from kubeflow_tpu_torch.parallel import collectives
 from kubeflow_tpu_torch.parallel.mesh import (
     AXES,
+    SP_FSDP_GRAD_AXES,
+    SP_GRAD_AXES,
     MeshPlan,
+    SeqPiece,
     _world,
     make_mesh,
     place,
@@ -85,20 +99,45 @@ from kubeflow_tpu_torch.parallel.mesh import (
 )
 
 
+def _shift(tokens: torch.Tensor, seq: Optional[SeqPiece]) -> tuple:
+    """The next-token pairing of a batch: (positions that have a target,
+    their targets, the positions with a target in a global row). Under
+    sp (``seq``) the last target of a rank's piece is the next rank's
+    first token, and only the last rank drops a position."""
+    if seq is None or seq.nxt is None:
+        keep, targets = tokens.shape[1] - 1, tokens[:, 1:]
+    else:
+        keep = tokens.shape[1]
+        targets = torch.cat([tokens[:, 1:], seq.nxt[:, None].to(tokens.dtype)],
+                            dim=1)
+    total = tokens.shape[1] if seq is None else seq.total
+    return keep, targets.long(), total - 1
+
+
 def per_token_nll(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
-                  attn_impl: str = "auto") -> torch.Tensor:
+                  attn_impl="auto", seq: Optional[SeqPiece] = None
+                  ) -> torch.Tensor:
     """(B, S-1) next-token negative log likelihoods — the one place the
-    NLL math lives (training mean-loss and perplexity eval both fold it)."""
-    logits = forward(params, cfg, tokens, attn_impl=attn_impl)[:, :-1]
-    targets = tokens[:, 1:].long()
+    NLL math lives (training mean-loss and perplexity eval both fold it).
+    ``seq``: a sequence-parallel rank's piece (its positions that have a
+    target)."""
+    keep, targets, _ = _shift(tokens, seq)
+    logits = forward(params, cfg, tokens, attn_impl=attn_impl,
+                     offset=0 if seq is None else seq.offset)[:, :keep]
     logprobs = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logprobs, -1, targets[..., None])[..., 0]
 
 
 def causal_lm_loss(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
-                   attn_impl: str = "auto") -> torch.Tensor:
-    """Next-token cross entropy over (B, S) token batches."""
-    return torch.mean(per_token_nll(params, cfg, tokens, attn_impl))
+                   attn_impl="auto", seq: Optional[SeqPiece] = None
+                   ) -> torch.Tensor:
+    """Next-token cross entropy over (B, S) token batches. Under sp
+    (``seq``) a rank's share of the global mean: its NLL sum over the
+    global row's positions, B · (S-1)."""
+    nll = per_token_nll(params, cfg, tokens, attn_impl, seq)
+    if seq is None:
+        return torch.mean(nll)
+    return torch.sum(nll) / (tokens.shape[0] * (seq.total - 1))
 
 
 def _chunk_nll_sum(params: Llama, h_c: torch.Tensor, t_c: torch.Tensor,
@@ -110,9 +149,9 @@ def _chunk_nll_sum(params: Llama, h_c: torch.Tensor, t_c: torch.Tensor,
 
 
 def chunked_causal_lm_loss(params: Llama, cfg: LlamaConfig,
-                           tokens: torch.Tensor, attn_impl: str = "auto",
-                           chunk: int = 512, remat: str = "full"
-                           ) -> torch.Tensor:
+                           tokens: torch.Tensor, attn_impl="auto",
+                           chunk: int = 512, remat: str = "full",
+                           seq: Optional[SeqPiece] = None) -> torch.Tensor:
     """causal_lm_loss without ever materializing (B, S, vocab) logits.
 
     The lm head and cross entropy run per sequence chunk, each chunk
@@ -120,19 +159,22 @@ def chunked_causal_lm_loss(params: Llama, cfg: LlamaConfig,
     chunk's f32 logits are alive; a tail shorter than ``chunk`` runs
     unchecked, as in JAX. The same lse − target arithmetic in f32 as
     ``causal_lm_loss``. ``remat`` goes to the layer stack. The head's
-    weight is taken (under fsdp: gathered) once for every chunk."""
+    weight is taken (under fsdp: gathered) once for every chunk. Under sp
+    (``seq``) the chunks run over the rank's positions and the sum is
+    divided by the global row's, as in ``causal_lm_loss``."""
     b, s = tokens.shape
-    if s < 2:
+    s_global = s if seq is None else seq.total
+    if s_global < 2:
         raise ValueError(
-            f"causal LM loss needs sequences of >= 2 tokens, got S={s}"
+            f"causal LM loss needs sequences of >= 2 tokens, got S={s_global}"
         )
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    hidden = forward_hidden(params, cfg, tokens, attn_impl, remat=remat)
-    hidden = hidden[:, :-1]
-    targets = tokens[:, 1:]
-    n_pos = s - 1
-    chunk = min(chunk, n_pos)
+    hidden = forward_hidden(params, cfg, tokens, attn_impl, remat=remat,
+                            offset=0 if seq is None else seq.offset)
+    n_pos, targets, n_global = _shift(tokens, seq)
+    hidden = hidden[:, :n_pos]
+    chunk = min(chunk, max(n_pos, 1))
     n_chunks = n_pos // chunk
     w = _head_weight(params)
     body = functools.partial(_chunk_nll_sum, params)
@@ -145,7 +187,7 @@ def chunked_causal_lm_loss(params: Llama, cfg: LlamaConfig,
     if n_chunks * chunk < n_pos:  # S-1 is rarely chunk-aligned
         total = total + _chunk_nll_sum(params, hidden[:, n_chunks * chunk:],
                                        targets[:, n_chunks * chunk:], w)
-    return total / (b * n_pos)
+    return total / (b * n_global)
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +329,6 @@ def _mesh_plan(plan) -> Optional[MeshPlan]:
     if not isinstance(plan, MeshPlan):
         raise TypeError(
             f"plan {plan!r}: want None, a device or a MeshPlan")
-    plan.check_training()
     return plan
 
 
@@ -305,9 +346,14 @@ def shard_state(plan: MeshPlan, state: dict) -> dict:
     placement (JAX's path-stripping rule) and is cut where it is still
     whole, and scalars (the step counts) stay whole: replicated. A moment
     is cut one at a time, so the peak extra memory is one leaf."""
-    plan.check_training()
-    params, opt = state["params"], state["opt_state"]
-    plan.cut(params)
+    plan.cut(state["params"])
+    place_moments(state["opt_state"])
+    return state
+
+
+def place_moments(opt: torch.optim.AdamW) -> None:
+    """Give each Adam moment its parameter's ``Placement``, cutting the
+    moments still whole to the parameter's piece, one at a time."""
     with torch.no_grad():
         for group in opt.param_groups:
             for p in group["params"]:
@@ -321,14 +367,15 @@ def shard_state(plan: MeshPlan, state: dict) -> dict:
                         m = pl.slice(m).clone()
                         moments[key] = m
                     place(m, pl)
-    return state
 
 
-def batch_mean(plan: MeshPlan, grads: list, loss: torch.Tensor
-               ) -> torch.Tensor:
+def batch_mean(plan: MeshPlan, grads: list, loss: torch.Tensor,
+               loss_group="batch") -> torch.Tensor:
     """The mean over the plan's batch axes: of each gradient of ``grads``,
     ``(grad, group)`` pairs, in place (summed over ``group`` first, where
-    there is one), and of ``loss``, returned."""
+    there is one), and of ``loss``, returned (summed over ``loss_group``
+    first: by default the batch axes' group; under sp the group over the
+    batch axes and sp, each sp rank's loss its positions' share)."""
     dist = torch.distributed
     n = plan.n_batch
     for grad, group in grads:
@@ -336,10 +383,63 @@ def batch_mean(plan: MeshPlan, grads: list, loss: torch.Tensor
             dist.all_reduce(grad, group=group)
         if n > 1:
             grad.div_(n)
-    if plan.batch_group is not None:
+    if loss_group == "batch":
+        loss_group = plan.batch_group
+    if loss_group is not None:
         loss = loss.clone()
-        dist.all_reduce(loss, group=plan.batch_group)
+        dist.all_reduce(loss, group=loss_group)
     return loss / n if n > 1 else loss
+
+
+def _gathered_attention(plan: MeshPlan):
+    """The attention JAX's GSPMD runs for ``impl="auto"`` on a batch cut
+    over sp: each rank's queries against the whole sequence's K/V,
+    gathered over sp (the gradient reduce-scattered back, the pair
+    ``fsdp_gather`` is), through ``flash_attention(impl="auto")`` at the
+    rank's ``q_offset``."""
+    group, index = plan.sp_group, plan.sp_index
+
+    def attention(q, k, v, causal=True, q_offset=0, window=0, kv_mask=None,
+                  impl=None):
+        from kubeflow_tpu_torch.ops.attention import flash_attention
+
+        k, v = (collectives.fsdp_gather(t, group, 2) for t in (k, v))
+        if kv_mask is not None:
+            kv_mask = collectives.gather_mask(kv_mask, group)
+        return flash_attention(q, k, v, causal=causal,
+                               q_offset=q_offset + index * q.shape[2],
+                               window=window, kv_mask=kv_mask)
+
+    return attention
+
+
+def sp_attention(plan: Optional[MeshPlan], use_ring_sp: Optional[bool],
+                 sp_impl: str):
+    """The attention impl of a step under ``plan`` (JAX's choice in
+    ``make_train_step``): "auto" without an sp axis unless
+    ``use_ring_sp``; else ``sp_impl``'s mesh-bound attention. An sp mesh
+    with ``use_ring_sp=False`` gathers K/V over sp, as GSPMD does for
+    JAX's dense attention there."""
+    from kubeflow_tpu_torch.parallel.ring_attention import (
+        make_sharded_ring_attention,
+    )
+    from kubeflow_tpu_torch.parallel.ulysses import (
+        make_sharded_ulysses_attention,
+    )
+    from kubeflow_tpu_torch.parallel.zigzag_attention import (
+        make_sharded_zigzag_attention,
+    )
+
+    sp = 1 if plan is None else plan.sp
+    if use_ring_sp is None:
+        use_ring_sp = sp > 1
+    if not use_ring_sp:
+        return "auto" if sp == 1 else _gathered_attention(plan)
+    if plan is None:
+        raise ValueError("sequence-parallel attention needs a MeshPlan plan")
+    return {"ring": make_sharded_ring_attention,
+            "ulysses": make_sharded_ulysses_attention,
+            "zigzag": make_sharded_zigzag_attention}[sp_impl](plan)
 
 
 class TrainStep:
@@ -351,17 +451,19 @@ class TrainStep:
     the fp8 histories replaced, the step counted)."""
 
     def __init__(self, cfg, plan, optimizer, grad_accum, loss_chunk, remat,
-                 fp8):
+                 fp8, attn_impl="auto"):
         self.cfg, self.plan, self.optimizer = cfg, plan, optimizer
         self.grad_accum, self.loss_chunk = grad_accum, loss_chunk
-        self.remat, self.fp8 = remat, fp8
+        self.remat, self.fp8, self.attn_impl = remat, fp8, attn_impl
 
-    def loss_fn(self, params: Llama, tokens: torch.Tensor) -> torch.Tensor:
+    def loss_fn(self, params: Llama, tokens: torch.Tensor,
+                seq: Optional[SeqPiece] = None) -> torch.Tensor:
         if self.loss_chunk:
             return chunked_causal_lm_loss(params, self.cfg, tokens,
+                                          self.attn_impl,
                                           chunk=self.loss_chunk,
-                                          remat=self.remat)
-        return causal_lm_loss(params, self.cfg, tokens)
+                                          remat=self.remat, seq=seq)
+        return causal_lm_loss(params, self.cfg, tokens, self.attn_impl, seq)
 
     def _masters(self, params: Llama) -> list:
         labels = fp8_partition_labels(params)
@@ -373,10 +475,12 @@ class TrainStep:
         params = state["params"]
         ga = self.grad_accum
         params.zero_grad(set_to_none=True)
+        seq = None
         if self.plan is not None:
+            seq = self.plan.seq_piece(tokens)
             tokens = self.plan.local_batch(tokens)
         if ga == 1:
-            loss = self.loss_fn(params, tokens)
+            loss = self.loss_fn(params, tokens, seq)
             loss.backward()
             loss = loss.detach()
         else:
@@ -393,7 +497,9 @@ class TrainStep:
                                 device=p.device) for p in plist]
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for i in range(ga):
-                micro_loss = self.loss_fn(params, tokens[i::ga])
+                micro_seq = None if seq is None else dataclasses.replace(
+                    seq, nxt=None if seq.nxt is None else seq.nxt[i::ga])
+                micro_loss = self.loss_fn(params, tokens[i::ga], micro_seq)
                 micro_loss.backward()
                 loss = loss + micro_loss.detach()
                 for acc, p in zip(sums, plist):
@@ -410,18 +516,24 @@ class TrainStep:
         """The global mean of the loss and the gradients over the batch
         axes. A leaf fsdp cuts had its gradient summed over fsdp by the
         backward's reduce-scatter: it is summed over dp here; every other
-        master over dp · fsdp. The fp8 histories' next values are already
-        the mesh's (their amaxes are)."""
+        master over dp · fsdp. Under sp each rank's loss and gradients are
+        its positions' share, summed over sp too. The fp8 histories' next
+        values are already the mesh's (their amaxes are)."""
         plan = self.plan
+        sp = plan.sp > 1
         grads = []
         for _, p in self._masters(params):
             if p.grad is None:
                 continue
             pl = placement_of(p)
-            fsdp_cut = pl is not None and pl.split_dim("fsdp") is not None
-            grads.append((p.grad, plan.mesh.group("dp") if fsdp_cut
-                          else plan.batch_group))
-        return batch_mean(plan, grads, loss)
+            if pl is not None and pl.split_dim("fsdp") is not None:
+                group = plan.mesh.group(SP_FSDP_GRAD_AXES if sp else "dp")
+            else:
+                group = (plan.mesh.group(SP_GRAD_AXES) if sp
+                         else plan.batch_group)
+            grads.append((p.grad, group))
+        return batch_mean(plan, grads, loss, plan.mesh.group(SP_GRAD_AXES)
+                          if sp else "batch")
 
     def grad_norm(self, state: dict) -> torch.Tensor:
         """The global norm of the masters' gradients: under a plan each
@@ -473,6 +585,14 @@ def make_train_step(
     the loss and grads, takes one optimizer update and returns ``(state,
     loss)``, the state updated in place.
 
+    ``use_ring_sp`` (default: the mesh has an sp axis > 1) runs attention
+    sequence-parallel with ``sp_impl``: "ring" (K/V rotate around the sp
+    ranks), "ulysses" (two all-to-alls trade sequence shards for head
+    shards; the heads a tp rank holds must divide by sp) or "zigzag" (the
+    balanced causal ring; causal-only, so not for sliding-window
+    configs). ``sp_impl`` is validated always and ignored without sp, as
+    in JAX.
+
     ``plan``: None or a device trains on one device; a ``MeshPlan``
     trains sharded over its mesh (each rank calls the step on the same
     global batch, or on its piece from ``data.loader.device_put_global``,
@@ -498,15 +618,13 @@ def make_train_step(
     next value (averaged over the microbatches under ``grad_accum``).
     init_state raises if the params tree and the flag disagree."""
     if sp_impl not in ("ring", "ulysses", "zigzag"):
+        # Validate even when sp ends up inactive: a typo'd sp_impl on an
+        # sp=1 mesh must not silently run dense attention.
         raise ValueError(
             f"unknown sp_impl {sp_impl!r} (want 'ring'|'ulysses'|'zigzag')"
         )
-    if use_ring_sp or sp_impl != "ring":
-        raise NotImplementedError(
-            "sequence-parallel attention (ring, Ulysses, zigzag) is not "
-            "ported yet (ROADMAP queue 1 item 13)"
-        )
     mesh_plan = _mesh_plan(plan)
+    attn_impl = sp_attention(mesh_plan, use_ring_sp, sp_impl)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     optimizer = optimizer or make_optimizer()
@@ -534,7 +652,7 @@ def make_train_step(
                 "step": torch.zeros((), dtype=torch.int64)}
 
     return init_state, TrainStep(cfg, mesh_plan, optimizer, grad_accum,
-                                 loss_chunk, remat, fp8)
+                                 loss_chunk, remat, fp8, attn_impl)
 
 
 @torch.no_grad()

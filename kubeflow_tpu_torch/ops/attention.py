@@ -8,8 +8,11 @@ its names, argument order and layouts:
   (K/V unrepeated, q head ``i`` reads kv head ``i // (H // Hkv)``);
   returns O. ``impl="auto"`` launches the kernel on a CUDA tensor and runs
   the plain version on a CPU tensor; ``impl="xla"`` asks for the plain
-  version on either (the only way to it on the card). Registered and
-  callable impls (ring, Ulysses) are not ported yet and raise.
+  version on either (the only way to it on the card). ``impl`` may also
+  be a callable of this signature or a name given to
+  ``register_attention_impl`` (the sequence-parallel attentions of
+  ``parallel/``, bound to a mesh): K/V are broadcast to the full heads
+  first, as in JAX, and the call goes to it.
 - ``flash_attention_fwd`` — the kernel's wrapper, counterpart of
   ``_fwd_pallas_call``: returns ``(O, lse)``, lse (B, H, Sq) f32 in
   natural-log units. On a CUDA tensor it launches the hand-written kernel
@@ -98,6 +101,23 @@ def _mask_bytes(kv_mask: Optional[torch.Tensor], sk: int):
     return sk_pad, F.pad(kv_mask.to(torch.uint8), (0, sk_pad - sk)).contiguous()
 
 
+# Pluggable implementations: the parallel layer may register a mesh-bound
+# attention (ring, Ulysses, zigzag) under a name, so model code stays
+# mesh-agnostic. Mesh-bound impls are better passed as callables, so two
+# meshes never fight over one name.
+_IMPL_REGISTRY: dict = {}
+
+
+def register_attention_impl(name: str, fn) -> None:
+    _IMPL_REGISTRY[name] = fn
+
+
+def _broadcast_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
+    """(B, Hkv, S, D) → (B, Hkv·rep, S, D), kv head j serving q heads
+    j·rep .. (j+1)·rep - 1."""
+    return x.repeat_interleave(rep, dim=1)
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
@@ -113,11 +133,18 @@ def flash_attention(
     continuation); ``window`` > 0 adds sliding-window masking; ``kv_mask``
     marks valid keys (left padding in batched serving)."""
     _check_heads(q, k)
-    if callable(impl) or impl not in ("auto", "xla"):
-        raise NotImplementedError(
-            f"attention impl {impl!r} is not ported to PyTorch yet (the "
-            "registered and callable impls, ring and Ulysses, come with the "
-            "sequence-parallel slice); use impl='auto' or 'xla'"
+    h, hkv = q.shape[1], k.shape[1]
+    if callable(impl) or impl in _IMPL_REGISTRY:
+        fn = impl if callable(impl) else _IMPL_REGISTRY[impl]
+        if h != hkv:  # SP impls shard the head axis; give them full heads
+            k = _broadcast_kv(k, h // hkv)
+            v = _broadcast_kv(v, h // hkv)
+        return fn(q, k, v, causal=causal, q_offset=q_offset, window=window,
+                  kv_mask=kv_mask)
+    if impl not in ("auto", "xla"):
+        raise ValueError(
+            f"unknown attention impl {impl!r}: 'auto', 'xla', a callable, "
+            "or a name given to register_attention_impl"
         )
     if impl == "xla":
         return flash_attention_reference(q, k, v, causal, q_offset, window,

@@ -1,6 +1,7 @@
 """Parallelism over ``torch.distributed``: the device mesh and its
-sharding plan (``mesh.py``). Counterpart of ``kubeflow_tpu/parallel``;
-ring, Ulysses and zigzag attention and the pipeline come with ROADMAP
-queue 1 item 13."""
+sharding plan (``mesh.py``), the differentiable collectives
+(``collectives.py``), sequence-parallel attention (``ring_attention.py``,
+``ulysses.py``, ``zigzag_attention.py``) and the pipeline
+(``pipeline.py``). Counterpart of ``kubeflow_tpu/parallel``."""
 
 from kubeflow_tpu_torch.parallel.mesh import MeshPlan, make_mesh  # noqa: F401

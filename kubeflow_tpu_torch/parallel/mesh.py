@@ -49,9 +49,15 @@ What differs from JAX:
   shard: under a plan they take a shard (``check_shard``), cut once by
   the caller. The qkv biases (qwen2) are sliced with their projections'
   columns, where JAX replicates them and GSPMD slices the add.
-- Serving takes tp alone: ``check_serving`` refuses dp/fsdp (ROADMAP
-  queue 1 item 12 (b)) and sp/pp/ep (item 13); training takes dp, fsdp
-  and tp, and refuses sp/pp/ep (``check_training``).
+- Serving takes tp and sp: ``check_serving`` refuses dp/fsdp (ROADMAP
+  queue 1 item 12 (b)). Under sp only the continuous engine serves (its
+  cache cut over the sequence, ``shard_kv_cache(seq_over_sp=True)``); the
+  paged and speculative engines raise JAX's ``ValueError``s. Training
+  takes every axis: dp, fsdp and tp cut the Llama leaves (``param_spec``);
+  sp cuts the batch's sequence (``batch_spec``, ``local_batch``) and
+  leaves every leaf whole; pp and ep cut the pipeline's stages and the
+  experts (``parallel/pipeline.py``, ``models/moe.py``'s
+  ``moe_param_spec``), through the same ``Placement``.
 - Quantized weights are refused (``ValueError``) before any leaf is
   touched: JAX's ``device_put`` cannot shard them either (the ``(L, 1,
   out)`` scale of ``wo`` does not divide over ``tp``).
@@ -70,10 +76,15 @@ from torch import nn
 AXES = ("dp", "fsdp", "ep", "pp", "sp", "tp")
 # The axes a batch is split over, dp major (JAX's ``("dp", "fsdp")``).
 BATCH_AXES = ("dp", "fsdp")
+# The axes a sequence-parallel step's gradients are summed over: the batch
+# axes and sp (each sp rank's loss covers its positions), and the same
+# less fsdp for a leaf fsdp cuts (its backward reduce-scattered over fsdp).
+SP_GRAD_AXES = ("dp", "fsdp", "sp")
+SP_FSDP_GRAD_AXES = ("dp", "sp")
 # Axis combinations that get a group of their own beside each axis: the
-# batch axes (the gradient sums) and every axis (the mesh-wide reductions:
-# the clip's global norm, fp8's amax).
-_GROUPED = (BATCH_AXES, AXES)
+# batch axes (the gradient sums), every axis (the mesh-wide reductions:
+# the clip's global norm, fp8's amax) and the sums of sp training.
+_GROUPED = (BATCH_AXES, AXES, SP_GRAD_AXES, SP_FSDP_GRAD_AXES)
 
 
 def _world() -> tuple[int, int]:
@@ -301,6 +312,18 @@ class TPShard:
     vocab_local: int
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqPiece:
+    """Where a sequence-parallel rank's tokens sit in the global batch:
+    the global position of its first column, the global sequence length,
+    and the token after its last column a row (what its last target is:
+    the next rank's first token), None on the last sp rank."""
+
+    offset: int
+    total: int
+    nxt: Optional[torch.Tensor]
+
+
 @dataclasses.dataclass
 class MeshPlan:
     """A mesh plus the sharding rule the model stack agrees on."""
@@ -358,14 +381,48 @@ class MeshPlan:
         return Placement(self.mesh, self.batch_spec[:len(shape)],
                          tuple(shape))
 
+    @property
+    def sp(self) -> int:
+        return int(self.mesh.shape.get("sp", 1))
+
+    @property
+    def sp_group(self):
+        return self.mesh.group("sp")
+
+    @property
+    def sp_index(self) -> int:
+        return self.mesh.coordinate("sp") if "sp" in self.mesh.shape else 0
+
     def local_batch(self, tokens):
-        """This rank's rows of ``tokens``: the tensor itself when it is
+        """This rank's piece of ``tokens``: the tensor itself when it is
         already a piece (``data.loader.device_put_global``), else its
-        ``batch_sharding`` rows of the global batch."""
+        ``batch_sharding`` rows of the global batch, and under sp its
+        positions of them."""
         if placement_of(tokens) is not None:
             return tokens
-        lo, hi = self.batch_sharding(tuple(tokens.shape)).index()[0]
-        return tokens[lo:hi]
+        return self.batch_sharding(tuple(tokens.shape)).slice(tokens)
+
+    def seq_piece(self, tokens) -> Optional[SeqPiece]:
+        """This rank's ``SeqPiece`` of the batch ``tokens`` (global, or
+        this rank's piece from ``device_put_global``); None without sp.
+        For a piece the next token comes from the next sp rank (a
+        ``ppermute`` of the first column, which every sp rank joins)."""
+        if self.sp == 1:
+            return None
+        from kubeflow_tpu_torch.parallel.collectives import ppermute
+
+        pl = placement_of(tokens)
+        if pl is None:
+            pl = self.batch_sharding(tuple(tokens.shape))
+            (r0, r1), (c0, c1) = pl.index()
+            nxt = tokens[r0:r1, c1] if c1 < tokens.shape[1] else None
+        else:
+            (_, _), (c0, c1) = pl.index()
+            last = self.sp_index == self.sp - 1
+            got = ppermute(tokens[:, 0].contiguous(), self.sp_group,
+                           [(i, i - 1) for i in range(1, self.sp)])
+            nxt = None if last else got
+        return SeqPiece(c0, pl.global_shape[1], nxt)
 
     # -- parameters --------------------------------------------------------
     def param_spec(self, path: tuple, value_ndim: int) -> tuple:
@@ -409,15 +466,6 @@ class MeshPlan:
                 f"mesh {self.axes}: serving under a dp/fsdp mesh is not "
                 "ported to PyTorch yet (ROADMAP queue 1 item 12 (b)); "
                 "serve under a tp plan"
-            )
-        self.check_training()
-
-    def check_training(self) -> None:
-        """Refuse the axes training does not shard yet."""
-        if any(self.mesh.shape.get(ax, 1) > 1 for ax in ("sp", "pp", "ep")):
-            raise NotImplementedError(
-                f"mesh {self.axes}: sp/pp/ep are not ported to PyTorch yet "
-                "(ROADMAP queue 1 item 13)"
             )
 
     def _check_divides(self, cfg) -> None:
@@ -513,7 +561,6 @@ class MeshPlan:
         from kubeflow_tpu_torch.models import quant
         from kubeflow_tpu_torch.models.llama import Llama
 
-        self.check_training()
         quant.refuse_sharding(params)
         if not isinstance(params, Llama):
             if cfg is None:
@@ -597,16 +644,20 @@ class MeshPlan:
                 "serving"
             )
 
-    def shard_kv_cache(self, cache: dict) -> dict:
+    def shard_kv_cache(self, cache: dict, seq_over_sp: bool = False) -> dict:
         """This rank's slice of a stacked KV cache or block pool: the
-        kv-head axis (2) over tp, int8 scale leaves (one rank lower)
+        kv-head axis (2) over tp, and the sequence axis (3) over sp when
+        ``seq_over_sp`` (dense serving caches; a block pool's offset axis
+        stays whole), int8 scale leaves (one rank lower, no head dim)
         alike. Raises when tp would split a kv head, the one home of that
-        precondition, as in JAX. JAX's ``seq_over_sp`` comes with the
-        sequence-parallel caches (ROADMAP queue 1 item 13)."""
-        tp = self.tp
+        precondition, as in JAX."""
         self.check_kv_heads(next(iter(cache.values())).shape[2])
-        return {name: self._slice(leaf, (None, None, "tp")).clone()
-                if tp > 1 else leaf for name, leaf in cache.items()}
+        spec = (None, None, "tp", "sp" if seq_over_sp else None)
+        out = {}
+        for name, leaf in cache.items():
+            piece = self._slice(leaf, spec)
+            out[name] = piece if piece is leaf else piece.clone()
+        return out
 
 
 def _global_shape(t) -> tuple:

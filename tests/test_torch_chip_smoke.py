@@ -1437,23 +1437,28 @@ def test_checkpoint_writer_shards_read_back_equal(smoke, tmp_path):
 
 
 def test_phase_numbering_and_kernels_line_are_kept(smoke):
-    """Fourteen phases in order, the checkpoint phase ninth, the finetune
-    phase eleventh, the resume phase twelfth, the tp phase thirteenth and
-    the train_sharded phase last, and the kernels line still naming every
-    kernel of the port with all its keys."""
+    """Fifteen phases in order, the checkpoint phase ninth, the finetune
+    phase eleventh, the resume phase twelfth, the tp phase thirteenth,
+    the train_sharded phase fourteenth and the sp_pp_ep phase last, and
+    the kernels line still naming every kernel of the port with all its
+    keys, after the sp_pp_ep line."""
     import inspect
     import re
 
     main = inspect.getsource(smoke.main)
     assert re.findall(r'log\(f?"\[(\d+)/(\d+)\]', main) == [
-        (str(i), "14") for i in range(1, 15)]
-    assert '"[9/14] checkpoint and observability"' in main
+        (str(i), "15") for i in range(1, 16)]
+    assert '"[9/15] checkpoint and observability"' in main
     assert main.index("checkpoint_phase(") < main.index("train_phases(")
     assert main.index("train_phases(") < main.index("finetune_phase(")
     assert main.index("finetune_phase(") < main.index("resume_phase(")
     assert main.index("resume_phase(") < main.index("= tp_phase(")
     assert main.index("= tp_phase(") < main.index("= train_sharded_phase(")
+    assert main.index("= train_sharded_phase(") < main.index(
+        "= sp_pp_ep_phase(")
     assert 'print(json.dumps({"train_sharded": sharded}))' in main
+    assert main.index('print(json.dumps({"sp_pp_ep": spp}))') < main.index(
+        'print(json.dumps({"kernels": kernels}))')
     for name in ("ragged_paged_attention", "flash_attention",
                  "paged_decode_attention", "dense_decode_attention",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
@@ -1708,18 +1713,23 @@ def test_finetune_phase_catches_a_moved_base(smoke, no_card, finetune_small,
 
 
 def test_resume_child_arguments(smoke):
-    got = smoke.resume_child_args(["c.bin", "gemma-2b", "2048", "512", "3",
-                                   ""])
-    assert got == {"corpus": "c.bin", "model": "gemma-2b", "seq": 2048,
-                   "loss_chunk": 512, "steps": 3, "device": None}
-    assert smoke.resume_child_args(["c", "tiny", "32", "0", "1", "cpu"])[
-        "device"] == "cpu"
-    for bad in ([], ["c", "gemma-2b", "2048", "512", "3"],
-                ["c", "no-such-model", "32", "16", "3", ""],
-                ["c", "tiny", "x", "16", "3", ""],
-                ["c", "tiny", "1", "16", "3", ""],
-                ["c", "tiny", "32", "-1", "3", ""],
-                ["c", "tiny", "32", "16", "0", ""]):
+    got = smoke.resume_child_args(["c.bin", "gemma-2b", "4", "2048", "512",
+                                   "3", ""])
+    assert got == {"corpus": "c.bin", "model": "gemma-2b", "layers": 4,
+                   "seq": 2048, "loss_chunk": 512, "steps": 3,
+                   "device": None}
+    assert smoke.resume_child_args(["c", "tiny", "2", "32", "0", "1",
+                                    "cpu"])["device"] == "cpu"
+    assert smoke.resume_config("gemma-2b", 4) == dataclasses.replace(
+        TL.LLAMA_CONFIGS["gemma-2b"], n_layers=4)
+    for bad in ([], ["c", "gemma-2b", "4", "2048", "512", "3"],
+                ["c", "gemma-2b", "2048", "512", "3", ""],
+                ["c", "no-such-model", "2", "32", "16", "3", ""],
+                ["c", "tiny", "0", "32", "16", "3", ""],
+                ["c", "tiny", "2", "x", "16", "3", ""],
+                ["c", "tiny", "2", "1", "16", "3", ""],
+                ["c", "tiny", "2", "32", "-1", "3", ""],
+                ["c", "tiny", "2", "32", "16", "0", ""]):
         with pytest.raises(SystemExit):
             smoke.resume_child_args(bad)
 
@@ -1787,7 +1797,8 @@ def test_resume_phase_rehearsed_on_the_cpu(smoke, resume_small):
     restore through the orchestrator gives the child's digests, the
     cursor 3, and a step with the stand-ins' launches."""
     out = smoke.resume_phase("tiny")
-    n = resume_small.n_layers
+    n = smoke.RESUME_LAYERS  # the phase's depth cut, whatever the model's
+    assert out["layers"] == n != resume_small.n_layers
     assert out["launches"] == {"flash": 2 * n, "bwd_dq": n, "bwd_dkv": n}
     assert out["child_launches"] == {
         s: {"flash": 0, "bwd_dq": 0, "bwd_dkv": 0} for s in (1, 2, 3)}
@@ -1931,3 +1942,60 @@ def test_train_sharded_phase_rehearsed_on_the_cpu(smoke, no_card,
     assert len(out["example"]["steps"]) == smoke.TS_EXAMPLE_STEPS + 1
     assert set(out["kernels"]) == {"flash", "dq", "dk", "dv"}
     assert smoke.TS_EXAMPLE_NAME not in TL.LLAMA_CONFIGS
+
+
+# -- phase 15: sequence, pipeline and expert parallelism ---------------------
+
+
+def test_sp_pp_ep_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
+    """Phase 15 on small stand-ins in float32 on the CPU: the rank-shape
+    kernels through their plain versions (the parent's counting
+    stand-ins) at a small shape, the MoE reference here (``tiny-moe`` at
+    2 layers), and two gloo children (which count no launches on the CPU)
+    running (a) ``tiny`` under sp=2 with each sp_impl and (b) under pp=2,
+    both held to a reference recorded as phase 14 (a) records it, (c) the
+    MoE under ep=2, and (d) ``tiny`` served by the continuous engine at
+    sp=2, held to a one-rank run of phase 5's continuous engine by the
+    near-tie rule; then the ``sp_pp_ep`` line's keys."""
+    _stand_in_kernels(smoke, monkeypatch)
+    monkeypatch.setattr(smoke, "TP_MODEL", "tiny")
+    monkeypatch.setattr(smoke, "TP_DTYPE", "float32")
+    monkeypatch.setattr(smoke, "SPP_MOE_MODEL", "tiny-moe")
+    monkeypatch.setattr(smoke, "SPP_MOE_BATCH", (1, 64))
+    monkeypatch.setattr(smoke, "SPP_RANK_SHAPE",
+                        (2, 4, 4, 64, 64, True, 0, 0, None))
+    monkeypatch.setattr(smoke, "SPP_RANK_D", 64)
+    cfg = smoke._tp_config("tiny", "float32")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    smoke.SP_REFERENCE.update(model="tiny", tokens=tokens,
+                              ref=smoke._ts_reference(cfg, tokens))
+    params = TL.init_params(cfg, torch.Generator().manual_seed(smoke.SEED),
+                            "cpu")
+    prompts = smoke._prompts(cfg, 16, 8, 500, smoke.SEED)[::4]
+    p5 = {"continuous": smoke._serve(smoke._cont_engine(params, cfg),
+                                     prompts)}
+    del params
+    out = smoke.sp_pp_ep_phase(p5)
+    zero = {"flash": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    for impl in smoke.SPP_IMPLS:
+        rec = out["sp"]["impls"][impl]
+        assert rec["launches"] == [zero, zero]
+        assert max(rec["loss_rel"] + rec["grad_norm_rel"]) <= 1e-4, impl
+        assert all(c["calls"] > 0 and c["bytes"] > 0
+                   for c in rec["collectives"])
+    assert out["sp"]["local_seq"] == 32
+    assert out["pp"]["launches"] == [zero, zero]
+    assert out["pp"]["stage_layers"] == [1, 1]
+    assert max(out["pp"]["loss_rel"] + out["pp"]["grad_norm_rel"]) <= 1e-4
+    assert out["ep"]["launches"] == [zero, zero]
+    assert out["ep"]["experts_per_rank"] == [2, 2]
+    assert max(out["ep"]["loss_rel"] + out["ep"]["grad_norm_rel"]) <= 1e-4
+    serve = out["serve"]
+    assert serve["admissions"] == 4 and serve["decode_steps"] > 0
+    assert serve["flash_launches"] == [0, 0]
+    assert serve["cache_shape"][3] == 512
+    assert len(serve["forks"]) == 4
+    assert set(out["kernels"]) == {"flash", "dq", "dk", "dv"}
+    for part in ("sp", "pp", "ep", "serve"):
+        assert len(out[part]["peak_gib"]) == 2

@@ -226,16 +226,22 @@ def test_constructor_refusals_carry_the_jax_messages(f32_gqa, kw):
 
 
 def test_port_only_refusals(f32_gqa, monkeypatch):
-    """The port's own refusals: a sequence-sharded plan is item 13, and
-    the dense kernel needs the card. A tp plan constructs (its kv heads
-    on this rank); on the card it takes ``attn_kernel=True``, which JAX
-    refuses with a plan, and goes on to its next check."""
+    """The port's own refusals: the dense kernel needs the card. A
+    sequence-sharded plan constructs (ROADMAP item 13, ported: this rank's
+    half of every slot's positions, no dense kernel;
+    tests/test_torch_sp_serving.py serves through it). A tp plan
+    constructs (its kv heads on this rank); on the card it takes
+    ``attn_kernel=True``, which JAX refuses with a plan, and goes on to
+    its next check."""
     _, tcfg, _, tparams = f32_gqa
     kw = dict(gen=TGen(max_new_tokens=8), slots=2, cache_len=64,
               prompt_bucket=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        TC.ContinuousBatcher(tparams, tcfg, plan=TM.MeshPlan(
-            TM.make_mesh(sp=2, devices=[0, 1])), **kw)
+    sp = TM.MeshPlan(TM.make_mesh(sp=2, devices=[0, 1]))
+    cb = TC.ContinuousBatcher(sp.shard_params(copy.deepcopy(tparams)), tcfg,
+                              plan=sp, **kw)
+    assert cb.mesh_axes == {"sp": 2} and cb._attn_kernel == 0
+    assert tuple(cb.cache["k"].shape[2:4]) == (tcfg.n_kv_heads, 32)
+    assert tuple(cb.kv_mask.shape) == (2, 32) and cb._sp_start == 0
     one = TM.MeshPlan(TM.make_mesh())
     shard = one.shard_params(copy.deepcopy(tparams))
     cb = TC.ContinuousBatcher(shard, tcfg, plan=one, **kw)

@@ -142,9 +142,13 @@ def test_wrapper_on_cpu_runs_the_plain_version(monkeypatch):
 def test_refusals():
     q = torch.zeros((1, 4, 8, 64))
     k = torch.zeros((1, 2, 8, 64))
-    for impl in ("ring", "pallas", lambda *a, **kw: None):
-        with pytest.raises(NotImplementedError, match="sequence-parallel"):
+    # A name nobody registered is refused; a callable impl is ported (the
+    # sequence-parallel slice: tests/test_torch_sp_attention.py holds it).
+    for impl in ("ring", "pallas"):
+        with pytest.raises(ValueError, match="unknown attention impl"):
             TA.flash_attention(q, k, k, impl=impl)
+    assert TA.flash_attention(q, k, k, impl=lambda *a, **kw: "called") \
+        == "called"
     with pytest.raises(ValueError, match="not a multiple"):
         TA.flash_attention(torch.zeros((1, 5, 8, 64)), k, k)
     with pytest.raises(ValueError, match="kv_mask shape"):

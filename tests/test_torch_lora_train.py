@@ -183,17 +183,16 @@ def test_a_base_that_requires_grad_gets_none():
 
 def test_plan_other_than_a_device_is_refused():
     """A plan is None, a device or a MeshPlan (sharded finetuning, ROADMAP
-    item 12); anything else is refused, and an sp mesh is item 13."""
+    item 12, and under an sp axis, item 13: tests/test_torch_sp_train.py
+    trains through it); anything else is refused."""
     from kubeflow_tpu_torch.parallel import mesh as TM
 
     cfg, lcfg = TL.LLAMA_CONFIGS["tiny"], TLo.LoraConfig()
     with pytest.raises(TypeError, match="MeshPlan"):
         TLo.make_lora_train_step(cfg, lcfg, plan=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TLo.make_lora_train_step(cfg, lcfg, plan=TM.MeshPlan(
-            TM.make_mesh(sp=2, devices=[0, 1])))
     for plan in (None, "cpu", torch.device("cpu"),
-                 TM.MeshPlan(TM.make_mesh())):
+                 TM.MeshPlan(TM.make_mesh()),
+                 TM.MeshPlan(TM.make_mesh(sp=2, devices=[0, 1]))):
         TLo.make_lora_train_step(cfg, lcfg, plan=plan)
 
 

@@ -585,7 +585,17 @@ def test_serve_batched_runs_on_the_cpu(monkeypatch, capsys, argv, env, label):
     # weights under it are refused, as JAX cannot shard them either.
     pytest.param(["--tp", "2", "--int8"],
                  "quantized weights cannot be sharded", id="argv2-item 11"),
-    (["--sp", "2"], "item 13"),
+    # --sp is ported (tests/test_torch_sp_serving.py runs it); the paged
+    # and speculative engines under it exit with JAX's messages, and
+    # quantized weights as under --tp.
+    pytest.param(["--sp", "2", "--paged"],
+                 "--paged supports --tp but not --sp (use continuous "
+                 "batching for sp)", id="argv3-item 13"),
+    pytest.param(["--sp", "2", "--speculative", "1"],
+                 "--speculative supports --tp but not --sp (use plain "
+                 "continuous batching for sp)", id="argv4-item 13"),
+    pytest.param(["--sp", "2", "--int8"],
+                 "quantized weights cannot be sharded", id="argv5-item 13"),
 ])
 def test_serve_batched_refuses_what_the_port_lacks(monkeypatch, argv,
                                                    message):

@@ -222,12 +222,18 @@ def test_make_train_step_refusals():
     cfg = TL.LLAMA_CONFIGS["tiny"]
     with pytest.raises(ValueError, match="unknown sp_impl"):
         TT.make_train_step(cfg, sp_impl="rings")
-    for kw, item in ((dict(use_ring_sp=True), "item 13"),
-                     (dict(sp_impl="ulysses"), "item 13"),
-                     (dict(plan=TM.MeshPlan(TM.make_mesh(
-                         sp=2, devices=[0, 1]))), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            TT.make_train_step(cfg, **kw)
+    # Sequence-parallel attention (ROADMAP item 13) is ported: on an sp
+    # mesh each sp_impl builds (tests/test_torch_sp_train.py trains through
+    # them), sp_impl is ignored without sp as in JAX, and use_ring_sp
+    # needs a mesh to run over.
+    with pytest.raises(ValueError, match="needs a MeshPlan"):
+        TT.make_train_step(cfg, use_ring_sp=True)
+    _, step = TT.make_train_step(cfg, sp_impl="ulysses")
+    assert step.attn_impl == "auto"
+    sp = TM.MeshPlan(TM.make_mesh(sp=2, devices=[0, 1]))
+    for impl in ("ring", "ulysses", "zigzag"):
+        _, step = TT.make_train_step(cfg, plan=sp, sp_impl=impl)
+        assert callable(step.attn_impl) and step.plan is sp
     # Sharded training (ROADMAP item 12) takes a MeshPlan; anything else
     # that is not a device is a caller's error.
     with pytest.raises(TypeError, match="MeshPlan"):
