@@ -55,7 +55,9 @@ every kernel's launch count set to 0 just before it and read just after:
   operands through ``torch._scaled_mm``), each step running the same
   three flash kernels as training, and ``examples/finetune_lora.py`` as a
   user runs it;
-- resuming after a preemption (``runtime/``): a child process trains
+- resuming after a preemption (``runtime/``): a child process, started
+  from the env of the single-card H100 pod the port renders for its
+  notebook (``webhook/gpu_env.py``, ``controller/notebook.py``), trains
   ``gemma-2b`` on the card (the same three flash kernels a step) under
   ``bootstrap`` and ``install_preemption_handler``, is sent SIGTERM and
   emergency-saves its newest step; the step is restored on the card
@@ -342,9 +344,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``RESUME_LAYERS``; its checks do not depend on depth). MemAvailable
    and the free disk must each hold 2.5 × its train state (~5.8 GB: bf16
    params and two bf16 AdamW moments).
-   A child (``python -c`` on ``resume_child``, with
-   ``TPU_CHECKPOINT_GRACE_S=120`` and ``KUBEFLOW_TPU_CHECKPOINT_DIR`` set)
-   calls ``bootstrap(expected_devices=1)``, makes a ``CheckpointManager``
+   The child's pod is rendered first (``resume_pod``): a Notebook with
+   ``spec.gpu: {accelerator: h100, topology: "1"}`` and the checkpoint
+   grace (120 s) and directory annotations, through the port's
+   ``mutate_gpu_notebook`` and ``generate_statefulset``; ``nvidia.com/gpu``
+   must be "1" in limits and requests, the nodeSelector the h100 label,
+   the toleration ``nvidia.com/gpu``, and terminationGracePeriodSeconds
+   150. On the card, the card's ``total_memory`` must be at least 0.95 of
+   the catalog entry's 80 GiB.
+   A child (``python -c`` on ``resume_child``, its env the parent's with
+   pod 0's rendered env over it, the downward API's pod index filled in
+   as "0") calls ``bootstrap(expected_devices=<the rendered nvidia.com/gpu
+   limit>)``, makes a ``CheckpointManager``
    in ``checkpoint_dir_from_env()`` (interval 100, async, keep 2),
    ``install_preemption_handler`` and trains the cut gemma-2b (B 1, S
    2048, remat "full", AdamW, TokenLoader batches) 3 steps,
@@ -354,7 +365,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    flash, 4 dQ, 4 dK/dV) and every leaf's digest on the card (the sum
    of its bytes, and of each byte times its position mod 2^31 − 1), then
    waits in ``signal.pause()``. Sent SIGTERM, it must die of it (-15)
-   within the grace + 5 s, its log naming the emergency commit of step 3;
+   within the grace + 5 s and under the pod's
+   terminationGracePeriodSeconds, its log naming the emergency commit of
+   step 3;
    steps 1 and 3 are on disk and step 3's manifest holds the cursor. The
    parent restores on the card into ``fresh_state(7)`` through a
    ``MigrationOrchestrator(MigrationConfig(fresh_within_s=0))`` whose
@@ -493,6 +506,9 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from kubeflow_tpu_torch.api import annotations as ann_mod
+from kubeflow_tpu_torch.api.notebook import Notebook
+from kubeflow_tpu_torch.controller import notebook as controller_mod
 from kubeflow_tpu_torch.data.loader import (
     TokenLoader,
     device_put_global,
@@ -570,6 +586,7 @@ from kubeflow_tpu_torch.runtime.migration import (
     MigrationConfig,
     MigrationOrchestrator,
 )
+from kubeflow_tpu_torch.webhook import gpu_env
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
@@ -4998,6 +5015,12 @@ RESUME_CHILD_TIMEOUT = 900.0
 # The restore of a 15 GB state reads every file twice (validation, then
 # the copy), so its budget is larger than MigrationConfig's default 60 s.
 RESUME_RESTORE_BUDGET_S = 600.0
+# The child runs from the env of the pod the port renders for a notebook
+# on one H100 card.
+RESUME_POD = {"name": "resume", "namespace": "smoke",
+              "gpu": {"accelerator": "h100", "topology": "1"}}
+# The card's memory against the catalog entry's HBM: at least this share.
+CARD_MEMORY_SHARE = 0.95
 RESUME_TAG = "resume-child "
 # The per-leaf digest: the sum of the leaf's bytes, and the sum of each
 # byte times its position modulo a prime, modulo the prime; computed where
@@ -5005,8 +5028,8 @@ RESUME_TAG = "resume-child "
 DIGEST_PRIME = 2_147_483_647
 DIGEST_CHUNK = 1 << 26
 # The child: ``python -c`` on this, from the checkout's root, with the
-# corpus, the model, its depth, S, the loss chunk, the steps and the
-# device ("" for the card).
+# corpus, the model, its depth, S, the loss chunk, the steps, the device
+# ("" for the card) and the devices bootstrap expects.
 RESUME_CHILD_CODE = ("import sys, chip_smoke; "
                      "sys.exit(chip_smoke.resume_child(sys.argv[1:]))")
 
@@ -5039,24 +5062,27 @@ def _sync(dev) -> None:
 
 def resume_child_args(argv: list) -> dict:
     """The child's arguments: corpus, model, its depth (layers), seq, loss
-    chunk, steps, and the device ("" for the card, as a user's call
-    passes none)."""
-    if len(argv) != 7:
+    chunk, steps, the device ("" for the card, as a user's call passes
+    none) and the devices ``bootstrap`` expects (the pod's rendered
+    ``nvidia.com/gpu`` limit)."""
+    if len(argv) != 8:
         raise SystemExit("usage: resume_child CORPUS MODEL LAYERS SEQ "
-                         f"LOSS_CHUNK STEPS DEVICE, got {argv}")
-    corpus, model, layers, seq, chunk, steps, device = argv
+                         f"LOSS_CHUNK STEPS DEVICE EXPECTED_DEVICES, got {argv}")
+    corpus, model, layers, seq, chunk, steps, device, expected = argv
     if model not in L.LLAMA_CONFIGS:
         raise SystemExit(f"unknown model {model!r}")
     try:
-        layers, seq, chunk, steps = (int(layers), int(seq), int(chunk),
-                                     int(steps))
+        layers, seq, chunk, steps, expected = (
+            int(layers), int(seq), int(chunk), int(steps), int(expected))
     except ValueError:
-        raise SystemExit("LAYERS, SEQ, LOSS_CHUNK and STEPS must be "
-                         f"integers: {argv}")
-    if layers < 1 or seq < 2 or chunk < 0 or steps < 1:
-        raise SystemExit(f"bad LAYERS, SEQ, LOSS_CHUNK or STEPS in {argv}")
+        raise SystemExit("LAYERS, SEQ, LOSS_CHUNK, STEPS and "
+                         f"EXPECTED_DEVICES must be integers: {argv}")
+    if layers < 1 or seq < 2 or chunk < 0 or steps < 1 or expected < 1:
+        raise SystemExit("bad LAYERS, SEQ, LOSS_CHUNK, STEPS or "
+                         f"EXPECTED_DEVICES in {argv}")
     return {"corpus": corpus, "model": model, "layers": layers, "seq": seq,
-            "loss_chunk": chunk, "steps": steps, "device": device or None}
+            "loss_chunk": chunk, "steps": steps, "device": device or None,
+            "expected_devices": expected}
 
 
 def resume_config(model: str, layers: int):
@@ -5096,7 +5122,8 @@ def resume_child(argv: list) -> int:
     args = resume_child_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(name)s %(levelname)s %(message)s")
-    rt = bootstrap(expected_devices=1, device=args["device"])
+    rt = bootstrap(expected_devices=args["expected_devices"],
+                   device=args["device"])
     dev = rt.device
     ckpt = CheckpointManager(checkpoint_dir_from_env(),
                              save_interval_steps=100, async_save=True,
@@ -5142,18 +5169,68 @@ def _mem_available() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def _run_resume_child(corpus: str, ckpt_dir: str, cfg_name: str) -> dict:
-    """Start the child, wait for its last "saved" record, send SIGTERM and
-    wait for its death: {"records", "log", "returncode", "exit_s"}."""
+def resume_pod(ckpt_dir: str) -> dict:
+    """The pod the port renders for phase 12's notebook: ``RESUME_POD`` on
+    one h100 card with the checkpoint grace and directory annotations,
+    through ``mutate_gpu_notebook`` and ``generate_statefulset``. Checks
+    the card resource, the nodeSelector, the toleration and the grace
+    period, and returns {"env": pod 0's container env with the downward
+    API's pod index filled in, "expected_devices": the nvidia.com/gpu
+    limit, "termination_grace_s", "accelerator": the catalog entry,
+    "render_s"}."""
+    t0 = time.monotonic()
+    name = RESUME_POD["name"]
+    obj = {"apiVersion": "kubeflow.org/v1", "kind": "Notebook",
+           "metadata": {"name": name, "namespace": RESUME_POD["namespace"],
+                        "annotations": {
+                            ann_mod.TPU_CHECKPOINT_GRACE: str(RESUME_GRACE_S),
+                            ann_mod.TPU_CHECKPOINT_DIR: ckpt_dir}},
+           "spec": {"template": {"spec": {"containers": [
+               {"name": name, "image": "notebook"}]}},
+               "gpu": dict(RESUME_POD["gpu"])}}
+    nb = Notebook(gpu_env.mutate_gpu_notebook(obj))
+    topo = nb.gpu.slice_topology()
+    sts = controller_mod.generate_statefulset(
+        nb, topo, controller_mod.ControllerConfig())
+    pod = sts["spec"]["template"]["spec"]
+    (container,) = pod["containers"]
+    res = container["resources"]
+    gpu = controller_mod.GPU_RESOURCE
+    check(res["limits"].get(gpu) == res["requests"].get(gpu) == "1",
+          f"the pod's {gpu} resources: {res}")
+    check(pod["nodeSelector"] == {
+        "cloud.google.com/gke-accelerator": "nvidia-h100-80gb"},
+        f"the pod's nodeSelector: {pod['nodeSelector']}")
+    check(pod["tolerations"] == [{"key": gpu, "operator": "Exists",
+                                  "effect": "NoSchedule"}],
+          f"the pod's tolerations: {pod['tolerations']}")
+    grace = pod["terminationGracePeriodSeconds"]
+    check(grace == RESUME_GRACE_S + gpu_env.CHECKPOINT_FLUSH_MARGIN_S,
+          f"terminationGracePeriodSeconds {grace}")
+    check(sts["spec"]["replicas"] == 1, f"replicas {sts['spec']['replicas']}")
+    env = gpu_env.pod_env(container, 0)
+    check(env["TPU_WORKER_ID"] == "0"
+          and env[ann_mod.CHECKPOINT_GRACE_ENV_NAME] == str(RESUME_GRACE_S)
+          and env[ann_mod.CHECKPOINT_DIR_ENV_NAME] == ckpt_dir
+          and "JAX_COORDINATOR_ADDRESS" not in env,
+          f"the pod's env: {env}")
+    return {"env": env, "expected_devices": int(res["limits"][gpu]),
+            "termination_grace_s": grace, "accelerator": topo.accelerator,
+            "render_s": time.monotonic() - t0}
+
+
+def _run_resume_child(corpus: str, pod: dict, cfg_name: str) -> dict:
+    """Start the child from the rendered pod's env, wait for its last
+    "saved" record, send SIGTERM and wait for its death: {"records",
+    "log", "returncode", "exit_s"}."""
     device = "" if DEVICE == "cuda" else DEVICE
     proc = subprocess.Popen(
         [sys.executable, "-c", RESUME_CHILD_CODE, corpus, cfg_name,
          str(RESUME_LAYERS), str(TRAIN_SEQ), str(LOSS_CHUNK),
-         str(RESUME_STEPS), device],
+         str(RESUME_STEPS), device, str(pod["expected_devices"])],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)),
-        env={**os.environ, "TPU_CHECKPOINT_GRACE_S": str(RESUME_GRACE_S),
-             "KUBEFLOW_TPU_CHECKPOINT_DIR": ckpt_dir})
+        env={**os.environ, **pod["env"]})
     records, log_lines, last = [], [], threading.Event()
 
     def read_out():
@@ -5262,7 +5339,13 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
     card into a state from another seed through a ``MigrationOrchestrator``
     (its save step finds nothing newer), holds every leaf's digest to the
     child's, reads the loader cursor back and trains one step from it,
-    counting its launches. Returns the phase's numbers."""
+    counting its launches. The child's env and its ``expected_devices``
+    come from the pod the port renders for the notebook (``resume_pod``);
+    its SIGTERM-to-exit seconds must stay under the pod's
+    terminationGracePeriodSeconds, and on the card the card's memory must
+    hold ``CARD_MEMORY_SHARE`` of the catalog entry's HBM. Returns the
+    phase's numbers."""
+    t_phase = time.monotonic()
     gc.collect()
     torch.cuda.empty_cache()
     cfg = resume_config(cfg_name, RESUME_LAYERS)
@@ -5284,8 +5367,30 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
               f"{mem / 1e9:.2f} GB, free disk {disk / 1e9:.2f} GB")
         corpus = _train_corpus(tmp, cfg.vocab_size)
         ckpt_dir = os.path.join(tmp, "ckpt")
-        child = _run_resume_child(corpus, ckpt_dir, cfg_name)
+        pod = resume_pod(ckpt_dir)
+        acc = pod["accelerator"]
+        card = {"catalog": acc.name, "hbm_gib_per_chip": acc.hbm_gib_per_chip}
+        if DEVICE == "cuda":
+            props = torch.cuda.get_device_properties(0)
+            card.update(name=props.name,
+                        total_memory_gib=props.total_memory / 2**30)
+            log(f"  card {props.name}: {props.total_memory} bytes "
+                f"({card['total_memory_gib']:.2f} GiB) beside {acc.name}'s "
+                f"{acc.hbm_gib_per_chip} GiB in the catalog")
+            check(props.total_memory
+                  >= CARD_MEMORY_SHARE * acc.hbm_gib_per_chip * 2**30,
+                  f"the card's {props.total_memory} bytes are under "
+                  f"{CARD_MEMORY_SHARE} of {acc.name}'s "
+                  f"{acc.hbm_gib_per_chip} GiB")
+        log(f"  the child's pod: {pod['expected_devices']} nvidia.com/gpu, "
+            f"terminationGracePeriodSeconds {pod['termination_grace_s']}, "
+            f"{len(pod['env'])} env entries, rendered in "
+            f"{pod['render_s']:.4f} s")
+        child = _run_resume_child(corpus, pod, cfg_name)
         init, saved = _check_child(child, n)
+        check(child["exit_s"] < pod["termination_grace_s"],
+              f"SIGTERM to exit {child['exit_s']:.3f} s, over the pod's "
+              f"terminationGracePeriodSeconds {pod['termination_grace_s']}")
         emergency_s = logged_seconds(
             child["log"], f"emergency save: committed step {RESUME_STEPS}")
         first_s = logged_seconds(child["log"], "checkpoint step 1 committed")
@@ -5400,6 +5505,9 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
             "child_launches": {s: {k: saved[s]["launches"][k]
                                    for k in launched}
                                for s in sorted(saved)},
+            "pod": {"expected_devices": pod["expected_devices"],
+                    "termination_grace_s": pod["termination_grace_s"],
+                    "render_s": pod["render_s"], "card": card},
         }
         log(f"  child: step walls "
             f"{[round(x, 4) for x in numbers['child_step_s']]} s, save() "
@@ -5422,6 +5530,8 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
             f"at init for every seed, {same_share:.4%} of the bytes); "
             f"resume_start_batch {report.start_batch}; the resumed step's "
             f"loss {float(loss):.6f} in {step_s:.3f} s, launches {launched}")
+        numbers["phase_s"] = time.monotonic() - t_phase
+        log(f"  phase 12: {numbers['phase_s']:.2f} s")
         del state, params
         return numbers
     finally:

@@ -1,0 +1,39 @@
+"""Child-object names and in-pod ports: the wire contract between the
+StatefulSet, its Services and the env the webhook writes.
+
+The port's copy of ``kubeflow_tpu/api/names.py``. Pods resolve each other
+by these DNS names, so every name agrees with the JAX package's byte for
+byte, the hashed fallback for long names included.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+NOTEBOOK_PORT = 8888
+# The coordinator port the env names: the JAX package's
+# jax.distributed port, which the port's torch.distributed rendezvous
+# listens on in its place.
+JAX_COORDINATOR_PORT = 8476
+MEGASCALE_PORT = 8081  # the multislice coordinator port
+
+
+def derived_name(base: str, suffix: str = "", limit: int = 63) -> str:
+    """``{base}{suffix}`` when it fits ``limit``, else a deterministic
+    hashed fallback: truncated base + 8-hex sha1(base) + suffix.
+
+    Every child-object name derived from a Notebook name goes through
+    this, so a long Notebook name degrades the same way everywhere
+    (StatefulSets at 52 characters, Services and DNS labels at 63) and
+    each object can still be found by name."""
+    candidate = f"{base}{suffix}"
+    if len(candidate) <= limit:
+        return candidate
+    digest = hashlib.sha1(base.encode()).hexdigest()[:8]
+    keep = limit - len(suffix) - len(digest) - 1
+    return f"{base[:keep]}-{digest}{suffix}"
+
+
+def routing_service_name(notebook_name: str) -> str:
+    """The per-notebook routing Service."""
+    return derived_name(notebook_name, "", 63)

@@ -20,7 +20,10 @@ continues the stream), or with ``--data`` a uint32 corpus
 at the checkpoint's cursor and placed by ``device_put_global``. Weights
 are a random init from seed 0, drawn leaf by leaf and cut to each rank's
 shard; ``--fp8`` wraps them for fp8 training. Each process runs on
-``cuda:<rank mod the host's cards>`` unless ``--device cpu``.
+``cuda:<rank mod the host's cards>`` unless ``--device cpu``. In a pod of
+several cards on several hosts, start one process a card, each with
+``--local-rank i``: ``bootstrap(local_rank=i)`` gives it rank
+``TPU_WORKER_ID × cards + i`` and ``cuda:i``.
 """
 
 from __future__ import annotations
@@ -50,6 +53,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="default: this rank's CUDA card; 'cpu' to run on "
                          "the CPU over gloo")
+    ap.add_argument("--local-rank", type=int, default=None,
+                    help="this process's card on its host, when a process "
+                         "is started for each card (runtime.bootstrap's "
+                         "local_rank)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -70,11 +77,12 @@ def main(argv=None) -> None:
     )
 
     device = args.device
-    if device is None and torch.cuda.is_available():
+    if (device is None and args.local_rank is None
+            and torch.cuda.is_available()):
         # One process a card: the rank's card on this host.
         device = f"cuda:{runtime_from_env().process_id % torch.cuda.device_count()}"
         torch.cuda.set_device(torch.device(device))
-    rt = bootstrap(device=device)
+    rt = bootstrap(device=device, local_rank=args.local_rank)
     dev = rt.device
     dist = torch.distributed
     up = dist.is_initialized()

@@ -39,6 +39,8 @@ import os
 import torch
 from torch import nn
 
+# The notebook runtime option, as the webhook projects it.
+from kubeflow_tpu_torch.api.annotations import QUANT_ENV_NAME
 from kubeflow_tpu_torch.ops.quant_matmul import (
     MAX_ROWS,
     KernelPlan,
@@ -52,9 +54,6 @@ from kubeflow_tpu_torch.ops.quant_matmul import (
 
 # Per-layer (in, out) projections; the (V, D) lm_head is the other target.
 _LAYER_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-# The notebook runtime option, as the webhook projects it (the JAX
-# package's ``api/annotations.py`` QUANT_ENV_NAME).
-QUANT_ENV_NAME = "KUBEFLOW_TPU_QUANT"
 
 
 class QuantizedWeight(nn.Module):

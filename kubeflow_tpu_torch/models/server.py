@@ -91,6 +91,9 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from kubeflow_tpu_torch.api.annotations import (
+    SERVING_ENV_NAME as KUBEFLOW_TPU_SERVING_PORT,
+)
 from kubeflow_tpu_torch.observability import tracing
 from kubeflow_tpu_torch.observability.flight import (
     FlightRecorder,
@@ -98,8 +101,7 @@ from kubeflow_tpu_torch.observability.flight import (
 )
 
 # The port's own copies of the env contract names it reads (the JAX
-# package's api/annotations.py and webhook/tpu_env.py).
-KUBEFLOW_TPU_SERVING_PORT = "KUBEFLOW_TPU_SERVING_PORT"
+# package's webhook/tpu_env.py); the serving port's is imported above.
 KUBEFLOW_TPU_SERVING_RAGGED = "KUBEFLOW_TPU_SERVING_RAGGED"
 KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET = "KUBEFLOW_TPU_RAGGED_TOKEN_BUDGET"
 KUBEFLOW_TPU_KV_BITS = "KUBEFLOW_TPU_KV_BITS"

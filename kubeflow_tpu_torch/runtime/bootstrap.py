@@ -13,11 +13,20 @@ What differs from JAX:
 - ``bootstrap`` takes ``device``: ``None`` is the card and raises without
   one; ``"cpu"`` runs on the CPU (``device.resolve_device``). On several
   hosts it calls ``torch.distributed.init_process_group`` over
-  ``tcp://<JAX_COORDINATOR_ADDRESS>`` with rank ``process_id``: NCCL on
-  the card, gloo on the CPU. A second call finds the group up and does
-  not init again (torch raises on a second init).
+  ``tcp://<JAX_COORDINATOR_ADDRESS>``: NCCL on the card, gloo on the
+  CPU. A second call finds the group up and does not init again (torch
+  raises on a second init).
+- JAX drives all of a host's chips from one process; the port drives one
+  card a process. ``JAX_NUM_PROCESSES`` still counts hosts, and
+  ``TPU_CHIPS_PER_HOST_BOUNDS`` gives the cards a host
+  (``SliceRuntime.cards_per_host``). On several hosts of several cards,
+  each card's process passes ``bootstrap(local_rank=i)``: its rank is
+  ``process_id × cards_per_host + i`` of ``num_workers × cards_per_host``
+  and its card ``cuda:i``. Without ``local_rank`` there it raises.
+  Otherwise the rank is ``process_id``.
 - The device count is ``world size × local devices`` (or the local count
-  on one process), where JAX reads ``jax.device_count()``.
+  on one process), or the world size when each rank has one card
+  (``local_rank``), where JAX reads ``jax.device_count()``.
 - There is no ``honor_jax_platforms_env``: torch has no platform setting
   to route; the device is what ``device`` names.
 - ``SliceRuntime.mesh`` checks the axis sizes as JAX does and returns a
@@ -57,8 +66,15 @@ class SliceRuntime:
     num_slices: int = 1
     hosts_per_slice: int = 1
     distributed_initialized: bool = False
+    # Cards on one host: the product of TPU_CHIPS_PER_HOST_BOUNDS.
+    cards_per_host: int = 1
     # The device ``bootstrap`` resolved; None until then.
     device: Optional[torch.device] = dataclasses.field(
+        default=None, compare=False)
+    # This process's card on its host when it drives one card of several
+    # (``bootstrap(local_rank=)``); None when it is the host's only
+    # process.
+    local_rank: Optional[int] = dataclasses.field(
         default=None, compare=False)
 
     @property
@@ -75,6 +91,22 @@ class SliceRuntime:
     def is_coordinator(self) -> bool:
         return self.slice_id == 0 and self.worker_id == 0
 
+    @property
+    def rank(self) -> int:
+        """The torch.distributed rank: ``process_id``, or with one process
+        a card, the host's ranks laid out contiguously
+        (``process_id × cards_per_host + local_rank``)."""
+        if self.local_rank is None:
+            return self.process_id
+        return self.process_id * self.cards_per_host + self.local_rank
+
+    @property
+    def world_size(self) -> int:
+        """Ranks in the process group: a host's or a card's each."""
+        if self.local_rank is None:
+            return self.num_workers
+        return self.num_workers * self.cards_per_host
+
     def mesh(self, **axis_sizes: int):
         """A mesh over the whole slice: ``axis_sizes`` must multiply to the
         global device count (a single -1 is inferred), as in JAX's
@@ -82,7 +114,8 @@ class SliceRuntime:
         rank calls it together (the axis subgroups are collective)."""
         from kubeflow_tpu_torch.parallel.mesh import _mesh_over, _world
 
-        total = global_device_count(self.device)
+        total = global_device_count(self.device,
+                                    one_per_rank=self.local_rank is not None)
         sizes = mesh_axes(axis_sizes, total)
         world = _world()[0]
         if world != total:
@@ -121,12 +154,15 @@ def mesh_axes(axis_sizes: dict, total: int) -> dict:
     return dict(zip(names, sizes))
 
 
-def global_device_count(device: DeviceLike = None) -> int:
+def global_device_count(device: DeviceLike = None,
+                        one_per_rank: bool = False) -> int:
     """Devices across the process group: the world size times this
-    process's devices (the visible cards, or 1 for the CPU), or this
-    process's alone when no group is up."""
+    process's devices (the visible cards, or 1 for the CPU, or 1 when
+    each rank drives one card), or this process's alone when no group is
+    up."""
     dev = resolve_device(device)
-    local = torch.cuda.device_count() if dev.type == "cuda" else 1
+    local = (torch.cuda.device_count()
+             if dev.type == "cuda" and not one_per_rank else 1)
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size() * local
@@ -136,7 +172,8 @@ def global_device_count(device: DeviceLike = None) -> int:
 def runtime_from_env(env: Optional[dict] = None) -> SliceRuntime:
     """Parse the controller/webhook-injected environment into a
     SliceRuntime (multislice-aware: MEGASCALE_* + TPU_HOSTS_PER_SLICE).
-    A value that is not an integer raises ValueError."""
+    ``cards_per_host`` is the product of TPU_CHIPS_PER_HOST_BOUNDS, 1
+    when it is unset. A value that is not an integer raises ValueError."""
     env = dict(os.environ) if env is None else env
     hostnames_raw = env.get(contract.TPU_WORKER_HOSTNAMES, "")
     hostnames = [h for h in hostnames_raw.split(",") if h]
@@ -145,6 +182,9 @@ def runtime_from_env(env: Optional[dict] = None) -> SliceRuntime:
     num_slices = int(env.get(contract.MEGASCALE_NUM_SLICES, "1") or 1)
     num = int(
         env.get(contract.JAX_NUM_PROCESSES) or str(hosts_per_slice * num_slices))
+    cards = 1
+    for bound in (env.get(contract.TPU_CHIPS_PER_HOST_BOUNDS) or "1").split(","):
+        cards *= int(bound)
     return SliceRuntime(
         worker_id=int(env.get(contract.TPU_WORKER_ID, "0") or 0),
         num_workers=num,
@@ -155,6 +195,7 @@ def runtime_from_env(env: Optional[dict] = None) -> SliceRuntime:
         slice_id=int(env.get(contract.MEGASCALE_SLICE_ID, "0") or 0),
         num_slices=num_slices,
         hosts_per_slice=hosts_per_slice,
+        cards_per_host=cards,
     )
 
 
@@ -163,27 +204,60 @@ def bootstrap(
     expected_devices: Optional[int] = None,
     initialize_distributed: bool = True,
     device: DeviceLike = None,
+    local_rank: Optional[int] = None,
 ) -> SliceRuntime:
     """Bring the slice up: ``torch.distributed`` over the coordinator when
-    multi-host, then sanity-check the device count.
+    the group has several ranks, then sanity-check the device count.
+
+    ``local_rank`` is this process's card on its host. The pod's env
+    describes hosts, and the port drives one card a process, so on a host
+    of several cards something must start a process a card and tell each
+    its index: the notebook's own launcher, for example ``torchrun
+    --nproc-per-node=<cards>`` (its ``LOCAL_RANK``) or one
+    ``multiprocessing`` spawn a card, inside the one pod of the host.
+    Neither the webhook nor the controller starts them. On several hosts
+    of several cards ``local_rank`` is required: without it this raises
+    ValueError rather than drive one card a host. With it the rank is
+    ``process_id × cards_per_host + local_rank``, the world
+    ``num_workers × cards_per_host`` and the device ``cuda:local_rank``
+    (unless ``device`` names another). Without it, one process a host, as
+    JAX runs.
 
     Idempotent per process; safe to re-run in a notebook cell."""
-    dev = resolve_device(device)
     rt = runtime_from_env(env)
+    if local_rank is None and rt.is_multi_host and rt.cards_per_host > 1:
+        raise ValueError(
+            f"this pod's host has {rt.cards_per_host} cards "
+            f"({contract.TPU_CHIPS_PER_HOST_BOUNDS}) in a slice of "
+            f"{rt.num_workers} hosts, and the port drives one card a "
+            "process: start one process a card and pass each its card as "
+            f"bootstrap(local_rank=0..{rt.cards_per_host - 1})")
+    if local_rank is not None:
+        if not 0 <= local_rank < rt.cards_per_host:
+            raise ValueError(
+                f"local_rank={local_rank}: this pod's host has "
+                f"{rt.cards_per_host} card(s), 0..{rt.cards_per_host - 1}")
+        rt.local_rank = local_rank
+        if device is None:
+            device = torch.device("cuda", local_rank)
+    dev = resolve_device(device)
     rt.device = dev
-    if rt.is_multi_host and initialize_distributed:
+    if rt.world_size > 1 and initialize_distributed:
         dist = torch.distributed
         if not dist.is_initialized():
+            if dev.type == "cuda" and rt.local_rank is not None:
+                torch.cuda.set_device(dev)  # NCCL binds the current card
             dist.init_process_group(
                 backend="nccl" if dev.type == "cuda" else "gloo",
                 init_method=f"tcp://{rt.coordinator_address}",
-                world_size=rt.num_workers,
-                rank=rt.process_id,
+                world_size=rt.world_size,
+                rank=rt.rank,
             )
         # Up now, or already up from an earlier run of the cell.
         rt.distributed_initialized = True
     if expected_devices is not None:
-        actual = global_device_count(dev)
+        actual = global_device_count(dev,
+                                     one_per_rank=rt.local_rank is not None)
         if actual != expected_devices:
             raise RuntimeError(
                 f"slice incomplete: expected {expected_devices} devices, "

@@ -5,13 +5,16 @@ JAX-free modules) of what ``kubeflow_tpu/webhook/tpu_env.py`` and
 ``kubeflow_tpu/api/annotations.py`` define for the notebook pod:
 
 - the slice identity the webhook and the controller write
-  (``TPU_WORKER_ID`` … ``MEGASCALE_SLICE_ID``), read by
+  (``TPU_WORKER_ID`` … ``MEGASCALE_COORDINATOR_ADDRESS``), written by
+  ``webhook/gpu_env.py`` and ``controller/notebook.py`` and read by
   ``runtime.bootstrap.runtime_from_env``;
 - the live-migration budgets (``KUBEFLOW_TPU_MIGRATE_*``), read by
   ``runtime.migration.migration_from_env``;
 - the profiling port, the checkpoint grace and the checkpoint directory
   the webhook projects from their annotations, with the two parsers
-  admission uses, so a value admission would deny is never honoured here.
+  admission uses, so a value admission would deny is never honoured here
+  (both defined in ``api/annotations.py`` beside their annotations, and
+  imported here).
 
 The names keep their JAX-era spellings: the webhook writes them, and the
 port reads the same pod.
@@ -19,17 +22,30 @@ port reads the same pod.
 
 from __future__ import annotations
 
-from typing import Optional
+from kubeflow_tpu_torch.api.annotations import (  # noqa: F401
+    CHECKPOINT_DIR_ENV_NAME,
+    CHECKPOINT_GRACE_ENV_NAME,
+    PROFILING_ENV_NAME,
+    parse_checkpoint_grace,
+    parse_profiling_port,
+)
 
 TPU_WORKER_ID = "TPU_WORKER_ID"
 TPU_WORKER_HOSTNAMES = "TPU_WORKER_HOSTNAMES"
 TPU_ACCELERATOR_TYPE = "TPU_ACCELERATOR_TYPE"
 TPU_TOPOLOGY = "TPU_TOPOLOGY"
+# The cards of one host and the hosts of the slice, each as "x,y,z": on a
+# GPU node the first number counts and the others are 1.
+TPU_CHIPS_PER_HOST_BOUNDS = "TPU_CHIPS_PER_HOST_BOUNDS"
+TPU_HOST_BOUNDS = "TPU_HOST_BOUNDS"
+# Written for TPU nodes only; the GPU webhook removes a stale one.
+TPU_RUNTIME_VERSION = "TPU_RUNTIME_VERSION"
 TPU_HOSTS_PER_SLICE = "TPU_HOSTS_PER_SLICE"
 JAX_COORDINATOR_ADDRESS = "JAX_COORDINATOR_ADDRESS"
 JAX_NUM_PROCESSES = "JAX_NUM_PROCESSES"
 MEGASCALE_NUM_SLICES = "MEGASCALE_NUM_SLICES"
 MEGASCALE_SLICE_ID = "MEGASCALE_SLICE_ID"
+MEGASCALE_COORDINATOR_ADDRESS = "MEGASCALE_COORDINATOR_ADDRESS"
 
 KUBEFLOW_TPU_MIGRATE_ENABLE = "KUBEFLOW_TPU_MIGRATE_ENABLE"
 KUBEFLOW_TPU_MIGRATE_SAVE_BUDGET_S = "KUBEFLOW_TPU_MIGRATE_SAVE_BUDGET_S"
@@ -38,33 +54,3 @@ KUBEFLOW_TPU_MIGRATE_RESTORE_BUDGET_S = (
     "KUBEFLOW_TPU_MIGRATE_RESTORE_BUDGET_S")
 KUBEFLOW_TPU_MIGRATE_FLIP_BUDGET_S = "KUBEFLOW_TPU_MIGRATE_FLIP_BUDGET_S"
 KUBEFLOW_TPU_MIGRATE_FRESH_WITHIN_S = "KUBEFLOW_TPU_MIGRATE_FRESH_WITHIN_S"
-
-# The port a profiler server would listen on (the tpu-profiling-port
-# annotation).
-PROFILING_ENV_NAME = "KUBEFLOW_TPU_PROFILING_PORT"
-# Seconds of termination grace an emergency checkpoint may spend on
-# SIGTERM (the tpu-checkpoint-grace-seconds annotation).
-CHECKPOINT_GRACE_ENV_NAME = "TPU_CHECKPOINT_GRACE_S"
-# Where the checkpoint volume is mounted in the notebook container.
-CHECKPOINT_DIR_ENV_NAME = "KUBEFLOW_TPU_CHECKPOINT_DIR"
-
-
-def parse_profiling_port(value) -> Optional[int]:
-    """A port in 1024..65535, else None. ``int()`` rather than
-    ``isdigit()``: Unicode digits such as '²' pass ``isdigit()`` but not
-    ``int()``."""
-    try:
-        port = int(str(value).strip())
-    except (TypeError, ValueError):
-        return None
-    return port if 1024 <= port <= 65535 else None
-
-
-def parse_checkpoint_grace(value) -> Optional[int]:
-    """Whole seconds in 1..3600, else None (the ceiling keeps a mistyped
-    value from holding a slice's nodes for hours after a delete)."""
-    try:
-        grace = int(str(value).strip())
-    except (TypeError, ValueError):
-        return None
-    return grace if 1 <= grace <= 3600 else None

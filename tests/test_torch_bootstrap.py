@@ -296,3 +296,122 @@ def test_two_gloo_processes_come_up_with_their_ranks():
         assert got == {"rank": worker, "world": 2, "process_id": worker,
                        "initialized": True, "again": True,
                        "sum": [2.0, 2.0, 2.0], "backend": "gloo"}
+
+
+# -- one rank per card on multi-card hosts ------------------------------------
+
+
+def _rendered_pod_envs(topology: str = "16") -> list:
+    """Each pod's env of a notebook on ``topology`` h100 cards, as the
+    port's webhook and controller render it."""
+    from kubeflow_tpu_torch.api.notebook import Notebook
+    from kubeflow_tpu_torch.controller.notebook import (
+        ControllerConfig,
+        generate_statefulset,
+    )
+    from kubeflow_tpu_torch.webhook.gpu_env import mutate_gpu_notebook, pod_env
+
+    obj = {"apiVersion": "kubeflow.org/v1", "kind": "Notebook",
+           "metadata": {"name": "nb", "namespace": "ns"},
+           "spec": {"template": {"spec": {"containers": [
+               {"name": "nb", "image": "lab"}]}},
+               "gpu": {"accelerator": "h100", "topology": topology}}}
+    nb = Notebook(mutate_gpu_notebook(obj))
+    sts = generate_statefulset(nb, nb.gpu.slice_topology(),
+                               ControllerConfig())
+    container = sts["spec"]["template"]["spec"]["containers"][0]
+    return [pod_env(container, i) for i in range(sts["spec"]["replicas"])]
+
+
+def test_every_card_of_a_two_node_pod_gets_its_own_rank(monkeypatch):
+    """2 pods × 8 cards: ranks 0..15, each once, on cuda:0..7 (the
+    device is read without a card: resolve_device is stood in for)."""
+    monkeypatch.setattr(PB, "resolve_device", torch.device)
+    envs = _rendered_pod_envs("16")
+    assert len(envs) == 2
+    seen = {}
+    for pod, env in enumerate(envs):
+        for card in range(8):
+            rt = PB.bootstrap(env=env, local_rank=card,
+                              initialize_distributed=False)
+            assert (rt.process_id, rt.cards_per_host, rt.world_size) == (
+                pod, 8, 16)
+            assert rt.device == torch.device("cuda", card)
+            seen[rt.rank] = (pod, card)
+    assert sorted(seen) == list(range(16))
+    assert seen[9] == (1, 1)
+    # One process a host (as JAX runs) keeps the host's rank and world.
+    rt = PB.runtime_from_env(envs[1])
+    assert (rt.rank, rt.world_size) == (1, 2)
+
+
+def test_bootstrap_without_local_rank_on_multi_card_hosts_raises():
+    for env in _rendered_pod_envs("16"):
+        with pytest.raises(ValueError, match=r"has 8 cards") as err:
+            PB.bootstrap(env=env, device="cpu")
+        assert "local_rank=0..7" in str(err.value)
+    with pytest.raises(ValueError, match=r"local_rank=8: .* 8 card"):
+        PB.bootstrap(env=_rendered_pod_envs("16")[0], device="cpu",
+                     local_rank=8)
+    # One host of 8 cards without local_rank: one process, as today.
+    (env,) = _rendered_pod_envs("8")
+    rt = PB.bootstrap(env=env, device="cpu")
+    assert (rt.cards_per_host, rt.world_size, rt.local_rank) == (8, 1, None)
+    assert not rt.distributed_initialized
+
+
+_CARD_RANK = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from kubeflow_tpu_torch.runtime import bootstrap
+env, local_rank = json.loads(sys.argv[2]), int(sys.argv[3])
+rt = bootstrap(env=env, device="cpu", local_rank=local_rank,
+               expected_devices=4)
+value = torch.tensor([float(rt.rank)])
+dist.all_reduce(value)
+mesh = rt.mesh(dp=-1)
+print(json.dumps({
+    "rank": dist.get_rank(), "world": dist.get_world_size(),
+    "rt_rank": rt.rank, "process_id": rt.process_id,
+    "mesh": dict(mesh.shape), "sum": value.item()}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def test_four_gloo_processes_come_up_from_two_rendered_pods():
+    """Two pods of the rendered 2-node h100 16 env, with exactly two
+    values rewritten: the coordinator's address to 127.0.0.1 and a free
+    port (the pod's DNS name does not resolve here, and a fixed port
+    could be taken), and TPU_CHIPS_PER_HOST_BOUNDS to 2 cards a host
+    (16 processes would be too many for these tests). Each card's
+    process gets the rank ``pod × 2 + local_rank``."""
+    port = _free_port()
+    envs = _rendered_pod_envs("16")
+    procs = {}
+    for pod, env in enumerate(envs):
+        env = dict(env, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   TPU_CHIPS_PER_HOST_BOUNDS="2,1,1")
+        for card in (0, 1):
+            procs[(pod, card)] = subprocess.Popen(
+                [sys.executable, "-c", _CARD_RANK, str(ROOT),
+                 json.dumps(env), str(card)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env={**os.environ, "OMP_NUM_THREADS": "1"})
+    outs = {}
+    try:
+        for key, proc in procs.items():
+            out, err = proc.communicate(timeout=120)
+            assert proc.returncode == 0, err
+            outs[key] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for (pod, card), got in outs.items():
+        want = pod * 2 + card
+        assert got == {"rank": want, "world": 4, "rt_rank": want,
+                       "process_id": pod, "mesh": {"dp": 4},
+                       "sum": 6.0}

@@ -1714,24 +1714,59 @@ def test_finetune_phase_catches_a_moved_base(smoke, no_card, finetune_small,
 
 def test_resume_child_arguments(smoke):
     got = smoke.resume_child_args(["c.bin", "gemma-2b", "4", "2048", "512",
-                                   "3", ""])
+                                   "3", "", "1"])
     assert got == {"corpus": "c.bin", "model": "gemma-2b", "layers": 4,
                    "seq": 2048, "loss_chunk": 512, "steps": 3,
-                   "device": None}
+                   "device": None, "expected_devices": 1}
     assert smoke.resume_child_args(["c", "tiny", "2", "32", "0", "1",
-                                    "cpu"])["device"] == "cpu"
+                                    "cpu", "1"])["device"] == "cpu"
     assert smoke.resume_config("gemma-2b", 4) == dataclasses.replace(
         TL.LLAMA_CONFIGS["gemma-2b"], n_layers=4)
-    for bad in ([], ["c", "gemma-2b", "4", "2048", "512", "3"],
-                ["c", "gemma-2b", "2048", "512", "3", ""],
-                ["c", "no-such-model", "2", "32", "16", "3", ""],
-                ["c", "tiny", "0", "32", "16", "3", ""],
-                ["c", "tiny", "2", "x", "16", "3", ""],
-                ["c", "tiny", "2", "1", "16", "3", ""],
-                ["c", "tiny", "2", "32", "-1", "3", ""],
-                ["c", "tiny", "2", "32", "16", "0", ""]):
+    for bad in ([], ["c", "gemma-2b", "4", "2048", "512", "3", ""],
+                ["c", "gemma-2b", "2048", "512", "3", "", "1"],
+                ["c", "no-such-model", "2", "32", "16", "3", "", "1"],
+                ["c", "tiny", "0", "32", "16", "3", "", "1"],
+                ["c", "tiny", "2", "x", "16", "3", "", "1"],
+                ["c", "tiny", "2", "1", "16", "3", "", "1"],
+                ["c", "tiny", "2", "32", "-1", "3", "", "1"],
+                ["c", "tiny", "2", "32", "16", "0", "", "1"],
+                ["c", "tiny", "2", "32", "16", "3", "", "0"],
+                ["c", "tiny", "2", "32", "16", "3", "", "x"]):
         with pytest.raises(SystemExit):
             smoke.resume_child_args(bad)
+
+
+def test_resume_pod_is_the_rendered_single_card_pod(smoke):
+    """Phase 12's child env and expected devices come from the pod the
+    port renders: one h100 card, grace 120 s → 150 s of termination
+    grace, the checkpoint directory, pod index 0."""
+    pod = smoke.resume_pod("/ckpt")
+    assert pod["expected_devices"] == 1
+    assert pod["termination_grace_s"] == smoke.RESUME_GRACE_S + 30
+    assert pod["accelerator"].name == "h100"
+    assert pod["accelerator"].hbm_gib_per_chip == 80
+    env = pod["env"]
+    assert {k: env[k] for k in (
+        "TPU_WORKER_ID", "TPU_CHECKPOINT_GRACE_S",
+        "KUBEFLOW_TPU_CHECKPOINT_DIR", "TPU_CHIPS_PER_HOST_BOUNDS",
+        "TPU_HOST_BOUNDS", "TPU_ACCELERATOR_TYPE", "TPU_TOPOLOGY")} == {
+        "TPU_WORKER_ID": "0", "TPU_CHECKPOINT_GRACE_S": "120",
+        "KUBEFLOW_TPU_CHECKPOINT_DIR": "/ckpt",
+        "TPU_CHIPS_PER_HOST_BOUNDS": "1,1,1", "TPU_HOST_BOUNDS": "1,1,1",
+        "TPU_ACCELERATOR_TYPE": "h100-80gb-1", "TPU_TOPOLOGY": "1"}
+    assert env["TPU_WORKER_HOSTNAMES"] == (
+        "resume-0.resume-hosts.smoke.svc.cluster.local")
+
+
+@pytest.mark.parametrize("gpu,match", [
+    ({"accelerator": "h100", "topology": "2"}, "nvidia.com/gpu resources"),
+    ({"accelerator": "h100-mega", "topology": "1"}, "nodeSelector"),
+    ({"accelerator": "h100", "topology": "1", "runtimeVersion": "v2"},
+     "runtimeVersion")])
+def test_resume_pod_refuses_another_pod(smoke, monkeypatch, gpu, match):
+    monkeypatch.setitem(smoke.RESUME_POD, "gpu", gpu)
+    with pytest.raises((AssertionError, ValueError), match=match):
+        smoke.resume_pod("/ckpt")
 
 
 def _digest_by_numpy(t: torch.Tensor, prime: int) -> list:

@@ -166,3 +166,31 @@ def test_the_native_loader_maps_nothing_of_the_jax_package(tmp_path):
         text = f.read_text()
         assert "libkftpu_dataloader" not in text, f
         assert '/ "native"' not in text and "native/lib" not in text, f
+
+
+def test_the_gpu_node_outputs_are_scanned_and_load_no_jax():
+    """The GPU-node outputs (``api/``, ``gpu/``, ``webhook/``,
+    ``controller/``) are in the scan above, and importing them loads
+    nothing of JAX or the JAX package, whose same-named JAX-free modules
+    (``api/names.py``, ``api/annotations.py``, ``tpu/topology.py``) they
+    copy."""
+    scanned = {f.parent.name for f in _port_files()
+               if f.parent.parent.name == "kubeflow_tpu_torch"}
+    assert {"api", "gpu", "webhook", "controller"} <= scanned
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "import kubeflow_tpu_torch.api.names, "
+        "kubeflow_tpu_torch.api.annotations, "
+        "kubeflow_tpu_torch.api.notebook, kubeflow_tpu_torch.gpu, "
+        "kubeflow_tpu_torch.webhook.gpu_env, "
+        "kubeflow_tpu_torch.controller.notebook, "
+        "kubeflow_tpu_torch.examples.train_sharded\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{NOT_AT_IMPORT!r}]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
