@@ -75,7 +75,14 @@ every kernel's launch count set to 0 just before it and read just after:
   running the same three kernels), a Mixtral-style MoE at full width
   under ep=2, and ``llama-3-8b`` served by ``ContinuousBatcher`` over a
   cache cut along the sequence (admissions through the flash kernel, the
-  split-KV decode plain, as in JAX).
+  split-KV decode plain, as in JAX);
+- the fleet: the port's gateway in front of two ``serve_http`` replica
+  processes of ``llama-3-8b`` on the card (the alternating engine with
+  the prefix cache: the flash kernel on admissions, the paged decode
+  kernel in each step), fused and disaggregated over ``/kv/*``, with an
+  autoscaler's scale-down; and serving under a dp or fsdp mesh, each as
+  two gloo ranks on the one card (the ragged, flash and paged decode
+  kernels a layer, the fsdp-cut weights gathered at use).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -189,8 +196,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    or a fork after the first token with chosen-token logprobs before it
    within 2e-2); the continuous engine serves them once more with chunked
    admission (``admit_chunk=128``), compared to one-shot admission by the
-   same rule; last, 8 prompts are served once more under
-   ``torch.profiler``, and that one run's trace gives the card's busy
+   same rule; last, 8 prompts are served once more, 16 new tokens each,
+   under ``torch.profiler``, and that one run's trace gives the card's busy
    time, idle share and time by kernel. Then the quantized engines
    (``quant_engine_phase``) on the same 16 prompts: launches must equal
    (7 × n_layers + 1) for each step of at most 16 rows plus one lm-head
@@ -198,7 +205,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    for each admission (continuous), and wide-path products 7 × n_layers
    for each wider step or admission; 4 prompts are served again with
    every quantized product through its plain version and compared as
-   above; 8 prompts traced again, the wide path's products on a stream
+   above; 8 prompts traced again (16 new tokens each), the wide path's
+   products on a stream
    of their own, for the card's busy time, idle share, quant_matmul's
    seconds and the wide path's kernels' seconds: together the weight
    products (each trace read from its chrome trace);
@@ -411,15 +419,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    flash forward, dQ and dK/dV at a tp=2 rank's training shape of
    llama-3-8b (B 1, S 2048, 16 q / 4 kv heads, D 128), held to their
    plain versions by phase 3's gates. (a) fsdp=2 gemma-2b at full width
-   and depth as two gloo children on ``cuda:0`` (phase 13's one-card
+   cut to 6 of its 18 layers (``TS_FSDP_LAYERS``, the cut that pays for
+   phase 16) as two gloo children on ``cuda:0`` (phase 13's one-card
    configuration): before spawning, this process runs one unsharded
    step 1 on the same weights and global batch (B 2, S 2048: each rank's
    row from ``sharded_loader`` through ``device_put_global``) and frees
    it; each rank draws its shard from the seed (``init_params(plan=)``),
-   shards AdamW (``shard_state``: half the state a rank), and trains 3
+   shards AdamW (``shard_state``: half the state a rank), and trains 2
    steps (remat "full", loss chunk 512), step 1's loss and global grad
-   norm within 2e-2 relative of the unsharded step's, each step 2 × 18
-   flash, 18 dQ and 18 dK/dV launches a rank, the loss on step 1's
+   norm within 2e-2 relative of the unsharded step's, each step 2 × 6
+   flash, 6 dQ and 6 dK/dV launches a rank, the loss on step 1's
    batch lower after; then both ranks save into their ``proc<k>/`` roots
    (JAX's shard format; MemAvailable and the free disk must hold 2.5 ×
    the state), restore into a fresh sharded state from another seed
@@ -445,16 +454,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    top-2 — cut to 2 of its 32 layers, random weights from the seed, B 1,
    S 2048) and frees it, and spawns two gloo children on ``cuda:0``
    once (phase 13's one-card configuration), which run in turn, freeing
-   each part's memory: (a) gemma-2b at full width and depth under sp=2,
+   each part's memory: (a) phase 14 (a)'s cut gemma-2b under sp=2,
    each rank the whole state and 1024 of the 2048 positions of phase 14
    (a)'s batch: step 1 under each of ``ring``, ``ulysses`` and
    ``zigzag``, its loss and global grad norm within 2e-2 relative of
    phase 14 (a)'s unsharded step 1 (recorded there); Ulysses launches 2 ×
-   18 flash, 18 dQ and 18 dK/dV a rank, ring and zigzag none (plain, as
-   JAX's); (b) the same model and batch under pp=2 (9 layers a stage,
+   6 flash, 6 dQ and 6 dK/dV a rank, ring and zigzag none (plain, as
+   JAX's); (b) the same model and batch under pp=2 (3 layers a stage,
    n_micro 2, remat "full", the dense loss over full logits): step 1's
-   loss and grad norm within 2e-2 of the same reference, 2 × 18 flash, 18
-   dQ and 18 dK/dV a rank (bubbles skipped); (c) the cut mixtral-8x7b
+   loss and grad norm within 2e-2 of the same reference, 2 × 6 flash, 6
+   dQ and 6 dK/dV a rank (bubbles skipped); (c) the cut mixtral-8x7b
    under ep=2, 4 of the 8 experts a rank: step 1's loss (the aux term
    included) and grad norm within 2e-2 of this process's, 2 flash, 2 dQ
    and 2 dK/dV a rank; (d) llama-3-8b at full width and depth served by
@@ -467,12 +476,51 @@ Phases, in order; any failure raises and the script exits non-zero:
    part's peak memory a rank, the step walls, and the collective calls,
    bytes and host seconds a step, with the port's own host staging of
    gloo's point-to-point and all-to-all transfers.
+16. fleet_mesh — (a) the fleet (``models/gateway.py``,
+   ``models/autoscaler.py``, ``observability/signals.py``): two
+   ``serve_http`` replica processes of llama-3-8b at full width and depth
+   (random weights from the seed, each its own copy on the one card),
+   the alternating paged engine with the prefix cache (the ragged engine
+   refuses the prefix cache, as JAX's does) and a pool of 1024 blocks of
+   16 each, sized explicitly so that both fit, and the port's
+   ``ServingGateway`` in front of them in this process. Four prompts that
+   share a 256-token system prompt and two that do not, 16 new tokens
+   each, one at a time: first to one replica directly, then through the
+   gateway, every prompt blocking and then every prompt streamed, held
+   to the direct tokens by phase 5's near-tie rule (the weights drawn
+   here only to judge a fork); on the first pass the shared-prefix
+   prompts after the first land on one replica, whose
+   ``/stats`` prefix cache counts at least two prompts' worth of hits;
+   one trace runs from the gateway's ``gateway.request`` through
+   ``gateway.route`` to the replica's ``server.request`` and ``prefill``
+   (its ``/debug/traces``). Then ``tier_mode="disagg"`` (the first
+   replica the prefill tier, the second the decode tier): each prompt
+   streamed, its tokens held to the fused streams by the same rule,
+   every handoff over ``/kv/*`` made, its bytes and seconds printed.
+   Last, a stream through each replica (64 new tokens), and a
+   ``FleetAutoscaler`` whose provisioner this script defines
+   (``SmokeProvisioner``) drains one: it leaves the ring at once, a
+   request sent then goes to the other, its stream runs to its end, and
+   it is released (SIGTERM) once idle. (b) llama-3-8b at full width cut
+   to 4 of its 32 layers, served by the ragged and the alternating
+   engine under fsdp=2 and then dp=2 as two gloo children on ``cuda:0``
+   (phase 13's one-card configuration; the step replicated over the
+   mesh, as JAX's, each fsdp-cut leaf gathered where it is used): 2 of
+   phase 5's prompts, 4 new tokens each, held to the unsharded engines'
+   on the same cut model (run here first) by the near-tie rule, with
+   ragged launches = steps × 4, flash = admissions × 4 and decode =
+   steps × 4 a rank, the pool whole over both axes; an fsdp=2 rank holds
+   under 0.55 of the model's weight bytes, a dp=2 rank all of them. It
+   prints each rank's weight bytes and peak memory, the step walls, the
+   bytes gathered and the host seconds in collectives a step, and the
+   kernels launched a rank.
 
 It prints a ``{"fp8_products": ...}`` line (a library call, not a kernel
 of the port), a ``{"resume": ...}`` line (phase 12's numbers), a
 ``{"tp": ...}`` line (phase 13's numbers), a ``{"train_sharded": ...}``
 line (phase 14's numbers), a ``{"sp_pp_ep": ...}`` line (phase 15's
-numbers), a ``{"kernels": [...]}`` line, the card line, and last
+numbers), a ``{"fleet_mesh": ...}`` line (phase 16's numbers), a
+``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -519,6 +567,7 @@ from kubeflow_tpu_torch.examples import finetune_lora as finetune_example
 from kubeflow_tpu_torch.models import continuous as cont_mod
 from kubeflow_tpu_torch.models import convert as convert_mod
 from kubeflow_tpu_torch.models import fp8 as fp8_mod
+from kubeflow_tpu_torch.models import gateway as gateway_mod
 from kubeflow_tpu_torch.models import llama as L
 from kubeflow_tpu_torch.models import lora as lora_mod
 from kubeflow_tpu_torch.models import moe as moe_mod
@@ -536,6 +585,7 @@ from kubeflow_tpu_torch.models.multilora import (
 from kubeflow_tpu_torch.models.paged import PagedBatcher
 from kubeflow_tpu_torch.models.server import InferenceServer
 from kubeflow_tpu_torch.models import train as train_mod
+from kubeflow_tpu_torch.models.autoscaler import AutoscalerConfig
 from kubeflow_tpu_torch.models.serving import GenerationConfig
 from kubeflow_tpu_torch.models.speculative import (
     SpeculativeContinuousBatcher,
@@ -547,6 +597,8 @@ from kubeflow_tpu_torch.parallel import collectives as collectives_mod
 from kubeflow_tpu_torch.parallel import pipeline as pipeline_mod
 from kubeflow_tpu_torch.parallel.mesh import MeshPlan, make_mesh
 from kubeflow_tpu_torch.observability import profiling as profiling_mod
+from kubeflow_tpu_torch.observability import tracing as tracing_mod
+from kubeflow_tpu_torch.observability.signals import FleetTelemetry
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import attention as attn_mod
 from kubeflow_tpu_torch.ops import paged_attention as decode_mod
@@ -1953,15 +2005,27 @@ DECODE_ROW_KEYS = ("ms", "plain_ms", "library_ms", "library_backend",
                    "bound_ms", "bound_by", "ctas")
 
 
+# Idle seconds a short trace spends before and after its call. The
+# profiler keeps only the card's records that fall inside its window, on
+# the host's clock; a kernel's start, brought to that clock, can land
+# before its own launch call's, so a kernel launched at once after the
+# window opens was now and then dropped, by every retry in a row.
+TRACE_MARGIN_S = 0.02
+# Seconds between a trace that missed its kernel and the next try.
+RETRACE_PAUSE_S = 0.5
+
+
 def _kernel_records(fn) -> list:
     """The kernel records of one traced run of ``fn`` (card activity
-    only)."""
+    only), the call ``TRACE_MARGIN_S`` inside the window at each end."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
     return _profiled_kernels(prof)
 
 
@@ -2346,9 +2410,15 @@ def _prompts(cfg, n: int, lo: int, hi: int, seed: int) -> list[list[int]]:
             for m in lengths]
 
 
-def _engine(params, cfg, kv_bits: int, attn_kernel=None, ragged=True):
+# New tokens a request in phase 5's traced reruns (its untraced runs take
+# 64): the profiler's cost grows with the steps it records.
+TRACE_NEW = 16
+
+
+def _engine(params, cfg, kv_bits: int, attn_kernel=None, ragged=True,
+            max_new=64):
     return PagedBatcher(
-        params, cfg, gen=GenerationConfig(max_new_tokens=64, eos_id=-1),
+        params, cfg, gen=GenerationConfig(max_new_tokens=max_new, eos_id=-1),
         slots=8, num_blocks=8 * 37 + 24, block_size=16, prompt_bucket=512,
         ragged=ragged, token_budget=512 if ragged else None,
         kv_bits=kv_bits, attn_kernel=attn_kernel, device=DEVICE,
@@ -2477,10 +2547,11 @@ def engine_phase(params, cfg, runs=None):
             f"(fork -1 = tokens equal; {time.monotonic() - t0:.2f} s): "
             f"{json.dumps(report)}")
         t0 = time.monotonic()
-        traced = _engine(params, cfg, bits)
+        traced = _engine(params, cfg, bits, max_new=TRACE_NEW)
         trace = _trace(traced, prompts[::2], {"attention": "ragged_kernel"})
         trace["steps"] = traced.ragged_steps
-        log(f"  ragged {variant}: traced rerun of 8 prompts "
+        log(f"  ragged {variant}: traced rerun of 8 prompts, {TRACE_NEW} "
+            "new tokens each "
             f"({time.monotonic() - t0:.2f} s): {json.dumps(trace)}")
         engines[variant] = engine
     return launches, engines["bf16"]
@@ -2532,12 +2603,14 @@ def alternating_phase(params, cfg, runs=None):
         f"{json.dumps(report)}")
     t0 = time.monotonic()
     with _counting_calls(paged_mod, "_paged_admit", "_paged_step") as calls:
-        trace = _trace(_engine(params, cfg, 0, ragged=False), prompts[::2],
+        trace = _trace(_engine(params, cfg, 0, ragged=False,
+                               max_new=TRACE_NEW), prompts[::2],
                        {"flash": "flash_fwd_kernel",
                         "decode": "paged_decode_kernel"})
     trace["admissions"] = calls["_paged_admit"]
     trace["steps"] = calls["_paged_step"]
-    log(f"  alternating bf16: traced rerun of 8 prompts "
+    log(f"  alternating bf16: traced rerun of 8 prompts, {TRACE_NEW} new "
+        "tokens each "
         f"({time.monotonic() - t0:.2f} s): {json.dumps(trace)}")
     return {"flash": counts["flash"], "decode": counts["decode"]}, engine
 
@@ -2597,12 +2670,14 @@ def continuous_phase(params, cfg, runs=None):
         f"{json.dumps(report)}")
     t0 = time.monotonic()
     with _counting_calls(cont_mod, "_admit_slot", "_cb_step") as calls:
-        trace = _trace(_cont_engine(params, cfg), prompts[::2],
+        trace = _trace(_cont_engine(params, cfg, max_new=TRACE_NEW),
+                       prompts[::2],
                        {"flash": "flash_fwd_kernel",
                         "decode": "dense_decode_kernel"})
     trace["admissions"] = calls["_admit_slot"]
     trace["steps"] = calls["_cb_step"]
-    log(f"  continuous bf16: traced rerun of 8 prompts "
+    log(f"  continuous bf16: traced rerun of 8 prompts, {TRACE_NEW} new "
+        "tokens each "
         f"({time.monotonic() - t0:.2f} s): {json.dumps(trace)}")
     return {"flash": counts["flash"], "dense": counts["dense"]}, engine
 
@@ -2776,10 +2851,11 @@ def _quant_engine(qparams, cfg, kind, label, prompts) -> dict:
         f"(fork -1 = tokens equal; {time.monotonic() - t0:.2f} s): "
         f"{json.dumps(report)}")
     t0 = time.monotonic()
-    trace = _trace(make(), prompts[::2], {"quant": "quant_mm_", **attention},
-                   wide=True)
+    trace = _trace(make(max_new=TRACE_NEW), prompts[::2],
+                   {"quant": "quant_mm_", **attention}, wide=True)
     trace["weight_products_s"] = trace["quant_s"] + trace["wide_path_s"]
-    log(f"  {kind} {label}: traced rerun of 8 prompts "
+    log(f"  {kind} {label}: traced rerun of 8 prompts, {TRACE_NEW} new "
+        "tokens each "
         f"({time.monotonic() - t0:.2f} s): {json.dumps(trace)}")
     return {"launches": got["quant"], "wide_calls": got["wide"],
             "steps": steps, "admissions": admits, "wall_s": wall,
@@ -2897,13 +2973,16 @@ def _launch_grids(fn, kernels: dict) -> tuple[dict, list]:
     drops a kernel's record from a trace: ``fn`` is then traced again, up
     to three times."""
     tries = 3
-    for _ in range(tries):
+    for attempt in range(tries):
         events = _kernel_records(fn)
         grids = {label: [ev.get("args", {}).get("grid") for ev in events
                          if needle in ev.get("name", "")]
                  for label, needle in kernels.items()}
         if all(g and all(g) for g in grids.values()):
             break
+        log(f"  trace {attempt + 1} of {tries} holds no "
+            f"{' or '.join(kernels.values())} launch with its grid")
+        time.sleep(RETRACE_PAUSE_S)
     for label, needle in kernels.items():
         check(grids[label] and all(grids[label]),
               f"{tries} traces hold no {needle} launch with its grid")
@@ -3270,7 +3349,7 @@ def _get_json(port: int, path: str):
 
 def _kv_http_part(params, cfg) -> None:
     """A prefill-tier server's /kv/prefill payload streamed by a decode
-    server through ``kv_import`` (its body cap raised to fit) equals a
+    server through ``kv_import`` (its KV body cap raised to fit) equals a
     fused server's blocking response; /kv/probe counts the warmed prefix,
     /kv/chain → /kv/chain/import registers it on a cold server, and
     /stats carries the prefix_cache, kv_swap and kv_handoff blocks."""
@@ -3281,7 +3360,7 @@ def _kv_http_part(params, cfg) -> None:
     servers = {
         name: InferenceServer(
             _prefix_engine(params, cfg, num_blocks=128, **kw), port=0,
-            model_name="llama-3-8b", drain_s=30.0, max_body_bytes=cap,
+            model_name="llama-3-8b", drain_s=30.0, max_kv_body_bytes=cap,
             tier_role=role).start()
         for name, role, kw in (
             ("prefill", "prefill", {"prefix_cache": True,
@@ -4012,15 +4091,15 @@ def _load_part(params, cfg, ckpt: str, nbytes: int) -> dict:
             "leaves": len(mine)}
 
 
-def _start_serve_http(ckpt: str, flags: list, env: dict):
-    """``serve_http --checkpoint`` as a process, from this checkout: returns
-    (the process, its port, its output lines so far, the seconds from
-    start to a healthy /healthz). A reader thread keeps its output
-    drained."""
+def _start_serve_http(source: list, flags: list, env: dict):
+    """``serve_http`` over ``source`` (``--checkpoint <dir>``, or a config
+    and a seed) as a process, from this checkout: returns (the process,
+    its port, its output lines so far, the seconds from start to a healthy
+    /healthz). A reader thread keeps its output drained."""
     t0 = time.monotonic()
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubeflow_tpu_torch.examples.serve_http",
-         "--checkpoint", ckpt, "--port", "0", "--drain-s", "30", *flags,
+         *source, "--port", "0", "--drain-s", "30", *flags,
          *SERVE_DEVICE],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)),
@@ -4115,7 +4194,8 @@ def _serve_checkpoint(ckpt: str, flags: list, env: dict, want: dict,
     under a trace of its own. Tokens are held to ``want`` (phase 6's,
     {prompt: tokens}, cut at serve_http's end of sequence), the spans to
     ``check_request_traces``; then ``/stats`` and a SIGTERM drain."""
-    proc, port, lines, up_s = _start_serve_http(ckpt, flags, env)
+    proc, port, lines, up_s = _start_serve_http(["--checkpoint", ckpt],
+                                                flags, env)
     # The checkpoint holds no tokenizer: serve_http says so (or, where a
     # transformers version makes one up, serves with it); the requests
     # below send token ids either way.
@@ -5611,6 +5691,13 @@ def _tp_config(name: str, dtype):
         cfg, dtype=getattr(torch, dtype))
 
 
+def _cut_config(name: str, dtype, layers=None):
+    """``_tp_config`` cut to its first ``layers`` layers (None: whole)."""
+    cfg = _tp_config(name, dtype)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
 def _launches_a_call(cfg) -> int:
     """Kernel launches a forward makes: one a layer on the card; none on
     the CPU, where the wrappers run their plain versions."""
@@ -5914,8 +6001,11 @@ def tp_phase(p5: dict) -> dict:
 
 TS_DEGREE = 2
 TS_FSDP_MODEL = "gemma-2b"
+# (a) and phase 15's sp and pp steps run gemma-2b cut to this many of its
+# 18 layers (the depth cut that pays for phase 16; the widths are whole).
+TS_FSDP_LAYERS = 6
 TS_TP_MODEL = "llama-3-8b"
-TS_FSDP_STEPS = 3
+TS_FSDP_STEPS = 2
 TS_TP_STEPS = 2
 TS_GLOBAL_BATCH = 2  # (a): one row a rank
 # Step 1's loss and global grad norm against the unsharded step's: bf16
@@ -6069,7 +6159,7 @@ def ts_child(argv: list) -> int:
     axes = {"fsdp": TS_DEGREE} if spec["mode"] == "fsdp" else {
         "tp": TS_DEGREE}
     plan = MeshPlan(make_mesh(**axes))
-    cfg = _tp_config(spec["model"], spec["dtype"])
+    cfg = _cut_config(spec["model"], spec["dtype"], spec.get("layers"))
     n = cfg.n_layers
     params = L.init_params(
         cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
@@ -6271,7 +6361,8 @@ def _ts_part(spec: dict, ref_s: float) -> dict:
               f"{spec['mode']}: the ranks' {key} differ: {recs[0][key]} vs "
               f"{recs[1][key]}")
     out = {
-        "model": spec["model"], "mesh": spec["mode"],
+        "model": spec["model"], "layers": spec.get("layers"),
+        "mesh": spec["mode"],
         "seconds": {"reference": ref_s,
                     "spawn": max(r["started"] for r in recs) - t0,
                     "init": max(r["inited"] - r["started"] for r in recs),
@@ -6357,7 +6448,9 @@ def train_sharded_phase() -> dict:
     tmp = tempfile.mkdtemp(prefix="ts-")
     try:
         # (a): the disk and the host must hold the state's save.
-        cfg = _tp_config(TS_FSDP_MODEL, TP_DTYPE)
+        layers = min(TS_FSDP_LAYERS,
+                     _tp_config(TS_FSDP_MODEL, TP_DTYPE).n_layers)
+        cfg = _cut_config(TS_FSDP_MODEL, TP_DTYPE, layers)
         est = 3 * cfg.param_count() * torch.empty(
             (), dtype=cfg.dtype).element_size()
         mem, disk = _mem_available(), shutil.disk_usage(tmp).free
@@ -6373,14 +6466,15 @@ def train_sharded_phase() -> dict:
         tokens = ts_global_batch(corpus)
         ref = _ts_reference(cfg, tokens)
         # Phase 15 (a) and (b) are held to this step 1 on this batch.
-        SP_REFERENCE.update(model=TS_FSDP_MODEL, tokens=tokens.cpu(),
-                            ref=ref)
+        SP_REFERENCE.update(model=TS_FSDP_MODEL, layers=layers,
+                            tokens=tokens.cpu(), ref=ref)
         del tokens
         base = {"port": 0, "device": DEVICE, "dtype": TP_DTYPE,
                 "corpus": corpus, "loss_chunk": LOSS_CHUNK,
                 "seq": TRAIN_SEQ}
         fsdp = _ts_part({**base, "port": _free_port(), "mode": "fsdp",
-                         "model": TS_FSDP_MODEL, "steps": TS_FSDP_STEPS,
+                         "model": TS_FSDP_MODEL, "layers": layers,
+                         "steps": TS_FSDP_STEPS,
                          "ref": ref, "ckpt_dir": os.path.join(tmp, "ckpt")},
                         time.monotonic() - t0)
         shutil.rmtree(os.path.join(tmp, "ckpt"), ignore_errors=True)
@@ -6512,7 +6606,7 @@ def _spp_sp(spec: dict, rank: int) -> dict:
     of phase 14 (a)'s batch; step 1 under each sp_impl (Ulysses through
     the flash kernels, ring and zigzag plain, as JAX's)."""
     plan = MeshPlan(make_mesh(sp=SPP_DEGREE))
-    cfg = _tp_config(spec["sp_model"], spec["dtype"])
+    cfg = _cut_config(spec["sp_model"], spec["dtype"], spec["sp_layers"])
     params = L.init_params(
         cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
     tokens = torch.tensor(spec["sp_tokens"], device=DEVICE)
@@ -6539,7 +6633,7 @@ def _spp_pp(spec: dict, rank: int) -> dict:
     """(b): the same model and batch at pp=2, this rank's half of the
     layers, n_micro 2, remat "full"; step 1's loss and grad norm."""
     plan = MeshPlan(make_mesh(pp=SPP_DEGREE))
-    cfg = _tp_config(spec["sp_model"], spec["dtype"])
+    cfg = _cut_config(spec["sp_model"], spec["dtype"], spec["sp_layers"])
     params = pipeline_mod.shard_pipeline_params(L.init_params(
         cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE), plan)
     tokens = torch.tensor(spec["sp_tokens"], device=DEVICE)
@@ -6735,6 +6829,7 @@ def sp_pp_ep_phase(p5: dict) -> dict:
     spec = {"port": _free_port(), "device": DEVICE, "dtype": TP_DTYPE,
             "parts": list(SPP_PARTS), "loss_chunk": LOSS_CHUNK,
             "sp_model": SP_REFERENCE["model"],
+            "sp_layers": SP_REFERENCE.get("layers"),
             "sp_tokens": SP_REFERENCE["tokens"].tolist(),
             "sp_ref": SP_REFERENCE["ref"],
             "moe_model": SPP_MOE_MODEL, "moe_layers": SPP_MOE_LAYERS,
@@ -6761,13 +6856,15 @@ def sp_pp_ep_phase(p5: dict) -> dict:
 
     numbers = {
         "kernels": kernels,
-        "sp": {"model": SP_REFERENCE["model"], "reference":
+        "sp": {"model": SP_REFERENCE["model"],
+               "layers": SP_REFERENCE.get("layers"), "reference":
                SP_REFERENCE["ref"], "local_seq": sp[0]["local_seq"],
                "impls": {impl: step_numbers([r["impls"][impl] | {
                    "rank": r["rank"]} for r in sp]) for impl in SPP_IMPLS},
                "peak_gib": _per_rank(sp, "peak_gib"),
                "seconds": _per_rank(sp, "seconds")},
-        "pp": {"model": SP_REFERENCE["model"], "n_micro": SPP_N_MICRO,
+        "pp": {"model": SP_REFERENCE["model"],
+               "layers": SP_REFERENCE.get("layers"), "n_micro": SPP_N_MICRO,
                "stage_layers": _per_rank(pp, "stage_layers"),
                **step_numbers(pp), "peak_gib": _per_rank(pp, "peak_gib"),
                "seconds": _per_rank(pp, "seconds")},
@@ -6797,6 +6894,607 @@ def sp_pp_ep_phase(p5: dict) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the fleet, and serving under a dp or fsdp mesh
+
+FLEET_MODEL = "llama-3-8b"
+FLEET_SYSTEM = 256  # the shared system prompt, in tokens
+FLEET_NEW = 16  # new tokens a request
+FLEET_OTHER = (96, 300)  # the lengths of the two prompts that share none
+FLEET_STREAM_NEW = 64  # the streams in flight through the scale-down
+FLEET_BLOCK = 16
+# Each replica's pool, sized explicitly: 1024 blocks of 16 tokens, 2 GiB
+# of llama-3-8b's bf16 KV. A pool sized by HBM fraction would take the
+# card from the other replica.
+FLEET_FLAGS = ["--paged", "--slots", "4", "--num-blocks", "1024",
+               "--block-size", str(FLEET_BLOCK), "--prompt-bucket", "512",
+               "--max-new-tokens", "64"]
+# The alternating paged engine with the prefix cache (which serve_http
+# turns on with the host swap tier; the ragged engine refuses the prefix
+# cache, as JAX's does), and the trace ring behind /debug/traces.
+FLEET_ENV = {"KUBEFLOW_TPU_KV_SWAP_BYTES": str(256 << 20),
+             "KUBEFLOW_TPU_TRACE_RING": "4096"}
+FLEET_TIMEOUT = 300.0
+
+MESH_MODEL = "llama-3-8b"
+MESH_LAYERS = 4  # of llama-3-8b's 32: the depth cut
+MESH_DTYPE = None  # the model's own (bf16); the CPU rehearsal runs float32
+MESH_NEW = 4  # new tokens a request
+MESH_DEGREE = 2
+MESH_AXES = ({"fsdp": MESH_DEGREE}, {"dp": MESH_DEGREE})
+MESH_CHILD_TIMEOUT = 600.0
+MESH_TAG = "mesh-child "
+MESH_CHILD_CODE = ("import sys, chip_smoke; "
+                   "sys.exit(chip_smoke.mesh_child(sys.argv[1:]))")
+
+
+def _fleet_prompts(cfg) -> tuple:
+    """(shared, other): four prompts that open with one system prompt of
+    FLEET_SYSTEM tokens, and two that share nothing."""
+    rng = np.random.default_rng(SEED + 16)
+    system = rng.integers(3, cfg.vocab_size, FLEET_SYSTEM).tolist()
+    shared = [system + rng.integers(3, cfg.vocab_size, 24 + 8 * i).tolist()
+              for i in range(4)]
+    other = [rng.integers(3, cfg.vocab_size, n).tolist()
+             for n in FLEET_OTHER]
+    return shared, other
+
+
+def _gw_post(gw, body: dict, timeout: float = 300.0) -> tuple:
+    """(the gateway's request id, the tokens) of one completion through
+    ``gw``, blocking or streamed."""
+    req = urllib.request.Request(
+        f"http://{gw.host}:{gw.port}/v1/completions",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        raw = resp.read().decode()
+        rid = resp.headers["X-Request-Id"]
+    if not body.get("stream"):
+        return rid, json.loads(raw)["choices"][0]["tokens"]
+    events = [line[len("data: "):] for line in raw.splitlines()
+              if line.startswith("data: ")]
+    check(events and events[-1] == "[DONE]",
+          f"a stream through the gateway did not end with [DONE]: {raw}")
+    out = [json.loads(e) for e in events[:-1]]
+    check(all("token" in e for e in out), f"stream carried an error: {out}")
+    return rid, [e["token"] for e in out]
+
+
+def _spans_of(exporter, rid: str, name: str) -> list:
+    """The spans ``name`` of trace ``rid``, once its root has ended."""
+    deadline = time.monotonic() + 30
+    while not any(s.trace_id == rid and s.name == "gateway.request"
+                  for s in exporter.spans):
+        check(time.monotonic() < deadline, f"trace {rid} never ended")
+        time.sleep(0.01)
+    return [s for s in exporter.spans if s.trace_id == rid and s.name == name]
+
+
+def _span_of(exporter, rid: str, name: str):
+    """The one span ``name`` of trace ``rid``, once it has ended."""
+    got = _spans_of(exporter, rid, name)
+    check(len(got) == 1, f"trace {rid} holds {len(got)} {name} spans: "
+                         f"{[(s.attributes, s.events) for s in got]}")
+    return got[0]
+
+
+class _FleetModel:
+    """The replicas' weights in this process, drawn from the seed only
+    when a fork must be judged a near-tie (``_compare_greedy``)."""
+
+    def __init__(self, cfg):
+        self.cfg, self.params = cfg, None
+
+    def compare(self, prompts, got, want) -> list:
+        forks = [next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                      -1) for g, w in zip(got, want)]
+        check(all(len(g) == len(w) or f >= 0
+                  for g, w, f in zip(got, want, forks)),
+              f"token counts differ without a fork: {got} vs {want}")
+        if all(f < 0 for f in forks):
+            return [{"fork": -1, "gap": None, "max_logprob_diff": None}
+                    for _ in forks]
+        if self.params is None:
+            self.params = L.init_params(self.cfg, torch.Generator(
+                device=DEVICE).manual_seed(SEED), DEVICE)
+        return _compare_greedy(self.params, self.cfg, prompts, got,
+                               (want, None))
+
+
+class SmokeProvisioner:
+    """The autoscaler's provisioner over this phase's replica processes
+    (the duck-typed contract of ``models/autoscaler.py``): no scale-up; a
+    drain leaves the replica serving what it holds; it is drained once its
+    ``/stats`` shows no active slot and nothing queued; a release sends
+    the process SIGTERM, which the server answers with its own drain."""
+
+    def __init__(self, procs: dict):
+        self.procs = procs  # endpoint -> (process, output lines)
+        self.calls: list = []
+
+    def scale_up(self, tier, now=None):
+        self.calls.append(("scale_up", tier))
+        return None
+
+    def drain(self, endpoint: str) -> None:
+        self.calls.append(("drain", endpoint))
+
+    def drained(self, endpoint: str) -> bool:
+        stats = _get_json(int(endpoint.rsplit(":", 1)[1]), "/stats")
+        return not (stats.get("active_slots") or stats.get("queued"))
+
+    def release(self, endpoint: str) -> None:
+        self.calls.append(("release", endpoint))
+        proc, lines = self.procs.pop(endpoint)
+        _stop_serve_http(proc, lines)
+
+
+def _fleet_routes(gw, exporter, rids) -> list:
+    return [_span_of(exporter, rid, "gateway.route").attributes.get(
+        "endpoint") for rid in rids]
+
+
+def _fleet_fused(gw, exporter, eps, model, prompts, direct) -> dict:
+    """(a) fused: every prompt blocking and streamed through the gateway,
+    one at a time, held to the replica served directly; the shared-prefix
+    prompts on one replica, whose prefix cache counts the hit; one trace
+    from the gateway's root span to the replica's prefill span."""
+    before = {ep: _get_json(int(ep.rsplit(":", 1)[1]), "/stats")
+              ["prefix_cache"]["hits"] for ep in eps}
+    # Every prompt blocking, then every prompt streamed.
+    out, rids = {}, {}
+    for stream in (False, True):
+        for p in prompts:
+            rid, toks = _gw_post(gw, {"prompt": p, "max_tokens": FLEET_NEW,
+                                      "stream": stream})
+            out.setdefault(stream, []).append(toks)
+            rids.setdefault(stream, []).append(rid)
+    forks = {"blocking": model.compare(prompts, out[False], direct),
+             "streamed": model.compare(prompts, out[True], direct)}
+    routes = {("streamed" if k else "blocking"): _fleet_routes(gw, exporter, v)
+              for k, v in rids.items()}
+    # The shared-prefix prompts on their first pass: the first routes by
+    # its own chain, every later one by the shared prefix's, onto one
+    # replica. (A prompt seen before routes by its own deepest chain.)
+    home = set(routes["blocking"][1:4])
+    check(len(home) == 1,
+          f"the shared-prefix prompts went to {routes['blocking'][:4]}")
+    (home,) = home
+    after = {ep: _get_json(int(ep.rsplit(":", 1)[1]), "/stats")
+             ["prefix_cache"]["hits"] for ep in eps}
+    hits = {ep: after[ep] - before[ep] for ep in eps}
+    check(hits[home] >= 2 * FLEET_SYSTEM // FLEET_BLOCK,
+          f"the shared prefix's replica counted {hits[home]} prefix hits")
+    # One trace: gateway.request -> gateway.route -> (traceparent) the
+    # replica's server.request -> prefill.
+    rid = rids[False][2]
+    root = _span_of(exporter, rid, "gateway.request")
+    route = _span_of(exporter, rid, "gateway.route")
+    check(route.parent_id == root.span_id and root.parent_id in ("", None),
+          "gateway.route is not a child of the root gateway.request")
+    port = int(routes["blocking"][2].rsplit(":", 1)[1])
+    deadline = time.monotonic() + 60
+    while True:
+        mine = {t["name"]: t for t in _get_json(port, "/debug/traces")
+                ["traces"] if t["trace_id"] == rid}
+        if "server.request" in mine or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    check("server.request" in mine and "prefill" in mine,
+          f"the replica's trace {rid} holds {sorted(mine)}")
+    check(mine["server.request"]["parent_id"] == route.span_id
+          and mine["prefill"]["parent_id"]
+          == mine["server.request"]["span_id"],
+          "the replica's spans do not hang off the gateway's route")
+    return {"tokens": out[False] + out[True], "streams": out[True],
+            "forks": forks, "routes": routes,
+            "prefix_hits": hits, "home": home,
+            "trace": [root.name, route.name, "server.request", "prefill"]}
+
+
+def _fleet_disagg(eps, exporter, model, prompts, fused_streams) -> dict:
+    """(a) disagg: the first replica the prefill tier, the second the
+    decode tier; each prompt streamed, its tokens held to the fused
+    route's; the handoff's bytes and seconds."""
+    gw = gateway_mod.ServingGateway(
+        eps, port=0, block_size=FLEET_BLOCK, health_interval_s=0.5,
+        tier_mode="disagg",
+        tier_roles={eps[0]: "prefill", eps[1]: "decode"}).start()
+    try:
+        got, per = [], []
+        for p in prompts:
+            before = gw.stats()
+            rid, toks = _gw_post(gw, {"prompt": p, "max_tokens": FLEET_NEW,
+                                      "stream": True})
+            got.append(toks)
+            after = gw.stats()
+            per.append({"bytes": after["kv_transfer_bytes"]
+                        - before["kv_transfer_bytes"],
+                        "seconds": after["kv_transfer_latency_s"],
+                        "prompt_tokens": len(p),
+                        "fallbacks": [
+                            e.get("attributes")
+                            for route in _spans_of(exporter, rid,
+                                                   "gateway.route")
+                            for e in route.events
+                            if e["name"] == "disagg_fallback"]})
+        stats = gw.stats()
+    finally:
+        gw.stop()
+    check(stats["kv_transfers"] == len(prompts)
+          and stats["kv_transfer_failures"] == 0,
+          f"disagg handoffs: {stats['kv_transfers']} of {len(prompts)}, "
+          f"{stats['kv_transfer_failures']} failed: {per}")
+    forks = model.compare(prompts, got, fused_streams)
+    return {"forks": forks, "handoffs": per,
+            "kv_transfer_bytes": stats["kv_transfer_bytes"]}
+
+
+def _fleet_scale_down(eps, procs, exporter, cfg) -> dict:
+    """(a) scale-down: a stream through each replica, then one
+    ``FleetAutoscaler`` decision drains the least-loaded replica through
+    ``SmokeProvisioner``: it leaves the ring at once, a request sent then
+    lands on the other, the stream on it runs to its end, and it is
+    released (SIGTERM) once idle."""
+    provisioner = SmokeProvisioner(procs)
+    gw = gateway_mod.ServingGateway(
+        eps, port=0, block_size=FLEET_BLOCK, health_interval_s=3600.0,
+        telemetry=FleetTelemetry(),
+        autoscaler_config=AutoscalerConfig(
+            min_replicas=1, max_replicas=2, down_consecutive=2,
+            down_cooldown_s=0.0, stale_after_s=120.0, drain_budget_s=120.0),
+        autoscaler_provisioner=provisioner).start()
+    try:
+        # One prompt routed to each replica, found on the gateway's ring.
+        rng = np.random.default_rng(SEED + 17)
+        placed = {}
+        for _ in range(64):
+            p = rng.integers(3, cfg.vocab_size, 64).tolist()
+            placed.setdefault(gw._candidates(gw._route_key(p))[0], p)
+            if len(placed) == len(eps):
+                break
+        check(set(placed) == set(eps), f"no prompt routes to each of {eps}")
+        streams = {}
+
+        def stream(ep):
+            streams[ep] = _gw_post(gw, {"prompt": placed[ep], "stream": True,
+                                        "max_tokens": FLEET_STREAM_NEW})[1]
+
+        threads = [threading.Thread(target=stream, args=(ep,), daemon=True)
+                   for ep in eps]
+        # The first tick, before the streams: the ebb's first quiet tick,
+        # so that the one after them decides.
+        gw.probe_once()
+        t_streams = time.monotonic()
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + FLEET_TIMEOUT
+        while sum(gw.stats()["inflight"].values()) < len(eps):
+            check(time.monotonic() < deadline, "the streams never started")
+            time.sleep(0.01)
+        decisions, victim, during = [], None, None
+        while victim is None or victim in provisioner.procs:
+            check(time.monotonic() < deadline,
+                  f"no scale-down and release: {decisions}")
+            gw.probe_once()
+            new = [d for d in gw.autoscaler.debug()["decisions"]
+                   if d not in decisions]
+            decisions += new
+            for d in new:
+                if d["action"] == "scale_down":
+                    victim = d["endpoint"]
+                    check(victim not in gw.ring_nodes(),
+                          "the drained replica is still in the ring")
+                    check(victim in {ep for ep, t in zip(eps, threads)
+                                     if t.is_alive()},
+                          f"the drained replica carried no stream "
+                          f"{time.monotonic() - t_streams:.3f} s after "
+                          f"the streams started: {decisions}")
+                    # A request sent now routes to the other replica.
+                    rid, _ = _gw_post(gw, {"prompt": placed[victim],
+                                           "max_tokens": 2})
+                    during = gw.stats()["replicas"]
+                    during["routed_to"] = _span_of(
+                        exporter, rid, "gateway.route").attributes.get(
+                            "endpoint")
+            if victim is not None:
+                time.sleep(0.1)  # the drain: poll until it is released
+        for t in threads:
+            t.join(FLEET_TIMEOUT)
+        check(all(len(streams.get(ep, ())) == FLEET_STREAM_NEW
+                  or SERVE_EOS in streams.get(ep, ()) for ep in eps),
+              f"a stream was cut: {[len(s) for s in streams.values()]}")
+        check([d["action"] for d in decisions
+               if d["action"] in ("scale_down", "release")]
+              == ["scale_down", "release"],
+              f"the autoscaler decided {decisions}")
+        check(provisioner.calls == [("drain", victim), ("release", victim)],
+              f"the provisioner was called {provisioner.calls}")
+        survivor = next(ep for ep in eps if ep != victim)
+        check(gw.ring_nodes() == frozenset({survivor})
+              and victim not in gw.stats()["replicas"],
+              f"the ring after the release: {sorted(gw.ring_nodes())}")
+        check(during is not None and during[survivor]["in_ring"]
+              and not during[victim]["in_ring"]
+              and during["routed_to"] == survivor,
+              f"replicas while draining: {during}")
+    finally:
+        gw.stop()
+    return {"victim": victim, "survivor": survivor,
+            "decisions": [{k: d[k] for k in ("action", "endpoint", "reasons")
+                           if k in d} for d in decisions],
+            "stream_tokens": {ep: len(s) for ep, s in streams.items()}}
+
+
+def fleet_part(card: str) -> dict:
+    """Phase 16 (a): two ``serve_http`` replicas of the model, the port's
+    ``ServingGateway`` in front of them in this process."""
+    cfg = _tp_config(FLEET_MODEL, None)
+    shared, other = _fleet_prompts(cfg)
+    prompts = shared + other
+    source = ["--config", FLEET_MODEL, "--seed", str(SEED)]
+    t0 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        started = list(pool.map(
+            lambda _: _start_serve_http(source, FLEET_FLAGS, FLEET_ENV),
+            range(2)))
+    procs = {f"127.0.0.1:{port}": (proc, lines)
+             for proc, port, lines, _ in started}
+    eps = sorted(procs)
+    up_s = time.monotonic() - t0
+    exporter = tracing_mod.InMemoryExporter()
+    tracing_mod.set_tracer_provider(tracing_mod.TracerProvider(exporter))
+    model = _FleetModel(cfg)
+    try:
+        # The reference: each prompt sent to the first replica directly.
+        direct = [_post(int(eps[0].rsplit(":", 1)[1]),
+                        {"prompt": p, "max_tokens": FLEET_NEW})
+                  for p in prompts]
+        gw = gateway_mod.ServingGateway(
+            eps, port=0, block_size=FLEET_BLOCK,
+            health_interval_s=0.5).start()
+        try:
+            t1 = time.monotonic()
+            fused = _fleet_fused(gw, exporter, eps, model, prompts, direct)
+            fused_s = time.monotonic() - t1
+        finally:
+            gw.stop()
+        t1 = time.monotonic()
+        disagg = _fleet_disagg(eps, exporter, model, prompts,
+                               fused["streams"])
+        disagg_s = time.monotonic() - t1
+        t1 = time.monotonic()
+        down = _fleet_scale_down(eps, procs, exporter, cfg)
+        down_s = time.monotonic() - t1
+        # The survivor's engine steps (its flight recorder's): each
+        # admission ran the flash kernel and each decode step the paged
+        # decode kernel once a layer, in its own process, where no count
+        # of ours reaches.
+        fused["survivor_steps"] = {
+            ep: _get_json(int(ep.rsplit(":", 1)[1]), "/stats")["flight"]
+            ["steps"] for ep in procs}
+    finally:
+        tracing_mod.set_tracer_provider(tracing_mod.TracerProvider())
+        for proc, lines in procs.values():
+            _stop_serve_http(proc, lines)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    numbers = {"replicas_up_s": up_s,
+               "healthz_s": [s for _, _, _, s in started],
+               "fused": {k: fused[k] for k in ("forks", "routes",
+                                                "prefix_hits", "home",
+                                                "trace",
+                                                "survivor_steps")},
+               "disagg": disagg, "scale_down": down,
+               "seconds": {"fused": fused_s, "disagg": disagg_s,
+                           "scale_down": down_s}}
+    log(f"  fleet on {card}: {json.dumps(numbers)}")
+    return numbers
+
+
+def _mesh_config(spec: dict):
+    return _cut_config(spec["model"], spec["dtype"], spec["layers"])
+
+
+def mesh_child(argv: list) -> int:
+    """One rank of phase 16 (b): joins the gloo group of ``MESH_DEGREE``
+    on the spec's device (``cuda:0`` on the card) and, under each of the
+    spec's meshes in turn, draws its shard of the cut model from the seed
+    (``init_params(plan=)``: half of each leaf fsdp cuts, everything at
+    dp), serves the ragged and the alternating engine with ``plan=`` (the
+    step replicated over the mesh, as JAX's), holds their tokens to the
+    unsharded engines' by the near-tie rule and their launches to the
+    steps, and prints one ``mesh-child {json}`` record."""
+    global DEVICE
+    spec = json.loads(open(argv[0]).read())
+    rank = int(argv[1])
+    started = time.time()
+    DEVICE = spec["device"]
+    on_card = torch.device(DEVICE).type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if on_card:
+        torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{spec['port']}", rank=rank,
+        world_size=MESH_DEGREE)
+    cfg = _mesh_config(spec)
+    per = _launches_a_call(cfg)
+    rec = {"rank": rank, "started": started}
+    for axes in spec["meshes"]:
+        tag = "x".join(f"{k}{v}" for k, v in axes.items())
+        plan = MeshPlan(make_mesh(**axes))
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        params = L.init_params(
+            cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
+            plan=plan)
+        _sync(DEVICE)
+        out = {"weight_bytes": sum(p.numel() * p.element_size()
+                                   for p in params.parameters()),
+               "embed_shape": list(params.embed.shape),
+               "wq_shape": list(params.layers[0].wq.shape)}
+        for kind in ("ragged", "alternating"):
+            engine = _tp_engine(params, cfg, plan, kind == "ragged",
+                                spec["new"])
+            check(engine.mesh_axes == axes,
+                  f"{tag} {kind}: /stats mesh {engine.mesh_axes}")
+            check(engine.pool["k"].shape[2] == cfg.n_kv_heads,
+                  f"{tag} {kind}: the pool is cut over dp or fsdp")
+            with _counting_calls(paged_mod, "_paged_admit",
+                                 "_paged_step") as calls, \
+                    _collective_meter(("all_gather", "all_reduce")) as seen:
+                _sync(DEVICE)
+                _zero_counts()
+                t0 = time.monotonic()
+                toks, lps = _serve(engine, spec["prompts"])
+                _sync(DEVICE)
+                wall = time.monotonic() - t0
+                counts = _counts()
+            if kind == "ragged":
+                forwards = engine.ragged_steps
+                check(forwards > 0 and counts["ragged"] == forwards * per
+                      and counts["flash"] == counts["decode"] == 0,
+                      f"rank {rank}, {tag} ragged: {counts} for {forwards} "
+                      f"steps × {cfg.n_layers} layers")
+            else:
+                admits, steps = calls["_paged_admit"], calls["_paged_step"]
+                forwards = admits + steps
+                check(admits > 0 and steps > 0
+                      and counts["flash"] == admits * per
+                      and counts["decode"] == steps * per
+                      and counts["ragged"] == 0,
+                      f"rank {rank}, {tag} alternating: {counts} for "
+                      f"{admits} admissions and {steps} steps × "
+                      f"{cfg.n_layers} layers")
+            report = _compare_greedy(params, cfg, spec["prompts"], toks,
+                                     spec["ref"][kind], lps)
+            out[kind] = {"tokens": toks, "forks": report, "wall_s": wall,
+                         "forwards": forwards,
+                         "step_s": wall / forwards,
+                         "gathered_bytes_per_step": seen["bytes"] / forwards,
+                         "collective_calls_per_step":
+                             seen["calls"] / forwards,
+                         "collective_host_s_per_step":
+                             seen["seconds"] / forwards,
+                         "launches": {k: counts[k] for k in
+                                      ("ragged", "flash", "decode")}}
+            del engine
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                           if on_card else 0.0)
+        rec[tag] = out
+        del params
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    rec["served"] = time.time()
+    print(MESH_TAG + json.dumps(rec), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_part() -> dict:
+    """Phase 16 (b): the unsharded engines on the cut model in this
+    process, then the two children under each mesh."""
+    spec = {"port": _free_port(), "device": DEVICE, "model": MESH_MODEL,
+            "layers": MESH_LAYERS, "dtype": MESH_DTYPE, "new": MESH_NEW,
+            "meshes": list(MESH_AXES)}
+    cfg = _mesh_config(spec)
+    prompts = _prompts(cfg, 16, 8, 500, SEED)[::8]
+    params = L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    ref = {}
+    for kind in ("ragged", "alternating"):
+        ref[kind] = _serve(_tp_engine(params, cfg, None, kind == "ragged",
+                                      MESH_NEW), prompts)
+    whole_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec.update(prompts=prompts, ref=ref)
+    with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                     delete=False) as f:
+        json.dump(spec, f)
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_CHILD_CODE, f.name, str(rank)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for rank in range(MESH_DEGREE)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=MESH_CHILD_TIMEOUT))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        os.unlink(f.name)
+    done = time.time()
+    recs = []
+    for proc, (out, err) in zip(procs, outs):
+        check(proc.returncode == 0, f"mesh child exited {proc.returncode}: "
+                                    + err[-6000:])
+        recs.append(next(json.loads(line[len(MESH_TAG):])
+                         for line in out.splitlines()
+                         if line.startswith(MESH_TAG)))
+    numbers = {"model": MESH_MODEL, "layers": MESH_LAYERS,
+               "whole_weight_bytes": whole_bytes,
+               "seconds": {"total": done - t0,
+                           "spawn": max(r["started"] for r in recs) - t0}}
+    for axes in MESH_AXES:
+        tag = "x".join(f"{k}{v}" for k, v in axes.items())
+        for kind in ("ragged", "alternating"):
+            check(recs[0][tag][kind]["tokens"] == recs[1][tag][kind]["tokens"],
+                  f"{tag} {kind}: the two ranks emitted different tokens")
+            check(recs[0][tag][kind]["launches"]
+                  == recs[1][tag][kind]["launches"],
+                  f"{tag} {kind}: the two ranks launched different counts")
+        want = whole_bytes if "dp" in axes else None
+        for r in recs:
+            if want is not None:
+                check(r[tag]["weight_bytes"] == want,
+                      f"{tag}: a rank holds {r[tag]['weight_bytes']} bytes "
+                      f"of weights, the model {want}")
+            else:
+                check(r[tag]["weight_bytes"] < 0.55 * whole_bytes,
+                      f"{tag}: a rank holds {r[tag]['weight_bytes']} bytes "
+                      f"of weights, the model {whole_bytes}")
+        numbers[tag] = {
+            "weight_bytes": [r[tag]["weight_bytes"] for r in recs],
+            "peak_gib": [r[tag]["peak_gib"] for r in recs],
+            "embed_shape": recs[0][tag]["embed_shape"],
+            "wq_shape": recs[0][tag]["wq_shape"],
+            **{kind: {k: recs[0][tag][kind][k] for k in (
+                "forks", "wall_s", "forwards", "step_s",
+                "gathered_bytes_per_step", "collective_calls_per_step",
+                "launches")} | {"collective_host_s_per_step": [
+                    r[tag][kind]["collective_host_s_per_step"]
+                    for r in recs]}
+               for kind in ("ragged", "alternating")}}
+    log(f"  dp and fsdp at degree {MESH_DEGREE} on one card (gloo, both "
+        f"ranks on cuda:0), {MESH_MODEL} at {MESH_LAYERS} layers: "
+        f"{json.dumps(numbers)}")
+    return numbers
+
+
+def fleet_mesh_phase(card: str) -> dict:
+    """Phase 16: (a) the fleet, then (b) dp and fsdp."""
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = fleet_part(card)
+    t0 = time.monotonic()
+    mesh = mesh_part()
+    return {"fleet": fleet, "mesh": mesh,
+            "seconds": {"fleet": t0 - t_phase,
+                        "mesh": time.monotonic() - t0,
+                        "total": time.monotonic() - t_phase}}
+
+
 def main() -> int:
     # One card, the first visible one, set before CUDA starts: the process
     # drives and counts one card however many the host has.
@@ -6809,7 +7507,7 @@ def main() -> int:
     t_start = time.monotonic()
     phases = {}
 
-    log("[1/15] card")
+    log("[1/16] card")
     smi = subprocess.run(
         ["nvidia-smi", "-i", card_id, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -6823,7 +7521,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     phases["card"] = time.monotonic() - t_start
 
-    log("[2/15] build")
+    log("[2/16] build")
     t0 = time.monotonic()
     seconds = _build.build()
     for name, took in seconds.items():
@@ -6834,7 +7532,7 @@ def main() -> int:
             else f"  {name}: nvcc took {took:.2f} s")
     phases["build"] = time.monotonic() - t0
 
-    log("[3/15] kernel vs plain")
+    log("[3/16] kernel vs plain")
     t0 = time.monotonic()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
@@ -6844,7 +7542,7 @@ def main() -> int:
     quant_errors = quant_vs_plain()
     phases["kernel_vs_plain"] = time.monotonic() - t0
 
-    log("[4/15] timing at the main-path shapes")
+    log("[4/16] timing at the main-path shapes")
     t0 = time.monotonic()
     times = timing()
     flash_times = timing_flash()
@@ -6854,7 +7552,7 @@ def main() -> int:
     quant_times = timing_quant()
     phases["timing"] = time.monotonic() - t0
 
-    log("[5/15] engines: llama-3-8b, full width and depth, random weights")
+    log("[5/16] engines: llama-3-8b, full width and depth, random weights")
     t0 = time.monotonic()
     cfg = L.LLAMA_CONFIGS["llama-3-8b"]
     params = L.init_params(
@@ -6869,19 +7567,19 @@ def main() -> int:
     quant_rows = quant_engine_phase(params, cfg)
     phases["engine"] = time.monotonic() - t0
 
-    log("[6/15] HTTP")
+    log("[6/16] HTTP")
     t0 = time.monotonic()
     http_tokens = {"ragged": http_phase(engine, "ragged")}
     http_phase(alt_engine, "alternating")
     http_tokens["continuous"] = http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
-    log("[7/15] prefix and handoff")
+    log("[7/16] prefix and handoff")
     t0 = time.monotonic()
     prefix = prefix_phase(params, cfg, card)
     phases["prefix"] = time.monotonic() - t0
 
-    log("[8/15] speculation and multi-LoRA")
+    log("[8/16] speculation and multi-LoRA")
     t0 = time.monotonic()
     spec = spec_lora_phase(params, cfg, card, runs)
     # Phase 13 holds its tokens to phase 5's.
@@ -6891,7 +7589,7 @@ def main() -> int:
     del runs
     phases["spec_lora"] = time.monotonic() - t0
 
-    log("[9/15] checkpoint and observability")
+    log("[9/16] checkpoint and observability")
     t0 = time.monotonic()
     # Phases 5-8's engines and pools go first; the served weights stay.
     del engine, alt_engine, cont_engine
@@ -6900,7 +7598,7 @@ def main() -> int:
     ckpt = checkpoint_phase(params, cfg, card, http_tokens)
     phases["checkpoint"] = time.monotonic() - t0
 
-    log(f"[10/15] train: {', '.join(TRAIN_MODELS)}")
+    log(f"[10/16] train: {', '.join(TRAIN_MODELS)}")
     t0 = time.monotonic()
     # The serving model goes first: training needs ~66 GB.
     del params
@@ -6913,39 +7611,50 @@ def main() -> int:
     train_launches = trained["llama-3-8b"]
     phases["train"] = time.monotonic() - t0
 
-    log(f"[11/15] finetune: fp8 products, then {FT_MODEL}'s LoRA finetune "
+    log(f"[11/16] finetune: fp8 products, then {FT_MODEL}'s LoRA finetune "
         "and fp8 training, then examples/finetune_lora")
     t0 = time.monotonic()
     finetune = finetune_phase(card)
     phases["finetune"] = time.monotonic() - t0
 
-    log(f"[12/15] resume: SIGTERM to a child training {RESUME_MODEL} "
+    log(f"[12/16] resume: SIGTERM to a child training {RESUME_MODEL} "
         f"({RESUME_LAYERS} layers), then its emergency checkpoint restored "
         "on the card")
     t0 = time.monotonic()
     resume = resume_phase()
     phases["resume"] = time.monotonic() - t0
 
-    log(f"[13/15] tp: degree {TP_DEGREE} on the one card over gloo, then "
+    log(f"[13/16] tp: degree {TP_DEGREE} on the one card over gloo, then "
         "degree 1 over NCCL")
     t0 = time.monotonic()
     tp = tp_phase(p5)
     phases["tp"] = time.monotonic() - t0
 
-    log(f"[14/15] train_sharded: fsdp={TS_DEGREE} {TS_FSDP_MODEL} and "
+    log(f"[14/16] train_sharded: fsdp={TS_DEGREE} {TS_FSDP_MODEL} "
+        f"({TS_FSDP_LAYERS} layers) and "
         f"tp={TS_DEGREE} {TS_TP_MODEL} as gloo ranks on the one card, then "
         "examples/train_sharded over NCCL")
     t0 = time.monotonic()
     sharded = train_sharded_phase()
     phases["train_sharded"] = time.monotonic() - t0
 
-    log(f"[15/15] sp_pp_ep: {SP_REFERENCE['model']} at sp={SPP_DEGREE} "
+    log(f"[15/16] sp_pp_ep: {SP_REFERENCE['model']} "
+        f"({SP_REFERENCE.get('layers')} layers) at sp={SPP_DEGREE} "
         f"(ring, Ulysses, zigzag) and pp={SPP_DEGREE}, {SPP_MOE_MODEL} "
         f"({SPP_MOE_LAYERS} layers) at ep={SPP_DEGREE}, {TP_MODEL} served "
         f"at sp={SPP_DEGREE}, as gloo ranks on the one card")
     t0 = time.monotonic()
     spp = sp_pp_ep_phase(p5)
     phases["sp_pp_ep"] = time.monotonic() - t0
+
+    log(f"[16/16] fleet_mesh: the port's gateway in front of two serve_http "
+        f"replicas of {FLEET_MODEL} (fused, disagg, a scale-down), then "
+        f"{MESH_MODEL} ({MESH_LAYERS} layers) served at "
+        f"{', '.join(f'{k}={v}' for a in MESH_AXES for k, v in a.items())} "
+        "as gloo ranks on the one card")
+    t0 = time.monotonic()
+    fleet_mesh = fleet_mesh_phase(card)
+    phases["fleet_mesh"] = time.monotonic() - t0
 
     def entry(name, source, replaces, launched, errs, timed, **extra):
         return {
@@ -7149,6 +7858,20 @@ def main() -> int:
             spp["kernels"][t]["abs"] for t in {
                 "flash": ("flash",), "bwd_dq": ("dq",),
                 "bwd_dkv": ("dk", "dv")}[key])
+    # Phase 16 (b)'s runs, each rank's counts from 0 just before its
+    # engine, under each mesh.
+    for k in kernels:
+        key = {"ragged_paged_attention": "ragged",
+               "flash_attention": "flash",
+               "paged_decode_attention": "decode"}.get(k["name"])
+        if key is None or k.get("variant") == "int8":
+            continue
+        k["launches_mesh_per_rank"] = {
+            tag: fleet_mesh["mesh"][tag][
+                "ragged" if key == "ragged" else "alternating"]["launches"][
+                    key]
+            for tag in ("x".join(f"{a}{n}" for a, n in axes.items())
+                        for axes in MESH_AXES)}
     phases["total"] = time.monotonic() - t_start
     log(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     # The fp8 products are torch._scaled_mm, a library call that stands
@@ -7163,6 +7886,7 @@ def main() -> int:
     print(json.dumps({"tp": tp}))
     print(json.dumps({"train_sharded": sharded}))
     print(json.dumps({"sp_pp_ep": spp}))
+    print(json.dumps({"fleet_mesh": fleet_mesh}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -31,10 +31,12 @@ recording tracer installed it runs inside an ``engine.step`` span that
 carries ``last_step``. Each step ends in the readback of its sampled
 tokens, so the host's time covers the card's work too.
 
-``plan=`` (a pure-``tp`` MeshPlan, ``models/tp_serving.py``) makes the
-engine one rank of a tensor-parallel replica: the weights are this rank's
-shard (``MeshPlan.shard_params``), the cache holds the rank's kv heads,
-``(L, B, Hkv/tp, C, D)``, and every rank runs the same calls in lockstep.
+``plan=`` (a MeshPlan of tp, fsdp and dp, ``models/tp_serving.py``)
+makes the engine one rank of a sharded replica: the weights are this
+rank's shard (``MeshPlan.shard_params``; fsdp's pieces gathered where the
+forward uses them), the cache holds the rank's kv heads,
+``(L, B, Hkv/tp, C, D)``, and every rank runs the same calls in lockstep
+(the step replicated over dp and fsdp, as JAX's).
 What differs from JAX there: JAX refuses ``attn_kernel=True`` with a plan
 and defaults it off (its Pallas call is single-device under GSPMD); a
 rank's cache here is its own, so the dense kernel keeps its one-card

@@ -44,6 +44,7 @@ from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.bridge import _to_torch
 from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig, RopeScaling
 from kubeflow_tpu_torch.models.quant import QuantizedWeight
+from kubeflow_tpu_torch.parallel.mesh import placement_of
 
 
 def _rope_scaling_from_hf(raw: Any) -> Optional[RopeScaling]:
@@ -192,7 +193,7 @@ def _put(model: Llama, leaf: tuple, src: torch.Tensor, linear: bool,
          key: str, plan=None, whole: Optional[tuple] = None) -> None:
     """Copy ``src`` (HF layout, any device) into the model's leaf: to the
     model's device in its own dtype first, then converted and, for a
-    projection, transposed there. Under a tp ``plan`` the model is a
+    projection, transposed there. Under a ``plan`` the model is a
     rank's shard and ``whole`` the leaf's unsharded shape: ``src`` is cut
     to the rank's slice before the copy, so only the slice moves."""
     layer, name = leaf
@@ -304,10 +305,11 @@ def load_hf_checkpoint(path, dtype: Optional[torch.dtype] = None,
     tensor wins over an earlier one of the same name, tensors the model
     does not take are skipped). The model lands on ``device`` (the card
     unless ``"cpu"`` is asked for) in ``dtype`` (default bf16), and the
-    returned config carries that dtype. ``plan`` (a tp MeshPlan,
-    ``parallel/mesh.py``) loads this rank's shard alone: each tensor is
-    cut to the rank's slice as it is read, so a rank's device never holds
-    the whole model (the values are ``shard_params`` of the whole load)."""
+    returned config carries that dtype. ``plan`` (a MeshPlan of tp and
+    fsdp, ``parallel/mesh.py``) loads this rank's shard alone: each tensor
+    is cut to the rank's slice over both axes as it is read, so a rank's
+    device never holds a whole layer it does not own (the values are
+    ``shard_params`` of the whole load)."""
     path = pathlib.Path(path)
     cfg = config_from_hf(json.loads((path / "config.json").read_text()))
     shards = sorted(path.glob("*.safetensors"))
@@ -326,11 +328,9 @@ def load_hf_checkpoint(path, dtype: Optional[torch.dtype] = None,
     if plan is None:
         model = Llama(cfg, dev)
     else:
-        plan.check_serving()
-        model = Llama(plan.shard_config(cfg), dev)
-        model.cfg = cfg
-        whole = {name: tuple(p.shape)
-                 for name, p in Llama(cfg, "meta").named_parameters()}
+        model = plan.empty_shard(cfg, dev)
+        whole = {name: placement_of(p).global_shape
+                 for name, p in model.named_parameters()}
     todo: dict[pathlib.Path, list] = {}
     for key, leaf, linear in leaves:
         shard, size, base, entry = index[key]
@@ -354,6 +354,4 @@ def load_hf_checkpoint(path, dtype: Optional[torch.dtype] = None,
                     _put(model, leaf, src, linear, key, plan, whole.get(
                         name if layer is None else f"layers.{layer}.{name}"))
                     del src
-    if plan is not None:
-        plan.mark(model)
     return cfg, model

@@ -69,11 +69,13 @@ admission). ``_ragged_adapters`` (None here, ``models/multilora.py``
 overrides it) puts each slot's LoRA deltas into every ragged dispatch;
 an adapter salts a request's chain keys and rides its KV payloads.
 
-Tensor-parallel replicas (``plan=``, a ``parallel/mesh.py`` MeshPlan of
-pure ``tp``; ``models/tp_serving.py``): every rank of the replica runs
-this engine in lockstep on its own shard. The weights are cut by
-the caller (``init_params(plan=)``, ``load_hf_checkpoint(plan=)`` or
-``MeshPlan.shard_params``), the pool holds the rank's kv heads,
+Sharded replicas (``plan=``, a ``parallel/mesh.py`` MeshPlan of tp,
+fsdp and dp; ``models/tp_serving.py``): every rank of the replica runs
+this engine in lockstep on its own shard, the step replicated over dp
+and fsdp as JAX's is. The weights are cut by the caller
+(``init_params(plan=)``, ``load_hf_checkpoint(plan=)`` or
+``MeshPlan.shard_params``; fsdp's pieces gathered where the forward uses
+them), the pool holds the rank's kv heads,
 ``(L, NB, Hkv/tp, BS, D)``, and the forward sums and gathers over the tp
 group (``models/llama.py``). The host state (allocator, tables, chain
 keys, generator) is the same on every rank, because the inputs and the

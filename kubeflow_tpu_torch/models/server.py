@@ -46,8 +46,10 @@ head gather at the same token.
 
 Request lifecycle: ``max_queue_depth`` sheds with 429 + Retry-After
 without taking the engine lock (an import with no free slot or blocks
-sheds too); ``max_body_bytes`` caps Content-Length (413; a KV payload
-needs a raised cap); per-request deadlines retire the slot at the next
+sheds too); ``max_body_bytes`` caps Content-Length (413), and
+``max_kv_body_bytes`` the bodies that carry a KV payload (``kv_import``,
+``/kv/chain/import``: by default the gateway's 64 MiB transfer ceiling,
+so a decode-tier replica admits every payload a gateway sends); per-request deadlines retire the slot at the next
 step (504 with partial tokens); a client that disconnects cancels its
 requests; ``stop()`` drains for ``drain_s`` (503 to new submits) and then
 aborts stragglers; an engine failure aborts every waiting request and
@@ -178,6 +180,11 @@ def _client_gone(conn) -> bool:
         return conn.recv(1, socket.MSG_PEEK) == b""
     except (OSError, ValueError):
         return True
+
+
+# The gateway's default KUBEFLOW_TPU_KV_TRANSFER_MAX_BYTES: the largest
+# serialized KV payload it sends, and so what a replica admits in one.
+KV_TRANSFER_MAX_BYTES = 64 << 20
 
 
 def _read_body(handler, limit: int) -> bytes:
@@ -400,6 +407,7 @@ class InferenceServer:
                  tokenizer=None, model_name: str = "kubeflow-tpu",
                  max_queue_depth: int = 64,
                  max_body_bytes: int = 4 << 20,
+                 max_kv_body_bytes: int = KV_TRANSFER_MAX_BYTES,
                  default_deadline_s: Optional[float] = None,
                  max_deadline_s: Optional[float] = None,
                  drain_s: float = 5.0,
@@ -420,6 +428,7 @@ class InferenceServer:
         tracing.configure_from_env()
         self.max_queue_depth = max_queue_depth
         self.max_body_bytes = max_body_bytes
+        self.max_kv_body_bytes = max_kv_body_bytes
         self.default_deadline_s = default_deadline_s
         self.max_deadline_s = max_deadline_s
         self.drain_s = drain_s
@@ -633,6 +642,11 @@ class InferenceServer:
                     for q in self._queues.values():
                         q.put(abort)
                     return
+            # Python's lock is not fair: re-taken at once, it would starve
+            # the handlers waiting on it (/healthz, /stats, a cancel) until
+            # the batch drained. Giving up the thread here lets one in
+            # between two quanta.
+            time.sleep(0)
 
     def _inc(self, name: str) -> None:
         if self.metrics is not None:
@@ -1120,12 +1134,13 @@ class InferenceServer:
                                     or tracing.new_trace_id())
                     route(span)
 
-            def _kv_body(self, parse):
-                """Read and parse a /kv/* body: ``parse(req)`` returns
+            def _kv_body(self, parse, limit=None):
+                """Read and parse a /kv/* body (at most ``limit`` bytes,
+                ``max_body_bytes`` by default): ``parse(req)`` returns
                 what the hop needs. Answers 413 or 400 itself and returns
                 None then."""
                 try:
-                    body = _read_body(self, server.max_body_bytes)
+                    body = _read_body(self, limit or server.max_body_bytes)
                     return parse(json.loads(body or b"{}"))
                 except BodyTooLarge as err:
                     self._json(413, {"error": str(err)})
@@ -1195,7 +1210,7 @@ class InferenceServer:
                             "tokens must be a non-empty list of ints")
                     return tokens, req.get("payload")
 
-                parsed = self._kv_body(parse)
+                parsed = self._kv_body(parse, server.max_kv_body_bytes)
                 if parsed is None:
                     return
                 tokens, payload = parsed
@@ -1307,8 +1322,21 @@ class InferenceServer:
                     server._finish(rid)
 
             def _completions(self, span):
+                plain, kv = server.max_body_bytes, server.max_kv_body_bytes
+                req = None
                 try:
-                    body = _read_body(self, server.max_body_bytes)
+                    body = _read_body(self, max(plain, kv))
+                    if len(body) > min(plain, kv):
+                        # A body that carries a KV payload has its own cap.
+                        try:
+                            req = json.loads(body)
+                            carries = (isinstance(req, dict) and
+                                       req.get("kv_import") is not None)
+                        except ValueError:
+                            carries = False
+                        limit = kv if carries else plain
+                        if len(body) > limit:
+                            raise BodyTooLarge(len(body), limit)
                 except BodyTooLarge as err:
                     self._json(413, {"error": str(err)})
                     return
@@ -1316,7 +1344,8 @@ class InferenceServer:
                     self._json(400, {"error": str(err)})
                     return
                 try:
-                    req = json.loads(body or b"{}")
+                    if req is None:
+                        req = json.loads(body or b"{}")
                     kv_import = req.get("kv_import")
                     if kv_import is not None and not isinstance(
                             kv_import, dict):

@@ -1,25 +1,29 @@
-"""Tensor-parallel serving replicas: a replica is a MESH of ranks, not one
-card.
+"""Sharded serving replicas: a replica is a MESH of ranks, not one card.
 
 Counterpart of ``kubeflow_tpu/models/tp_serving.py``. The serving engines
 (``PagedBatcher`` ragged and alternating, ``ContinuousBatcher``, both
 speculative engines, ``MultiLoraPagedBatcher``) take a ``plan=`` MeshPlan
-of pure ``tp``: the weights are cut on the ``tp`` axis (attention heads,
-MLP hidden, vocab), the KV pool or cache holds the rank's kv heads (so a
-rank's pool bytes drop by the degree), and the forward runs the two
+over tp, fsdp and dp: the weights are cut on the ``tp`` axis (attention
+heads, MLP hidden, vocab) and on ``fsdp`` (their dim axis, gathered where
+each leaf is used), the KV pool or cache holds the rank's kv heads (so a
+rank's pool bytes drop by the tp degree), and the forward runs the two
 ``all_reduce`` s GSPMD inserts in JAX, after ``wo`` and after ``w_down``
-(``models/llama.py``). A tp=N replica gives the one-rank engine's tokens.
+(``models/llama.py``). As in JAX, the step is replicated over dp and fsdp:
+every rank of those axes computes the same batch (JAX's engines never
+place theirs with ``batch_sharding``). A replica of any such mesh gives
+the one-rank engine's tokens.
 
 What differs from JAX: the JAX replica is ONE process driving N devices.
 The port's is N processes, one rank and one device each, in lockstep.
 Every rank runs the same engine, its host bookkeeping included (the
 allocator, block tables, chain keys, the sampling generator); the inputs
 are the same everywhere and the logits are gathered to full width before
-sampling, so every rank takes the same host decisions. Rank 0 alone takes
-requests: ``TPReplica`` is its facade over the engine, and it mirrors
-each engine call that changes state (``submit``, ``cancel``,
-``drive_once``/``run``, the KV exports and imports, ``mark_kv_export``)
-to the other ranks before running the call itself, with one
+sampling, so every rank takes the same host decisions. The mesh's first
+rank alone takes requests (``leads``): ``TPReplica`` is its facade over
+the engine, and it mirrors each engine call that changes state
+(``submit``, ``cancel``, ``drive_once``/``run``, the KV exports and
+imports, ``mark_kv_export``) to every other rank of the mesh, over dp,
+fsdp and tp alike, before running the call itself, with one
 ``broadcast_object_list`` a call over a gloo CONTROL group (gloo on the
 CPU and on cards alike: host metadata, as vLLM keeps it). The other ranks
 sit in ``follow(engine, plan)``, the loop that replays those calls. Tensor
@@ -142,6 +146,13 @@ class LockstepClock:
 
     def __call__(self) -> float:
         return self.now
+
+
+def leads(plan: MeshPlan) -> bool:
+    """True on the replica's first rank, the one that answers over HTTP
+    through ``TPReplica``; every other rank of the mesh, over dp, fsdp and
+    tp alike, ``follow``s it."""
+    return _world()[1] == int(plan.mesh.ranks.reshape(-1)[0])
 
 
 def control_group(plan: MeshPlan):
@@ -275,7 +286,7 @@ class TPReplica:
 
     >>> params = init_params(cfg, gen, device, plan=plan)  # the rank's
     >>> eng = PagedBatcher(params, cfg, plan=plan, ...)   # every rank
-    >>> if plan.tp_rank == 0:
+    >>> if leads(plan):
     ...     srv = InferenceServer(TPReplica(eng, plan), port=8000).start()
     ... else:
     ...     follow(eng, plan)

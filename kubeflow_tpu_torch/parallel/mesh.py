@@ -49,10 +49,16 @@ What differs from JAX:
   shard: under a plan they take a shard (``check_shard``), cut once by
   the caller. The qkv biases (qwen2) are sliced with their projections'
   columns, where JAX replicates them and GSPMD slices the add.
-- Serving takes tp and sp: ``check_serving`` refuses dp/fsdp (ROADMAP
-  queue 1 item 12 (b)). Under sp only the continuous engine serves (its
-  cache cut over the sequence, ``shard_kv_cache(seq_over_sp=True)``); the
-  paged and speculative engines raise JAX's ``ValueError``s. Training
+- Serving takes every axis JAX's engines take, as GSPMD runs them: tp
+  cuts the heads, the MLP hidden and the vocab; fsdp cuts the weights'
+  dim axis, gathered where each leaf is used (``models/llama.py``
+  ``_whole``); the step itself is replicated over dp and fsdp (JAX's
+  engines never place their batch with ``batch_sharding``), so every rank
+  of a replica computes the same batch, and a pool or cache is cut over
+  tp alone (and over sp, below). Under sp only the continuous engine
+  serves (its cache cut over the sequence,
+  ``shard_kv_cache(seq_over_sp=True)``); the paged and speculative
+  engines raise JAX's ``ValueError``s. Training
   takes every axis: dp, fsdp and tp cut the Llama leaves (``param_spec``);
   sp cuts the batch's sequence (``batch_spec``, ``local_batch``) and
   leaves every leaf whole; pp and ep cut the pipeline's stages and the
@@ -459,15 +465,6 @@ class MeshPlan:
         return {name: self.placement(name, _global_shape(p))
                 for name, p in params.named_parameters()}
 
-    def check_serving(self) -> None:
-        """Refuse the axes serving does not shard yet."""
-        if any(self.mesh.shape.get(ax, 1) > 1 for ax in ("dp", "fsdp")):
-            raise NotImplementedError(
-                f"mesh {self.axes}: serving under a dp/fsdp mesh is not "
-                "ported to PyTorch yet (ROADMAP queue 1 item 12 (b)); "
-                "serve under a tp plan"
-            )
-
     def _check_divides(self, cfg) -> None:
         tp = self.tp
         for what, n in (("n_kv_heads", cfg.n_kv_heads),
@@ -556,8 +553,9 @@ class MeshPlan:
         PLACE, leaf by leaf (``cut``), and returned. The bridge's numpy
         tree (JAX's stacked layout; ``cfg`` required) becomes a new
         ``Llama`` on ``device`` built from the tp slices alone (serving's
-        path). Quantized weights raise ValueError
-        (``models/quant.refuse_sharding``) before any leaf is touched."""
+        path; tp and fsdp cut it alike). Quantized weights raise
+        ValueError (``models/quant.refuse_sharding``) before any leaf is
+        touched."""
         from kubeflow_tpu_torch.models import quant
         from kubeflow_tpu_torch.models.llama import Llama
 
@@ -565,7 +563,6 @@ class MeshPlan:
         if not isinstance(params, Llama):
             if cfg is None:
                 raise ValueError("sharding a numpy tree needs its cfg")
-            self.check_serving()
             return self._shard_tree(params, cfg, device)
         shard = getattr(params, "shard", None)
         if shard is not None:
@@ -579,22 +576,43 @@ class MeshPlan:
         return params
 
     def _shard_tree(self, tree: dict, cfg, device):
+        """A ``Llama`` of this rank's slices of the bridge's numpy tree:
+        each leaf is cut to its ``Placement`` on the host, so only the
+        slices reach ``device``."""
+        from kubeflow_tpu_torch.device import resolve_device
         from kubeflow_tpu_torch.models import bridge
 
-        self._check_divides(cfg)
-        local = {name: self.shard_leaf(name, value)
-                 for name, value in tree.items() if name != "layers"}
-        # Stacked layer leaves: the spec is over one layer, axis 0 is L.
-        local["layers"] = {
-            name: self._slice(value, self.param_spec(("layers", name),
-                                                     value.ndim - 1),
-                              offset=1)
-            for name, value in tree["layers"].items()
-        }
-        model = bridge.params_from_jax(local, self.shard_config(cfg),
-                                       device=device)
-        model.cfg = cfg
-        self.mark(model)
+        model = self.empty_shard(cfg, resolve_device(device))
+        want = {name: p for name, p in model.named_parameters()}
+        have = {name for name in tree if name != "layers"}
+        have |= {f"layers.{i}.{name}"
+                 for name, stacked in tree["layers"].items()
+                 for i in range(len(stacked))}
+        if have != set(want):
+            raise ValueError(
+                f"the tree's leaves do not match the config: missing "
+                f"{sorted(set(want) - have)}, unexpected "
+                f"{sorted(have - set(want))}")
+        with torch.no_grad():
+            for name, param in want.items():
+                path = name.split(".")
+                value = (tree[name] if len(path) == 1
+                         else tree["layers"][path[2]][int(path[1])])
+                if isinstance(value, dict):
+                    raise ValueError(
+                        f"{name}: a sharded serving tree takes plain "
+                        "array leaves")
+                pl = placement_of(param)
+                if tuple(value.shape) != pl.global_shape:
+                    raise ValueError(
+                        f"{name}: got {tuple(value.shape)}, the config "
+                        f"wants {pl.global_shape}")
+                piece = bridge._to_torch(pl.slice(value))
+                if piece.dtype != param.dtype:
+                    raise ValueError(
+                        f"{name}: got {piece.dtype}, the model wants "
+                        f"{param.dtype}")
+                param.copy_(piece)
         return model
 
     def shard_adapters(self, stacked: dict) -> dict:
@@ -614,15 +632,14 @@ class MeshPlan:
         return out
 
     def check_shard(self, params) -> None:
-        """Refuse weights that are not this plan's shard, and a plan
-        serving does not take. An engine under a plan takes the rank's
-        shard, cut once by its caller (``llama.init_params(plan=)``,
-        ``convert.load_hf_checkpoint(plan=)`` or ``shard_params``), and
-        never cuts the caller's model itself. Quantized weights raise
-        first, as in ``shard_params``."""
+        """Refuse weights that are not this plan's shard. An engine under
+        a plan takes the rank's shard, cut once by its caller
+        (``llama.init_params(plan=)``, ``convert.load_hf_checkpoint(plan=)``
+        or ``shard_params``) over tp and fsdp, and never cuts the caller's
+        model itself. Quantized weights raise first, as in
+        ``shard_params``."""
         from kubeflow_tpu_torch.models import quant
 
-        self.check_serving()
         quant.refuse_sharding(params)
         shard = getattr(params, "shard", None)
         if shard is None or shard.size != self.tp:
@@ -634,6 +651,16 @@ class MeshPlan:
                 "or load_hf_checkpoint(plan=), or cut them with "
                 "MeshPlan.shard_params"
             )
+        pl = placement_of(params.embed)
+        fsdp = int(self.mesh.shape.get("fsdp", 1))
+        have = 1 if pl is None else int(pl.mesh.shape.get("fsdp", 1))
+        if have != fsdp or (pl is not None
+                            and dict(pl.mesh.shape) != dict(self.mesh.shape)):
+            raise ValueError(
+                f"a plan of mesh {self.axes} takes this rank's shard of "
+                f"the weights, got one cut over fsdp={have}"
+                f"{'' if pl is None else f' on mesh {dict(pl.mesh.shape)}'}"
+                ": cut them under this plan")
 
     def check_kv_heads(self, hkv: int) -> None:
         """The kv-head rule of a head-sharded cache: tp must divide the kv

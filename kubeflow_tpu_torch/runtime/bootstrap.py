@@ -6,7 +6,9 @@ GPU node starts with
 
     from kubeflow_tpu_torch.runtime import bootstrap, install_preemption_handler
     rt = bootstrap()                      # torch.distributed when multi-host
-    ckpt = CheckpointManager(checkpoint_dir_from_env(), async_save=True)
+    ckpt = CheckpointManager(checkpoint_dir_from_env(), async_save=True,
+                             process_index=rt.rank,
+                             process_count=rt.world_size)
     install_preemption_handler(ckpt)      # SIGTERM → one final save
 
 What differs from JAX:

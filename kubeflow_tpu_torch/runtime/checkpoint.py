@@ -112,10 +112,23 @@ class CorruptCheckpointError(Exception):
 def process_identity_from_env(env: Optional[dict] = None) -> tuple:
     """(process_index, process_count) from the webhook's env contract, via
     the parser ``bootstrap`` uses. Touches no device and no process
-    group, so constructing a manager never does."""
+    group, so constructing a manager never does.
+
+    The port drives one card a process, so on a host of several cards the
+    pod's env names the host, not the rank: every card's process would
+    read the same ``proc<host>/`` root. There it raises ValueError; pass
+    the rank ``bootstrap`` returned (``process_index=rt.rank,
+    process_count=rt.world_size``)."""
     from kubeflow_tpu_torch.runtime.bootstrap import runtime_from_env
 
     rt = runtime_from_env(env)
+    if rt.cards_per_host > 1:
+        raise ValueError(
+            f"this host has {rt.cards_per_host} cards and the port drives "
+            "one a process, so the env alone does not say which rank this "
+            "is: construct the CheckpointManager with process_index="
+            "rt.rank, process_count=rt.world_size of bootstrap(local_rank"
+            "=...)")
     return rt.process_id, rt.num_workers
 
 
@@ -279,7 +292,6 @@ class CheckpointManager:
         # and a backwards jump mid-grace would start a save SIGKILL tears.
         self._clock = clock or time.monotonic
         self.directory = Path(directory).absolute()
-        self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max(1, int(max_to_keep))
         self.save_interval_steps = max(1, int(save_interval_steps))
         self.io = io or CheckpointIO()
@@ -288,6 +300,7 @@ class CheckpointManager:
             env_index, env_count = process_identity_from_env(env)
             process_index = env_index if process_index is None else process_index
             process_count = env_count if process_count is None else process_count
+        self.directory.mkdir(parents=True, exist_ok=True)
         self.process_index = int(process_index)
         self.process_count = max(1, int(process_count))
         if not 0 <= self.process_index < self.process_count:

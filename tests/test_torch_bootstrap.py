@@ -415,3 +415,105 @@ def test_four_gloo_processes_come_up_from_two_rendered_pods():
         assert got == {"rank": want, "world": 4, "rt_rank": want,
                        "process_id": pod, "mesh": {"dp": 4},
                        "sum": 6.0}
+
+
+# -- the checkpoint identity under one rank a card -----------------------------
+
+_CARD_SAVE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from kubeflow_tpu_torch.models import llama as L
+from kubeflow_tpu_torch.parallel.mesh import MeshPlan
+from kubeflow_tpu_torch.runtime import bootstrap
+from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
+env, local_rank, root = json.loads(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+
+def default_manager(name):
+    try:
+        CheckpointManager(root + "/" + name, env=env)
+        return "built"
+    except ValueError as err:
+        return str(err)
+
+before = default_manager("before")
+rt = bootstrap(env=env, device="cpu", local_rank=local_rank)
+after = default_manager("after")
+plan = MeshPlan(rt.mesh(fsdp=4))
+params = L.init_params(L.LLAMA_CONFIGS["tiny"],
+                       torch.Generator().manual_seed(0), "cpu", plan=plan)
+ckpt = CheckpointManager(root, process_index=rt.rank,
+                         process_count=rt.world_size)
+ckpt.save(1, {"params": params}, force=True)
+dist.barrier()
+print(json.dumps({"rank": rt.rank, "index": ckpt.process_index,
+                  "count": ckpt.process_count, "root": str(ckpt._root),
+                  "latest": ckpt.latest_step(), "before": before,
+                  "after": after}),
+      flush=True)
+dist.destroy_process_group()
+"""
+
+
+def test_four_card_ranks_raise_by_default_and_save_four_roots_by_rank(tmp_path):
+    """The four gloo ranks of two rendered 2-card pods (as the test above
+    starts them): a CheckpointManager built with no identity raises in
+    each, before ``bootstrap`` and after it, since the env names the host,
+    not the card, and makes no directory. Built with the rank and world
+    ``bootstrap`` returned, each saves an fsdp=4 state to its own
+    ``proc<rank>/``, and the one global step commits."""
+    port = _free_port()
+    envs = _rendered_pod_envs("16")
+    procs = {}
+    for pod, env in enumerate(envs):
+        env = dict(env, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   TPU_CHIPS_PER_HOST_BOUNDS="2,1,1")
+        for card in (0, 1):
+            procs[(pod, card)] = subprocess.Popen(
+                [sys.executable, "-c", _CARD_SAVE, str(ROOT),
+                 json.dumps(env), str(card), str(tmp_path)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env={**os.environ, "OMP_NUM_THREADS": "1"})
+    outs = {}
+    try:
+        for key, proc in procs.items():
+            out, err = proc.communicate(timeout=180)
+            assert proc.returncode == 0, err
+            outs[key] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    roots = set()
+    for (pod, card), got in outs.items():
+        want = pod * 2 + card
+        assert (got["rank"], got["index"], got["count"], got["latest"]) == (
+            want, want, 4, 1)
+        assert got["root"] == str(tmp_path / f"proc{want}")
+        for when in ("before", "after"):
+            assert "2 cards" in got[when] and "local_rank" in got[when]
+        roots.add(got["root"])
+        assert (tmp_path / f"proc{want}" / "1" / "manifest.json").exists()
+    assert len(roots) == 4
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        f"proc{r}" for r in range(4)]
+
+
+def test_a_default_manager_on_a_multi_card_host_raises(
+        tmp_path):
+    """A host of several cards gives no identity: the manager raises
+    rather than let its ranks share ``proc<host>/``. One card a host keeps
+    the env's identity, and an explicit identity is always taken."""
+    from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    env = _rendered_pod_envs("16")[1]
+    with pytest.raises(ValueError, match="8 cards"):
+        CheckpointManager(tmp_path / "a", env=env)
+    ckpt = CheckpointManager(tmp_path / "b", env=env, process_index=9,
+                             process_count=16)
+    assert (ckpt.process_index, ckpt.process_count) == (9, 16)
+    one = dict(env, TPU_CHIPS_PER_HOST_BOUNDS="1,1,1")
+    ckpt = CheckpointManager(tmp_path / "c", env=one)
+    assert (ckpt.process_index, ckpt.process_count) == (1, 2)

@@ -356,9 +356,9 @@ def test_continuous_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     monkeypatch.setattr(TC, "dense_decode_attention", dense)
     real_engine = smoke._cont_engine
 
-    def engine(params, cfg, attn_kernel=None, admit_chunk=None):
+    def engine(params, cfg, attn_kernel=None, admit_chunk=None, max_new=64):
         eng = real_engine(params, cfg, attn_kernel=False,
-                          admit_chunk=admit_chunk)
+                          admit_chunk=admit_chunk, max_new=max_new)
         if attn_kernel is not False:
             eng._attn_kernel = TC._kernel_block_size(eng.cache_len)
         return eng
@@ -1115,15 +1115,16 @@ def test_quant_engine_phase_rehearsed_on_the_cpu(smoke, no_card,
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
     real_engine, real_cont = smoke._engine, smoke._cont_engine
 
-    def engine(params, cfg, kv_bits, attn_kernel=None, ragged=True):
+    def engine(params, cfg, kv_bits, attn_kernel=None, ragged=True,
+               max_new=64):
         eng = real_engine(params, cfg, kv_bits, attn_kernel=False,
-                          ragged=ragged)
+                          ragged=ragged, max_new=max_new)
         eng.attn_kernel = attn_kernel is not False
         return eng
 
-    def cont(params, cfg, attn_kernel=None, admit_chunk=None):
+    def cont(params, cfg, attn_kernel=None, admit_chunk=None, max_new=64):
         eng = real_cont(params, cfg, attn_kernel=False,
-                        admit_chunk=admit_chunk)
+                        admit_chunk=admit_chunk, max_new=max_new)
         if attn_kernel is not False:
             eng._attn_kernel = TC._kernel_block_size(eng.cache_len)
         return eng
@@ -1437,18 +1438,19 @@ def test_checkpoint_writer_shards_read_back_equal(smoke, tmp_path):
 
 
 def test_phase_numbering_and_kernels_line_are_kept(smoke):
-    """Fifteen phases in order, the checkpoint phase ninth, the finetune
+    """Sixteen phases in order, the checkpoint phase ninth, the finetune
     phase eleventh, the resume phase twelfth, the tp phase thirteenth,
-    the train_sharded phase fourteenth and the sp_pp_ep phase last, and
-    the kernels line still naming every kernel of the port with all its
-    keys, after the sp_pp_ep line."""
+    the train_sharded phase fourteenth, the sp_pp_ep phase fifteenth and
+    the fleet_mesh phase last, and the kernels line still naming every
+    kernel of the port with all its keys, after the sp_pp_ep and
+    fleet_mesh lines."""
     import inspect
     import re
 
     main = inspect.getsource(smoke.main)
     assert re.findall(r'log\(f?"\[(\d+)/(\d+)\]', main) == [
-        (str(i), "15") for i in range(1, 16)]
-    assert '"[9/15] checkpoint and observability"' in main
+        (str(i), "16") for i in range(1, 17)]
+    assert '"[9/16] checkpoint and observability"' in main
     assert main.index("checkpoint_phase(") < main.index("train_phases(")
     assert main.index("train_phases(") < main.index("finetune_phase(")
     assert main.index("finetune_phase(") < main.index("resume_phase(")
@@ -1456,6 +1458,10 @@ def test_phase_numbering_and_kernels_line_are_kept(smoke):
     assert main.index("= tp_phase(") < main.index("= train_sharded_phase(")
     assert main.index("= train_sharded_phase(") < main.index(
         "= sp_pp_ep_phase(")
+    assert main.index("= sp_pp_ep_phase(") < main.index(
+        "= fleet_mesh_phase(")
+    assert main.index('print(json.dumps({"fleet_mesh": fleet_mesh}))') < (
+        main.index('print(json.dumps({"kernels": kernels}))'))
     assert 'print(json.dumps({"train_sharded": sharded}))' in main
     assert main.index('print(json.dumps({"sp_pp_ep": spp}))') < main.index(
         'print(json.dumps({"kernels": kernels}))')
@@ -1541,9 +1547,10 @@ def test_checkpoint_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
     real_engine, real_prompts = smoke._engine, smoke._prompts
 
-    def engine(params, cfg, kv_bits, attn_kernel=None, ragged=True):
+    def engine(params, cfg, kv_bits, attn_kernel=None, ragged=True,
+               max_new=64):
         eng = real_engine(params, cfg, kv_bits, attn_kernel=False,
-                          ragged=ragged)
+                          ragged=ragged, max_new=max_new)
         eng.attn_kernel = True
         return eng
 
@@ -2034,3 +2041,63 @@ def test_sp_pp_ep_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     assert set(out["kernels"]) == {"flash", "dq", "dk", "dv"}
     for part in ("sp", "pp", "ep", "serve"):
         assert len(out[part]["peak_gib"]) == 2
+
+
+def test_fleet_mesh_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
+    """Phase 16 on the CPU. (a) at ``tiny`` in bf16 (serve_http's dtype):
+    two ``serve_http --device cpu`` replicas behind the port's gateway,
+    fused (held to the first replica served directly, the shared-prefix
+    prompts on one replica with its prefix hits, one trace from the
+    gateway to the replica's prefill span), disagg over ``/kv/*`` and one
+    scale-down through ``SmokeProvisioner`` with a stream on each
+    replica. (b) at ``tiny`` in float32, cut to 2 layers: two gloo
+    children under fsdp=2 and dp=2 (which count no launches on the CPU),
+    held to the unsharded engines and to each other, an fsdp rank holding
+    half of each leaf fsdp cuts."""
+    monkeypatch.setattr(smoke, "SERVE_DEVICE", ["--device", "cpu"])
+    monkeypatch.setattr(smoke, "FLEET_MODEL", "tiny")
+    monkeypatch.setattr(smoke, "FLEET_SYSTEM", 64)
+    monkeypatch.setattr(smoke, "FLEET_OTHER", (24, 70))
+    monkeypatch.setattr(smoke, "FLEET_FLAGS", [
+        "--paged", "--slots", "4", "--num-blocks", "256", "--block-size",
+        "16", "--prompt-bucket", "128", "--max-new-tokens", "180"])
+    # tiny decodes fast on the CPU: streams long enough to be in flight
+    # through two autoscaler ticks (64 + 180 tokens fit its 256).
+    monkeypatch.setattr(smoke, "FLEET_STREAM_NEW", 180)
+    monkeypatch.setattr(smoke, "MESH_MODEL", "tiny")
+    monkeypatch.setattr(smoke, "MESH_DTYPE", "float32")
+    monkeypatch.setattr(smoke, "MESH_LAYERS", 2)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    out = smoke.fleet_mesh_phase("cpu")
+    fleet, mesh = out["fleet"], out["mesh"]
+    assert len(fleet["healthz_s"]) == 2
+    assert fleet["fused"]["trace"] == ["gateway.request", "gateway.route",
+                                       "server.request", "prefill"]
+    home = fleet["fused"]["home"]
+    assert fleet["fused"]["prefix_hits"][home] >= 8
+    assert [len(r) for r in fleet["fused"]["routes"].values()] == [6, 6]
+    assert len(fleet["disagg"]["handoffs"]) == 6
+    assert all(h["bytes"] > 0 for h in fleet["disagg"]["handoffs"])
+    down = fleet["scale_down"]
+    assert [d["action"] for d in down["decisions"]
+            if d["action"] in ("scale_down", "release")] == [
+        "scale_down", "release"]
+    assert down["victim"] != down["survivor"]
+    assert set(out["seconds"]) == {"fleet", "mesh", "total"}
+    cfg = dataclasses.replace(TL.LLAMA_CONFIGS["tiny"], dtype=torch.float32,
+                              n_layers=2)
+    fsdp, dp = mesh["fsdp2"], mesh["dp2"]
+    assert fsdp["embed_shape"] == [cfg.vocab_size, cfg.dim // 2]
+    assert fsdp["wq_shape"] == [cfg.dim // 2, cfg.dim]
+    assert dp["embed_shape"] == [cfg.vocab_size, cfg.dim]
+    assert dp["weight_bytes"] == [mesh["whole_weight_bytes"]] * 2
+    assert all(b < 0.55 * mesh["whole_weight_bytes"]
+               for b in fsdp["weight_bytes"])
+    for part in (fsdp, dp):
+        for kind in ("ragged", "alternating"):
+            assert part[kind]["launches"] == {"ragged": 0, "flash": 0,
+                                              "decode": 0}
+            assert part[kind]["forwards"] > 0
+            assert len(part[kind]["forks"]) == 2
+    assert fsdp["ragged"]["gathered_bytes_per_step"] > 0
+    assert dp["ragged"]["gathered_bytes_per_step"] == 0

@@ -194,3 +194,35 @@ def test_the_gpu_node_outputs_are_scanned_and_load_no_jax():
                           capture_output=True, text=True, timeout=120,
                           cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_fleet_modules_are_scanned_and_load_no_jax():
+    """The fleet (``models/gateway.py``, ``models/autoscaler.py``,
+    ``observability/signals.py`` and ``slo.py``) is in the scan above,
+    and importing it, or building a gateway with its telemetry plane and
+    autoscaler, loads nothing of JAX or the JAX package, whose same-named
+    JAX-free modules it copies."""
+    scanned = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for rel in ("models/gateway.py", "models/autoscaler.py",
+                "observability/signals.py", "observability/slo.py"):
+        assert f"kubeflow_tpu_torch/{rel}" in scanned, rel
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "from kubeflow_tpu_torch.models.gateway import ServingGateway\n"
+        "from kubeflow_tpu_torch.models.autoscaler import AutoscalerConfig\n"
+        "from kubeflow_tpu_torch.observability.signals import "
+        "FleetTelemetry\n"
+        "gw = ServingGateway([], port=0, telemetry=FleetTelemetry(),\n"
+        "                    autoscaler_config=AutoscalerConfig())\n"
+        "gw.probe_once()\n"
+        "assert gw.autoscaler is not None and gw.scale_up() is None\n"
+        "gw.stop()\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{NOT_AT_IMPORT!r}]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr

@@ -48,6 +48,7 @@ from kubeflow_tpu_torch.models import paged as TP
 from kubeflow_tpu_torch.models import server as TS
 from kubeflow_tpu_torch.models.serving import GenerationConfig as TGen
 from tests.test_torch_paged import _models
+from tests.torch_kv_race import wait_for_pool_writes
 
 BS = 8
 PROMPT = [5, 9, 17, 33, 2, 11, 44, 3, 8, 21]  # 10 tokens: 2 blocks
@@ -58,6 +59,13 @@ TIMEOUT = 60
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _jax_steps_wait_for_pool_writes(monkeypatch):
+    """The reference engine's step races its own pool writes
+    (tests/torch_kv_race.py): each waits for them first."""
+    wait_for_pool_writes(monkeypatch)
 
 
 @pytest.fixture(scope="module")
@@ -537,12 +545,16 @@ def test_kv_surface_answers_as_jax_s(f32_gqa):
 
 
 def test_oversized_kv_body_is_413(f32_gqa):
+    """A KV payload past the cap is refused with 413 on both routes that
+    take one. JAX's server has one cap, ``max_body_bytes``; the port caps
+    KV payloads by ``max_kv_body_bytes``."""
     payload = _prefill_payload(_jax(f32_gqa), LONG)
     size = len(json.dumps({"kv_import": payload}))
+    cap = {"jax": "max_body_bytes", "port": "max_kv_body_bytes"}
     codes = []
     for name in ("jax", "port"):
         srv = SERVERS[name](ENGINES[name](f32_gqa),
-                            max_body_bytes=size // 2).start()
+                            **{cap[name]: size // 2}).start()
         try:
             codes.append([_request(srv.port, path, body)[0]
                           for path, body in (
@@ -552,6 +564,41 @@ def test_oversized_kv_body_is_413(f32_gqa):
         finally:
             srv.stop()
     assert codes[1] == codes[0] == [413, 413]
+
+
+def test_a_kv_payload_has_its_own_body_cap(f32_gqa):
+    """The port's plain cap (``max_body_bytes``) does not bound a KV
+    payload: a decode-tier replica admits what the gateway sends, up to
+    ``max_kv_body_bytes`` (the gateway's transfer ceiling by default),
+    and decodes it as a fused server does. A body of the same size with
+    no payload is still refused with 413, as is a payload past its cap."""
+    payload = _prefill_payload(_port(f32_gqa), LONG)
+    body = {"kv_import": payload, "max_tokens": 4}
+    size = len(json.dumps(body))
+    srv = SERVERS["port"](_port(f32_gqa), max_body_bytes=size // 2).start()
+    assert srv.max_kv_body_bytes == TS.KV_TRANSFER_MAX_BYTES == 64 << 20
+    fused = SERVERS["port"](_port(f32_gqa)).start()
+    tight = SERVERS["port"](_port(f32_gqa), max_body_bytes=size // 2,
+                            max_kv_body_bytes=size - 1).start()
+    try:
+        code, raw = _request(srv.port, "/v1/completions", body)
+        assert code == 200, raw
+        got = json.loads(raw)["choices"][0]["tokens"]
+        want = json.loads(_request(fused.port, "/v1/completions",
+                                   {"prompt": LONG, "max_tokens": 4})[1])
+        assert got == want["choices"][0]["tokens"]
+        chain = _warm(_port(f32_gqa), LONG).export_chain(
+            prompt_chain_keys(LONG, BS))
+        chain_body = {"tokens": LONG, "payload": chain}
+        assert len(json.dumps(chain_body)) > size // 2
+        code, raw = _request(srv.port, "/kv/chain/import", chain_body)
+        assert code == 200, raw
+        padding = {"prompt": LONG, "max_tokens": 4, "pad": "x" * size}
+        assert _request(srv.port, "/v1/completions", padding)[0] == 413
+        assert _request(tight.port, "/v1/completions", body)[0] == 413
+    finally:
+        for s in (srv, fused, tight):
+            s.stop()
 
 
 def _status_codes(name, models, payload, stub):

@@ -57,6 +57,7 @@ from kubeflow_tpu_torch.models.bridge import (
 )
 from kubeflow_tpu_torch.models.serving import GenerationConfig as TGen
 from tests.test_torch_paged import _models
+from tests.torch_kv_race import wait_for_pool_writes
 
 ALL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 LCFG = dict(rank=4, targets=ALL)
@@ -69,6 +70,13 @@ TAGS = ["a0", "a1", None, "a1", "a0"]
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _jax_steps_wait_for_pool_writes(monkeypatch):
+    """The reference engine's step races its own pool writes
+    (tests/torch_kv_race.py): each waits for them first."""
+    wait_for_pool_writes(monkeypatch)
 
 
 def _adapter(jcfg, seed):

@@ -38,8 +38,7 @@ What is held, on every mesh:
 
 In this process: the port's ``batch_spec``, ``logits_spec`` and
 ``param_shardings`` specs are JAX's, ``batch_sharding`` gives JAX's rows,
-and the serving engines still refuse a dp/fsdp mesh (ROADMAP item 12
-(b)).
+and the serving engines take a dp or fsdp mesh (ROADMAP item 12 (b)).
 """
 
 from __future__ import annotations
@@ -500,9 +499,46 @@ def test_placement_replicas_count_the_ranks_holding_each_piece():
 
 
 def test_serving_still_refuses_a_dp_or_fsdp_mesh():
+    """Serving under a dp or fsdp mesh works (once refused, ROADMAP item
+    12 (b)): a dp=2 replica's rank holds the whole weights and serves the
+    one-rank engine's tokens with ``/stats``' mesh ``{"dp": 2}``; an
+    fsdp=2 rank's shard holds half of each leaf fsdp cuts and is taken,
+    whole weights are refused naming fsdp. (Serving through the fsdp
+    gathers runs on gloo ranks: tests/test_torch_mesh_serving.py.)"""
+    from kubeflow_tpu_torch.models.paged import PagedBatcher
+    from kubeflow_tpu_torch.models.serving import GenerationConfig
+
     _, tcfg = _cfgs()
-    params = TL.init_params(tcfg, device="cpu")
-    for axes in (dict(dp=2), dict(fsdp=2)):
-        plan = TM.MeshPlan(TM.make_mesh(**axes, devices=[0, 1]))
-        with pytest.raises(NotImplementedError, match=r"item 12 \(b\)"):
-            plan.check_shard(params)
+    whole = TL.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = [[5, 9, 17], [3, 41, 90, 7]]
+
+    def serve(params, plan=None):
+        eng = PagedBatcher(params, tcfg, gen=GenerationConfig(
+            max_new_tokens=4, eos_id=-1), slots=2, num_blocks=24,
+            block_size=8, prompt_bucket=16, ragged=True, plan=plan,
+            device="cpu")
+        rids = [eng.submit(p) for p in prompts]
+        out = eng.run()
+        return [out[r] for r in rids], eng.mesh_axes
+
+    dp = TM.MeshPlan(TM.make_mesh(dp=2, devices=[0, 1]))
+    shard = TL.init_params(tcfg, torch.Generator().manual_seed(0), "cpu",
+                           plan=dp)
+    dp.check_shard(shard)
+    assert all(torch.equal(a, b) for a, b in zip(whole.parameters(),
+                                                 shard.parameters()))
+    assert serve(shard, dp) == (serve(whole)[0], {"dp": 2})
+
+    fsdp = TM.MeshPlan(TM.make_mesh(fsdp=2, devices=[0, 1]))
+    with pytest.raises(ValueError, match="fsdp=1"):
+        fsdp.check_shard(dp.shard_params(TL.init_params(
+            tcfg, torch.Generator().manual_seed(0), "cpu")))
+    with pytest.raises(ValueError, match="whole weights"):
+        fsdp.check_shard(whole)
+    shard = TL.init_params(tcfg, torch.Generator().manual_seed(0), "cpu",
+                           plan=fsdp)
+    fsdp.check_shard(shard)
+    assert tuple(shard.embed.shape) == (tcfg.vocab_size, tcfg.dim // 2)
+    assert tuple(shard.layers[0].wq.shape) == (
+        tcfg.dim // 2, tcfg.n_heads * tcfg.head_dim)
+    assert torch.equal(shard.layers[0].wq, whole.layers[0].wq[:tcfg.dim // 2])

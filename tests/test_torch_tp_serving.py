@@ -86,6 +86,7 @@ from kubeflow_tpu_torch.models import tp_serving as TT
 from kubeflow_tpu_torch.models.bridge import params_from_jax, stacked_from_jax
 from kubeflow_tpu_torch.models.serving import GenerationConfig as TGen
 from kubeflow_tpu_torch.parallel import mesh as TM
+from tests.torch_kv_race import wait_for_pool_writes
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "torch_tp_worker.py"
@@ -103,6 +104,13 @@ LONG = [5, 9, 17, 33, 2, 11, 44, 3, 8, 21, 7, 250, 1, 99]
 # bf16 step ~0.008: a few steps of psum-order noise).
 NEAR_TIE = 0.02
 SPAWN_TIMEOUT = 600
+
+
+@pytest.fixture(autouse=True)
+def _jax_steps_wait_for_pool_writes(monkeypatch):
+    """The reference engine's step races its own pool writes
+    (tests/torch_kv_race.py): each waits for them first."""
+    wait_for_pool_writes(monkeypatch)
 
 
 @pytest.fixture(autouse=True)

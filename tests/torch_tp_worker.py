@@ -6,7 +6,9 @@ the spec names on the port's engines (every rank the same calls, in
 lockstep) and writes what it saw to ``spec["out"].<rank>.json``. Imports
 torch and the port only: the JAX reference runs in the pytest process.
 The ``serve`` scenario serves a replica over HTTP from rank 0 through
-``TPReplica`` (the other ranks ``follow``) until ``spec["stop"]`` exists.
+``TPReplica`` (the other ranks ``follow``) until ``spec["stop"]`` exists;
+``mesh`` runs the engines under dp and fsdp meshes
+(tests/test_torch_mesh_serving.py).
 """
 
 from __future__ import annotations
@@ -204,12 +206,84 @@ def scenario_handoff(spec, plan):
     return out
 
 
+def _mesh_plan(axes: dict):
+    from kubeflow_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+
+    return MeshPlan(make_mesh(**axes))
+
+
+def scenario_mesh(spec, _plan):
+    """f32 ``tiny-gqa`` on the engines under each of ``spec["meshes"]``
+    (dp and fsdp beside tp): tokens and logprobs, the rank's weight bytes,
+    the shard the bridge's numpy tree cuts against the model's own cut,
+    and an HF checkpoint loaded under the plan against its whole load."""
+    from kubeflow_tpu_torch.models import bridge
+    from kubeflow_tpu_torch.models.convert import load_hf_checkpoint
+    from kubeflow_tpu_torch.parallel.mesh import placement_of
+
+    prompts, name, out = spec["prompts"], "tiny-gqa", {}
+    for axes in spec["meshes"]:
+        plan = _mesh_plan(axes)
+        res = {"mesh_axes": plan.axes}
+        cfg, params = _model(spec, name, "f32", plan)
+        res["weight_bytes"] = sum(p.numel() * p.element_size()
+                                  for p in params.parameters())
+        res["ragged"] = _run(_ragged(spec, plan, name=name, dtype="f32"),
+                             prompts)
+        res["chunks"] = _run(_ragged(spec, plan, name=name, dtype="f32",
+                                     token_budget=4), prompts)
+        cfg, params = _model(spec, name, "f32", plan)
+        eng = PagedBatcher(
+            params, cfg, gen=_gen(spec["max_new"]), slots=2,
+            num_blocks=24, block_size=BS, prompt_bucket=16, plan=plan,
+            device="cpu")
+        res["alternating"] = _run(eng, prompts)
+        res["engine_mesh"] = eng.mesh_axes
+        res["pool_shape"] = {k: list(v.shape) for k, v in eng.pool.items()}
+        cfg, params = _model(spec, name, "f32", plan)
+        res["continuous"] = _run(ContinuousBatcher(
+            params, cfg, gen=_gen(spec["max_new"]), slots=2, cache_len=64,
+            prompt_bucket=16, plan=plan, device="cpu"), prompts)
+        cfg, params = _model(spec, name, "f32", plan)
+        dparams, dcfg = truncated_draft(params, cfg, 1)
+        res["spec"] = _run(SpeculativePagedBatcher(
+            params, cfg, dparams, dcfg, gen=_gen(spec["max_new"]), slots=2,
+            num_blocks=40, block_size=BS, prompt_bucket=16, k_spec=3,
+            ragged=True, token_budget=16, plan=plan, device="cpu"),
+            prompts)[0]
+        # The bridge's numpy tree cut by the plan = the model's own cut.
+        cfg, whole = _model(spec, name, "f32")
+        tree = bridge.params_to_numpy(whole)
+        cut = dict(_model(spec, name, "f32", plan)[1].named_parameters())
+        res["tree_cut"] = all(
+            torch.equal(p, cut[n]) and placement_of(p).global_shape
+            == placement_of(cut[n]).global_shape
+            for n, p in plan.shard_params(tree, cfg,
+                                          device="cpu").named_parameters())
+        # An HF checkpoint under the plan: each leaf the whole load's
+        # slice, and no leaf held whole where the plan cuts it.
+        _, full = load_hf_checkpoint(spec["hf"], dtype=torch.float32,
+                                     device="cpu")
+        _, mine = load_hf_checkpoint(spec["hf"], dtype=torch.float32,
+                                     device="cpu", plan=plan)
+        full = dict(full.named_parameters())
+        res["hf_leaves"] = {
+            n: [torch.equal(p, placement_of(p).slice(full[n])),
+                list(p.shape), list(full[n].shape)]
+            for n, p in mine.named_parameters()}
+        out["x".join(f"{k}{v}" for k, v in axes.items())] = res
+    return out
+
+
 def scenario_serve(spec, plan):
-    """A prefix-cache replica served from rank 0 through TPReplica."""
+    """A prefix-cache replica served from rank 0 through TPReplica (under
+    ``spec["mesh"]`` when given, else the tp plan)."""
     from kubeflow_tpu_torch.models.server import InferenceServer
 
-    engine = _legacy(spec, plan)
-    if plan.tp_rank != 0:
+    if spec.get("mesh"):
+        plan = _mesh_plan(spec["mesh"])
+    engine = _legacy(spec, plan, dtype=spec.get("serve_dtype", "bf16"))
+    if not TT.leads(plan):
         TT.follow(engine, plan)
         return {}
     replica = TT.TPReplica(engine, plan)
@@ -224,7 +298,8 @@ def scenario_serve(spec, plan):
 
 
 SCENARIOS = {"tokens": scenario_tokens, "f32": scenario_f32,
-             "handoff": scenario_handoff, "serve": scenario_serve}
+             "handoff": scenario_handoff, "serve": scenario_serve,
+             "mesh": scenario_mesh}
 
 
 def main() -> None:
