@@ -56,10 +56,13 @@ every kernel's launch count set to 0 just before it and read just after:
   three flash kernels as training, and ``examples/finetune_lora.py`` as a
   user runs it;
 - resuming after a preemption (``runtime/``): a child process, started
-  from the env of the single-card H100 pod the port renders for its
-  notebook (``webhook/gpu_env.py``, ``controller/notebook.py``), trains
-  ``gemma-2b`` on the card (the same three flash kernels a step) under
-  ``bootstrap`` and ``install_preemption_handler``, is sent SIGTERM and
+  from the env of the single-card H100 pod the port's controller loop
+  makes for its notebook (``k8s/``, ``webhook/gpu_env.py``,
+  ``controller/notebook.py``), trains ``gemma-2b`` on the card (the same
+  three flash kernels a step) under ``bootstrap`` and
+  ``install_preemption_handler``; the loop's culler (``controller/
+  culling.py``, its native prober built here) stops the idle notebook,
+  the reconciler scales it to 0, and the child is sent SIGTERM and
   emergency-saves its newest step; the step is restored on the card
   through ``MigrationOrchestrator`` and trained from;
 - sharded training (``models/train.py`` under a ``MeshPlan``):
@@ -212,7 +215,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    products (each trace read from its chrome trace);
 6. HTTP — 4 concurrent ``/v1/completions`` (2 streamed) against the
    server over each bf16 engine; streamed tokens must equal the blocking
-   response for the same prompt; then ``/stats`` and a clean stop;
+   response for the same prompt; then ``/stats`` and a clean stop. The
+   server mirrors into the port's ``Metrics`` bundle
+   (``metrics/metrics.py``, its own registry): after the stop,
+   ``/metrics`` is scraped from a ``MetricsServer`` and every
+   ``STATS_PARITY`` family the server mirrors (``SERVER_FAMILIES``: shed,
+   cancelled, deadline, drain, batch fill, stalls, prefix cache, swap,
+   speculation, LoRA) must equal its ``/stats`` value, or read 0 where
+   ``/stats`` has no such block;
 7. prefix and handoff — the rest of the paged engine on the same model,
    alternating engines of 8 slots, block 16, bucket 512, 64 new tokens:
    the prefix cache over a pool that evicts nothing (512 blocks) serves
@@ -236,7 +246,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    blocking response, ``/kv/probe`` counts the warmed prefix,
    ``/kv/chain`` → ``/kv/chain/import`` registers it on a cold server
    (whose completion then hits it), and ``/stats`` carries the
-   ``prefix_cache``, ``kv_swap`` and ``kv_handoff`` blocks. Smoke numbers,
+   ``prefix_cache``, ``kv_swap`` and ``kv_handoff`` blocks; each of the
+   four servers mirrors into a ``Metrics`` bundle of its own, held to its
+   ``/stats`` as in phase 6 after the stop. Smoke numbers,
    not a benchmark's, beside the card line: cold and prefix-hit admission
    seconds (median of 5), export and import seconds and MB of the
    500-token payload, swap-out and swap-in µs a block (medians);
@@ -352,17 +364,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``RESUME_LAYERS``; its checks do not depend on depth). MemAvailable
    and the free disk must each hold 2.5 × its train state (~5.8 GB: bf16
    params and two bf16 AdamW moments).
-   The child's pod is rendered first (``resume_pod``): a Notebook with
-   ``spec.gpu: {accelerator: h100, topology: "1"}`` and the checkpoint
-   grace (120 s) and directory annotations, through the port's
-   ``mutate_gpu_notebook`` and ``generate_statefulset``; ``nvidia.com/gpu``
-   must be "1" in limits and requests, the nodeSelector the h100 label,
-   the toleration ``nvidia.com/gpu``, and terminationGracePeriodSeconds
-   150. On the card, the card's ``total_memory`` must be at least 0.95 of
-   the catalog entry's 80 GiB.
+   The child's pod comes from the port's controller loop first
+   (``resume_pod``): a Notebook with ``spec.gpu: {accelerator: h100,
+   topology: "1"}`` and the checkpoint grace (120 s) and directory
+   annotations is created in a ``FakeCluster`` on a ``FakeClock`` whose
+   Notebook mutating hook is ``mutate_gpu_notebook``, over one node of
+   the card's catalog entry (``add_gpu_node_pool``), with ``FakeKubelet``,
+   ``NotebookReconciler`` and ``CullingReconciler`` under one
+   ``Manager`` and one ``Metrics`` bundle; the pod the kubelet made must
+   have ``nvidia.com/gpu`` "1" in limits and requests, the nodeSelector
+   the h100 label, the toleration ``nvidia.com/gpu``,
+   terminationGracePeriodSeconds 150, and be Running, and the Notebook's
+   ``status.gpu`` must read 1 ready host, "Healthy". On the card, the
+   card's ``total_memory`` must be at least 0.95 of the catalog entry's
+   80 GiB.
    A child (``python -c`` on ``resume_child``, its env the parent's with
-   pod 0's rendered env over it, the downward API's pod index filled in
-   as "0") calls ``bootstrap(expected_devices=<the rendered nvidia.com/gpu
+   that pod's container env over it, the downward API's pod index filled
+   in from its index label) calls ``bootstrap(expected_devices=<the rendered nvidia.com/gpu
    limit>)``, makes a ``CheckpointManager``
    in ``checkpoint_dir_from_env()`` (interval 100, async, keep 2),
    ``install_preemption_handler`` and trains the cut gemma-2b (B 1, S
@@ -372,7 +390,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``save`` call's wall (the host copy), the step's launches (2 × 4
    flash, 4 dQ, 4 dK/dV) and every leaf's digest on the card (the sum
    of its bytes, and of each byte times its position mod 2^31 − 1), then
-   waits in ``signal.pause()``. Sent SIGTERM, it must die of it (-15)
+   waits in ``signal.pause()``. With the child running,
+   ``notebook_create_total`` must read 1, ``tpu_slice_ready_seconds`` a
+   count of 1 and ``collect_running`` 1 card; then (``cull_pod``) a
+   loopback stub of Jupyter's ``/api/kernels`` and ``/api/terminals``
+   reports an idle kernel, the loop's clock moves past the culler's idle
+   time (``RESUME_IDLE_MIN``), the culler probes it through its DEV proxy
+   and sets the stop annotation, the reconciler scales the StatefulSet
+   to 0 and the kubelet deletes the pod: ``notebook_culling_total`` and
+   ``tpu_chips_reclaimed_total`` must read 1 and ``collect_running`` 0
+   cards, in one HTTP scrape of a ``MetricsServer``; the native prober
+   (``csrc/host/prober.cpp``, built with g++ here) probes the stub and
+   must fold to the Python prober's ``HostActivity``. The phase turns
+   that scale-to-0 into the child's SIGTERM: it must die of it (-15)
    within the grace + 5 s and under the pod's
    terminationGracePeriodSeconds, its log naming the emergency commit of
    step 3;
@@ -533,6 +563,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import http.server
 import io
 import json
 import math
@@ -556,7 +587,9 @@ from torch.nn import functional as F
 
 from kubeflow_tpu_torch.api import annotations as ann_mod
 from kubeflow_tpu_torch.api.notebook import Notebook
+from kubeflow_tpu_torch.controller import culling as culling_mod
 from kubeflow_tpu_torch.controller import notebook as controller_mod
+from kubeflow_tpu_torch.controller import prober as prober_mod
 from kubeflow_tpu_torch.data.loader import (
     TokenLoader,
     device_put_global,
@@ -639,6 +672,10 @@ from kubeflow_tpu_torch.runtime.migration import (
     MigrationOrchestrator,
 )
 from kubeflow_tpu_torch.webhook import gpu_env
+from kubeflow_tpu_torch import k8s as k8s_mod
+from kubeflow_tpu_torch.gpu import topology as gpu_topology
+from kubeflow_tpu_torch.metrics.metrics import STATS_PARITY, Metrics
+from kubeflow_tpu_torch.metrics.server import MetricsServer
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
@@ -3023,6 +3060,69 @@ def _post(port: int, body: dict, timeout: float = 300.0, headers=None):
 
 HTTP_PROMPTS = ((128000, 9906), (128000, 791))
 
+# The /stats path of each STATS_PARITY family a serving replica mirrors
+# into its metrics bundle (the gateway's kv_transfer and kv_peer families
+# aside). The queue-depth gauge is left out: the server sets it at each
+# submission, while /stats reads the queue as it stands.
+SERVER_FAMILIES = {
+    "tpu_serving_requests_shed_total": ("requests_shed",),
+    "tpu_serving_requests_cancelled_total": ("requests_cancelled",),
+    "tpu_serving_deadline_expired_total": ("deadline_expired",),
+    "tpu_serving_drain_seconds": ("drain_duration_s",),
+    "tpu_serving_ragged_batch_fill": ("ragged", "batch_fill"),
+    "tpu_engine_step_stall_total": ("engine_step_stalls",),
+    "tpu_serving_prefix_cache_hits_total": ("prefix_cache", "hits"),
+    "tpu_serving_prefix_cache_misses_total": ("prefix_cache", "misses"),
+    "tpu_serving_prefix_cache_evictions_total": ("prefix_cache",
+                                                 "evictions"),
+    "tpu_serving_prefix_cached_blocks": ("prefix_cache", "cached_blocks"),
+    "tpu_serving_kv_swap_out_total": ("kv_swap", "swap_out"),
+    "tpu_serving_kv_swap_in_total": ("kv_swap", "swap_in"),
+    "tpu_serving_kv_swap_restored_tokens_total": ("kv_swap",
+                                                  "restored_tokens"),
+    "tpu_serving_kv_swap_bytes": ("kv_swap", "swap_bytes"),
+    "tpu_serving_spec_accept_total": ("speculative", "accepted"),
+    "tpu_serving_spec_rounds_total": ("speculative", "rounds"),
+    "tpu_serving_lora_cache_hits_total": ("lora_cache", "hits"),
+    "tpu_serving_lora_cache_misses_total": ("lora_cache", "misses"),
+    "tpu_serving_lora_cache_evictions_total": ("lora_cache", "evictions"),
+}
+
+
+def check_metrics_mirror(srv, metrics, label: str) -> dict:
+    """After ``srv.stop()``: scrape ``metrics`` over HTTP from a
+    ``MetricsServer`` and hold every family of ``SERVER_FAMILIES`` to the
+    server's /stats: equal where /stats has the value (the batch fill at
+    /stats' 4 decimals), 0 where /stats has no such block. Returns
+    {family: value} of the families /stats has."""
+    ms = MetricsServer(metrics, port=0)
+    ms.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{ms.port}/metrics",
+                                    timeout=30) as resp:
+            text = resp.read().decode()
+    finally:
+        ms.stop()
+    stats = srv.stats()
+    seen = {}
+    for family, path in SERVER_FAMILIES.items():
+        check(STATS_PARITY.get(family) == path[-1],
+              f"{family} is not STATS_PARITY's {path[-1]}")
+        got = _sample(text, family)
+        node = stats
+        for key in path:
+            node = node.get(key) if isinstance(node, dict) else None
+        if node is None:
+            check(got == 0.0, f"{label}: {family} {got} with no /stats "
+                              f"{'.'.join(path)}")
+            continue
+        if family == "tpu_serving_ragged_batch_fill":
+            got = round(got, 4)
+        check(got == float(node), f"{label}: /metrics {family} {got} != "
+                                  f"/stats {'.'.join(path)} {node}")
+        seen[family] = got
+    return seen
+
 
 def http_phase(engine, label: str) -> dict:
     """Phase 6: 2 prompts × (blocking, streamed), all 4 at once. On the
@@ -3030,9 +3130,13 @@ def http_phase(engine, label: str) -> dict:
     floor; on the alternating and continuous ones every admission is one
     (1, 512) prefill and every step runs all 8 slots: either way a
     streamed copy and a blocking copy run at one width and must agree
-    token for token. Returns {prompt: tokens} (phase 9 is held to it)."""
+    token for token. The server mirrors into a port ``Metrics`` bundle;
+    after its stop, ``/metrics`` is scraped and each mirrored
+    ``STATS_PARITY`` family held to ``/stats``. Returns {prompt: tokens}
+    (phase 9 is held to it)."""
+    metrics = Metrics()
     srv = InferenceServer(engine, port=0, model_name="llama-3-8b",
-                          drain_s=30.0).start()
+                          metrics=metrics, drain_s=30.0).start()
     try:
         bodies = [{"prompt": list(p), "max_tokens": 16, "stream": stream}
                   for p in HTTP_PROMPTS for stream in (False, True)]
@@ -3051,6 +3155,9 @@ def http_phase(engine, label: str) -> dict:
             f"ttft_s={stats['ttft_s']} ragged={stats.get('ragged')}")
     finally:
         srv.stop()
+    mirrored = check_metrics_mirror(srv, metrics, label)
+    log(f"  {label}: /metrics equals /stats on {len(mirrored)} mirrored "
+        f"families: {json.dumps(mirrored)}")
     return {p: results[2 * i] for i, p in enumerate(HTTP_PROMPTS)}
 
 
@@ -3357,11 +3464,13 @@ def _kv_http_part(params, cfg) -> None:
     keys = _chain_keys(prompt)
     cap = 256 << 20
     swap = SWAP_BLOCKS * paged_mod._kv_block_bytes(cfg, 16)
+    bundles = {name: Metrics() for name in ("prefill", "decode", "fused",
+                                            "cold")}
     servers = {
         name: InferenceServer(
             _prefix_engine(params, cfg, num_blocks=128, **kw), port=0,
             model_name="llama-3-8b", drain_s=30.0, max_kv_body_bytes=cap,
-            tier_role=role).start()
+            tier_role=role, metrics=bundles[name]).start()
         for name, role, kw in (
             ("prefill", "prefill", {"prefix_cache": True,
                                     "swap_bytes": swap}),
@@ -3407,6 +3516,14 @@ def _kv_http_part(params, cfg) -> None:
     finally:
         for srv in servers.values():
             srv.stop()
+    mirrored = {name: check_metrics_mirror(srv, bundles[name], name)
+                for name, srv in servers.items()}
+    check(mirrored["cold"]["tpu_serving_prefix_cache_hits_total"]
+          == len(keys) and "tpu_serving_kv_swap_out_total"
+          in mirrored["prefill"], f"mirrored families {mirrored}")
+    log(f"  HTTP: /metrics equals /stats on "
+        f"{sum(map(len, mirrored.values()))} mirrored families over the "
+        f"four servers: {json.dumps(mirrored)}")
 
 
 def prefix_phase(params, cfg, card: str) -> dict:
@@ -5099,6 +5216,9 @@ RESUME_RESTORE_BUDGET_S = 600.0
 # on one H100 card.
 RESUME_POD = {"name": "resume", "namespace": "smoke",
               "gpu": {"accelerator": "h100", "topology": "1"}}
+# The culler's idle time (CULL_IDLE_TIME, minutes) in phase 12's loop; its
+# FakeClock is advanced past it once the child has saved its last step.
+RESUME_IDLE_MIN = 10
 # The card's memory against the catalog entry's HBM: at least this share.
 CARD_MEMORY_SHARE = 0.95
 RESUME_TAG = "resume-child "
@@ -5249,60 +5369,263 @@ def _mem_available() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
+class _JupyterStub:
+    """A loopback stand-in for the notebook's Jupyter server: GET
+    ``.../api/kernels`` and ``.../api/terminals`` return ``kernels`` and
+    ``terminals`` as JSON (404 while they are None)."""
+
+    def __init__(self):
+        self.kernels = self.terminals = None
+        self.requests = 0
+        stub = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (http.server API)
+                stub.requests += 1
+                payload = (stub.kernels if self.path.endswith("/api/kernels")
+                           else stub.terminals
+                           if self.path.endswith("/api/terminals") else None)
+                body = b"" if payload is None else json.dumps(
+                    payload).encode()
+                self.send_response(404 if payload is None else 200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.port = self.server.server_address[1]
+        self._thread = threading.Thread(target=self.server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self._thread.join(timeout=10)
+
+
 def resume_pod(ckpt_dir: str) -> dict:
-    """The pod the port renders for phase 12's notebook: ``RESUME_POD`` on
-    one h100 card with the checkpoint grace and directory annotations,
-    through ``mutate_gpu_notebook`` and ``generate_statefulset``. Checks
-    the card resource, the nodeSelector, the toleration and the grace
-    period, and returns {"env": pod 0's container env with the downward
-    API's pod index filled in, "expected_devices": the nvidia.com/gpu
-    limit, "termination_grace_s", "accelerator": the catalog entry,
-    "render_s"}."""
-    t0 = time.monotonic()
-    name = RESUME_POD["name"]
-    obj = {"apiVersion": "kubeflow.org/v1", "kind": "Notebook",
-           "metadata": {"name": name, "namespace": RESUME_POD["namespace"],
-                        "annotations": {
-                            ann_mod.TPU_CHECKPOINT_GRACE: str(RESUME_GRACE_S),
-                            ann_mod.TPU_CHECKPOINT_DIR: ckpt_dir}},
-           "spec": {"template": {"spec": {"containers": [
-               {"name": name, "image": "notebook"}]}},
-               "gpu": dict(RESUME_POD["gpu"])}}
-    nb = Notebook(gpu_env.mutate_gpu_notebook(obj))
-    topo = nb.gpu.slice_topology()
-    sts = controller_mod.generate_statefulset(
-        nb, topo, controller_mod.ControllerConfig())
-    pod = sts["spec"]["template"]["spec"]
-    (container,) = pod["containers"]
-    res = container["resources"]
-    gpu = controller_mod.GPU_RESOURCE
-    check(res["limits"].get(gpu) == res["requests"].get(gpu) == "1",
-          f"the pod's {gpu} resources: {res}")
-    check(pod["nodeSelector"] == {
-        "cloud.google.com/gke-accelerator": "nvidia-h100-80gb"},
-        f"the pod's nodeSelector: {pod['nodeSelector']}")
-    check(pod["tolerations"] == [{"key": gpu, "operator": "Exists",
-                                  "effect": "NoSchedule"}],
-          f"the pod's tolerations: {pod['tolerations']}")
-    grace = pod["terminationGracePeriodSeconds"]
-    check(grace == RESUME_GRACE_S + gpu_env.CHECKPOINT_FLUSH_MARGIN_S,
-          f"terminationGracePeriodSeconds {grace}")
-    check(sts["spec"]["replicas"] == 1, f"replicas {sts['spec']['replicas']}")
-    env = gpu_env.pod_env(container, 0)
-    check(env["TPU_WORKER_ID"] == "0"
-          and env[ann_mod.CHECKPOINT_GRACE_ENV_NAME] == str(RESUME_GRACE_S)
-          and env[ann_mod.CHECKPOINT_DIR_ENV_NAME] == ckpt_dir
-          and "JAX_COORDINATOR_ADDRESS" not in env,
-          f"the pod's env: {env}")
+    """The pod the port's controller loop makes for phase 12's notebook:
+    ``RESUME_POD`` on one h100 card with the checkpoint grace and
+    directory annotations, created in a ``FakeCluster`` (on a
+    ``FakeClock``) whose Notebook mutating hook is ``mutate_gpu_notebook``,
+    over one node of the card's catalog entry (``add_gpu_node_pool``),
+    with ``FakeKubelet``, ``NotebookReconciler`` and ``CullingReconciler``
+    (its Python prober through the DEV proxy, a loopback Jupyter stub)
+    under one ``Manager`` and one ``Metrics`` bundle. Checks the pod the
+    kubelet made: the card resource, the nodeSelector, the toleration,
+    the grace period, one replica, Ready; and the Notebook's
+    ``status.gpu`` Healthy with 1 ready host. Returns {"env": pod 0's
+    container env with its pod index filled in, "expected_devices": the
+    nvidia.com/gpu limit, "termination_grace_s", "accelerator": the
+    catalog entry, "render_s": Notebook create to Healthy, "loop": the
+    loop's objects}."""
+    name, ns = RESUME_POD["name"], RESUME_POD["namespace"]
+    card = gpu_topology.slice_from_spec("h100", "1")
+    clock = k8s_mod.FakeClock()
+    cluster = k8s_mod.FakeCluster(clock=clock)
+    cluster.register_mutating_webhook(
+        "Notebook", lambda req: gpu_env.mutate_gpu_notebook(req.object))
+    mgr = k8s_mod.Manager(cluster, clock=clock)
+    k8s_mod.FakeKubelet(cluster).register(mgr)
+    k8s_mod.add_gpu_node_pool(
+        cluster, card.gke_accelerator_label, card.topology_str, hosts=1,
+        cards_per_host=card.accelerator.chips_per_host)
+    metrics = Metrics(cluster)
+    controller_mod.NotebookReconciler(cluster, metrics=metrics,
+                                      clock=clock).register(mgr)
+    stub = _JupyterStub()
+    proxy = f"http://127.0.0.1:{stub.port}"
+    culler = culling_mod.CullingReconciler(
+        cluster, config=culling_mod.CullerConfig(
+            enable_culling=True, cull_idle_time_min=RESUME_IDLE_MIN,
+            dev_mode=True),
+        prober=prober_mod.make_prober(timeout_s=5.0, dev_proxy=proxy),
+        metrics=metrics, clock=clock)
+    culler.register(mgr)
+    loop = {"cluster": cluster, "clock": clock, "manager": mgr,
+            "metrics": metrics, "culler": culler, "stub": stub,
+            "proxy": proxy, "name": name, "namespace": ns}
+    try:
+        obj = {"apiVersion": "kubeflow.org/v1", "kind": "Notebook",
+               "metadata": {"name": name, "namespace": ns,
+                            "annotations": {
+                                ann_mod.TPU_CHECKPOINT_GRACE:
+                                    str(RESUME_GRACE_S),
+                                ann_mod.TPU_CHECKPOINT_DIR: ckpt_dir}},
+               "spec": {"template": {"spec": {"containers": [
+                   {"name": name, "image": "notebook"}]}},
+                   "gpu": dict(RESUME_POD["gpu"])}}
+        t0 = time.monotonic()
+        cluster.create(obj)
+        mgr.run_until_idle()
+        render_s = time.monotonic() - t0
+        check(not mgr.reconcile_errors, f"the loop: {mgr.reconcile_errors}")
+        sts = cluster.get("StatefulSet", name, ns)
+        pods = cluster.list("Pod", ns)
+        check(len(pods) == 1, f"the loop made {len(pods)} pods")
+        (pod,) = pods
+        spec = pod["spec"]
+        (container,) = spec["containers"]
+        res = container["resources"]
+        gpu = controller_mod.GPU_RESOURCE
+        check(res["limits"].get(gpu) == res["requests"].get(gpu) == "1",
+              f"the pod's {gpu} resources: {res}")
+        check(spec["nodeSelector"] == {
+            "cloud.google.com/gke-accelerator": "nvidia-h100-80gb"},
+            f"the pod's nodeSelector: {spec['nodeSelector']}")
+        check(spec["tolerations"] == [{"key": gpu, "operator": "Exists",
+                                       "effect": "NoSchedule"}],
+              f"the pod's tolerations: {spec['tolerations']}")
+        grace = spec["terminationGracePeriodSeconds"]
+        check(grace == RESUME_GRACE_S + gpu_env.CHECKPOINT_FLUSH_MARGIN_S,
+              f"terminationGracePeriodSeconds {grace}")
+        check(sts["spec"]["replicas"] == 1,
+              f"replicas {sts['spec']['replicas']}")
+        check(pod["status"].get("phase") == "Running"
+              and spec.get("nodeName"), f"the pod: {pod['status']}")
+        status = cluster.get("Notebook", name, ns)["status"]["gpu"]
+        check(status["readyHosts"] == 1 and status["sliceHealth"]
+              == "Healthy", f"the Notebook's status.gpu: {status}")
+        index = int(pod["metadata"]["labels"][gpu_env.POD_INDEX_LABEL])
+        env = gpu_env.pod_env(container, index)
+        check(env["TPU_WORKER_ID"] == "0"
+              and env[ann_mod.CHECKPOINT_GRACE_ENV_NAME] == str(RESUME_GRACE_S)
+              and env[ann_mod.CHECKPOINT_DIR_ENV_NAME] == ckpt_dir
+              and "JAX_COORDINATOR_ADDRESS" not in env,
+              f"the pod's env: {env}")
+    except BaseException:
+        stub.stop()
+        raise
+    topo = Notebook(cluster.get("Notebook", name, ns)).gpu.slice_topology()
     return {"env": env, "expected_devices": int(res["limits"][gpu]),
             "termination_grace_s": grace, "accelerator": topo.accelerator,
-            "render_s": time.monotonic() - t0}
+            "render_s": render_s, "loop": loop}
 
 
-def _run_resume_child(corpus: str, pod: dict, cfg_name: str) -> dict:
+def _sample(text: str, name: str) -> float:
+    """The value of the unlabelled sample ``name`` in an exposition."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"no sample {name} in the exposition")
+
+
+def cull_pod(loop: dict) -> dict:
+    """With the child running: the loop's metrics and status, then the
+    cull. The Jupyter stub reports one idle kernel (and no terminal), the
+    clock moves past the idle time, the culler probes through the DEV
+    proxy and sets the stop annotation, and the reconciler scales the
+    StatefulSet to 0 (the kubelet deletes the pod): what the phase turns
+    into the child's SIGTERM. Checks the counters, scrapes the whole
+    exposition once over HTTP from a ``MetricsServer``, and probes the
+    stub with the native prober (built with g++ here) against the Python
+    one. Returns the loop's numbers, "stopped_at" the monotonic time the
+    stop annotation landed."""
+    t_host = time.monotonic()
+    cluster, mgr, metrics = loop["cluster"], loop["manager"], loop["metrics"]
+    name, ns, clock = loop["name"], loop["namespace"], loop["clock"]
+    reg = metrics.registry
+    metrics.collect_running()
+    check(reg.get_sample_value("notebook_create_total") == 1.0
+          and reg.get_sample_value("tpu_slice_ready_seconds_count") == 1.0,
+          "notebook_create_total / tpu_slice_ready_seconds: "
+          f"{reg.get_sample_value('notebook_create_total')}, "
+          f"{reg.get_sample_value('tpu_slice_ready_seconds_count')}")
+    check(reg.get_sample_value("tpu_chips_in_use") == 1.0
+          and reg.get_sample_value("notebook_running") == 1.0,
+          f"collect_running counts {reg.get_sample_value('tpu_chips_in_use')}"
+          " cards")
+    idle_at = time.strftime("%Y-%m-%dT%H:%M:%S.000000Z",
+                            time.gmtime(clock.now() - 3600))
+    stub = loop["stub"]
+    stub.kernels = [{"id": "k0", "execution_state": "idle",
+                     "last_activity": idle_at}]
+    stub.terminals = []
+    culler, marks, probe_s = loop["culler"], {}, []
+    real_probe, real_cull = culler.prober.probe, culler._cull
+
+    def probe(nb, hosts):
+        t0 = time.monotonic()
+        try:
+            return real_probe(nb, hosts)
+        finally:
+            probe_s.append(time.monotonic() - t0)
+
+    def cull(*args):
+        real_cull(*args)
+        marks["stopped_at"] = time.monotonic()
+
+    culler.prober.probe, culler._cull = probe, cull
+    try:
+        mgr.tick(RESUME_IDLE_MIN * 60 + 61)
+    finally:
+        culler.prober.probe, culler._cull = real_probe, real_cull
+    check(not mgr.reconcile_errors, f"the loop: {mgr.reconcile_errors}")
+    nb = cluster.get("Notebook", name, ns)
+    check(ann_mod.STOP in nb["metadata"].get("annotations", {}),
+          "the culler set no stop annotation")
+    check(len(probe_s) == 1 and stub.requests == 2,
+          f"{len(probe_s)} probes, {stub.requests} stub requests")
+    sts = cluster.get("StatefulSet", name, ns)
+    check(sts["spec"]["replicas"] == 0 and not cluster.list("Pod", ns),
+          f"after the cull: replicas {sts['spec']['replicas']}, "
+          f"{len(cluster.list('Pod', ns))} pods")
+    check(nb["status"]["gpu"]["sliceHealth"] == "Stopped",
+          f"status.gpu after the cull: {nb['status']['gpu']}")
+    srv = MetricsServer(metrics, port=0)
+    srv.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/metrics",
+                                    timeout=30) as resp:
+            text = resp.read().decode()
+            ctype = resp.headers["Content-Type"]
+    finally:
+        srv.stop()
+    got = {k: _sample(text, k) for k in (
+        "notebook_culling_total", "tpu_chips_reclaimed_total",
+        "tpu_chips_in_use", "notebook_running", "notebook_create_total",
+        "tpu_slice_ready_seconds_count")}
+    check(got == {"notebook_culling_total": 1.0,
+                  "tpu_chips_reclaimed_total": 1.0, "tpu_chips_in_use": 0.0,
+                  "notebook_running": 0.0, "notebook_create_total": 1.0,
+                  "tpu_slice_ready_seconds_count": 1.0}
+          and ctype.startswith("text/plain; version=0.0.4"),
+          f"the scraped exposition: {got}, {ctype}")
+    host_s = time.monotonic() - t_host
+    t0 = time.monotonic()
+    prober_mod.load_lib()
+    build_s = time.monotonic() - t0
+    nbv = Notebook(nb)
+    native = prober_mod.NativeFanoutProber(timeout_s=5.0, port=stub.port)
+    python = culling_mod.JupyterHTTPProber(timeout_s=5.0,
+                                           dev_proxy=loop["proxy"])
+    t0 = time.monotonic()
+    got_native = [dataclasses.asdict(a)
+                  for a in native.probe(nbv, ["127.0.0.1"])]
+    native_s = time.monotonic() - t0
+    got_python = [dataclasses.asdict(a)
+                  for a in python.probe(nbv, ["127.0.0.1"])]
+    check(got_native == got_python and got_native[0]["reachable"]
+          and not got_native[0]["busy"]
+          and got_native[0]["last_activity"] is not None,
+          f"native prober {got_native} != Python prober {got_python}")
+    return {"probe_s": probe_s[0], "host_s": host_s,
+            "prober_build_s": build_s, "native_probe_s": native_s,
+            "stopped_at": marks["stopped_at"], "scrape_bytes": len(text),
+            "activity": got_native[0]}
+
+
+def _run_resume_child(corpus: str, pod: dict, cfg_name: str,
+                      on_saved=None) -> dict:
     """Start the child from the rendered pod's env, wait for its last
-    "saved" record, send SIGTERM and wait for its death: {"records",
-    "log", "returncode", "exit_s"}."""
+    "saved" record, call ``on_saved()`` (with the child alive; its result
+    is returned as "on_saved"), send SIGTERM and wait for its death:
+    {"records", "log", "returncode", "exit_s", "exited_at", "on_saved"}."""
     device = "" if DEVICE == "cuda" else DEVICE
     proc = subprocess.Popen(
         [sys.executable, "-c", RESUME_CHILD_CODE, corpus, cfg_name,
@@ -5336,6 +5659,8 @@ def _run_resume_child(corpus: str, pod: dict, cfg_name: str) -> dict:
               and records[-1]["step"] == RESUME_STEPS and proc.poll() is None,
               f"the child did not report step {RESUME_STEPS} (rc "
               f"{proc.poll()}): " + "\n".join(log_lines[-30:]))
+        saved_out = on_saved() if on_saved is not None else None
+        check(proc.poll() is None, "the child died before its SIGTERM")
         t0 = time.monotonic()
         proc.send_signal(signal.SIGTERM)
         try:
@@ -5343,7 +5668,8 @@ def _run_resume_child(corpus: str, pod: dict, cfg_name: str) -> dict:
         except subprocess.TimeoutExpired:
             check(False, "the child outlived SIGTERM by the grace + 5 s: "
                   + "\n".join(log_lines[-30:]))
-        exit_s = time.monotonic() - t0
+        exited_at = time.monotonic()
+        exit_s = exited_at - t0
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -5351,7 +5677,8 @@ def _run_resume_child(corpus: str, pod: dict, cfg_name: str) -> dict:
         for r in readers:
             r.join(timeout=30)
     return {"records": records, "log": log_lines,
-            "returncode": proc.returncode, "exit_s": exit_s}
+            "returncode": proc.returncode, "exit_s": exit_s,
+            "exited_at": exited_at, "on_saved": saved_out}
 
 
 def logged_seconds(lines: list, prefix: str) -> float:
@@ -5420,8 +5747,11 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
     (its save step finds nothing newer), holds every leaf's digest to the
     child's, reads the loader cursor back and trains one step from it,
     counting its launches. The child's env and its ``expected_devices``
-    come from the pod the port renders for the notebook (``resume_pod``);
-    its SIGTERM-to-exit seconds must stay under the pod's
+    come from the pod the port's controller loop makes for the notebook
+    (``resume_pod``); the loop's culler stops the notebook once the child
+    has saved (``cull_pod``), and the scale-to-0 it causes becomes the
+    child's SIGTERM. Its SIGTERM-to-exit seconds, and the stop
+    annotation's, must stay under the pod's
     terminationGracePeriodSeconds, and on the card the card's memory must
     hold ``CARD_MEMORY_SHARE`` of the catalog entry's HBM. Returns the
     phase's numbers."""
@@ -5433,6 +5763,7 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
     init_state, step_fn = train_mod.make_train_step(
         cfg, remat="full", loss_chunk=LOSS_CHUNK)
     tmp = tempfile.mkdtemp(prefix="resume-")
+    pod = None
     try:
         # The params and two AdamW moments like them; scalars aside.
         est = 3 * cfg.param_count() * torch.empty(
@@ -5464,13 +5795,29 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
                   f"{acc.hbm_gib_per_chip} GiB")
         log(f"  the child's pod: {pod['expected_devices']} nvidia.com/gpu, "
             f"terminationGracePeriodSeconds {pod['termination_grace_s']}, "
-            f"{len(pod['env'])} env entries, rendered in "
+            f"{len(pod['env'])} env entries; the controller loop took it "
+            f"from the Notebook's create to Healthy in "
             f"{pod['render_s']:.4f} s")
-        child = _run_resume_child(corpus, pod, cfg_name)
+        child = _run_resume_child(corpus, pod, cfg_name,
+                                  on_saved=lambda: cull_pod(pod["loop"]))
         init, saved = _check_child(child, n)
         check(child["exit_s"] < pod["termination_grace_s"],
               f"SIGTERM to exit {child['exit_s']:.3f} s, over the pod's "
               f"terminationGracePeriodSeconds {pod['termination_grace_s']}")
+        culled = child["on_saved"]
+        stop_to_exit = child["exited_at"] - culled["stopped_at"]
+        check(stop_to_exit < pod["termination_grace_s"],
+              f"stop annotation to exit {stop_to_exit:.3f} s, over the pod's "
+              f"terminationGracePeriodSeconds {pod['termination_grace_s']}")
+        log(f"  the loop: culled after {RESUME_IDLE_MIN} idle minutes on its "
+            f"clock, the culler's probe {culled['probe_s']:.4f} s through "
+            f"the DEV proxy, the stop annotation to the child's exit "
+            f"{stop_to_exit:.3f} s; the loop's host work "
+            f"{pod['render_s'] + culled['host_s']:.4f} s; the native prober "
+            f"built in {culled['prober_build_s']:.3f} s and probed the stub "
+            f"in {culled['native_probe_s']:.4f} s, folding to "
+            f"{culled['activity']} as the Python prober does; /metrics "
+            f"scraped once ({culled['scrape_bytes']} bytes)")
         emergency_s = logged_seconds(
             child["log"], f"emergency save: committed step {RESUME_STEPS}")
         first_s = logged_seconds(child["log"], "checkpoint step 1 committed")
@@ -5588,6 +5935,12 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
             "pod": {"expected_devices": pod["expected_devices"],
                     "termination_grace_s": pod["termination_grace_s"],
                     "render_s": pod["render_s"], "card": card},
+            "loop": {"render_to_ready_s": pod["render_s"],
+                     "cull_probe_s": culled["probe_s"],
+                     "stop_to_exit_s": stop_to_exit,
+                     "prober_build_s": culled["prober_build_s"],
+                     "native_probe_s": culled["native_probe_s"],
+                     "host_s": pod["render_s"] + culled["host_s"]},
         }
         log(f"  child: step walls "
             f"{[round(x, 4) for x in numbers['child_step_s']]} s, save() "
@@ -5615,6 +5968,8 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
         del state, params
         return numbers
     finally:
+        if pod is not None:
+            pod["loop"]["stub"].stop()
         shutil.rmtree(tmp, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,8 +1,10 @@
-"""The annotation keys and labels the GPU-node outputs read, with the env
-names they project into and the parsers admission uses.
+"""The annotation keys and labels the GPU-node outputs and the controller
+loop read, with the env names they project into and the parsers admission
+uses.
 
 The port's copy of the parts of ``kubeflow_tpu/api/annotations.py`` that
-the StatefulSet, the Services and the webhook's env projections read.
+the StatefulSet, the Services, the webhook's env projections, the
+reconciler and the culler read.
 Keys, labels and env names keep their JAX spellings
 (``notebooks.kubeflow.org/tpu-*``): the same Notebook objects carry them
 whichever package renders the pod.
@@ -25,6 +27,15 @@ TPU_RECOVERY_LAST_ESCALATION = (
     "notebooks.kubeflow.org/tpu-recovery-last-escalation")
 TPU_LAST_INTERRUPTION_DURATION = (
     "notebooks.kubeflow.org/tpu-last-interruption-duration")
+
+# Event re-emission cursor: the token of the newest pod Event already
+# surfaced onto this Notebook (one read a reconcile, no write to Events,
+# and it survives a controller restart because it lives on the Notebook).
+LAST_SEEN_EVENT_RV = "notebooks.kubeflow.org/last-seen-event-rv"
+
+# Istio routing overrides of the VirtualService (USE_ISTIO).
+REWRITE_URI = "notebooks.kubeflow.org/http-rewrite-uri"
+HEADERS_REQUEST_SET = "notebooks.kubeflow.org/http-headers-request-set"
 
 # The webhook records the resolved slice shape here.
 TPU_RESOLVED_TOPOLOGY = "notebooks.kubeflow.org/tpu-resolved-topology"

@@ -32,6 +32,8 @@ from kubeflow_tpu_torch.gpu.topology import (
     slice_from_spec,
 )
 
+GROUP = "kubeflow.org"  # the API group of Notebook and SlicePool
+
 # StatefulSet names above this length break the pods' hostnames.
 MAX_NAME_LENGTH = 52
 
@@ -65,6 +67,15 @@ class GPUSpec:
             spot=bool(d.get("spot", False)),
             slice_count=int(d.get("sliceCount", 1)),
         )
+
+    def to_dict(self) -> dict:
+        out: dict = {"accelerator": self.accelerator,
+                     "topology": self.topology}
+        if self.spot:
+            out["spot"] = True
+        if self.slice_count != 1:
+            out["sliceCount"] = self.slice_count
+        return out
 
 
 class Notebook:

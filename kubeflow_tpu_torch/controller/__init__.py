@@ -1,2 +1,5 @@
-"""Notebook → StatefulSet and Services on GPU nodes (``notebook.py``):
-the pure spec generators of ``kubeflow_tpu/controller``."""
+"""The Notebook controller on GPU nodes: the spec generators and the
+reconcile loop (``notebook.py``), its create-or-update helpers
+(``reconcilehelper.py``), the warm SlicePool (``slicepool.py``), the idle
+culler (``culling.py``) and its native prober (``prober.py``).
+Counterpart of ``kubeflow_tpu/controller``."""

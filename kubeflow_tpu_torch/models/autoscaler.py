@@ -32,10 +32,9 @@ Invariants:
 
 The provisioner is duck-typed (:class:`WarmSliceProvisioner` documents
 the contract), so a test or ``chip_smoke.py`` substitutes its own fleet. The
-default one scales up through ``ServingGateway.scale_up``, which needs a
-replica source. The port has none of its own yet: the reference's
-``WarmSliceReplicaSource`` claims through ``controller/slicepool.py``,
-which the port has not taken over (ROADMAP item 18).
+default one scales up through ``ServingGateway.scale_up``, which claims
+through the gateway's replica source: ``models/gateway.py``'s
+``WarmSliceReplicaSource`` over ``controller/slicepool.py``.
 
 Inert by default: the gateway builds one only when
 ``KUBEFLOW_TPU_AUTOSCALE_ENABLE`` opts in or a config is passed.

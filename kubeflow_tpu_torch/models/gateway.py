@@ -32,11 +32,9 @@ with or without a card, in front of replicas on the card.
   spans join the gateway's trace.
 
 Elastic capacity comes through a ``replica_source`` with an
-``acquire(now=)`` method. The reference's warm-slice source claims
-through ``controller/slicepool.py``, which the port has not taken over
-(ROADMAP item 18): ``scale_up`` with no source returns None, as the
-reference's does, and ``gateway_from_env`` refuses to enable the
-autoscaler without one.
+``acquire(now=)`` method: :class:`WarmSliceReplicaSource` claims a warm
+GPU slice through ``controller/slicepool.py``'s ``claim_warm_slice``, as
+the reference's does; ``scale_up`` with no source returns None.
 """
 
 from __future__ import annotations
@@ -56,7 +54,6 @@ from typing import Optional
 import numpy as np
 
 from kubeflow_tpu_torch.models.autoscaler import (
-    KUBEFLOW_TPU_AUTOSCALE_ENABLE,
     FleetAutoscaler,
     autoscaler_from_env,
 )
@@ -2003,16 +2000,96 @@ class ServingGateway:
         return Handler
 
 
+class WarmSliceReplicaSource:
+    """Elastic replica capacity through ``controller/slicepool.py``: the
+    port's own copy of the JAX package's source.
+
+    ``acquire`` claims one warm all-Ready placeholder slice via the SAME
+    ``claim_warm_slice`` path notebook spawns use: a hit deletes the
+    placeholder StatefulSet (releasing its chips for the replica's pods)
+    and stamps LAST_CLAIM on the owning pool; a miss stamps the
+    LAST_MISS/MISS_COUNT demand annotations every matching autoscaled
+    pool reads — so a gateway scaling up under load is itself the demand
+    signal that grows the pool. The replica's lifecycle closes the loop
+    the other way: draining flips its healthz, the gateway drops it from
+    the ring, and the slice returns to the pool.
+
+    Hardened for autoscaler claim storms: every ``acquire`` runs under
+    a bounded wall-clock deadline (``claim_deadline_s`` — an apiserver
+    crawling through conflict retries must not wedge the control loop),
+    and attempts/failures/latency are counted for the gateway's /stats
+    ``warm_claims`` block. The conflict-prone slicepool status writes
+    themselves already go through ``retry_on_conflict``.
+    """
+
+    def __init__(self, client, namespace: str, topo,
+                 recorder=None, notebook=None,
+                 claim_deadline_s: float = 5.0):
+        if claim_deadline_s <= 0:
+            raise ValueError(
+                f"claim_deadline_s must be > 0, got {claim_deadline_s}"
+            )
+        self.client = client
+        self.namespace = namespace
+        self.topo = topo
+        self.recorder = recorder
+        self.notebook = notebook
+        self.claim_deadline_s = claim_deadline_s
+        self._lock = threading.Lock()
+        self._attempts = 0
+        self._failures = 0
+        self._last_latency_s = 0.0
+        self._latency_total_s = 0.0
+
+    def acquire(self, now: Optional[float] = None,
+                pools: Optional[list] = None) -> Optional[str]:
+        from kubeflow_tpu_torch.controller.slicepool import claim_warm_slice
+
+        with self._lock:
+            self._attempts += 1
+        t0 = time.perf_counter()
+        try:
+            pool = claim_warm_slice(
+                self.client, self.namespace, self.topo,
+                recorder=self.recorder, notebook=self.notebook,
+                now=now if now is not None else time.time(), pools=pools,
+                deadline=t0 + self.claim_deadline_s,
+            )
+        except Exception:
+            with self._lock:
+                self._failures += 1
+                self._last_latency_s = time.perf_counter() - t0
+                self._latency_total_s += self._last_latency_s
+            raise
+        with self._lock:
+            self._last_latency_s = time.perf_counter() - t0
+            self._latency_total_s += self._last_latency_s
+            if pool is None:
+                self._failures += 1
+        return pool
+
+    def stats(self) -> dict:
+        """The gateway /stats ``warm_claims`` block (STATS_PARITY
+        surface for the tpu_autoscaler_claim_* families)."""
+        with self._lock:
+            return {
+                "claim_attempts": self._attempts,
+                "claim_failures": self._failures,
+                "claim_latency_s": round(self._last_latency_s, 6),
+                "claim_latency_total_s": round(self._latency_total_s, 6),
+                "claim_deadline_s": self.claim_deadline_s,
+            }
+
+
 def gateway_from_env(metrics=None, replica_source=None) -> ServingGateway:
     """Build an (unstarted) gateway from the KUBEFLOW_TPU_GATEWAY_* env
     contract. Raises on garbage — a hand-set env var must not silently
     fall back to defaults.
 
     With ``KUBEFLOW_TPU_AUTOSCALE_ENABLE`` on, the autoscaler scales up
-    through ``replica_source``. The reference builds its warm-slice source
-    over ``controller/slicepool.py``, which the port has not taken over
-    (ROADMAP item 18), so without a source passed in this raises instead
-    of serving a fleet that cannot grow."""
+    through ``replica_source`` (a :class:`WarmSliceReplicaSource`, say);
+    without one it is built all the same and ``scale_up`` returns None,
+    as the reference's does."""
     import os
 
     def _int(name: str, default: int, minimum: int) -> int:
@@ -2100,12 +2177,6 @@ def gateway_from_env(metrics=None, replica_source=None) -> ServingGateway:
             f"want a number > 0"
         )
     kv_peer_max_bytes = _int(KUBEFLOW_TPU_KV_PEER_MAX_BYTES, 64 << 20, 1)
-    if replica_source is None and autoscaler_from_env() is not None:
-        raise ValueError(
-            f"{KUBEFLOW_TPU_AUTOSCALE_ENABLE} is on but no replica_source was "
-            f"given: the warm-slice replica source needs the port of "
-            f"controller/slicepool.py (ROADMAP item 18)"
-        )
     return ServingGateway(
         replicas=replicas, port=port, affinity=affinity, hash_seed=seed,
         reroute_budget=budget, metrics=metrics,

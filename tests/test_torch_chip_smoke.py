@@ -1763,6 +1763,21 @@ def test_resume_pod_is_the_rendered_single_card_pod(smoke):
         "TPU_ACCELERATOR_TYPE": "h100-80gb-1", "TPU_TOPOLOGY": "1"}
     assert env["TPU_WORKER_HOSTNAMES"] == (
         "resume-0.resume-hosts.smoke.svc.cluster.local")
+    # The pod is the one the controller loop's kubelet made, and the
+    # Notebook it mirrors is Healthy.
+    loop = pod["loop"]
+    try:
+        c = loop["cluster"]
+        (made,) = c.list("Pod", "smoke")
+        assert made["metadata"]["name"] == "resume-0"
+        assert made["spec"]["nodeName"] == "gpu-node-1-0"
+        status = c.get("Notebook", "resume", "smoke")["status"]
+        assert status["gpu"] == {"hosts": 1, "readyHosts": 1,
+                                 "sliceHealth": "Healthy",
+                                 "acceleratorType": "h100-80gb-1"}
+        assert not loop["manager"].reconcile_errors
+    finally:
+        loop["stub"].stop()
 
 
 @pytest.mark.parametrize("gpu,match", [
@@ -1774,6 +1789,78 @@ def test_resume_pod_refuses_another_pod(smoke, monkeypatch, gpu, match):
     monkeypatch.setitem(smoke.RESUME_POD, "gpu", gpu)
     with pytest.raises((AssertionError, ValueError), match=match):
         smoke.resume_pod("/ckpt")
+
+
+def test_cull_pod_culls_and_scales_the_notebook_to_zero(smoke):
+    """Phase 12's loop after the child's last save, on the CPU: the
+    counters, the idle kernel the stub reports, the cull through the DEV
+    proxy, replicas 0 and no pod, the scrape, and the native prober's
+    fold equal to the Python prober's."""
+    pod = smoke.resume_pod("/ckpt")
+    loop = pod["loop"]
+    try:
+        got = smoke.cull_pod(loop)
+        reg = loop["metrics"].registry
+        assert reg.get_sample_value("notebook_culling_total") == 1.0
+        assert reg.get_sample_value("tpu_chips_reclaimed_total") == 1.0
+        assert reg.get_sample_value("tpu_chips_in_use") == 0.0
+        assert got["activity"]["reachable"] and not got["activity"]["busy"]
+        assert got["probe_s"] > 0 and got["stopped_at"] > 0
+        # The culler's two, the native prober's two and the Python one's.
+        assert loop["stub"].requests == 6
+        events = [e["message"] for e in loop["cluster"].list("Event",
+                                                             "smoke")
+                  if e["reason"] == "NotebookCulled"]
+        assert len(events) == 1 and events[0].endswith(
+            "released 1 GPU cards")
+    finally:
+        loop["stub"].stop()
+
+
+def test_cull_pod_fails_when_the_idle_time_is_not_reached(smoke,
+                                                          monkeypatch):
+    pod = smoke.resume_pod("/ckpt")
+    try:
+        # The culler keeps its 10 minutes; the clock moves 2.
+        monkeypatch.setattr(smoke, "RESUME_IDLE_MIN", 1)
+        with pytest.raises(AssertionError, match="no stop annotation"):
+            smoke.cull_pod(pod["loop"])
+    finally:
+        pod["loop"]["stub"].stop()
+
+
+class _StatsServer:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def stats(self):
+        return self._stats
+
+
+def test_check_metrics_mirror_holds_each_family_to_stats(smoke):
+    from kubeflow_tpu_torch.metrics.metrics import Metrics
+
+    m = Metrics()
+    m.serving_requests_shed_total.inc(2)
+    m.serving_ragged_batch_fill.set(0.123456)
+    m.serving_drain_seconds.set(0.5)
+    m.serving_prefix_cache_hits_total.inc(24)
+    stats = {"requests_shed": 2, "requests_cancelled": 0,
+             "deadline_expired": 0, "drain_duration_s": 0.5,
+             "ragged": {"batch_fill": 0.1235}, "engine_step_stalls": 0,
+             "prefix_cache": {"hits": 24, "misses": 0, "evictions": 0,
+                              "cached_blocks": 0}}
+    got = smoke.check_metrics_mirror(_StatsServer(stats), m, "t")
+    assert got["tpu_serving_prefix_cache_hits_total"] == 24.0
+    assert got["tpu_serving_ragged_batch_fill"] == 0.1235
+    assert "tpu_serving_kv_swap_out_total" not in got
+    assert set(smoke.SERVER_FAMILIES) <= set(smoke.STATS_PARITY)
+    bad = dict(stats, requests_shed=3)
+    with pytest.raises(AssertionError, match="requests_shed"):
+        smoke.check_metrics_mirror(_StatsServer(bad), m, "t")
+    m.serving_kv_swap_out_total.inc()  # no kv_swap block: must read 0
+    with pytest.raises(AssertionError, match="kv_swap_out"):
+        smoke.check_metrics_mirror(_StatsServer(stats), m, "t")
 
 
 def _digest_by_numpy(t: torch.Tensor, prime: int) -> list:

@@ -532,19 +532,21 @@ def test_env_parsers_match_jax(monkeypatch, env):
 
 def test_gateway_from_env_with_autoscaling_needs_a_replica_source(
         monkeypatch):
-    """With the autoscaler on from the env and no replica source, the port
-    refuses to build the gateway, naming the missing warm-slice source;
-    JAX builds one that can never scale up. Given a source, both build the
-    same gateway, and ``scale_up`` with no source returns None in both."""
+    """With the autoscaler on from the env and no replica source, both
+    packages build a gateway whose autoscaler can never scale up
+    (``scale_up`` returns None), as JAX's does; the port's warm-slice
+    source is ``WarmSliceReplicaSource`` (tests/test_torch_slicepool.py).
+    Given a source, both build the same gateway, and ``scale_up`` with no
+    source returns None in both."""
     monkeypatch.setenv("KUBEFLOW_TPU_AUTOSCALE_ENABLE", "1")
     monkeypatch.setenv("KUBEFLOW_TPU_GATEWAY_PORT", "0")
-    with pytest.raises(ValueError, match=r"slicepool.*item 18"):
-        PG.gateway_from_env()
-    jgw = JG.gateway_from_env()
-    try:
-        assert jgw.autoscaler is not None and jgw.scale_up() is None
-    finally:
-        jgw.stop()
+    for mod in (JG, PG):
+        gw = mod.gateway_from_env()
+        try:
+            assert gw.autoscaler is not None and gw.scale_up() is None
+            assert gw.replica_source is None
+        finally:
+            gw.stop()
 
     class Source:
         def __init__(self):

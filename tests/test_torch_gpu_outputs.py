@@ -18,7 +18,8 @@ applied to the JAX side:
   slice's, and so does the resolved-topology annotation, which is
   ``<TPU_ACCELERATOR_TYPE>/<TPU_TOPOLOGY>``.
 
-Nothing else may differ. Also here: ``inject_gpu_env``'s idempotence and
+Nothing else may differ. ``_swap`` lives in ``tests/torch_gpu_swap.py``,
+beside the controller loop's extension of it. Also here: ``inject_gpu_env``'s idempotence and
 its shrink to one host, the annotation projections against JAX's, the
 catalog's counts and errors in JAX's wording, the spec's refusals and
 schema, and ``runtime_from_env`` over each pod's rendered env against
@@ -50,6 +51,8 @@ from kubeflow_tpu_torch.controller import notebook as PC
 from kubeflow_tpu_torch.gpu import topology as PT
 from kubeflow_tpu_torch.runtime import env as PE
 from kubeflow_tpu_torch.webhook import gpu_env as PW
+from tests.torch_gpu_swap import SWAPPED_ENV
+from tests.torch_gpu_swap import swap as _swap
 
 JB = importlib.import_module("kubeflow_tpu.runtime.bootstrap")
 PB = importlib.import_module("kubeflow_tpu_torch.runtime.bootstrap")
@@ -135,50 +138,6 @@ def _render(case):
         "headless": PC.generate_headless_service(pnb, ptopo),
     }
     return jax, port, jtopo, ptopo
-
-
-SWAPPED_ENV = ("TPU_ACCELERATOR_TYPE", "TPU_TOPOLOGY",
-               "TPU_CHIPS_PER_HOST_BOUNDS", "TPU_HOST_BOUNDS")
-
-
-def _swap(tree, jtopo, ptopo):
-    """The stated replacement, applied to a copy of a JAX output."""
-    values = {
-        "TPU_ACCELERATOR_TYPE": ptopo.accelerator_type,
-        "TPU_TOPOLOGY": ptopo.topology_str,
-        "TPU_CHIPS_PER_HOST_BOUNDS": ptopo.chip_bounds_str(),
-        "TPU_HOST_BOUNDS": ptopo.host_bounds_str(),
-    }
-    resolved = (f"{jtopo.accelerator_type}/{jtopo.topology_str}",
-                f"{ptopo.accelerator_type}/{ptopo.topology_str}")
-
-    def walk(node):
-        if isinstance(node, list):
-            return [walk(x) for x in node]
-        if not isinstance(node, dict):
-            return node
-        out = {}
-        for key, value in node.items():
-            if key in ("limits", "requests") and "google.com/tpu" in value:
-                assert value["google.com/tpu"] == str(jtopo.chips_per_host)
-                value = {k: v for k, v in value.items()
-                         if k != "google.com/tpu"}
-                value["nvidia.com/gpu"] = str(ptopo.chips_per_host)
-            elif key == "nodeSelector":
-                value = {k: v for k, v in value.items()
-                         if k not in jtopo.node_selector()}
-                value.update(ptopo.node_selector())
-            elif key == JA.TPU_RESOLVED_TOPOLOGY:
-                assert value == resolved[0]
-                value = resolved[1]
-            out[key] = walk(value)
-        if out.get("key") == "google.com/tpu" and "operator" in out:
-            out["key"] = "nvidia.com/gpu"
-        if out.get("name") in values and "value" in out:
-            out["value"] = values[out["name"]]
-        return out
-
-    return walk(copy.deepcopy(tree))
 
 
 def _strip_spec(notebook: dict) -> dict:

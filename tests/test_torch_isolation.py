@@ -226,3 +226,45 @@ def test_the_fleet_modules_are_scanned_and_load_no_jax():
                           capture_output=True, text=True, timeout=120,
                           cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_cluster_layer_is_scanned_and_loads_no_jax():
+    """The cluster client layer (``k8s/``), the metrics registry
+    (``metrics/``) and the controller loop are in the scan above, and a
+    process that imports them, scrapes a ``Metrics`` bundle and builds
+    the native prober loads nothing of JAX, the JAX package or
+    ``prometheus_client`` (which the card's machine does not have), and
+    maps the prober's library from the port's ``_build/``, never the JAX
+    package's ``native/libkftpu_prober.so``."""
+    scanned = {f.parent.name for f in _port_files()
+               if f.parent.parent.name == "kubeflow_tpu_torch"}
+    assert {"k8s", "metrics", "controller"} <= scanned
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "import kubeflow_tpu_torch.k8s, kubeflow_tpu_torch.metrics.server\n"
+        "import kubeflow_tpu_torch.controller.culling, "
+        "kubeflow_tpu_torch.controller.slicepool, "
+        "kubeflow_tpu_torch.models.gateway\n"
+        "from kubeflow_tpu_torch.k8s import FakeCluster\n"
+        "from kubeflow_tpu_torch.metrics import Metrics\n"
+        "from kubeflow_tpu_torch.controller.prober import make_prober, "
+        "NativeFanoutProber\n"
+        "assert b'notebook_running' in Metrics(FakeCluster()).expose()\n"
+        "assert isinstance(make_prober(), NativeFanoutProber)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{NOT_AT_IMPORT!r}]\n"
+        "assert not bad, bad\n"
+        "print(open('/proc/self/maps').read())\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    mapped = {line.split()[-1] for line in proc.stdout.splitlines()
+              if line.count(" ") >= 5 and "/" in line}
+    build = ROOT / "kubeflow_tpu_torch" / "_build"
+    assert any(m.startswith(str(build) + "/libprober-") for m in mapped)
+    assert not [m for m in mapped if m.startswith(str(ROOT / "native"))]
+    for f in _port_files():
+        assert "libkftpu_prober" not in f.read_text(), f
