@@ -63,8 +63,12 @@ every kernel's launch count set to 0 just before it and read just after:
   ``install_preemption_handler``; the loop's culler (``controller/
   culling.py``, its native prober built here) stops the idle notebook,
   the reconciler scales it to 0, and the child is sent SIGTERM and
-  emergency-saves its newest step; the step is restored on the card
-  through ``MigrationOrchestrator`` and trained from;
+  emergency-saves its newest step; the notebook resumes, its pod is
+  preempted, and the loop's slice-health reconciler (``controller/
+  preemption.py``, beside the platform reconciler, the image pre-puller
+  and the TLS profile watcher) restores the step on the card through
+  its migration hook and ``MigrationOrchestrator``; the step is trained
+  from, and the Notebook is deleted through the platform's finalizer;
 - sharded training (``models/train.py`` under a ``MeshPlan``):
   ``gemma-2b`` at fsdp=2 and ``llama-3-8b`` at tp=2, each as two gloo
   ranks on the one card, every step the same three flash kernels a layer
@@ -223,8 +227,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    cancelled, deadline, drain, batch fill, stalls, prefix cache, swap,
    speculation, LoRA) must equal its ``/stats`` value, or read 0 where
    ``/stats`` has no such block;
-7. prefix and handoff — the rest of the paged engine on the same model,
-   alternating engines of 8 slots, block 16, bucket 512, 64 new tokens:
+7. prefix and handoff — the rest of the paged engine on the same model
+   cut to its first 8 layers (``SERVE_CUT_LAYERS``, the depth cut that
+   pays for phase 12's recovery loop; the widths are whole), alternating
+   engines of 8 slots, block 16, bucket 512, 64 new tokens:
    the prefix cache over a pool that evicts nothing (512 blocks) serves
    16 prompts sharing a 384-token prefix (tails of 8..116 tokens): 360
    prefix hits, paged decode launches equal to ``_paged_step`` calls ×
@@ -232,7 +238,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    view), tokens held to the engine without a cache by phase 5's rule;
    the prompt cache serves 8 identical prompts with one prefill (n_layers
    flash launches) and 7 hits; a one-slot pool of 40 usable blocks with a
-   host tier of 32 blocks (64 MiB) serves a prefix, a second one (which
+   host tier of 32 blocks (16 MiB) serves a prefix, a second one (which
    demotes the first one's leaves) and the first again: blocks promoted,
    16 restored tokens each, each promoted block byte-equal to its
    snapshot before demotion, tokens held to the first round's; engine A
@@ -280,8 +286,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    a 400 for ``logprobs``. Smoke numbers beside the card line: acceptance,
    rounds, the 16 prompts' wall against the plain engine's, the verify
    dispatch widths;
-9. checkpoint and observability — phases 5-8's engines are freed and the
-   served weights (llama-3-8b, 16.06 GB of bf16) written as a Hugging Face
+9. checkpoint and observability — phases 5-8's engines are freed; the
+   served model cut as phase 7's (8 of its 32 layers: 5.6 GB of bf16) is
+   first served in process as phase 6 serves it, ragged and continuous
+   (the tokens this phase is held to), then written as a Hugging Face
    checkpoint by ``write_hf_checkpoint`` (``params_to_hf_state_dict``:
    HF's names and layout, ``config.json``, 4 safetensors shards and their
    index) into a temporary directory, removed at the end;
@@ -292,18 +300,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    process with phase 6's ragged engine flags, KUBEFLOW_TPU_SERVING_RAGGED
    =1, KUBEFLOW_TPU_TRACE_RING=512 and KUBEFLOW_TPU_STALL_PROFILE_DIR:
    once ``/healthz`` answers, phase 6's 4 requests (2 streamed), each
-   under a ``traceparent`` of its own, must give phase 6's ragged tokens
-   (cut at serve_http's end of sequence, 2); ``/debug/traces`` must hold
+   under a ``traceparent`` of its own, must give the in-process ragged
+   server's tokens over the cut model (cut at serve_http's end of
+   sequence, 2); ``/debug/traces`` must hold
    under each sent trace the ``server.request`` span (a child of the
    sender's), and ``queue_wait``, ``prefill`` and ``first_decode`` under
    it, summing to the request's TTFT within 10%, and ``engine.step``
    spans as roots; ``/stats`` its flight recorder (steps = the engine's
    ragged steps) and ``engine_step_stalls``; SIGTERM must drain it to
    exit 0. The same without ``--paged`` (the continuous engine) on the 2
-   blocking requests, held to phase 6's continuous tokens. Both are sent
+   blocking requests, held to the in-process continuous server's. Both are sent
    token ids (the checkpoint holds no tokenizer). Last, in process, the ragged
    engine behind ``InferenceServer`` with stall capture armed and a
-   recording metrics bundle serves phase 5's 16 prompts; after 16 steps
+   recording metrics bundle serves phase 5's 16 prompts on the cut model; after 16 steps
    one step sleeps (20 × the median step, at least 0.5 s): one stall
    counted, one capture whose trace holds the ragged kernel, ragged
    launches = steps × n_layers, and the bundle reads what ``/stats``
@@ -407,17 +416,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    terminationGracePeriodSeconds, its log naming the emergency commit of
    step 3;
    steps 1 and 3 are on disk and step 3's manifest holds the cursor. The
-   parent restores on the card into ``fresh_state(7)`` through a
+   loop then resumes the notebook (the stop annotation removed, the stub
+   busy) and its pod is preempted: the loop's ``SliceHealthReconciler``
+   emits a Warning ``SliceInterrupted`` naming the checkpoint directory
+   and the 120 s grace, deletes the pod and calls its migration hook
+   once with "preemption-notice"; the hook restores on the card into
+   ``fresh_state(7)`` through a
    ``MigrationOrchestrator(MigrationConfig(fresh_within_s=0))`` whose
-   save step finds nothing newer (restore budget 600 s); every leaf's
+   save step finds nothing newer (restore budget 600 s), and keeps its
+   report or its exception, which the phase raises after the loop is
+   idle (the reconciler itself swallows a hook's exception); the kubelet
+   recreates the pod, and the Notebook loses its interruption
+   annotations and gains ``tpu-last-interruption-duration``
+   (``tpu_slice_preemptions_total`` and the recovery histogram's count
+   1). The same loop runs the ``PlatformReconciler`` (the finalizer, two
+   NetworkPolicies and no intra-slice one for one host, the HTTPRoute in
+   the controller namespace, the ReferenceGrant in the user's), an
+   enabled ``PrePullReconciler`` (one Succeeded pod bound to the H100
+   node under the placeholder PriorityClass) and a
+   ``SecurityProfileWatcher`` (Intermediate with no ``APIServer``); every
+   leaf's
    digest must equal the child's step 3, and a leaf
    may equal the fresh state's only where both inits agree (under 1% of
    the bytes); ``resume_start_batch`` gives 3; one step from the restored
    state on the loader's 4th batch launches 2 × 4 flash, 4 dQ and 4
-   dK/dV kernels with a finite loss. It prints the emergency save's
-   seconds and GB/s, each ``save``'s snapshot seconds, the restore's
-   seconds split into validation and copy, SIGTERM to exit, and the
-   migration's step durations;
+   dK/dV kernels with a finite loss. Last the Notebook is deleted: the
+   platform's finalizer removes the HTTPRoute and the ReferenceGrant, the
+   pre-pull pod goes, and an ``APIServer`` with the Modern profile fires
+   the TLS watcher once. It prints the emergency save's seconds and GB/s,
+   each ``save``'s snapshot seconds, the restore's seconds split into
+   validation and copy, SIGTERM to exit, the migration's step durations,
+   and the loop's seconds from the preemption to the hook's call, its
+   own host seconds and the hook's restore seconds;
 13. tp — tensor-parallel replicas (``models/tp_serving.py``). First one
    launch each of the ragged, flash, paged decode and dense decode
    kernels at a tp=2 rank's shapes of llama-3-8b (16 q, 4 kv heads),
@@ -426,15 +456,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    processes (``python -c`` on ``tp_child``), each one rank of a gloo
    group of 2 it builds itself, both on ``cuda:0`` — this phase's own
    configuration (one card holds both ranks; gloo stages the CUDA
-   tensors through the host), not a fallback. Each draws llama-3-8b from
-   the seed leaf by leaf and keeps its shard (16 of 32 q heads, 4 of 8 kv
-   heads, 7168 of 14336 hidden, half the vocab), then serves 8 of phase
-   5's prompts (every other one), 32 new tokens, on the ragged bf16
-   engine (8 slots, budget 512) and 4 of them on the alternating and the
-   continuous engines, with ``plan=``: per rank, ragged launches = ragged
-   steps × 32, flash = admissions × 32, paged (alternating) or dense
-   (continuous) decode = decode steps × 32; both ranks emit
-   the same tokens, held to phase 5's (its first 32) by phase 8's
+   tensors through the host), not a fallback. This process first serves
+   llama-3-8b at full width cut to 8 of its 32 layers (``TP_LAYERS``, the
+   cut that pays for phase 12's recovery loop), drawn from the seed,
+   unsharded on the same engines: the reference. Each child draws the
+   cut model from the seed leaf by leaf and keeps its shard (16 of 32 q
+   heads, 4 of 8 kv heads, 7168 of 14336 hidden, half the vocab), then
+   serves 8 of phase 5's prompts (every other one), 32 new tokens, on the
+   ragged bf16 engine (8 slots, budget 512) and 4 of them on the
+   alternating and the continuous engines, with ``plan=``: per rank,
+   ragged launches = ragged steps × 8, flash = admissions × 8, paged
+   (alternating) or dense (continuous) decode = decode steps × 8; both
+   ranks emit the same tokens, held to the reference's by phase 8's
    near-tie rule, a fork's gap from a tp forward of the common prefix
    with plain attention. (b) Degree 1 over NCCL in this process: an
    explicit ``MeshPlan(make_mesh(tp=1))`` on a world-1 NCCL group (the
@@ -449,24 +482,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    flash forward, dQ and dK/dV at a tp=2 rank's training shape of
    llama-3-8b (B 1, S 2048, 16 q / 4 kv heads, D 128), held to their
    plain versions by phase 3's gates. (a) fsdp=2 gemma-2b at full width
-   cut to 6 of its 18 layers (``TS_FSDP_LAYERS``, the cut that pays for
-   phase 16) as two gloo children on ``cuda:0`` (phase 13's one-card
-   configuration): before spawning, this process runs one unsharded
-   step 1 on the same weights and global batch (B 2, S 2048: each rank's
-   row from ``sharded_loader`` through ``device_put_global``) and frees
-   it; each rank draws its shard from the seed (``init_params(plan=)``),
-   shards AdamW (``shard_state``: half the state a rank), and trains 2
-   steps (remat "full", loss chunk 512), step 1's loss and global grad
-   norm within 2e-2 relative of the unsharded step's, each step 2 × 6
-   flash, 6 dQ and 6 dK/dV launches a rank, the loss on step 1's
+   cut to 4 of its 18 layers (``TS_FSDP_LAYERS``, the cut that pays for
+   phases 16 and 12's recovery loop) as two gloo children on
+   ``cuda:0`` (phase 13's one-card configuration): before spawning,
+   this process runs one unsharded step 1 on the same weights and
+   global batch (B 2, S 2048: each rank's row from ``sharded_loader``
+   through ``device_put_global``) and frees it; each rank draws its
+   shard from the seed (``init_params(plan=)``), shards AdamW
+   (``shard_state``: half the state a rank), and trains 2 steps (remat
+   "full", loss chunk 512), step 1's loss and global grad
+   norm within 2e-2 relative of the unsharded step's, each step 2 × 4
+   flash, 4 dQ and 4 dK/dV launches a rank, the loss on step 1's
    batch lower after; then both ranks save into their ``proc<k>/`` roots
    (JAX's shard format; MemAvailable and the free disk must hold 2.5 ×
    the state), restore into a fresh sharded state from another seed
    with every leaf's digest equal, and train one step more (the roots
-   are removed after). (b) tp=2 llama-3-8b, two gloo children again, on
-   phase 10's weights and step-1 batch: step 1's loss and grad norm
-   within 2e-2 of phase 10's (recorded there), 2 steps of 2 × 32 flash,
-   32 dQ and 32 dK/dV launches a rank. (c) ``examples/train_sharded.main``
+   are removed after). (b) tp=2 llama-3-8b at full width cut to 8 of its
+   32 layers (``TS_TP_LAYERS``, the cut that pays for phase 12's recovery
+   loop), two gloo children again, on phase 10's seed and loader: this
+   process first runs one unsharded step 1 at that depth on the first
+   batch and frees it; step 1's loss and grad norm within 2e-2 of it, 2
+   steps of 2 × 8 flash, 8 dQ and 8 dK/dV launches a rank.
+   (c) ``examples/train_sharded.main``
    as one rank over a world-1 NCCL group: phase 11's 2-layer head-dim-64
    model for 2 steps with ``--ckpt-dir`` and ``--data``, then again,
    resuming at step 2. It prints each rank's peak memory, step walls,
@@ -489,11 +526,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (a)'s batch: step 1 under each of ``ring``, ``ulysses`` and
    ``zigzag``, its loss and global grad norm within 2e-2 relative of
    phase 14 (a)'s unsharded step 1 (recorded there); Ulysses launches 2 ×
-   6 flash, 6 dQ and 6 dK/dV a rank, ring and zigzag none (plain, as
-   JAX's); (b) the same model and batch under pp=2 (3 layers a stage,
+   4 flash, 4 dQ and 4 dK/dV a rank, ring and zigzag none (plain, as
+   JAX's); (b) the same model and batch under pp=2 (2 layers a stage,
    n_micro 2, remat "full", the dense loss over full logits): step 1's
-   loss and grad norm within 2e-2 of the same reference, 2 × 6 flash, 6
-   dQ and 6 dK/dV a rank (bubbles skipped); (c) the cut mixtral-8x7b
+   loss and grad norm within 2e-2 of the same reference, 2 × 4 flash, 4
+   dQ and 4 dK/dV a rank (bubbles skipped); (c) the cut mixtral-8x7b
    under ep=2, 4 of the 8 experts a rank: step 1's loss (the aux term
    included) and grad norm within 2e-2 of this process's, 2 flash, 2 dQ
    and 2 dK/dV a rank; (d) llama-3-8b at full width and depth served by
@@ -532,14 +569,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``SmokeProvisioner``) drains one: it leaves the ring at once, a
    request sent then goes to the other, its stream runs to its end, and
    it is released (SIGTERM) once idle. (b) llama-3-8b at full width cut
-   to 4 of its 32 layers, served by the ragged and the alternating
+   to 2 of its 32 layers, served by the ragged and the alternating
    engine under fsdp=2 and then dp=2 as two gloo children on ``cuda:0``
    (phase 13's one-card configuration; the step replicated over the
    mesh, as JAX's, each fsdp-cut leaf gathered where it is used): 2 of
    phase 5's prompts, 4 new tokens each, held to the unsharded engines'
    on the same cut model (run here first) by the near-tie rule, with
-   ragged launches = steps × 4, flash = admissions × 4 and decode =
-   steps × 4 a rank, the pool whole over both axes; an fsdp=2 rank holds
+   ragged launches = steps × 2, flash = admissions × 2 and decode =
+   steps × 2 a rank, the pool whole over both axes; an fsdp=2 rank holds
    under 0.55 of the model's weight bytes, a dp=2 rank all of them. It
    prints each rank's weight bytes and peak memory, the step walls, the
    bytes gathered and the host seconds in collectives a step, and the
@@ -589,7 +626,12 @@ from kubeflow_tpu_torch.api import annotations as ann_mod
 from kubeflow_tpu_torch.api.notebook import Notebook
 from kubeflow_tpu_torch.controller import culling as culling_mod
 from kubeflow_tpu_torch.controller import notebook as controller_mod
+from kubeflow_tpu_torch.controller import platform as platform_mod
+from kubeflow_tpu_torch.controller import preemption as preemption_mod
+from kubeflow_tpu_torch.controller import prepull as prepull_mod
 from kubeflow_tpu_torch.controller import prober as prober_mod
+from kubeflow_tpu_torch.controller import slicepool as slicepool_mod
+from kubeflow_tpu_torch.controller import tls as tls_mod
 from kubeflow_tpu_torch.data.loader import (
     TokenLoader,
     device_put_global,
@@ -3165,9 +3207,12 @@ def http_phase(engine, label: str) -> dict:
 # Prefix and handoff
 
 
+# Phases 7 and 9 serve llama-3-8b cut to this many of its 32 layers (the
+# depth cut that pays for phase 12's recovery loop; the widths are whole).
+SERVE_CUT_LAYERS = 8
 PREFIX_LEN = 384  # the shared prefix: 24 blocks of 16
-PREFIX_BLOCKS = 512  # llama-3-8b: 1 GiB, a pool that evicts nothing here
-SWAP_BLOCKS = 32  # the host tier: 64 MiB of llama-3-8b blocks
+PREFIX_BLOCKS = 512  # 256 MiB at 8 layers: a pool that evicts nothing here
+SWAP_BLOCKS = 32  # the host tier: 16 MiB of blocks at 8 layers
 HANDOFF_LENS = (200, 300, 400, 500)
 ADMIT_ROUNDS = 5
 
@@ -4682,7 +4727,6 @@ def train_phase(cfg):
           f"wq grad cosine of all the kernels {cos} below {cos_floor}")
     check(loss_rel <= TRAIN_TOL["loss_rel"], f"step-1 loss rel {loss_rel}")
     check(norm_rel <= TRAIN_TOL["grad_norm_rel"], f"grad norm rel {norm_rel}")
-    STEP_ONE[cfg] = {"loss": kern[0], "grad_norm": kern[1]}
     del plain, kern, bwd_only, nudged
 
     init_state, step_fn = train_mod.make_train_step(
@@ -5221,6 +5265,11 @@ RESUME_POD = {"name": "resume", "namespace": "smoke",
 RESUME_IDLE_MIN = 10
 # The card's memory against the catalog entry's HBM: at least this share.
 CARD_MEMORY_SHARE = 0.95
+# Where the loop's PlatformReconciler (default config) writes the
+# HTTPRoute, and where its PrePullReconciler keeps the pre-pull pods.
+PLATFORM_NAMESPACE = platform_mod.PlatformConfig().controller_namespace
+PREPULL_NAMESPACE = prepull_mod.PrePullConfig().namespace
+
 RESUME_TAG = "resume-child "
 # The per-leaf digest: the sum of the leaf's bytes, and the sum of each
 # byte times its position modulo a prime, modulo the prime; computed where
@@ -5414,16 +5463,28 @@ def resume_pod(ckpt_dir: str) -> dict:
     directory annotations, created in a ``FakeCluster`` (on a
     ``FakeClock``) whose Notebook mutating hook is ``mutate_gpu_notebook``,
     over one node of the card's catalog entry (``add_gpu_node_pool``),
-    with ``FakeKubelet``, ``NotebookReconciler`` and ``CullingReconciler``
-    (its Python prober through the DEV proxy, a loopback Jupyter stub)
-    under one ``Manager`` and one ``Metrics`` bundle. Checks the pod the
-    kubelet made: the card resource, the nodeSelector, the toleration,
-    the grace period, one replica, Ready; and the Notebook's
-    ``status.gpu`` Healthy with 1 ready host. Returns {"env": pod 0's
-    container env with its pod index filled in, "expected_devices": the
-    nvidia.com/gpu limit, "termination_grace_s", "accelerator": the
-    catalog entry, "render_s": Notebook create to Healthy, "loop": the
-    loop's objects}."""
+    with ``NotebookReconciler``, ``CullingReconciler`` (its Python prober
+    through the DEV proxy, a loopback Jupyter stub),
+    ``SliceHealthReconciler`` (its migration hook calls ``loop["migrate"]``
+    where one is set), ``PlatformReconciler`` (default config: plain
+    routes), an enabled ``PrePullReconciler``, a
+    ``SecurityProfileWatcher`` booted from ``fetch_tls_profile``, then
+    ``FakeKubelet`` and ``FakePodRunner`` (registered last, as the JAX
+    package's harness registers its kubelet, so that the slice-health
+    reconciler sees a Failed pod before the kubelet replaces it) under one
+    ``Manager`` and one ``Metrics`` bundle. Checks the pod the kubelet
+    made: the card resource, the nodeSelector, the toleration, the grace
+    period, one replica, Ready; the Notebook's ``status.gpu`` Healthy with
+    1 ready host; and the platform's and the pre-puller's work: the
+    finalizer, the two NetworkPolicies and no intra-slice one (one host),
+    the HTTPRoute in the controller namespace and the ReferenceGrant in
+    the user's, and one Succeeded pre-pull pod bound to the H100 node with
+    the placeholder PriorityClass, ``tpu_prepull_nodes_covered`` and
+    ``_target`` at 1; the TLS profile is Intermediate (no ``APIServer``).
+    Returns {"env": pod 0's container env with its pod index filled in,
+    "expected_devices": the nvidia.com/gpu limit, "termination_grace_s",
+    "accelerator": the catalog entry, "render_s": Notebook create to
+    Healthy, "loop": the loop's objects}."""
     name, ns = RESUME_POD["name"], RESUME_POD["namespace"]
     card = gpu_topology.slice_from_spec("h100", "1")
     clock = k8s_mod.FakeClock()
@@ -5431,8 +5492,7 @@ def resume_pod(ckpt_dir: str) -> dict:
     cluster.register_mutating_webhook(
         "Notebook", lambda req: gpu_env.mutate_gpu_notebook(req.object))
     mgr = k8s_mod.Manager(cluster, clock=clock)
-    k8s_mod.FakeKubelet(cluster).register(mgr)
-    k8s_mod.add_gpu_node_pool(
+    nodes = k8s_mod.add_gpu_node_pool(
         cluster, card.gke_accelerator_label, card.topology_str, hosts=1,
         cards_per_host=card.accelerator.chips_per_host)
     metrics = Metrics(cluster)
@@ -5449,8 +5509,30 @@ def resume_pod(ckpt_dir: str) -> dict:
     culler.register(mgr)
     loop = {"cluster": cluster, "clock": clock, "manager": mgr,
             "metrics": metrics, "culler": culler, "stub": stub,
-            "proxy": proxy, "name": name, "namespace": ns}
+            "proxy": proxy, "name": name, "namespace": ns,
+            "ckpt_dir": ckpt_dir, "migrate": None, "hook_calls": [],
+            "tls_changes": []}
+
+    def migration_hook(obj, trigger):
+        loop["hook_calls"].append((obj["metadata"]["name"], trigger))
+        if loop["migrate"] is not None:
+            loop["migrate"](obj, trigger)
+
+    preemption_mod.SliceHealthReconciler(
+        cluster, metrics=metrics, clock=clock,
+        migration_trigger=migration_hook).register(mgr)
+    platform_mod.PlatformReconciler(cluster).register(mgr)
+    prepull_mod.PrePullReconciler(cluster, metrics=metrics,
+                                  clock=clock).register(mgr)
+    boot = tls_mod.fetch_tls_profile(cluster)
+    tls_mod.SecurityProfileWatcher(
+        cluster, boot, loop["tls_changes"].append).register(mgr)
+    loop["kubelet"] = k8s_mod.FakeKubelet(cluster)
+    loop["kubelet"].register(mgr)
+    k8s_mod.FakePodRunner(cluster).register(mgr)
     try:
+        check(boot == tls_mod.INTERMEDIATE,
+              f"the TLS profile with no APIServer: {boot}")
         obj = {"apiVersion": "kubeflow.org/v1", "kind": "Notebook",
                "metadata": {"name": name, "namespace": ns,
                             "annotations": {
@@ -5498,6 +5580,7 @@ def resume_pod(ckpt_dir: str) -> dict:
               and env[ann_mod.CHECKPOINT_DIR_ENV_NAME] == ckpt_dir
               and "JAX_COORDINATOR_ADDRESS" not in env,
               f"the pod's env: {env}")
+        _check_platform(loop, nodes)
     except BaseException:
         stub.stop()
         raise
@@ -5505,6 +5588,40 @@ def resume_pod(ckpt_dir: str) -> dict:
     return {"env": env, "expected_devices": int(res["limits"][gpu]),
             "termination_grace_s": grace, "accelerator": topo.accelerator,
             "render_s": render_s, "loop": loop}
+
+
+def _check_platform(loop: dict, nodes: list) -> None:
+    """The platform reconciler's and the pre-puller's objects for the
+    loop's notebook (see ``resume_pod``)."""
+    cluster, metrics = loop["cluster"], loop["metrics"]
+    name, ns = loop["name"], loop["namespace"]
+    nb = cluster.get("Notebook", name, ns)
+    check(ann_mod.PLATFORM_CLEANUP_FINALIZER
+          in nb["metadata"].get("finalizers", []),
+          f"the Notebook's finalizers: {nb['metadata'].get('finalizers')}")
+    policies = sorted(p["metadata"]["name"]
+                      for p in cluster.list("NetworkPolicy", ns))
+    check(policies == [f"{name}-ctrl-np", f"{name}-kube-rbac-proxy-np"],
+          f"the NetworkPolicies of a one-host notebook: {policies}")
+    routes = [(r["metadata"]["namespace"], r["metadata"]["name"])
+              for r in cluster.list("HTTPRoute")]
+    check(routes == [(PLATFORM_NAMESPACE, f"nb-{ns}-{name}")],
+          f"the HTTPRoutes: {routes}")
+    grants = [(g["metadata"]["namespace"], g["metadata"]["name"])
+              for g in cluster.list("ReferenceGrant")]
+    check(grants == [(ns, "notebook-httproute-access")],
+          f"the ReferenceGrants: {grants}")
+    pulls = cluster.list("Pod", PREPULL_NAMESPACE)
+    check(len(pulls) == 1 and pulls[0]["spec"]["nodeName"] == nodes[0]
+          and pulls[0]["spec"]["priorityClassName"]
+          == slicepool_mod.PLACEHOLDER_PRIORITY_CLASS
+          and pulls[0]["status"].get("phase") == "Succeeded",
+          f"the pre-pull pods: {pulls}")
+    reg = metrics.registry
+    covered = reg.get_sample_value("tpu_prepull_nodes_covered")
+    target = reg.get_sample_value("tpu_prepull_nodes_target")
+    check(covered == target == 1.0,
+          f"tpu_prepull_nodes_covered {covered}, _target {target}")
 
 
 def _sample(text: str, name: str) -> float:
@@ -5618,6 +5735,120 @@ def cull_pod(loop: dict) -> dict:
             "prober_build_s": build_s, "native_probe_s": native_s,
             "stopped_at": marks["stopped_at"], "scrape_bytes": len(text),
             "activity": got_native[0]}
+
+
+def preempt_pod(loop: dict, restore) -> dict:
+    """After the cull and the child's exit: the notebook resumes (the stop
+    annotation removed, the Jupyter stub busy, so the culler leaves it)
+    and the kubelet makes its pod Ready again; then the pod is preempted.
+    The loop's ``SliceHealthReconciler`` emits a Warning
+    ``SliceInterrupted`` naming the checkpoint directory and its SIGTERM
+    grace, deletes the pod and calls its migration hook once with
+    "preemption-notice"; the hook runs ``restore(trigger)`` and keeps its
+    result or its exception, which is raised here after
+    ``run_until_idle``: the reconciler logs and swallows a hook's
+    exception, so a failed restore must not pass unseen. The kubelet
+    recreates the pod, and the Notebook loses its interruption
+    annotations and gains the interruption-duration stamp;
+    ``tpu_slice_preemptions_total`` and ``tpu_slice_recovery_seconds``'s
+    count read 1. Returns {"result": restore's, "restore_s": the hook's
+    seconds, "preempt_to_interrupted_s": from the preemption to the hook's
+    call (the interruption annotation is written just before it),
+    "host_s": the loop's own seconds, the hook's excluded, "resume_s":
+    the stop annotation's removal to a Ready pod}."""
+    cluster, mgr, metrics = loop["cluster"], loop["manager"], loop["metrics"]
+    name, ns, clock = loop["name"], loop["namespace"], loop["clock"]
+    now = time.strftime("%Y-%m-%dT%H:%M:%S.000000Z", time.gmtime(clock.now()))
+    loop["stub"].kernels = [{"id": "k0", "execution_state": "busy",
+                             "last_activity": now}]
+    t0 = time.monotonic()
+    cluster.patch("Notebook", name, ns,
+                  {"metadata": {"annotations": {ann_mod.STOP: None}}})
+    mgr.run_until_idle()
+    resume_s = time.monotonic() - t0
+    check(not mgr.reconcile_errors, f"the loop: {mgr.reconcile_errors}")
+    pods = cluster.list("Pod", ns)
+    check(len(pods) == 1 and controller_mod._pod_ready(pods[0]),
+          f"after the resume: {[p['status'] for p in pods]}")
+    (pod,) = pods
+    hook = {}
+
+    def migrate(obj, trigger):
+        hook["entered_at"] = time.monotonic()
+        try:
+            hook["result"] = restore(trigger)
+        except Exception as err:  # raised again after the loop
+            hook["error"] = err
+        hook["restore_s"] = time.monotonic() - hook["entered_at"]
+
+    loop["migrate"] = migrate
+    try:
+        t0 = time.monotonic()
+        loop["kubelet"].preempt_pod(pod["metadata"]["name"], ns)
+        mgr.run_until_idle()
+        loop_s = time.monotonic() - t0
+    finally:
+        loop["migrate"] = None
+    if "error" in hook:
+        raise hook["error"]
+    check(loop["hook_calls"] == [(name, "preemption-notice")],
+          f"the migration hook was called with {loop['hook_calls']}")
+    check(not mgr.reconcile_errors, f"the loop: {mgr.reconcile_errors}")
+    events = [e for e in cluster.list("Event", ns)
+              if e["reason"] == "SliceInterrupted"]
+    check(len(events) == 1 and events[0]["type"] == "Warning"
+          and f"in {loop['ckpt_dir']} " in events[0]["message"]
+          and f"had {RESUME_GRACE_S}s SIGTERM grace" in events[0]["message"],
+          f"the SliceInterrupted events: {events}")
+    pods = cluster.list("Pod", ns)
+    check(len(pods) == 1 and controller_mod._pod_ready(pods[0])
+          and pods[0]["metadata"]["uid"] != pod["metadata"]["uid"],
+          f"after the preemption: {[p['metadata'] for p in pods]}")
+    anns = cluster.get("Notebook", name, ns)["metadata"].get(
+        "annotations", {})
+    check(not set(preemption_mod._RECOVERY_ANNOTATIONS) & set(anns)
+          and ann_mod.TPU_LAST_INTERRUPTION_DURATION in anns,
+          f"the Notebook's annotations after the recovery: {anns}")
+    reg = metrics.registry
+    got = (reg.get_sample_value("tpu_slice_preemptions_total"),
+           reg.get_sample_value("tpu_slice_recovery_seconds_count"))
+    check(got == (1.0, 1.0), "tpu_slice_preemptions_total, "
+          f"tpu_slice_recovery_seconds_count: {got}")
+    return {"result": hook["result"], "restore_s": hook["restore_s"],
+            "preempt_to_interrupted_s": hook["entered_at"] - t0,
+            "host_s": loop_s - hook["restore_s"], "resume_s": resume_s,
+            "interruption_duration":
+                anns[ann_mod.TPU_LAST_INTERRUPTION_DURATION]}
+
+
+def delete_notebook(loop: dict) -> float:
+    """The Notebook's deletion: the platform's finalizer removes the
+    HTTPRoute and (the namespace's last notebook) the ReferenceGrant, then
+    itself, and the Notebook is gone; the pre-puller, with no notebook
+    image left, removes its pod. Then an ``APIServer`` with the Modern
+    profile is created and the ``SecurityProfileWatcher`` fires exactly
+    once. Returns the loop's host seconds."""
+    cluster, mgr = loop["cluster"], loop["manager"]
+    name, ns = loop["name"], loop["namespace"]
+    t0 = time.monotonic()
+    cluster.delete("Notebook", name, ns)
+    mgr.run_until_idle()
+    check(not mgr.reconcile_errors, f"the loop: {mgr.reconcile_errors}")
+    left = cluster.list("Notebook", ns)
+    check(not left, "the Notebook outlived its deletion, finalizers "
+          f"{[nb['metadata'].get('finalizers') for nb in left]}")
+    kinds = [k for k in ("HTTPRoute", "ReferenceGrant") if cluster.list(k)]
+    check(not kinds, f"left after the deletion: {kinds}")
+    check(not cluster.list("Pod", PREPULL_NAMESPACE),
+          "the pre-pull pod outlived the last notebook")
+    cluster.create({"apiVersion": "config.openshift.io/v1",
+                    "kind": "APIServer", "metadata": {"name": "cluster"},
+                    "spec": {"tlsSecurityProfile": {"type": "Modern"}}})
+    mgr.run_until_idle()
+    host_s = time.monotonic() - t0
+    check(loop["tls_changes"] == [tls_mod.MODERN],
+          f"the TLS watcher fired {loop['tls_changes']}")
+    return host_s
 
 
 def _run_resume_child(corpus: str, pod: dict, cfg_name: str,
@@ -5742,16 +5973,20 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
     card (B 1, S 2048, remat "full", AdamW, TokenLoader batches) with the
     emergency-save handler installed, and is sent SIGTERM after its last
     ``save``: it must die of the signal within the grace + 5 s, after
-    committing its newest step. The parent then restores that step on the
-    card into a state from another seed through a ``MigrationOrchestrator``
-    (its save step finds nothing newer), holds every leaf's digest to the
-    child's, reads the loader cursor back and trains one step from it,
-    counting its launches. The child's env and its ``expected_devices``
-    come from the pod the port's controller loop makes for the notebook
-    (``resume_pod``); the loop's culler stops the notebook once the child
-    has saved (``cull_pod``), and the scale-to-0 it causes becomes the
-    child's SIGTERM. Its SIGTERM-to-exit seconds, and the stop
-    annotation's, must stay under the pod's
+    committing its newest step. The child's env and its
+    ``expected_devices`` come from the pod the port's controller loop
+    makes for the notebook (``resume_pod``); the loop's culler stops the
+    notebook once the child has saved (``cull_pod``), and the scale-to-0
+    it causes becomes the child's SIGTERM. Then the notebook resumes and
+    its pod is preempted (``preempt_pod``): the loop's slice-health
+    reconciler's migration hook restores that step on the card into a
+    state from another seed through a ``MigrationOrchestrator`` (its save
+    step finds nothing newer), and the phase re-raises whatever the hook
+    raised. The parent holds every leaf's digest to the child's, reads the
+    loader cursor back and trains one step from it, counting its launches;
+    last, the Notebook is deleted through the platform's finalizer
+    (``delete_notebook``). The child's SIGTERM-to-exit seconds, and the
+    stop annotation's, must stay under the pod's
     terminationGracePeriodSeconds, and on the card the card's memory must
     hold ``CARD_MEMORY_SHARE`` of the catalog entry's HBM. Returns the
     phase's numbers."""
@@ -5864,7 +6099,12 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
             checkpoint=mgr, claim_fn=lambda claimant, deadline: "card-0",
             restore_fn=restore_fn, flip_fn=lambda deadline: True,
             fallback_fn=lambda step, reason: fallbacks.append((step, reason)))
-        report = orch.migrate("preemption-notice")
+        # The loop's slice-health reconciler runs the restore: its
+        # migration hook, on the pod's preemption.
+        preempted = preempt_pod(pod["loop"], orch.migrate)
+        report = preempted["result"]
+        check(report.trigger == "preemption-notice",
+              f"the migration's trigger: {report.trigger}")
         check(report.completed and not fallbacks,
               f"migration fell back: {report}")
         check(report.steps["save"]["detail"]
@@ -5907,6 +6147,7 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
         check(math.isfinite(float(loss)), f"the resumed step's loss {loss}")
         check(int(state["step"]) == RESUME_STEPS + 1,
               f"the state's step after resuming: {int(state['step'])}")
+        delete_s = delete_notebook(pod["loop"])
 
         gb = nbytes / 1e9
         numbers = {
@@ -5940,7 +6181,17 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
                      "stop_to_exit_s": stop_to_exit,
                      "prober_build_s": culled["prober_build_s"],
                      "native_probe_s": culled["native_probe_s"],
-                     "host_s": pod["render_s"] + culled["host_s"]},
+                     "resume_to_ready_s": preempted["resume_s"],
+                     "preempt_to_interrupted_s":
+                         preempted["preempt_to_interrupted_s"],
+                     "hook_restore_s": preempted["restore_s"],
+                     "recovery_host_s": preempted["host_s"],
+                     "delete_s": delete_s,
+                     "interruption_duration":
+                         preempted["interruption_duration"],
+                     "host_s": pod["render_s"] + culled["host_s"]
+                     + preempted["resume_s"] + preempted["host_s"]
+                     + delete_s},
         }
         log(f"  child: step walls "
             f"{[round(x, 4) for x in numbers['child_step_s']]} s, save() "
@@ -5952,6 +6203,16 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
             f"{emergency_s:.3f} s, {gb / emergency_s:.3f} GB/s, its drain "
             f"of step 1's write included; the write alone {write_s:.3f} s, "
             f"{gb / write_s:.3f} GB/s")
+        log(f"  the loop after the child's exit: the stop annotation removed "
+            f"to a Ready pod in {preempted['resume_s']:.4f} s; the pod "
+            f"preempted, SliceInterrupted and the hook's call after "
+            f"{preempted['preempt_to_interrupted_s']:.4f} s; the hook's "
+            f"restore {preempted['restore_s']:.3f} s; the loop's own host "
+            f"work through the recovery "
+            f"{preempted['host_s']:.4f} s (interruption stamped "
+            f"{preempted['interruption_duration']} on its clock); the "
+            f"Notebook's deletion and the TLS watcher {delete_s:.4f} s; the "
+            f"loop's host work in all {numbers['loop']['host_s']:.4f} s")
         log(f"  restore on the card: {seconds['restore']:.3f} s "
             f"({gb / seconds['restore']:.3f} GB/s), validation "
             f"{seconds['_load_validated']:.3f} s, copy "
@@ -5985,6 +6246,10 @@ TP_DEGREE = 2
 TP_MODEL = "llama-3-8b"
 TP_DTYPE = None  # the model's own (bf16); the CPU rehearsal runs float32
 TP_NEW = 32  # new tokens a request at degree 2 (phase 5's first 32)
+# (a) serves llama-3-8b cut to this many of its 32 layers (the depth cut
+# that pays for phase 12's recovery loop; the widths are whole), held to
+# an unsharded run at that depth.
+TP_LAYERS = 8
 TP_CHILD_TIMEOUT = 600.0
 TP_TAG = "tp-child "
 TP_CHILD_CODE = ("import sys, chip_smoke; "
@@ -6062,9 +6327,9 @@ def _launches_a_call(cfg) -> int:
 def tp_child(argv: list) -> int:
     """One rank of phase 13 (a): joins the gloo group of ``TP_DEGREE`` on
     the spec's device (``cuda:0`` on the card), draws its shard of the
-    spec's model from the seed, serves the ragged, alternating and
-    continuous engines with ``plan=``, holds their tokens to phase 5's by
-    the near-tie rule
+    spec's model (cut to the spec's layers) from the seed, serves the
+    ragged, alternating and continuous engines with ``plan=``, holds their
+    tokens to the spec's unsharded reference by the near-tie rule
     (the tp forwards are collectives: both ranks make them), and prints
     one ``tp-child {json}`` record."""
     global DEVICE
@@ -6080,7 +6345,7 @@ def tp_child(argv: list) -> int:
         "gloo", init_method=f"tcp://127.0.0.1:{spec['port']}", rank=rank,
         world_size=TP_DEGREE)
     plan = serving_plan(TP_DEGREE)
-    cfg = _tp_config(spec["model"], spec["dtype"])
+    cfg = _cut_config(spec["model"], spec["dtype"], spec["layers"])
     params = L.init_params(
         cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
         plan=plan)
@@ -6162,19 +6427,40 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _tp_degree_two(p5: dict, prompts: list) -> dict:
-    """Phase 13 (a): the two children, their records checked against
-    each other; returns the per-rank numbers."""
+def _tp_reference(prompts: list, layers: int) -> dict:
+    """(a)'s reference: the unsharded model cut to ``layers``, drawn from
+    the seed, on the engines the children build (``plan=None``): the
+    ragged one on the even prompts, the alternating and the continuous on
+    every fourth, ``TP_NEW`` new tokens each; {kind: [tokens, logprobs]}.
+    The model is freed after."""
+    cfg = _cut_config(TP_MODEL, TP_DTYPE, layers)
+    params = L.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    ref = {"ragged": _serve(_tp_engine(params, cfg, None, True, TP_NEW),
+                            prompts[::2]),
+           "alternating": _serve(_tp_engine(params, cfg, None, False, TP_NEW),
+                                 prompts[::4]),
+           "continuous": _serve(_cont_engine(params, cfg, max_new=TP_NEW),
+                                prompts[::4])}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: [list(toks), list(lps)] for k, (toks, lps) in ref.items()}
+
+
+def _tp_degree_two(prompts: list) -> dict:
+    """Phase 13 (a): the unsharded reference at ``TP_LAYERS``, then the
+    two children, their records checked against each other; returns the
+    per-rank numbers."""
+    layers = min(TP_LAYERS, _tp_config(TP_MODEL, TP_DTYPE).n_layers)
+    t0 = time.monotonic()
+    ref = _tp_reference(prompts, layers)
+    ref_s = time.monotonic() - t0
     spec = {"port": _free_port(), "device": DEVICE, "model": TP_MODEL,
-            "dtype": TP_DTYPE,
+            "dtype": TP_DTYPE, "layers": layers,
             "prompts": prompts[::2],
             "alt_prompts": prompts[::4],
-            "ref": {"ragged": [[t for t in p5["ragged"][0][::2]],
-                               [lp for lp in p5["ragged"][1][::2]]],
-                    "alternating": [p5["alternating"][0],
-                                    p5["alternating"][1]],
-                    "continuous": [p5["continuous"][0],
-                                   p5["continuous"][1]]}}
+            "ref": ref}
     with tempfile.NamedTemporaryFile("w", suffix=".json",
                                      delete=False) as f:
         json.dump(spec, f)
@@ -6209,6 +6495,7 @@ def _tp_degree_two(p5: dict, prompts: list) -> dict:
               f"{kind}: the two ranks launched different counts")
     wall = recs[0]["ragged"]["wall_s"]
     numbers = {
+        "layers": layers, "reference_s": ref_s,
         "seconds": {"spawn": max(r["started"] for r in recs) - t0,
                     "init": max(r["inited"] - r["started"] for r in recs),
                     "serve": max(r["served"] - r["inited"] for r in recs),
@@ -6342,7 +6629,7 @@ def tp_phase(p5: dict) -> dict:
     cfg = L.LLAMA_CONFIGS[TP_MODEL]
     prompts = _prompts(cfg, 16, 8, 500, SEED)
     kernels = tp_rank_shapes_vs_plain()
-    two = _tp_degree_two(p5, prompts)
+    two = _tp_degree_two(prompts)
     gc.collect()
     torch.cuda.empty_cache()
     one = _tp_degree_one(p5, prompts)
@@ -6357,9 +6644,14 @@ def tp_phase(p5: dict) -> dict:
 TS_DEGREE = 2
 TS_FSDP_MODEL = "gemma-2b"
 # (a) and phase 15's sp and pp steps run gemma-2b cut to this many of its
-# 18 layers (the depth cut that pays for phase 16; the widths are whole).
-TS_FSDP_LAYERS = 6
+# 18 layers (the depth cut that pays for phases 16 and 12's recovery loop;
+# the widths are whole).
+TS_FSDP_LAYERS = 4
 TS_TP_MODEL = "llama-3-8b"
+# (b) runs llama-3-8b cut to this many of its 32 layers (the depth cut that
+# pays for phase 12's recovery loop; the widths are whole), held to an
+# unsharded step at the same depth on the card.
+TS_TP_LAYERS = 8
 TS_FSDP_STEPS = 2
 TS_TP_STEPS = 2
 TS_GLOBAL_BATCH = 2  # (a): one row a rank
@@ -6383,9 +6675,6 @@ TS_EXAMPLE_NAME = "smoke-2l-d64"
 TS_EXAMPLE_STEPS = 2
 # The collectives a sharded step calls, metered in each child.
 TS_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter_tensor")
-# Phase 10's step-1 loss and global grad norm with the kernels, by config:
-# what phase 14 (b) is held to.
-STEP_ONE: dict = {}
 
 
 def ts_rank_shapes_vs_plain() -> dict:
@@ -6476,7 +6765,7 @@ def _global_mean(value: torch.Tensor, plan) -> float:
 
 def _ts_batches(spec, plan, n: int) -> list:
     """(a): n batches of this rank's rows through ``sharded_loader`` and
-    ``device_put_global``; (b): phase 10's batches (the whole global
+    ``device_put_global``; (b): phase 10's loader's batches (the whole global
     batch: tp ranks share it)."""
     if spec["mode"] == "fsdp":
         with sharded_loader(spec["corpus"], TS_GLOBAL_BATCH, spec["seq"],
@@ -6792,10 +7081,11 @@ def _ts_example(corpus: str) -> dict:
 
 
 def train_sharded_phase() -> dict:
-    """Phase 14: the rank-shape kernels, then (a) fsdp=2 gemma-2b and (b)
-    tp=2 llama-3-8b, each as two gloo ranks on the one card after an
-    unsharded reference, then (c) examples/train_sharded over a world-1
-    NCCL group. Returns the phase's numbers."""
+    """Phase 14: the rank-shape kernels, then (a) fsdp=2 gemma-2b cut to
+    ``TS_FSDP_LAYERS`` and (b) tp=2 llama-3-8b cut to ``TS_TP_LAYERS``,
+    each as two gloo ranks on the one card after an unsharded reference
+    at its depth, then (c) examples/train_sharded over a world-1 NCCL
+    group. Returns the phase's numbers."""
     t_phase = time.monotonic()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6835,11 +7125,19 @@ def train_sharded_phase() -> dict:
         shutil.rmtree(os.path.join(tmp, "ckpt"), ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
-        # (b): phase 10's llama-3-8b step 1, recorded there.
-        tcfg = _tp_config(TS_TP_MODEL, TP_DTYPE)
+        # (b): the unsharded step 1 at (b)'s depth, on (b)'s first batch.
+        t0 = time.monotonic()
+        tp_layers = min(TS_TP_LAYERS,
+                        _tp_config(TS_TP_MODEL, TP_DTYPE).n_layers)
+        with TokenLoader(corpus, 1, TRAIN_SEQ, seed=SEED + 1) as loader:
+            tokens = torch.from_numpy(loader.next()).to(DEVICE)
+        tp_ref = _ts_reference(_cut_config(TS_TP_MODEL, TP_DTYPE, tp_layers),
+                               tokens)
+        del tokens
         tp = _ts_part({**base, "port": _free_port(), "mode": "tp",
-                       "model": TS_TP_MODEL, "steps": TS_TP_STEPS,
-                       "ref": STEP_ONE[tcfg]}, 0.0)
+                       "model": TS_TP_MODEL, "layers": tp_layers,
+                       "steps": TS_TP_STEPS, "ref": tp_ref},
+                      time.monotonic() - t0)
         example = _ts_example(corpus)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -7272,7 +7570,7 @@ FLEET_ENV = {"KUBEFLOW_TPU_KV_SWAP_BYTES": str(256 << 20),
 FLEET_TIMEOUT = 300.0
 
 MESH_MODEL = "llama-3-8b"
-MESH_LAYERS = 4  # of llama-3-8b's 32: the depth cut
+MESH_LAYERS = 2  # of llama-3-8b's 32: the depth cut
 MESH_DTYPE = None  # the model's own (bf16); the CPU rehearsal runs float32
 MESH_NEW = 4  # new tokens a request
 MESH_DEGREE = 2
@@ -7929,9 +8227,14 @@ def main() -> int:
     http_tokens["continuous"] = http_phase(cont_engine, "continuous")
     phases["http"] = time.monotonic() - t0
 
-    log("[7/16] prefix and handoff")
+    # Phase 7 serves the model cut to its first SERVE_CUT_LAYERS layers
+    # (its own modules: ``truncated_draft`` shares them).
+    cut_params, cut_cfg = truncated_draft(params, cfg, SERVE_CUT_LAYERS)
+    log(f"[7/16] prefix and handoff: {SERVE_CUT_LAYERS} of the "
+        f"{cfg.n_layers} layers")
     t0 = time.monotonic()
-    prefix = prefix_phase(params, cfg, card)
+    prefix = prefix_phase(cut_params, cut_cfg, card)
+    del cut_params
     phases["prefix"] = time.monotonic() - t0
 
     log("[8/16] speculation and multi-LoRA")
@@ -7945,12 +8248,22 @@ def main() -> int:
     phases["spec_lora"] = time.monotonic() - t0
 
     log("[9/16] checkpoint and observability")
+    log(f"  the model cut to {SERVE_CUT_LAYERS} of its {cfg.n_layers} "
+        "layers, as phase 7's")
     t0 = time.monotonic()
     # Phases 5-8's engines and pools go first; the served weights stay.
     del engine, alt_engine, cont_engine
     gc.collect()
     torch.cuda.empty_cache()
-    ckpt = checkpoint_phase(params, cfg, card, http_tokens)
+    # The checkpoint is the model cut as phase 7's; its servers are held
+    # to phase 6's HTTP path over the same cut model, run here first.
+    cut_params, cut_cfg = truncated_draft(params, cfg, SERVE_CUT_LAYERS)
+    cut_tokens = {
+        "ragged": http_phase(_engine(cut_params, cut_cfg, 0), "ragged, cut"),
+        "continuous": http_phase(_cont_engine(cut_params, cut_cfg),
+                                 "continuous, cut")}
+    ckpt = checkpoint_phase(cut_params, cut_cfg, card, cut_tokens)
+    del cut_params
     phases["checkpoint"] = time.monotonic() - t0
 
     log(f"[10/16] train: {', '.join(TRAIN_MODELS)}")
@@ -7979,16 +8292,16 @@ def main() -> int:
     resume = resume_phase()
     phases["resume"] = time.monotonic() - t0
 
-    log(f"[13/16] tp: degree {TP_DEGREE} on the one card over gloo, then "
-        "degree 1 over NCCL")
+    log(f"[13/16] tp: degree {TP_DEGREE} on the one card over gloo "
+        f"({TP_LAYERS} layers), then degree 1 over NCCL")
     t0 = time.monotonic()
     tp = tp_phase(p5)
     phases["tp"] = time.monotonic() - t0
 
     log(f"[14/16] train_sharded: fsdp={TS_DEGREE} {TS_FSDP_MODEL} "
         f"({TS_FSDP_LAYERS} layers) and "
-        f"tp={TS_DEGREE} {TS_TP_MODEL} as gloo ranks on the one card, then "
-        "examples/train_sharded over NCCL")
+        f"tp={TS_DEGREE} {TS_TP_MODEL} ({TS_TP_LAYERS} layers) as gloo ranks "
+        "on the one card, then examples/train_sharded over NCCL")
     t0 = time.monotonic()
     sharded = train_sharded_phase()
     phases["train_sharded"] = time.monotonic() - t0

@@ -4,7 +4,8 @@ uses.
 
 The port's copy of the parts of ``kubeflow_tpu/api/annotations.py`` that
 the StatefulSet, the Services, the webhook's env projections, the
-reconciler and the culler read.
+reconciler, the culler, the slice-health and pre-pull reconcilers, the
+platform reconciler and the auth sidecar read.
 Keys, labels and env names keep their JAX spellings
 (``notebooks.kubeflow.org/tpu-*``): the same Notebook objects carry them
 whichever package renders the pod.
@@ -16,6 +17,9 @@ from typing import Optional
 
 # -- lifecycle: controller-owned, never copied onto pod templates ------------
 STOP = "kubeflow-resource-stopped"  # present: the slice is scaled to 0
+# The stop annotation's value while the platform reconciler holds the
+# notebook back (its routes, policies and pull secret not yet in place).
+RECONCILIATION_LOCK_VALUE = "odh-notebook-controller-lock"
 RESTART = "notebooks.opendatahub.io/notebook-restart"
 UPDATE_PENDING = "notebooks.opendatahub.io/update-pending"
 LAST_ACTIVITY = "notebooks.kubeflow.org/last-activity"
@@ -27,11 +31,34 @@ TPU_RECOVERY_LAST_ESCALATION = (
     "notebooks.kubeflow.org/tpu-recovery-last-escalation")
 TPU_LAST_INTERRUPTION_DURATION = (
     "notebooks.kubeflow.org/tpu-last-interruption-duration")
+# Operator-set migration trigger: any value asks the slice-health
+# reconciler to fire its migration hook once; it clears the annotation
+# when it picks the trigger up.
+TPU_MIGRATE_NOW = "notebooks.kubeflow.org/tpu-migrate-now"
 
 # Event re-emission cursor: the token of the newest pod Event already
 # surfaced onto this Notebook (one read a reconcile, no write to Events,
 # and it survives a controller restart because it lives on the Notebook).
 LAST_SEEN_EVENT_RV = "notebooks.kubeflow.org/last-seen-event-rv"
+
+# -- auth and the platform's integrations ------------------------------------
+INJECT_AUTH = "notebooks.opendatahub.io/inject-auth"
+INJECT_OAUTH_LEGACY = "notebooks.opendatahub.io/inject-oauth"
+AUTH_SIDECAR_CPU_REQUEST = "notebooks.opendatahub.io/auth-sidecar-cpu-request"
+AUTH_SIDECAR_CPU_LIMIT = "notebooks.opendatahub.io/auth-sidecar-cpu-limit"
+AUTH_SIDECAR_MEMORY_REQUEST = (
+    "notebooks.opendatahub.io/auth-sidecar-memory-request")
+AUTH_SIDECAR_MEMORY_LIMIT = (
+    "notebooks.opendatahub.io/auth-sidecar-memory-limit")
+LAST_IMAGE_SELECTION = "notebooks.opendatahub.io/last-image-selection"
+WORKBENCH_IMAGE_NAMESPACE = (
+    "notebooks.opendatahub.io/workbench-image-namespace")
+MLFLOW_INSTANCE = "opendatahub.io/mlflow-instance"
+FEAST_INTEGRATION_LABEL = "opendatahub.io/feast-integration"
+# Runtime-image sync: ImageStreams with this label become the user
+# namespace's pipeline runtime images.
+RUNTIME_IMAGE_LABEL = "opendatahub.io/runtime-image"
+RUNTIME_IMAGE_NAME = "opendatahub.io/runtime-image-name"
 
 # Istio routing overrides of the VirtualService (USE_ISTIO).
 REWRITE_URI = "notebooks.kubeflow.org/http-rewrite-uri"
@@ -62,8 +89,32 @@ TPU_CHECKPOINT_DIR = "notebooks.kubeflow.org/tpu-checkpoint-dir"
 CHECKPOINT_DIR_ENV_NAME = "KUBEFLOW_TPU_CHECKPOINT_DIR"
 DEFAULT_CHECKPOINT_DIR = "/mnt/checkpoints"
 
+# -- controller-owned markers ------------------------------------------------
+# Marks the image pre-pull pods (controller/prepull.py).
+PREPULL_LABEL = "notebooks.kubeflow.org/prepull"
+# The platform reconciler's finalizer: the Notebook's deletion waits for
+# its teardown of the routes, the grant and the auth binding.
+PLATFORM_CLEANUP_FINALIZER = "notebooks.kubeflow.org/platform-cleanup"
+
 # -- labels ------------------------------------------------------------------
 NOTEBOOK_NAME_LABEL = "notebook-name"
+ODH_DASHBOARD_LABEL = "opendatahub.io/dashboard"
+
+
+def _reserved_ports() -> dict:
+    from kubeflow_tpu_torch.api import names
+
+    return {
+        names.NOTEBOOK_PORT: "the notebook server",
+        names.RBAC_PROXY_PORT: "the kube-rbac-proxy sidecar",
+        names.JAX_COORDINATOR_PORT: "the torch.distributed rendezvous",
+        names.MEGASCALE_PORT: "the multislice coordinator",
+    }
+
+
+# Ports already taken inside a notebook pod: a profiling or serving port
+# on one of these would collide at bootstrap.
+RESERVED_POD_PORTS = _reserved_ports()
 
 
 def parse_profiling_port(value) -> Optional[int]:

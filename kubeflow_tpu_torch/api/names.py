@@ -11,6 +11,7 @@ from __future__ import annotations
 import hashlib
 
 NOTEBOOK_PORT = 8888
+RBAC_PROXY_PORT = 8443  # the kube-rbac-proxy sidecar's TLS port
 # The coordinator port the env names: the JAX package's
 # jax.distributed port, which the port's torch.distributed rendezvous
 # listens on in its place.
@@ -37,3 +38,16 @@ def derived_name(base: str, suffix: str = "", limit: int = 63) -> str:
 def routing_service_name(notebook_name: str) -> str:
     """The per-notebook routing Service."""
     return derived_name(notebook_name, "", 63)
+
+
+def proxy_service_name(notebook_name: str) -> str:
+    """The kube-rbac-proxy Service, which the auth-mode HTTPRoute targets."""
+    return derived_name(notebook_name, "-kube-rbac-proxy", 63)
+
+
+# Objects the platform reconciler writes into the user's namespace.
+CA_BUNDLE_CONFIGMAP = "workbench-trusted-ca-bundle"
+RUNTIME_IMAGES_CONFIGMAP = "pipeline-runtime-images"
+ELYRA_SECRET_NAME = "ds-pipeline-config"
+MANAGED_BY_LABEL = "opendatahub.io/managed-by"
+MANAGED_BY_VALUE = "workbenches"

@@ -144,6 +144,15 @@ class Notebook:
     def stopped(self) -> bool:
         return ann.STOP in self.obj.get("metadata", {}).get("annotations", {})
 
+    @property
+    def lock_held(self) -> bool:
+        """The stop annotation is the platform reconciler's lock, not a
+        user's stop."""
+        return (
+            self.obj.get("metadata", {}).get("annotations", {}).get(ann.STOP)
+            == ann.RECONCILIATION_LOCK_VALUE
+        )
+
 
 def gpu_spec_schema() -> dict:
     """The CRD's OpenAPI schema of ``spec.gpu``: the counterpart of the

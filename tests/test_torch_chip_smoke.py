@@ -1829,6 +1829,74 @@ def test_cull_pod_fails_when_the_idle_time_is_not_reached(smoke,
         pod["loop"]["stub"].stop()
 
 
+def test_preempt_pod_restores_through_the_hook_and_recovers(smoke):
+    """Phase 12's loop after the child's exit, on the CPU: the notebook
+    resumes (the stub busy, so no second cull on the next tick), its pod
+    is preempted, the slice-health reconciler names the checkpoint in its
+    SliceInterrupted event and calls the hook once, the pod is recreated
+    and the Notebook recovered; then the deletion through the platform's
+    finalizer and the TLS watcher's one firing."""
+    pod = smoke.resume_pod("/ckpt")
+    loop = pod["loop"]
+    try:
+        smoke.cull_pod(loop)
+        calls = []
+        got = smoke.preempt_pod(loop, lambda why: calls.append(why) or 7)
+        assert got["result"] == 7 and calls == ["preemption-notice"]
+        assert got["interruption_duration"] == "0s"
+        assert 0 <= got["preempt_to_interrupted_s"] <= got["host_s"] + (
+            got["restore_s"])
+        c, mgr = loop["cluster"], loop["manager"]
+        mgr.tick(smoke.RESUME_IDLE_MIN * 60 + 61)
+        nb = c.get("Notebook", "resume", "smoke")
+        assert smoke.ann_mod.STOP not in nb["metadata"]["annotations"]
+        assert nb["status"]["gpu"]["sliceHealth"] == "Healthy"
+        reg = loop["metrics"].registry
+        assert reg.get_sample_value("notebook_culling_total") == 1.0
+        assert smoke.delete_notebook(loop) > 0
+        assert not c.list("Notebook") and not c.list("NetworkPolicy")
+        assert not mgr.reconcile_errors
+    finally:
+        loop["stub"].stop()
+
+
+def test_preempt_pod_raises_what_the_restore_raised(smoke):
+    """The reconciler logs and swallows a hook's exception; the phase
+    raises it after the loop is idle."""
+    pod = smoke.resume_pod("/ckpt")
+    loop = pod["loop"]
+
+    def broken(why):
+        raise RuntimeError("the restore failed")
+
+    try:
+        smoke.cull_pod(loop)
+        with pytest.raises(RuntimeError, match="the restore failed"):
+            smoke.preempt_pod(loop, broken)
+        # The reactive recovery went on without it.
+        anns = loop["cluster"].get("Notebook", "resume", "smoke")[
+            "metadata"]["annotations"]
+        assert smoke.ann_mod.TPU_LAST_INTERRUPTION_DURATION in anns
+        assert loop["migrate"] is None
+    finally:
+        loop["stub"].stop()
+
+
+def test_preempt_pod_fails_when_no_pod_was_interrupted(smoke, monkeypatch):
+    """A preemption the slice-health reconciler never sees (the kubelet
+    replaces the Failed pod first) calls no hook, and the phase says so."""
+    pod = smoke.resume_pod("/ckpt")
+    loop = pod["loop"]
+    try:
+        smoke.cull_pod(loop)
+        monkeypatch.setattr(loop["kubelet"], "preempt_pod",
+                            lambda name, ns: None)
+        with pytest.raises(AssertionError, match="hook was called with"):
+            smoke.preempt_pod(loop, lambda why: None)
+    finally:
+        loop["stub"].stop()
+
+
 class _StatsServer:
     def __init__(self, stats):
         self._stats = stats
@@ -1937,6 +2005,23 @@ def test_resume_phase_rehearsed_on_the_cpu(smoke, resume_small):
     assert out["restore_validate_s"] + out["restore_copy_s"] <= out[
         "restore_s"]
     assert out["leaves_equal_at_init"] < out["leaves"]
+    loop = out["loop"]
+    assert loop["interruption_duration"] == "0s"
+    assert loop["hook_restore_s"] >= out["restore_s"]
+    assert loop["host_s"] > loop["recovery_host_s"] > 0
+    assert loop["delete_s"] > 0
+
+
+def test_resume_phase_fails_when_the_hook_restore_raises(smoke, resume_small,
+                                                         monkeypatch):
+    """A restore that raises inside the slice-health reconciler's hook
+    fails the phase, though the reconciler swallows it."""
+    def broken(self, trigger):
+        raise RuntimeError("restore raised in the hook")
+
+    monkeypatch.setattr(smoke.MigrationOrchestrator, "migrate", broken)
+    with pytest.raises(RuntimeError, match="restore raised in the hook"):
+        smoke.resume_phase("tiny")
 
 
 def test_resume_phase_catches_a_wrong_restore(smoke, resume_small,
@@ -1977,11 +2062,14 @@ def test_tp_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     5's kernel against plain): the kernels at a rank's shapes through
     their plain versions, two gloo children (which count no launches on
     the CPU) held to a one-rank run by the near-tie rule and to each
-    other, and the degree-1 plan over a world-1 gloo group bit for bit
-    against the one-rank run, its collective functions timed on the
-    host."""
+    other, (a) cut to one of tiny's two layers and held to an unsharded
+    run at that depth, and the degree-1 plan over a world-1 gloo group
+    bit for bit against the one-rank run, its collective functions timed
+    on the host."""
     monkeypatch.setattr(smoke, "TP_MODEL", "tiny")
     monkeypatch.setattr(smoke, "TP_DTYPE", "float32")
+    # (a)'s depth cut: one of tiny's two layers.
+    monkeypatch.setattr(smoke, "TP_LAYERS", 1)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
     cfg = dataclasses.replace(TL.LLAMA_CONFIGS["tiny"], dtype=torch.float32)
     prompts = smoke._prompts(cfg, 16, 8, 500, smoke.SEED)
@@ -2005,6 +2093,7 @@ def test_tp_phase_rehearsed_on_the_cpu(smoke, no_card, monkeypatch):
     assert two["continuous_steps"] > 0
     assert two["wq_shape"] == [cfg.dim, cfg.dim // 2]
     assert two["w_down_shape"] == [cfg.ffn_hidden // 2, cfg.dim]
+    assert two["layers"] == 1 and two["reference_s"] > 0
     assert set(two["seconds"]) == {"spawn", "init", "serve", "total"}
     assert len(two["forks"]["ragged"]) == 8
     assert len(two["forks"]["alternating"]) == 4
@@ -2026,7 +2115,8 @@ def test_train_sharded_phase_rehearsed_on_the_cpu(smoke, no_card,
                                                   monkeypatch):
     """Phase 14 at ``tiny`` (fsdp=2) and ``tiny-gqa`` (tp=2) in float32 on
     the CPU, S 64 in loss chunks of 16: the rank-shape kernels through
-    their plain versions at a small shape, the unsharded reference, two
+    their plain versions at a small shape, the unsharded reference of
+    each part at its depth ((b) cut to one of tiny-gqa's two layers), two
     gloo children each for (a) and (b) (which count no launches on the
     CPU) held to it and to each other, (a)'s save into two ``proc<k>``
     roots and its restore with every digest equal, and
@@ -2041,12 +2131,8 @@ def test_train_sharded_phase_rehearsed_on_the_cpu(smoke, no_card,
     monkeypatch.setattr(smoke, "TS_TP_MODEL", "tiny-gqa")
     monkeypatch.setattr(smoke, "TP_DTYPE", "float32")
     cfg = smoke._tp_config("tiny-gqa", "float32")
-    # Phase 10's step 1, recorded where it runs.
-    with smoke.tempfile.TemporaryDirectory() as tmp:
-        corpus = smoke._train_corpus(tmp, cfg.vocab_size)
-        with smoke.TokenLoader(corpus, 1, 64, seed=smoke.SEED + 1) as ld:
-            tokens = torch.from_numpy(ld.next())
-    smoke.STEP_ONE[cfg] = smoke._ts_reference(cfg, tokens)
+    # (b)'s depth cut: one of tiny-gqa's layers.
+    monkeypatch.setattr(smoke, "TS_TP_LAYERS", cfg.n_layers - 1)
     out = smoke.train_sharded_phase()
     fsdp, tp = out["fsdp"], out["tp"]
     zero = {"flash": 0, "bwd_dq": 0, "bwd_dkv": 0}
@@ -2063,6 +2149,7 @@ def test_train_sharded_phase_rehearsed_on_the_cpu(smoke, no_card,
     # fsdp cuts the input dim, tp the output one.
     assert fsdp["wq_shape"] == [tiny.dim // 2, tiny.dim]
     assert tp["wq_shape"] == [cfg.dim, cfg.dim // 2]
+    assert tp["layers"] == cfg.n_layers - 1
     assert fsdp["state_gb"][0] == fsdp["state_gb"][1] > 0
     assert fsdp["resumed_launches"] == [zero, zero]
     assert all(x < fsdp["losses"][0] for x in fsdp["after_loss"])

@@ -268,3 +268,44 @@ def test_the_cluster_layer_is_scanned_and_loads_no_jax():
     assert not [m for m in mapped if m.startswith(str(ROOT / "native"))]
     for f in _port_files():
         assert "libkftpu_prober" not in f.read_text(), f
+
+
+def test_the_platform_recovery_and_prepull_modules_load_no_jax():
+    """The rest of the controller (``preemption.py``, ``prepull.py``,
+    ``platform.py`` with ``routes.py``, ``network.py``, ``auth.py``,
+    ``integrations.py`` and ``tls.py``) and ``webhook/auth_sidecar.py``
+    are in the scan above, and a process that imports them through
+    ``kubeflow_tpu_torch.controller`` and builds each reconciler over a
+    ``FakeCluster`` loads nothing of JAX or the JAX package."""
+    scanned = {str(f.relative_to(ROOT)) for f in _port_files()}
+    modules = ("controller/preemption.py", "controller/prepull.py",
+               "controller/platform.py", "controller/routes.py",
+               "controller/network.py", "controller/auth.py",
+               "controller/integrations.py", "controller/tls.py",
+               "webhook/auth_sidecar.py")
+    for rel in modules:
+        assert f"kubeflow_tpu_torch/{rel}" in scanned, rel
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "from kubeflow_tpu_torch.controller import (PlatformConfig, "
+        "PlatformReconciler, SliceHealthReconciler)\n"
+        "from kubeflow_tpu_torch.controller.prepull import PrePullReconciler\n"
+        "from kubeflow_tpu_torch.controller.tls import (fetch_tls_profile, "
+        "SecurityProfileWatcher)\n"
+        "from kubeflow_tpu_torch.webhook import auth_sidecar\n"
+        "from kubeflow_tpu_torch.k8s import FakeCluster, Manager\n"
+        "c = FakeCluster(); m = Manager(c)\n"
+        "SliceHealthReconciler(c).register(m)\n"
+        "PlatformReconciler(c, PlatformConfig()).register(m)\n"
+        "PrePullReconciler(c).register(m)\n"
+        "SecurityProfileWatcher(c, fetch_tls_profile(c), print).register(m)\n"
+        "m.run_until_idle()\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{NOT_AT_IMPORT!r}]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr

@@ -27,7 +27,15 @@ loop drove:
   ``spec.nodeName`` follows; the FakeKubelet's Unschedulable message says
   GPU where it says TPU;
 - the catalog's error messages: each key of ``messages`` (a JAX refusal)
-  becomes its value (the port's refusal of the same spec).
+  becomes its value (the port's refusal of the same spec);
+- a warm claim's event names the slice type in parentheses, JAX's and
+  the port's;
+- the slice-health reconciler's interruption event: "in-notebook JAX
+  state is gone" becomes "in-notebook PyTorch state is gone" (``TEXTS``);
+- the pre-pull pods: each is named ``prepull-<node>-<image-set digest>``,
+  so its name follows its node's, as its ``spec.nodeName`` and its node
+  annotation do; the pre-puller selects GPU nodes by the GPU node label,
+  where JAX's selects TPU nodes by ``gke-tpu-accelerator``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,9 @@ from kubeflow_tpu.api import annotations as JA
 
 SWAPPED_ENV = ("TPU_ACCELERATOR_TYPE", "TPU_TOPOLOGY",
                "TPU_CHIPS_PER_HOST_BOUNDS", "TPU_HOST_BOUNDS")
+# Texts inside a longer string: (JAX's, the port's).
+TEXTS = (("in-notebook JAX state is gone",
+          "in-notebook PyTorch state is gone"),)
 
 
 def swap(tree, jtopo, ptopo):
@@ -109,6 +120,11 @@ def swap_cluster(objects: dict, jtopo, ptopo, nodes: dict = None,
                    "0/N nodes match GPU nodeSelector/allocatable"}
 
     def text(value: str) -> str:
+        for old, new in TEXTS:
+            value = value.replace(old, new)
+        if jtopo is not None:
+            value = value.replace(f"({jtopo.accelerator_type})",
+                                  f"({ptopo.accelerator_type})")
         if value in messages:
             return messages[value]
         if value in replace:
@@ -145,7 +161,7 @@ def swap_cluster(objects: dict, jtopo, ptopo, nodes: dict = None,
         if kind == "Node":
             labels = new["metadata"]["labels"]
             if jtopo is not None and all(
-                    labels.get(k) == v
+                    obj["metadata"]["labels"].get(k) == v
                     for k, v in jtopo.node_selector().items()):
                 for k in jtopo.node_selector():
                     del labels[k]
@@ -156,5 +172,10 @@ def swap_cluster(objects: dict, jtopo, ptopo, nodes: dict = None,
                 alloc["nvidia.com/gpu"] = str(ptopo.chips_per_host)
         if was_named:
             new["metadata"]["name"] = event_name(new)
+        if kind == "Pod" and JA.PREPULL_LABEL in new["metadata"].get(
+                "labels", {}):
+            old = obj["spec"]["nodeName"]
+            new["metadata"]["name"] = new["metadata"]["name"].replace(
+                f"prepull-{old}-", f"prepull-{nodes[old]}-")
         result[(kind, ns, new["metadata"]["name"])] = new
     return result
