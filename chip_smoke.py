@@ -56,9 +56,11 @@ every kernel's launch count set to 0 just before it and read just after:
   three flash kernels as training, and ``examples/finetune_lora.py`` as a
   user runs it;
 - resuming after a preemption (``runtime/``): a child process, started
-  from the env of the single-card H100 pod the port's controller loop
-  makes for its notebook (``k8s/``, ``webhook/gpu_env.py``,
-  ``controller/notebook.py``), trains ``gemma-2b`` on the card (the same
+  from the env of the single-card H100 pod the port's two managers make
+  for its notebook (``cmd/``, ``k8s/``, ``controller/notebook.py``),
+  admitted by the port's own webhooks (``webhook/``; the same again
+  over the wire, through ``k8s/envtest.py``, ``k8s/real.py`` and
+  ``webhook/server.py``), trains ``gemma-2b`` on the card (the same
   three flash kernels a step) under ``bootstrap`` and
   ``install_preemption_handler``; the loop's culler (``controller/
   culling.py``, its native prober built here) stops the idle notebook,
@@ -373,18 +375,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``RESUME_LAYERS``; its checks do not depend on depth). MemAvailable
    and the free disk must each hold 2.5 × its train state (~5.8 GB: bf16
    params and two bf16 AdamW moments).
-   The child's pod comes from the port's controller loop first
+   The child's pod comes from the port's two managers first
    (``resume_pod``): a Notebook with ``spec.gpu: {accelerator: h100,
    topology: "1"}`` and the checkpoint grace (120 s) and directory
-   annotations is created in a ``FakeCluster`` on a ``FakeClock`` whose
-   Notebook mutating hook is ``mutate_gpu_notebook``, over one node of
-   the card's catalog entry (``add_gpu_node_pool``), with ``FakeKubelet``,
-   ``NotebookReconciler`` and ``CullingReconciler`` under one
-   ``Manager`` and one ``Metrics`` bundle; the pod the kubelet made must
-   have ``nvidia.com/gpu`` "1" in limits and requests, the nodeSelector
-   the h100 label, the toleration ``nvidia.com/gpu``,
-   terminationGracePeriodSeconds 150, and be Running, and the Notebook's
-   ``status.gpu`` must read 1 ready host, "Healthy". On the card, the
+   annotations is created in a ``FakeCluster`` on a ``FakeClock``, over
+   one node of the card's catalog entry (``add_gpu_node_pool``) and a
+   ``default`` ServiceAccount with an image-pull secret; the loop is the
+   bundles ``cmd/platform_manager.build`` and ``cmd/notebook_manager.
+   build`` return over them (the culler and the pre-puller switched on
+   by the manager's env), and the cluster's admission is the platform
+   bundle's ``NotebookMutatingWebhook`` and ``NotebookValidatingWebhook``
+   (``webhook/``), with ``FakeKubelet`` and ``FakePodRunner`` registered
+   last. The created Notebook must carry the reconciliation lock, and no
+   pod may exist until the platform reconciler has released it; the pod
+   the kubelet made must have ``nvidia.com/gpu`` "1" in limits and
+   requests, the nodeSelector the h100 label, the toleration
+   ``nvidia.com/gpu``, terminationGracePeriodSeconds 150, every env entry
+   ``mutate_gpu_notebook`` gives the same Notebook, and be Running; the
+   Notebook's ``status.gpu`` must read 1 ready host, "Healthy", and a
+   topology edit of it is denied by the validating webhook. Then the
+   same over the wire (``wire_pod``, the host only): the port's
+   ``EnvtestServer``, both managers over ``RealClient``s driven by
+   ``serve()`` threads on a ``RealClock``, admission over HTTP (plain:
+   the card's machine may lack the ``openssl`` CLI) from
+   ``add_remote_webhook`` to the port's ``WebhookServer``; within 30 s
+   the Notebook is one Running pod of ``nvidia.com/gpu`` "1", Healthy,
+   its env equal to the in-process pod's, and its deletion drains the
+   pod and the platform's objects. On the card, the
    card's ``total_memory`` must be at least 0.95 of the catalog entry's
    80 GiB.
    A child (``python -c`` on ``resume_child``, its env the parent's with
@@ -446,8 +463,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the TLS watcher once. It prints the emergency save's seconds and GB/s,
    each ``save``'s snapshot seconds, the restore's seconds split into
    validation and copy, SIGTERM to exit, the migration's step durations,
-   and the loop's seconds from the preemption to the hook's call, its
-   own host seconds and the hook's restore seconds;
+   the loop's seconds from the preemption to the hook's call, its
+   own host seconds and the hook's restore seconds, the wire step's
+   create-to-Healthy seconds and its admission round trips, and the
+   phase's split (loop, wire, child, restore);
 13. tp — tensor-parallel replicas (``models/tp_serving.py``). First one
    launch each of the ragged, flash, paged decode and dense decode
    kernels at a tp=2 rank's shapes of llama-3-8b (16 q, 4 kv heads),
@@ -714,7 +733,11 @@ from kubeflow_tpu_torch.runtime.migration import (
     MigrationOrchestrator,
 )
 from kubeflow_tpu_torch.webhook import gpu_env
+from kubeflow_tpu_torch.webhook import server as webhook_server_mod
 from kubeflow_tpu_torch import k8s as k8s_mod
+from kubeflow_tpu_torch.cmd import notebook_manager as notebook_manager_mod
+from kubeflow_tpu_torch.cmd import platform_manager as platform_manager_mod
+from kubeflow_tpu_torch.k8s import serve as serve_mod
 from kubeflow_tpu_torch.gpu import topology as gpu_topology
 from kubeflow_tpu_torch.metrics.metrics import STATS_PARITY, Metrics
 from kubeflow_tpu_torch.metrics.server import MetricsServer
@@ -5269,6 +5292,15 @@ CARD_MEMORY_SHARE = 0.95
 # HTTPRoute, and where its PrePullReconciler keeps the pre-pull pods.
 PLATFORM_NAMESPACE = platform_mod.PlatformConfig().controller_namespace
 PREPULL_NAMESPACE = prepull_mod.PrePullConfig().namespace
+# The platform manager's flags: the one it requires, the sidecar's image.
+RESUME_PLATFORM_ARGV = ["--kube-rbac-proxy-image", "kube-rbac-proxy:latest"]
+# The image-pull secret of the namespace's default ServiceAccount, as a
+# token controller mints it: the platform reconciler releases the
+# reconciliation lock only once the pod's ServiceAccount has one.
+RESUME_PULL_SECRETS = [{"name": "default-dockercfg"}]
+# Phase 12 (b), over the wire: its Notebook must be Healthy, and then
+# drained, within this many seconds of its create.
+WIRE_TIMEOUT_S = 30.0
 
 RESUME_TAG = "resume-child "
 # The per-leaf digest: the sum of the leaf's bytes, and the sum of each
@@ -5457,30 +5489,96 @@ class _JupyterStub:
         self._thread.join(timeout=10)
 
 
+class _Managers:
+    """Phase 12's loop: the platform manager's and the notebook manager's
+    bundles over one cluster and one clock, driven as one. Each call runs
+    the platform's manager and then the notebook controller's, in turns,
+    until neither has work left; ``tick`` moves the shared clock once."""
+
+    MAX_TURNS = 200
+
+    def __init__(self, *bundles):
+        self.bundles = bundles
+
+    @property
+    def reconcile_errors(self) -> list:
+        return [e for b in self.bundles for e in b.manager.reconcile_errors]
+
+    def run_until_idle(self) -> int:
+        calls = 0
+        for _ in range(self.MAX_TURNS):
+            turn = sum(b.run_until_idle() for b in self.bundles)
+            if not turn:
+                return calls
+            calls += turn
+        raise RuntimeError(f"the managers did not quiesce in "
+                           f"{self.MAX_TURNS} turns")
+
+    def tick(self, seconds: float) -> int:
+        calls = self.bundles[0].tick(seconds)
+        calls += sum(b.tick(0) for b in self.bundles[1:])
+        return calls + self.run_until_idle()
+
+
+def _pull_secret_account(ns: str) -> dict:
+    """The namespace's ``default`` ServiceAccount with its image-pull
+    secret."""
+    return {"apiVersion": "v1", "kind": "ServiceAccount",
+            "metadata": {"name": "default", "namespace": ns},
+            "imagePullSecrets": [dict(s) for s in RESUME_PULL_SECRETS]}
+
+
+def _resume_notebook(ckpt_dir: str) -> dict:
+    """Phase 12's Notebook: ``RESUME_POD`` with the checkpoint grace and
+    directory annotations."""
+    name, ns = RESUME_POD["name"], RESUME_POD["namespace"]
+    return {"apiVersion": "kubeflow.org/v1", "kind": "Notebook",
+            "metadata": {"name": name, "namespace": ns,
+                         "annotations": {
+                             ann_mod.TPU_CHECKPOINT_GRACE:
+                                 str(RESUME_GRACE_S),
+                             ann_mod.TPU_CHECKPOINT_DIR: ckpt_dir}},
+            "spec": {"template": {"spec": {"containers": [
+                {"name": name, "image": "notebook"}]}},
+                "gpu": dict(RESUME_POD["gpu"])}}
+
+
 def resume_pod(ckpt_dir: str) -> dict:
-    """The pod the port's controller loop makes for phase 12's notebook:
+    """The pod the port's managers make for phase 12's notebook:
     ``RESUME_POD`` on one h100 card with the checkpoint grace and
-    directory annotations, created in a ``FakeCluster`` (on a
-    ``FakeClock``) whose Notebook mutating hook is ``mutate_gpu_notebook``,
-    over one node of the card's catalog entry (``add_gpu_node_pool``),
-    with ``NotebookReconciler``, ``CullingReconciler`` (its Python prober
-    through the DEV proxy, a loopback Jupyter stub),
-    ``SliceHealthReconciler`` (its migration hook calls ``loop["migrate"]``
-    where one is set), ``PlatformReconciler`` (default config: plain
-    routes), an enabled ``PrePullReconciler``, a
-    ``SecurityProfileWatcher`` booted from ``fetch_tls_profile``, then
-    ``FakeKubelet`` and ``FakePodRunner`` (registered last, as the JAX
-    package's harness registers its kubelet, so that the slice-health
-    reconciler sees a Failed pod before the kubelet replaces it) under one
-    ``Manager`` and one ``Metrics`` bundle. Checks the pod the kubelet
-    made: the card resource, the nodeSelector, the toleration, the grace
-    period, one replica, Ready; the Notebook's ``status.gpu`` Healthy with
-    1 ready host; and the platform's and the pre-puller's work: the
-    finalizer, the two NetworkPolicies and no intra-slice one (one host),
-    the HTTPRoute in the controller namespace and the ReferenceGrant in
-    the user's, and one Succeeded pre-pull pod bound to the H100 node with
-    the placeholder PriorityClass, ``tpu_prepull_nodes_covered`` and
-    ``_target`` at 1; the TLS profile is Intermediate (no ``APIServer``).
+    directory annotations, in a ``FakeCluster`` (on a ``FakeClock``) over
+    one node of the card's catalog entry (``add_gpu_node_pool``), whose
+    namespace's ``default`` ServiceAccount carries an image-pull secret.
+    The loop is the two bundles ``cmd/platform_manager.build`` and
+    ``cmd/notebook_manager.build`` return over that cluster and clock
+    (``_Managers``): the platform's ``PlatformReconciler`` (default
+    config: plain routes), its ``SecurityProfileWatcher`` booted from
+    ``fetch_tls_profile``, and its ``NotebookMutatingWebhook`` and
+    ``NotebookValidatingWebhook`` as the cluster's admission; the notebook
+    manager's ``NotebookReconciler``, ``SliceHealthReconciler``,
+    ``SlicePoolReconciler``, an enabled ``PrePullReconciler`` and the
+    ``CullingReconciler`` (CULL_IDLE_TIME ``RESUME_IDLE_MIN``, its Python
+    prober through the DEV proxy, a loopback Jupyter stub, passed as
+    ``build(prober=)``) under one ``Metrics`` bundle. What ``build`` takes
+    no parameter for is attached to its objects after it: the
+    slice-health reconciler's migration hook (it calls ``loop["migrate"]``
+    where one is set), then ``FakeKubelet`` and ``FakePodRunner``,
+    registered last on the notebook manager (so the slice-health
+    reconciler sees a Failed pod before the kubelet replaces it).
+
+    Checks that the created Notebook carries the reconciliation lock and
+    that no pod exists until the platform reconciler has released it;
+    then the pod the kubelet made: the card resource, the nodeSelector,
+    the toleration, the grace period, one replica, Ready, and an env
+    holding every entry ``gpu_env.mutate_gpu_notebook`` gives the same
+    Notebook; the Notebook's ``status.gpu`` Healthy with 1 ready host; the
+    platform's and the pre-puller's work: the finalizer, the two
+    NetworkPolicies and no intra-slice one (one host), the HTTPRoute in
+    the controller namespace and the ReferenceGrant in the user's, and
+    one Succeeded pre-pull pod bound to the H100 node with the placeholder
+    PriorityClass, ``tpu_prepull_nodes_covered`` and ``_target`` at 1;
+    the TLS profile is Intermediate (no ``APIServer``); and a topology
+    edit of the running notebook is denied by the validating webhook.
     Returns {"env": pod 0's container env with its pod index filled in,
     "expected_devices": the nvidia.com/gpu limit, "termination_grace_s",
     "accelerator": the catalog entry, "render_s": Notebook create to
@@ -5489,61 +5587,58 @@ def resume_pod(ckpt_dir: str) -> dict:
     card = gpu_topology.slice_from_spec("h100", "1")
     clock = k8s_mod.FakeClock()
     cluster = k8s_mod.FakeCluster(clock=clock)
-    cluster.register_mutating_webhook(
-        "Notebook", lambda req: gpu_env.mutate_gpu_notebook(req.object))
-    mgr = k8s_mod.Manager(cluster, clock=clock)
     nodes = k8s_mod.add_gpu_node_pool(
         cluster, card.gke_accelerator_label, card.topology_str, hosts=1,
         cards_per_host=card.accelerator.chips_per_host)
-    metrics = Metrics(cluster)
-    controller_mod.NotebookReconciler(cluster, metrics=metrics,
-                                      clock=clock).register(mgr)
+    cluster.create(_pull_secret_account(ns))
     stub = _JupyterStub()
     proxy = f"http://127.0.0.1:{stub.port}"
-    culler = culling_mod.CullingReconciler(
-        cluster, config=culling_mod.CullerConfig(
-            enable_culling=True, cull_idle_time_min=RESUME_IDLE_MIN,
-            dev_mode=True),
-        prober=prober_mod.make_prober(timeout_s=5.0, dev_proxy=proxy),
-        metrics=metrics, clock=clock)
-    culler.register(mgr)
+    platform = platform_manager_mod.build(
+        cluster, env={"K8S_NAMESPACE": PLATFORM_NAMESPACE},
+        argv=list(RESUME_PLATFORM_ARGV), clock=clock)
+    notebooks = notebook_manager_mod.build(
+        cluster, env={"ENABLE_CULLING": "true",
+                      "CULL_IDLE_TIME": str(RESUME_IDLE_MIN), "DEV": "true",
+                      "ENABLE_IMAGE_PREPULL": "true"},
+        clock=clock,
+        prober=prober_mod.make_prober(timeout_s=5.0, dev_proxy=proxy))
+    mgr = _Managers(platform, notebooks)
     loop = {"cluster": cluster, "clock": clock, "manager": mgr,
-            "metrics": metrics, "culler": culler, "stub": stub,
+            "platform": platform, "notebooks": notebooks,
+            "metrics": notebooks.metrics,
+            "culler": notebooks.culling_reconciler, "stub": stub,
             "proxy": proxy, "name": name, "namespace": ns,
             "ckpt_dir": ckpt_dir, "migrate": None, "hook_calls": [],
-            "tls_changes": []}
+            "tls_changes": platform.restart_requested}
 
     def migration_hook(obj, trigger):
         loop["hook_calls"].append((obj["metadata"]["name"], trigger))
         if loop["migrate"] is not None:
             loop["migrate"](obj, trigger)
 
-    preemption_mod.SliceHealthReconciler(
-        cluster, metrics=metrics, clock=clock,
-        migration_trigger=migration_hook).register(mgr)
-    platform_mod.PlatformReconciler(cluster).register(mgr)
-    prepull_mod.PrePullReconciler(cluster, metrics=metrics,
-                                  clock=clock).register(mgr)
-    boot = tls_mod.fetch_tls_profile(cluster)
-    tls_mod.SecurityProfileWatcher(
-        cluster, boot, loop["tls_changes"].append).register(mgr)
+    notebooks.preemption_reconciler.migration_trigger = migration_hook
     loop["kubelet"] = k8s_mod.FakeKubelet(cluster)
-    loop["kubelet"].register(mgr)
-    k8s_mod.FakePodRunner(cluster).register(mgr)
+    loop["kubelet"].register(notebooks.manager)
+    k8s_mod.FakePodRunner(cluster).register(notebooks.manager)
     try:
+        boot = platform.tls_profile
         check(boot == tls_mod.INTERMEDIATE,
               f"the TLS profile with no APIServer: {boot}")
-        obj = {"apiVersion": "kubeflow.org/v1", "kind": "Notebook",
-               "metadata": {"name": name, "namespace": ns,
-                            "annotations": {
-                                ann_mod.TPU_CHECKPOINT_GRACE:
-                                    str(RESUME_GRACE_S),
-                                ann_mod.TPU_CHECKPOINT_DIR: ckpt_dir}},
-               "spec": {"template": {"spec": {"containers": [
-                   {"name": name, "image": "notebook"}]}},
-                   "gpu": dict(RESUME_POD["gpu"])}}
+        obj = _resume_notebook(ckpt_dir)
+        ref = gpu_env.mutate_gpu_notebook(json.loads(json.dumps(obj)))
         t0 = time.monotonic()
-        cluster.create(obj)
+        created = cluster.create(obj)
+        check(created["metadata"]["annotations"].get(ann_mod.STOP)
+              == ann_mod.RECONCILIATION_LOCK_VALUE,
+              f"the created Notebook's annotations: "
+              f"{created['metadata']['annotations']}")
+        notebooks.run_until_idle()
+        check(not cluster.list("Pod", ns),
+              "a pod exists before the platform released the lock")
+        platform.run_until_idle()
+        anns = cluster.get("Notebook", name, ns)["metadata"]["annotations"]
+        check(ann_mod.STOP not in anns and not cluster.list("Pod", ns),
+              f"the platform reconciler did not release the lock: {anns}")
         mgr.run_until_idle()
         render_s = time.monotonic() - t0
         check(not mgr.reconcile_errors, f"the loop: {mgr.reconcile_errors}")
@@ -5575,12 +5670,18 @@ def resume_pod(ckpt_dir: str) -> dict:
               == "Healthy", f"the Notebook's status.gpu: {status}")
         index = int(pod["metadata"]["labels"][gpu_env.POD_INDEX_LABEL])
         env = gpu_env.pod_env(container, index)
+        want = gpu_env.pod_env(Notebook(ref).primary_container(), index)
+        check(all(env.get(k) == v for k, v in want.items()),
+              f"the pod's env {env} lacks mutate_gpu_notebook's {want}")
         check(env["TPU_WORKER_ID"] == "0"
               and env[ann_mod.CHECKPOINT_GRACE_ENV_NAME] == str(RESUME_GRACE_S)
               and env[ann_mod.CHECKPOINT_DIR_ENV_NAME] == ckpt_dir
               and "JAX_COORDINATOR_ADDRESS" not in env,
               f"the pod's env: {env}")
         _check_platform(loop, nodes)
+        check(_update_denial(cluster, name, ns).startswith(
+            "spec.gpu cannot change while the notebook is running"),
+            "a topology edit of the running notebook was not denied")
     except BaseException:
         stub.stop()
         raise
@@ -5588,6 +5689,170 @@ def resume_pod(ckpt_dir: str) -> dict:
     return {"env": env, "expected_devices": int(res["limits"][gpu]),
             "termination_grace_s": grace, "accelerator": topo.accelerator,
             "render_s": render_s, "loop": loop}
+
+
+def _update_denial(cluster, name: str, ns: str) -> str:
+    """The validating webhook's denial of a topology edit of the Notebook
+    (one card → two), or "" when the update went through."""
+    edit = cluster.get("Notebook", name, ns)
+    edit["spec"]["gpu"]["topology"] = "2"
+    try:
+        cluster.update(edit)
+    except k8s_mod.WebhookDeniedError as err:
+        return str(err)
+    return ""
+
+
+class _KubeletBundle:
+    """``serve()``'s view of the kubelet's manager."""
+
+    def __init__(self, manager):
+        self.manager = manager
+
+    def tick(self, seconds: float) -> int:
+        return self.manager.tick(seconds)
+
+
+def _wait_until(fn, deadline: float, what: str):
+    """Poll ``fn`` until it returns a true value, by ``deadline`` (a
+    monotonic time)."""
+    while True:
+        got = fn()
+        if got:
+            return got
+        check(time.monotonic() < deadline,
+              f"phase 12 over the wire: {what} not within {WIRE_TIMEOUT_S} s")
+        time.sleep(0.02)
+
+
+def wire_pod(want_env: dict, ckpt_dir: str) -> dict:
+    """Phase 12 (b), over the wire, on the host: the port's
+    ``EnvtestServer`` over a ``FakeCluster`` with one node of the H100
+    catalog entry and the pull-secret ServiceAccount; both managers from
+    their ``build()`` over ``RealClient``s of their own, each driven by
+    ``serve()`` on a ``RealClock`` in a thread, and a ``FakeKubelet`` over
+    its own ``RealClient``; admission through ``add_remote_webhook`` to
+    the port's ``WebhookServer`` serving the platform bundle's webhooks.
+    The card's machine is not known to have the ``openssl`` CLI that makes
+    a serving cert, so the listener runs with ``cert_dir=None``, the
+    server's plain mode; the TLS listener is held by the CPU tests
+    (``tests/test_torch_webhook_server.py``, ``test_torch_serve_e2e.py``).
+    Within ``WIRE_TIMEOUT_S`` of its create by this step's clock, phase
+    12's Notebook must become one Running pod with ``nvidia.com/gpu`` "1"
+    and ``status.gpu`` Healthy, whose ``pod_env`` equals ``want_env``
+    (the in-process loop's for the same annotations); then its deletion
+    must drain the pod and the platform's objects. Every thread and
+    server it starts is stopped before it returns. Returns
+    {"healthy_s": create to Healthy, "drained_s": the delete to drained,
+    "round_trips": AdmissionReview calls by path, "wire_s": the step}."""
+    t_wire = time.monotonic()
+    name, ns = RESUME_POD["name"], RESUME_POD["namespace"]
+    card = gpu_topology.slice_from_spec("h100", "1")
+    cluster = k8s_mod.FakeCluster()
+    k8s_mod.add_gpu_node_pool(
+        cluster, card.gke_accelerator_label, card.topology_str, hosts=1,
+        cards_per_host=card.accelerator.chips_per_host)
+    cluster.create(_pull_secret_account(ns))
+    server = k8s_mod.EnvtestServer(cluster).start()
+    clients, threads, stop, hook = [], [], threading.Event(), None
+    trips = {webhook_server_mod.MUTATE_PATH: 0,
+             webhook_server_mod.VALIDATE_PATH: 0}
+
+    def new_client():
+        clients.append(k8s_mod.RealClient(server.client_config()))
+        return clients[-1]
+
+    def counted(path, handle):
+        def call(req):
+            trips[path] += 1
+            return handle(req)
+        return call
+
+    try:
+        platform = platform_manager_mod.build(
+            new_client(), env={"K8S_NAMESPACE": PLATFORM_NAMESPACE},
+            argv=list(RESUME_PLATFORM_ARGV), clock=k8s_mod.RealClock())
+        notebooks = notebook_manager_mod.build(
+            new_client(), env={}, clock=k8s_mod.RealClock())
+        kubelet_client = new_client()
+        kubelet = k8s_mod.Manager(kubelet_client, clock=k8s_mod.RealClock())
+        k8s_mod.FakeKubelet(kubelet_client).register(kubelet)
+        hook = webhook_server_mod.WebhookServer(
+            counted(webhook_server_mod.MUTATE_PATH,
+                    platform.mutating_webhook.handle),
+            counted(webhook_server_mod.VALIDATE_PATH,
+                    platform.validating_webhook.handle),
+            cert_dir=None, tls_profile=platform.tls_profile)
+        hook.start()
+        base = f"http://127.0.0.1:{hook.port}"
+        server.add_remote_webhook(
+            "Notebook", mutate_url=base + webhook_server_mod.MUTATE_PATH,
+            validate_url=base + webhook_server_mod.VALIDATE_PATH)
+        for bundle, client in ((platform, clients[0]),
+                               (notebooks, clients[1]),
+                               (_KubeletBundle(kubelet), kubelet_client)):
+            threads.append(threading.Thread(
+                target=serve_mod.serve, args=(bundle, client, stop),
+                daemon=True))
+            threads[-1].start()
+        user = new_client()
+        t0 = time.monotonic()
+        deadline = t0 + WIRE_TIMEOUT_S
+        created = user.create(_resume_notebook(ckpt_dir))
+        check(created["metadata"]["annotations"].get(ann_mod.STOP)
+              == ann_mod.RECONCILIATION_LOCK_VALUE,
+              "over the wire: the created Notebook holds no lock")
+
+        def healthy():
+            status = user.get("Notebook", name, ns).get("status", {})
+            return status.get("gpu", {}).get("sliceHealth") == "Healthy"
+
+        def running():
+            pods = user.list("Pod", ns)
+            return pods if len(pods) == 1 and pods[0].get("status", {}).get(
+                "phase") == "Running" else None
+
+        _wait_until(healthy, deadline, "status.gpu Healthy")
+        healthy_s = time.monotonic() - t0
+        (pod,) = _wait_until(running, deadline, "a Running pod")
+        (container,) = pod["spec"]["containers"]
+        limit = container["resources"]["limits"].get(
+            controller_mod.GPU_RESOURCE)
+        check(limit == "1", f"over the wire: the pod's nvidia.com/gpu {limit}")
+        env = gpu_env.pod_env(container, int(
+            pod["metadata"]["labels"][gpu_env.POD_INDEX_LABEL]))
+        check(env == want_env, "over the wire: the pod's env "
+              f"{sorted(set(env.items()) ^ set(want_env.items()))} differs "
+              "from the in-process loop's")
+        _wait_until(lambda: user.list("HTTPRoute")
+                    and user.list("NetworkPolicy", ns), deadline,
+                    "the platform's route and policies")
+        t1 = time.monotonic()
+        user.delete("Notebook", name, ns)
+        _wait_until(lambda: not user.exists("Notebook", name, ns)
+                    and not user.list("Pod", ns)
+                    and not user.list("HTTPRoute")
+                    and not user.list("ReferenceGrant")
+                    and not user.list("NetworkPolicy", ns), deadline,
+                    "the deletion's drain")
+        drained_s = time.monotonic() - t1
+        errors = platform.manager.reconcile_errors + (
+            notebooks.manager.reconcile_errors)
+        check(not errors, f"over the wire: {errors}")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+        if hook is not None:
+            hook.stop()
+        for c in clients:
+            c.stop()
+        server.stop()
+    check(not any(t.is_alive() for t in threads),
+          "a serve loop outlived its stop")
+    check(all(trips.values()), f"admission round trips {trips}")
+    return {"healthy_s": healthy_s, "drained_s": drained_s,
+            "round_trips": dict(trips), "wire_s": time.monotonic() - t_wire}
 
 
 def _check_platform(loop: dict, nodes: list) -> None:
@@ -6014,6 +6279,11 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
         corpus = _train_corpus(tmp, cfg.vocab_size)
         ckpt_dir = os.path.join(tmp, "ckpt")
         pod = resume_pod(ckpt_dir)
+        wire = wire_pod(pod["env"], ckpt_dir)
+        log(f"  over the wire: the Notebook Healthy {wire['healthy_s']:.4f} "
+            f"s after its create, drained {wire['drained_s']:.4f} s after "
+            f"its delete; admission round trips {wire['round_trips']}; the "
+            f"step {wire['wire_s']:.3f} s")
         acc = pod["accelerator"]
         card = {"catalog": acc.name, "hbm_gib_per_chip": acc.hbm_gib_per_chip}
         if DEVICE == "cuda":
@@ -6033,8 +6303,10 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
             f"{len(pod['env'])} env entries; the controller loop took it "
             f"from the Notebook's create to Healthy in "
             f"{pod['render_s']:.4f} s")
+        t0 = time.monotonic()
         child = _run_resume_child(corpus, pod, cfg_name,
                                   on_saved=lambda: cull_pod(pod["loop"]))
+        child_s = time.monotonic() - t0
         init, saved = _check_child(child, n)
         check(child["exit_s"] < pod["termination_grace_s"],
               f"SIGTERM to exit {child['exit_s']:.3f} s, over the pod's "
@@ -6192,7 +6464,11 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
                      "host_s": pod["render_s"] + culled["host_s"]
                      + preempted["resume_s"] + preempted["host_s"]
                      + delete_s},
+            "wire": wire,
         }
+        numbers["split_s"] = {"loop": numbers["loop"]["host_s"],
+                              "wire": wire["wire_s"], "child": child_s,
+                              "restore": preempted["restore_s"]}
         log(f"  child: step walls "
             f"{[round(x, 4) for x in numbers['child_step_s']]} s, save() "
             f"(the host copy) {[round(x, 4) for x in numbers['snapshot_s']]}"
@@ -6225,7 +6501,10 @@ def resume_phase(cfg_name: str = RESUME_MODEL) -> dict:
             f"resume_start_batch {report.start_batch}; the resumed step's "
             f"loss {float(loss):.6f} in {step_s:.3f} s, launches {launched}")
         numbers["phase_s"] = time.monotonic() - t_phase
-        log(f"  phase 12: {numbers['phase_s']:.2f} s")
+        split = numbers["split_s"]
+        log(f"  phase 12: {numbers['phase_s']:.2f} s (loop "
+            f"{split['loop']:.3f} s, wire {split['wire']:.3f} s, child "
+            f"{split['child']:.3f} s, restore {split['restore']:.3f} s)")
         del state, params
         return numbers
     finally:

@@ -117,6 +117,19 @@ def _reserved_ports() -> dict:
 RESERVED_POD_PORTS = _reserved_ports()
 
 
+def profiling_port_error(value) -> Optional[str]:
+    """Why a port annotation's ``value`` is denied at admission, or None:
+    outside 1024..65535, or one of ``RESERVED_POD_PORTS``. The reserved
+    ports gate admission only; ``parse_profiling_port`` keeps reading a
+    value admitted before."""
+    port = parse_profiling_port(value)
+    if port is None:
+        return f"{value!r} is not a port in 1024..65535"
+    if port in RESERVED_POD_PORTS:
+        return f"port {port} is already used in-pod by {RESERVED_POD_PORTS[port]}"
+    return None
+
+
 def parse_profiling_port(value) -> Optional[int]:
     """The one parser for a port annotation or env value: a port in
     1024..65535, else None. ``int()`` rather than ``isdigit()``: Unicode

@@ -15,9 +15,13 @@ The counterpart of ``kubeflow_tpu/webhook/tpu_env.py``'s
   rendezvous and the host count, on several hosts only.
 
 ``TPU_RUNTIME_VERSION`` is never written (it names a libtpu); a stale one
-is removed. The admission server, image resolution, mounts, the auth
-sidecar, MLflow and the cluster proxy do not depend on the device, and
-stay with the JAX package's webhook.
+is removed. ``mutating.NotebookMutatingWebhook`` runs these steps among
+the rest of the admission pipeline (image resolution, the mounts, the
+auth sidecar, MLflow, the cluster proxy and update blocking), and
+``server.py`` serves it over AdmissionReview. ``mutate_gpu_notebook``
+is the device steps alone, for a caller with no validating webhook
+behind it: it raises on a spec that does not resolve, where the
+webhook skips it and leaves the denial to ``validating.py``.
 """
 
 from __future__ import annotations
@@ -141,15 +145,15 @@ def mutate_gpu_notebook(obj: dict, cluster_domain: str = "cluster.local"
         inject_gpu_env(nb, topo, cluster_domain)
         nb.annotations[ann.TPU_RESOLVED_TOPOLOGY] = (
             f"{topo.accelerator_type}/{topo.topology_str}")
-    _project_quant_env(nb)
-    _project_port_env(nb, ann.TPU_PROFILING_PORT, ann.PROFILING_ENV_NAME)
-    _project_port_env(nb, ann.TPU_SERVING_PORT, ann.SERVING_ENV_NAME)
+    project_quant_env(nb)
+    project_port_env(nb, ann.TPU_PROFILING_PORT, ann.PROFILING_ENV_NAME)
+    project_port_env(nb, ann.TPU_SERVING_PORT, ann.SERVING_ENV_NAME)
     if gpu is not None:
-        _project_checkpoint_env(nb)
+        project_checkpoint_env(nb)
     return obj
 
 
-def _project_quant_env(nb: Notebook) -> None:
+def project_quant_env(nb: Notebook) -> None:
     """The quantization annotation into the serving env; "bf16", absence
     and unknown values all leave it unset."""
     container = nb.primary_container()
@@ -162,7 +166,7 @@ def _project_quant_env(nb: Notebook) -> None:
     upsert_env(container, [{"name": ann.QUANT_ENV_NAME, "value": value}])
 
 
-def _project_port_env(nb: Notebook, annotation: str, env_name: str) -> None:
+def project_port_env(nb: Notebook, annotation: str, env_name: str) -> None:
     """A port annotation into its env; an invalid one leaves it unset."""
     container = nb.primary_container()
     if container is None:
@@ -174,7 +178,7 @@ def _project_port_env(nb: Notebook, annotation: str, env_name: str) -> None:
     upsert_env(container, [{"name": env_name, "value": str(port)}])
 
 
-def _project_checkpoint_env(nb: Notebook) -> None:
+def project_checkpoint_env(nb: Notebook) -> None:
     """The checkpoint directory (the annotation, else the default) always;
     the grace budget, when valid, into the env and into
     terminationGracePeriodSeconds (budget plus the flush margin)."""

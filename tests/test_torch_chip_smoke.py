@@ -53,6 +53,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import threading
 import time
 from pathlib import Path
 
@@ -1789,6 +1790,88 @@ def test_resume_pod_refuses_another_pod(smoke, monkeypatch, gpu, match):
     monkeypatch.setitem(smoke.RESUME_POD, "gpu", gpu)
     with pytest.raises((AssertionError, ValueError), match=match):
         smoke.resume_pod("/ckpt")
+
+
+def test_resume_pod_comes_from_the_two_managers(smoke):
+    """Phase 12's loop is the platform and notebook managers' bundles
+    over one cluster and one clock: the cluster's only admission is the
+    platform bundle's webhooks, the notebook bundle carries the culler
+    and the pre-puller from its env, and what ``build`` takes no
+    parameter for is attached after it (the migration hook, then the
+    kubelet and the pod runner, last)."""
+    from kubeflow_tpu_torch.cmd import notebook_manager, platform_manager
+
+    pod = smoke.resume_pod("/ckpt")
+    loop = pod["loop"]
+    try:
+        c, platform, notebooks = (loop["cluster"], loop["platform"],
+                                  loop["notebooks"])
+        assert isinstance(platform, platform_manager.PlatformBundle)
+        assert isinstance(notebooks, notebook_manager.ManagerBundle)
+        assert loop["manager"].bundles == (platform, notebooks)
+        assert platform.manager.clock is notebooks.manager.clock is (
+            loop["clock"])
+        assert [h.fn for h in c._mutating["Notebook"]] == [
+            platform.mutating_webhook.handle]
+        assert [h.fn for h in c._validating["Notebook"]] == [
+            platform.validating_webhook.handle]
+        culler = notebooks.culling_reconciler
+        assert loop["culler"] is culler and culler.config.dev_mode
+        assert culler.config.cull_idle_time_min == smoke.RESUME_IDLE_MIN
+        assert notebooks.prepull_reconciler.enabled
+        assert notebooks.preemption_reconciler.migration_trigger is not None
+        names = [r.name for r in notebooks.manager._registrations]
+        assert names[-2:] == ["FakeKubelet", "FakePodRunner"], names
+        assert loop["tls_changes"] is platform.restart_requested
+        nb = c.get("Notebook", "resume", "smoke")
+        assert smoke.ann_mod.STOP not in nb["metadata"]["annotations"]
+        assert nb["metadata"]["annotations"][
+            smoke.ann_mod.TPU_RESOLVED_TOPOLOGY] == "h100-80gb-1/1"
+        assert [e for e in c.list("Event", "smoke")
+                if e["reason"] == "WaitingForPullSecret"] == []
+    finally:
+        loop["stub"].stop()
+
+
+def test_resume_pod_fails_when_the_lock_is_never_released(smoke,
+                                                           monkeypatch):
+    """Without an image-pull secret on the pod's ServiceAccount the
+    platform reconciler keeps the lock, and the phase says so."""
+    monkeypatch.setattr(smoke, "RESUME_PULL_SECRETS", [])
+    with pytest.raises(AssertionError, match="did not release the lock"):
+        smoke.resume_pod("/ckpt")
+
+
+def test_wire_pod_rehearsed_on_the_cpu(smoke):
+    """Phase 12 (b): the same Notebook over the port's EnvtestServer, its
+    managers' serve loops and the plain WebhookServer becomes a Running
+    pod with the in-process pod's env, then drains; its serve loops,
+    watches and apiserver stop."""
+    pod = smoke.resume_pod("/ckpt")
+    pod["loop"]["stub"].stop()
+    before = set(threading.enumerate())
+    got = smoke.wire_pod(pod["env"], "/ckpt")
+    assert 0 < got["healthy_s"] < smoke.WIRE_TIMEOUT_S
+    assert got["drained_s"] > 0 and got["wire_s"] > got["healthy_s"]
+    trips = got["round_trips"]
+    assert trips["/mutate-notebook-v1"] >= 2 and trips[
+        "/validate-notebook-v1"] >= 2, trips
+    def left():
+        return [t.name for t in set(threading.enumerate()) - before
+                if t.name.startswith(("watch-", "envtest-"))]
+
+    deadline = time.monotonic() + 10
+    while left() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert not left(), left()
+
+
+def test_wire_pod_fails_on_another_env(smoke):
+    pod = smoke.resume_pod("/ckpt")
+    pod["loop"]["stub"].stop()
+    env = dict(pod["env"], TPU_TOPOLOGY="2")
+    with pytest.raises(AssertionError, match="differs from the in-process"):
+        smoke.wire_pod(env, "/ckpt")
 
 
 def test_cull_pod_culls_and_scales_the_notebook_to_zero(smoke):

@@ -309,3 +309,59 @@ def test_the_platform_recovery_and_prepull_modules_load_no_jax():
                           capture_output=True, text=True, timeout=120,
                           cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
+
+
+ADMISSION_AND_MANAGERS = (
+    "webhook/diff.py", "webhook/mounts.py", "webhook/validating.py",
+    "webhook/mutating.py", "webhook/server.py", "k8s/cache.py",
+    "k8s/health.py", "k8s/leader.py", "k8s/serve.py", "k8s/rest.py",
+    "k8s/real.py", "k8s/envtest.py", "cmd/platform_manager.py",
+    "cmd/notebook_manager.py")
+
+
+def test_the_admission_and_manager_modules_load_no_jax():
+    """The admission webhook (``webhook/``), the managers' cluster layer
+    (``k8s/``) and the two managers (``cmd/``) are in the scan above, and
+    a process that builds both managers' bundles over the port's
+    ``EnvtestServer`` through a ``RealClient``, admits a Notebook through
+    the ``WebhookServer`` and serves a probe loads nothing of JAX or the
+    JAX package."""
+    scanned = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for rel in ADMISSION_AND_MANAGERS:
+        assert f"kubeflow_tpu_torch/{rel}" in scanned, rel
+    code = (
+        "import sys, json, urllib.request\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "from kubeflow_tpu_torch import k8s\n"
+        "from kubeflow_tpu_torch.cmd import notebook_manager, "
+        "platform_manager\n"
+        "from kubeflow_tpu_torch.k8s.health import HealthServer\n"
+        "from kubeflow_tpu_torch.webhook.server import WebhookServer, "
+        "MUTATE_PATH\n"
+        "srv = k8s.EnvtestServer().start()\n"
+        "c = k8s.RealClient(srv.client_config())\n"
+        "nb = notebook_manager.build(c, env={}, clock=k8s.RealClock())\n"
+        "pb = platform_manager.build(c, env={}, argv=["
+        "'--kube-rbac-proxy-image', 'p'], clock=k8s.RealClock())\n"
+        "hook = WebhookServer(pb.mutating_webhook.handle, "
+        "pb.validating_webhook.handle); hook.start()\n"
+        "review = {'request': {'uid': 'u', 'operation': 'CREATE', "
+        "'object': {'kind': 'Notebook', 'metadata': {'name': 'n', "
+        "'namespace': 'ns'}, 'spec': {'gpu': {'accelerator': 'h100', "
+        "'topology': '1'}, 'template': {'spec': {'containers': [{'name': "
+        "'n'}]}}}}}}\n"
+        "req = urllib.request.Request(f'http://127.0.0.1:{hook.port}"
+        "{MUTATE_PATH}', data=json.dumps(review).encode())\n"
+        "assert json.loads(urllib.request.urlopen(req).read())"
+        "['response']['allowed']\n"
+        "probe = HealthServer(nb.health); probe.start()\n"
+        "urllib.request.urlopen(f'http://127.0.0.1:{probe.port}/healthz')\n"
+        "probe.stop(); hook.stop(); c.stop(); srv.stop()\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{NOT_AT_IMPORT!r}]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr

@@ -8,12 +8,14 @@ side, ``h100`` 32 (4 hosts of 8 cards) on the port's. It registers, as
 ``make_env`` does and in its order, a token controller that mints the
 ServiceAccounts' pull secrets, the ``NotebookReconciler``, the
 ``SlicePoolReconciler``, the ``SliceHealthReconciler``, the
-``PlatformReconciler`` where asked, then the ``FakeKubelet``. Where the
-platform is asked for, each side's Notebook admission hook does the two
-steps of JAX's mutating webhook that this slice ports: the
+``PlatformReconciler`` where asked, then the ``FakeKubelet``. With
+``webhooks``, each side's admission is its package's own
+``NotebookMutatingWebhook`` (with ``webhook_config``) and
+``NotebookValidatingWebhook``, as ``make_env(webhooks=True)`` registers
+them. Without them, where the platform is asked for, each side's
+Notebook admission hook does two steps of the mutating webhook: the
 reconciliation lock on create, and the kube-rbac-proxy sidecar injected
-or removed by ``auth_sidecar`` (the rest of the webhook, the CA bundle's
-mount among it, is ROADMAP item 19).
+or removed by ``auth_sidecar``.
 
 ``compare`` holds the port's cluster to the JAX one after
 ``swap_cluster``, with the extra replacements this slice states
@@ -42,6 +44,8 @@ from kubeflow_tpu.k8s import manager as JM
 from kubeflow_tpu.metrics import metrics as JMm
 from kubeflow_tpu.tpu import topology as JT
 from kubeflow_tpu.webhook import auth_sidecar as JAs
+from kubeflow_tpu.webhook import mutating as JMw
+from kubeflow_tpu.webhook import validating as JVw
 from kubeflow_tpu_torch.api import slicepool as PSp
 from kubeflow_tpu_torch.api.notebook import GPUSpec
 from kubeflow_tpu_torch.api.notebook import Notebook as PNotebook
@@ -57,6 +61,8 @@ from kubeflow_tpu_torch.k8s import fixtures as PX
 from kubeflow_tpu_torch.k8s import manager as PM
 from kubeflow_tpu_torch.metrics import metrics as PMm
 from kubeflow_tpu_torch.webhook import auth_sidecar as PAs
+from kubeflow_tpu_torch.webhook import mutating as PMw
+from kubeflow_tpu_torch.webhook import validating as PVw
 from tests.test_torch_controller_loop import _samples
 from tests.torch_gpu_swap import swap_cluster
 
@@ -104,9 +110,10 @@ class TokenController:
 def make_side(jax: bool, node_hosts: int = 4, platform: bool = False,
               platform_config: dict = None, recovery_config: dict = None,
               sa_pull_secrets: bool = True, slice_health: bool = True,
-              migration_trigger=None):
-    """One side's environment; ``platform_config`` and
-    ``recovery_config`` are keyword dicts of the configs."""
+              migration_trigger=None, webhooks: bool = False,
+              webhook_config: dict = None):
+    """One side's environment; ``platform_config``, ``recovery_config``
+    and ``webhook_config`` are keyword dicts of the configs."""
     m = types.SimpleNamespace(jax=jax, key="tpu" if jax else "gpu")
     m.F, m.M, m.X, m.Mm, m.C, m.S, m.Pr, m.Pl, m.Pp, m.E, m.Sp = (
         (JF, JM, JX, JMm, JC, JS, JPr, JPl, JPp, JE, JSp) if jax else
@@ -140,11 +147,18 @@ def make_side(jax: bool, node_hosts: int = 4, platform: bool = False,
             config=m.Pr.RecoveryConfig(**(recovery_config or {})),
             migration_trigger=migration_trigger).register(m.mgr)
     if platform:
-        _admission(m)
+        if not webhooks:
+            _admission(m)
         m.Pl.PlatformReconciler(
             m.c, m.Pl.PlatformConfig(**(platform_config or {}))).register(
             m.mgr)
     m.kubelet.register(m.mgr)
+    if webhooks:
+        mw, vw = (JMw, JVw) if jax else (PMw, PVw)
+        m.webhook = mw.NotebookMutatingWebhook(
+            m.c, mw.WebhookConfig(**(webhook_config or {})))
+        m.webhook.register(m.c)
+        vw.NotebookValidatingWebhook(m.c).register(m.c)
     return m
 
 
@@ -165,16 +179,18 @@ def _admission(m) -> None:
 
 
 def notebook(m, name: str = "nb", device=True,
-             image: str = "notebook:latest", annotations: dict = None
-             ) -> dict:
+             image: str = "notebook:latest", annotations: dict = None,
+             labels: dict = None, shape=(JSHAPE, PSHAPE)) -> dict:
     """``tests/harness.tpu_notebook`` (``device``) or ``cpu_notebook`` in
-    namespace "ns", with ``spec.gpu`` on the port's side."""
+    namespace "ns", with ``spec.gpu`` on the port's side; ``shape`` is
+    the (JAX, port) pair of (accelerator, topology)."""
     obj = new_notebook(name, "ns", image=image,
-                       tpu=TPUSpec(*JSHAPE) if device else None,
-                       annotations=dict(annotations or {}))
+                       tpu=TPUSpec(*shape[0]) if device else None,
+                       annotations=dict(annotations or {}),
+                       labels=dict(labels or {}))
     if device and not m.jax:
         del obj["spec"]["tpu"]
-        obj["spec"]["gpu"] = GPUSpec(*PSHAPE).to_dict()
+        obj["spec"]["gpu"] = GPUSpec(*shape[1]).to_dict()
     return obj
 
 

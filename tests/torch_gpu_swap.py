@@ -32,10 +32,17 @@ loop drove:
   the port's;
 - the slice-health reconciler's interruption event: "in-notebook JAX
   state is gone" becomes "in-notebook PyTorch state is gone" (``TEXTS``);
+- the admission webhooks' texts: "spec.tpu" becomes "spec.gpu", and a
+  reserved port's owner is the port's name for it ("the torch.distributed
+  rendezvous", "the multislice coordinator") (``TEXTS``);
 - the pre-pull pods: each is named ``prepull-<node>-<image-set digest>``,
   so its name follows its node's, as its ``spec.nodeName`` and its node
   annotation do; the pre-puller selects GPU nodes by the GPU node label,
   where JAX's selects TPU nodes by ``gke-tpu-accelerator``.
+
+``swap_text`` applies ``TEXTS`` to one string, a webhook's denial, and
+puts the port's ``GPUSpec`` repr where the JAX one's ``TPUSpec`` repr
+stands (the validating webhook names the old and new spec).
 """
 
 from __future__ import annotations
@@ -49,7 +56,11 @@ SWAPPED_ENV = ("TPU_ACCELERATOR_TYPE", "TPU_TOPOLOGY",
                "TPU_CHIPS_PER_HOST_BOUNDS", "TPU_HOST_BOUNDS")
 # Texts inside a longer string: (JAX's, the port's).
 TEXTS = (("in-notebook JAX state is gone",
-          "in-notebook PyTorch state is gone"),)
+          "in-notebook PyTorch state is gone"),
+         ("spec.tpu", "spec.gpu"),
+         ("the JAX distributed coordinator", "the torch.distributed rendezvous"),
+         ("the multislice (megascale) coordinator",
+          "the multislice coordinator"))
 
 
 def swap(tree, jtopo, ptopo):
@@ -91,6 +102,16 @@ def swap(tree, jtopo, ptopo):
         return out
 
     return walk(copy.deepcopy(tree))
+
+
+def swap_text(text: str, jspec=None, pspec=None) -> str:
+    """A JAX text with ``TEXTS`` replaced, and ``repr(jspec)`` (a
+    ``TPUSpec``) replaced by ``repr(pspec)`` (a ``GPUSpec``)."""
+    if jspec is not None:
+        text = text.replace(repr(jspec), repr(pspec))
+    for old, new in TEXTS:
+        text = text.replace(old, new)
+    return text
 
 
 def event_name(event: dict) -> str:
